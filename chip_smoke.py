@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases, one line each, in order; any failure raises and the exit code is
-not 0:
+Phases, one line each (with its seconds), in order; any failure raises and
+the exit code is not 0:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the four kernels from `embiggen_tpu_torch/csrc/` with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the slice gives it, with both times: K3 and K4 on the same
+  2. build of the kernels from `embiggen_tpu_torch/csrc/` with nvcc;
+  3. K1-K4 against their plain PyTorch versions on the card, at the shapes
+     the S1 slice gives them, with both times: K3 and K4 on the same
      inputs (K3 rtol 1e-4 / atol 1e-5: sums in another order; K4 atol 1e-5:
      atomics add in no fixed order); K1 and K2, which are samplers, by arc
      validity and chi-square tests (fail at p < 1e-3): on small weighted
@@ -17,12 +17,36 @@ not 0:
      and their plain versions, with draws binned by node degree and by
      blocks of node ids; K2 also over the slice graph's 20M arc ids (bins
      and the count of repeated arcs). Every sampler test uses fixed seeds;
-  4. three SkipGram steps on injected batches, kernel path against the
-     plain path on the CPU; then the slice: `embed_graph` of Node2Vec
-     SkipGram on erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5,
-     K=10, batch 32768, 2 epochs, with every kernel's launch count above 0;
-  5. with `--profile` only: torch.profiler over steady steps of the slice,
-     one line per kernel name with its device ms per step.
+  4. K5-K7, P1 and P2 against their plain versions at the shapes of the
+     link-prediction slice and the probe: K5 exactly on 2^20 queries over
+     the 20M-arc graph, half of them arcs; K6 (2^20 slots) by its exact
+     label layout, positives uniform over arc ids, negative endpoints
+     degree-proportional (against the exact distribution and the plain
+     version), no more arcs or self-loops among negatives than two redraws
+     leave; K7 forward for the three combiners and its backward through
+     autograd (rtol 1e-5 / atol 1e-5: sums in another order); P1 and P2
+     (rtol 1e-5 / atol 1e-3: sums of 256 and 8192 rows in another order);
+  5. S1: three SkipGram steps on injected batches, kernel path against the
+     plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
+     erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
+     32768, 2 epochs, with K1-K4 launched;
+  6. S3: three GCN Adam steps on injected batches, card against CPU from
+     the same parameters; then the bench configuration: GCNEdgePrediction
+     (units 128-128, Symmetric Normalized Laplacian, batch 2^20) for 2
+     epochs on the same graph with seeded [1M, 128] features, and
+     predict_proba on its 20M arcs, with K6 and K7 launched;
+  7. S2: the harness configuration: PerceptronEdgePrediction (Degree +
+     CosineSimilarity, 15 epochs) on phase 5's embeddings, fitted and
+     scoring the 20M arcs, with K5 launched (the negative graph's
+     membership test);
+  8. the probe entry point (`embiggen_tpu_torch.scripts.spmm_probe.run`),
+     with P1 and P2 launched, beside K7's gathered rows/s;
+  9. quality on the card: the reference's gate fixture (random geometric
+     graph, connected holdout 3), SkipGram embeddings, the Perceptron and
+     the GCN fitted with model seeds 0-7 and scored by `_evaluate`; mean
+     test AUPRC at least the reference's less 0.03, and 0.80;
+ 10. with `--profile` only: torch.profiler over steady steps of S1 and of
+     the GCN, one line per kernel name with its device ms per step.
 Then a JSON line of the kernels (with the build seconds), the card's line
 again, and last `{"ok": true, "device": {...}}`.
 """
@@ -40,8 +64,27 @@ N_NODES, N_EDGES = 1_000_000, 10_000_000
 DIM, WALK, WINDOW, NEGS, BATCH = 128, 64, 5, 10, 32768
 P_MIN = 1e-3
 ID_BLOCK = 1000   # node ids per bin in the slice-shape sampler tests
-ARC_BINS = 1000   # bins of arc ids in the slice-shape K2 test
+ARC_BINS = 1000   # bins of arc ids in the slice-shape K2 and K6 tests
 PROFILE_STEPS = 10
+GCN_BATCH = 1 << 20
+K7_TOL = dict(rtol=1e-5, atol=1e-5)
+PROBE_TOL = dict(rtol=1e-5, atol=1e-3)
+# The reference's gate fixture and settings (tests/test_quality_gates.py),
+# with the features the port has, and the reference's mean test AUPRC over
+# the model seeds GATE_SEEDS, measured with embiggen_tpu
+# (tests/test_torch_link_prediction.py says how).
+GATE_SKIPGRAM = dict(embedding_size=32, epochs=100, batch_size=256,
+                     walk_length=16, window_size=2, number_of_negative_samples=5,
+                     learning_rate_decay=0.99, random_state=0,
+                     early_stopping_patience=10**6,
+                     learning_rate_plateau_patience=10**6)
+GATE_PERCEPTRON = dict(edge_embeddings=["Hadamard"], edge_features=["Degree"],
+                       number_of_epochs=100, random_state=0)
+GATE_GCN = dict(units=[32], tower_units=[16], head_units=[16], epochs=50,
+                use_node_embedding=True, node_embedding_size=32,
+                dropout_rate=0.2, batch_size=1024, random_state=0)
+GATE_REFERENCE_AUPRC = {"perceptron": 0.9626831024263514, "gcn": 0.9511797508504303}
+GATE_SEEDS = range(8)
 
 
 def card_line() -> str:
@@ -155,6 +198,26 @@ def arc_keys(graph, device):
             + torch.from_numpy(graph.col_idx.astype(np.int64))).to(device)
 
 
+def node_bins(tg, per_node):
+    """Per-node counts summed by node degree and by blocks of ID_BLOCK ids."""
+    per_node = per_node.double()
+    block = torch.arange(tg.n_nodes, device=per_node.device) // ID_BLOCK
+    return {"degree": torch.bincount(tg.degrees.long(), weights=per_node).cpu().numpy(),
+            "id block": torch.bincount(block, weights=per_node).cpu().numpy()}
+
+
+def node_counts(tg, nodes):
+    return node_bins(tg, torch.bincount(nodes.reshape(-1).long(), minlength=tg.n_nodes))
+
+
+def binned_tests(p, name, observed, against, exact):
+    """Chi-square p-values of each binning of `observed` against the
+    expected counts (`exact`) or another sample, into the dict `p`."""
+    for by in observed:
+        p[f"{name} by {by}"] = (exact_p if exact else two_sample_p)(
+            observed[by], against[by])
+
+
 def sampler_checks(erdos_renyi, first_order_walks, nce_negatives, dev):
     """K1 and K2 on small graphs against the exact distributions. Returns
     (K1 max |empirical - exact| arc probability, K2 max |empirical - exact|
@@ -206,22 +269,17 @@ def slice_sampler_checks(graph, tg, first_order_walks, first_order_walks_plain,
     test."""
     dev, n = tg.device, tg.n_nodes
     deg = tg.degrees.long()
-    block = torch.arange(n, device=dev) // ID_BLOCK
 
     def binned(per_node):
-        per_node = per_node.double()
-        return {"degree": torch.bincount(deg, weights=per_node).cpu().numpy(),
-                "id block": torch.bincount(block, weights=per_node).cpu().numpy()}
+        return node_bins(tg, per_node)
 
     def counts(nodes):
-        return binned(torch.bincount(nodes.reshape(-1).long(), minlength=n))
+        return node_counts(tg, nodes)
 
     p = {}
 
     def test(name, observed, against, exact):
-        for by in observed:
-            p[f"{name} by {by}"] = (exact_p if exact else two_sample_p)(
-                observed[by], against[by])
+        binned_tests(p, name, observed, against, exact)
 
     # K2: every draw is a node with arcs; degree-proportional.
     draws = nce_negatives(tg, torch.Generator().manual_seed(11), (BATCH, NEGS))
@@ -277,28 +335,25 @@ def slice_sampler_checks(graph, tg, first_order_walks, first_order_walks_plain,
     return p
 
 
-def profile_steps(model, graph, n_steps):
-    """Device time per kernel name over `n_steps` steady SkipGram steps of
-    the slice, from torch.profiler. Returns ({name: (ms per step, launches
-    per step)}, ms per step on CUDA events)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(step, n_steps):
+    """Device time per kernel name over `n_steps` calls of `step` after 3
+    warm-up calls, from torch.profiler. Returns ({name: (ms per step,
+    launches per step)}, ms per step on CUDA events)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    tg = model._device_graph(graph)
-    gen = torch.Generator().manual_seed(0)
-    params = model._init_params(graph, gen)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with torch.no_grad():
-        for _ in range(3):
-            model._step(tg, params, gen, 0.025)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(n_steps):
-                model._step(tg, params, gen, 0.025)
-            end.record()
-            end.synchronize()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n_steps):
+            step()
+        end.record()
+        end.synchronize()
     rows = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -310,10 +365,284 @@ def profile_steps(model, graph, n_steps):
             start.elapsed_time(end) / n_steps)
 
 
+def skipgram_step(model, graph):
+    """One steady SkipGram step of the S1 slice, as a closure."""
+    tg = model._device_graph(graph)
+    gen = torch.Generator().manual_seed(0)
+    params = model._init_params(graph, gen)
+
+    def step():
+        with torch.no_grad():
+            model._step(tg, params, gen, 0.025)
+    return step
+
+
+def gcn_step(model, graph):
+    """One steady Adam step of the fitted bench GCN (minibatch, forward,
+    backward, update), as a closure."""
+    from embiggen_tpu_torch.models.gcn.core import map_params, param_leaves
+
+    params = map_params(lambda t: t.clone().requires_grad_(True), model._params)
+    optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
+    tg = graph.device(model.device, with_sources=True)
+    gen = torch.Generator().manual_seed(1)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        model._loss(params, model._csr_kernels, tg, None, gen, None).backward()
+        optimizer.step()
+    return step
+
+
+def print_profile(name, card, rows, step_ms):
+    busy = sum(ms for ms, _ in rows.values())
+    print(f"phase 10 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+          f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
+          f"per step, device busy share {busy / step_ms:.3f}", flush=True)
+    for kernel, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
+        print(f"  profile {name} {ms:9.4f} ms/step {ms / busy:7.2%} "
+              f"{count:5.2f} launches/step  {kernel[:100]}", flush=True)
+
+
+def edge_kernel_checks(tg):
+    """K5 and K6 on the 20M-arc graph at the slice shapes. Returns (their
+    kernels entries, the K6 p-values)."""
+    from scipy.stats import poisson
+
+    from embiggen_tpu_torch.ops.negatives import (
+        edge_prediction_mini_batch, edge_prediction_mini_batch_plain,
+    )
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain
+
+    dev, n, n_arcs = tg.device, tg.n_nodes, tg.n_arcs
+    rng = np.random.default_rng(21)
+    q = 1 << 20
+    arc = torch.from_numpy(rng.integers(0, n_arcs, q // 2)).to(dev)
+    other = torch.from_numpy(rng.integers(0, n, (2, q - q // 2), dtype=np.int32)).to(dev)
+    src = torch.cat([tg.sources[arc], other[0]])
+    dst = torch.cat([tg.col_idx[arc], other[1]])
+    ids, found = csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst)
+    want_ids, want_found = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst)
+    if not (torch.equal(ids, want_ids) and torch.equal(found, want_found)):
+        raise AssertionError("K5 and its plain version differ")
+    if not (bool(found[:q // 2].all()) and torch.equal(ids[:q // 2], arc.int())):
+        raise AssertionError("K5 missed an arc")
+    entries = {"csr_edge_ids": dict(
+        source="embiggen_tpu_torch/csrc/edges.cu",
+        replaces="embiggen_tpu/ops/walks.py:66",
+        max_abs_err=float((ids - want_ids).abs().max()),
+        ms=time_ms(lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst), 20),
+        plain_ms=time_ms(
+            lambda: csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst), 3),
+    )}
+
+    gen, cuda_gen = torch.Generator().manual_seed(22), torch.Generator(device=dev).manual_seed(23)
+    s, d, labels = edge_prediction_mini_batch(tg, gen, GCN_BATCH)
+    ps, pd, _ = edge_prediction_mini_batch_plain(tg, cuda_gen, GCN_BATCH)
+    n_neg = int(round(GCN_BATCH * 0.5))
+    n_pos = GCN_BATCH - n_neg
+    want_labels = torch.cat([torch.ones(n_pos, device=dev), torch.zeros(n_neg, device=dev)])
+    layout_err = float((labels - want_labels).abs().max())
+    if layout_err != 0.0:
+        raise AssertionError("K6 label layout differs")
+    p = {}
+    pos_ids, pos_found = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, s[:n_pos], d[:n_pos])
+    if not bool(pos_found.all()):
+        raise AssertionError("a K6 positive is not an arc")
+    edges = np.linspace(0, n_arcs, ARC_BINS + 1).astype(np.int64)
+    observed = torch.bincount(
+        torch.bucketize(pos_ids.long(), torch.from_numpy(edges[1:-1]).to(dev), right=True),
+        minlength=ARC_BINS).double().cpu().numpy()
+    p["K6 positives by arc-id bin"] = exact_p(observed, np.diff(edges) * (n_pos / n_arcs))
+    p["K6 positives repeats"] = repeats_p(pos_ids, n_arcs)
+    deg = tg.degrees.double()
+    for side, got, plain in (("sources", s, ps), ("destinations", d, pd)):
+        observed = node_counts(tg, got[n_pos:])
+        binned_tests(p, f"K6 negative {side} vs exact", observed,
+                     node_bins(tg, deg * (n_neg / n_arcs)), True)
+        binned_tests(p, f"K6 negative {side} vs plain", observed,
+                     node_counts(tg, plain[n_pos:]), False)
+    # A drawn pair is an arc or a self-loop with probability beta; after two
+    # redraws, beta^3 of the negatives stay so.
+    prob = deg / n_arcs
+    beta = float((prob ** 2).sum() + (prob[tg.sources.long()] * prob[tg.col_idx.long()]).sum())
+    _, neg_arcs = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, s[n_pos:], d[n_pos:])
+    bad = int((neg_arcs | (s[n_pos:] == d[n_pos:])).sum())
+    p["K6 negatives that are arcs or loops"] = float(poisson.sf(bad - 1, n_neg * beta ** 3))
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"K6 tests failed (p < {P_MIN}): {failed}")
+    entries["edge_prediction_mini_batch"] = dict(
+        source="embiggen_tpu_torch/csrc/edges.cu",
+        replaces="embiggen_tpu/ops/negatives.py:60", max_abs_err=layout_err,
+        ms=time_ms(lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH), 20),
+        plain_ms=time_ms(lambda: edge_prediction_mini_batch_plain(tg, cuda_gen, GCN_BATCH), 5),
+    )
+    return entries, p
+
+
+def spmm_checks(graph, dev):
+    """K7 over the slice graph's Symmetric Normalized Laplacian at D = 128:
+    forward for every combiner and backward through autograd, against the
+    plain version. Returns its kernels entry."""
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.ops.spmm import COMBINERS, csr_kernel, csr_spmm, csr_spmm_plain, spmm
+
+    t0 = time.perf_counter()
+    k = csr_kernel(*kernel_coo(graph, "Symmetric Normalized Laplacian"),
+                   graph.number_of_nodes, device=dev)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+    err = 0.0
+    for combiner in COMBINERS:
+        inv = k.inverse_denominator(combiner)
+        xg = x.clone().requires_grad_(True)
+        y = spmm(k, xg, combiner)
+        (dx,) = torch.autograd.grad(y, xg, g)
+        err = max(err, check_close(f"K7 forward {combiner}", y.detach(),
+                                   csr_spmm_plain(k, x, inv), **K7_TOL))
+        err = max(err, check_close(f"K7 backward {combiner}", dx,
+                                   csr_spmm_plain(k.transpose, g, None, inv), **K7_TOL))
+        del xg, y, dx
+    entry = dict(
+        source="embiggen_tpu_torch/csrc/spmm.cu",
+        replaces="embiggen_tpu/ops/spmm.py:337", max_abs_err=err,
+        ms=time_ms(lambda: csr_spmm(k, x), 20),
+        plain_ms=time_ms(lambda: csr_spmm_plain(k, x), 3),
+        backward_ms=time_ms(lambda: csr_spmm(k.transpose, g), 20),
+        backward_plain_ms=time_ms(lambda: csr_spmm_plain(k.transpose, g), 3),
+        layout_s=layout_s,
+    )
+    entry["gathered_rows_per_s"] = k.n_arcs / (entry["ms"] / 1e3)
+    return entry
+
+
+def probe_checks(dev):
+    """P1 and P2 against their plain versions at the probe's shapes.
+    Returns their kernels entries (with gathered rows/s and GB/s)."""
+    from embiggen_tpu_torch.ops.gather_probe import (
+        P1_TILE, P2_BLOCK, table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
+    )
+    from embiggen_tpu_torch.scripts.spmm_probe import E_SMALL, TABLE
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn((N_NODES, DIM), generator=gen, device=dev)
+    idx = torch.randint(0, N_NODES, (E_SMALL,), generator=gen, device=dev, dtype=torch.int32)
+    tbl = torch.randn((TABLE, DIM), generator=gen, device=dev)
+    idx_tbl = torch.randint(0, TABLE, (E_SMALL,), generator=gen, device=dev, dtype=torch.int32)
+    entries = {}
+    for name, fn, table, ix, tile, shape, replaces in (
+        ("tile_gather_sums", tile_gather_sums, x, idx, P1_TILE, (7812, DIM),
+         "scripts/spmm_probe.py:134"),
+        ("table_gather_sums", table_gather_sums, tbl, idx_tbl, P2_BLOCK, (244, DIM),
+         "scripts/spmm_probe.py:206"),
+    ):
+        got = fn(table, ix)
+        if tuple(got.shape) != shape:
+            raise AssertionError(f"{name} has shape {tuple(got.shape)}, expected {shape}")
+        err = check_close(name, got, tile_gather_sums_plain(table, ix, tile), **PROBE_TOL)
+        ms = time_ms(lambda: fn(table, ix), 20)
+        rows = shape[0] * tile
+        entries[name] = dict(
+            source="embiggen_tpu_torch/csrc/gather_probe.cu", replaces=replaces,
+            max_abs_err=err, ms=ms,
+            plain_ms=time_ms(lambda: tile_gather_sums_plain(table, ix, tile), 5),
+            rows_per_s=rows / (ms / 1e3), gbytes_per_s=rows * DIM * 4 / (ms / 1e3) / 1e9,
+        )
+    return entries
+
+
+def gcn_injected_steps(dev):
+    """Three Adam steps of a small GCN on injected batches, on `dev` and
+    on the CPU from the same initial parameters. Returns the largest
+    parameter difference."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, TrainLoop
+    from embiggen_tpu_torch.models.gcn.core import param_leaves
+
+    small = erdos_renyi(300, 1500, seed=5)
+    rng = np.random.default_rng(26)
+    feats = rng.standard_normal((300, 16), dtype=np.float32)
+    batches = [(rng.integers(0, 300, 512, dtype=np.int32),
+                rng.integers(0, 300, 512, dtype=np.int32),
+                (rng.random(512) < 0.5).astype(np.float32)) for _ in range(3)]
+    out = {}
+    for d in (dev, "cpu"):
+        model = GCNEdgePrediction(units=[16, 16], tower_units=[8], head_units=[8],
+                                  dropout_rate=0.0, random_state=0, device=d)
+        model._n_outputs = 1
+        params, kernels = model._build_common(small, small, [feats],
+                                              torch.Generator().manual_seed(0))
+        tg = small.device(d, with_sources=True)
+        feed = iter(batches)
+        TrainLoop(epochs=3, learning_rate=0.01, steps_per_epoch=1,
+                  early_stopping_patience=10**6).run(
+            params, lambda p: model._loss(
+                p, kernels, tg, tuple(torch.from_numpy(a).to(d) for a in next(feed)),
+                None, None))
+        out[str(d)] = param_leaves(params)
+    return max(check_close(f"GCN step parameter {i}", a.detach().cpu(), b.detach(), 1e-4, 1e-5)
+               for i, (a, b) in enumerate(zip(out[str(dev)], out["cpu"])))
+
+
+def quality_on_card(card, dev):
+    """The gate fixture on `dev`: per model, the test AUROC and AUPRC of
+    each seed of GATE_SEEDS. Raises unless the mean test AUPRC reaches the
+    reference's less 0.03, and 0.80."""
+    from embiggen_tpu_torch.graph import connected_holdout, random_geometric
+    from embiggen_tpu_torch.models.classifier import AbstractClassifierModel
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.embedders import SkipGram
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    train, test = connected_holdout(rgg, random_state=3)
+    feats = AbstractClassifierModel.fit_deferred_features(
+        [SkipGram(device=dev, **GATE_SKIPGRAM)], train)
+    got = {}
+    for name, make, features in (
+        ("perceptron", lambda: PerceptronEdgePrediction(device=dev, **GATE_PERCEPTRON), feats),
+        ("gcn", lambda: GCNEdgePrediction(device=dev, **GATE_GCN), None),
+    ):
+        got[name] = []
+        for seed in GATE_SEEDS:
+            model = make()
+            model.set_random_state(seed)
+            model.fit(train, support=train, node_features=features)
+            rows = {r["evaluation_mode"]: r for r in
+                    model._evaluate(rgg, train, test, support=train, random_state=3)}
+            got[name].append((rows["test"]["auroc"], rows["test"]["auprc"]))
+        mean = float(np.mean([p for _, p in got[name]]))
+        floor = max(0.80, GATE_REFERENCE_AUPRC[name] - 0.03)
+        if not mean >= floor:
+            raise AssertionError(f"{name} mean test AUPRC {mean} on {card} "
+                                 f"is below {floor}: {got[name]}")
+    return got
+
+
+# The kernels each path must launch; each path runs with the counts set to
+# 0 just before it and read just after.
+S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_grads", "mean_scatter")
+S2_KERNELS = ("csr_edge_ids",)
+S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
+PROBE_KERNELS = ("tile_gather_sums", "table_gather_sums")
+
+
+def check_launches(path, counts, names):
+    """The counts of `names` after a path's run; raises if one is 0."""
+    got = {name: counts[name] for name in names}
+    if min(got.values()) <= 0:
+        raise AssertionError(f"a kernel of the {path} path never launched: {got}")
+    return got
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile steady steps of the slice")
+                        help="also profile steady steps of S1 and of the GCN")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -328,6 +657,8 @@ def main() -> None:
 
     from embiggen_tpu_torch.graph import erdos_renyi
     from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, GCNEncoder
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.negatives import nce_negatives, nce_negatives_plain
     from embiggen_tpu_torch.ops.scatter import mean_scatter, mean_scatter_plain
@@ -336,6 +667,7 @@ def main() -> None:
     )
     from embiggen_tpu_torch.ops.walks import first_order_walks, first_order_walks_plain
     from embiggen_tpu_torch.pipelines import embed_graph
+    from embiggen_tpu_torch.scripts import spmm_probe
 
     # --------------------------------------------------------------- 2. build
     build_s = _build.build(force=True)
@@ -345,11 +677,12 @@ def main() -> None:
     print(f"phase 2 build: {build_s:.2f} s with nvcc for sm_90a | ptxas: "
           + "; ".join(regs), flush=True)
 
-    # ------------------------------------------------- 3. kernels vs plain
+    # ------------------------------------------------- 3. K1-K4 vs plain
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     graph = erdos_renyi(N_NODES, N_EDGES, seed=0)
-    tg = graph.device(dev)
+    tg = graph.device(dev, with_sources=True)
     graph_s = time.perf_counter() - t0
     kernels = {}
 
@@ -443,14 +776,37 @@ def main() -> None:
     del tables, bias, walks, negs, flat, negs_flat, g_rows, g_negs, g_b, g_nb
     del segs, counts, want_counts
     torch.cuda.empty_cache()
-    print("phase 3 kernels vs plain on " + card + " (ms per call, at the "
-          f"slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
+    print(f"phase 3 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
+          f"ms per call, at the slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f} plain "
               f"{v['plain_ms']:.3f}" for k, v in kernels.items())
           + " | sampler p-values at the slice shapes: " + "; ".join(
               f"{k} {v:.3g}" for k, v in slice_p.items()), flush=True)
 
-    # ------------------------------------------------------------- 4. slice
+    # ------------------------------------------ 4. K5-K7, P1, P2 vs plain
+    t_phase = time.perf_counter()
+    new, k6_p = edge_kernel_checks(tg)
+    new["spmm"] = spmm_checks(graph, dev)
+    torch.cuda.empty_cache()
+    new.update(probe_checks(dev))
+    torch.cuda.empty_cache()
+    kernels.update(new)
+    print(f"phase 4 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
+          "ms per call): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain "
+              f"{v['plain_ms']:.4f}" for k, v in new.items())
+          + f" | K7 backward ms {new['spmm']['backward_ms']:.4f} plain "
+          f"{new['spmm']['backward_plain_ms']:.4f}, CSR layout "
+          f"{new['spmm']['layout_s']:.2f} s, gathered rows/s "
+          f"{new['spmm']['gathered_rows_per_s']:.4g} | P1 rows/s "
+          f"{new['tile_gather_sums']['rows_per_s']:.4g} GB/s "
+          f"{new['tile_gather_sums']['gbytes_per_s']:.4g}; P2 rows/s "
+          f"{new['table_gather_sums']['rows_per_s']:.4g} GB/s "
+          f"{new['table_gather_sums']['gbytes_per_s']:.4g} | K6 p-values: "
+          + "; ".join(f"{k} {v:.3g}" for k, v in k6_p.items()), flush=True)
+
+    # ---------------------------------------------------------------- 5. S1
+    t_phase = time.perf_counter()
     SkipGram = get_model_from_library("Node2Vec SkipGram",
                                       task_name="Node Embedding")
     small = erdos_renyi(300, 1500, seed=5)
@@ -488,29 +844,117 @@ def main() -> None:
                                  "non-finite values")
     if len(model._epoch_losses) != 2 or not np.isfinite(model._epoch_losses).all():
         raise AssertionError(f"epoch losses {model._epoch_losses}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    path_launches = check_launches("S1", launches, S1_KERNELS)
     steps = max(1, N_NODES // model._run_batch_size)
     centres = steps * model._run_batch_size * (WALK - 2 * WINDOW)
-    print(f"phase 4 slice on {card}: 3 injected steps cuda vs cpu max err "
-          f"{step_err:.3g}; embed_graph {slice_s:.2f} s, {steps} steps/epoch "
-          f"of {model._run_batch_size} walks, s/epoch {model._epoch_seconds}, "
-          f"centres/s {[centres / s for s in model._epoch_seconds]}, "
-          f"losses {model._epoch_losses}, peak {peak} bytes, "
-          f"launches {launches}", flush=True)
+    print(f"phase 5 S1 on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected "
+          f"steps cuda vs cpu max err {step_err:.3g}; embed_graph {slice_s:.2f} s, "
+          f"{steps} steps/epoch of {model._run_batch_size} walks, s/epoch "
+          f"{model._epoch_seconds}, centres/s "
+          f"{[centres / s for s in model._epoch_seconds]}, losses "
+          f"{model._epoch_losses}, peak {peak} bytes, launches {path_launches}",
+          flush=True)
 
-    # --------------------------------------------------- 5. profile (option)
+    # ------------------------------------------------------- 6. S3: the GCN
+    t_phase = time.perf_counter()
+    gcn_step_err = gcn_injected_steps(dev)
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    gcn = GCNEdgePrediction(epochs=2, batch_size=GCN_BATCH, dropout_rate=0.0,
+                            early_stopping_patience=10**6, random_state=0,
+                            device="cuda")
+    t0 = time.perf_counter()
+    GCNEncoder(gcn._kernels, gcn._units).build_kernels(graph, dev)
+    torch.cuda.synchronize()
+    gcn_kernel_s = time.perf_counter() - t0   # the fit finds them cached
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    gcn.fit(graph, node_features=feats)
+    gcn_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gcn_proba = gcn.predict_proba(graph)
+    gcn_predict_s = time.perf_counter() - t0
+    gcn_launches = check_launches("S3", _build.launch_counts(), S3_KERNELS)
+    gcn_peak = torch.cuda.max_memory_allocated()
+    if len(gcn._history) != 2 or not np.isfinite(gcn._history).all():
+        raise AssertionError(f"GCN epoch losses {gcn._history}")
+    if gcn_proba.shape != (graph.number_of_directed_edges,) or not np.isfinite(gcn_proba).all():
+        raise AssertionError("GCN scores: wrong shape or non-finite values")
+    gcn_steps = gcn._steps_per_epoch
+    print(f"phase 6 S3 GCN on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected "
+          f"Adam steps cuda vs cpu max err {gcn_step_err:.3g}; bench config "
+          f"batch {gcn._run_batch_size}, {gcn_steps} steps/epoch, host kernel "
+          f"build {gcn_kernel_s:.2f} s, fit {gcn_fit_s:.2f} s, s/epoch "
+          f"{gcn._epoch_seconds}, step ms "
+          f"{[s / gcn_steps * 1e3 for s in gcn._epoch_seconds]}, edges/s "
+          f"{[gcn_steps * gcn._run_batch_size / s for s in gcn._epoch_seconds]}, "
+          f"losses {gcn._history}, peak {gcn_peak} bytes; predict_proba on "
+          f"{len(gcn_proba)} arcs {gcn_predict_s:.2f} s; launches {gcn_launches}",
+          flush=True)
+    del feats, gcn_proba
+
+    # ------------------------------------------------- 7. S2: the Perceptron
+    t_phase = time.perf_counter()
+    perceptron = PerceptronEdgePrediction(
+        edge_features=["Degree"], edge_embeddings=["CosineSimilarity"],
+        number_of_epochs=15, random_state=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    perceptron.fit(graph, node_features=result.node_embeddings[0])
+    perceptron_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perceptron_proba = perceptron.predict_proba(graph)
+    perceptron_predict_s = time.perf_counter() - t0
+    perceptron_launches = check_launches("S2", _build.launch_counts(), S2_KERNELS)
+    perceptron_peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(perceptron._last_loss):
+        raise AssertionError(f"Perceptron loss {perceptron._last_loss}")
+    if (perceptron_proba.shape != (graph.number_of_directed_edges,)
+            or not np.isfinite(perceptron_proba).all()):
+        raise AssertionError("Perceptron scores: wrong shape or non-finite values")
+    n_train = 2 * graph.number_of_directed_edges
+    print(f"phase 7 S2 Perceptron on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          f"fit {perceptron_fit_s:.2f} s (stages {perceptron._fit_seconds}; "
+          f"{n_train} examples, 15 epochs of "
+          f"{n_train // 4096} steps of 4096), last epoch loss "
+          f"{perceptron._last_loss:.6g}, predict_proba on {len(perceptron_proba)} "
+          f"arcs {perceptron_predict_s:.2f} s, peak {perceptron_peak} bytes; "
+          f"launches {perceptron_launches}", flush=True)
+    del perceptron_proba
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 8. probes
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    probes = spmm_probe.run(dev)
+    probe_launches = check_launches("probe", _build.launch_counts(), PROBE_KERNELS)
+    torch.cuda.empty_cache()
+    p1_rate = next(r["rows_per_s"] for r in probes if r["probe"] == "cuda_tile_gather")
+    k7_rate = kernels["spmm"]["gathered_rows_per_s"]
+    print(f"phase 8 probes on {card} ({time.perf_counter() - t_phase:.1f} s): " + "; ".join(
+        f"{r['probe']} rows/s {r['rows_per_s']:.4g} GB/s {r['gbytes_per_s']:.4g} "
+        f"ms {r['ms']:.4f}" for r in probes)
+        + f" | K7 gathered rows/s {k7_rate:.4g} = {k7_rate / p1_rate:.3f} of P1's; "
+        f"launches {probe_launches}", flush=True)
+
+    # ----------------------------------------------------------- 9. quality
+    t_phase = time.perf_counter()
+    quality = quality_on_card(card, dev)
+    print(f"phase 9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07) connected holdout 3, mean test AUROC / "
+          "AUPRC over seeds 0-7: " + "; ".join(
+              f"{k} {np.mean([a for a, _ in v]):.4f} / {np.mean([p for _, p in v]):.4f} "
+              f"(reference mean AUPRC {GATE_REFERENCE_AUPRC[k]:.4f}; per seed "
+              f"AUPRC {[round(p, 4) for _, p in v]})" for k, v in quality.items()),
+          flush=True)
+
+    # -------------------------------------------------- 10. profile (option)
     if args.profile:
-        rows, step_ms = profile_steps(model, graph, PROFILE_STEPS)
-        busy = sum(ms for ms, _ in rows.values())
-        print(f"phase 5 profile on {card}: {PROFILE_STEPS} steady steps, "
-              f"{step_ms:.3f} ms per step (CUDA events), kernels "
-              f"{busy:.3f} ms per step, device busy share {busy / step_ms:.3f}",
-              flush=True)
-        for name, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
-            print(f"  profile {ms:9.4f} ms/step {ms / busy:7.2%} "
-                  f"{count:5.2f} launches/step  {name[:100]}", flush=True)
+        print_profile("S1", card, *profile(skipgram_step(model, graph), PROFILE_STEPS))
+        print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
 
+    launches = {**path_launches, **gcn_launches, **perceptron_launches, **probe_launches}
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name], **v}
         for name, v in kernels.items()

@@ -30,3 +30,86 @@ def erdos_renyi(
         directed=False,
         name=name or f"ER(n={n_nodes},e={n_edges})",
     )
+
+
+def planted_partition_edges(
+    n_nodes: int,
+    n_edges: int,
+    n_communities: int = 10,
+    within_fraction: float = 0.9,
+    seed: int = 42,
+    name: Optional[str] = None,
+) -> Graph:
+    """Planted-partition graph sampled by edge count in O(E): a
+    `within_fraction` of the edges join two members of one community (chosen
+    with weight size²), the rest join uniform pairs from different
+    communities. Duplicate draws collapse, so the edge count is approximate.
+    The community labels (the reference's node types) are drawn but not
+    stored: node types come with ROADMAP A6."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, n_communities, size=n_nodes).astype(np.int32)
+    order = np.argsort(comm, kind="stable")
+    sizes = np.bincount(comm, minlength=n_communities).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    n_draw = int(n_edges * 1.3) + 64
+    within = rng.random(n_draw) < within_fraction
+    src = np.empty(n_draw, np.int64)
+    dst = np.empty(n_draw, np.int64)
+    n_w = int(within.sum())
+    p_c = sizes.astype(np.float64) ** 2
+    p_c /= p_c.sum()
+    c = rng.choice(n_communities, size=n_w, p=p_c)
+
+    def pick(cc):
+        return order[starts[cc] + (rng.random(len(cc)) * sizes[cc]).astype(np.int64)]
+
+    src[within] = pick(c)
+    dst[within] = pick(c)
+    n_b = n_draw - n_w
+    src[~within] = rng.integers(0, n_nodes, n_b)
+    dst[~within] = rng.integers(0, n_nodes, n_b)
+    ok = src != dst
+    ok &= within | (comm[src] != comm[dst])
+    src, dst = src[ok][:n_edges], dst[ok][:n_edges]
+    return Graph.from_edge_arrays(
+        src, dst, n_nodes=n_nodes, directed=False,
+        name=name or f"SBM(n={n_nodes},e={n_edges},k={n_communities})",
+    )
+
+
+def random_geometric(
+    n_nodes: int = 1000,
+    radius: float = 0.07,
+    seed: int = 42,
+    n_grid_types: int = 2,
+    name: Optional[str] = None,
+) -> Graph:
+    """Random geometric graph: points uniform in the unit square, an edge
+    between each pair closer than `radius`, and each isolated point joined
+    to its nearest neighbour. Distances are learnable from walks, so link
+    prediction on it has real headroom. The grid-cell labels the reference
+    stores as node types (`n_grid_types`² cells) come with ROADMAP A6."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n_nodes, 2))
+    src_l, dst_l = [], []
+    chunk = max(1, (1 << 24) // n_nodes)
+    for i0 in range(0, n_nodes, chunk):
+        d2 = ((pts[i0: i0 + chunk, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        ii, jj = np.nonzero(d2 < radius * radius)
+        ii = ii + i0
+        keep = ii < jj
+        src_l.append(ii[keep])
+        dst_l.append(jj[keep])
+    src = np.concatenate(src_l)
+    dst = np.concatenate(dst_l)
+    deg = np.bincount(np.concatenate([src, dst]), minlength=n_nodes)
+    isolated = np.flatnonzero(deg == 0)
+    if len(isolated):
+        d2 = ((pts[isolated, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        d2[np.arange(len(isolated)), isolated] = np.inf
+        src = np.concatenate([src, isolated])
+        dst = np.concatenate([dst, d2.argmin(axis=1)])
+    return Graph.from_edge_arrays(
+        src, dst, n_nodes=n_nodes, directed=False,
+        name=name or f"RGG(n={n_nodes},r={radius})",
+    )

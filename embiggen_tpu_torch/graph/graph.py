@@ -1,5 +1,6 @@
 """Immutable CSR graph container and its device export — the counterpart of
-`embiggen_tpu/graph/graph.py`, cut to what SkipGram training uses.
+`embiggen_tpu/graph/graph.py`, cut to what SkipGram training and the edge
+predictors use.
 
 The host side is numpy, as in the JAX package: `Graph.from_edge_arrays`
 symmetrizes, sorts and deduplicates arcs into a CSR. `Graph.device(device)`
@@ -33,6 +34,9 @@ class TorchGraph:
     n_nodes: int
     n_arcs: int
     max_degree: int = 0
+    # [E] int32 source of each arc, for arc-id -> (src, dst) lookups;
+    # exported by `Graph.device(with_sources=True)`.
+    sources: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -119,6 +123,60 @@ class Graph:
             np.arange(self.number_of_nodes, dtype=self.col_idx.dtype), self.degrees
         )
 
+    @property
+    def number_of_edges(self) -> int:
+        """Edges: arcs for a directed graph, arc pairs plus self-loops for an
+        undirected one."""
+        if self.directed:
+            return self.number_of_directed_edges
+        n_self = int(np.sum(self.sources == self.col_idx))
+        return (self.number_of_directed_edges - n_self) // 2 + n_self
+
+    @cached_property
+    def arcs_fingerprint(self) -> str:
+        """Content hash of the adjacency and weights: the cache key of
+        layouts derived from the arcs (GCN kernels, negative graphs), so two
+        graph objects with the same arcs share them."""
+        import hashlib
+
+        h = hashlib.sha1()
+        h.update(np.int64(self.number_of_nodes).tobytes())
+        h.update(np.ascontiguousarray(self.row_ptr).tobytes())
+        h.update(np.ascontiguousarray(self.col_idx).tobytes())
+        if self.weights is not None:
+            h.update(np.ascontiguousarray(self.weights).tobytes())
+        return h.hexdigest()
+
+    @cached_property
+    def _sorted_arc_keys(self) -> np.ndarray:
+        # CSR rows are in order and sorted inside, so src * N + dst is sorted.
+        return (self.sources.astype(np.int64) * self.number_of_nodes
+                + self.col_idx.astype(np.int64))
+
+    def has_edges(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Vectorized membership test of (src[i], dst[i]) by binary search
+        over the sorted arc keys."""
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        if self.number_of_directed_edges == 0:
+            return np.zeros(len(src), dtype=bool)
+        q = src.astype(np.int64) * self.number_of_nodes + dst.astype(np.int64)
+        keys = self._sorted_arc_keys
+        idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+        return keys[idx] == q
+
+    has_edges_fast = has_edges
+
+    def is_multigraph(self) -> bool:
+        keys = self._sorted_arc_keys
+        return bool(len(keys) > 1 and np.any(np.diff(keys) == 0))
+
+    def has_singleton_nodes(self) -> bool:
+        return bool(np.any(self.degrees == 0))
+
+    def get_number_of_singleton_nodes(self) -> int:
+        return int(np.sum(self.degrees == 0))
+
     @cached_property
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_ptr).astype(np.int32)
@@ -138,6 +196,7 @@ class Graph:
         weights: Optional[np.ndarray] = None,
         directed: bool = False,
         name: str = "Graph",
+        node_names: Optional[Sequence[str]] = None,
     ) -> "Graph":
         """Build the CSR from (src, dst[, weights]) arc arrays.
 
@@ -165,15 +224,19 @@ class Graph:
             directed=directed,
             name=name,
             weights=weights,
+            node_names=(None if node_names is None
+                        else np.asarray(node_names, dtype=object)),
         )
 
     def device(
         self,
         device: Union[str, torch.device],
         with_alias: bool = False,
+        with_sources: bool = False,
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
-        `with_alias` and the graph is weighted."""
+        `with_alias` and the graph is weighted, and each arc's source when
+        `with_sources`."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -196,6 +259,7 @@ class Graph:
             n_nodes=self.number_of_nodes,
             n_arcs=self.number_of_directed_edges,
             max_degree=int(self.degrees.max(initial=0)),
+            sources=put(self.sources, np.int32) if with_sources else None,
         )
 
     def __repr__(self) -> str:

@@ -1,0 +1,105 @@
+"""Edge holdouts — counterpart of `embiggen_tpu/graph/holdouts.py`
+(`connected_holdout`, `random_holdout`). Host numpy, with the same RNG calls
+in the same order, so a seed gives the reference's split. The spanning
+forest runs the Python union-find (the reference's native copy comes with
+ROADMAP A5, as do the k-fold and label splits)."""
+from __future__ import annotations
+
+import warnings
+from typing import Tuple
+
+import numpy as np
+
+from .graph import Graph
+
+
+def _canonical_edges(graph: Graph) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(src, dst, arc index) of one arc per edge: src <= dst on an
+    undirected graph, every arc on a directed one."""
+    if graph.directed:
+        idx = np.arange(graph.number_of_directed_edges)
+        return graph.sources, graph.col_idx, idx
+    idx = np.nonzero(graph.sources <= graph.col_idx)[0]
+    return graph.sources[idx], graph.col_idx[idx], idx
+
+
+def _subgraph_from_canonical(graph: Graph, keep: np.ndarray, name: str) -> Graph:
+    """The graph of the canonical edges selected by the mask `keep`."""
+    _, _, idx = _canonical_edges(graph)
+    sel = idx[keep]
+    return Graph.from_edge_arrays(
+        graph.sources[sel],
+        graph.col_idx[sel],
+        n_nodes=graph.number_of_nodes,
+        weights=None if graph.weights is None else graph.weights[sel],
+        directed=graph.directed,
+        name=name,
+        node_names=graph.node_names,
+    )
+
+
+def spanning_forest_arcs(graph: Graph, random_state: int = 42) -> np.ndarray:
+    """Random spanning forest by union-find over the canonical edges in a
+    seeded random order. Returns a mask over canonical edges: True for the
+    forest's edges."""
+    src, dst, _ = _canonical_edges(graph)
+    n = graph.number_of_nodes
+    order = np.random.default_rng(random_state).permutation(len(src))
+    parent = list(range(n))
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    in_forest = np.zeros(len(src), dtype=bool)
+    src_l, dst_l = src.tolist(), dst.tolist()
+    for e in order.tolist():
+        a, b = find(src_l[e]), find(dst_l[e])
+        if a != b:
+            parent[a] = b
+            in_forest[e] = True
+    return in_forest
+
+
+def connected_holdout(
+    graph: Graph, train_size: float = 0.8, random_state: int = 42,
+) -> Tuple[Graph, Graph]:
+    """(train, test) split of the edges in which train keeps the connected
+    components of `graph`: a random spanning forest goes to train, then
+    shuffled other edges until `train_size` of the edges are in train."""
+    src, _, _ = _canonical_edges(graph)
+    forest = spanning_forest_arcs(graph, random_state)
+    n_train_target = int(round(train_size * len(src)))
+    n_forest = int(forest.sum())
+    if n_forest > n_train_target:
+        warnings.warn(
+            f"Spanning forest has {n_forest} edges > train target "
+            f"{n_train_target}; train split will be larger than requested."
+        )
+    rng = np.random.default_rng(random_state)
+    rest = np.nonzero(~forest)[0]
+    rng.shuffle(rest)
+    train_mask = forest.copy()
+    train_mask[rest[:max(0, n_train_target - n_forest)]] = True
+    return (
+        _subgraph_from_canonical(graph, train_mask, f"{graph.name}_train"),
+        _subgraph_from_canonical(graph, ~train_mask, f"{graph.name}_test"),
+    )
+
+
+def random_holdout(
+    graph: Graph, train_size: float = 0.8, random_state: int = 42
+) -> Tuple[Graph, Graph]:
+    """Uniform Monte Carlo split of the edges."""
+    src, _, _ = _canonical_edges(graph)
+    perm = np.random.default_rng(random_state).permutation(len(src))
+    train_mask = np.zeros(len(src), dtype=bool)
+    train_mask[perm[:int(round(train_size * len(src)))]] = True
+    return (
+        _subgraph_from_canonical(graph, train_mask, f"{graph.name}_train"),
+        _subgraph_from_canonical(graph, ~train_mask, f"{graph.name}_test"),
+    )

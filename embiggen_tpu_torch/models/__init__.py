@@ -2,10 +2,10 @@
 from .abstract import AbstractEmbeddingModel, AbstractModel
 from .embedding_result import EmbeddingResult
 from .registry import MODELS_LIBRARY, get_model_from_library, register_model
-from . import embedders
+from . import edge_prediction, embedders, gcn
 
 __all__ = [
     "AbstractModel", "AbstractEmbeddingModel", "EmbeddingResult",
     "MODELS_LIBRARY", "register_model", "get_model_from_library",
-    "embedders",
+    "edge_prediction", "embedders", "gcn",
 ]

@@ -60,9 +60,18 @@ class AbstractModel:
     def is_stochastic(cls) -> bool:
         return True
 
+    @classmethod
+    def is_topological(cls) -> bool:
+        """Whether the features this model produces depend on graph topology
+        (the evaluation harness refits such features per holdout)."""
+        return True
+
     @property
     def random_state(self) -> Optional[int]:
         return self._random_state
+
+    def set_random_state(self, random_state: int) -> None:
+        self._random_state = random_state
 
     def parameters(self) -> Dict[str, Any]:
         return {"random_state": self._random_state} if self.is_stochastic() else {}

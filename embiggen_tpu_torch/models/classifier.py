@@ -1,0 +1,242 @@
+"""AbstractClassifierModel — counterpart of
+`embiggen_tpu/models/classifier.py`: feature normalization (model names,
+embedding models, EmbeddingResults, DataFrames and arrays become aligned
+[n_nodes, d] float32 matrices, with holdout-biased feature models deferred),
+the fit / predict / predict_proba verbs and the binary metric panel.
+
+A model runs on the explicit `device` it is given (default "cuda") and
+never moves elsewhere on its own; the device is not a hyper-parameter, so
+it stays out of `parameters()` and the hash.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..graph.graph import Graph
+from ..ops.metrics import all_binary_metrics
+from .abstract import AbstractEmbeddingModel, AbstractModel
+from .embedding_result import EmbeddingResult
+
+FeatureLike = Union[str, AbstractEmbeddingModel, EmbeddingResult, np.ndarray, Any]
+
+
+def _align_dataframe(df, graph: Graph) -> np.ndarray:
+    """Reindex a node-indexed DataFrame to the graph's node order."""
+    names = graph.get_node_names()
+    missing = set(names) - set(df.index)
+    if missing:
+        raise ValueError(
+            f"Node features DataFrame is missing {len(missing)} nodes, e.g. "
+            f"{sorted(missing)[:5]}"
+        )
+    return df.loc[names].to_numpy(dtype=np.float32)
+
+
+class AbstractClassifierModel(AbstractModel):
+    """Shared backbone of the prediction models."""
+
+    def __init__(self, random_state: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self._device = torch.device(device)
+        super().__init__(random_state=random_state)
+        self._fitting_was_executed = False
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def clone(self) -> "AbstractClassifierModel":
+        return type(self)(**self.parameters(), device=self._device)
+
+    # ------------------------------------------------------------ feature prep
+    def normalize_node_features(
+        self,
+        graph: Graph,
+        node_features: Optional[Union[FeatureLike, List[FeatureLike]]],
+        allow_automatic_feature: bool = True,
+        skip_evaluation_biased_feature: bool = False,
+    ) -> Optional[List[Any]]:
+        """Normalize features into a list of [n_nodes, d] float32 arrays.
+
+        With `skip_evaluation_biased_feature`, feature models that are
+        topological or stochastic come back unfitted, so an evaluation can
+        fit them per holdout on the train graph only."""
+        if node_features is None:
+            return None
+        if not isinstance(node_features, list):
+            node_features = [node_features]
+        out: List[Any] = []
+        for feature in node_features:
+            if isinstance(feature, str):
+                if not allow_automatic_feature:
+                    raise ValueError(
+                        f"Cannot resolve feature name {feature!r} here."
+                    )
+                from .registry import get_model_from_library
+
+                feature = get_model_from_library(
+                    feature, task_name="Node Embedding"
+                )(device=self._device)
+            if isinstance(feature, AbstractEmbeddingModel):
+                if skip_evaluation_biased_feature and (
+                    feature.is_topological() or feature.is_stochastic()
+                ):
+                    out.append(feature)
+                    continue
+                feature = feature.fit_transform(graph)
+            if isinstance(feature, EmbeddingResult):
+                for emb in feature.get_all_node_embedding():
+                    out.append(self._validate_feature_matrix(emb, graph))
+                continue
+            out.append(self._validate_feature_matrix(feature, graph))
+        return out
+
+    def _validate_feature_matrix(self, feature, graph: Graph) -> np.ndarray:
+        if hasattr(feature, "loc"):
+            arr = _align_dataframe(feature, graph)
+        elif isinstance(feature, torch.Tensor):
+            arr = feature.detach().cpu().numpy().astype(np.float32, copy=False)
+        else:
+            arr = np.asarray(feature, dtype=np.float32)
+        if arr.ndim == 1:
+            arr = arr[:, None]
+        if arr.shape[0] != graph.number_of_nodes:
+            raise ValueError(
+                f"Feature has {arr.shape[0]} rows but graph "
+                f"{graph.name} has {graph.number_of_nodes} nodes."
+            )
+        if not np.isfinite(arr).all():
+            raise ValueError("Node features contain NaN or Inf values.")
+        return arr
+
+    # Capability flags: a feature kwarg is either consumed or rejected,
+    # never silently dropped.
+    @classmethod
+    def can_use_node_type_features(cls) -> bool:
+        return False
+
+    @classmethod
+    def can_use_edge_type_features(cls) -> bool:
+        return False
+
+    @classmethod
+    def can_use_edge_features(cls) -> bool:
+        return False
+
+    @staticmethod
+    def fit_deferred_features(
+        features: Optional[List[Any]], graph: Graph
+    ) -> Optional[List[np.ndarray]]:
+        """Fit any deferred feature models on the (train) graph."""
+        if features is None:
+            return None
+        out = []
+        for f in features:
+            if isinstance(f, AbstractEmbeddingModel):
+                result = f.clone().fit_transform(graph)
+                out.extend(np.asarray(e) for e in result.get_all_node_embedding())
+            else:
+                out.append(f)
+        return out
+
+    @staticmethod
+    def concatenate_features(
+        features: Optional[List[np.ndarray]],
+    ) -> Optional[np.ndarray]:
+        if not features:
+            return None
+        return np.concatenate(
+            [np.asarray(f, dtype=np.float32) for f in features], axis=1
+        )
+
+    # ------------------------------------------------------------------- verbs
+    def fit(
+        self,
+        graph: Graph,
+        support: Optional[Graph] = None,
+        node_features: Optional[Union[FeatureLike, List[FeatureLike]]] = None,
+        node_type_features=None,
+        edge_type_features=None,
+        edge_features=None,
+    ) -> "AbstractClassifierModel":
+        if graph.number_of_directed_edges == 0:
+            raise ValueError(f"Graph {graph.name} has no edges.")
+        for provided, flag, kind, item in (
+            (node_type_features, self.can_use_node_type_features(),
+             "node_type_features", "A6"),
+            (edge_type_features, self.can_use_edge_type_features(),
+             "edge_type_features", "A6"),
+            (edge_features, self.can_use_edge_features(), "edge_features",
+             "A11"),
+        ):
+            if provided is None:
+                continue
+            if not flag:
+                raise ValueError(
+                    f"{self.model_name()} ({self.library_name()}) does not "
+                    f"support {kind}; they would be silently ignored."
+                )
+            raise NotImplementedError(
+                f"{kind} are not ported yet (ROADMAP {item}).")
+        node_features = self.normalize_node_features(graph, node_features)
+        try:
+            self._fit(graph, support=support or graph,
+                      node_features=node_features)
+        except NotImplementedError:
+            raise
+        except Exception as exc:
+            raise RuntimeError(
+                f"Error while fitting {self.model_name()} from library "
+                f"{self.library_name()} on graph {graph.name} for task "
+                f"{self.task_name()}: {exc}"
+            ) from exc
+        self._fitting_was_executed = True
+        return self
+
+    def evaluate(self, graph: Graph, *args, **kwargs):
+        """The holdout evaluation harness: not ported yet."""
+        raise NotImplementedError(
+            "evaluate() runs the evaluation pipeline, which is not ported "
+            "yet (ROADMAP A5); score a holdout with _evaluate().")
+
+    def predict(self, graph: Graph, **kwargs) -> np.ndarray:
+        self._check_fitted()
+        proba = self.predict_proba(graph, **kwargs)
+        if proba.ndim == 1 or proba.shape[1] == 1:
+            return (proba.reshape(-1) > 0.5).astype(np.int32)
+        return proba.argmax(axis=1).astype(np.int32)
+
+    def predict_proba(self, graph: Graph, **kwargs) -> np.ndarray:
+        self._check_fitted()
+        return self._predict_proba(graph, **kwargs)
+
+    def _check_fitted(self):
+        if not self._fitting_was_executed:
+            raise ValueError(
+                f"{self.model_name()} must be fitted before predicting; call "
+                ".fit() first."
+            )
+
+    # ------------------------------------------------------ subclass interface
+    def _fit(self, graph: Graph, support: Graph, node_features, **kwargs):
+        raise NotImplementedError
+
+    def _predict_proba(self, graph: Graph, **kwargs) -> np.ndarray:
+        raise NotImplementedError
+
+    def is_binary_prediction_task(self) -> bool:
+        return False
+
+    # ----------------------------------------------------------------- metrics
+    def evaluate_prediction_probabilities(
+        self, labels: np.ndarray, probabilities: np.ndarray
+    ) -> Dict[str, float]:
+        if not self.is_binary_prediction_task():
+            raise NotImplementedError(
+                "Multiclass metrics come with the label-prediction tasks "
+                "(ROADMAP A10).")
+        scores = probabilities if probabilities.ndim == 1 else probabilities[:, -1]
+        return all_binary_metrics(labels, scores)

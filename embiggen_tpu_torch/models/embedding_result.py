@@ -88,6 +88,12 @@ class EmbeddingResult:
     def get_node_embedding_from_index(self, index: int = 0):
         return self.node_embeddings[index]
 
+    def get_all_node_embedding(self) -> List:
+        return self.node_embeddings
+
+    def get_all_edge_embedding(self) -> List:
+        return self.edge_embeddings
+
     def to_dataframes(self) -> "EmbeddingResult":
         """Convert ndarray node embeddings to DataFrames indexed by node name."""
         import pandas as pd

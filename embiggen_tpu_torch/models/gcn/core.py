@@ -1,0 +1,293 @@
+"""GCN core: encoder and training loop — counterpart of
+`embiggen_tpu/models/gcn/core.py`.
+
+Parameters are the reference's tree of plain tensors ({"w": [in, out],
+"b": [out]} per dense layer, `x @ w + b`), so a JAX parameter tree maps
+onto them one to one (`utils.convert.gcn_params_from_jax`). The
+convolution is the CSR SpMM with its transposed backward (`ops.spmm`,
+kernel K7). Kernel choice per preset follows the reference: Kipf GCN =
+Symmetric Normalized Laplacian, GraphSAGE = Left Normalized Laplacian, GNN
+= no kernels.
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...graph.graph import Graph
+from ...graph.laplacians import kernel_coo, validate_convolution_graph
+from ...ops.spmm import CSRKernel, csr_kernel, spmm
+
+Params = Dict[str, Any]
+
+# Kernels laid out on a device, keyed on the graph's content fingerprint,
+# the kernel name and the device: the models evaluated on one holdout share
+# them. Small, since entries hold device memory (a 20M-arc kernel with its
+# transpose is about 0.5 GB).
+_KERNEL_CACHE: "OrderedDict[tuple, CSRKernel]" = OrderedDict()
+_KERNEL_CACHE_SIZE = 4
+
+
+def _cached_kernel(graph: Graph, name: str, device: torch.device) -> CSRKernel:
+    key = (graph.arcs_fingerprint, name, str(device))
+    hit = _KERNEL_CACHE.get(key)
+    if hit is not None:
+        _KERNEL_CACHE.move_to_end(key)
+        return hit
+    rows, cols, vals = kernel_coo(graph, name)
+    built = csr_kernel(rows, cols, vals, graph.number_of_nodes, device=device,
+                       with_transpose=True)
+    _KERNEL_CACHE[key] = built
+    while len(_KERNEL_CACHE) > _KERNEL_CACHE_SIZE:
+        _KERNEL_CACHE.popitem(last=False)
+    return built
+
+
+def glorot(shape: Tuple[int, int], generator: torch.Generator) -> torch.Tensor:
+    limit = float(np.sqrt(6.0 / (shape[0] + shape[1])))
+    return torch.empty(shape).uniform_(-limit, limit, generator=generator)
+
+
+def init_mlp(dims: Sequence[int], generator: torch.Generator) -> List[Dict[str, torch.Tensor]]:
+    """Dense layers dims[0] → … → dims[-1] on the CPU, from `generator`."""
+    return [
+        {"w": glorot((dims[i], dims[i + 1]), generator),
+         "b": torch.zeros(dims[i + 1])}
+        for i in range(len(dims) - 1)
+    ]
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
+
+
+def apply_mlp(layers, x, activation=torch.relu, final_activation=None,
+              dropout_rate: float = 0.0, generator=None, training: bool = False):
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        if training and dropout_rate > 0 and generator is not None:
+            x = _dropout(x, dropout_rate, generator)
+        x = x @ layer["w"] + layer["b"]
+        if i < n - 1:
+            x = activation(x)
+        elif final_activation is not None:
+            x = final_activation(x)
+    return x
+
+
+def param_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a parameter tree, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    return [t for item in tree for t in param_leaves(item)]
+
+
+def map_params(fn: Callable, tree):
+    """The parameter tree with `fn` applied to every tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    return [map_params(fn, v) for v in tree]
+
+
+class GCNEncoder:
+    """Stack of graph convolutions over one or more propagation kernels.
+
+    Per kernel k and layer l: H = relu(A_k (dropout(H)) W_l + b_l); the
+    kernels' outputs are concatenated, and with `residual` the input
+    features are concatenated to the result."""
+
+    def __init__(
+        self,
+        kernel_names: Optional[Sequence[str]],
+        units: Sequence[int],
+        combiner: str = "sum",
+        dropout_rate: float = 0.5,
+        residual: bool = False,
+        handling_multi_graph: str = "warn",
+    ):
+        self.kernel_names = list(kernel_names) if kernel_names else []
+        self.units = list(units)
+        self.combiner = combiner
+        self.dropout_rate = dropout_rate
+        self.residual = residual
+        self.handling_multi_graph = handling_multi_graph
+
+    @property
+    def has_convolutions(self) -> bool:
+        return bool(self.kernel_names) and bool(self.units)
+
+    def enable_halo(self, mesh, axis: str = "nodes") -> None:
+        raise NotImplementedError(
+            "The multi-device halo SpMM is not ported yet (ROADMAP A13).")
+
+    def build_kernels(self, graph: Graph, device: torch.device) -> List[CSRKernel]:
+        """One CSRKernel (with its transpose) per kernel name, from the
+        kernel cache."""
+        if self.kernel_names:
+            validate_convolution_graph(graph, self.handling_multi_graph)
+        return [_cached_kernel(graph, name, torch.device(device))
+                for name in self.kernel_names]
+
+    def init(self, generator: torch.Generator, in_dim: int) -> Params:
+        return {"kernels": [init_mlp([in_dim] + self.units, generator)
+                            for _ in self.kernel_names]}
+
+    def output_dim(self, in_dim: int) -> int:
+        if not self.has_convolutions:
+            return in_dim
+        d = self.units[-1] * len(self.kernel_names)
+        return d + in_dim if self.residual else d
+
+    def apply(self, params: Params, kernels: Sequence[CSRKernel],
+              x: torch.Tensor, n_nodes: int, training: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.has_convolutions:
+            return x
+        outs = []
+        for layers, k in zip(params["kernels"], kernels):
+            h = x
+            for layer in layers:
+                if training and self.dropout_rate > 0 and generator is not None:
+                    h = _dropout(h, self.dropout_rate, generator)
+                h = spmm(k, h, self.combiner)
+                h = torch.relu(h @ layer["w"] + layer["b"])
+            outs.append(h)
+        h = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        if self.residual:
+            h = torch.cat([h, x], dim=1)
+        return h
+
+
+class StaticFeatureSpec:
+    """The fixed node features plus, when used, a learned node embedding."""
+
+    def __init__(self, static: torch.Tensor, use_node_embedding: bool):
+        self.static = static
+        self.use_node_embedding = use_node_embedding
+
+    def dim(self, embed_params: Params) -> int:
+        d = self.static.shape[1]
+        if self.use_node_embedding:
+            d += embed_params["node_embedding"].shape[1]
+        return d
+
+    def materialize(self, embed_params: Params) -> torch.Tensor:
+        parts = [self.static]
+        if self.use_node_embedding:
+            parts.append(embed_params["node_embedding"])
+        return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def assemble_node_features(
+    graph: Graph,
+    node_features: Optional[List[np.ndarray]],
+    use_node_embedding: bool,
+    node_embedding_size: int,
+    use_node_type_embedding: bool,
+    node_type_embedding_size: int,
+    generator: torch.Generator,
+    device: torch.device,
+    node_type_features: Optional[List[np.ndarray]] = None,
+) -> Tuple[Params, StaticFeatureSpec]:
+    """The static feature matrix on `device`, and the learned node
+    embedding table (on the CPU, from `generator`) when used."""
+    if use_node_type_embedding or node_type_features:
+        raise NotImplementedError(
+            "Node-type features and embeddings are not ported yet "
+            "(ROADMAP A6).")
+    mats = [np.asarray(f, np.float32) for f in (node_features or [])]
+    static = (np.concatenate(mats, axis=1) if mats
+              else np.zeros((graph.number_of_nodes, 0), np.float32))
+    params: Params = {}
+    if use_node_embedding:
+        params["node_embedding"] = torch.randn(
+            (graph.number_of_nodes, node_embedding_size), generator=generator
+        ) / np.sqrt(node_embedding_size)
+    spec = StaticFeatureSpec(torch.from_numpy(static).to(device), use_node_embedding)
+    return params, spec
+
+
+class TrainLoop:
+    """Epoch loop with the reference's callbacks: EarlyStopping,
+    ReduceLROnPlateau and TerminateOnNaN on the training loss. The optimizer
+    is Adam. As in the reference, the plateau factor scales the gradients
+    before Adam, not the learning rate (Adam's normalization cancels most
+    of it). Checkpoints come with ROADMAP A12."""
+
+    def __init__(
+        self,
+        epochs: int = 1000,
+        learning_rate: float = 0.001,
+        early_stopping_patience: int = 10,
+        early_stopping_min_delta: float = 1e-4,
+        reduce_lr_patience: int = 5,
+        reduce_lr_factor: float = 0.5,
+        steps_per_epoch: int = 1,
+    ):
+        self.epochs = epochs
+        self.learning_rate = learning_rate
+        self.early_stopping_patience = early_stopping_patience
+        self.early_stopping_min_delta = early_stopping_min_delta
+        self.reduce_lr_patience = reduce_lr_patience
+        self.reduce_lr_factor = reduce_lr_factor
+        self.steps_per_epoch = steps_per_epoch
+
+    def run(self, params: Params, loss_step: Callable[[Params], torch.Tensor]):
+        """Train `params` (a tree of leaf tensors, updated in place) for up
+        to `epochs` epochs of `steps_per_epoch` Adam steps on
+        `loss_step(params)`, a 0-d loss tensor. The epoch loss is the mean
+        of its steps, read on the host once per epoch. Returns (a copy of
+        the parameters of the best epoch, loss history)."""
+        leaves = param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        optimizer = torch.optim.Adam(leaves, lr=self.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        best = np.inf
+        best_params = map_params(lambda t: t.detach().clone(), params)
+        patience = lr_patience = 0
+        lr_scale = 1.0
+        history: List[float] = []
+        self.epoch_seconds = []
+        for _ in range(self.epochs):
+            t0 = time.perf_counter()
+            total = torch.zeros((), device=leaves[0].device)
+            for _ in range(self.steps_per_epoch):
+                optimizer.zero_grad(set_to_none=True)
+                loss = loss_step(params)
+                loss.backward()
+                if lr_scale != 1.0:
+                    for p in leaves:
+                        if p.grad is not None:
+                            p.grad.mul_(lr_scale)
+                optimizer.step()
+                total += loss.detach()
+            loss = float(total / self.steps_per_epoch)
+            self.epoch_seconds.append(time.perf_counter() - t0)
+            history.append(loss)
+            if not np.isfinite(loss):  # TerminateOnNaN
+                break
+            if loss < best - self.early_stopping_min_delta:
+                best = loss
+                best_params = map_params(lambda t: t.detach().clone(), params)
+                patience = lr_patience = 0
+            else:
+                patience += 1
+                lr_patience += 1
+                if lr_patience >= self.reduce_lr_patience:
+                    lr_scale *= self.reduce_lr_factor
+                    lr_patience = 0
+                if patience >= self.early_stopping_patience:
+                    break
+        for p in leaves:
+            p.requires_grad_(False)
+        return best_params, history

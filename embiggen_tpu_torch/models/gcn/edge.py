@@ -1,0 +1,403 @@
+"""Edge-prediction GCNs — counterpart of `embiggen_tpu/models/gcn/edge.py`
+(`_EdgeGCNBase`, `GCNEdgePrediction` and its Kipf GCN / GraphSAGE / GNN
+presets).
+
+A training step convolves the whole graph (kernel K7 forward, and its
+transposed backward), draws an edge minibatch on the device (kernel K6:
+uniform positive arcs and scale-free negatives), scores the pairs through
+the towers, the edge combination and the head, and takes an Adam step on
+the logistic loss. Inference convolves once and scores candidate pairs in
+chunks.
+
+Not ported yet, each raising NotImplementedError that names its item:
+edge types and the edge-type embedding (A6), static or lazy edge features
+(A11), `use_edge_metrics` (K8), `mesh` (A13) and `checkpoint_dir` (A12);
+the edge-label GCN comes with A10.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...graph.graph import Graph
+from ...ops import edge_ops
+from ...ops.negatives import edge_prediction_mini_batch
+from ..classifier import AbstractClassifierModel
+from ..edge_prediction.model import AbstractEdgePredictionModel
+from ..embedders.walk_based import _device_generator
+from ..registry import register_model
+from .core import (
+    GCNEncoder,
+    TrainLoop,
+    apply_mlp,
+    assemble_node_features,
+    init_mlp,
+    map_params,
+)
+
+
+class _EdgeGCNBase(AbstractClassifierModel):
+    """Encoder, towers, edge combination and head."""
+
+    DEFAULT_KERNELS = ["Symmetric Normalized Laplacian"]
+
+    def __init__(
+        self,
+        kernels: Optional[Sequence[str]] = None,
+        units: Sequence[int] = (128, 128),
+        tower_units: Sequence[int] = (64,),
+        head_units: Sequence[int] = (32,),
+        edge_embedding_method: str = "Concatenate",
+        siamese_towers: bool = True,
+        combiner: str = "sum",
+        dropout_rate: float = 0.5,
+        residual: bool = False,
+        use_node_embedding: bool = False,
+        node_embedding_size: int = 50,
+        use_node_type_embedding: bool = False,
+        node_type_embedding_size: int = 50,
+        use_edge_type_embedding: bool = False,
+        edge_type_embedding_size: int = 16,
+        use_edge_metrics: bool = False,
+        edge_feature_models=None,
+        batch_size: Optional[int] = None,
+        epochs: int = 200,
+        learning_rate: float = 0.001,
+        early_stopping_patience: int = 20,
+        mesh=None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_interval: int = 10,
+        handling_multi_graph: str = "warn",
+        random_state: int = 42,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        for given, item, what in (
+            (mesh is not None, "A13", "mesh: multi-device training"),
+            (checkpoint_dir is not None, "A12", "checkpoint_dir: checkpointing"),
+            (use_node_type_embedding, "A6", "use_node_type_embedding"),
+            (use_edge_type_embedding, "A6", "use_edge_type_embedding"),
+            (use_edge_metrics, "B, K8", "use_edge_metrics: the edge heuristics"),
+            (bool(edge_feature_models), "A11", "edge_feature_models"),
+        ):
+            if given:
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item}).")
+        self._mesh = mesh
+        self._handling_multi_graph = handling_multi_graph
+        self._kernels = (
+            list(kernels) if kernels is not None else list(self.DEFAULT_KERNELS)
+        )
+        self._units = list(units)
+        self._tower_units = list(tower_units)
+        self._head_units = list(head_units)
+        self._edge_embedding_method = edge_embedding_method
+        self._siamese_towers = siamese_towers
+        self._combiner = combiner
+        self._dropout_rate = dropout_rate
+        self._residual = residual
+        self._use_node_embedding = use_node_embedding
+        self._node_embedding_size = node_embedding_size
+        self._use_node_type_embedding = use_node_type_embedding
+        self._node_type_embedding_size = node_type_embedding_size
+        self._use_edge_type_embedding = use_edge_type_embedding
+        self._edge_type_embedding_size = edge_type_embedding_size
+        self._use_edge_metrics = use_edge_metrics
+        self._edge_feature_models = []
+        self._batch_size = batch_size
+        self._epochs = epochs
+        self._learning_rate = learning_rate
+        self._early_stopping_patience = early_stopping_patience
+        self._checkpoint_dir = checkpoint_dir
+        self._checkpoint_interval = checkpoint_interval
+        edge_ops.resolve(edge_embedding_method, edge_ops.EDGE_GCN_METHODS)
+        super().__init__(random_state=random_state, device=device)
+
+    @classmethod
+    def can_use_node_type_features(cls) -> bool:
+        return True
+
+    @classmethod
+    def can_use_edge_type_features(cls) -> bool:
+        return True
+
+    @classmethod
+    def can_use_edge_features(cls) -> bool:
+        return True
+
+    def parameters(self) -> Dict[str, Any]:
+        return {
+            **super().parameters(),
+            "mesh": self._mesh,
+            "kernels": self._kernels,
+            "units": self._units,
+            "tower_units": self._tower_units,
+            "head_units": self._head_units,
+            "edge_embedding_method": self._edge_embedding_method,
+            "siamese_towers": self._siamese_towers,
+            "combiner": self._combiner,
+            "dropout_rate": self._dropout_rate,
+            "residual": self._residual,
+            "use_node_embedding": self._use_node_embedding,
+            "node_embedding_size": self._node_embedding_size,
+            "use_node_type_embedding": self._use_node_type_embedding,
+            "node_type_embedding_size": self._node_type_embedding_size,
+            "use_edge_type_embedding": self._use_edge_type_embedding,
+            "edge_type_embedding_size": self._edge_type_embedding_size,
+            "use_edge_metrics": self._use_edge_metrics,
+            "edge_feature_models": self._edge_feature_models,
+            "batch_size": self._batch_size,
+            "epochs": self._epochs,
+            "learning_rate": self._learning_rate,
+            "early_stopping_patience": self._early_stopping_patience,
+            "checkpoint_dir": self._checkpoint_dir,
+            "checkpoint_interval": self._checkpoint_interval,
+            "handling_multi_graph": self._handling_multi_graph,
+        }
+
+    @classmethod
+    def smoke_test_parameters(cls) -> Dict[str, Any]:
+        return {
+            "units": [8], "tower_units": [8], "head_units": [8],
+            "epochs": 5, "batch_size": 64,
+        }
+
+    def _resolve_batch_size(self, n_examples: int) -> int:
+        """Edges per training step: the explicit value, else (when there are
+        convolutions, each step convolving the whole graph) about one edge
+        per node, else 1024."""
+        if self._batch_size is not None:
+            return max(1, min(self._batch_size, max(n_examples, 8)))
+        if self._units and self._kernels:
+            n_nodes = getattr(self, "_n_nodes_hint", None)
+            base = n_nodes if n_nodes else n_examples
+            return max(1, min(max(base, 1024), max(n_examples, 8)))
+        return max(1, min(1024, max(n_examples, 8)))
+
+    # --------------------------------------------------------------- assembly
+    def _build_common(self, graph: Graph, support: Graph, node_features,
+                      generator: torch.Generator):
+        """Kernels on the device, and the initial parameter tree (drawn on
+        the CPU from `generator`, then moved to the device)."""
+        self._encoder = GCNEncoder(
+            self._kernels if self._units else None,
+            self._units,
+            combiner=self._combiner,
+            dropout_rate=self._dropout_rate,
+            residual=self._residual,
+            handling_multi_graph=self._handling_multi_graph,
+        )
+        kernels = self._encoder.build_kernels(support, self.device)
+        self._csr_kernels = kernels
+        use_embedding = self._use_node_embedding or not node_features
+        embed_params, spec = assemble_node_features(
+            graph, node_features, use_embedding, self._node_embedding_size,
+            False, self._node_type_embedding_size, generator, self.device,
+        )
+        self._spec = spec
+        in_dim = spec.dim(embed_params)
+        enc_params = self._encoder.init(generator, in_dim)
+        tower_dims = [self._encoder.output_dim(in_dim)] + self._tower_units
+        src_tower = init_mlp(tower_dims, generator)
+        params = {"embed": embed_params, "enc": enc_params,
+                  "src_tower": src_tower}
+        if not self._siamese_towers:
+            params["dst_tower"] = init_mlp(tower_dims, generator)
+        edge_dim = edge_ops.output_dim(self._edge_embedding_method, tower_dims[-1])
+        params["head"] = init_mlp(
+            [edge_dim] + self._head_units + [self._n_outputs], generator)
+        self._combine_fn = edge_ops.resolve(
+            self._edge_embedding_method, edge_ops.EDGE_GCN_METHODS)
+        return map_params(lambda t: t.to(self.device), params), kernels
+
+    def _encode_nodes(self, params, kernels, n_nodes, training=False,
+                      generator=None) -> torch.Tensor:
+        """Features and the convolution stack → [N, H] node representations."""
+        x = self._spec.materialize(params["embed"])
+        return self._encoder.apply(params["enc"], kernels, x, n_nodes,
+                                   training=training, generator=generator)
+
+    def _score_edges(self, params, h, src, dst, return_representation=False):
+        """Towers → edge combination → head for (src, dst) pairs over the
+        node representations `h`; with `return_representation`, the edge
+        representation before the head (the beheaded model)."""
+        src, dst = src.long(), dst.long()
+        h_src = apply_mlp(params["src_tower"], h[src], final_activation=torch.relu)
+        dst_tower = params.get("dst_tower", params["src_tower"])
+        h_dst = apply_mlp(dst_tower, h[dst], final_activation=torch.relu)
+        e = self._combine_fn(h_src, h_dst)
+        if return_representation:
+            return e
+        return apply_mlp(params["head"], e)
+
+    def _edge_logits(self, params, kernels, src, dst, n_nodes, training=False,
+                     generator=None):
+        h = self._encode_nodes(params, kernels, n_nodes, training=training,
+                               generator=generator)
+        return self._score_edges(params, h, src, dst)
+
+    def _chunked_logits(self, src: np.ndarray, dst: np.ndarray,
+                        chunk: int = 1 << 22,
+                        representation: bool = False) -> np.ndarray:
+        """Inference for any candidate pairs: the convolution runs once per
+        fitted parameters, then pairs are scored in chunks of `chunk`, so
+        [E, H] tower activations never exist at once."""
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        with torch.no_grad():
+            if self._predict_h is None:
+                self._predict_h = self._encode_nodes(
+                    self._params, self._csr_kernels, self._n_nodes)
+            h = self._predict_h
+            outs = [
+                self._score_edges(
+                    self._params, h,
+                    torch.from_numpy(src[i:i + chunk]).to(self.device),
+                    torch.from_numpy(dst[i:i + chunk]).to(self.device),
+                    return_representation=representation,
+                ).cpu()
+                for i in range(0, len(src), chunk)
+            ]
+        if not outs:
+            width = (self._params["head"][0]["w"].shape[0] if representation
+                     else self._n_outputs)
+            return np.zeros((0, width), np.float32)
+        return torch.cat(outs).numpy()
+
+    # ------------------------------------------------ beheaded edge model
+    def transform_edges_from_edge_node_ids(self, src, dst) -> np.ndarray:
+        """Edge representations before the head, for any (src, dst) pairs."""
+        return self._chunked_logits(src, dst, representation=True)
+
+    def transform_edges(self, graph: Graph):
+        """Edge representations of every arc of `graph` as an
+        EmbeddingResult."""
+        from ..embedding_result import EmbeddingResult
+
+        return EmbeddingResult(
+            embedding_method_name=f"Beheaded {self.model_name()}",
+            edge_embeddings=[self.transform_edges_from_edge_node_ids(
+                graph.sources, graph.col_idx)],
+        )
+
+
+class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
+    """Configurable edge-prediction GCN ("Everything Bagel GCN")."""
+
+    @classmethod
+    def model_name(cls) -> str:
+        return "Everything Bagel GCN"
+
+    def __init__(self, negative_samples_rate: float = 0.5,
+                 use_scale_free_distribution: bool = True, **kwargs):
+        self._negative_samples_rate = negative_samples_rate
+        self._use_scale_free_distribution = use_scale_free_distribution
+        super().__init__(**kwargs)
+
+    def parameters(self):
+        return {
+            **super().parameters(),
+            "negative_samples_rate": self._negative_samples_rate,
+            "use_scale_free_distribution": self._use_scale_free_distribution,
+        }
+
+    def _loss(self, params, kernels, tg, batch, generator, drop_generator):
+        """Logistic loss of one minibatch, drawn by K6 unless `batch`
+        ((src, dst, labels)) is given."""
+        src, dst, labels = batch if batch is not None else edge_prediction_mini_batch(
+            tg, generator, self._run_batch_size,
+            negative_samples_rate=self._negative_samples_rate,
+            use_scale_free_distribution=self._use_scale_free_distribution,
+        )
+        logits = self._edge_logits(
+            params, kernels, src, dst, tg.n_nodes, training=True,
+            generator=drop_generator,
+        )[:, 0]
+        return (F.softplus(logits) - labels * logits).mean()
+
+    def _fit(self, graph: Graph, support: Graph, node_features, **kwargs):
+        generator = torch.Generator().manual_seed(self.random_state or 0)
+        self._n_outputs = 1
+        params, kernels = self._build_common(graph, support, node_features,
+                                             generator)
+        tg = graph.device(self.device, with_sources=True)
+        self._n_nodes_hint = graph.number_of_nodes
+        self._run_batch_size = self._resolve_batch_size(
+            graph.number_of_directed_edges)
+        drop_generator = _device_generator(generator, self.device)
+        loop = TrainLoop(
+            epochs=self._epochs, learning_rate=self._learning_rate,
+            early_stopping_patience=self._early_stopping_patience,
+            steps_per_epoch=max(
+                1, graph.number_of_directed_edges // self._run_batch_size),
+        )
+        self._params, self._history = loop.run(
+            params,
+            lambda p: self._loss(p, kernels, tg, None, generator, drop_generator),
+        )
+        self._epoch_seconds = list(loop.epoch_seconds)
+        self._steps_per_epoch = loop.steps_per_epoch
+        self._n_nodes = graph.number_of_nodes
+        self._predict_h = None
+
+    def _predict_proba(self, graph: Graph, support: Optional[Graph] = None,
+                       **kwargs) -> np.ndarray:
+        """Sigmoid scores of every arc of `graph`, convolving over the
+        fitted support's kernels."""
+        return self.predict_proba_from_edge_node_ids(graph.sources, graph.col_idx)
+
+    def predict_proba_from_edge_node_ids(self, src: np.ndarray,
+                                         dst: np.ndarray) -> np.ndarray:
+        logits = self._chunked_logits(src, dst)[:, 0]
+        return torch.sigmoid(torch.from_numpy(logits)).numpy()
+
+
+def _kernel_preset(base, name, kernel_list, doc):
+    """A Kipf GCN / GraphSAGE / GNN preset subclass of an edge GCN."""
+
+    def __init__(self, **kwargs):
+        kwargs.pop("kernels", None)
+        if not kernel_list:
+            kwargs.setdefault("use_node_embedding", True)
+            base.__init__(self, kernels=[], units=(), **kwargs)
+        else:
+            base.__init__(self, kernels=list(kernel_list), **kwargs)
+
+    def parameters(self):
+        p = base.parameters(self)
+        p.pop("kernels", None)
+        if not kernel_list:
+            p.pop("units", None)
+        return p
+
+    cls = type(
+        name,
+        (base,),
+        {
+            "__init__": __init__,
+            "parameters": parameters,
+            "model_name": classmethod(lambda cls: doc),
+            "DEFAULT_KERNELS": list(kernel_list),
+            "__doc__": f"{doc} preset of {base.__name__}.",
+        },
+    )
+    if not kernel_list:
+        cls.smoke_test_parameters = classmethod(
+            lambda cls: {"tower_units": [8], "head_units": [8], "epochs": 5,
+                         "batch_size": 64}
+        )
+    return register_model(cls)
+
+
+KipfGCNEdgePrediction = _kernel_preset(
+    GCNEdgePrediction, "KipfGCNEdgePrediction",
+    ["Symmetric Normalized Laplacian"], "Kipf GCN",
+)
+GraphSAGEEdgePrediction = _kernel_preset(
+    GCNEdgePrediction, "GraphSAGEEdgePrediction",
+    ["Left Normalized Laplacian"], "GraphSAGE",
+)
+GNNEdgePrediction = _kernel_preset(GCNEdgePrediction, "GNNEdgePrediction", [], "GNN")
+
+register_model(GCNEdgePrediction)

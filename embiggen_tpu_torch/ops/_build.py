@@ -42,6 +42,13 @@ _SIGNATURES = {
         (_P,) * 12 + (_I32, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_scatter_add_rows": ((_P, _P, _P, _P, _I64, _I32, _P), _I32),
     "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _P), _I32),
+    "ebt_csr_edge_ids": ((_P, _P, _P, _P, _I64, _I32, _P, _P, _P), _I32),
+    "ebt_edge_minibatch": (
+        (_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64,
+         _U32, _P), _I32),
+    "ebt_csr_spmm": ((_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P), _I32),
+    "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
+    "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -50,7 +57,8 @@ _SIGNATURES = {
 # through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_grads",
-     "mean_scatter"), 0,
+     "mean_scatter", "csr_edge_ids", "edge_prediction_mini_batch", "spmm",
+     "tile_gather_sums", "table_gather_sums"), 0,
 )
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,11 +1,12 @@
-"""Node draws for negative sampling — counterpart of the NCE part of
-`embiggen_tpu/ops/negatives.py` (`sample_nodes_scale_free`,
-`sample_nodes_uniform`, `negative_nodes_for_nce`).
+"""Node draws for negative sampling and the GCN edge minibatch —
+counterpart of `embiggen_tpu/ops/negatives.py` (`sample_nodes_scale_free`,
+`sample_nodes_uniform`, `negative_nodes_for_nce`; `arc_sources`,
+`edge_prediction_mini_batch`).
 
 The head of a uniformly random arc is exactly degree-distributed, so a
 scale-free draw is one uniform arc id and one gather. On a CUDA graph the
-draws are kernel K2 (`csrc/sampling.cu`); on a CPU graph the plain version
-below.
+node draws are kernel K2 (`csrc/sampling.cu`) and the edge minibatch kernel
+K6 (`csrc/edges.cu`); on a CPU graph the plain versions below.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ..graph.graph import TorchGraph
 from . import _build
+from .walks import csr_edge_ids_plain
 
 
 def nce_negatives_plain(
@@ -78,3 +80,78 @@ def negative_nodes_for_nce(
     own draws)."""
     shape = (per_walk, n_negatives) if per_walk else (n_negatives,)
     return nce_negatives(tg, generator, shape, use_scale_free_distribution)
+
+
+def arc_sources(tg: TorchGraph, arc: torch.Tensor) -> torch.Tensor:
+    """Source node of each arc id: a gather when the graph was exported
+    `with_sources`, else a search over row_ptr."""
+    if tg.sources is not None:
+        return tg.sources[arc.long()]
+    return (torch.searchsorted(tg.row_ptr, arc.to(tg.row_ptr.dtype), right=True)
+            - 1).to(torch.int32)
+
+
+def edge_prediction_mini_batch_plain(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    negative_samples_rate: float = 0.5, use_scale_free_distribution: bool = True,
+    avoid_false_negatives: bool = True, n_attempts: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6: the reference's rounds, each a full
+    membership sweep over all negatives."""
+    n_neg = int(round(batch_size * negative_samples_rate))
+    n_pos = batch_size - n_neg
+    dev = tg.device
+    arc = torch.randint(0, max(tg.n_arcs, 1), (n_pos,), generator=generator,
+                        device=dev)
+    pos_src, pos_dst = arc_sources(tg, arc), tg.col_idx[arc]
+
+    def sample_neg():
+        return tuple(
+            nce_negatives_plain(tg, generator, (n_neg,), use_scale_free_distribution)
+            for _ in range(2))
+
+    src, dst = sample_neg()
+    if avoid_false_negatives:
+        for _ in range(n_attempts):
+            bad = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst)[1] | (src == dst)
+            new_src, new_dst = sample_neg()
+            src = torch.where(bad, new_src, src)
+            dst = torch.where(bad, new_dst, dst)
+    labels = torch.cat([torch.ones(n_pos, device=dev), torch.zeros(n_neg, device=dev)])
+    return (torch.cat([pos_src, src]).to(torch.int32),
+            torch.cat([pos_dst, dst]).to(torch.int32), labels)
+
+
+def edge_prediction_mini_batch(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    negative_samples_rate: float = 0.5, use_scale_free_distribution: bool = True,
+    avoid_false_negatives: bool = True, n_attempts: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sources [B] int32, destinations [B] int32, labels [B] f32): the first
+    B - n_neg slots are uniform arcs (label 1), the last
+    n_neg = round(B * negative_samples_rate) negatives (label 0) with
+    scale-free (or uniform) endpoints. With `avoid_false_negatives`, a
+    negative that is an arc or a self-loop is redrawn up to `n_attempts`
+    times; the last redraw is kept unchecked. Kernel K6 on a CUDA graph
+    (Philox seeded from `generator`), the plain version on a CPU graph."""
+    if not _build.is_cuda(tg.col_idx):
+        return edge_prediction_mini_batch_plain(
+            tg, generator, batch_size, negative_samples_rate,
+            use_scale_free_distribution, avoid_false_negatives, n_attempts)
+    if tg.n_arcs == 0:
+        raise ValueError("The edge minibatch needs a graph with arcs.")
+    n_neg = int(round(batch_size * negative_samples_rate))
+    dev = tg.device
+    out_src = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    out_dst = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    labels = torch.empty((batch_size,), dtype=torch.float32, device=dev)
+    seed, offset = _build.draw_seed(generator)
+    _build.launch(
+        "edge_prediction_mini_batch", "ebt_edge_minibatch", dev,
+        tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),
+        tg.n_nodes, tg.n_arcs, batch_size - n_neg, batch_size,
+        int(use_scale_free_distribution),
+        n_attempts if avoid_false_negatives else 0,
+        out_src.data_ptr(), out_dst.data_ptr(), labels.data_ptr(), seed, offset,
+    )
+    return out_src, out_dst, labels

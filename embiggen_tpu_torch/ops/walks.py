@@ -1,14 +1,18 @@
-"""First-order random walks — counterpart of `embiggen_tpu/ops/walks.py`
-(`random_walks`, first-order branch, and `_sample_neighbor`).
+"""First-order random walks and CSR membership — counterpart of
+`embiggen_tpu/ops/walks.py` (`random_walks`, first-order branch, and
+`_sample_neighbor`; `csr_has_edges` and `csr_edge_ids`).
 
 A step draws a uniform neighbour from the CSR row, or a Walker alias draw
 when the graph is weighted; a node of degree zero keeps the walker where it
 is. On a CUDA graph all steps of all walkers run in one launch of kernel K1
 (`csrc/sampling.cu`); on a CPU graph the plain version below loops over the
 steps. The two draw different random numbers, so they agree in
-distribution, not bit for bit.
+distribution, not bit for bit. Arc membership is a lower-bound search in the
+sorted CSR row: kernel K5 (`csrc/edges.cu`) on CUDA tensors.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -91,3 +95,62 @@ def random_walks(
         raise NotImplementedError(
             "Biased (p/q) walks are not ported yet (ROADMAP A6).")
     return first_order_walks(tg, start_nodes, walk_length, generator)
+
+
+def csr_edge_ids_plain(
+    row_ptr: torch.Tensor, col_idx: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: a masked lower-bound search over all
+    queries at once, until every search has ended."""
+    n_arcs = col_idx.shape[0]
+    if n_arcs == 0:
+        return (torch.zeros_like(src, dtype=torch.int32),
+                torch.zeros_like(src, dtype=torch.bool))
+    src, dst = src.long(), dst.long()
+    lo, hi = row_ptr[src].long(), row_ptr[src + 1].long()
+    end = hi
+    while True:
+        valid = lo < hi
+        if not bool(valid.any()):
+            break
+        mid = (lo + hi) // 2
+        go_right = valid & (col_idx[mid.clamp(0, n_arcs - 1)].long() < dst)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(valid & ~go_right, mid, hi)
+    found = (lo < end) & (col_idx[lo.clamp(0, n_arcs - 1)].long() == dst)
+    return torch.where(found, lo, n_arcs).to(torch.int32), found
+
+
+def csr_edge_ids(
+    row_ptr: torch.Tensor, col_idx: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, with_ids: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(arc id, found) of each (src[i], dst[i]) pair in a CSR with sorted
+    rows: the arc's CSR position, or the sentinel n_arcs where the pair is
+    not an arc. Kernel K5 on CUDA tensors (ids are None when not
+    `with_ids`), the plain version on CPU tensors."""
+    if not _build.is_cuda(col_idx):
+        return csr_edge_ids_plain(row_ptr, col_idx, src, dst)
+    dev = col_idx.device
+    n = src.shape[0]
+    _build.check(row_ptr, "row_ptr", torch.int32, None, dev)
+    _build.check(col_idx, "col_idx", torch.int32, None, dev)
+    _build.check(src, "src", torch.int32, (n,), dev)
+    _build.check(dst, "dst", torch.int32, (n,), dev)
+    ids = torch.empty((n,), dtype=torch.int32, device=dev) if with_ids else None
+    found = torch.empty((n,), dtype=torch.bool, device=dev)
+    _build.launch(
+        "csr_edge_ids", "ebt_csr_edge_ids", dev, row_ptr.data_ptr(),
+        col_idx.data_ptr(), src.data_ptr(), dst.data_ptr(), n,
+        col_idx.shape[0], _build.ptr(ids), found.data_ptr(),
+    )
+    return ids, found
+
+
+def csr_has_edges(
+    row_ptr: torch.Tensor, col_idx: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor,
+) -> torch.Tensor:
+    """[B] bool: is (src[i], dst[i]) an arc? K5 without the ids."""
+    return csr_edge_ids(row_ptr, col_idx, src, dst, with_ids=False)[1]

@@ -24,3 +24,46 @@ def skipgram_params_from_jax(
         k: torch.from_numpy(np.array(params[k], dtype=np.float32)).to(device)
         for k in SKIPGRAM_KEYS
     }
+
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def gcn_params_from_jax(params: Mapping, model) -> Dict:
+    """A fitted or built JAX edge-GCN parameter tree (`{"embed", "enc":
+    {"kernels"}, "src_tower", "dst_tower"?, "head"}`, numpy leaves, dense
+    layers as {"w": [in, out], "b": [out]}) as the port's tree of float32
+    tensors on `model.device`. When `model` already holds parameters
+    (`_params`), the two trees must have the same structure and shapes."""
+    out = _tree_to_torch(dict(params), model.device)
+    held = getattr(model, "_params", None)
+    if held is not None and _shapes(held) != _shapes(out):
+        raise ValueError("The JAX parameter tree does not match the model's: "
+                         f"{_shapes(out)} vs {_shapes(held)}")
+    return out
+
+
+def perceptron_params_from_jax(
+    w: np.ndarray, b: float, mean: np.ndarray, std: np.ndarray,
+    device: Union[str, torch.device],
+) -> Dict[str, torch.Tensor]:
+    """A fitted JAX Perceptron's weights, bias and feature normalization
+    (`_w`, `_b`, `_mean`, `_std`) as the port's `_linear` tensors on
+    `device`."""
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return {"w": put(w), "b": put(b), "mean": put(mean), "std": put(std)}

@@ -166,7 +166,8 @@ def test_embed_graph_rejects_graph_names():
 
 def test_runs_where_jax_cannot_be_imported():
     """The port must run on a host without jax: block jax and embiggen_tpu
-    from being imported, then train a tiny graph on the CPU."""
+    from being imported, train a tiny graph on the CPU, import every module
+    of the port and fit both edge predictors."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -180,6 +181,19 @@ def test_runs_where_jax_cannot_be_imported():
         "                walk_length=8, window_size=2, batch_size=16,\n"
         "                random_state=0)\n"
         "assert r.node_embeddings[0].shape == (50, 4)\n"
+        "import importlib, pkgutil, embiggen_tpu_torch\n"
+        "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
+        "                               'embiggen_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction\n"
+        "from embiggen_tpu_torch.models.gcn import KipfGCNEdgePrediction\n"
+        "g = erdos_renyi(50, 200, seed=2)\n"
+        "x = r.node_embeddings[0]\n"
+        "for m in (PerceptronEdgePrediction(edge_embeddings=['CosineSimilarity'],\n"
+        "                                   number_of_epochs=1, device='cpu'),\n"
+        "          KipfGCNEdgePrediction(units=[4], epochs=1, device='cpu')):\n"
+        "    p = m.fit(g, node_features=x).predict_proba(g)\n"
+        "    assert p.shape == (g.number_of_directed_edges,)\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('embiggen_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
