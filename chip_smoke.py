@@ -26,6 +26,12 @@ the exit code is not 0:
      leave; K7 forward for the three combiners and its backward through
      autograd (rtol 1e-5 / atol 1e-5: sums in another order); P1 and P2
      (rtol 1e-5 / atol 1e-3: sums of 256 and 8192 rows in another order);
+     K8 on 2^20 pairs (half arcs, half uniform pairs) of the slice graph
+     and of the slice graph plus 256 hubs of 4,096-65,536 random
+     neighbours (with hub-hub pairs, truncated at cap 128): the common
+     neighbour counts and preferential attachment exactly, Jaccard rtol
+     1e-6, Adamic-Adar and resource allocation rtol 1e-5 / atol 1e-6 (sums
+     in another order);
   5. S1: three SkipGram steps on injected batches, kernel path against the
      plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
      erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
@@ -38,14 +44,23 @@ the exit code is not 0:
   7. S2: the harness configuration: PerceptronEdgePrediction (Degree +
      CosineSimilarity, 15 epochs) on phase 5's embeddings, fitted and
      scoring the 20M arcs, with K5 launched (the negative graph's
-     membership test);
+     membership test); then the same with the reference's own feature set
+     (Degree, AdamicAdar, JaccardCoefficient), with K8 launched;
   8. the probe entry point (`embiggen_tpu_torch.scripts.spmm_probe.run`),
      with P1 and P2 launched, beside K7's gathered rows/s;
-  9. quality on the card: the reference's gate fixture (random geometric
-     graph, connected holdout 3), SkipGram embeddings, the Perceptron and
-     the GCN fitted with model seeds 0-7 and scored by `_evaluate`; mean
-     test AUPRC at least the reference's less 0.03, and 0.80;
- 10. with `--profile` only: torch.profiler over steady steps of S1 and of
+  9. quality on the card: the reference's link-prediction gate verbatim
+     (SkipGram features, a Perceptron on Jaccard + Adamic-Adar + Hadamard)
+     through `edge_prediction_evaluation` on its random geometric fixture,
+     with K8 launched: test AUPRC and AUROC at least 0.90, and AUPRC within
+     0.03 of the reference's for the same call; and on the same connected
+     holdout the GCN fitted with model seeds 0-7 and scored by `_evaluate`:
+     mean test AUPRC at least the reference's less 0.03, and 0.80;
+ 10. S4: the flagship harness (`embiggen_tpu_torch.scripts.harness.run`):
+     `edge_prediction_evaluation` of a Perceptron and a Kipf GCN over
+     SkipGram features on a 1M-node planted-partition graph, with K1-K7
+     launched; every phase second, peak device memory, and test AUPRC at
+     least 0.85 (printed beside the reference's 0.8712);
+ 11. with `--profile` only: torch.profiler over steady steps of S1 and of
      the GCN, one line per kernel name with its device ms per step.
 Then a JSON line of the kernels (with the build seconds), the card's line
 again, and last `{"ok": true, "device": {...}}`.
@@ -53,7 +68,6 @@ again, and last `{"ok": true, "device": {...}}`.
 import argparse
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -69,29 +83,31 @@ PROFILE_STEPS = 10
 GCN_BATCH = 1 << 20
 K7_TOL = dict(rtol=1e-5, atol=1e-5)
 PROBE_TOL = dict(rtol=1e-5, atol=1e-3)
+K8_PAIRS = 1 << 20
+N_HUBS = 256
+K8_SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 # The reference's gate fixture and settings (tests/test_quality_gates.py),
-# with the features the port has, and the reference's mean test AUPRC over
-# the model seeds GATE_SEEDS, measured with embiggen_tpu
+# the reference's test AUPRC of its Perceptron gate call, and its GCN's mean
+# test AUPRC over the model seeds GATE_SEEDS, measured with embiggen_tpu
 # (tests/test_torch_link_prediction.py says how).
 GATE_SKIPGRAM = dict(embedding_size=32, epochs=100, batch_size=256,
                      walk_length=16, window_size=2, number_of_negative_samples=5,
                      learning_rate_decay=0.99, random_state=0,
                      early_stopping_patience=10**6,
                      learning_rate_plateau_patience=10**6)
-GATE_PERCEPTRON = dict(edge_embeddings=["Hadamard"], edge_features=["Degree"],
+GATE_PERCEPTRON = dict(edge_embeddings=["Hadamard"],
+                       edge_features=["JaccardCoefficient", "AdamicAdar"],
                        number_of_epochs=100, random_state=0)
+GATE_REFERENCE_PERCEPTRON_AUPRC = 0.9913790290856157
 GATE_GCN = dict(units=[32], tower_units=[16], head_units=[16], epochs=50,
                 use_node_embedding=True, node_embedding_size=32,
                 dropout_rate=0.2, batch_size=1024, random_state=0)
-GATE_REFERENCE_AUPRC = {"perceptron": 0.9626831024263514, "gcn": 0.9511797508504303}
+GATE_REFERENCE_GCN_AUPRC = 0.9511797508504303
 GATE_SEEDS = range(8)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+# The flagship harness's test AUPRC of the reference (BENCH_r05_local.json)
+# and the port's floor.
+HARNESS_REFERENCE_AUPRC = 0.8712
+HARNESS_FLOOR = 0.85
 
 
 def time_ms(fn, reps: int) -> float:
@@ -396,7 +412,7 @@ def gcn_step(model, graph):
 
 def print_profile(name, card, rows, step_ms):
     busy = sum(ms for ms, _ in rows.values())
-    print(f"phase 10 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+    print(f"phase 11 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
           f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
           f"per step, device busy share {busy / step_ms:.3f}", flush=True)
     for kernel, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
@@ -555,6 +571,80 @@ def probe_checks(dev):
     return entries
 
 
+def hub_graph(graph):
+    """`graph` plus N_HUBS new nodes, each joined to 4,096-65,536 random
+    nodes (hubs included)."""
+    from embiggen_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(27)
+    n = graph.number_of_nodes
+    sizes = rng.integers(4096, 65536, N_HUBS, endpoint=True)
+    hubs = np.repeat(np.arange(n, n + N_HUBS), sizes)
+    one = graph.sources < graph.col_idx
+    return Graph.from_edge_arrays(
+        np.concatenate([graph.sources[one], hubs]),
+        np.concatenate([graph.col_idx[one], rng.integers(0, n + N_HUBS, len(hubs))]),
+        n_nodes=n + N_HUBS, directed=False, name="ER+hubs")
+
+
+def edge_metrics_check(graph, tg, hub_pairs):
+    """K8 against its plain version on K8_PAIRS pairs of `graph` (half arcs,
+    half uniform pairs, the last `hub_pairs` of them between two of the
+    N_HUBS highest-degree nodes). Returns (max abs err, ms, plain ms, number
+    of pairs truncated at cap)."""
+    from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
+
+    dev, n = tg.device, graph.number_of_nodes
+    rng = np.random.default_rng(28)
+    arc = rng.integers(0, graph.number_of_directed_edges, K8_PAIRS // 2)
+    rest = K8_PAIRS - K8_PAIRS // 2
+    hubs = np.argsort(-graph.degrees, kind="stable")[:N_HUBS]
+    pick = [np.concatenate([rng.integers(0, n, rest - hub_pairs),
+                            rng.choice(hubs, hub_pairs)]) for _ in range(2)]
+    src = torch.from_numpy(np.concatenate([graph.sources[arc], pick[0]]).astype(np.int32)).to(dev)
+    dst = torch.from_numpy(np.concatenate([graph.col_idx[arc], pick[1]]).astype(np.int32)).to(dev)
+    got = edge_metrics(tg, src, dst)
+    want = edge_metrics_plain(tg, src, dst)
+    deg = tg.degrees.long()
+    if not torch.equal(got[:, 3], want[:, 3]):
+        raise AssertionError("K8 preferential attachment differs from the plain version")
+    # The common-neighbour count, recovered from Jaccard and the degree sum.
+    total = (deg[src.long()] + deg[dst.long()]).double()
+
+    def inter(m):
+        jac = m[:, 1].double()
+        return torch.round(jac * total / (1.0 + jac))
+    if not torch.equal(inter(got), inter(want)):
+        raise AssertionError("K8 common-neighbour counts differ from the plain version")
+    err = check_close("K8 Jaccard", got[:, 1], want[:, 1], 1e-6, 0.0)
+    err = max(err, check_close("K8 Adamic-Adar and RA", got[:, [0, 2]],
+                               want[:, [0, 2]], **K8_SUM_TOL))
+    truncated = int((torch.minimum(deg[src.long()], deg[dst.long()]) > 128).sum())
+    del got, want
+    return (err, time_ms(lambda: edge_metrics(tg, src, dst), 20),
+            time_ms(lambda: edge_metrics_plain(tg, src, dst), 2), truncated)
+
+
+def edge_metrics_checks(graph, tg):
+    """K8 on the slice graph and on it plus hubs. Returns its kernels entry
+    (with the hub graph's numbers beside)."""
+    err, ms, plain_ms, _ = edge_metrics_check(graph, tg, 0)
+    hg = hub_graph(graph)
+    htg = hg.device(tg.device)
+    hub_err, hub_ms, hub_plain_ms, truncated = edge_metrics_check(hg, htg, 4096)
+    if truncated == 0:
+        raise AssertionError("no K8 pair of the hub graph reached the cap")
+    del htg
+    torch.cuda.empty_cache()
+    return dict(
+        source="embiggen_tpu_torch/csrc/edge_metrics.cu",
+        replaces="embiggen_tpu/ops/edge_metrics.py:34",
+        max_abs_err=max(err, hub_err), ms=ms, plain_ms=plain_ms,
+        hub_graph_arcs=hg.number_of_directed_edges, hub_ms=hub_ms,
+        hub_plain_ms=hub_plain_ms, hub_pairs_truncated=truncated,
+    )
+
+
 def gcn_injected_steps(dev):
     """Three Adam steps of a small GCN on injected batches, on `dev` and
     on the CPU from the same initial parameters. Returns the largest
@@ -589,38 +679,48 @@ def gcn_injected_steps(dev):
 
 
 def quality_on_card(card, dev):
-    """The gate fixture on `dev`: per model, the test AUROC and AUPRC of
-    each seed of GATE_SEEDS. Raises unless the mean test AUPRC reaches the
-    reference's less 0.03, and 0.80."""
+    """The gate fixture on `dev`. The reference's Perceptron gate through
+    `edge_prediction_evaluation` (its test row, and the launch counts of
+    that call); then on the same connected holdout the GCN with each seed
+    of GATE_SEEDS (test AUROC and AUPRC per seed). Raises unless the
+    Perceptron's test AUPRC and AUROC reach 0.90 and its AUPRC is within
+    0.03 of the reference's, and unless the GCN's mean test AUPRC reaches
+    the reference's less 0.03, and 0.80."""
     from embiggen_tpu_torch.graph import connected_holdout, random_geometric
-    from embiggen_tpu_torch.models.classifier import AbstractClassifierModel
     from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
     from embiggen_tpu_torch.models.embedders import SkipGram
     from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation
 
     rgg = random_geometric(1000, radius=0.07, seed=42)
+    _build.reset_launch_counts()
+    rows = edge_prediction_evaluation(
+        holdouts_number=1,
+        models=PerceptronEdgePrediction(device=dev, **GATE_PERCEPTRON),
+        graphs=rgg, node_features=SkipGram(device=dev, **GATE_SKIPGRAM),
+        evaluation_schema="Connected Monte Carlo", random_state=3)
+    launches = _build.launch_counts()
+    perceptron = next(r for r in rows if r["evaluation_mode"] == "test")
+    if not (perceptron["auprc"] >= 0.90 and perceptron["auroc"] >= 0.90
+            and abs(perceptron["auprc"] - GATE_REFERENCE_PERCEPTRON_AUPRC) <= 0.03):
+        raise AssertionError(f"Perceptron gate on {card}: test AUPRC "
+                             f"{perceptron['auprc']}, AUROC {perceptron['auroc']}")
     train, test = connected_holdout(rgg, random_state=3)
-    feats = AbstractClassifierModel.fit_deferred_features(
-        [SkipGram(device=dev, **GATE_SKIPGRAM)], train)
-    got = {}
-    for name, make, features in (
-        ("perceptron", lambda: PerceptronEdgePrediction(device=dev, **GATE_PERCEPTRON), feats),
-        ("gcn", lambda: GCNEdgePrediction(device=dev, **GATE_GCN), None),
-    ):
-        got[name] = []
-        for seed in GATE_SEEDS:
-            model = make()
-            model.set_random_state(seed)
-            model.fit(train, support=train, node_features=features)
-            rows = {r["evaluation_mode"]: r for r in
-                    model._evaluate(rgg, train, test, support=train, random_state=3)}
-            got[name].append((rows["test"]["auroc"], rows["test"]["auprc"]))
-        mean = float(np.mean([p for _, p in got[name]]))
-        floor = max(0.80, GATE_REFERENCE_AUPRC[name] - 0.03)
-        if not mean >= floor:
-            raise AssertionError(f"{name} mean test AUPRC {mean} on {card} "
-                                 f"is below {floor}: {got[name]}")
-    return got
+    gcn = []
+    for seed in GATE_SEEDS:
+        model = GCNEdgePrediction(device=dev, **GATE_GCN)
+        model.set_random_state(seed)
+        model.fit(train, support=train)
+        got = {r["evaluation_mode"]: r for r in
+               model._evaluate(rgg, train, test, support=train, random_state=3)}
+        gcn.append((got["test"]["auroc"], got["test"]["auprc"]))
+    mean = float(np.mean([p for _, p in gcn]))
+    floor = max(0.80, GATE_REFERENCE_GCN_AUPRC - 0.03)
+    if not mean >= floor:
+        raise AssertionError(f"GCN mean test AUPRC {mean} on {card} is below "
+                             f"{floor}: {gcn}")
+    return perceptron, launches, gcn
 
 
 # The kernels each path must launch; each path runs with the counts set to
@@ -628,6 +728,8 @@ def quality_on_card(card, dev):
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_grads", "mean_scatter")
 S2_KERNELS = ("csr_edge_ids",)
 S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
+K8_KERNELS = ("edge_metrics",)
+S4_KERNELS = S1_KERNELS + S2_KERNELS + S3_KERNELS
 PROBE_KERNELS = ("tile_gather_sums", "table_gather_sums")
 
 
@@ -648,6 +750,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on an NVIDIA GPU.")
+    from embiggen_tpu_torch.scripts.harness import card_line
+
     card = card_line()
     print(f"phase 1 card: {card} | torch {torch.__version__} | "
           f"CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}",
@@ -656,6 +760,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.graph.sampling import _NEG_CACHE
     from embiggen_tpu_torch.models import get_model_from_library
     from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
     from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, GCNEncoder
@@ -667,7 +772,7 @@ def main() -> None:
     )
     from embiggen_tpu_torch.ops.walks import first_order_walks, first_order_walks_plain
     from embiggen_tpu_torch.pipelines import embed_graph
-    from embiggen_tpu_torch.scripts import spmm_probe
+    from embiggen_tpu_torch.scripts import harness, spmm_probe
 
     # --------------------------------------------------------------- 2. build
     build_s = _build.build(force=True)
@@ -790,6 +895,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     new.update(probe_checks(dev))
     torch.cuda.empty_cache()
+    new["edge_metrics"] = edge_metrics_checks(graph, tg)
     kernels.update(new)
     print(f"phase 4 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
           "ms per call): " + "; ".join(
@@ -802,7 +908,11 @@ def main() -> None:
           f"{new['tile_gather_sums']['rows_per_s']:.4g} GB/s "
           f"{new['tile_gather_sums']['gbytes_per_s']:.4g}; P2 rows/s "
           f"{new['table_gather_sums']['rows_per_s']:.4g} GB/s "
-          f"{new['table_gather_sums']['gbytes_per_s']:.4g} | K6 p-values: "
+          f"{new['table_gather_sums']['gbytes_per_s']:.4g} | K8 on the hub graph "
+          f"({new['edge_metrics']['hub_graph_arcs']} arcs, "
+          f"{new['edge_metrics']['hub_pairs_truncated']} pairs at the cap) ms "
+          f"{new['edge_metrics']['hub_ms']:.4f} plain "
+          f"{new['edge_metrics']['hub_plain_ms']:.4f} | K6 p-values: "
           + "; ".join(f"{k} {v:.3g}" for k, v in k6_p.items()), flush=True)
 
     # ---------------------------------------------------------------- 5. S1
@@ -921,7 +1031,40 @@ def main() -> None:
           f"{perceptron._last_loss:.6g}, predict_proba on {len(perceptron_proba)} "
           f"arcs {perceptron_predict_s:.2f} s, peak {perceptron_peak} bytes; "
           f"launches {perceptron_launches}", flush=True)
-    del perceptron_proba
+    del perceptron_proba, perceptron
+    torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    # The negative graph of the fit above is memoized; drop it, so this fit
+    # is timed whole.
+    _NEG_CACHE.clear()
+    perceptron = PerceptronEdgePrediction(
+        edge_features=["Degree", "AdamicAdar", "JaccardCoefficient"],
+        edge_embeddings=["CosineSimilarity"], number_of_epochs=15,
+        random_state=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    perceptron.fit(graph, node_features=result.node_embeddings[0])
+    k8_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perceptron_proba = perceptron.predict_proba(graph)
+    k8_predict_s = time.perf_counter() - t0
+    k8_launches = check_launches("K8 Perceptron", _build.launch_counts(),
+                                 S2_KERNELS + K8_KERNELS)
+    k8_peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(perceptron._last_loss):
+        raise AssertionError(f"Perceptron loss {perceptron._last_loss}")
+    if (perceptron_proba.shape != (graph.number_of_directed_edges,)
+            or not np.isfinite(perceptron_proba).all()):
+        raise AssertionError("K8 Perceptron scores: wrong shape or non-finite values")
+    print(f"phase 7 S2 Perceptron with Degree + AdamicAdar + JaccardCoefficient on "
+          f"{card} ({time.perf_counter() - t_phase:.1f} s): fit {k8_fit_s:.2f} s "
+          f"(stages {perceptron._fit_seconds}), last epoch loss "
+          f"{perceptron._last_loss:.6g}, predict_proba on {len(perceptron_proba)} "
+          f"arcs {k8_predict_s:.2f} s, peak {k8_peak} bytes; launches {k8_launches}",
+          flush=True)
+    del perceptron_proba, perceptron
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ 8. probes
@@ -940,23 +1083,46 @@ def main() -> None:
 
     # ----------------------------------------------------------- 9. quality
     t_phase = time.perf_counter()
-    quality = quality_on_card(card, dev)
+    gate, gate_launches, gcn_quality = quality_on_card(card, dev)
+    gate_launches = check_launches("gate", gate_launches,
+                                   S1_KERNELS + S2_KERNELS + K8_KERNELS)
     print(f"phase 9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07) connected holdout 3, mean test AUROC / "
-          "AUPRC over seeds 0-7: " + "; ".join(
-              f"{k} {np.mean([a for a, _ in v]):.4f} / {np.mean([p for _, p in v]):.4f} "
-              f"(reference mean AUPRC {GATE_REFERENCE_AUPRC[k]:.4f}; per seed "
-              f"AUPRC {[round(p, 4) for _, p in v]})" for k, v in quality.items()),
-          flush=True)
+          "random_geometric(1000, 0.07), connected holdout 3: Perceptron gate "
+          f"through edge_prediction_evaluation test AUROC {gate['auroc']:.4f} "
+          f"AUPRC {gate['auprc']:.4f} (reference AUPRC "
+          f"{GATE_REFERENCE_PERCEPTRON_AUPRC:.4f}), launches {gate_launches}; GCN "
+          f"mean test AUROC / AUPRC over seeds 0-7 "
+          f"{np.mean([a for a, _ in gcn_quality]):.4f} / "
+          f"{np.mean([p for _, p in gcn_quality]):.4f} (reference mean AUPRC "
+          f"{GATE_REFERENCE_GCN_AUPRC:.4f}; per seed AUPRC "
+          f"{[round(p, 4) for _, p in gcn_quality]})", flush=True)
 
-    # -------------------------------------------------- 10. profile (option)
+    # ---------------------------------------------------------- 10. S4 harness
+    t_phase = time.perf_counter()
+    del result
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    harness_out = harness.run(dev, er_graph=graph)
+    harness_launches = check_launches("S4", _build.launch_counts(), S4_KERNELS)
+    auprc = harness_out["eval_test_auprc"]
+    if not auprc >= HARNESS_FLOOR:
+        raise AssertionError(f"flagship harness test AUPRC {auprc} on {card} is "
+                             f"below {HARNESS_FLOOR}: {harness_out}")
+    print(f"phase 10 S4 harness on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          f"test AUPRC {auprc:.4f}, {auprc - HARNESS_REFERENCE_AUPRC:+.4f} from the "
+          f"reference's {HARNESS_REFERENCE_AUPRC}; {json.dumps(harness_out)}; "
+          f"launches {harness_launches}", flush=True)
+
+    # -------------------------------------------------- 11. profile (option)
     if args.profile:
         print_profile("S1", card, *profile(skipgram_step(model, graph), PROFILE_STEPS))
         print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
 
-    launches = {**path_launches, **gcn_launches, **perceptron_launches, **probe_launches}
+    launches = {**path_launches, **gcn_launches, **perceptron_launches,
+                **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches}
     print(json.dumps({"build_s": build_s, "kernels": [
-        {"name": name, "route": "cuda", "launches": launches[name], **v}
+        {"name": name, "route": "cuda", "launches": launches[name],
+         "harness_launches": harness_launches.get(name, 0), **v}
         for name, v in kernels.items()
     ]}))
     print(card_line())

@@ -11,6 +11,15 @@ __version__ = "0.1.0"
 from . import graph
 from .graph import Graph
 from . import models
-from .pipelines import embed_graph
+from .pipelines import (
+    edge_label_prediction_evaluation,
+    edge_prediction_evaluation,
+    embed_graph,
+    node_label_prediction_evaluation,
+)
 
-__all__ = ["graph", "Graph", "models", "embed_graph", "__version__"]
+__all__ = [
+    "graph", "Graph", "models", "embed_graph", "edge_prediction_evaluation",
+    "node_label_prediction_evaluation", "edge_label_prediction_evaluation",
+    "__version__",
+]

@@ -1,12 +1,17 @@
-"""Graph container, device export, generators, kernels, holdouts and
-negative sampling."""
-from .generators import erdos_renyi, planted_partition_edges, random_geometric
+"""Graph container, device export, generators, loaders, kernels, holdouts
+and negative sampling."""
+from .generators import (
+    barabasi_albert, erdos_renyi, planted_partition_edges, random_geometric,
+)
 from .graph import Graph, TorchGraph, build_alias_tables
-from .holdouts import connected_holdout, random_holdout
+from .holdouts import connected_holdout, edge_prediction_kfold, random_holdout
+from .loaders import DatasetSpec, from_csv, get_dataset, karate_club, small_ppi
 from .sampling import sample_negative_graph
 
 __all__ = [
-    "Graph", "TorchGraph", "build_alias_tables", "erdos_renyi",
-    "planted_partition_edges", "random_geometric", "connected_holdout",
-    "random_holdout", "sample_negative_graph",
+    "Graph", "TorchGraph", "build_alias_tables", "barabasi_albert",
+    "erdos_renyi", "planted_partition_edges", "random_geometric",
+    "connected_holdout", "edge_prediction_kfold", "random_holdout",
+    "DatasetSpec", "from_csv", "get_dataset", "karate_club", "small_ppi",
+    "sample_negative_graph",
 ]

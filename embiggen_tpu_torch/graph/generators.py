@@ -12,6 +12,37 @@ import numpy as np
 from .graph import Graph
 
 
+def barabasi_albert(
+    n_nodes: int, m: int, seed: int = 0, name: Optional[str] = None
+) -> Graph:
+    """Preferential-attachment graph: each new node joins up to m distinct
+    earlier nodes drawn from the list of arc endpoints, so
+    degree-proportionally (the first distinct picks among 3m draws without
+    replacement from that list)."""
+    rng = np.random.default_rng(seed)
+    repeated = list(range(m))
+    sources, targets = [], []
+    for v in range(m, n_nodes):
+        choice = rng.choice(len(repeated), size=min(3 * m, len(repeated)),
+                            replace=False)
+        picked, seen = [], set()
+        for c in choice:
+            t = repeated[c]
+            if t not in seen:
+                seen.add(t)
+                picked.append(t)
+            if len(picked) == m:
+                break
+        sources.extend([v] * len(picked))
+        targets.extend(picked)
+        repeated.extend(picked)
+        repeated.extend([v] * len(picked))
+    return Graph.from_edge_arrays(
+        np.asarray(sources), np.asarray(targets), n_nodes=n_nodes,
+        directed=False, name=name or f"BA(n={n_nodes},m={m})",
+    )
+
+
 def erdos_renyi(
     n_nodes: int, n_edges: int, seed: int = 0, weighted: bool = False,
     name: Optional[str] = None,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import cached_property
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -188,6 +188,43 @@ class Graph:
     def get_node_names(self) -> np.ndarray:
         return _as_names(self.node_names, self.number_of_nodes, "node_")
 
+    @cached_property
+    def node_name_to_id(self) -> Dict[str, int]:
+        return {n: i for i, n in enumerate(self.get_node_names())}
+
+    def get_node_ids_from_names(self, names: Sequence[str]) -> np.ndarray:
+        m = self.node_name_to_id
+        return np.asarray([m[n] for n in names], dtype=np.int32)
+
+    def get_node_ids_from_prefixes(self, prefixes: Sequence[str]) -> np.ndarray:
+        """Ids of the nodes whose name starts with any of `prefixes`."""
+        if isinstance(prefixes, str):
+            prefixes = [prefixes]
+        names = self.get_node_names().astype(str)
+        mask = np.zeros(self.number_of_nodes, dtype=bool)
+        for p in prefixes:
+            mask |= np.char.startswith(names, p)
+        return np.nonzero(mask)[0].astype(np.int32)
+
+    def filter_edges(self, keep_mask: np.ndarray, name: Optional[str] = None) -> "Graph":
+        """The graph on the same nodes with only the arcs where `keep_mask`."""
+        return Graph.from_edge_arrays(
+            self.sources[keep_mask],
+            self.col_idx[keep_mask],
+            n_nodes=self.number_of_nodes,
+            weights=None if self.weights is None else self.weights[keep_mask],
+            directed=True,
+            directed_flag=self.directed,
+            name=name or self.name,
+            node_names=self.node_names,
+        )
+
+    def __and__(self, other: "Graph") -> "Graph":
+        """The arcs of this graph that are also arcs of `other`, whose node
+        ids must be this graph's."""
+        mask = other.has_edges(self.sources, self.col_idx)
+        return self.filter_edges(mask, name=f"{self.name}&{other.name}")
+
     @staticmethod
     def from_edge_arrays(
         src: np.ndarray,
@@ -197,12 +234,15 @@ class Graph:
         directed: bool = False,
         name: str = "Graph",
         node_names: Optional[Sequence[str]] = None,
+        directed_flag: Optional[bool] = None,
     ) -> "Graph":
         """Build the CSR from (src, dst[, weights]) arc arrays.
 
         If directed=False, arcs are symmetrized. Arcs sort by the key
         src * N + dst; a duplicate arc keeps the attributes of its first
-        occurrence."""
+        occurrence. `directed_flag`, when given, is the stored
+        directedness in place of `directed` (for arcs that are already
+        symmetrized)."""
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if n_nodes is None:
@@ -221,7 +261,7 @@ class Graph:
         return Graph(
             row_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
             col_idx=(keys - src * n_nodes).astype(np.int32),
-            directed=directed,
+            directed=directed if directed_flag is None else directed_flag,
             name=name,
             weights=weights,
             node_names=(None if node_names is None

@@ -1,8 +1,9 @@
 """Edge holdouts — counterpart of `embiggen_tpu/graph/holdouts.py`
-(`connected_holdout`, `random_holdout`). Host numpy, with the same RNG calls
-in the same order, so a seed gives the reference's split. The spanning
-forest runs the Python union-find (the reference's native copy comes with
-ROADMAP A5, as do the k-fold and label splits)."""
+(`connected_holdout`, `random_holdout`, `edge_prediction_kfold`). Host
+numpy, with the same RNG calls in the same order, so a seed gives the
+reference's split. The spanning forest runs the Python union-find (the
+reference's native copy is a ROADMAP item); the label splits come with
+ROADMAP A10."""
 from __future__ import annotations
 
 import warnings
@@ -102,4 +103,19 @@ def random_holdout(
     return (
         _subgraph_from_canonical(graph, train_mask, f"{graph.name}_train"),
         _subgraph_from_canonical(graph, ~train_mask, f"{graph.name}_test"),
+    )
+
+
+def edge_prediction_kfold(
+    graph: Graph, k: int, holdout_number: int, random_state: int = 42
+) -> Tuple[Graph, Graph]:
+    """(train, test) of fold `holdout_number` (mod k) of a seeded k-fold
+    split of the edges: that fold is the test graph."""
+    src, _, _ = _canonical_edges(graph)
+    perm = np.random.default_rng(random_state).permutation(len(src))
+    test_mask = np.zeros(len(src), dtype=bool)
+    test_mask[np.array_split(perm, k)[holdout_number % k]] = True
+    return (
+        _subgraph_from_canonical(graph, ~test_mask, f"{graph.name}_train"),
+        _subgraph_from_canonical(graph, test_mask, f"{graph.name}_test"),
     )

@@ -171,8 +171,9 @@ class AbstractEmbeddingModel(AbstractModel):
         return_dataframe: bool = False,
     ) -> EmbeddingResult:
         if isinstance(graph, str):
-            raise NotImplementedError(
-                "Loading graphs by name is not ported yet (ROADMAP A5).")
+            from ..graph.loaders import get_dataset
+
+            graph = get_dataset(graph)
         self._validate_graph(graph)
         result = self._fit_transform(graph)
         if return_dataframe:

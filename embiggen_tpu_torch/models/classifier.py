@@ -2,7 +2,9 @@
 `embiggen_tpu/models/classifier.py`: feature normalization (model names,
 embedding models, EmbeddingResults, DataFrames and arrays become aligned
 [n_nodes, d] float32 matrices, with holdout-biased feature models deferred),
-the fit / predict / predict_proba verbs and the binary metric panel.
+the fit / predict / predict_proba verbs, the binary metric panel and the
+model-level holdout evaluation (`evaluate`, through
+`pipelines/evaluation.py`).
 
 A model runs on the explicit `device` it is given (default "cuda") and
 never moves elsewhere on its own; the device is not a hyper-parameter, so
@@ -10,6 +12,8 @@ it stays out of `parameters()` and the hash.
 """
 from __future__ import annotations
 
+import os
+import platform
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -196,11 +200,47 @@ class AbstractClassifierModel(AbstractModel):
         self._fitting_was_executed = True
         return self
 
-    def evaluate(self, graph: Graph, *args, **kwargs):
-        """The holdout evaluation harness: not ported yet."""
-        raise NotImplementedError(
-            "evaluate() runs the evaluation pipeline, which is not ported "
-            "yet (ROADMAP A5); score a holdout with _evaluate().")
+    def evaluate(
+        self,
+        graph: Graph,
+        evaluation_schema: Optional[str] = None,
+        holdouts_number: int = 10,
+        node_features=None,
+        node_type_features=None,
+        edge_type_features=None,
+        edge_features=None,
+        random_state: int = 42,
+        holdouts_kwargs: Optional[Dict[str, Any]] = None,
+        number_of_workers: Optional[int] = None,
+        worker_id: Optional[int] = None,
+        enable_cache: bool = False,
+        cache_dir: Optional[str] = None,
+        **evaluation_kwargs,
+    ) -> List[Dict[str, Any]]:
+        """This model's holdout evaluation on `graph`: the metric rows of
+        `pipelines.evaluation.evaluate_model_on_graph` (the schema defaults
+        to the first available one)."""
+        from ..pipelines.evaluation import evaluate_model_on_graph
+
+        if evaluation_schema is None:
+            evaluation_schema = self.get_available_evaluation_schemas()[0]
+        return evaluate_model_on_graph(
+            self,
+            graph,
+            evaluation_schema,
+            holdouts_number,
+            node_features=node_features,
+            node_type_features=node_type_features,
+            edge_type_features=edge_type_features,
+            edge_features=edge_features,
+            random_state=random_state,
+            holdouts_kwargs=holdouts_kwargs,
+            number_of_workers=number_of_workers,
+            worker_id=worker_id,
+            enable_cache=enable_cache,
+            cache_dir=cache_dir,
+            **evaluation_kwargs,
+        )
 
     def predict(self, graph: Graph, **kwargs) -> np.ndarray:
         self._check_fitted()
@@ -240,3 +280,13 @@ class AbstractClassifierModel(AbstractModel):
                 "(ROADMAP A10).")
         scores = probabilities if probabilities.ndim == 1 else probabilities[:, -1]
         return all_binary_metrics(labels, scores)
+
+    @staticmethod
+    def run_metadata() -> Dict[str, Any]:
+        """Platform metadata carried by every evaluation row."""
+        return {
+            "platform": platform.platform(),
+            "python_version": platform.python_version(),
+            "number_of_threads": os.cpu_count(),
+            "hostname": platform.node(),
+        }

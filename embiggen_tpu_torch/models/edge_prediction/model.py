@@ -1,9 +1,10 @@
 """AbstractEdgePredictionModel — counterpart of
-`embiggen_tpu/models/edge_prediction/model.py`: the evaluation schemas and
-`_evaluate`, which scores the train and test graphs of a holdout against
-negative graphs drawn (scale-free by default) from the whole graph. The
-bipartite and clique candidate-set surface comes with the evaluation
-harness (ROADMAP A5).
+`embiggen_tpu/models/edge_prediction/model.py`: the evaluation schemas
+(Connected Monte Carlo, Monte Carlo, Kfold), `_evaluate`, which scores the
+train and test graphs of a holdout against negative graphs drawn
+(scale-free by default) from the whole graph, and the bipartite and clique
+candidate-set surface. The candidate sets by node type raise until the
+port's Graph has node types (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -14,7 +15,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...graph.graph import Graph
-from ...graph.holdouts import connected_holdout, random_holdout
+from ...graph.holdouts import (
+    connected_holdout,
+    edge_prediction_kfold,
+    random_holdout,
+)
 from ...graph.sampling import sample_negative_graph
 from ..classifier import AbstractClassifierModel
 
@@ -56,8 +61,10 @@ class AbstractEdgePredictionModel(AbstractClassifierModel):
                 train_size=kwargs.get("train_size", 0.8),
             )
         if schema == "kfold":
-            raise NotImplementedError(
-                "The k-fold split is not ported yet (ROADMAP A5).")
+            return edge_prediction_kfold(
+                graph, k=kwargs.get("k", 10),
+                holdout_number=holdout_number, random_state=random_state,
+            )
         raise ValueError(
             f"Unknown evaluation schema {evaluation_schema!r}; available: "
             f"{cls.get_available_evaluation_schemas()}"
@@ -131,6 +138,152 @@ class AbstractEdgePredictionModel(AbstractClassifierModel):
                 })
                 rows.append(metrics)
         return rows
+
+    # ----------------------------------------------- candidate-set prediction
+    #
+    # {predict, predict_proba} x {bipartite, clique} x {ids, names,
+    # prefixes, node types}. Every route scores the |S| x |D| candidate
+    # product in chunks of PREDICTION_CHUNK_SIZE pairs, each chunk's (src,
+    # dst) made from the flat pair index, so the product never exists as
+    # pairs on the host.
+    PREDICTION_CHUNK_SIZE = 1 << 20
+
+    def _score_pair_product(
+        self, source_node_ids: np.ndarray, destination_node_ids: np.ndarray,
+    ) -> np.ndarray:
+        """[|S|, |D|] probabilities of every (source, destination) pair."""
+        src_ids = np.asarray(source_node_ids, dtype=np.int64).reshape(-1)
+        dst_ids = np.asarray(destination_node_ids, dtype=np.int64).reshape(-1)
+        s, d = len(src_ids), len(dst_ids)
+        out = np.empty(s * d, dtype=np.float32)
+        chunk = int(self.PREDICTION_CHUNK_SIZE)
+        for start in range(0, s * d, chunk):
+            flat = np.arange(start, min(start + chunk, s * d), dtype=np.int64)
+            out[start:start + len(flat)] = np.asarray(
+                self.predict_proba_from_edge_node_ids(
+                    src_ids[flat // d].astype(np.int32),
+                    dst_ids[flat % d].astype(np.int32),
+                )).reshape(-1)
+        return out.reshape(s, d)
+
+    @staticmethod
+    def _as_dataframe(matrix, graph, src_ids, dst_ids, return_node_names):
+        """The matrix as a pandas DataFrame indexed by node names (or ids);
+        pandas is imported only here."""
+        import pandas as pd
+
+        if return_node_names:
+            names = graph.get_node_names()
+            index = names[np.asarray(src_ids, dtype=np.int64)]
+            columns = names[np.asarray(dst_ids, dtype=np.int64)]
+        else:
+            index, columns = src_ids, dst_ids
+        return pd.DataFrame(matrix, index=index, columns=columns)
+
+    def predict_proba_bipartite_graph_from_edge_node_ids(
+        self,
+        source_node_ids: np.ndarray,
+        destination_node_ids: np.ndarray,
+        support: Optional[Graph] = None,
+        graph: Optional[Graph] = None,
+        return_predictions_dataframe: bool = False,
+        return_node_names: bool = True,
+    ):
+        """[|S|, |D|] probabilities of the bipartite candidate set, or a
+        DataFrame of them (which needs `graph` for the node names)."""
+        matrix = self._score_pair_product(source_node_ids, destination_node_ids)
+        if not return_predictions_dataframe:
+            return matrix
+        if graph is None:
+            raise ValueError("return_predictions_dataframe requires the graph "
+                             "to resolve node names.")
+        return self._as_dataframe(matrix, graph, source_node_ids,
+                                  destination_node_ids, return_node_names)
+
+    def predict_proba_bipartite_graph_from_edge_node_names(
+        self, graph: Graph, source_node_names, destination_node_names,
+        **kwargs,
+    ):
+        return self.predict_proba_bipartite_graph_from_edge_node_ids(
+            graph.get_node_ids_from_names(source_node_names),
+            graph.get_node_ids_from_names(destination_node_names),
+            graph=graph, **kwargs,
+        )
+
+    def predict_proba_bipartite_graph_from_edge_node_prefixes(
+        self, graph: Graph, source_node_prefixes, destination_node_prefixes,
+        **kwargs,
+    ):
+        """Candidate sets: the nodes whose names start with the prefixes."""
+        return self.predict_proba_bipartite_graph_from_edge_node_ids(
+            graph.get_node_ids_from_prefixes(source_node_prefixes),
+            graph.get_node_ids_from_prefixes(destination_node_prefixes),
+            graph=graph, **kwargs,
+        )
+
+    def predict_proba_bipartite_graph_from_edge_node_types(
+        self, graph: Graph, source_node_types, destination_node_types,
+        **kwargs,
+    ):
+        raise NotImplementedError(
+            "Candidate sets by node type need node types, which the port's "
+            "Graph does not have yet (ROADMAP A6).")
+
+    def predict_proba_clique_graph_from_node_ids(self, node_ids: np.ndarray,
+                                                 **kwargs):
+        """[k, k] probabilities over the clique of the given nodes."""
+        return self.predict_proba_bipartite_graph_from_edge_node_ids(
+            node_ids, node_ids, **kwargs)
+
+    def predict_proba_clique_graph_from_node_names(self, graph: Graph,
+                                                   node_names, **kwargs):
+        return self.predict_proba_clique_graph_from_node_ids(
+            graph.get_node_ids_from_names(node_names), graph=graph, **kwargs)
+
+    def predict_proba_clique_graph_from_node_prefixes(self, graph: Graph,
+                                                      node_prefixes, **kwargs):
+        return self.predict_proba_clique_graph_from_node_ids(
+            graph.get_node_ids_from_prefixes(node_prefixes), graph=graph,
+            **kwargs)
+
+    def predict_proba_clique_graph_from_node_type_names(
+        self, graph: Graph, node_type_names, **kwargs
+    ):
+        return self.predict_proba_bipartite_graph_from_edge_node_types(
+            graph, node_type_names, node_type_names, **kwargs)
+
+    # Hard labels: probability > 0.5, elementwise on a matrix or DataFrame.
+    def predict_bipartite_graph_from_edge_node_ids(self, *args, **kwargs):
+        return self.predict_proba_bipartite_graph_from_edge_node_ids(
+            *args, **kwargs) > 0.5
+
+    def predict_bipartite_graph_from_edge_node_names(self, *args, **kwargs):
+        return self.predict_proba_bipartite_graph_from_edge_node_names(
+            *args, **kwargs) > 0.5
+
+    def predict_bipartite_graph_from_edge_node_prefixes(self, *args, **kwargs):
+        return self.predict_proba_bipartite_graph_from_edge_node_prefixes(
+            *args, **kwargs) > 0.5
+
+    def predict_bipartite_graph_from_edge_node_types(self, *args, **kwargs):
+        return self.predict_proba_bipartite_graph_from_edge_node_types(
+            *args, **kwargs) > 0.5
+
+    def predict_clique_graph_from_node_ids(self, *args, **kwargs):
+        return self.predict_proba_clique_graph_from_node_ids(
+            *args, **kwargs) > 0.5
+
+    def predict_clique_graph_from_node_names(self, *args, **kwargs):
+        return self.predict_proba_clique_graph_from_node_names(
+            *args, **kwargs) > 0.5
+
+    def predict_clique_graph_from_node_prefixes(self, *args, **kwargs):
+        return self.predict_proba_clique_graph_from_node_prefixes(
+            *args, **kwargs) > 0.5
+
+    def predict_clique_graph_from_node_type_names(self, *args, **kwargs):
+        return self.predict_proba_clique_graph_from_node_type_names(
+            *args, **kwargs) > 0.5
 
     def predict_proba_from_edge_node_ids(
         self, src: np.ndarray, dst: np.ndarray

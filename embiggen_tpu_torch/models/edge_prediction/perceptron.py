@@ -8,10 +8,9 @@ The [2E, F] training matrix is assembled on the model's device in chunks of
 `CHUNK` pairs (a memory bound) and stays there; normalization is applied per
 minibatch, never materialized. Each SGD step uses the closed-form gradient
 of the logistic loss; on a CUDA device the steps replay captured CUDA
-graphs. Scoring runs in the same chunks. The features that
-need the edge-heuristics kernel K8 (AdamicAdar, JaccardCoefficient,
-ResourceAllocationIndex, PreferentialAttachment, Cooccurrence) are not
-ported yet.
+graphs. Scoring runs in the same chunks. AdamicAdar, JaccardCoefficient,
+ResourceAllocationIndex, PreferentialAttachment and Cooccurrence come from
+the edge heuristics (kernel K8) over the support graph.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import torch.nn.functional as F
 from ...graph.graph import Graph
 from ...graph.sampling import sample_negative_graph
 from ...ops import edge_ops
+from ...ops.edge_metrics import edge_metrics
 from ..registry import register_model
 from .model import AbstractEdgePredictionModel
 
@@ -104,10 +104,6 @@ class PerceptronEdgePrediction(AbstractEdgePredictionModel):
                     f"Unknown edge feature {f!r}; available: "
                     f"{TOPOLOGICAL_FEATURES}"
                 )
-            if f in K8_FEATURES:
-                raise NotImplementedError(
-                    f"Edge feature {f!r} needs the edge-heuristics kernel, "
-                    "which is not ported yet (ROADMAP B, K8).")
         if edge_embeddings is None:
             edge_embeddings = []
         if isinstance(edge_embeddings, str):
@@ -152,26 +148,46 @@ class PerceptronEdgePrediction(AbstractEdgePredictionModel):
 
     # --------------------------------------------------------------- features
     def _device_ctx(self, support: Graph):
-        """(support degrees, node features) on the device, cached per
-        support content (an evaluation scores several graphs against one
-        support)."""
+        """(support degrees, the support's TorchGraph when a K8 feature is
+        asked for, node features) on the device, cached per support content
+        (an evaluation scores several graphs against one support)."""
         fp = support.arcs_fingerprint
         if self._ctx is not None and self._ctx[0] == fp:
-            return self._ctx[1], self._ctx[2]
+            return self._ctx[1]
         deg = (torch.from_numpy(support.degrees).to(self.device, torch.float32)
                if self._edge_features else None)
+        tg = (support.device(self.device)
+              if K8_FEATURES & set(self._edge_features) else None)
         feats = (torch.from_numpy(self._node_features).to(self.device)
                  if self._edge_embeddings else None)
-        self._ctx = (fp, deg, feats)
-        return deg, feats
+        self._ctx = (fp, (deg, tg, feats))
+        return self._ctx[1]
 
-    def _features_device(self, deg, feats, src, dst) -> torch.Tensor:
-        """[C, F] float32 feature block for int64 index tensors src, dst."""
+    def _features_device(self, ctx, src, dst) -> torch.Tensor:
+        """[C, F] float32 feature block for int64 index tensors src, dst,
+        over the device context `ctx` of `_device_ctx`."""
+        deg, tg, feats = ctx
+        metrics = (edge_metrics(tg, src.to(torch.int32), dst.to(torch.int32))
+                   if tg is not None else None)
         parts = []
         for f in self._edge_features:
             if f == "Degree":
                 parts.append(torch.stack(
                     [torch.log1p(deg[src]), torch.log1p(deg[dst])], dim=1))
+            elif f == "AdamicAdar":
+                parts.append(metrics[:, 0:1])
+            elif f == "JaccardCoefficient":
+                parts.append(metrics[:, 1:2])
+            elif f == "ResourceAllocationIndex":
+                parts.append(metrics[:, 2:3])
+            elif f == "PreferentialAttachment":
+                parts.append(torch.log1p(metrics[:, 3:4]))
+            elif f == "Cooccurrence":
+                # The reference's formula of the common-neighbour count from
+                # Jaccard and the degree sum.
+                union = deg[src] + deg[dst]
+                jac = metrics[:, 1]
+                parts.append((jac * union / (1 + jac))[:, None])
         if self._edge_embeddings:
             s, d = feats[src], feats[dst]
             for m in self._edge_embeddings:
@@ -183,14 +199,14 @@ class PerceptronEdgePrediction(AbstractEdgePredictionModel):
         """fn(features [C, F]) over (src, dst) in chunks of CHUNK pairs."""
         if self._edge_embeddings and self._node_features is None:
             raise ValueError("edge_embeddings require node_features at fit time.")
-        deg, feats = self._device_ctx(support)
+        ctx = self._device_ctx(support)
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
         outs = []
         for i in range(0, len(src), self.CHUNK):
             s = torch.from_numpy(src[i:i + self.CHUNK]).to(self.device)
             d = torch.from_numpy(dst[i:i + self.CHUNK]).to(self.device)
-            outs.append(fn(self._features_device(deg, feats, s, d)))
+            outs.append(fn(self._features_device(ctx, s, d)))
         return outs
 
     # ---------------------------------------------------------------- fitting

@@ -7,12 +7,13 @@ transposed backward), draws an edge minibatch on the device (kernel K6:
 uniform positive arcs and scale-free negatives), scores the pairs through
 the towers, the edge combination and the head, and takes an Adam step on
 the logistic loss. Inference convolves once and scores candidate pairs in
-chunks.
+chunks. With `use_edge_metrics`, the edge heuristics of each pair over the
+support graph (kernel K8) join the edge representation before the head.
 
 Not ported yet, each raising NotImplementedError that names its item:
 edge types and the edge-type embedding (A6), static or lazy edge features
-(A11), `use_edge_metrics` (K8), `mesh` (A13) and `checkpoint_dir` (A12);
-the edge-label GCN comes with A10.
+(A11), `mesh` (A13) and `checkpoint_dir` (A12); the edge-label GCN comes
+with A10.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from ...graph.graph import Graph
 from ...ops import edge_ops
+from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
 from ...ops.negatives import edge_prediction_mini_batch
 from ..classifier import AbstractClassifierModel
 from ..edge_prediction.model import AbstractEdgePredictionModel
@@ -79,7 +81,6 @@ class _EdgeGCNBase(AbstractClassifierModel):
             (checkpoint_dir is not None, "A12", "checkpoint_dir: checkpointing"),
             (use_node_type_embedding, "A6", "use_node_type_embedding"),
             (use_edge_type_embedding, "A6", "use_edge_type_embedding"),
-            (use_edge_metrics, "B, K8", "use_edge_metrics: the edge heuristics"),
             (bool(edge_feature_models), "A11", "edge_feature_models"),
         ):
             if given:
@@ -205,6 +206,12 @@ class _EdgeGCNBase(AbstractClassifierModel):
         if not self._siamese_towers:
             params["dst_tower"] = init_mlp(tower_dims, generator)
         edge_dim = edge_ops.output_dim(self._edge_embedding_method, tower_dims[-1])
+        # The edge heuristics run on the support graph; their inputs are
+        # node ids, so no gradient flows through them.
+        self._metrics_tg = (support.device(self.device)
+                            if self._use_edge_metrics else None)
+        if self._use_edge_metrics:
+            edge_dim += N_EDGE_METRICS
         params["head"] = init_mlp(
             [edge_dim] + self._head_units + [self._n_outputs], generator)
         self._combine_fn = edge_ops.resolve(
@@ -227,6 +234,11 @@ class _EdgeGCNBase(AbstractClassifierModel):
         dst_tower = params.get("dst_tower", params["src_tower"])
         h_dst = apply_mlp(dst_tower, h[dst], final_activation=torch.relu)
         e = self._combine_fn(h_src, h_dst)
+        if self._use_edge_metrics:
+            m = edge_metrics(self._metrics_tg, src.to(torch.int32),
+                             dst.to(torch.int32))
+            # log1p of preferential attachment, as the Perceptron's feature.
+            e = torch.cat([e, m[:, :3], torch.log1p(m[:, 3:4])], dim=1)
         if return_representation:
             return e
         return apply_mlp(params["head"], e)

@@ -47,6 +47,7 @@ _SIGNATURES = {
         (_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64,
          _U32, _P), _I32),
     "ebt_csr_spmm": ((_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P), _I32),
+    "ebt_edge_metrics": ((_P, _P, _P, _P, _I64, _I32, _P, _P), _I32),
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
@@ -58,7 +59,7 @@ _SIGNATURES = {
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_grads",
      "mean_scatter", "csr_edge_ids", "edge_prediction_mini_batch", "spmm",
-     "tile_gather_sums", "table_gather_sums"), 0,
+     "edge_metrics", "tile_gather_sums", "table_gather_sums"), 0,
 )
 
 _lib: Optional[ctypes.CDLL] = None

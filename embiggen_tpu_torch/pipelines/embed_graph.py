@@ -1,18 +1,20 @@
 """`embed_graph` pipeline — counterpart of
-`embiggen_tpu/pipelines/embed_graph.py`: resolve the model name through the
-port's registry, build the model, run fit_transform."""
+`embiggen_tpu/pipelines/embed_graph.py`: resolve the graph name through
+`get_dataset` and the model name through the port's registry, build the
+model, run fit_transform."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
 from ..graph.graph import Graph
+from ..graph.loaders import get_dataset
 from ..models.abstract import AbstractEmbeddingModel
 from ..models.embedding_result import EmbeddingResult
 from ..models.registry import get_model_from_library
 
 
 def embed_graph(
-    graph: Graph,
+    graph: Union[Graph, str],
     embedding_model: Union[AbstractEmbeddingModel, str],
     library_name: Optional[str] = None,
     smoke_test: bool = False,
@@ -20,8 +22,7 @@ def embed_graph(
     **kwargs,
 ) -> EmbeddingResult:
     if isinstance(graph, str):
-        raise NotImplementedError(
-            "Loading graphs by name is not ported yet (ROADMAP A5).")
+        graph = get_dataset(graph)
     if isinstance(embedding_model, str):
         cls = get_model_from_library(
             embedding_model, task_name="Node Embedding",

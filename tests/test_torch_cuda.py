@@ -8,12 +8,13 @@ import numpy as np
 import pytest
 import torch
 
-from embiggen_tpu_torch.graph import erdos_renyi
+from embiggen_tpu_torch.graph import Graph, barabasi_albert, erdos_renyi
 from embiggen_tpu_torch.graph.laplacians import kernel_coo
 from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
 from embiggen_tpu_torch.models.embedders import SkipGram
 from embiggen_tpu_torch.models.gcn import KipfGCNEdgePrediction
 from embiggen_tpu_torch.ops import _build
+from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
 from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
@@ -181,3 +182,40 @@ def test_perceptron_graphed_epochs_match_the_cpu(dev):
         torch.testing.assert_close(fitted["cuda"]._linear[key].cpu(),
                                    fitted["cpu"]._linear[key], rtol=1e-4, atol=1e-5)
     assert abs(fitted["cuda"]._last_loss - fitted["cpu"]._last_loss) < 1e-5
+
+
+def _multigraph():
+    """Duplicate arcs and self-loops, sorted rows, and isolated nodes."""
+    rng = np.random.default_rng(3)
+    src, dst = rng.integers(0, 40, 600), rng.integers(0, 40, 600)
+    order = np.lexsort((dst, src))
+    counts = np.bincount(src, minlength=45)
+    return Graph(row_ptr=np.concatenate([[0], np.cumsum(counts)]),
+                 col_idx=dst[order].astype(np.int32), directed=True)
+
+
+@pytest.mark.parametrize("which", ["erdos_renyi", "barabasi_albert", "multigraph"])
+@pytest.mark.parametrize("cap", [4, 128])
+def test_edge_metrics_kernel_matches_plain(dev, which, cap):
+    g = {"erdos_renyi": lambda: erdos_renyi(500, 3000, seed=4),
+         "barabasi_albert": lambda: barabasi_albert(3000, 6, seed=1),
+         "multigraph": _multigraph}[which]()
+    tg = g.device(dev)
+    n = g.number_of_nodes
+    rng = np.random.default_rng(5)
+    arcs = rng.integers(0, g.number_of_directed_edges, 3000)
+    hubs = np.argsort(-g.degrees)[:20]
+    src = np.concatenate([g.sources[arcs], rng.integers(0, n, 3000), rng.choice(hubs, 400)])
+    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, n, 3000), rng.choice(hubs, 400)])
+    s = torch.from_numpy(src.astype(np.int32)).to(dev)
+    d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    before = _build.launch_counts()["edge_metrics"]
+    got = edge_metrics(tg, s, d, cap=cap)
+    want = edge_metrics_plain(tg, s, d, cap=cap)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["edge_metrics"] == before + 1
+    # Jaccard and preferential attachment take the same float operations
+    # on the same integers; the sums of AA and RA run in another order.
+    torch.testing.assert_close(got[:, 1], want[:, 1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], rtol=1e-5, atol=1e-6)

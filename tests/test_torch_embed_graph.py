@@ -1,7 +1,7 @@
 """The port's S1 slice end to end on the CPU: `embed_graph(graph,
 "Node2Vec SkipGram", device="cpu")`, with the quality gate, reproducibility,
-smoke-test, registry and plateau checks of tests/test_embedders.py, and a
-run on a host where jax cannot be imported."""
+smoke-test, registry and plateau checks of tests/test_embedders.py, graphs
+by name, and runs on a host where jax (or pandas) cannot be imported."""
 import os
 import subprocess
 import sys
@@ -159,9 +159,27 @@ def test_unported_options_raise(kwargs, item):
         SkipGram(device="cpu", random_state=0, **kwargs)
 
 
-def test_embed_graph_rejects_graph_names():
-    with pytest.raises(NotImplementedError, match="A5"):
-        embed_graph("Cora", "Node2Vec SkipGram", device="cpu")
+def test_embed_graph_rejects_graph_names(tmp_path, monkeypatch):
+    """Names it cannot load: unknown ones, corpora with no local file, and
+    the typed datasets (node and edge types come with ROADMAP A6)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("EMBIGGEN_DATA_DIR", raising=False)
+    with pytest.raises(KeyError, match="Unknown dataset"):
+        SkipGram(device="cpu", random_state=0).fit_transform("NoSuchGraph")
+    for name in ("Usair97", "Cora"):
+        with pytest.raises(FileNotFoundError, match="synthetic_fallback"):
+            embed_graph(name, "Node2Vec SkipGram", device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        embed_graph("KarateClub", "Node2Vec SkipGram", device="cpu")
+
+
+def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
+    rows = ["subject\tobject"] + [f"v{i}\tv{(i * 7 + 3) % 40}" for i in range(40)]
+    (tmp_path / "Usair97.tsv").write_text("\n".join(rows) + "\n")
+    monkeypatch.setenv("EMBIGGEN_DATA_DIR", str(tmp_path))
+    result = embed_graph("Usair97", "Node2Vec SkipGram", device="cpu",
+                         smoke_test=True, random_state=4)
+    assert result.node_embeddings[0].shape == (40, 5)
 
 
 def test_runs_where_jax_cannot_be_imported():
@@ -194,8 +212,46 @@ def test_runs_where_jax_cannot_be_imported():
         "          KipfGCNEdgePrediction(units=[4], epochs=1, device='cpu')):\n"
         "    p = m.fit(g, node_features=x).predict_proba(g)\n"
         "    assert p.shape == (g.number_of_directed_edges,)\n"
+        "from embiggen_tpu_torch import edge_prediction_evaluation\n"
+        "rows = edge_prediction_evaluation(\n"
+        "    1, PerceptronEdgePrediction(edge_features=['Degree', 'AdamicAdar'],\n"
+        "                                number_of_epochs=1, device='cpu'),\n"
+        "    g, random_state=3)\n"
+        "assert [r['evaluation_mode'] for r in rows] == ['train', 'test']\n"
         "assert sys.modules['jax'] is None\n"
         "assert not any(m.startswith('embiggen_tpu.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_evaluation_runs_where_pandas_cannot_be_imported():
+    """No path of `edge_prediction_evaluation` imports pandas: block it and
+    evaluate both edge predictors over a deferred SkipGram feature, with a
+    K8 feature and the k-fold schema."""
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from embiggen_tpu_torch import edge_prediction_evaluation\n"
+        "from embiggen_tpu_torch.graph import erdos_renyi\n"
+        "from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction\n"
+        "from embiggen_tpu_torch.models.embedders import SkipGram\n"
+        "rows = edge_prediction_evaluation(\n"
+        "    2, [PerceptronEdgePrediction(edge_features=['JaccardCoefficient'],\n"
+        "                                 edge_embeddings=['Hadamard'],\n"
+        "                                 number_of_epochs=1, device='cpu'),\n"
+        "        'Kipf GCN'],\n"
+        "    erdos_renyi(60, 240, seed=1), evaluation_schema='Kfold',\n"
+        "    node_features=SkipGram(embedding_size=4, epochs=1, walk_length=8,\n"
+        "                           window_size=2, random_state=0, device='cpu'),\n"
+        "    smoke_test=True, device='cpu', random_state=3)\n"
+        "assert len(rows) == 2 * 2 * 2, len(rows)\n"
+        "assert sys.modules['pandas'] is None\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -91,6 +91,7 @@ CONFIGS = [
          node_embedding_size=6, combiner="mean"),
     dict(units=[8], kernels=["Left Normalized Laplacian"], residual=True,
          edge_embedding_method="Dot"),
+    dict(units=[8], tower_units=[6], head_units=[4], use_edge_metrics=True),
 ]
 
 
@@ -226,12 +227,30 @@ def test_parameters_match_reference():
     (dict(checkpoint_dir="ckpt"), "A12"),
     (dict(use_node_type_embedding=True), "A6"),
     (dict(use_edge_type_embedding=True), "A6"),
-    (dict(use_edge_metrics=True), "K8"),
     (dict(edge_feature_models=["x"]), "A11"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         GCNEdgePrediction(device="cpu", **kwargs)
+
+
+def test_use_edge_metrics_fits_and_widens_the_head(graphs):
+    """`use_edge_metrics` appends the four edge heuristics of the support
+    graph to the edge representation (the reference's own test of the
+    option is tests/test_combinatorial_gcn.py:129)."""
+    g, _ = graphs
+    kw = dict(units=[8], tower_units=[8], head_units=[8], epochs=3, batch_size=64,
+              random_state=0, device="cpu")
+    feats = _features(6)
+    model = GCNEdgePrediction(use_edge_metrics=True, **kw).fit(g, node_features=feats)
+    assert model.parameters()["use_edge_metrics"] is True
+    scores = model.predict_proba(g)
+    assert scores.shape == (g.number_of_directed_edges,) and np.isfinite(scores).all()
+    base = GCNEdgePrediction(**kw).fit(g, node_features=feats)
+    assert (model._params["head"][0]["w"].shape[0]
+            == base._params["head"][0]["w"].shape[0] + 4)
+    reps = model.transform_edges_from_edge_node_ids(g.sources[:5], g.col_idx[:5])
+    assert reps.shape == (5, 2 * 8 + 4)   # Concatenate of two towers, then K8
 
 
 @pytest.mark.parametrize("kwargs, item", [

@@ -1,5 +1,6 @@
 """The port's Perceptron on the CPU, held against embiggen_tpu: the feature
-block for Degree and every edge-embedding method, whole fits on the
+block for every topological feature (Degree and the five from the edge
+heuristics, K8) and every edge-embedding method, whole fits on the
 reference's own minibatch indices (injected), and scoring with the
 reference's fitted (w, b, mean, std) carried across. Float32 sums in
 another order: tolerance 1e-5."""
@@ -52,18 +53,28 @@ def test_edge_ops_match_reference_on_numpy_and_torch(table, feats):
         assert want.shape[1] == edge_ops.output_dim(name, 6) == ref_edge_ops.output_dim(name, 6)
 
 
-def test_features_match_reference(graphs, feats):
+K8_FEATURES = ["AdamicAdar", "JaccardCoefficient", "ResourceAllocationIndex",
+               "PreferentialAttachment", "Cooccurrence"]
+
+
+@pytest.mark.parametrize("edge_features, edge_embeddings", [
+    (["Degree"], METHODS),
+    (["Degree"] + K8_FEATURES, []),
+    (K8_FEATURES[::-1], ["Hadamard"]),
+])
+def test_features_match_reference(graphs, feats, edge_features, edge_embeddings):
     g, rg = graphs
-    kw = dict(edge_features=["Degree"], edge_embeddings=METHODS, random_state=0)
+    kw = dict(edge_features=edge_features, edge_embeddings=edge_embeddings, random_state=0)
     ref = RefPerceptron(**kw)
     port = PerceptronEdgePrediction(device="cpu", **kw)
-    port._node_features = feats
+    ref._node_features = port._node_features = feats
     rng = np.random.default_rng(1)
-    src, dst = rng.integers(0, N, 200), rng.integers(0, N, 200)
+    src = np.concatenate([g.sources[::4], rng.integers(0, N, 200)])
+    dst = np.concatenate([g.col_idx[::4], rng.integers(0, N, 200)])
     want = ref._features_device(rg.device(with_weights=False), jnp.asarray(feats),
                                 jnp.asarray(src), jnp.asarray(dst))
-    deg, tfeats = port._device_ctx(g)
-    got = port._features_device(deg, tfeats, torch.from_numpy(src), torch.from_numpy(dst))
+    got = port._features_device(port._device_ctx(g), torch.from_numpy(src),
+                                torch.from_numpy(dst))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -80,6 +91,10 @@ def _reference_indices(seed):
 @pytest.mark.parametrize("kw", [
     dict(edge_features=["Degree"], edge_embeddings=["CosineSimilarity"]),
     dict(edge_features=[], edge_embeddings=["Hadamard", "L2"], l2_regularization=0.01),
+    dict(edge_features=["Degree", "AdamicAdar", "JaccardCoefficient"],
+         edge_embeddings=["CosineSimilarity"]),
+    dict(edge_features=["ResourceAllocationIndex", "PreferentialAttachment",
+                        "Cooccurrence"], edge_embeddings=[]),
 ])
 def test_fit_on_the_reference_batches_matches_reference(graphs, feats, kw):
     g, rg = graphs
@@ -116,10 +131,12 @@ def test_parameters_registry_and_errors():
     kw = dict(edge_features=["Degree"], edge_embeddings=["Hadamard"], random_state=4)
     assert PerceptronEdgePrediction(device="cpu", **kw).parameters() == RefPerceptron(**kw).parameters()
     assert get_model_from_library("Perceptron", task_name="Edge Prediction") is PerceptronEdgePrediction
-    for feature in ("AdamicAdar", "JaccardCoefficient", "ResourceAllocationIndex",
-                    "PreferentialAttachment", "Cooccurrence"):
-        with pytest.raises(NotImplementedError, match="K8"):
-            PerceptronEdgePrediction(edge_features=[feature], device="cpu")
+    for feature in K8_FEATURES:
+        kw = dict(edge_features=["Degree", feature], random_state=4)
+        assert (PerceptronEdgePrediction(device="cpu", **kw).parameters()
+                == RefPerceptron(**kw).parameters())
+    with pytest.raises(ValueError, match="Unknown edge feature"):
+        PerceptronEdgePrediction(edge_features=["Katz"], device="cpu")
     with pytest.raises(ValueError):
         PerceptronEdgePrediction(edge_features=[], device="cpu")
     with pytest.raises(ValueError, match="does not support"):
