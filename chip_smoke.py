@@ -8,9 +8,14 @@ the exit code is not 0:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernels from `embiggen_tpu_torch/csrc/` with nvcc;
   3. K1-K4 against their plain PyTorch versions on the card, at the shapes
-     the S1 slice gives them, with both times: K3 and K4 on the same
-     inputs (K3 rtol 1e-4 / atol 1e-5: sums in another order; K4 atol 1e-5:
-     atomics add in no fixed order); K1 and K2, which are samplers, by arc
+     the S1 slice gives them, with both times: K3's two epilogues and K4's
+     SkipGram combine at the flagship shapes, the harness's SkipGram shapes
+     and a D that is not a multiple of 4, with and without centre weights
+     (the grads epilogue and the update epilogue's sums rtol 1e-4 / atol
+     1e-5: sums in another order; the update epilogue's counts exactly; the
+     tables after the combine atol 1e-5: atomics add in no fixed order; the
+     sums and counts all zero after the combine); K4's standalone mean scatter (atol 1e-5);
+     K1 and K2, which are samplers, by arc
      validity and chi-square tests (fail at p < 1e-3): on small weighted
      and unweighted graphs against the exact distributions, and on the
      slice graph at the slice shapes against both the exact distributions
@@ -35,7 +40,8 @@ the exit code is not 0:
   5. S1: three SkipGram steps on injected batches, kernel path against the
      plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
      erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
-     32768, 2 epochs, with K1-K4 launched;
+     32768, 2 epochs, with K1, K2, K3's update epilogue and K4's combine
+     launched, and neither K3's grads epilogue nor K4's standalone scatter;
   6. S3: three GCN Adam steps on injected batches, card against CPU from
      the same parameters; then the bench configuration: GCNEdgePrediction
      (units 128-128, Symmetric Normalized Laplacian, batch 2^20) for 2
@@ -60,10 +66,15 @@ the exit code is not 0:
      SkipGram features on a 1M-node planted-partition graph, with K1-K7
      launched; every phase second, peak device memory, and test AUPRC at
      least 0.85 (printed beside the reference's 0.8712);
- 11. with `--profile` only: torch.profiler over steady steps of S1 and of
-     the GCN, one line per kernel name with its device ms per step.
-Then a JSON line of the kernels (with the build seconds), the card's line
-again, and last `{"ok": true, "device": {...}}`.
+ 11. with `--profile` only: K3's phase split (gather, scores, gradients)
+     for each epilogue at the flagship shapes, from clock64() stamps in a
+     build with EBT_PHASE_CLOCK; then torch.profiler over steady steps of
+     S1 and of the GCN, one line per kernel name with its device ms per
+     step.
+Then a JSON line of the kernels (with the build seconds; each with its
+bound, from this run's inputs at the published HBM and fp32 peaks, and the
+time of one PyTorch call computing the same function where there is one),
+the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
 import dataclasses
@@ -108,6 +119,18 @@ GATE_SEEDS = range(8)
 # and the port's floor.
 HARNESS_REFERENCE_AUPRC = 0.8712
 HARNESS_FLOOR = 0.85
+# K3 and K4 at the S1 flagship shapes, at the harness's SkipGram shapes (D
+# 64, L 16, w 2, K 5; its batch on a 1M-node graph) and at a D that is not
+# a multiple of 4: (name, N, D, L, w, K, B).
+SKIPGRAM_SHAPES = (("flagship", N_NODES, DIM, WALK, WINDOW, NEGS, BATCH),
+                   ("harness", N_NODES, 64, 16, 2, 5, BATCH),
+                   ("D 30", 100_000, 30, 12, 3, 5, 4096))
+K3_GRADS_TOL = dict(rtol=1e-4, atol=1e-5)   # sums in another order
+K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
+# The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
+# fp32 flop/s outside the tensor cores; every kernel here is fp32 or integer.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def time_ms(fn, reps: int) -> float:
@@ -122,6 +145,40 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_after(setup, fn, reps: int) -> float:
+    """Mean milliseconds of `fn` alone on the card's clock, each call after
+    its own `setup` (not timed), after one warm-up."""
+    setup()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for work that must move `n_bytes`
+    (each input read once, each output written once) and do `flops`: the
+    larger of the two times at the published peaks, and which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=n_bytes, bound_flops=flops)
+
+
+def search_reads(degrees) -> torch.Tensor:
+    """Reads of a lower-bound search in rows of these lengths."""
+    return torch.ceil(torch.log2(degrees.double() + 1)) + 1
 
 
 def check_close(name, got, want, rtol, atol) -> float:
@@ -386,10 +443,11 @@ def skipgram_step(model, graph):
     tg = model._device_graph(graph)
     gen = torch.Generator().manual_seed(0)
     params = model._init_params(graph, gen)
+    sums = model._new_sums(params)
 
     def step():
         with torch.no_grad():
-            model._step(tg, params, gen, 0.025)
+            model._step(tg, params, gen, 0.025, sums=sums)
     return step
 
 
@@ -410,6 +468,35 @@ def gcn_step(model, graph):
     return step
 
 
+def k3_phase_line(card, dev):
+    """K3's phase split at the S1 flagship shapes on seeded random inputs,
+    for each epilogue: the share of block time per phase from the
+    PHASE_CLOCK build's stamps, and each share times the kernel's time."""
+    from embiggen_tpu_torch.ops import skipgram
+    from embiggen_tpu_torch.ops.scatter import SkipGramSums
+
+    rng = np.random.default_rng(0)
+    tables = [torch.from_numpy(0.3 * rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+              for _ in range(2)]
+    bias = torch.from_numpy(3.0 * rng.standard_normal(N_NODES, dtype=np.float32)).to(dev)
+    walks = torch.from_numpy(rng.integers(0, N_NODES, (BATCH, WALK), dtype=np.int32)).to(dev)
+    negs = torch.from_numpy(rng.integers(0, N_NODES, (BATCH, NEGS), dtype=np.int32)).to(dev)
+    args = (*tables, bias, walks, negs, WINDOW, 6.0)
+    sums = SkipGramSums.zeros(N_NODES, DIM, dev)
+    out = {}
+    for name, shares, fn in (
+        ("update", skipgram.phase_split(*args, sums),
+         lambda: skipgram.skipgram_nce_update(*args, sums)),
+        ("grads", skipgram.phase_split(*args), lambda: skipgram.skipgram_nce_grads(*args)),
+    ):
+        ms = time_ms(fn, 10)
+        out[name] = dict(ms=ms, **shares)
+        print(f"phase 11 K3 {name} epilogue phase split on {card}: kernel {ms:.3f} ms; "
+              + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
+                          for k, v in shares.items()), flush=True)
+    return out
+
+
 def print_profile(name, card, rows, step_ms):
     busy = sum(ms for ms, _ in rows.values())
     print(f"phase 11 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
@@ -418,6 +505,141 @@ def print_profile(name, card, rows, step_ms):
     for kernel, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"  profile {name} {ms:9.4f} ms/step {ms / busy:7.2%} "
               f"{count:5.2f} launches/step  {kernel[:100]}", flush=True)
+
+
+def skipgram_checks(dev):
+    """K3's two epilogues and K4's SkipGram combine against their plain
+    versions at SKIPGRAM_SHAPES, with and without centre weights, on seeded
+    random tables and walks: the grads epilogue to K3_GRADS_TOL; the update
+    epilogue's counts exactly and its sums to K3_GRADS_TOL, the tables
+    after the combine to K3_UPDATE_ATOL; the sums and counts all zero after
+    the combine. Then K4's standalone mean_scatter at the flagship shapes.
+    Returns (kernels entries timed at the flagship shapes, {shape: (grads
+    err, update sums err, combined tables err)})."""
+    from embiggen_tpu_torch.ops.scatter import (
+        SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
+        skipgram_mean_combine_plain,
+    )
+    from embiggen_tpu_torch.ops.skipgram import (
+        skipgram_nce_grads, skipgram_nce_grads_plain, skipgram_nce_update,
+        skipgram_nce_update_plain,
+    )
+
+    entries, errs = {}, {}
+    for name, n, d, length, w, k, b in SKIPGRAM_SHAPES:
+        rng = np.random.default_rng(0)
+        tables = [torch.from_numpy(0.3 * rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+                  for _ in range(2)]
+        tables.append(torch.from_numpy(3.0 * rng.standard_normal(n, dtype=np.float32)).to(dev))
+        walks = torch.from_numpy(rng.integers(0, n, (b, length), dtype=np.int32)).to(dev)
+        negs = torch.from_numpy(rng.integers(0, n, (b, k), dtype=np.int32)).to(dev)
+        center_w = torch.from_numpy(rng.uniform(0, 2, (b, length)).astype(np.float32)).to(dev)
+        args = (*tables, walks, negs, w, 6.0)
+        grads_err = sums_err = combine_err = 0.0
+        for cw in (None, center_w):
+            got = skipgram_nce_grads(*args, cw)
+            want = skipgram_nce_grads_plain(*args, cw)
+            for i, (x, y) in enumerate(zip((got[0],) + got[1] + got[2],
+                                           (want[0],) + want[1] + want[2])):
+                err = check_close(f"K3 grads {name} output {i}", x, y, **K3_GRADS_TOL)
+                grads_err = max(grads_err, err if i > 0 else 0.0)
+            del got, want
+            sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
+            loss = skipgram_nce_update(*args, sums, cw)
+            want_loss = skipgram_nce_update_plain(*args, want_sums, cw)
+            check_close(f"K3 update {name} loss", loss, want_loss, **K3_GRADS_TOL)
+            for field in ("counts_w", "counts_c"):
+                check_close(f"K3 update {name} {field}", getattr(sums, field),
+                            getattr(want_sums, field), 0.0, 0.0)
+            # Sums of gradients (a negative's bias takes one per centre):
+            # the grads epilogue's relative tolerance.
+            for field in ("sums_w", "sums_c", "sums_b"):
+                sums_err = max(sums_err, check_close(
+                    f"K3 update {name} {field}", getattr(sums, field),
+                    getattr(want_sums, field), **K3_GRADS_TOL))
+            got_t = [t.clone() for t in tables]
+            want_t = [t.clone() for t in tables]
+            skipgram_mean_combine(*got_t, sums, 0.025)
+            skipgram_mean_combine_plain(*want_t, want_sums, 0.025)
+            for i, (x, y) in enumerate(zip(got_t, want_t)):
+                combine_err = max(combine_err, check_close(
+                    f"K4 combine {name} table {i}", x, y, 0.0, K3_UPDATE_ATOL))
+            if any(bool(t.any()) for t in sums.buffers()):
+                raise AssertionError(f"K4 combine {name}: sums or counts not zero after it")
+            del got_t, want_t, want_sums, sums
+        errs[name] = (grads_err, sums_err, combine_err)
+        if name != "flagship":
+            continue
+        # Times and bounds at the flagship shapes. Rows each table must read
+        # (and the sums write): the walk's nodes, and with the negatives.
+        u_w = int(torch.unique(walks).numel())
+        u_c = int(torch.unique(torch.cat([walks.reshape(-1), negs.reshape(-1)])).numel())
+        pairs = b * (length - 2 * w) * (2 * w + k)
+        gathered = 4 * ((u_w + u_c) * d + u_c + b * (length + k))
+        sums = SkipGramSums.zeros(n, d, dev)
+        entries["skipgram_nce_grads"] = dict(
+            source="embiggen_tpu_torch/csrc/skipgram.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:895",
+            max_abs_err=grads_err, ms=time_ms(lambda: skipgram_nce_grads(*args), 10),
+            plain_ms=time_ms(lambda: skipgram_nce_grads_plain(*args), 3), library_ms=None,
+            **bound(gathered + 4 * (2 * b * length * d + b * length + b * k * d + b * k + b),
+                    6 * d * pairs))
+        entries["skipgram_nce_update"] = dict(
+            source="embiggen_tpu_torch/csrc/skipgram.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:895",
+            max_abs_err=sums_err,
+            ms=time_ms(lambda: skipgram_nce_update(*args, sums), 10),
+            plain_ms=time_ms(lambda: skipgram_nce_update_plain(*args, sums), 3),
+            library_ms=None,
+            # the sums' touched rows and counts read and written once
+            **bound(gathered + 8 * ((u_w + u_c) * d + 3 * u_c + u_w) + 4 * b,
+                    6 * d * pairs + b * (2 * length + k) * d))
+        work = [t.clone() for t in tables]
+        entries["skipgram_mean_combine"] = dict(
+            source="embiggen_tpu_torch/csrc/scatter.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:817",
+            max_abs_err=combine_err,
+            ms=time_after(lambda: skipgram_nce_update(*args, sums),
+                          lambda: skipgram_mean_combine(*work, sums, 0.025), 10),
+            plain_ms=time_after(lambda: skipgram_nce_update(*args, sums),
+                                lambda: skipgram_mean_combine_plain(*work, sums, 0.025), 3),
+            library_ms=None,
+            # both counts read; touched rows of tables and sums read and
+            # written once, the counts of those rows zeroed
+            **bound(8 * n + 16 * (u_w * d + u_c * d + u_c) + 4 * (u_w + u_c),
+                    3 * (u_w + u_c) * d))
+        del work, sums
+        # K4's standalone mean_scatter: the context table from the walk rows
+        # and the negatives, with random gradients.
+        segs = (walks.reshape(-1), negs.reshape(-1))
+        gsegs = tuple(torch.from_numpy(rng.standard_normal((s.numel(), d), dtype=np.float32)).to(dev)
+                      for s in segs)
+        got, counts = mean_scatter(tables[1].clone(), segs, gsegs, 0.025)
+        want, want_counts = mean_scatter_plain(tables[1].clone(), segs, gsegs, 0.025)
+        scatter_err = check_close("K4 table", got, want, 0.0, 1e-5)
+        check_close("K4 counts", counts, want_counts, 0.0, 0.0)
+        gb = tuple(torch.from_numpy(rng.standard_normal(s.numel(), dtype=np.float32)).to(dev)
+                   for s in segs)
+        got_b, _ = mean_scatter(tables[2].clone(), segs, gb, 0.025, counts)
+        want_b, _ = mean_scatter_plain(tables[2].clone(), segs, gb, 0.025, counts)
+        scatter_err = max(scatter_err, check_close("K4 bias", got_b, want_b, 0.0, 1e-5))
+        del got, want, got_b, want_b, gb
+        idx_all = torch.cat(segs).long()
+        g_all = torch.cat(gsegs)
+        acc = torch.zeros_like(tables[1])
+        m = idx_all.numel()
+        entries["mean_scatter"] = dict(
+            source="embiggen_tpu_torch/csrc/scatter.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:817",
+            max_abs_err=scatter_err,
+            ms=time_ms(lambda: mean_scatter(tables[1], segs, gsegs, 0.025), 10),
+            plain_ms=time_ms(lambda: mean_scatter_plain(tables[1], segs, gsegs, 0.025), 10),
+            # its scatter half, as one call
+            library_ms=time_ms(lambda: acc.index_add_(0, idx_all, g_all), 10),
+            # gradients and ids read; touched rows read and written; counts out
+            **bound(4 * (m * d + m) + 8 * u_c * d + 4 * n, 3 * m * d))
+        del idx_all, g_all, acc, gsegs
+    return entries, errs
 
 
 def edge_kernel_checks(tg):
@@ -443,6 +665,10 @@ def edge_kernel_checks(tg):
         raise AssertionError("K5 and its plain version differ")
     if not (bool(found[:q // 2].all()) and torch.equal(ids[:q // 2], arc.int())):
         raise AssertionError("K5 missed an arc")
+    # The same lookup as one call: a search over the sorted src * N + dst
+    # keys of the arcs.
+    keys = tg.sources.long() * n + tg.col_idx.long()
+    q_keys = src.long() * n + dst.long()
     entries = {"csr_edge_ids": dict(
         source="embiggen_tpu_torch/csrc/edges.cu",
         replaces="embiggen_tpu/ops/walks.py:66",
@@ -450,7 +676,11 @@ def edge_kernel_checks(tg):
         ms=time_ms(lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst), 20),
         plain_ms=time_ms(
             lambda: csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst), 3),
+        library_ms=time_ms(lambda: torch.searchsorted(keys, q_keys), 20),
+        # pairs in, ids and flags out, two row_ptr reads and a search each
+        **bound(q * (8 + 5 + 8) + 4 * float(search_reads(tg.degrees[src.long()]).sum()), 0),
     )}
+    del keys, q_keys
 
     gen, cuda_gen = torch.Generator().manual_seed(22), torch.Generator(device=dev).manual_seed(23)
     s, d, labels = edge_prediction_mini_batch(tg, gen, GCN_BATCH)
@@ -493,6 +723,11 @@ def edge_kernel_checks(tg):
         replaces="embiggen_tpu/ops/negatives.py:60", max_abs_err=layout_err,
         ms=time_ms(lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH), 20),
         plain_ms=time_ms(lambda: edge_prediction_mini_batch_plain(tg, cuda_gen, GCN_BATCH), 5),
+        library_ms=None,
+        # pairs and labels out; a positive reads its arc's two ends; a
+        # negative draws two arc heads and searches its pair once
+        **bound(GCN_BATCH * 12 + n_pos * 8 + n_neg * 16
+                + 4 * float(search_reads(tg.degrees[s[n_pos:].long()]).sum()), 0),
     )
     return entries, p
 
@@ -501,6 +736,8 @@ def spmm_checks(graph, dev):
     """K7 over the slice graph's Symmetric Normalized Laplacian at D = 128:
     forward for every combiner and backward through autograd, against the
     plain version. Returns its kernels entry."""
+    import torch.nn.functional as F
+
     from embiggen_tpu_torch.graph.laplacians import kernel_coo
     from embiggen_tpu_torch.ops.spmm import COMBINERS, csr_kernel, csr_spmm, csr_spmm_plain, spmm
 
@@ -523,22 +760,32 @@ def spmm_checks(graph, dev):
         err = max(err, check_close(f"K7 backward {combiner}", dx,
                                    csr_spmm_plain(k.transpose, g, None, inv), **K7_TOL))
         del xg, y, dx
+    # The forward with the sum combiner as one call.
+    cols, offsets = k.cols.long(), k.row_ptr[:-1].long()
     entry = dict(
         source="embiggen_tpu_torch/csrc/spmm.cu",
         replaces="embiggen_tpu/ops/spmm.py:337", max_abs_err=err,
         ms=time_ms(lambda: csr_spmm(k, x), 20),
         plain_ms=time_ms(lambda: csr_spmm_plain(k, x), 3),
+        library_ms=time_ms(lambda: F.embedding_bag(
+            cols, x, offsets, mode="sum", per_sample_weights=k.vals), 20),
+        **bound(4 * (k.row_ptr.numel() + 2 * k.n_arcs)
+                + 4 * DIM * (int(torch.unique(k.cols).numel()) + N_NODES),
+                2 * k.n_arcs * DIM),
         backward_ms=time_ms(lambda: csr_spmm(k.transpose, g), 20),
         backward_plain_ms=time_ms(lambda: csr_spmm_plain(k.transpose, g), 3),
         layout_s=layout_s,
     )
     entry["gathered_rows_per_s"] = k.n_arcs / (entry["ms"] / 1e3)
+    del cols, offsets
     return entry
 
 
 def probe_checks(dev):
     """P1 and P2 against their plain versions at the probe's shapes.
     Returns their kernels entries (with gathered rows/s and GB/s)."""
+    import torch.nn.functional as F
+
     from embiggen_tpu_torch.ops.gather_probe import (
         P1_TILE, P2_BLOCK, table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
     )
@@ -562,10 +809,16 @@ def probe_checks(dev):
         err = check_close(name, got, tile_gather_sums_plain(table, ix, tile), **PROBE_TOL)
         ms = time_ms(lambda: fn(table, ix), 20)
         rows = shape[0] * tile
+        used = ix[:rows].long()
+        offsets = torch.arange(0, rows, tile, device=dev)
         entries[name] = dict(
             source="embiggen_tpu_torch/csrc/gather_probe.cu", replaces=replaces,
             max_abs_err=err, ms=ms,
             plain_ms=time_ms(lambda: tile_gather_sums_plain(table, ix, tile), 5),
+            library_ms=time_ms(lambda: F.embedding_bag(used, table, offsets, mode="sum"), 20),
+            # indices and the distinct rows they name read once, sums out
+            **bound(4 * rows + 4 * DIM * (int(torch.unique(used).numel()) + shape[0]),
+                    rows * DIM),
             rows_per_s=rows / (ms / 1e3), gbytes_per_s=rows * DIM * 4 / (ms / 1e3) / 1e9,
         )
     return entries
@@ -619,19 +872,37 @@ def edge_metrics_check(graph, tg, hub_pairs):
     err = check_close("K8 Jaccard", got[:, 1], want[:, 1], 1e-6, 0.0)
     err = max(err, check_close("K8 Adamic-Adar and RA", got[:, [0, 2]],
                                want[:, [0, 2]], **K8_SUM_TOL))
-    truncated = int((torch.minimum(deg[src.long()], deg[dst.long()]) > 128).sum())
-    del got, want
+    small = torch.minimum(deg[src.long()], deg[dst.long()])
+    truncated = int((small > 128).sum())
+    # Bytes by the read-once rule, each distinct row once: pairs in and four
+    # floats out; the two row_ptr entries of each distinct endpoint; of each
+    # CSR row, the most entries any pair needs of it: an expanded row's first
+    # min(deg, 128), and of the other row the fewer of its whole length (a
+    # merge) and the candidates' lower-bound searches; the two row_ptr
+    # entries of each common neighbour, at most once per node.
+    s_l, d_l = src.long(), dst.long()
+    swap = deg[d_l] < deg[s_l]
+    a, b = torch.where(swap, d_l, s_l), torch.where(swap, s_l, d_l)
+    cand = deg[a].clamp(max=128).double()
+    need = torch.zeros(n, dtype=torch.float64, device=dev).scatter_reduce_(
+        0, torch.cat([a, b]),
+        torch.cat([cand, torch.minimum(cand * search_reads(deg[b]), deg[b].double())]),
+        "amax")
+    n_bytes = (K8_PAIRS * (8 + 16) + 8 * torch.unique(torch.cat([s_l, d_l])).numel()
+               + 4 * float(need.sum()) + 8 * min(float(inter(want).sum()), n))
+    del got, want, need
     return (err, time_ms(lambda: edge_metrics(tg, src, dst), 20),
-            time_ms(lambda: edge_metrics_plain(tg, src, dst), 2), truncated)
+            time_ms(lambda: edge_metrics_plain(tg, src, dst), 2), truncated,
+            bound(n_bytes, 0))
 
 
 def edge_metrics_checks(graph, tg):
     """K8 on the slice graph and on it plus hubs. Returns its kernels entry
     (with the hub graph's numbers beside)."""
-    err, ms, plain_ms, _ = edge_metrics_check(graph, tg, 0)
+    err, ms, plain_ms, _, k8_bound = edge_metrics_check(graph, tg, 0)
     hg = hub_graph(graph)
     htg = hg.device(tg.device)
-    hub_err, hub_ms, hub_plain_ms, truncated = edge_metrics_check(hg, htg, 4096)
+    hub_err, hub_ms, hub_plain_ms, truncated, hub_bound = edge_metrics_check(hg, htg, 4096)
     if truncated == 0:
         raise AssertionError("no K8 pair of the hub graph reached the cap")
     del htg
@@ -640,6 +911,7 @@ def edge_metrics_checks(graph, tg):
         source="embiggen_tpu_torch/csrc/edge_metrics.cu",
         replaces="embiggen_tpu/ops/edge_metrics.py:34",
         max_abs_err=max(err, hub_err), ms=ms, plain_ms=plain_ms,
+        library_ms=None, **k8_bound, hub_bound_ms=hub_bound["bound_ms"],
         hub_graph_arcs=hg.number_of_directed_edges, hub_ms=hub_ms,
         hub_plain_ms=hub_plain_ms, hub_pairs_truncated=truncated,
     )
@@ -725,7 +997,11 @@ def quality_on_card(card, dev):
 
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
-S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_grads", "mean_scatter")
+S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
+              "skipgram_mean_combine")
+# Kept beside the S1 step (the grads epilogue for parity checks, the
+# standalone mean scatter for later SGD families); the step launches neither.
+S1_UNUSED = ("skipgram_nce_grads", "mean_scatter")
 S2_KERNELS = ("csr_edge_ids",)
 S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
 K8_KERNELS = ("edge_metrics",)
@@ -744,7 +1020,7 @@ def check_launches(path, counts, names):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile steady steps of S1 and of the GCN")
+                        help="also K3's phase split, and profiles of steady S1 and GCN steps")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -766,10 +1042,6 @@ def main() -> None:
     from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, GCNEncoder
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.negatives import nce_negatives, nce_negatives_plain
-    from embiggen_tpu_torch.ops.scatter import mean_scatter, mean_scatter_plain
-    from embiggen_tpu_torch.ops.skipgram import (
-        skipgram_nce_grads, skipgram_nce_grads_plain,
-    )
     from embiggen_tpu_torch.ops.walks import first_order_walks, first_order_walks_plain
     from embiggen_tpu_torch.pipelines import embed_graph
     from embiggen_tpu_torch.scripts import harness, spmm_probe
@@ -806,6 +1078,9 @@ def main() -> None:
         ms=time_ms(lambda: first_order_walks(tg, starts, WALK, gen), 20),
         plain_ms=time_ms(
             lambda: first_order_walks_plain(tg, starts, WALK, cuda_gen), 5),
+        library_ms=None,
+        # starts in, walks out; each move reads two row_ptr entries and an arc.
+        **bound(4 * BATCH + 4 * BATCH * WALK + 12 * BATCH * (WALK - 1), 0),
     )
     kernels["nce_negatives"] = dict(
         source="embiggen_tpu_torch/csrc/sampling.cu",
@@ -813,78 +1088,21 @@ def main() -> None:
         ms=time_ms(lambda: nce_negatives(tg, gen, (BATCH, NEGS)), 20),
         plain_ms=time_ms(
             lambda: nce_negatives_plain(tg, cuda_gen, (BATCH, NEGS), True), 20),
+        library_ms=None,
+        **bound(8 * BATCH * NEGS, 0),   # an arc's head read, a node id written
     )
     del starts
 
-    rng = np.random.default_rng(0)
-    tables = [torch.from_numpy(
-        (0.3 * rng.standard_normal((N_NODES, DIM), dtype=np.float32))).to(dev)
-        for _ in range(2)]
-    bias = torch.from_numpy(
-        3.0 * rng.standard_normal(N_NODES, dtype=np.float32)).to(dev)
-    walks = torch.from_numpy(
-        rng.integers(0, N_NODES, (BATCH, WALK), dtype=np.int32)).to(dev)
-    negs = torch.from_numpy(
-        rng.integers(0, N_NODES, (BATCH, NEGS), dtype=np.int32)).to(dev)
-    center_w = torch.from_numpy(
-        rng.uniform(0, 2, (BATCH, WALK)).astype(np.float32)).to(dev)
-    k3_err = 0.0
-    for cw in (None, center_w):
-        got = skipgram_nce_grads(*tables, bias, walks, negs, WINDOW, 6.0, cw)
-        want = skipgram_nce_grads_plain(*tables, bias, walks, negs, WINDOW, 6.0, cw)
-        for i, (a, b) in enumerate(zip((got[0],) + got[1] + got[2],
-                                       (want[0],) + want[1] + want[2])):
-            err = check_close(f"K3 output {i}", a, b, 1e-4, 1e-5)
-            if i > 0:
-                k3_err = max(k3_err, err)
-        del got, want
-    kernels["skipgram_nce_grads"] = dict(
-        source="embiggen_tpu_torch/csrc/skipgram.cu",
-        replaces="embiggen_tpu/models/embedders/walk_based.py:895",
-        max_abs_err=k3_err,
-        ms=time_ms(lambda: skipgram_nce_grads(
-            *tables, bias, walks, negs, WINDOW, 6.0), 10),
-        plain_ms=time_ms(lambda: skipgram_nce_grads_plain(
-            *tables, bias, walks, negs, WINDOW, 6.0), 3),
-    )
-    del center_w
-    torch.cuda.empty_cache()
-
-    flat, negs_flat = walks.reshape(-1), negs.reshape(-1)
-    g_rows = torch.from_numpy(
-        rng.standard_normal((flat.numel(), DIM), dtype=np.float32)).to(dev)
-    g_negs = torch.from_numpy(
-        rng.standard_normal((negs_flat.numel(), DIM), dtype=np.float32)).to(dev)
-    g_b = torch.from_numpy(
-        rng.standard_normal(flat.numel(), dtype=np.float32)).to(dev)
-    g_nb = torch.from_numpy(
-        rng.standard_normal(negs_flat.numel(), dtype=np.float32)).to(dev)
-    segs = (flat, negs_flat)
-    got, counts = mean_scatter(tables[1].clone(), segs, (g_rows, g_negs), 0.025)
-    want, want_counts = mean_scatter_plain(
-        tables[1].clone(), segs, (g_rows, g_negs), 0.025)
-    k4_err = check_close("K4 table", got, want, 0.0, 1e-5)
-    check_close("K4 counts", counts, want_counts, 0.0, 0.0)
-    got_b, _ = mean_scatter(bias.clone(), segs, (g_b, g_nb), 0.025, counts)
-    want_b, _ = mean_scatter_plain(bias.clone(), segs, (g_b, g_nb), 0.025, counts)
-    k4_err = max(k4_err, check_close("K4 bias", got_b, want_b, 0.0, 1e-5))
-    del got, want, got_b, want_b
-    kernels["mean_scatter"] = dict(
-        source="embiggen_tpu_torch/csrc/scatter.cu",
-        replaces="embiggen_tpu/models/embedders/walk_based.py:817",
-        max_abs_err=k4_err,
-        ms=time_ms(lambda: mean_scatter(
-            tables[1], segs, (g_rows, g_negs), 0.025), 10),
-        plain_ms=time_ms(lambda: mean_scatter_plain(
-            tables[1], segs, (g_rows, g_negs), 0.025), 10),
-    )
-    del tables, bias, walks, negs, flat, negs_flat, g_rows, g_negs, g_b, g_nb
-    del segs, counts, want_counts
+    new, skipgram_errs = skipgram_checks(dev)
+    kernels.update(new)
     torch.cuda.empty_cache()
     print(f"phase 3 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
           f"ms per call, at the slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f} plain "
               f"{v['plain_ms']:.3f}" for k, v in kernels.items())
+          + " | K3 grads / update sums / tables after the combine, max abs err by shape: "
+          + "; ".join(f"{k} {g:.3g} / {u:.3g} / {c:.3g}"
+                      for k, (g, u, c) in skipgram_errs.items())
           + " | sampler p-values at the slice shapes: " + "; ".join(
               f"{k} {v:.3g}" for k, v in slice_p.items()), flush=True)
 
@@ -955,6 +1173,9 @@ def main() -> None:
     if len(model._epoch_losses) != 2 or not np.isfinite(model._epoch_losses).all():
         raise AssertionError(f"epoch losses {model._epoch_losses}")
     path_launches = check_launches("S1", launches, S1_KERNELS)
+    if any(launches[name] for name in S1_UNUSED):
+        raise AssertionError(f"the S1 step launched one of {S1_UNUSED}: {launches}")
+    path_launches.update({name: launches[name] for name in S1_UNUSED})
     steps = max(1, N_NODES // model._run_batch_size)
     centres = steps * model._run_batch_size * (WALK - 2 * WINDOW)
     print(f"phase 5 S1 on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected "
@@ -1115,9 +1336,16 @@ def main() -> None:
 
     # -------------------------------------------------- 11. profile (option)
     if args.profile:
+        k3_phase_line(card, dev)
+        torch.cuda.empty_cache()
         print_profile("S1", card, *profile(skipgram_step(model, graph), PROFILE_STEPS))
         print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
 
+    keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"}
+    missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
+    if missing:
+        raise AssertionError(f"kernels entries without {missing}")
     launches = {**path_launches, **gcn_launches, **perceptron_launches,
                 **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches}
     print(json.dumps({"build_s": build_s, "kernels": [

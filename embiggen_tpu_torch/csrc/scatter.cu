@@ -1,9 +1,24 @@
-// K4 `mean_scatter`: the per-row mean SGD update of the embedding tables.
+// K4: the per-row mean SGD update of the embedding tables.
 //
 // Replaces embiggen_tpu/models/embedders/walk_based.py::_mean_scatter as
 // used by SkipGram._apply_table_grads: every row r touched by the index
 // multiset takes one step  table[r] -= lr * sum(grads on r) / count(r).
-// Two kernels, launched in turn by the wrapper:
+//
+// SkipGram's step (`skipgram_mean_combine`): K3's update epilogue
+// (csrc/skipgram.cu) has already added the gradient rows into persistent
+// sums and counts; one pass over the rows of the three tables applies
+//   node_embedding    -= lr * sums_w / max(counts_w, 1)
+//   context_embedding -= lr * sums_c / max(counts_c, 1)
+//   context_bias      -= lr * sums_b / max(counts_c, 1)
+// and writes zeros back into the sums and counts it read, so they are zero
+// for the next step and no step fills them. A row whose count is 0 has sums
+// of 0 and is skipped whole (the update would subtract 0). A group of lanes
+// (a power of two, at most a warp) takes a row, float4 columns when
+// D % 4 == 0. What bounds it: the touched rows of the tables and the sums,
+// each read once and written once, and the counts.
+//
+// The standalone `mean_scatter` (for any table and index multiset), two
+// kernels launched in turn by the wrapper:
 //   1. scatter_add_rows: for each segment (walk rows, then negatives),
 //      atomically add every gradient row into a zeroed sums [N, D] and, when
 //      the counts are not shared from an earlier call, 1.0 into counts [N];
@@ -56,6 +71,75 @@ __global__ void mean_combine_kernel(float* __restrict__ table,
   table[i] -= lr * (sums[i] / fmaxf(counts[i / d], 1.f));
 }
 
+__global__ void skipgram_combine_kernel(
+    float* __restrict__ node_emb, float* __restrict__ sums_w,
+    float* __restrict__ counts_w, float* __restrict__ ctx_emb,
+    float* __restrict__ sums_c, float* __restrict__ ctx_bias,
+    float* __restrict__ sums_b, float* __restrict__ counts_c, float lr,
+    int64_t n, int d, int lanes, bool vec) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t row = t / lanes;
+  const int lane = static_cast<int>(t - row * lanes);
+  const bool active = row < n;
+  const float cw = active ? counts_w[row] : 0.f;
+  const float cc = active ? counts_c[row] : 0.f;
+  // Every lane of the row has read its counts before one lane zeroes them.
+  __syncwarp();
+  const int64_t base = row * d;
+  if (vec) {
+    float4* table = reinterpret_cast<float4*>(node_emb + base);
+    float4* sums = reinterpret_cast<float4*>(sums_w + base);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (cw > 0.f) {
+      for (int c = lane; c < d / 4; c += lanes) {
+        const float4 s = sums[c];
+        float4 v = table[c];
+        v.x -= lr * (s.x / cw);
+        v.y -= lr * (s.y / cw);
+        v.z -= lr * (s.z / cw);
+        v.w -= lr * (s.w / cw);
+        table[c] = v;
+        sums[c] = zero;
+      }
+    }
+    table = reinterpret_cast<float4*>(ctx_emb + base);
+    sums = reinterpret_cast<float4*>(sums_c + base);
+    if (cc > 0.f) {
+      for (int c = lane; c < d / 4; c += lanes) {
+        const float4 s = sums[c];
+        float4 v = table[c];
+        v.x -= lr * (s.x / cc);
+        v.y -= lr * (s.y / cc);
+        v.z -= lr * (s.z / cc);
+        v.w -= lr * (s.w / cc);
+        table[c] = v;
+        sums[c] = zero;
+      }
+    }
+  } else {
+    if (cw > 0.f) {
+      for (int c = lane; c < d; c += lanes) {
+        node_emb[base + c] -= lr * (sums_w[base + c] / cw);
+        sums_w[base + c] = 0.f;
+      }
+    }
+    if (cc > 0.f) {
+      for (int c = lane; c < d; c += lanes) {
+        ctx_emb[base + c] -= lr * (sums_c[base + c] / cc);
+        sums_c[base + c] = 0.f;
+      }
+    }
+  }
+  if (lane == 0) {
+    if (cw > 0.f) counts_w[row] = 0.f;
+    if (cc > 0.f) {
+      ctx_bias[row] -= lr * (sums_b[row] / cc);
+      sums_b[row] = 0.f;
+      counts_c[row] = 0.f;
+    }
+  }
+}
+
 unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -83,6 +167,30 @@ int ebt_mean_combine(void* table, const void* sums, const void* counts,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(table), static_cast<const float*>(sums),
       static_cast<const float*>(counts), lr, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// SkipGram's combine over n rows of width d; see skipgram_combine_kernel.
+int ebt_skipgram_combine(void* node_emb, void* sums_w, void* counts_w,
+                         void* ctx_emb, void* sums_c, void* ctx_bias,
+                         void* sums_b, void* counts_c, float lr, long long n,
+                         int d, void* stream) {
+  if (n == 0) return 0;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(node_emb) |
+                          reinterpret_cast<uintptr_t>(sums_w) |
+                          reinterpret_cast<uintptr_t>(ctx_emb) |
+                          reinterpret_cast<uintptr_t>(sums_c);
+  const bool vec = d % 4 == 0 && align % 16 == 0;
+  const int cols = vec ? d / 4 : d;
+  int lanes = 1;
+  while (lanes < cols && lanes < 32) lanes *= 2;
+  skipgram_combine_kernel<<<blocks_for(n * lanes), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(node_emb), static_cast<float*>(sums_w),
+      static_cast<float*>(counts_w), static_cast<float*>(ctx_emb),
+      static_cast<float*>(sums_c), static_cast<float*>(ctx_bias),
+      static_cast<float*>(sums_b), static_cast<float*>(counts_c), lr, n, d,
+      lanes, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,12 @@
 `SkipGram`), single device and first-order walks.
 
 One training step samples start nodes, walks and per-walk negatives
-(kernels K2, K1, K2), takes the banded NCE gradients of the gathered rows
-(K3) and applies the per-row mean update to the three tables (K4). The
-tables are updated in place. An epoch is a loop over steps; its mean loss is
-read on the host once per epoch, for the lr plateau and early stopping.
+(kernels K2, K1, K2), adds the banded NCE gradients of the gathered rows into
+per-node sums and counts (K3's update epilogue) and applies the per-row mean
+update to the three tables in one pass that zeroes the sums again (K4's
+combine). The sums are allocated once per fit; the tables are updated in
+place. An epoch is a loop over steps; its mean loss is read on the host once
+per epoch, for the lr plateau and early stopping.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ import torch
 
 from ...graph.graph import Graph, TorchGraph
 from ...ops.negatives import negative_nodes_for_nce, sample_nodes_uniform
-from ...ops.scatter import mean_scatter
-from ...ops.skipgram import skipgram_nce_grads
+from ...ops.scatter import SkipGramSums, skipgram_mean_combine
+from ...ops.skipgram import skipgram_nce_update
 from ...ops.walks import random_walks
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
@@ -145,8 +147,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 
     def _resolve_batch(self, graph: Graph) -> int:
         """Walker batch for this graph: the explicit value, or enough
-        concurrent walkers to fill the device, capped so the [B, L, D]
-        gradient buffers stay small."""
+        concurrent walkers to fill the device, capped at 32768."""
         if self._batch_size is not None:
             return self._batch_size
         return int(min(32768, max(128, graph.number_of_nodes // 8)))
@@ -202,17 +203,17 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
     def _init_params(self, graph: Graph, generator: torch.Generator) -> Params:
         raise NotImplementedError
 
-    def _gathered_grads(self, params: Params, walks, negs, center_w=None):
-        """(loss_sum, row_grads, neg_grads) for a batch of walks: gradients
-        per walk position [B, L, ...] for each table the walk rows touch, and
-        per negative slot [B, K, ...]. `center_w` ([B, L] or None) weights
-        each centre's pair losses."""
+    def _new_sums(self, params: Params):
+        """Zeroed per-node gradient sums and counts for `_update`, allocated
+        once per fit."""
         raise NotImplementedError
 
-    def _apply_table_grads(self, params: Params, flat, row_grads, negs_flat,
-                           neg_grads, lr: float) -> None:
-        """Apply flattened walk-row and negative gradients to the tables, in
-        place."""
+    def _update(self, params: Params, walks, negs, center_w, lr: float,
+                sums) -> torch.Tensor:
+        """One SGD step on `params`, in place, from a batch of walks and
+        their per-walk negatives, through `sums` (zero before and after).
+        `center_w` ([B, L] or None) weights each centre's pair losses.
+        Returns the loss sum as a 0-d device tensor."""
         raise NotImplementedError
 
     def _extract(self, params: Params, graph: Graph) -> EmbeddingResult:
@@ -277,24 +278,19 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         generator: torch.Generator,
         lr: float,
         batch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        sums=None,
     ) -> torch.Tensor:
         """One step on `params`, in place: sample a batch of the fit's size
-        (or take the injected `batch` of (walks, negs)), take the
-        gathered-row gradients, apply them. Returns the loss per centre as a
-        0-d device tensor."""
+        (or take the injected `batch` of (walks, negs)) and update the
+        tables through `sums` (the fit's, or fresh ones). Returns the loss
+        per centre as a 0-d device tensor."""
         walks, negs = (
             self._sample_batch(tg, generator, self._run_batch_size)
             if batch is None else batch
         )
         center_w = self._center_weights(tg, walks, generator)
-        loss, row_grads, neg_grads = self._gathered_grads(
-            params, walks, negs, center_w
-        )
-        row_flat = tuple(g.reshape((-1,) + g.shape[2:]) for g in row_grads)
-        neg_flat = tuple(g.reshape((-1,) + g.shape[2:]) for g in neg_grads)
-        self._apply_table_grads(
-            params, walks.reshape(-1), row_flat, negs.reshape(-1), neg_flat, lr
-        )
+        loss = self._update(params, walks, negs, center_w, lr,
+                            self._new_sums(params) if sums is None else sums)
         n_centers = walks.shape[0] * (self._walk_length - 2 * self._window_size)
         return loss / n_centers
 
@@ -316,6 +312,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         batch = self._resolve_batch(graph)
         self._run_batch_size = batch
         params = self._initial_tables(graph, generator)
+        sums = self._new_sums(params)
         steps_per_epoch = max(1, graph.number_of_nodes // batch)
         # Early stopping and lr-on-plateau, default-on as in the reference.
         ctrl = PlateauController(
@@ -335,7 +332,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 t0 = time.perf_counter()
                 lr = (self._learning_rate * self._learning_rate_decay ** epoch
                       * ctrl.lr_scale)
-                losses = [self._step(tg, params, generator, lr)
+                losses = [self._step(tg, params, generator, lr, sums=sums)
                           for _ in range(steps_per_epoch)]
                 # The epoch's one host read, which also waits for the device.
                 last_loss = float(torch.stack(losses).mean())
@@ -372,29 +369,24 @@ class SkipGram(WalkBasedEmbedder):
             for name, shape in self._param_shapes(graph).items()
         }
 
-    def _gathered_grads(self, params: Params, walks, negs, center_w=None):
-        return skipgram_nce_grads(
-            params["node_embedding"], params["context_embedding"],
-            params["context_bias"], walks, negs, self._window_size,
-            self._clipping_value, center_w,
-        )
+    def _new_sums(self, params: Params) -> SkipGramSums:
+        n, d = params["node_embedding"].shape
+        return SkipGramSums.zeros(n, d, params["node_embedding"].device)
 
-    def _apply_table_grads(self, params: Params, flat, row_grads, negs_flat,
-                           neg_grads, lr: float) -> None:
+    def _update(self, params: Params, walks, negs, center_w, lr: float,
+                sums: SkipGramSums) -> torch.Tensor:
         # Every touched row takes one full-lr step on the mean of its
-        # gradients. Context and negative rows of the same table share one
-        # index multiset, so a row in both roles averages once; the bias
-        # reuses the context table's counts.
-        g_w, g_c, g_b = row_grads
-        g_neg, g_nb = neg_grads
-        mean_scatter(params["node_embedding"], flat, g_w, lr)
-        _, counts = mean_scatter(
-            params["context_embedding"], (flat, negs_flat), (g_c, g_neg), lr
-        )
-        mean_scatter(
-            params["context_bias"], (flat, negs_flat), (g_b, g_nb), lr,
-            counts=counts,
-        )
+        # gradients, all taken at the tables before the step (the combine
+        # runs after every walk's update, in stream order). Context and
+        # negative rows of the same table share one index multiset, so a row
+        # in both roles averages once; the bias reuses the context table's
+        # counts.
+        tables = (params["node_embedding"], params["context_embedding"],
+                  params["context_bias"])
+        loss = skipgram_nce_update(*tables, walks, negs, self._window_size,
+                                   self._clipping_value, sums, center_w)
+        skipgram_mean_combine(*tables, sums, lr)
+        return loss
 
     def _extract(self, params: Params, graph: Graph) -> EmbeddingResult:
         return EmbeddingResult(

@@ -2,10 +2,13 @@
 
 The sources in `embiggen_tpu_torch/csrc/` expose a plain C interface, so they
 compile with nvcc alone (seconds; sources that include PyTorch's headers take
-minutes) into one shared library that is loaded with ctypes. Nothing here
-runs at import: the first launch builds the library, and `build()` does so
-explicitly. The library's name carries a hash of the sources and flags, so an
-edited source is rebuilt and never served stale.
+minutes), one nvcc per source, all started together, and link into one shared
+library that is loaded with ctypes. Nothing here runs at import: the first
+launch builds the library, and `build()` does so explicitly. The library's
+name carries a hash of the sources, flags and defines, so an edited source is
+rebuilt and never served stale. A variant built with extra defines (such as
+PHASE_CLOCK, which compiles in K3's per-phase clock stamps) is a library of
+its own beside the default one.
 
 Every wrapper dispatches on the device of the tensors it is given: a CPU
 tensor goes to the kernel's plain PyTorch version, a CUDA tensor to the
@@ -29,8 +32,11 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Compiles in clock64() stamps per phase of K3 (`csrc/skipgram.cu`), written
+# to the buffer its launcher takes; without it that argument is ignored.
+PHASE_CLOCK = ("-DEBT_PHASE_CLOCK",)
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _U64, _F32 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float
@@ -38,10 +44,11 @@ _SIGNATURES = {
     "ebt_first_order_walks": (
         (_P, _P, _P, _P, _P, _P, _I64, _I32, _U64, _U32, _P), _I32),
     "ebt_node_draws": ((_P, _I64, _I64, _P, _I64, _U64, _U32, _P), _I32),
-    "ebt_skipgram_nce_grads": (
-        (_P,) * 12 + (_I32, _I32, _I32, _I32, _I32, _F32, _P), _I32),
+    "ebt_skipgram_nce": (
+        (_P,) * 18 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_scatter_add_rows": ((_P, _P, _P, _P, _I64, _I32, _P), _I32),
     "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _P), _I32),
+    "ebt_skipgram_combine": ((_P,) * 8 + (_F32, _I64, _I32, _P), _I32),
     "ebt_csr_edge_ids": ((_P, _P, _P, _P, _I64, _I32, _P, _P, _P), _I32),
     "ebt_edge_minibatch": (
         (_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64,
@@ -58,11 +65,12 @@ _SIGNATURES = {
 # through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_grads",
-     "mean_scatter", "csr_edge_ids", "edge_prediction_mini_batch", "spmm",
-     "edge_metrics", "tile_gather_sums", "table_gather_sums"), 0,
+     "skipgram_nce_update", "mean_scatter", "skipgram_mean_combine",
+     "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
+     "tile_gather_sums", "table_gather_sums"), 0,
 )
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -78,8 +86,8 @@ def _sources() -> Tuple[Path, ...]:
     return tuple(sorted(CSRC.glob("*.cu")))
 
 
-def library_path() -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -95,45 +103,63 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(force: bool = False) -> float:
+def _run_all(cmds) -> str:
+    """Run the commands at once; return their joined output, or raise with
+    it if one failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=CSRC) for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+    failed = [c[-1] for c, p in zip(cmds, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    return log
+
+
+def build(force: bool = False, defines: Tuple[str, ...] = ()) -> float:
     """Compile the kernels (unless an up-to-date library exists, or `force`)
     and load them. Returns the seconds spent. nvcc's output, including the
     per-kernel register and shared-memory report, goes to
-    `_build/build.log`."""
-    global _lib
+    `_build/build.log` (`build_<defines>.log` for a variant)."""
     t0 = time.perf_counter()
-    so = library_path()
+    defines = tuple(defines)
+    so = library_path(defines)
     if force or not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+        objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in _sources()]
+        name = "build" + "".join("_" + d.lstrip("-D").lower() for d in defines)
+        try:
+            log = _run_all([[_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(o), str(p)]
+                            for o, p in zip(objs, _sources())])
+            log += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        (BUILD_DIR / f"{name}.log").write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = restype
-    _lib = lib
+    _libs[defines] = lib
     return time.perf_counter() - t0
 
 
-def library() -> ctypes.CDLL:
-    if _lib is None:
-        build()
-    return _lib
+def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    if tuple(defines) not in _libs:
+        build(defines=defines)
+    return _libs[tuple(defines)]
 
 
-def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
+def launch(counter: Optional[str], fn_name: str, device: torch.device, *args,
+           defines: Tuple[str, ...] = ()) -> None:
     """Call one C launcher on `device`'s current stream (appended as the last
-    argument), raise if the launch failed, and count it under `counter`."""
-    lib = library()
+    argument), raise if the launch failed, and count it under `counter`
+    (None: a measurement's launch, counted nowhere)."""
+    lib = library(defines)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn_name)(*args, stream)
@@ -141,7 +167,8 @@ def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{fn_name} failed to launch: CUDA error {err} "
             f"({lib.ebt_error_string(err).decode()})")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1
 
 
 def is_cuda(t: torch.Tensor) -> bool:

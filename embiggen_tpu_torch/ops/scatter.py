@@ -10,9 +10,16 @@ several tables from the same multiset passes the counts back in.
 Unlike the JAX version, the update is IN PLACE on `table`, which is also
 returned. On CUDA tensors it is kernel K4 (`csrc/scatter.cu`); on CPU
 tensors the plain version below.
+
+SkipGram's step takes K4 in two halves: K3's update epilogue
+(`skipgram.skipgram_nce_update`) adds the gradient rows into a
+`SkipGramSums` that the fit allocates once, and `skipgram_mean_combine`
+applies the three tables' mean steps in one pass and zeroes the sums and
+counts again for the next step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -24,6 +31,34 @@ Segments = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 def _segments(x: Segments) -> Tuple[torch.Tensor, ...]:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+@dataclasses.dataclass
+class SkipGramSums:
+    """Per-node sums and counts of one SkipGram step's gradient rows, zero
+    between steps: sums_w [N, D] for node_embedding, sums_c [N, D] for
+    context_embedding, sums_b [N] for context_bias; counts_w [N] counts
+    walk positions, counts_c [N] walk positions and negatives (the context
+    table's and the bias's shared multiset)."""
+
+    sums_w: torch.Tensor
+    sums_c: torch.Tensor
+    sums_b: torch.Tensor
+    counts_w: torch.Tensor
+    counts_c: torch.Tensor
+
+    @classmethod
+    def zeros(cls, n: int, d: int, device) -> "SkipGramSums":
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+        return cls(z(n, d), z(n, d), z(n), z(n), z(n))
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def check(self, n: int, d: int, device: torch.device) -> None:
+        for f, t in zip(dataclasses.fields(self), self.buffers()):
+            _build.check(t, f.name, torch.float32,
+                         (n, d) if f.name in ("sums_w", "sums_c") else (n,), device)
 
 
 def _denom(counts: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -86,3 +121,45 @@ def mean_scatter(
         sums.data_ptr(), counts.data_ptr(), float(lr), n, d,
     )
     return table, counts
+
+
+def skipgram_mean_combine_plain(
+    node_embedding: torch.Tensor, context_embedding: torch.Tensor,
+    context_bias: torch.Tensor, sums: SkipGramSums, lr: float,
+) -> None:
+    """Plain PyTorch version of K4's SkipGram combine: the combine step of
+    `mean_scatter_plain` for each table, then the sums and counts zeroed."""
+    for table, total, counts in (
+        (node_embedding, sums.sums_w, sums.counts_w),
+        (context_embedding, sums.sums_c, sums.counts_c),
+        (context_bias, sums.sums_b, sums.counts_c),
+    ):
+        table.sub_(lr * (total / _denom(counts, table.ndim)))
+    for t in sums.buffers():
+        t.zero_()
+
+
+def skipgram_mean_combine(
+    node_embedding: torch.Tensor, context_embedding: torch.Tensor,
+    context_bias: torch.Tensor, sums: SkipGramSums, lr: float,
+) -> None:
+    """Apply one step's per-row mean update to SkipGram's three tables, in
+    place, from the sums and counts of K3's update epilogue, and leave
+    those zero. K4's combine on CUDA tensors, the plain version on CPU
+    tensors."""
+    if not _build.is_cuda(node_embedding):
+        return skipgram_mean_combine_plain(
+            node_embedding, context_embedding, context_bias, sums, lr)
+    dev = node_embedding.device
+    n, d = node_embedding.shape
+    for t, name, shape in ((node_embedding, "node_embedding", (n, d)),
+                           (context_embedding, "context_embedding", (n, d)),
+                           (context_bias, "context_bias", (n,))):
+        _build.check(t, name, torch.float32, shape, dev)
+    sums.check(n, d, dev)
+    _build.launch(
+        "skipgram_mean_combine", "ebt_skipgram_combine", dev,
+        node_embedding.data_ptr(), sums.sums_w.data_ptr(), sums.counts_w.data_ptr(),
+        context_embedding.data_ptr(), sums.sums_c.data_ptr(), context_bias.data_ptr(),
+        sums.sums_b.data_ptr(), sums.counts_c.data_ptr(), float(lr), n, d,
+    )

@@ -1,28 +1,38 @@
-"""Banded NCE gradients of the SkipGram step — counterpart of
-`embiggen_tpu/models/embedders/walk_based.py::SkipGram._gathered_grads`.
+"""Banded NCE step of SkipGram — counterpart of
+`embiggen_tpu/models/embedders/walk_based.py::SkipGram._gathered_grads`
+and, for the update, of the scatter half of `_mean_scatter`.
 
 For every walk, each centre l in [w, L - w) is scored against its contexts
 within +-w (positive target 1/(2w)) and against the walk's K negatives,
 with context_bias added and a straight-through clip at +-clipping_value.
-The result is (loss_sum, (g_w, g_c, g_b), (g_neg, g_nb)): gradients with
-respect to the gathered rows, per walk position and per negative slot,
-exactly as the JAX version returns them.
 
-On CUDA tensors this is kernel K3 (`csrc/skipgram.cu`, closed-form
-gradients); on CPU tensors the plain version below, which takes the
-gradients of the loss by autograd and so checks the closed form
-independently.
+Kernel K3 (`csrc/skipgram.cu`, closed-form gradients) has two epilogues:
+- `skipgram_nce_grads` returns (loss_sum, (g_w, g_c, g_b), (g_neg, g_nb)):
+  gradients with respect to the gathered rows, per walk position and per
+  negative slot, exactly as the JAX version returns them;
+- `skipgram_nce_update` adds those rows into persistent per-node sums and
+  counts (`scatter.SkipGramSums`) and returns the loss sum; K4's
+  `skipgram_mean_combine` then applies the per-row mean step. This is
+  SkipGram's training step on the card: no [B, L, D] gradient is written.
+
+On CPU tensors each is its plain version below. The gradients' plain
+version takes them by autograd of the loss, and so checks the closed form
+independently; the update's plain version scatters them with `index_add_`,
+as `scatter.mean_scatter_plain` does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .scatter import SkipGramSums
 
 Grads = Tuple[torch.Tensor, Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]
+
+PHASES = ("gather", "scores", "gradients")
 
 
 def _st_clip(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -41,8 +51,8 @@ def skipgram_nce_grads_plain(
     clipping_value: float,
     center_w: Optional[torch.Tensor] = None,
 ) -> Grads:
-    """Plain PyTorch version of K3: the reference's loss, differentiated by
-    autograd with respect to the gathered rows."""
+    """Plain PyTorch version of K3's grads epilogue: the reference's loss,
+    differentiated by autograd with respect to the gathered rows."""
     w = window_size
     length = walks.shape[1]
     walks, negs = walks.long(), negs.long()
@@ -77,6 +87,86 @@ def skipgram_nce_grads_plain(
     return loss.detach(), (g_w, g_c, g_b), (g_neg, g_nb)
 
 
+def skipgram_nce_update_plain(
+    node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor,
+    context_bias: torch.Tensor,
+    walks: torch.Tensor,
+    negs: torch.Tensor,
+    window_size: int,
+    clipping_value: float,
+    sums: SkipGramSums,
+    center_w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3's update epilogue: the plain gradients,
+    scattered into `sums` in the order `mean_scatter_plain` takes for
+    SkipGram's three tables (walk rows, then negatives)."""
+    loss, (g_w, g_c, g_b), (g_neg, g_nb) = skipgram_nce_grads_plain(
+        node_embedding, context_embedding, context_bias, walks, negs,
+        window_size, clipping_value, center_w,
+    )
+    d = node_embedding.shape[1]
+    flat, negs_flat = walks.reshape(-1).long(), negs.reshape(-1).long()
+    one = torch.ones((), dtype=torch.float32, device=walks.device)
+    sums.counts_w.index_add_(0, flat, one.expand(flat.shape[0]))
+    for seg in (flat, negs_flat):
+        sums.counts_c.index_add_(0, seg, one.expand(seg.shape[0]))
+    sums.sums_w.index_add_(0, flat, g_w.reshape(-1, d))
+    sums.sums_c.index_add_(0, flat, g_c.reshape(-1, d))
+    sums.sums_c.index_add_(0, negs_flat, g_neg.reshape(-1, d))
+    sums.sums_b.index_add_(0, flat, g_b.reshape(-1))
+    sums.sums_b.index_add_(0, negs_flat, g_nb.reshape(-1))
+    return loss
+
+
+def _launch(counter, node_embedding, context_embedding, context_bias, walks,
+            negs, window_size, clipping_value, center_w, grads=(None,) * 5,
+            sums: Optional[SkipGramSums] = None, clocks=None, defines=()):
+    """Check the inputs, launch K3 once (the update epilogue into `sums`
+    when given, else the grads epilogue into `grads`), and return the
+    per-walk losses [B]."""
+    dev = walks.device
+    n, d = node_embedding.shape
+    b, length = walks.shape
+    k = negs.shape[1]
+    if window_size < 1 or length <= 2 * window_size:
+        raise ValueError(f"walk_length ({length}) must exceed 2*window_size "
+                         f"({2 * window_size}), and window_size be at least 1.")
+    if k < 1:
+        raise ValueError("K3 needs at least one negative per walk.")
+    for t, name, shape in (
+        (node_embedding, "node_embedding", (n, d)),
+        (context_embedding, "context_embedding", (n, d)),
+        (context_bias, "context_bias", (n,)),
+        (center_w, "center_w", (b, length)),
+    ):
+        _build.check(t, name, torch.float32, shape, dev)
+    _build.check(walks, "walks", torch.int32, (b, length), dev)
+    _build.check(negs, "negs", torch.int32, (b, k), dev)
+    if sums is not None:
+        sums.check(n, d, dev)
+    loss = torch.empty((b,), dtype=torch.float32, device=dev)
+    targets = (None,) * 5 if sums is None else sums.buffers()
+    _build.launch(
+        counter, "ebt_skipgram_nce", dev,
+        node_embedding.data_ptr(), context_embedding.data_ptr(),
+        context_bias.data_ptr(), walks.data_ptr(), negs.data_ptr(),
+        _build.ptr(center_w), loss.data_ptr(), *map(_build.ptr, grads),
+        *map(_build.ptr, targets), _build.ptr(clocks), b, length, k, d,
+        window_size, float(clipping_value), defines=defines,
+    )
+    return loss
+
+
+def _grad_buffers(walks, negs, d):
+    b, length = walks.shape
+    k, dev = negs.shape[1], walks.device
+    return (torch.empty((b, length, d), device=dev),
+            torch.empty((b, length, d), device=dev),
+            torch.empty((b, length), device=dev),
+            torch.empty((b, k, d), device=dev), torch.empty((b, k), device=dev))
+
+
 def skipgram_nce_grads(
     node_embedding: torch.Tensor,
     context_embedding: torch.Tensor,
@@ -88,40 +178,57 @@ def skipgram_nce_grads(
     center_w: Optional[torch.Tensor] = None,
 ) -> Grads:
     """(loss_sum, (g_w [B,L,D], g_c [B,L,D], g_b [B,L]),
-    (g_neg [B,K,D], g_nb [B,K])). Kernel K3 on CUDA tensors, the plain
-    version on CPU tensors."""
+    (g_neg [B,K,D], g_nb [B,K])). K3's grads epilogue on CUDA tensors, the
+    plain version on CPU tensors."""
     if not _build.is_cuda(walks):
         return skipgram_nce_grads_plain(
             node_embedding, context_embedding, context_bias, walks, negs,
             window_size, clipping_value, center_w,
         )
-    dev = walks.device
-    n, d = node_embedding.shape
-    b, length = walks.shape
-    k = negs.shape[1]
-    if length <= 2 * window_size:
-        raise ValueError(f"walk_length ({length}) must exceed 2*window_size.")
-    for t, name, shape in (
-        (node_embedding, "node_embedding", (n, d)),
-        (context_embedding, "context_embedding", (n, d)),
-        (context_bias, "context_bias", (n,)),
-        (center_w, "center_w", (b, length)),
-    ):
-        _build.check(t, name, torch.float32, shape, dev)
-    _build.check(walks, "walks", torch.int32, (b, length), dev)
-    _build.check(negs, "negs", torch.int32, (b, k), dev)
-    loss = torch.empty((b,), dtype=torch.float32, device=dev)
-    g_w = torch.empty((b, length, d), dtype=torch.float32, device=dev)
-    g_c = torch.empty_like(g_w)
-    g_b = torch.empty((b, length), dtype=torch.float32, device=dev)
-    g_neg = torch.empty((b, k, d), dtype=torch.float32, device=dev)
-    g_nb = torch.empty((b, k), dtype=torch.float32, device=dev)
-    _build.launch(
-        "skipgram_nce_grads", "ebt_skipgram_nce_grads", dev,
-        node_embedding.data_ptr(), context_embedding.data_ptr(),
-        context_bias.data_ptr(), walks.data_ptr(), negs.data_ptr(),
-        _build.ptr(center_w), loss.data_ptr(), g_w.data_ptr(),
-        g_c.data_ptr(), g_b.data_ptr(), g_neg.data_ptr(), g_nb.data_ptr(),
-        b, length, k, d, window_size, float(clipping_value),
-    )
+    g_w, g_c, g_b, g_neg, g_nb = grads = _grad_buffers(
+        walks, negs, node_embedding.shape[1])
+    loss = _launch("skipgram_nce_grads", node_embedding, context_embedding,
+                   context_bias, walks, negs, window_size, clipping_value,
+                   center_w, grads=grads)
     return loss.sum(), (g_w, g_c, g_b), (g_neg, g_nb)
+
+
+def skipgram_nce_update(
+    node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor,
+    context_bias: torch.Tensor,
+    walks: torch.Tensor,
+    negs: torch.Tensor,
+    window_size: int,
+    clipping_value: float,
+    sums: SkipGramSums,
+    center_w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Add one step's gradient rows into `sums` (and its counts); returns
+    the loss sum. K3's update epilogue on CUDA tensors, the plain version on
+    CPU tensors."""
+    if not _build.is_cuda(walks):
+        return skipgram_nce_update_plain(
+            node_embedding, context_embedding, context_bias, walks, negs,
+            window_size, clipping_value, sums, center_w,
+        )
+    return _launch("skipgram_nce_update", node_embedding, context_embedding,
+                   context_bias, walks, negs, window_size, clipping_value,
+                   center_w, sums=sums).sum()
+
+
+def phase_split(node_embedding, context_embedding, context_bias, walks, negs,
+                window_size, clipping_value, sums: Optional[SkipGramSums] = None,
+                center_w=None) -> Dict[str, float]:
+    """Share of K3's block time in each phase (PHASES), from the clock64()
+    stamps of the `_build.PHASE_CLOCK` build, summed over the blocks of one
+    launch on CUDA tensors: the update epilogue into `sums` when given, else
+    the grads epilogue. The launch is counted nowhere."""
+    clocks = torch.zeros((walks.shape[0], 4), dtype=torch.int64, device=walks.device)
+    grads = ((None,) * 5 if sums is not None
+             else _grad_buffers(walks, negs, node_embedding.shape[1]))
+    _launch(None, node_embedding, context_embedding, context_bias, walks, negs,
+            window_size, clipping_value, center_w, grads=grads, sums=sums,
+            clocks=clocks, defines=_build.PHASE_CLOCK)
+    total = clocks.sum(0).double().cpu()
+    return {name: float(total[i] / total[3]) for i, name in enumerate(PHASES)}

@@ -19,8 +19,14 @@ from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
 from embiggen_tpu_torch.ops.negatives import edge_prediction_mini_batch, nce_negatives
-from embiggen_tpu_torch.ops.scatter import mean_scatter, mean_scatter_plain
-from embiggen_tpu_torch.ops.skipgram import skipgram_nce_grads, skipgram_nce_grads_plain
+from embiggen_tpu_torch.ops.scatter import (
+    SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
+    skipgram_mean_combine_plain,
+)
+from embiggen_tpu_torch.ops.skipgram import (
+    skipgram_nce_grads, skipgram_nce_grads_plain, skipgram_nce_update,
+    skipgram_nce_update_plain,
+)
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
 from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain, first_order_walks
 
@@ -34,24 +40,87 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("with_center_w", [False, True])
-def test_skipgram_kernel_matches_plain(dev, with_center_w):
-    rng = np.random.default_rng(0)
-    n, d, b, length, k = 300, 48, 40, 20, 7
+def _skipgram_inputs(dev, n, d, b, length, k, with_center_w, seed=0):
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    ne = t((0.3 * rng.normal(size=(n, d))).astype(np.float32))
-    ce = t((0.3 * rng.normal(size=(n, d))).astype(np.float32))
-    cb = t((4.0 * rng.normal(size=n)).astype(np.float32))
-    walks = t(rng.integers(0, n, (b, length)).astype(np.int32))
-    negs = t(rng.integers(0, n, (b, k)).astype(np.int32))
-    cw = t(rng.uniform(0, 2, (b, length)).astype(np.float32)) if with_center_w else None
+    return dict(
+        tables=(t((0.3 * rng.normal(size=(n, d))).astype(np.float32)),
+                t((0.3 * rng.normal(size=(n, d))).astype(np.float32)),
+                t((4.0 * rng.normal(size=n)).astype(np.float32))),
+        walks=t(rng.integers(0, n, (b, length)).astype(np.int32)),
+        negs=t(rng.integers(0, n, (b, k)).astype(np.int32)),
+        center_w=(t(rng.uniform(0, 2, (b, length)).astype(np.float32))
+                  if with_center_w else None))
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("d, length, window, k", [(48, 20, 4, 7), (30, 12, 3, 5)])
+def test_skipgram_kernel_matches_plain(dev, with_center_w, d, length, window, k):
+    x = _skipgram_inputs(dev, 300, d, 40, length, k, with_center_w)
+    args = (*x["tables"], x["walks"], x["negs"], window, 6.0, x["center_w"])
     before = _build.launch_counts()["skipgram_nce_grads"]
-    got = skipgram_nce_grads(ne, ce, cb, walks, negs, 4, 6.0, cw)
-    want = skipgram_nce_grads_plain(ne, ce, cb, walks, negs, 4, 6.0, cw)
+    got = skipgram_nce_grads(*args)
+    want = skipgram_nce_grads_plain(*args)
     torch.cuda.synchronize()
     assert _build.launch_counts()["skipgram_nce_grads"] == before + 1
+    # Deterministic, but the sums run in another order than autograd's.
     for a, w in zip((got[0],) + got[1] + got[2], (want[0],) + want[1] + want[2]):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("d", [30, 16])
+def test_skipgram_update_and_combine_match_plain(dev, with_center_w, d):
+    """Few nodes, so every node recurs in many walks and negatives and the
+    atomics collide."""
+    n = 60
+    x = _skipgram_inputs(dev, n, d, 64, 12, 5, with_center_w, seed=d)
+    args = (x["walks"], x["negs"], 3, 6.0)
+    sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
+    before = _build.launch_counts()
+    loss = skipgram_nce_update(*x["tables"], *args, sums, x["center_w"])
+    want_loss = skipgram_nce_update_plain(*x["tables"], *args, want_sums, x["center_w"])
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-5)
+    # Counts add 1.0s: exact in any order. Sums: atomics add in no fixed
+    # order, so they match to rounding.
+    torch.testing.assert_close(sums.counts_w, want_sums.counts_w, rtol=0, atol=0)
+    torch.testing.assert_close(sums.counts_c, want_sums.counts_c, rtol=0, atol=0)
+    for field in ("sums_w", "sums_c", "sums_b"):
+        torch.testing.assert_close(getattr(sums, field), getattr(want_sums, field),
+                                   rtol=1e-5, atol=1e-5)
+    got_t = [t.clone() for t in x["tables"]]
+    want_t = [t.clone() for t in x["tables"]]
+    skipgram_mean_combine(*got_t, sums, 0.05)
+    skipgram_mean_combine_plain(*want_t, want_sums, 0.05)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["skipgram_nce_update"] == before["skipgram_nce_update"] + 1
+    assert after["skipgram_mean_combine"] == before["skipgram_mean_combine"] + 1
+    for a, w in zip(got_t, want_t):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+    # The combine leaves the sums and counts zero for the next step.
+    for t in sums.buffers():
+        assert not bool(t.any())
+
+
+def test_skipgram_step_launches_update_and_combine(dev):
+    g = erdos_renyi(500, 3000, seed=3)
+    model = SkipGram(device=dev, embedding_size=16, walk_length=12, window_size=3,
+                     batch_size=64, random_state=0)
+    tg = model._device_graph(g)
+    model._run_batch_size = model._resolve_batch(g)
+    params = model._init_params(g, torch.Generator().manual_seed(0))
+    sums = model._new_sums(params)
+    before = _build.launch_counts()
+    with torch.no_grad():
+        model._step(tg, params, torch.Generator().manual_seed(1), 0.05, sums=sums)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in (
+        "skipgram_nce_update", "skipgram_mean_combine", "skipgram_nce_grads",
+        "mean_scatter")} == {"skipgram_nce_update": 1, "skipgram_mean_combine": 1,
+                             "skipgram_nce_grads": 0, "mean_scatter": 0}
+    assert all(not bool(t.any()) for t in sums.buffers())
 
 
 @pytest.mark.parametrize("width", [None, 16])

@@ -1,7 +1,8 @@
 """The port's SkipGram step on the CPU against embiggen_tpu: the plain
-versions of K3 (banded NCE gradients) and K4 (per-row mean scatter), and
-three whole steps on injected batches from the same starting tables.
-Inputs are made with numpy and handed to both packages."""
+versions of K3 (banded NCE gradients, and their update into per-node sums)
+and K4 (per-row mean scatter, and SkipGram's combine), and three whole
+steps on injected batches from the same starting tables. Inputs are made
+with numpy and handed to both packages."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +13,8 @@ from embiggen_tpu.models.embedders.walk_based import _mean_scatter
 from embiggen_tpu.ops.walks import random_walks as ref_random_walks
 from embiggen_tpu_torch.graph import Graph
 from embiggen_tpu_torch.models.embedders import SkipGram
-from embiggen_tpu_torch.ops.scatter import mean_scatter
-from embiggen_tpu_torch.ops.skipgram import skipgram_nce_grads
+from embiggen_tpu_torch.ops.scatter import SkipGramSums, mean_scatter, skipgram_mean_combine
+from embiggen_tpu_torch.ops.skipgram import skipgram_nce_grads, skipgram_nce_update
 from embiggen_tpu_torch.utils.convert import skipgram_params_from_jax
 
 torch.set_num_threads(1)
@@ -102,9 +103,35 @@ def test_mean_scatter_matches_reference(n_rows, width):
     np.testing.assert_array_equal(again, counts)
 
 
-def test_injected_steps_match_reference(karate):
+def _batch(case, rng, step, karate, dg):
+    """(walks [20, 12], negs [20, 5], center_w or None) for one step."""
+    if case == "karate walks":
+        walks = np.array(ref_random_walks(
+            dg, jnp.asarray(rng.integers(0, 34, 20), jnp.int32), 12,
+            jnp.asarray([0, step], jnp.uint32)))
+        return walks, rng.integers(0, 34, (20, 5)).astype(np.int32), None
+    walks = rng.integers(0, 33, (20, 12)).astype(np.int32)
+    negs = rng.integers(0, 33, (20, 5)).astype(np.int32)
+    if case == "context and negative":
+        # Each walk's first negatives are nodes of its own band.
+        negs[:, 0] = walks[:, 4]
+        negs[:, 1] = walks[:, 7]
+    elif case == "node only before w":
+        # Node 33 sits only at positions 0 .. w - 1: never a centre, a
+        # context of the first centres only, never a negative.
+        walks[::3, 0] = 33
+        walks[1::4, 2] = 33
+    cw = (rng.uniform(0, 2, (20, 12)).astype(np.float32)
+          if case == "center_w" else None)
+    return walks, negs, cw
+
+
+@pytest.mark.parametrize("case", ["karate walks", "context and negative",
+                                  "node only before w", "center_w"])
+def test_injected_steps_match_reference(karate, case):
     """Three SkipGram steps on the same (walks, negatives) batches, from the
-    same tables carried across with skipgram_params_from_jax."""
+    same tables carried across with skipgram_params_from_jax, through one
+    set of sums (zero again after each step)."""
     kw = dict(embedding_size=16, walk_length=12, window_size=3,
               number_of_negative_samples=5, random_state=0)
     ref = RefSkipGram(**kw)
@@ -112,18 +139,15 @@ def test_injected_steps_match_reference(karate):
     port = SkipGram(device="cpu", **kw)
     ours = skipgram_params_from_jax(
         {k: np.asarray(v) for k, v in params.items()}, "cpu")
+    sums = port._new_sums(ours)
     tg = Graph(row_ptr=karate.row_ptr, col_idx=karate.col_idx).device("cpu")
     rng = np.random.default_rng(1)
     dg = karate.device()
     for step, lr in enumerate((0.05, 0.04, 0.03)):
-        walks = np.array(ref_random_walks(
-            dg, jnp.asarray(rng.integers(0, 34, 20), jnp.int32), 12,
-            jnp.asarray([0, step], jnp.uint32)))
-        negs = rng.integers(0, 34, (20, 5)).astype(np.int32)
-
+        walks, negs, cw = _batch(case, rng, step, karate, dg)
         loss, row_g, neg_g = ref._gathered_grads(
             lambda name, i: params[name][i], jnp.asarray(walks),
-            jnp.asarray(negs))
+            jnp.asarray(negs), None if cw is None else jnp.asarray(cw))
         params = ref._apply_table_grads(
             dict(params), jnp.asarray(walks).reshape(-1),
             tuple(g.reshape((-1,) + g.shape[2:]) for g in row_g),
@@ -131,14 +155,17 @@ def test_injected_steps_match_reference(karate):
             tuple(g.reshape((-1,) + g.shape[2:]) for g in neg_g),
             jnp.float32(lr), mean_scatter=_mean_scatter,
         )
+        port._center_weights = lambda tg, walks, gen, cw=cw: (
+            None if cw is None else torch.from_numpy(cw))
         got_loss = port._step(
             tg, ours, torch.Generator(), lr,
-            batch=(torch.from_numpy(walks), torch.from_numpy(negs)))
+            batch=(torch.from_numpy(walks), torch.from_numpy(negs)), sums=sums)
         np.testing.assert_allclose(float(got_loss), float(loss) / (20 * 6),
                                    rtol=1e-5)
         for name, table in ours.items():
             np.testing.assert_allclose(table.numpy(), np.asarray(params[name]),
                                        atol=1e-5, err_msg=f"{name} step {step}")
+        assert all(not bool(t.any()) for t in sums.buffers())
 
 
 def test_params_from_jax():
@@ -153,11 +180,59 @@ def test_params_from_jax():
                                  "cpu")
 
 
-def test_kernel_wrappers_raise_off_cpu_and_cuda():
+@pytest.mark.parametrize("wrapper", ["grads", "update", "combine", "mean_scatter"])
+def test_kernel_wrappers_raise_off_cpu_and_cuda(wrapper):
     x = {k: torch.from_numpy(v).to("meta") for k, v in _inputs(2).items()}
+    tables = (x["node_embedding"], x["context_embedding"], x["context_bias"])
+    sums = SkipGramSums.zeros(60, 16, "meta")
+    call = {
+        "grads": lambda: skipgram_nce_grads(*tables, x["walks"], x["negs"], 3, 6.0),
+        "update": lambda: skipgram_nce_update(*tables, x["walks"], x["negs"], 3, 6.0, sums),
+        "combine": lambda: skipgram_mean_combine(*tables, sums, 0.1),
+        "mean_scatter": lambda: mean_scatter(x["context_bias"], x["walks"].reshape(-1),
+                                             x["center_w"].reshape(-1), 0.1),
+    }[wrapper]
     with pytest.raises(ValueError, match="meta"):
-        skipgram_nce_grads(x["node_embedding"], x["context_embedding"],
-                           x["context_bias"], x["walks"], x["negs"], 3, 6.0)
-    with pytest.raises(ValueError, match="meta"):
-        mean_scatter(x["context_bias"], x["walks"].reshape(-1),
-                     x["center_w"].reshape(-1), 0.1)
+        call()
+
+
+def test_update_and_combine_are_the_plain_mean_scatter():
+    """On the CPU, the step's two calls take the same float operations as
+    the gradients followed by mean_scatter on each table, so they agree
+    exactly."""
+    x = _inputs(3)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    tables = [t[k].clone() for k in ("node_embedding", "context_embedding", "context_bias")]
+    sums = SkipGramSums.zeros(60, 16, "cpu")
+    loss = skipgram_nce_update(*tables, t["walks"], t["negs"], 3, 6.0, sums, t["center_w"])
+    skipgram_mean_combine(*tables, sums, 0.05)
+    want_loss, (g_w, g_c, g_b), (g_neg, g_nb) = skipgram_nce_grads(
+        t["node_embedding"], t["context_embedding"], t["context_bias"], t["walks"],
+        t["negs"], 3, 6.0, t["center_w"])
+    flat, negs = t["walks"].reshape(-1), t["negs"].reshape(-1)
+    want = [t[k].clone() for k in ("node_embedding", "context_embedding", "context_bias")]
+    mean_scatter(want[0], flat, g_w.reshape(-1, 16), 0.05)
+    _, counts = mean_scatter(want[1], (flat, negs), (g_c.reshape(-1, 16), g_neg.reshape(-1, 16)), 0.05)
+    mean_scatter(want[2], (flat, negs), (g_b.reshape(-1), g_nb.reshape(-1)), 0.05, counts=counts)
+    assert float(loss) == float(want_loss)
+    for got, w in zip(tables, want):
+        assert torch.equal(got, w)
+    assert all(not bool(b.any()) for b in sums.buffers())
+
+
+def test_sums_check_shapes():
+    sums = SkipGramSums.zeros(60, 16, "cpu")
+    sums.check(60, 16, torch.device("cpu"))
+    with pytest.raises(ValueError, match="sums_w"):
+        sums.check(60, 8, torch.device("cpu"))
+    with pytest.raises(ValueError, match="counts_w"):
+        SkipGramSums(sums.sums_w, sums.sums_c, sums.sums_b, sums.counts_w[:5],
+                     sums.counts_c).check(60, 16, torch.device("cpu"))
+
+
+def test_phase_clock_build_is_its_own_library():
+    """The clock-stamped build of the kernels never replaces the default one."""
+    from embiggen_tpu_torch.ops import _build
+
+    assert _build.library_path() != _build.library_path(_build.PHASE_CLOCK)
+    assert _build.library_path() == _build.library_path(())
