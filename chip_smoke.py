@@ -8,13 +8,13 @@ the exit code is not 0:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernels from `embiggen_tpu_torch/csrc/` with nvcc;
   3. K1-K4 against their plain PyTorch versions on the card, at the shapes
-     the S1 slice gives them, with both times: K3's two epilogues and K4's
-     SkipGram combine at the flagship shapes, the harness's SkipGram shapes
-     and a D that is not a multiple of 4, with and without centre weights
-     (the grads epilogue and the update epilogue's sums rtol 1e-4 / atol
-     1e-5: sums in another order; the update epilogue's counts exactly; the
+     the S1 slice gives them, with both times: K3 and K4's SkipGram combine
+     at the flagship shapes, the harness's SkipGram shapes and a D that is
+     not a multiple of 4, with and without centre weights (K3's sums rtol
+     1e-4 / atol 1e-5: sums in another order; its counts exactly; the
      tables after the combine atol 1e-5: atomics add in no fixed order; the
-     sums and counts all zero after the combine); K4's standalone mean scatter (atol 1e-5);
+     sums and counts all zero after the combine); K4's standalone mean
+     scatter (atol 1e-5);
      K1 and K2, which are samplers, by arc
      validity and chi-square tests (fail at p < 1e-3): on small weighted
      and unweighted graphs against the exact distributions, and on the
@@ -29,7 +29,8 @@ the exit code is not 0:
      degree-proportional (against the exact distribution and the plain
      version), no more arcs or self-loops among negatives than two redraws
      leave; K7 forward for the three combiners and its backward through
-     autograd (rtol 1e-5 / atol 1e-5: sums in another order); P1 and P2
+     autograd, on the slice graph at D 128 and on a 20,000-node weighted
+     graph at D 30 (rtol 1e-5 / atol 1e-5: sums in another order); P1 and P2
      (rtol 1e-5 / atol 1e-3: sums of 256 and 8192 rows in another order);
      K8 on 2^20 pairs (half arcs, half uniform pairs) of the slice graph
      and of the slice graph plus 256 hubs of 4,096-65,536 random
@@ -40,8 +41,8 @@ the exit code is not 0:
   5. S1: three SkipGram steps on injected batches, kernel path against the
      plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
      erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
-     32768, 2 epochs, with K1, K2, K3's update epilogue and K4's combine
-     launched, and neither K3's grads epilogue nor K4's standalone scatter;
+     32768, 2 epochs, with K1, K2, K3 and K4's combine launched, and not
+     K4's standalone scatter;
   6. S3: three GCN Adam steps on injected batches, card against CPU from
      the same parameters; then the bench configuration: GCNEdgePrediction
      (units 128-128, Symmetric Normalized Laplacian, batch 2^20) for 2
@@ -67,13 +68,14 @@ the exit code is not 0:
      launched; every phase second, peak device memory, and test AUPRC at
      least 0.85 (printed beside the reference's 0.8712);
  11. with `--profile` only: K3's phase split (gather, scores, gradients)
-     for each epilogue at the flagship shapes, from clock64() stamps in a
-     build with EBT_PHASE_CLOCK; then torch.profiler over steady steps of
+     at the flagship shapes, from clock64() stamps in a build with
+     EBT_PHASE_CLOCK; then torch.profiler over steady steps of
      S1 and of the GCN, one line per kernel name with its device ms per
      step.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
-time of one PyTorch call computing the same function where there is one),
+time of one PyTorch call computing the same function where there is one,
+named by `library`),
 the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
@@ -125,7 +127,7 @@ HARNESS_FLOOR = 0.85
 SKIPGRAM_SHAPES = (("flagship", N_NODES, DIM, WALK, WINDOW, NEGS, BATCH),
                    ("harness", N_NODES, 64, 16, 2, 5, BATCH),
                    ("D 30", 100_000, 30, 12, 3, 5, 4096))
-K3_GRADS_TOL = dict(rtol=1e-4, atol=1e-5)   # sums in another order
+K3_SUMS_TOL = dict(rtol=1e-4, atol=1e-5)    # sums in another order
 K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
 # The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
 # fp32 flop/s outside the tensor cores; every kernel here is fp32 or integer.
@@ -469,9 +471,9 @@ def gcn_step(model, graph):
 
 
 def k3_phase_line(card, dev):
-    """K3's phase split at the S1 flagship shapes on seeded random inputs,
-    for each epilogue: the share of block time per phase from the
-    PHASE_CLOCK build's stamps, and each share times the kernel's time."""
+    """K3's phase split at the S1 flagship shapes on seeded random inputs:
+    the share of block time per phase from the PHASE_CLOCK build's stamps,
+    and each share times the kernel's time."""
     from embiggen_tpu_torch.ops import skipgram
     from embiggen_tpu_torch.ops.scatter import SkipGramSums
 
@@ -483,18 +485,12 @@ def k3_phase_line(card, dev):
     negs = torch.from_numpy(rng.integers(0, N_NODES, (BATCH, NEGS), dtype=np.int32)).to(dev)
     args = (*tables, bias, walks, negs, WINDOW, 6.0)
     sums = SkipGramSums.zeros(N_NODES, DIM, dev)
-    out = {}
-    for name, shares, fn in (
-        ("update", skipgram.phase_split(*args, sums),
-         lambda: skipgram.skipgram_nce_update(*args, sums)),
-        ("grads", skipgram.phase_split(*args), lambda: skipgram.skipgram_nce_grads(*args)),
-    ):
-        ms = time_ms(fn, 10)
-        out[name] = dict(ms=ms, **shares)
-        print(f"phase 11 K3 {name} epilogue phase split on {card}: kernel {ms:.3f} ms; "
-              + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
-                          for k, v in shares.items()), flush=True)
-    return out
+    shares = skipgram.phase_split(*args, sums)
+    ms = time_ms(lambda: skipgram.skipgram_nce_update(*args, sums), 10)
+    print(f"phase 11 K3 phase split on {card}: kernel {ms:.3f} ms; "
+          + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
+                      for k, v in shares.items()), flush=True)
+    return dict(ms=ms, **shares)
 
 
 def print_profile(name, card, rows, step_ms):
@@ -508,22 +504,18 @@ def print_profile(name, card, rows, step_ms):
 
 
 def skipgram_checks(dev):
-    """K3's two epilogues and K4's SkipGram combine against their plain
-    versions at SKIPGRAM_SHAPES, with and without centre weights, on seeded
-    random tables and walks: the grads epilogue to K3_GRADS_TOL; the update
-    epilogue's counts exactly and its sums to K3_GRADS_TOL, the tables
-    after the combine to K3_UPDATE_ATOL; the sums and counts all zero after
-    the combine. Then K4's standalone mean_scatter at the flagship shapes.
-    Returns (kernels entries timed at the flagship shapes, {shape: (grads
-    err, update sums err, combined tables err)})."""
+    """K3 and K4's SkipGram combine against their plain versions at
+    SKIPGRAM_SHAPES, with and without centre weights, on seeded random
+    tables and walks: K3's counts exactly and its sums to K3_SUMS_TOL, the
+    tables after the combine to K3_UPDATE_ATOL; the sums and counts all zero
+    after the combine. Then K4's standalone mean_scatter at the flagship
+    shapes. Returns (kernels entries timed at the flagship shapes, {shape:
+    (sums err, combined tables err)})."""
     from embiggen_tpu_torch.ops.scatter import (
         SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
         skipgram_mean_combine_plain,
     )
-    from embiggen_tpu_torch.ops.skipgram import (
-        skipgram_nce_grads, skipgram_nce_grads_plain, skipgram_nce_update,
-        skipgram_nce_update_plain,
-    )
+    from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
 
     entries, errs = {}, {}
     for name, n, d, length, w, k, b in SKIPGRAM_SHAPES:
@@ -535,28 +527,20 @@ def skipgram_checks(dev):
         negs = torch.from_numpy(rng.integers(0, n, (b, k), dtype=np.int32)).to(dev)
         center_w = torch.from_numpy(rng.uniform(0, 2, (b, length)).astype(np.float32)).to(dev)
         args = (*tables, walks, negs, w, 6.0)
-        grads_err = sums_err = combine_err = 0.0
+        sums_err = combine_err = 0.0
         for cw in (None, center_w):
-            got = skipgram_nce_grads(*args, cw)
-            want = skipgram_nce_grads_plain(*args, cw)
-            for i, (x, y) in enumerate(zip((got[0],) + got[1] + got[2],
-                                           (want[0],) + want[1] + want[2])):
-                err = check_close(f"K3 grads {name} output {i}", x, y, **K3_GRADS_TOL)
-                grads_err = max(grads_err, err if i > 0 else 0.0)
-            del got, want
             sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
             loss = skipgram_nce_update(*args, sums, cw)
             want_loss = skipgram_nce_update_plain(*args, want_sums, cw)
-            check_close(f"K3 update {name} loss", loss, want_loss, **K3_GRADS_TOL)
+            check_close(f"K3 {name} loss", loss, want_loss, **K3_SUMS_TOL)
             for field in ("counts_w", "counts_c"):
-                check_close(f"K3 update {name} {field}", getattr(sums, field),
+                check_close(f"K3 {name} {field}", getattr(sums, field),
                             getattr(want_sums, field), 0.0, 0.0)
-            # Sums of gradients (a negative's bias takes one per centre):
-            # the grads epilogue's relative tolerance.
+            # Sums of gradients (a negative's bias takes one per centre).
             for field in ("sums_w", "sums_c", "sums_b"):
                 sums_err = max(sums_err, check_close(
-                    f"K3 update {name} {field}", getattr(sums, field),
-                    getattr(want_sums, field), **K3_GRADS_TOL))
+                    f"K3 {name} {field}", getattr(sums, field),
+                    getattr(want_sums, field), **K3_SUMS_TOL))
             got_t = [t.clone() for t in tables]
             want_t = [t.clone() for t in tables]
             skipgram_mean_combine(*got_t, sums, 0.025)
@@ -567,7 +551,7 @@ def skipgram_checks(dev):
             if any(bool(t.any()) for t in sums.buffers()):
                 raise AssertionError(f"K4 combine {name}: sums or counts not zero after it")
             del got_t, want_t, want_sums, sums
-        errs[name] = (grads_err, sums_err, combine_err)
+        errs[name] = (sums_err, combine_err)
         if name != "flagship":
             continue
         # Times and bounds at the flagship shapes. Rows each table must read
@@ -577,13 +561,6 @@ def skipgram_checks(dev):
         pairs = b * (length - 2 * w) * (2 * w + k)
         gathered = 4 * ((u_w + u_c) * d + u_c + b * (length + k))
         sums = SkipGramSums.zeros(n, d, dev)
-        entries["skipgram_nce_grads"] = dict(
-            source="embiggen_tpu_torch/csrc/skipgram.cu",
-            replaces="embiggen_tpu/models/embedders/walk_based.py:895",
-            max_abs_err=grads_err, ms=time_ms(lambda: skipgram_nce_grads(*args), 10),
-            plain_ms=time_ms(lambda: skipgram_nce_grads_plain(*args), 3), library_ms=None,
-            **bound(gathered + 4 * (2 * b * length * d + b * length + b * k * d + b * k + b),
-                    6 * d * pairs))
         entries["skipgram_nce_update"] = dict(
             source="embiggen_tpu_torch/csrc/skipgram.cu",
             replaces="embiggen_tpu/models/embedders/walk_based.py:895",
@@ -634,8 +611,10 @@ def skipgram_checks(dev):
             max_abs_err=scatter_err,
             ms=time_ms(lambda: mean_scatter(tables[1], segs, gsegs, 0.025), 10),
             plain_ms=time_ms(lambda: mean_scatter_plain(tables[1], segs, gsegs, 0.025), 10),
-            # its scatter half, as one call
-            library_ms=time_ms(lambda: acc.index_add_(0, idx_all, g_all), 10),
+            # No one call computes the sums, the counts and the combine;
+            # index_add_ times the sums alone.
+            library_ms=None, library=None,
+            scatter_half_ms=time_ms(lambda: acc.index_add_(0, idx_all, g_all), 10),
             # gradients and ids read; touched rows read and written; counts out
             **bound(4 * (m * d + m) + 8 * u_c * d + 4 * n, 3 * m * d))
         del idx_all, g_all, acc, gsegs
@@ -677,6 +656,7 @@ def edge_kernel_checks(tg):
         plain_ms=time_ms(
             lambda: csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst), 3),
         library_ms=time_ms(lambda: torch.searchsorted(keys, q_keys), 20),
+        library="torch.searchsorted",
         # pairs in, ids and flags out, two row_ptr reads and a search each
         **bound(q * (8 + 5 + 8) + 4 * float(search_reads(tg.degrees[src.long()]).sum()), 0),
     )}
@@ -732,43 +712,71 @@ def edge_kernel_checks(tg):
     return entries, p
 
 
-def spmm_checks(graph, dev):
-    """K7 over the slice graph's Symmetric Normalized Laplacian at D = 128:
-    forward for every combiner and backward through autograd, against the
-    plain version. Returns its kernels entry."""
-    import torch.nn.functional as F
+def spmm_check(k, x, g, name) -> float:
+    """K7 forward for every combiner and its backward through autograd
+    against the plain version, over `k` with input `x` and output gradient
+    `g`. Returns the largest abs error."""
+    from embiggen_tpu_torch.ops.spmm import COMBINERS, csr_spmm_plain, spmm
 
-    from embiggen_tpu_torch.graph.laplacians import kernel_coo
-    from embiggen_tpu_torch.ops.spmm import COMBINERS, csr_kernel, csr_spmm, csr_spmm_plain, spmm
-
-    t0 = time.perf_counter()
-    k = csr_kernel(*kernel_coo(graph, "Symmetric Normalized Laplacian"),
-                   graph.number_of_nodes, device=dev)
-    torch.cuda.synchronize()
-    layout_s = time.perf_counter() - t0
-    rng = np.random.default_rng(24)
-    x = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
     err = 0.0
     for combiner in COMBINERS:
         inv = k.inverse_denominator(combiner)
         xg = x.clone().requires_grad_(True)
         y = spmm(k, xg, combiner)
         (dx,) = torch.autograd.grad(y, xg, g)
-        err = max(err, check_close(f"K7 forward {combiner}", y.detach(),
+        err = max(err, check_close(f"K7 forward {combiner} {name}", y.detach(),
                                    csr_spmm_plain(k, x, inv), **K7_TOL))
-        err = max(err, check_close(f"K7 backward {combiner}", dx,
+        err = max(err, check_close(f"K7 backward {combiner} {name}", dx,
                                    csr_spmm_plain(k.transpose, g, None, inv), **K7_TOL))
         del xg, y, dx
-    # The forward with the sum combiner as one call.
+    return err
+
+
+def spmm_checks(graph, dev):
+    """K7 over the slice graph's Symmetric Normalized Laplacian at D = 128
+    and over a small weighted graph's at D = 30 (the scalar path): forward
+    for every combiner and backward through autograd, against the plain
+    version. Returns its kernels entry, timed at the slice shape, with two
+    one-call yardsticks: `embedding_bag` and cuSPARSE's CSR product."""
+    import torch.nn.functional as F
+
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain
+
+    small = erdos_renyi(20_000, 100_000, seed=3, weighted=True)
+    rng = np.random.default_rng(24)
+    k = csr_kernel(*kernel_coo(small, "Symmetric Normalized Laplacian"),
+                   small.number_of_nodes, device=dev)
+    x = torch.from_numpy(rng.standard_normal((small.number_of_nodes, 30), dtype=np.float32)).to(dev)
+    small_err = spmm_check(k, x, torch.randn_like(x), "D 30")
+    t0 = time.perf_counter()
+    k = csr_kernel(*kernel_coo(graph, "Symmetric Normalized Laplacian"),
+                   graph.number_of_nodes, device=dev)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    x = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+    err = max(small_err, spmm_check(k, x, g, "D 128"))
+    # The forward with the sum combiner as one call: a bag sum, and the CSR
+    # product of cuSPARSE.
     cols, offsets = k.cols.long(), k.row_ptr[:-1].long()
+    a = torch.sparse_csr_tensor(k.row_ptr, k.cols, k.vals, size=(N_NODES, N_NODES))
+    cusparse_err = float((torch.sparse.mm(a, x) - csr_spmm_plain(k, x)).abs().max())
+    yardsticks = {
+        "F.embedding_bag": time_ms(lambda: F.embedding_bag(
+            cols, x, offsets, mode="sum", per_sample_weights=k.vals), 20),
+        "torch.sparse.mm (cuSPARSE)": time_ms(lambda: torch.sparse.mm(a, x), 20),
+    }
+    library = min(yardsticks, key=yardsticks.get)
     entry = dict(
         source="embiggen_tpu_torch/csrc/spmm.cu",
         replaces="embiggen_tpu/ops/spmm.py:337", max_abs_err=err,
         ms=time_ms(lambda: csr_spmm(k, x), 20),
         plain_ms=time_ms(lambda: csr_spmm_plain(k, x), 3),
-        library_ms=time_ms(lambda: F.embedding_bag(
-            cols, x, offsets, mode="sum", per_sample_weights=k.vals), 20),
+        library_ms=yardsticks[library], library=library,
+        embedding_bag_ms=yardsticks["F.embedding_bag"],
+        cusparse_ms=yardsticks["torch.sparse.mm (cuSPARSE)"], cusparse_max_abs_err=cusparse_err,
         **bound(4 * (k.row_ptr.numel() + 2 * k.n_arcs)
                 + 4 * DIM * (int(torch.unique(k.cols).numel()) + N_NODES),
                 2 * k.n_arcs * DIM),
@@ -777,7 +785,7 @@ def spmm_checks(graph, dev):
         layout_s=layout_s,
     )
     entry["gathered_rows_per_s"] = k.n_arcs / (entry["ms"] / 1e3)
-    del cols, offsets
+    del cols, offsets, a
     return entry
 
 
@@ -816,6 +824,7 @@ def probe_checks(dev):
             max_abs_err=err, ms=ms,
             plain_ms=time_ms(lambda: tile_gather_sums_plain(table, ix, tile), 5),
             library_ms=time_ms(lambda: F.embedding_bag(used, table, offsets, mode="sum"), 20),
+            library="F.embedding_bag",
             # indices and the distinct rows they name read once, sums out
             **bound(4 * rows + 4 * DIM * (int(torch.unique(used).numel()) + shape[0]),
                     rows * DIM),
@@ -999,9 +1008,8 @@ def quality_on_card(card, dev):
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
               "skipgram_mean_combine")
-# Kept beside the S1 step (the grads epilogue for parity checks, the
-# standalone mean scatter for later SGD families); the step launches neither.
-S1_UNUSED = ("skipgram_nce_grads", "mean_scatter")
+# Kept beside the S1 step for later SGD families; the step does not launch it.
+S1_UNUSED = ("mean_scatter",)
 S2_KERNELS = ("csr_edge_ids",)
 S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
 K8_KERNELS = ("edge_metrics",)
@@ -1082,16 +1090,20 @@ def main() -> None:
         # starts in, walks out; each move reads two row_ptr entries and an arc.
         **bound(4 * BATCH + 4 * BATCH * WALK + 12 * BATCH * (WALK - 1), 0),
     )
+    weights = tg.degrees.float()
     kernels["nce_negatives"] = dict(
         source="embiggen_tpu_torch/csrc/sampling.cu",
         replaces="embiggen_tpu/ops/negatives.py:24", max_abs_err=k2_err,
         ms=time_ms(lambda: nce_negatives(tg, gen, (BATCH, NEGS)), 20),
         plain_ms=time_ms(
             lambda: nce_negatives_plain(tg, cuda_gen, (BATCH, NEGS), True), 20),
-        library_ms=None,
+        # the same degree-proportional draws as one call
+        library_ms=time_ms(lambda: torch.multinomial(
+            weights, BATCH * NEGS, replacement=True, generator=cuda_gen), 20),
+        library="torch.multinomial",
         **bound(8 * BATCH * NEGS, 0),   # an arc's head read, a node id written
     )
-    del starts
+    del starts, weights
 
     new, skipgram_errs = skipgram_checks(dev)
     kernels.update(new)
@@ -1100,9 +1112,8 @@ def main() -> None:
           f"ms per call, at the slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f} plain "
               f"{v['plain_ms']:.3f}" for k, v in kernels.items())
-          + " | K3 grads / update sums / tables after the combine, max abs err by shape: "
-          + "; ".join(f"{k} {g:.3g} / {u:.3g} / {c:.3g}"
-                      for k, (g, u, c) in skipgram_errs.items())
+          + " | K3 sums / tables after the combine, max abs err by shape: "
+          + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in skipgram_errs.items())
           + " | sampler p-values at the slice shapes: " + "; ".join(
               f"{k} {v:.3g}" for k, v in slice_p.items()), flush=True)
 
@@ -1120,7 +1131,9 @@ def main() -> None:
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain "
               f"{v['plain_ms']:.4f}" for k, v in new.items())
           + f" | K7 backward ms {new['spmm']['backward_ms']:.4f} plain "
-          f"{new['spmm']['backward_plain_ms']:.4f}, CSR layout "
+          f"{new['spmm']['backward_plain_ms']:.4f}, yardsticks embedding_bag "
+          f"{new['spmm']['embedding_bag_ms']:.4f} cuSPARSE {new['spmm']['cusparse_ms']:.4f}, "
+          "plan: one pass over x in place, CSR layout "
           f"{new['spmm']['layout_s']:.2f} s, gathered rows/s "
           f"{new['spmm']['gathered_rows_per_s']:.4g} | P1 rows/s "
           f"{new['tile_gather_sums']['rows_per_s']:.4g} GB/s "

@@ -4,9 +4,9 @@
 // used by SkipGram._apply_table_grads: every row r touched by the index
 // multiset takes one step  table[r] -= lr * sum(grads on r) / count(r).
 //
-// SkipGram's step (`skipgram_mean_combine`): K3's update epilogue
-// (csrc/skipgram.cu) has already added the gradient rows into persistent
-// sums and counts; one pass over the rows of the three tables applies
+// SkipGram's step (`skipgram_mean_combine`): K3 (csrc/skipgram.cu) has
+// already added the gradient rows into persistent sums and counts; one
+// pass over the rows of the three tables applies
 //   node_embedding    -= lr * sums_w / max(counts_w, 1)
 //   context_embedding -= lr * sums_c / max(counts_c, 1)
 //   context_bias      -= lr * sums_b / max(counts_c, 1)

@@ -1,31 +1,26 @@
-// K3: the banded NCE step of SkipGram, with two epilogues.
+// K3: the banded NCE step of SkipGram.
 //
 // Replaces embiggen_tpu/models/embedders/walk_based.py::SkipGram._gathered_grads
-// (and _st_clip) and, in its update epilogue, the scatter half of
-// _mean_scatter as SkipGram._apply_table_grads uses it. For every walk b,
-// every centre l in [w, L - w) is scored against the contexts j with
-// 0 < |j - l| <= w and against the walk's K negatives; scores take
-// context_bias, are clipped at +-clip for the forward value, and the loss is
-// softplus(s) - s / (2w) for a context and softplus(s) for a negative, each
-// times the centre weight. The gradients are the closed form of that loss
-// with a straight-through clip:
+// (and _st_clip) and the scatter half of _mean_scatter as
+// SkipGram._apply_table_grads uses it. For every walk b, every centre l in
+// [w, L - w) is scored against the contexts j with 0 < |j - l| <= w and
+// against the walk's K negatives; scores take context_bias, are clipped at
+// +-clip for the forward value, and the loss is softplus(s) - s / (2w) for a
+// context and softplus(s) for a negative, each times the centre weight. The
+// gradients are the closed form of that loss with a straight-through clip:
 //   d loss / d s = sigmoid(clip(s)) - 1 / (2w)   (context)
 //   d loss / d s = sigmoid(clip(s))              (negative)
 // taken with respect to the gathered rows:
 //   g_w[l] = sum_j g_lj c_j + sum_k g_lk n_k,   g_c[j] = sum_l g_lj w_l,
 //   g_b[j] = sum_l g_lj,   g_neg[k] = sum_l g_lk w_l,   g_nb[k] = sum_l g_lk.
-// Epilogues:
-//   grads:  write those rows, [B, L, D], [B, L], [B, K, D], [B, K], exactly
-//           the tensors the JAX version returns;
-//   update: add each row into persistent sums at its node id instead
-//           (sums_w, sums_c [N, D]; sums_b [N]) and count the rows
-//           (counts_w: +1 per walk position, centre or not; counts_c: +1
-//           per walk position and per negative), so that K4's combine
-//           (csrc/scatter.cu) applies the per-row mean step. No gradient
-//           row reaches device memory.
+// Each row is added into persistent sums at its node id (sums_w, sums_c
+// [N, D]; sums_b [N]) and counted (counts_w: +1 per walk position, centre or
+// not; counts_c: +1 per walk position and per negative), so that K4's
+// combine (csrc/scatter.cu) applies the per-row mean step. No gradient row
+// reaches device memory.
 //
-// What bounds it on the H100: gathered-row bytes and, in the update
-// epilogue, the reductions into the sums. A walk reads 2 L + K rows of D
+// What bounds it on the H100: gathered-row bytes and the reductions into
+// the sums. A walk reads 2 L + K rows of D
 // floats at random places (about 70 KB at L 64, K 10, D 128) and adds as
 // many rows into the sums; its 6 D (2w + K)(L - 2w) flops (0.8 MFLOP) are
 // far below the fp32 rate. The design, for every L > 2w, K >= 1 and D:
@@ -45,12 +40,11 @@
 //     which reads each shared row once for its kRows outputs; the score
 //     gradients sit in a zero-padded band and the walk's rows between zero
 //     rows, so its loops run without bounds tests;
-//   - update epilogue: float4 reductions (red.global.add.v4.f32) into the
+//   - the rows go out as float4 reductions (red.global.add.v4.f32) into the
 //     sums, scalar atomics when D % 4 != 0. Float atomics add in no fixed
-//     order, so sums differ from run to run by rounding; the grads epilogue
-//     is deterministic.
+//     order, so sums differ from run to run by rounding.
 // With EBT_PHASE_CLOCK defined, thread 0 of each block adds up clock64()
-// cycles per phase (gather wait, scores, gradients with the epilogue, and
+// cycles per phase (gather wait, scores, gradients with the reductions, and
 // the total) into clocks[block, 0..3].
 
 #include <cuda_runtime.h>
@@ -122,13 +116,6 @@ struct Params {
   const int32_t* negs;
   const float* center_w;  // [B, L] or null
   float* loss;            // [B]
-  // grads epilogue
-  float* g_w;
-  float* g_c;
-  float* g_b;
-  float* g_neg;
-  float* g_nb;
-  // update epilogue
   float* sums_w;
   float* sums_c;
   float* sums_b;
@@ -235,17 +222,6 @@ __device__ __forceinline__ void add_row4(const Params& p, float* sums, int64_t i
   }
 }
 
-__device__ __forceinline__ void store_row4(const Params& p, float* out, int64_t row,
-                                           int c4, const float4& v) {
-  float* dst = out + row * p.D + 4 * c4;
-  if (p.vec) {
-    *reinterpret_cast<float4*>(dst) = v;
-  } else {
-    const float a[4] = {v.x, v.y, v.z, v.w};
-    for (int i = 0; i < 4 && 4 * c4 + i < p.D; ++i) dst[i] = a[i];
-  }
-}
-
 // Scores of one walk (stage `st`) and their loss gradients into the band A
 // and g_ng; returns this thread's share of the walk's loss.
 __device__ float score_pass(const Params& p, const Layout& s, const float* st,
@@ -311,11 +287,9 @@ __device__ float score_pass(const Params& p, const Layout& s, const float* st,
   return my_loss;
 }
 
-// Gradient rows of one walk, written (grads) or added into the sums
-// (update).
-template <bool kUpdate>
+// Gradient rows of one walk, added into the sums.
 __device__ void gradient_pass(const Params& p, const Layout& s, const float* st,
-                              const float* A, const float* g_ng, int64_t walk) {
+                              const float* A, const float* g_ng) {
   const int L = p.L, K = p.K, w = p.window, tid = threadIdx.x, D4 = s.D4;
   const int C = L - 2 * w, Wa = s.Wa;
   const int32_t* ids = reinterpret_cast<const int32_t*>(st + s.ids);
@@ -360,20 +334,13 @@ __device__ void gradient_pass(const Params& p, const Layout& s, const float* st,
       for (int a = 0; a < kRows; ++a) {
         const int l = l0 + a;
         if (l >= L) break;
-        if (kUpdate) {
-          const int64_t id = ids[l];
-          if (l >= w && l < L - w) add_row4(p, p.sums_w, id, c4, gw[a]);
-          add_row4(p, p.sums_c, id, c4, gc[a]);
-          if (c4 == 0) {
-            atomicAdd(p.sums_b + id, gb[a]);
-            atomicAdd(p.counts_w + id, 1.f);
-            atomicAdd(p.counts_c + id, 1.f);
-          }
-        } else {
-          const int64_t row = walk * L + l;
-          store_row4(p, p.g_w, row, c4, gw[a]);
-          store_row4(p, p.g_c, row, c4, gc[a]);
-          if (c4 == 0) p.g_b[row] = gb[a];
+        const int64_t id = ids[l];
+        if (l >= w && l < L - w) add_row4(p, p.sums_w, id, c4, gw[a]);
+        add_row4(p, p.sums_c, id, c4, gc[a]);
+        if (c4 == 0) {
+          atomicAdd(p.sums_b + id, gb[a]);
+          atomicAdd(p.counts_w + id, 1.f);
+          atomicAdd(p.counts_c + id, 1.f);
         }
       }
     } else {
@@ -400,24 +367,17 @@ __device__ void gradient_pass(const Params& p, const Layout& s, const float* st,
       for (int a = 0; a < kRows; ++a) {
         const int k = k0 + a;
         if (k >= K) break;
-        if (kUpdate) {
-          const int64_t id = ids[L + k];
-          add_row4(p, p.sums_c, id, c4, gn[a]);
-          if (c4 == 0) {
-            atomicAdd(p.sums_b + id, gnb[a]);
-            atomicAdd(p.counts_c + id, 1.f);
-          }
-        } else {
-          const int64_t row = walk * K + k;
-          store_row4(p, p.g_neg, row, c4, gn[a]);
-          if (c4 == 0) p.g_nb[row] = gnb[a];
+        const int64_t id = ids[L + k];
+        add_row4(p, p.sums_c, id, c4, gn[a]);
+        if (c4 == 0) {
+          atomicAdd(p.sums_b + id, gnb[a]);
+          atomicAdd(p.counts_c + id, 1.f);
         }
       }
     }
   }
 }
 
-template <bool kUpdate>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) skipgram_nce_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const Layout s = layout(p.L, p.K, p.D, p.window, p.stages);
@@ -473,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) skipgram_nce_kernel(Pa
       for (int i = 0; i < kWarps; ++i) total += warp_loss[i];
       p.loss[walk] = total;
     }
-    gradient_pass<kUpdate>(p, s, st, A, g_ng, walk);
+    gradient_pass(p, s, st, A, g_ng);
     __syncthreads();
 #ifdef EBT_PHASE_CLOCK
     const long long c3 = clock64();
@@ -495,23 +455,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) skipgram_nce_kernel(Pa
 
 extern "C" {
 
-// One launcher for both epilogues: the update epilogue when sums_w is not
-// null (g_* are then ignored), else the grads epilogue. The grid is
-// min(B, kBlocksPerSm x SMs) persistent blocks, with the deepest ring of
-// at most kStages stages at which kBlocksPerSm blocks still fit an SM; when
-// even one stage does not let them fit, one stage and as many blocks as
-// fit. A shape whose one stage does not fit a block fails, and
-// that error is returned like a launch error.
+// The grid is min(B, kBlocksPerSm x SMs) persistent blocks, with the
+// deepest ring of at most kStages stages at which kBlocksPerSm blocks still
+// fit an SM; when even one stage does not let them fit, one stage and as
+// many blocks as fit. A shape whose one stage does not fit a block fails,
+// and that error is returned like a launch error.
 int ebt_skipgram_nce(const void* node_emb, const void* ctx_emb,
                      const void* ctx_bias, const void* walks, const void* negs,
-                     const void* center_w, void* loss, void* g_w, void* g_c,
-                     void* g_b, void* g_neg, void* g_nb, void* sums_w,
-                     void* sums_c, void* sums_b, void* counts_w, void* counts_c,
-                     void* clocks, long long B, int L, int K, int D, int window,
-                     float clip, void* stream) {
+                     const void* center_w, void* loss, void* sums_w, void* sums_c,
+                     void* sums_b, void* counts_w, void* counts_c, void* clocks,
+                     long long B, int L, int K, int D, int window, float clip, void* stream) {
   if (B == 0) return 0;
-  const bool update = sums_w != nullptr;
-  auto kernel = update ? skipgram_nce_kernel<true> : skipgram_nce_kernel<false>;
+  const auto kernel = skipgram_nce_kernel;
   int device = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -540,19 +495,14 @@ int ebt_skipgram_nce(const void* node_emb, const void* ctx_emb,
   Params p{static_cast<const float*>(node_emb), static_cast<const float*>(ctx_emb),
            static_cast<const float*>(ctx_bias), static_cast<const int32_t*>(walks),
            static_cast<const int32_t*>(negs), static_cast<const float*>(center_w),
-           static_cast<float*>(loss), static_cast<float*>(g_w), static_cast<float*>(g_c),
-           static_cast<float*>(g_b), static_cast<float*>(g_neg), static_cast<float*>(g_nb),
-           static_cast<float*>(sums_w), static_cast<float*>(sums_c),
+           static_cast<float*>(loss), static_cast<float*>(sums_w), static_cast<float*>(sums_c),
            static_cast<float*>(sums_b), static_cast<float*>(counts_w),
            static_cast<float*>(counts_c), static_cast<long long*>(clocks), B, L, K, D,
            window, stages, partners, false, clip};
-  // 16-byte copies, stores and float4 atomics need every row 16-byte
-  // aligned.
+  // 16-byte copies and float4 atomics need every row 16-byte aligned.
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(node_emb) | reinterpret_cast<uintptr_t>(ctx_emb) |
-      (update ? reinterpret_cast<uintptr_t>(sums_w) | reinterpret_cast<uintptr_t>(sums_c)
-              : reinterpret_cast<uintptr_t>(g_w) | reinterpret_cast<uintptr_t>(g_c) |
-                    reinterpret_cast<uintptr_t>(g_neg));
+      reinterpret_cast<uintptr_t>(sums_w) | reinterpret_cast<uintptr_t>(sums_c);
   p.vec = D % 4 == 0 && align % 16 == 0;
   const int per_sm = kBlocksPerSm < fit ? kBlocksPerSm : fit;
   const long long grid =

@@ -23,6 +23,11 @@
 // the result does not depend on the schedule; arcs are summed in CSR
 // order. x is indexed with 64-bit offsets: at 20M arcs, arc * D passes
 // 2^31.
+//
+// Gathering from feature slices of x small enough to stay in L2 instead
+// (scripts/spmm_slices.py measures it) is slower at the bench shape: a
+// slice that every SM reads stays resident only up to about 20 MB, and
+// each pass pays again for every row and arc of the CSR.
 
 #include <cuda_runtime.h>
 

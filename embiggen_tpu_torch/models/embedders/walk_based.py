@@ -4,7 +4,7 @@
 
 One training step samples start nodes, walks and per-walk negatives
 (kernels K2, K1, K2), adds the banded NCE gradients of the gathered rows into
-per-node sums and counts (K3's update epilogue) and applies the per-row mean
+per-node sums and counts (K3) and applies the per-row mean
 update to the three tables in one pass that zeroes the sums again (K4's
 combine). The sums are allocated once per fit; the tables are updated in
 place. An epoch is a loop over steps; its mean loss is read on the host once

@@ -45,7 +45,7 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _P, _P, _I64, _I32, _U64, _U32, _P), _I32),
     "ebt_node_draws": ((_P, _I64, _I64, _P, _I64, _U64, _U32, _P), _I32),
     "ebt_skipgram_nce": (
-        (_P,) * 18 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
+        (_P,) * 13 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_scatter_add_rows": ((_P, _P, _P, _P, _I64, _I32, _P), _I32),
     "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _P), _I32),
     "ebt_skipgram_combine": ((_P,) * 8 + (_F32, _I64, _I32, _P), _I32),
@@ -64,8 +64,8 @@ _SIGNATURES = {
 # launch of its kernel and nowhere else, so a run can show that it went
 # through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("first_order_walks", "nce_negatives", "skipgram_nce_grads",
-     "skipgram_nce_update", "mean_scatter", "skipgram_mean_combine",
+    ("first_order_walks", "nce_negatives", "skipgram_nce_update",
+     "mean_scatter", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums"), 0,
 )

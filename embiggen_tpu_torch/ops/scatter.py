@@ -11,7 +11,7 @@ Unlike the JAX version, the update is IN PLACE on `table`, which is also
 returned. On CUDA tensors it is kernel K4 (`csrc/scatter.cu`); on CPU
 tensors the plain version below.
 
-SkipGram's step takes K4 in two halves: K3's update epilogue
+SkipGram's step takes K4 in two halves: K3
 (`skipgram.skipgram_nce_update`) adds the gradient rows into a
 `SkipGramSums` that the fit allocates once, and `skipgram_mean_combine`
 applies the three tables' mean steps in one pass and zeroes the sums and
@@ -144,7 +144,7 @@ def skipgram_mean_combine(
     context_bias: torch.Tensor, sums: SkipGramSums, lr: float,
 ) -> None:
     """Apply one step's per-row mean update to SkipGram's three tables, in
-    place, from the sums and counts of K3's update epilogue, and leave
+    place, from the sums and counts K3 added, and leave
     those zero. K4's combine on CUDA tensors, the plain version on CPU
     tensors."""
     if not _build.is_cuda(node_embedding):

@@ -6,19 +6,18 @@ For every walk, each centre l in [w, L - w) is scored against its contexts
 within +-w (positive target 1/(2w)) and against the walk's K negatives,
 with context_bias added and a straight-through clip at +-clipping_value.
 
-Kernel K3 (`csrc/skipgram.cu`, closed-form gradients) has two epilogues:
-- `skipgram_nce_grads` returns (loss_sum, (g_w, g_c, g_b), (g_neg, g_nb)):
-  gradients with respect to the gathered rows, per walk position and per
-  negative slot, exactly as the JAX version returns them;
-- `skipgram_nce_update` adds those rows into persistent per-node sums and
-  counts (`scatter.SkipGramSums`) and returns the loss sum; K4's
-  `skipgram_mean_combine` then applies the per-row mean step. This is
-  SkipGram's training step on the card: no [B, L, D] gradient is written.
+Kernel K3 (`csrc/skipgram.cu`, closed-form gradients),
+`skipgram_nce_update`, adds the gradients with respect to the gathered rows
+into persistent per-node sums and counts (`scatter.SkipGramSums`) and
+returns the loss sum; K4's `skipgram_mean_combine` then applies the per-row
+mean step. This is SkipGram's training step on the card: no [B, L, D]
+gradient is written.
 
-On CPU tensors each is its plain version below. The gradients' plain
-version takes them by autograd of the loss, and so checks the closed form
-independently; the update's plain version scatters them with `index_add_`,
-as `scatter.mean_scatter_plain` does.
+On CPU tensors it is its plain version below, which takes the gradients
+by autograd of the loss (`skipgram_nce_grads_plain`, which returns them per
+walk position and per negative slot exactly as the JAX version does), and
+so checks the closed form independently, and scatters them with
+`index_add_`, as `scatter.mean_scatter_plain` does.
 """
 from __future__ import annotations
 
@@ -51,8 +50,9 @@ def skipgram_nce_grads_plain(
     clipping_value: float,
     center_w: Optional[torch.Tensor] = None,
 ) -> Grads:
-    """Plain PyTorch version of K3's grads epilogue: the reference's loss,
-    differentiated by autograd with respect to the gathered rows."""
+    """(loss_sum, (g_w [B,L,D], g_c [B,L,D], g_b [B,L]), (g_neg [B,K,D],
+    g_nb [B,K])): the reference's loss, differentiated by autograd with
+    respect to the gathered rows."""
     w = window_size
     length = walks.shape[1]
     walks, negs = walks.long(), negs.long()
@@ -98,7 +98,7 @@ def skipgram_nce_update_plain(
     sums: SkipGramSums,
     center_w: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K3's update epilogue: the plain gradients,
+    """Plain PyTorch version of K3: the plain gradients,
     scattered into `sums` in the order `mean_scatter_plain` takes for
     SkipGram's three tables (walk rows, then negatives)."""
     loss, (g_w, g_c, g_b), (g_neg, g_nb) = skipgram_nce_grads_plain(
@@ -120,11 +120,10 @@ def skipgram_nce_update_plain(
 
 
 def _launch(counter, node_embedding, context_embedding, context_bias, walks,
-            negs, window_size, clipping_value, center_w, grads=(None,) * 5,
-            sums: Optional[SkipGramSums] = None, clocks=None, defines=()):
-    """Check the inputs, launch K3 once (the update epilogue into `sums`
-    when given, else the grads epilogue into `grads`), and return the
-    per-walk losses [B]."""
+            negs, window_size, clipping_value, center_w, sums: SkipGramSums,
+            clocks=None, defines=()):
+    """Check the inputs, launch K3 once into `sums`, and return the per-walk
+    losses [B]."""
     dev = walks.device
     n, d = node_embedding.shape
     b, length = walks.shape
@@ -143,54 +142,17 @@ def _launch(counter, node_embedding, context_embedding, context_bias, walks,
         _build.check(t, name, torch.float32, shape, dev)
     _build.check(walks, "walks", torch.int32, (b, length), dev)
     _build.check(negs, "negs", torch.int32, (b, k), dev)
-    if sums is not None:
-        sums.check(n, d, dev)
+    sums.check(n, d, dev)
     loss = torch.empty((b,), dtype=torch.float32, device=dev)
-    targets = (None,) * 5 if sums is None else sums.buffers()
     _build.launch(
         counter, "ebt_skipgram_nce", dev,
         node_embedding.data_ptr(), context_embedding.data_ptr(),
         context_bias.data_ptr(), walks.data_ptr(), negs.data_ptr(),
-        _build.ptr(center_w), loss.data_ptr(), *map(_build.ptr, grads),
-        *map(_build.ptr, targets), _build.ptr(clocks), b, length, k, d,
-        window_size, float(clipping_value), defines=defines,
+        _build.ptr(center_w), loss.data_ptr(), *map(_build.ptr, sums.buffers()),
+        _build.ptr(clocks), b, length, k, d, window_size, float(clipping_value),
+        defines=defines,
     )
     return loss
-
-
-def _grad_buffers(walks, negs, d):
-    b, length = walks.shape
-    k, dev = negs.shape[1], walks.device
-    return (torch.empty((b, length, d), device=dev),
-            torch.empty((b, length, d), device=dev),
-            torch.empty((b, length), device=dev),
-            torch.empty((b, k, d), device=dev), torch.empty((b, k), device=dev))
-
-
-def skipgram_nce_grads(
-    node_embedding: torch.Tensor,
-    context_embedding: torch.Tensor,
-    context_bias: torch.Tensor,
-    walks: torch.Tensor,
-    negs: torch.Tensor,
-    window_size: int,
-    clipping_value: float,
-    center_w: Optional[torch.Tensor] = None,
-) -> Grads:
-    """(loss_sum, (g_w [B,L,D], g_c [B,L,D], g_b [B,L]),
-    (g_neg [B,K,D], g_nb [B,K])). K3's grads epilogue on CUDA tensors, the
-    plain version on CPU tensors."""
-    if not _build.is_cuda(walks):
-        return skipgram_nce_grads_plain(
-            node_embedding, context_embedding, context_bias, walks, negs,
-            window_size, clipping_value, center_w,
-        )
-    g_w, g_c, g_b, g_neg, g_nb = grads = _grad_buffers(
-        walks, negs, node_embedding.shape[1])
-    loss = _launch("skipgram_nce_grads", node_embedding, context_embedding,
-                   context_bias, walks, negs, window_size, clipping_value,
-                   center_w, grads=grads)
-    return loss.sum(), (g_w, g_c, g_b), (g_neg, g_nb)
 
 
 def skipgram_nce_update(
@@ -205,8 +167,7 @@ def skipgram_nce_update(
     center_w: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Add one step's gradient rows into `sums` (and its counts); returns
-    the loss sum. K3's update epilogue on CUDA tensors, the plain version on
-    CPU tensors."""
+    the loss sum. K3 on CUDA tensors, the plain version on CPU tensors."""
     if not _build.is_cuda(walks):
         return skipgram_nce_update_plain(
             node_embedding, context_embedding, context_bias, walks, negs,
@@ -218,17 +179,14 @@ def skipgram_nce_update(
 
 
 def phase_split(node_embedding, context_embedding, context_bias, walks, negs,
-                window_size, clipping_value, sums: Optional[SkipGramSums] = None,
+                window_size, clipping_value, sums: SkipGramSums,
                 center_w=None) -> Dict[str, float]:
     """Share of K3's block time in each phase (PHASES), from the clock64()
     stamps of the `_build.PHASE_CLOCK` build, summed over the blocks of one
-    launch on CUDA tensors: the update epilogue into `sums` when given, else
-    the grads epilogue. The launch is counted nowhere."""
+    launch into `sums` on CUDA tensors. The launch is counted nowhere."""
     clocks = torch.zeros((walks.shape[0], 4), dtype=torch.int64, device=walks.device)
-    grads = ((None,) * 5 if sums is not None
-             else _grad_buffers(walks, negs, node_embedding.shape[1]))
     _launch(None, node_embedding, context_embedding, context_bias, walks, negs,
-            window_size, clipping_value, center_w, grads=grads, sums=sums,
-            clocks=clocks, defines=_build.PHASE_CLOCK)
+            window_size, clipping_value, center_w, sums, clocks=clocks,
+            defines=_build.PHASE_CLOCK)
     total = clocks.sum(0).double().cpu()
     return {name: float(total[i] / total[3]) for i, name in enumerate(PHASES)}

@@ -23,10 +23,7 @@ from embiggen_tpu_torch.ops.scatter import (
     SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
     skipgram_mean_combine_plain,
 )
-from embiggen_tpu_torch.ops.skipgram import (
-    skipgram_nce_grads, skipgram_nce_grads_plain, skipgram_nce_update,
-    skipgram_nce_update_plain,
-)
+from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
 from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain, first_order_walks
 
@@ -56,15 +53,19 @@ def _skipgram_inputs(dev, n, d, b, length, k, with_center_w, seed=0):
 @pytest.mark.parametrize("with_center_w", [False, True])
 @pytest.mark.parametrize("d, length, window, k", [(48, 20, 4, 7), (30, 12, 3, 5)])
 def test_skipgram_kernel_matches_plain(dev, with_center_w, d, length, window, k):
+    """K3's sums and counts against its plain version's (autograd gradients
+    added with index_add_)."""
     x = _skipgram_inputs(dev, 300, d, 40, length, k, with_center_w)
-    args = (*x["tables"], x["walks"], x["negs"], window, 6.0, x["center_w"])
-    before = _build.launch_counts()["skipgram_nce_grads"]
-    got = skipgram_nce_grads(*args)
-    want = skipgram_nce_grads_plain(*args)
+    args = (*x["tables"], x["walks"], x["negs"], window, 6.0)
+    sums, want_sums = SkipGramSums.zeros(300, d, dev), SkipGramSums.zeros(300, d, dev)
+    before = _build.launch_counts()["skipgram_nce_update"]
+    loss = skipgram_nce_update(*args, sums, x["center_w"])
+    want_loss = skipgram_nce_update_plain(*args, want_sums, x["center_w"])
     torch.cuda.synchronize()
-    assert _build.launch_counts()["skipgram_nce_grads"] == before + 1
-    # Deterministic, but the sums run in another order than autograd's.
-    for a, w in zip((got[0],) + got[1] + got[2], (want[0],) + want[1] + want[2]):
+    assert _build.launch_counts()["skipgram_nce_update"] == before + 1
+    # The sums run in another order than autograd's and the atomics'.
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-5)
+    for a, w in zip(sums.buffers(), want_sums.buffers()):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
 
 
@@ -117,9 +118,8 @@ def test_skipgram_step_launches_update_and_combine(dev):
     torch.cuda.synchronize()
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in (
-        "skipgram_nce_update", "skipgram_mean_combine", "skipgram_nce_grads",
-        "mean_scatter")} == {"skipgram_nce_update": 1, "skipgram_mean_combine": 1,
-                             "skipgram_nce_grads": 0, "mean_scatter": 0}
+        "skipgram_nce_update", "skipgram_mean_combine", "mean_scatter")} == {
+            "skipgram_nce_update": 1, "skipgram_mean_combine": 1, "mean_scatter": 0}
     assert all(not bool(t.any()) for t in sums.buffers())
 
 
@@ -211,6 +211,26 @@ def test_spmm_kernel_matches_plain(dev, combiner, width):
     torch.testing.assert_close(y, csr_spmm_plain(k, x.detach(), inv), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(
         dx, csr_spmm_plain(k.transpose, g_out, None, inv), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("width", [128, 64, 30])
+def test_spmm_kernel_matches_plain_at_200k_nodes(dev, combiner, width):
+    """A graph whose [N, D] input is twice the L2 at D 128."""
+    g = erdos_renyi(200_000, 1_000_000, seed=7)
+    rows, cols, vals = kernel_coo(g, "Symmetric Normalized Laplacian")
+    k = csr_kernel(rows, cols, vals, 200_000, device=dev)
+    x = torch.randn(200_000, width, device=dev, requires_grad=True)
+    before = _build.launch_counts()["spmm"]
+    y = spmm(k, x, combiner)
+    g_out = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g_out)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["spmm"] == before + 2
+    inv = k.inverse_denominator(combiner)
+    torch.testing.assert_close(y, csr_spmm_plain(k, x.detach(), inv), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        dx, csr_spmm_plain(k.transpose, g_out, None, inv), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("probe, tile", [(tile_gather_sums, 256), (table_gather_sums, 8192)])

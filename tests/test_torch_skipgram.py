@@ -14,7 +14,7 @@ from embiggen_tpu.ops.walks import random_walks as ref_random_walks
 from embiggen_tpu_torch.graph import Graph
 from embiggen_tpu_torch.models.embedders import SkipGram
 from embiggen_tpu_torch.ops.scatter import SkipGramSums, mean_scatter, skipgram_mean_combine
-from embiggen_tpu_torch.ops.skipgram import skipgram_nce_grads, skipgram_nce_update
+from embiggen_tpu_torch.ops.skipgram import skipgram_nce_grads_plain, skipgram_nce_update
 from embiggen_tpu_torch.utils.convert import skipgram_params_from_jax
 
 torch.set_num_threads(1)
@@ -48,7 +48,7 @@ def test_nce_grads_match_reference(with_center_w, window, bias_scale):
         jnp.asarray(x["negs"]), None if cw is None else jnp.asarray(cw),
     )
     t = {k: torch.from_numpy(v) for k, v in x.items()}
-    loss, rows, negs = skipgram_nce_grads(
+    loss, rows, negs = skipgram_nce_grads_plain(
         t["node_embedding"], t["context_embedding"], t["context_bias"],
         t["walks"], t["negs"], window, 6.0,
         None if cw is None else t["center_w"],
@@ -180,13 +180,14 @@ def test_params_from_jax():
                                  "cpu")
 
 
-@pytest.mark.parametrize("wrapper", ["grads", "update", "combine", "mean_scatter"])
+@pytest.mark.parametrize("wrapper", ["update_weighted", "update", "combine", "mean_scatter"])
 def test_kernel_wrappers_raise_off_cpu_and_cuda(wrapper):
     x = {k: torch.from_numpy(v).to("meta") for k, v in _inputs(2).items()}
     tables = (x["node_embedding"], x["context_embedding"], x["context_bias"])
     sums = SkipGramSums.zeros(60, 16, "meta")
     call = {
-        "grads": lambda: skipgram_nce_grads(*tables, x["walks"], x["negs"], 3, 6.0),
+        "update_weighted": lambda: skipgram_nce_update(
+            *tables, x["walks"], x["negs"], 3, 6.0, sums, x["center_w"]),
         "update": lambda: skipgram_nce_update(*tables, x["walks"], x["negs"], 3, 6.0, sums),
         "combine": lambda: skipgram_mean_combine(*tables, sums, 0.1),
         "mean_scatter": lambda: mean_scatter(x["context_bias"], x["walks"].reshape(-1),
@@ -206,7 +207,7 @@ def test_update_and_combine_are_the_plain_mean_scatter():
     sums = SkipGramSums.zeros(60, 16, "cpu")
     loss = skipgram_nce_update(*tables, t["walks"], t["negs"], 3, 6.0, sums, t["center_w"])
     skipgram_mean_combine(*tables, sums, 0.05)
-    want_loss, (g_w, g_c, g_b), (g_neg, g_nb) = skipgram_nce_grads(
+    want_loss, (g_w, g_c, g_b), (g_neg, g_nb) = skipgram_nce_grads_plain(
         t["node_embedding"], t["context_embedding"], t["context_bias"], t["walks"],
         t["negs"], 3, 6.0, t["center_w"])
     flat, negs = t["walks"].reshape(-1), t["negs"].reshape(-1)
