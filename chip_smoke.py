@@ -8,8 +8,11 @@ the exit code is not 0:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernels from `embiggen_tpu_torch/csrc/` with nvcc;
   3. K1-K4 against their plain PyTorch versions on the card, at the shapes
-     the S1 slice gives them, with both times: K3 and K4's SkipGram combine
-     at the flagship shapes, the harness's SkipGram shapes and a D that is
+     the S1 slice gives them, with both times (K1 and K2, like K5 and K6 in
+     phase 4, which take under 0.1 ms, also with the kernel's device time
+     from torch.profiler, as their wrappers' host work takes longer than
+     the kernel): K3 and K4's SkipGram combine at the flagship shapes, the
+     harness's SkipGram shapes and a D that is
      not a multiple of 4, with and without centre weights (K3's sums rtol
      1e-4 / atol 1e-5: sums in another order; its counts exactly; the
      tables after the combine atol 1e-5: atomics add in no fixed order; the
@@ -67,11 +70,34 @@ the exit code is not 0:
      SkipGram features on a 1M-node planted-partition graph, with K1-K7
      launched; every phase second, peak device memory, and test AUPRC at
      least 0.85 (printed beside the reference's 0.8712);
- 11. with `--profile` only: K3's phase split (gather, scores, gradients)
+ 11. K9-K11 against their plain versions on the card: K9 (the ELL p/q walk)
+     and K10 (the rejection walk) on small weighted and unweighted graphs,
+     every move of whole walks against its exact step law
+     (`tests/pq_laws.py`; K9 over whole rows, over rows subsampled at
+     cap 8, and at cap 34 on rows that span two 32-slot chunks; K10 at 8
+     and 16 tries), and on the slice graph at the slice shapes (K9 also on
+     the slice graph plus 256 hubs, whose rows exceed the cap of 100)
+     against their plain versions: the first p/q step and the last binned
+     by node degree and by blocks of node ids, the returns at each
+     position, and the row slots picked; K11 (the CBOW
+     update) at the S5 flagship shapes and a D that is not a multiple of 4,
+     with and without centre weights (sums rtol 1e-4 / atol 1e-5, counts
+     exactly, the tables after K4's combine atol 1e-5);
+ 12. S5: three CBOW steps on injected batches, card against CPU; then
+     `embed_graph` of Node2Vec CBOW (return 2, explore 0.5, cap 100) on the
+     slice graph at the S1 widths, 2 epochs, with K2, K9, K11 and K4's
+     combine launched and K1, K10 and K3 not; one epoch each of p/q
+     SkipGram (K9 and K3) and DeepWalk CBOW (K1 and K11); `random_walks` on
+     the graph exported without an ELL table, with K10 launched;
+ 13. S5 quality: Node2Vec CBOW p/q features (the gate's SkipGram settings)
+     on the gate fixture's connected holdout, embedding seeds 0-3, fed to a
+     Perceptron on Hadamard alone: mean test AUPRC at least the
+     reference's less 0.03;
+ 14. with `--profile` only: K3's phase split (gather, scores, gradients)
      at the flagship shapes, from clock64() stamps in a build with
-     EBT_PHASE_CLOCK; then torch.profiler over steady steps of
-     S1 and of the GCN, one line per kernel name with its device ms per
-     step.
+     EBT_PHASE_CLOCK; then steady steps of S1, of the GCN and of S5, one
+     line per kernel name with its device ms per step: the port's kernels
+     on CUDA events around each launch, PyTorch's own from torch.profiler.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -83,6 +109,7 @@ import dataclasses
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -121,6 +148,22 @@ GATE_SEEDS = range(8)
 # and the port's floor.
 HARNESS_REFERENCE_AUPRC = 0.8712
 HARNESS_FLOOR = 0.85
+# S5: p/q walks (p = 0.5, q = 2: return 2, explore 0.5; BASELINE.md
+# configuration 2) over the ELL table at the default cap of 100.
+PQ = dict(return_weight=2.0, explore_weight=0.5)
+ELL_CAP = 100
+# K11 at the S5 flagship shapes and at a D that is not a multiple of 4.
+K11_SHAPES = (("flagship", N_NODES, DIM, WALK, WINDOW, NEGS, BATCH),
+              ("D 30", 100_000, 30, 12, 3, 5, 4096))
+# The CBOW p/q gate: the SkipGram gate's settings with return 2, explore 0.5,
+# embedding seeds GATE_CBOW_SEEDS, a Perceptron on Hadamard alone; the
+# reference's mean test AUPRC, measured with embiggen_tpu on the CPU by
+# tests/test_torch_link_prediction.py::test_cbow_pq_reference_mean.
+GATE_CBOW = dict({k: v for k, v in GATE_SKIPGRAM.items() if k != "random_state"}, **PQ)
+GATE_CBOW_PERCEPTRON = dict(edge_embeddings=["Hadamard"], edge_features=None,
+                            number_of_epochs=100, random_state=0)
+GATE_REFERENCE_CBOW_AUPRC = 0.9883034355107209
+GATE_CBOW_SEEDS = range(4)
 # K3 and K4 at the S1 flagship shapes, at the harness's SkipGram shapes (D
 # 64, L 16, w 2, K 5; its batch on a 1M-node graph) and at a D that is not
 # a multiple of 4: (name, N, D, L, w, K, B).
@@ -410,38 +453,96 @@ def slice_sampler_checks(graph, tg, first_order_walks, first_order_walks_plain,
     return p
 
 
-def profile(step, n_steps):
-    """Device time per kernel name over `n_steps` calls of `step` after 3
-    warm-up calls, from torch.profiler. Returns ({name: (ms per step,
-    launches per step)}, ms per step on CUDA events)."""
+# The CUDA function each wrapper's count stands for, as torch.profiler names it.
+KERNEL_NAMES = {
+    "first_order_walks": "first_order_walks_kernel", "nce_negatives": "node_draws_kernel",
+    "skipgram_nce_update": "skipgram_nce_kernel",
+    "skipgram_mean_combine": "skipgram_combine_kernel", "csr_edge_ids": "csr_edge_ids_kernel",
+    "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
+    "edge_metrics": "edge_metrics_kernel", "ell_walks": "ell_walks_kernel",
+    "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
+}
+
+
+def counter_of(event_name):
+    """The wrapper count whose kernel the profiler names `event_name`, or None."""
+    return next((k for k, v in KERNEL_NAMES.items() if v in event_name), None)
+
+
+def profiled(run, require_all=True):
+    """(device events, {counter: launches}, {counter: events kept}) of
+    torch.profiler around `run()`. The profiler drops some of a session's
+    kernel records in long processes (it kept 7 of 10 launches, or 19 of
+    20, in runs that launched them all), so `device_ms` takes each kernel's
+    mean time over the events kept. With `require_all`, a session that kept
+    no event of a kernel it launched is run again, at most three times in
+    all."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+
+    from embiggen_tpu_torch.ops import _build
+
+    for _ in range(3):
+        before = _build.launch_counts()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launched = {k: v - before[k] for k, v in _build.launch_counts().items()
+                    if v > before[k] and k in KERNEL_NAMES}
+        kept = {k: sum(KERNEL_NAMES[k] in e.name for e in events) for k in launched}
+        if all(kept.values()) or not require_all:
+            return events, launched, kept
+    raise AssertionError(f"torch.profiler kept no event of a launched kernel three "
+                         f"times: {kept} of {launched}")
+
+
+def profile(step, n_steps):
+    """Device time per kernel over `n_steps` calls of `step` after 3 warm-up
+    calls, in three runs of those steps: the whole step on CUDA events; each
+    of the port's kernels on the CUDA event pair recorded around each of its
+    launches (`_build.timed_launches`; the stream is busy, so a pair times
+    the kernel alone); PyTorch's own kernels from torch.profiler, which may
+    drop records, so their sum is a lower bound. Returns ({name: (ms per
+    step, launches per step, "events" or "profiler")}, ms per step on CUDA
+    events, (profiler records kept, launches) of the port's kernels)."""
+    from embiggen_tpu_torch.ops import _build
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        start.record()
+    start.record()
+    for _ in range(n_steps):
+        step()
+    end.record()
+    end.synchronize()
+    with _build.timed_launches() as pairs:
         for _ in range(n_steps):
             step()
-        end.record()
-        end.synchronize()
-    rows = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, count = rows.get(e.name, (0.0, 0))
-            rows[e.name] = (us + e.time_range.elapsed_us(), count + 1)
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    return ({k: (us / 1e3 / n_steps, c / n_steps) for k, (us, c) in rows.items()},
-            start.elapsed_time(end) / n_steps)
+    torch.cuda.synchronize()
+    rows = {KERNEL_NAMES[k]: (sum(s.elapsed_time(e) for s, e in got) / n_steps,
+                              len(got) / n_steps, "events") for k, got in pairs.items()}
+
+    def run():
+        for _ in range(n_steps):
+            step()
+    events, launched, kept = profiled(run, require_all=False)
+    others = {}
+    for e in events:
+        if counter_of(e.name) is None:
+            us, count = others.get(e.name, (0.0, 0))
+            others[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    rows.update({k: (us / 1e3 / n_steps, c / n_steps, "profiler")
+                 for k, (us, c) in others.items()})
+    return (rows, start.elapsed_time(end) / n_steps,
+            (sum(kept.values()), sum(launched.values())))
 
 
-def skipgram_step(model, graph):
-    """One steady SkipGram step of the S1 slice, as a closure."""
+def embedder_step(model, graph):
+    """One steady step of a walk-based embedder (S1's SkipGram, S5's CBOW)
+    at its fit's settings, as a closure."""
     tg = model._device_graph(graph)
     gen = torch.Generator().manual_seed(0)
     params = model._init_params(graph, gen)
@@ -487,20 +588,23 @@ def k3_phase_line(card, dev):
     sums = SkipGramSums.zeros(N_NODES, DIM, dev)
     shares = skipgram.phase_split(*args, sums)
     ms = time_ms(lambda: skipgram.skipgram_nce_update(*args, sums), 10)
-    print(f"phase 11 K3 phase split on {card}: kernel {ms:.3f} ms; "
+    print(f"phase 14 K3 phase split on {card}: kernel {ms:.3f} ms; "
           + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
                       for k, v in shares.items()), flush=True)
     return dict(ms=ms, **shares)
 
 
-def print_profile(name, card, rows, step_ms):
-    busy = sum(ms for ms, _ in rows.values())
-    print(f"phase 11 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+def print_profile(name, card, rows, step_ms, kept):
+    busy = sum(ms for ms, _, _ in rows.values())
+    port = sum(ms for ms, _, how in rows.values() if how == "events")
+    print(f"phase 14 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
           f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
-          f"per step, device busy share {busy / step_ms:.3f}", flush=True)
-    for kernel, (ms, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
+          f"per step ({port:.3f} of the port's on their launches' events, the rest "
+          f"from torch.profiler), device busy share {busy / step_ms:.3f}; the "
+          f"profiler kept {kept[0]} of the port's {kept[1]} launches", flush=True)
+    for kernel, (ms, count, how) in sorted(rows.items(), key=lambda r: -r[1][0]):
         print(f"  profile {name} {ms:9.4f} ms/step {ms / busy:7.2%} "
-              f"{count:5.2f} launches/step  {kernel[:100]}", flush=True)
+              f"{count:5.2f} launches/step {how:8s}  {kernel[:100]}", flush=True)
 
 
 def skipgram_checks(dev):
@@ -709,6 +813,11 @@ def edge_kernel_checks(tg):
         **bound(GCN_BATCH * 12 + n_pos * 8 + n_neg * 16
                 + 4 * float(search_reads(tg.degrees[s[n_pos:].long()]).sum()), 0),
     )
+    for name, ms in device_ms({
+        "csr_edge_ids": lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst),
+        "edge_prediction_mini_batch": lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH),
+    }).items():
+        entries[name]["device_ms"] = ms
     return entries, p
 
 
@@ -1004,6 +1113,372 @@ def quality_on_card(card, dev):
     return perceptron, launches, gcn
 
 
+def device_ms(calls, reps: int = 20) -> dict:
+    """{counter: device milliseconds per call} of each wrapper in `calls`
+    ({counter: fn}, each fn one launch of that wrapper's kernel), from one
+    torch.profiler session over `reps` calls of each after a warm-up: the
+    kernel alone, where `time_ms` also times the wrapper's host work."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+    events, _, kept = profiled(run)
+    return {k: sum(e.time_range.elapsed_us() for e in events if KERNEL_NAMES[k] in e.name)
+            / 1e3 / kept[k] for k in calls}
+
+
+def pq_laws():
+    """`tests/pq_laws.py`, the exact step laws of the p/q samplers computed
+    in numpy from the graph (shared with the tests, which import it the same
+    way)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import pq_laws as module
+
+    return module
+
+
+def pq_sampler_checks(erdos_renyi, dev):
+    """K9 and K10 on small graphs (weighted and not): whole walks, every
+    move against its exact step law given the walk so far
+    (`tests/pq_laws.py`, pooled chi-square): K9 over whole rows (cap 100),
+    over rows subsampled at cap 8, and on a 60-node graph (degrees up to 36)
+    at cap 34, whose rows span two of K9's 32-slot chunks; K10 at weight
+    ratios 4 (8 tries) and 16 (16 tries). Returns ({test: p}, {kernel: max
+    |empirical - exact| step probability})."""
+    from embiggen_tpu_torch.ops.walks import ell_walks, rejection_walks
+
+    laws = pq_laws()
+    p, err = {}, {"ell_walks": 0.0, "rejection_walks": 0.0}
+    starts = (torch.arange(40000, device=dev) % 200).int()
+    for weighted in (False, True):
+        for n, m, cap in ((200, 800, ELL_CAP), (200, 800, 8), (60, 1100, 34)):
+            g = erdos_renyi(n, m, seed=7, weighted=weighted)
+            tg = g.device(dev, ell_cap=cap, ell_seed=1)
+            w = ell_walks(tg, (torch.arange(200000 if n == 60 else 40000, device=dev) % n).int(),
+                          16, *PQ.values(), cap, torch.Generator().manual_seed(cap))
+            ell = (tg.ell_cols.cpu().numpy(),
+                   None if tg.ell_w is None else tg.ell_w.cpu().numpy(), min(cap, tg.ell_cap))
+            p[f"K9 {n} nodes cap {cap} weighted={weighted}"], e = laws.walks_chi2_p(
+                w.cpu().numpy(), laws.Laws(g.row_ptr, g.col_idx, g.weights, *PQ.values(),
+                                           ell=ell), n)
+            err["ell_walks"] = max(err["ell_walks"], e)
+        g = erdos_renyi(200, 800, seed=7, weighted=weighted)
+        tg = g.device(dev, with_alias=weighted)
+        for rw, ew in ((2.0, 0.5), (0.25, 4.0)):
+            t = laws.n_tries_for(rw, ew)
+            w = rejection_walks(tg, starts, 16, rw, ew, t, torch.Generator().manual_seed(t))
+            p[f"K10 {t} tries weighted={weighted}"], e = laws.walks_chi2_p(
+                w.cpu().numpy(), laws.Laws(g.row_ptr, g.col_idx, g.weights, rw, ew, n_tries=t),
+                200)
+            err["rejection_walks"] = max(err["rejection_walks"], e)
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"p/q sampler tests failed (p < {P_MIN}): {failed}")
+    return p, err
+
+
+def return_counts(walks):
+    """Per p/q walk position t (2..L-1): the walks that returned there
+    (walks[:, t] == walks[:, t - 2])."""
+    return (walks[:, 2:] == walks[:, :-2]).sum(0).double().cpu().numpy()
+
+
+def returns_p(walks_a, walks_b) -> float:
+    """Chi-square p-value that two sets of as many walks return at the same
+    rate at every position: the sum over positions of each 2x2 table's
+    statistic (returned or not, by set), one df each."""
+    from scipy.stats import chi2
+
+    n = walks_a.shape[0]
+    a, b = return_counts(walks_a), return_counts(walks_b)
+    ok = (a + b > 0) & (a + b < 2 * n)
+    a, b = a[ok], b[ok]
+    stat = (2 * n * (a - b) ** 2 / ((a + b) * (2 * n - a - b))).sum()
+    return float(chi2.sf(stat, ok.sum()))
+
+
+def slot_counts(tg, keys, walks, chunk=1 << 20):
+    """Histogram of the row slot every p/q move picked that left its node:
+    the next node's slot in curr's ELL row when `tg` has one, else its
+    offset in curr's CSR row (`keys`: the arcs' src * N + dst, sorted)."""
+    curr = walks[:, 1:-1].reshape(-1).long()
+    nxt = walks[:, 2:].reshape(-1).long()
+    moved = curr != nxt
+    curr, nxt = curr[moved], nxt[moved]
+    if tg.ell_cols is not None:
+        width = tg.ell_cols.shape[1]
+        slots = torch.cat([(tg.ell_cols[curr[s:s + chunk]] == nxt[s:s + chunk, None])
+                           .int().argmax(1) for s in range(0, curr.numel(), chunk)])
+    else:
+        width = int(tg.degrees.max())
+        pos = torch.searchsorted(keys, curr * tg.n_nodes + nxt)
+        slots = pos - tg.row_ptr.long()[curr]
+    return torch.bincount(slots, minlength=width).double().cpu().numpy()
+
+
+def slice_pq_checks(graph, hub, dev):
+    """K9 and K10 on the slice graph at the slice shapes, and K9 on `hub`
+    (the slice graph plus N_HUBS hubs, whose rows exceed the cap; half the
+    walkers start at a hub): every move an arc; against the plain versions'
+    walks from the same starts (two-sample chi-square): the first p/q step
+    (walk position 2) and the last, binned by node degree and by blocks of
+    ID_BLOCK ids; the returns at each position; and the row slots the p/q
+    moves picked (a wrong weight, class or CDF carry across K9's 32-slot
+    chunks moves these where node bins barely change). Returns the p-values
+    by test."""
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import (
+        ell_walks, ell_walks_plain, rejection_walks, rejection_walks_plain,
+    )
+
+    p = {}
+    # The last argument: K9's cap, K10's tries.
+    for name, g, kernel, plain, last in (
+        ("K9", graph, ell_walks, ell_walks_plain, ELL_CAP),
+        ("K9 hubs", hub, ell_walks, ell_walks_plain, ELL_CAP),
+        ("K10", graph, rejection_walks, rejection_walks_plain, 8),
+    ):
+        tg = g.device(dev, ell_cap=ELL_CAP if kernel is ell_walks else None)
+        starts = nce_negatives(tg, torch.Generator().manual_seed(31), (BATCH,),
+                               scale_free=False)
+        if name == "K9 hubs":
+            hubs = torch.arange(g.number_of_nodes - N_HUBS, g.number_of_nodes, device=dev)
+            starts[::2] = hubs[torch.arange(BATCH // 2, device=dev) % N_HUBS].int()
+        w = kernel(tg, starts, WALK, *PQ.values(), last, torch.Generator().manual_seed(32))
+        w_plain = plain(tg, starts, WALK, *PQ.values(), last,
+                        torch.Generator(device=dev).manual_seed(33))
+        if not (torch.equal(w[:, 0], starts) and torch.equal(w_plain[:, 0], starts)):
+            raise AssertionError(f"{name}: walks[:, 0] differs from the starts")
+        keys = arc_keys(g, dev)
+        for walks in (w, w_plain):
+            arc_positions(g, walks, keys)
+        for pos in (2, WALK - 1):
+            binned_tests(p, f"{name} position {pos} vs plain", node_counts(tg, w[:, pos]),
+                         node_counts(tg, w_plain[:, pos]), False)
+        p[f"{name} returns by position vs plain"] = returns_p(w, w_plain)
+        p[f"{name} picked slots vs plain"] = two_sample_p(
+            slot_counts(tg, keys, w), slot_counts(tg, keys, w_plain))
+        del tg, w, w_plain, keys
+        torch.cuda.empty_cache()
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"p/q sampler tests at the slice shapes failed "
+                             f"(p < {P_MIN}): {failed}")
+    return p
+
+
+def pq_walk_entries(graph, errs, dev):
+    """K9 and K10 timed at the slice shapes (2.0 / 0.5, cap 100; K10 with 8
+    tries), with their bounds from this run's walks."""
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import (
+        ell_walks, ell_walks_plain, rejection_walks, rejection_walks_plain,
+    )
+
+    entries = {}
+    gen, cuda_gen = torch.Generator().manual_seed(34), torch.Generator(device=dev).manual_seed(35)
+    deg_all = torch.from_numpy(graph.degrees).to(dev).long()
+    for name, kernel, plain, last, source_line in (
+        ("ell_walks", ell_walks, ell_walks_plain, ELL_CAP, "embiggen_tpu/ops/walks.py:245"),
+        ("rejection_walks", rejection_walks, rejection_walks_plain, 8,
+         "embiggen_tpu/ops/walks.py:145"),
+    ):
+        tg = graph.device(dev, ell_cap=ELL_CAP if name == "ell_walks" else None)
+        starts = nce_negatives(tg, gen, (BATCH,), scale_free=False)
+        w = kernel(tg, starts, WALK, *PQ.values(), last, gen)
+        prev, curr = w[:, :-2].reshape(-1).long(), w[:, 1:-1].reshape(-1).long()
+        # Every row a step reads is the row of a node the walks stand on
+        # before their last position (a step's prev row is the row the
+        # step before read as curr's), so the function must read each such
+        # row once: at most the whole table.
+        rows = torch.unique(w[:, :-1]).long()
+        io = 4 * BATCH + 4 * BATCH * WALK   # starts in, walks out
+        if name == "ell_walks":
+            # Each distinct row's real slots (ids, and weights when
+            # weighted); membership needs at least a search of prev's row
+            # per candidate (integer compares, counted at the fp32 rate).
+            cap_eff = min(ELL_CAP, tg.ell_cap)
+            deg_ell = deg_all.clamp(max=tg.ell_cap).double()
+            per_slot = 4 if tg.ell_w is None else 8
+            b = bound(io + per_slot * float(deg_ell[rows].sum()),
+                      float((deg_ell[curr].clamp(max=cap_eff)
+                             * search_reads(deg_ell[prev])).sum()))
+        else:
+            # Each distinct row's two row_ptr entries and its arcs (the T
+            # proposals and prev's searches read within them), plus its
+            # alias table when weighted.
+            per_arc = 4 if tg.alias_prob is None else 12
+            b = bound(io + 8 * rows.numel() + per_arc * float(deg_all[rows].sum()), 0)
+        entries[name] = dict(
+            source="embiggen_tpu_torch/csrc/walks2.cu", replaces=source_line,
+            max_abs_err=errs[name],
+            ms=time_ms(lambda: kernel(tg, starts, WALK, *PQ.values(), last, gen), 10),
+            plain_ms=time_ms(lambda: plain(tg, starts, WALK, *PQ.values(), last, cuda_gen), 2),
+            library_ms=None, **b)
+        entries[name]["walk_steps_per_s"] = BATCH * (WALK - 1) / (entries[name]["ms"] / 1e3)
+        del tg, w, prev, curr
+        torch.cuda.empty_cache()
+    return entries
+
+
+def cbow_checks(dev):
+    """K11 and K4's combine on CBOW's tables against their plain versions at
+    K11_SHAPES, with and without centre weights, on seeded random tables and
+    walks (rows large enough that the +-6 clip binds for some logits):
+    K11's counts exactly, its loss and sums to K3_SUMS_TOL, the tables after
+    the combine to K3_UPDATE_ATOL. Returns (its kernels entry, timed at the
+    flagship shapes; {shape: (sums err, combined tables err)})."""
+    from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
+    from embiggen_tpu_torch.ops.scatter import (
+        SkipGramSums, skipgram_mean_combine, skipgram_mean_combine_plain,
+    )
+
+    entry, errs = None, {}
+    for name, n, d, length, w, k, b in K11_SHAPES:
+        rng = np.random.default_rng(1)
+        tables = [torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+                  for _ in range(2)]
+        tables.append(torch.from_numpy(3.0 * rng.standard_normal(n, dtype=np.float32)).to(dev))
+        walks = torch.from_numpy(rng.integers(0, n, (b, length), dtype=np.int32)).to(dev)
+        negs = torch.from_numpy(rng.integers(0, n, (b, k), dtype=np.int32)).to(dev)
+        center_w = torch.from_numpy(rng.uniform(0, 2, (b, length)).astype(np.float32)).to(dev)
+        args = (*tables, walks, negs, w, 6.0)
+        sums_err = combine_err = 0.0
+        for cw in (None, center_w):
+            sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
+            loss = cbow_update(*args, sums, cw)
+            want_loss = cbow_update_plain(*args, want_sums, cw)
+            check_close(f"K11 {name} loss", loss, want_loss, **K3_SUMS_TOL)
+            for field in ("counts_w", "counts_c"):
+                check_close(f"K11 {name} {field}", getattr(sums, field),
+                            getattr(want_sums, field), 0.0, 0.0)
+            for field in ("sums_w", "sums_c", "sums_b"):
+                sums_err = max(sums_err, check_close(
+                    f"K11 {name} {field}", getattr(sums, field),
+                    getattr(want_sums, field), **K3_SUMS_TOL))
+            got_t = [t.clone() for t in tables]
+            want_t = [t.clone() for t in tables]
+            skipgram_mean_combine(*got_t, sums, 0.025)
+            skipgram_mean_combine_plain(*want_t, want_sums, 0.025)
+            for i, (x, y) in enumerate(zip(got_t, want_t)):
+                combine_err = max(combine_err, check_close(
+                    f"K4 combine after K11 {name} table {i}", x, y, 0.0, K3_UPDATE_ATOL))
+            del got_t, want_t, want_sums, sums
+        errs[name] = (sums_err, combine_err)
+        if name != "flagship":
+            continue
+        # Rows each table must read (and the sums write), as K3's bound
+        # counts them: the walk's nodes (input rows), the centres' and
+        # negatives' nodes (output rows and biases). Operations: the window
+        # sums, C (K + 1) dot products, and their gradients.
+        c = length - 2 * w
+        u_w = int(torch.unique(walks).numel())
+        u_c = int(torch.unique(torch.cat([walks[:, w:length - w].reshape(-1),
+                                          negs.reshape(-1)])).numel())
+        flops = b * d * (c * (2 * w + 4 * (k + 1) + 2 * k + 1) + 2 * w * length)
+        sums = SkipGramSums.zeros(n, d, dev)
+        entry = dict(
+            source="embiggen_tpu_torch/csrc/cbow.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:1065",
+            max_abs_err=sums_err,
+            ms=time_ms(lambda: cbow_update(*args, sums), 10),
+            plain_ms=time_ms(lambda: cbow_update_plain(*args, sums), 3),
+            library_ms=None,
+            **bound(4 * ((u_w + u_c) * d + u_c + b * (length + k))
+                    + 8 * ((u_w + u_c) * d + 3 * u_c + u_w) + 4 * b, flops))
+        del sums
+    return entry, errs
+
+
+def cbow_injected_steps(small, dev):
+    """Three CBOW steps on injected batches, on the card and on the CPU from
+    the same tables. Returns the largest table difference."""
+    from embiggen_tpu_torch.models.embedders import CBOW
+
+    kw = dict(embedding_size=32, walk_length=16, window_size=3,
+              number_of_negative_samples=5, random_state=0)
+    models = {d: CBOW(device=d, **kw) for d in (dev, "cpu")}
+    init = models["cpu"]._init_params(small, torch.Generator().manual_seed(0))
+    params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+    graphs = {d: small.device(d) for d in models}
+    step_rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for lr in (0.05, 0.04, 0.03):
+            batch = (step_rng.integers(0, 300, (256, 16), dtype=np.int32),
+                     step_rng.integers(0, 300, (256, 5), dtype=np.int32))
+            for d, m in models.items():
+                m._step(graphs[d], params[d], torch.Generator(), lr,
+                        batch=tuple(torch.from_numpy(x).to(d) for x in batch))
+    return max(check_close(f"3 CBOW steps, {k}", params[dev][k].cpu(),
+                           params["cpu"][k], 0.0, 1e-5) for k in init)
+
+
+def embed_run(graph, dev, name, epochs, **kw):
+    """`embed_graph` of the model `name` at the S1 widths on `dev`, with
+    the counts set to 0 just before and read just after. Returns (model,
+    launches, seconds, peak bytes, centres/s per epoch, walk steps/s per
+    epoch)."""
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    model = get_model_from_library(name)(
+        device=dev, embedding_size=DIM, walk_length=WALK, window_size=WINDOW,
+        number_of_negative_samples=NEGS, epochs=epochs, random_state=0,
+        early_stopping_patience=10**6, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = embed_graph(graph, model)
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, emb in enumerate(result.node_embeddings):
+        if emb.shape != (N_NODES, DIM) or not np.isfinite(emb).all():
+            raise AssertionError(f"{name} embedding {i}: shape {emb.shape} or non-finite values")
+    if len(model._epoch_losses) != epochs or not np.isfinite(model._epoch_losses).all():
+        raise AssertionError(f"{name} epoch losses {model._epoch_losses}")
+    steps = max(1, N_NODES // model._run_batch_size)
+    walkers = steps * model._run_batch_size
+    return (model, launches, seconds, peak,
+            [walkers * (WALK - 2 * WINDOW) / s for s in model._epoch_seconds],
+            [walkers * (WALK - 1) / s for s in model._epoch_seconds])
+
+
+def cbow_quality_on_card(card, dev):
+    """Node2Vec CBOW over p/q walks on the gate fixture's connected holdout,
+    with each embedding seed of GATE_CBOW_SEEDS, feeding a Perceptron on
+    Hadamard alone scored by `_evaluate`. Raises unless the mean test AUPRC
+    reaches the reference's less 0.03. Returns the per-seed test AUPRCs."""
+    from embiggen_tpu_torch.graph import connected_holdout, random_geometric
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.embedders import CBOW
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    train, test = connected_holdout(rgg, random_state=3)
+    auprc = []
+    for seed in GATE_CBOW_SEEDS:
+        emb = CBOW(device=dev, random_state=seed, **GATE_CBOW).fit_transform(
+            train).node_embeddings[0]
+        model = PerceptronEdgePrediction(device=dev, **GATE_CBOW_PERCEPTRON)
+        model.fit(train, node_features=emb)
+        rows = {r["evaluation_mode"]: r for r in
+                model._evaluate(rgg, train, test, random_state=3)}
+        auprc.append(rows["test"]["auprc"])
+    if not np.mean(auprc) >= GATE_REFERENCE_CBOW_AUPRC - 0.03:
+        raise AssertionError(f"CBOW p/q mean test AUPRC {np.mean(auprc)} on {card} is "
+                             f"below the reference's {GATE_REFERENCE_CBOW_AUPRC} less 0.03: "
+                             f"{auprc}")
+    return auprc
+
+
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
@@ -1015,20 +1490,32 @@ S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
 K8_KERNELS = ("edge_metrics",)
 S4_KERNELS = S1_KERNELS + S2_KERNELS + S3_KERNELS
 PROBE_KERNELS = ("tile_gather_sums", "table_gather_sums")
+# S5: Node2Vec CBOW over p/q walks; a wrong route launches one of the others.
+S5_KERNELS = ("nce_negatives", "ell_walks", "cbow_update", "skipgram_mean_combine")
+S5_UNUSED = ("first_order_walks", "rejection_walks", "skipgram_nce_update", "mean_scatter")
+PQ_SKIPGRAM_KERNELS = ("nce_negatives", "ell_walks", "skipgram_nce_update",
+                       "skipgram_mean_combine")
+DEEPWALK_CBOW_KERNELS = ("nce_negatives", "first_order_walks", "cbow_update",
+                         "skipgram_mean_combine")
+REJECTION_KERNELS = ("rejection_walks",)
 
 
-def check_launches(path, counts, names):
-    """The counts of `names` after a path's run; raises if one is 0."""
+def check_launches(path, counts, names, unused=()):
+    """The counts of `names` after a path's run; raises if one is 0, or if
+    one of `unused` launched."""
     got = {name: counts[name] for name in names}
     if min(got.values()) <= 0:
         raise AssertionError(f"a kernel of the {path} path never launched: {got}")
+    if any(counts[name] for name in unused):
+        raise AssertionError(f"the {path} path launched one of {unused}: {counts}")
     return got
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also K3's phase split, and profiles of steady S1 and GCN steps")
+                        help="also K3's phase split, and profiles of steady S1, GCN and "
+                             "S5 steps")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -1050,7 +1537,9 @@ def main() -> None:
     from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, GCNEncoder
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.negatives import nce_negatives, nce_negatives_plain
-    from embiggen_tpu_torch.ops.walks import first_order_walks, first_order_walks_plain
+    from embiggen_tpu_torch.ops.walks import (
+        first_order_walks, first_order_walks_plain, random_walks,
+    )
     from embiggen_tpu_torch.pipelines import embed_graph
     from embiggen_tpu_torch.scripts import harness, spmm_probe
 
@@ -1103,6 +1592,11 @@ def main() -> None:
         library="torch.multinomial",
         **bound(8 * BATCH * NEGS, 0),   # an arc's head read, a node id written
     )
+    for name, ms in device_ms({
+        "first_order_walks": lambda: first_order_walks(tg, starts, WALK, gen),
+        "nce_negatives": lambda: nce_negatives(tg, gen, (BATCH, NEGS)),
+    }).items():
+        kernels[name]["device_ms"] = ms
     del starts, weights
 
     new, skipgram_errs = skipgram_checks(dev)
@@ -1110,8 +1604,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"phase 3 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
           f"ms per call, at the slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
-              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f} plain "
-              f"{v['plain_ms']:.3f}" for k, v in kernels.items())
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f}"
+              + (f" device {v['device_ms']:.4f}" if "device_ms" in v else "")
+              + f" plain {v['plain_ms']:.3f}" for k, v in kernels.items())
           + " | K3 sums / tables after the combine, max abs err by shape: "
           + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in skipgram_errs.items())
           + " | sampler p-values at the slice shapes: " + "; ".join(
@@ -1128,8 +1623,9 @@ def main() -> None:
     kernels.update(new)
     print(f"phase 4 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
           "ms per call): " + "; ".join(
-              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain "
-              f"{v['plain_ms']:.4f}" for k, v in new.items())
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f}"
+              + (f" device {v['device_ms']:.4f}" if "device_ms" in v else "")
+              + f" plain {v['plain_ms']:.4f}" for k, v in new.items())
           + f" | K7 backward ms {new['spmm']['backward_ms']:.4f} plain "
           f"{new['spmm']['backward_plain_ms']:.4f}, yardsticks embedding_bag "
           f"{new['spmm']['embedding_bag_ms']:.4f} cuSPARSE {new['spmm']['cusparse_ms']:.4f}, "
@@ -1347,12 +1843,85 @@ def main() -> None:
           f"reference's {HARNESS_REFERENCE_AUPRC}; {json.dumps(harness_out)}; "
           f"launches {harness_launches}", flush=True)
 
-    # -------------------------------------------------- 11. profile (option)
+    # ------------------------------------------- 11. K9-K11 vs plain (S5)
+    t_phase = time.perf_counter()
+    pq_p, pq_err = pq_sampler_checks(erdos_renyi, dev)
+    hub = hub_graph(graph)
+    pq_p.update(slice_pq_checks(graph, hub, dev))
+    del hub
+    new = pq_walk_entries(graph, pq_err, dev)
+    new["cbow_update"], cbow_errs = cbow_checks(dev)
+    torch.cuda.empty_cache()
+    kernels.update(new)
+    print(f"phase 11 K9-K11 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
+          "ms per call at the S5 shapes): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} "
+              f"plain {v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              for k, v in new.items())
+          + " | walk steps/s: " + "; ".join(
+              f"{k} {new[k]['walk_steps_per_s']:.4g}" for k in ("ell_walks", "rejection_walks"))
+          + " | K11 sums / tables after the combine, max abs err by shape: "
+          + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in cbow_errs.items())
+          + " | p/q sampler p-values: " + "; ".join(f"{k} {v:.3g}" for k, v in pq_p.items()),
+          flush=True)
+
+    # ------------------------------------------------------------ 12. S5
+    t_phase = time.perf_counter()
+    cbow_step_err = cbow_injected_steps(small, dev)
+    s5_model, counts, s5_s, s5_peak, s5_centres, s5_steps = embed_run(
+        graph, dev, "Node2Vec CBOW", 2, **PQ)
+    s5_launches = check_launches("S5", counts, S5_KERNELS, S5_UNUSED)
+    s5_launches.update({name: counts[name] for name in S5_UNUSED})
+    runs = {}
+    for label, name, kw, names in (
+        ("p/q SkipGram", "Node2Vec SkipGram", PQ, PQ_SKIPGRAM_KERNELS),
+        ("DeepWalk CBOW", "DeepWalk CBOW", {}, DEEPWALK_CBOW_KERNELS),
+    ):
+        m, counts, secs, peak, centres, steps = embed_run(graph, dev, name, 1, **kw)
+        unused = ("first_order_walks",) if kw else ("ell_walks", "rejection_walks")
+        runs[label] = (m, check_launches(label, counts, names, unused), secs, peak,
+                       centres, steps)
+    torch.cuda.empty_cache()
+    # K10's path: random_walks on a graph exported without an ELL table.
+    tg_plain = graph.device(dev)
+    starts = nce_negatives(tg_plain, torch.Generator().manual_seed(36), (BATCH,),
+                           scale_free=False)
+    _build.reset_launch_counts()
+    rejection_path = random_walks(tg_plain, starts, WALK, torch.Generator().manual_seed(37),
+                                  **PQ)
+    torch.cuda.synchronize()
+    k10_launches = check_launches("K10 random_walks", _build.launch_counts(),
+                                  REJECTION_KERNELS, ("ell_walks", "first_order_walks"))
+    arc_positions(graph, rejection_path, arc_keys(graph, dev))
+    del tg_plain, starts, rejection_path
+    torch.cuda.empty_cache()
+    print(f"phase 12 S5 on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected "
+          f"CBOW steps cuda vs cpu max err {cbow_step_err:.3g}; embed_graph Node2Vec CBOW "
+          f"return 2 explore 0.5 {s5_s:.2f} s, s/epoch {s5_model._epoch_seconds}, "
+          f"centres/s {s5_centres}, walk steps/s {s5_steps}, losses "
+          f"{s5_model._epoch_losses}, peak {s5_peak} bytes, launches {s5_launches} | "
+          + " | ".join(f"{label}: 1 epoch {secs:.2f} s, s/epoch {m._epoch_seconds}, "
+                       f"centres/s {centres}, walk steps/s {steps}, losses "
+                       f"{m._epoch_losses}, peak {peak} bytes, launches {got}"
+                       for label, (m, got, secs, peak, centres, steps) in runs.items())
+          + f" | random_walks without ELL launches {k10_launches}", flush=True)
+
+    # --------------------------------------------------- 13. S5 quality
+    t_phase = time.perf_counter()
+    cbow_auprc = cbow_quality_on_card(card, dev)
+    print(f"phase 13 S5 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: Node2Vec CBOW return 2 "
+          "explore 0.5 features, a Perceptron on Hadamard, mean test AUPRC over "
+          f"seeds 0-3 {np.mean(cbow_auprc):.4f} (reference {GATE_REFERENCE_CBOW_AUPRC:.4f}; "
+          f"per seed {[round(a, 4) for a in cbow_auprc]})", flush=True)
+
+    # -------------------------------------------------- 14. profile (option)
     if args.profile:
         k3_phase_line(card, dev)
         torch.cuda.empty_cache()
-        print_profile("S1", card, *profile(skipgram_step(model, graph), PROFILE_STEPS))
+        print_profile("S1", card, *profile(embedder_step(model, graph), PROFILE_STEPS))
         print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
+        print_profile("S5", card, *profile(embedder_step(s5_model, graph), PROFILE_STEPS))
 
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -1360,7 +1929,9 @@ def main() -> None:
     if missing:
         raise AssertionError(f"kernels entries without {missing}")
     launches = {**path_launches, **gcn_launches, **perceptron_launches,
-                **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches}
+                **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches,
+                **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
+                **k10_launches}
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0), **v}

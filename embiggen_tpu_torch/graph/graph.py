@@ -37,6 +37,12 @@ class TorchGraph:
     # [E] int32 source of each arc, for arc-id -> (src, dst) lookups;
     # exported by `Graph.device(with_sources=True)`.
     sources: Optional[torch.Tensor] = None
+    # The capped ELLPACK adjacency of the p/q walk kernel K9, exported by
+    # `Graph.device(ell_cap=...)`: [N, ell_cap] int32 neighbours, -1 padded,
+    # and their weights [N, ell_cap] f32 on weighted graphs (0 padded).
+    ell_cols: Optional[torch.Tensor] = None
+    ell_w: Optional[torch.Tensor] = None
+    ell_cap: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -273,10 +279,13 @@ class Graph:
         device: Union[str, torch.device],
         with_alias: bool = False,
         with_sources: bool = False,
+        ell_cap: Optional[int] = None,
+        ell_seed: int = 0,
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
-        `with_alias` and the graph is weighted, and each arc's source when
-        `with_sources`."""
+        `with_alias` and the graph is weighted, each arc's source when
+        `with_sources`, and the capped ELLPACK adjacency when `ell_cap` is
+        given (`ell_arrays`)."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -289,6 +298,7 @@ class Graph:
         if with_alias and self.weights is not None:
             prob, alias = build_alias_tables(self.row_ptr, self.weights)
             alias_prob, alias_idx = put(prob, np.float32), put(alias, np.int32)
+        ecols, ew, cap = self.ell_arrays(ell_cap, ell_seed)
         return TorchGraph(
             row_ptr=put(self.row_ptr, np.int32),
             col_idx=put(self.col_idx, np.int32),
@@ -300,7 +310,52 @@ class Graph:
             n_arcs=self.number_of_directed_edges,
             max_degree=int(self.degrees.max(initial=0)),
             sources=put(self.sources, np.int32) if with_sources else None,
+            ell_cols=None if ecols is None else put(ecols, np.int32),
+            ell_w=None if ew is None else put(ew, np.float32),
+            ell_cap=cap,
         )
+
+    def ell_arrays(
+        self, ell_cap: Optional[int], ell_seed: int = 0
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], int]:
+        """(ell_cols [N, cap] int32 -1 padded, ell_w [N, cap] f32 or None,
+        cap) with cap = min(ell_cap, max degree); (None, None, 0) when
+        `ell_cap` is None or not positive. A row of at most cap neighbours
+        keeps its CSR order; a longer row holds a seeded uniform subsample
+        of its neighbours in random order (the first cap of a random
+        within-row order), so that a capped walk can reach every neighbour
+        of a hub. The same arrays, byte for byte, as the JAX package's
+        `Graph.device(ell_cap=..., ell_seed=...)`."""
+        if ell_cap is None or ell_cap <= 0:
+            return None, None, 0
+        cap = int(min(ell_cap, max(int(self.degrees.max(initial=1)), 1)))
+        n = self.number_of_nodes
+        degrees = self.degrees.astype(np.int64)
+        row_start = self.row_ptr[:-1].astype(np.int64)
+        rows = np.repeat(np.arange(n, dtype=np.int64), degrees)
+        pos = np.arange(rows.shape[0], dtype=np.int64) - row_start[rows]
+        over = degrees > cap
+        if over.any():
+            sub = over[rows]
+            rng = np.random.default_rng(ell_seed)
+            order = np.lexsort((rng.random(int(sub.sum())), rows[sub]))
+            ranks = np.empty(order.shape[0], dtype=np.int64)
+            sub_rows = rows[sub][order]
+            starts = np.concatenate(
+                [[0], np.flatnonzero(sub_rows[1:] != sub_rows[:-1]) + 1])
+            ranks[order] = (np.arange(order.shape[0], dtype=np.int64)
+                            - np.repeat(starts, np.diff(np.concatenate(
+                                [starts, [order.shape[0]]]))))
+            pos = pos.copy()
+            pos[sub] = ranks
+        keep = pos < cap
+        ecols = np.full((n, cap), -1, np.int32)
+        ecols[rows[keep], pos[keep]] = self.col_idx[keep]
+        ew = None
+        if self.weights is not None:
+            ew = np.zeros((n, cap), np.float32)
+            ew[rows[keep], pos[keep]] = self.weights[keep]
+        return ecols, ew, cap
 
     def __repr__(self) -> str:
         return (

@@ -1,4 +1,7 @@
 """Node embedders ported so far."""
-from .walk_based import SkipGram, WalkBasedEmbedder
+from .walk_based import (
+    CBOW, DeepWalkCBOW, DeepWalkSkipGram, Node2Vec, SkipGram, WalkBasedEmbedder,
+)
 
-__all__ = ["WalkBasedEmbedder", "SkipGram"]
+__all__ = ["WalkBasedEmbedder", "SkipGram", "CBOW", "DeepWalkSkipGram",
+           "DeepWalkCBOW", "Node2Vec"]

@@ -1,14 +1,16 @@
 """Walk-based embedders — counterpart of
-`embiggen_tpu/models/embedders/walk_based.py` (`WalkBasedEmbedder` and
-`SkipGram`), single device and first-order walks.
+`embiggen_tpu/models/embedders/walk_based.py` (`WalkBasedEmbedder`,
+`SkipGram`, `CBOW`, the DeepWalk presets and the generic `Node2Vec`), single
+device, first-order and p/q walks.
 
 One training step samples start nodes, walks and per-walk negatives
-(kernels K2, K1, K2), adds the banded NCE gradients of the gathered rows into
-per-node sums and counts (K3) and applies the per-row mean
-update to the three tables in one pass that zeroes the sums again (K4's
-combine). The sums are allocated once per fit; the tables are updated in
-place. An epoch is a loop over steps; its mean loss is read on the host once
-per epoch, for the lr plateau and early stopping.
+(kernels K2, then K1 for first-order walks or K9 / K10 for p/q walks, then
+K2), adds the gradients of the gathered rows into per-node sums and counts
+(K3 for SkipGram's banded NCE, K11 for CBOW's sampled softmax) and applies
+the per-row mean update to the three tables in one pass that zeroes the sums
+again (K4's combine). The sums are allocated once per fit; the tables are
+updated in place. An epoch is a loop over steps; its mean loss is read on
+the host once per epoch, for the lr plateau and early stopping.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ...graph.graph import Graph, TorchGraph
+from ...ops.cbow import cbow_update
 from ...ops.negatives import negative_nodes_for_nce, sample_nodes_uniform
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
 from ...ops.skipgram import skipgram_nce_update
@@ -83,15 +86,13 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
         for name, value in (
-            ("return_weight", return_weight),
-            ("explore_weight", explore_weight),
             ("change_node_type_weight", change_node_type_weight),
             ("change_edge_type_weight", change_edge_type_weight),
         ):
             if value != 1.0:
                 raise NotImplementedError(
-                    f"{name}={value}: biased and typed walks are not ported "
-                    "yet (ROADMAP A6).")
+                    f"{name}={value}: typed walks are not ported yet "
+                    "(ROADMAP A6).")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP A13).")
@@ -109,8 +110,10 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         self._walk_length = walk_length
         self._iterations = iterations
         self._window_size = window_size
-        # Kept for parameter parity: first-order steps are O(1) whatever the
-        # degree, so the neighbourhood cap never applies to them.
+        self._return_weight = return_weight
+        self._explore_weight = explore_weight
+        # The candidate cap of p/q steps (and the ELL table's width); a
+        # first-order step is O(1) whatever the degree and never capped.
         self._max_neighbours = max_neighbours
         self._learning_rate = learning_rate
         self._learning_rate_decay = learning_rate_decay
@@ -162,8 +165,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             "walk_length": self._walk_length,
             "iterations": self._iterations,
             "window_size": self._window_size,
-            "return_weight": 1.0,
-            "explore_weight": 1.0,
+            "return_weight": self._return_weight,
+            "explore_weight": self._explore_weight,
             "change_node_type_weight": 1.0,
             "change_edge_type_weight": 1.0,
             "max_neighbours": self._max_neighbours,
@@ -196,28 +199,61 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             "iterations": 1,
         }
 
-    # ------------------------------------------------------- subclass surface
+    # ------------------------------------------------------------- the tables
+    # The three tables of a model, in `SkipGramSums` order: the input table
+    # (sums_w), the output table (sums_c) and its bias (sums_b).
+    _TABLES: Tuple[str, str, str]
+
     def _param_shapes(self, graph: Graph) -> Dict[str, Tuple[int, ...]]:
-        raise NotImplementedError
+        n, d = graph.number_of_nodes, self.embedding_size
+        w, c, b = self._TABLES
+        return {w: (n, d), c: (n, d), b: (n,)}
 
     def _init_params(self, graph: Graph, generator: torch.Generator) -> Params:
-        raise NotImplementedError
+        g = _device_generator(generator, self.device)
+        scale = 1.0 / np.sqrt(self.embedding_size)
+        return {
+            name: (torch.randn(shape, generator=g, device=self.device).mul_(scale)
+                   if len(shape) == 2
+                   else torch.zeros(shape, device=self.device))
+            for name, shape in self._param_shapes(graph).items()
+        }
 
-    def _new_sums(self, params: Params):
+    def _new_sums(self, params: Params) -> SkipGramSums:
         """Zeroed per-node gradient sums and counts for `_update`, allocated
         once per fit."""
+        n, d = params[self._TABLES[0]].shape
+        return SkipGramSums.zeros(n, d, params[self._TABLES[0]].device)
+
+    def _add_gradients(self, tables, walks, negs, center_w,
+                       sums: SkipGramSums) -> torch.Tensor:
+        """Add one batch's gradient rows into `sums`; returns the loss sum."""
         raise NotImplementedError
 
     def _update(self, params: Params, walks, negs, center_w, lr: float,
-                sums) -> torch.Tensor:
+                sums: SkipGramSums) -> torch.Tensor:
         """One SGD step on `params`, in place, from a batch of walks and
         their per-walk negatives, through `sums` (zero before and after).
-        `center_w` ([B, L] or None) weights each centre's pair losses.
-        Returns the loss sum as a 0-d device tensor."""
-        raise NotImplementedError
+        `center_w` ([B, L] or None) weights each centre's losses. Returns
+        the loss sum as a 0-d device tensor."""
+        # Every touched row takes one full-lr step on the mean of its
+        # gradients, all taken at the tables before the step (the combine
+        # runs after every walk's update, in stream order). Output and
+        # negative rows of the same table share one index multiset, so a row
+        # in both roles averages once; the bias reuses the output table's
+        # counts.
+        tables = tuple(params[name] for name in self._TABLES)
+        loss = self._add_gradients(tables, walks, negs, center_w, sums)
+        skipgram_mean_combine(*tables, sums, lr)
+        return loss
 
     def _extract(self, params: Params, graph: Graph) -> EmbeddingResult:
-        raise NotImplementedError
+        return EmbeddingResult(
+            embedding_method_name=self.model_name(),
+            node_embeddings=[self._post_process(params[name], graph)
+                             for name in self._TABLES[:2]],
+            node_names=graph.get_node_names(),
+        )
 
     def _post_process(self, table: torch.Tensor, graph: Graph) -> np.ndarray:
         """The table on the host; `normalize_by_degree` divides each row by
@@ -229,8 +265,25 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         return table
 
     # ----------------------------------------------------------- training loop
+    def _walks_are_biased(self) -> bool:
+        """True when walks weigh their candidates (p/q); these take the ELL
+        sampler K9."""
+        return self._return_weight != 1.0 or self._explore_weight != 1.0
+
+    def _ell_cap_for_walks(self) -> Optional[int]:
+        """Width of the ELL table to export: p/q walks need it, at the
+        candidate cap; first-order walks do not."""
+        if not self._walks_are_biased():
+            return None
+        return self._max_neighbours or 100
+
     def _device_graph(self, graph: Graph) -> TorchGraph:
-        return graph.device(self.device, with_alias=graph.has_edge_weights)
+        """The graph on the model's device: alias tables on weighted graphs,
+        and for p/q walks the ELL table, whose over-cap rows are a subsample
+        seeded by random_state."""
+        return graph.device(self.device, with_alias=graph.has_edge_weights,
+                            ell_cap=self._ell_cap_for_walks(),
+                            ell_seed=self.random_state or 0)
 
     def _sample_batch(
         self, tg: TorchGraph, generator: torch.Generator, batch_size: int
@@ -240,7 +293,10 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         own K draws."""
         starts = sample_nodes_uniform(tg, generator, (batch_size,))
         walks = random_walks(
-            tg, starts.repeat(self._iterations), self._walk_length, generator
+            tg, starts.repeat(self._iterations), self._walk_length, generator,
+            return_weight=self._return_weight,
+            explore_weight=self._explore_weight,
+            max_neighbours=self._max_neighbours,
         )
         negs = negative_nodes_for_nce(
             tg, generator, self._number_of_negative_samples,
@@ -350,50 +406,71 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 class SkipGram(WalkBasedEmbedder):
     """Node2Vec SkipGram with NCE loss over per-walk scale-free negatives."""
 
+    _TABLES = ("node_embedding", "context_embedding", "context_bias")
+
     @classmethod
     def model_name(cls) -> str:
         return "Node2Vec SkipGram"
 
-    def _param_shapes(self, graph: Graph) -> Dict[str, Tuple[int, ...]]:
-        n, d = graph.number_of_nodes, self.embedding_size
-        return {"node_embedding": (n, d), "context_embedding": (n, d),
-                "context_bias": (n,)}
-
-    def _init_params(self, graph: Graph, generator: torch.Generator) -> Params:
-        g = _device_generator(generator, self.device)
-        scale = 1.0 / np.sqrt(self.embedding_size)
-        return {
-            name: (torch.randn(shape, generator=g, device=self.device).mul_(scale)
-                   if len(shape) == 2
-                   else torch.zeros(shape, device=self.device))
-            for name, shape in self._param_shapes(graph).items()
-        }
-
-    def _new_sums(self, params: Params) -> SkipGramSums:
-        n, d = params["node_embedding"].shape
-        return SkipGramSums.zeros(n, d, params["node_embedding"].device)
-
-    def _update(self, params: Params, walks, negs, center_w, lr: float,
-                sums: SkipGramSums) -> torch.Tensor:
-        # Every touched row takes one full-lr step on the mean of its
-        # gradients, all taken at the tables before the step (the combine
-        # runs after every walk's update, in stream order). Context and
-        # negative rows of the same table share one index multiset, so a row
-        # in both roles averages once; the bias reuses the context table's
-        # counts.
-        tables = (params["node_embedding"], params["context_embedding"],
-                  params["context_bias"])
-        loss = skipgram_nce_update(*tables, walks, negs, self._window_size,
+    def _add_gradients(self, tables, walks, negs, center_w, sums):
+        return skipgram_nce_update(*tables, walks, negs, self._window_size,
                                    self._clipping_value, sums, center_w)
-        skipgram_mean_combine(*tables, sums, lr)
-        return loss
 
-    def _extract(self, params: Params, graph: Graph) -> EmbeddingResult:
-        return EmbeddingResult(
-            embedding_method_name=self.model_name(),
-            node_embeddings=[
-                self._post_process(params["node_embedding"], graph),
-                self._post_process(params["context_embedding"], graph),
-            ],
-            node_names=graph.get_node_names(),
-        )
+
+@register_model
+class CBOW(WalkBasedEmbedder):
+    """Node2Vec CBOW: the mean of a centre's window of input rows predicts
+    the centre by a sampled softmax against per-walk negatives. Its tables
+    share SkipGram's sums layout, so its step is K11 and K4's combine."""
+
+    _TABLES = ("node_embedding", "output_embedding", "output_bias")
+
+    @classmethod
+    def model_name(cls) -> str:
+        return "Node2Vec CBOW"
+
+    def _add_gradients(self, tables, walks, negs, center_w, sums):
+        return cbow_update(*tables, walks, negs, self._window_size,
+                           self._clipping_value, sums, center_w)
+
+
+class _FixedPQMixin:
+    """DeepWalk presets: p = q = 1 (uniform first-order walks)."""
+
+    def __init__(self, **kwargs):
+        for forbidden in ("return_weight", "explore_weight"):
+            if forbidden in kwargs:
+                raise ValueError(
+                    f"{type(self).__name__} does not accept {forbidden!r}: "
+                    "DeepWalk walks are first-order (p = q = 1).")
+        super().__init__(return_weight=1.0, explore_weight=1.0, **kwargs)
+
+    def parameters(self) -> Dict[str, Any]:
+        params = super().parameters()
+        params.pop("return_weight", None)
+        params.pop("explore_weight", None)
+        return params
+
+
+@register_model
+class DeepWalkSkipGram(_FixedPQMixin, SkipGram):
+    @classmethod
+    def model_name(cls) -> str:
+        return "DeepWalk SkipGram"
+
+
+@register_model
+class DeepWalkCBOW(_FixedPQMixin, CBOW):
+    @classmethod
+    def model_name(cls) -> str:
+        return "DeepWalk CBOW"
+
+
+@register_model
+class Node2Vec(SkipGram):
+    """Generic "Node2Vec", the name the reference registers from its
+    adapters that train SkipGram over p/q walks: the port's SkipGram."""
+
+    @classmethod
+    def model_name(cls) -> str:
+        return "Node2Vec"

@@ -17,13 +17,14 @@ other.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -57,6 +58,11 @@ _SIGNATURES = {
     "ebt_edge_metrics": ((_P, _P, _P, _P, _I64, _I32, _P, _P), _I32),
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
+    "ebt_ell_walks": (
+        (_P, _P, _I32, _I32, _P, _P, _I64, _I32, _F32, _F32, _U64, _U32, _P), _I32),
+    "ebt_rejection_walks": (
+        (_P,) * 6 + (_I64, _I32, _F32, _F32, _I32, _U64, _U32, _P), _I32),
+    "ebt_cbow_update": ((_P,) * 12 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -67,10 +73,30 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_update",
      "mean_scatter", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
-     "tile_gather_sums", "table_gather_sums"), 0,
+     "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
+     "cbow_update"), 0,
 )
 
+# While a `timed_launches()` block runs: a CUDA event pair recorded on the
+# stream around each counted launch, by counter. None outside such a block.
+_EVENTS: Optional[Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]]] = None
+
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Record a CUDA event pair around every counted launch inside the block
+    (not inside a CUDA graph capture). Yields {counter: [(start, end), ...]},
+    to be read after the block and a synchronize: on a stream kept busy,
+    `start.elapsed_time(end)` is the kernel's own device time."""
+    global _EVENTS
+    events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {}
+    _EVENTS = events
+    try:
+        yield events
+    finally:
+        _EVENTS = None
 
 
 def reset_launch_counts() -> None:
@@ -160,9 +186,16 @@ def launch(counter: Optional[str], fn_name: str, device: torch.device, *args,
     argument), raise if the launch failed, and count it under `counter`
     (None: a measurement's launch, counted nowhere)."""
     lib = library(defines)
+    timed = _EVENTS is not None and counter is not None
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+        stream = torch.cuda.current_stream(device)
+        if timed:
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record(stream)
+        err = getattr(lib, fn_name)(*args, stream.cuda_stream)
+        if timed:
+            pair[1].record(stream)
+            _EVENTS.setdefault(counter, []).append(pair)
     if err != 0:
         raise RuntimeError(
             f"{fn_name} failed to launch: CUDA error {err} "

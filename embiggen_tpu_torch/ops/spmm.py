@@ -149,10 +149,13 @@ def csr_spmm(
     _build.check(row_scale, "row_scale", torch.float32, (k.n_out,), dev)
     _build.check(col_scale, "col_scale", torch.float32, (k.n_in,), dev)
     out = torch.empty((k.n_out, d), dtype=torch.float32, device=dev)
+    # float4 loads and stores need every row of x and out 16-byte aligned: a
+    # contiguous view at an odd storage offset takes the scalar kernel.
+    vec4 = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     _build.launch(
         "spmm", "ebt_csr_spmm", dev, k.row_ptr.data_ptr(), k.cols.data_ptr(),
         k.vals.data_ptr(), x.data_ptr(), _build.ptr(row_scale),
-        _build.ptr(col_scale), out.data_ptr(), k.n_out, d, int(d % 4 == 0),
+        _build.ptr(col_scale), out.data_ptr(), k.n_out, d, int(vec4),
     )
     return out
 

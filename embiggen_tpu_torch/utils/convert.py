@@ -8,6 +8,17 @@ import numpy as np
 import torch
 
 SKIPGRAM_KEYS = ("node_embedding", "context_embedding", "context_bias")
+CBOW_KEYS = ("node_embedding", "output_embedding", "output_bias")
+
+
+def _tables_from_jax(params, keys, model, device) -> Dict[str, torch.Tensor]:
+    missing = [k for k in keys if k not in params]
+    if missing:
+        raise KeyError(f"Missing {model} tables: {missing}")
+    return {
+        k: torch.from_numpy(np.array(params[k], dtype=np.float32)).to(device)
+        for k in keys
+    }
 
 
 def skipgram_params_from_jax(
@@ -17,13 +28,16 @@ def skipgram_params_from_jax(
     `context_bias`, as numpy arrays, e.g. `np.asarray` of the JAX model's
     params) as float32 tensors on `device`, in the layout the port's
     SkipGram takes as `initial_params`."""
-    missing = [k for k in SKIPGRAM_KEYS if k not in params]
-    if missing:
-        raise KeyError(f"Missing SkipGram tables: {missing}")
-    return {
-        k: torch.from_numpy(np.array(params[k], dtype=np.float32)).to(device)
-        for k in SKIPGRAM_KEYS
-    }
+    return _tables_from_jax(params, SKIPGRAM_KEYS, "SkipGram", device)
+
+
+def cbow_params_from_jax(
+    params: Mapping[str, np.ndarray], device: Union[str, torch.device]
+) -> Dict[str, torch.Tensor]:
+    """CBOW tables (`node_embedding`, `output_embedding`, `output_bias`, as
+    numpy arrays) as float32 tensors on `device`, in the layout the port's
+    CBOW takes as `initial_params`."""
+    return _tables_from_jax(params, CBOW_KEYS, "CBOW", device)
 
 
 def _tree_to_torch(tree, device):

@@ -11,9 +11,10 @@ import torch
 from embiggen_tpu_torch.graph import Graph, barabasi_albert, erdos_renyi
 from embiggen_tpu_torch.graph.laplacians import kernel_coo
 from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
-from embiggen_tpu_torch.models.embedders import SkipGram
+from embiggen_tpu_torch.models.embedders import CBOW, SkipGram
 from embiggen_tpu_torch.models.gcn import KipfGCNEdgePrediction
 from embiggen_tpu_torch.ops import _build
+from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
 from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
 from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
@@ -25,7 +26,10 @@ from embiggen_tpu_torch.ops.scatter import (
 )
 from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
-from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain, first_order_walks
+from embiggen_tpu_torch.ops.walks import (
+    csr_edge_ids, csr_edge_ids_plain, ell_walks, first_order_walks, rejection_walks,
+)
+from pq_laws import Laws, n_tries_for, walks_chi2_p
 
 pytestmark = pytest.mark.cuda
 
@@ -233,6 +237,19 @@ def test_spmm_kernel_matches_plain_at_200k_nodes(dev, combiner, width):
         dx, csr_spmm_plain(k.transpose, g_out, None, inv), rtol=1e-5, atol=1e-5)
 
 
+def test_spmm_kernel_at_an_odd_storage_offset(dev):
+    """A contiguous x whose rows are not 16-byte aligned (a view one float
+    into its buffer) takes the scalar path and matches the plain version."""
+    g = erdos_renyi(600, 5000, seed=6, weighted=True)
+    k = csr_kernel(*kernel_coo(g, "Symmetric Normalized Laplacian"), 600, device=dev)
+    buf = torch.randn(600 * 128 + 1, device=dev)
+    x = buf[1:].view(600, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    y = spmm(k, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, csr_spmm_plain(k, x), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("probe, tile", [(tile_gather_sums, 256), (table_gather_sums, 8192)])
 def test_gather_probe_kernels_match_plain(dev, probe, tile):
     x = torch.randn(4096, 64, device=dev)
@@ -308,3 +325,114 @@ def test_edge_metrics_kernel_matches_plain(dev, which, cap):
     torch.testing.assert_close(got[:, 1], want[:, 1], rtol=1e-6, atol=0)
     torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0, atol=0)
     torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], rtol=1e-5, atol=1e-6)
+
+
+def _ell_laws(g, tg, rw, ew, cap):
+    ell = (tg.ell_cols.cpu().numpy(),
+           None if tg.ell_w is None else tg.ell_w.cpu().numpy(), min(cap, tg.ell_cap))
+    return Laws(g.row_ptr, g.col_idx, g.weights, rw, ew, ell=ell)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n, m, cap", [(200, 800, 100), (200, 800, 8), (60, 1100, 34),
+                                       (60, 1100, 100)])
+def test_ell_walks_kernel_matches_its_law(dev, weighted, n, m, cap):
+    """K9's whole walks, every move against its exact step law: over the
+    whole rows (cap 100), and over rows subsampled at caps 8 and 34; the
+    60-node graph's rows (degree up to 36) span two 32-slot chunks."""
+    g = erdos_renyi(n, m, seed=7, weighted=weighted)
+    tg = g.device(dev, ell_cap=cap, ell_seed=1)
+    assert tg.ell_cap == min(cap, int(g.degrees.max()))
+    starts = (torch.arange(200000, device=dev) % n).int()
+    before = _build.launch_counts()["ell_walks"]
+    w = ell_walks(tg, starts, 16, 2.0, 0.5, cap, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ell_walks"] == before + 1
+    assert torch.equal(w[:, 0], starts)
+    assert walks_chi2_p(w.cpu().numpy(), _ell_laws(g, tg, 2.0, 0.5, cap), n)[0] >= 1e-3
+
+
+def test_ell_walks_kernel_wide_rows(dev):
+    """A 1,100-neighbour hub with cap 1,100: rows wider than a warp's 32
+    slots many times over, and fewer warps per block."""
+    n = 1500
+    src = np.concatenate([np.zeros(1100, int), np.arange(1, n - 1)])
+    dst = np.concatenate([np.arange(1, 1101), np.arange(2, n)])
+    g = Graph.from_edge_arrays(src, dst, n_nodes=n, directed=False)
+    tg = g.device(dev, ell_cap=1100)
+    assert tg.ell_cap == 1100
+    starts = torch.zeros(200000, dtype=torch.int32, device=dev)
+    w = ell_walks(tg, starts, 3, 2.0, 0.5, 1100, torch.Generator().manual_seed(1))
+    # Only the first two moves are tested: from the hub, then back or on.
+    assert walks_chi2_p(w.cpu().numpy(), _ell_laws(g, tg, 2.0, 0.5, 1100), n)[0] >= 1e-3
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("rw, ew", [(2.0, 0.5), (0.25, 4.0)])
+def test_rejection_walks_kernel_matches_its_law(dev, weighted, rw, ew):
+    """K10's whole walks, every move against the rejection step's exact law
+    (8 tries at ratio 4, 16 at ratio 16)."""
+    g = erdos_renyi(200, 800, seed=7, weighted=weighted)
+    tg = g.device(dev, with_alias=weighted)
+    starts = (torch.arange(40000, device=dev) % 200).int()
+    t = n_tries_for(rw, ew)
+    before = _build.launch_counts()["rejection_walks"]
+    w = rejection_walks(tg, starts, 16, rw, ew, t, torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["rejection_walks"] == before + 1
+    laws = Laws(g.row_ptr, g.col_idx, g.weights, rw, ew, n_tries=t)
+    assert walks_chi2_p(w.cpu().numpy(), laws, 200)[0] >= 1e-3
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("n, d, length, window, k", [
+    (300, 48, 20, 4, 7), (300, 30, 12, 3, 5), (60, 16, 12, 1, 5)])
+def test_cbow_kernel_matches_plain(dev, with_center_w, n, d, length, window, k):
+    """K11's sums and counts against its plain version's (autograd
+    gradients added with index_add_), then K4's combine on CBOW's tables;
+    n 60 makes the atomics collide."""
+    x = _skipgram_inputs(dev, n, d, 64, length, k, with_center_w, seed=d)
+    args = (*x["tables"], x["walks"], x["negs"], window, 6.0)
+    sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
+    before = _build.launch_counts()["cbow_update"]
+    loss = cbow_update(*args, sums, x["center_w"])
+    want_loss = cbow_update_plain(*args, want_sums, x["center_w"])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["cbow_update"] == before + 1
+    # Sums in another order than autograd's, and atomics in no fixed order.
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sums.counts_w, want_sums.counts_w, rtol=0, atol=0)
+    torch.testing.assert_close(sums.counts_c, want_sums.counts_c, rtol=0, atol=0)
+    for field in ("sums_w", "sums_c", "sums_b"):
+        torch.testing.assert_close(getattr(sums, field), getattr(want_sums, field),
+                                   rtol=1e-4, atol=1e-5)
+    got_t = [t.clone() for t in x["tables"]]
+    want_t = [t.clone() for t in x["tables"]]
+    skipgram_mean_combine(*got_t, sums, 0.05)
+    skipgram_mean_combine_plain(*want_t, want_sums, 0.05)
+    for a, w in zip(got_t, want_t):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("pq", [True, False])
+def test_cbow_step_launches_its_kernels(dev, pq):
+    g = erdos_renyi(500, 3000, seed=3)
+    kw = dict(return_weight=2.0, explore_weight=0.5) if pq else {}
+    model = CBOW(device=dev, embedding_size=16, walk_length=12, window_size=3,
+                 batch_size=64, random_state=0, **kw)
+    tg = model._device_graph(g)
+    model._run_batch_size = model._resolve_batch(g)
+    params = model._init_params(g, torch.Generator().manual_seed(0))
+    sums = model._new_sums(params)
+    before = _build.launch_counts()
+    with torch.no_grad():
+        loss = model._step(tg, params, torch.Generator().manual_seed(1), 0.05, sums=sums)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert np.isfinite(float(loss))
+    got = {k: after[k] - before[k] for k in (
+        "ell_walks", "first_order_walks", "cbow_update", "skipgram_mean_combine",
+        "skipgram_nce_update")}
+    assert got == {"ell_walks": int(pq), "first_order_walks": int(not pq),
+                   "cbow_update": 1, "skipgram_mean_combine": 1, "skipgram_nce_update": 0}
+    assert all(not bool(t.any()) for t in sums.buffers())

@@ -145,9 +145,18 @@ def test_initial_params_are_used(graph):
                  initial_params=tables).fit_transform(graph)
 
 
+@pytest.mark.parametrize("kwargs", [dict(return_weight=2.0), dict(explore_weight=0.5)])
+def test_pq_weights_are_accepted(graph, kwargs):
+    """p/q walks are ported: the weights reach the model and the walks."""
+    model = SkipGram(device="cpu", random_state=0, **kwargs)
+    for name, value in kwargs.items():
+        assert model.parameters()[name] == value
+    emb = embed_graph(graph, "Node2Vec SkipGram", smoke_test=True, device="cpu",
+                      random_state=0, **kwargs).node_embeddings[0]
+    assert emb.shape == (34, 5) and np.isfinite(emb).all()
+
+
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(return_weight=2.0), "A6"),
-    (dict(explore_weight=0.5), "A6"),
     (dict(change_node_type_weight=4.0), "A6"),
     (dict(change_edge_type_weight=0.25), "A6"),
     (dict(mesh=4), "A13"),

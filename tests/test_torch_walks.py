@@ -177,7 +177,7 @@ def test_unsupported_walks_and_devices_raise(port_karate):
     tg = port_karate.device("cpu")
     starts = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="A6"):
-        random_walks(tg, starts, 5, torch.Generator(), return_weight=2.0)
+        random_walks(tg, starts, 5, torch.Generator(), change_node_type_weight=2.0)
     # No kernel and no plain version off CPU and CUDA: it raises, it does not
     # move the work elsewhere.
     meta = port_karate.device("meta")
@@ -185,6 +185,17 @@ def test_unsupported_walks_and_devices_raise(port_karate):
         first_order_walks(meta, starts.to("meta"), 5, torch.Generator())
     with pytest.raises(ValueError, match="meta"):
         sample_nodes_uniform(meta, torch.Generator(), (4,))
+
+
+@pytest.mark.parametrize("kwargs", [dict(return_weight=2.0), dict(explore_weight=0.5)])
+def test_pq_walks_are_accepted(port_karate, kwargs):
+    """p/q walks are ported: they run, start at the starts and follow arcs."""
+    tg = port_karate.device("cpu")
+    starts = torch.arange(34, dtype=torch.int32)
+    walks = random_walks(tg, starts, 5, torch.Generator().manual_seed(0), **kwargs)
+    assert walks.shape == (34, 5)
+    np.testing.assert_array_equal(walks[:, 0].numpy(), starts.numpy())
+    _arc_positions(port_karate, walks.numpy())
 
 
 def test_erdos_renyi_walks_valid():
