@@ -17,7 +17,7 @@ the exit code is not 0:
      1e-4 / atol 1e-5: sums in another order; its counts exactly; the
      tables after the combine atol 1e-5: atomics add in no fixed order; the
      sums and counts all zero after the combine); K4's standalone mean
-     scatter (atol 1e-5);
+     scatter at the flagship shapes (atol 1e-5);
      K1 and K2, which are samplers, by arc
      validity and chi-square tests (fail at p < 1e-3): on small weighted
      and unweighted graphs against the exact distributions, and on the
@@ -93,11 +93,33 @@ the exit code is not 0:
      on the gate fixture's connected holdout, embedding seeds 0-3, fed to a
      Perceptron on Hadamard alone: mean test AUPRC at least the
      reference's less 0.03;
- 14. with `--profile` only: K3's phase split (gather, scores, gradients)
+ 14. K14 (the siamese and LINE batch samplers) against its exact laws
+     (`tests/batch_laws.py`, chi-square, fail at p < 1e-3, fixed seeds) and
+     its plain versions on the slice graph with 2^20 slots: positives
+     uniform over bins of arc ids, each an arc, the siamese types the arcs';
+     the corrupted nodes and LINE's negatives with avoid_false_negatives
+     (one unchecked redraw) by node degree and by blocks of node ids, the
+     siamese coin, LINE also on the slice graph plus 256 hubs, and every
+     LINE first draw that is not an arc kept as drawn; then K4 standalone
+     (scatter and combine) at the S6 shapes against mean_scatter_plain
+     (atol 1e-5: atomics add in no fixed order; counts exactly), with
+     segment tuples and shared counts;
+ 15. S6: three steps of each of the six minibatch models on injected
+     batches, card against CPU (atol 1e-5); then `embed_graph` on the slice
+     graph at batch 65536: Second-order LINE (D 128, 2 epochs), TransE (D
+     128, 2 epochs, edge types arange(E) % 8 as bench.py types them),
+     First-order LINE with avoid_false_negatives and Unstructured (D 128, 1
+     epoch each), TransH and Structured Embedding (D 32, 1 epoch each), with
+     K14 launched, K4 standalone launched by LINE only, and K1, K3, K9 and
+     K11 not;
+ 16. S6 quality: First-order LINE and Unstructured on the gate fixture,
+     their edge AUROC at least the reference's less 0.03;
+ 17. with `--profile` only: K3's phase split (gather, scores, gradients)
      at the flagship shapes, from clock64() stamps in a build with
-     EBT_PHASE_CLOCK; then steady steps of S1, of the GCN and of S5, one
-     line per kernel name with its device ms per step: the port's kernels
-     on CUDA events around each launch, PyTorch's own from torch.profiler.
+     EBT_PHASE_CLOCK; then steady steps of S1, of the GCN, of S5 and of S6
+     (Second-order LINE, TransE), one line per kernel name with its device
+     ms per step: the port's kernels on CUDA events around each launch,
+     PyTorch's own from torch.profiler.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -170,6 +192,26 @@ GATE_CBOW_SEEDS = range(4)
 SKIPGRAM_SHAPES = (("flagship", N_NODES, DIM, WALK, WINDOW, NEGS, BATCH),
                    ("harness", N_NODES, 64, 16, 2, 5, BATCH),
                    ("D 30", 100_000, 30, 12, 3, 5, 4096))
+# S6: the minibatch SGD families at bench.py's shapes (`bench.py:261,271-298`:
+# batch 65536, D 128, TransE over 8 synthetic edge types arange(E) % 8;
+# LINE's default K 5); TransH and Structured Embedding at D 32, whose [B, D,
+# D] projections would take 4.3 GB each at D 128. (model, typed, D, epochs,
+# options).
+S6_BATCH, S6_NEGS, S6_TYPES = 65536, 5, 8
+K14_SLOTS = 1 << 20
+S6_RUNS = (("Second-order LINE", False, DIM, 2, {}), ("TransE", True, DIM, 2, {}),
+           ("First-order LINE", False, DIM, 1, dict(avoid_false_negatives=True)),
+           ("Unstructured", False, DIM, 1, {}), ("TransH", True, 32, 1, {}),
+           ("Structured Embedding", True, 32, 1, {}))
+# The S6 AUROC gate and the reference's AUROCs for the same calls, measured
+# with embiggen_tpu on the CPU (tests/test_torch_line_siamese.py says how).
+GATE_S6 = dict(embedding_size=32, epochs=30, batch_size=1024, learning_rate_decay=0.99,
+               early_stopping_patience=10**6, learning_rate_plateau_patience=10**6,
+               random_state=0)
+GATE_LINE1 = dict(GATE_S6, learning_rate=0.025)
+GATE_UNSTRUCTURED = dict(GATE_S6, learning_rate=1.0)
+GATE_REFERENCE_LINE1_AUROC = 0.8843448788028528
+GATE_REFERENCE_UNSTRUCTURED_AUROC = 0.9216162440005579
 K3_SUMS_TOL = dict(rtol=1e-4, atol=1e-5)    # sums in another order
 K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
 # The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
@@ -461,6 +503,8 @@ KERNEL_NAMES = {
     "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
     "edge_metrics": "edge_metrics_kernel", "ell_walks": "ell_walks_kernel",
     "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
+    "mean_scatter": "scatter_add_rows_kernel", "mean_combine": "mean_combine_kernel",
+    "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
 }
 
 
@@ -588,7 +632,7 @@ def k3_phase_line(card, dev):
     sums = SkipGramSums.zeros(N_NODES, DIM, dev)
     shares = skipgram.phase_split(*args, sums)
     ms = time_ms(lambda: skipgram.skipgram_nce_update(*args, sums), 10)
-    print(f"phase 14 K3 phase split on {card}: kernel {ms:.3f} ms; "
+    print(f"phase 17 K3 phase split on {card}: kernel {ms:.3f} ms; "
           + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
                       for k, v in shares.items()), flush=True)
     return dict(ms=ms, **shares)
@@ -597,7 +641,7 @@ def k3_phase_line(card, dev):
 def print_profile(name, card, rows, step_ms, kept):
     busy = sum(ms for ms, _, _ in rows.values())
     port = sum(ms for ms, _, how in rows.values() if how == "events")
-    print(f"phase 14 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+    print(f"phase 17 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
           f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
           f"per step ({port:.3f} of the port's on their launches' events, the rest "
           f"from torch.profiler), device busy share {busy / step_ms:.3f}; the "
@@ -613,8 +657,9 @@ def skipgram_checks(dev):
     tables and walks: K3's counts exactly and its sums to K3_SUMS_TOL, the
     tables after the combine to K3_UPDATE_ATOL; the sums and counts all zero
     after the combine. Then K4's standalone mean_scatter at the flagship
-    shapes. Returns (kernels entries timed at the flagship shapes, {shape:
-    (sums err, combined tables err)})."""
+    shapes (timed at the S6 shapes, `k4_line_checks`). Returns (kernels
+    entries timed at the flagship shapes, {shape: (sums err, combined tables
+    err)})."""
     from embiggen_tpu_torch.ops.scatter import (
         SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
         skipgram_mean_combine_plain,
@@ -704,24 +749,8 @@ def skipgram_checks(dev):
         got_b, _ = mean_scatter(tables[2].clone(), segs, gb, 0.025, counts)
         want_b, _ = mean_scatter_plain(tables[2].clone(), segs, gb, 0.025, counts)
         scatter_err = max(scatter_err, check_close("K4 bias", got_b, want_b, 0.0, 1e-5))
-        del got, want, got_b, want_b, gb
-        idx_all = torch.cat(segs).long()
-        g_all = torch.cat(gsegs)
-        acc = torch.zeros_like(tables[1])
-        m = idx_all.numel()
-        entries["mean_scatter"] = dict(
-            source="embiggen_tpu_torch/csrc/scatter.cu",
-            replaces="embiggen_tpu/models/embedders/walk_based.py:817",
-            max_abs_err=scatter_err,
-            ms=time_ms(lambda: mean_scatter(tables[1], segs, gsegs, 0.025), 10),
-            plain_ms=time_ms(lambda: mean_scatter_plain(tables[1], segs, gsegs, 0.025), 10),
-            # No one call computes the sums, the counts and the combine;
-            # index_add_ times the sums alone.
-            library_ms=None, library=None,
-            scatter_half_ms=time_ms(lambda: acc.index_add_(0, idx_all, g_all), 10),
-            # gradients and ids read; touched rows read and written; counts out
-            **bound(4 * (m * d + m) + 8 * u_c * d + 4 * n, 3 * m * d))
-        del idx_all, g_all, acc, gsegs
+        del got, want, got_b, want_b, gb, gsegs
+        errs["K4 standalone"] = (scatter_err, scatter_err)
     return entries, errs
 
 
@@ -1131,16 +1160,16 @@ def device_ms(calls, reps: int = 20) -> dict:
             / 1e3 / kept[k] for k in calls}
 
 
-def pq_laws():
-    """`tests/pq_laws.py`, the exact step laws of the p/q samplers computed
-    in numpy from the graph (shared with the tests, which import it the same
-    way)."""
+def laws_module(name):
+    """A module of exact sampler laws under `tests/` (shared with the tests,
+    which import it the same way): `pq_laws`, the step laws of the p/q
+    samplers in numpy; `batch_laws`, the laws of K14's batches in torch."""
+    import importlib
+
     tests = str(Path(__file__).resolve().parent / "tests")
     if tests not in sys.path:
         sys.path.append(tests)
-    import pq_laws as module
-
-    return module
+    return importlib.import_module(name)
 
 
 def pq_sampler_checks(erdos_renyi, dev):
@@ -1153,7 +1182,7 @@ def pq_sampler_checks(erdos_renyi, dev):
     |empirical - exact| step probability})."""
     from embiggen_tpu_torch.ops.walks import ell_walks, rejection_walks
 
-    laws = pq_laws()
+    laws = laws_module("pq_laws")
     p, err = {}, {"ell_walks": 0.0, "rejection_walks": 0.0}
     starts = (torch.arange(40000, device=dev) % 200).int()
     for weighted in (False, True):
@@ -1479,12 +1508,363 @@ def cbow_quality_on_card(card, dev):
     return auprc
 
 
+def arc_bin_counts(ids, n_arcs):
+    """(observed, expected) counts of arc ids in ARC_BINS bins of arc ids,
+    for ids uniform over the arcs."""
+    edges = np.linspace(0, n_arcs, ARC_BINS + 1).astype(np.int64)
+    observed = torch.bincount(
+        torch.bucketize(ids, torch.from_numpy(edges[1:-1]).to(ids.device), right=True),
+        minlength=ARC_BINS).double().cpu().numpy()
+    return observed, np.diff(edges) * (ids.numel() / n_arcs)
+
+
+def corrupted_nodes(batch):
+    """The drawn node of every siamese slot where it differs from the side
+    it replaced."""
+    src, dst, csrc, cdst = batch[:4]
+    return torch.cat([csrc[csrc != src], cdst[cdst != dst]])
+
+
+def bins_err(observed, expected) -> float:
+    """Largest |empirical - exact| share over the degree bins."""
+    o, e = observed["degree"], expected["degree"]
+    return float(np.abs(o / o.sum() - e / e.sum()).max())
+
+
+def k14_checks(graph, tg, hub, dev):
+    """K14 against its exact laws (`tests/batch_laws.py`) and its plain
+    versions on the slice graph, K14_SLOTS slots. The siamese batch (scale-
+    free, with types arange(E) % S6_TYPES): positives uniform over ARC_BINS
+    bins of arc ids and their repeats, each positive an arc, its type the
+    arc's; the corrupted nodes by node degree and by blocks of ID_BLOCK ids
+    against their exact law and the plain version's; the coin (the sides
+    replaced). LINE's batch with avoid_false_negatives (K = S6_NEGS,
+    scale-free), on the slice graph and on `hub` (the slice graph plus
+    N_HUBS hubs, where first draws often are arcs of their source): the
+    positives as above, the negatives against the law of one unchecked
+    redraw and the plain version's, and every first draw that is not an arc
+    of its source kept as drawn (the same seed without the check). Returns
+    ({test: p}, {counter: max |empirical - exact| degree-bin share},
+    {test: p of the hub negatives against the law without a redraw}), the
+    last a measure of the test's power, not checked."""
+    from embiggen_tpu_torch.ops.negatives import (
+        line_mini_batch, line_mini_batch_plain, siamese_mini_batch, siamese_mini_batch_plain,
+    )
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids_plain
+
+    laws = laws_module("batch_laws")
+    p, err, power = {}, {}, {}
+    typed = dataclasses.replace(
+        tg, edge_types=(torch.arange(tg.n_arcs, device=dev) % S6_TYPES).int())
+    batch = siamese_mini_batch(typed, torch.Generator().manual_seed(51), K14_SLOTS, True, True)
+    plain = siamese_mini_batch_plain(typed, torch.Generator(device=dev).manual_seed(52),
+                                     K14_SLOTS, True, True)
+    ids = laws.arc_ids(typed, batch[0], batch[1])
+    p["K14 siamese positives by arc-id bin"] = exact_p(*arc_bin_counts(ids, tg.n_arcs))
+    p["K14 siamese positives repeats"] = repeats_p(ids, tg.n_arcs)
+    if not torch.equal(batch[4], typed.edge_types[ids]):
+        raise AssertionError("K14 siamese types differ from the arcs' types")
+    counts = laws.siamese_counts(typed, batch, True)
+    observed, expected = (node_bins(tg, torch.from_numpy(x[:-1]).to(dev))
+                          for x in counts["corrupted nodes"])
+    binned_tests(p, "K14 siamese corrupted nodes vs exact", observed, expected, True)
+    binned_tests(p, "K14 siamese corrupted nodes vs plain", observed,
+                 node_counts(tg, corrupted_nodes(plain)), False)
+    p["K14 siamese sides replaced"] = exact_p(*counts["sides"])
+    err["siamese_mini_batch"] = bins_err(observed, expected)
+    del batch, plain, ids, typed
+    err["line_mini_batch"] = 0.0
+    for name, tgx in (("slice", tg), ("hubs", hub.device(dev, with_sources=True))):
+        src, dst, neg = line_mini_batch(tgx, torch.Generator().manual_seed(53), K14_SLOTS,
+                                        S6_NEGS, True, True)
+        _, _, first = line_mini_batch(tgx, torch.Generator().manual_seed(53), K14_SLOTS,
+                                      S6_NEGS, True, False)
+        _, _, plain = line_mini_batch_plain(tgx, torch.Generator(device=dev).manual_seed(54),
+                                            K14_SLOTS, S6_NEGS, True, True)
+        ids = laws.arc_ids(tgx, src, dst)
+        p[f"K14 LINE {name} positives by arc-id bin"] = exact_p(*arc_bin_counts(ids, tgx.n_arcs))
+        clean = ~csr_edge_ids_plain(tgx.row_ptr, tgx.col_idx, src.repeat_interleave(S6_NEGS),
+                                    first.reshape(-1))[1]
+        if not torch.equal(neg.reshape(-1)[clean], first.reshape(-1)[clean]):
+            raise AssertionError(f"K14 LINE {name}: a first draw that is no arc was redrawn")
+        observed = node_counts(tgx, neg)
+        expected = node_bins(tgx, laws.line_negative_law(tgx, src, True, True) * neg.numel())
+        binned_tests(p, f"K14 LINE {name} negatives vs exact", observed, expected, True)
+        binned_tests(p, f"K14 LINE {name} negatives vs plain", observed, node_counts(tgx, plain),
+                     False)
+        err["line_mini_batch"] = max(err["line_mini_batch"], bins_err(observed, expected))
+        if name == "hubs":
+            power["redrawn first draws"] = float((~clean).double().mean())
+            binned_tests(power, "K14 LINE hubs negatives vs the law without a redraw", observed,
+                         node_bins(tgx, laws.draw_law(tgx, True) * neg.numel()), True)
+        del src, dst, neg, first, plain, ids, clean, tgx
+        torch.cuda.empty_cache()
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"K14 tests failed (p < {P_MIN}): {failed}")
+    return p, err, power
+
+
+def k14_entries(tg, errs, dev):
+    """K14 timed at the S6 shapes (S6_BATCH slots, K S6_NEGS, scale-free;
+    the siamese batch with types), with its bounds: the outputs written,
+    and per slot its arc's source, head (and type) and each drawn arc's
+    head read once (B << E, so distinct); LINE with avoid_false_negatives
+    beside it, whose bound adds each negative's search of its source's row
+    and the redraws this run's data needed."""
+    from embiggen_tpu_torch.ops.negatives import (
+        line_mini_batch, line_mini_batch_plain, siamese_mini_batch, siamese_mini_batch_plain,
+    )
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids_plain
+
+    gen, cuda_gen = torch.Generator().manual_seed(55), torch.Generator(device=dev).manual_seed(56)
+    typed = dataclasses.replace(
+        tg, edge_types=(torch.arange(tg.n_arcs, device=dev) % S6_TYPES).int())
+    b, k = S6_BATCH, S6_NEGS
+    src, _, first = line_mini_batch(tg, torch.Generator().manual_seed(57), b, k, True, False)
+    rows = src.repeat_interleave(k)
+    redraws = int(csr_edge_ids_plain(tg.row_ptr, tg.col_idx, rows, first.reshape(-1))[1].sum())
+    avoid_bytes = (8 * int(torch.unique(src).numel()) + 4 * redraws
+                   + 4 * float(search_reads(tg.degrees[rows.long()]).sum()))
+    entries = {
+        "line_mini_batch": dict(
+            source="embiggen_tpu_torch/csrc/batches.cu",
+            replaces="embiggen_tpu/models/embedders/line.py:74", max_abs_err=errs["line_mini_batch"],
+            ms=time_ms(lambda: line_mini_batch(tg, gen, b, k), 20),
+            plain_ms=time_ms(lambda: line_mini_batch_plain(tg, cuda_gen, b, k), 20),
+            library_ms=None,
+            **bound(4 * (2 * b + b * k) + 4 * (2 * b + b * k), 0),
+            avoid_ms=time_ms(lambda: line_mini_batch(tg, gen, b, k, True, True), 20),
+            avoid_plain_ms=time_ms(lambda: line_mini_batch_plain(tg, cuda_gen, b, k, True, True), 5),
+            avoid_bound_ms=bound(8 * (2 * b + b * k) + avoid_bytes, 0)["bound_ms"],
+        ),
+        "siamese_mini_batch": dict(
+            source="embiggen_tpu_torch/csrc/batches.cu",
+            replaces="embiggen_tpu/ops/negatives.py:131", max_abs_err=errs["siamese_mini_batch"],
+            ms=time_ms(lambda: siamese_mini_batch(typed, gen, b, True, True), 20),
+            plain_ms=time_ms(lambda: siamese_mini_batch_plain(typed, cuda_gen, b, True, True), 20),
+            library_ms=None,
+            **bound(4 * 5 * b + 4 * 4 * b, 0),
+        ),
+    }
+    for name, ms in device_ms({
+        "line_mini_batch": lambda: line_mini_batch(tg, gen, b, k),
+        "siamese_mini_batch": lambda: siamese_mini_batch(typed, gen, b, True, True),
+    }).items():
+        entries[name]["device_ms"] = ms
+    return entries
+
+
+def k4_line_checks(tg, dev):
+    """K4 standalone at the S6 shapes: Second-order LINE's two updates on a
+    batch that K14 draws (B S6_BATCH, K S6_NEGS) with random gradients: the
+    context table from the segments (dst, negatives), the node table from
+    src, and a third table from the segments with the context's counts,
+    against mean_scatter_plain (atol 1e-5: atomics add in no fixed order;
+    counts exactly). Then its two kernels timed apart on the context update:
+    the scatter (each segment's rows added into zeroed sums and counts) and
+    the combine (the dense pass over all N rows), and the whole wrapper
+    call. Returns its two kernels entries."""
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.negatives import line_mini_batch
+    from embiggen_tpu_torch.ops.scatter import mean_scatter, mean_scatter_plain
+
+    rng = np.random.default_rng(41)
+    n, d = tg.n_nodes, DIM
+    src, dst, neg = line_mini_batch(tg, torch.Generator().manual_seed(42), S6_BATCH, S6_NEGS)
+    segs = (dst, neg.reshape(-1))
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    tables = [normal(n, d, scale=0.1) for _ in range(2)]
+    gsegs = tuple(normal(s.numel(), d) for s in segs)
+    g_src = normal(S6_BATCH, d)
+    got, counts = mean_scatter(tables[1].clone(), segs, gsegs, 0.025)
+    want, want_counts = mean_scatter_plain(tables[1].clone(), segs, gsegs, 0.025)
+    check_close("K4 S6 counts", counts, want_counts, 0.0, 0.0)
+    err = check_close("K4 S6 context table", got, want, 0.0, 1e-5)
+    got, _ = mean_scatter(tables[0].clone(), src, g_src, 0.025)
+    want, _ = mean_scatter_plain(tables[0].clone(), src, g_src, 0.025)
+    err = max(err, check_close("K4 S6 node table", got, want, 0.0, 1e-5))
+    got, _ = mean_scatter(tables[0].clone(), segs, gsegs, 0.025, counts)
+    want, _ = mean_scatter_plain(tables[0].clone(), segs, gsegs, 0.025, counts)
+    err = max(err, check_close("K4 S6 shared counts", got, want, 0.0, 1e-5))
+    del got, want
+    idx_all, g_all = torch.cat(segs).long(), torch.cat(gsegs)
+    m, u = idx_all.numel(), int(torch.unique(idx_all).numel())
+    sums, cnt = torch.zeros_like(tables[1]), torch.zeros(n, device=dev)
+    ones = torch.ones(m, device=dev)
+
+    def zero():
+        sums.zero_()
+        cnt.zero_()
+
+    def scatter():
+        for seg, g in zip(segs, gsegs):
+            _build.launch(None, "ebt_scatter_add_rows", dev, sums.data_ptr(), cnt.data_ptr(),
+                          seg.data_ptr(), g.data_ptr(), seg.numel(), d)
+
+    def scatter_plain():
+        cnt.index_add_(0, idx_all, ones)
+        sums.index_add_(0, idx_all, g_all)
+    scatter_ms = time_after(zero, scatter, 10)
+    scatter_plain_ms = time_after(zero, scatter_plain, 10)
+    index_add_ms = time_after(zero, lambda: sums.index_add_(0, idx_all, g_all), 10)
+    zero()
+    scatter()
+    work = tables[1].clone()
+    entries = {
+        "mean_scatter": dict(
+            source="embiggen_tpu_torch/csrc/scatter.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:817", max_abs_err=err,
+            ms=scatter_ms, plain_ms=scatter_plain_ms,
+            # No one call computes the sums and the counts; index_add_ of
+            # the sums alone beside it.
+            library_ms=None, library=None, scatter_half_ms=index_add_ms,
+            # ids and gradients read; touched rows of the sums and counts written
+            **bound(4 * m * (d + 1) + 4 * u * (d + 1), m * d),
+            wrapper_ms=time_ms(lambda: mean_scatter(work, segs, gsegs, 0.025), 10),
+            wrapper_plain_ms=time_ms(lambda: mean_scatter_plain(work, segs, gsegs, 0.025), 10),
+            rows=m, touched_rows=u,
+        ),
+        "mean_combine": dict(
+            source="embiggen_tpu_torch/csrc/scatter.cu",
+            replaces="embiggen_tpu/models/embedders/walk_based.py:817", max_abs_err=err,
+            ms=time_ms(lambda: _build.launch(None, "ebt_mean_combine", dev, work.data_ptr(),
+                                             sums.data_ptr(), cnt.data_ptr(), 0.025, n, d), 10),
+            plain_ms=time_ms(lambda: work.sub_(0.025 * (sums / cnt.clamp(min=1.0)[:, None])), 10),
+            library_ms=None,
+            # all counts read (to find the touched rows); the touched rows of
+            # the table read and written and of the sums read
+            **bound(4 * n + 12 * u * d, 3 * u * d),
+        ),
+    }
+    del tables, work, sums, g_all, gsegs
+    torch.cuda.empty_cache()
+    return entries
+
+
+def minibatch_graph(graph, n_types):
+    """`graph` with edge types arange(E) % n_types, as bench.py types it."""
+    return dataclasses.replace(graph, edge_types=(
+        np.arange(graph.number_of_directed_edges) % n_types).astype(np.int32))
+
+
+def minibatch_batch(rng, name, n, b=256, k=5):
+    """A random injected batch of model `name` over n nodes (3 edge types)."""
+    if name.endswith("LINE"):
+        return (rng.integers(0, n, b, dtype=np.int32), rng.integers(0, n, b, dtype=np.int32),
+                rng.integers(0, n, (b, k), dtype=np.int32))
+    return tuple(rng.integers(0, n, b, dtype=np.int32) for _ in range(4)) + (
+        (rng.integers(0, 3, b, dtype=np.int32),) if name != "Unstructured" else ())
+
+
+def minibatch_injected_steps(small, dev):
+    """Three steps of each S6 model on injected batches, on the card and on
+    the CPU from the same tables. Returns {model: largest table difference}."""
+    from embiggen_tpu_torch.models import get_model_from_library
+
+    typed = minibatch_graph(small, 3)
+    errs = {}
+    for name, *_ in S6_RUNS:
+        cls = get_model_from_library(name)
+        models = {d: cls(device=d, embedding_size=32, random_state=0) for d in (dev, "cpu")}
+        init = models["cpu"]._init_params(typed, torch.Generator().manual_seed(0))
+        params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+        graphs = {d: m._prepare_data(typed) for d, m in models.items()}
+        rng = np.random.default_rng(7)
+        with torch.no_grad():
+            for lr in (0.05, 0.04, 0.03):
+                sl = minibatch_batch(rng, name, small.number_of_nodes)
+                for d, m in models.items():
+                    m._run_batch_size = 256
+                    m._step(graphs[d], params[d], torch.Generator(), lr,
+                            batch=(tuple(torch.from_numpy(x).to(d) for x in sl), ()))
+        errs[name] = max(check_close(f"3 {name} steps, {k}", params[dev][k].cpu(),
+                                     params["cpu"][k], 0.0, 1e-5) for k in init)
+    return errs
+
+
+def minibatch_run(graph, dev, name, dim, epochs, **kw):
+    """`embed_graph` of the S6 model `name` at width `dim` and batch
+    S6_BATCH on `dev`, with the counts set to 0 just before and read just
+    after. Returns (model, launches, seconds, peak bytes, samples/s per
+    epoch)."""
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    model = get_model_from_library(name)(
+        device=dev, embedding_size=dim, epochs=epochs, batch_size=S6_BATCH, random_state=0,
+        early_stopping_patience=10**6, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = embed_graph(graph, model)
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, emb in enumerate(result.node_embeddings):
+        if emb.shape != (graph.number_of_nodes, dim) or not np.isfinite(emb).all():
+            raise AssertionError(f"{name} embedding {i}: shape {emb.shape} or non-finite values")
+    if len(model._epoch_losses) != epochs or not np.isfinite(model._epoch_losses).all():
+        raise AssertionError(f"{name} epoch losses {model._epoch_losses}")
+    samples = model._steps_per_epoch(graph, None, S6_BATCH) * S6_BATCH
+    return model, launches, seconds, peak, [samples / s for s in model._epoch_seconds]
+
+
+def s6_quality_on_card(card, dev):
+    """The S6 AUROC gate (`tests/test_torch_line_siamese.py`): First-order
+    LINE and Unstructured fitted on the whole gate fixture, scored by dot
+    products and negative squared distances of its edges against as many
+    negatives. Raises unless each reaches the reference's less 0.03.
+    Returns {model: test AUROC}."""
+    from embiggen_tpu_torch.graph import random_geometric, sample_negative_graph
+    from embiggen_tpu_torch.models.embedders import FirstOrderLINE, Unstructured
+    from embiggen_tpu_torch.ops.metrics import binary_auroc
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    out = {}
+    for cls, kw, dist, want in ((FirstOrderLINE, GATE_LINE1, False, GATE_REFERENCE_LINE1_AUROC),
+                                (Unstructured, GATE_UNSTRUCTURED, True,
+                                 GATE_REFERENCE_UNSTRUCTURED_AUROC)):
+        emb = np.asarray(cls(device=dev, **kw).fit_transform(rgg).node_embeddings[0], float)
+        neg = sample_negative_graph(rgg, rgg.number_of_edges, random_state=3 if dist else 0)
+
+        def score(a, b):
+            return -((a - b) ** 2).sum(1) if dist else (a * b).sum(1)
+        pos_s = score(emb[rgg.sources], emb[rgg.col_idx])
+        neg_s = score(emb[neg.sources], emb[neg.col_idx])
+        auroc = binary_auroc(np.concatenate([np.ones(len(pos_s)), np.zeros(len(neg_s))]),
+                             np.concatenate([pos_s, neg_s]))
+        if not auroc >= want - 0.03:
+            raise AssertionError(f"{cls.model_name()} edge AUROC {auroc} on {card} is below "
+                                 f"the reference's {want} less 0.03")
+        out[cls.model_name()] = auroc
+    return out
+
+
+def minibatch_step(model, graph):
+    """One steady step of a fitted S6 model at its fit's batch, as a
+    closure."""
+    tg = model._prepare_data(graph)
+    gen = torch.Generator().manual_seed(0)
+    params = model._init_params(graph, gen)
+
+    def step():
+        with torch.no_grad():
+            model._step(tg, params, gen, 0.025)
+    return step
+
+
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
               "skipgram_mean_combine")
-# Kept beside the S1 step for later SGD families; the step does not launch it.
-S1_UNUSED = ("mean_scatter",)
+# K4 standalone serves the minibatch families (S6); the S1 step does not
+# launch it.
+S1_UNUSED = ("mean_scatter", "mean_combine")
 S2_KERNELS = ("csr_edge_ids",)
 S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
 K8_KERNELS = ("edge_metrics",)
@@ -1492,12 +1872,19 @@ S4_KERNELS = S1_KERNELS + S2_KERNELS + S3_KERNELS
 PROBE_KERNELS = ("tile_gather_sums", "table_gather_sums")
 # S5: Node2Vec CBOW over p/q walks; a wrong route launches one of the others.
 S5_KERNELS = ("nce_negatives", "ell_walks", "cbow_update", "skipgram_mean_combine")
-S5_UNUSED = ("first_order_walks", "rejection_walks", "skipgram_nce_update", "mean_scatter")
+S5_UNUSED = ("first_order_walks", "rejection_walks", "skipgram_nce_update", "mean_scatter",
+             "mean_combine")
 PQ_SKIPGRAM_KERNELS = ("nce_negatives", "ell_walks", "skipgram_nce_update",
                        "skipgram_mean_combine")
 DEEPWALK_CBOW_KERNELS = ("nce_negatives", "first_order_walks", "cbow_update",
                          "skipgram_mean_combine")
 REJECTION_KERNELS = ("rejection_walks",)
+# S6: LINE draws its batch with K14 and updates through K4 standalone; the
+# siamese models draw theirs with K14 and scatter-add with index_add_. None
+# launches a walk or K3, K11.
+S6_LINE_KERNELS = ("line_mini_batch", "mean_scatter", "mean_combine")
+S6_SIAMESE_KERNELS = ("siamese_mini_batch",)
+S6_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update")
 
 
 def check_launches(path, counts, names, unused=()):
@@ -1514,8 +1901,8 @@ def check_launches(path, counts, names, unused=()):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also K3's phase split, and profiles of steady S1, GCN and "
-                             "S5 steps")
+                        help="also K3's phase split, and profiles of steady S1, GCN, S5 "
+                             "and S6 steps")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -1915,13 +2302,78 @@ def main() -> None:
           f"seeds 0-3 {np.mean(cbow_auprc):.4f} (reference {GATE_REFERENCE_CBOW_AUPRC:.4f}; "
           f"per seed {[round(a, 4) for a in cbow_auprc]})", flush=True)
 
-    # -------------------------------------------------- 14. profile (option)
+    # ----------------------------------------- 14. K14 and K4 vs plain (S6)
+    t_phase = time.perf_counter()
+    hub = hub_graph(graph)
+    k14_p, k14_err, k14_power = k14_checks(graph, tg, hub, dev)
+    del hub
+    torch.cuda.empty_cache()
+    new = k14_entries(tg, k14_err, dev)
+    new.update(k4_line_checks(tg, dev))
+    kernels.update(new)
+    print(f"phase 14 K14 and K4 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
+          f"ms per call at the S6 shapes, B {S6_BATCH}, K {S6_NEGS}): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f}"
+              + (f" device {v['device_ms']:.4f}" if "device_ms" in v else "")
+              + f" plain {v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              for k, v in new.items())
+          + f" | LINE with avoid_false_negatives ms {new['line_mini_batch']['avoid_ms']:.4f} "
+          f"plain {new['line_mini_batch']['avoid_plain_ms']:.4f} bound "
+          f"{new['line_mini_batch']['avoid_bound_ms']:.4f} | K4 standalone wrapper ms "
+          f"{new['mean_scatter']['wrapper_ms']:.4f} plain "
+          f"{new['mean_scatter']['wrapper_plain_ms']:.4f}, index_add_ of the sums "
+          f"{new['mean_scatter']['scatter_half_ms']:.4f} ({new['mean_scatter']['rows']} rows, "
+          f"{new['mean_scatter']['touched_rows']} touched) | K14 p-values (slots "
+          f"{K14_SLOTS}): " + "; ".join(f"{k} {v:.3g}" for k, v in k14_p.items())
+          + " | power on the hub graph (not checked): " + "; ".join(
+              f"{k} {v:.3g}" for k, v in k14_power.items()), flush=True)
+
+    # ------------------------------------------------------------ 15. S6
+    t_phase = time.perf_counter()
+    s6_step_errs = minibatch_injected_steps(small, dev)
+    typed_graph = minibatch_graph(graph, S6_TYPES)
+    s6 = {}
+    for name, typed, dim, epochs, kw in S6_RUNS:
+        m, counts, secs, peak, rates = minibatch_run(
+            typed_graph if typed else graph, dev, name, dim, epochs, **kw)
+        line = name.endswith("LINE")
+        s6[name] = (m, check_launches(
+            name, counts, S6_LINE_KERNELS if line else S6_SIAMESE_KERNELS,
+            S6_UNUSED + (S6_SIAMESE_KERNELS if line else S6_LINE_KERNELS)), secs, peak, rates)
+        torch.cuda.empty_cache()
+    del typed_graph
+    print(f"phase 15 S6 on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected steps "
+          "cuda vs cpu max err " + "; ".join(f"{k} {v:.3g}" for k, v in s6_step_errs.items())
+          + " | " + " | ".join(
+              f"{name} D {m.embedding_size} batch {m._run_batch_size}{' ' + str(kw) if kw else ''}"
+              f": {epochs} epochs {secs:.2f} s, {m._steps_per_epoch(graph, None, S6_BATCH)} "
+              f"steps/epoch, s/epoch {m._epoch_seconds}, "
+              f"{'triples' if typed or name == 'Unstructured' else 'edges'}/s {rates}, losses "
+              f"{m._epoch_losses}, peak {peak} bytes, launches {got}"
+              for (name, typed, _, epochs, kw), (m, got, secs, peak, rates)
+              in zip(S6_RUNS, s6.values())), flush=True)
+
+    # --------------------------------------------------- 16. S6 quality
+    t_phase = time.perf_counter()
+    s6_auroc = s6_quality_on_card(card, dev)
+    print(f"phase 16 S6 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), fitted whole, edges against as many negatives: "
+          f"First-order LINE dot-product AUROC {s6_auroc['First-order LINE']:.4f} (reference "
+          f"{GATE_REFERENCE_LINE1_AUROC:.4f}); Unstructured distance AUROC "
+          f"{s6_auroc['Unstructured']:.4f} (reference {GATE_REFERENCE_UNSTRUCTURED_AUROC:.4f})",
+          flush=True)
+
+    # -------------------------------------------------- 17. profile (option)
     if args.profile:
         k3_phase_line(card, dev)
         torch.cuda.empty_cache()
         print_profile("S1", card, *profile(embedder_step(model, graph), PROFILE_STEPS))
         print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
         print_profile("S5", card, *profile(embedder_step(s5_model, graph), PROFILE_STEPS))
+        print_profile("S6 Second-order LINE", card, *profile(
+            minibatch_step(s6["Second-order LINE"][0], graph), PROFILE_STEPS))
+        print_profile("S6 TransE", card, *profile(
+            minibatch_step(s6["TransE"][0], minibatch_graph(graph, S6_TYPES)), PROFILE_STEPS))
 
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -1931,7 +2383,7 @@ def main() -> None:
     launches = {**path_launches, **gcn_launches, **perceptron_launches,
                 **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches,
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
-                **k10_launches}
+                **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1]}
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0), **v}

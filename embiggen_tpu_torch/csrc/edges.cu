@@ -34,23 +34,9 @@
 namespace {
 
 using ebt::arc_lower_bound;
+using ebt::arc_source;
 
 constexpr int kThreads = 256;
-
-// Source node of an arc id: the last row whose start is <= arc.
-__device__ __forceinline__ int32_t arc_source(
-    const int32_t* __restrict__ row_ptr, int32_t n_nodes, int32_t arc) {
-  int32_t lo = 0, hi = n_nodes;  // answer in [lo, hi)
-  while (hi - lo > 1) {
-    const int32_t mid = lo + ((hi - lo) >> 1);
-    if (row_ptr[mid] <= arc) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 __global__ void csr_edge_ids_kernel(
     const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ col_idx,

@@ -43,6 +43,9 @@ class TorchGraph:
     ell_cols: Optional[torch.Tensor] = None
     ell_w: Optional[torch.Tensor] = None
     ell_cap: int = 0
+    # [E] int32 edge type of each arc, aligned with col_idx; exported by
+    # `Graph.device` when the graph has edge types.
+    edge_types: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -104,8 +107,9 @@ def build_alias_tables(
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """Immutable graph: CSR adjacency, optional weights, names. Edge and node
-    types come with typed walks (ROADMAP A6)."""
+    """Immutable graph: CSR adjacency, optional weights, optional edge types,
+    names. Node types, the typed loaders and typed walks come with ROADMAP
+    A6."""
 
     row_ptr: np.ndarray                      # [N+1] int64
     col_idx: np.ndarray                      # [E] int32, sorted per row
@@ -113,6 +117,8 @@ class Graph:
     name: str = "Graph"
     weights: Optional[np.ndarray] = None     # [E] f32
     node_names: Optional[np.ndarray] = None
+    edge_types: Optional[np.ndarray] = None  # [E] int32, aligned with col_idx
+    edge_type_names: Optional[np.ndarray] = None
 
     @property
     def number_of_nodes(self) -> int:
@@ -191,6 +197,22 @@ class Graph:
     def has_edge_weights(self) -> bool:
         return self.weights is not None
 
+    @property
+    def has_edge_types(self) -> bool:
+        return self.edge_types is not None
+
+    @property
+    def number_of_edge_types(self) -> int:
+        """The largest edge type id plus one; 0 without edge types."""
+        if self.edge_types is None or len(self.edge_types) == 0:
+            return 0
+        return int(self.edge_types.max()) + 1
+
+    def get_edge_type_names(self) -> Optional[np.ndarray]:
+        if self.edge_types is None:
+            return None
+        return _as_names(self.edge_type_names, self.number_of_edge_types, "edge_type_")
+
     def get_node_names(self) -> np.ndarray:
         return _as_names(self.node_names, self.number_of_nodes, "node_")
 
@@ -219,10 +241,12 @@ class Graph:
             self.col_idx[keep_mask],
             n_nodes=self.number_of_nodes,
             weights=None if self.weights is None else self.weights[keep_mask],
+            edge_types=None if self.edge_types is None else self.edge_types[keep_mask],
             directed=True,
             directed_flag=self.directed,
             name=name or self.name,
             node_names=self.node_names,
+            edge_type_names=self.edge_type_names,
         )
 
     def __and__(self, other: "Graph") -> "Graph":
@@ -241,14 +265,16 @@ class Graph:
         name: str = "Graph",
         node_names: Optional[Sequence[str]] = None,
         directed_flag: Optional[bool] = None,
+        edge_types: Optional[np.ndarray] = None,
+        edge_type_names: Optional[Sequence[str]] = None,
     ) -> "Graph":
-        """Build the CSR from (src, dst[, weights]) arc arrays.
+        """Build the CSR from (src, dst[, weights, edge types]) arc arrays.
 
-        If directed=False, arcs are symmetrized. Arcs sort by the key
-        src * N + dst; a duplicate arc keeps the attributes of its first
-        occurrence. `directed_flag`, when given, is the stored
-        directedness in place of `directed` (for arcs that are already
-        symmetrized)."""
+        If directed=False, arcs are symmetrized, each reverse arc with its
+        edge's weight and type. Arcs sort by the key src * N + dst; a
+        duplicate arc keeps the attributes of its first occurrence.
+        `directed_flag`, when given, is the stored directedness in place of
+        `directed` (for arcs that are already symmetrized)."""
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if n_nodes is None:
@@ -259,10 +285,14 @@ class Graph:
                         np.concatenate([dst, src[non_loop]]))
             if weights is not None:
                 weights = np.concatenate([weights, weights[non_loop]])
+            if edge_types is not None:
+                edge_types = np.concatenate([edge_types, edge_types[non_loop]])
         keys, order = np.unique(src * n_nodes + dst, return_index=True)
         src = keys // max(n_nodes, 1)
         if weights is not None:
             weights = np.asarray(weights, dtype=np.float32)[order]
+        if edge_types is not None:
+            edge_types = np.asarray(edge_types, dtype=np.int32)[order]
         counts = np.bincount(src, minlength=n_nodes)
         return Graph(
             row_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
@@ -272,6 +302,9 @@ class Graph:
             weights=weights,
             node_names=(None if node_names is None
                         else np.asarray(node_names, dtype=object)),
+            edge_types=edge_types,
+            edge_type_names=(None if edge_type_names is None
+                             else np.asarray(edge_type_names, dtype=object)),
         )
 
     def device(
@@ -284,8 +317,8 @@ class Graph:
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
         `with_alias` and the graph is weighted, each arc's source when
-        `with_sources`, and the capped ELLPACK adjacency when `ell_cap` is
-        given (`ell_arrays`)."""
+        `with_sources`, the capped ELLPACK adjacency when `ell_cap` is
+        given (`ell_arrays`), and the edge types when the graph has them."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -313,6 +346,8 @@ class Graph:
             ell_cols=None if ecols is None else put(ecols, np.int32),
             ell_w=None if ew is None else put(ew, np.float32),
             ell_cap=cap,
+            edge_types=(None if self.edge_types is None
+                        else put(self.edge_types, np.int32)),
         )
 
     def ell_arrays(
@@ -361,5 +396,6 @@ class Graph:
         return (
             f"Graph(name={self.name!r}, nodes={self.number_of_nodes}, "
             f"arcs={self.number_of_directed_edges}, directed={self.directed}, "
-            f"weighted={self.has_edge_weights})"
+            f"weighted={self.has_edge_weights}, "
+            f"edge_types={self.number_of_edge_types})"
         )

@@ -33,9 +33,11 @@ def _subgraph_from_canonical(graph: Graph, keep: np.ndarray, name: str) -> Graph
         graph.col_idx[sel],
         n_nodes=graph.number_of_nodes,
         weights=None if graph.weights is None else graph.weights[sel],
+        edge_types=None if graph.edge_types is None else graph.edge_types[sel],
         directed=graph.directed,
         name=name,
         node_names=graph.node_names,
+        edge_type_names=graph.edge_type_names,
     )
 
 

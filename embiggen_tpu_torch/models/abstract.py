@@ -61,6 +61,10 @@ class AbstractModel:
         return True
 
     @classmethod
+    def requires_edge_types(cls) -> bool:
+        return False
+
+    @classmethod
     def is_topological(cls) -> bool:
         """Whether the features this model produces depend on graph topology
         (the evaluation harness refits such features per holdout)."""
@@ -156,6 +160,11 @@ class AbstractEmbeddingModel(AbstractModel):
             raise ValueError(f"Graph {graph.name} has no nodes.")
         if graph.number_of_directed_edges == 0:
             raise ValueError(f"Graph {graph.name} has no edges.")
+        if self.requires_edge_types() and not graph.has_edge_types:
+            raise ValueError(
+                f"Model {self.model_name()} requires edge types but graph "
+                f"{graph.name} has none."
+            )
         if (graph.degrees == 0).any():
             inbound = np.zeros(graph.number_of_nodes, dtype=bool)
             inbound[graph.col_idx] = True

@@ -63,6 +63,10 @@ _SIGNATURES = {
     "ebt_rejection_walks": (
         (_P,) * 6 + (_I64, _I32, _F32, _F32, _I32, _U64, _U32, _P), _I32),
     "ebt_cbow_update": ((_P,) * 12 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
+    "ebt_siamese_batch": (
+        (_P, _P, _P, _P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U32, _P), _I32),
+    "ebt_line_batch": (
+        (_P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _U64, _U32, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -71,10 +75,10 @@ _SIGNATURES = {
 # through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_update",
-     "mean_scatter", "skipgram_mean_combine",
+     "mean_scatter", "mean_combine", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
-     "cbow_update"), 0,
+     "cbow_update", "siamese_mini_batch", "line_mini_batch"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

@@ -1,12 +1,15 @@
-"""Node draws for negative sampling and the GCN edge minibatch —
-counterpart of `embiggen_tpu/ops/negatives.py` (`sample_nodes_scale_free`,
+"""Node draws for negative sampling, the GCN edge minibatch and the edge and
+triple batches of the minibatch embedders — counterpart of
+`embiggen_tpu/ops/negatives.py` (`sample_nodes_scale_free`,
 `sample_nodes_uniform`, `negative_nodes_for_nce`; `arc_sources`,
-`edge_prediction_mini_batch`).
+`edge_prediction_mini_batch`, `siamese_mini_batch`) and of LINE's sampler
+`embiggen_tpu/models/embedders/line.py::_LINEBase._sample_batch`.
 
 The head of a uniformly random arc is exactly degree-distributed, so a
 scale-free draw is one uniform arc id and one gather. On a CUDA graph the
-node draws are kernel K2 (`csrc/sampling.cu`) and the edge minibatch kernel
-K6 (`csrc/edges.cu`); on a CPU graph the plain versions below.
+node draws are kernel K2 (`csrc/sampling.cu`), the edge minibatch kernel K6
+(`csrc/edges.cu`) and the siamese and LINE batches kernel K14
+(`csrc/batches.cu`); on a CPU graph the plain versions below.
 """
 from __future__ import annotations
 
@@ -155,3 +158,105 @@ def edge_prediction_mini_batch(
         out_src.data_ptr(), out_dst.data_ptr(), labels.data_ptr(), seed, offset,
     )
     return out_src, out_dst, labels
+
+
+def siamese_mini_batch_plain(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    use_scale_free_distribution: bool = True, with_edge_types: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of K14's siamese batch."""
+    dev = tg.device
+    arc = torch.randint(0, max(tg.n_arcs, 1), (batch_size,), generator=generator,
+                        device=dev)
+    src = arc_sources(tg, arc).to(torch.int32)
+    dst = tg.col_idx[arc]
+    node = nce_negatives_plain(tg, generator, (batch_size,), use_scale_free_distribution)
+    corrupt_src = torch.randint(0, 2, (batch_size,), generator=generator,
+                                device=dev).bool()
+    out = (src, dst, torch.where(corrupt_src, node, src),
+           torch.where(corrupt_src, dst, node))
+    if with_edge_types:
+        out += (tg.edge_types[arc] if tg.edge_types is not None
+                else torch.zeros(batch_size, dtype=torch.int32, device=dev),)
+    return out
+
+
+def siamese_mini_batch(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    use_scale_free_distribution: bool = True, with_edge_types: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """(src, dst, corrupted_src, corrupted_dst[, edge_type]), each [B] int32:
+    uniform arcs, each with one side replaced by a scale-free (or uniform)
+    node, the side chosen by a fair coin; with `with_edge_types`, the arc's
+    edge type (0 on a graph without types). Kernel K14 on a CUDA graph
+    (Philox seeded from `generator`), the plain version on a CPU graph."""
+    if not _build.is_cuda(tg.col_idx):
+        return siamese_mini_batch_plain(tg, generator, batch_size,
+                                        use_scale_free_distribution, with_edge_types)
+    if tg.n_arcs == 0:
+        raise ValueError("The siamese batch needs a graph with arcs.")
+    dev = tg.device
+    out = tuple(torch.empty((batch_size,), dtype=torch.int32, device=dev)
+                for _ in range(5 if with_edge_types else 4))
+    seed, offset = _build.draw_seed(generator)
+    _build.launch(
+        "siamese_mini_batch", "ebt_siamese_batch", dev,
+        tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),
+        _build.ptr(tg.edge_types), tg.n_nodes, tg.n_arcs, batch_size,
+        int(use_scale_free_distribution), *(t.data_ptr() for t in out[:4]),
+        out[4].data_ptr() if with_edge_types else None, seed, offset,
+    )
+    return out
+
+
+def line_mini_batch_plain(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    number_of_negative_samples: int, use_scale_free_distribution: bool = True,
+    avoid_false_negatives: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K14's LINE batch: the reference's draws, a
+    full membership sweep and one redraw of the whole [B, K] block."""
+    arc = torch.randint(0, max(tg.n_arcs, 1), (batch_size,), generator=generator,
+                        device=tg.device)
+    src = arc_sources(tg, arc).to(torch.int32)
+    dst = tg.col_idx[arc]
+    shape = (batch_size, number_of_negative_samples)
+    neg = nce_negatives_plain(tg, generator, shape, use_scale_free_distribution)
+    if avoid_false_negatives:
+        bad = csr_edge_ids_plain(tg.row_ptr, tg.col_idx,
+                                 src[:, None].expand(shape).reshape(-1),
+                                 neg.reshape(-1))[1].reshape(shape)
+        redraw = nce_negatives_plain(tg, generator, shape, use_scale_free_distribution)
+        neg = torch.where(bad, redraw, neg)
+    return src, dst, neg
+
+
+def line_mini_batch(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int,
+    number_of_negative_samples: int, use_scale_free_distribution: bool = True,
+    avoid_false_negatives: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(src [B], dst [B], neg [B, K]) int32: uniform arcs, each with K
+    scale-free (or uniform) negatives. With `avoid_false_negatives`, a
+    negative that is an arc of its src is redrawn once and the redraw is
+    kept unchecked (self-loops are not checked). Kernel K14 on a CUDA graph
+    (Philox seeded from `generator`), the plain version on a CPU graph."""
+    if not _build.is_cuda(tg.col_idx):
+        return line_mini_batch_plain(tg, generator, batch_size, number_of_negative_samples,
+                                     use_scale_free_distribution, avoid_false_negatives)
+    if tg.n_arcs == 0:
+        raise ValueError("The LINE batch needs a graph with arcs.")
+    dev = tg.device
+    src = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    dst = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    neg = torch.empty((batch_size, number_of_negative_samples), dtype=torch.int32,
+                      device=dev)
+    seed, offset = _build.draw_seed(generator)
+    _build.launch(
+        "line_mini_batch", "ebt_line_batch", dev,
+        tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),
+        tg.n_nodes, tg.n_arcs, batch_size, number_of_negative_samples,
+        int(use_scale_free_distribution), int(avoid_false_negatives),
+        src.data_ptr(), dst.data_ptr(), neg.data_ptr(), seed, offset,
+    )
+    return src, dst, neg

@@ -89,7 +89,9 @@ def mean_scatter(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Update `table` [N] or [N, D] in place with the per-row mean of
     `grads` scattered at `idx` (int32); returns (table, counts). Kernel K4
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors (one scatter launch per segment, counted under
+    "mean_scatter", then the combine, counted under "mean_combine"), the
+    plain version on CPU tensors."""
     if not _build.is_cuda(table):
         return mean_scatter_plain(table, idx, grads, lr, counts)
     dev = table.device
@@ -117,7 +119,7 @@ def mean_scatter(
             s.shape[0], d,
         )
     _build.launch(
-        "mean_scatter", "ebt_mean_combine", dev, table.data_ptr(),
+        "mean_combine", "ebt_mean_combine", dev, table.data_ptr(),
         sums.data_ptr(), counts.data_ptr(), float(lr), n, d,
     )
     return table, counts

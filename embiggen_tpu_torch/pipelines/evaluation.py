@@ -112,10 +112,12 @@ def _align_subgraph(graph: Graph, subgraph: Graph) -> Graph:
         ids[subgraph.col_idx],
         n_nodes=graph.number_of_nodes,
         weights=subgraph.weights,
+        edge_types=subgraph.edge_types,
         directed=True,
         directed_flag=subgraph.directed,
         name=subgraph.name,
         node_names=g_names,
+        edge_type_names=subgraph.edge_type_names,
     )
 
 

@@ -40,6 +40,23 @@ def cbow_params_from_jax(
     return _tables_from_jax(params, CBOW_KEYS, "CBOW", device)
 
 
+def minibatch_params_from_jax(params: Mapping[str, np.ndarray], model, graph) -> Dict[str, torch.Tensor]:
+    """The tables of a JAX minibatch embedder (LINE, the siamese models; its
+    `_init_params` dict as numpy arrays) as float32 tensors on
+    `model.device`, in the layout the port's model takes as
+    `initial_params`. The keys and shapes must be the ones the port's
+    `model` gives `graph`."""
+    shapes = model._param_shapes(graph.number_of_nodes, graph.number_of_edge_types)
+    if set(params) != set(shapes):
+        raise KeyError(f"{model.model_name()} tables {sorted(shapes)}, got {sorted(params)}")
+    out = _tables_from_jax(params, tuple(shapes), model.model_name(), model.device)
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"{model.model_name()} table {name!r} has shape "
+                             f"{tuple(out[name].shape)}, expected {shape}")
+    return out
+
+
 def _tree_to_torch(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, device) for k, v in tree.items()}

@@ -19,7 +19,9 @@ from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
 from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
-from embiggen_tpu_torch.ops.negatives import edge_prediction_mini_batch, nce_negatives
+from embiggen_tpu_torch.ops.negatives import (
+    edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
+)
 from embiggen_tpu_torch.ops.scatter import (
     SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
     skipgram_mean_combine_plain,
@@ -28,6 +30,9 @@ from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_up
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
 from embiggen_tpu_torch.ops.walks import (
     csr_edge_ids, csr_edge_ids_plain, ell_walks, first_order_walks, rejection_walks,
+)
+from batch_laws import (
+    arc_ids, exact_p, line_negative_law_by_source, rows_p, siamese_counts,
 )
 from pq_laws import Laws, n_tries_for, walks_chi2_p
 
@@ -122,12 +127,13 @@ def test_skipgram_step_launches_update_and_combine(dev):
     torch.cuda.synchronize()
     after = _build.launch_counts()
     assert {k: after[k] - before[k] for k in (
-        "skipgram_nce_update", "skipgram_mean_combine", "mean_scatter")} == {
-            "skipgram_nce_update": 1, "skipgram_mean_combine": 1, "mean_scatter": 0}
+        "skipgram_nce_update", "skipgram_mean_combine", "mean_scatter", "mean_combine")} == {
+            "skipgram_nce_update": 1, "skipgram_mean_combine": 1, "mean_scatter": 0,
+            "mean_combine": 0}
     assert all(not bool(t.any()) for t in sums.buffers())
 
 
-@pytest.mark.parametrize("width", [None, 16])
+@pytest.mark.parametrize("width", [None, 16, 30])
 def test_mean_scatter_kernel_matches_plain(dev, width):
     rng = np.random.default_rng(1)
     n = 500
@@ -138,9 +144,18 @@ def test_mean_scatter_kernel_matches_plain(dev, width):
     grads = tuple(torch.from_numpy(
         rng.normal(size=(i.numel(),) + shape[1:]).astype(np.float32)).to(dev)
         for i in idx)
+    before = _build.launch_counts()
     got, counts = mean_scatter(table.clone(), idx, grads, 0.05)
     want, want_counts = mean_scatter_plain(table.clone(), idx, grads, 0.05)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["mean_scatter"] - before["mean_scatter"] == 2
+    assert after["mean_combine"] - before["mean_combine"] == 1
     torch.testing.assert_close(counts, want_counts, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    # A second table updated with the counts of the first call.
+    got, _ = mean_scatter(table.clone(), idx, grads, 0.05, counts)
+    want, _ = mean_scatter_plain(table.clone(), idx, grads, 0.05, counts)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
@@ -436,3 +451,125 @@ def test_cbow_step_launches_its_kernels(dev, pq):
     assert got == {"ell_walks": int(pq), "first_order_walks": int(not pq),
                    "cbow_update": 1, "skipgram_mean_combine": 1, "skipgram_nce_update": 0}
     assert all(not bool(t.any()) for t in sums.buffers())
+
+
+@pytest.mark.parametrize("scale_free", [True, False])
+@pytest.mark.parametrize("typed", [True, False])
+def test_siamese_batch_kernel_matches_its_law(dev, scale_free, typed):
+    """K14's siamese batch: positives uniform over arcs, the corrupted nodes
+    and the coin against their exact laws, the types those of the arcs."""
+    import dataclasses
+
+    g = erdos_renyi(200, 800, seed=7)
+    if typed:
+        g = dataclasses.replace(g, edge_types=(np.arange(g.number_of_directed_edges) % 5)
+                                .astype(np.int32))
+    tg = g.device(dev, with_sources=True)
+    before = _build.launch_counts()["siamese_mini_batch"]
+    batch = siamese_mini_batch(tg, torch.Generator().manual_seed(1), 100_000, scale_free, True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["siamese_mini_batch"] == before + 1
+    ids = arc_ids(tg, batch[0], batch[1])
+    assert exact_p(torch.bincount(ids, minlength=tg.n_arcs).cpu().numpy(),
+                   np.full(tg.n_arcs, 100_000 / tg.n_arcs)) >= 1e-3
+    for name, (observed, expected) in siamese_counts(tg, batch, scale_free).items():
+        assert exact_p(observed, expected) >= 1e-3, name
+    want = tg.edge_types[ids] if typed else torch.zeros_like(batch[4])
+    assert torch.equal(batch[4], want)
+
+
+@pytest.mark.parametrize("scale_free", [True, False])
+@pytest.mark.parametrize("avoid", [False, True])
+@pytest.mark.parametrize("with_sources", [True, False])
+def test_line_batch_kernel_matches_its_law(dev, scale_free, avoid, with_sources):
+    """K14's LINE batch on a dense 60-node graph: every (source, negative)
+    cell against P(v | s); with avoid_false_negatives, a first draw that is
+    not an arc of its source is kept as it was drawn."""
+    g = erdos_renyi(60, 1100, seed=7)
+    tg = g.device(dev, with_sources=with_sources)
+    b, k = 60_000, 5
+    before = _build.launch_counts()["line_mini_batch"]
+    src, dst, neg = line_mini_batch(tg, torch.Generator().manual_seed(4), b, k, scale_free,
+                                    avoid)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["line_mini_batch"] == before + 1
+    arc_ids(tg, src, dst)
+    cells = torch.zeros((60, 60), dtype=torch.float64, device=dev)
+    cells.index_put_((src.long()[:, None].expand(-1, k).reshape(-1), neg.long().reshape(-1)),
+                     torch.ones(neg.numel(), dtype=torch.float64, device=dev), accumulate=True)
+    m = torch.bincount(src.long(), minlength=60).double()
+    law = line_negative_law_by_source(tg, scale_free, avoid)
+    assert rows_p(cells.cpu().numpy(), (k * m[:, None] * law).cpu().numpy()) >= 1e-3
+    if avoid:
+        _, _, first = line_mini_batch(tg, torch.Generator().manual_seed(4), b, k, scale_free,
+                                      False)
+        clean = ~torch.from_numpy(g.has_edges(src.cpu().numpy().repeat(k),
+                                              first.cpu().numpy().reshape(-1))).to(dev)
+        assert torch.equal(neg.reshape(-1)[clean], first.reshape(-1)[clean])
+
+
+def _minibatch_batch(rng, name, n, b=256, k=5):
+    if name.endswith("LINE"):
+        return (rng.integers(0, n, b, dtype=np.int32), rng.integers(0, n, b, dtype=np.int32),
+                rng.integers(0, n, (b, k), dtype=np.int32))
+    typed = name not in ("Unstructured",)
+    return tuple(rng.integers(0, n, b, dtype=np.int32) for _ in range(4)) + (
+        (rng.integers(0, 3, b, dtype=np.int32),) if typed else ())
+
+
+@pytest.mark.parametrize("name", ["First-order LINE", "Second-order LINE", "Unstructured",
+                                  "TransE", "TransH", "Structured Embedding"])
+def test_minibatch_steps_match_the_cpu(dev, name):
+    """Three steps on injected batches, on the card and on the CPU from the
+    same tables; the step launches K4 standalone (LINE) and nothing else of
+    the port's."""
+    import dataclasses
+
+    from embiggen_tpu_torch.models import get_model_from_library
+
+    g = erdos_renyi(300, 1500, seed=5)
+    g = dataclasses.replace(g, edge_types=(np.arange(g.number_of_directed_edges) % 3)
+                            .astype(np.int32))
+    cls = get_model_from_library(name)
+    models = {d: cls(device=d, embedding_size=16, random_state=0) for d in (dev, "cpu")}
+    init = models["cpu"]._init_params(g, torch.Generator().manual_seed(0))
+    params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+    graphs = {d: m._prepare_data(g) for d, m in models.items()}
+    rng = np.random.default_rng(6)
+    before = _build.launch_counts()
+    with torch.no_grad():
+        for lr in (0.05, 0.04, 0.03):
+            sl = _minibatch_batch(rng, name, 300)
+            for d, m in models.items():
+                m._run_batch_size = 256
+                m._step(graphs[d], params[d], torch.Generator(), lr,
+                        batch=(tuple(torch.from_numpy(x).to(d) for x in sl), ()))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.launch_counts().items() if v > before[k]}
+    assert set(launched) == ({"mean_scatter", "mean_combine"} if name.endswith("LINE")
+                             else set())
+    for key in init:
+        torch.testing.assert_close(params[dev][key].cpu(), params["cpu"][key], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["Second-order LINE", "TransE"])
+def test_minibatch_fit_launches_k14(dev, name):
+    import dataclasses
+
+    from embiggen_tpu_torch.models import get_model_from_library
+
+    g = erdos_renyi(500, 3000, seed=3)
+    g = dataclasses.replace(g, edge_types=(np.arange(g.number_of_directed_edges) % 4)
+                            .astype(np.int32))
+    before = _build.launch_counts()
+    model = get_model_from_library(name)(device=dev, embedding_size=16, epochs=2,
+                                         batch_size=256, random_state=0)
+    emb = model.fit_transform(g).node_embeddings[0]
+    after = _build.launch_counts()
+    sampler = "line_mini_batch" if "LINE" in name else "siamese_mini_batch"
+    steps = 2 * (g.number_of_directed_edges // 256)
+    assert after[sampler] - before[sampler] == steps
+    for counter in ("mean_scatter", "mean_combine"):
+        assert (after[counter] - before[counter] > 0) == ("LINE" in name)
+    assert emb.shape == (500, 16) and np.isfinite(emb).all()

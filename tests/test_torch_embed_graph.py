@@ -208,6 +208,16 @@ def test_runs_where_jax_cannot_be_imported():
         "                walk_length=8, window_size=2, batch_size=16,\n"
         "                random_state=0)\n"
         "assert r.node_embeddings[0].shape == (50, 4)\n"
+        "import dataclasses, numpy as np\n"
+        "g = erdos_renyi(50, 200, seed=1)\n"
+        "typed = dataclasses.replace(g, edge_types=(\n"
+        "    np.arange(g.number_of_directed_edges) % 3).astype(np.int32))\n"
+        "for name in ('Second-order LINE', 'First-order LINE', 'Unstructured',\n"
+        "             'TransE', 'TransH', 'Structured Embedding'):\n"
+        "    graph = g if 'LINE' in name or name == 'Unstructured' else typed\n"
+        "    r = embed_graph(graph, name, device='cpu', smoke_test=True,\n"
+        "                    random_state=0)\n"
+        "    assert r.node_embeddings[0].shape == (50, 5), name\n"
         "import importlib, pkgutil, embiggen_tpu_torch\n"
         "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
         "                               'embiggen_tpu_torch.'):\n"

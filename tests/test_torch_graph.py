@@ -11,10 +11,10 @@ from embiggen_tpu_torch.graph import Graph, TorchGraph, build_alias_tables, erdo
 torch.set_num_threads(1)
 
 
-# Edge and node types are not ported (typed walks, ROADMAP A6): the port
-# gets the same arguments without them, and is held to the reference's CSR
-# and weights, which the reference builds before its types.
-TYPE_ARGS = ("n_edge_types", "n_node_types", "edge_types")
+# erdos_renyi's typed draws and node types come with ROADMAP A6: the port's
+# erdos_renyi gets the same arguments without them, and is held to the
+# reference's CSR and weights, which the reference builds before its types.
+TYPE_ARGS = ("n_edge_types", "n_node_types")
 
 
 def _without_types(kwargs):
@@ -61,10 +61,9 @@ def test_from_edge_arrays_matches_reference(directed, with_attrs, seed):
     if with_attrs:
         kw["weights"] = rng.uniform(0.1, 3.0, 300).astype(np.float32)
         kw["edge_types"] = rng.integers(0, 4, 300).astype(np.int32)
-    _assert_same_graph(
-        Graph.from_edge_arrays(src, dst, **_without_types(kw)),
-        RefGraph.from_edge_arrays(src, dst, **kw),
-    )
+    port, ref = Graph.from_edge_arrays(src, dst, **kw), RefGraph.from_edge_arrays(src, dst, **kw)
+    _assert_same_graph(port, ref)
+    _assert_same_types(port, ref)
 
 
 def test_karate_rebuilt_from_arrays(karate):
@@ -150,3 +149,94 @@ def test_device_export_matches_reference(er_graph, with_alias):
         rtol=1e-5, atol=1e-7,
     )
 
+
+
+# ------------------------------------------------------------- edge types
+def _typed_arrays(seed, n=40, m=300, n_types=4):
+    """Arcs with self-loops and duplicates (with other types), and types."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, m), rng.integers(0, n, m),
+            rng.integers(0, n_types, m).astype(np.int32), rng)
+
+
+def _assert_same_types(port, ref):
+    assert port.has_edge_types == ref.has_edge_types
+    assert port.number_of_edge_types == ref.number_of_edge_types
+    if ref.edge_types is None:
+        assert port.edge_types is None and port.get_edge_type_names() is None
+        return
+    assert port.edge_types.dtype == ref.edge_types.dtype
+    assert port.edge_types.tobytes() == ref.edge_types.tobytes()
+    np.testing.assert_array_equal(port.get_edge_type_names(), ref.get_edge_type_names())
+
+
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("named", [False, True])
+@pytest.mark.parametrize("seed", [21, 22])
+def test_typed_from_edge_arrays_matches_reference(directed, weighted, named, seed):
+    """Types are symmetrized with the arcs; a duplicate arc keeps the type
+    of its first occurrence: row_ptr, col_idx and edge_types byte for byte."""
+    src, dst, types, rng = _typed_arrays(seed)
+    kw = dict(n_nodes=43, directed=directed, name="typed", edge_types=types)
+    if weighted:
+        kw["weights"] = rng.uniform(0.1, 3.0, len(src)).astype(np.float32)
+    if named:
+        kw["edge_type_names"] = ["a", "b", "c", "d"]
+    port = Graph.from_edge_arrays(src, dst, **kw)
+    ref = RefGraph.from_edge_arrays(src, dst, **kw)
+    _assert_same_graph(port, ref)
+    assert port.row_ptr.tobytes() == ref.row_ptr.tobytes()
+    assert port.col_idx.tobytes() == ref.col_idx.tobytes()
+    _assert_same_types(port, ref)
+
+
+def test_untyped_graph_has_no_types():
+    g = erdos_renyi(50, 100, seed=1)
+    assert not g.has_edge_types and g.number_of_edge_types == 0
+    assert g.get_edge_type_names() is None
+    assert g.device("cpu").edge_types is None
+
+
+def test_device_exports_edge_types():
+    src, dst, types, _ = _typed_arrays(23)
+    port = Graph.from_edge_arrays(src, dst, edge_types=types)
+    ref = RefGraph.from_edge_arrays(src, dst, edge_types=types)
+    tg = port.device("cpu", with_sources=True)
+    assert tg.edge_types.dtype == torch.int32
+    np.testing.assert_array_equal(tg.edge_types.numpy(), np.asarray(ref.device().edge_types))
+
+
+@pytest.mark.parametrize("directed", [False, True])
+def test_graph_methods_carry_edge_types(directed):
+    """Every way the port builds a graph from a typed one keeps the types as
+    the reference does: filter_edges, `&`, the holdouts, and the alignment
+    of a subgraph by node names."""
+    from embiggen_tpu.graph import holdouts as ref_holdouts
+    from embiggen_tpu_torch.graph import connected_holdout, random_holdout
+    from embiggen_tpu_torch.pipelines.evaluation import _align_subgraph
+
+    src, dst, types, rng = _typed_arrays(24, n=60, m=400)
+    kw = dict(n_nodes=60, directed=directed, edge_types=types,
+              edge_type_names=["a", "b", "c", "d"])
+    port, ref = Graph.from_edge_arrays(src, dst, **kw), RefGraph.from_edge_arrays(src, dst, **kw)
+    keep = rng.random(port.number_of_directed_edges) < 0.6
+    _assert_same_types(port.filter_edges(keep), ref.filter_edges(keep))
+    other_p, other_r = port.filter_edges(~keep), ref.filter_edges(~keep)
+    _assert_same_types(port & other_p, ref & other_r)
+    for split, ref_split in ((connected_holdout, ref_holdouts.connected_holdout),
+                             (random_holdout, ref_holdouts.random_holdout)):
+        for got, want in zip(split(port, random_state=5), ref_split(ref, random_state=5)):
+            _assert_same_graph(got, want)
+            _assert_same_types(got, want)
+    renamed = Graph.from_edge_arrays(
+        port.sources, port.col_idx, n_nodes=60, directed=True, directed_flag=directed,
+        edge_types=port.edge_types, edge_type_names=port.edge_type_names,
+        node_names=[f"node_{i}" for i in range(60)][::-1])
+    aligned = _align_subgraph(port, renamed)
+    # Node i of `renamed` is node 59 - i of `port`: each arc keeps its type.
+    keys = aligned.sources.astype(np.int64) * 60 + aligned.col_idx
+    pos = np.searchsorted(keys, (59 - renamed.sources.astype(np.int64)) * 60
+                          + (59 - renamed.col_idx))
+    np.testing.assert_array_equal(aligned.edge_types[pos], renamed.edge_types)
+    np.testing.assert_array_equal(aligned.edge_type_names, port.edge_type_names)

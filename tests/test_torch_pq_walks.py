@@ -276,7 +276,7 @@ def test_chip_smoke_pq_statistics():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
-    assert chip_smoke.pq_laws() is pq_laws
+    assert chip_smoke.laws_module("pq_laws") is pq_laws
     g = erdos_renyi(200, 800, seed=7)
     tg_ell, tg_csr = g.device("cpu", ell_cap=100), g.device("cpu")
     starts = torch.arange(6000, dtype=torch.int32) % 200
