@@ -74,15 +74,20 @@ the exit code is not 0:
      and K10 (the rejection walk) on small weighted and unweighted graphs,
      every move of whole walks against its exact step law
      (`tests/pq_laws.py`; K9 over whole rows, over rows subsampled at
-     cap 8, and at cap 34 on rows that span two 32-slot chunks; K10 at 8
-     and 16 tries), and on the slice graph at the slice shapes (K9 also on
+     cap 8, and at cap 34 on rows that span two 32-slot chunks, on rows of
+     exactly 32 and 33 slots, and after hubs whose over-cap rows are
+     unsorted; K10 at 8 and 16 tries), and on the slice graph at the slice
+     shapes (K9 also on
      the slice graph plus 256 hubs, whose rows exceed the cap of 100)
      against their plain versions: the first p/q step and the last binned
      by node degree and by blocks of node ids, the returns at each
-     position, and the row slots picked; K11 (the CBOW
+     position, and the row slots picked; K9's chain floor (the time of 256
+     walkers' walks, too few to contend for the card); K11 (the CBOW
      update) at the S5 flagship shapes and a D that is not a multiple of 4,
      with and without centre weights (sums rtol 1e-4 / atol 1e-5, counts
-     exactly, the tables after K4's combine atol 1e-5);
+     exactly, the tables after K4's combine atol 1e-5), and at its edges
+     (fewer walks than its persistent grid and more, not a multiple of it;
+     walks of one repeated node; window 1, one centre, one negative);
  12. S5: three CBOW steps on injected batches, card against CPU; then
      `embed_graph` of Node2Vec CBOW (return 2, explore 0.5, cap 100) on the
      slice graph at the S1 widths, 2 epochs, with K2, K9, K11 and K4's
@@ -115,8 +120,11 @@ the exit code is not 0:
  16. S6 quality: First-order LINE and Unstructured on the gate fixture,
      their edge AUROC at least the reference's less 0.03;
  17. with `--profile` only: K3's phase split (gather, scores, gradients)
-     at the flagship shapes, from clock64() stamps in a build with
-     EBT_PHASE_CLOCK; then steady steps of S1, of the GCN, of S5 and of S6
+     at the flagship shapes, K11's (gather, hidden rows, logits and
+     softmax, output and negative gradients, input gradients) and K9's (row
+     load, membership and weights, pick) at the S5 shapes, from clock64()
+     stamps in a build with EBT_PHASE_CLOCK; then steady steps of S1, of
+     the GCN, of S5 and of S6
      (Second-order LINE, TransE), one line per kernel name with its device
      ms per step: the port's kernels on CUDA events around each launch,
      PyTorch's own from torch.profiler.
@@ -518,18 +526,24 @@ def profiled(run, require_all=True):
     torch.profiler around `run()`. The profiler drops some of a session's
     kernel records in long processes (it kept 7 of 10 launches, or 19 of
     20, in runs that launched them all), so `device_ms` takes each kernel's
-    mean time over the events kept. With `require_all`, a session that kept
-    no event of a kernel it launched is run again, at most three times in
-    all."""
+    mean time over the events kept. It has also kept none of the last 20
+    launches of a session (a run of K14's LINE sampler at the end of
+    `device_ms`'s session), so with `require_all` each session ends with
+    padding work of PyTorch's own, and a session that kept no event of a
+    kernel it launched is run again, at most three times in all."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     from embiggen_tpu_torch.ops import _build
 
+    pad = torch.zeros(1 << 16, device="cuda")
     for _ in range(3):
         before = _build.launch_counts()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
+            torch.cuda.synchronize()
+            for _ in range(32 if require_all else 0):
+                pad.add_(1.0)
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         launched = {k: v - before[k] for k, v in _build.launch_counts().items()
@@ -636,6 +650,49 @@ def k3_phase_line(card, dev):
           + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
                       for k, v in shares.items()), flush=True)
     return dict(ms=ms, **shares)
+
+
+def s5_phase_lines(card, graph, dev):
+    """K11's and K9's phase splits at the S5 shapes: K11 on seeded random
+    tables and walks at the flagship widths (as `cbow_checks` times it), K9
+    on the slice graph's ELL table at cap 100 from uniform starts (as
+    `pq_walk_entries` times it); each share of block (K11) or walker (K9)
+    time from the PHASE_CLOCK build's stamps, and each share times the
+    kernel's time."""
+    from embiggen_tpu_torch.ops import cbow, walks
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.scatter import SkipGramSums
+
+    rng = np.random.default_rng(1)
+    tables = [torch.from_numpy(rng.standard_normal((N_NODES, DIM), dtype=np.float32)).to(dev)
+              for _ in range(2)]
+    bias = torch.from_numpy(3.0 * rng.standard_normal(N_NODES, dtype=np.float32)).to(dev)
+    walk_ids = torch.from_numpy(rng.integers(0, N_NODES, (BATCH, WALK), dtype=np.int32)).to(dev)
+    negs = torch.from_numpy(rng.integers(0, N_NODES, (BATCH, NEGS), dtype=np.int32)).to(dev)
+    args = (*tables, bias, walk_ids, negs, WINDOW, 6.0)
+    sums = SkipGramSums.zeros(N_NODES, DIM, dev)
+    out = {}
+    shares = cbow.phase_split(*args, sums)
+    ms = time_ms(lambda: cbow.cbow_update(*args, sums), 10)
+    out["cbow_update"] = dict(ms=ms, **shares)
+    del tables, bias, walk_ids, negs, sums, args
+    torch.cuda.empty_cache()
+    tg = graph.device(dev, ell_cap=ELL_CAP)
+    gen = torch.Generator().manual_seed(38)
+    starts = nce_negatives(tg, gen, (BATCH,), scale_free=False)
+    pq = (tg, starts, WALK, *PQ.values(), ELL_CAP, gen)
+    shares = walks.ell_phase_split(*pq)
+    ms = time_ms(lambda: walks.ell_walks(*pq), 10)
+    out["ell_walks"] = dict(ms=ms, **shares)
+    del tg, starts, pq
+    torch.cuda.empty_cache()
+    for name, split in out.items():
+        ms = split["ms"]
+        print(f"phase 17 {'K11' if name == 'cbow_update' else 'K9'} phase split on {card}: "
+              f"kernel {ms:.4f} ms; " + "; ".join(
+                  f"{k} {v:.4f} of {'block' if name == 'cbow_update' else 'walker'} time "
+                  f"= {v * ms:.4f} ms" for k, v in split.items() if k != "ms"), flush=True)
+    return out
 
 
 def print_profile(name, card, rows, step_ms, kept):
@@ -1144,20 +1201,21 @@ def quality_on_card(card, dev):
 
 def device_ms(calls, reps: int = 20) -> dict:
     """{counter: device milliseconds per call} of each wrapper in `calls`
-    ({counter: fn}, each fn one launch of that wrapper's kernel), from one
-    torch.profiler session over `reps` calls of each after a warm-up: the
-    kernel alone, where `time_ms` also times the wrapper's host work."""
+    ({counter: fn}, each fn one launch of that wrapper's kernel), from a
+    torch.profiler session per wrapper over `reps` calls after a warm-up:
+    the kernel alone, where `time_ms` also times the wrapper's host work."""
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-
-    def run():
-        for fn in calls.values():
+    out = {}
+    for k, fn in calls.items():
+        def run(fn=fn):
             for _ in range(reps):
                 fn()
-    events, _, kept = profiled(run)
-    return {k: sum(e.time_range.elapsed_us() for e in events if KERNEL_NAMES[k] in e.name)
-            / 1e3 / kept[k] for k in calls}
+        events, _, kept = profiled(run)
+        out[k] = sum(e.time_range.elapsed_us() for e in events
+                     if KERNEL_NAMES[k] in e.name) / 1e3 / kept[k]
+    return out
 
 
 def laws_module(name):
@@ -1206,6 +1264,28 @@ def pq_sampler_checks(erdos_renyi, dev):
                 w.cpu().numpy(), laws.Laws(g.row_ptr, g.col_idx, g.weights, rw, ew, n_tries=t),
                 200)
             err["rejection_walks"] = max(err["rejection_walks"], e)
+    # K9's edges: rows that end exactly at, and one slot past, its first
+    # round of 32-slot loads (cap 40); hub rows over the cap of 100, in
+    # random order, as the prev row of the move after a hub. Half the
+    # walkers start at the two long rows.
+    from embiggen_tpu_torch.graph import Graph
+
+    for weighted in (False, True):
+        for name, (src, dst, n), cap in (("rows of 32 and 33 slots", laws.rows_of_32_and_33(), 40),
+                                         ("over-cap prev rows", laws.two_hubs(), 100)):
+            g = Graph.from_edge_arrays(src, dst, n_nodes=n, directed=False)
+            if weighted:
+                g = dataclasses.replace(g, weights=laws.arc_weights(g.number_of_directed_edges))
+            tg = g.device(dev, ell_cap=cap, ell_seed=2)
+            starts = (torch.arange(200000, device=dev) % n).int()
+            starts[::2] = (torch.arange(100000, device=dev) % 2).int()
+            w = ell_walks(tg, starts, 8, *PQ.values(), cap, torch.Generator().manual_seed(cap))
+            ell = (tg.ell_cols.cpu().numpy(),
+                   None if tg.ell_w is None else tg.ell_w.cpu().numpy(), min(cap, tg.ell_cap))
+            p[f"K9 {name} weighted={weighted}"], e = laws.walks_chi2_p(
+                w.cpu().numpy(), laws.Laws(g.row_ptr, g.col_idx, g.weights, *PQ.values(),
+                                           ell=ell), n)
+            err["ell_walks"] = max(err["ell_walks"], e)
     failed = {k: v for k, v in p.items() if v < P_MIN}
     if failed:
         raise AssertionError(f"p/q sampler tests failed (p < {P_MIN}): {failed}")
@@ -1351,6 +1431,13 @@ def pq_walk_entries(graph, errs, dev):
             plain_ms=time_ms(lambda: plain(tg, starts, WALK, *PQ.values(), last, cuda_gen), 2),
             library_ms=None, **b)
         entries[name]["walk_steps_per_s"] = BATCH * (WALK - 1) / (entries[name]["ms"] / 1e3)
+        if name == "ell_walks":
+            # The floor of K9's dependent chain: 256 walkers, too few to
+            # contend for the card, each still takes its WALK - 1 steps one
+            # after another (each step's row load waits on the step before).
+            few = starts[:256].contiguous()
+            entries[name]["chain_ms"] = time_ms(
+                lambda: kernel(tg, few, WALK, *PQ.values(), last, gen), 10)
         del tg, w, prev, curr
         torch.cuda.empty_cache()
     return entries
@@ -1423,6 +1510,49 @@ def cbow_checks(dev):
                     + 8 * ((u_w + u_c) * d + 3 * u_c + u_w) + 4 * b, flops))
         del sums
     return entry, errs
+
+
+def cbow_edge_checks(dev):
+    """K11 at its edges against its plain version, with and without centre
+    weights (sums and loss to K3_SUMS_TOL, counts exactly): fewer walks
+    than the persistent grid's blocks, and more, not a multiple of them;
+    walks that repeat one node id at every position; window 1, one centre a
+    walk (L = 2w + 1), one negative, and all three. Returns the largest sums
+    error by case."""
+    from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
+    from embiggen_tpu_torch.ops.scatter import SkipGramSums
+
+    errs = {}
+    # (case, N, D, L, w, K, B)
+    cases = (("B 5", 300, 48, 20, 4, 7, 5), ("B 3001", 300, 48, 20, 4, 7, 3001),
+             ("repeated node", 300, 48, 20, 4, 7, 64), ("window 1", 300, 32, 12, 1, 5, 64),
+             ("one centre", 300, 30, 7, 3, 5, 64), ("K 1", 300, 32, 12, 3, 1, 64),
+             ("w 1, C 1, K 1", 300, 30, 3, 1, 1, 64))
+    for name, n, d, length, w, k, b in cases:
+        rng = np.random.default_rng(b + length)
+        tables = [torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+                  for _ in range(2)]
+        tables.append(torch.from_numpy(3.0 * rng.standard_normal(n, dtype=np.float32)).to(dev))
+        walks = torch.from_numpy(rng.integers(0, n, (b, length), dtype=np.int32)).to(dev)
+        if name == "repeated node":
+            walks = (torch.arange(b, device=dev, dtype=torch.int32) % 7)[:, None].expand(
+                b, length).contiguous()
+        negs = torch.from_numpy(rng.integers(0, n, (b, k), dtype=np.int32)).to(dev)
+        center_w = torch.from_numpy(rng.uniform(0, 2, (b, length)).astype(np.float32)).to(dev)
+        errs[name] = 0.0
+        for cw in (None, center_w):
+            sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
+            args = (*tables, walks, negs, w, 6.0)
+            check_close(f"K11 {name} loss", cbow_update(*args, sums, cw),
+                        cbow_update_plain(*args, want_sums, cw), **K3_SUMS_TOL)
+            for field in ("counts_w", "counts_c"):
+                check_close(f"K11 {name} {field}", getattr(sums, field),
+                            getattr(want_sums, field), 0.0, 0.0)
+            for field in ("sums_w", "sums_c", "sums_b"):
+                errs[name] = max(errs[name], check_close(
+                    f"K11 {name} {field}", getattr(sums, field), getattr(want_sums, field),
+                    **K3_SUMS_TOL))
+    return errs
 
 
 def cbow_injected_steps(small, dev):
@@ -1901,8 +2031,8 @@ def check_launches(path, counts, names, unused=()):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also K3's phase split, and profiles of steady S1, GCN, S5 "
-                             "and S6 steps")
+                        help="also K3's, K11's and K9's phase splits, and profiles of "
+                             "steady S1, GCN, S5 and S6 steps")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -2238,6 +2368,7 @@ def main() -> None:
     del hub
     new = pq_walk_entries(graph, pq_err, dev)
     new["cbow_update"], cbow_errs = cbow_checks(dev)
+    cbow_edge_errs = cbow_edge_checks(dev)
     torch.cuda.empty_cache()
     kernels.update(new)
     print(f"phase 11 K9-K11 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
@@ -2247,8 +2378,11 @@ def main() -> None:
               for k, v in new.items())
           + " | walk steps/s: " + "; ".join(
               f"{k} {new[k]['walk_steps_per_s']:.4g}" for k in ("ell_walks", "rejection_walks"))
+          + f" | K9's chain floor (256 walkers) {new['ell_walks']['chain_ms']:.4f} ms"
           + " | K11 sums / tables after the combine, max abs err by shape: "
           + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in cbow_errs.items())
+          + " | K11 edges, sums max abs err: "
+          + "; ".join(f"{k} {v:.3g}" for k, v in cbow_edge_errs.items())
           + " | p/q sampler p-values: " + "; ".join(f"{k} {v:.3g}" for k, v in pq_p.items()),
           flush=True)
 
@@ -2367,6 +2501,7 @@ def main() -> None:
     if args.profile:
         k3_phase_line(card, dev)
         torch.cuda.empty_cache()
+        s5_phase_lines(card, graph, dev)
         print_profile("S1", card, *profile(embedder_step(model, graph), PROFILE_STEPS))
         print_profile("GCN", card, *profile(gcn_step(gcn, graph), PROFILE_STEPS))
         print_profile("S5", card, *profile(embedder_step(s5_model, graph), PROFILE_STEPS))

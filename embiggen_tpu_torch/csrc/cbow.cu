@@ -24,17 +24,40 @@
 // the sums, as for K3. A walk reads L + (L - 2w) + K rows of D floats at
 // random places (about 65 KB at L 64, K 10, D 128) and adds as many rows
 // into the sums; its flops (the window sums, (L - 2w)(K + 1) dot products
-// and their gradients, about 0.6 MFLOP) are far below the fp32 rate.
+// and their gradients, about 0.6 MFLOP) are far below the fp32 rate. The
+// simple design (one block per walk, every product a loop of float4 reads
+// of shared memory) spent most of its time reading shared memory: about
+// 130,000 float4 reads a walk.
 //
-// The design, simple first: one block per walk. The walk's rows are read
-// once into shared memory (float4 when D % 4 == 0 and the tables are 16-byte
-// aligned, rows padded by 4 floats so the lanes' rows fall in different
-// banks); the hidden rows, the logits, the softmax gradients G and the
-// hidden gradients (in place over the output rows) stay there; the rows go
-// out as float4 reductions (red.global.add.v4.f32) into the sums, scalar
-// atomics when D % 4 != 0. No [B, L, D] gradient reaches device memory.
-// Float atomics add in no fixed order, so sums differ from run to run by
-// rounding.
+// The design:
+//   - persistent blocks (as many per SM as fit) loop over walks. A walk's
+//     rows sit in shared memory (rows padded by 4 floats, so that lanes
+//     reading different rows fall in different banks): its input rows, its
+//     centres' and negatives' output rows, and the hidden rows. They come
+//     as cp.async copies (16 bytes a copy when D % 4 == 0 and the tables
+//     are 16-byte aligned, else 4) that overlap the walk before: the next
+//     walk's ids as this walk starts, its input rows as soon as this walk's
+//     hidden rows exist, its output rows and biases once this walk's last
+//     phase has read them; every copy reads its ids from shared memory;
+//   - hidden rows and input gradients as running window sums: a thread
+//     owns a run of positions at 4 d and slides the window along it, about
+//     3 reads of shared memory per row it writes instead of 2w;
+//   - logits and softmax in one pass: 4 lanes per centre, each over a
+//     quarter of D, every lane holding all K + 1 partial dot products (the
+//     negatives' rows are read once per lane for all centres of its warp, a
+//     broadcast), summed by two shuffles; the 4 lanes then take the clip,
+//     the softmax and its gradients G straight from those sums;
+//   - gradients as register tiles: a thread owns kRowTile centres (their
+//     g_out and g_h; each negative row it reads serves all of them) or
+//     kNegTile negatives (their g_neg; each hidden row serves all of them)
+//     at 4 d; the hidden gradients go in place over the output rows;
+//   - the rows go out as float4 reductions (red.global.add.v4.f32) into the
+//     sums, scalar atomics when D % 4 != 0. Float atomics add in no fixed
+//     order, so sums differ from run to run by rounding.
+// With EBT_PHASE_CLOCK defined, thread 0 of each block adds up clock64()
+// cycles per phase (gather wait, hidden rows, logits and softmax, output
+// and negative gradients, input gradients with the reductions, and the
+// total) into clocks[block, 0..5].
 
 #include <cuda_runtime.h>
 
@@ -44,7 +67,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlices = 4;    // lanes per centre in the logit pass
+constexpr int kChunk = 12;    // logits per lane per pass over D
+constexpr int kRowTile = 8;   // centres per thread in the gradient pass
+constexpr int kNegTile = 4;   // negatives per thread in the gradient pass
 
+// Offsets in floats of the parts of dynamic shared memory. The rows are
+// written only by the copies and by the phases, at columns below 4 D4, so
+// the columns past D stay 0 from the first fill. The small per-walk parts
+// come twice, one for this walk and one for the next.
 struct Layout {
   int D4;     // float4 columns of a row: ceil(D / 4)
   int Dp;     // row stride: 4 D4 + 4
@@ -52,11 +83,9 @@ struct Layout {
   int out;    // [C] output rows of the centres; their hidden gradients later
   int neg;    // [K] output rows of the negatives
   int hid;    // [C] hidden rows
-  int G;      // [C, K + 1] logits, then their loss gradients
-  int out_b;  // [C] output biases of the centres
-  int neg_b;  // [K] output biases of the negatives
-  int cw;     // [C] centre weights
-  int ids;    // [L + K] int32 node ids: the walk, then the negatives
+  int G;      // [C, K + 1] clipped logits, then their loss gradients
+  int small;  // two copies of: out_b [C], neg_b [K], cw [C], ids [L + K]
+  int per;    // floats per copy of the small parts
   int loss;   // [kWarps] per-warp loss sums
   int total;
 };
@@ -71,11 +100,9 @@ __host__ __device__ Layout layout(int L, int K, int D, int window) {
   s.neg = s.out + C * s.Dp;
   s.hid = s.neg + K * s.Dp;
   s.G = s.hid + C * s.Dp;
-  s.out_b = s.G + C * (K + 1);
-  s.neg_b = s.out_b + C;
-  s.cw = s.neg_b + K;
-  s.ids = s.cw + C;
-  s.loss = s.ids + L + K;
+  s.small = s.G + C * (K + 1);
+  s.per = C + K + C + L + K;
+  s.loss = s.small + 2 * s.per;
   s.total = s.loss + kWarps;
   return s;
 }
@@ -93,13 +120,56 @@ struct Params {
   float* sums_b;
   float* counts_w;
   float* counts_c;
+  long long* clocks;
+  int64_t B;
   int L, K, D, window;
   bool vec;
   float clip;
 };
 
+// One walk's small parts in shared memory.
+struct Small {
+  float* out_b;
+  float* neg_b;
+  float* cw;
+  int32_t* ids;  // the walk, then the negatives
+};
+
+__device__ __forceinline__ Small small_parts(float* smem, const Layout& s, int C, int K,
+                                             int buf) {
+  float* base = smem + s.small + buf * s.per;
+  return Small{base, base + C, base + C + K, reinterpret_cast<int32_t*>(base + 2 * C + K)};
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most one of this thread's groups is in flight.
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float g, const float4& v) {
@@ -116,6 +186,24 @@ __device__ __forceinline__ void add4(float4& acc, const float4& v) {
   acc.w += v.w;
 }
 
+__device__ __forceinline__ void sub4(float4& acc, const float4& v) {
+  acc.x -= v.x;
+  acc.y -= v.y;
+  acc.z -= v.z;
+  acc.w -= v.w;
+}
+
+__device__ __forceinline__ float4 scale4(const float4& v, float a) {
+  return make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
 // Add v (columns 4 c4 .. 4 c4 + 3 of a row) into row `id` of `sums`.
 __device__ __forceinline__ void add_row4(const Params& p, float* sums, int64_t id, int c4,
                                          const float4& v) {
@@ -128,178 +216,394 @@ __device__ __forceinline__ void add_row4(const Params& p, float* sums, int64_t i
   }
 }
 
-// Columns 4 c4 .. 4 c4 + 3 of a table row, zero past D.
-__device__ __forceinline__ float4 load_cols(const Params& p, const float* row, int c4) {
-  if (p.vec) return ld4(row + 4 * c4);
-  float a[4];
-  for (int i = 0; i < 4; ++i) a[i] = 4 * c4 + i < p.D ? row[4 * c4 + i] : 0.f;
-  return make_float4(a[0], a[1], a[2], a[3]);
+// Start copying `rows` table rows into shared memory at `dst` (stride Dp):
+// row r is row id_of(r) of `table`.
+template <typename IdOf>
+__device__ void copy_rows(const Params& p, const Layout& s, const float* table, int rows,
+                          IdOf id_of, float* dst) {
+  const int tid = threadIdx.x;
+  if (p.vec) {
+#pragma unroll 4
+    for (int q = tid; q < rows * s.D4; q += kThreads) {
+      const int r = q / s.D4, c = q - r * s.D4;
+      cp_async16(dst + r * s.Dp + 4 * c, table + id_of(r) * p.D + 4 * c);
+    }
+  } else {
+    for (int q = tid; q < rows * p.D; q += kThreads) {
+      const int r = q / p.D, c = q - r * p.D;
+      cp_async4(dst + r * s.Dp + c, table + id_of(r) * p.D + c);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads) cbow_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int L = p.L, K = p.K, D = p.D, w = p.window, C = L - 2 * w, K1 = K + 1;
-  const Layout s = layout(L, K, D, w);
-  const int D4 = s.D4, Dp = s.Dp, tid = threadIdx.x;
-  const int64_t walk = blockIdx.x;
-  const float inv_2w = 1.f / static_cast<float>(2 * w);
-  int32_t* ids = reinterpret_cast<int32_t*>(smem + s.ids);
+// A walk's ids (the walk, then its negatives) and centre weights, copied
+// into `sm`: they need no other read first.
+__device__ void issue_ids(const Params& p, int64_t walk, const Small& sm) {
+  const int L = p.L, K = p.K, w = p.window, tid = threadIdx.x;
   for (int i = tid; i < L + K; i += kThreads) {
-    ids[i] = i < L ? p.walks[walk * L + i] : p.negs[walk * K + i - L];
+    cp_async4(sm.ids + i, i < L ? p.walks + walk * L + i : p.negs + walk * K + (i - L));
   }
-  __syncthreads();
-  for (int i = tid; i < C + K; i += kThreads) {
+  if (p.center_w != nullptr) {
+    for (int i = tid; i < L - 2 * w; i += kThreads) {
+      cp_async4(sm.cw + i, p.center_w + walk * L + w + i);
+    }
+  }
+}
+
+// A walk's input rows into the input region, at the ids in `sm`.
+__device__ void issue_inputs(const Params& p, const Layout& s, float* smem, const Small& sm) {
+  copy_rows(p, s, p.node_emb, p.L, [&](int r) { return static_cast<int64_t>(sm.ids[r]); },
+            smem + s.in);
+}
+
+// A walk's centres' and negatives' output rows and biases, at the ids in
+// `sm`.
+__device__ void issue_outputs(const Params& p, const Layout& s, float* smem, const Small& sm) {
+  const int L = p.L, K = p.K, w = p.window, C = L - 2 * w;
+  const int32_t* ids = sm.ids;
+  for (int i = threadIdx.x; i < C + K; i += kThreads) {
     if (i < C) {
-      smem[s.out_b + i] = p.out_bias[ids[w + i]];
-      smem[s.cw + i] = p.center_w == nullptr ? 1.f : p.center_w[walk * L + w + i];
+      cp_async4(sm.out_b + i, p.out_bias + ids[w + i]);
     } else {
-      smem[s.neg_b + i - C] = p.out_bias[ids[L + i - C]];
+      cp_async4(sm.neg_b + i - C, p.out_bias + ids[L + i - C]);
     }
   }
-  // The rows: the walk's input rows, the centres' output rows, the
-  // negatives' output rows.
-  for (int q = tid; q < (L + C + K) * D4; q += kThreads) {
-    const int r = q / D4, c4 = q - r * D4;
-    const float* src;
-    if (r < L) {
-      src = p.node_emb + static_cast<int64_t>(ids[r]) * D;
-    } else if (r < L + C) {
-      src = p.out_emb + static_cast<int64_t>(ids[w + r - L]) * D;
-    } else {
-      src = p.out_emb + static_cast<int64_t>(ids[L + r - L - C]) * D;
+  copy_rows(p, s, p.out_emb, C + K, [&](int r) {
+    return static_cast<int64_t>(r < C ? ids[w + r] : ids[L + r - C]);
+  }, smem + s.out);
+}
+
+// Hidden rows: h_l = (S_l - x_l) / 2w with S_l the sum of the input rows
+// l - w .. l + w, slid along a run of `seg` centres per thread.
+__device__ void hidden_pass(const Params& p, const Layout& s, float* smem) {
+  const int L = p.L, w = p.window, C = L - 2 * w, D4 = s.D4, Dp = s.Dp;
+  const float inv_2w = 1.f / static_cast<float>(2 * w);
+  const int seg = (C * D4 + kThreads - 1) / kThreads;
+  const int nseg = (C + seg - 1) / seg;
+  const float* x = smem + s.in;
+  float* hid = smem + s.hid;
+  for (int item = threadIdx.x; item < nseg * D4; item += kThreads) {
+    const int g = item / D4, c4 = item - g * D4;
+    const int l0 = w + g * seg, l1 = min(l0 + seg, L - w);
+    float4 S = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int m = l0 - w; m <= l0 + w; ++m) add4(S, ld4(x + m * Dp + 4 * c4));
+    for (int l = l0; l < l1; ++l) {
+      float4 h = S;
+      sub4(h, ld4(x + l * Dp + 4 * c4));
+      st4(hid + (l - w) * Dp + 4 * c4, scale4(h, inv_2w));
+      if (l + 1 < l1) {
+        add4(S, ld4(x + (l + w + 1) * Dp + 4 * c4));
+        sub4(S, ld4(x + (l - w) * Dp + 4 * c4));
+      }
     }
-    *reinterpret_cast<float4*>(smem + s.in + r * Dp + 4 * c4) = load_cols(p, src, c4);
   }
-  __syncthreads();
-  // Hidden rows: the window means of the input rows.
-  for (int q = tid; q < C * D4; q += kThreads) {
-    const int i = q / D4, c4 = q - i * D4, l = w + i;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int o = 1; o <= w; ++o) {
-      add4(acc, ld4(smem + s.in + (l - o) * Dp + 4 * c4));
-      add4(acc, ld4(smem + s.in + (l + o) * Dp + 4 * c4));
-    }
-    *reinterpret_cast<float4*>(smem + s.hid + i * Dp + 4 * c4) =
-        make_float4(acc.x * inv_2w, acc.y * inv_2w, acc.z * inv_2w, acc.w * inv_2w);
-  }
-  __syncthreads();
-  // Logits: centre i against its output row (j = 0) and the negatives.
-  for (int q = tid; q < C * K1; q += kThreads) {
-    const int i = q / K1, j = q - i * K1;
-    const float* h = smem + s.hid + i * Dp;
-    const float* o = j == 0 ? smem + s.out + i * Dp : smem + s.neg + (j - 1) * Dp;
-    float acc = 0.f;
-    for (int c4 = 0; c4 < D4; ++c4) {
-      const float4 a = ld4(h + 4 * c4), b = ld4(o + 4 * c4);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
-    smem[s.G + q] = acc + (j == 0 ? smem[s.out_b + i] : smem[s.neg_b + j - 1]);
-  }
-  __syncthreads();
-  // Sampled softmax per centre, on the clipped logits; the straight-through
-  // clip passes the gradient unscaled.
+}
+
+// Logits, softmax and their gradients G: kSlices lanes per centre, each
+// over the columns c4 = slice, slice + kSlices, ...; returns this thread's
+// share of the walk's loss.
+__device__ float logit_pass(const Params& p, const Layout& s, float* smem, const Small& sm) {
+  const int L = p.L, K = p.K, w = p.window, C = L - 2 * w, K1 = K + 1, D4 = s.D4,
+            Dp = s.Dp;
+  const int lane = threadIdx.x & 31;
+  const unsigned mask = 0xfu << (lane & ~(kSlices - 1));
+  const float* hid = smem + s.hid;
+  const float* out = smem + s.out;
+  const float* neg = smem + s.neg;
+  float* G = smem + s.G;
   float my_loss = 0.f;
-  for (int i = tid; i < C; i += kThreads) {
-    float* g = smem + s.G + i * K1;
-    float m = -p.clip;  // every clipped logit is at least this
-    for (int j = 0; j < K1; ++j) {
-      g[j] = fminf(fmaxf(g[j], -p.clip), p.clip);
-      m = fmaxf(m, g[j]);
+  // kThreads is a multiple of kSlices, so a centre's lanes iterate together.
+  for (int item = threadIdx.x; item < C * kSlices; item += kThreads) {
+    const int i = item / kSlices, slice = item - i * kSlices;
+    const float* h = hid + i * Dp;
+    for (int j0 = 0; j0 < K1; j0 += kChunk) {
+      float acc[kChunk];
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) acc[jj] = 0.f;
+      // Slice s reads columns 2s, 2s + 1, 2s + 2 kSlices, ...: a
+      // quarter-warp's 8 lanes (two centres, rows 4 banks apart) then touch
+      // 8 different 16-byte bank groups.
+      for (int c0 = 2 * slice; c0 < D4; c0 += 2 * kSlices) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c4 = c0 + e;
+          if (c4 >= D4) break;
+          const float4 a = ld4(h + 4 * c4);
+#pragma unroll
+          for (int jj = 0; jj < kChunk; ++jj) {
+            const int j = j0 + jj;
+            if (j < K1) {
+              const float* o = j == 0 ? out + i * Dp : neg + (j - 1) * Dp;
+              acc[jj] = dot4(a, ld4(o + 4 * c4), acc[jj]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+#pragma unroll
+        for (int o = 1; o < kSlices; o <<= 1) acc[jj] += __shfl_xor_sync(mask, acc[jj], o);
+        const int j = j0 + jj;
+        if (j < K1 && jj % kSlices == slice) {
+          const float z = acc[jj] + (j == 0 ? sm.out_b[i] : sm.neg_b[j - 1]);
+          G[i * K1 + j] = fminf(fmaxf(z, -p.clip), p.clip);
+        }
+      }
     }
+    __syncwarp(mask);
+    // Sampled softmax on the clipped logits; the straight-through clip
+    // passes the gradient unscaled.
+    float* g = G + i * K1;
+    float m = -p.clip;  // every clipped logit is at least this
+    for (int j = 0; j < K1; ++j) m = fmaxf(m, g[j]);
     float sum = 0.f;
     for (int j = 0; j < K1; ++j) sum += expf(g[j] - m);
-    const float lse = m + logf(sum), cw = smem[s.cw + i];
-    my_loss += (lse - g[0]) * cw;
-    for (int j = 0; j < K1; ++j) g[j] = cw * (expf(g[j] - lse) - (j == 0 ? 1.f : 0.f));
+    const float lse = m + logf(sum), cw = sm.cw[i];
+    const float z0 = g[0];
+    __syncwarp(mask);
+    if (slice == 0) my_loss += (lse - z0) * cw;
+    for (int j = slice; j < K1; j += kSlices) {
+      g[j] = cw * (expf(g[j] - lse) - (j == 0 ? 1.f : 0.f));
+    }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) my_loss += __shfl_xor_sync(0xffffffffu, my_loss, o);
-  if ((tid & 31) == 0) smem[s.loss + (tid >> 5)] = my_loss;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.f;
-    for (int i = 0; i < kWarps; ++i) total += smem[s.loss + i];
-    p.loss[walk] = total;
-  }
-  // Output and negative rows' gradients; the hidden gradients in place over
-  // the output rows (each thread reads and writes only its own columns).
+  return my_loss;
+}
+
+// Output and negative rows' gradients, and the hidden gradients in place
+// over the output rows (each thread reads and writes only its own columns
+// of its own centres); the biases' sums and the counts.
+__device__ void gradient_pass(const Params& p, const Layout& s, float* smem, const Small& sm) {
+  const int L = p.L, K = p.K, w = p.window, C = L - 2 * w, K1 = K + 1, D4 = s.D4,
+            Dp = s.Dp;
+  const float* hid = smem + s.hid;
+  float* out = smem + s.out;
+  const float* neg = smem + s.neg;
   const float* G = smem + s.G;
-  for (int q = tid; q < (C + K) * D4; q += kThreads) {
-    const int r = q / D4, c4 = q - r * D4;
-    if (r < C) {
-      const float* gi = G + r * K1;
-      float* o = smem + s.out + r * Dp + 4 * c4;
-      const float4 h = ld4(smem + s.hid + r * Dp + 4 * c4);
-      add_row4(p, p.sums_c, ids[w + r], c4,
-               make_float4(gi[0] * h.x, gi[0] * h.y, gi[0] * h.z, gi[0] * h.w));
-      float4 gh = make_float4(0.f, 0.f, 0.f, 0.f);
-      fma4(gh, gi[0], ld4(o));
-      for (int k = 0; k < K; ++k) fma4(gh, gi[k + 1], ld4(smem + s.neg + k * Dp + 4 * c4));
-      *reinterpret_cast<float4*>(o) = gh;
-    } else {
-      const int k = r - C;
-      float4 gn = make_float4(0.f, 0.f, 0.f, 0.f);
-      float gnb = 0.f;
-      for (int i = 0; i < C; ++i) {
-        const float g = G[i * K1 + k + 1];
-        fma4(gn, g, ld4(smem + s.hid + i * Dp + 4 * c4));
-        gnb += g;
+  const int row_groups = (C + kRowTile - 1) / kRowTile;
+  const int neg_groups = (K + kNegTile - 1) / kNegTile;
+  for (int item = threadIdx.x; item < (row_groups + neg_groups) * D4; item += kThreads) {
+    const int grp = item / D4, c4 = item - grp * D4;
+    if (grp < row_groups) {
+      const int i0 = grp * kRowTile;
+      float4 gh[kRowTile];
+#pragma unroll
+      for (int a = 0; a < kRowTile; ++a) {
+        const int i = i0 + a;
+        gh[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < C) {
+          const float g0 = G[i * K1];
+          fma4(gh[a], g0, ld4(out + i * Dp + 4 * c4));
+          add_row4(p, p.sums_c, sm.ids[w + i], c4, scale4(ld4(hid + i * Dp + 4 * c4), g0));
+        }
       }
-      const int64_t id = ids[L + k];
-      add_row4(p, p.sums_c, id, c4, gn);
-      if (c4 == 0) {
-        atomicAdd(p.sums_b + id, gnb);
-        atomicAdd(p.counts_c + id, 1.f);
+      for (int k = 0; k < K; ++k) {
+        const float4 nk = ld4(neg + k * Dp + 4 * c4);
+#pragma unroll
+        for (int a = 0; a < kRowTile; ++a) {
+          if (i0 + a < C) fma4(gh[a], G[(i0 + a) * K1 + k + 1], nk);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kRowTile; ++a) {
+        if (i0 + a < C) st4(out + (i0 + a) * Dp + 4 * c4, gh[a]);
+      }
+    } else {
+      const int k0 = (grp - row_groups) * kNegTile;
+      float4 gn[kNegTile];
+      float gnb[kNegTile];
+#pragma unroll
+      for (int a = 0; a < kNegTile; ++a) {
+        gn[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+        gnb[a] = 0.f;
+      }
+      for (int i = 0; i < C; ++i) {
+        const float4 h = ld4(hid + i * Dp + 4 * c4);
+#pragma unroll
+        for (int a = 0; a < kNegTile; ++a) {
+          // A slot past K reads another negative's finite gradient; dropped.
+          const float g = G[i * K1 + 1 + min(k0 + a, K - 1)];
+          fma4(gn[a], g, h);
+          gnb[a] += g;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kNegTile; ++a) {
+        const int k = k0 + a;
+        if (k >= K) break;
+        const int64_t id = sm.ids[L + k];
+        add_row4(p, p.sums_c, id, c4, gn[a]);
+        if (c4 == 0) {
+          atomicAdd(p.sums_b + id, gnb[a]);
+          atomicAdd(p.counts_c + id, 1.f);
+        }
       }
     }
   }
-  for (int m = tid; m < L; m += kThreads) {
-    const int64_t id = ids[m];
+  for (int m = threadIdx.x; m < L; m += kThreads) {
+    const int64_t id = sm.ids[m];
     if (m >= w && m < L - w) atomicAdd(p.sums_b + id, G[(m - w) * K1]);
     atomicAdd(p.counts_w + id, 1.f);
     atomicAdd(p.counts_c + id, 1.f);
   }
-  __syncthreads();
-  // Input rows' gradients: the hidden gradients of the centres whose window
-  // holds the position, over 2w.
-  for (int q = tid; q < L * D4; q += kThreads) {
-    const int m = q / D4, c4 = q - m * D4;
-    const int lo = m - w > w ? m - w : w;
-    const int hi = m + w < L - w - 1 ? m + w : L - w - 1;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    bool any = false;
-    for (int l = lo; l <= hi; ++l) {
-      if (l == m) continue;
-      add4(acc, ld4(smem + s.out + (l - w) * Dp + 4 * c4));
-      any = true;
+}
+
+// Input rows' gradients: the hidden gradients of the centres l with
+// 0 < |m - l| <= w, over 2w, as a window sum slid along a run of `seg`
+// positions per thread.
+__device__ void input_pass(const Params& p, const Layout& s, float* smem, const Small& sm) {
+  const int L = p.L, w = p.window, C = L - 2 * w, D4 = s.D4, Dp = s.Dp;
+  const float inv_2w = 1.f / static_cast<float>(2 * w);
+  const int seg = (L * D4 + kThreads - 1) / kThreads;
+  const int nseg = (L + seg - 1) / seg;
+  const float* gh = smem + s.out;  // g_h of centre l at row l - w
+  for (int item = threadIdx.x; item < nseg * D4; item += kThreads) {
+    const int g = item / D4, c4 = item - g * D4;
+    const int m0 = g * seg, m1 = min(m0 + seg, L);
+    // T = the sum of g_h over the centres in [m - w, m + w].
+    float4 T = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int l = max(m0 - w, w); l <= min(m0 + w, L - w - 1); ++l) {
+      add4(T, ld4(gh + (l - w) * Dp + 4 * c4));
     }
-    if (any) {
-      add_row4(p, p.sums_w, ids[m], c4,
-               make_float4(acc.x * inv_2w, acc.y * inv_2w, acc.z * inv_2w, acc.w * inv_2w));
+    for (int m = m0; m < m1; ++m) {
+      const int lo = max(m - w, w), hi = min(m + w, L - w - 1);
+      const bool centre = m >= w && m < L - w;
+      if (hi - lo + 1 - (centre ? 1 : 0) > 0) {
+        float4 v = T;
+        if (centre) sub4(v, ld4(gh + (m - w) * Dp + 4 * c4));
+        add_row4(p, p.sums_w, sm.ids[m], c4, scale4(v, inv_2w));
+      }
+      if (m + 1 < m1) {
+        const int in = m + w + 1, out = m - w;
+        if (in >= w && in < L - w) add4(T, ld4(gh + (in - w) * Dp + 4 * c4));
+        if (out >= w && out < L - w) sub4(T, ld4(gh + (out - w) * Dp + 4 * c4));
+      }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads) cbow_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = p.L, K = p.K, w = p.window, C = L - 2 * w;
+  const Layout s = layout(L, K, p.D, w);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* warp_loss = smem + s.loss;
+  // Everything starts at 0, the padding columns included; the centre
+  // weights stay 1 when there are none.
+  for (int i = tid; i < s.total; i += kThreads) smem[i] = 0.f;
+  __syncthreads();
+  if (p.center_w == nullptr) {
+    for (int buf = 0; buf < 2; ++buf) {
+      float* cw = small_parts(smem, s, C, K, buf).cw;
+      for (int i = tid; i < C; i += kThreads) cw[i] = 1.f;
+    }
+  }
+#ifdef EBT_PHASE_CLOCK
+  long long cycles[6] = {0, 0, 0, 0, 0, 0};
+#endif
+  // The copies come in three groups a walk: its ids and centre weights,
+  // issued at the start of the walk before it; its input rows, issued once
+  // those ids are in and the walk before has built its hidden rows; its
+  // output rows and biases, issued once the walk before is done.
+  if (static_cast<int64_t>(blockIdx.x) < p.B) {
+    const Small first = small_parts(smem, s, C, K, 0);
+    issue_ids(p, blockIdx.x, first);
+    cp_async_commit();
+    cp_async_wait0();
+    __syncthreads();
+    issue_inputs(p, s, smem, first);
+    cp_async_commit();
+    issue_outputs(p, s, smem, first);
+  }
+  cp_async_commit();
+  int it = 0;
+  for (int64_t walk = blockIdx.x; walk < p.B; walk += gridDim.x, ++it) {
+    const Small sm = small_parts(smem, s, C, K, it & 1);
+    const Small next_sm = small_parts(smem, s, C, K, (it + 1) & 1);
+    const int64_t next = walk + gridDim.x;
+#ifdef EBT_PHASE_CLOCK
+    const long long c0 = clock64();
+#endif
+    cp_async_wait1();  // this walk's input rows
+    __syncthreads();
+#ifdef EBT_PHASE_CLOCK
+    const long long c1 = clock64();
+#endif
+    if (next < p.B) issue_ids(p, next, next_sm);
+    cp_async_commit();
+    hidden_pass(p, s, smem);
+    __syncthreads();
+#ifdef EBT_PHASE_CLOCK
+    const long long c2 = clock64();
+#endif
+    cp_async_wait0();  // this walk's output rows, the next walk's ids
+    __syncthreads();
+    if (next < p.B) issue_inputs(p, s, smem, next_sm);
+    cp_async_commit();
+#ifdef EBT_PHASE_CLOCK
+    const long long c3 = clock64();
+#endif
+    float my_loss = logit_pass(p, s, smem, sm);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) my_loss += __shfl_xor_sync(0xffffffffu, my_loss, o);
+    if (lane == 0) warp_loss[warp] = my_loss;
+    __syncthreads();
+#ifdef EBT_PHASE_CLOCK
+    const long long c4 = clock64();
+#endif
+    if (tid == 0) {
+      float total = 0.f;
+      for (int i = 0; i < kWarps; ++i) total += warp_loss[i];
+      p.loss[walk] = total;
+    }
+    gradient_pass(p, s, smem, sm);
+    __syncthreads();
+#ifdef EBT_PHASE_CLOCK
+    const long long c5 = clock64();
+#endif
+    input_pass(p, s, smem, sm);
+    __syncthreads();
+#ifdef EBT_PHASE_CLOCK
+    const long long c6 = clock64();
+#endif
+    if (next < p.B) issue_outputs(p, s, smem, next_sm);
+    cp_async_commit();
+#ifdef EBT_PHASE_CLOCK
+    const long long c7 = clock64();
+    cycles[0] += (c1 - c0) + (c3 - c2) + (c7 - c6);
+    cycles[1] += c2 - c1;
+    cycles[2] += c4 - c3;
+    cycles[3] += c5 - c4;
+    cycles[4] += c6 - c5;
+    cycles[5] += c7 - c0;
+#endif
+  }
+  cp_async_wait0();
+#ifdef EBT_PHASE_CLOCK
+  if (tid == 0) {
+    for (int i = 0; i < 6; ++i) p.clocks[6 * static_cast<int64_t>(blockIdx.x) + i] = cycles[i];
+  }
+#endif
 }
 
 }  // namespace
 
 extern "C" {
 
-// One block of kThreads per walk; a shape whose walk does not fit a block's
-// shared memory is an invalid-value error, returned like a launch error.
+// The grid is min(B, blocks per SM x SMs) persistent blocks, as many per
+// SM as fit; a shape whose walk does not fit a block's shared memory is an
+// invalid-value error, returned like a launch error.
 int ebt_cbow_update(const void* node_emb, const void* out_emb, const void* out_bias,
                     const void* walks, const void* negs, const void* center_w, void* loss,
                     void* sums_w, void* sums_c, void* sums_b, void* counts_w,
-                    void* counts_c, long long B, int L, int K, int D, int window,
+                    void* counts_c, void* clocks, long long B, int L, int K, int D, int window,
                     float clip, void* stream) {
   if (B == 0) return 0;
   if (window < 1 || L <= 2 * window || K < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, smem_max = 0;
+  int device = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
@@ -308,19 +612,27 @@ int ebt_cbow_update(const void* node_emb, const void* out_emb, const void* out_b
   if (smem > static_cast<size_t>(smem_max)) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(cbow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
+  int fit = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, cbow_kernel, kThreads, smem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Params p{static_cast<const float*>(node_emb), static_cast<const float*>(out_emb),
            static_cast<const float*>(out_bias), static_cast<const int32_t*>(walks),
            static_cast<const int32_t*>(negs), static_cast<const float*>(center_w),
            static_cast<float*>(loss), static_cast<float*>(sums_w), static_cast<float*>(sums_c),
            static_cast<float*>(sums_b), static_cast<float*>(counts_w),
-           static_cast<float*>(counts_c), L, K, D, window, false, clip};
-  // float4 loads and float4 atomics need every row 16-byte aligned.
+           static_cast<float*>(counts_c), static_cast<long long*>(clocks), B, L, K, D, window,
+           false, clip};
+  // 16-byte copies and float4 atomics need every row 16-byte aligned.
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(node_emb) | reinterpret_cast<uintptr_t>(out_emb) |
       reinterpret_cast<uintptr_t>(sums_w) | reinterpret_cast<uintptr_t>(sums_c);
   p.vec = D % 4 == 0 && align % 16 == 0;
-  cbow_kernel<<<static_cast<unsigned>(B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const long long grid =
+      B < static_cast<long long>(fit) * sms ? B : static_cast<long long>(fit) * sms;
+  cbow_kernel<<<static_cast<unsigned>(grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ library that is loaded with ctypes. Nothing here runs at import: the first
 launch builds the library, and `build()` does so explicitly. The library's
 name carries a hash of the sources, flags and defines, so an edited source is
 rebuilt and never served stale. A variant built with extra defines (such as
-PHASE_CLOCK, which compiles in K3's per-phase clock stamps) is a library of
+PHASE_CLOCK, which compiles in per-phase clock stamps) is a library of
 its own beside the default one.
 
 Every wrapper dispatches on the device of the tensors it is given: a CPU
@@ -35,8 +35,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Compiles in clock64() stamps per phase of K3 (`csrc/skipgram.cu`), written
-# to the buffer its launcher takes; without it that argument is ignored.
+# Compiles in clock64() stamps per phase of K3 (`csrc/skipgram.cu`), K9
+# (`csrc/walks2.cu`) and K11 (`csrc/cbow.cu`), written to the buffer each
+# launcher takes; without it that argument is ignored.
 PHASE_CLOCK = ("-DEBT_PHASE_CLOCK",)
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -59,10 +60,10 @@ _SIGNATURES = {
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_ell_walks": (
-        (_P, _P, _I32, _I32, _P, _P, _I64, _I32, _F32, _F32, _U64, _U32, _P), _I32),
+        (_P, _P, _I32, _I32, _P, _P, _I64, _I32, _F32, _F32, _U64, _U32, _P, _P), _I32),
     "ebt_rejection_walks": (
         (_P,) * 6 + (_I64, _I32, _F32, _F32, _I32, _U64, _U32, _P), _I32),
-    "ebt_cbow_update": ((_P,) * 12 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
+    "ebt_cbow_update": ((_P,) * 13 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_siamese_batch": (
         (_P, _P, _P, _P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U32, _P), _I32),
     "ebt_line_batch": (
@@ -233,6 +234,13 @@ def check(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}.")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous.")
+
+
+def clock_shares(clocks: torch.Tensor, phases: Tuple[str, ...]) -> Dict[str, float]:
+    """{phase: share of the total} from a PHASE_CLOCK launch's cycles
+    [rows, len(phases) + 1], the last column each row's total."""
+    total = clocks.sum(0).double().cpu()
+    return {name: float(total[i] / total[-1]) for i, name in enumerate(phases)}
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -24,7 +24,7 @@ independently, and scatters them with `index_add_`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,9 @@ import torch.nn.functional as F
 from . import _build
 from .scatter import SkipGramSums
 from .skipgram import Grads, _st_clip
+
+# K11's phases, as its PHASE_CLOCK build stamps them (`phase_split`).
+PHASES = ("gather", "hidden", "logits_softmax", "out_neg_gradients", "input_gradients")
 
 
 def cbow_grads_plain(
@@ -105,25 +108,11 @@ def cbow_update_plain(
     return loss
 
 
-def cbow_update(
-    node_embedding: torch.Tensor,
-    output_embedding: torch.Tensor,
-    output_bias: torch.Tensor,
-    walks: torch.Tensor,
-    negs: torch.Tensor,
-    window_size: int,
-    clipping_value: float,
-    sums: SkipGramSums,
-    center_w: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Add one CBOW step's gradient rows into `sums` (and its counts);
-    returns the loss sum. K11 on CUDA tensors, the plain version on CPU
-    tensors."""
-    if not _build.is_cuda(walks):
-        return cbow_update_plain(
-            node_embedding, output_embedding, output_bias, walks, negs,
-            window_size, clipping_value, sums, center_w,
-        )
+def _launch(counter, node_embedding, output_embedding, output_bias, walks, negs,
+            window_size, clipping_value, sums: SkipGramSums, center_w, clocks=None,
+            defines=()):
+    """Check the inputs, launch K11 once into `sums`, and return the
+    per-walk losses [B]."""
     dev = walks.device
     n, d = node_embedding.shape
     b, length = walks.shape
@@ -145,10 +134,47 @@ def cbow_update(
     sums.check(n, d, dev)
     loss = torch.empty((b,), dtype=torch.float32, device=dev)
     _build.launch(
-        "cbow_update", "ebt_cbow_update", dev,
+        counter, "ebt_cbow_update", dev,
         node_embedding.data_ptr(), output_embedding.data_ptr(),
         output_bias.data_ptr(), walks.data_ptr(), negs.data_ptr(),
         _build.ptr(center_w), loss.data_ptr(), *map(_build.ptr, sums.buffers()),
-        b, length, k, d, window_size, float(clipping_value),
+        _build.ptr(clocks), b, length, k, d, window_size, float(clipping_value),
+        defines=defines,
     )
-    return loss.sum()
+    return loss
+
+
+def cbow_update(
+    node_embedding: torch.Tensor,
+    output_embedding: torch.Tensor,
+    output_bias: torch.Tensor,
+    walks: torch.Tensor,
+    negs: torch.Tensor,
+    window_size: int,
+    clipping_value: float,
+    sums: SkipGramSums,
+    center_w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Add one CBOW step's gradient rows into `sums` (and its counts);
+    returns the loss sum. K11 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if not _build.is_cuda(walks):
+        return cbow_update_plain(
+            node_embedding, output_embedding, output_bias, walks, negs,
+            window_size, clipping_value, sums, center_w,
+        )
+    return _launch("cbow_update", node_embedding, output_embedding, output_bias, walks,
+                   negs, window_size, clipping_value, sums, center_w).sum()
+
+
+def phase_split(node_embedding, output_embedding, output_bias, walks, negs,
+                window_size, clipping_value, sums: SkipGramSums,
+                center_w=None) -> Dict[str, float]:
+    """Share of K11's block time in each phase (PHASES), from the clock64()
+    stamps of the `_build.PHASE_CLOCK` build, summed over the blocks of one
+    launch into `sums` on CUDA tensors. The launch is counted nowhere."""
+    clocks = torch.zeros((walks.shape[0], len(PHASES) + 1), dtype=torch.int64,
+                         device=walks.device)
+    _launch(None, node_embedding, output_embedding, output_bias, walks, negs, window_size,
+            clipping_value, sums, center_w, clocks=clocks, defines=_build.PHASE_CLOCK)
+    return _build.clock_shares(clocks, PHASES)

@@ -188,5 +188,4 @@ def phase_split(node_embedding, context_embedding, context_bias, walks, negs,
     _launch(None, node_embedding, context_embedding, context_bias, walks, negs,
             window_size, clipping_value, center_w, sums, clocks=clocks,
             defines=_build.PHASE_CLOCK)
-    total = clocks.sum(0).double().cpu()
-    return {name: float(total[i] / total[3]) for i, name in enumerate(PHASES)}
+    return _build.clock_shares(clocks, PHASES)

@@ -31,12 +31,15 @@ Arc membership is a lower-bound search in the sorted CSR row: kernel K5
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..graph.graph import TorchGraph
 from . import _build
+
+# K9's phases, as its PHASE_CLOCK build stamps them (`ell_phase_split`).
+ELL_PHASES = ("row_load", "membership_weights", "pick")
 
 
 def _uniform_offset(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
@@ -296,23 +299,10 @@ def exact_walks_plain(
         tg, starts, walk_length, generator)
 
 
-def ell_walks(
-    tg: TorchGraph, starts: torch.Tensor, walk_length: int,
-    return_weight: float, explore_weight: float, cap: int,
-    generator: torch.Generator,
-) -> torch.Tensor:
-    """[B, walk_length] int32 p/q walks over the graph's ELL table, with
-    candidates capped at min(cap, ell_cap). Kernel K9 on a CUDA graph, the
-    plain version on a CPU graph. K9 holds one warp's two rows and CDF in
-    shared memory, 12 bytes a slot, so its rows may be up to about 19,000
-    slots wide on the H100."""
-    if tg.ell_cols is None:
-        raise ValueError("ell_walks needs a graph exported with ell_cap.")
-    if walk_length < 1:
-        raise ValueError(f"walk_length must be positive, got {walk_length}.")
-    if not _build.is_cuda(tg.col_idx):
-        return ell_walks_plain(tg, starts, walk_length, return_weight,
-                               explore_weight, cap, generator)
+def _launch_ell(counter, tg: TorchGraph, starts: torch.Tensor, walk_length: int,
+                return_weight: float, explore_weight: float, cap: int,
+                generator: torch.Generator, clocks=None, defines=()) -> torch.Tensor:
+    """Check the inputs and launch K9 once; returns the walks."""
     dev = tg.device
     b = starts.shape[0]
     _build.check(starts, "starts", torch.int32, (b,), dev)
@@ -321,12 +311,47 @@ def ell_walks(
     walks = torch.empty((b, walk_length), dtype=torch.int32, device=dev)
     seed, offset = _build.draw_seed(generator)
     _build.launch(
-        "ell_walks", "ebt_ell_walks", dev, tg.ell_cols.data_ptr(),
+        counter, "ebt_ell_walks", dev, tg.ell_cols.data_ptr(),
         _build.ptr(tg.ell_w), tg.ell_cap, min(cap, tg.ell_cap), starts.data_ptr(),
         walks.data_ptr(), b, walk_length, float(return_weight),
-        float(explore_weight), seed, offset,
+        float(explore_weight), seed, offset, _build.ptr(clocks), defines=defines,
     )
     return walks
+
+
+def ell_walks(
+    tg: TorchGraph, starts: torch.Tensor, walk_length: int,
+    return_weight: float, explore_weight: float, cap: int,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """[B, walk_length] int32 p/q walks over the graph's ELL table, with
+    candidates capped at min(cap, ell_cap). Kernel K9 on a CUDA graph, the
+    plain version on a CPU graph. K9 holds a walker's two rows in shared
+    memory, and its row of arc weights when the graph is weighted: 8 bytes
+    a slot (12 weighted), so its rows may be up to about 29,000 slots wide
+    (19,000 weighted) on the H100."""
+    if tg.ell_cols is None:
+        raise ValueError("ell_walks needs a graph exported with ell_cap.")
+    if walk_length < 1:
+        raise ValueError(f"walk_length must be positive, got {walk_length}.")
+    if not _build.is_cuda(tg.col_idx):
+        return ell_walks_plain(tg, starts, walk_length, return_weight,
+                               explore_weight, cap, generator)
+    return _launch_ell("ell_walks", tg, starts, walk_length, return_weight,
+                       explore_weight, cap, generator)
+
+
+def ell_phase_split(tg: TorchGraph, starts: torch.Tensor, walk_length: int,
+                    return_weight: float, explore_weight: float, cap: int,
+                    generator: torch.Generator) -> Dict[str, float]:
+    """Share of K9's walker time in each phase (ELL_PHASES), from the
+    clock64() stamps of the `_build.PHASE_CLOCK` build, summed over the
+    walkers of one launch on a CUDA graph. The launch is counted nowhere."""
+    clocks = torch.zeros((starts.shape[0], len(ELL_PHASES) + 1), dtype=torch.int64,
+                         device=starts.device)
+    _launch_ell(None, tg, starts, walk_length, return_weight, explore_weight, cap,
+                generator, clocks=clocks, defines=_build.PHASE_CLOCK)
+    return _build.clock_shares(clocks, ELL_PHASES)
 
 
 def rejection_walks(

@@ -50,6 +50,39 @@ def rejection_law(cands, q, prev, members, rw, ew, n_tries):
     return law
 
 
+def rows_of_32_and_33():
+    """(src, dst, n) of an undirected graph where node 0 has 32 neighbours
+    and node 1 has 33, so at cap 40 (ell_cap 33) node 0's ELL row fills
+    K9's first 32-slot round of loads and ends on padding, and node 1's
+    takes a second round; a ring and a few random edges join the others."""
+    rng = np.random.default_rng(8)
+    n = 120
+    src = np.concatenate([np.zeros(32, int), np.ones(33, int), np.arange(2, n),
+                          rng.integers(35, n, 60)])
+    dst = np.concatenate([np.arange(2, 34), np.arange(2, 35), np.r_[np.arange(3, n), 2],
+                          rng.integers(35, n, 60)])
+    return src, dst, n
+
+
+def two_hubs():
+    """(src, dst, n) of an undirected graph with hubs 0 and 1 of about 150
+    and 120 neighbours (60 shared) over a ring of 400, so at cap 100 their
+    ELL rows are random subsamples in random order."""
+    rng = np.random.default_rng(5)
+    n = 400
+    a = rng.choice(np.arange(2, n), 150, replace=False)
+    b = np.concatenate([a[:60], rng.choice(np.setdiff1d(np.arange(2, n), a), 60,
+                                           replace=False)])
+    ring = np.arange(n)
+    return (np.concatenate([ring, np.zeros(150, int), np.ones(120, int), [0]]),
+            np.concatenate([(ring + 1) % n, a, b, [1]]), n)
+
+
+def arc_weights(n_arcs, seed=0):
+    """Seeded positive arc weights in [0.25, 1.25)."""
+    return (0.25 + np.random.default_rng(seed).random(n_arcs)).astype(np.float32)
+
+
 def n_tries_for(rw, ew):
     ratio = max(rw, 1.0, ew) / min(rw, 1.0, ew)
     return 8 if ratio <= 4.0 else 16

@@ -34,7 +34,9 @@ from embiggen_tpu_torch.ops.walks import (
 from batch_laws import (
     arc_ids, exact_p, line_negative_law_by_source, rows_p, siamese_counts,
 )
-from pq_laws import Laws, n_tries_for, walks_chi2_p
+from pq_laws import (
+    Laws, arc_weights, n_tries_for, rows_of_32_and_33, two_hubs, walks_chi2_p,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -382,6 +384,53 @@ def test_ell_walks_kernel_wide_rows(dev):
     assert walks_chi2_p(w.cpu().numpy(), _ell_laws(g, tg, 2.0, 0.5, 1100), n)[0] >= 1e-3
 
 
+def _law_graph(edges, weighted):
+    """The undirected graph of `edges` ((src, dst, n) from `pq_laws`), with
+    seeded arc weights when `weighted`."""
+    import dataclasses
+
+    src, dst, n = edges
+    g = Graph.from_edge_arrays(src, dst, n_nodes=n, directed=False)
+    if weighted:
+        g = dataclasses.replace(g, weights=arc_weights(g.number_of_directed_edges))
+    return g
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_ell_walks_kernel_rows_of_32_and_33_slots(dev, weighted):
+    """K9 against the exact law where rows end exactly at, and one slot
+    past, its first round of loads (and where a row's 33 candidates take
+    two rounds of weights at 8 lanes a walker); half the walkers start at
+    the two long rows."""
+    g = _law_graph(rows_of_32_and_33(), weighted)
+    tg = g.device(dev, ell_cap=40)
+    assert tg.ell_cap == 33
+    n = g.number_of_nodes
+    starts = (torch.arange(200000, device=dev) % n).int()
+    starts[::2] = (torch.arange(100000, device=dev) % 2).int()
+    before = _build.launch_counts()["ell_walks"]
+    w = ell_walks(tg, starts, 8, 2.0, 0.5, 40, torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ell_walks"] == before + 1
+    assert walks_chi2_p(w.cpu().numpy(), _ell_laws(g, tg, 2.0, 0.5, 40), n)[0] >= 1e-3
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_ell_walks_kernel_over_cap_prev_rows(dev, weighted):
+    """Half the walkers start at a hub whose ELL row is an unsorted
+    subsample, so their second move tests membership in an unsorted prev
+    row: every move against the exact law."""
+    g = _law_graph(two_hubs(), weighted)
+    tg = g.device(dev, ell_cap=100, ell_seed=2)
+    cols = tg.ell_cols.cpu().numpy()
+    assert tg.ell_cap == 100 and (np.diff(cols[0]) < 0).any() and (np.diff(cols[1]) < 0).any()
+    n = g.number_of_nodes
+    starts = (torch.arange(200000, device=dev) % n).int()
+    starts[::2] = (torch.arange(100000, device=dev) % 2).int()
+    w = ell_walks(tg, starts, 6, 2.0, 0.5, 100, torch.Generator().manual_seed(4))
+    assert walks_chi2_p(w.cpu().numpy(), _ell_laws(g, tg, 2.0, 0.5, 100), n)[0] >= 1e-3
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("rw, ew", [(2.0, 0.5), (0.25, 4.0)])
 def test_rejection_walks_kernel_matches_its_law(dev, weighted, rw, ew):
@@ -399,14 +448,9 @@ def test_rejection_walks_kernel_matches_its_law(dev, weighted, rw, ew):
     assert walks_chi2_p(w.cpu().numpy(), laws, 200)[0] >= 1e-3
 
 
-@pytest.mark.parametrize("with_center_w", [False, True])
-@pytest.mark.parametrize("n, d, length, window, k", [
-    (300, 48, 20, 4, 7), (300, 30, 12, 3, 5), (60, 16, 12, 1, 5)])
-def test_cbow_kernel_matches_plain(dev, with_center_w, n, d, length, window, k):
+def _cbow_against_plain(dev, x, n, d, window):
     """K11's sums and counts against its plain version's (autograd
-    gradients added with index_add_), then K4's combine on CBOW's tables;
-    n 60 makes the atomics collide."""
-    x = _skipgram_inputs(dev, n, d, 64, length, k, with_center_w, seed=d)
+    gradients added with index_add_), then K4's combine on CBOW's tables."""
     args = (*x["tables"], x["walks"], x["negs"], window, 6.0)
     sums, want_sums = SkipGramSums.zeros(n, d, dev), SkipGramSums.zeros(n, d, dev)
     before = _build.launch_counts()["cbow_update"]
@@ -427,6 +471,43 @@ def test_cbow_kernel_matches_plain(dev, with_center_w, n, d, length, window, k):
     skipgram_mean_combine_plain(*want_t, want_sums, 0.05)
     for a, w in zip(got_t, want_t):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("n, d, length, window, k", [
+    (300, 48, 20, 4, 7), (300, 30, 12, 3, 5), (60, 16, 12, 1, 5)])
+def test_cbow_kernel_matches_plain(dev, with_center_w, n, d, length, window, k):
+    """K11 against its plain version; n 60 makes the atomics collide."""
+    x = _skipgram_inputs(dev, n, d, 64, length, k, with_center_w, seed=d)
+    _cbow_against_plain(dev, x, n, d, window)
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("b", [5, 1000, 3001])
+def test_cbow_kernel_batches_around_the_persistent_grid(dev, with_center_w, b):
+    """Fewer walks than the persistent grid's blocks (at this shape, 8 a SM
+    fit), and more walks than blocks, not a multiple of them."""
+    x = _skipgram_inputs(dev, 300, 48, b, 20, 7, with_center_w, seed=b)
+    _cbow_against_plain(dev, x, 300, 48, 4)
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+def test_cbow_kernel_walks_of_one_repeated_node(dev, with_center_w):
+    """Every walk repeats one node id at every position, so all of a walk's
+    input, output and input-gradient rows add into one row of the sums."""
+    x = _skipgram_inputs(dev, 300, 48, 64, 20, 7, with_center_w, seed=9)
+    x["walks"] = (torch.arange(64, device=dev, dtype=torch.int32) % 7)[:, None].expand(
+        64, 20).contiguous()
+    _cbow_against_plain(dev, x, 300, 48, 4)
+
+
+@pytest.mark.parametrize("with_center_w", [False, True])
+@pytest.mark.parametrize("d, length, window, k", [
+    (32, 12, 1, 5), (30, 7, 3, 5), (32, 12, 3, 1), (30, 3, 1, 1)])
+def test_cbow_kernel_edge_shapes(dev, with_center_w, d, length, window, k):
+    """Window 1; one centre a walk (L = 2w + 1); one negative; and all three."""
+    x = _skipgram_inputs(dev, 300, d, 64, length, k, with_center_w, seed=length + k)
+    _cbow_against_plain(dev, x, 300, d, window)
 
 
 @pytest.mark.parametrize("pq", [True, False])

@@ -81,6 +81,35 @@ def test_no_ell_without_cap(karate):
     assert tg.ell_cols is None and tg.ell_w is None and tg.ell_cap == 0
 
 
+@pytest.mark.parametrize("package", ["port", "jax"])
+@pytest.mark.parametrize("which", ["karate", "weighted er", "hubs"])
+@pytest.mark.parametrize("cap", [4, 8, 100])
+def test_ell_rows_keep_the_order_k9_searches(karate, er_graph, package, which, cap):
+    """The ELL order K9 relies on, in both packages' exports: a row of
+    degree up to the cap holds its neighbours ascending, then -1 padding
+    only (K9 searches it, and reads a row only up to its first padding
+    slot); an over-cap row holds cap distinct neighbours and no padding."""
+    ref = {"karate": karate, "weighted er": er_graph, "hubs": _hub_graph()}[which]
+    if package == "port":
+        cols = _port(ref).device("cpu", ell_cap=cap, ell_seed=1).ell_cols.numpy()
+    else:
+        cols = np.asarray(ref.device(ell_cap=cap, ell_seed=1).ell_cols)
+    width = cols.shape[1]
+    assert width == min(cap, int(ref.degrees.max()))
+    saw_over = False
+    for node in range(ref.number_of_nodes):
+        row = cols[node]
+        nbrs = ref.col_idx[ref.row_ptr[node]:ref.row_ptr[node + 1]]
+        if len(nbrs) <= width:
+            np.testing.assert_array_equal(row[:len(nbrs)], np.sort(nbrs))
+            assert (row[len(nbrs):] == -1).all()
+        else:
+            saw_over = True
+            assert (row >= 0).all() and len(np.unique(row)) == width
+            assert np.isin(row, nbrs).all()
+    assert saw_over == (int(ref.degrees.max()) > cap)
+
+
 # --------------------------------------------------- one step, in distribution
 def _dense(g, cands, probs):
     p = np.zeros(g.number_of_nodes)

@@ -231,9 +231,41 @@ def test_sums_check_shapes():
                      sums.counts_c).check(60, 16, torch.device("cpu"))
 
 
-def test_phase_clock_build_is_its_own_library():
-    """The clock-stamped build of the kernels never replaces the default one."""
-    from embiggen_tpu_torch.ops import _build
+@pytest.mark.parametrize("kernel", ["K3", "K11", "K9"])
+def test_phase_clock_build_is_its_own_library(monkeypatch, kernel):
+    """The clock-stamped build of the kernels never replaces the default one:
+    each kernel's `phase_split` launches from the PHASE_CLOCK library, counted
+    nowhere, with a clocks buffer; its wrapper from the default library."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops import _build, cbow, skipgram, walks
 
     assert _build.library_path() != _build.library_path(_build.PHASE_CLOCK)
     assert _build.library_path() == _build.library_path(())
+    calls = []
+    monkeypatch.setattr(_build, "is_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "launch", lambda counter, fn, dev, *args, defines=():
+                        calls.append((counter, fn, args, defines)))
+    x = {k: torch.from_numpy(v) for k, v in _inputs(4).items()}
+    tables = (x["node_embedding"], x["context_embedding"], x["context_bias"])
+    sums = SkipGramSums.zeros(60, 16, "cpu")
+    if kernel == "K9":
+        tg = erdos_renyi(60, 300, seed=1).device("cpu", ell_cap=8)
+        pq = (tg, x["walks"][:, 0].contiguous(), 8, 2.0, 0.5, 8, torch.Generator())
+        split, run = walks.ell_phase_split, walks.ell_walks
+        args, phases, fn = pq, walks.ELL_PHASES, "ebt_ell_walks"
+    else:
+        module = skipgram if kernel == "K3" else cbow
+        split = module.phase_split
+        run = skipgram_nce_update if kernel == "K3" else cbow.cbow_update
+        args = (*tables, x["walks"], x["negs"], 3, 6.0, sums)
+        phases = module.PHASES
+        fn = "ebt_skipgram_nce" if kernel == "K3" else "ebt_cbow_update"
+    # Launches are not run here, so the clocks stay 0 and the shares NaN.
+    assert set(split(*args)) == set(phases)
+    run(*args)
+    (c_split, fn_split, a_split, d_split), (c_run, fn_run, a_run, d_run) = calls
+    assert fn_split == fn_run == fn
+    assert (c_split, d_split) == (None, _build.PHASE_CLOCK)
+    assert c_run is not None and d_run == ()
+    # The clocks buffer is the one pointer that differs: None for the wrapper.
+    assert sum(a is None for a in a_split) < sum(a is None for a in a_run)
