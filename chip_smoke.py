@@ -119,13 +119,43 @@ the exit code is not 0:
      K11 not;
  16. S6 quality: First-order LINE and Unstructured on the gate fixture,
      their edge AUROC at least the reference's less 0.03;
- 17. with `--profile` only: K3's phase split (gather, scores, gradients)
+ 17. K12 (the Walklets update) against its plain version in both modes at
+     the S7 shapes (walks [32768, 64], K 10, tables [4, 1M, 32]) and at its
+     edges (D 12 at P 4, a sub that is not a multiple of 4; P 1; P 3 at sub
+     40, over one 32-column chunk; walks of P + 1 nodes, one pair at the
+     top power; walks of one repeated node): its counts exactly, its loss
+     and sums rtol 1e-4 / atol 1e-5, the tables after K4's combine atol
+     1e-5;
+ 18. K13a (the co-occurrence build) against its plain version at the S7
+     GloVe shape (a walk of 16 from each of the slice graph's nodes, w 2),
+     on a small weighted graph, on walks that revisit nodes (the diagonal
+     dropped) and with strides at or past the walks' length (no keys): keys
+     exactly, sums rtol 1e-6; its time beside torch.unique's on the emitted
+     keys; K13b (the GloVe step) against its plain version on that build's
+     entries at B 65536, D 128 and at D 30: gradient rows rtol 1e-5 / atol
+     1e-6, loss rtol 1e-5;
+ 19. S7: three injected steps of Walklets SkipGram, Walklets CBOW and
+     Node2Vec GloVe, card against CPU (atol 1e-5); then `embed_graph` on
+     the slice graph: Walklets SkipGram (D 128, power 4, batch 32768, L 64,
+     K 10; 2 epochs) and Walklets CBOW (1 epoch) with K1, K2, K12 and K4's
+     combine launched and K3, K11, K9 and K10 not, in pairs/s; Node2Vec
+     GloVe (D 128, batch 65536, L 16, w 2, iterations 1; 1 epoch), with the
+     co-occurrence build timed apart, and Walklets GloVe (power 4, L 16),
+     with K1, K13a, K2 and K13b launched; Role2Vec (D 128, 1 epoch) with K2
+     and K1; peak device memory of each;
+ 20. S7 quality: the reference's Walklets gate verbatim through
+     `edge_prediction_evaluation` (test AUROC at least 0.85 and the
+     reference's less 0.03), and Node2Vec GloVe features on the gate
+     fixture's connected holdout, embedding seeds 0-3, a Perceptron on
+     Hadamard alone (mean test AUROC at least the reference's less 0.03);
+ 21. with `--profile` only: K3's phase split (gather, scores, gradients)
      at the flagship shapes, K11's (gather, hidden rows, logits and
      softmax, output and negative gradients, input gradients) and K9's (row
      load, membership and weights, pick) at the S5 shapes, from clock64()
      stamps in a build with EBT_PHASE_CLOCK; then steady steps of S1, of
      the GCN, of S5 and of S6
-     (Second-order LINE, TransE), one line per kernel name with its device
+     (Second-order LINE, TransE) and of S7 (Walklets SkipGram, Node2Vec
+     GloVe), one line per kernel name with its device
      ms per step: the port's kernels on CUDA events around each launch,
      PyTorch's own from torch.profiler.
 Then a JSON line of the kernels (with the build seconds; each with its
@@ -220,6 +250,41 @@ GATE_LINE1 = dict(GATE_S6, learning_rate=0.025)
 GATE_UNSTRUCTURED = dict(GATE_S6, learning_rate=1.0)
 GATE_REFERENCE_LINE1_AUROC = 0.8843448788028528
 GATE_REFERENCE_UNSTRUCTURED_AUROC = 0.9216162440005579
+# S7: Walklets at bench.py's shapes (`bench.py:305-311`: D 128, power 4,
+# batch 32768, L 64, K 10) and GloVe's (`bench.py:320-329`: D 128, batch
+# 65536, L 16, w 2, iterations 1); K12 at those shapes and at its edges (a
+# sub not a multiple of 4, P 1, a sub over one 32-column chunk, walks of
+# P + 1 nodes): (name, N, P, sub, B, L, K).
+WALKLETS_POWER = 4
+WALKLETS_SHAPES = (("S7", N_NODES, WALKLETS_POWER, DIM // WALKLETS_POWER, BATCH, WALK, NEGS),
+                   ("D 12, P 4", 100_000, 4, 3, 4096, 12, 5),
+                   ("P 1", 100_000, 1, 32, 4096, 12, 5),
+                   ("P 3, sub 40", 100_000, 3, 40, 4096, 12, 5),
+                   ("one pair", 100_000, 4, 8, 4096, 5, 5))
+GLOVE_WALK, GLOVE_WINDOW, GLOVE_BATCH = 16, 2, 65536
+S7_WALKLETS = dict(embedding_size=DIM, power=WALKLETS_POWER, batch_size=BATCH, walk_length=WALK,
+                   window_size=4, number_of_negative_samples=NEGS,
+                   early_stopping_patience=10**6)
+S7_GLOVE = dict(embedding_size=DIM, batch_size=GLOVE_BATCH, walk_length=GLOVE_WALK,
+                window_size=GLOVE_WINDOW, iterations=1, early_stopping_patience=10**6)
+S7_WALKLETS_GLOVE = dict(embedding_size=DIM, power=WALKLETS_POWER, walk_length=GLOVE_WALK,
+                         iterations=1, batch_size=GLOVE_BATCH)
+S7_ROLE2VEC = dict(embedding_size=DIM, early_stopping_patience=10**6)
+# The reference's Walklets gate (`tests/test_quality_gates.py:113-142`), its
+# floor and the reference's test AUROC for the same call (embiggen_tpu on the
+# CPU); the GloVe gate and the reference's mean test AUROC over its seeds,
+# measured with embiggen_tpu on the CPU (tests/test_torch_glove.py says how).
+GATE_WALKLETS = dict(embedding_size=32, power=2, epochs=100, batch_size=256, walk_length=16,
+                     window_size=2, number_of_negative_samples=5, learning_rate_decay=0.99,
+                     random_state=0, early_stopping_patience=10**6,
+                     learning_rate_plateau_patience=10**6)
+GATE_WALKLETS_FLOOR = 0.85
+GATE_REFERENCE_WALKLETS_AUROC = 0.9963
+GATE_GLOVE = dict(embedding_size=32, epochs=30, batch_size=64, learning_rate=2.0,
+                  learning_rate_decay=0.99, walk_length=16, window_size=2, iterations=4,
+                  early_stopping_patience=10**6, learning_rate_plateau_patience=10**6)
+GATE_GLOVE_SEEDS = range(4)
+GATE_REFERENCE_GLOVE_AUROC = 0.7017104723535372
 K3_SUMS_TOL = dict(rtol=1e-4, atol=1e-5)    # sums in another order
 K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
 # The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
@@ -513,6 +578,8 @@ KERNEL_NAMES = {
     "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
     "mean_scatter": "scatter_add_rows_kernel", "mean_combine": "mean_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
+    "walklets_update": "walklets_kernel", "cooccurrences": "cooc_",
+    "glove_step": "glove_step_kernel",
 }
 
 
@@ -646,7 +713,7 @@ def k3_phase_line(card, dev):
     sums = SkipGramSums.zeros(N_NODES, DIM, dev)
     shares = skipgram.phase_split(*args, sums)
     ms = time_ms(lambda: skipgram.skipgram_nce_update(*args, sums), 10)
-    print(f"phase 17 K3 phase split on {card}: kernel {ms:.3f} ms; "
+    print(f"phase 21 K3 phase split on {card}: kernel {ms:.3f} ms; "
           + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
                       for k, v in shares.items()), flush=True)
     return dict(ms=ms, **shares)
@@ -688,7 +755,7 @@ def s5_phase_lines(card, graph, dev):
     torch.cuda.empty_cache()
     for name, split in out.items():
         ms = split["ms"]
-        print(f"phase 17 {'K11' if name == 'cbow_update' else 'K9'} phase split on {card}: "
+        print(f"phase 21 {'K11' if name == 'cbow_update' else 'K9'} phase split on {card}: "
               f"kernel {ms:.4f} ms; " + "; ".join(
                   f"{k} {v:.4f} of {'block' if name == 'cbow_update' else 'walker'} time "
                   f"= {v * ms:.4f} ms" for k, v in split.items() if k != "ms"), flush=True)
@@ -698,7 +765,7 @@ def s5_phase_lines(card, graph, dev):
 def print_profile(name, card, rows, step_ms, kept):
     busy = sum(ms for ms, _, _ in rows.values())
     port = sum(ms for ms, _, how in rows.values() if how == "events")
-    print(f"phase 17 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+    print(f"phase 21 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
           f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
           f"per step ({port:.3f} of the port's on their launches' events, the rest "
           f"from torch.profiler), device busy share {busy / step_ms:.3f}; the "
@@ -1512,14 +1579,41 @@ def cbow_checks(dev):
     return entry, errs
 
 
+def term_sums(walks, negs, grads, n, d):
+    """The plain version's gradient terms `grads` ((g_in, g_out, g_ob),
+    (g_neg, g_nb)) scattered as K11 scatters them (walk rows, then
+    negatives), in float64: ({field: sum of the terms}, {field: sum of
+    their absolute values})."""
+    (g_in, g_out, g_ob), (g_neg, g_nb) = grads
+    flat, negs_flat = walks.reshape(-1).long(), negs.reshape(-1).long()
+    parts = {"sums_w": ((flat, g_in.reshape(-1, d)),),
+             "sums_c": ((flat, g_out.reshape(-1, d)), (negs_flat, g_neg.reshape(-1, d))),
+             "sums_b": ((flat, g_ob.reshape(-1)), (negs_flat, g_nb.reshape(-1)))}
+    exact, absolute = {}, {}
+    for field, segs in parts.items():
+        total = torch.zeros((n, d) if field != "sums_b" else (n,), dtype=torch.float64,
+                            device=walks.device)
+        size = total.clone()
+        for idx, g in segs:
+            total.index_add_(0, idx, g.double())
+            size.index_add_(0, idx, g.double().abs())
+        exact[field], absolute[field] = total, size
+    return exact, absolute
+
+
 def cbow_edge_checks(dev):
     """K11 at its edges against its plain version, with and without centre
-    weights (sums and loss to K3_SUMS_TOL, counts exactly): fewer walks
-    than the persistent grid's blocks, and more, not a multiple of them;
-    walks that repeat one node id at every position; window 1, one centre a
-    walk (L = 2w + 1), one negative, and all three. Returns the largest sums
+    weights: fewer walks than the persistent grid's blocks, and more, not a
+    multiple of them; walks that repeat one node id at every position;
+    window 1, one centre a walk (L = 2w + 1), one negative, and all three.
+    The loss to K3_SUMS_TOL, the counts exactly, and the sums against
+    float64 sums of the plain version's gradient terms, within K3_SUMS_TOL
+    of the sum of the terms' absolute values: the sums are taken in another
+    order, and at 3001 walks over 300 nodes a node's sums gather hundreds of
+    terms of either sign whose float32 partial sums round, in both versions,
+    by more than 1e-4 of a total that cancels. Returns the largest sums
     error by case."""
-    from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
+    from embiggen_tpu_torch.ops.cbow import cbow_grads_plain, cbow_update, cbow_update_plain
     from embiggen_tpu_torch.ops.scatter import SkipGramSums
 
     errs = {}
@@ -1548,10 +1642,16 @@ def cbow_edge_checks(dev):
             for field in ("counts_w", "counts_c"):
                 check_close(f"K11 {name} {field}", getattr(sums, field),
                             getattr(want_sums, field), 0.0, 0.0)
+            exact, absolute = term_sums(walks, negs, cbow_grads_plain(*args, cw)[1:], n, d)
             for field in ("sums_w", "sums_c", "sums_b"):
-                errs[name] = max(errs[name], check_close(
-                    f"K11 {name} {field}", getattr(sums, field), getattr(want_sums, field),
-                    **K3_SUMS_TOL))
+                err = (getattr(sums, field).double() - exact[field]).abs()
+                if bool((err > K3_SUMS_TOL["atol"]
+                         + K3_SUMS_TOL["rtol"] * absolute[field]).any()):
+                    raise AssertionError(
+                        f"K11 {name} {field}: kernel and the plain version's terms differ "
+                        f"(max abs err {float(err.max())}, {K3_SUMS_TOL} of the terms' "
+                        "absolute sums)")
+                errs[name] = max(errs[name], float(err.max()))
     return errs
 
 
@@ -1988,6 +2088,344 @@ def minibatch_step(model, graph):
     return step
 
 
+
+# ------------------------------------------------------------------- S7
+def walklets_inputs(rng, n, power, sub, b, length, k, dev):
+    """Seeded stacked tables [P, n, sub], bias [P, n], walks [b, L] and
+    negatives [b, K] on `dev`."""
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+    return (put(0.3 * rng.standard_normal((power, n, sub), dtype=np.float32)),
+            put(0.3 * rng.standard_normal((power, n, sub), dtype=np.float32)),
+            put(rng.standard_normal((power, n), dtype=np.float32)),
+            put(rng.integers(0, n, (b, length), dtype=np.int32)),
+            put(rng.integers(0, n, (b, k), dtype=np.int32)))
+
+
+def walklets_check(name, x, power, mode, dev):
+    """K12 and K4's combine over the flat views against their plain
+    versions on inputs `x`: counts exactly, loss and sums to K3_SUMS_TOL,
+    the tables after the combine to K3_UPDATE_ATOL. Returns (sums err,
+    tables err)."""
+    from embiggen_tpu_torch.ops.scatter import (
+        SkipGramSums, skipgram_mean_combine, skipgram_mean_combine_plain,
+    )
+    from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
+
+    tables, walks, negs = x[:3], x[3], x[4]
+    p, n, sub = tables[0].shape
+    sums, want = SkipGramSums.zeros(p * n, sub, dev), SkipGramSums.zeros(p * n, sub, dev)
+    check_close(f"K12 {name} {mode} loss", walklets_update(*tables, walks, negs, power, sums, mode),
+                walklets_update_plain(*tables, walks, negs, power, want, mode), **K3_SUMS_TOL)
+    for field in ("counts_w", "counts_c"):
+        check_close(f"K12 {name} {mode} {field}", getattr(sums, field), getattr(want, field),
+                    0.0, 0.0)
+    sums_err = max(check_close(f"K12 {name} {mode} {field}", getattr(sums, field),
+                               getattr(want, field), **K3_SUMS_TOL)
+                   for field in ("sums_w", "sums_c", "sums_b"))
+
+    def flat(ts):
+        return ts[0].view(p * n, sub), ts[1].view(p * n, sub), ts[2].view(p * n)
+    got_t, want_t = [t.clone() for t in tables], [t.clone() for t in tables]
+    skipgram_mean_combine(*flat(got_t), sums, 0.025)
+    skipgram_mean_combine_plain(*flat(want_t), want, 0.025)
+    tables_err = max(check_close(f"K4 combine after K12 {name} {mode} table {i}", a, w, 0.0,
+                                 K3_UPDATE_ATOL) for i, (a, w) in enumerate(zip(got_t, want_t)))
+    return sums_err, tables_err
+
+
+def walklets_checks(dev):
+    """K12 against its plain version in both modes at WALKLETS_SHAPES (the
+    S7 shapes first, then its edges) and on walks of one repeated node.
+    Returns (its kernels entry, timed at the S7 shapes in SkipGram's mode,
+    with CBOW's time beside it; {case: (sums err, tables err)})."""
+    from embiggen_tpu_torch.ops.scatter import SkipGramSums
+    from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
+
+    entry, errs = None, {}
+    for name, n, power, sub, b, length, k in WALKLETS_SHAPES:
+        rng = np.random.default_rng(power * 100 + sub)
+        x = walklets_inputs(rng, n, power, sub, b, length, k, dev)
+        cases = [(name, x)]
+        if name == "D 12, P 4":
+            # 64 walks, as K11's repeated-node case: every pair of a walk
+            # adds the same float32 term to one row, so at thousands of
+            # walks both versions' sums drift apart by systematic rounding.
+            walks = (torch.arange(64, device=dev, dtype=torch.int32) % 7)[:, None].expand(
+                64, length).contiguous()
+            cases.append(("repeated node", x[:3] + (walks, x[4][:64].contiguous())))
+        for case, xs in cases:
+            for mode in ("skipgram", "cbow"):
+                errs[f"{case} {mode}"] = walklets_check(case, xs, power, mode, dev)
+        if name != "S7":
+            continue
+        tables, walks, negs = x[:3], x[3], x[4]
+        sums = SkipGramSums.zeros(power * n, sub, dev)
+        ms = {mode: time_ms(lambda mode=mode: walklets_update(
+            *tables, walks, negs, power, sums, mode), 10) for mode in ("skipgram", "cbow")}
+        plain_ms = time_ms(lambda: walklets_update_plain(
+            *tables, walks, negs, power, sums, "skipgram"), 2)
+        # Rows each power's tables must read (and the sums write, read and
+        # written as they accumulate): the walks' nodes as inputs, the walks'
+        # nodes and negatives as targets with their biases. Operations: the
+        # 2m (K + 1) logits of each (walk, power) and their gradient rows.
+        u_w = int(torch.unique(walks).numel())
+        u_c = int(torch.unique(torch.cat([walks.reshape(-1), negs.reshape(-1)])).numel())
+        flops = sum(b * 4 * (length - p - 1) * sub * (3 * k + 3) for p in range(power))
+        entry = dict(
+            source="embiggen_tpu_torch/csrc/walklets.cu",
+            replaces="embiggen_tpu/models/embedders/walklets.py:124",
+            max_abs_err=max(e for e, _ in errs.values()),
+            ms=ms["skipgram"], cbow_ms=ms["cbow"], plain_ms=plain_ms, library_ms=None,
+            **bound(power * (4 * ((u_w + u_c) * sub + u_c) + 8 * ((u_w + u_c) * sub + 2 * u_c + u_w))
+                    + 4 * b * (length + k + power), flops))
+        del x, tables, walks, negs, sums
+        torch.cuda.empty_cache()
+    return entry, errs
+
+
+def glove_walks(graph, dev, length, seed):
+    """One walk of `length` from every node of `graph` on `dev` (K1)."""
+    from embiggen_tpu_torch.ops.walks import first_order_walks
+
+    tg = graph.device(dev, with_alias=graph.has_edge_weights)
+    return first_order_walks(tg, torch.arange(graph.number_of_nodes, dtype=torch.int32,
+                                              device=dev), length,
+                             torch.Generator().manual_seed(seed))
+
+
+def cooc_check(name, walks, n, strides):
+    """K13a against its plain version: keys exactly, sums rtol 1e-6 (float64
+    atomics in no fixed order, compared after the cast). Returns (sums err,
+    entries)."""
+    from embiggen_tpu_torch.ops.glove import cooccurrences, cooccurrences_plain
+
+    got, want = cooccurrences(walks, n, strides), cooccurrences_plain(walks, n, strides)
+    for i, part in enumerate(("centers", "contexts")):
+        check_close(f"K13a {name} {part}", got[i], want[i], 0.0, 0.0)
+    return check_close(f"K13a {name} sums", got[2], want[2], 1e-6, 0.0), got[0].numel()
+
+
+def cooc_split(walks, strides) -> dict:
+    """K13a's wrapper split: its two launches on their CUDA events (the
+    insertions, the compaction) and the rest of the call (the table's fill,
+    the host read of the claimed count, the sort of the keys and the gather
+    of their sums) on the wrapper's time, each the mean of 5 calls."""
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.glove import cooccurrences
+
+    total = time_ms(lambda: cooccurrences(walks, N_NODES, strides), 5)
+    with _build.timed_launches() as pairs:
+        for _ in range(5):
+            cooccurrences(walks, N_NODES, strides)
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in pairs["cooccurrences"]]
+    insert_ms, compact_ms = sum(times[0::2]) / 5, sum(times[1::2]) / 5
+    return dict(insert_ms=insert_ms, compact_ms=compact_ms,
+                rest_ms=total - insert_ms - compact_ms)
+
+
+def glove_checks(graph, dev):
+    """K13a against its plain version at the S7 GloVe shape (a walk of 16
+    from each of the slice graph's nodes, w 2: strides 1 and 2 at weights 1
+    and 1/2), on a small weighted graph, on walks that revisit nodes, and
+    with a stride at or past the walks' length (no keys); then K13b against
+    its plain version (gradient rows rtol 1e-5 / atol 1e-6, loss rtol 1e-5)
+    on the S7 build's entries at B 65536, D 128, and at D 30. Returns
+    ({counter: kernels entry}, {case: err})."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops.glove import (
+        cooccurrences, cooccurrences_plain, glove_entries, glove_step, glove_step_plain,
+        glove_strides,
+    )
+
+    errs, out = {}, {}
+    small = erdos_renyi(20_000, 80_000, seed=3, weighted=True)
+    errs["weighted, w 3"], _ = cooc_check("weighted", glove_walks(small, dev, 12, 1),
+                                          20_000, glove_strides(3))
+    rng = np.random.default_rng(2)
+    revisits = rng.integers(0, 500, (3000, 16), dtype=np.int32)
+    revisits[:1000, ::2] = revisits[:1000, 1:2]
+    revisits[1000:1010] = 7
+    revisits = torch.from_numpy(revisits).to(dev)
+    errs["revisits, w 5"], _ = cooc_check("revisits", revisits, 500, glove_strides(5))
+    errs["stride 16 and 1"], _ = cooc_check("stride 16 and 1", revisits, 500,
+                                            ((16, 1.0), (1, 0.5)))
+    if any(t.numel() for t in cooccurrences(revisits, 500, ((16, 1.0), (20, 1.0)))):
+        raise AssertionError("K13a: strides at or past the walks' length gave keys")
+
+    walks = glove_walks(graph, dev, GLOVE_WALK, 0)
+    strides = glove_strides(GLOVE_WINDOW)
+    errs["S7"], entries = cooc_check("S7", walks, N_NODES, strides)
+    emitted = torch.cat([torch.cat([walks[:, :-d].reshape(-1).long() * N_NODES
+                                    + walks[:, d:].reshape(-1),
+                                    walks[:, d:].reshape(-1).long() * N_NODES
+                                    + walks[:, :-d].reshape(-1)]) for d, _ in strides])
+    out["cooccurrences"] = dict(
+        source="embiggen_tpu_torch/csrc/glove.cu",
+        replaces="embiggen_tpu/models/embedders/glove.py:95",
+        max_abs_err=max(errs.values()),
+        ms=time_ms(lambda: cooccurrences(walks, N_NODES, strides), 5),
+        plain_ms=time_ms(lambda: cooccurrences_plain(walks, N_NODES, strides), 2),
+        # Counts where K13a sums weights 1/d, and keeps the diagonal.
+        library_ms=time_ms(lambda: torch.unique(emitted, sorted=True, return_counts=True), 3),
+        library="torch.unique(keys, sorted=True, return_counts=True) on the emitted keys",
+        emitted_keys=int(emitted.numel()), entries=entries,
+        **cooc_split(walks, strides),
+        # The walks read, the entries (two int32 ids, a float32 sum) written.
+        **bound(4 * walks.numel() + 12 * entries, 0))
+    del emitted
+    ci, cj, sums = cooccurrences(walks, N_NODES, strides)
+    del walks
+    e = glove_entries(ci, cj, sums, 100.0, 0.75)
+    del ci, cj, sums
+    torch.cuda.empty_cache()
+    for d in (DIM, 30):
+        tables = [torch.from_numpy(0.1 * rng.standard_normal((N_NODES, d), dtype=np.float32)).to(dev)
+                  for _ in range(2)]
+        tables += [torch.from_numpy(rng.standard_normal(N_NODES, dtype=np.float32)).to(dev)
+                   for _ in range(2)]
+        ids = torch.from_numpy(rng.integers(0, e.n_entries, GLOVE_BATCH, dtype=np.int32)).to(dev)
+        got, want = glove_step(e, ids, *tables), glove_step_plain(e, ids, *tables)
+        for i, part in enumerate(("i", "j")):
+            check_close(f"K13b D {d} {part}", got[i], want[i], 0.0, 0.0)
+        errs[f"K13b D {d}"] = max(check_close(f"K13b D {d} {part}", got[i], want[i], 1e-5, 1e-6)
+                                  for i, part in ((2, "gw"), (3, "gc"), (4, "g")))
+        check_close(f"K13b D {d} loss", got[5], want[5], 1e-5, 0.0)
+        if d != DIM:
+            continue
+        u_i = int(torch.unique(e.ci[ids.long()]).numel())
+        u_j = int(torch.unique(e.cj[ids.long()]).numel())
+        b = GLOVE_BATCH
+        out["glove_step"] = dict(
+            source="embiggen_tpu_torch/csrc/glove.cu",
+            replaces="embiggen_tpu/models/embedders/glove.py:207",
+            max_abs_err=errs[f"K13b D {d}"],
+            ms=time_ms(lambda: glove_step(e, ids, *tables), 20),
+            plain_ms=time_ms(lambda: glove_step_plain(e, ids, *tables), 20),
+            library_ms=None,
+            # ids and the drawn entries read, the distinct rows and biases
+            # gathered; i, j, two gradient rows, g and the loss written.
+            # Operations: the dot product and the two scaled rows.
+            **bound(4 * b + 16 * b + 4 * (u_i + u_j) * (d + 1) + 4 * b * (2 * d + 4),
+                    4 * b * d))
+        del tables, ids, got, want
+    del e
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+def s7_injected_steps(small, dev):
+    """Three steps of Walklets SkipGram and CBOW on injected (walks,
+    negatives), and of Node2Vec GloVe on injected entry ids over the small
+    graph's entries, on the card and on the CPU from the same tables.
+    Returns {model: largest table difference}."""
+    from embiggen_tpu_torch.models.embedders import GloVe, WalkletsCBOW, WalkletsSkipGram
+
+    errs = {}
+    n = small.number_of_nodes
+    for cls in (WalkletsSkipGram, WalkletsCBOW):
+        kw = dict(embedding_size=32, power=4, walk_length=16, window_size=4,
+                  number_of_negative_samples=5, random_state=0)
+        models = {d: cls(device=d, **kw) for d in (dev, "cpu")}
+        init = models["cpu"]._init_params(small, torch.Generator().manual_seed(0))
+        params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+        graphs = {d: small.device(d) for d in models}
+        rng = np.random.default_rng(6)
+        with torch.no_grad():
+            for lr in (0.05, 0.04, 0.03):
+                batch = (rng.integers(0, n, (256, 16), dtype=np.int32),
+                         rng.integers(0, n, (256, 5), dtype=np.int32))
+                for d, m in models.items():
+                    m._step(graphs[d], params[d], torch.Generator(), lr,
+                            batch=tuple(torch.from_numpy(x).to(d) for x in batch))
+        errs[cls.model_name()] = max(check_close(
+            f"3 {cls.model_name()} steps, {k}", params[dev][k].cpu(), params["cpu"][k], 0.0,
+            1e-5) for k in init)
+    models = {d: GloVe(device=d, embedding_size=32, walk_length=16, window_size=2,
+                       iterations=1, random_state=0) for d in (dev, "cpu")}
+    entries = models["cpu"]._prepare_data(small)
+    data = {"cpu": entries, dev: type(entries)(*(t.to(dev) for t in entries))}
+    init = models["cpu"]._init_params(small, torch.Generator().manual_seed(0))
+    params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+    rng = np.random.default_rng(8)
+    with torch.no_grad():
+        for lr in (0.5, 0.4, 0.3):
+            ids = rng.integers(0, entries.n_entries, 1024, dtype=np.int32)
+            for d, m in models.items():
+                m._run_batch_size = 1024
+                m._step(data[d], params[d], torch.Generator(), lr,
+                        batch=((torch.from_numpy(ids).to(d),), data[d]))
+    errs["Node2Vec GloVe"] = max(check_close(
+        f"3 Node2Vec GloVe steps, {k}", params[dev][k].cpu(), params["cpu"][k], 0.0, 1e-5)
+        for k in init)
+    return errs
+
+
+def s7_run(graph, dev, name, epochs, **kw):
+    """`embed_graph` of the S7 model `name` on `dev` with the counts set to
+    0 just before and read just after. Returns (model, launches, seconds,
+    peak bytes)."""
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    model = get_model_from_library(name)(device=dev, epochs=epochs, random_state=0, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = embed_graph(graph, model)
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, emb in enumerate(result.node_embeddings):
+        if emb.shape != (N_NODES, DIM) or not np.isfinite(emb).all():
+            raise AssertionError(f"{name} embedding {i}: shape {emb.shape} or non-finite values")
+    if not (len(model._epoch_losses) >= epochs and np.isfinite(model._epoch_losses).all()):
+        raise AssertionError(f"{name} epoch losses {model._epoch_losses}")
+    return model, launches, seconds, peak
+
+
+def s7_quality_on_card(card, dev):
+    """The reference's Walklets gate verbatim (`tests/test_quality_gates.py:
+    113-142`) through `edge_prediction_evaluation`, and the GloVe gate
+    (`tests/test_torch_glove.py`): Node2Vec GloVe at GATE_GLOVE on the gate
+    fixture's connected holdout, embedding seeds 0-3, a Perceptron on
+    Hadamard alone scored by `_evaluate`. Raises unless the Walklets test
+    AUROC reaches 0.85 and the reference's less 0.03, and the GloVe mean
+    test AUROC the reference's less 0.03. Returns (Walklets test AUROC,
+    GloVe test AUROC per seed)."""
+    from embiggen_tpu_torch.graph import connected_holdout, random_geometric
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.embedders import GloVe, WalkletsSkipGram
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    rows = edge_prediction_evaluation(
+        holdouts_number=1,
+        models=PerceptronEdgePrediction(device=dev, edge_embeddings=["Hadamard"],
+                                        number_of_epochs=100, random_state=0),
+        graphs=rgg, node_features=WalkletsSkipGram(device=dev, **GATE_WALKLETS),
+        evaluation_schema="Connected Monte Carlo", random_state=3)
+    walklets = next(r["auroc"] for r in rows if r["evaluation_mode"] == "test")
+    if not walklets >= max(GATE_WALKLETS_FLOOR, GATE_REFERENCE_WALKLETS_AUROC - 0.03):
+        raise AssertionError(f"Walklets gate on {card}: test AUROC {walklets}")
+    train, test = connected_holdout(rgg, random_state=3)
+    glove = []
+    for seed in GATE_GLOVE_SEEDS:
+        emb = GloVe(device=dev, random_state=seed, **GATE_GLOVE).fit_transform(
+            train).node_embeddings[0]
+        model = PerceptronEdgePrediction(device=dev, **GATE_CBOW_PERCEPTRON)
+        model.fit(train, node_features=emb)
+        got = {r["evaluation_mode"]: r for r in model._evaluate(rgg, train, test, random_state=3)}
+        glove.append(got["test"]["auroc"])
+    if not np.mean(glove) >= GATE_REFERENCE_GLOVE_AUROC - 0.03:
+        raise AssertionError(f"GloVe mean test AUROC {np.mean(glove)} on {card} is below the "
+                             f"reference's {GATE_REFERENCE_GLOVE_AUROC} less 0.03: {glove}")
+    return walklets, glove
+
+
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
@@ -2015,6 +2453,20 @@ REJECTION_KERNELS = ("rejection_walks",)
 S6_LINE_KERNELS = ("line_mini_batch", "mean_scatter", "mean_combine")
 S6_SIAMESE_KERNELS = ("siamese_mini_batch",)
 S6_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update")
+# S7: Walklets SkipGram and CBOW step through K1, K2, K12 and K4's SkipGram
+# combine; the GloVe models build their entries with K1 and K13a and step
+# through K2's uniform draws, K13b and index_add_; Role2Vec walks with K2
+# and K1 and updates through index_add_.
+S7_WALKLETS_KERNELS = ("first_order_walks", "nce_negatives", "walklets_update",
+                       "skipgram_mean_combine")
+S7_WALKLETS_UNUSED = ("skipgram_nce_update", "cbow_update", "ell_walks", "rejection_walks",
+                      "mean_scatter", "mean_combine", "cooccurrences", "glove_step")
+S7_GLOVE_KERNELS = ("first_order_walks", "cooccurrences", "nce_negatives", "glove_step")
+S7_GLOVE_UNUSED = ("walklets_update", "skipgram_nce_update", "skipgram_mean_combine",
+                   "mean_scatter", "mean_combine", "ell_walks", "rejection_walks")
+S7_ROLE2VEC_KERNELS = ("nce_negatives", "first_order_walks")
+S7_ROLE2VEC_UNUSED = ("walklets_update", "skipgram_nce_update", "cbow_update", "cooccurrences",
+                      "glove_step", "skipgram_mean_combine", "ell_walks")
 
 
 def check_launches(path, counts, names, unused=()):
@@ -2032,7 +2484,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also K3's, K11's and K9's phase splits, and profiles of "
-                             "steady S1, GCN, S5 and S6 steps")
+                             "steady S1, GCN, S5, S6 and S7 steps")
     args = parser.parse_args()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
@@ -2497,7 +2949,95 @@ def main() -> None:
           f"{s6_auroc['Unstructured']:.4f} (reference {GATE_REFERENCE_UNSTRUCTURED_AUROC:.4f})",
           flush=True)
 
-    # -------------------------------------------------- 17. profile (option)
+    # -------------------------------------------------- 17. K12 vs plain (S7)
+    t_phase = time.perf_counter()
+    kernels["walklets_update"], k12_errs = walklets_checks(dev)
+    torch.cuda.empty_cache()
+    k12 = kernels["walklets_update"]
+    print(f"phase 17 K12 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; at the S7 "
+          f"shapes, walks [{BATCH}, {WALK}], negatives K {NEGS}, tables [{WALKLETS_POWER}, "
+          f"{N_NODES}, {DIM // WALKLETS_POWER}]): skipgram ms {k12['ms']:.4f}, cbow ms "
+          f"{k12['cbow_ms']:.4f}, plain {k12['plain_ms']:.4f}, bound {k12['bound_ms']:.4f} "
+          f"({k12['bound_by']}) | sums / tables after the combine, max abs err by case: "
+          + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in k12_errs.items()), flush=True)
+
+    # ---------------------------------------------- 18. K13a, K13b vs plain
+    t_phase = time.perf_counter()
+    new, k13_errs = glove_checks(graph, dev)
+    kernels.update(new)
+    torch.cuda.empty_cache()
+    k13a = new["cooccurrences"]
+    print(f"phase 18 K13 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s): K13a at "
+          f"the S7 GloVe shape (walks [{N_NODES}, {GLOVE_WALK}], w {GLOVE_WINDOW}: "
+          f"{k13a['emitted_keys']} keys emitted, {k13a['entries']} entries) ms "
+          f"{k13a['ms']:.4f} plain {k13a['plain_ms']:.4f} torch.unique "
+          f"{k13a['library_ms']:.4f} bound {k13a['bound_ms']:.4f} (split: insertions "
+          f"{k13a['insert_ms']:.4f}, compaction {k13a['compact_ms']:.4f}, the rest of the "
+          f"wrapper {k13a['rest_ms']:.4f}); K13b (B {GLOVE_BATCH}, "
+          f"D {DIM}) ms {new['glove_step']['ms']:.4f} plain {new['glove_step']['plain_ms']:.4f} "
+          f"bound {new['glove_step']['bound_ms']:.4f} ({new['glove_step']['bound_by']}) | "
+          "max err by case: " + "; ".join(f"{k} {v:.3g}" for k, v in k13_errs.items()),
+          flush=True)
+
+    # ------------------------------------------------------------ 19. S7
+    t_phase = time.perf_counter()
+    s7_step_errs = s7_injected_steps(small, dev)
+    s7 = {}
+    for label, name, epochs, kw, names, unused in (
+        ("Walklets SkipGram", "Walklets SkipGram", 2, S7_WALKLETS, S7_WALKLETS_KERNELS,
+         S7_WALKLETS_UNUSED),
+        ("Walklets CBOW", "Walklets CBOW", 1, S7_WALKLETS, S7_WALKLETS_KERNELS,
+         S7_WALKLETS_UNUSED),
+        ("Node2Vec GloVe", "Node2Vec GloVe", 1, S7_GLOVE, S7_GLOVE_KERNELS, S7_GLOVE_UNUSED),
+        ("Walklets GloVe", "Walklets GloVe", 1, S7_WALKLETS_GLOVE, S7_GLOVE_KERNELS,
+         S7_GLOVE_UNUSED),
+        ("Role2Vec", "Role2Vec", 1, S7_ROLE2VEC, S7_ROLE2VEC_KERNELS, S7_ROLE2VEC_UNUSED),
+    ):
+        m, counts, secs, peak = s7_run(graph, dev, name, epochs, **kw)
+        s7[label] = (m, check_launches(label, counts, names, unused), secs, peak)
+        torch.cuda.empty_cache()
+    pairs = BATCH * sum(2 * (WALK - p) for p in range(1, WALKLETS_POWER + 1))
+    glove = s7["Node2Vec GloVe"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    glove_entries_s7 = glove._prepare_data(graph)
+    torch.cuda.synchronize()
+    cooc_s = time.perf_counter() - t0
+    del glove_entries_s7
+    torch.cuda.empty_cache()
+    glove_steps = glove._steps_per_epoch(graph, None, glove._run_batch_size)
+    role = s7["Role2Vec"][0]
+    role_centres = (max(1, N_NODES // role._run_batch_size) * role._run_batch_size
+                    * (role._walk_length - 2 * role._window_size))
+    print(f"phase 19 S7 on {card} ({time.perf_counter() - t_phase:.1f} s): 3 injected steps "
+          "cuda vs cpu max err " + "; ".join(f"{k} {v:.3g}" for k, v in s7_step_errs.items())
+          + " | " + " | ".join(
+              f"{label}: {secs:.2f} s, s/epoch {m._epoch_seconds}, losses {m._epoch_losses}, "
+              f"peak {peak} bytes, launches {got}"
+              + (f", pairs/s {[pairs * (N_NODES // BATCH) / s for s in m._epoch_seconds]}"
+                 if label.startswith("Walklets") and "GloVe" not in label else "")
+              for label, (m, got, secs, peak) in s7.items())
+          + f" | Node2Vec GloVe: co-occurrence build {cooc_s:.3f} s for {glove._n_entries} "
+          f"entries ({glove._n_entries / cooc_s:.4g} entries/s), training "
+          f"{glove_steps} steps of {glove._run_batch_size}, entries/s "
+          f"{[glove_steps * glove._run_batch_size / s for s in glove._epoch_seconds]}"
+          f" | Role2Vec batch {role._run_batch_size}, centres/s "
+          f"{[role_centres / s for s in role._epoch_seconds]}", flush=True)
+
+    # --------------------------------------------------- 20. S7 quality
+    t_phase = time.perf_counter()
+    walklets_auroc, glove_auroc = s7_quality_on_card(card, dev)
+    print(f"phase 20 S7 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: Walklets SkipGram gate through "
+          f"edge_prediction_evaluation test AUROC {walklets_auroc:.4f} (thresholds "
+          f"{GATE_WALKLETS_FLOOR} and the reference's {GATE_REFERENCE_WALKLETS_AUROC} less 0.03 = "
+          f"{GATE_REFERENCE_WALKLETS_AUROC - 0.03:.4f}); Node2Vec GloVe features, a Perceptron "
+          f"on Hadamard, mean test AUROC over seeds 0-3 {np.mean(glove_auroc):.4f} (threshold "
+          f"the reference's {GATE_REFERENCE_GLOVE_AUROC:.4f} less 0.03 = "
+          f"{GATE_REFERENCE_GLOVE_AUROC - 0.03:.4f}; per seed "
+          f"{[round(a, 4) for a in glove_auroc]})", flush=True)
+
+    # -------------------------------------------------- 21. profile (option)
     if args.profile:
         k3_phase_line(card, dev)
         torch.cuda.empty_cache()
@@ -2509,6 +3049,10 @@ def main() -> None:
             minibatch_step(s6["Second-order LINE"][0], graph), PROFILE_STEPS))
         print_profile("S6 TransE", card, *profile(
             minibatch_step(s6["TransE"][0], minibatch_graph(graph, S6_TYPES)), PROFILE_STEPS))
+        print_profile("S7 Walklets SkipGram", card, *profile(
+            embedder_step(s7["Walklets SkipGram"][0], graph), PROFILE_STEPS))
+        print_profile("S7 Node2Vec GloVe", card, *profile(
+            minibatch_step(s7["Node2Vec GloVe"][0], graph), PROFILE_STEPS))
 
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -2518,7 +3062,9 @@ def main() -> None:
     launches = {**path_launches, **gcn_launches, **perceptron_launches,
                 **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches,
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
-                **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1]}
+                **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1],
+                "walklets_update": s7["Walklets SkipGram"][1]["walklets_update"],
+                **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences", "glove_step")}}
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0), **v}

@@ -68,6 +68,11 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U32, _P), _I32),
     "ebt_line_batch": (
         (_P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _U64, _U32, _P), _I32),
+    "ebt_walklets_update": ((_P,) * 11 + (_I64, _I64) + (_I32,) * 5 + (_P,), _I32),
+    "ebt_cooc_insert": (
+        (_P, _I64, _I32, _I64, _P, _P, _I32, _P, _P, _U64, _P, _P), _I32),
+    "ebt_cooc_compact": ((_P, _P, _I64, _I64, _P, _P, _P, _P), _I32),
+    "ebt_glove_step": ((_P,) * 15 + (_I64, _I32, _F32, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -79,7 +84,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "mean_scatter", "mean_combine", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
-     "cbow_update", "siamese_mini_batch", "line_mini_batch"), 0,
+     "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
+     "cooccurrences", "glove_step"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

@@ -1,0 +1,223 @@
+"""GloVe's co-occurrence build and weighted-least-squares step — counterparts
+of `embiggen_tpu/models/embedders/glove.py::GloVe._cooccurrences` (with the
+per-power count of `walklets.py::WalkletsGloVe._fit_transform`) and of
+`GloVe._batch_updates` with `embiggen_tpu/ops/losses.py::glove_loss`.
+
+Kernel K13 (`csrc/glove.cu`), in two parts:
+
+- `cooccurrences` (K13a): the symmetric window pairs of the walks at the
+  given (stride, weight)s, summed per distinct key in float64 with the
+  diagonal dropped, in ascending key order. On the card the pairs go into an
+  open-addressing hash table (one launch) whose occupied slots are compacted
+  (a second); `torch.sort` puts the distinct keys in order, as the
+  reference's host sort does.
+- `glove_step` (K13b): for B drawn entry ids, the gradient rows, bias
+  gradients and loss of pred = w_i . c_j + b_i + b_j against log X; the
+  caller scatter-adds them (`index_add_`), so every gradient is taken before
+  any table changes.
+
+Entry ids are drawn uniformly over [0, E) by `draw_entries`: K2's uniform
+mode on the card, `torch.randint` from the fit's generator on the CPU.
+
+On CPU tensors each is its plain version below.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+
+class Entries(NamedTuple):
+    """A co-occurrence matrix's non-zero entries: centers and contexts
+    (int32), f(X) and log X (float32), aligned."""
+
+    ci: torch.Tensor
+    cj: torch.Tensor
+    f_x: torch.Tensor
+    log_x: torch.Tensor
+
+    @property
+    def n_entries(self) -> int:
+        return int(self.ci.shape[0])
+
+
+def glove_strides(window_size: int) -> Tuple[Tuple[int, float], ...]:
+    """GloVe's (stride, weight)s: 1..w at the distance decay 1/d."""
+    return tuple((d, 1.0 / d) for d in range(1, window_size + 1))
+
+
+def _check_inputs(walks: torch.Tensor, n_nodes: int, strides) -> None:
+    if n_nodes >= 2**31:
+        raise ValueError(f"n_nodes ({n_nodes}) must be under 2^31, so that keys "
+                         "a * N + b fit in int64.")
+    if walks.ndim != 2:
+        raise ValueError(f"walks must be [W, L], got {tuple(walks.shape)}.")
+    if any(int(d) < 1 for d, _ in strides):
+        raise ValueError(f"strides must be at least 1, got {strides}.")
+
+
+def _split_keys(keys: torch.Tensor, sums: torch.Tensor, n_nodes: int):
+    return ((keys // n_nodes).to(torch.int32), (keys % n_nodes).to(torch.int32),
+            sums.to(torch.float32))
+
+
+def cooccurrences_plain(
+    walks: torch.Tensor, n_nodes: int, strides: Sequence[Tuple[int, float]],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K13a: every key and weight, `torch.unique`,
+    float64 sums by `index_add_`."""
+    _check_inputs(walks, n_nodes, strides)
+    keys, weights = [], []
+    w = walks.long()
+    for d, weight in strides:
+        a, b = w[:, :-d].reshape(-1), w[:, d:].reshape(-1)
+        keep = a != b
+        a, b = a[keep], b[keep]
+        keys += [a * n_nodes + b, b * n_nodes + a]
+        weights += [torch.full((2 * a.shape[0],), float(weight), dtype=torch.float64,
+                               device=walks.device)]
+    keys = torch.cat(keys) if keys else torch.zeros(0, dtype=torch.int64, device=walks.device)
+    weights = (torch.cat(weights) if weights
+               else torch.zeros(0, dtype=torch.float64, device=walks.device))
+    uniq, inverse = torch.unique(keys, sorted=True, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.float64, device=walks.device)
+    sums.index_add_(0, inverse, weights)
+    return _split_keys(uniq, sums, n_nodes)
+
+
+def cooccurrences(
+    walks: torch.Tensor, n_nodes: int, strides: Sequence[Tuple[int, float]],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(centers int32, contexts int32, sums float32) of the distinct keys
+    a * N + b of `walks` [W, L] (int32), in ascending key order: each pair
+    (walk[t], walk[t + d]) adds `weight` to both of its keys for every
+    (d, weight) of `strides`; the sums are taken in float64, the diagonal
+    is dropped. K13a on CUDA tensors (its two launches counted under
+    "cooccurrences"), the plain version on CPU tensors."""
+    strides = tuple((int(d), float(weight)) for d, weight in strides)
+    if not _build.is_cuda(walks):
+        return cooccurrences_plain(walks, n_nodes, strides)
+    _check_inputs(walks, n_nodes, strides)
+    dev = walks.device
+    n_walks, length = walks.shape
+    _build.check(walks, "walks", torch.int32, (n_walks, length), dev)
+    emitted = n_walks * sum(max(length - d, 0) for d, _ in strides)
+    if emitted == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return _split_keys(empty, empty.double(), n_nodes)
+    # A table at most half full: every probe sequence ends at an empty slot.
+    cap = 1 << max(1, (2 * emitted - 1).bit_length())
+    keys = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    sums = torch.zeros((cap,), dtype=torch.float64, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int64, device=dev)
+    d_t = torch.tensor([d for d, _ in strides], dtype=torch.int32, device=dev)
+    w_t = torch.tensor([w for _, w in strides], dtype=torch.float64, device=dev)
+    _build.launch("cooccurrences", "ebt_cooc_insert", dev, walks.data_ptr(), n_walks,
+                  length, n_nodes, d_t.data_ptr(), w_t.data_ptr(), len(strides),
+                  keys.data_ptr(), sums.data_ptr(), cap - 1, counters.data_ptr())
+    claimed, overflow = counters.tolist()
+    if overflow or claimed > cap:
+        raise RuntimeError(f"K13a's hash table of {cap} slots overflowed "
+                           f"({claimed} keys claimed).")
+    out_keys = torch.empty((2 * claimed,), dtype=torch.int64, device=dev)
+    out_sums = torch.empty((2 * claimed,), dtype=torch.float64, device=dev)
+    cursor = torch.zeros((1,), dtype=torch.int64, device=dev)
+    _build.launch("cooccurrences", "ebt_cooc_compact", dev, keys.data_ptr(),
+                  sums.data_ptr(), cap, n_nodes, out_keys.data_ptr(), out_sums.data_ptr(),
+                  cursor.data_ptr())
+    del keys, sums
+    sorted_keys, order = torch.sort(out_keys)
+    return _split_keys(sorted_keys, out_sums[order], n_nodes)
+
+
+def glove_entries(
+    centers: torch.Tensor, contexts: torch.Tensor, counts: torch.Tensor,
+    x_max: float, alpha: float,
+) -> Entries:
+    """The entries with log X and the weight f(X) = min(1, (X / x_max)^alpha),
+    in float32 on the counts' device, as `glove.py:168-180` computes them."""
+    return Entries(centers, contexts,
+                   torch.clamp((counts / x_max) ** alpha, max=1.0),
+                   torch.log(torch.clamp(counts, min=1e-9)))
+
+
+def draw_entries(entries: Entries, batch_size: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """[batch_size] int32 entry ids uniform over [0, len(entries)) on the
+    entries' device: K2's uniform mode on the card (Philox seeded from
+    `generator`, counted under "nce_negatives"), `torch.randint` from
+    `generator` on the CPU."""
+    n_entries = entries.n_entries
+    if not _build.is_cuda(entries.ci):
+        return torch.randint(0, n_entries, (batch_size,), generator=generator,
+                             dtype=torch.int32)
+    if not 0 < n_entries < 2**32:
+        raise ValueError(f"K2 draws ids in [0, 2^32); got {n_entries} entries.")
+    dev = entries.ci.device
+    out = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+    seed, offset = _build.draw_seed(generator)
+    _build.launch("nce_negatives", "ebt_node_draws", dev, None, 0, n_entries,
+                  out.data_ptr(), batch_size, seed, offset)
+    return out
+
+
+Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+             torch.Tensor]
+
+
+def glove_step_plain(
+    entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor, center_bias: torch.Tensor,
+    context_bias: torch.Tensor,
+) -> Step:
+    """Plain PyTorch version of K13b."""
+    ids = ids.long()
+    i, j = entries.ci[ids], entries.cj[ids]
+    f_x, log_x = entries.f_x[ids], entries.log_x[ids]
+    w, c = node_embedding[i.long()], context_embedding[j.long()]
+    diff = (w * c).sum(1) + center_bias[i.long()] + context_bias[j.long()] - log_x
+    g = 2.0 * f_x * diff / ids.shape[0]
+    return i, j, g[:, None] * c, g[:, None] * w, g, (f_x * diff * diff).sum()
+
+
+def glove_step(
+    entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor, center_bias: torch.Tensor,
+    context_bias: torch.Tensor,
+) -> Step:
+    """One GloVe step's gradients for the B entries `ids` (int32) of
+    `entries`: (i, j, g c_j [B, D], g w_i [B, D], g [B], loss sum) with
+    g = 2 f (pred - log X) / B, the gradient of the batch mean of
+    f (pred - log X)^2 with respect to pred; g is both biases' gradient.
+    K13b on CUDA tensors, the plain version on CPU tensors."""
+    if not _build.is_cuda(ids):
+        return glove_step_plain(entries, ids, node_embedding, context_embedding,
+                                center_bias, context_bias)
+    dev = ids.device
+    n, d = node_embedding.shape
+    b, e = ids.shape[0], entries.n_entries
+    for t, name, dtype in ((entries.ci, "ci", torch.int32), (entries.cj, "cj", torch.int32),
+                           (entries.f_x, "f_x", torch.float32),
+                           (entries.log_x, "log_x", torch.float32)):
+        _build.check(t, name, dtype, (e,), dev)
+    _build.check(ids, "ids", torch.int32, (b,), dev)
+    for t, name, shape in ((node_embedding, "node_embedding", (n, d)),
+                           (context_embedding, "context_embedding", (n, d)),
+                           (center_bias, "center_bias", (n,)),
+                           (context_bias, "context_bias", (n,))):
+        _build.check(t, name, torch.float32, shape, dev)
+    i = torch.empty((b,), dtype=torch.int32, device=dev)
+    j = torch.empty_like(i)
+    gw = torch.empty((b, d), dtype=torch.float32, device=dev)
+    gc = torch.empty_like(gw)
+    g = torch.empty((b,), dtype=torch.float32, device=dev)
+    loss = torch.empty_like(g)
+    _build.launch("glove_step", "ebt_glove_step", dev, *(t.data_ptr() for t in entries),
+                  ids.data_ptr(), node_embedding.data_ptr(), context_embedding.data_ptr(),
+                  center_bias.data_ptr(), context_bias.data_ptr(), i.data_ptr(),
+                  j.data_ptr(), gw.data_ptr(), gc.data_ptr(), g.data_ptr(),
+                  loss.data_ptr(), b, d, 1.0 / b if b else 0.0)
+    return i, j, gw, gc, g, loss.sum()

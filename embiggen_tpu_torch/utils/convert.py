@@ -9,6 +9,7 @@ import torch
 
 SKIPGRAM_KEYS = ("node_embedding", "context_embedding", "context_bias")
 CBOW_KEYS = ("node_embedding", "output_embedding", "output_bias")
+ROLE2VEC_KEYS = ("node_embedding", "role_embedding")
 
 
 def _tables_from_jax(params, keys, model, device) -> Dict[str, torch.Tensor]:
@@ -40,9 +41,34 @@ def cbow_params_from_jax(
     return _tables_from_jax(params, CBOW_KEYS, "CBOW", device)
 
 
+def walklets_params_from_jax(
+    params: Mapping[str, np.ndarray], device: Union[str, torch.device]
+) -> Dict[str, torch.Tensor]:
+    """Walklets' stacked tables (`node_embedding`, `context_embedding`
+    [P, N, sub] and `context_bias` [P, N], as numpy arrays) as float32
+    tensors on `device`, in the layout the port's Walklets models take as
+    `initial_params`."""
+    out = _tables_from_jax(params, SKIPGRAM_KEYS, "Walklets", device)
+    p, n, _ = out["node_embedding"].shape
+    if out["context_embedding"].shape != out["node_embedding"].shape or \
+            tuple(out["context_bias"].shape) != (p, n):
+        raise ValueError("Walklets tables must be [P, N, sub], [P, N, sub] and [P, N]; got "
+                         f"{[tuple(out[k].shape) for k in SKIPGRAM_KEYS]}")
+    return out
+
+
+def role2vec_params_from_jax(
+    params: Mapping[str, np.ndarray], device: Union[str, torch.device]
+) -> Dict[str, torch.Tensor]:
+    """Role2Vec's tables (`node_embedding` [N, D], `role_embedding`
+    [roles, D], as numpy arrays) as float32 tensors on `device`, in the
+    layout the port's Role2Vec takes as `initial_params`."""
+    return _tables_from_jax(params, ROLE2VEC_KEYS, "Role2Vec", device)
+
+
 def minibatch_params_from_jax(params: Mapping[str, np.ndarray], model, graph) -> Dict[str, torch.Tensor]:
-    """The tables of a JAX minibatch embedder (LINE, the siamese models; its
-    `_init_params` dict as numpy arrays) as float32 tensors on
+    """The tables of a JAX minibatch embedder (LINE, the siamese models,
+    GloVe; its `_init_params` dict as numpy arrays) as float32 tensors on
     `model.device`, in the layout the port's model takes as
     `initial_params`. The keys and shapes must be the ones the port's
     `model` gives `graph`."""

@@ -19,6 +19,9 @@ from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
 from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
+from embiggen_tpu_torch.ops.glove import (
+    Entries, cooccurrences, cooccurrences_plain, glove_step, glove_step_plain, glove_strides,
+)
 from embiggen_tpu_torch.ops.negatives import (
     edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
 )
@@ -28,6 +31,7 @@ from embiggen_tpu_torch.ops.scatter import (
 )
 from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
+from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
 from embiggen_tpu_torch.ops.walks import (
     csr_edge_ids, csr_edge_ids_plain, ell_walks, first_order_walks, rejection_walks,
 )
@@ -654,3 +658,124 @@ def test_minibatch_fit_launches_k14(dev, name):
     for counter in ("mean_scatter", "mean_combine"):
         assert (after[counter] - before[counter] > 0) == ("LINE" in name)
     assert emb.shape == (500, 16) and np.isfinite(emb).all()
+
+
+# ------------------------------------------------------- K12, K13 (S7)
+def _walklets_inputs(dev, n, power, sub, b, length, k, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t((0.3 * rng.normal(size=(power, n, sub))).astype(np.float32)),
+            t((0.3 * rng.normal(size=(power, n, sub))).astype(np.float32)),
+            t(rng.normal(size=(power, n)).astype(np.float32)),
+            t(rng.integers(0, n, (b, length)).astype(np.int32)),
+            t(rng.integers(0, n, (b, k)).astype(np.int32)))
+
+
+def _walklets_against_plain(dev, x, power, mode):
+    tables, walks, negs = x[:3], x[3], x[4]
+    p, n, sub = tables[0].shape
+    sums, want = SkipGramSums.zeros(p * n, sub, dev), SkipGramSums.zeros(p * n, sub, dev)
+    before = _build.launch_counts()["walklets_update"]
+    loss = walklets_update(*tables, walks, negs, power, sums, mode)
+    want_loss = walklets_update_plain(*tables, walks, negs, power, want, mode)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["walklets_update"] == before + 1
+    # Sums in another order than autograd's and the atomics'; counts add
+    # 1.0s (or 2.0s), exact in any order.
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sums.counts_w, want.counts_w, rtol=0, atol=0)
+    torch.testing.assert_close(sums.counts_c, want.counts_c, rtol=0, atol=0)
+    for field in ("sums_w", "sums_c", "sums_b"):
+        torch.testing.assert_close(getattr(sums, field), getattr(want, field),
+                                   rtol=1e-4, atol=1e-5)
+    flat = lambda ts: (ts[0].view(p * n, sub), ts[1].view(p * n, sub), ts[2].view(p * n))  # noqa: E731
+    got_t, want_t = [t.clone() for t in tables], [t.clone() for t in tables]
+    skipgram_mean_combine(*flat(got_t), sums, 0.05)
+    skipgram_mean_combine_plain(*flat(want_t), want, 0.05)
+    for a, w in zip(got_t, want_t):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["skipgram", "cbow"])
+@pytest.mark.parametrize("power, sub, length, k", [
+    (4, 32, 16, 10), (4, 3, 12, 5), (1, 8, 9, 3), (3, 40, 10, 4), (3, 5, 4, 1)])
+def test_walklets_kernel_matches_plain(dev, mode, power, sub, length, k):
+    """K12 against its plain version: the bench's sub 32, a sub not a
+    multiple of 4, P 1 and 3, a sub over one 32-column chunk, walks of
+    power + 1 nodes (one pair at the top power); n 60 makes the atomics
+    collide."""
+    x = _walklets_inputs(dev, 60, power, sub, 48, length, k, seed=power * 7 + sub)
+    _walklets_against_plain(dev, x, power, mode)
+
+
+@pytest.mark.parametrize("mode", ["skipgram", "cbow"])
+def test_walklets_kernel_walks_of_one_repeated_node(dev, mode):
+    x = list(_walklets_inputs(dev, 60, 4, 8, 40, 12, 5, seed=3))
+    x[3] = (torch.arange(40, device=dev, dtype=torch.int32) % 5)[:, None].expand(
+        40, 12).contiguous()
+    _walklets_against_plain(dev, x, 4, mode)
+
+
+def _cooc_against_plain(walks, n, strides):
+    before = _build.launch_counts()["cooccurrences"]
+    got = cooccurrences(walks, n, strides)
+    want = cooccurrences_plain(walks, n, strides)
+    torch.cuda.synchronize()
+    if sum(max(walks.shape[1] - d, 0) for d, _ in strides):
+        assert _build.launch_counts()["cooccurrences"] == before + 2
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    # float64 atomics add in no fixed order; compared after the cast.
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("strides", [glove_strides(2), glove_strides(5), ((3, 1.0),),
+                                     ((16, 1.0), (1, 0.5))])
+def test_cooccurrences_kernel_matches_plain(dev, strides):
+    """K13a against its plain version: GloVe's 1/d windows, one Walklets
+    stride, a stride at the walks' length (no pair) beside one that pairs;
+    walks that revisit nodes (the diagonal dropped)."""
+    rng = np.random.default_rng(len(strides))
+    walks = rng.integers(0, 500, (3000, 16)).astype(np.int32)
+    walks[:50, ::2] = 7
+    walks[50] = 11
+    _cooc_against_plain(torch.from_numpy(walks).to(dev), 500, strides)
+
+
+def test_cooccurrences_kernel_on_weighted_walks(dev):
+    g = erdos_renyi(2000, 8000, seed=3, weighted=True)
+    walks = first_order_walks(g.device(dev, with_alias=True),
+                              torch.arange(2000, device=dev, dtype=torch.int32), 12,
+                              torch.Generator().manual_seed(0))
+    _cooc_against_plain(walks, 2000, glove_strides(3))
+
+
+def test_cooccurrences_kernel_without_pairs(dev):
+    walks = torch.zeros((10, 4), dtype=torch.int32, device=dev)
+    got = cooccurrences(walks, 10, [(4, 1.0)])
+    assert all(t.shape == (0,) for t in got)
+
+
+@pytest.mark.parametrize("d", [128, 30])
+def test_glove_step_kernel_matches_plain(dev, d):
+    rng = np.random.default_rng(d)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    e, n, b = 5000, 300, 4096
+    counts = rng.uniform(0.5, 300.0, e).astype(np.float32)
+    entries = Entries(t(rng.integers(0, n, e).astype(np.int32)),
+                      t(rng.integers(0, n, e).astype(np.int32)),
+                      t(np.minimum(1.0, (counts / 100.0) ** 0.75).astype(np.float32)),
+                      t(np.log(counts)))
+    tables = [t(rng.normal(size=s).astype(np.float32)) for s in ((n, d), (n, d), (n,), (n,))]
+    ids = t(rng.integers(0, e, b).astype(np.int32))
+    before = _build.launch_counts()["glove_step"]
+    got = glove_step(entries, ids, *tables)
+    want = glove_step_plain(entries, ids, *tables)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["glove_step"] == before + 1
+    for a, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    # The dot products sum in another order.
+    for a, w in zip(got[2:5], want[2:5]):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)

@@ -193,8 +193,8 @@ def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
 
 def test_runs_where_jax_cannot_be_imported():
     """The port must run on a host without jax: block jax and embiggen_tpu
-    from being imported, train a tiny graph on the CPU, import every module
-    of the port and fit both edge predictors."""
+    from being imported, fit every ported embedder on a tiny graph on the
+    CPU, import every module of the port and fit both edge predictors."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -218,6 +218,11 @@ def test_runs_where_jax_cannot_be_imported():
         "    r = embed_graph(graph, name, device='cpu', smoke_test=True,\n"
         "                    random_state=0)\n"
         "    assert r.node_embeddings[0].shape == (50, 5), name\n"
+        "for name, d in (('Walklets SkipGram', 4), ('Walklets CBOW', 4),\n"
+        "                ('Walklets GloVe', 4), ('Node2Vec GloVe', 5),\n"
+        "                ('DeepWalk GloVe', 5), ('Role2Vec', 5)):\n"
+        "    r = embed_graph(g, name, device='cpu', smoke_test=True, random_state=0)\n"
+        "    assert r.node_embeddings[0].shape == (50, d), name\n"
         "import importlib, pkgutil, embiggen_tpu_torch\n"
         "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
         "                               'embiggen_tpu_torch.'):\n"
