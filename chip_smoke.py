@@ -148,14 +148,41 @@ the exit code is not 0:
      reference's less 0.03), and Node2Vec GloVe features on the gate
      fixture's connected holdout, embedding seeds 0-3, a Perceptron on
      Hadamard alone (mean test AUROC at least the reference's less 0.03);
- 21. with `--profile` only: K3's phase split (gather, scores, gradients)
+ 21. K15a (the min-plus relaxation) against its plain version exactly: 32
+     relaxations at D 100 from the 100 top-degree nodes on the slice graph
+     and on its weighted twin, 8 at D 1 and D 30, 32 at D 30 on a graph of
+     two components and isolated nodes and on a directed graph (each also
+     weighted), with the change flags; WINE's two K7 hops at unit values
+     exactly (K15b); K16a's singletons exactly at precisions 4, 8 and 12,
+     its three hops exactly at 4 and 8 and, at 12, each hop from the one
+     before on a tenth of the rows; K16b at 2^20 pairs (half arcs, half
+     uniform pairs) for H 1-3 at each precision within
+     `tests/hll_checks.py`'s tolerance; each with its time, bound and
+     library call (`torch.sparse.mm` for WINE's hop);
+ 22. S8 through `embed_graph` on the slice graph: Degree-based and
+     Score-based SPINE (D 100, depth 32; seeded scores), WeightedSPINE on
+     the weighted twin, Degree-based WINE (D 100, window 2), RUBICONE and
+     RUINE (D 100, 2 convolutions), HyperSketching (hops 3, precision 8,
+     bits 6) over all 20M arcs, with K15a, K7 or K16 launched; then the
+     bench GCN of phase 6 with lazy HyperSketching features for 2 epochs
+     (K6, K7, K16a, K16b) and with HyperSketching's edge embeddings as a
+     static feature matrix for 1 (K5), each scoring the 20M arcs; seconds,
+     peak memory, and the relaxation after which SPINE's distances stopped
+     changing;
+ 23. S8 quality: the reference's edge-GCN gate with Degree-based SPINE
+     features (seed 0 through `edge_prediction_evaluation`, seeds 1-7 by
+     `_evaluate`): mean test AUPRC at least the reference's less 0.03, and
+     0.80; the reference's HyperSketching GCN test on the gate fixture:
+     AUROC above 0.6;
+ 24. with `--profile` only: K3's phase split (gather, scores, gradients)
      at the flagship shapes, K11's (gather, hidden rows, logits and
      softmax, output and negative gradients, input gradients) and K9's (row
      load, membership and weights, pick) at the S5 shapes, from clock64()
      stamps in a build with EBT_PHASE_CLOCK; then steady steps of S1, of
      the GCN, of S5 and of S6
-     (Second-order LINE, TransE) and of S7 (Walklets SkipGram, Node2Vec
-     GloVe), one line per kernel name with its device
+     (Second-order LINE, TransE), of S7 (Walklets SkipGram, Node2Vec
+     GloVe) and of S8 (the GCN with HyperSketching features), one line per
+     kernel name with its device
      ms per step: the port's kernels on CUDA events around each launch,
      PyTorch's own from torch.profiler.
 Then a JSON line of the kernels (with the build seconds; each with its
@@ -285,6 +312,23 @@ GATE_GLOVE = dict(embedding_size=32, epochs=30, batch_size=64, learning_rate=2.0
                   early_stopping_patience=10**6, learning_rate_plateau_patience=10**6)
 GATE_GLOVE_SEEDS = range(4)
 GATE_REFERENCE_GLOVE_AUROC = 0.7017104723535372
+# S8: SPINE at its defaults (D 100, depth 32), WINE at D 100 and window 2,
+# RUBICONE and RUINE at D 100 and 2 convolutions, HyperSketching at its
+# defaults (hops 3, precision 8, bits 6); K16b at 2^20 pairs.
+S8_DIM, S8_DEPTH, S8_WINDOW = 100, 32, 2
+HLL_HOPS, HLL_PRECISION, HLL_BITS = 3, 8, 6
+K16B_PAIRS = 1 << 20
+# The reference's edge-GCN gate with its own node features, Degree-based
+# SPINE: the reference's mean test AUPRC over GATE_SEEDS, measured with
+# embiggen_tpu on the CPU (tests/test_torch_spine_gate.py says how). The
+# reference's HyperSketching GCN test (tests/test_gcn_edge_features.py) and
+# its AUROC floor.
+GATE_REFERENCE_SPINE_GCN_AUPRC = 0.9654934446163882
+GATE_SKETCH_GCN = dict(units=[8], tower_units=[8], head_units=[8], epochs=60,
+                       learning_rate=0.05, batch_size=64, use_node_embedding=True,
+                       node_embedding_size=8, dropout_rate=0.1, random_state=0)
+GATE_SKETCH = dict(number_of_hops=2, precision=6, random_state=0)
+GATE_SKETCH_FLOOR = 0.6
 K3_SUMS_TOL = dict(rtol=1e-4, atol=1e-5)    # sums in another order
 K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
 # The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
@@ -579,7 +623,9 @@ KERNEL_NAMES = {
     "mean_scatter": "scatter_add_rows_kernel", "mean_combine": "mean_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
     "walklets_update": "walklets_kernel", "cooccurrences": "cooc_",
-    "glove_step": "glove_step_kernel",
+    "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
+    "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
+    "edge_sketch_features": "edge_features_kernel",
 }
 
 
@@ -713,7 +759,7 @@ def k3_phase_line(card, dev):
     sums = SkipGramSums.zeros(N_NODES, DIM, dev)
     shares = skipgram.phase_split(*args, sums)
     ms = time_ms(lambda: skipgram.skipgram_nce_update(*args, sums), 10)
-    print(f"phase 21 K3 phase split on {card}: kernel {ms:.3f} ms; "
+    print(f"phase 24 K3 phase split on {card}: kernel {ms:.3f} ms; "
           + "; ".join(f"{k} {v:.4f} of block time = {v * ms:.3f} ms"
                       for k, v in shares.items()), flush=True)
     return dict(ms=ms, **shares)
@@ -755,7 +801,7 @@ def s5_phase_lines(card, graph, dev):
     torch.cuda.empty_cache()
     for name, split in out.items():
         ms = split["ms"]
-        print(f"phase 21 {'K11' if name == 'cbow_update' else 'K9'} phase split on {card}: "
+        print(f"phase 24 {'K11' if name == 'cbow_update' else 'K9'} phase split on {card}: "
               f"kernel {ms:.4f} ms; " + "; ".join(
                   f"{k} {v:.4f} of {'block' if name == 'cbow_update' else 'walker'} time "
                   f"= {v * ms:.4f} ms" for k, v in split.items() if k != "ms"), flush=True)
@@ -765,7 +811,7 @@ def s5_phase_lines(card, graph, dev):
 def print_profile(name, card, rows, step_ms, kept):
     busy = sum(ms for ms, _, _ in rows.values())
     port = sum(ms for ms, _, how in rows.values() if how == "events")
-    print(f"phase 21 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
+    print(f"phase 24 profile {name} on {card}: {PROFILE_STEPS} steady steps, "
           f"{step_ms:.3f} ms per step (CUDA events), kernels {busy:.3f} ms "
           f"per step ({port:.3f} of the port's on their launches' events, the rest "
           f"from torch.profiler), device busy share {busy / step_ms:.3f}; the "
@@ -2426,6 +2472,354 @@ def s7_quality_on_card(card, dev):
     return walklets, glove
 
 
+# ------------------------------------------------------------------- S8
+def s8_graphs(dev):
+    """Graphs for K15a's edge cases: two components with 10,000 isolated
+    nodes, and a directed graph; both weighted."""
+    from embiggen_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(30)
+    a = rng.integers(0, 40_000, (2, 200_000))
+    b = rng.integers(40_000, 90_000, (2, 250_000))
+    components = Graph.from_edge_arrays(
+        np.concatenate([a[0], b[0]]), np.concatenate([a[1], b[1]]), n_nodes=100_000,
+        weights=rng.uniform(0.1, 3.0, 450_000).astype(np.float32))
+    src, dst = rng.integers(0, 100_000, (2, 500_000))
+    directed = Graph.from_edge_arrays(src, dst, n_nodes=100_000, directed=True,
+                                      weights=rng.uniform(0.1, 3.0, 500_000).astype(np.float32))
+    return {"components": components, "directed": directed}
+
+
+def degree_anchors(graph, d):
+    """SPINE's anchor sets: the d nodes of highest degree, one a set."""
+    return [[v] for v in np.argsort(-graph.degrees, kind="stable")[:d]]
+
+
+def plain_distances(tg, init, depth, weighted):
+    from embiggen_tpu_torch.ops.bfs import min_plus_step_plain
+
+    dist = init
+    for _ in range(depth):
+        dist = min_plus_step_plain(tg, dist, weighted)
+    return dist
+
+
+def exact_err(name, got, want) -> float:
+    """0.0 when `got` equals `want` exactly; raises otherwise."""
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: max abs err "
+                             f"{float((got.double() - want.double()).abs().max())}, not exact")
+    return 0.0
+
+
+def k15_checks(graph, weighted, dev):
+    """K15a against its plain version, exactly: 32 relaxations at D 100 on
+    the slice graph and on its weighted twin, 8 at D 1 and D 30 (not a
+    multiple of 4), 32 at D 30 on s8_graphs' graphs (each also weighted),
+    with the change flags; WINE's two K7 hops at unit values exactly.
+    Returns their kernels entries, timed at the slice shapes, and the
+    iteration after which the slice graph's distances stopped changing."""
+    from embiggen_tpu_torch.ops.bfs import (
+        anchor_init_from_sets, min_plus_step, min_plus_step_plain, multi_source_distances,
+        unit_kernel, window_cooccurrence_counts,
+    )
+    from embiggen_tpu_torch.ops.spmm import csr_spmm, csr_spmm_plain
+
+    errs, settled = {}, {}
+    init = anchor_init_from_sets(N_NODES, degree_anchors(graph, S8_DIM), dev)
+    for name, g, w in (("slice", graph, False), ("weighted twin", weighted, True)):
+        tg = g.device(dev)
+        changes = torch.zeros(S8_DEPTH, dtype=torch.int32, device=dev)
+        got = multi_source_distances(tg, init, S8_DEPTH, w, changes)
+        errs[f"D {S8_DIM} {name}"] = exact_err(f"K15a {name}", got,
+                                               plain_distances(tg, init, S8_DEPTH, w))
+        moved = torch.nonzero(changes).flatten()
+        settled[name] = int(moved[-1]) + 1 if len(moved) else 0
+        del got
+    tg = graph.device(dev)
+    for d in (1, 30):
+        small_init = anchor_init_from_sets(N_NODES, degree_anchors(graph, d), dev)
+        errs[f"D {d}"] = exact_err(f"K15a D {d}", multi_source_distances(tg, small_init, 8),
+                                   plain_distances(tg, small_init, 8, False))
+    for name, g in s8_graphs(dev).items():
+        g_init = anchor_init_from_sets(g.number_of_nodes, degree_anchors(g, 30), dev)
+        gt = g.device(dev)
+        for w in (False, True):
+            changes = torch.zeros(S8_DEPTH, dtype=torch.int32, device=dev)
+            want_changes = torch.zeros(S8_DEPTH, dtype=torch.int32, device=dev)
+            got = multi_source_distances(gt, g_init, S8_DEPTH, w, changes)
+            want = g_init
+            for i in range(S8_DEPTH):
+                want = min_plus_step_plain(gt, want, w, want_changes[i:i + 1])
+            errs[f"{name}{' weighted' if w else ''}"] = exact_err(f"K15a {name}", got, want)
+            exact_err(f"K15a change flags {name}", changes, want_changes)
+    # Timed on the distances after three relaxations, mid-run.
+    dist = multi_source_distances(tg, init, 3)
+    out = torch.empty_like(dist)
+    wtg = weighted.device(dev)
+    e, n, d = tg.n_arcs, N_NODES, S8_DIM
+    entries = {"min_plus_step": dict(
+        source="embiggen_tpu_torch/csrc/bfs.cu", replaces="embiggen_tpu/ops/bfs.py:25",
+        max_abs_err=max(errs.values()),
+        ms=time_ms(lambda: min_plus_step(tg, dist, False, None, out), 20),
+        plain_ms=time_ms(lambda: min_plus_step_plain(tg, dist, False), 3),
+        weighted_ms=time_ms(lambda: min_plus_step(wtg, dist, True, None, out), 20),
+        library_ms=None,
+        # dist in and out, the CSR; an add and a min per gathered float.
+        **bound(4 * (2 * n * d + n + 1 + e), 2 * e * d))}
+    membership = (init == 0).float()
+    k = unit_kernel(tg)
+    reach, want = membership, torch.zeros_like(membership)
+    for _ in range(S8_WINDOW):
+        reach = csr_spmm_plain(k, reach)
+        want = want + reach
+    window_err = exact_err("K15b window counts",
+                           window_cooccurrence_counts(tg, membership, S8_WINDOW), want)
+    a = torch.sparse_csr_tensor(k.row_ptr, k.cols, k.vals, size=(n, n))
+    entries["window_cooccurrence_counts"] = dict(
+        source="embiggen_tpu_torch/csrc/spmm.cu", replaces="embiggen_tpu/ops/bfs.py:68",
+        max_abs_err=window_err,
+        ms=time_ms(lambda: csr_spmm(k, membership), 20),
+        plain_ms=time_ms(lambda: csr_spmm_plain(k, membership), 3),
+        library_ms=time_ms(lambda: torch.sparse.mm(a, membership), 20),
+        library="torch.sparse.mm (cuSPARSE)",
+        # one hop: x in, the sums out, the CSR (unit weights need no values).
+        **bound(4 * (2 * n * d + n + 1 + e), 2 * e * d))
+    del dist, out, membership, reach, want, a, k, init
+    return entries, errs, settled
+
+
+def k16_checks(graph, dev):
+    """K16a against its plain version exactly on the slice graph: the
+    singletons and the three hops at precisions 4, 8 and 12 (bits 6),
+    whole; K16b at K16B_PAIRS pairs (half arcs, half uniform pairs) for H
+    1-3 at each precision, within tests/hll_checks.py's tolerance. Returns
+    their kernels entries, timed at HyperSketching's defaults, the errors
+    by case, and the seconds of the plain hops at each precision."""
+    from embiggen_tpu_torch.ops.hll import (
+        edge_sketch_features, edge_sketch_features_plain, khop_sketches, khop_sketches_plain,
+        singleton_registers, singleton_registers_plain,
+    )
+
+    checks = laws_module("hll_checks")
+    tg = graph.device(dev)
+    rng = np.random.default_rng(31)
+    arcs = rng.integers(0, graph.number_of_directed_edges, K16B_PAIRS // 2)
+    src = torch.from_numpy(np.concatenate([graph.sources[arcs], rng.integers(
+        0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
+    dst = torch.from_numpy(np.concatenate([graph.col_idx[arcs], rng.integers(
+        0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
+    distinct = int(torch.unique(torch.cat([src, dst])).numel())
+    errs, entries, plain_s = {}, {}, {}
+    for p in (HLL_PRECISION, 4, 12):
+        base = singleton_registers(N_NODES, p, HLL_BITS, 42, dev)
+        errs[f"registers p {p}"] = exact_err(
+            f"K16a singletons p {p}", base,
+            singleton_registers_plain(N_NODES, p, HLL_BITS, 42, dev))
+        sk = khop_sketches(tg, base, HLL_HOPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = khop_sketches_plain(tg, base, HLL_HOPS)
+        torch.cuda.synchronize()
+        plain_s[p] = time.perf_counter() - t0
+        errs[f"hops p {p}"] = exact_err(f"K16a hops p {p}", sk, want)
+        del want
+        for h in (1, 2, 3):
+            skh = sk if h == HLL_HOPS else sk[:, :h].contiguous()
+            got = edge_sketch_features(skh, src, dst, p)
+            want = edge_sketch_features_plain(skh, src, dst, p)
+            worst, ties = checks.feature_errors(skh, src, dst, p, got, want)
+            if not worst <= 1.0 or ties > checks.MAX_TIE_SHARE * K16B_PAIRS:
+                raise AssertionError(f"K16b p {p} H {h}: error {worst} of its tolerance, "
+                                     f"{ties} near ties")
+            errs[f"features p {p} H {h} (share of tolerance; ties {ties})"] = worst
+            del got, want, skh
+        if p == HLL_PRECISION:
+            m = 1 << p
+            n_feat = HLL_HOPS ** 2 + 2 * HLL_HOPS
+            entries["hll_registers"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:32",
+                max_abs_err=0.0,
+                ms=time_ms(lambda: singleton_registers(N_NODES, p, HLL_BITS, 42, dev), 20),
+                plain_ms=time_ms(lambda: singleton_registers_plain(
+                    N_NODES, p, HLL_BITS, 42, dev), 3),
+                library_ms=None,
+                **bound(N_NODES * m, 0))   # the registers written
+            entries["khop_sketches"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
+                max_abs_err=0.0,
+                ms=time_ms(lambda: khop_sketches(tg, base, 1), 20),
+                plain_ms=time_ms(lambda: khop_sketches_plain(tg, base, 1), 3),
+                library_ms=None,
+                # a hop: registers in and out, the CSR; a byte max per
+                # gathered register.
+                **bound(2 * N_NODES * m + 4 * (N_NODES + 1 + tg.n_arcs), tg.n_arcs * m))
+            entries["edge_sketch_features"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:90",
+                max_abs_err=None,   # set below, over every precision
+                max_err_unit="share of tests/hll_checks.py's tolerance",
+                distinct_nodes=distinct,
+                ms=time_ms(lambda: edge_sketch_features(sk, src, dst, p), 20),
+                plain_ms=time_ms(lambda: edge_sketch_features_plain(sk, src, dst, p), 3),
+                library_ms=None,
+                # the registers of each distinct node the pairs name, the
+                # ids, the features out; a term of 2^-r per register of each
+                # of the 2H + H^2 sets.
+                **bound(distinct * HLL_HOPS * m + K16B_PAIRS * (8 + 4 * n_feat),
+                        K16B_PAIRS * (2 * HLL_HOPS + HLL_HOPS ** 2) * m))
+        del base, sk
+        torch.cuda.empty_cache()
+    entries["edge_sketch_features"]["max_abs_err"] = max(
+        v for k, v in errs.items() if k.startswith("features"))
+    return entries, errs, plain_s
+
+
+def s8_run(run):
+    """(result, launch counts, seconds, peak device bytes) of `run()` with the
+    counts set to 0 just before it."""
+    from embiggen_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, _build.launch_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def s8_quality_on_card(card, dev):
+    """The reference's edge-GCN gate with its own node features, Degree-based
+    SPINE (`tests/test_quality_gates.py:92-111`): model seed 0 verbatim
+    through `edge_prediction_evaluation`, seeds 1-7 on the same connected
+    holdout's SPINE features by `_evaluate` (`tests/test_torch_spine_gate.py`);
+    the mean test AUPRC must reach the reference's less 0.03, and 0.80. Then
+    the reference's HyperSketching GCN test (`tests/test_gcn_edge_features.py`)
+    on the gate fixture (its karate fixture waits for node types): AUROC of
+    the test edges against as many sampled negatives above 0.6. Returns
+    (per-seed AUPRC, the gate's launch counts, the sketch GCN's AUROC)."""
+    from embiggen_tpu_torch.graph import (
+        connected_holdout, random_geometric, sample_negative_graph,
+    )
+    from embiggen_tpu_torch.models.edge_features import HyperSketching
+    from embiggen_tpu_torch.models.embedders import DegreeSPINE
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, KipfGCNEdgePrediction
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.metrics import binary_auroc
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    _build.reset_launch_counts()
+    rows = edge_prediction_evaluation(
+        holdouts_number=1, models=GCNEdgePrediction(device=dev, **GATE_GCN), graphs=rgg,
+        node_features="Degree-based SPINE", evaluation_schema="Connected Monte Carlo",
+        random_state=3)
+    launches = _build.launch_counts()
+    auprc = [next(r["auprc"] for r in rows if r["evaluation_mode"] == "test")]
+    train, test = connected_holdout(rgg, random_state=3)
+    spine = DegreeSPINE(device=dev).fit_transform(train).node_embeddings[0]
+    for seed in GATE_SEEDS[1:]:
+        model = GCNEdgePrediction(device=dev, **GATE_GCN)
+        model.set_random_state(seed)
+        model.fit(train, support=train, node_features=spine)
+        got = {r["evaluation_mode"]: r for r in
+               model._evaluate(rgg, train, test, support=train, random_state=3)}
+        auprc.append(got["test"]["auprc"])
+    floor = max(0.80, GATE_REFERENCE_SPINE_GCN_AUPRC - 0.03)
+    if not np.mean(auprc) >= floor:
+        raise AssertionError(f"SPINE GCN gate mean test AUPRC {np.mean(auprc)} on {card} is "
+                             f"below {floor}: {auprc}")
+    train, test = connected_holdout(rgg, train_size=0.8, random_state=0)
+    model = KipfGCNEdgePrediction(
+        device=dev, edge_feature_models=[HyperSketching(device=dev, **GATE_SKETCH)],
+        **GATE_SKETCH_GCN)
+    model.fit(train, support=train)
+    neg = sample_negative_graph(rgg, test.number_of_edges, random_state=1)
+    pos_scores, neg_scores = model.predict_proba(test), model.predict_proba(neg)
+    labels = np.concatenate([np.ones(len(pos_scores)), np.zeros(len(neg_scores))])
+    auroc = binary_auroc(labels, np.concatenate([pos_scores, neg_scores]))
+    if not (np.isfinite(pos_scores).all() and auroc > GATE_SKETCH_FLOOR):
+        raise AssertionError(f"HyperSketching GCN on {card}: AUROC {auroc}")
+    return auprc, launches, auroc
+
+
+def s8_runs(graph, weighted_graph, dev):
+    """S8 through the user's entry points on the slice graph and its
+    weighted twin: Degree- and Score-based SPINE (seeded scores),
+    WeightedSPINE, Degree-based WINE, RUBICONE, RUINE and HyperSketching
+    through `embed_graph` at their defaults (D 100), each with its launches
+    checked; then the bench GCN (phase 6's seeded features) with lazy
+    HyperSketching features for 2 epochs, and with HyperSketching's edge
+    embeddings as a static feature matrix for 1, each fitted and scoring
+    the graph's arcs. Returns ({name: (model, launches, seconds, peak
+    bytes)}, {label: (model, launches, fit seconds, predict seconds, peak
+    bytes)})."""
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.edge_features import HyperSketching
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    scores = np.random.default_rng(0).random(N_NODES)
+    s8 = {}
+    for name, g, kw, names, unused in (
+        ("Degree-based SPINE", graph, {}, S8_SPINE_KERNELS, S8_SPINE_UNUSED),
+        ("Score-based SPINE", graph, dict(scores=scores), S8_SPINE_KERNELS, S8_SPINE_UNUSED),
+        ("WeightedSPINE", weighted_graph, {}, S8_SPINE_KERNELS, S8_SPINE_UNUSED),
+        ("Degree-based WINE", graph, dict(window_size=S8_WINDOW), S8_CONV_KERNELS,
+         S8_CONV_UNUSED),
+        ("RUBICONE", graph, dict(number_of_convolutions=2, random_state=0), S8_CONV_KERNELS,
+         S8_CONV_UNUSED),
+        ("RUINE", graph, dict(number_of_convolutions=2, random_state=0), S8_CONV_KERNELS,
+         S8_CONV_UNUSED),
+        ("HyperSketching", graph, dict(number_of_hops=HLL_HOPS, precision=HLL_PRECISION,
+                                       bits=HLL_BITS), S8_SKETCH_KERNELS, S8_SKETCH_UNUSED),
+    ):
+        sketch = name == "HyperSketching"
+        if not sketch:
+            kw = dict(kw, embedding_size=S8_DIM)
+        model = get_model_from_library(name, task_name="Node Embedding")(device=dev, **kw)
+        result, counts, secs, peak = s8_run(lambda: embed_graph(g, model))
+        emb = result.edge_embeddings[0] if sketch else result.node_embeddings[0]
+        shape = ((g.number_of_directed_edges, HLL_HOPS ** 2 + 2 * HLL_HOPS) if sketch
+                 else (N_NODES, S8_DIM))
+        if emb.shape != shape or not np.isfinite(emb.astype(np.float32)).all():
+            raise AssertionError(f"{name}: shape {emb.shape} or non-finite values")
+        s8[name] = (model, check_launches(name, counts, names, unused), secs, peak)
+        if sketch:
+            hs_edges = emb
+        del result, emb
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    s8_gcn = {}
+    for label, kw, fit_kw, epochs, names, unused in (
+        ("GCN + HyperSketching", dict(edge_feature_models=[HyperSketching(device=dev)]), {}, 2,
+         S8_GCN_KERNELS, S8_GCN_UNUSED),
+        ("GCN + static edge features", {}, dict(edge_features=[hs_edges]), 1,
+         S8_GCN_STATIC_KERNELS, S8_SKETCH_KERNELS),
+    ):
+        model = GCNEdgePrediction(epochs=epochs, batch_size=GCN_BATCH, dropout_rate=0.0,
+                                  early_stopping_patience=10**6, random_state=0,
+                                  device=dev, **kw)
+
+        def fit_predict(model=model, fit_kw=fit_kw):
+            t0 = time.perf_counter()
+            model.fit(graph, node_features=feats, **fit_kw)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            return fit_s, model.predict_proba(graph)
+
+        (fit_s, proba), counts, secs, peak = s8_run(fit_predict)
+        if len(model._history) != epochs or not np.isfinite(model._history).all():
+            raise AssertionError(f"{label} epoch losses {model._history}")
+        if proba.shape != (graph.number_of_directed_edges,) or not np.isfinite(proba).all():
+            raise AssertionError(f"{label} scores: wrong shape or non-finite values")
+        s8_gcn[label] = (model, check_launches(label, counts, names, unused), fit_s,
+                         secs - fit_s, peak)
+        del proba
+        torch.cuda.empty_cache()
+    return s8, s8_gcn
+
+
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
@@ -2467,6 +2861,19 @@ S7_GLOVE_UNUSED = ("walklets_update", "skipgram_nce_update", "skipgram_mean_comb
 S7_ROLE2VEC_KERNELS = ("nce_negatives", "first_order_walks")
 S7_ROLE2VEC_UNUSED = ("walklets_update", "skipgram_nce_update", "cbow_update", "cooccurrences",
                       "glove_step", "skipgram_mean_combine", "ell_walks")
+# S8: SPINE relaxes with K15a; WINE hops, and RUBICONE and RUINE convolve,
+# with K7; HyperSketching sketches with K16a and queries K16b; the GCN with
+# lazy HyperSketching features adds K16 to its own kernels, and with a static
+# edge-feature matrix K5's arc lookup.
+S8_SKETCH_KERNELS = ("hll_registers", "khop_sketches", "edge_sketch_features")
+S8_SPINE_KERNELS = ("min_plus_step",)
+S8_SPINE_UNUSED = ("spmm",) + S8_SKETCH_KERNELS
+S8_CONV_KERNELS = ("spmm",)
+S8_CONV_UNUSED = ("min_plus_step",) + S8_SKETCH_KERNELS
+S8_SKETCH_UNUSED = ("min_plus_step", "spmm")
+S8_GCN_KERNELS = S3_KERNELS + S8_SKETCH_KERNELS
+S8_GCN_UNUSED = ("csr_edge_ids", "min_plus_step")
+S8_GCN_STATIC_KERNELS = S3_KERNELS + ("csr_edge_ids",)
 
 
 def check_launches(path, counts, names, unused=()):
@@ -2484,8 +2891,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also K3's, K11's and K9's phase splits, and profiles of "
-                             "steady S1, GCN, S5, S6 and S7 steps")
+                             "steady S1, GCN, S5, S6, S7 and S8 steps")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     # ---------------------------------------------------------------- 1. card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3037,7 +3445,65 @@ def main() -> None:
           f"{GATE_REFERENCE_GLOVE_AUROC - 0.03:.4f}; per seed "
           f"{[round(a, 4) for a in glove_auroc]})", flush=True)
 
-    # -------------------------------------------------- 21. profile (option)
+    # ------------------------------- 21. K15a, K15b, K16a, K16b vs plain (S8)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    weighted_graph = erdos_renyi(N_NODES, N_EDGES, seed=0, weighted=True)
+    twin_s = time.perf_counter() - t0
+    new, k15_errs, settled = k15_checks(graph, weighted_graph, dev)
+    torch.cuda.empty_cache()
+    k16, k16_errs, k16_plain_s = k16_checks(graph, dev)
+    new.update(k16)
+    kernels.update(new)
+    torch.cuda.empty_cache()
+    print(f"phase 21 K15a, K15b, K16a, K16b vs plain on {card} "
+          f"({time.perf_counter() - t_phase:.1f} s; weighted twin built in {twin_s:.1f} s; ms "
+          f"per call: K15a one relaxation at D {S8_DIM}, K15b one hop at D {S8_DIM}, K16a "
+          f"the singletons and one hop at precision {HLL_PRECISION}, K16b {K16B_PAIRS} pairs "
+          f"at H {HLL_HOPS}): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None else "")
+              for k, v in new.items())
+          + f" | K15a weighted ms {new['min_plus_step']['weighted_ms']:.4f} | K15a and K15b "
+          f"exact by case: {k15_errs} | SPINE's distances stop changing after {settled} "
+          f"relaxations of {S8_DEPTH} | K16 by case (K16b: largest error as a share of "
+          f"its tolerance): {k16_errs} | K16a's {HLL_HOPS} plain hops took "
+          + ", ".join(f"{t:.2f} s at precision {p}" for p, t in k16_plain_s.items())
+          + f" | K16b's pairs name {k16['edge_sketch_features']['distinct_nodes']} distinct "
+          "nodes", flush=True)
+
+    # ------------------------------------------------------------ 22. S8
+    t_phase = time.perf_counter()
+    s8, s8_gcn = s8_runs(graph, weighted_graph, dev)
+    gcn_hs = s8_gcn["GCN + HyperSketching"][0]
+    print(f"phase 22 S8 on {card} ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(
+        f"{name}: {secs:.2f} s, peak {peak} bytes, launches {got}"
+        for name, (_, got, secs, peak) in s8.items())
+        + " | " + " | ".join(
+            f"{label} (units 128-128, batch {m._run_batch_size}, {m._steps_per_epoch} "
+            f"steps/epoch): fit {fit_s:.2f} s, s/epoch {m._epoch_seconds}, step ms "
+            f"{[s / m._steps_per_epoch * 1e3 for s in m._epoch_seconds]}, losses "
+            f"{m._history}, predict_proba on {graph.number_of_directed_edges} arcs "
+            f"{pred_s:.2f} s, peak {peak} bytes, launches {got}"
+            for label, (m, got, fit_s, pred_s, peak) in s8_gcn.items()), flush=True)
+
+    # --------------------------------------------------- 23. S8 quality
+    t_phase = time.perf_counter()
+    spine_auprc, spine_launches, sketch_auroc = s8_quality_on_card(card, dev)
+    spine_launches = check_launches("SPINE gate", spine_launches,
+                                    S3_KERNELS + S8_SPINE_KERNELS)
+    print(f"phase 23 S8 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: the GCN gate with "
+          "Degree-based SPINE features, seed 0 through edge_prediction_evaluation, mean test "
+          f"AUPRC over seeds 0-7 {np.mean(spine_auprc):.4f} (threshold the reference's "
+          f"{GATE_REFERENCE_SPINE_GCN_AUPRC:.4f} less 0.03 = "
+          f"{GATE_REFERENCE_SPINE_GCN_AUPRC - 0.03:.4f}, and 0.80; per seed "
+          f"{[round(a, 4) for a in spine_auprc]}), launches {spine_launches}; Kipf GCN with "
+          f"HyperSketching features (hops 2, precision 6) on its connected holdout 0: AUROC "
+          f"{sketch_auroc:.4f} (floor {GATE_SKETCH_FLOOR})", flush=True)
+
+    # -------------------------------------------------- 24. profile (option)
     if args.profile:
         k3_phase_line(card, dev)
         torch.cuda.empty_cache()
@@ -3053,6 +3519,8 @@ def main() -> None:
             embedder_step(s7["Walklets SkipGram"][0], graph), PROFILE_STEPS))
         print_profile("S7 Node2Vec GloVe", card, *profile(
             minibatch_step(s7["Node2Vec GloVe"][0], graph), PROFILE_STEPS))
+        print_profile("S8 GCN + HyperSketching", card, *profile(gcn_step(gcn_hs, graph),
+                                                                PROFILE_STEPS))
 
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -3064,7 +3532,11 @@ def main() -> None:
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
                 **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1],
                 "walklets_update": s7["Walklets SkipGram"][1]["walklets_update"],
-                **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences", "glove_step")}}
+                **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences", "glove_step")},
+                "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
+                "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
+                **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS}}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0), **v}

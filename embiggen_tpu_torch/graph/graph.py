@@ -198,6 +198,11 @@ class Graph:
         return self.weights is not None
 
     @property
+    def has_node_types(self) -> bool:
+        """Always False: node types come with ROADMAP A6."""
+        return False
+
+    @property
     def has_edge_types(self) -> bool:
         return self.edge_types is not None
 

@@ -65,6 +65,14 @@ class AbstractModel:
         return False
 
     @classmethod
+    def requires_edge_weights(cls) -> bool:
+        return False
+
+    @classmethod
+    def requires_node_types(cls) -> bool:
+        return False
+
+    @classmethod
     def is_topological(cls) -> bool:
         """Whether the features this model produces depend on graph topology
         (the evaluation harness refits such features per holdout)."""
@@ -160,6 +168,16 @@ class AbstractEmbeddingModel(AbstractModel):
             raise ValueError(f"Graph {graph.name} has no nodes.")
         if graph.number_of_directed_edges == 0:
             raise ValueError(f"Graph {graph.name} has no edges.")
+        if self.requires_edge_weights() and not graph.has_edge_weights:
+            raise ValueError(
+                f"Model {self.model_name()} requires edge weights but graph "
+                f"{graph.name} has none."
+            )
+        if self.requires_node_types() and not graph.has_node_types:
+            raise ValueError(
+                f"Model {self.model_name()} requires node types but graph "
+                f"{graph.name} has none."
+            )
         if self.requires_edge_types() and not graph.has_edge_types:
             raise ValueError(
                 f"Model {self.model_name()} requires edge types but graph "

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 import platform
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -116,6 +116,43 @@ class AbstractClassifierModel(AbstractModel):
             raise ValueError("Node features contain NaN or Inf values.")
         return arr
 
+    def normalize_edge_features(self, graph: Graph, edge_features
+                                ) -> Optional[Tuple[List[Any], List[np.ndarray]]]:
+        """(lazy models, static matrices) of `edge_features`, in their order
+        within each kind. Lazy edge-feature models (anything with `fit` and
+        `device_feature_fn`; a name builds one on this model's device) pass
+        through; arrays and DataFrames must be [n_directed_edges, d] and
+        finite, and become float32 arrays."""
+        if edge_features is None:
+            return None
+        if not isinstance(edge_features, list):
+            edge_features = [edge_features]
+        lazy: List[Any] = []
+        static: List[np.ndarray] = []
+        for feature in edge_features:
+            if isinstance(feature, str):
+                from .registry import get_model_from_library
+
+                feature = get_model_from_library(
+                    feature, task_name="Node Embedding")(device=self._device)
+            if hasattr(feature, "device_feature_fn"):
+                lazy.append(feature)
+                continue
+            arr = (feature.to_numpy(dtype=np.float32) if hasattr(feature, "loc")
+                   else np.asarray(feature, dtype=np.float32))
+            if arr.ndim == 1:
+                arr = arr[:, None]
+            if arr.shape[0] != graph.number_of_directed_edges:
+                raise ValueError(
+                    f"Edge feature has {arr.shape[0]} rows but graph "
+                    f"{graph.name} has {graph.number_of_directed_edges} "
+                    "directed edges."
+                )
+            if not np.isfinite(arr).all():
+                raise ValueError("Edge features contain NaN or Inf values.")
+            static.append(arr)
+        return lazy, static
+
     # Capability flags: a feature kwarg is either consumed or rejected,
     # never silently dropped.
     @classmethod
@@ -168,27 +205,28 @@ class AbstractClassifierModel(AbstractModel):
     ) -> "AbstractClassifierModel":
         if graph.number_of_directed_edges == 0:
             raise ValueError(f"Graph {graph.name} has no edges.")
-        for provided, flag, kind, item in (
+        for provided, flag, kind in (
             (node_type_features, self.can_use_node_type_features(),
-             "node_type_features", "A6"),
+             "node_type_features"),
             (edge_type_features, self.can_use_edge_type_features(),
-             "edge_type_features", "A6"),
-            (edge_features, self.can_use_edge_features(), "edge_features",
-             "A11"),
+             "edge_type_features"),
+            (edge_features, self.can_use_edge_features(), "edge_features"),
         ):
-            if provided is None:
-                continue
-            if not flag:
+            if provided is not None and not flag:
                 raise ValueError(
                     f"{self.model_name()} ({self.library_name()}) does not "
                     f"support {kind}; they would be silently ignored."
                 )
-            raise NotImplementedError(
-                f"{kind} are not ported yet (ROADMAP {item}).")
+        for provided, kind in ((node_type_features, "node_type_features"),
+                               (edge_type_features, "edge_type_features")):
+            if provided is not None:
+                raise NotImplementedError(f"{kind} are not ported yet (ROADMAP A6).")
         node_features = self.normalize_node_features(graph, node_features)
+        edge_kwargs = ({} if edge_features is None else
+                       {"edge_features": self.normalize_edge_features(graph, edge_features)})
         try:
             self._fit(graph, support=support or graph,
-                      node_features=node_features)
+                      node_features=node_features, **edge_kwargs)
         except NotImplementedError:
             raise
         except Exception as exc:

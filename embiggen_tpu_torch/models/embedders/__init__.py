@@ -4,6 +4,10 @@ from .glove import DeepWalkGloVe, GloVe
 from .line import FirstOrderLINE, SecondOrderLINE
 from .minibatch import MinibatchEmbedder
 from .siamese import SiameseEmbedder, StructuredEmbedding, TransE, TransH, Unstructured
+from .spine import (
+    RUBICONE, RUINE, DegreeSPINE, DegreeWINE, NodeLabelSPINE, NodeLabelWINE, ScoreSPINE,
+    ScoreWINE, WeightedSPINE,
+)
 from .walk_based import (
     CBOW, DeepWalkCBOW, DeepWalkSkipGram, Node2Vec, SkipGram, WalkBasedEmbedder,
 )
@@ -13,4 +17,6 @@ __all__ = ["WalkBasedEmbedder", "SkipGram", "CBOW", "DeepWalkSkipGram",
            "DeepWalkCBOW", "Node2Vec", "MinibatchEmbedder", "FirstOrderLINE",
            "SecondOrderLINE", "SiameseEmbedder", "Unstructured", "TransE", "TransH",
            "StructuredEmbedding", "WalkletsSkipGram", "WalkletsCBOW", "WalkletsGloVe",
-           "GloVe", "DeepWalkGloVe", "Role2Vec"]
+           "GloVe", "DeepWalkGloVe", "Role2Vec", "DegreeSPINE", "DegreeWINE",
+           "NodeLabelSPINE", "NodeLabelWINE", "ScoreSPINE", "ScoreWINE", "WeightedSPINE",
+           "RUBICONE", "RUINE"]

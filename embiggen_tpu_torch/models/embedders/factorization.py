@@ -1,6 +1,6 @@
 """Role2Vec — counterpart of
 `embiggen_tpu/models/embedders/factorization.py::Role2Vec`, single device.
-The module's other models (NetMF ... NNSED) come with ROADMAP A11.
+The module's other models (NetMF ... NNSED) come with ROADMAP A11b.
 
 Walks are drawn as SkipGram's are (K2 for the starts, then K1, or K9 / K10
 for p/q walks) and cut into windows; each context node is replaced by its

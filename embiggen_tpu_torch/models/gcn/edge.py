@@ -7,13 +7,17 @@ transposed backward), draws an edge minibatch on the device (kernel K6:
 uniform positive arcs and scale-free negatives), scores the pairs through
 the towers, the edge combination and the head, and takes an Adam step on
 the logistic loss. Inference convolves once and scores candidate pairs in
-chunks. With `use_edge_metrics`, the edge heuristics of each pair over the
-support graph (kernel K8) join the edge representation before the head.
+chunks. Edge features join the edge representation before the head, in
+the reference's order and with no gradient: lazy edge-feature models
+(`edge_feature_models`, or models among `fit`'s `edge_features`, such as
+HyperSketching) fitted on the support graph and queried per batch (kernel
+K16b); static [arcs, d] matrices looked up by arc id (kernel K5), a zeros
+row for non-edges; with `use_edge_metrics`, the edge heuristics of each
+pair over the support graph (kernel K8).
 
 Not ported yet, each raising NotImplementedError that names its item:
-edge types and the edge-type embedding (A6), static or lazy edge features
-(A11), `mesh` (A13) and `checkpoint_dir` (A12); the edge-label GCN comes
-with A10.
+edge types and the edge-type embedding (A6), `mesh` (A13) and
+`checkpoint_dir` (A12); the edge-label GCN comes with A10.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from ...graph.graph import Graph
 from ...ops import edge_ops
 from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
 from ...ops.negatives import edge_prediction_mini_batch
+from ...ops.walks import csr_edge_ids
 from ..classifier import AbstractClassifierModel
 from ..edge_prediction.model import AbstractEdgePredictionModel
 from ..embedders.walk_based import _device_generator
@@ -81,7 +86,6 @@ class _EdgeGCNBase(AbstractClassifierModel):
             (checkpoint_dir is not None, "A12", "checkpoint_dir: checkpointing"),
             (use_node_type_embedding, "A6", "use_node_type_embedding"),
             (use_edge_type_embedding, "A6", "use_edge_type_embedding"),
-            (bool(edge_feature_models), "A11", "edge_feature_models"),
         ):
             if given:
                 raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item}).")
@@ -105,7 +109,8 @@ class _EdgeGCNBase(AbstractClassifierModel):
         self._use_edge_type_embedding = use_edge_type_embedding
         self._edge_type_embedding_size = edge_type_embedding_size
         self._use_edge_metrics = use_edge_metrics
-        self._edge_feature_models = []
+        self._edge_feature_models = (
+            list(edge_feature_models) if edge_feature_models else [])
         self._batch_size = batch_size
         self._epochs = epochs
         self._learning_rate = learning_rate
@@ -178,9 +183,10 @@ class _EdgeGCNBase(AbstractClassifierModel):
 
     # --------------------------------------------------------------- assembly
     def _build_common(self, graph: Graph, support: Graph, node_features,
-                      generator: torch.Generator):
-        """Kernels on the device, and the initial parameter tree (drawn on
-        the CPU from `generator`, then moved to the device)."""
+                      generator: torch.Generator, edge_features=None):
+        """Kernels on the device, the edge features, and the initial
+        parameter tree (drawn on the CPU from `generator`, then moved to the
+        device)."""
         self._encoder = GCNEncoder(
             self._kernels if self._units else None,
             self._units,
@@ -206,6 +212,7 @@ class _EdgeGCNBase(AbstractClassifierModel):
         if not self._siamese_towers:
             params["dst_tower"] = init_mlp(tower_dims, generator)
         edge_dim = edge_ops.output_dim(self._edge_embedding_method, tower_dims[-1])
+        edge_dim += self._build_edge_features(graph, support, edge_features)
         # The edge heuristics run on the support graph; their inputs are
         # node ids, so no gradient flows through them.
         self._metrics_tg = (support.device(self.device)
@@ -217,6 +224,32 @@ class _EdgeGCNBase(AbstractClassifierModel):
         self._combine_fn = edge_ops.resolve(
             self._edge_embedding_method, edge_ops.EDGE_GCN_METHODS)
         return map_params(lambda t: t.to(self.device), params), kernels
+
+    def _build_edge_features(self, graph: Graph, support: Graph, edge_features) -> int:
+        """Fit the lazy models (`edge_feature_models`, then those of
+        `edge_features`, as `normalize_edge_features` splits it into lazy
+        models and static matrices) on the support graph, and lay the static
+        [arcs of graph, d] float32 matrices out on the device with a
+        trailing zeros row (index `arcs`, K5's id of a non-edge). Returns
+        the width they add to the edge representation."""
+        lazy, static = edge_features or ([], [])
+        lazy = list(self._edge_feature_models) + list(lazy)
+        width = 0
+        self._edge_feature_fns = []
+        for ef in lazy:
+            if torch.device(ef.device).type != self.device.type:
+                raise ValueError(f"Edge feature model {ef.model_name()} is on {ef.device}, "
+                                 f"the GCN on {self.device}.")
+            ef.fit(support)
+            self._edge_feature_fns.append(ef.device_feature_fn())
+            width += sum(int(np.prod(shape))
+                         for shape in ef.get_feature_dictionary_shapes().values())
+        self._static_edge_feats = [
+            torch.from_numpy(np.vstack([f, np.zeros((1, f.shape[1]), np.float32)])).to(self.device)
+            for f in static]
+        width += sum(int(f.shape[1]) for f in static)
+        self._lookup_tg = graph.device(self.device) if static else None
+        return width
 
     def _encode_nodes(self, params, kernels, n_nodes, training=False,
                       generator=None) -> torch.Tensor:
@@ -234,9 +267,15 @@ class _EdgeGCNBase(AbstractClassifierModel):
         dst_tower = params.get("dst_tower", params["src_tower"])
         h_dst = apply_mlp(dst_tower, h[dst], final_activation=torch.relu)
         e = self._combine_fn(h_src, h_dst)
+        src32, dst32 = src.to(torch.int32), dst.to(torch.int32)
+        for fn in self._edge_feature_fns:
+            e = torch.cat([e, fn(src32, dst32)], dim=1)
+        if self._static_edge_feats:
+            ids, _ = csr_edge_ids(self._lookup_tg.row_ptr, self._lookup_tg.col_idx,
+                                  src32, dst32)
+            e = torch.cat([e] + [t[ids.long()] for t in self._static_edge_feats], dim=1)
         if self._use_edge_metrics:
-            m = edge_metrics(self._metrics_tg, src.to(torch.int32),
-                             dst.to(torch.int32))
+            m = edge_metrics(self._metrics_tg, src32, dst32)
             # log1p of preferential attachment, as the Perceptron's feature.
             e = torch.cat([e, m[:, :3], torch.log1p(m[:, 3:4])], dim=1)
         if return_representation:
@@ -332,7 +371,7 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
         generator = torch.Generator().manual_seed(self.random_state or 0)
         self._n_outputs = 1
         params, kernels = self._build_common(graph, support, node_features,
-                                             generator)
+                                             generator, kwargs.get("edge_features"))
         tg = graph.device(self.device, with_sources=True)
         self._n_nodes_hint = graph.number_of_nodes
         self._run_batch_size = self._resolve_batch_size(

@@ -73,6 +73,10 @@ _SIGNATURES = {
         (_P, _I64, _I32, _I64, _P, _P, _I32, _P, _P, _U64, _P, _P), _I32),
     "ebt_cooc_compact": ((_P, _P, _I64, _I64, _P, _P, _P, _P), _I32),
     "ebt_glove_step": ((_P,) * 15 + (_I64, _I32, _F32, _P), _I32),
+    "ebt_min_plus_step": ((_P,) * 6 + (_I64, _I32, _I32, _P), _I32),
+    "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),
+    "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P), _I32),
+    "ebt_hll_edge_features": ((_P, _I32, _I32, _P, _P, _I64, _F32, _P, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -85,7 +89,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
-     "cooccurrences", "glove_step"), 0,
+     "cooccurrences", "glove_step", "min_plus_step", "hll_registers",
+     "khop_sketches", "edge_sketch_features"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

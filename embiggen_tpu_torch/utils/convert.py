@@ -103,8 +103,12 @@ def gcn_params_from_jax(params: Mapping, model) -> Dict:
     """A fitted or built JAX edge-GCN parameter tree (`{"embed", "enc":
     {"kernels"}, "src_tower", "dst_tower"?, "head"}`, numpy leaves, dense
     layers as {"w": [in, out], "b": [out]}) as the port's tree of float32
-    tensors on `model.device`. When `model` already holds parameters
-    (`_params`), the two trees must have the same structure and shapes."""
+    tensors on `model.device`. A GCN built with edge features has a head as
+    wide as its edge representation (the combined towers, then each lazy
+    and static feature's width); the feature models themselves hold no
+    parameters. When `model` already holds parameters (`_params`, built with
+    the same features), the two trees must have the same structure and
+    shapes."""
     out = _tree_to_torch(dict(params), model.device)
     held = getattr(model, "_params", None)
     if held is not None and _shapes(held) != _shapes(out):

@@ -12,8 +12,17 @@ from embiggen_tpu_torch.graph import Graph, barabasi_albert, erdos_renyi
 from embiggen_tpu_torch.graph.laplacians import kernel_coo
 from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
 from embiggen_tpu_torch.models.embedders import CBOW, SkipGram
-from embiggen_tpu_torch.models.gcn import KipfGCNEdgePrediction
+from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, KipfGCNEdgePrediction
+from embiggen_tpu_torch.models.edge_features import HyperSketching
+from embiggen_tpu_torch.models.embedders import DegreeSPINE, DegreeWINE, WeightedSPINE
 from embiggen_tpu_torch.ops import _build
+from embiggen_tpu_torch.ops.bfs import (
+    anchor_init_from_sets, min_plus_step, min_plus_step_plain, multi_source_distances,
+)
+from embiggen_tpu_torch.ops.hll import (
+    edge_sketch_features, edge_sketch_features_plain, khop_sketches, khop_sketches_plain,
+    singleton_registers, singleton_registers_plain,
+)
 from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
 from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
 from embiggen_tpu_torch.ops.gather_probe import (
@@ -38,6 +47,7 @@ from embiggen_tpu_torch.ops.walks import (
 from batch_laws import (
     arc_ids, exact_p, line_negative_law_by_source, rows_p, siamese_counts,
 )
+from hll_checks import MAX_TIE_SHARE, feature_errors
 from pq_laws import (
     Laws, arc_weights, n_tries_for, rows_of_32_and_33, two_hubs, walks_chi2_p,
 )
@@ -779,3 +789,141 @@ def test_glove_step_kernel_matches_plain(dev, d):
     for a, w in zip(got[2:5], want[2:5]):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------------------------- S8
+def _sketch_graph(kind):
+    """An undirected weighted graph, one with two components and isolated
+    nodes, or a directed one."""
+    rng = np.random.default_rng(21)
+    if kind == "er":
+        return erdos_renyi(3000, 20000, seed=8, weighted=True)
+    if kind == "components":
+        a, b = rng.integers(0, 1000, (2, 4000)), rng.integers(1000, 2500, (2, 6000))
+        return Graph.from_edge_arrays(np.concatenate([a[0], b[0]]), np.concatenate([a[1], b[1]]),
+                                      n_nodes=2600, weights=rng.uniform(0.1, 3, 10000))
+    src, dst = rng.integers(0, 2000, (2, 12000))
+    return Graph.from_edge_arrays(src, dst, n_nodes=2000, directed=True,
+                                  weights=rng.uniform(0.1, 3, 12000))
+
+
+@pytest.mark.parametrize("kind", ["er", "components", "directed"])
+@pytest.mark.parametrize("d", [1, 30, 100])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_min_plus_kernel_matches_plain(dev, kind, d, weighted):
+    """K15a's distances and change flags equal its plain version's exactly,
+    launch by launch and after 32 relaxations."""
+    g = _sketch_graph(kind)
+    n = g.number_of_nodes
+    sets = [np.arange(j, n, 997) for j in range(d)]
+    init = anchor_init_from_sets(n, sets, dev)
+    tg, tg_cpu = g.device(dev), g.device("cpu")
+    flag, want_flag = torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(1, dtype=torch.int32)
+    before = _build.launch_counts()["min_plus_step"]
+    got = min_plus_step(tg, init, weighted, flag)
+    want = min_plus_step_plain(tg_cpu, init.cpu(), weighted, want_flag)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["min_plus_step"] == before + 1
+    assert torch.equal(got.cpu(), want) and int(flag) == int(want_flag) == 1
+    changes = torch.zeros(32, dtype=torch.int32, device=dev)
+    want_changes = torch.zeros(32, dtype=torch.int32)
+    got = multi_source_distances(tg, init, 32, weighted, changes)
+    want = multi_source_distances(tg_cpu, init.cpu(), 32, weighted, want_changes)
+    assert torch.equal(got.cpu(), want) and torch.equal(changes.cpu(), want_changes)
+
+
+def test_min_plus_kernel_at_an_odd_storage_offset(dev):
+    g = _sketch_graph("er")
+    buf = torch.full((3000 * 100 + 1,), 1e9, device=dev)
+    dist = buf[1:].view(3000, 100)
+    dist[::50, :] = 0.0
+    assert dist.data_ptr() % 16 != 0
+    got = min_plus_step(g.device(dev), dist, True)
+    assert torch.equal(got.cpu(), min_plus_step_plain(g.device("cpu"), dist.cpu(), True))
+
+
+@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("bits, seed", [(6, 0), (5, 2**40 + 3)])
+def test_hll_registers_kernel_matches_plain(dev, precision, bits, seed):
+    got = singleton_registers(5000, precision, bits, seed, dev)
+    want = singleton_registers_plain(5000, precision, bits, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["er", "components", "directed"])
+@pytest.mark.parametrize("precision, hops", [(4, 3), (8, 1), (8, 3), (12, 2)])
+def test_khop_sketches_kernel_matches_plain(dev, kind, precision, hops):
+    g = _sketch_graph(kind)
+    base = singleton_registers(g.number_of_nodes, precision, 6, 3, dev)
+    before = _build.launch_counts()["khop_sketches"]
+    got = khop_sketches(g.device(dev), base, hops)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["khop_sketches"] == before + hops
+    assert torch.equal(got.cpu(), khop_sketches_plain(g.device("cpu"), base.cpu(), hops))
+
+
+@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("hops", [1, 2, 3, 6])
+def test_edge_sketch_features_kernel_matches_plain(dev, precision, hops):
+    """K16b against its plain version within tests/hll_checks.py's
+    tolerance, on arcs and uniform pairs."""
+    g = _sketch_graph("er")
+    sk = khop_sketches(g.device(dev), singleton_registers(3000, precision, 6, 0, dev), hops)
+    rng = np.random.default_rng(hops)
+    arcs = rng.integers(0, g.number_of_directed_edges, 3000)
+    src = np.concatenate([g.sources[arcs], rng.integers(0, 3000, 3000)]).astype(np.int32)
+    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, 3000, 3000)]).astype(np.int32)
+    got = edge_sketch_features(sk, torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev),
+                               precision)
+    want = edge_sketch_features_plain(sk.cpu(), torch.from_numpy(src), torch.from_numpy(dst),
+                                      precision)
+    worst, ties = feature_errors(sk, src, dst, precision, got.cpu().numpy(), want.numpy())
+    assert worst <= 1.0 and ties <= MAX_TIE_SHARE * len(src), (worst, ties)
+
+
+@pytest.mark.parametrize("cls, kw", [(DegreeSPINE, dict(embedding_size=30)),
+                                     (DegreeWINE, dict(embedding_size=30, window_size=3)),
+                                     (WeightedSPINE, dict(embedding_size=30,
+                                                          use_reciprocal_weights=True))])
+def test_sketch_embedders_on_card_equal_the_cpu(dev, cls, kw):
+    g = _sketch_graph("components")
+    got = cls(device=dev, **kw).fit_transform(g).node_embeddings[0]
+    want = cls(device="cpu", **kw).fit_transform(g).node_embeddings[0]
+    assert got.dtype == want.dtype == np.uint8 and np.array_equal(got, want)
+
+
+def test_gcn_with_edge_features_on_card(dev):
+    """The GCN with a lazy HyperSketching feature and a static edge-feature
+    matrix fits on the card through K16b and K5, and its logits on fixed
+    parameters match the CPU's."""
+    g = erdos_renyi(500, 3000, seed=3)
+    feats = np.random.default_rng(0).normal(size=(500, 16)).astype(np.float32)
+    static = np.random.default_rng(1).normal(size=(g.number_of_directed_edges, 3)).astype(
+        np.float32)
+    kw = dict(units=[16], tower_units=[8], head_units=[8], epochs=2, batch_size=512,
+              dropout_rate=0.0, random_state=0)
+    before = _build.launch_counts()
+    model = GCNEdgePrediction(device=dev, edge_feature_models=[HyperSketching(
+        number_of_hops=2, precision=6, device=dev)], **kw)
+    model.fit(g, node_features=feats, edge_features=[static])
+    after = _build.launch_counts()
+    for name in ("edge_sketch_features", "khop_sketches", "hll_registers", "csr_edge_ids"):
+        assert after[name] > before[name], name
+    proba = model.predict_proba(g)
+    assert proba.shape == (g.number_of_directed_edges,) and np.isfinite(proba).all()
+    cpu = GCNEdgePrediction(device="cpu", edge_feature_models=[HyperSketching(
+        number_of_hops=2, precision=6, device="cpu")], **kw)
+    cpu._n_outputs = 1
+    cpu._build_common(g, g, [feats], torch.Generator().manual_seed(0), ([], [static]))
+    cpu._params, cpu._n_nodes, cpu._predict_h = _to_cpu(model._params), 500, None
+    cpu._fitting_was_executed = True
+    np.testing.assert_allclose(cpu.predict_proba(g), proba, rtol=1e-4, atol=1e-5)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu()

@@ -223,6 +223,22 @@ def test_runs_where_jax_cannot_be_imported():
         "                ('DeepWalk GloVe', 5), ('Role2Vec', 5)):\n"
         "    r = embed_graph(g, name, device='cpu', smoke_test=True, random_state=0)\n"
         "    assert r.node_embeddings[0].shape == (50, d), name\n"
+        "w = erdos_renyi(50, 200, seed=1, weighted=True)\n"
+        "for name in ('Degree-based SPINE', 'Degree-based WINE', 'Score-based SPINE',\n"
+        "             'Score-based WINE', 'WeightedSPINE', 'RUBICONE', 'RUINE'):\n"
+        "    kw = {'scores': np.arange(50.0)} if name.startswith('Score') else {}\n"
+        "    if name in ('RUBICONE', 'RUINE'):\n"
+        "        kw['random_state'] = 0\n"
+        "    e = embed_graph(w, name, device='cpu', smoke_test=True, **kw)\n"
+        "    assert e.node_embeddings[0].shape == (50, 5), name\n"
+        "for name in ('Node-label-based SPINE', 'Node-label-based WINE'):\n"
+        "    try:\n"
+        "        embed_graph(w, name, device='cpu', smoke_test=True)\n"
+        "        raise AssertionError(name)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'requires node types' in str(e), e\n"
+        "e = embed_graph(w, 'HyperSketching', device='cpu', smoke_test=True, random_state=0)\n"
+        "assert e.edge_embeddings[0].shape == (w.number_of_directed_edges, 8)\n"
         "import importlib, pkgutil, embiggen_tpu_torch\n"
         "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
         "                               'embiggen_tpu_torch.'):\n"

@@ -227,7 +227,6 @@ def test_parameters_match_reference():
     (dict(checkpoint_dir="ckpt"), "A12"),
     (dict(use_node_type_embedding=True), "A6"),
     (dict(use_edge_type_embedding=True), "A6"),
-    (dict(edge_feature_models=["x"]), "A11"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -254,7 +253,6 @@ def test_use_edge_metrics_fits_and_widens_the_head(graphs):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(edge_features=[np.zeros((1, 1))]), "A11"),
     (dict(edge_type_features=[np.zeros((1, 1))]), "A6"),
 ])
 def test_unported_feature_classes_raise(graphs, kwargs, item):

@@ -13,8 +13,9 @@ less 0.03. That call gave test AUPRC 0.9913790290856157 and AUROC
 0.991004758345661, measured with embiggen_tpu on the CPU
 (JAX_PLATFORMS=cpu, the reference's test body with its DataFrame printed).
 
-The GCN learns a node embedding with no static features (the reference
-gate's Degree-based SPINE comes with ROADMAP A11). One fit is one draw:
+The GCN learns a node embedding with no static features; the reference
+gate's own features, Degree-based SPINE, have their gate in
+`test_torch_spine_gate.py`. One fit is one draw:
 over the model's seed, the reference GCN's test AUPRC on this split ranges
 from 0.882 to 0.981 (seeds 0-7), so a single seed cannot hold the port to
 0.03. It is held by its mean over seeds 0-7 instead, which must reach the
