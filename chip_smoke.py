@@ -184,7 +184,28 @@ the exit code is not 0:
      GloVe) and of S8 (the GCN with HyperSketching features), one line per
      kernel name with its device
      ms per step: the port's kernels on CUDA events around each launch,
-     PyTorch's own from torch.profiler.
+     PyTorch's own from torch.profiler; then ten NodeSketch fits (S9's
+     defaults on the slice graph, 10 rounds each) the same way;
+ 25. K18 (NodeSketch's min-hash race) against its plain version exactly:
+     one round and 10 rounds on the slice graph at D 100, decay 0.01 (Exp(1)
+     races and noise), 3 rounds at D 1 and D 30, 10 at D 30 on phase 21's
+     graph of two components with isolated nodes and on its directed graph,
+     and exact ties (races and noise on small grids, decay 0.5); RandNE's
+     two K7 hops (row scale 1 / max(deg, 1)) at D 100 against
+     csr_spmm_plain (rtol 1e-5 / atol 1e-7), with `torch.sparse.mm`'s time;
+ 26. S9 through `embed_graph`: NodeSketch (D 100, 10 rounds, decay 0.01;
+     K18 launched 10 times) and RandNE (D 100, alphas (0.5, 0.5); K7 twice)
+     on the slice graph; NetMF (D 100, order 2), GraRep (D 100, order 5),
+     BoostNE (embedding_size 102), MNMF (D 128, 200 iterations), NMFADMM (D
+     100, 100 iterations) and NNSED (D 32) on erdos_renyi(32,768 nodes,
+     327,680 edges), the largest graph the dense rows accept, launching none
+     of the port's kernels; seconds and peak device memory of each; then
+     each dense row on the card against the CPU from the same state for
+     random states 0-2 on a 2,000-node graph (MNMF at 60 iterations), with
+     the tolerances of tests/test_torch_factorization.py;
+ 27. S9 quality: RandNE and NetMF features on the gate fixture's connected
+     holdout, embedding seeds 0-3, a Perceptron on Hadamard alone: each mean
+     test AUROC at least the reference's less 0.03.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -329,6 +350,31 @@ GATE_SKETCH_GCN = dict(units=[8], tower_units=[8], head_units=[8], epochs=60,
                        node_embedding_size=8, dropout_rate=0.1, random_state=0)
 GATE_SKETCH = dict(number_of_hops=2, precision=6, random_state=0)
 GATE_SKETCH_FLOOR = 0.6
+# S9 at the reference's defaults: NodeSketch (D 100, 10 rounds, decay 0.01)
+# and RandNE (D 100, alphas (0.5, 0.5)) on the slice graph; the dense rows
+# on the largest graph they accept, at their default widths (BoostNE at 102,
+# the nearest size its defaults accept: 17 blocks of 6), and card against
+# CPU on a 2,000-node graph (MNMF there at 60 iterations, the tests'
+# moderate count, as its 200 take tens of seconds on the host).
+S9_DIM, S9_ROUNDS, S9_DECAY = 100, 10, 0.01
+S9_ALPHAS = (0.5, 0.5)
+S9_DENSE_NODES, S9_DENSE_EDGES = 32_768, 327_680
+S9_DENSE_ROWS = (("NetMF", {}), ("GraRep", {}), ("BoostNE", dict(embedding_size=102)),
+                 ("MNMF", {}), ("NMFADMM", {}), ("NNSED", {}))
+S9_CHECK_NODES, S9_CHECK_EDGES, S9_CHECK_RUNS = 2_000, 20_000, 3
+S9_CHECK_KW = {"MNMF": dict(iterations=60)}
+# The tests' tolerances (tests/test_torch_factorization.py): the iterative
+# rows within 5e-5 of the embedding's scale; NetMF's and GraRep's Gram
+# matrices, per SVD block up to its last cut between singular values 1%
+# apart, within 1e-4, and their column norms rtol 1e-4.
+S9_ITERATIVE_RTOL, S9_GRAM_RTOL = 5e-5, 1e-4
+S9_HOP_TOL = dict(rtol=1e-5, atol=1e-7)    # K7's sums in another order
+# The S9 gate: RandNE and NetMF features (seeds 0-3, defaults) and a
+# Perceptron on Hadamard alone on the gate fixture; the reference's mean
+# test AUROC, measured with embiggen_tpu on the CPU
+# (tests/test_torch_factorization_gate.py says how).
+GATE_S9_SEEDS = range(4)
+GATE_REFERENCE_S9_AUROC = {"RandNE": 0.9939066727236255, "NetMF": 0.9966186807699228}
 K3_SUMS_TOL = dict(rtol=1e-4, atol=1e-5)    # sums in another order
 K3_UPDATE_ATOL = 1e-5                        # atomics add in no fixed order
 # The card's published peaks (H100 SXM data sheet, dense): HBM bytes/s and
@@ -625,7 +671,7 @@ KERNEL_NAMES = {
     "walklets_update": "walklets_kernel", "cooccurrences": "cooc_",
     "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
-    "edge_sketch_features": "edge_features_kernel",
+    "edge_sketch_features": "edge_features_kernel", "sketch_race_step": "sketch_race_kernel",
 }
 
 
@@ -2820,6 +2866,244 @@ def s8_runs(graph, weighted_graph, dev):
     return s8, s8_gcn
 
 
+# ------------------------------------------------------------------- S9
+def k18_checks(graph, dev):
+    """K18 against its plain version, exactly: one round and S9_ROUNDS on the
+    slice graph at D 100 (Exp(1) races and noise, sketch ids arange(N)), 3
+    rounds at D 1 and D 30 (not a multiple of 4), S9_ROUNDS at D 30 on
+    s8_graphs' graphs (two components with isolated nodes; directed), and
+    exact ties (races on a grid of four values, noise on a grid of two, at
+    decay 0.5) on the slice graph. Returns its kernels entry, timed at the
+    slice shape, and the errors by case."""
+    from embiggen_tpu_torch.ops.nodesketch import (
+        inverse_decay, sketch_race, sketch_race_step, sketch_race_step_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def exp(n, d):
+        return torch.empty((n, d), device=dev).exponential_(generator=gen)
+
+    def ids(n, d):
+        return torch.arange(n, dtype=torch.int32, device=dev)[:, None].repeat(1, d)
+
+    def grid(n, d, values):
+        v = torch.tensor(values, device=dev)
+        return v[torch.randint(0, len(values), (n, d), generator=gen, device=dev)]
+
+    errs = {}
+
+    def check(name, tg, race, sketch, noises, inv):
+        got = sketch_race(tg, race, sketch, iter(noises), inv)
+        want = (race, sketch)
+        for noise in noises:
+            want = sketch_race_step_plain(tg, *want, noise, inv)
+        errs[name] = max(exact_err(f"K18 races {name}", got[0], want[0]),
+                         exact_err(f"K18 sketches {name}", got[1], want[1]))
+
+    inv = inverse_decay(S9_DECAY)
+    tg = graph.device(dev)
+    race, sketch = exp(N_NODES, S9_DIM), ids(N_NODES, S9_DIM)
+    noises = [exp(N_NODES, S9_DIM) for _ in range(S9_ROUNDS)]
+    check(f"D {S9_DIM} one round", tg, race, sketch, noises[:1], inv)
+    check(f"D {S9_DIM} {S9_ROUNDS} rounds", tg, race, sketch, noises, inv)
+    for d in (1, 30):
+        check(f"D {d}", tg, exp(N_NODES, d), ids(N_NODES, d),
+              [exp(N_NODES, d) for _ in range(3)], inv)
+    for name, g in s8_graphs(dev).items():
+        n = g.number_of_nodes
+        check(name, g.device(dev), exp(n, 30), ids(n, 30),
+              [exp(n, 30) for _ in range(S9_ROUNDS)], inv)
+    check("exact ties", tg, grid(N_NODES, S9_DIM, [0.0, 0.25, 0.5, 1.0]), sketch,
+          [grid(N_NODES, S9_DIM, [0.0, 0.5]) for _ in range(3)], inverse_decay(0.5))
+    out = (torch.empty_like(race), torch.empty_like(sketch))
+    n, d, e = N_NODES, S9_DIM, tg.n_arcs
+    heads = int(torch.unique(tg.col_idx).numel())
+    entry = dict(
+        source="embiggen_tpu_torch/csrc/nodesketch.cu",
+        replaces="embiggen_tpu/models/embedders/factorization.py:415",
+        max_abs_err=max(errs.values()),
+        ms=time_ms(lambda: sketch_race_step(tg, race, sketch, noises[0], inv, out), 10),
+        plain_ms=time_ms(lambda: sketch_race_step_plain(tg, race, sketch, noises[0], inv), 2),
+        library_ms=None,
+        distinct_heads=heads,
+        # every row's race and sketch, the noise of each distinct arc head,
+        # the new race and sketch, the CSR; an fma (2) and two compares per
+        # gathered element.
+        **bound((8 * n + 4 * heads) * d + 8 * n * d + 4 * (n + 1 + e), 4 * e * d))
+    del race, sketch, noises, out
+    return entry, errs
+
+
+def randne_hop_checks(graph, dev):
+    """RandNE's two K7 hops (unit values, row scale 1 / max(deg, 1)) at D 100
+    from a seeded N(0, 1/D) base on the slice graph, each against
+    csr_spmm_plain on the kernel's previous hop (rtol 1e-5 / atol 1e-7:
+    sums in another order). Returns the hop's timings, bound and error."""
+    from embiggen_tpu_torch.ops.bfs import arc_rows, unit_kernel
+    from embiggen_tpu_torch.ops.spmm import csr_spmm, csr_spmm_plain
+
+    tg = graph.device(dev)
+    k = unit_kernel(tg)
+    inv_deg = torch.from_numpy(
+        1.0 / np.maximum(graph.degrees, 1).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cur = torch.randn((N_NODES, S9_DIM), generator=gen, device=dev) / np.sqrt(S9_DIM)
+    base, errs = cur, []
+    for hop in range(len(S9_ALPHAS)):
+        nxt = csr_spmm(k, cur, row_scale=inv_deg)
+        errs.append(check_close(f"RandNE hop {hop + 1}", nxt,
+                                csr_spmm_plain(k, cur, row_scale=inv_deg), **S9_HOP_TOL))
+        cur = nxt
+    a = torch.sparse_csr_tensor(k.row_ptr, k.cols, inv_deg[arc_rows(tg).long()],
+                                size=(N_NODES, N_NODES))
+    n, d, e = N_NODES, S9_DIM, tg.n_arcs
+    hop = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: csr_spmm(k, base, row_scale=inv_deg), 20),
+        plain_ms=time_ms(lambda: csr_spmm_plain(k, base, row_scale=inv_deg), 3),
+        library_ms=time_ms(lambda: torch.sparse.mm(a, base), 20),
+        library="torch.sparse.mm (cuSPARSE)",
+        # x in, the sums out, the CSR and the row scales; a multiply-add per
+        # gathered float.
+        **bound(4 * (2 * n * d + 2 * n + 1 + e), 2 * e * d))
+    del a, k, base, cur, nxt
+    return hop
+
+
+def svd_embedding_share(got, want, blocks):
+    """The largest error, as a share of its tolerance, of an SVD row's
+    embedding against another: each block's column norms (rtol
+    S9_GRAM_RTOL) and the Gram matrix of its leading columns up to its last
+    cut between singular values 1% apart (S9_GRAM_RTOL of its scale), as
+    tests/test_torch_factorization.py holds them."""
+    worst = 0.0
+    per_block = want.shape[1] // blocks
+    for b in range(blocks):
+        g, w = (x[:, b * per_block:(b + 1) * per_block].double() for x in (got, want))
+        norms, want_norms = g.norm(dim=0), w.norm(dim=0)
+        worst = max(worst, float(((norms - want_norms).abs()
+                                  / (S9_GRAM_RTOL * want_norms + 1e-6)).max()))
+        s = want_norms ** 2
+        cuts = torch.nonzero(s[:-1] > 1.01 * s[1:]).flatten()
+        if len(cuts):
+            c = int(cuts[-1]) + 1
+            gram, want_gram = g[:, :c] @ g[:, :c].T, w[:, :c] @ w[:, :c].T
+            worst = max(worst, float((gram - want_gram).abs().max()
+                                     / (S9_GRAM_RTOL * want_gram.abs().max())))
+    return worst
+
+
+def s9_dense_checks(dev):
+    """Each dense row on the card against the CPU from the same state, for
+    random states 0-2 on erdos_renyi(2,000 nodes): the SVD rows by
+    svd_embedding_share, the others within S9_ITERATIVE_RTOL of the scale.
+    Returns {row: the largest error as a share of its tolerance}."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models import get_model_from_library
+
+    g = erdos_renyi(S9_CHECK_NODES, S9_CHECK_EDGES, seed=1)
+    shares = {}
+    for name, kw in S9_DENSE_ROWS:
+        cls = get_model_from_library(name, task_name="Node Embedding")
+        kw = dict(kw, **S9_CHECK_KW.get(name, {}))
+        worst = 0.0
+        for seed in range(S9_CHECK_RUNS):
+            card = cls(device=dev, random_state=seed, **kw)
+            state = card.initial_state(g)
+            got = card.run(g, state).cpu()
+            want = cls(device="cpu", random_state=seed, **kw).run(g, {
+                k: [x.cpu() for x in v] if isinstance(v, list) else v.cpu()
+                for k, v in state.items()})
+            if name in ("NetMF", "GraRep"):
+                share = svd_embedding_share(got, want, card._order if name == "GraRep" else 1)
+            else:
+                share = float((got - want).abs().max()
+                              / (S9_ITERATIVE_RTOL * want.abs().max()))
+            if not (torch.isfinite(got).all() and share <= 1.0):
+                raise AssertionError(f"{name} seed {seed}: card against CPU at {share} of "
+                                     "the tolerance, or non-finite values")
+            worst = max(worst, share)
+        shares[name] = worst
+    return shares
+
+
+def s9_runs(graph, dev):
+    """S9 through `embed_graph`: NodeSketch and RandNE on the slice graph at
+    the reference's defaults, with K18 launched S9_ROUNDS times and K7
+    twice; the six dense rows at their default widths on
+    erdos_renyi(32,768 nodes, 327,680 edges), launching none of the port's
+    kernels. Returns {name: (launches, seconds, peak bytes, the fit's own
+    peak: the peak less what was allocated before it)}."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    dense = erdos_renyi(S9_DENSE_NODES, S9_DENSE_EDGES, seed=0)
+    out = {}
+    for name, g, kw, names, launches in (
+        ("NodeSketch", graph, {}, S9_SKETCH_KERNELS, S9_ROUNDS),
+        ("RandNE", graph, {}, S9_RANDNE_KERNELS, len(S9_ALPHAS)),
+        *((name, dense, kw, (), 0) for name, kw in S9_DENSE_ROWS),
+    ):
+        model = get_model_from_library(name, task_name="Node Embedding")(device=dev, **kw)
+        held = torch.cuda.memory_allocated()
+        result, counts, secs, peak = s8_run(lambda: embed_graph(g, model))
+        emb = result.node_embeddings[0]
+        if emb.shape != (g.number_of_nodes, model.embedding_size) or not np.isfinite(emb).all():
+            raise AssertionError(f"{name}: shape {emb.shape} or non-finite values")
+        got = {k: counts[k] for k in names}
+        if got != dict.fromkeys(names, launches) or sum(counts.values()) != launches * len(names):
+            raise AssertionError(f"{name} launched {counts}, expected {launches} of each of "
+                                 f"{names} and nothing else")
+        out[name] = (got, secs, peak, peak - held)
+        del result, emb
+        torch.cuda.empty_cache()
+    return out
+
+
+def s9_quality_on_card(card, dev):
+    """RandNE and NetMF features on the gate fixture's connected holdout,
+    embedding seeds GATE_S9_SEEDS at the rows' defaults, each feeding a
+    Perceptron on Hadamard alone scored by `_evaluate`. Raises unless each
+    mean test AUROC reaches the reference's less 0.03. Returns {row: per-seed
+    test AUROC}."""
+    from embiggen_tpu_torch.graph import connected_holdout, random_geometric
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+
+    rgg = random_geometric(1000, radius=0.07, seed=42)
+    train, test = connected_holdout(rgg, random_state=3)
+    auroc = {}
+    for name, reference in GATE_REFERENCE_S9_AUROC.items():
+        auroc[name] = []
+        for seed in GATE_S9_SEEDS:
+            emb = get_model_from_library(name, task_name="Node Embedding")(
+                device=dev, random_state=seed).fit_transform(train).node_embeddings[0]
+            model = PerceptronEdgePrediction(device=dev, **GATE_CBOW_PERCEPTRON)
+            model.fit(train, node_features=emb)
+            rows = {r["evaluation_mode"]: r for r in
+                    model._evaluate(rgg, train, test, random_state=3)}
+            auroc[name].append(rows["test"]["auroc"])
+        if not np.mean(auroc[name]) >= reference - 0.03:
+            raise AssertionError(f"{name} gate mean test AUROC {np.mean(auroc[name])} on "
+                                 f"{card} is below the reference's {reference} less 0.03: "
+                                 f"{auroc[name]}")
+    return auroc
+
+
+def nodesketch_fit(graph, dev):
+    """One NodeSketch fit at the S9 defaults (draws, export, S9_ROUNDS K18
+    launches), as a closure."""
+    from embiggen_tpu_torch.models.embedders import NodeSketch
+
+    model = NodeSketch(device=dev)
+
+    def fit():
+        model.run(graph, model.initial_state(graph))
+    return fit
+
+
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
 S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
@@ -2874,6 +3158,10 @@ S8_SKETCH_UNUSED = ("min_plus_step", "spmm")
 S8_GCN_KERNELS = S3_KERNELS + S8_SKETCH_KERNELS
 S8_GCN_UNUSED = ("csr_edge_ids", "min_plus_step")
 S8_GCN_STATIC_KERNELS = S3_KERNELS + ("csr_edge_ids",)
+# S9: NodeSketch races with K18 and RandNE hops with K7, each launching
+# nothing else; the dense rows launch none of the port's kernels.
+S9_SKETCH_KERNELS = ("sketch_race_step",)
+S9_RANDNE_KERNELS = ("spmm",)
 
 
 def check_launches(path, counts, names, unused=()):
@@ -2891,7 +3179,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also K3's, K11's and K9's phase splits, and profiles of "
-                             "steady S1, GCN, S5, S6, S7 and S8 steps")
+                             "steady S1, GCN, S5, S6, S7 and S8 steps and of S9's "
+                             "NodeSketch fit")
     args = parser.parse_args()
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- 1. card
@@ -3521,6 +3810,47 @@ def main() -> None:
             minibatch_step(s7["Node2Vec GloVe"][0], graph), PROFILE_STEPS))
         print_profile("S8 GCN + HyperSketching", card, *profile(gcn_step(gcn_hs, graph),
                                                                 PROFILE_STEPS))
+        print_profile("S9 NodeSketch fit", card, *profile(nodesketch_fit(graph, dev),
+                                                            PROFILE_STEPS))
+
+    # ------------------------------------------ 25. K18 and RandNE's K7 hops
+    t_phase = time.perf_counter()
+    k18, k18_errs = k18_checks(graph, dev)
+    kernels["sketch_race_step"] = k18
+    torch.cuda.empty_cache()
+    kernels["spmm"]["randne_hop"] = randne_hop = randne_hop_checks(graph, dev)
+    torch.cuda.empty_cache()
+    print(f"phase 25 K18 and RandNE's K7 hops vs plain on {card} "
+          f"({time.perf_counter() - t_phase:.1f} s; ms per call at D {S9_DIM} on the slice "
+          "graph: K18 one round, K7 one hop): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None else "")
+              for k, v in (("sketch_race_step", k18), ("RandNE hop", randne_hop)))
+          + f" | K18 exact by case: {k18_errs} | K18's arcs name {k18['distinct_heads']} "
+          f"distinct heads", flush=True)
+
+    # ------------------------------------------------------------ 26. S9
+    t_phase = time.perf_counter()
+    s9 = s9_runs(graph, dev)
+    s9_shares = s9_dense_checks(dev)
+    print(f"phase 26 S9 on {card} ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(
+        f"{name}: {secs:.2f} s, peak {peak} bytes (its own {own}), launches {got}"
+        for name, (got, secs, peak, own) in s9.items())
+        + f" | dense rows on the card against the CPU, random states 0-{S9_CHECK_RUNS - 1} "
+        f"on {S9_CHECK_NODES} nodes, largest error as a share of the tests' tolerance: "
+        f"{s9_shares}", flush=True)
+
+    # --------------------------------------------------- 27. S9 quality
+    t_phase = time.perf_counter()
+    s9_auroc = s9_quality_on_card(card, dev)
+    print(f"phase 27 S9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3, a Perceptron on Hadamard, "
+          "mean test AUROC over embedding seeds 0-3: " + "; ".join(
+              f"{name} {np.mean(a):.4f} (threshold the reference's "
+              f"{GATE_REFERENCE_S9_AUROC[name]:.4f} less 0.03 = "
+              f"{GATE_REFERENCE_S9_AUROC[name] - 0.03:.4f}; per seed "
+              f"{[round(x, 4) for x in a]})" for name, a in s9_auroc.items()), flush=True)
 
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
@@ -3535,7 +3865,9 @@ def main() -> None:
                 **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences", "glove_step")},
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
-                **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS}}
+                **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},
+                "sketch_race_step": s9["NodeSketch"][0]["sketch_race_step"]}
+    randne_hop["launches"] = s9["RandNE"][0]["spmm"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],

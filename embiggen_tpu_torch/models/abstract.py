@@ -69,8 +69,33 @@ class AbstractModel:
         return False
 
     @classmethod
+    def requires_positive_edge_weights(cls) -> bool:
+        return cls.requires_edge_weights()
+
+    @classmethod
     def requires_node_types(cls) -> bool:
         return False
+
+    @classmethod
+    def can_use_edge_weights(cls) -> bool:
+        return cls.requires_edge_weights()
+
+    @classmethod
+    def can_use_node_types(cls) -> bool:
+        return cls.requires_node_types()
+
+    @classmethod
+    def can_use_edge_types(cls) -> bool:
+        return cls.requires_edge_types()
+
+    def is_using_edge_weights(self) -> bool:
+        return self.can_use_edge_weights()
+
+    def is_using_node_types(self) -> bool:
+        return self.can_use_node_types()
+
+    def is_using_edge_types(self) -> bool:
+        return self.can_use_edge_types()
 
     @classmethod
     def is_topological(cls) -> bool:
@@ -202,6 +227,11 @@ class AbstractEmbeddingModel(AbstractModel):
 
             graph = get_dataset(graph)
         self._validate_graph(graph)
+        if return_dataframe and graph.number_of_nodes > 100_000_000:
+            raise ValueError(
+                "Refusing to build a >100M-row DataFrame; set "
+                "return_dataframe=False."
+            )
         result = self._fit_transform(graph)
         if return_dataframe:
             result = result.to_dataframes()

@@ -1,5 +1,7 @@
 """Node embedders ported so far."""
-from .factorization import Role2Vec
+from .factorization import (
+    MNMF, NMFADMM, NNSED, BoostNE, GraRep, NetMF, NodeSketch, RandNE, Role2Vec,
+)
 from .glove import DeepWalkGloVe, GloVe
 from .line import FirstOrderLINE, SecondOrderLINE
 from .minibatch import MinibatchEmbedder
@@ -19,4 +21,5 @@ __all__ = ["WalkBasedEmbedder", "SkipGram", "CBOW", "DeepWalkSkipGram",
            "StructuredEmbedding", "WalkletsSkipGram", "WalkletsCBOW", "WalkletsGloVe",
            "GloVe", "DeepWalkGloVe", "Role2Vec", "DegreeSPINE", "DegreeWINE",
            "NodeLabelSPINE", "NodeLabelWINE", "ScoreSPINE", "ScoreWINE", "WeightedSPINE",
-           "RUBICONE", "RUINE"]
+           "RUBICONE", "RUINE", "NetMF", "GraRep", "BoostNE", "RandNE", "NodeSketch",
+           "MNMF", "NMFADMM", "NNSED"]

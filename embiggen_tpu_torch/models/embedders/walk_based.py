@@ -112,6 +112,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         self._window_size = window_size
         self._return_weight = return_weight
         self._explore_weight = explore_weight
+        self._change_node_type_weight = change_node_type_weight
+        self._change_edge_type_weight = change_edge_type_weight
         # The candidate cap of p/q steps (and the ELL table's width); a
         # first-order step is O(1) whatever the degree and never capped.
         self._max_neighbours = max_neighbours
@@ -167,8 +169,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             "window_size": self._window_size,
             "return_weight": self._return_weight,
             "explore_weight": self._explore_weight,
-            "change_node_type_weight": 1.0,
-            "change_edge_type_weight": 1.0,
+            "change_node_type_weight": self._change_node_type_weight,
+            "change_edge_type_weight": self._change_edge_type_weight,
             "max_neighbours": self._max_neighbours,
             "learning_rate": self._learning_rate,
             "learning_rate_decay": self._learning_rate_decay,
@@ -198,6 +200,30 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             "batch_size": 32,
             "iterations": 1,
         }
+
+    @classmethod
+    def can_use_edge_weights(cls) -> bool:
+        return True
+
+    def is_using_edge_weights(self) -> bool:
+        return True
+
+    # The reference's typed-walk contract: a model uses node (edge) types
+    # iff its change_node_type_weight (change_edge_type_weight) is not 1.
+    # The port accepts only 1.0 until typed walks come (ROADMAP A6).
+    @classmethod
+    def can_use_node_types(cls) -> bool:
+        return True
+
+    def is_using_node_types(self) -> bool:
+        return self._change_node_type_weight != 1.0
+
+    @classmethod
+    def can_use_edge_types(cls) -> bool:
+        return True
+
+    def is_using_edge_types(self) -> bool:
+        return self._change_edge_type_weight != 1.0
 
     # ------------------------------------------------------------- the tables
     # The three tables of a model, in `SkipGramSums` order: the input table

@@ -94,6 +94,23 @@ class EmbeddingResult:
     def get_all_edge_embedding(self) -> List:
         return self.edge_embeddings
 
+    @property
+    def embedding(self):
+        """The one embedding this result holds; raises unless it holds
+        exactly one."""
+        total = (
+            self.node_embeddings
+            + self.edge_embeddings
+            + self.node_type_embeddings
+            + self.edge_type_embeddings
+        )
+        if len(total) != 1:
+            raise ValueError(
+                f"EmbeddingResult holds {len(total)} embeddings; use explicit "
+                "accessors."
+            )
+        return total[0]
+
     def to_dataframes(self) -> "EmbeddingResult":
         """Convert ndarray node embeddings to DataFrames indexed by node name."""
         import pandas as pd

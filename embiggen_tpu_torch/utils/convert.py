@@ -128,3 +128,34 @@ def perceptron_params_from_jax(
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     return {"w": put(w), "b": put(b), "mean": put(mean), "std": put(std)}
+
+
+# The random draws of each factorization model's fit, by name: what its
+# `initial_state` returns and its `run` takes.
+FACTORIZATION_STATE_KEYS = {
+    "NetMF": (), "GraRep": (), "BoostNE": ("w", "h"), "RandNE": ("base",),
+    "NodeSketch": ("race0", "noise"), "MNMF": ("m", "u", "h", "c"),
+    "NMFADMM": ("w", "h"), "NNSED": ("w",),
+}
+
+
+def factorization_state_from_jax(
+    model_name: str, draws: Mapping, device: Union[str, torch.device]
+) -> Dict:
+    """The JAX model's random draws (numpy arrays, made with the same
+    `jax.random` calls its fit makes) as the port's state for `run`: float32
+    tensors on `device`, a list of them where the draw is one per block or
+    round (BoostNE's `w` and `h`, NodeSketch's `noise`)."""
+    if model_name not in FACTORIZATION_STATE_KEYS:
+        raise ValueError(f"{model_name!r} is not a factorization model with a state; "
+                         f"expected one of {sorted(FACTORIZATION_STATE_KEYS)}")
+    keys = FACTORIZATION_STATE_KEYS[model_name]
+    missing = [k for k in keys if k not in draws]
+    if missing:
+        raise KeyError(f"Missing {model_name} draws: {missing}")
+
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return {k: [put(a) for a in draws[k]] if isinstance(draws[k], (list, tuple))
+            else put(draws[k]) for k in keys}

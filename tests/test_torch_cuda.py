@@ -927,3 +927,111 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.detach().cpu()
+
+
+def _race_inputs(g, d, dev, grid=False, seed=0):
+    """Races and noise Exp(1) (or on a small grid, for exact ties) and the
+    initial sketch ids, on `dev`."""
+    n = g.number_of_nodes
+    rng = np.random.default_rng(seed)
+    if grid:
+        race = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), (n, d))
+        noise = rng.choice(np.float32([0.0, 0.5]), (n, d))
+    else:
+        race = rng.exponential(size=(n, d)).astype(np.float32)
+        noise = rng.exponential(size=(n, d)).astype(np.float32)
+    sketch = np.repeat(np.arange(n, dtype=np.int32)[:, None], d, axis=1)
+    return [torch.from_numpy(a).to(dev) for a in (race, sketch, noise)]
+
+
+@pytest.mark.parametrize("kind", ["er", "components", "directed"])
+@pytest.mark.parametrize("d", [1, 30, 100])
+@pytest.mark.parametrize("decay, grid", [(0.01, False), (0.3, False), (0.5, True)])
+def test_sketch_race_kernel_matches_plain(dev, kind, d, decay, grid):
+    """K18's races and sketches equal its plain version's exactly, for one
+    round and for ten (fresh noise each round), with exact ties on the grid
+    draws."""
+    from embiggen_tpu_torch.ops.nodesketch import (
+        inverse_decay, sketch_race, sketch_race_step, sketch_race_step_plain,
+    )
+
+    g = _sketch_graph(kind)
+    tg, tg_cpu = g.device(dev), g.device("cpu")
+    race, sketch, noise = _race_inputs(g, d, dev, grid)
+    inv = inverse_decay(decay)
+    before = _build.launch_counts()["sketch_race_step"]
+    got = sketch_race_step(tg, race, sketch, noise, inv)
+    want = sketch_race_step_plain(tg_cpu, race.cpu(), sketch.cpu(), noise.cpu(), inv)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["sketch_race_step"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    # The CUDA route of the plain version forms the same fused candidates.
+    on_card = sketch_race_step_plain(tg, race, sketch, noise, inv)
+    assert torch.equal(on_card[0].cpu(), want[0]) and torch.equal(on_card[1].cpu(), want[1])
+    noises = [_race_inputs(g, d, dev, grid, seed=s)[2] for s in range(1, 11)]
+    got = sketch_race(tg, race, sketch, noises, inv)
+    want = sketch_race(tg_cpu, race.cpu(), sketch.cpu(), [x.cpu() for x in noises], inv)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_sketch_race_kernel_at_an_odd_storage_offset(dev):
+    from embiggen_tpu_torch.ops.nodesketch import sketch_race_step, sketch_race_step_plain
+
+    g = _sketch_graph("er")
+    race, sketch, noise = _race_inputs(g, 100, dev)
+    buf = torch.empty(race.numel() + 1, device=dev)
+    odd = buf[1:].view_as(race)
+    odd.copy_(race)
+    assert odd.data_ptr() % 16 != 0
+    got = sketch_race_step(g.device(dev), odd, sketch, noise, 100.0)
+    want = sketch_race_step_plain(g.device("cpu"), race.cpu(), sketch.cpu(), noise.cpu(), 100.0)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("name", ["NodeSketch", "RandNE"])
+def test_sparse_factorization_rows_on_cuda_match_the_cpu(dev, name):
+    """NodeSketch (K18) and RandNE (K7) from the same state on the card and
+    on the CPU: NodeSketch exactly, RandNE rtol 1e-5 (sums in another
+    order)."""
+    from embiggen_tpu_torch.models.embedders import factorization
+
+    g = erdos_renyi(3000, 20000, seed=8)
+    model = getattr(factorization, name)(device=dev, random_state=0)
+    cpu = getattr(factorization, name)(device="cpu", random_state=0)
+    state = model.initial_state(g)
+    state = {k: (list(v) if k == "noise" else v) for k, v in state.items()}
+    counter = "sketch_race_step" if name == "NodeSketch" else "spmm"
+    before = _build.launch_counts()[counter]
+    got = model.run(g, dict(state, noise=iter(state.get("noise", []))))
+    assert _build.launch_counts()[counter] == before + (10 if name == "NodeSketch" else 2)
+    want = cpu.run(g, {k: ([x.cpu() for x in v] if k == "noise" else v.cpu())
+                       for k, v in state.items()})
+    if name == "NodeSketch":
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["NetMF", "GraRep", "BoostNE", "MNMF", "NMFADMM", "NNSED"])
+def test_dense_factorization_rows_on_cuda_match_the_cpu(dev, name):
+    """The dense rows from the same state on the card (cuBLAS, cuSOLVER,
+    TF32 off) and on the CPU, at their smoke parameters on a 300-node
+    graph: the Gram matrix within 1e-4 of its scale for the SVD rows, the
+    embedding within 5e-5 of its scale for the others."""
+    from embiggen_tpu_torch.models.embedders import factorization
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = erdos_renyi(300, 1500, seed=5)
+    cls = getattr(factorization, name)
+    model = cls.into_smoke_test(device=dev)
+    state = model.initial_state(g)
+    got = model.run(g, state).cpu().numpy()
+    want = cls.into_smoke_test(device="cpu").run(g, {
+        k: ([x.cpu() for x in v] if isinstance(v, list) else v.cpu())
+        for k, v in state.items()}).numpy()
+    if name in ("NetMF", "GraRep"):
+        got, want = got @ got.T, want @ want.T
+        tol = 1e-4
+    else:
+        tol = 5e-5
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())

@@ -193,8 +193,10 @@ def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
 
 def test_runs_where_jax_cannot_be_imported():
     """The port must run on a host without jax: block jax and embiggen_tpu
-    from being imported, fit every ported embedder on a tiny graph on the
-    CPU, import every module of the port and fit both edge predictors."""
+    from being imported, fit every ported embedder (the factorization rows,
+    K18's and the randomized SVD's modules among them) on a tiny graph on
+    the CPU, import every module of the port and fit both edge
+    predictors."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -239,6 +241,10 @@ def test_runs_where_jax_cannot_be_imported():
         "        assert 'requires node types' in str(e), e\n"
         "e = embed_graph(w, 'HyperSketching', device='cpu', smoke_test=True, random_state=0)\n"
         "assert e.edge_embeddings[0].shape == (w.number_of_directed_edges, 8)\n"
+        "for name in ('NetMF', 'GraRep', 'BoostNE', 'RandNE', 'NodeSketch', 'MNMF',\n"
+        "             'NMFADMM', 'NNSED'):\n"
+        "    e = embed_graph(w, name, device='cpu', smoke_test=True)\n"
+        "    assert e.embedding.shape == (50, 4), name\n"
         "import importlib, pkgutil, embiggen_tpu_torch\n"
         "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
         "                               'embiggen_tpu_torch.'):\n"

@@ -121,9 +121,9 @@ def test_embed_graph_smoke():
 
 
 def test_registered_names_are_the_references():
-    """The port's 32 (task, model) rows, each a row of the reference's
+    """The port's 40 (task, model) rows, each a row of the reference's
     registry."""
     ours = {(task, name) for task, models in MODELS_LIBRARY.items() for name in models}
     theirs = {(task, name) for task, models in REF_MODELS_LIBRARY.items() for name in models}
-    assert len(ours) == 32
+    assert len(ours) == 40
     assert ours <= theirs, ours - theirs
