@@ -108,7 +108,8 @@ the exit code is not 0:
      LINE first draw that is not an arc kept as drawn; then K4 standalone
      (scatter and combine) at the S6 shapes against mean_scatter_plain
      (atol 1e-5: atomics add in no fixed order; counts exactly), with
-     segment tuples and shared counts;
+     segment tuples and shared counts (left as passed), and on a workspace
+     over three calls (zero after each);
  15. S6: three steps of each of the six minibatch models on injected
      batches, card against CPU (atol 1e-5); then `embed_graph` on the slice
      graph at batch 65536: Second-order LINE (D 128, 2 epochs), TransE (D
@@ -129,9 +130,15 @@ the exit code is not 0:
  18. K13a (the co-occurrence build) against its plain version at the S7
      GloVe shape (a walk of 16 from each of the slice graph's nodes, w 2),
      on a small weighted graph, on walks that revisit nodes (the diagonal
-     dropped) and with strides at or past the walks' length (no keys): keys
-     exactly, sums rtol 1e-6; its time beside torch.unique's on the emitted
-     keys; K13b (the GloVe step) against its plain version on that build's
+     dropped), on a star's walks (a hub segment over several windows), on
+     the walks of the slice graph with 256 planted hubs (timed too, beside
+     torch.unique's inverse with index_add_) and with strides at or past
+     the walks' length (no keys): keys exactly, in
+     ascending order, sums rtol 1e-6; its time and its launches' split
+     beside torch.unique's on the emitted keys (counts, the same function
+     as the weight-1 build, also timed) and torch.unique's inverse with
+     index_add_ of the weights (the same function as GloVe's 1/d sums);
+     K13b (the GloVe step) against its plain version on that build's
      entries at B 65536, D 128 and at D 30: gradient rows rtol 1e-5 / atol
      1e-6, loss rtol 1e-5;
  19. S7: three injected steps of Walklets SkipGram, Walklets CBOW and
@@ -666,7 +673,7 @@ KERNEL_NAMES = {
     "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
     "edge_metrics": "edge_metrics_kernel", "ell_walks": "ell_walks_kernel",
     "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
-    "mean_scatter": "scatter_add_rows_kernel", "mean_combine": "mean_combine_kernel",
+    "mean_scatter": "scatter_rows_kernel", "mean_combine": "mean_rows_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
     "walklets_update": "walklets_kernel", "cooccurrences": "cooc_",
     "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
@@ -1981,15 +1988,17 @@ def k4_line_checks(tg, dev):
     """K4 standalone at the S6 shapes: Second-order LINE's two updates on a
     batch that K14 draws (B S6_BATCH, K S6_NEGS) with random gradients: the
     context table from the segments (dst, negatives), the node table from
-    src, and a third table from the segments with the context's counts,
-    against mean_scatter_plain (atol 1e-5: atomics add in no fixed order;
-    counts exactly). Then its two kernels timed apart on the context update:
-    the scatter (each segment's rows added into zeroed sums and counts) and
-    the combine (the dense pass over all N rows), and the whole wrapper
-    call. Returns its two kernels entries."""
+    src, and a third table from the segments with the context's counts (left
+    as passed), against mean_scatter_plain (atol 1e-5: atomics add in no
+    fixed order; counts exactly); then three calls on one workspace (the
+    context, node and context updates of a step and a half), the workspace
+    zero after each. Then its two kernels timed apart on the context update:
+    the scatter (each segment's rows added into the workspace) and the
+    combine (the touched rows), and the whole wrapper call with and without
+    a workspace. Returns its two kernels entries."""
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.negatives import line_mini_batch
-    from embiggen_tpu_torch.ops.scatter import mean_scatter, mean_scatter_plain
+    from embiggen_tpu_torch.ops.scatter import MeanScatterSums, mean_scatter, mean_scatter_plain
 
     rng = np.random.default_rng(41)
     n, d = tg.n_nodes, DIM
@@ -2008,33 +2017,49 @@ def k4_line_checks(tg, dev):
     got, _ = mean_scatter(tables[0].clone(), src, g_src, 0.025)
     want, _ = mean_scatter_plain(tables[0].clone(), src, g_src, 0.025)
     err = max(err, check_close("K4 S6 node table", got, want, 0.0, 1e-5))
+    shared = counts.clone()
     got, _ = mean_scatter(tables[0].clone(), segs, gsegs, 0.025, counts)
     want, _ = mean_scatter_plain(tables[0].clone(), segs, gsegs, 0.025, counts)
     err = max(err, check_close("K4 S6 shared counts", got, want, 0.0, 1e-5))
-    del got, want
+    check_close("K4 S6 shared counts kept", counts, shared, 0.0, 0.0)
+    ws = MeanScatterSums.zeros((n, d), dev)
+    got, want = [t.clone() for t in tables], [t.clone() for t in tables]
+    for i, (t, ids, g) in enumerate(((1, segs, gsegs), (0, src, g_src), (1, segs, gsegs))):
+        _, none = mean_scatter(got[t], ids, g, 0.025, workspace=ws)
+        mean_scatter_plain(want[t], ids, g, 0.025)
+        err = max(err, check_close(f"K4 S6 workspace call {i}", got[t], want[t], 0.0, 1e-5))
+        if none is not None or bool(ws.sums.any()) or bool(ws.counts.any()):
+            raise AssertionError(f"K4 S6 workspace call {i}: not zero after the combine")
+    del got, want, shared
     idx_all, g_all = torch.cat(segs).long(), torch.cat(gsegs)
     m, u = idx_all.numel(), int(torch.unique(idx_all).numel())
-    sums, cnt = torch.zeros_like(tables[1]), torch.zeros(n, device=dev)
+    cnt = ws.counts
     ones = torch.ones(m, device=dev)
-
-    def zero():
-        sums.zero_()
-        cnt.zero_()
 
     def scatter():
         for seg, g in zip(segs, gsegs):
-            _build.launch(None, "ebt_scatter_add_rows", dev, sums.data_ptr(), cnt.data_ptr(),
+            _build.launch(None, "ebt_scatter_add_rows", dev, ws.sums.data_ptr(), cnt.data_ptr(),
                           seg.data_ptr(), g.data_ptr(), seg.numel(), d)
+    work = tables[1].clone()
+
+    def combine():
+        _build.launch(None, "ebt_mean_combine", dev, work.data_ptr(), ws.sums.data_ptr(),
+                      cnt.data_ptr(), 1e-6, n, d, 1)
 
     def scatter_plain():
         cnt.index_add_(0, idx_all, ones)
-        sums.index_add_(0, idx_all, g_all)
-    scatter_ms = time_after(zero, scatter, 10)
-    scatter_plain_ms = time_after(zero, scatter_plain, 10)
-    index_add_ms = time_after(zero, lambda: sums.index_add_(0, idx_all, g_all), 10)
-    zero()
-    scatter()
-    work = tables[1].clone()
+        ws.sums.index_add_(0, idx_all, g_all)
+
+    def combine_plain():
+        work.sub_(1e-6 * (ws.sums / cnt.clamp(min=1.0)[:, None]))
+        ws.sums.zero_()
+        cnt.zero_()
+    # Each timed half after the other, so the workspace is zero between.
+    scatter_ms = time_after(combine, scatter, 10)
+    scatter_plain_ms = time_after(combine, scatter_plain, 10)
+    index_add_ms = time_after(combine_plain, lambda: ws.sums.index_add_(0, idx_all, g_all), 10)
+    combine_ms = time_after(scatter, combine, 10)
+    combine_plain_ms = time_after(scatter, combine_plain, 10)
     entries = {
         "mean_scatter": dict(
             source="embiggen_tpu_torch/csrc/scatter.cu",
@@ -2045,23 +2070,25 @@ def k4_line_checks(tg, dev):
             library_ms=None, library=None, scatter_half_ms=index_add_ms,
             # ids and gradients read; touched rows of the sums and counts written
             **bound(4 * m * (d + 1) + 4 * u * (d + 1), m * d),
-            wrapper_ms=time_ms(lambda: mean_scatter(work, segs, gsegs, 0.025), 10),
-            wrapper_plain_ms=time_ms(lambda: mean_scatter_plain(work, segs, gsegs, 0.025), 10),
+            wrapper_ms=time_ms(lambda: mean_scatter(work, segs, gsegs, 1e-6, workspace=ws), 10),
+            wrapper_fresh_ms=time_ms(lambda: mean_scatter(work, segs, gsegs, 1e-6), 10),
+            wrapper_plain_ms=time_ms(
+                lambda: mean_scatter_plain(work, segs, gsegs, 1e-6, workspace=ws), 10),
             rows=m, touched_rows=u,
         ),
         "mean_combine": dict(
             source="embiggen_tpu_torch/csrc/scatter.cu",
             replaces="embiggen_tpu/models/embedders/walk_based.py:817", max_abs_err=err,
-            ms=time_ms(lambda: _build.launch(None, "ebt_mean_combine", dev, work.data_ptr(),
-                                             sums.data_ptr(), cnt.data_ptr(), 0.025, n, d), 10),
-            plain_ms=time_ms(lambda: work.sub_(0.025 * (sums / cnt.clamp(min=1.0)[:, None])), 10),
-            library_ms=None,
-            # all counts read (to find the touched rows); the touched rows of
-            # the table read and written and of the sums read
+            ms=combine_ms, plain_ms=combine_plain_ms, library_ms=None,
+            # The mean step's bytes: all counts read (to find the touched
+            # rows), the touched rows of the table read and written and of
+            # the sums read. Zeroing the workspace is the design's own cost,
+            # beside the bound.
             **bound(4 * n + 12 * u * d, 3 * u * d),
+            workspace_zero_bytes=4 * u * d + 4 * u,
         ),
     }
-    del tables, work, sums, g_all, gsegs
+    del tables, work, ws, g_all, gsegs
     torch.cuda.empty_cache()
     return entries
 
@@ -2287,22 +2314,25 @@ def glove_walks(graph, dev, length, seed):
 
 
 def cooc_check(name, walks, n, strides):
-    """K13a against its plain version: keys exactly, sums rtol 1e-6 (float64
-    atomics in no fixed order, compared after the cast). Returns (sums err,
-    entries)."""
+    """K13a against its plain version: keys exactly and ascending, sums
+    rtol 1e-6 (float64 sums in another order, compared after the cast).
+    Returns (sums err, entries)."""
     from embiggen_tpu_torch.ops.glove import cooccurrences, cooccurrences_plain
 
     got, want = cooccurrences(walks, n, strides), cooccurrences_plain(walks, n, strides)
     for i, part in enumerate(("centers", "contexts")):
         check_close(f"K13a {name} {part}", got[i], want[i], 0.0, 0.0)
+    keys = got[0].long() * n + got[1].long()
+    if not bool((keys[1:] > keys[:-1]).all()):
+        raise AssertionError(f"K13a {name}: keys not in ascending order")
     return check_close(f"K13a {name} sums", got[2], want[2], 1e-6, 0.0), got[0].numel()
 
 
 def cooc_split(walks, strides) -> dict:
-    """K13a's wrapper split: its two launches on their CUDA events (the
-    insertions, the compaction) and the rest of the call (the table's fill,
-    the host read of the claimed count, the sort of the keys and the gather
-    of their sums) on the wrapper's time, each the mean of 5 calls."""
+    """K13a's split: its six launches on their CUDA events (count, scan,
+    scatter, sort, scan, write) and the rest of the call (allocations, the
+    host read of the output's size) on the wrapper's time, each the mean of
+    5 calls."""
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.glove import cooccurrences
 
@@ -2312,9 +2342,44 @@ def cooc_split(walks, strides) -> dict:
             cooccurrences(walks, N_NODES, strides)
     torch.cuda.synchronize()
     times = [s.elapsed_time(e) for s, e in pairs["cooccurrences"]]
-    insert_ms, compact_ms = sum(times[0::2]) / 5, sum(times[1::2]) / 5
-    return dict(insert_ms=insert_ms, compact_ms=compact_ms,
-                rest_ms=total - insert_ms - compact_ms)
+    split = dict(zip(("count_ms", "scan_ms", "scatter_ms", "sort_ms", "scan2_ms", "write_ms"),
+                     (sum(times[i::6]) / 5 for i in range(6))))
+    return dict(split, rest_ms=total - sum(split.values()))
+
+
+def planted_hub_build(graph, dev, strides, errs) -> dict:
+    """K13a against its plain version on a skewed build (a walk of 16 from
+    each node of the slice graph with N_HUBS planted hubs), whose hubs'
+    segments take the hub route; its time beside torch.unique's inverse
+    with index_add_ (the same function), and the hubs' share of the
+    entries."""
+    from embiggen_tpu_torch.ops.glove import cooccurrences
+
+    hg = hub_graph(graph)
+    n = hg.number_of_nodes
+    walks = glove_walks(hg, dev, GLOVE_WALK, 0)
+    errs["planted hubs"], entries = cooc_check("planted hubs", walks, n, strides)
+    seg = torch.zeros(n, dtype=torch.int64, device=dev)
+    keys, weights = [], []
+    for d, w in strides:
+        a, b = walks[:, :-d].reshape(-1).long(), walks[:, d:].reshape(-1).long()
+        keys += [a * n + b, b * n + a]
+        weights.append(torch.full((2 * a.numel(),), w, dtype=torch.float64, device=dev))
+        keep = a != b
+        seg += torch.bincount(a[keep], minlength=n) + torch.bincount(b[keep], minlength=n)
+    keys, weights = torch.cat(keys), torch.cat(weights)
+    hubs = seg > 8192
+
+    def unique_sums():
+        uniq, inverse = torch.unique(keys, sorted=True, return_inverse=True)
+        torch.zeros(uniq.numel(), dtype=torch.float64, device=dev).index_add_(0, inverse, weights)
+    out = dict(hubs_ms=time_ms(lambda: cooccurrences(walks, n, strides), 5),
+               hubs_unique_index_add_ms=time_ms(unique_sums, 3), hubs_entries=entries,
+               hubs_count=int(hubs.sum()),
+               hubs_entry_share=float(seg[hubs].sum()) / float(seg.sum()))
+    del walks, keys, weights, seg
+    torch.cuda.empty_cache()
+    return out
 
 
 def glove_checks(graph, dev):
@@ -2343,6 +2408,14 @@ def glove_checks(graph, dev):
     errs["revisits, w 5"], _ = cooc_check("revisits", revisits, 500, glove_strides(5))
     errs["stride 16 and 1"], _ = cooc_check("stride 16 and 1", revisits, 500,
                                             ((16, 1.0), (1, 0.5)))
+    # A star's walks: the hub (node 0) at every other position, 40,000
+    # leaves; its segment far past a block's shared memory, its contexts
+    # over three windows.
+    star = rng.integers(1, 40_001, (4000, 16), dtype=np.int32)
+    star[:2000, ::2] = 0
+    star[2000:, 1::2] = 0
+    errs["star, w 2"], _ = cooc_check("star", torch.from_numpy(star).to(dev), 40_001,
+                                      glove_strides(2))
     if any(t.numel() for t in cooccurrences(revisits, 500, ((16, 1.0), (20, 1.0)))):
         raise AssertionError("K13a: strides at or past the walks' length gave keys")
 
@@ -2353,6 +2426,13 @@ def glove_checks(graph, dev):
                                     + walks[:, d:].reshape(-1),
                                     walks[:, d:].reshape(-1).long() * N_NODES
                                     + walks[:, :-d].reshape(-1)]) for d, _ in strides])
+    weights = torch.cat([torch.full((2 * N_NODES * (GLOVE_WALK - d),), w, dtype=torch.float64,
+                                    device=dev) for d, w in strides])
+
+    def unique_sums():
+        uniq, inverse = torch.unique(emitted, sorted=True, return_inverse=True)
+        torch.zeros(uniq.numel(), dtype=torch.float64, device=dev).index_add_(0, inverse, weights)
+    stride1 = ((1, 1.0),)
     out["cooccurrences"] = dict(
         source="embiggen_tpu_torch/csrc/glove.cu",
         replaces="embiggen_tpu/models/embedders/glove.py:95",
@@ -2362,13 +2442,26 @@ def glove_checks(graph, dev):
         # Counts where K13a sums weights 1/d, and keeps the diagonal.
         library_ms=time_ms(lambda: torch.unique(emitted, sorted=True, return_counts=True), 3),
         library="torch.unique(keys, sorted=True, return_counts=True) on the emitted keys",
+        # The same function as the 1/d build: unique's inverse, index_add_.
+        unique_index_add_ms=time_ms(unique_sums, 3),
         emitted_keys=int(emitted.numel()), entries=entries,
         **cooc_split(walks, strides),
         # The walks read, the entries (two int32 ids, a float32 sum) written.
         **bound(4 * walks.numel() + 12 * entries, 0))
-    del emitted
+    del emitted, weights
+    # Walklets GloVe's build at stride 1, weight 1: there torch.unique's
+    # counts are the same function.
+    keys1 = torch.cat([walks[:, :-1].reshape(-1).long() * N_NODES + walks[:, 1:].reshape(-1),
+                       walks[:, 1:].reshape(-1).long() * N_NODES + walks[:, :-1].reshape(-1)])
+    out["cooccurrences"].update(
+        stride1_ms=time_ms(lambda: cooccurrences(walks, N_NODES, stride1), 5),
+        stride1_library_ms=time_ms(
+            lambda: torch.unique(keys1, sorted=True, return_counts=True), 3))
+    del keys1
     ci, cj, sums = cooccurrences(walks, N_NODES, strides)
     del walks
+    out["cooccurrences"].update(planted_hub_build(graph, dev, strides, errs))
+    out["cooccurrences"]["max_abs_err"] = max(errs.values())
     e = glove_entries(ci, cj, sums, 100.0, 0.75)
     del ci, cj, sums
     torch.cuda.empty_cache()
@@ -3603,7 +3696,8 @@ def main() -> None:
           + f" | LINE with avoid_false_negatives ms {new['line_mini_batch']['avoid_ms']:.4f} "
           f"plain {new['line_mini_batch']['avoid_plain_ms']:.4f} bound "
           f"{new['line_mini_batch']['avoid_bound_ms']:.4f} | K4 standalone wrapper ms "
-          f"{new['mean_scatter']['wrapper_ms']:.4f} plain "
+          f"{new['mean_scatter']['wrapper_ms']:.4f} (on a fresh sums and counts "
+          f"{new['mean_scatter']['wrapper_fresh_ms']:.4f}) plain "
           f"{new['mean_scatter']['wrapper_plain_ms']:.4f}, index_add_ of the sums "
           f"{new['mean_scatter']['scatter_half_ms']:.4f} ({new['mean_scatter']['rows']} rows, "
           f"{new['mean_scatter']['touched_rows']} touched) | K14 p-values (slots "
@@ -3667,10 +3761,13 @@ def main() -> None:
     print(f"phase 18 K13 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s): K13a at "
           f"the S7 GloVe shape (walks [{N_NODES}, {GLOVE_WALK}], w {GLOVE_WINDOW}: "
           f"{k13a['emitted_keys']} keys emitted, {k13a['entries']} entries) ms "
-          f"{k13a['ms']:.4f} plain {k13a['plain_ms']:.4f} torch.unique "
-          f"{k13a['library_ms']:.4f} bound {k13a['bound_ms']:.4f} (split: insertions "
-          f"{k13a['insert_ms']:.4f}, compaction {k13a['compact_ms']:.4f}, the rest of the "
-          f"wrapper {k13a['rest_ms']:.4f}); K13b (B {GLOVE_BATCH}, "
+          f"{k13a['ms']:.4f} plain {k13a['plain_ms']:.4f} torch.unique counts "
+          f"{k13a['library_ms']:.4f}, unique's inverse and index_add_ "
+          f"{k13a['unique_index_add_ms']:.4f}, bound {k13a['bound_ms']:.4f} (split: "
+          + ", ".join(f"{k[:-3]} {k13a[k]:.4f}" for k in (
+              "count_ms", "scan_ms", "scatter_ms", "sort_ms", "scan2_ms", "write_ms", "rest_ms"))
+          + f"); at one stride of weight 1 ms {k13a['stride1_ms']:.4f}, torch.unique counts "
+          f"{k13a['stride1_library_ms']:.4f}; K13b (B {GLOVE_BATCH}, "
           f"D {DIM}) ms {new['glove_step']['ms']:.4f} plain {new['glove_step']['plain_ms']:.4f} "
           f"bound {new['glove_step']['bound_ms']:.4f} ({new['glove_step']['bound_by']}) | "
           "max err by case: " + "; ".join(f"{k} {v:.3g}" for k, v in k13_errs.items()),

@@ -1,19 +1,66 @@
 // K13: GloVe's co-occurrence build (K13a) and its weighted-least-squares
 // step (K13b).
 //
-// K13a `cooc_insert` + `cooc_compact` replace
-// embiggen_tpu/models/embedders/glove.py::GloVe._cooccurrences (the window
-// pairs, their host radix sort and reduceat) and the per-power count of
-// WalkletsGloVe._fit_transform (walklets.py:381-394). For every walk, every
-// stride d given (GloVe: 1..w at weight 1/d; Walklets GloVe: one stride at
-// weight 1) and every position t < L - d, the pair of nodes (a, b) =
-// (walk[t], walk[t + d]) adds its weight to the symmetric keys a N + b and
-// b N + a; the result is each distinct key with its summed weight, the
-// diagonal (a == b) dropped. Both keys of a pair always take the same
-// weight, so the build inserts the one unordered key min N + max and the
-// compaction writes both orientations of each. The wrapper sorts the
-// compacted keys (the reference sorts on the host, outside any device
-// program).
+// K13a replaces embiggen_tpu/models/embedders/glove.py::GloVe._cooccurrences
+// (the window pairs, their host radix sort and reduceat) and the per-power
+// count of WalkletsGloVe._fit_transform (walklets.py:381-394). For every
+// walk, every stride d given (GloVe: 1..w at weight 1/d; Walklets GloVe: one
+// stride at weight 1) and every position t < L - d, the pair of nodes
+// (a, b) = (walk[t], walk[t + d]) adds its weight to the keys a N + b and
+// b N + a; the result is each distinct key with its summed weight in
+// ascending key order, the diagonal (a == b) dropped. Key order is center
+// order, then context order within a center, so the build is a counting
+// sort by center followed by a sort of each center's segment:
+//   1. cooc_count: a thread a walk position t, as the center a = walk[t],
+//      counts its partners walk[t +- d] (those inside the walk and not a)
+//      into cnt[a], one atomic for the lanes of a warp that share a center
+//      that the walk revisits;
+//   2. an exclusive scan of cnt gives each center's segment of the entry
+//      buffer (off);
+//   3. cooc_scatter: the same thread reserves its k partners' slots in a's
+//      segment (one atomic for the lanes of a warp that share a revisited
+//      center) and writes them there as b << shift | j (j the stride's
+//      index in `shift` bits: one 32-bit word an entry);
+//   4. cooc_sort: each segment sorted by that word (context, then stride):
+//      up to kWarpSeg entries in a warp's registers (a bitonic network of
+//      shuffles, 1-8 words a lane), up to kBlockSeg in the block's shared
+//      memory; each run of one context summed in float64 in sorted order,
+//      and the distinct (context, sum) written back over the segment's
+//      front with the center's distinct count (dcnt). A segment longer than
+//      kBlockSeg (a hub) is left to the hub route (below);
+//   5. an exclusive scan of dcnt gives each center's place in the output;
+//   6. cooc_copy moves each center's distinct entries there (ci, cj, sum as
+//      float32), and the hub route writes each hub's.
+// The wrapper reads the output's size once, after step 5, to allocate it.
+//
+// What bounds it on the H100: bytes, and where they land. The byte bound is
+// the walks read and the entries written (12 B each). A hash table of the
+// pairs would take a random read-modify-write of a DRAM sector for each of
+// them (29M at the GloVe bench shape) and a 64-bit sort of the keys after.
+// Here every pass but the scatter streams: the count and the scatter read the
+// walks (64 MB at the GloVe bench shape), the sort reads the 4-byte entries
+// a segment at a time and writes the distinct ones back, the copy moves
+// them. The scatter's writes land at random segments; so that partly
+// written 32-byte sectors are not evicted to DRAM half-filled, it runs in
+// sweeps over ranges of segments that fit in L2: one pass stores each
+// position's sweep (a byte), and each sweep reads those bytes and writes
+// only its own positions' entries.
+//
+// Hubs: a segment longer than kBlockSeg entries is a hub. cooc_sort lists
+// it with its chunks of kHubChunk entries; its entries are bucketed by
+// window of contexts (a histogram a chunk, a prefix a hub, a scatter a
+// chunk into the hub's unused part of rec_sum), then a block takes each
+// (hub, window) pair: the contexts present flagged a byte each and their
+// weights added in float64 in shared memory, then listed in ascending order
+// by a scan of the flags; once to count each window's distinct contexts
+// (before the scan of step 5), once to write them. Every pass spreads over
+// the whole card, and each reads a hub's entries once (a window wider than
+// kHubWindow, on graphs over 2^24 nodes, reads its bucket once per
+// kHubWindow contexts).
+//
+// Sums: a run is summed in sorted order (stride order within a context), so
+// the sorted routes give the same float64 sums on every run; the hub route
+// adds in no fixed order. Both are cast to float32 at the end.
 //
 // K13b `glove_step` replaces GloVe._batch_updates (glove.py:207-228; its
 // loss is embiggen_tpu/ops/losses.py::glove_loss) and the same step of
@@ -23,145 +70,652 @@
 // gradient g (both biases take it), i and j, and the entry's loss
 // f (pred - log x)^2. The tables are not touched: the caller scatter-adds
 // the rows after the step, so every gradient is taken before any table
-// changes.
-//
-// What bounds them on the H100:
-//   - K13a: the insertions, random 16-byte slots of a table of at least
-//     twice as many slots as unordered keys (at the bench's 1M walks of 16,
-//     w 2: 29M keys into 2^26 slots, 1.07 GB), each an atomicCAS on the key
-//     and a float64 atomicAdd on the sum, then one pass over the slots;
-//     its byte bound is the walks read and the entries written.
-//   - K13b: the gathered rows, 2 D floats an entry read and 2 D written
-//     (B 65536, D 128: 134 MB), and the entry gathers before them.
-//
-// What the design does about it:
-//   - K13a hashes each key (the splitmix64 finaliser) into an open-addressing
-//     table with linear probing; a slot's key goes from empty to its key
-//     once, so a key read without a lock is either empty (then the CAS
-//     decides) or final. A thread a (walk, position, stride), consecutive
-//     threads on consecutive positions of one walk, so the walk reads are
-//     coalesced. Each block counts the slots it claimed and adds its count
-//     once; a probe sequence that finds no slot (which a table at most half
-//     full cannot give) raises a flag the wrapper reads. The compaction
-//     takes a thread a slot and one atomic a block for its output offset.
-//     Float64 atomics add in no fixed order, so a sum may differ from the
-//     reference's by a rounding of float64, under float32's after the cast.
-//   - K13b takes a warp an entry: lanes over D, float4 loads when D % 4 == 0
-//     and the rows are 16-byte aligned, the dot product by shuffles, then the
-//     two gradient rows written from the rows just read (L1 hits).
+// changes. What bounds it: the gathered rows, 2 D floats an entry read and
+// 2 D written (B 65536, D 128: 134 MB), and the entry gathers before them.
+// It takes a warp an entry: lanes over D, float4 loads when D % 4 == 0 and
+// the rows are 16-byte aligned, the dot product by shuffles, then the two
+// gradient rows written from the rows just read (L1 hits).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned long long kEmpty = ~0ull;
+constexpr int kWarps = kThreads / 32;
+// Segments of up to kWarpSeg entries are sorted by a warp, up to kBlockSeg
+// by a block (its shared memory holds them); longer ones are hubs.
+// ops/glove.py mirrors kBlockSeg as _BLOCK_SEGMENT.
+constexpr int kWarpSeg = 256;
+constexpr int kBlockSeg = 8192;
+constexpr int kCentersPerBlock = 64;
+constexpr int kScanItems = 8;
+constexpr int kScanChunk = kThreads * kScanItems;
+// The hub route: a block sums kHubWindow contexts at a time in shared
+// memory (a flag byte and a float64 each); a hub has at most
+// kMaxHubWindows windows (ops/glove.py picks the window's width to keep to
+// that, and mirrors kHubChunk as _HUB_CHUNK).
+constexpr int kHubWindow = 16384;
+constexpr int kMaxHubWindows = 1024;
+constexpr int kHubChunk = 4096;
+constexpr int kHubCountSmem = kHubWindow;
+constexpr int kHubWriteSmem = kHubWindow + kHubWindow * sizeof(double);
 
-__device__ __forceinline__ unsigned long long mix(unsigned long long x) {
-  x ^= x >> 30;
-  x *= 0xbf58476d1ce4e5b9ull;
-  x ^= x >> 27;
-  x *= 0x94d049bb133111ebull;
-  x ^= x >> 31;
-  return x;
-}
-
-// Block-wide sum of `v` (each thread's 0 or 1), into thread 0's return.
-__device__ __forceinline__ unsigned block_count(unsigned v, unsigned* red) {
-  const unsigned warp = __popc(__ballot_sync(0xffffffffu, v != 0));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = warp;
-  __syncthreads();
-  unsigned total = 0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
-  }
-  return total;
-}
-
-__global__ void __launch_bounds__(kThreads) cooc_insert_kernel(
-    const int32_t* __restrict__ walks, long long n_walks, int L, long long n_nodes,
-    const int32_t* __restrict__ strides, const double* __restrict__ weights, int n_strides,
-    unsigned long long* __restrict__ keys, double* __restrict__ sums,
-    unsigned long long mask, unsigned long long* __restrict__ counters) {
-  __shared__ unsigned red[kThreads / 32];
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  const long long per_stride = n_walks * L;
-  unsigned claimed = 0;
-  if (i < per_stride * n_strides) {
-    const int j = static_cast<int>(i / per_stride);
-    const long long r = i - j * per_stride;
-    const long long w = r / L;
-    const int t = static_cast<int>(r - w * L);
-    const int d = strides[j];
-    if (t + d < L) {
-      const long long a = walks[w * L + t], b = walks[w * L + t + d];
-      if (a != b) {
-        const unsigned long long key =
-            static_cast<unsigned long long>(a < b ? a * n_nodes + b : b * n_nodes + a);
-        const double v = weights[j];
-        unsigned long long h = mix(key) & mask;
-        bool done = false;
-        for (unsigned long long probe = 0; probe <= mask; ++probe) {
-          unsigned long long cur = __ldcg(keys + h);
-          if (cur == kEmpty) {
-            cur = atomicCAS(keys + h, kEmpty, key);
-            if (cur == kEmpty) {
-              claimed = 1;
-              cur = key;
-            }
-          }
-          if (cur == key) {
-            atomicAdd(sums + h, v);
-            done = true;
-            break;
-          }
-          h = (h + 1) & mask;
-        }
-        if (!done) atomicOr(counters + 1, 1ull);
+// Calls f(context, j) for each partner of position t of `row` (a walk of
+// length L whose node at t is a): row[t + d] and row[t - d] for every
+// stride d = strides[j] that stays inside the walk, where not a. Returns
+// their count.
+template <typename F>
+__device__ __forceinline__ int for_partners(const int32_t* __restrict__ row, int L, int t,
+                                            int32_t a, const int32_t* __restrict__ strides,
+                                            int J, F f) {
+  int k = 0;
+  for (int j = 0; j < J; ++j) {
+    const int d = __ldg(strides + j);
+    if (d < L - t) {
+      const int32_t b = row[t + d];
+      if (b != a) {
+        f(b, j);
+        ++k;
+      }
+    }
+    if (d <= t) {
+      const int32_t b = row[t - d];
+      if (b != a) {
+        f(b, j);
+        ++k;
       }
     }
   }
-  const unsigned total = block_count(claimed, red);
-  if (threadIdx.x == 0 && total) atomicAdd(counters, static_cast<unsigned long long>(total));
+  return k;
 }
 
-// Both orientations of every occupied slot's key, with its sum, into
-// out_keys / out_sums at 2 (block offset + rank in the block).
-__global__ void __launch_bounds__(kThreads) cooc_compact_kernel(
-    const unsigned long long* __restrict__ keys, const double* __restrict__ sums,
-    long long cap, long long n_nodes, long long* __restrict__ out_keys,
-    double* __restrict__ out_sums, unsigned long long* __restrict__ cursor) {
-  __shared__ unsigned warp_base[kThreads / 32];
-  __shared__ unsigned long long block_base;
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  const unsigned long long key = i < cap ? keys[i] : kEmpty;
-  const bool live = key != kEmpty;
-  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const unsigned ballot = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) warp_base[warp] = __popc(ballot);
+__device__ __forceinline__ long long warp_inclusive_sum(long long v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// Exclusive prefix of v over the block's threads; `total` gets the sum.
+// Every thread of the block calls it.
+__device__ long long block_exclusive_sum(long long v, long long* warp_totals,
+                                         long long& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long incl = warp_inclusive_sum(v);
+  if (lane == 31) warp_totals[warp] = incl;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) {
-      const unsigned c = warp_base[w];
-      warp_base[w] = total;
-      total += c;
-    }
-    block_base = total ? atomicAdd(cursor, static_cast<unsigned long long>(total)) : 0;
+  long long before = 0, sum = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const long long x = warp_totals[w];
+    if (w < warp) before += x;
+    sum += x;
   }
   __syncthreads();
-  if (!live) return;
-  const unsigned long long pos =
-      block_base + warp_base[warp] + __popc(ballot & ((1u << lane) - 1u));
-  const long long lo = static_cast<long long>(key / n_nodes);
-  const long long hi = static_cast<long long>(key - lo * n_nodes);
-  const double s = sums[i];
-  out_keys[2 * pos] = lo * n_nodes + hi;
-  out_keys[2 * pos + 1] = hi * n_nodes + lo;
-  out_sums[2 * pos] = s;
-  out_sums[2 * pos + 1] = s;
+  total = sum;
+  return before + incl - v;
+}
+
+// A warp or the block as the group that sorts one segment.
+template <int G>
+struct Group;
+
+template <>
+struct Group<32> {
+  __device__ static int tid() { return threadIdx.x & 31; }
+  __device__ static void sync() { __syncwarp(); }
+  // (rank among the flagged threads, number flagged)
+  __device__ static int2 count(bool flag, int*) {
+    const unsigned b = __ballot_sync(0xffffffffu, flag);
+    return make_int2(__popc(b & ((1u << (threadIdx.x & 31)) - 1u)), __popc(b));
+  }
+};
+
+template <>
+struct Group<kThreads> {
+  __device__ static int tid() { return threadIdx.x; }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static int2 count(bool flag, int* warp_counts) {
+    const unsigned b = __ballot_sync(0xffffffffu, flag);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) warp_counts[warp] = __popc(b);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) before += warp_counts[w];
+      total += warp_counts[w];
+    }
+    __syncthreads();
+    return make_int2(before + __popc(b & ((1u << lane) - 1u)), total);
+  }
+};
+
+// The n entries of `seg` (n <= 32 R) sorted in a warp's registers, R a
+// lane (element r * 32 + lane), by a bitonic network (words of the same
+// lane swap in registers, others by shuffles), into buf[0, 32 R), padded
+// with all-ones words.
+template <int R>
+__device__ void warp_sort(const unsigned* seg, int n, unsigned* buf) {
+  const int lane = threadIdx.x & 31;
+  unsigned v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * 32 + lane;
+    v[r] = i < n ? seg[i] : 0xffffffffu;
+  }
+#pragma unroll
+  for (int k = 2; k <= 32 * R; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= 32) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int pr = r ^ (j >> 5);
+          if (pr > r) {
+            const bool up = ((r * 32 + lane) & k) == 0;
+            const unsigned x = v[r], y = v[pr];
+            v[r] = up ? min(x, y) : max(x, y);
+            v[pr] = up ? max(x, y) : min(x, y);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const unsigned y = __shfl_xor_sync(0xffffffffu, v[r], j);
+          const bool up = ((r * 32 + lane) & k) == 0;
+          v[r] = (((lane & j) == 0) == up) ? min(v[r], y) : max(v[r], y);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) buf[r * 32 + lane] = v[r];
+  __syncwarp();
+}
+
+// The n entries of `seg` sorted in the block's shared memory `buf` (a
+// power of two >= n) by a bitonic network.
+__device__ void block_sort(const unsigned* seg, int n, unsigned* buf) {
+  int P = 32;
+  while (P < n) P <<= 1;
+  for (int i = threadIdx.x; i < P; i += kThreads) buf[i] = i < n ? seg[i] : 0xffffffffu;
+  __syncthreads();
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < P; i += kThreads) {
+        const int l = i ^ j;
+        if (l > i) {
+          const unsigned x = buf[i], y = buf[l];
+          if ((x > y) == ((i & k) == 0)) {
+            buf[i] = y;
+            buf[l] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Each run of one context in the sorted buf[0, n) written over the
+// segment's front: the context into seg[k], its weights' float64 sum as
+// float32 into sums[k]. Returns the number of runs. Every thread of the
+// group calls it with the same n.
+template <int G>
+__device__ int reduce_runs(unsigned* seg, float* sums, int n, const unsigned* buf, int shift,
+                           const double* __restrict__ weights, int* warp_counts) {
+  using Gr = Group<G>;
+  const unsigned mask = (1u << shift) - 1u;
+  int runs = 0;
+  for (int base = 0; base < n; base += G) {
+    const int i = base + Gr::tid();
+    const unsigned ctx = i < n ? buf[i] >> shift : 0u;
+    const bool head = i < n && (i == 0 || buf[i - 1] >> shift != ctx);
+    const int2 rank = Gr::count(head, warp_counts);
+    if (head) {
+      double s = 0.0;
+      for (int m = i; m < n && buf[m] >> shift == ctx; ++m) s += __ldg(weights + (buf[m] & mask));
+      seg[runs + rank.x] = ctx;
+      sums[runs + rank.x] = static_cast<float>(s);
+    }
+    runs += rank.y;
+  }
+  Gr::sync();
+  return runs;
+}
+
+template <int R>
+__device__ int warp_route(unsigned* seg, float* sums, int n, unsigned* buf, int shift,
+                          const double* __restrict__ weights) {
+  warp_sort<R>(seg, n, buf);
+  return reduce_runs<32>(seg, sums, n, buf, shift, weights, nullptr);
+}
+
+// The lanes of `mask` whose `key` is the same form a group (`peers`): each
+// lane gets the sum of k over the group's lanes below it (`before`) and over
+// the whole group (`total`), so that one lane can reserve for all of them.
+// A hub fills half a warp on a star's walks, where one atomic a lane would
+// queue at one address. Grouping costs the warp a __match_any_sync, so only
+// the lanes whose center comes back two steps before or after (`revisits`:
+// the hub of a star, a walk that turns back) take part.
+__device__ __forceinline__ bool revisits(const int32_t* __restrict__ row, int L, int t,
+                                         int32_t a) {
+  return (t >= 2 && row[t - 2] == a) || (t + 2 < L && row[t + 2] == a);
+}
+
+__device__ __forceinline__ void group_by_key(unsigned mask, int32_t key, unsigned k,
+                                             unsigned& peers, unsigned& before,
+                                             unsigned& total) {
+  const int lane = threadIdx.x & 31;
+  peers = __match_any_sync(mask, key);
+  before = 0;
+  total = 0;
+  for (unsigned b = peers; b; b &= b - 1u) {
+    const int j = __ffs(b) - 1;
+    const unsigned v = __shfl_sync(peers, k, j);
+    total += v;
+    if (j < lane) before += v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) cooc_count_kernel(
+    const int32_t* __restrict__ walks, long long positions, int L,
+    const int32_t* __restrict__ strides, int J, unsigned* __restrict__ cnt) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  int32_t a = -1;
+  unsigned k = 0;
+  bool hot = false;
+  if (i < positions) {
+    const long long w = i / L;
+    const int t = static_cast<int>(i - w * L);
+    const int32_t* row = walks + w * L;
+    a = row[t];
+    k = for_partners(row, L, t, a, strides, J, [](int32_t, int) {});
+    hot = k > 0 && revisits(row, L, t, a);
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, hot);
+  if (k == 0) return;
+  if (!hot) {
+    atomicAdd(cnt + a, k);
+    return;
+  }
+  unsigned peers, before, total;
+  group_by_key(mask, a, k, peers, before, total);
+  if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(cnt + a, total);
+}
+
+// Each position's sweep: the range of `width` entries its center's segment
+// starts in.
+__global__ void __launch_bounds__(kThreads) cooc_sweep_kernel(
+    const int32_t* __restrict__ walks, long long positions, const long long* __restrict__ off,
+    long long width, uint8_t* __restrict__ sweep) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  if (i < positions) sweep[i] = static_cast<uint8_t>(off[walks[i]] / width);
+}
+
+// The positions of sweep `s` (all of them when sweep is null) write their
+// entries; cnt counts down to 0 as the slots are taken.
+__global__ void __launch_bounds__(kThreads) cooc_scatter_kernel(
+    const int32_t* __restrict__ walks, long long positions, int L,
+    const int32_t* __restrict__ strides, int J, int shift, const long long* __restrict__ off,
+    unsigned* __restrict__ cnt, unsigned* __restrict__ ent, const uint8_t* __restrict__ sweep,
+    int s) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  const int32_t* row = walks;
+  int t = 0;
+  int32_t a = -1;
+  unsigned k = 0;
+  bool hot = false;
+  if (i < positions && (sweep == nullptr || sweep[i] == s)) {
+    const long long w = i / L;
+    t = static_cast<int>(i - w * L);
+    row = walks + w * L;
+    a = row[t];
+    k = for_partners(row, L, t, a, strides, J, [](int32_t, int) {});
+    hot = k > 0 && revisits(row, L, t, a);
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, hot);
+  if (k == 0) return;
+  unsigned* out;
+  if (hot) {
+    unsigned peers, before, total;
+    group_by_key(mask, a, k, peers, before, total);
+    const int leader = __ffs(peers) - 1;
+    unsigned last = 0;
+    if ((threadIdx.x & 31) == leader) last = atomicSub(cnt + a, total);
+    last = __shfl_sync(peers, last, leader);
+    out = ent + off[a] + last - total + before;
+  } else {
+    out = ent + off[a] + atomicSub(cnt + a, k) - k;
+  }
+  for_partners(row, L, t, a, strides, J, [&](int32_t b, int j) {
+    *out++ = static_cast<unsigned>(b) << shift | static_cast<unsigned>(j);
+  });
+}
+
+// kCentersPerBlock centers a block: a warp a short segment, then the block
+// for each longer one; hubs are listed, with their chunks, for the hub
+// route.
+__global__ void __launch_bounds__(kThreads) cooc_sort_kernel(
+    unsigned* __restrict__ ent, float* __restrict__ rec_sum, const long long* __restrict__ off,
+    long long n_nodes, int shift, const double* __restrict__ weights,
+    unsigned* __restrict__ dcnt, int32_t* __restrict__ hubs, unsigned* __restrict__ hub_counts,
+    int2* __restrict__ chunks) {
+  __shared__ unsigned warp_buf[kWarps][kWarpSeg];
+  __shared__ unsigned hub_slot[2];
+  __shared__ unsigned block_buf[kBlockSeg];
+  __shared__ int longs[kCentersPerBlock];
+  __shared__ int n_longs;
+  __shared__ int warp_counts[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long c0 = blockIdx.x * static_cast<long long>(kCentersPerBlock);
+  if (threadIdx.x == 0) n_longs = 0;
+  __syncthreads();
+  for (int q = warp; q < kCentersPerBlock; q += kWarps) {
+    const long long c = c0 + q;
+    if (c >= n_nodes) break;
+    const long long o = off[c], n = off[c + 1] - o;
+    if (n > kWarpSeg) {
+      if (lane == 0) longs[atomicAdd(&n_longs, 1)] = q;
+      continue;
+    }
+    unsigned* seg = ent + o;
+    float* sums = rec_sum + o;
+    unsigned* buf = warp_buf[warp];
+    const int m = static_cast<int>(n);
+    const int runs = m == 0     ? 0
+                     : m <= 32  ? warp_route<1>(seg, sums, m, buf, shift, weights)
+                     : m <= 64  ? warp_route<2>(seg, sums, m, buf, shift, weights)
+                     : m <= 128 ? warp_route<4>(seg, sums, m, buf, shift, weights)
+                                : warp_route<8>(seg, sums, m, buf, shift, weights);
+    if (lane == 0) dcnt[c] = static_cast<unsigned>(runs);
+  }
+  __syncthreads();
+  const int count = n_longs;
+  for (int q = 0; q < count; ++q) {
+    const long long c = c0 + longs[q];
+    const long long o = off[c], n = off[c + 1] - o;
+    if (n > kBlockSeg) {
+      const unsigned k = static_cast<unsigned>((n + kHubChunk - 1) / kHubChunk);
+      if (threadIdx.x == 0) {
+        hub_slot[0] = atomicAdd(hub_counts, 1u);
+        hub_slot[1] = atomicAdd(hub_counts + 1, k);
+        hubs[hub_slot[0]] = static_cast<int32_t>(c);
+        dcnt[c] = 0u;
+      }
+      __syncthreads();
+      for (unsigned i = threadIdx.x; i < k; i += kThreads)
+        chunks[hub_slot[1] + i] = make_int2(static_cast<int>(hub_slot[0]), static_cast<int>(i));
+      __syncthreads();
+      continue;
+    }
+    block_sort(ent + o, static_cast<int>(n), block_buf);
+    const int runs = reduce_runs<kThreads>(ent + o, rec_sum + o, static_cast<int>(n), block_buf,
+                                           shift, weights, warp_counts);
+    if (threadIdx.x == 0) dcnt[c] = static_cast<unsigned>(runs);
+  }
+}
+
+// The hub route. A hub's entries are bucketed by window (context >> wshift,
+// nw windows a hub) into the free float32 half of its segment (`bucket`,
+// rec_sum seen as words), then each (hub, window) pair is summed by one
+// block in shared memory. The grid is persistent everywhere: the hubs'
+// count is on the device only.
+
+// Each hub's entries in chunks of kHubChunk, listed as (hub, chunk) by
+// cooc_sort, a chunk a block at a time: its windows' counts added into
+// wcnt [hub][nw].
+__global__ void __launch_bounds__(kThreads) cooc_hub_hist_kernel(
+    const unsigned* __restrict__ ent, const long long* __restrict__ off,
+    const int32_t* __restrict__ hubs, const unsigned* __restrict__ hub_counts,
+    const int2* __restrict__ chunks, int shift, int wshift, int nw,
+    unsigned* __restrict__ wcnt) {
+  __shared__ unsigned hist[kMaxHubWindows];
+  const unsigned n_chunks = hub_counts[1];
+  for (unsigned q = blockIdx.x; q < n_chunks; q += gridDim.x) {
+    const int2 hc = chunks[q];
+    const long long c = hubs[hc.x];
+    const long long o = off[c], n = off[c + 1] - o;
+    const long long lo = static_cast<long long>(hc.y) * kHubChunk;
+    const long long hi = min(n, lo + kHubChunk);
+    for (int i = threadIdx.x; i < nw; i += kThreads) hist[i] = 0u;
+    __syncthreads();
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads)
+      atomicAdd(hist + ((ent[o + i] >> shift) >> wshift), 1u);
+    __syncthreads();
+    unsigned* row = wcnt + static_cast<long long>(hc.x) * nw;
+    for (int i = threadIdx.x; i < nw; i += kThreads)
+      if (hist[i]) atomicAdd(row + i, hist[i]);
+    __syncthreads();
+  }
+}
+
+// A block a hub: out [hub][nw + 1] = the exclusive prefix of x [hub][nw]
+// over the hub's windows, the hub's total last.
+__global__ void __launch_bounds__(kThreads) cooc_hub_prefix_kernel(
+    const unsigned* __restrict__ x, const unsigned* __restrict__ hub_counts, int nw,
+    unsigned* __restrict__ out) {
+  __shared__ long long warp_totals[kWarps];
+  const unsigned count = hub_counts[0];
+  for (unsigned h = blockIdx.x; h < count; h += gridDim.x) {
+    const unsigned* row = x + static_cast<long long>(h) * nw;
+    unsigned* to = out + static_cast<long long>(h) * (nw + 1);
+    long long carry = 0;
+    for (int base = 0; base < nw; base += kThreads) {
+      const int i = base + threadIdx.x;
+      const long long v = i < nw ? row[i] : 0;
+      long long sum;
+      const long long before = block_exclusive_sum(v, warp_totals, sum);
+      if (i < nw) to[i] = static_cast<unsigned>(carry + before);
+      carry += sum;
+    }
+    if (threadIdx.x == 0) to[nw] = static_cast<unsigned>(carry);
+  }
+}
+
+// A chunk a block at a time: its entries, held in registers, reserve their
+// windows' slots with one atomic a window (wcnt counts down to 0) and are
+// written into their buckets: bucket[off[c] + wofs[hub][window] + slot].
+__global__ void __launch_bounds__(kThreads) cooc_hub_scatter_kernel(
+    const unsigned* __restrict__ ent, unsigned* __restrict__ bucket,
+    const long long* __restrict__ off, const int32_t* __restrict__ hubs,
+    const unsigned* __restrict__ hub_counts, const int2* __restrict__ chunks, int shift,
+    int wshift, int nw, const unsigned* __restrict__ wofs, unsigned* __restrict__ wcnt) {
+  __shared__ unsigned hist[kMaxHubWindows];
+  __shared__ unsigned first[kMaxHubWindows];
+  constexpr int kItems = kHubChunk / kThreads;
+  const unsigned n_chunks = hub_counts[1];
+  for (unsigned q = blockIdx.x; q < n_chunks; q += gridDim.x) {
+    const int2 hc = chunks[q];
+    const long long c = hubs[hc.x];
+    const long long o = off[c], n = off[c + 1] - o;
+    const long long lo = static_cast<long long>(hc.y) * kHubChunk;
+    for (int i = threadIdx.x; i < nw; i += kThreads) hist[i] = 0u;
+    __syncthreads();
+    unsigned e[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long i = lo + k * kThreads + threadIdx.x;
+      if (i < n) {
+        e[k] = ent[o + i];
+        atomicAdd(hist + ((e[k] >> shift) >> wshift), 1u);
+      }
+    }
+    __syncthreads();
+    unsigned* counts = wcnt + static_cast<long long>(hc.x) * nw;
+    const unsigned* starts = wofs + static_cast<long long>(hc.x) * (nw + 1);
+    for (int i = threadIdx.x; i < nw; i += kThreads) {
+      const unsigned k = hist[i];
+      if (k) first[i] = starts[i] + atomicSub(counts + i, k) - k;
+      hist[i] = 0u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (lo + k * kThreads + threadIdx.x >= n) continue;
+      const int win = static_cast<int>((e[k] >> shift) >> wshift);
+      bucket[o + first[win] + atomicAdd(hist + win, 1u)] = e[k];
+    }
+    __syncthreads();
+  }
+}
+
+// A block a (hub, window) pair, over sub-windows of kHubWindow contexts:
+// the contexts present flagged a byte each, with write also their weights
+// added in float64 in shared memory (in no fixed order); then listed in
+// ascending order by a scan of the flags. Without write, each window's
+// distinct count goes into wdist [hub][nw] and is added into dcnt[c]
+// (zeroed by cooc_sort); with write, the entries are written at out_off[c]
+// + wdofs [hub][window] (the prefix of wdist).
+template <bool kWrite>
+__global__ void __launch_bounds__(kThreads) cooc_hub_window_kernel(
+    const unsigned* __restrict__ bucket, const long long* __restrict__ off,
+    long long n_nodes, const int32_t* __restrict__ hubs,
+    const unsigned* __restrict__ hub_counts, int shift, int wshift, int nw,
+    const unsigned* __restrict__ wofs, const double* __restrict__ weights,
+    unsigned* __restrict__ wdist, unsigned* __restrict__ dcnt,
+    const unsigned* __restrict__ wdofs, const long long* __restrict__ out_off,
+    int32_t* __restrict__ ci, int32_t* __restrict__ cj, float* __restrict__ sums) {
+  extern __shared__ uint4 hub_smem[];
+  uint8_t* flag = reinterpret_cast<uint8_t*>(hub_smem);
+  double* acc = reinterpret_cast<double*>(flag + kHubWindow);
+  __shared__ long long warp_totals[kWarps];
+  constexpr int kFlagWords = kHubWindow / 4 / kThreads;
+  const unsigned jmask = (1u << shift) - 1u;
+  const long long pairs = static_cast<long long>(hub_counts[0]) * nw;
+  for (long long p = blockIdx.x; p < pairs; p += gridDim.x) {
+    const long long h = p / nw;
+    const int win = static_cast<int>(p - h * nw);
+    const unsigned* starts = wofs + h * (nw + 1);
+    const unsigned m = starts[win + 1] - starts[win];
+    if (m == 0) continue;
+    const long long c = hubs[h];
+    const unsigned* b = bucket + off[c] + starts[win];
+    const long long w0 = static_cast<long long>(win) << wshift;
+    const long long w1 = min(n_nodes, (static_cast<long long>(win) + 1) << wshift);
+    long long written = 0;
+    for (long long base = w0; base < w1; base += kHubWindow) {
+      for (int i = threadIdx.x; i < kHubWindow / 16; i += kThreads)
+        hub_smem[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (kWrite) {
+        for (int i = threadIdx.x; i < kHubWindow; i += kThreads) acc[i] = 0.0;
+      }
+      __syncthreads();
+      for (unsigned i = threadIdx.x; i < m; i += kThreads) {
+        const unsigned e = b[i];
+        const long long s = static_cast<long long>(e >> shift) - base;
+        if (s >= 0 && s < kHubWindow) {
+          flag[s] = 1;
+          if (kWrite) atomicAdd(acc + s, __ldg(weights + (e & jmask)));
+        }
+      }
+      __syncthreads();
+      const unsigned* words = reinterpret_cast<const unsigned*>(flag) + threadIdx.x * kFlagWords;
+      int present = 0;
+#pragma unroll
+      for (int q = 0; q < kFlagWords; ++q) present += __popc(words[q]);
+      long long total;
+      const long long rank = block_exclusive_sum(present, warp_totals, total);
+      if (kWrite) {
+        long long k = out_off[c] + wdofs[h * (nw + 1) + win] + written + rank;
+        for (int q = 0; q < kFlagWords; ++q) {
+          const unsigned word = words[q];
+          if (!word) continue;
+          for (int y = 0; y < 4; ++y) {
+            if (!((word >> (8 * y)) & 1u)) continue;
+            const int s = (threadIdx.x * kFlagWords + q) * 4 + y;
+            ci[k] = static_cast<int32_t>(c);
+            cj[k] = static_cast<int32_t>(base + s);
+            sums[k] = static_cast<float>(acc[s]);
+            ++k;
+          }
+        }
+      }
+      written += total;
+      __syncthreads();
+    }
+    if (!kWrite && threadIdx.x == 0) {
+      wdist[h * nw + win] = static_cast<unsigned>(written);
+      atomicAdd(dcnt + c, static_cast<unsigned>(written));
+    }
+  }
+}
+
+// A warp a center: its distinct entries from the front of its segment to
+// its place in the output (hubs write their own).
+__global__ void __launch_bounds__(kThreads) cooc_copy_kernel(
+    const unsigned* __restrict__ ent, const float* __restrict__ rec_sum,
+    const long long* __restrict__ off, const unsigned* __restrict__ dcnt,
+    const long long* __restrict__ out_off, long long n_nodes, int32_t* __restrict__ ci,
+    int32_t* __restrict__ cj, float* __restrict__ sums) {
+  const long long c = (blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (c >= n_nodes) return;
+  const long long o = off[c];
+  if (off[c + 1] - o > kBlockSeg) return;
+  const long long to = out_off[c];
+  const unsigned d = dcnt[c];
+  for (unsigned k = lane; k < d; k += 32) {
+    ci[to + k] = static_cast<int32_t>(c);
+    cj[to + k] = static_cast<int32_t>(ent[o + k]);
+    sums[to + k] = rec_sum[o + k];
+  }
+}
+
+// Sums of kScanChunk-element chunks of x, one a block.
+__global__ void __launch_bounds__(kThreads) cooc_scan_reduce_kernel(
+    const unsigned* __restrict__ x, long long n, long long* __restrict__ part) {
+  __shared__ long long warp_totals[kWarps];
+  const long long base = blockIdx.x * static_cast<long long>(kScanChunk);
+  long long s = 0;
+  for (int q = 0; q < kScanItems; ++q) {
+    const long long i = base + q * kThreads + threadIdx.x;
+    if (i < n) s += x[i];
+  }
+  long long total;
+  block_exclusive_sum(s, warp_totals, total);
+  if (threadIdx.x == 0) part[blockIdx.x] = total;
+}
+
+// One block: the chunk sums' exclusive prefixes in place, the whole sum
+// into *total.
+__global__ void __launch_bounds__(kThreads) cooc_scan_partials_kernel(
+    long long* __restrict__ part, long long nb, long long* __restrict__ total) {
+  __shared__ long long warp_totals[kWarps];
+  long long carry = 0;
+  for (long long base = 0; base < nb; base += kThreads) {
+    const long long i = base + threadIdx.x;
+    const long long v = i < nb ? part[i] : 0;
+    long long sum;
+    const long long before = block_exclusive_sum(v, warp_totals, sum);
+    if (i < nb) part[i] = carry + before;
+    carry += sum;
+  }
+  if (threadIdx.x == 0) *total = carry;
+}
+
+__global__ void __launch_bounds__(kThreads) cooc_scan_down_kernel(
+    const unsigned* __restrict__ x, long long n, const long long* __restrict__ part,
+    long long* __restrict__ out) {
+  __shared__ long long warp_totals[kWarps];
+  const long long base =
+      blockIdx.x * static_cast<long long>(kScanChunk) + threadIdx.x * kScanItems;
+  unsigned v[kScanItems];
+  long long s = 0;
+  for (int q = 0; q < kScanItems; ++q) {
+    v[q] = base + q < n ? x[base + q] : 0u;
+    s += v[q];
+  }
+  long long total;
+  long long before = block_exclusive_sum(s, warp_totals, total) + part[blockIdx.x];
+  for (int q = 0; q < kScanItems; ++q) {
+    if (base + q < n) out[base + q] = before;
+    before += v[q];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) glove_step_kernel(
@@ -221,37 +775,159 @@ unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+int multiprocessors() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <bool kWrite>
+cudaError_t launch_hub_windows(const void* bucket, const void* off, long long n_nodes,
+                               const void* hubs, const void* hub_counts, int shift, int wshift,
+                               int nw, const void* wofs, const void* weights, void* wdist,
+                               void* dcnt, const void* wdofs, const void* out_off, void* ci,
+                               void* cj, void* sums, cudaStream_t stream) {
+  const int smem = kWrite ? kHubWriteSmem : kHubCountSmem;
+  cudaError_t err = cudaFuncSetAttribute(cooc_hub_window_kernel<kWrite>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int sms = multiprocessors();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  cooc_hub_window_kernel<kWrite><<<sms * (kWrite ? 1 : 8), kThreads, smem, stream>>>(
+      static_cast<const unsigned*>(bucket), static_cast<const long long*>(off), n_nodes,
+      static_cast<const int32_t*>(hubs), static_cast<const unsigned*>(hub_counts), shift,
+      wshift, nw, static_cast<const unsigned*>(wofs), static_cast<const double*>(weights),
+      static_cast<unsigned*>(wdist), static_cast<unsigned*>(dcnt),
+      static_cast<const unsigned*>(wdofs), static_cast<const long long*>(out_off),
+      static_cast<int32_t*>(ci), static_cast<int32_t*>(cj), static_cast<float*>(sums));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Insert every (walk, position, stride) pair's unordered key into the table
-// keys / sums of mask + 1 slots (a power of two; keys all-ones, sums zero);
-// counters[0] gains the slots claimed, counters[1] is set if a key found no
-// slot.
-int ebt_cooc_insert(const void* walks, long long n_walks, int L, long long n_nodes,
-                    const void* strides, const void* weights, int n_strides, void* keys,
-                    void* sums, unsigned long long mask, void* counters, void* stream) {
-  const long long threads = n_walks * L * n_strides;
-  if (threads == 0) return 0;
-  cooc_insert_kernel<<<blocks_for(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(walks), n_walks, L, n_nodes,
-      static_cast<const int32_t*>(strides), static_cast<const double*>(weights), n_strides,
-      static_cast<unsigned long long*>(keys), static_cast<double*>(sums), mask,
-      static_cast<unsigned long long*>(counters));
+// cnt[a] (zeroed, N uint32) += the partners of every walk position whose
+// node is a, over the J strides.
+int ebt_cooc_count(const void* walks, long long n_walks, int L, const void* strides, int J,
+                   void* cnt, void* stream) {
+  const long long positions = n_walks * L;
+  if (positions == 0) return 0;
+  cooc_count_kernel<<<blocks_for(positions), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(walks), positions, L, static_cast<const int32_t*>(strides), J,
+      static_cast<unsigned*>(cnt));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Write the occupied slots of the table (cap slots) as key pairs and sums;
-// out_keys / out_sums hold twice the claimed slots, cursor starts at 0.
-int ebt_cooc_compact(const void* keys, const void* sums, long long cap, long long n_nodes,
-                     void* out_keys, void* out_sums, void* cursor, void* stream) {
-  if (cap == 0) return 0;
-  cooc_compact_kernel<<<blocks_for(cap), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(keys), static_cast<const double*>(sums), cap,
-      n_nodes, static_cast<long long*>(out_keys), static_cast<double*>(out_sums),
-      static_cast<unsigned long long*>(cursor));
+// out[i] = x[0] + ... + x[i - 1] for i = 0..n (x uint32, out int64 [n + 1]);
+// part is scratch of max(1, ceil(n / 2048)) int64.
+int ebt_cooc_scan(const void* x, long long n, void* part, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long nb = (n + kScanChunk - 1) / kScanChunk;
+  const unsigned* xs = static_cast<const unsigned*>(x);
+  long long* ps = static_cast<long long*>(part);
+  long long* os = static_cast<long long*>(out);
+  if (nb) cooc_scan_reduce_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(xs, n, ps);
+  cooc_scan_partials_kernel<<<1, kThreads, 0, s>>>(ps, nb, os + n);
+  if (nb) cooc_scan_down_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(xs, n, ps, os);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Write every walk position's entries (uint32 b << shift | j) into its
+// center's segment of ent at off; cnt (from ebt_cooc_count) counts down as
+// slots are taken. In sweeps of about sweep_bytes of entries each (at most
+// 255) over `bound` (>= the entries' count), with one byte a position in
+// `sweep` (W L bytes) when there is more than one.
+int ebt_cooc_scatter(const void* walks, long long n_walks, int L, const void* strides, int J,
+                     int shift, const void* off, void* cnt, void* ent, long long bound,
+                     long long sweep_bytes, void* sweep, void* stream) {
+  const long long positions = n_walks * L;
+  if (positions == 0 || bound == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long sweeps = std::min<long long>(
+      255, std::max<long long>(1, (4 * bound + sweep_bytes - 1) / sweep_bytes));
+  const long long width = (bound + sweeps - 1) / sweeps;
+  uint8_t* ids = sweeps > 1 ? static_cast<uint8_t*>(sweep) : nullptr;
+  if (ids != nullptr) {
+    cooc_sweep_kernel<<<blocks_for(positions), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(walks), positions, static_cast<const long long*>(off),
+        width, ids);
+  }
+  for (int k = 0; k < sweeps; ++k) {
+    cooc_scatter_kernel<<<blocks_for(positions), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(walks), positions, L, static_cast<const int32_t*>(strides),
+        J, shift, static_cast<const long long*>(off), static_cast<unsigned*>(cnt),
+        static_cast<unsigned*>(ent), ids, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Sort and sum every center's segment in place (context into ent, float32
+// sum into rec_sum, the distinct count into dcnt). Hubs are listed (hubs,
+// room for min(N, total / 8193 + 1); hub_counts = {hubs, chunks}, zeroed;
+// chunks, room for total / kHubChunk + the hubs' room), bucketed by window
+// of 2^wshift contexts (nw a hub) into rec_sum's part of their segments, and
+// their distinct contexts counted: wcnt and wdist ([hub room][nw], zeroed)
+// take each window's entries and distinct contexts, wofs and wdofs ([hub
+// room][nw + 1]) their prefixes within the hub.
+int ebt_cooc_sort(void* ent, void* rec_sum, const void* off, long long n_nodes, int shift,
+                  const void* weights, void* dcnt, void* hubs, void* hub_counts, void* chunks,
+                  int wshift, int nw, void* wcnt, void* wofs, void* wdist, void* wdofs,
+                  void* stream) {
+  if (n_nodes == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (n_nodes + kCentersPerBlock - 1) / kCentersPerBlock;
+  const unsigned* counts = static_cast<const unsigned*>(hub_counts);
+  const int2* list = static_cast<const int2*>(chunks);
+  const unsigned* entries = static_cast<const unsigned*>(ent);
+  const long long* offs = static_cast<const long long*>(off);
+  const int32_t* hub_ids = static_cast<const int32_t*>(hubs);
+  cooc_sort_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<unsigned*>(ent), static_cast<float*>(rec_sum), offs, n_nodes, shift,
+      static_cast<const double*>(weights), static_cast<unsigned*>(dcnt),
+      static_cast<int32_t*>(hubs), static_cast<unsigned*>(hub_counts),
+      static_cast<int2*>(chunks));
+  const int sms = multiprocessors();
+  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  cooc_hub_hist_kernel<<<sms * 4, kThreads, 0, s>>>(entries, offs, hub_ids, counts, list, shift,
+                                                    wshift, nw, static_cast<unsigned*>(wcnt));
+  cooc_hub_prefix_kernel<<<sms * 4, kThreads, 0, s>>>(static_cast<const unsigned*>(wcnt), counts,
+                                                      nw, static_cast<unsigned*>(wofs));
+  cooc_hub_scatter_kernel<<<sms * 4, kThreads, 0, s>>>(
+      entries, static_cast<unsigned*>(rec_sum), offs, hub_ids, counts, list, shift, wshift, nw,
+      static_cast<const unsigned*>(wofs), static_cast<unsigned*>(wcnt));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_hub_windows<false>(rec_sum, off, n_nodes, hubs, hub_counts, shift, wshift, nw,
+                                  wofs, weights, wdist, dcnt, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cooc_hub_prefix_kernel<<<sms * 4, kThreads, 0, s>>>(static_cast<const unsigned*>(wdist),
+                                                      counts, nw, static_cast<unsigned*>(wdofs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The output: every center's distinct (center, context, sum) at out_off,
+// the hubs' from their buckets (see ebt_cooc_sort).
+int ebt_cooc_write(const void* ent, const void* rec_sum, const void* off, const void* dcnt,
+                   const void* out_off, long long n_nodes, int shift, const void* weights,
+                   const void* hubs, const void* hub_counts, int wshift, int nw,
+                   const void* wofs, const void* wdofs, void* ci, void* cj, void* sums,
+                   void* stream) {
+  if (n_nodes == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cooc_copy_kernel<<<blocks_for(n_nodes * 32), kThreads, 0, s>>>(
+      static_cast<const unsigned*>(ent), static_cast<const float*>(rec_sum),
+      static_cast<const long long*>(off), static_cast<const unsigned*>(dcnt),
+      static_cast<const long long*>(out_off), n_nodes, static_cast<int32_t*>(ci),
+      static_cast<int32_t*>(cj), static_cast<float*>(sums));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_hub_windows<true>(
+      rec_sum, off, n_nodes, hubs, hub_counts, shift, wshift, nw, wofs, weights, nullptr,
+      nullptr, wdofs, out_off, ci, cj, sums, s));
 }
 
 // One GloVe step's gradients for B drawn entries; see glove_step_kernel.

@@ -13,12 +13,13 @@ A model implements two hooks:
 
 `apply_updates` applies them IN PLACE on the tables (the JAX version returns
 new ones): "mean" updates through `ops.scatter.mean_scatter` (kernel K4
-standalone on the card), "add" through `index_add_`, "dense" through
-`sub_`. Every gradient is taken before any table changes, so the in-place
-order cannot change the step. An epoch is a loop over steps; its mean loss
-is read on the host once per epoch, for the lr plateau and early stopping.
-The data-parallel and row-sharded steps of the JAX version come with
-multi-device training (ROADMAP A13).
+standalone on the card) with a sums-and-counts workspace per table shape
+that the fit keeps and frees at its end, "add" through `index_add_`,
+"dense" through `sub_`. Every gradient is taken before any table changes,
+so the in-place order cannot change the step. An epoch is a loop over
+steps; its mean loss is read on the host once per epoch, for the lr plateau
+and early stopping. The data-parallel and row-sharded steps of the JAX
+version come with multi-device training (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ...graph.graph import Graph, TorchGraph
-from ...ops.scatter import mean_scatter
+from ...ops.scatter import MeanScatterSums, mean_scatter
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
@@ -67,9 +68,14 @@ def _split_prefix(idx):
     return None, idx
 
 
-def apply_updates(params: Params, updates: List[Update], lr: float) -> Params:
+Workspaces = Dict[Tuple[int, ...], MeanScatterSums]
+
+
+def apply_updates(params: Params, updates: List[Update], lr: float,
+                  workspaces: Optional[Workspaces] = None) -> Params:
     """Apply `updates` to the tables of `params` in place; returns
-    `params`."""
+    `params`. "mean" updates take their sums and counts from `workspaces`
+    (by table shape, made at first use; zero between calls) when given."""
     for u in updates:
         t = params[u.name]
         if u.mode == "dense":
@@ -78,7 +84,14 @@ def apply_updates(params: Params, updates: List[Update], lr: float) -> Params:
         prefix, rows = _split_prefix(u.idx)
         table = t if prefix is None else t[prefix]
         if u.mode == "mean":
-            mean_scatter(table, rows, u.grad, lr)
+            ws = None
+            if workspaces is not None:
+                shape = tuple(table.shape)
+                ws = workspaces.get(shape)
+                if ws is None:
+                    ws = workspaces[shape] = MeanScatterSums.zeros(shape, table.device,
+                                                                   table.dtype)
+            mean_scatter(table, rows, u.grad, lr, workspace=ws)
         elif u.mode == "add":
             table.index_add_(0, rows, u.grad, alpha=-lr)
         else:
@@ -150,6 +163,8 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         self._learning_rate_plateau_patience = learning_rate_plateau_patience
         self._distribution = distribution
         self._initial_params = initial_params
+        # The "mean" updates' workspaces, kept across steps, freed after a fit.
+        self._mean_sums: Workspaces = {}
         super().__init__(
             embedding_size=embedding_size,
             enable_cache=enable_cache,
@@ -255,7 +270,7 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         if batch is None:
             batch = self._sample_batch(ctx, generator, size)
         loss, updates = self._batch_updates(params, batch, size)
-        apply_updates(params, updates, lr)
+        apply_updates(params, updates, lr, self._mean_sums)
         return loss / size
 
     # --------------------------------------------------------- training loop
@@ -295,20 +310,23 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         )
         self._epoch_losses, self._epoch_seconds = [], []
         last = None
-        with torch.no_grad():
-            for epoch in range(self._epochs):
-                t0 = time.perf_counter()
-                lr = (self._learning_rate * self._learning_rate_decay ** epoch
-                      * ctrl.lr_scale)
-                losses = [self._step(ctx, params, generator, lr)
-                          for _ in range(steps_per_epoch)]
-                # The epoch's one host read, which also waits for the device.
-                last = float(torch.stack(losses).mean())
-                self._epoch_seconds.append(time.perf_counter() - t0)
-                self._epoch_losses.append(last)
-                if ctrl.update(last):
-                    ctrl.stopped_epoch = epoch
-                    break
+        try:
+            with torch.no_grad():
+                for epoch in range(self._epochs):
+                    t0 = time.perf_counter()
+                    lr = (self._learning_rate * self._learning_rate_decay ** epoch
+                          * ctrl.lr_scale)
+                    losses = [self._step(ctx, params, generator, lr)
+                              for _ in range(steps_per_epoch)]
+                    # The epoch's one host read, which also waits for the device.
+                    last = float(torch.stack(losses).mean())
+                    self._epoch_seconds.append(time.perf_counter() - t0)
+                    self._epoch_losses.append(last)
+                    if ctrl.update(last):
+                        ctrl.stopped_epoch = epoch
+                        break
+        finally:
+            self._mean_sums.clear()
         self._last_loss = last
         self._stopped_epoch = ctrl.stopped_epoch
         return self._extract(params, graph)

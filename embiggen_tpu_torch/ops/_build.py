@@ -49,7 +49,7 @@ _SIGNATURES = {
     "ebt_skipgram_nce": (
         (_P,) * 13 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
     "ebt_scatter_add_rows": ((_P, _P, _P, _P, _I64, _I32, _P), _I32),
-    "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _P), _I32),
+    "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _I32, _P), _I32),
     "ebt_skipgram_combine": ((_P,) * 8 + (_F32, _I64, _I32, _P), _I32),
     "ebt_csr_edge_ids": ((_P, _P, _P, _P, _I64, _I32, _P, _P, _P), _I32),
     "ebt_edge_minibatch": (
@@ -69,9 +69,14 @@ _SIGNATURES = {
     "ebt_line_batch": (
         (_P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _U64, _U32, _P), _I32),
     "ebt_walklets_update": ((_P,) * 11 + (_I64, _I64) + (_I32,) * 5 + (_P,), _I32),
-    "ebt_cooc_insert": (
-        (_P, _I64, _I32, _I64, _P, _P, _I32, _P, _P, _U64, _P, _P), _I32),
-    "ebt_cooc_compact": ((_P, _P, _I64, _I64, _P, _P, _P, _P), _I32),
+    "ebt_cooc_count": ((_P, _I64, _I32, _P, _I32, _P, _P), _I32),
+    "ebt_cooc_scan": ((_P, _I64, _P, _P, _P), _I32),
+    "ebt_cooc_scatter": (
+        (_P, _I64, _I32, _P, _I32, _I32, _P, _P, _P, _I64, _I64, _P, _P), _I32),
+    "ebt_cooc_sort": (
+        (_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P), _I32),
+    "ebt_cooc_write": (
+        (_P,) * 5 + (_I64, _I32) + (_P,) * 3 + (_I32, _I32) + (_P,) * 6, _I32),
     "ebt_glove_step": ((_P,) * 15 + (_I64, _I32, _F32, _P), _I32),
     "ebt_min_plus_step": ((_P,) * 6 + (_I64, _I32, _I32, _P), _I32),
     "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),

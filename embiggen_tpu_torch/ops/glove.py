@@ -7,10 +7,12 @@ Kernel K13 (`csrc/glove.cu`), in two parts:
 
 - `cooccurrences` (K13a): the symmetric window pairs of the walks at the
   given (stride, weight)s, summed per distinct key in float64 with the
-  diagonal dropped, in ascending key order. On the card the pairs go into an
-  open-addressing hash table (one launch) whose occupied slots are compacted
-  (a second); `torch.sort` puts the distinct keys in order, as the
-  reference's host sort does.
+  diagonal dropped, in ascending key order. On the card: a counting sort of
+  the pairs' entries by center (a count, a scan, a scatter), a sort and sum
+  of each center's segment in a warp's registers or a block's shared memory
+  (a hub's, longer than that, bucketed by windows of contexts, a block
+  summing each window in shared memory), a scan of the distinct counts and
+  a copy into place; no 64-bit key, hash table or library sort.
 - `glove_step` (K13b): for B drawn entry ids, the gradient rows, bias
   gradients and loss of pred = w_i . c_j + b_i + b_j against log X; the
   caller scatter-adds them (`index_add_`), so every gradient is taken before
@@ -88,6 +90,24 @@ def cooccurrences_plain(
     return _split_keys(uniq, sums, n_nodes)
 
 
+# A segment longer than this is a hub (`kBlockSeg` in csrc/glove.cu). A hub's
+# entries are bucketed in chunks of _HUB_CHUNK (`kHubChunk`) by windows of
+# at least 2^14 contexts, at most _MAX_HUB_WINDOWS (`kMaxHubWindows`) a hub.
+_BLOCK_SEGMENT = 8192
+_HUB_CHUNK = 4096
+_MAX_HUB_WINDOWS = 1024
+
+
+def _hub_windows(n_nodes: int) -> Tuple[int, int]:
+    """(wshift, nw): a hub's windows of 2^wshift contexts, nw of them."""
+    wshift = max(14, (n_nodes - 1).bit_length() - (_MAX_HUB_WINDOWS.bit_length() - 1))
+    return wshift, -(-n_nodes >> wshift)
+# K13a's scatter writes the entries of one range of centers a sweep, about
+# this many bytes of them, so that the sectors it fills stay in the card's
+# 50-MB L2 until whole.
+SWEEP_BYTES = 24 << 20
+
+
 def cooccurrences(
     walks: torch.Tensor, n_nodes: int, strides: Sequence[Tuple[int, float]],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -95,8 +115,10 @@ def cooccurrences(
     a * N + b of `walks` [W, L] (int32), in ascending key order: each pair
     (walk[t], walk[t + d]) adds `weight` to both of its keys for every
     (d, weight) of `strides`; the sums are taken in float64, the diagonal
-    is dropped. K13a on CUDA tensors (its two launches counted under
-    "cooccurrences"), the plain version on CPU tensors."""
+    is dropped. K13a on CUDA tensors (its six launches, count, scan,
+    scatter, sort, scan and write, each counted under "cooccurrences"; the
+    output's size is read on the host once, before the write), the plain
+    version on CPU tensors."""
     strides = tuple((int(d), float(weight)) for d, weight in strides)
     if not _build.is_cuda(walks):
         return cooccurrences_plain(walks, n_nodes, strides)
@@ -104,33 +126,61 @@ def cooccurrences(
     dev = walks.device
     n_walks, length = walks.shape
     _build.check(walks, "walks", torch.int32, (n_walks, length), dev)
-    emitted = n_walks * sum(max(length - d, 0) for d, _ in strides)
-    if emitted == 0:
+    # Both orientations of every (walk, position, stride) pair, the diagonal
+    # included: at least the entries the build takes.
+    bound = 2 * n_walks * sum(max(length - d, 0) for d, _ in strides)
+    if bound == 0:
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
         return _split_keys(empty, empty.double(), n_nodes)
-    # A table at most half full: every probe sequence ends at an empty slot.
-    cap = 1 << max(1, (2 * emitted - 1).bit_length())
-    keys = torch.full((cap,), -1, dtype=torch.int64, device=dev)
-    sums = torch.zeros((cap,), dtype=torch.float64, device=dev)
-    counters = torch.zeros((2,), dtype=torch.int64, device=dev)
-    d_t = torch.tensor([d for d, _ in strides], dtype=torch.int32, device=dev)
+    n_strides = len(strides)
+    shift = (n_strides - 1).bit_length()
+    if n_nodes << shift > 2**32 or bound >= 2**32:
+        raise ValueError(f"K13a keeps an entry as context << {shift} | stride in 32 bits and "
+                         f"counts under 2^32 entries; got {n_nodes} nodes, {n_strides} "
+                         f"strides, {bound} entries.")
+    i32, i64 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.int64, device=dev)
+    d_t = torch.tensor([d for d, _ in strides], **i32)
     w_t = torch.tensor([w for _, w in strides], dtype=torch.float64, device=dev)
-    _build.launch("cooccurrences", "ebt_cooc_insert", dev, walks.data_ptr(), n_walks,
-                  length, n_nodes, d_t.data_ptr(), w_t.data_ptr(), len(strides),
-                  keys.data_ptr(), sums.data_ptr(), cap - 1, counters.data_ptr())
-    claimed, overflow = counters.tolist()
-    if overflow or claimed > cap:
-        raise RuntimeError(f"K13a's hash table of {cap} slots overflowed "
-                           f"({claimed} keys claimed).")
-    out_keys = torch.empty((2 * claimed,), dtype=torch.int64, device=dev)
-    out_sums = torch.empty((2 * claimed,), dtype=torch.float64, device=dev)
-    cursor = torch.zeros((1,), dtype=torch.int64, device=dev)
-    _build.launch("cooccurrences", "ebt_cooc_compact", dev, keys.data_ptr(),
-                  sums.data_ptr(), cap, n_nodes, out_keys.data_ptr(), out_sums.data_ptr(),
-                  cursor.data_ptr())
-    del keys, sums
-    sorted_keys, order = torch.sort(out_keys)
-    return _split_keys(sorted_keys, out_sums[order], n_nodes)
+    cnt = torch.zeros((n_nodes,), **i32)
+    off = torch.empty((n_nodes + 1,), **i64)
+    part = torch.empty((max(1, -(-n_nodes // 2048)),), **i64)
+
+    def launch(fn_name, *args):
+        _build.launch("cooccurrences", fn_name, dev, *args)
+
+    launch("ebt_cooc_count", walks.data_ptr(), n_walks, length, d_t.data_ptr(), n_strides,
+           cnt.data_ptr())
+    launch("ebt_cooc_scan", cnt.data_ptr(), n_nodes, part.data_ptr(), off.data_ptr())
+    ent = torch.empty((bound,), **i32)
+    rec_sum = torch.empty((bound,), dtype=torch.float32, device=dev)
+    sweep = torch.empty((n_walks * length,), dtype=torch.uint8, device=dev)
+    launch("ebt_cooc_scatter", walks.data_ptr(), n_walks, length, d_t.data_ptr(), n_strides,
+           shift, off.data_ptr(), cnt.data_ptr(), ent.data_ptr(), bound, SWEEP_BYTES,
+           sweep.data_ptr())
+    del sweep
+    dcnt = torch.empty((n_nodes,), **i32)
+    max_hubs = min(n_nodes, bound // (_BLOCK_SEGMENT + 1) + 1)
+    wshift, nw = _hub_windows(n_nodes)
+    hubs = torch.empty((max_hubs,), **i32)
+    hub_counts = torch.zeros((2,), **i32)
+    chunks = torch.empty((bound // _HUB_CHUNK + max_hubs, 2), **i32)
+    # Each hub's windows' entries and distinct contexts, and their prefixes.
+    wcnt, wdist = torch.zeros((2, max_hubs * nw), **i32)
+    wofs, wdofs = torch.empty((2, max_hubs * (nw + 1)), **i32)
+    launch("ebt_cooc_sort", ent.data_ptr(), rec_sum.data_ptr(), off.data_ptr(), n_nodes,
+           shift, w_t.data_ptr(), dcnt.data_ptr(), hubs.data_ptr(), hub_counts.data_ptr(),
+           chunks.data_ptr(), wshift, nw, wcnt.data_ptr(), wofs.data_ptr(), wdist.data_ptr(),
+           wdofs.data_ptr())
+    out_off = torch.empty((n_nodes + 1,), **i64)
+    launch("ebt_cooc_scan", dcnt.data_ptr(), n_nodes, part.data_ptr(), out_off.data_ptr())
+    total = int(out_off[n_nodes])
+    ci, cj = torch.empty((total,), **i32), torch.empty((total,), **i32)
+    sums = torch.empty((total,), dtype=torch.float32, device=dev)
+    launch("ebt_cooc_write", ent.data_ptr(), rec_sum.data_ptr(), off.data_ptr(),
+           dcnt.data_ptr(), out_off.data_ptr(), n_nodes, shift, w_t.data_ptr(),
+           hubs.data_ptr(), hub_counts.data_ptr(), wshift, nw, wofs.data_ptr(),
+           wdofs.data_ptr(), ci.data_ptr(), cj.data_ptr(), sums.data_ptr())
+    return ci, cj, sums
 
 
 def glove_entries(

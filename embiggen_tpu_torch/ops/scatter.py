@@ -9,7 +9,10 @@ several tables from the same multiset passes the counts back in.
 
 Unlike the JAX version, the update is IN PLACE on `table`, which is also
 returned. On CUDA tensors it is kernel K4 (`csrc/scatter.cu`); on CPU
-tensors the plain version below.
+tensors the plain version below. A caller that steps many times (the
+minibatch fit) passes a `MeanScatterSums` workspace, allocated once and
+zero between calls: the combine zeroes the rows it read, so no call fills
+an [N, D] buffer.
 
 SkipGram's step takes K4 in two halves: K3
 (`skipgram.skipgram_nce_update`) adds the gradient rows into a
@@ -66,34 +69,74 @@ def _denom(counts: torch.Tensor, ndim: int) -> torch.Tensor:
     return denom[:, None] if ndim > 1 else denom
 
 
+@dataclasses.dataclass
+class MeanScatterSums:
+    """The sums [N] or [N, D] and counts [N] that `mean_scatter` adds a
+    call's gradients into, zero between calls; one serves every table of its
+    shape, one call after another."""
+
+    sums: torch.Tensor
+    counts: torch.Tensor
+
+    @classmethod
+    def zeros(cls, shape: Tuple[int, ...], device,
+              dtype: torch.dtype = torch.float32) -> "MeanScatterSums":
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape[:1], dtype=dtype, device=device))
+
+
 def mean_scatter_plain(
     table: torch.Tensor, idx: Segments, grads: Segments, lr: float,
     counts: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    workspace: Optional[MeanScatterSums] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of K4."""
     segs, gsegs = _segments(idx), _segments(grads)
-    if counts is None:
-        counts = torch.zeros(table.shape[0], dtype=table.dtype, device=table.device)
+    fresh = workspace is None
+    if fresh:
+        workspace = MeanScatterSums.zeros(tuple(table.shape), table.device, table.dtype)
+    own = counts is None
+    if own:
+        counts = workspace.counts
         for s in segs:
-            counts.index_add_(0, s.long(), torch.ones_like(s, dtype=table.dtype))
-    sums = torch.zeros_like(table)
+            counts.index_add_(0, s.long(), torch.ones_like(s, dtype=counts.dtype))
+    elif any(bool((counts[s.long()] == 0).any()) for s in segs):
+        raise ValueError("counts must count every row that idx names; a row of count 0 "
+                         "would take its whole sum, where the kernel skips it.")
     for s, g in zip(segs, gsegs):
-        sums.index_add_(0, s.long(), g)
-    table.sub_(lr * (sums / _denom(counts, table.ndim)))
+        workspace.sums.index_add_(0, s.long(), g)
+    table.sub_(lr * (workspace.sums / _denom(counts, table.ndim)))
+    if fresh:
+        return table, counts
+    workspace.sums.zero_()
+    if own:
+        counts.zero_()
+        return table, None
     return table, counts
 
 
 def mean_scatter(
     table: torch.Tensor, idx: Segments, grads: Segments, lr: float,
     counts: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    workspace: Optional[MeanScatterSums] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Update `table` [N] or [N, D] in place with the per-row mean of
-    `grads` scattered at `idx` (int32); returns (table, counts). Kernel K4
-    on CUDA tensors (one scatter launch per segment, counted under
-    "mean_scatter", then the combine, counted under "mean_combine"), the
-    plain version on CPU tensors."""
+    `grads` scattered at `idx` (int32); returns (table, counts).
+
+    `counts` given: the caller's count of this multiset, used and left as
+    it is. It must count every row that `idx` names: the plain version
+    raises where it does not, and the kernel does not check (that would
+    take a host read a call) but skips such a row, neither stepping it nor
+    zeroing its sums. Else the call counts the
+    multiset: into `workspace.counts` when a workspace is given (zeroed
+    again by the combine, and None is returned for the counts), else into a
+    fresh vector that is returned. The gradients are summed into
+    `workspace.sums` (zero again after the call), else into a fresh zeroed
+    buffer. Kernel K4 on CUDA tensors (one scatter launch per segment,
+    counted under "mean_scatter", then the combine over the touched rows,
+    counted under "mean_combine"), the plain version on CPU tensors."""
     if not _build.is_cuda(table):
-        return mean_scatter_plain(table, idx, grads, lr, counts)
+        return mean_scatter_plain(table, idx, grads, lr, counts, workspace)
     dev = table.device
     n = table.shape[0]
     d = 1 if table.ndim == 1 else table.shape[1]
@@ -106,23 +149,29 @@ def mean_scatter(
     for s, g in zip(segs, gsegs):
         _build.check(s, "idx", torch.int32, (s.shape[0],), dev)
         _build.check(g, "grads", torch.float32, (s.shape[0],) + tuple(table.shape[1:]), dev)
-    fresh = counts is None
+    fresh = workspace is None
     if fresh:
-        counts = torch.zeros((n,), dtype=torch.float32, device=dev)
+        workspace = MeanScatterSums.zeros(tuple(table.shape), dev)
+    else:
+        _build.check(workspace.sums, "workspace.sums", torch.float32, tuple(table.shape), dev)
+        _build.check(workspace.counts, "workspace.counts", torch.float32, (n,), dev)
+    own = counts is None
+    if own:
+        counts = workspace.counts
     else:
         _build.check(counts, "counts", torch.float32, (n,), dev)
-    sums = torch.zeros_like(table)
     for s, g in zip(segs, gsegs):
         _build.launch(
-            "mean_scatter", "ebt_scatter_add_rows", dev, sums.data_ptr(),
-            counts.data_ptr() if fresh else None, s.data_ptr(), g.data_ptr(),
+            "mean_scatter", "ebt_scatter_add_rows", dev, workspace.sums.data_ptr(),
+            counts.data_ptr() if own else None, s.data_ptr(), g.data_ptr(),
             s.shape[0], d,
         )
+    consumed = own and not fresh
     _build.launch(
         "mean_combine", "ebt_mean_combine", dev, table.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), float(lr), n, d,
+        workspace.sums.data_ptr(), counts.data_ptr(), float(lr), n, d, int(consumed),
     )
-    return table, counts
+    return table, None if consumed else counts
 
 
 def skipgram_mean_combine_plain(

@@ -35,7 +35,7 @@ from embiggen_tpu_torch.ops.negatives import (
     edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
 )
 from embiggen_tpu_torch.ops.scatter import (
-    SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
+    MeanScatterSums, SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
     skipgram_mean_combine_plain,
 )
 from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
@@ -149,7 +149,7 @@ def test_skipgram_step_launches_update_and_combine(dev):
     assert all(not bool(t.any()) for t in sums.buffers())
 
 
-@pytest.mark.parametrize("width", [None, 16, 30])
+@pytest.mark.parametrize("width", [None, 1, 16, 30, 128])
 def test_mean_scatter_kernel_matches_plain(dev, width):
     rng = np.random.default_rng(1)
     n = 500
@@ -169,10 +169,98 @@ def test_mean_scatter_kernel_matches_plain(dev, width):
     assert after["mean_combine"] - before["mean_combine"] == 1
     torch.testing.assert_close(counts, want_counts, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    # A second table updated with the counts of the first call.
-    got, _ = mean_scatter(table.clone(), idx, grads, 0.05, counts)
+    # A second table updated with the counts of the first call, which it
+    # leaves as they were.
+    shared = counts.clone()
+    got, kept = mean_scatter(table.clone(), idx, grads, 0.05, counts)
     want, _ = mean_scatter_plain(table.clone(), idx, grads, 0.05, counts)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert kept is counts and torch.equal(counts, shared)
+
+
+def _mean_scatter_segments(rng, n, shape, dev):
+    """Two segments: rows [0, 300) and [200, n), so some rows are touched by
+    one segment only and some by both."""
+    idx = tuple(torch.from_numpy(rng.integers(lo, hi, m).astype(np.int32)).to(dev)
+                for lo, hi, m in ((0, 300, 900), (200, n, 400)))
+    grads = tuple(torch.from_numpy(
+        rng.normal(size=(i.numel(),) + shape[1:]).astype(np.float32)).to(dev) for i in idx)
+    return idx, grads
+
+
+@pytest.mark.parametrize("width", [None, 1, 30, 128])
+def test_mean_scatter_workspace_over_consecutive_calls(dev, width):
+    """Three steps on one workspace against the plain version: the counts
+    exact (a call without the workspace returns them), the sums and counts
+    all zero after each combine, the counts passed in left alone."""
+    rng = np.random.default_rng(4)
+    n = 700
+    shape = (n,) if width is None else (n, width)
+    ws = MeanScatterSums.zeros(shape, dev)
+    table = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    want = table.clone()
+    for lr in (0.05, 0.04, 0.03):
+        idx, grads = _mean_scatter_segments(rng, n, shape, dev)
+        before = _build.launch_counts()
+        _, counts = mean_scatter(table, idx, grads, lr, workspace=ws)
+        _, want_counts = mean_scatter_plain(want, idx, grads, lr)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert after["mean_scatter"] - before["mean_scatter"] == 2
+        assert after["mean_combine"] - before["mean_combine"] == 1
+        assert counts is None
+        torch.testing.assert_close(table, want, rtol=0, atol=1e-5)
+        assert not ws.sums.any() and not ws.counts.any()
+        _, fresh = mean_scatter(table.clone(), idx, grads, lr)
+        torch.testing.assert_close(fresh, want_counts, rtol=0, atol=0)
+        shared = fresh.clone()
+        got, kept = mean_scatter(table.clone(), idx, grads, lr, fresh, workspace=ws)
+        ref, _ = mean_scatter_plain(table.clone(), idx, grads, lr, fresh)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+        assert kept is fresh and torch.equal(fresh, shared)
+        assert not ws.sums.any() and not ws.counts.any()
+
+
+def test_mean_scatter_kernel_skips_rows_the_given_counts_leave_out(dev):
+    """Counts that miss rows of the multiset: the plain version refuses
+    them, the kernel leaves those rows as they were and steps the others as
+    the plain version does with whole counts."""
+    rng = np.random.default_rng(6)
+    n, d = 700, 30
+    table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    idx, grads = _mean_scatter_segments(rng, n, (n, d), dev)
+    _, whole = mean_scatter_plain(table.clone(), idx, grads, 0.05)
+    dropped = torch.unique(idx[0])[::3]
+    partial = whole.clone()
+    partial[dropped.long()] = 0.0
+    with pytest.raises(ValueError, match="every row"):
+        mean_scatter_plain(table.clone(), idx, grads, 0.05, partial)
+    want, _ = mean_scatter_plain(table.clone(), idx, grads, 0.05, whole)
+    want[dropped.long()] = table[dropped.long()]
+    got, kept = mean_scatter(table.clone(), idx, grads, 0.05, partial)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert kept is partial
+
+
+def test_mean_scatter_kernel_at_an_odd_storage_offset(dev):
+    """A table and gradients whose rows are not 16-byte aligned (views one
+    float into their buffers) take the scalar paths and match the plain
+    version."""
+    rng = np.random.default_rng(5)
+    n, d = 700, 128
+    table = torch.randn(n * d + 1, device=dev)[1:].view(n, d)
+    assert table.is_contiguous() and table.data_ptr() % 16 != 0
+    idx, grads = _mean_scatter_segments(rng, n, (n, d), dev)
+    grads = tuple(torch.cat([torch.zeros(1, device=dev), g.reshape(-1)])[1:].view(g.shape)
+                  for g in grads)
+    assert all(g.data_ptr() % 16 != 0 for g in grads)
+    ws = MeanScatterSums.zeros((n, d), dev)
+    want, _ = mean_scatter_plain(table.clone(), idx, grads, 0.05)
+    mean_scatter(table, idx, grads, 0.05, workspace=ws)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, want, rtol=0, atol=1e-5)
+    assert not ws.sums.any() and not ws.counts.any()
 
 
 def test_samplers_stay_on_the_graph(dev):
@@ -727,16 +815,23 @@ def test_walklets_kernel_walks_of_one_repeated_node(dev, mode):
 
 
 def _cooc_against_plain(walks, n, strides):
+    """K13a against its plain version: keys exactly, in ascending (center,
+    context) order, sums rtol 1e-6; its six launches (count, scan, scatter,
+    sort, scan, write)."""
     before = _build.launch_counts()["cooccurrences"]
     got = cooccurrences(walks, n, strides)
     want = cooccurrences_plain(walks, n, strides)
     torch.cuda.synchronize()
-    if sum(max(walks.shape[1] - d, 0) for d, _ in strides):
-        assert _build.launch_counts()["cooccurrences"] == before + 2
+    if walks.shape[0] * sum(max(walks.shape[1] - d, 0) for d, _ in strides):
+        assert _build.launch_counts()["cooccurrences"] == before + 6
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
-    # float64 atomics add in no fixed order; compared after the cast.
+    keys = got[0].long() * n + got[1].long()
+    assert bool((keys[1:] > keys[:-1]).all())
+    # float64 sums in another order (the hub route's atomics in none);
+    # compared after the cast.
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    return got
 
 
 @pytest.mark.parametrize("strides", [glove_strides(2), glove_strides(5), ((3, 1.0),),
@@ -752,6 +847,18 @@ def test_cooccurrences_kernel_matches_plain(dev, strides):
     _cooc_against_plain(torch.from_numpy(walks).to(dev), 500, strides)
 
 
+@pytest.mark.parametrize("sweep_bytes", [1, 4096])
+def test_cooccurrences_kernel_in_sweeps(dev, monkeypatch, sweep_bytes):
+    """K13a's scatter split into many sweeps over ranges of segments (255,
+    its most, and 170)."""
+    from embiggen_tpu_torch.ops import glove
+
+    monkeypatch.setattr(glove, "SWEEP_BYTES", sweep_bytes)
+    rng = np.random.default_rng(9)
+    walks = rng.integers(0, 500, (3000, 16)).astype(np.int32)
+    _cooc_against_plain(torch.from_numpy(walks).to(dev), 500, glove_strides(2))
+
+
 def test_cooccurrences_kernel_on_weighted_walks(dev):
     g = erdos_renyi(2000, 8000, seed=3, weighted=True)
     walks = first_order_walks(g.device(dev, with_alias=True),
@@ -764,6 +871,57 @@ def test_cooccurrences_kernel_without_pairs(dev):
     walks = torch.zeros((10, 4), dtype=torch.int32, device=dev)
     got = cooccurrences(walks, 10, [(4, 1.0)])
     assert all(t.shape == (0,) for t in got)
+
+
+def _star_walks(rng, leaves, walks, length):
+    """Walks on a star: the hub (node 0) at every other position, random
+    leaves between."""
+    w = rng.integers(1, leaves + 1, (walks, length)).astype(np.int32)
+    w[: walks // 2, ::2] = 0
+    w[walks // 2:, 1::2] = 0
+    return w
+
+
+@pytest.mark.parametrize("case", ["star", "two stars", "planted hubs", "wide windows",
+                                  "wide ids", "one repeated node", "no walks"])
+def test_cooccurrences_kernel_edge_builds(dev, case):
+    """K13a at its edges: a star's hub, whose segment is longer than a
+    block's shared memory and whose contexts span several windows (and two
+    hubs at once); ten hubs of several chunks each beside two hubs that
+    alternate (one context repeated 12,800 times in a hub's window); a hub
+    on a graph of over 2^25 nodes, whose windows are wider than a block's
+    shared memory; node ids where a N + b exceeds 2^32; walks whose pairs
+    are all on the diagonal (no entries); no walks."""
+    rng = np.random.default_rng(8)
+    strides = glove_strides(2)
+    if case == "star":
+        n, walks = 40_001, _star_walks(rng, 40_000, 4000, 16)
+    elif case == "two stars":
+        n = 30_002
+        walks = _star_walks(rng, 30_001, 3000, 16)
+        walks[1500:][walks[1500:] == 0] = 30_001
+    elif case == "planted hubs":
+        n = 60_000
+        walks = rng.integers(0, n, (6000, 16)).astype(np.int32)
+        walks[:3000, ::2] = (np.arange(3000) % 10)[:, None]
+        walks[3000:3800, ::2] = 20
+        walks[3000:3800, 1::2] = 21
+    elif case == "wide windows":
+        n, walks = 2**25 + 5, _star_walks(rng, 2**25 + 4, 4000, 16)
+    elif case == "wide ids":
+        n = 70_000
+        walks = rng.integers(0, n, (3000, 16)).astype(np.int32)
+        walks[:, -1] = n - 1
+        assert (n - 1) * n + n - 2 > 2**32
+    elif case == "one repeated node":
+        n, walks = 50, np.full((40, 16), 9, dtype=np.int32)
+    else:
+        n, walks = 50, np.zeros((0, 16), dtype=np.int32)
+    got = _cooc_against_plain(torch.from_numpy(walks).to(dev), n, strides)
+    if case.endswith("star") or case in ("planted hubs", "wide windows"):
+        assert int((got[0] == 0).sum()) > 8192 // 4
+    if case in ("one repeated node", "no walks"):
+        assert all(t.shape == (0,) for t in got)
 
 
 @pytest.mark.parametrize("d", [128, 30])
