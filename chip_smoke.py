@@ -124,9 +124,10 @@ the exit code is not 0:
      the S7 shapes (walks [32768, 64], K 10, tables [4, 1M, 32]) and at its
      edges (D 12 at P 4, a sub that is not a multiple of 4; P 1; P 3 at sub
      40, over one 32-column chunk; walks of P + 1 nodes, one pair at the
-     top power; walks of one repeated node): its counts exactly, its loss
-     and sums rtol 1e-4 / atol 1e-5, the tables after K4's combine atol
-     1e-5;
+     top power; the default embedding's sub 25 at L 64; walks of one
+     repeated node); the S7 shape's 131,072 (walk, power) items are no
+     multiple of the persistent grid: its counts exactly, its loss and sums
+     rtol 1e-4 / atol 1e-5, the tables after K4's combine atol 1e-5;
  18. K13a (the co-occurrence build) against its plain version at the S7
      GloVe shape (a walk of 16 from each of the slice graph's nodes, w 2),
      on a small weighted graph, on walks that revisit nodes (the diagonal
@@ -155,11 +156,14 @@ the exit code is not 0:
      reference's less 0.03), and Node2Vec GloVe features on the gate
      fixture's connected holdout, embedding seeds 0-3, a Perceptron on
      Hadamard alone (mean test AUROC at least the reference's less 0.03);
- 21. K15a (the min-plus relaxation) against its plain version exactly: 32
-     relaxations at D 100 from the 100 top-degree nodes on the slice graph
-     and on its weighted twin, 8 at D 1 and D 30, 32 at D 30 on a graph of
-     two components and isolated nodes and on a directed graph (each also
-     weighted), with the change flags; WINE's two K7 hops at unit values
+ 21. K15a (the min-plus relaxation) against its plain version exactly: the
+     early-stopped `multi_source_distances` against 32 plain relaxations at
+     D 100 from the 100 top-degree nodes on the slice graph and on its
+     weighted twin, launched the first unchanged relaxation + 1 times, with
+     each relaxation's change flag held to whether its output moved; 8 at D
+     1 and D 30, 32 at D 30 on a graph of two components and isolated nodes
+     and on a directed graph (each also weighted), with the change flags;
+     K15a timed with the flag the fit passes; WINE's two K7 hops at unit values
      exactly (K15b); K16a's singletons exactly at precisions 4, 8 and 12,
      its three hops exactly at 4 and 8 and, at 12, each hop from the one
      before on a tenth of the rows; K16b at 2^20 pairs (half arcs, half
@@ -174,8 +178,8 @@ the exit code is not 0:
      bench GCN of phase 6 with lazy HyperSketching features for 2 epochs
      (K6, K7, K16a, K16b) and with HyperSketching's edge embeddings as a
      static feature matrix for 1 (K5), each scoring the 20M arcs; seconds,
-     peak memory, and the relaxation after which SPINE's distances stopped
-     changing;
+     peak memory, and Degree-based SPINE's and WeightedSPINE's K15a
+     launches, which must be the relaxations that moved in phase 21 + 1;
  23. S8 quality: the reference's edge-GCN gate with Degree-based SPINE
      features (seed 0 through `edge_prediction_evaluation`, seeds 1-7 by
      `_evaluate`): mean test AUPRC at least the reference's less 0.03, and
@@ -309,13 +313,15 @@ GATE_REFERENCE_UNSTRUCTURED_AUROC = 0.9216162440005579
 # batch 32768, L 64, K 10) and GloVe's (`bench.py:320-329`: D 128, batch
 # 65536, L 16, w 2, iterations 1); K12 at those shapes and at its edges (a
 # sub not a multiple of 4, P 1, a sub over one 32-column chunk, walks of
-# P + 1 nodes): (name, N, P, sub, B, L, K).
+# P + 1 nodes, the default embedding size 100's sub 25): (name, N, P, sub,
+# B, L, K).
 WALKLETS_POWER = 4
 WALKLETS_SHAPES = (("S7", N_NODES, WALKLETS_POWER, DIM // WALKLETS_POWER, BATCH, WALK, NEGS),
                    ("D 12, P 4", 100_000, 4, 3, 4096, 12, 5),
                    ("P 1", 100_000, 1, 32, 4096, 12, 5),
                    ("P 3, sub 40", 100_000, 3, 40, 4096, 12, 5),
-                   ("one pair", 100_000, 4, 8, 4096, 5, 5))
+                   ("one pair", 100_000, 4, 8, 4096, 5, 5),
+                   ("D 100, P 4", 100_000, 4, 25, 4096, WALK, NEGS))
 GLOVE_WALK, GLOVE_WINDOW, GLOVE_BATCH = 16, 2, 65536
 S7_WALKLETS = dict(embedding_size=DIM, power=WALKLETS_POWER, batch_size=BATCH, walk_length=WALK,
                    window_size=4, number_of_negative_samples=NEGS,
@@ -665,7 +671,9 @@ def slice_sampler_checks(graph, tg, first_order_walks, first_order_walks_plain,
     return p
 
 
-# The CUDA function each wrapper's count stands for, as torch.profiler names it.
+# The CUDA functions each wrapper's count stands for, as torch.profiler names
+# them (a prefix where one launch runs several: K12's update and counts pass,
+# K13a's six).
 KERNEL_NAMES = {
     "first_order_walks": "first_order_walks_kernel", "nce_negatives": "node_draws_kernel",
     "skipgram_nce_update": "skipgram_nce_kernel",
@@ -675,7 +683,7 @@ KERNEL_NAMES = {
     "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
     "mean_scatter": "scatter_rows_kernel", "mean_combine": "mean_rows_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
-    "walklets_update": "walklets_kernel", "cooccurrences": "cooc_",
+    "walklets_update": "walklets_", "cooccurrences": "cooc_",
     "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
     "edge_sketch_features": "edge_features_kernel", "sketch_race_step": "sketch_race_kernel",
@@ -2651,13 +2659,38 @@ def exact_err(name, got, want) -> float:
     return 0.0
 
 
+def k15_flag_checks(name, tg, init, weighted) -> int:
+    """K15a relaxation by relaxation from `init` until one moves nothing:
+    its change flag must be 1 exactly when its output differs from its
+    input. Returns the number of relaxations that moved a distance."""
+    from embiggen_tpu_torch.ops.bfs import min_plus_step
+
+    dist = init
+    for i in range(S8_DEPTH):
+        flag = torch.zeros(1, dtype=torch.int32, device=init.device)
+        out = min_plus_step(tg, dist, weighted, flag)
+        moved = bool((out != dist).any())
+        if int(flag) != int(moved):
+            raise AssertionError(f"K15a {name} relaxation {i}: flag {int(flag)}, "
+                                 f"distances moved: {moved}")
+        if not moved:
+            return i
+        dist = out
+    return S8_DEPTH
+
+
 def k15_checks(graph, weighted, dev):
-    """K15a against its plain version, exactly: 32 relaxations at D 100 on
-    the slice graph and on its weighted twin, 8 at D 1 and D 30 (not a
-    multiple of 4), 32 at D 30 on s8_graphs' graphs (each also weighted),
-    with the change flags; WINE's two K7 hops at unit values exactly.
-    Returns their kernels entries, timed at the slice shapes, and the
-    iteration after which the slice graph's distances stopped changing."""
+    """K15a against its plain version, exactly: the early-stopped
+    `multi_source_distances` against 32 plain relaxations at D 100 on the
+    slice graph and on its weighted twin, with its launches (the first
+    unchanged relaxation + 1) and the change flag of each relaxation against
+    its output; 8 relaxations at D 1 and D 30 (not a multiple of 4), 32 at D
+    30 on s8_graphs' graphs (each also weighted), with the change flags;
+    WINE's two K7 hops at unit values exactly. Returns their kernels
+    entries, timed at the slice shapes (K15a with the change flag the fit
+    passes), and per slice graph the number of relaxations that moved a
+    distance."""
+    from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.bfs import (
         anchor_init_from_sets, min_plus_step, min_plus_step_plain, multi_source_distances,
         unit_kernel, window_cooccurrence_counts,
@@ -2669,11 +2702,19 @@ def k15_checks(graph, weighted, dev):
     for name, g, w in (("slice", graph, False), ("weighted twin", weighted, True)):
         tg = g.device(dev)
         changes = torch.zeros(S8_DEPTH, dtype=torch.int32, device=dev)
+        before = _build.launch_counts()["min_plus_step"]
         got = multi_source_distances(tg, init, S8_DEPTH, w, changes)
+        launches = _build.launch_counts()["min_plus_step"] - before
         errs[f"D {S8_DIM} {name}"] = exact_err(f"K15a {name}", got,
                                                plain_distances(tg, init, S8_DEPTH, w))
         moved = torch.nonzero(changes).flatten()
         settled[name] = int(moved[-1]) + 1 if len(moved) else 0
+        if launches != min(settled[name] + 1, S8_DEPTH):
+            raise AssertionError(f"K15a {name}: {launches} launches for distances that "
+                                 f"settle after {settled[name]} relaxations")
+        if k15_flag_checks(name, tg, init, w) != settled[name]:
+            raise AssertionError(f"K15a {name}: the relaxation-by-relaxation flags disagree "
+                                 f"with multi_source_distances' changes {changes.tolist()}")
         del got
     tg = graph.device(dev)
     for d in (1, 30):
@@ -2692,17 +2733,19 @@ def k15_checks(graph, weighted, dev):
                 want = min_plus_step_plain(gt, want, w, want_changes[i:i + 1])
             errs[f"{name}{' weighted' if w else ''}"] = exact_err(f"K15a {name}", got, want)
             exact_err(f"K15a change flags {name}", changes, want_changes)
-    # Timed on the distances after three relaxations, mid-run.
+    # Timed on the distances after three relaxations, mid-run, with the
+    # change flag that multi_source_distances passes.
     dist = multi_source_distances(tg, init, 3)
     out = torch.empty_like(dist)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
     wtg = weighted.device(dev)
     e, n, d = tg.n_arcs, N_NODES, S8_DIM
     entries = {"min_plus_step": dict(
         source="embiggen_tpu_torch/csrc/bfs.cu", replaces="embiggen_tpu/ops/bfs.py:25",
         max_abs_err=max(errs.values()),
-        ms=time_ms(lambda: min_plus_step(tg, dist, False, None, out), 20),
+        ms=time_ms(lambda: min_plus_step(tg, dist, False, flag, out), 20),
         plain_ms=time_ms(lambda: min_plus_step_plain(tg, dist, False), 3),
-        weighted_ms=time_ms(lambda: min_plus_step(wtg, dist, True, None, out), 20),
+        weighted_ms=time_ms(lambda: min_plus_step(wtg, dist, True, flag, out), 20),
         library_ms=None,
         # dist in and out, the CSR; an add and a min per gathered float.
         **bound(4 * (2 * n * d + n + 1 + e), 2 * e * d))}
@@ -3863,7 +3906,17 @@ def main() -> None:
     t_phase = time.perf_counter()
     s8, s8_gcn = s8_runs(graph, weighted_graph, dev)
     gcn_hs = s8_gcn["GCN + HyperSketching"][0]
-    print(f"phase 22 S8 on {card} ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(
+    k15a_fit_launches = {name: s8[name][1]["min_plus_step"]
+                      for name in ("Degree-based SPINE", "WeightedSPINE")}
+    for (name, got), twin in zip(k15a_fit_launches.items(), ("slice", "weighted twin")):
+        if got != min(settled[twin] + 1, S8_DEPTH):
+            raise AssertionError(f"{name} launched K15a {got} times; its distances settle "
+                                 f"after {settled[twin]} relaxations")
+    print(f"phase 22 S8 on {card} ({time.perf_counter() - t_phase:.1f} s): K15a launches a "
+          f"fit (the relaxations that moved, from phase 21, + 1): "
+          + ", ".join(f"{name} {got} (settled after {settled[twin]})" for (name, got), twin
+                      in zip(k15a_fit_launches.items(), ("slice", "weighted twin")))
+          + " | " + " | ".join(
         f"{name}: {secs:.2f} s, peak {peak} bytes, launches {got}"
         for name, (_, got, secs, peak) in s8.items())
         + " | " + " | ".join(

@@ -6,10 +6,12 @@
 // Replaces one iteration of the lax.scan in
 // embiggen_tpu/ops/bfs.py::multi_source_distances (a segment_min of
 // dist[cols] + w into the arcs' rows, then a minimum with dist). The
-// wrapper launches it max_depth times, swapping two buffers, as the scan
-// runs max_depth bodies. Each row pulls from the heads of its own out-arcs,
-// as the reference's segment reduction does, so a directed graph relaxes
-// forward exactly as there.
+// wrapper launches it once a relaxation, swapping two buffers, and stops
+// after the first relaxation whose change flag stays 0, at most max_depth:
+// a relaxation that moves nothing moves nothing after it, so that is the
+// scan's result after max_depth bodies, bit for bit. Each row pulls from
+// the heads of its own out-arcs, as the reference's segment reduction
+// does, so a directed graph relaxes forward exactly as there.
 //
 // Exactness: each candidate is one float add, as in the reference, and a
 // minimum does not depend on the order it is taken in, so the distances
@@ -17,26 +19,33 @@
 // where 1e9 + 1 rounds back to 1e9).
 //
 // What bounds it on the H100: gathered bytes. At SPINE's default D 100 on
-// the 20M-arc slice graph an iteration gathers 20M rows of 400 bytes (8
+// the 20M-arc slice graph a relaxation gathers 20M rows of 400 bytes (8
 // GB) against the 0.8 GB that a pass over dist in and out must move; two
-// operations per gathered float.
+// operations per gathered float. A 400-byte row starts at any 16-byte
+// offset, so it spans 13 or 14 sectors of 32 bytes: about 8.6 GB move.
 //
-// What the design does about it: a thread per (row, 4 columns), so the
-// threads of a row read neighbouring 16-byte pieces of each gathered row
-// (float4 where D and alignment allow, scalar otherwise); each thread
-// walks its row's arcs, whose column index is one broadcast load for the
-// row's threads. Rows are independent: no atomics. When `changed` is not
-// NULL, a thread whose minimum moved stores 1 there (every writer stores
-// the same value), so the wrapper can tell after which iteration nothing
-// changed without a pass of its own.
+// What the design does about it: a warp a row, each lane holding 4
+// columns (float4 where D and alignment allow, scalar otherwise), so a
+// warp reads a whole gathered row per arc in 16-byte pieces. The row's arc
+// ids (and weights) are read 32 at a time in one coalesced load and
+// broadcast by shuffles, and kUnroll arcs' rows are loaded before any is
+// compared, so each lane has kUnroll independent 16-byte gathers in
+// flight. Rows are independent: no atomics. When `changed` is not NULL,
+// the block stores 1 there once (__syncthreads_or) if any of its rows'
+// minima moved, so the wrapper can tell after which relaxation nothing
+// changed without a pass of its own, for the cost of one store a block.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int VEC>
 struct Lanes;
@@ -60,35 +69,64 @@ struct Lanes<1> {
 };
 
 template <int VEC>
-__global__ void min_plus_kernel(
+__global__ void __launch_bounds__(kThreads) min_plus_kernel(
     const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols,
     const float* __restrict__ weights, const float* __restrict__ dist,
     float* __restrict__ out, int32_t* __restrict__ changed, int64_t n_rows,
     int d) {
-  const int per_row = d / VEC;
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int64_t row = t / per_row;
-  if (row >= n_rows) return;
-  const int64_t c = (t - row * per_row) * VEC;
-  float acc[VEC], v[VEC];
-  Lanes<VEC>::load(dist + row * d + c, acc);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = blockIdx.x * static_cast<int64_t>(kWarps) + (threadIdx.x >> 5);
   bool moved = false;
-  const int32_t end = row_ptr[row + 1];
-  for (int32_t a = row_ptr[row]; a < end; ++a) {
-    const int64_t col = __ldg(cols + a);
-    const float w = weights != nullptr ? __ldg(weights + a) : 1.0f;
-    Lanes<VEC>::load(dist + col * d + c, v);
+  if (row < n_rows) {  // uniform across the warp
+    const int32_t start = row_ptr[row], end = row_ptr[row + 1];
+    for (int c0 = 0; c0 < d; c0 += 32 * VEC) {
+      const int c = c0 + lane * VEC;
+      const bool active = c < d;
+      float own[VEC], acc[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float cand = v[k] + w;
-      if (cand < acc[k]) {
-        acc[k] = cand;
-        moved = true;
+      for (int k = 0; k < VEC; ++k) own[k] = 0.0f;
+      if (active) Lanes<VEC>::load(dist + row * d + c, own);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = own[k];
+      for (int32_t base = start; base < end; base += 32) {
+        int32_t col = 0;
+        float w = 1.0f;
+        if (base + lane < end) {
+          col = __ldg(cols + base + lane);
+          if (weights != nullptr) w = __ldg(weights + base + lane);
+        }
+        const int count = min(32, end - base);
+        for (int j = 0; j < count; j += kUnroll) {
+          float v[kUnroll][VEC], wj[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int64_t cj = __shfl_sync(kFull, col, (j + u) & 31);
+            wj[u] = __shfl_sync(kFull, w, (j + u) & 31);
+            if (active && j + u < count) {
+              Lanes<VEC>::load(dist + cj * d + c, v[u]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < VEC; ++k) v[u][k] = INFINITY;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              const float cand = v[u][k] + wj[u];
+              if (cand < acc[k]) acc[k] = cand;
+            }
+          }
+        }
+      }
+      if (active) {
+        Lanes<VEC>::store(out + row * d + c, acc);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) moved |= acc[k] < own[k];
       }
     }
   }
-  Lanes<VEC>::store(out + row * d + c, acc);
-  if (moved && changed != nullptr) *changed = 1;
+  if (changed != nullptr && __syncthreads_or(moved) && threadIdx.x == 0) *changed = 1;
 }
 
 }  // namespace
@@ -102,9 +140,7 @@ int ebt_min_plus_step(const void* row_ptr, const void* cols,
                       void* changed, long long n_rows, int d, int vec4,
                       void* stream) {
   if (n_rows == 0 || d == 0) return 0;
-  const int vec = vec4 ? 4 : 1;
-  const long long threads = n_rows * (d / vec);
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const unsigned blocks = static_cast<unsigned>((n_rows + kWarps - 1) / kWarps);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* rp = static_cast<const int32_t*>(row_ptr);
   const auto* ci = static_cast<const int32_t*>(cols);

@@ -5,7 +5,8 @@ number_of_convolutions).
 
 - SPINE: feature j is the shortest-path distance from anchor set j,
   `maximum_depth` (default 32) min-plus relaxations of kernel K15a
-  (`ops/bfs.py::multi_source_distances`); unreached pairs get depth + 1.
+  (`ops/bfs.py::multi_source_distances`, which stops after the first one
+  that moves nothing); unreached pairs get depth + 1.
   WeightedSPINE relaxes along the arc weights (their reciprocals with
   `use_reciprocal_weights`).
 - WINE: feature j counts the walks of length 1..window_size into anchor

@@ -68,7 +68,7 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _I32, _I64, _I64, _I32, _P, _P, _P, _P, _P, _U64, _U32, _P), _I32),
     "ebt_line_batch": (
         (_P, _P, _P, _I32, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _U64, _U32, _P), _I32),
-    "ebt_walklets_update": ((_P,) * 11 + (_I64, _I64) + (_I32,) * 5 + (_P,), _I32),
+    "ebt_walklets_update": ((_P,) * 12 + (_I64, _I64) + (_I32,) * 5 + (_P,), _I32),
     "ebt_cooc_count": ((_P, _I64, _I32, _P, _I32, _P, _P), _I32),
     "ebt_cooc_scan": ((_P, _I64, _P, _P, _P), _I32),
     "ebt_cooc_scatter": (

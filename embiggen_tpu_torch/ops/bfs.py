@@ -1,12 +1,14 @@
 """Multi-source distances and window counts over anchor sets — counterpart
 of `embiggen_tpu/ops/bfs.py`, the device half of SPINE and WINE.
 
-`multi_source_distances` runs `max_depth` min-plus relaxations of an
-[N, D] distance matrix, column j holding the distance from anchor set j:
-kernel K15a (`csrc/bfs.cu`) once per iteration on CUDA tensors, its plain
-version (a gather and an `index_reduce_` "amin" over the arcs) on CPU
-tensors. Each candidate is one float add and a minimum does not depend on
-its order, so both give the reference's distances exactly.
+`multi_source_distances` runs min-plus relaxations of an [N, D] distance
+matrix, column j holding the distance from anchor set j, until one moves
+nothing or `max_depth` have run: kernel K15a (`csrc/bfs.cu`) once per
+relaxation on CUDA tensors, its plain version (a gather and an
+`index_reduce_` "amin" over the arcs) on CPU tensors, each setting a change
+flag that the loop reads. Each candidate is one float add and a minimum does
+not depend on its order, so both give the reference's `max_depth`
+relaxations exactly.
 
 `window_cooccurrence_counts` is `window_size` hops of the adjacency at
 unit values, summed: the reference's `segment_sum(x[cols], rows)` is the
@@ -117,16 +119,24 @@ def multi_source_distances(
     weighted: bool = False, changes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[N, D] distances from each anchor set after `max_depth` relaxations
-    (UNREACHED where none reached). `changes`, an int32 [max_depth] tensor of
-    zeros, records which iterations moved a distance: a diagnostic that
-    costs the main path nothing."""
+    (UNREACHED where none reached). The loop stops after the first
+    relaxation that moves no distance: one that changes nothing changes
+    nothing after it, so the result equals `max_depth` relaxations bit for
+    bit. Each relaxation sets its own flag, read on the host (4 bytes)
+    before the next is launched. `changes`, an int32 [max_depth] tensor of
+    zeros, receives those flags, so it records which relaxations moved a
+    distance (the entries after the stop stay 0); without it the flags go
+    to a scratch tensor."""
     dist = anchor_init.contiguous()
+    if changes is None:
+        changes = torch.zeros(max_depth, dtype=torch.int32, device=dist.device)
     # On the card, two buffers take turns as each launch's output.
     bufs = ((torch.empty_like(dist), torch.empty_like(dist))
             if _build.is_cuda(dist) and max_depth > 0 else (None, None))
     for i in range(max_depth):
-        flag = None if changes is None else changes[i:i + 1]
-        dist = min_plus_step(tg, dist, weighted, flag, bufs[i % 2])
+        dist = min_plus_step(tg, dist, weighted, changes[i:i + 1], bufs[i % 2])
+        if not int(changes[i]):
+            break
     return dist
 
 

@@ -118,10 +118,14 @@ def walklets_update(
     _build.check(negs, "negs", torch.int32, (b, k), dev)
     sums.check(power * n, sub, dev)
     loss = torch.empty((b, power), dtype=torch.float32, device=dev)
+    # The walk counts the kernel's second pass turns into every power's
+    # counts: positions and negative slots per node, end positions per power.
+    scratch = torch.zeros((power + 2) * n, dtype=torch.float32, device=dev)
     _build.launch(
         "walklets_update", "ebt_walklets_update", dev,
         node_embedding.data_ptr(), context_embedding.data_ptr(), context_bias.data_ptr(),
         walks.data_ptr(), negs.data_ptr(), loss.data_ptr(),
-        *map(_build.ptr, sums.buffers()), n, b, length, k, sub, power, MODES.index(mode),
+        *map(_build.ptr, sums.buffers()), scratch.data_ptr(), n, b, length, k, sub, power,
+        MODES.index(mode),
     )
     return loss.sum(0)

@@ -1,12 +1,11 @@
-"""Times of K13a (the GloVe co-occurrence build) and K4 standalone (LINE's
-per-row mean update) at the slice shapes, and of the LINE steps that run
-K4 standalone, on one NVIDIA GPU; one JSON line.
+"""Times of the kernels redesigned for Hopper at the slice shapes, and of the
+steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
-    python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line]
+    python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
-only what every design of the two kernels takes (a workspace for
-`mean_scatter` where it accepts one), so one command can time two checkouts
+only the kernels' wrappers and the models' steps and fits, whose signatures
+every design of these kernels shares, so one command can time two checkouts
 in turn: `PYTHONPATH=<checkout> python <this file>` times that checkout's
 package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
 
@@ -24,12 +23,25 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   other position), with the hubs' count and share of the entries and the
   device time of the hub route's kernels from torch.profiler;
 - K4 standalone on one LINE batch (K14: B 65536, K 5) with seeded normal
-  gradients at D 128: the context update (segments dst and negatives) and
-  the node update (src), each as the wrapper's mean time and its scatter and
-  combine launches' (events around each launch);
+  gradients at D 128 on a workspace: the context update (segments dst and
+  negatives) and the node update (src), each as the wrapper's mean time and
+  its scatter and combine launches' (events around each launch);
 - Second- and First-order LINE (D 128, batch 65536): the mean step time
   over 30 steady steps on CUDA events, K4 standalone's launches' share of
-  10 of them, and the seconds of one epoch through `fit_transform`.
+  10 of them, and the seconds of one epoch through `fit_transform`;
+- K12 at the S7 Walklets shapes (P 4, sub 32, B 32768, L 64, K 10) on
+  seeded tables, walks and negatives: its mean time over 10 calls in each
+  mode; and the Walklets SkipGram and CBOW steps at those settings (D 128):
+  the mean step time over 20 steady steps on CUDA events and K12's launch
+  time in 10 of them;
+- K15a at SPINE's D 100 (the 100 highest-degree nodes as anchors) on the
+  distances after three relaxations, with the change flag the fit passes:
+  one relaxation's mean time over 20 calls, unweighted and on the weighted
+  twin (`erdos_renyi(..., weighted=True)`); and a Degree-based SPINE fit
+  and a WeightedSPINE fit at their defaults (D 100, depth 32): seconds
+  through `fit_transform`, K15a's launches and their summed time on CUDA
+  events, best of 3 fits, and beside them the seconds of each part of
+  the fit, run alone.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -37,7 +49,6 @@ limit.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import subprocess
 import time
@@ -209,15 +220,13 @@ def k4_times(graph, dev) -> dict:
     def normal(*shape, scale=1.0):
         return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
     table = normal(N_NODES, DIM, scale=0.1)
-    kw = {}
-    if "workspace" in inspect.signature(scatter.mean_scatter).parameters:
-        kw["workspace"] = scatter.MeanScatterSums.zeros((N_NODES, DIM), dev)
-    out = {"workspace": bool(kw)}
+    workspace = scatter.MeanScatterSums.zeros((N_NODES, DIM), dev)
+    out = {}
     for name, segs in (("context", (dst, neg.reshape(-1))), ("node", (src,))):
         gsegs = tuple(normal(s.numel(), DIM) for s in segs)
 
         def call():
-            scatter.mean_scatter(table, segs, gsegs, 1e-6, **kw)
+            scatter.mean_scatter(table, segs, gsegs, 1e-6, workspace=workspace)
         out[name] = dict(rows=int(sum(s.numel() for s in segs)),
                          touched_rows=int(torch.unique(torch.cat(segs)).numel()),
                          wrapper_ms=time_ms(call, 20), launches=launch_ms(call, 20))
@@ -246,7 +255,7 @@ def line_times(graph, dev) -> dict:
         kernels = launch_ms(step, 10)
         k4 = kernels.get("mean_scatter", 0.0) + kernels.get("mean_combine", 0.0)
         del params, tg
-        getattr(model, "_mean_sums", {}).clear()
+        model._mean_sums.clear()
         torch.cuda.empty_cache()
         fit = cls(device=dev, embedding_size=DIM, batch_size=LINE_BATCH, epochs=1,
                   random_state=0, early_stopping_patience=10**6)
@@ -261,7 +270,139 @@ def line_times(graph, dev) -> dict:
     return out
 
 
-PARTS = ("k13a", "k4", "line")
+WALKLETS = dict(embedding_size=DIM, power=4, batch_size=32768, walk_length=64, window_size=4,
+                number_of_negative_samples=10)
+SPINE_DIM = 100
+
+
+def k12_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.scatter import SkipGramSums
+    from embiggen_tpu_torch.ops.walklets import walklets_update
+
+    p, b, length, k = WALKLETS["power"], WALKLETS["batch_size"], WALKLETS["walk_length"], \
+        WALKLETS["number_of_negative_samples"]
+    sub = DIM // p
+    rng = np.random.default_rng(404)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+    tables = (put(0.3 * rng.standard_normal((p, N_NODES, sub), dtype=np.float32)),
+              put(0.3 * rng.standard_normal((p, N_NODES, sub), dtype=np.float32)),
+              put(rng.standard_normal((p, N_NODES), dtype=np.float32)))
+    walks = put(rng.integers(0, N_NODES, (b, length), dtype=np.int32))
+    negs = put(rng.integers(0, N_NODES, (b, k), dtype=np.int32))
+    sums = SkipGramSums.zeros(p * N_NODES, sub, dev)
+    out = {mode: time_ms(lambda mode=mode: walklets_update(*tables, walks, negs, p, sums, mode),
+                         10) for mode in ("skipgram", "cbow")}
+    del tables, walks, negs, sums
+    torch.cuda.empty_cache()
+    return out
+
+
+def walklets_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.embedders import WalkletsCBOW, WalkletsSkipGram
+
+    out = {}
+    for cls in (WalkletsSkipGram, WalkletsCBOW):
+        model = cls(device=dev, epochs=1, random_state=0, **WALKLETS)
+        model._run_batch_size = WALKLETS["batch_size"]
+        tg = model._device_graph(graph)
+        gen = torch.Generator().manual_seed(0)
+        params = model._init_params(graph, gen)
+        sums = model._new_sums(params)
+
+        def step():
+            with torch.no_grad():
+                model._step(tg, params, gen, 0.025, sums=sums)
+        for _ in range(3):
+            step()
+        out[cls.model_name()] = dict(step_ms=time_ms(step, 20),
+                                     k12_ms_per_step=launch_ms(step, 10)["walklets_update"])
+        del params, sums, tg
+        torch.cuda.empty_cache()
+    return out
+
+
+def k15a_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops.bfs import (
+        anchor_init_from_sets, min_plus_step, multi_source_distances,
+    )
+
+    order = np.argsort(-graph.degrees, kind="stable")[:SPINE_DIM]
+    init = anchor_init_from_sets(N_NODES, [[v] for v in order], dev)
+    out = {}
+    for name, g, weighted in (("unweighted", graph, False),
+                              ("weighted", erdos_renyi(N_NODES, N_EDGES, seed=0, weighted=True),
+                               True)):
+        tg = g.device(dev)
+        dist = multi_source_distances(tg, init, 3, weighted)
+        buf = torch.empty_like(dist)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        out[name] = time_ms(lambda: min_plus_step(tg, dist, weighted, flag, buf), 20)
+        del tg, dist, buf
+        torch.cuda.empty_cache()
+    return out
+
+
+def spine_fit_parts(cls, g, dev) -> dict:
+    """Seconds of each part of a SPINE fit's `fit_transform`, run one after
+    another as the fit runs them, each ending in a synchronize."""
+    from embiggen_tpu_torch.models.embedders import spine
+    from embiggen_tpu_torch.ops.bfs import UNREACHED, anchor_init_from_sets, multi_source_distances
+
+    model = cls(device=dev, embedding_size=SPINE_DIM)
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    model._validate_graph(g)
+    lap("validate")
+    sets = model._anchor_sets(g)
+    lap("anchor_sets")
+    init = anchor_init_from_sets(g.number_of_nodes, sets, dev)
+    lap("anchor_init")
+    tg = g.device(dev)
+    lap("graph_export")
+    dist = multi_source_distances(tg, init, 32, cls.WEIGHTED)
+    lap("relaxations")
+    spine._clamp_to_dtype(torch.where(dist >= UNREACHED, 33.0, dist), "u8")
+    lap("result_to_host")
+    g.get_node_names()
+    lap("node_names")
+    return parts
+
+
+def spine_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models.embedders import DegreeSPINE, WeightedSPINE
+    from embiggen_tpu_torch.ops import _build
+
+    out = {}
+    for cls, g in ((DegreeSPINE, graph),
+                   (WeightedSPINE, erdos_renyi(N_NODES, N_EDGES, seed=0, weighted=True))):
+        fits = []
+        for _ in range(3):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            with _build.timed_launches() as events:
+                t0 = time.perf_counter()
+                cls(device=dev, embedding_size=SPINE_DIM).fit_transform(g)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            fits.append(dict(fit_s=secs, launches=_build.launch_counts()["min_plus_step"],
+                             k15a_ms=sum(s.elapsed_time(e)
+                                         for s, e in events.get("min_plus_step", []))))
+        out[cls.model_name()] = dict(min(fits, key=lambda f: f["fit_s"]),
+                                     parts_s=spine_fit_parts(cls, g, dev))
+        torch.cuda.empty_cache()
+    return out
+
+
+PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine")
 
 
 def main() -> None:
@@ -281,7 +422,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
     graph = erdos_renyi(N_NODES, N_EDGES, seed=0)
-    timers = dict(k13a=k13a_times, k4=k4_times, line=line_times)
+    timers = dict(k13a=k13a_times, k4=k4_times, line=line_times, k12=k12_times,
+                  walklets=walklets_times, k15a=k15a_times, spine=spine_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

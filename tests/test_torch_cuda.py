@@ -221,26 +221,37 @@ def test_mean_scatter_workspace_over_consecutive_calls(dev, width):
         assert not ws.sums.any() and not ws.counts.any()
 
 
-def test_mean_scatter_kernel_skips_rows_the_given_counts_leave_out(dev):
+@pytest.mark.parametrize("with_workspace", [False, True])
+def test_mean_scatter_kernel_skips_rows_the_given_counts_leave_out(dev, with_workspace):
     """Counts that miss rows of the multiset: the plain version refuses
     them, the kernel leaves those rows as they were and steps the others as
-    the plain version does with whole counts."""
+    the plain version does with whole counts. On a workspace, the dropped
+    rows' sums stay in it and every other row's are zero again."""
     rng = np.random.default_rng(6)
     n, d = 700, 30
     table = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
     idx, grads = _mean_scatter_segments(rng, n, (n, d), dev)
     _, whole = mean_scatter_plain(table.clone(), idx, grads, 0.05)
-    dropped = torch.unique(idx[0])[::3]
+    dropped = torch.unique(idx[0])[::3].long()
     partial = whole.clone()
-    partial[dropped.long()] = 0.0
+    partial[dropped] = 0.0
     with pytest.raises(ValueError, match="every row"):
         mean_scatter_plain(table.clone(), idx, grads, 0.05, partial)
     want, _ = mean_scatter_plain(table.clone(), idx, grads, 0.05, whole)
-    want[dropped.long()] = table[dropped.long()]
-    got, kept = mean_scatter(table.clone(), idx, grads, 0.05, partial)
+    want[dropped] = table[dropped]
+    ws = MeanScatterSums.zeros((n, d), dev) if with_workspace else None
+    got, kept = mean_scatter(table.clone(), idx, grads, 0.05, partial, workspace=ws)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert kept is partial
+    if with_workspace:
+        total = torch.zeros((n, d), device=dev)
+        for s, g in zip(idx, grads):
+            total.index_add_(0, s.long(), g)
+        torch.testing.assert_close(ws.sums[dropped], total[dropped], rtol=1e-5, atol=1e-6)
+        left = torch.ones(n, dtype=torch.bool, device=dev)
+        left[dropped] = False
+        assert not ws.sums[left].any() and not ws.counts.any()
 
 
 def test_mean_scatter_kernel_at_an_odd_storage_offset(dev):
@@ -795,14 +806,18 @@ def _walklets_against_plain(dev, x, power, mode):
 
 
 @pytest.mark.parametrize("mode", ["skipgram", "cbow"])
-@pytest.mark.parametrize("power, sub, length, k", [
-    (4, 32, 16, 10), (4, 3, 12, 5), (1, 8, 9, 3), (3, 40, 10, 4), (3, 5, 4, 1)])
-def test_walklets_kernel_matches_plain(dev, mode, power, sub, length, k):
+@pytest.mark.parametrize("n, b, power, sub, length, k", [
+    (60, 48, 4, 32, 16, 10), (60, 48, 4, 3, 12, 5), (60, 48, 1, 8, 9, 3),
+    (60, 48, 3, 40, 10, 4), (60, 48, 3, 5, 4, 1), (60, 48, 4, 25, 16, 10),
+    (2000, 1001, 4, 32, 16, 6)])
+def test_walklets_kernel_matches_plain(dev, mode, n, b, power, sub, length, k):
     """K12 against its plain version: the bench's sub 32, a sub not a
     multiple of 4, P 1 and 3, a sub over one 32-column chunk, walks of
-    power + 1 nodes (one pair at the top power); n 60 makes the atomics
-    collide."""
-    x = _walklets_inputs(dev, 60, power, sub, 48, length, k, seed=power * 7 + sub)
+    power + 1 nodes (one pair at the top power), the default embedding's
+    sub 25; n 60 makes the atomics collide. The last case has 4004 (walk,
+    power) items, more than the persistent grid holds (a few blocks an SM)
+    and no multiple of it, so blocks take unequal numbers of items."""
+    x = _walklets_inputs(dev, n, power, sub, b, length, k, seed=power * 7 + sub)
     _walklets_against_plain(dev, x, power, mode)
 
 
@@ -970,7 +985,8 @@ def _sketch_graph(kind):
 @pytest.mark.parametrize("weighted", [False, True])
 def test_min_plus_kernel_matches_plain(dev, kind, d, weighted):
     """K15a's distances and change flags equal its plain version's exactly,
-    launch by launch and after 32 relaxations."""
+    launch by launch; the early-stopped `multi_source_distances` equals 32
+    plain relaxations after the first unchanged relaxation + 1 launches."""
     g = _sketch_graph(kind)
     n = g.number_of_nodes
     sets = [np.arange(j, n, 997) for j in range(d)]
@@ -983,11 +999,39 @@ def test_min_plus_kernel_matches_plain(dev, kind, d, weighted):
     torch.cuda.synchronize()
     assert _build.launch_counts()["min_plus_step"] == before + 1
     assert torch.equal(got.cpu(), want) and int(flag) == int(want_flag) == 1
+    want, want_changes = init.cpu(), torch.zeros(32, dtype=torch.int32)
+    for i in range(32):
+        want = min_plus_step_plain(tg_cpu, want, weighted, want_changes[i:i + 1])
+    settle = int(want_changes.sum())
+    assert want_changes.tolist() == [1] * settle + [0] * (32 - settle) and settle < 32
     changes = torch.zeros(32, dtype=torch.int32, device=dev)
-    want_changes = torch.zeros(32, dtype=torch.int32)
+    before = _build.launch_counts()["min_plus_step"]
     got = multi_source_distances(tg, init, 32, weighted, changes)
-    want = multi_source_distances(tg_cpu, init.cpu(), 32, weighted, want_changes)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["min_plus_step"] == before + settle + 1
     assert torch.equal(got.cpu(), want) and torch.equal(changes.cpu(), want_changes)
+
+
+@pytest.mark.parametrize("kind", ["er", "components", "directed"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_min_plus_kernel_flags_exactly_the_relaxations_that_move(dev, kind, weighted):
+    """Relaxation by relaxation until one moves nothing, K15a's flag is 1
+    exactly when its output differs from its input; and a launch on
+    settled distances leaves it 0 and its input as it was."""
+    g = _sketch_graph(kind)
+    n = g.number_of_nodes
+    dist, tg = anchor_init_from_sets(n, [np.arange(j, n, 501) for j in range(12)], dev), g.device(dev)
+    for _ in range(64):
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = min_plus_step(tg, dist, weighted, flag)
+        torch.cuda.synchronize()
+        assert int(flag) == int(bool((out != dist).any()))
+        if not int(flag):
+            assert torch.equal(out, dist)
+            break
+        dist = out
+    else:
+        raise AssertionError("the distances did not settle in 64 relaxations")
 
 
 def test_min_plus_kernel_at_an_odd_storage_offset(dev):

@@ -94,6 +94,93 @@ def test_multi_source_distances_match_reference(graphs, weighted, depth):
         prev = nxt
 
 
+def _counted_relaxations(monkeypatch):
+    """A list that gains one entry per relaxation `multi_source_distances`
+    runs (a call of the K15a wrapper)."""
+    calls, step = [], bfs.min_plus_step
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return step(*args, **kwargs)
+    monkeypatch.setattr(bfs, "min_plus_step", counted)
+    return calls
+
+
+def _settling(g, init, weighted):
+    """Index of the first relaxation that moves no distance."""
+    dist, i = init, 0
+    while True:
+        nxt = bfs.min_plus_step_plain(g.device("cpu"), dist, weighted)
+        if torch.equal(nxt, dist):
+            return i
+        dist, i = nxt, i + 1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_multi_source_distances_stop_at_the_first_unchanged_relaxation(
+        graphs, weighted, monkeypatch):
+    """The early-stopped distances equal the reference's full scan of 32
+    bodies exactly, after the first unchanged relaxation + 1 relaxations,
+    with the flags of the relaxations after the stop left 0."""
+    g, rg = graphs
+    if weighted and g.weights is None:
+        g, rg = _pair("weighted")
+    n = g.number_of_nodes
+    init = bfs.anchor_init_from_sets(n, ANCHOR_SETS)
+    settle = _settling(g, init, weighted)
+    assert settle < 32
+    calls = _counted_relaxations(monkeypatch)
+    changes = torch.zeros(32, dtype=torch.int32)
+    got = bfs.multi_source_distances(g.device("cpu"), init, 32, weighted, changes)
+    want = ref_bfs.multi_source_distances(
+        rg.device(with_weights=weighted), ref_bfs.anchor_init_from_sets(n, ANCHOR_SETS),
+        max_depth=32, weighted=weighted)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(calls) == settle + 1
+    assert changes.tolist() == [1] * settle + [0] * (32 - settle)
+
+
+def test_multi_source_distances_below_the_settling_depth(monkeypatch):
+    """A path of 12 nodes at depth 2 runs exactly 2 relaxations and matches
+    the reference's truncated scan; SPINE maps what 2 did not reach to
+    depth + 1, as the reference does."""
+    src, dst = np.arange(11), np.arange(1, 12)
+    g = Graph.from_edge_arrays(src, dst, n_nodes=12)
+    rg = RefGraph.from_edge_arrays(src, dst, n_nodes=12)
+    sets = [np.array([0]), np.array([5]), np.array([11])]
+    calls = _counted_relaxations(monkeypatch)
+    got = bfs.multi_source_distances(g.device("cpu"), bfs.anchor_init_from_sets(12, sets), 2)
+    want = ref_bfs.multi_source_distances(
+        rg.device(with_weights=False), ref_bfs.anchor_init_from_sets(12, sets), max_depth=2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(calls) == 2 and bool((got == bfs.UNREACHED).any())
+    port = spine.DegreeSPINE(device="cpu", embedding_size=3, maximum_depth=2, dtype=None)
+    ref = ref_spine.DegreeSPINE(embedding_size=3, maximum_depth=2, dtype=None)
+    emb = port.fit_transform(g).node_embeddings[0]
+    np.testing.assert_array_equal(emb, np.asarray(ref.fit_transform(rg).node_embeddings[0]))
+    assert (emb == 3.0).any() and emb.max() == 3.0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_multi_source_distances_keep_a_disconnected_graphs_unreached_entries(
+        weighted, monkeypatch):
+    """Anchors in one component of a graph with another component and
+    isolated nodes: the early stop leaves every entry outside it UNREACHED,
+    as the reference's full scan does."""
+    g, rg = _pair("components")
+    n = g.number_of_nodes
+    sets = [np.array([3]), np.array([10, 40]), np.array([], int)]
+    init = bfs.anchor_init_from_sets(n, sets)
+    calls = _counted_relaxations(monkeypatch)
+    got = bfs.multi_source_distances(g.device("cpu"), init, 32, weighted)
+    want = ref_bfs.multi_source_distances(
+        rg.device(with_weights=weighted), ref_bfs.anchor_init_from_sets(n, sets),
+        max_depth=32, weighted=weighted)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(calls) == _settling(g, init, weighted) + 1 < 32
+    assert bool((got[80:] == bfs.UNREACHED).all()) and bool((got[:, 2] == bfs.UNREACHED).all())
+
+
 @pytest.mark.parametrize("window", [1, 2, 3])
 def test_window_cooccurrence_counts_match_reference(graphs, window):
     g, rg = graphs
