@@ -167,9 +167,10 @@ the exit code is not 0:
      exactly (K15b); K16a's singletons exactly at precisions 4, 8 and 12,
      its three hops exactly at 4 and 8 and, at 12, each hop from the one
      before on a tenth of the rows; K16b at 2^20 pairs (half arcs, half
-     uniform pairs) for H 1-3 at each precision within
-     `tests/hll_checks.py`'s tolerance; each with its time, bound and
-     library call (`torch.sparse.mm` for WINE's hop);
+     uniform pairs) for H 1-3 at each precision, and its general route at
+     H 6 (two copies of the three hops of the first 131,072 nodes), within
+     `tests/hll_checks.py`'s tolerance, each case timed; each with its time,
+     bound and library call (`torch.sparse.mm` for WINE's hop);
  22. S8 through `embed_graph` on the slice graph: Degree-based and
      Score-based SPINE (D 100, depth 32; seeded scores), WeightedSPINE on
      the weighted twin, Degree-based WINE (D 100, window 2), RUBICONE and
@@ -180,6 +181,8 @@ the exit code is not 0:
      static feature matrix for 1 (K5), each scoring the 20M arcs; seconds,
      peak memory, and Degree-based SPINE's and WeightedSPINE's K15a
      launches, which must be the relaxations that moved in phase 21 + 1;
+     K16b's share of 10 steady steps of the GCN with HyperSketching
+     features, on CUDA events;
  23. S8 quality: the reference's edge-GCN gate with Degree-based SPINE
      features (seed 0 through `edge_prediction_evaluation`, seeds 1-7 by
      `_evaluate`): mean test AUPRC at least the reference's less 0.03, and
@@ -201,11 +204,16 @@ the exit code is not 0:
      one round and 10 rounds on the slice graph at D 100, decay 0.01 (Exp(1)
      races and noise), 3 rounds at D 1 and D 30, 10 at D 30 on phase 21's
      graph of two components with isolated nodes and on its directed graph,
-     and exact ties (races and noise on small grids, decay 0.5); RandNE's
+     3 rounds at D 100 on the slice graph with 256 planted hubs of
+     4,096-65,536 arcs, and exact ties (races and noise on small grids,
+     decay 0.5); its candidate pass exactly against `torch.addcmul` at D
+     100, 30 and 1, timed beside it; the round's two launches timed on
+     CUDA events; RandNE's
      two K7 hops (row scale 1 / max(deg, 1)) at D 100 against
      csr_spmm_plain (rtol 1e-5 / atol 1e-7), with `torch.sparse.mm`'s time;
  26. S9 through `embed_graph`: NodeSketch (D 100, 10 rounds, decay 0.01;
-     K18 launched 10 times) and RandNE (D 100, alphas (0.5, 0.5); K7 twice)
+     K18's two launches 10 times each) and RandNE (D 100, alphas (0.5,
+     0.5); K7 twice)
      on the slice graph; NetMF (D 100, order 2), GraRep (D 100, order 5),
      BoostNE (embedding_size 102), MNMF (D 128, 200 iterations), NMFADMM (D
      100, 100 iterations) and NNSED (D 32) on erdos_renyi(32,768 nodes,
@@ -213,7 +221,8 @@ the exit code is not 0:
      of the port's kernels; seconds and peak device memory of each; then
      each dense row on the card against the CPU from the same state for
      random states 0-2 on a 2,000-node graph (MNMF at 60 iterations), with
-     the tolerances of tests/test_torch_factorization.py;
+     the tolerances of tests/test_torch_factorization.py; K18's share of
+     3 NodeSketch fits on CUDA events;
  27. S9 quality: RandNE and NetMF features on the gate fixture's connected
      holdout, embedding seeds 0-3, a Perceptron on Hadamard alone: each mean
      test AUROC at least the reference's less 0.03.
@@ -352,6 +361,9 @@ GATE_REFERENCE_GLOVE_AUROC = 0.7017104723535372
 S8_DIM, S8_DEPTH, S8_WINDOW = 100, 32, 2
 HLL_HOPS, HLL_PRECISION, HLL_BITS = 3, 8, 6
 K16B_PAIRS = 1 << 20
+# K16b's general route (H > 3) is held at H 6: two copies of the three hops
+# of the first K16B_GENERAL_NODES nodes, the pairs' ids taken modulo it.
+K16B_GENERAL_NODES = 1 << 17
 # The reference's edge-GCN gate with its own node features, Degree-based
 # SPINE: the reference's mean test AUPRC over GATE_SEEDS, measured with
 # embiggen_tpu on the CPU (tests/test_torch_spine_gate.py says how). The
@@ -686,7 +698,8 @@ KERNEL_NAMES = {
     "walklets_update": "walklets_", "cooccurrences": "cooc_",
     "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
-    "edge_sketch_features": "edge_features_kernel", "sketch_race_step": "sketch_race_kernel",
+    "edge_sketch_features": "edge_features_", "sketch_candidates": "sketch_candidates_kernel",
+    "sketch_race_step": "sketch_race_kernel",
 }
 
 
@@ -2775,9 +2788,10 @@ def k16_checks(graph, dev):
     """K16a against its plain version exactly on the slice graph: the
     singletons and the three hops at precisions 4, 8 and 12 (bits 6),
     whole; K16b at K16B_PAIRS pairs (half arcs, half uniform pairs) for H
-    1-3 at each precision, within tests/hll_checks.py's tolerance. Returns
-    their kernels entries, timed at HyperSketching's defaults, the errors
-    by case, and the seconds of the plain hops at each precision."""
+    1-3 at each precision, and its general route at H 6 (K16B_GENERAL_NODES),
+    within tests/hll_checks.py's tolerance, each timed. Returns their
+    kernels entries, timed at HyperSketching's defaults, the errors by case,
+    and the seconds of the plain hops at each precision."""
     from embiggen_tpu_torch.ops.hll import (
         edge_sketch_features, edge_sketch_features_plain, khop_sketches, khop_sketches_plain,
         singleton_registers, singleton_registers_plain,
@@ -2792,7 +2806,18 @@ def k16_checks(graph, dev):
     dst = torch.from_numpy(np.concatenate([graph.col_idx[arcs], rng.integers(
         0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
     distinct = int(torch.unique(torch.cat([src, dst])).numel())
-    errs, entries, plain_s = {}, {}, {}
+    errs, entries, plain_s, k16b_ms = {}, {}, {}, {}
+
+    def hold(name, skh, src, dst, p):
+        got = edge_sketch_features(skh, src, dst, p)
+        want = edge_sketch_features_plain(skh, src, dst, p)
+        worst, ties = checks.feature_errors(skh, src, dst, p, got, want)
+        if not worst <= 1.0 or ties > checks.MAX_TIE_SHARE * len(src):
+            raise AssertionError(f"K16b {name}: error {worst} of its tolerance, "
+                                 f"{ties} near ties")
+        errs[f"features {name} (share of tolerance; ties {ties})"] = worst
+        k16b_ms[name] = time_ms(lambda: edge_sketch_features(skh, src, dst, p), 10)
+
     for p in (HLL_PRECISION, 4, 12):
         base = singleton_registers(N_NODES, p, HLL_BITS, 42, dev)
         errs[f"registers p {p}"] = exact_err(
@@ -2807,15 +2832,11 @@ def k16_checks(graph, dev):
         errs[f"hops p {p}"] = exact_err(f"K16a hops p {p}", sk, want)
         del want
         for h in (1, 2, 3):
-            skh = sk if h == HLL_HOPS else sk[:, :h].contiguous()
-            got = edge_sketch_features(skh, src, dst, p)
-            want = edge_sketch_features_plain(skh, src, dst, p)
-            worst, ties = checks.feature_errors(skh, src, dst, p, got, want)
-            if not worst <= 1.0 or ties > checks.MAX_TIE_SHARE * K16B_PAIRS:
-                raise AssertionError(f"K16b p {p} H {h}: error {worst} of its tolerance, "
-                                     f"{ties} near ties")
-            errs[f"features p {p} H {h} (share of tolerance; ties {ties})"] = worst
-            del got, want, skh
+            hold(f"p {p} H {h}", sk if h == HLL_HOPS else sk[:, :h].contiguous(), src, dst, p)
+        few = sk[:K16B_GENERAL_NODES]
+        hold(f"p {p} H 6 (general route)", torch.cat([few, few], 1).contiguous(),
+             src % K16B_GENERAL_NODES, dst % K16B_GENERAL_NODES, p)
+        del few
         if p == HLL_PRECISION:
             m = 1 << p
             n_feat = HLL_HOPS ** 2 + 2 * HLL_HOPS
@@ -2841,7 +2862,7 @@ def k16_checks(graph, dev):
                 max_abs_err=None,   # set below, over every precision
                 max_err_unit="share of tests/hll_checks.py's tolerance",
                 distinct_nodes=distinct,
-                ms=time_ms(lambda: edge_sketch_features(sk, src, dst, p), 20),
+                ms=k16b_ms[f"p {p} H {HLL_HOPS}"],
                 plain_ms=time_ms(lambda: edge_sketch_features_plain(sk, src, dst, p), 3),
                 library_ms=None,
                 # the registers of each distinct node the pairs name, the
@@ -2853,6 +2874,7 @@ def k16_checks(graph, dev):
         torch.cuda.empty_cache()
     entries["edge_sketch_features"]["max_abs_err"] = max(
         v for k, v in errs.items() if k.startswith("features"))
+    entries["edge_sketch_features"]["ms_by_case"] = k16b_ms
     return entries, errs, plain_s
 
 
@@ -3007,12 +3029,18 @@ def k18_checks(graph, dev):
     """K18 against its plain version, exactly: one round and S9_ROUNDS on the
     slice graph at D 100 (Exp(1) races and noise, sketch ids arange(N)), 3
     rounds at D 1 and D 30 (not a multiple of 4), S9_ROUNDS at D 30 on
-    s8_graphs' graphs (two components with isolated nodes; directed), and
-    exact ties (races on a grid of four values, noise on a grid of two, at
-    decay 0.5) on the slice graph. Returns its kernels entry, timed at the
-    slice shape, and the errors by case."""
+    s8_graphs' graphs (two components with isolated nodes; directed), 3
+    rounds at D 100 on the slice graph with N_HUBS planted hubs (rows of
+    4,096-65,536 arcs), and exact ties (races on a grid of four values,
+    noise on a grid of two, at decay 0.5, so many candidates are +0.0) on
+    the slice graph; and its candidate pass against its plain version,
+    exactly, at D 100, 30 and 1. Returns the kernels entries of the round
+    and of the candidate pass, timed at the slice shape, and the errors by
+    case."""
+    from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.nodesketch import (
-        inverse_decay, sketch_race, sketch_race_step, sketch_race_step_plain,
+        candidate_pitch, inverse_decay, sketch_candidates, sketch_candidates_plain, sketch_race,
+        sketch_race_step, sketch_race_step_plain,
     )
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3041,6 +3069,10 @@ def k18_checks(graph, dev):
     tg = graph.device(dev)
     race, sketch = exp(N_NODES, S9_DIM), ids(N_NODES, S9_DIM)
     noises = [exp(N_NODES, S9_DIM) for _ in range(S9_ROUNDS)]
+    for d in (S9_DIM, 30, 1):
+        r, e = (race, noises[0]) if d == S9_DIM else (exp(N_NODES, d), exp(N_NODES, d))
+        errs[f"candidates D {d}"] = exact_err(f"K18 candidates D {d}", sketch_candidates(
+            r, e, inv), sketch_candidates_plain(r, e, inv))
     check(f"D {S9_DIM} one round", tg, race, sketch, noises[:1], inv)
     check(f"D {S9_DIM} {S9_ROUNDS} rounds", tg, race, sketch, noises, inv)
     for d in (1, 30):
@@ -3050,25 +3082,56 @@ def k18_checks(graph, dev):
         n = g.number_of_nodes
         check(name, g.device(dev), exp(n, 30), ids(n, 30),
               [exp(n, 30) for _ in range(S9_ROUNDS)], inv)
+    hubs = hub_graph(graph)
+    n = hubs.number_of_nodes
+    check(f"planted hubs D {S9_DIM}", hubs.device(dev), exp(n, S9_DIM), ids(n, S9_DIM),
+          [exp(n, S9_DIM) for _ in range(3)], inv)
+    del hubs
     check("exact ties", tg, grid(N_NODES, S9_DIM, [0.0, 0.25, 0.5, 1.0]), sketch,
           [grid(N_NODES, S9_DIM, [0.0, 0.5]) for _ in range(3)], inverse_decay(0.5))
     out = (torch.empty_like(race), torch.empty_like(sketch))
+    ws = torch.empty((N_NODES, candidate_pitch(S9_DIM)), device=dev)
     n, d, e = N_NODES, S9_DIM, tg.n_arcs
     heads = int(torch.unique(tg.col_idx).numel())
-    entry = dict(
-        source="embiggen_tpu_torch/csrc/nodesketch.cu",
-        replaces="embiggen_tpu/models/embedders/factorization.py:415",
-        max_abs_err=max(errs.values()),
-        ms=time_ms(lambda: sketch_race_step(tg, race, sketch, noises[0], inv, out), 10),
-        plain_ms=time_ms(lambda: sketch_race_step_plain(tg, race, sketch, noises[0], inv), 2),
-        library_ms=None,
-        distinct_heads=heads,
-        # every row's race and sketch, the noise of each distinct arc head,
-        # the new race and sketch, the CSR; an fma (2) and two compares per
-        # gathered element.
-        **bound((8 * n + 4 * heads) * d + 8 * n * d + 4 * (n + 1 + e), 4 * e * d))
-    del race, sketch, noises, out
-    return entry, errs
+
+    def round_():
+        sketch_race_step(tg, race, sketch, noises[0], inv, out, ws)
+    round_()
+    torch.cuda.synchronize()
+    with _build.timed_launches() as events:
+        for _ in range(10):
+            round_()
+    torch.cuda.synchronize()
+    launch_ms = {k: sum(s.elapsed_time(t) for s, t in v) / 10 for k, v in events.items()}
+    inv_t = torch.tensor(inv, device=dev)
+    entries = {
+        "sketch_candidates": dict(
+            source="embiggen_tpu_torch/csrc/nodesketch.cu",
+            replaces="embiggen_tpu/models/embedders/factorization.py:421",
+            max_abs_err=max(v for k, v in errs.items() if k.startswith("candidates")),
+            ms=time_ms(lambda: sketch_candidates(race, noises[0], inv, ws), 20),
+            plain_ms=time_ms(lambda: sketch_candidates_plain(race, noises[0], inv), 20),
+            library="torch.addcmul",
+            library_ms=time_ms(lambda: torch.addcmul(noises[0], race, inv_t), 20),
+            # race and noise read, the candidates written; an fma (2) each.
+            **bound(12 * n * d, 2 * n * d)),
+        "sketch_race_step": dict(
+            source="embiggen_tpu_torch/csrc/nodesketch.cu",
+            replaces="embiggen_tpu/models/embedders/factorization.py:415",
+            max_abs_err=max(v for k, v in errs.items() if not k.startswith("candidates")),
+            ms=time_ms(round_, 10),
+            launch_ms=launch_ms,
+            plain_ms=time_ms(lambda: sketch_race_step_plain(tg, race, sketch, noises[0], inv),
+                             2),
+            library_ms=None,
+            distinct_heads=heads,
+            # every row's race and sketch, the noise of each distinct arc
+            # head, the new race and sketch, the CSR; an fma (2) and two
+            # compares per gathered element.
+            **bound((8 * n + 4 * heads) * d + 8 * n * d + 4 * (n + 1 + e), 4 * e * d)),
+    }
+    del race, sketch, noises, out, ws
+    return entries, errs
 
 
 def randne_hop_checks(graph, dev):
@@ -3228,6 +3291,27 @@ def s9_quality_on_card(card, dev):
     return auroc
 
 
+def launch_share(fn, counters, reps):
+    """{ms: one call of `fn` on CUDA events, kernel_ms: the port's launches
+    of `counters` in it, each on its own event pair, share: their ratio},
+    means over `reps` calls after one warm-up."""
+    from embiggen_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _build.timed_launches() as events:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    total = start.elapsed_time(end) / reps
+    part = sum(s.elapsed_time(e) for c in counters for s, e in events.get(c, [])) / reps
+    return dict(ms=total, kernel_ms=part, share=part / total)
+
+
 def nodesketch_fit(graph, dev):
     """One NodeSketch fit at the S9 defaults (draws, export, S9_ROUNDS K18
     launches), as a closure."""
@@ -3294,9 +3378,10 @@ S8_SKETCH_UNUSED = ("min_plus_step", "spmm")
 S8_GCN_KERNELS = S3_KERNELS + S8_SKETCH_KERNELS
 S8_GCN_UNUSED = ("csr_edge_ids", "min_plus_step")
 S8_GCN_STATIC_KERNELS = S3_KERNELS + ("csr_edge_ids",)
-# S9: NodeSketch races with K18 and RandNE hops with K7, each launching
+# S9: NodeSketch races with K18 (its candidate pass, then its race launch,
+# each round) and RandNE hops with K7, each launching
 # nothing else; the dense rows launch none of the port's kernels.
-S9_SKETCH_KERNELS = ("sketch_race_step",)
+S9_SKETCH_KERNELS = ("sketch_candidates", "sketch_race_step")
 S9_RANDNE_KERNELS = ("spmm",)
 
 
@@ -3900,12 +3985,13 @@ def main() -> None:
           f"its tolerance): {k16_errs} | K16a's {HLL_HOPS} plain hops took "
           + ", ".join(f"{t:.2f} s at precision {p}" for p, t in k16_plain_s.items())
           + f" | K16b's pairs name {k16['edge_sketch_features']['distinct_nodes']} distinct "
-          "nodes", flush=True)
+          f"nodes | K16b ms by case: {k16['edge_sketch_features']['ms_by_case']}", flush=True)
 
     # ------------------------------------------------------------ 22. S8
     t_phase = time.perf_counter()
     s8, s8_gcn = s8_runs(graph, weighted_graph, dev)
     gcn_hs = s8_gcn["GCN + HyperSketching"][0]
+    k16b_share = launch_share(gcn_step(gcn_hs, graph), ("edge_sketch_features",), 10)
     k15a_fit_launches = {name: s8[name][1]["min_plus_step"]
                       for name in ("Degree-based SPINE", "WeightedSPINE")}
     for (name, got), twin in zip(k15a_fit_launches.items(), ("slice", "weighted twin")):
@@ -3925,7 +4011,9 @@ def main() -> None:
             f"{[s / m._steps_per_epoch * 1e3 for s in m._epoch_seconds]}, losses "
             f"{m._history}, predict_proba on {graph.number_of_directed_edges} arcs "
             f"{pred_s:.2f} s, peak {peak} bytes, launches {got}"
-            for label, (m, got, fit_s, pred_s, peak) in s8_gcn.items()), flush=True)
+            for label, (m, got, fit_s, pred_s, peak) in s8_gcn.items())
+        + f" | K16b in 10 steady steps of the GCN with HyperSketching features (ms a step on "
+        f"CUDA events): {k16b_share}", flush=True)
 
     # --------------------------------------------------- 23. S8 quality
     t_phase = time.perf_counter()
@@ -3965,31 +4053,35 @@ def main() -> None:
 
     # ------------------------------------------ 25. K18 and RandNE's K7 hops
     t_phase = time.perf_counter()
-    k18, k18_errs = k18_checks(graph, dev)
-    kernels["sketch_race_step"] = k18
+    k18_entries, k18_errs = k18_checks(graph, dev)
+    kernels.update(k18_entries)
+    k18 = k18_entries["sketch_race_step"]
     torch.cuda.empty_cache()
     kernels["spmm"]["randne_hop"] = randne_hop = randne_hop_checks(graph, dev)
     torch.cuda.empty_cache()
     print(f"phase 25 K18 and RandNE's K7 hops vs plain on {card} "
           f"({time.perf_counter() - t_phase:.1f} s; ms per call at D {S9_DIM} on the slice "
-          "graph: K18 one round, K7 one hop): " + "; ".join(
+          "graph: K18's candidate pass, K18 one round (both launches), K7 one hop): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
               f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
               + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None else "")
-              for k, v in (("sketch_race_step", k18), ("RandNE hop", randne_hop)))
+              for k, v in (*k18_entries.items(), ("RandNE hop", randne_hop)))
+          + f" | K18's round by launch (ms, CUDA events): {k18['launch_ms']}"
           + f" | K18 exact by case: {k18_errs} | K18's arcs name {k18['distinct_heads']} "
           f"distinct heads", flush=True)
 
     # ------------------------------------------------------------ 26. S9
     t_phase = time.perf_counter()
     s9 = s9_runs(graph, dev)
+    k18_share = launch_share(nodesketch_fit(graph, dev), S9_SKETCH_KERNELS, 3)
     s9_shares = s9_dense_checks(dev)
     print(f"phase 26 S9 on {card} ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(
         f"{name}: {secs:.2f} s, peak {peak} bytes (its own {own}), launches {got}"
         for name, (got, secs, peak, own) in s9.items())
         + f" | dense rows on the card against the CPU, random states 0-{S9_CHECK_RUNS - 1} "
         f"on {S9_CHECK_NODES} nodes, largest error as a share of the tests' tolerance: "
-        f"{s9_shares}", flush=True)
+        f"{s9_shares} | K18's two launches in 3 NodeSketch fits (ms a fit on CUDA events): "
+        f"{k18_share}", flush=True)
 
     # --------------------------------------------------- 27. S9 quality
     t_phase = time.perf_counter()
@@ -4016,7 +4108,7 @@ def main() -> None:
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
                 **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},
-                "sketch_race_step": s9["NodeSketch"][0]["sketch_race_step"]}
+                **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS}}
     randne_hop["launches"] = s9["RandNE"][0]["spmm"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [

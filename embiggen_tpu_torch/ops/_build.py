@@ -82,7 +82,8 @@ _SIGNATURES = {
     "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),
     "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P), _I32),
     "ebt_hll_edge_features": ((_P, _I32, _I32, _P, _P, _I64, _F32, _P, _P), _I32),
-    "ebt_sketch_race_step": ((_P,) * 7 + (_I64, _I32, _F32, _I32, _P), _I32),
+    "ebt_sketch_candidates": ((_P, _P, _P, _I64, _I32, _I32, _F32, _I32, _P), _I32),
+    "ebt_sketch_race_step": ((_P, _P, _P, _I32) + (_P,) * 4 + (_I64, _I32, _I32, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -96,7 +97,7 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
      "cooccurrences", "glove_step", "min_plus_step", "hll_registers",
-     "khop_sketches", "edge_sketch_features", "sketch_race_step"), 0,
+     "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

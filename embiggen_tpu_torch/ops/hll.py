@@ -12,7 +12,8 @@
 - `hll_cardinality`: the estimate over the last axis (plain torch).
 - `edge_sketch_features`: [B, H^2 + 2H] overlaps and differences of each
   (src, dst) pair's balls; kernel K16b, which never forms the [B, H, H, M]
-  unions of the reference.
+  unions of the reference: a group of lanes a pair, every set's partial
+  sums in one pass over the words for H <= 3, a general route for larger H.
 
 Each has its plain PyTorch version, which the wrappers take on CPU tensors.
 The plain hash works in int64 with a mask after each multiply, since
@@ -196,6 +197,8 @@ def edge_sketch_features(sketches: torch.Tensor, src: torch.Tensor, dst: torch.T
                          f"means {1 << precision}.")
     b = src.shape[0]
     _build.check(sketches, "sketches", torch.uint8, None, dev)
+    if sketches.data_ptr() % 16:
+        raise ValueError("sketches must be 16-byte aligned for K16b's 16-byte loads.")
     _build.check(src, "src", torch.int32, (b,), dev)
     _build.check(dst, "dst", torch.int32, (b,), dev)
     out = torch.empty((b, h * h + 2 * h), dtype=torch.float32, device=dev)

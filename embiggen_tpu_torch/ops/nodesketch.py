@@ -10,12 +10,14 @@ One round, over the arcs (r -> c) of a TorchGraph, with race and noise
   sketch[c] among the arcs whose candidate equals it;
 - a row takes min(race, best), and win as its sketch where best < race.
 
-`sketch_race_step` is kernel K18 (`csrc/nodesketch.cu`) on CUDA tensors,
-one pass that keeps the pair (best, win) in registers, and on CPU tensors
-its plain version: two chunked passes over the arcs, an `index_reduce_`
-"amin" of the candidates (formed by `torch.addcmul`, which fuses them as
-the kernel's `__fmaf_rn` does), then one of the tied sketch ids. Both
-equal the reference's rounds exactly.
+`sketch_race_step` is kernel K18 (`csrc/nodesketch.cu`) on CUDA tensors:
+`sketch_candidates` forms every node's candidates once into a workspace,
+then one pass over the arcs gathers them and keeps (best, the head that gave
+it) in registers, reading sketch ids only for ties and for the columns the
+round lowers. On CPU tensors it is the plain version: two chunked passes
+over the arcs, an `index_reduce_` "amin" of the candidates (formed by
+`torch.addcmul`, which fuses them as the kernel's `__fmaf_rn` does), then
+one of the tied sketch ids. Both equal the reference's rounds exactly.
 """
 from __future__ import annotations
 
@@ -38,6 +40,44 @@ def inverse_decay(decay: float) -> float:
     """float32(1) / float32(decay), the factor of the reference's fused
     candidate."""
     return float(np.float32(1.0) / np.float32(decay))
+
+
+def candidate_pitch(d: int) -> int:
+    """Row pitch, in floats, of the candidate workspace: D rounded up to
+    whole 32-byte sectors."""
+    return -(-d // 8) * 8
+
+
+def sketch_candidates_plain(race: torch.Tensor, noise: torch.Tensor,
+                            inv_decay: float) -> torch.Tensor:
+    """Plain PyTorch version of K18's candidate pass: the fused
+    fma(race, inv_decay, noise) of every (node, column)."""
+    return torch.addcmul(noise, race, torch.tensor(inv_decay, dtype=torch.float32,
+                                                   device=race.device))
+
+
+def sketch_candidates(race: torch.Tensor, noise: torch.Tensor, inv_decay: float,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N, D] candidates fma(race, inv_decay, noise). On CUDA tensors K18's
+    candidate launch writes them into `out` (an [N, candidate_pitch(D)]
+    workspace, allocated when None) and returns its first D columns; the
+    plain version on CPU tensors."""
+    if not _build.is_cuda(race):
+        return sketch_candidates_plain(race, noise, inv_decay)
+    dev = race.device
+    n, d = race.shape
+    pitch = candidate_pitch(d)
+    _build.check(race, "race", torch.float32, None, dev)
+    _build.check(noise, "noise", torch.float32, (n, d), dev)
+    if out is None:
+        out = torch.empty((n, pitch), dtype=torch.float32, device=dev)
+    _build.check(out, "candidates", torch.float32, (n, pitch), dev)
+    if out.data_ptr() % 16:
+        raise ValueError("the candidate workspace must be 16-byte aligned.")
+    vec4 = d % 4 == 0 and race.data_ptr() % 16 == 0 and noise.data_ptr() % 16 == 0
+    _build.launch("sketch_candidates", "ebt_sketch_candidates", dev, race.data_ptr(),
+                  noise.data_ptr(), out.data_ptr(), n, d, pitch, inv_decay, int(vec4))
+    return out[:, :d]
 
 
 def _candidates(tg: TorchGraph, race, noise, inv, lo, hi):
@@ -72,10 +112,13 @@ def sketch_race_step_plain(
 def sketch_race_step(
     tg: TorchGraph, race: torch.Tensor, sketch: torch.Tensor, noise: torch.Tensor,
     inv_decay: float, out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    workspace: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(race, sketch) after one round of the race along the arcs of `tg`.
-    Kernel K18 on CUDA tensors (into `out`, a (race, sketch) pair, when
-    given), the plain version on CPU tensors."""
+    Kernel K18 on CUDA tensors, its two launches (into `out`, a (race,
+    sketch) pair, and the candidates into `workspace`, an [N,
+    candidate_pitch(D)] float32 tensor, when given), the plain version on
+    CPU tensors."""
     if not _build.is_cuda(race):
         return sketch_race_step_plain(tg, race, sketch, noise, inv_decay)
     dev = race.device
@@ -91,12 +134,12 @@ def sketch_race_step(
         out = (torch.empty_like(race), torch.empty_like(sketch))
     _build.check(out[0], "race out", torch.float32, (n, d), dev)
     _build.check(out[1], "sketch out", torch.int32, (n, d), dev)
-    vec4 = d % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (race, sketch, noise, *out))
+    cand = sketch_candidates(race, noise, inv_decay, workspace)
+    vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (race, sketch, *out))
     _build.launch(
         "sketch_race_step", "ebt_sketch_race_step", dev, tg.row_ptr.data_ptr(),
-        tg.col_idx.data_ptr(), race.data_ptr(), sketch.data_ptr(), noise.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), n, d, inv_decay, int(vec4),
+        tg.col_idx.data_ptr(), cand.data_ptr(), candidate_pitch(d), race.data_ptr(),
+        sketch.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), n, d, int(vec4),
     )
     return out
 
@@ -107,10 +150,14 @@ def sketch_race(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(race, sketch) after one round per noise matrix of `noises`, taken
     one at a time. On the card, two pairs of buffers take turns as each
-    launch's output."""
+    round's output, beside one candidate workspace for the whole race."""
     race, sketch = race.contiguous(), sketch.contiguous()
-    bufs = ([(torch.empty_like(race), torch.empty_like(sketch)) for _ in range(2)]
-            if _build.is_cuda(race) else [None, None])
+    bufs, workspace = [None, None], None
+    if _build.is_cuda(race):
+        bufs = [(torch.empty_like(race), torch.empty_like(sketch)) for _ in range(2)]
+        workspace = torch.empty((race.shape[0], candidate_pitch(race.shape[1])),
+                                dtype=torch.float32, device=race.device)
     for i, noise in enumerate(noises):
-        race, sketch = sketch_race_step(tg, race, sketch, noise, inv_decay, bufs[i % 2])
+        race, sketch = sketch_race_step(tg, race, sketch, noise, inv_decay, bufs[i % 2],
+                                        workspace)
     return race, sketch

@@ -1,7 +1,8 @@
 """Times of the kernels redesigned for Hopper at the slice shapes, and of the
 steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
-    python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine]
+    python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
+                                                         k18 nodesketch k16b gcn_hll]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -41,7 +42,19 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   and a WeightedSPINE fit at their defaults (D 100, depth 32): seconds
   through `fit_transform`, K15a's launches and their summed time on CUDA
   events, best of 3 fits, and beside them the seconds of each part of
-  the fit, run alone.
+  the fit, run alone;
+- K18 at NodeSketch's D 100 and decay 0.01 (Exp(1) races and noise,
+  sketch ids arange(N)): one round's mean time over 10 calls of
+  `sketch_race_step` into preallocated outputs, on the slice graph, on
+  exact ties (races on a grid of four values, noise on a grid of two, at
+  decay 0.5) and on the slice graph with 256 planted hubs; and a
+  NodeSketch fit at its defaults through `fit_transform`: seconds, K18's
+  launches and their summed time on CUDA events, best of 3;
+- K16b at 2^20 pairs (half arcs, half uniform pairs) over HyperSketching's
+  three hops: the mean time over 20 calls at precision 8, then 4 and 12;
+  and the S3 GCN step (batch 2^20, seeded node features of width 128) with
+  lazy HyperSketching features at its defaults: the mean step time over
+  20 steady steps on CUDA events and K16b's launch time in 10 of them.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -402,7 +415,121 @@ def spine_times(graph, dev) -> dict:
     return out
 
 
-PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine")
+NODESKETCH_DIM, NODESKETCH_DECAY = 100, 0.01
+K16B_PAIRS, HLL_HOPS, GCN_BATCH = 1 << 20, 3, 1 << 20
+
+
+def k18_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.nodesketch import inverse_decay, sketch_race_step
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def exp(n):
+        return torch.empty((n, NODESKETCH_DIM), device=dev).exponential_(generator=gen)
+
+    def grid(n, values):
+        v = torch.tensor(values, device=dev)
+        return v[torch.randint(0, len(values), (n, NODESKETCH_DIM), generator=gen, device=dev)]
+
+    out = {}
+    hubbed = planted_hubs(graph)
+    for name, g, draw, decay in (
+        ("slice", graph, exp, NODESKETCH_DECAY),
+        ("exact_ties", graph, None, 0.5),
+        ("planted_hubs", hubbed, exp, NODESKETCH_DECAY),
+    ):
+        n = g.number_of_nodes
+        tg = g.device(dev)
+        sketch = torch.arange(n, dtype=torch.int32, device=dev)[:, None].repeat(
+            1, NODESKETCH_DIM)
+        if draw is None:
+            race, noise = grid(n, [0.0, 0.25, 0.5, 1.0]), grid(n, [0.0, 0.5])
+        else:
+            race, noise = draw(n), draw(n)
+        bufs = (torch.empty_like(race), torch.empty_like(sketch))
+        inv = inverse_decay(decay)
+        out[name] = time_ms(lambda: sketch_race_step(tg, race, sketch, noise, inv, bufs), 10)
+        del tg, race, noise, sketch, bufs
+        torch.cuda.empty_cache()
+    return out
+
+
+def nodesketch_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.embedders import NodeSketch
+    from embiggen_tpu_torch.ops import _build
+
+    # A checkout from before K18's candidate pass counts one launch a round.
+    counters = [c for c in ("sketch_candidates", "sketch_race_step") if c in _build.LAUNCHES]
+    fits = []
+    for _ in range(3):
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        with _build.timed_launches() as events:
+            t0 = time.perf_counter()
+            NodeSketch(device=dev).fit_transform(graph)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        fits.append(dict(fit_s=secs, launches={c: counts[c] for c in counters},
+                         k18_ms=sum(s.elapsed_time(e) for c in counters
+                                    for s, e in events.get(c, []))))
+        torch.cuda.empty_cache()
+    return min(fits, key=lambda f: f["fit_s"])
+
+
+def sketch_pairs(graph, dev):
+    rng = np.random.default_rng(31)
+    arcs = rng.integers(0, graph.number_of_directed_edges, K16B_PAIRS // 2)
+    src = np.concatenate([graph.sources[arcs], rng.integers(0, N_NODES, K16B_PAIRS // 2)])
+    dst = np.concatenate([graph.col_idx[arcs], rng.integers(0, N_NODES, K16B_PAIRS // 2)])
+    return (torch.from_numpy(src.astype(np.int32)).to(dev),
+            torch.from_numpy(dst.astype(np.int32)).to(dev))
+
+
+def k16b_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.hll import edge_sketch_features, khop_sketches, singleton_registers
+
+    tg = graph.device(dev)
+    src, dst = sketch_pairs(graph, dev)
+    out = {}
+    for p in (8, 4, 12):
+        sk = khop_sketches(tg, singleton_registers(N_NODES, p, 6, 42, dev), HLL_HOPS)
+        out[f"precision_{p}"] = time_ms(lambda: edge_sketch_features(sk, src, dst, p), 20)
+        del sk
+        torch.cuda.empty_cache()
+    return out
+
+
+def gcn_hll_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.edge_features import HyperSketching
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.models.gcn.core import map_params, param_leaves
+
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    model = GCNEdgePrediction(epochs=1, batch_size=GCN_BATCH, dropout_rate=0.0,
+                              early_stopping_patience=10**6, random_state=0, device=dev,
+                              edge_feature_models=[HyperSketching(device=dev)])
+    model.fit(graph, node_features=feats)
+    params = map_params(lambda t: t.clone().requires_grad_(True), model._params)
+    optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
+    tg = graph.device(dev, with_sources=True)
+    gen = torch.Generator().manual_seed(1)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        model._loss(params, model._csr_kernels, tg, None, gen, None).backward()
+        optimizer.step()
+    for _ in range(3):
+        step()
+    out = dict(step_ms=time_ms(step, 20),
+               k16b_ms_per_step=launch_ms(step, 10)["edge_sketch_features"])
+    del model, params, optimizer, tg
+    torch.cuda.empty_cache()
+    return out
+
+
+PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
+         "gcn_hll")
 
 
 def main() -> None:
@@ -423,7 +550,8 @@ def main() -> None:
     _build.build()
     graph = erdos_renyi(N_NODES, N_EDGES, seed=0)
     timers = dict(k13a=k13a_times, k4=k4_times, line=line_times, k12=k12_times,
-                  walklets=walklets_times, k15a=k15a_times, spine=spine_times)
+                  walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
+                  nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

@@ -1065,11 +1065,12 @@ def test_khop_sketches_kernel_matches_plain(dev, kind, precision, hops):
     assert torch.equal(got.cpu(), khop_sketches_plain(g.device("cpu"), base.cpu(), hops))
 
 
-@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("precision", range(4, 13))
 @pytest.mark.parametrize("hops", [1, 2, 3, 6])
 def test_edge_sketch_features_kernel_matches_plain(dev, precision, hops):
     """K16b against its plain version within tests/hll_checks.py's
-    tolerance, on arcs and uniform pairs."""
+    tolerance, on arcs and uniform pairs, at every precision: H <= 3 on
+    the template route, H 6 on the general one."""
     g = _sketch_graph("er")
     sk = khop_sketches(g.device(dev), singleton_registers(3000, precision, 6, 0, dev), hops)
     rng = np.random.default_rng(hops)
@@ -1082,6 +1083,33 @@ def test_edge_sketch_features_kernel_matches_plain(dev, precision, hops):
                                       precision)
     worst, ties = feature_errors(sk, src, dst, precision, got.cpu().numpy(), want.numpy())
     assert worst <= 1.0 and ties <= MAX_TIE_SHARE * len(src), (worst, ties)
+
+
+@pytest.mark.parametrize("precision", [4, 5, 8, 12])
+@pytest.mark.parametrize("hops", [1, 3, 6])
+@pytest.mark.parametrize("n_pairs", [1, 3, 1001])
+def test_edge_sketch_features_kernel_on_few_pairs_and_self_pairs(dev, precision, hops, n_pairs):
+    """Pair counts that fill no warp's or block's pairs, every other pair
+    with src == dst: the features equal the plain version's within the
+    tolerance."""
+    g = _sketch_graph("er")
+    sk = khop_sketches(g.device(dev), singleton_registers(3000, precision, 6, 0, dev), hops)
+    rng = np.random.default_rng(n_pairs)
+    src = rng.integers(0, 3000, n_pairs).astype(np.int32)
+    dst = np.where(np.arange(n_pairs) % 2 == 0, src,
+                   rng.integers(0, 3000, n_pairs)).astype(np.int32)
+    got = edge_sketch_features(sk, torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev),
+                               precision)
+    want = edge_sketch_features_plain(sk.cpu(), torch.from_numpy(src), torch.from_numpy(dst),
+                                      precision)
+    worst, ties = feature_errors(sk, src, dst, precision, got.cpu().numpy(), want.numpy())
+    assert got.shape == (n_pairs, hops * hops + 2 * hops)
+    assert worst <= 1.0 and ties <= MAX_TIE_SHARE * len(src), (worst, ties)
+    # A pair with itself: every overlap is the ball's own cardinality, so
+    # the differences vanish.
+    self_rows = got.cpu()[::2]
+    assert float(self_rows[:, hops * hops:].abs().max()) <= 1e-3 * (
+        1 + float(self_rows[:, :hops * hops].abs().max()))
 
 
 @pytest.mark.parametrize("cls, kw", [(DegreeSPINE, dict(embedding_size=30)),
@@ -1131,12 +1159,34 @@ def _to_cpu(tree):
     return tree.detach().cpu()
 
 
+def _race_graph(kind):
+    """`_sketch_graph`'s graphs, or "hubs": a star of 5,000 leaves (the hub's
+    row 5,000 arcs) beside an ER graph of 3,000 nodes, with two more hubs
+    of 4,099 and 4,133 arcs, so rows are far longer than a warp's 32 arc
+    ids and few degrees are multiples of 32."""
+    if kind != "hubs":
+        return _sketch_graph(kind)
+    rng = np.random.default_rng(23)
+    er = erdos_renyi(3000, 20000, seed=8)
+    star = np.arange(3000, 8000)
+    one = er.sources < er.col_idx
+    src = np.concatenate([er.sources[one], np.zeros(5000, np.int64),
+                          np.full(4099, 1), np.full(4133, 2)])
+    dst = np.concatenate([er.col_idx[one], star, rng.integers(3, 8000, 4099),
+                          rng.integers(3, 8000, 4133)])
+    return Graph.from_edge_arrays(src, dst, n_nodes=8000, directed=False)
+
+
 def _race_inputs(g, d, dev, grid=False, seed=0):
-    """Races and noise Exp(1) (or on a small grid, for exact ties) and the
-    initial sketch ids, on `dev`."""
+    """Races and noise Exp(1) (or on a small grid, for exact ties: "signed"
+    adds -0.0, so candidates +0.0 and -0.0 tie too) and the initial sketch
+    ids, on `dev`."""
     n = g.number_of_nodes
     rng = np.random.default_rng(seed)
-    if grid:
+    if grid == "signed":
+        race = rng.choice(np.float32([-0.0, 0.0, 0.25, 0.5, 1.0]), (n, d))
+        noise = rng.choice(np.float32([-0.0, 0.0, 0.5]), (n, d))
+    elif grid:
         race = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), (n, d))
         noise = rng.choice(np.float32([0.0, 0.5]), (n, d))
     else:
@@ -1146,26 +1196,34 @@ def _race_inputs(g, d, dev, grid=False, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (race, sketch, noise)]
 
 
-@pytest.mark.parametrize("kind", ["er", "components", "directed"])
-@pytest.mark.parametrize("d", [1, 30, 100])
-@pytest.mark.parametrize("decay, grid", [(0.01, False), (0.3, False), (0.5, True)])
+@pytest.mark.parametrize("kind", ["er", "components", "directed", "hubs"])
+@pytest.mark.parametrize("d", [1, 30, 100, 128, 200])
+@pytest.mark.parametrize("decay, grid", [(0.01, False), (0.3, False), (0.5, True),
+                                         (0.5, "signed")])
 def test_sketch_race_kernel_matches_plain(dev, kind, d, decay, grid):
     """K18's races and sketches equal its plain version's exactly, for one
     round and for ten (fresh noise each round), with exact ties on the grid
-    draws."""
+    draws (candidates of +0.0, and of -0.0 on the signed grid); a round is
+    one candidate launch and one race launch, and the candidates equal
+    their plain version's."""
     from embiggen_tpu_torch.ops.nodesketch import (
-        inverse_decay, sketch_race, sketch_race_step, sketch_race_step_plain,
+        inverse_decay, sketch_candidates, sketch_candidates_plain, sketch_race,
+        sketch_race_step, sketch_race_step_plain,
     )
 
-    g = _sketch_graph(kind)
+    g = _race_graph(kind)
     tg, tg_cpu = g.device(dev), g.device("cpu")
     race, sketch, noise = _race_inputs(g, d, dev, grid)
     inv = inverse_decay(decay)
-    before = _build.launch_counts()["sketch_race_step"]
+    assert torch.equal(sketch_candidates(race, noise, inv).cpu(),
+                       sketch_candidates_plain(race.cpu(), noise.cpu(), inv))
+    before = _build.launch_counts()
     got = sketch_race_step(tg, race, sketch, noise, inv)
     want = sketch_race_step_plain(tg_cpu, race.cpu(), sketch.cpu(), noise.cpu(), inv)
     torch.cuda.synchronize()
-    assert _build.launch_counts()["sketch_race_step"] == before + 1
+    after = _build.launch_counts()
+    assert after["sketch_race_step"] == before["sketch_race_step"] + 1
+    assert after["sketch_candidates"] == before["sketch_candidates"] + 1
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     # The CUDA route of the plain version forms the same fused candidates.
     on_card = sketch_race_step_plain(tg, race, sketch, noise, inv)
@@ -1176,17 +1234,30 @@ def test_sketch_race_kernel_matches_plain(dev, kind, d, decay, grid):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
-def test_sketch_race_kernel_at_an_odd_storage_offset(dev):
+@pytest.mark.parametrize("which", ["race", "sketch", "noise", "out"])
+def test_sketch_race_kernel_at_an_odd_storage_offset(dev, which):
+    """Each input, and the outputs, at a storage offset of one element: the
+    16-byte routes are refused and the scalar ones give the same round."""
     from embiggen_tpu_torch.ops.nodesketch import sketch_race_step, sketch_race_step_plain
 
     g = _sketch_graph("er")
-    race, sketch, noise = _race_inputs(g, 100, dev)
-    buf = torch.empty(race.numel() + 1, device=dev)
-    odd = buf[1:].view_as(race)
-    odd.copy_(race)
-    assert odd.data_ptr() % 16 != 0
-    got = sketch_race_step(g.device(dev), odd, sketch, noise, 100.0)
-    want = sketch_race_step_plain(g.device("cpu"), race.cpu(), sketch.cpu(), noise.cpu(), 100.0)
+    inputs = dict(zip(("race", "sketch", "noise"), _race_inputs(g, 100, dev, seed=3)))
+    want = sketch_race_step_plain(g.device("cpu"), *(inputs[k].cpu()
+                                                     for k in ("race", "sketch", "noise")), 100.0)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view_as(t)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+    out = None
+    if which == "out":
+        out = tuple(odd(torch.zeros_like(inputs[k])) for k in ("race", "sketch"))
+    else:
+        inputs[which] = odd(inputs[which])
+    got = sketch_race_step(g.device(dev), inputs["race"], inputs["sketch"], inputs["noise"],
+                           100.0, out)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
@@ -1204,8 +1275,11 @@ def test_sparse_factorization_rows_on_cuda_match_the_cpu(dev, name):
     state = {k: (list(v) if k == "noise" else v) for k, v in state.items()}
     counter = "sketch_race_step" if name == "NodeSketch" else "spmm"
     before = _build.launch_counts()[counter]
+    before_candidates = _build.launch_counts()["sketch_candidates"]
     got = model.run(g, dict(state, noise=iter(state.get("noise", []))))
     assert _build.launch_counts()[counter] == before + (10 if name == "NodeSketch" else 2)
+    if name == "NodeSketch":
+        assert _build.launch_counts()["sketch_candidates"] == before_candidates + 10
     want = cpu.run(g, {k: ([x.cpu() for x in v] if k == "noise" else v.cpu())
                        for k, v in state.items()})
     if name == "NodeSketch":

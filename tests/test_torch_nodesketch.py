@@ -28,7 +28,8 @@ from embiggen_tpu_torch import embed_graph
 from embiggen_tpu_torch.graph import Graph, erdos_renyi
 from embiggen_tpu_torch.models.embedders import NodeSketch
 from embiggen_tpu_torch.ops.nodesketch import (
-    inverse_decay, sketch_race, sketch_race_step, sketch_race_step_plain,
+    candidate_pitch, inverse_decay, sketch_candidates, sketch_race, sketch_race_step,
+    sketch_race_step_plain,
 )
 from embiggen_tpu_torch.utils.convert import factorization_state_from_jax
 
@@ -84,6 +85,56 @@ def test_nodesketch_matches_reference_on_its_draws(graphs, d, iterations, decay,
     got = model.run(g, state)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _star_pair(kind):
+    """A star of 5,000 leaves (node 0 the hub), alone or beside the ER graph
+    of `_pair`, built by both packages: one row of 5,000 arcs, far past a
+    warp's 32 arc ids."""
+    src, dst = np.zeros(5000, np.int64), np.arange(1, 5001)
+    n = 5001
+    if kind == "star+er":
+        er, _ = _pair("er")
+        one = er.sources < er.col_idx
+        src = np.concatenate([src, er.sources[one] + n])
+        dst = np.concatenate([dst, er.col_idx[one] + n])
+        n += er.number_of_nodes
+    kw = dict(n_nodes=n, directed=False)
+    return Graph.from_edge_arrays(src, dst, **kw), RefGraph.from_edge_arrays(src, dst, **kw)
+
+
+@pytest.mark.filterwarnings("ignore:Graph")
+@pytest.mark.parametrize("kind", ["star", "star+er"])
+@pytest.mark.parametrize("d, iterations", [(200, 1), (200, 3), (7, 2)])
+def test_nodesketch_matches_reference_on_a_star(kind, d, iterations):
+    """The rounds K18's race launch makes on a hub row of 5,000 arcs, and at
+    D 200 (two passes of a warp's 128 columns on the card), equal the
+    reference's on its own draws."""
+    g, rg = _star_pair(kind)
+    kw = dict(embedding_size=d, iterations=iterations, decay=0.01, random_state=5)
+    want = ref_factorization.NodeSketch(**kw).fit_transform(rg).node_embeddings[0]
+    state = factorization_state_from_jax(
+        "NodeSketch", _reference_draws(g.number_of_nodes, d, iterations, 5), "cpu")
+    got = NodeSketch(device="cpu", **kw).run(g, state)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The hub's sketch changed: its row's minima came from its leaves.
+    assert (got[0].numpy() != 0).any()
+
+
+@pytest.mark.parametrize("d", [1, 8, 100, 200])
+def test_sketch_candidates_are_the_fused_candidates(d):
+    """K18's candidate pass on the CPU: fma(race, 1/decay, noise) rounded
+    once, as the reference's fused candidate; its workspace rows start on
+    32-byte sectors."""
+    rng = np.random.default_rng(d)
+    race = rng.exponential(size=(50, d)).astype(np.float32)
+    noise = rng.exponential(size=(50, d)).astype(np.float32)
+    inv = inverse_decay(0.01)
+    got = sketch_candidates(torch.from_numpy(race), torch.from_numpy(noise), inv).numpy()
+    want = (race.astype(np.float64) * np.float64(np.float32(inv)) + noise).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    pitch = candidate_pitch(d)
+    assert pitch >= d and pitch % 8 == 0 and pitch - d < 8
 
 
 def _tie_draws(n, d, iterations, zero_noise):

@@ -332,22 +332,61 @@ def _compare_features(sk, src, dst, precision, got, want):
     return ties
 
 
-@pytest.mark.parametrize("precision", [4, 8, 12])
-@pytest.mark.parametrize("hops", [1, 2, 3])
-def test_edge_sketch_features_match_reference(graphs, precision, hops):
-    g, rg = graphs
-    sk, _ = _sketches(g, rg, precision, hops)
-    rng = np.random.default_rng(precision + hops)
-    arcs = rng.integers(0, g.number_of_directed_edges, 300)
-    src = np.concatenate([g.sources[arcs], rng.integers(0, g.number_of_nodes, 300)])
-    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, g.number_of_nodes, 300)])
+def _features_against_reference(sk, src, dst, precision):
+    """K16b's features (the plain version here) of the pairs against the
+    reference's, at the stated tolerance."""
+    hops = sk.shape[1]
     got = hll.edge_sketch_features(sk, torch.from_numpy(src).int(), torch.from_numpy(dst).int(),
                                    precision).numpy()
     skn = sk.numpy()
     want = np.asarray(ref_hll.edge_sketch_features(jnp.asarray(skn[src]), jnp.asarray(skn[dst]),
                                                    precision))
-    assert got.shape == (600, hops * hops + 2 * hops) and got.dtype == np.float32
+    assert got.shape == (len(src), hops * hops + 2 * hops) and got.dtype == np.float32
     assert _compare_features(sk, src, dst, precision, got, want) <= MAX_TIE_SHARE * len(src)
+    return got
+
+
+def _feature_pairs(g, seed):
+    rng = np.random.default_rng(seed)
+    arcs = rng.integers(0, g.number_of_directed_edges, 300)
+    src = np.concatenate([g.sources[arcs], rng.integers(0, g.number_of_nodes, 300)])
+    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, g.number_of_nodes, 300)])
+    return src, dst
+
+
+@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("hops", [1, 2, 3])
+def test_edge_sketch_features_match_reference(graphs, precision, hops):
+    g, rg = graphs
+    sk, _ = _sketches(g, rg, precision, hops)
+    _features_against_reference(sk, *_feature_pairs(g, precision + hops), precision)
+
+
+@pytest.mark.parametrize("precision", [5, 6, 10])
+@pytest.mark.parametrize("hops", [1, 3])
+def test_edge_sketch_features_match_reference_at_other_precisions(graphs, precision, hops):
+    """Precisions 5 and 6 take `_alpha_mm`'s own constants (4 does too), 10
+    the general one; K16b's lanes a pair differ at each (1, 2 and 32)."""
+    g, rg = graphs
+    sk, _ = _sketches(g, rg, precision, hops)
+    _features_against_reference(sk, *_feature_pairs(g, precision + 10 * hops), precision)
+
+
+@pytest.mark.parametrize("precision", [4, 8, 12])
+def test_edge_sketch_features_of_self_pairs_match_reference(graphs, precision):
+    """Pairs with src == dst: each union is the larger ball itself (the
+    hops nest), so the overlaps are the smaller ball's cardinality and the
+    differences vanish, in both packages."""
+    g, rg = graphs
+    hops = 3
+    sk, _ = _sketches(g, rg, precision, hops)
+    nodes = np.random.default_rng(precision).integers(0, g.number_of_nodes, 200)
+    got = _features_against_reference(sk, nodes, nodes, precision)
+    card = hll.hll_cardinality(sk[nodes], precision).numpy()
+    small = np.minimum(np.arange(hops)[:, None], np.arange(hops)[None, :]).reshape(-1)
+    scale = 1e-5 * (1 + card.max())
+    np.testing.assert_allclose(got[:, :hops * hops], card[:, small], rtol=0, atol=scale)
+    assert np.abs(got[:, hops * hops:]).max() <= scale
 
 
 def test_hll_cardinality_matches_reference():
