@@ -696,7 +696,8 @@ KERNEL_NAMES = {
     "mean_scatter": "scatter_rows_kernel", "mean_combine": "mean_rows_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
     "walklets_update": "walklets_", "cooccurrences": "cooc_",
-    "glove_step": "glove_step_kernel", "min_plus_step": "min_plus_kernel",
+    "glove_gradients": "glove_gradients_kernel", "glove_node_update": "glove_node_update_kernel",
+    "glove_context_update": "glove_context_update_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
     "edge_sketch_features": "edge_features_", "sketch_candidates": "sketch_candidates_kernel",
     "sketch_race_step": "sketch_race_kernel",
@@ -1881,32 +1882,47 @@ def bins_err(observed, expected) -> float:
     return float(np.abs(o / o.sum() - e / e.sum()).max())
 
 
+def workspace_batches(draw, n_batches):
+    """`n_batches` successive batches of `draw()` (on one K14 workspace, so
+    each overwrites the last), each copied out: a tuple of the batches'
+    parts concatenated along their slots."""
+    parts = [tuple(t.clone() for t in draw()) for _ in range(n_batches)]
+    return tuple(torch.cat(ts, dim=-1 if ts[0].ndim == 1 else 0) for ts in zip(*parts))
+
+
 def k14_checks(graph, tg, hub, dev):
     """K14 against its exact laws (`tests/batch_laws.py`) and its plain
-    versions on the slice graph, K14_SLOTS slots. The siamese batch (scale-
-    free, with types arange(E) % S6_TYPES): positives uniform over ARC_BINS
-    bins of arc ids and their repeats, each positive an arc, its type the
-    arc's; the corrupted nodes by node degree and by blocks of ID_BLOCK ids
-    against their exact law and the plain version's; the coin (the sides
-    replaced). LINE's batch with avoid_false_negatives (K = S6_NEGS,
-    scale-free), on the slice graph and on `hub` (the slice graph plus
-    N_HUBS hubs, where first draws often are arcs of their source): the
-    positives as above, the negatives against the law of one unchecked
-    redraw and the plain version's, and every first draw that is not an arc
-    of its source kept as drawn (the same seed without the check). Returns
-    ({test: p}, {counter: max |empirical - exact| degree-bin share},
-    {test: p of the hub negatives against the law without a redraw}), the
-    last a measure of the test's power, not checked."""
+    versions on the slice graph, K14_SLOTS slots drawn as the fits draw
+    them: successive batches of S6_BATCH on one workspace (`BatchDraws`: one
+    key, a new counter offset a batch). The siamese batch (scale-free, with
+    types arange(E) % S6_TYPES): positives uniform over ARC_BINS bins of arc
+    ids and their repeats (a batch drawn twice would show there), each
+    positive an arc, its type the arc's; the corrupted nodes by node degree
+    and by blocks of ID_BLOCK ids against their exact law and the plain
+    version's; the coin (the sides replaced). LINE's batch with
+    avoid_false_negatives (K = S6_NEGS, scale-free), on the slice graph and
+    on `hub` (the slice graph plus N_HUBS hubs, where first draws often are
+    arcs of their source): the positives as above, the negatives against
+    the law of one unchecked redraw and the plain version's, and every
+    first draw that is not an arc of its source kept as drawn (the same
+    seed without the check). Returns ({test: p}, {counter: max |empirical -
+    exact| degree-bin share}, {test: p of the hub negatives against the law
+    without a redraw}), the last a measure of the test's power, not
+    checked."""
     from embiggen_tpu_torch.ops.negatives import (
-        line_mini_batch, line_mini_batch_plain, siamese_mini_batch, siamese_mini_batch_plain,
+        BatchDraws, line_mini_batch, line_mini_batch_plain, siamese_mini_batch,
+        siamese_mini_batch_plain,
     )
     from embiggen_tpu_torch.ops.walks import csr_edge_ids_plain
 
     laws = laws_module("batch_laws")
     p, err, power = {}, {}, {}
+    n_batches = K14_SLOTS // S6_BATCH
     typed = dataclasses.replace(
         tg, edge_types=(torch.arange(tg.n_arcs, device=dev) % S6_TYPES).int())
-    batch = siamese_mini_batch(typed, torch.Generator().manual_seed(51), K14_SLOTS, True, True)
+    gen, ws = torch.Generator().manual_seed(51), BatchDraws.siamese(S6_BATCH, True, dev)
+    batch = torch.stack(workspace_batches(
+        lambda: siamese_mini_batch(typed, gen, S6_BATCH, True, True, workspace=ws), n_batches))
     plain = siamese_mini_batch_plain(typed, torch.Generator(device=dev).manual_seed(52),
                                      K14_SLOTS, True, True)
     ids = laws.arc_ids(typed, batch[0], batch[1])
@@ -1922,17 +1938,21 @@ def k14_checks(graph, tg, hub, dev):
                  node_counts(tg, corrupted_nodes(plain)), False)
     p["K14 siamese sides replaced"] = exact_p(*counts["sides"])
     err["siamese_mini_batch"] = bins_err(observed, expected)
-    del batch, plain, ids, typed
+    del batch, plain, ids, typed, ws
     err["line_mini_batch"] = 0.0
     for name, tgx in (("slice", tg), ("hubs", hub.device(dev, with_sources=True))):
-        src, dst, neg = line_mini_batch(tgx, torch.Generator().manual_seed(53), K14_SLOTS,
-                                        S6_NEGS, True, True)
-        _, _, first = line_mini_batch(tgx, torch.Generator().manual_seed(53), K14_SLOTS,
-                                      S6_NEGS, True, False)
+        def draws(avoid):
+            gen, ws = (torch.Generator().manual_seed(53),
+                       BatchDraws.line(S6_BATCH, S6_NEGS, dev))
+            return workspace_batches(lambda: line_mini_batch(
+                tgx, gen, S6_BATCH, S6_NEGS, True, avoid, workspace=ws), n_batches)
+        src, dst, neg = draws(True)
+        _, _, first = draws(False)
         _, _, plain = line_mini_batch_plain(tgx, torch.Generator(device=dev).manual_seed(54),
                                             K14_SLOTS, S6_NEGS, True, True)
         ids = laws.arc_ids(tgx, src, dst)
         p[f"K14 LINE {name} positives by arc-id bin"] = exact_p(*arc_bin_counts(ids, tgx.n_arcs))
+        p[f"K14 LINE {name} positives repeats"] = repeats_p(ids, tgx.n_arcs)
         clean = ~csr_edge_ids_plain(tgx.row_ptr, tgx.col_idx, src.repeat_interleave(S6_NEGS),
                                     first.reshape(-1))[1]
         if not torch.equal(neg.reshape(-1)[clean], first.reshape(-1)[clean]):
@@ -1957,13 +1977,15 @@ def k14_checks(graph, tg, hub, dev):
 
 def k14_entries(tg, errs, dev):
     """K14 timed at the S6 shapes (S6_BATCH slots, K S6_NEGS, scale-free;
-    the siamese batch with types), with its bounds: the outputs written,
-    and per slot its arc's source, head (and type) and each drawn arc's
-    head read once (B << E, so distinct); LINE with avoid_false_negatives
-    beside it, whose bound adds each negative's search of its source's row
-    and the redraws this run's data needed."""
+    the siamese batch with types) as the fits call it, on a workspace
+    (`BatchDraws`), and fresh (`fresh_ms`), with its bounds: the outputs
+    written, and per slot its arc's source, head (and type) and each drawn
+    arc's head read once (B << E, so distinct); LINE with
+    avoid_false_negatives beside it, whose bound adds each negative's search
+    of its source's row and the redraws this run's data needed."""
     from embiggen_tpu_torch.ops.negatives import (
-        line_mini_batch, line_mini_batch_plain, siamese_mini_batch, siamese_mini_batch_plain,
+        BatchDraws, line_mini_batch, line_mini_batch_plain, siamese_mini_batch,
+        siamese_mini_batch_plain,
     )
     from embiggen_tpu_torch.ops.walks import csr_edge_ids_plain
 
@@ -1971,36 +1993,42 @@ def k14_entries(tg, errs, dev):
     typed = dataclasses.replace(
         tg, edge_types=(torch.arange(tg.n_arcs, device=dev) % S6_TYPES).int())
     b, k = S6_BATCH, S6_NEGS
+    line_ws, siamese_ws = BatchDraws.line(b, k, dev), BatchDraws.siamese(b, True, dev)
     src, _, first = line_mini_batch(tg, torch.Generator().manual_seed(57), b, k, True, False)
     rows = src.repeat_interleave(k)
     redraws = int(csr_edge_ids_plain(tg.row_ptr, tg.col_idx, rows, first.reshape(-1))[1].sum())
     avoid_bytes = (8 * int(torch.unique(src).numel()) + 4 * redraws
                    + 4 * float(search_reads(tg.degrees[rows.long()]).sum()))
+
+    def line():
+        return line_mini_batch(tg, gen, b, k, workspace=line_ws)
+
+    def siamese():
+        return siamese_mini_batch(typed, gen, b, True, True, workspace=siamese_ws)
     entries = {
         "line_mini_batch": dict(
             source="embiggen_tpu_torch/csrc/batches.cu",
             replaces="embiggen_tpu/models/embedders/line.py:74", max_abs_err=errs["line_mini_batch"],
-            ms=time_ms(lambda: line_mini_batch(tg, gen, b, k), 20),
+            ms=time_ms(line, 20), fresh_ms=time_ms(lambda: line_mini_batch(tg, gen, b, k), 20),
             plain_ms=time_ms(lambda: line_mini_batch_plain(tg, cuda_gen, b, k), 20),
             library_ms=None,
             **bound(4 * (2 * b + b * k) + 4 * (2 * b + b * k), 0),
-            avoid_ms=time_ms(lambda: line_mini_batch(tg, gen, b, k, True, True), 20),
+            avoid_ms=time_ms(lambda: line_mini_batch(tg, gen, b, k, True, True,
+                                                     workspace=line_ws), 20),
             avoid_plain_ms=time_ms(lambda: line_mini_batch_plain(tg, cuda_gen, b, k, True, True), 5),
             avoid_bound_ms=bound(8 * (2 * b + b * k) + avoid_bytes, 0)["bound_ms"],
         ),
         "siamese_mini_batch": dict(
             source="embiggen_tpu_torch/csrc/batches.cu",
             replaces="embiggen_tpu/ops/negatives.py:131", max_abs_err=errs["siamese_mini_batch"],
-            ms=time_ms(lambda: siamese_mini_batch(typed, gen, b, True, True), 20),
+            ms=time_ms(siamese, 20),
+            fresh_ms=time_ms(lambda: siamese_mini_batch(typed, gen, b, True, True), 20),
             plain_ms=time_ms(lambda: siamese_mini_batch_plain(typed, cuda_gen, b, True, True), 20),
             library_ms=None,
             **bound(4 * 5 * b + 4 * 4 * b, 0),
         ),
     }
-    for name, ms in device_ms({
-        "line_mini_batch": lambda: line_mini_batch(tg, gen, b, k),
-        "siamese_mini_batch": lambda: siamese_mini_batch(typed, gen, b, True, True),
-    }).items():
+    for name, ms in device_ms({"line_mini_batch": line, "siamese_mini_batch": siamese}).items():
         entries[name]["device_ms"] = ms
     return entries
 
@@ -2148,8 +2176,11 @@ def minibatch_injected_steps(small, dev):
                 sl = minibatch_batch(rng, name, small.number_of_nodes)
                 for d, m in models.items():
                     m._run_batch_size = 256
-                    m._step(graphs[d], params[d], torch.Generator(), lr,
-                            batch=(tuple(torch.from_numpy(x).to(d) for x in sl), ()))
+                    # LINE takes (src, dst, neg); the siamese models K14's
+                    # block of rows.
+                    batch = (tuple(torch.from_numpy(x).to(d) for x in sl)
+                             if name.endswith("LINE") else torch.from_numpy(np.stack(sl)).to(d))
+                    m._step(graphs[d], params[d], torch.Generator(), lr, batch=(batch, ()))
         errs[name] = max(check_close(f"3 {name} steps, {k}", params[dev][k].cpu(),
                                      params["cpu"][k], 0.0, 1e-5) for k in init)
     return errs
@@ -2407,14 +2438,12 @@ def glove_checks(graph, dev):
     """K13a against its plain version at the S7 GloVe shape (a walk of 16
     from each of the slice graph's nodes, w 2: strides 1 and 2 at weights 1
     and 1/2), on a small weighted graph, on walks that revisit nodes, and
-    with a stride at or past the walks' length (no keys); then K13b against
-    its plain version (gradient rows rtol 1e-5 / atol 1e-6, loss rtol 1e-5)
-    on the S7 build's entries at B 65536, D 128, and at D 30. Returns
-    ({counter: kernels entry}, {case: err})."""
+    with a stride at or past the walks' length (no keys); then K13b
+    (`k13b_checks`) on the S7 build's entries. Returns ({counter: kernels
+    entry}, {case: err})."""
     from embiggen_tpu_torch.graph import erdos_renyi
     from embiggen_tpu_torch.ops.glove import (
-        cooccurrences, cooccurrences_plain, glove_entries, glove_step, glove_step_plain,
-        glove_strides,
+        cooccurrences, cooccurrences_plain, glove_entries, glove_strides,
     )
 
     errs, out = {}, {}
@@ -2486,39 +2515,127 @@ def glove_checks(graph, dev):
     e = glove_entries(ci, cj, sums, 100.0, 0.75)
     del ci, cj, sums
     torch.cuda.empty_cache()
-    for d in (DIM, 30):
-        tables = [torch.from_numpy(0.1 * rng.standard_normal((N_NODES, d), dtype=np.float32)).to(dev)
-                  for _ in range(2)]
-        tables += [torch.from_numpy(rng.standard_normal(N_NODES, dtype=np.float32)).to(dev)
-                   for _ in range(2)]
-        ids = torch.from_numpy(rng.integers(0, e.n_entries, GLOVE_BATCH, dtype=np.int32)).to(dev)
-        got, want = glove_step(e, ids, *tables), glove_step_plain(e, ids, *tables)
-        for i, part in enumerate(("i", "j")):
-            check_close(f"K13b D {d} {part}", got[i], want[i], 0.0, 0.0)
-        errs[f"K13b D {d}"] = max(check_close(f"K13b D {d} {part}", got[i], want[i], 1e-5, 1e-6)
-                                  for i, part in ((2, "gw"), (3, "gc"), (4, "g")))
-        check_close(f"K13b D {d} loss", got[5], want[5], 1e-5, 0.0)
-        if d != DIM:
-            continue
-        u_i = int(torch.unique(e.ci[ids.long()]).numel())
-        u_j = int(torch.unique(e.cj[ids.long()]).numel())
-        b = GLOVE_BATCH
-        out["glove_step"] = dict(
-            source="embiggen_tpu_torch/csrc/glove.cu",
-            replaces="embiggen_tpu/models/embedders/glove.py:207",
-            max_abs_err=errs[f"K13b D {d}"],
-            ms=time_ms(lambda: glove_step(e, ids, *tables), 20),
-            plain_ms=time_ms(lambda: glove_step_plain(e, ids, *tables), 20),
-            library_ms=None,
-            # ids and the drawn entries read, the distinct rows and biases
-            # gathered; i, j, two gradient rows, g and the loss written.
-            # Operations: the dot product and the two scaled rows.
-            **bound(4 * b + 16 * b + 4 * (u_i + u_j) * (d + 1) + 4 * b * (2 * d + 4),
-                    4 * b * d))
-        del tables, ids, got, want
+    out.update(k13b_checks(e, rng, errs, dev))
     del e
     torch.cuda.empty_cache()
     return out, errs
+
+
+def k13b_checks(entries, rng, errs, dev):
+    """K13b at the S7 GloVe shape (B GLOVE_BATCH on the S7 build's
+    entries): its three launches and its plain version on copies of the same
+    tables, each table's change held to the float64 step's
+    (`tests/glove_checks.py`: within float32's error bound for the step's
+    sums in any order; `errs` takes the kernel's largest share of it) at D
+    128, 30 and 5, with one entry B times (its rows take B terms), on
+    Walklets GloVe's slices (D 32 of [4, N, 32]) and at an odd storage
+    offset. In each case the check must refuse the tables before the step,
+    the step with its node or its context side left out, and the step with
+    its signs flipped. Then each launch timed at D 128 on a workspace: its
+    device time from torch.profiler, its plain version's time, and its
+    bound. Returns {counter: kernels entry}."""
+    from embiggen_tpu_torch.ops.glove import (
+        GloVeStepWorkspace, glove_context_update_plain, glove_gradients_plain,
+        glove_node_update_plain, glove_step, glove_step_plain,
+    )
+
+    checks = laws_module("glove_checks")
+    # At a training rate (0.05) a step moves a row of about 0.1 by about
+    # 1e-8, under float32's rounding of the row itself, so no check could
+    # tell a step from none. At lr 100 the changes are many times the
+    # tolerance (`signal`), in every case.
+    b, lr = GLOVE_BATCH, 100.0
+
+    def inputs(d, same_entry=False):
+        values = [(0.1 * rng.standard_normal(s, dtype=np.float32))
+                  for s in ((N_NODES, d), (N_NODES, d))]
+        values += [rng.standard_normal(N_NODES, dtype=np.float32) for _ in range(2)]
+        ids = rng.integers(0, entries.n_entries, b, dtype=np.int32)
+        if same_entry:
+            ids[:] = ids[0]
+        return values, torch.from_numpy(ids).to(dev)
+    controls, signals = {}, {}
+    for name, d, layout, same in (("D 128", DIM, "", False), ("D 30", 30, "", False),
+                                  ("D 5", 5, "", False), ("one entry B times", DIM, "", True),
+                                  ("walklets slice", DIM // WALKLETS_POWER, "walklets slice",
+                                   False), ("odd offset", DIM, "odd offset", False)):
+        values, ids = inputs(d, same)
+        got, want = (checks.table_copies(values, layout, dev, WALKLETS_POWER) for _ in range(2))
+        before = [t.clone() for t in got]
+        exact = checks.step_exact(entries, ids, got, lr)
+        loss, want_loss = glove_step(entries, ids, *got, lr), glove_step_plain(entries, ids,
+                                                                               *want, lr)
+        for who, tables, value in (("K13b", got, loss), ("plain", want, want_loss)):
+            share = checks.worst_share(tables, exact[0])
+            loss_off = abs(float(value) - exact[1][0])
+            if not (share <= 1.0 and loss_off <= exact[1][1]):
+                raise AssertionError(f"K13b {name}: the {who} step's change is {share} of its "
+                                     f"tolerance off the float64 step's, its loss {loss_off} "
+                                     f"(tolerance {exact[1][1]})")
+        for control, wrong in checks.controls(before, got).items():
+            share = checks.worst_share(wrong, exact[0])
+            if not share > 1.0:
+                raise AssertionError(f"K13b {name}: the check passes the step with {control} "
+                                     f"({share} of its tolerance)")
+            controls[f"{name}: {control}"] = share
+        errs[f"K13b {name}"] = checks.worst_share(got, exact[0])
+        errs[f"K13b {name} abs"] = max(float(((t.double() - t0) - x).abs().max())
+                                       for t, (t0, x, _) in zip(got, exact[0]))
+        signals[name] = checks.signal(exact[0])
+        del got, want, before, exact
+    torch.cuda.empty_cache()
+    values, ids = inputs(DIM)
+    tables = [torch.from_numpy(v).to(dev) for v in values]
+    ws = GloVeStepWorkspace.empty(b, DIM, dev)
+
+    def step():
+        glove_step(entries, ids, *tables, 1e-4, ws)
+    i, j, g, rows, _ = glove_gradients_plain(entries, ids, *tables)
+    device = device_ms({k: step for k in S7_K13B})
+    u_i, u_j = int(torch.unique(i).numel()), int(torch.unique(j).numel())
+    n_tables = (u_i + u_j) * (DIM + 1) * 4
+    share = max(v for k, v in errs.items() if k.startswith("K13b") and not k.endswith("abs"))
+    abs_err = max(v for k, v in errs.items() if k.startswith("K13b") and k.endswith("abs"))
+    # How far the nearest wrong result (`checks.controls`) lay past the
+    # tolerance, and the median change in tolerances, case by case.
+    common = dict(source="embiggen_tpu_torch/csrc/glove.cu", max_abs_err=abs_err,
+                  tolerance_share=share, check_lr=lr, control_share_min=min(controls.values()),
+                  signal=signals, distinct_centers=u_i, distinct_contexts=u_j)
+    out = {
+        "glove_gradients": dict(
+            common, replaces="embiggen_tpu/models/embedders/glove.py:207",
+            ms=device["glove_gradients"],
+            plain_ms=time_ms(lambda: glove_gradients_plain(entries, ids, *tables), 20),
+            library_ms=None,
+            # The whole step, K13b's three launches on CUDA events, against the
+            # plain step and the step's bound: ids and drawn entries read, the
+            # distinct rows and biases read once and written once.
+            step_ms=time_ms(step, 20),
+            step_plain_ms=time_ms(lambda: glove_step_plain(entries, ids, *tables, 1e-4), 20),
+            step_bound_ms=bound(20 * b + 2 * n_tables, 6 * b * DIM)["bound_ms"],
+            # ids and entries read, the distinct rows and biases gathered; i,
+            # j, g and the rows g w_i written; the dot product and the scaling.
+            **bound(20 * b + n_tables + 4 * b * (DIM + 3), 3 * b * DIM)),
+        "glove_node_update": dict(
+            common, replaces="embiggen_tpu/models/embedders/minibatch.py:87",
+            ms=device["glove_node_update"],
+            plain_ms=time_ms(lambda: glove_node_update_plain(*tables, i, j, g, 1e-4), 20),
+            library_ms=None,
+            # i, j, g read, the distinct context rows read, the distinct
+            # center rows and both biases read and written; two products
+            # and an add an element.
+            **bound(12 * b + 4 * u_j * DIM + 8 * u_i * (DIM + 1) + 8 * u_j, 3 * b * DIM)),
+        "glove_context_update": dict(
+            common, replaces="embiggen_tpu/models/embedders/minibatch.py:87",
+            ms=device["glove_context_update"],
+            plain_ms=time_ms(lambda: glove_context_update_plain(tables[1], rows, j, 1e-4), 20),
+            library="index_add_(0, j, rows, alpha=-lr)",
+            library_ms=time_ms(lambda: tables[1].index_add_(0, j, rows, alpha=-1e-4), 20),
+            # j and the rows read, the distinct context rows read and written.
+            **bound(4 * b + 4 * b * DIM + 8 * u_j * DIM, 2 * b * DIM)),
+    }
+    del tables, ws, i, j, g, rows
+    return out
 
 
 def s7_injected_steps(small, dev):
@@ -2566,6 +2683,53 @@ def s7_injected_steps(small, dev):
         f"3 Node2Vec GloVe steps, {k}", params[dev][k].cpu(), params["cpu"][k], 0.0, 1e-5)
         for k in init)
     return errs
+
+
+def glove_step_launches(graph, dev):
+    """One steady step of Node2Vec GloVe (`_step`, its own draws) and one of
+    Walklets GloVe (`_glove_step` on power 0's slices, ids drawn by K2) at
+    the S7 settings, each under torch.profiler: {model: (the port's launches,
+    the names of the other kernels the profiler kept)}. Raises unless a step
+    launched K2 once and each of K13b's launches once, or if it ran a kernel
+    whose name holds "index" (`index_add_`'s and `index_select`'s do)."""
+    from embiggen_tpu_torch.models.embedders import GloVe, WalkletsGloVe
+    from embiggen_tpu_torch.ops.glove import (
+        GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    glove = GloVe(device=dev, random_state=0, **S7_GLOVE)
+    entries = glove._prepare_data(graph)
+    glove._run_batch_size = glove._resolve_batch_size(graph, entries)
+    params = glove._init_params(graph, gen)
+    walklets = WalkletsGloVe(device=dev, random_state=0, **S7_WALKLETS_GLOVE)
+    stacked = walklets._init_params(graph, gen)
+    state = {"emb": stacked["node_embedding"][0], "ctx": stacked["context_embedding"][0],
+             "bw": stacked["context_bias"][0],
+             "bc": torch.zeros_like(stacked["context_bias"][0])}
+    walks = glove_walks(graph, dev, GLOVE_WALK, 0)
+    stride1 = glove_entries(*cooccurrences(walks, N_NODES, [(1, 1.0)]), 100.0, 0.75)
+    del walks
+    batch = min(S7_WALKLETS_GLOVE["batch_size"], stride1.n_entries)
+    ws = GloVeStepWorkspace.empty(batch, DIM // WALKLETS_POWER, dev)
+    steps = {"Node2Vec GloVe": lambda: glove._step(entries, params, gen, 0.05),
+             "Walklets GloVe": lambda: walklets._glove_step(
+                 state, stride1, draw_entries(stride1, batch, gen), 0.05, ws)}
+    want = {"nce_negatives": 1, **dict.fromkeys(S7_K13B, 1)}
+    out = {}
+    with torch.no_grad():
+        for name, step in steps.items():
+            step()
+            torch.cuda.synchronize()
+            events, launched, _ = profiled(step)
+            others = sorted({e.name[:90] for e in events if counter_of(e.name) is None})
+            if launched != want or any("index" in o.lower() for o in others):
+                raise AssertionError(f"a {name} step launched {launched} (expected {want}) "
+                                     f"and ran {others}")
+            out[name] = (launched, others)
+    del params, stacked, state, entries, stride1, ws
+    torch.cuda.empty_cache()
+    return out
 
 
 def s7_run(graph, dev, name, epochs, **kw):
@@ -3353,18 +3517,20 @@ S6_SIAMESE_KERNELS = ("siamese_mini_batch",)
 S6_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update")
 # S7: Walklets SkipGram and CBOW step through K1, K2, K12 and K4's SkipGram
 # combine; the GloVe models build their entries with K1 and K13a and step
-# through K2's uniform draws, K13b and index_add_; Role2Vec walks with K2
-# and K1 and updates through index_add_.
+# through K2's uniform draws and K13b's three launches, which update the
+# tables in place; Role2Vec walks with K2 and K1 and updates through
+# index_add_.
+S7_K13B = ("glove_gradients", "glove_node_update", "glove_context_update")
 S7_WALKLETS_KERNELS = ("first_order_walks", "nce_negatives", "walklets_update",
                        "skipgram_mean_combine")
 S7_WALKLETS_UNUSED = ("skipgram_nce_update", "cbow_update", "ell_walks", "rejection_walks",
-                      "mean_scatter", "mean_combine", "cooccurrences", "glove_step")
-S7_GLOVE_KERNELS = ("first_order_walks", "cooccurrences", "nce_negatives", "glove_step")
+                      "mean_scatter", "mean_combine", "cooccurrences") + S7_K13B
+S7_GLOVE_KERNELS = ("first_order_walks", "cooccurrences", "nce_negatives") + S7_K13B
 S7_GLOVE_UNUSED = ("walklets_update", "skipgram_nce_update", "skipgram_mean_combine",
                    "mean_scatter", "mean_combine", "ell_walks", "rejection_walks")
 S7_ROLE2VEC_KERNELS = ("nce_negatives", "first_order_walks")
 S7_ROLE2VEC_UNUSED = ("walklets_update", "skipgram_nce_update", "cbow_update", "cooccurrences",
-                      "glove_step", "skipgram_mean_combine", "ell_walks")
+                      "skipgram_mean_combine", "ell_walks") + S7_K13B
 # S8: SPINE relaxes with K15a; WINE hops, and RUBICONE and RUINE convolve,
 # with K7; HyperSketching sketches with K16a and queries K16b; the GCN with
 # lazy HyperSketching features adds K16 to its own kernels, and with a static
@@ -3816,11 +3982,14 @@ def main() -> None:
     new.update(k4_line_checks(tg, dev))
     kernels.update(new)
     print(f"phase 14 K14 and K4 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
-          f"ms per call at the S6 shapes, B {S6_BATCH}, K {S6_NEGS}): " + "; ".join(
+          f"ms per call at the S6 shapes, B {S6_BATCH}, K {S6_NEGS}, K14 on a workspace as "
+          "the fits call it): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f}"
               + (f" device {v['device_ms']:.4f}" if "device_ms" in v else "")
               + f" plain {v['plain_ms']:.4f} bound {v['bound_ms']:.4f} ({v['bound_by']})"
               for k, v in new.items())
+          + " | K14 without a workspace ms " + ", ".join(
+              f"{k} {new[k]['fresh_ms']:.4f}" for k in ("line_mini_batch", "siamese_mini_batch"))
           + f" | LINE with avoid_false_negatives ms {new['line_mini_batch']['avoid_ms']:.4f} "
           f"plain {new['line_mini_batch']['avoid_plain_ms']:.4f} bound "
           f"{new['line_mini_batch']['avoid_bound_ms']:.4f} | K4 standalone wrapper ms "
@@ -3895,10 +4064,18 @@ def main() -> None:
           + ", ".join(f"{k[:-3]} {k13a[k]:.4f}" for k in (
               "count_ms", "scan_ms", "scatter_ms", "sort_ms", "scan2_ms", "write_ms", "rest_ms"))
           + f"); at one stride of weight 1 ms {k13a['stride1_ms']:.4f}, torch.unique counts "
-          f"{k13a['stride1_library_ms']:.4f}; K13b (B {GLOVE_BATCH}, "
-          f"D {DIM}) ms {new['glove_step']['ms']:.4f} plain {new['glove_step']['plain_ms']:.4f} "
-          f"bound {new['glove_step']['bound_ms']:.4f} ({new['glove_step']['bound_by']}) | "
-          "max err by case: " + "; ".join(f"{k} {v:.3g}" for k, v in k13_errs.items()),
+          f"{k13a['stride1_library_ms']:.4f}; K13b (B {GLOVE_BATCH}, D {DIM}) step ms "
+          f"{new['glove_gradients']['step_ms']:.4f} plain {new['glove_gradients']['step_plain_ms']:.4f}"
+          f" bound {new['glove_gradients']['step_bound_ms']:.4f}, by launch (device ms, plain, "
+          "bound, index_add_ where it is the same function): " + "; ".join(
+              f"{k} {new[k]['ms']:.4f} {new[k]['plain_ms']:.4f} {new[k]['bound_ms']:.4f}"
+              + (f" {new[k]['library_ms']:.4f}" if new[k]["library_ms"] is not None else "")
+              for k in S7_K13B) + " | "
+          "max err by case: " + "; ".join(f"{k} {v:.3g}" for k, v in k13_errs.items())
+          + f" | K13b's check at lr {new['glove_gradients']['check_lr']}: nearest wrong result "
+          f"{new['glove_gradients']['control_share_min']:.4g} tolerances off, median change in "
+          "tolerances " + "; ".join(f"{k} {v:.4g}" for k, v in
+                                    new["glove_gradients"]["signal"].items()),
           flush=True)
 
     # ------------------------------------------------------------ 19. S7
@@ -3918,6 +4095,7 @@ def main() -> None:
         m, counts, secs, peak = s7_run(graph, dev, name, epochs, **kw)
         s7[label] = (m, check_launches(label, counts, names, unused), secs, peak)
         torch.cuda.empty_cache()
+    glove_launches = glove_step_launches(graph, dev)
     pairs = BATCH * sum(2 * (WALK - p) for p in range(1, WALKLETS_POWER + 1))
     glove = s7["Node2Vec GloVe"][0]
     torch.cuda.synchronize()
@@ -3944,7 +4122,10 @@ def main() -> None:
           f"{glove_steps} steps of {glove._run_batch_size}, entries/s "
           f"{[glove_steps * glove._run_batch_size / s for s in glove._epoch_seconds]}"
           f" | Role2Vec batch {role._run_batch_size}, centres/s "
-          f"{[role_centres / s for s in role._epoch_seconds]}", flush=True)
+          f"{[role_centres / s for s in role._epoch_seconds]} | one steady step's launches "
+          "(no index_add_; the other kernels torch.profiler kept, padding included): " + "; ".join(
+              f"{name} {launched}, others {others}"
+              for name, (launched, others) in glove_launches.items()), flush=True)
 
     # --------------------------------------------------- 20. S7 quality
     t_phase = time.perf_counter()
@@ -4104,7 +4285,7 @@ def main() -> None:
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
                 **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1],
                 "walklets_update": s7["Walklets SkipGram"][1]["walklets_update"],
-                **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences", "glove_step")},
+                **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences",) + S7_K13B},
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
                 **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},

@@ -63,23 +63,44 @@
 // adds in no fixed order. Both are cast to float32 at the end.
 //
 // K13b `glove_step` replaces GloVe._batch_updates (glove.py:207-228; its
-// loss is embiggen_tpu/ops/losses.py::glove_loss) and the same step of
-// WalkletsGloVe: for each drawn entry e (ids[r]) it gathers (i, j, f, log x)
-// and the rows w_i, c_j, b_i, b_j, and writes pred = w_i . c_j + b_i + b_j,
-// g = 2 f (pred - log x) / B, the gradient rows g c_j and g w_i, the bias
-// gradient g (both biases take it), i and j, and the entry's loss
-// f (pred - log x)^2. The tables are not touched: the caller scatter-adds
-// the rows after the step, so every gradient is taken before any table
-// changes. What bounds it: the gathered rows, 2 D floats an entry read and
-// 2 D written (B 65536, D 128: 134 MB), and the entry gathers before them.
-// It takes a warp an entry: lanes over D, float4 loads when D % 4 == 0 and
-// the rows are 16-byte aligned, the dot product by shuffles, then the two
-// gradient rows written from the rows just read (L1 hits).
+// loss is embiggen_tpu/ops/losses.py::glove_loss) followed by its "add"
+// updates in apply_updates (minibatch.py:71-89), and the same step of
+// WalkletsGloVe (walklets.py:413-428). For each drawn entry e = ids[r], with
+// (i, j, f, log x), pred = w_i . c_j + b_i + b_j and g = 2 f (pred - log x)
+// / B; then node[i] -= lr g c_j, context[j] -= lr g w_i, center_bias[i] -=
+// lr g and context_bias[j] -= lr g, summed over repeated rows, in place, and
+// the loss sum of f (pred - log x)^2 into one scalar. Every gradient is taken
+// from the tables as they stood before the step: no launch reads a row that
+// a launch of the step has already changed, or changes at the same time.
+// Three launches:
+//   1. glove_gradients reads the tables and changes none of them. It writes
+//      i, j and g an entry, the loss's partial sum a block, and the context
+//      side's scaled rows g w_i into a [B, D] workspace (33.5 MB at B 65536,
+//      D 128, which stays in the 50-MB L2).
+//   2. glove_node_update adds -lr (g c_j) into node[i], reading c_j from the
+//      context table, which no launch has changed yet, and -lr g into both
+//      biases, which no later launch reads. Its block 0 sums the loss
+//      partials in a fixed order.
+//   3. glove_context_update adds -lr times the workspace rows into
+//      context[j].
+// What bounds it on the H100: bytes. Each entry's two rows and two biases
+// are read once and written once: 2 KB an entry at D 128, 134 MB at B
+// 65536. Before them come the entry's three dependent gathers: ids[r], then
+// (ci, cj, f, log x)[e], then the rows. The gradient launch gives each group
+// of G lanes (a power of two, 16 at D 128: two float4 a lane and row) G
+// entries in a row. Each lane first gathers one entry's ids, entry and
+// biases, so a group's G chains are in flight at once. The group then takes
+// its entries four at a time, their ids by shuffles, so a row load waits on
+// no other load and four entries' rows are in flight a group. The updates are float4 reductions (red.global.add.v4.f32),
+// a group of G lanes an entry. Each term added is -lr (g x), rounded as the
+// reference rounds it. Repeated rows sum in no fixed order, so tables differ
+// from run to run by rounding only.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -718,57 +739,225 @@ __global__ void __launch_bounds__(kThreads) cooc_scan_down_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) glove_step_kernel(
+// K13b. A lane keeps up to kGloveSlots elements (float4 or float) of each
+// of an entry's rows in registers; a group of lanes covers a row in chunks
+// of G * kGloveSlots elements, kGloveUnroll entries at a time.
+constexpr int kGloveSlots = 2;
+constexpr int kGloveUnroll = 4;
+
+__device__ __forceinline__ float dot_add(const float4& a, const float4& b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+__device__ __forceinline__ float dot_add(float a, float b, float acc) { return fmaf(a, b, acc); }
+__device__ __forceinline__ float4 scaled(float s, const float4& x) {
+  return make_float4(s * x.x, s * x.y, s * x.z, s * x.w);
+}
+__device__ __forceinline__ float scaled(float s, float x) { return s * x; }
+
+// The sum of v over the block, on thread 0 (every thread must call it).
+__device__ __forceinline__ float block_sum(float v, float* warp_sums) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = threadIdx.x < kWarps ? warp_sums[threadIdx.x] : 0.f;
+  if (threadIdx.x < 32) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// A thread an entry: entry r = the global thread index. A group of G lanes
+// takes the G entries of its lanes one after another (see the note at the
+// top).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glove_gradients_kernel(
     const int32_t* __restrict__ ci, const int32_t* __restrict__ cj,
     const float* __restrict__ f_x, const float* __restrict__ log_x,
-    const int32_t* __restrict__ ids, const float* __restrict__ node_emb,
-    const float* __restrict__ ctx_emb, const float* __restrict__ center_bias,
+    const int32_t* __restrict__ ids, const T* __restrict__ node_emb,
+    const T* __restrict__ ctx_emb, const float* __restrict__ center_bias,
     const float* __restrict__ ctx_bias, int32_t* __restrict__ out_i,
-    int32_t* __restrict__ out_j, float* __restrict__ gw, float* __restrict__ gc,
-    float* __restrict__ g, float* __restrict__ loss, long long B, int D, float inv_b,
-    bool vec) {
-  const long long r = (blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x) / 32;
+    int32_t* __restrict__ out_j, float* __restrict__ out_g, T* __restrict__ rows_w,
+    float* __restrict__ partials, long long B, int n, int G, float inv_b) {
+  __shared__ float warp_sums[kWarps];
   const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const unsigned mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane - sub);
+  const long long r = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  const long long r0 = r - sub;
+  int32_t own_i = 0, own_j = 0;
+  float own_f = 0.f, own_lx = 0.f, own_bi = 0.f, own_bj = 0.f;
+  if (r < B) {
+    const long long e = ids[r];
+    own_i = ci[e];
+    own_j = cj[e];
+    own_f = f_x[e];
+    own_lx = log_x[e];
+    own_bi = center_bias[own_i];
+    own_bj = ctx_bias[own_j];
+  }
+  float own_g = 0.f, own_loss = 0.f;
+  const long long left = B - r0;
+  const int count = left <= 0 ? 0 : (left < G ? static_cast<int>(left) : G);
+  for (int k0 = 0; k0 < count; k0 += kGloveUnroll) {
+    // kGloveUnroll entries' rows in flight at once (the last entry again
+    // where count runs out; it is not written twice).
+    const T* w[kGloveUnroll];
+    const T* c[kGloveUnroll];
+#pragma unroll
+    for (int u = 0; u < kGloveUnroll; ++u) {
+      const int k = min(k0 + u, count - 1);
+      w[u] = node_emb + static_cast<long long>(__shfl_sync(mask, own_i, k, G)) * n;
+      c[u] = ctx_emb + static_cast<long long>(__shfl_sync(mask, own_j, k, G)) * n;
+    }
+    T wv[kGloveUnroll][kGloveSlots], cv[kGloveUnroll][kGloveSlots];
+    float dot[kGloveUnroll];
+#pragma unroll
+    for (int u = 0; u < kGloveUnroll; ++u) dot[u] = 0.f;
+    for (int base = 0; base < n; base += G * kGloveSlots) {
+#pragma unroll
+      for (int s = 0; s < kGloveSlots; ++s) {
+        const int q = base + sub + s * G;
+        if (q < n) {
+#pragma unroll
+          for (int u = 0; u < kGloveUnroll; ++u) {
+            wv[u][s] = __ldg(w[u] + q);
+            cv[u][s] = __ldg(c[u] + q);
+          }
+#pragma unroll
+          for (int u = 0; u < kGloveUnroll; ++u) dot[u] = dot_add(wv[u][s], cv[u][s], dot[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGloveUnroll; ++u) {
+      for (int off = G / 2; off > 0; off >>= 1) dot[u] += __shfl_xor_sync(mask, dot[u], off, G);
+    }
+#pragma unroll
+    for (int u = 0; u < kGloveUnroll; ++u) {
+      const int k = k0 + u;
+      if (k >= count) break;  // the same for every lane of the group
+      const float f = __shfl_sync(mask, own_f, k, G);
+      const float diff = dot[u] + __shfl_sync(mask, own_bi, k, G) +
+                         __shfl_sync(mask, own_bj, k, G) - __shfl_sync(mask, own_lx, k, G);
+      const float g = 2.f * f * diff * inv_b;
+      if (sub == k) {
+        own_g = g;
+        own_loss = f * diff * diff;
+      }
+      T* ow = rows_w + (r0 + k) * n;
+      if (n <= G * kGloveSlots) {
+#pragma unroll
+        for (int s = 0; s < kGloveSlots; ++s) {
+          const int q = sub + s * G;
+          if (q < n) ow[q] = scaled(g, wv[u][s]);
+        }
+      } else {
+        for (int q = sub; q < n; q += G) ow[q] = scaled(g, __ldg(w[u] + q));
+      }
+    }
+  }
+  if (r < B) {
+    out_i[r] = own_i;
+    out_j[r] = own_j;
+    out_g[r] = own_g;
+  }
+  const float total = block_sum(own_loss, warp_sums);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+// One side of K13b's update: dst[dst_idx[r]] += -lr (scale[r] src[from]),
+// from = src_idx[r], or r where src_idx is null; scale null is 1.
+struct GloveSide {
+  float* dst;
+  const int32_t* dst_idx;
+  const float* src;
+  const int32_t* src_idx;
+  const float* scale;
+};
+
+template <typename T>
+__device__ __forceinline__ void glove_side_update(const GloveSide& s, long long r, int sub,
+                                                  int G, int n, float neg_lr) {
+  const long long to = s.dst_idx[r];
+  const long long from = s.src_idx == nullptr ? r : s.src_idx[r];
+  const float k = s.scale == nullptr ? 1.f : s.scale[r];
+  const T* src = reinterpret_cast<const T*>(s.src) + from * n;
+  T* dst = reinterpret_cast<T*>(s.dst) + to * n;
+  for (int base = 0; base < n; base += G * kGloveSlots) {
+    // The lane's loads first, all in flight, then its reductions.
+    T x[kGloveSlots];
+#pragma unroll
+    for (int v = 0; v < kGloveSlots; ++v) {
+      const int q = base + sub + v * G;
+      if (q < n) x[v] = __ldg(src + q);
+    }
+#pragma unroll
+    for (int v = 0; v < kGloveSlots; ++v) {
+      const int q = base + sub + v * G;
+      if (q < n) atomicAdd(dst + q, scaled(neg_lr, scaled(k, x[v])));
+    }
+  }
+}
+
+// A group of G lanes an entry: side a; where center_bias is given, -lr g
+// into both biases; where loss is given, block 0 first writes the sum of
+// the n_partials loss partials into it.
+template <typename T>
+__device__ __forceinline__ void glove_update(GloveSide a, float* center_bias,
+                                             float* ctx_bias, const int32_t* i,
+                                             const int32_t* j, const float* g,
+                                             const float* partials, long long n_partials,
+                                             float* loss, long long B, int n, int G,
+                                             float neg_lr) {
+  if (loss != nullptr && blockIdx.x == 0) {
+    __shared__ float warp_sums[kWarps];
+    float s = 0.f;
+    for (long long p = threadIdx.x; p < n_partials; p += kThreads) s += partials[p];
+    s = block_sum(s, warp_sums);
+    if (threadIdx.x == 0) *loss = s;
+  }
+  const long long t = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  const long long r = t / G;
   if (r >= B) return;
-  const long long e = ids[r];
-  const long long i = ci[e], j = cj[e];
-  const float* w = node_emb + i * D;
-  const float* c = ctx_emb + j * D;
-  float dot = 0.f;
-  if (vec) {
-    for (int q = lane; q < D / 4; q += 32) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(w) + q);
-      const float4 b = __ldg(reinterpret_cast<const float4*>(c) + q);
-      dot = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, dot))));
-    }
-  } else {
-    for (int q = lane; q < D; q += 32) dot = fmaf(__ldg(w + q), __ldg(c + q), dot);
+  const int sub = static_cast<int>(t - r * G);
+  glove_side_update<T>(a, r, sub, G, n, neg_lr);
+  if (center_bias != nullptr && sub == 0) {
+    const float term = neg_lr * g[r];
+    atomicAdd(center_bias + i[r], term);
+    atomicAdd(ctx_bias + j[r], term);
   }
-  for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-  const float fx = f_x[e];
-  const float diff = dot + center_bias[i] + ctx_bias[j] - log_x[e];
-  const float gr = 2.f * fx * diff * inv_b;
-  if (lane == 0) {
-    out_i[r] = static_cast<int32_t>(i);
-    out_j[r] = static_cast<int32_t>(j);
-    g[r] = gr;
-    loss[r] = fx * diff * diff;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glove_node_update_kernel(
+    GloveSide a, float* center_bias, float* ctx_bias, const int32_t* i, const int32_t* j,
+    const float* g, const float* partials, long long n_partials, float* loss, long long B,
+    int n, int G, float neg_lr) {
+  glove_update<T>(a, center_bias, ctx_bias, i, j, g, partials, n_partials, loss, B, n, G,
+                  neg_lr);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) glove_context_update_kernel(GloveSide a, long long B,
+                                                                        int n, int G,
+                                                                        float neg_lr) {
+  glove_update<T>(a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+                  nullptr, B, n, G, neg_lr);
+}
+
+// Lanes an entry for rows of n elements: a power of two, at most 32, with
+// at most kGloveSlots elements a lane where n allows.
+int glove_lanes(int n) {
+  int g = 1;
+  while (g < 32 && kGloveSlots * g < n) g *= 2;
+  return g;
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   }
-  float* ow = gw + r * D;
-  float* oc = gc + r * D;
-  if (vec) {
-    for (int q = lane; q < D / 4; q += 32) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(w) + q);
-      const float4 b = __ldg(reinterpret_cast<const float4*>(c) + q);
-      reinterpret_cast<float4*>(ow)[q] = make_float4(gr * b.x, gr * b.y, gr * b.z, gr * b.w);
-      reinterpret_cast<float4*>(oc)[q] = make_float4(gr * a.x, gr * a.y, gr * a.z, gr * a.w);
-    }
-  } else {
-    for (int q = lane; q < D; q += 32) {
-      ow[q] = gr * __ldg(c + q);
-      oc[q] = gr * __ldg(w + q);
-    }
-  }
+  return true;
 }
 
 unsigned blocks_for(long long n) {
@@ -930,25 +1119,92 @@ int ebt_cooc_write(const void* ent, const void* rec_sum, const void* off, const 
       nullptr, wdofs, out_off, ci, cj, sums, s));
 }
 
-// One GloVe step's gradients for B drawn entries; see glove_step_kernel.
-int ebt_glove_step(const void* ci, const void* cj, const void* f_x, const void* log_x,
-                   const void* ids, const void* node_emb, const void* ctx_emb,
-                   const void* center_bias, const void* ctx_bias, void* out_i, void* out_j,
-                   void* gw, void* gc, void* g, void* loss, long long B, int D, float inv_b,
-                   void* stream) {
+// K13b's gradient launch for B drawn entries (see glove_gradients_kernel):
+// i, j, g [B], rows_w [B, D] = g w_i and the loss partials, ceil(B / 256)
+// of them.
+int ebt_glove_gradients(const void* ci, const void* cj, const void* f_x, const void* log_x,
+                        const void* ids, const void* node_emb, const void* ctx_emb,
+                        const void* center_bias, const void* ctx_bias, void* out_i,
+                        void* out_j, void* out_g, void* rows_w, void* partials, long long B,
+                        int D, float inv_b, void* stream) {
   if (B == 0) return 0;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(node_emb) |
-                          reinterpret_cast<uintptr_t>(ctx_emb) |
-                          reinterpret_cast<uintptr_t>(gw) | reinterpret_cast<uintptr_t>(gc);
-  const bool vec = D % 4 == 0 && align % 16 == 0;
-  glove_step_kernel<<<blocks_for(B * 32), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ci), static_cast<const int32_t*>(cj),
-      static_cast<const float*>(f_x), static_cast<const float*>(log_x),
-      static_cast<const int32_t*>(ids), static_cast<const float*>(node_emb),
-      static_cast<const float*>(ctx_emb), static_cast<const float*>(center_bias),
-      static_cast<const float*>(ctx_bias), static_cast<int32_t*>(out_i),
-      static_cast<int32_t*>(out_j), static_cast<float*>(gw), static_cast<float*>(gc),
-      static_cast<float*>(g), static_cast<float*>(loss), B, D, inv_b, vec);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = D % 4 == 0 && aligned16({node_emb, ctx_emb, rows_w});
+  const int n = vec ? D / 4 : D;
+  const int G = glove_lanes(n);
+  const auto* ci_ = static_cast<const int32_t*>(ci);
+  const auto* cj_ = static_cast<const int32_t*>(cj);
+  const auto* fx_ = static_cast<const float*>(f_x);
+  const auto* lx_ = static_cast<const float*>(log_x);
+  const auto* ids_ = static_cast<const int32_t*>(ids);
+  const auto* cb_ = static_cast<const float*>(center_bias);
+  const auto* xb_ = static_cast<const float*>(ctx_bias);
+  auto* i_ = static_cast<int32_t*>(out_i);
+  auto* j_ = static_cast<int32_t*>(out_j);
+  auto* g_ = static_cast<float*>(out_g);
+  auto* p_ = static_cast<float*>(partials);
+  if (vec) {
+    glove_gradients_kernel<float4><<<blocks_for(B), kThreads, 0, s>>>(
+        ci_, cj_, fx_, lx_, ids_, static_cast<const float4*>(node_emb),
+        static_cast<const float4*>(ctx_emb), cb_, xb_, i_, j_, g_, static_cast<float4*>(rows_w),
+        p_, B, n, G, inv_b);
+  } else {
+    glove_gradients_kernel<float><<<blocks_for(B), kThreads, 0, s>>>(
+        ci_, cj_, fx_, lx_, ids_, static_cast<const float*>(node_emb),
+        static_cast<const float*>(ctx_emb), cb_, xb_, i_, j_, g_, static_cast<float*>(rows_w),
+        p_, B, n, G, inv_b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13b's node-side update, after ebt_glove_gradients: node[i] += -lr (g c_j)
+// with c_j from ctx_emb; both biases += -lr g; *loss = the sum of the
+// n_partials loss partials.
+int ebt_glove_node_update(void* node_emb, const void* ctx_emb, void* center_bias,
+                          void* ctx_bias, const void* i, const void* j, const void* g,
+                          const void* partials, long long n_partials, void* loss, long long B,
+                          int D, float lr, void* stream) {
+  if (B == 0) return 0;
+  const bool vec = D % 4 == 0 && aligned16({node_emb, ctx_emb});
+  const int n = vec ? D / 4 : D;
+  const int G = glove_lanes(n);
+  const auto* i_ = static_cast<const int32_t*>(i);
+  const auto* j_ = static_cast<const int32_t*>(j);
+  const auto* g_ = static_cast<const float*>(g);
+  const GloveSide a{static_cast<float*>(node_emb), i_, static_cast<const float*>(ctx_emb), j_,
+                    g_};
+  const unsigned blocks = blocks_for(B * G);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* cb_ = static_cast<float*>(center_bias);
+  auto* xb_ = static_cast<float*>(ctx_bias);
+  const auto* p_ = static_cast<const float*>(partials);
+  auto* loss_ = static_cast<float*>(loss);
+  if (vec) {
+    glove_node_update_kernel<float4><<<blocks, kThreads, 0, s>>>(
+        a, cb_, xb_, i_, j_, g_, p_, n_partials, loss_, B, n, G, -lr);
+  } else {
+    glove_node_update_kernel<float><<<blocks, kThreads, 0, s>>>(
+        a, cb_, xb_, i_, j_, g_, p_, n_partials, loss_, B, n, G, -lr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K13b's context-side update, after ebt_glove_node_update:
+// ctx_emb[j] += -lr rows_w.
+int ebt_glove_context_update(void* ctx_emb, const void* rows_w, const void* j, long long B,
+                             int D, float lr, void* stream) {
+  if (B == 0) return 0;
+  const bool vec = D % 4 == 0 && aligned16({ctx_emb, rows_w});
+  const int n = vec ? D / 4 : D;
+  const int G = glove_lanes(n);
+  const GloveSide a{static_cast<float*>(ctx_emb), static_cast<const int32_t*>(j),
+                    static_cast<const float*>(rows_w), nullptr, nullptr};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    glove_context_update_kernel<float4><<<blocks_for(B * G), kThreads, 0, s>>>(a, B, n, G, -lr);
+  } else {
+    glove_context_update_kernel<float><<<blocks_for(B * G), kThreads, 0, s>>>(a, B, n, G, -lr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,10 +6,11 @@ counterpart of `embiggen_tpu/models/embedders/glove.py` (`GloVe`,
 walks); (2) their window pairs at distance d = 1..w weighted 1/d, summed per
 distinct (center, context) key (K13a); (3) minibatch SGD over the non-zero
 entries on the weighted least squares f(X)(w_i . c_j + b_i + b_j - log X)^2,
-a batch mean: each step draws entry ids (K2's uniform mode), takes every
-gradient (K13b) and scatter-adds them ("add" updates, `index_add_`). Built on
-the `MinibatchEmbedder` skeleton, whose batch is the drawn ids and whose
-shared part is the entries.
+a batch mean: each step draws entry ids (K2's uniform mode) and applies the
+reference's "add" updates in place (K13b: a gradient launch and two update
+launches on a workspace the fit allocates once), every gradient taken before
+any table changes. Built on the `MinibatchEmbedder` skeleton, whose batch is
+the drawn ids and whose shared part is the entries.
 """
 from __future__ import annotations
 
@@ -19,12 +20,13 @@ import torch
 
 from ...graph.graph import Graph
 from ...ops.glove import (
-    Entries, cooccurrences, draw_entries, glove_entries, glove_step, glove_strides,
+    Entries, GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries, glove_step,
+    glove_strides,
 )
 from ...ops.walks import random_walks
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
-from .minibatch import MinibatchEmbedder, Update
+from .minibatch import MinibatchEmbedder
 
 
 @register_model
@@ -143,17 +145,22 @@ class GloVe(MinibatchEmbedder):
     def _sample_batch(self, ctx: Entries, generator: torch.Generator, batch_size: int):
         return (draw_entries(ctx, batch_size, generator),), ctx
 
-    def _batch_updates(self, params, batch, full_batch):
+    def _step(self, ctx: Entries, params, generator: torch.Generator, lr: float,
+              batch=None) -> torch.Tensor:
+        """One step on `params`, in place: draw B entry ids (or take the
+        injected `batch`), apply the step (K13b on the fit's workspace).
+        Returns the loss per entry as a 0-d device tensor. The step returns
+        no Update, so the model is single-device (`supports_distribution`
+        is False; the reference's GloVe is distributable) until ROADMAP
+        A13."""
+        size = self._run_batch()
+        if batch is None:
+            batch = self._sample_batch(ctx, generator, size)
         (ids,), entries = batch
-        i, j, gw, gc, g, loss = glove_step(
-            entries, ids, params["node_embedding"], params["context_embedding"],
-            params["center_bias"], params["context_bias"])
-        return loss, [
-            Update("node_embedding", i, gw, "add"),
-            Update("context_embedding", j, gc, "add"),
-            Update("center_bias", i, g, "add"),
-            Update("context_bias", j, g, "add"),
-        ]
+        ws = self._fit_buffer("glove_step", lambda: GloVeStepWorkspace.empty(
+            size, self.embedding_size, params["node_embedding"].device))
+        return glove_step(entries, ids, params["node_embedding"], params["context_embedding"],
+                          params["center_bias"], params["context_bias"], lr, ws) / size
 
     def _extract(self, params, graph: Graph) -> EmbeddingResult:
         return EmbeddingResult(

@@ -3,7 +3,8 @@
 `SecondOrderLINE`).
 
 A step draws a batch of uniform arcs with K scale-free (or uniform)
-negatives each (kernel K14 on the card, `ops.negatives.line_mini_batch`),
+negatives each (kernel K14 on the card, `ops.negatives.line_mini_batch`,
+into one int32 block the fit allocates once),
 takes the logistic loss of the dot products, SUMMED over the batch, with
 the logits straight-through-clipped at +-clipping_value, and applies the
 per-row mean update to the gathered rows (kernel K4 standalone on the
@@ -18,11 +19,16 @@ import torch
 import torch.nn.functional as F
 
 from ...graph.graph import Graph, TorchGraph
-from ...ops.negatives import line_mini_batch
+from ...ops.negatives import BatchDraws, line_mini_batch
 from ...ops.skipgram import _st_clip
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
 from .minibatch import MinibatchEmbedder, Update, value_and_grad
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table's rows at the int32 ids `idx`, shaped idx.shape + (D,)."""
+    return table.index_select(0, idx.reshape(-1)).view(*idx.shape, table.shape[1])
 
 
 class _LINEBase(MinibatchEmbedder):
@@ -69,10 +75,13 @@ class _LINEBase(MinibatchEmbedder):
         return graph.device(self.device, with_sources=True)
 
     def _sample_batch(self, tg: TorchGraph, generator: torch.Generator, batch_size: int):
-        """sliceable (src [B], dst [B], neg [B, K]); no shared leaves."""
+        """sliceable (src [B], dst [B], neg [B, K]), views of the fit's
+        block; no shared leaves."""
+        k = self._number_of_negative_samples
+        draws = self._fit_buffer("batches", lambda: BatchDraws.line(batch_size, k, tg.device))
         return line_mini_batch(
-            tg, generator, batch_size, self._number_of_negative_samples,
-            self._use_scale_free_distribution, self._avoid_false_negatives,
+            tg, generator, batch_size, k, self._use_scale_free_distribution,
+            self._avoid_false_negatives, workspace=draws,
         ), ()
 
     def _grads(self, e_src, c_dst, c_neg):
@@ -103,7 +112,7 @@ class FirstOrderLINE(_LINEBase):
         (src, dst, neg), _ = batch
         emb = params["node_embedding"]
         loss, (g_s, g_d, g_n) = self._grads(
-            emb[src.long()], emb[dst.long()], emb[neg.long()])
+            emb.index_select(0, src), emb.index_select(0, dst), _rows(emb, neg))
         # One mean update over the whole multiset src + dst + negatives, as
         # aligned segments that share one count vector.
         return loss, [Update("node_embedding", (src, dst, neg.reshape(-1)),
@@ -133,7 +142,7 @@ class SecondOrderLINE(_LINEBase):
         (src, dst, neg), _ = batch
         emb, ctx = params["node_embedding"], params["context_embedding"]
         loss, (g_s, g_d, g_n) = self._grads(
-            emb[src.long()], ctx[dst.long()], ctx[neg.long()])
+            emb.index_select(0, src), ctx.index_select(0, dst), _rows(ctx, neg))
         return loss, [
             Update("node_embedding", src, g_s, "mean"),
             Update("context_embedding", (dst, neg.reshape(-1)),

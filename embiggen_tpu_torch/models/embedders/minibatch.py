@@ -165,6 +165,9 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         self._initial_params = initial_params
         # The "mean" updates' workspaces, kept across steps, freed after a fit.
         self._mean_sums: Workspaces = {}
+        # Other buffers a model's steps keep across a fit, by name (K13b's
+        # workspace, K14's batches), freed with the workspaces.
+        self._fit_buffers: Dict[str, Any] = {}
         super().__init__(
             embedding_size=embedding_size,
             enable_cache=enable_cache,
@@ -290,8 +293,19 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
             params[name] = given.detach().to(self.device, torch.float32).clone()
         return params
 
+    def _fit_buffer(self, name: str, make: Callable[[], Any]) -> Any:
+        """The fit's buffer `name`, made by `make()` at its first use."""
+        if name not in self._fit_buffers:
+            self._fit_buffers[name] = make()
+        return self._fit_buffers[name]
+
+    def _free_fit_buffers(self) -> None:
+        self._mean_sums.clear()
+        self._fit_buffers.clear()
+
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         self._pre_fit_check(graph)
+        self._free_fit_buffers()
         ctx = self._prepare_data(graph)
         generator = torch.Generator().manual_seed(self.random_state or 0)
         params = self._initial_tables(graph, generator)
@@ -326,7 +340,7 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                         ctrl.stopped_epoch = epoch
                         break
         finally:
-            self._mean_sums.clear()
+            self._free_fit_buffers()
         self._last_loss = last
         self._stopped_epoch = ctrl.stopped_epoch
         return self._extract(params, graph)

@@ -3,13 +3,14 @@ Embedding — counterpart of `embiggen_tpu/models/embedders/siamese.py`.
 
 A step draws uniform arcs, each with one side corrupted by a scale-free
 (or uniform) node (kernel K14 on the card, `ops.negatives.
-siamese_mini_batch`), takes the margin loss ReLU(relu_bias + d(pos) -
-d(neg)) averaged over the batch on the gathered rows, and scatter-adds the
-gradients (autograd, as the JAX version takes them) into the tables. Models
-declare their tables in three groups, as the JAX package's do: ENTITY_KEYS
-(per node, gathered at the four batch index sets), REL_KEYS (per edge type,
-gathered at the batch's types) and GLOBAL_KEYS (dense), plus a
-`_distance` hook.
+siamese_mini_batch`, into the [4, B] block of int32 rows, or [5, B] with
+edge types, that the fit allocates once), takes the margin loss
+ReLU(relu_bias + d(pos) - d(neg)) averaged over the batch on the gathered
+rows, and scatter-adds the gradients (autograd, as the JAX version takes
+them) into the tables. Models declare their tables in three groups, as the
+JAX package's do: ENTITY_KEYS (per node, gathered at the four batch index
+sets), REL_KEYS (per edge type, gathered at the batch's types) and
+GLOBAL_KEYS (dense), plus a `_distance` hook.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 from ...graph.graph import Graph, TorchGraph
 from ...ops.losses import l1_distance, squared_l2_distance
-from ...ops.negatives import siamese_mini_batch
+from ...ops.negatives import BatchDraws, siamese_mini_batch
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
 from .minibatch import MinibatchEmbedder, Update, value_and_grad
@@ -112,22 +113,26 @@ class SiameseEmbedder(MinibatchEmbedder):
         return graph.device(self.device, with_sources=True)
 
     def _sample_batch(self, tg: TorchGraph, generator: torch.Generator, batch_size: int):
+        """sliceable: the [4, B] block (src, dst, csrc, cdst), [5, B] with
+        the edge types, of int32 node ids; no shared leaves."""
+        typed = self._uses_edge_types()
+        draws = self._fit_buffer("batches",
+                                 lambda: BatchDraws.siamese(batch_size, typed, tg.device))
         return siamese_mini_batch(
             tg, generator, batch_size,
             use_scale_free_distribution=self._use_scale_free_distribution,
-            with_edge_types=self._uses_edge_types(),
+            with_edge_types=typed, workspace=draws,
         ), ()
 
     def _batch_updates(self, params, batch, full_batch):
-        sl, _ = batch
-        if self._uses_edge_types():
-            src, dst, csrc, cdst, etype = sl
-        else:
-            (src, dst, csrc, cdst), etype = sl, None
-        idx = torch.stack([src, dst, csrc, cdst])  # [4, B]
+        block, _ = batch
+        idx = block[:4]
+        flat = idx.reshape(-1)
+        etype = block[4] if self._uses_edge_types() else None
         ent_keys, rel_keys, glob_keys = self.ENTITY_KEYS, self.REL_KEYS, self.GLOBAL_KEYS
-        leaves = ([params[n][idx.long()] for n in ent_keys]
-                  + [params[n][etype.long()] for n in rel_keys]
+        leaves = ([params[n].index_select(0, flat).view(*idx.shape, *params[n].shape[1:])
+                   for n in ent_keys]
+                  + [params[n].index_select(0, etype) for n in rel_keys]
                   + [params[n] for n in glob_keys])
         bias = self._relu_bias
         n_ent, n_rel = len(ent_keys), len(rel_keys)
@@ -146,7 +151,6 @@ class SiameseEmbedder(MinibatchEmbedder):
             return torch.maximum(margin, margin.new_zeros(())).sum() / full_batch
 
         loss, grads = value_and_grad(loss_fn, leaves)
-        flat = idx.reshape(-1)
         updates = [Update(n, flat, g.reshape((-1,) + g.shape[2:]), "add")
                    for n, g in zip(ent_keys, grads[:n_ent])]
         updates += [Update(n, etype, g, "add")

@@ -12,24 +12,26 @@ every power's gradient rows into sums of P * N rows (K12) and applies the
 per-row mean update of all powers in one pass over the flat [P * N, sub]
 views (K4's SkipGram combine). As in the reference, no clipping and no
 centre weights apply. Walklets GloVe builds each power's exact-stride counts
-(K13a) from walks of every node and runs GloVe's SGD on them (K13b).
+(K13a) from walks of every node and runs GloVe's SGD on them, in place on the
+power's slices (K13b, on one workspace a fit).
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...graph.graph import Graph
-from ...ops.glove import cooccurrences, draw_entries, glove_entries, glove_step
+from ...ops.glove import (
+    GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries, glove_step,
+)
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
 from ...ops.walklets import walklets_update
 from ...ops.walks import random_walks
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
-from .minibatch import Update, apply_updates
 from .walk_based import WalkBasedEmbedder, _device_generator
 
 
@@ -161,14 +163,14 @@ class WalkletsGloVe(_WalkletsBase):
     def model_name(cls) -> str:
         return "Walklets GloVe"
 
-    def _glove_step(self, state, entries, ids, lr: float) -> torch.Tensor:
+    def _glove_step(self, state, entries, ids, lr: float,
+                    workspace: Optional[GloVeStepWorkspace] = None) -> torch.Tensor:
         """One SGD step on a power's state (emb, ctx, bw, bc), in place, from
-        the drawn entry ids; returns the batch's mean loss."""
-        i, j, gw, gc, g, loss = glove_step(entries, ids, state["emb"], state["ctx"],
-                                           state["bw"], state["bc"])
-        apply_updates(state, [Update("emb", i, gw, "add"), Update("ctx", j, gc, "add"),
-                              Update("bw", i, g, "add"), Update("bc", j, g, "add")], lr)
-        return loss / ids.shape[0]
+        the drawn entry ids (K13b, on `workspace`, which a fit allocates
+        once; fresh buffers where none is given); returns the batch's mean
+        loss."""
+        return glove_step(entries, ids, state["emb"], state["ctx"], state["bw"], state["bc"],
+                          lr, workspace) / ids.shape[0]
 
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         tg = self._device_graph(graph)
@@ -182,7 +184,8 @@ class WalkletsGloVe(_WalkletsBase):
                              max_neighbours=self._max_neighbours)
         params = self._initial_tables(graph, generator)
         self._epoch_losses, self._epoch_seconds = [], []
-        last = None
+        last, workspace = None, None
+        sub = params["node_embedding"].shape[2]
         with torch.no_grad():
             for p in range(self._power):
                 # The counts of the pairs exactly p + 1 apart.
@@ -192,6 +195,8 @@ class WalkletsGloVe(_WalkletsBase):
                 entries = glove_entries(ci, cj, counts, self._x_max, self._alpha)
                 batch = min(self._batch_size or 4096, entries.n_entries)
                 steps = max(1, entries.n_entries // batch)
+                if workspace is None or workspace.rows.shape[0] != batch:
+                    workspace = GloVeStepWorkspace.empty(batch, sub, walks.device)
                 # Views of power p's slices: the steps update the tables in
                 # place.
                 state = {"emb": params["node_embedding"][p],
@@ -202,7 +207,8 @@ class WalkletsGloVe(_WalkletsBase):
                     t0 = time.perf_counter()
                     lr = self._learning_rate * self._learning_rate_decay ** epoch
                     losses = [self._glove_step(state, entries,
-                                               draw_entries(entries, batch, generator), lr)
+                                               draw_entries(entries, batch, generator), lr,
+                                               workspace)
                               for _ in range(steps)]
                     last = float(torch.stack(losses).mean())
                     self._epoch_seconds.append(time.perf_counter() - t0)

@@ -77,7 +77,9 @@ _SIGNATURES = {
         (_P, _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _I32, _I32, _P, _P, _P, _P, _P), _I32),
     "ebt_cooc_write": (
         (_P,) * 5 + (_I64, _I32) + (_P,) * 3 + (_I32, _I32) + (_P,) * 6, _I32),
-    "ebt_glove_step": ((_P,) * 15 + (_I64, _I32, _F32, _P), _I32),
+    "ebt_glove_gradients": ((_P,) * 14 + (_I64, _I32, _F32, _P), _I32),
+    "ebt_glove_node_update": ((_P,) * 8 + (_I64, _P, _I64, _I32, _F32, _P), _I32),
+    "ebt_glove_context_update": ((_P, _P, _P, _I64, _I32, _F32, _P), _I32),
     "ebt_min_plus_step": ((_P,) * 6 + (_I64, _I32, _I32, _P), _I32),
     "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),
     "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P), _I32),
@@ -96,7 +98,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
-     "cooccurrences", "glove_step", "min_plus_step", "hll_registers",
+     "cooccurrences", "glove_gradients", "glove_node_update", "glove_context_update",
+     "min_plus_step", "hll_registers",
      "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step"), 0,
 )
 
@@ -207,17 +210,21 @@ def launch(counter: Optional[str], fn_name: str, device: torch.device, *args,
            defines: Tuple[str, ...] = ()) -> None:
     """Call one C launcher on `device`'s current stream (appended as the last
     argument), raise if the launch failed, and count it under `counter`
-    (None: a measurement's launch, counted nowhere)."""
-    lib = library(defines)
+    (None: a measurement's launch, counted nowhere). On the current device
+    (the usual case) it takes the raw stream handle alone, without a device
+    context or a Stream object: a step launches several kernels, and those
+    lookups took most of a launcher's host time."""
+    lib = _libs.get(defines) or library(defines)
     timed = _EVENTS is not None and counter is not None
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    with contextlib.nullcontext() if index == current else torch.cuda.device(index):
         if timed:
             pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            pair[0].record(stream)
-        err = getattr(lib, fn_name)(*args, stream.cuda_stream)
+            pair[0].record()
+        err = getattr(lib, fn_name)(*args, torch._C._cuda_getCurrentRawStream(index))
         if timed:
-            pair[1].record(stream)
+            pair[1].record()
             _EVENTS.setdefault(counter, []).append(pair)
     if err != 0:
         raise RuntimeError(

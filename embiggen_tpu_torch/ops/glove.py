@@ -13,10 +13,12 @@ Kernel K13 (`csrc/glove.cu`), in two parts:
   (a hub's, longer than that, bucketed by windows of contexts, a block
   summing each window in shared memory), a scan of the distinct counts and
   a copy into place; no 64-bit key, hash table or library sort.
-- `glove_step` (K13b): for B drawn entry ids, the gradient rows, bias
-  gradients and loss of pred = w_i . c_j + b_i + b_j against log X; the
-  caller scatter-adds them (`index_add_`), so every gradient is taken before
-  any table changes.
+- `glove_step` (K13b): one SGD step for B drawn entry ids on the weighted
+  least squares of pred = w_i . c_j + b_i + b_j against log X, applied to
+  the tables IN PLACE (the JAX version returns new ones), every gradient
+  taken from the tables as they stood before the step. On the card: a
+  gradient launch, then a node-side and a context-side update launch, on a
+  `GloVeStepWorkspace` that a fit allocates once.
 
 Entry ids are drawn uniformly over [0, E) by `draw_entries`: K2's uniform
 mode on the card, `torch.randint` from the fit's generator on the CPU.
@@ -25,7 +27,8 @@ On CPU tensors each is its plain version below.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -214,38 +217,105 @@ def draw_entries(entries: Entries, batch_size: int,
     return out
 
 
-Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-             torch.Tensor]
+# Entries a block of K13b's gradient launch (`kThreads` in csrc/glove.cu).
+_STEP_BLOCK = 256
+
+
+@dataclasses.dataclass
+class GloVeStepWorkspace:
+    """What K13b's three launches hand each other, allocated once a fit: the
+    context side's scaled rows g w_i [B, D], each entry's i, j (int32) and g,
+    the gradient launch's loss partials (one a block of 256 entries) and the
+    loss sum (0-d), all float32 but i and j."""
+
+    rows: torch.Tensor
+    i: torch.Tensor
+    j: torch.Tensor
+    g: torch.Tensor
+    partials: torch.Tensor
+    loss: torch.Tensor
+
+    @classmethod
+    def empty(cls, batch_size: int, d: int, device) -> "GloVeStepWorkspace":
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(torch.empty((batch_size, d), **f32),
+                   *torch.empty((2, batch_size), dtype=torch.int32, device=device),
+                   torch.empty((batch_size,), **f32),
+                   torch.empty((-(-batch_size // _STEP_BLOCK),), **f32),
+                   torch.empty((), **f32))
+
+
+def glove_gradients_plain(
+    entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor, center_bias: torch.Tensor,
+    context_bias: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K13b's gradient launch: (i, j, g, the rows g w_i,
+    the loss sum)."""
+    ids = ids.long()
+    i, j = entries.ci[ids], entries.cj[ids]
+    f_x, log_x = entries.f_x[ids], entries.log_x[ids]
+    w, c = node_embedding[i], context_embedding[j]
+    diff = (w * c).sum(1) + center_bias[i] + context_bias[j] - log_x
+    g = 2.0 * f_x * diff / ids.shape[0]
+    return i, j, g, g[:, None] * w, (f_x * diff * diff).sum()
+
+
+def glove_node_update_plain(
+    node_embedding: torch.Tensor, context_embedding: torch.Tensor,
+    center_bias: torch.Tensor, context_bias: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+    g: torch.Tensor, lr: float,
+) -> None:
+    """Plain version of K13b's node-side update (before the context side
+    changes)."""
+    node_embedding.index_add_(0, i, g[:, None] * context_embedding[j], alpha=-lr)
+    center_bias.index_add_(0, i, g, alpha=-lr)
+    context_bias.index_add_(0, j, g, alpha=-lr)
+
+
+def glove_context_update_plain(context_embedding: torch.Tensor, rows: torch.Tensor,
+                               j: torch.Tensor, lr: float) -> None:
+    """Plain version of K13b's context-side update: the rows g w_i."""
+    context_embedding.index_add_(0, j, rows, alpha=-lr)
 
 
 def glove_step_plain(
     entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
     context_embedding: torch.Tensor, center_bias: torch.Tensor,
-    context_bias: torch.Tensor,
-) -> Step:
-    """Plain PyTorch version of K13b."""
-    ids = ids.long()
-    i, j = entries.ci[ids], entries.cj[ids]
-    f_x, log_x = entries.f_x[ids], entries.log_x[ids]
-    w, c = node_embedding[i.long()], context_embedding[j.long()]
-    diff = (w * c).sum(1) + center_bias[i.long()] + context_bias[j.long()] - log_x
-    g = 2.0 * f_x * diff / ids.shape[0]
-    return i, j, g[:, None] * c, g[:, None] * w, g, (f_x * diff * diff).sum()
+    context_bias: torch.Tensor, lr: float,
+) -> torch.Tensor:
+    """Plain version of K13b: its three launches' plain versions in order."""
+    i, j, g, rows, loss = glove_gradients_plain(entries, ids, node_embedding,
+                                                context_embedding, center_bias, context_bias)
+    glove_node_update_plain(node_embedding, context_embedding, center_bias, context_bias, i, j,
+                            g, lr)
+    glove_context_update_plain(context_embedding, rows, j, lr)
+    return loss
 
 
 def glove_step(
     entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
     context_embedding: torch.Tensor, center_bias: torch.Tensor,
-    context_bias: torch.Tensor,
-) -> Step:
-    """One GloVe step's gradients for the B entries `ids` (int32) of
-    `entries`: (i, j, g c_j [B, D], g w_i [B, D], g [B], loss sum) with
-    g = 2 f (pred - log X) / B, the gradient of the batch mean of
-    f (pred - log X)^2 with respect to pred; g is both biases' gradient.
-    K13b on CUDA tensors, the plain version on CPU tensors."""
+    context_bias: torch.Tensor, lr: float,
+    workspace: Optional[GloVeStepWorkspace] = None,
+) -> torch.Tensor:
+    """One GloVe step for the B entries `ids` (int32) of `entries`, in
+    place: with g = 2 f (pred - log X) / B, the gradient of the batch mean
+    of f (pred - log X)^2 with respect to pred, node_embedding[i] -= lr g
+    c_j, context_embedding[j] -= lr g w_i and both biases -= lr g, summed
+    over repeated rows, every gradient from the tables before the step.
+    Returns the loss sum as a 0-d tensor: `workspace.loss`, overwritten by
+    the next step on the workspace, where one is given. The tables may be
+    views (Walklets' slices of [P, N, D] tables) but must be contiguous.
+
+    K13b on CUDA tensors: the gradient launch, the node-side update and the
+    context-side update, counted under "glove_gradients",
+    "glove_node_update" and "glove_context_update", on `workspace` (B rows),
+    else on fresh buffers. The plain version on CPU tensors, which takes no
+    workspace."""
     if not _build.is_cuda(ids):
         return glove_step_plain(entries, ids, node_embedding, context_embedding,
-                                center_bias, context_bias)
+                                center_bias, context_bias, lr)
     dev = ids.device
     n, d = node_embedding.shape
     b, e = ids.shape[0], entries.n_entries
@@ -259,15 +329,27 @@ def glove_step(
                            (center_bias, "center_bias", (n,)),
                            (context_bias, "context_bias", (n,))):
         _build.check(t, name, torch.float32, shape, dev)
-    i = torch.empty((b,), dtype=torch.int32, device=dev)
-    j = torch.empty_like(i)
-    gw = torch.empty((b, d), dtype=torch.float32, device=dev)
-    gc = torch.empty_like(gw)
-    g = torch.empty((b,), dtype=torch.float32, device=dev)
-    loss = torch.empty_like(g)
-    _build.launch("glove_step", "ebt_glove_step", dev, *(t.data_ptr() for t in entries),
-                  ids.data_ptr(), node_embedding.data_ptr(), context_embedding.data_ptr(),
-                  center_bias.data_ptr(), context_bias.data_ptr(), i.data_ptr(),
-                  j.data_ptr(), gw.data_ptr(), gc.data_ptr(), g.data_ptr(),
-                  loss.data_ptr(), b, d, 1.0 / b if b else 0.0)
-    return i, j, gw, gc, g, loss.sum()
+    ws = GloVeStepWorkspace.empty(b, d, dev) if workspace is None else workspace
+    for t, name, dtype, shape in (
+            (ws.rows, "rows", torch.float32, (b, d)), (ws.i, "i", torch.int32, (b,)),
+            (ws.j, "j", torch.int32, (b,)), (ws.g, "g", torch.float32, (b,)),
+            (ws.partials, "partials", torch.float32, (-(-b // _STEP_BLOCK),)),
+            (ws.loss, "loss", torch.float32, ())):
+        _build.check(t, f"workspace.{name}", dtype, shape, dev)
+    if b == 0:
+        return ws.loss.zero_()
+    _build.launch("glove_gradients", "ebt_glove_gradients", dev,
+                  *(t.data_ptr() for t in entries), ids.data_ptr(),
+                  node_embedding.data_ptr(), context_embedding.data_ptr(),
+                  center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
+                  ws.j.data_ptr(), ws.g.data_ptr(), ws.rows.data_ptr(),
+                  ws.partials.data_ptr(), b, d, 1.0 / b)
+    _build.launch("glove_node_update", "ebt_glove_node_update", dev,
+                  node_embedding.data_ptr(), context_embedding.data_ptr(),
+                  center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
+                  ws.j.data_ptr(), ws.g.data_ptr(), ws.partials.data_ptr(),
+                  ws.partials.shape[0], ws.loss.data_ptr(), b, d, float(lr))
+    _build.launch("glove_context_update", "ebt_glove_context_update", dev,
+                  context_embedding.data_ptr(), ws.rows.data_ptr(), ws.j.data_ptr(), b, d,
+                  float(lr))
+    return ws.loss

@@ -10,10 +10,16 @@ scale-free draw is one uniform arc id and one gather. On a CUDA graph the
 node draws are kernel K2 (`csrc/sampling.cu`), the edge minibatch kernel K6
 (`csrc/edges.cu`) and the siamese and LINE batches kernel K14
 (`csrc/batches.cu`); on a CPU graph the plain versions below.
+
+K14 writes each batch into one int32 block, in the layout the steps take.
+A fit passes a `BatchDraws` workspace: the block allocated once, and one
+Philox key drawn from the fit's generator at its first batch, with each
+batch at its own counter offset, so a step makes no host RNG call.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -160,10 +166,63 @@ def edge_prediction_mini_batch(
     return out_src, out_dst, labels
 
 
+@dataclasses.dataclass
+class BatchDraws:
+    """A fit's K14 batches: the int32 `block` each batch is written into,
+    allocated once, and the draws' Philox key and the next batch's counter
+    offset. The key is drawn from the fit's generator at the first batch on
+    the card; each batch then takes the next offset, so batches never share
+    a counter (the kernel's counters are (slot, word, offset)) and the draws
+    still follow the fit's seed. The plain versions draw from the generator
+    and copy into the block."""
+
+    block: torch.Tensor
+    key: Optional[int] = None
+    offset: int = 0
+    # LINE's (src, dst, neg) views of the block, made once.
+    views: Tuple[torch.Tensor, ...] = ()
+
+    @classmethod
+    def line(cls, batch_size: int, number_of_negative_samples: int, device) -> "BatchDraws":
+        """For LINE: [B (2 + K)], src, dst and neg [B, K] one after another."""
+        block = torch.empty((batch_size * (2 + number_of_negative_samples),),
+                            dtype=torch.int32, device=device)
+        return cls(block, views=_line_views(block, batch_size, number_of_negative_samples))
+
+    @classmethod
+    def siamese(cls, batch_size: int, with_edge_types: bool, device) -> "BatchDraws":
+        """For the siamese models: [4, B] rows src, dst, csrc, cdst, and a
+        fifth row of edge types with `with_edge_types`."""
+        return cls(torch.empty((5 if with_edge_types else 4, batch_size), dtype=torch.int32,
+                               device=device))
+
+    def seed(self, generator: torch.Generator) -> Tuple[int, int]:
+        """(key, offset) of the next batch on the card."""
+        if self.key is None:
+            self.key, _ = _build.draw_seed(generator)
+        out = self.key, self.offset
+        self.offset = (self.offset + 1) & 0xFFFFFFFF
+        return out
+
+
+def _line_views(block: torch.Tensor, batch_size: int, k: int):
+    return (block[:batch_size], block[batch_size:2 * batch_size],
+            block[2 * batch_size:].view(batch_size, k))
+
+
+def _line_workspace_views(workspace: BatchDraws, batch_size: int, k: int, device):
+    _build.check(workspace.block, "workspace.block", torch.int32, (batch_size * (2 + k),),
+                 device)
+    if tuple(workspace.views[2].shape) != (batch_size, k):
+        raise ValueError(f"workspace was made for negatives {tuple(workspace.views[2].shape)}, "
+                         f"not ({batch_size}, {k}).")
+    return workspace.views
+
+
 def siamese_mini_batch_plain(
     tg: TorchGraph, generator: torch.Generator, batch_size: int,
     use_scale_free_distribution: bool = True, with_edge_types: bool = False,
-) -> Tuple[torch.Tensor, ...]:
+) -> torch.Tensor:
     """Plain PyTorch version of K14's siamese batch."""
     dev = tg.device
     arc = torch.randint(0, max(tg.n_arcs, 1), (batch_size,), generator=generator,
@@ -173,38 +232,55 @@ def siamese_mini_batch_plain(
     node = nce_negatives_plain(tg, generator, (batch_size,), use_scale_free_distribution)
     corrupt_src = torch.randint(0, 2, (batch_size,), generator=generator,
                                 device=dev).bool()
-    out = (src, dst, torch.where(corrupt_src, node, src),
-           torch.where(corrupt_src, dst, node))
+    out = [src, dst, torch.where(corrupt_src, node, src), torch.where(corrupt_src, dst, node)]
     if with_edge_types:
-        out += (tg.edge_types[arc] if tg.edge_types is not None
-                else torch.zeros(batch_size, dtype=torch.int32, device=dev),)
-    return out
+        out.append(tg.edge_types[arc] if tg.edge_types is not None
+                   else torch.zeros(batch_size, dtype=torch.int32, device=dev))
+    return torch.stack(out)
+
+
+def _check_block(workspace: BatchDraws, shape, device) -> torch.Tensor:
+    _build.check(workspace.block, "workspace.block", torch.int32, shape, device)
+    return workspace.block
 
 
 def siamese_mini_batch(
     tg: TorchGraph, generator: torch.Generator, batch_size: int,
     use_scale_free_distribution: bool = True, with_edge_types: bool = False,
-) -> Tuple[torch.Tensor, ...]:
-    """(src, dst, corrupted_src, corrupted_dst[, edge_type]), each [B] int32:
-    uniform arcs, each with one side replaced by a scale-free (or uniform)
-    node, the side chosen by a fair coin; with `with_edge_types`, the arc's
-    edge type (0 on a graph without types). Kernel K14 on a CUDA graph
-    (Philox seeded from `generator`), the plain version on a CPU graph."""
+    workspace: Optional[BatchDraws] = None,
+) -> torch.Tensor:
+    """[4, B] int32 rows (src, dst, corrupted_src, corrupted_dst): uniform
+    arcs, each with one side replaced by a scale-free (or uniform) node, the
+    side chosen by a fair coin; with `with_edge_types`, a fifth row with the
+    arc's edge type (0 on a graph without types). Kernel K14 on a CUDA graph
+    (Philox seeded from `generator`, or at the workspace's key and next
+    offset), the plain version on a CPU graph. With a `workspace`
+    (`BatchDraws.siamese`) the batch is its block, overwritten by the next
+    batch; else a fresh tensor."""
+    rows = 5 if with_edge_types else 4
     if not _build.is_cuda(tg.col_idx):
-        return siamese_mini_batch_plain(tg, generator, batch_size,
-                                        use_scale_free_distribution, with_edge_types)
+        out = siamese_mini_batch_plain(tg, generator, batch_size,
+                                       use_scale_free_distribution, with_edge_types)
+        if workspace is None:
+            return out
+        return _check_block(workspace, (rows, batch_size), tg.device).copy_(out)
     if tg.n_arcs == 0:
         raise ValueError("The siamese batch needs a graph with arcs.")
     dev = tg.device
-    out = tuple(torch.empty((batch_size,), dtype=torch.int32, device=dev)
-                for _ in range(5 if with_edge_types else 4))
-    seed, offset = _build.draw_seed(generator)
+    if workspace is None:
+        out = torch.empty((rows, batch_size), dtype=torch.int32, device=dev)
+        seed, offset = _build.draw_seed(generator)
+    else:
+        out = _check_block(workspace, (rows, batch_size), dev)
+        seed, offset = workspace.seed(generator)
+    row = out.stride(0) * out.element_size()
+    base = out.data_ptr()
     _build.launch(
         "siamese_mini_batch", "ebt_siamese_batch", dev,
         tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),
         _build.ptr(tg.edge_types), tg.n_nodes, tg.n_arcs, batch_size,
-        int(use_scale_free_distribution), *(t.data_ptr() for t in out[:4]),
-        out[4].data_ptr() if with_edge_types else None, seed, offset,
+        int(use_scale_free_distribution), base, base + row, base + 2 * row, base + 3 * row,
+        base + 4 * row if with_edge_types else None, seed, offset,
     )
     return out
 
@@ -234,24 +310,38 @@ def line_mini_batch_plain(
 def line_mini_batch(
     tg: TorchGraph, generator: torch.Generator, batch_size: int,
     number_of_negative_samples: int, use_scale_free_distribution: bool = True,
-    avoid_false_negatives: bool = False,
+    avoid_false_negatives: bool = False, workspace: Optional[BatchDraws] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(src [B], dst [B], neg [B, K]) int32: uniform arcs, each with K
-    scale-free (or uniform) negatives. With `avoid_false_negatives`, a
-    negative that is an arc of its src is redrawn once and the redraw is
-    kept unchecked (self-loops are not checked). Kernel K14 on a CUDA graph
-    (Philox seeded from `generator`), the plain version on a CPU graph."""
+    """(src [B], dst [B], neg [B, K]) int32 (views of one block on the card
+    or with a workspace): uniform arcs, each with K scale-free (or uniform)
+    negatives. With
+    `avoid_false_negatives`, a negative that is an arc of its src is redrawn
+    once and the redraw is kept unchecked (self-loops are not checked).
+    Kernel K14 on a CUDA graph (Philox seeded from `generator`, or at the
+    workspace's key and next offset), the plain version on a CPU graph. With
+    a `workspace` (`BatchDraws.line`) the block is its own, overwritten by
+    the next batch; else a fresh one."""
+    k = number_of_negative_samples
+    size = (batch_size * (2 + k),)
     if not _build.is_cuda(tg.col_idx):
-        return line_mini_batch_plain(tg, generator, batch_size, number_of_negative_samples,
-                                     use_scale_free_distribution, avoid_false_negatives)
+        out = line_mini_batch_plain(tg, generator, batch_size, k,
+                                    use_scale_free_distribution, avoid_false_negatives)
+        if workspace is None:
+            return out
+        views = _line_workspace_views(workspace, batch_size, k, tg.device)
+        for view, t in zip(views, out):
+            view.copy_(t)
+        return views
     if tg.n_arcs == 0:
         raise ValueError("The LINE batch needs a graph with arcs.")
     dev = tg.device
-    src = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    dst = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    neg = torch.empty((batch_size, number_of_negative_samples), dtype=torch.int32,
-                      device=dev)
-    seed, offset = _build.draw_seed(generator)
+    if workspace is None:
+        src, dst, neg = _line_views(torch.empty(size, dtype=torch.int32, device=dev),
+                                    batch_size, k)
+        seed, offset = _build.draw_seed(generator)
+    else:
+        src, dst, neg = _line_workspace_views(workspace, batch_size, k, dev)
+        seed, offset = workspace.seed(generator)
     _build.launch(
         "line_mini_batch", "ebt_line_batch", dev,
         tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),

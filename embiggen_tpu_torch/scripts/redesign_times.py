@@ -2,7 +2,8 @@
 steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
-                                                         k18 nodesketch k16b gcn_hll]
+                                                         k18 nodesketch k16b gcn_hll k13b glove
+                                                         k14]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -27,9 +28,10 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   gradients at D 128 on a workspace: the context update (segments dst and
   negatives) and the node update (src), each as the wrapper's mean time and
   its scatter and combine launches' (events around each launch);
-- Second- and First-order LINE (D 128, batch 65536): the mean step time
-  over 30 steady steps on CUDA events, K4 standalone's launches' share of
-  10 of them, and the seconds of one epoch through `fit_transform`;
+- Second- and First-order LINE and TransE (D 128, batch 65536; TransE's
+  edge types arange(E) % 8): the mean step time over 30 steady steps on
+  CUDA events, K4 standalone's launches' share of 10 of them, and the
+  seconds of one epoch through `fit_transform`;
 - K12 at the S7 Walklets shapes (P 4, sub 32, B 32768, L 64, K 10) on
   seeded tables, walks and negatives: its mean time over 10 calls in each
   mode; and the Walklets SkipGram and CBOW steps at those settings (D 128):
@@ -54,7 +56,24 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   three hops: the mean time over 20 calls at precision 8, then 4 and 12;
   and the S3 GCN step (batch 2^20, seeded node features of width 128) with
   lazy HyperSketching features at its defaults: the mean step time over
-  20 steady steps on CUDA events and K16b's launch time in 10 of them.
+  20 steady steps on CUDA events and K16b's launch time in 10 of them;
+- K13b on the S7 GloVe build's entries (a walk of 16 from every node, window
+  2) at B 65536, D 128, on seeded tables: the step's update, the mean over
+  20 calls on CUDA events (a checkout whose K13b returns gradients: K13b,
+  then the step's four `index_add_`s and its loss division; else K13b's
+  launches on a workspace), and each launch's time;
+- Node2Vec GloVe at the S7 settings (D 128, batch 65536, L 16, w 2): the mean
+  `_step` time over 30 steady steps on injected ids, on CUDA events, and
+  with its own draws (K2), the port's launches a step, and the seconds of
+  one epoch through `fit_transform`;
+- K14 at the S6 shapes (B 65536, K 5, scale-free; the siamese batch with
+  edge types arange(E) % 8), fresh and on a workspace where the checkout has
+  one: the mean time a call over 200 calls on CUDA events, the kernel's
+  device time from torch.profiler, the wrapper's host time a call
+  (`time.perf_counter` over 500 calls), and the host time of each part of
+  the wrapper alone: an output's `torch.empty`, `_build.draw_seed`, the
+  device context with the stream lookup, the ctypes call (which launches the
+  kernel) and `_build.launch` whole.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -62,6 +81,8 @@ limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import inspect
 import json
 import subprocess
 import time
@@ -71,6 +92,9 @@ import torch
 
 N_NODES, N_EDGES = 1_000_000, 10_000_000
 DIM, LINE_BATCH, LINE_NEGS, GLOVE_WALK = 128, 65536, 5, 16
+# At least 0.2 s of the card's clock (under 2 GHz): longer than the host
+# takes to enqueue the calls `queued_ms` times.
+SLEEP_CYCLES = 400_000_000
 
 
 def time_ms(fn, reps: int) -> float:
@@ -84,6 +108,48 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call with the calls queued ahead of the
+    card: a sleep kernel holds the stream while the host enqueues them, so
+    the events time the device's work without the host's gaps (`time_ms`
+    times what a caller sees, host and device)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    if enqueue_s >= SLEEP_CYCLES / 2e9:
+        raise RuntimeError(f"enqueueing the calls took {enqueue_s} s, longer than the sleep")
+    return start.elapsed_time(end) / reps
+
+
+def kernel_table(fn, reps: int = 10) -> dict:
+    """{kernel name (its first 60 characters): [device ms per call,
+    launches per call]} of every kernel in `reps` calls of `fn`, from
+    torch.profiler (which may drop records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = out.setdefault(e.name[:60], [0.0, 0.0])
+            row[0] += e.time_range.elapsed_us() / 1e3 / reps
+            row[1] += 1 / reps
+    return out
 
 
 def launch_ms(fn, reps: int) -> dict:
@@ -246,18 +312,25 @@ def k4_times(graph, dev) -> dict:
     return out
 
 
+def typed_graph(graph, n_types: int = 8):
+    """`graph` with edge types arange(E) % n_types, as bench.py types it."""
+    return dataclasses.replace(graph, edge_types=(
+        np.arange(graph.number_of_directed_edges) % n_types).astype(np.int32))
+
+
 def line_times(graph, dev) -> dict:
-    from embiggen_tpu_torch.models.embedders import FirstOrderLINE, SecondOrderLINE
+    from embiggen_tpu_torch.models.embedders import FirstOrderLINE, SecondOrderLINE, TransE
     from embiggen_tpu_torch.ops import _build
 
     out = {}
-    for cls in (SecondOrderLINE, FirstOrderLINE):
+    for cls, g in ((SecondOrderLINE, graph), (FirstOrderLINE, graph),
+                   (TransE, typed_graph(graph))):
         model = cls(device=dev, embedding_size=DIM, batch_size=LINE_BATCH, epochs=1,
                     random_state=0)
         model._run_batch_size = LINE_BATCH
-        tg = model._prepare_data(graph)
+        tg = model._prepare_data(g)
         gen = torch.Generator().manual_seed(0)
-        params = model._init_params(graph, gen)
+        params = model._init_params(g, gen)
 
         def step():
             with torch.no_grad():
@@ -273,12 +346,12 @@ def line_times(graph, dev) -> dict:
         fit = cls(device=dev, embedding_size=DIM, batch_size=LINE_BATCH, epochs=1,
                   random_state=0, early_stopping_patience=10**6)
         t0 = time.perf_counter()
-        fit.fit_transform(graph)
+        fit.fit_transform(g)
         out[cls.model_name()] = dict(
             step_ms=step_ms, k4_ms_per_step=k4,
             kernels_ms_per_step={k: v for k, v in kernels.items() if not k.endswith("_each")},
             epoch_s=fit._epoch_seconds[0], fit_s=time.perf_counter() - t0,
-            steps_per_epoch=fit._steps_per_epoch(graph, None, LINE_BATCH))
+            steps_per_epoch=fit._steps_per_epoch(g, None, LINE_BATCH))
         _build.reset_launch_counts()
     return out
 
@@ -528,8 +601,153 @@ def gcn_hll_times(graph, dev) -> dict:
     return out
 
 
+GLOVE = dict(embedding_size=DIM, batch_size=65536, walk_length=GLOVE_WALK, window_size=2,
+             iterations=1, early_stopping_patience=10**6)
+GLOVE_TABLES = ("node_embedding", "context_embedding", "center_bias", "context_bias")
+
+
+def glove_setup(graph, dev):
+    """Node2Vec GloVe at the S7 settings: the model, its entries on `graph`
+    and its seeded initial tables."""
+    from embiggen_tpu_torch.models.embedders import GloVe
+
+    model = GloVe(device=dev, epochs=1, random_state=0, **GLOVE)
+    entries = model._prepare_data(graph)
+    model._run_batch_size = model._resolve_batch_size(graph, entries)
+    params = model._init_params(graph, torch.Generator().manual_seed(0))
+    return model, entries, params
+
+
+def k13b_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops import glove as ops
+
+    model, entries, params = glove_setup(graph, dev)
+    b, lr = model._run_batch_size, 1e-4
+    ids = torch.from_numpy(np.random.default_rng(13).integers(
+        0, entries.n_entries, b, dtype=np.int32)).to(dev)
+    tables = [params[k] for k in GLOVE_TABLES]
+    in_place = "lr" in inspect.signature(ops.glove_step).parameters
+    if in_place:
+        ws = ops.GloVeStepWorkspace.empty(b, DIM, dev)
+
+        def update():
+            ops.glove_step(entries, ids, *tables, lr, ws) / b
+    else:
+        def update():
+            i, j, gw, gc, g, loss = ops.glove_step(entries, ids, *tables)
+            for t, rows, grad in zip(tables, (i, j, i, j), (gw, gc, g, g)):
+                t.index_add_(0, rows, grad, alpha=-lr)
+            loss / b
+    out = dict(batch=b, entries=entries.n_entries, in_place=in_place, ms=time_ms(update, 20),
+               device_ms=queued_ms(update, 20), kernels=kernel_table(update))
+    del model, entries, params, tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def glove_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.embedders import GloVe
+    from embiggen_tpu_torch.ops import _build
+
+    model, entries, params = glove_setup(graph, dev)
+    b = model._run_batch_size
+    gen = torch.Generator().manual_seed(0)
+    cuda_gen = torch.Generator(device=dev).manual_seed(1)
+    ids = [torch.randint(0, entries.n_entries, (b,), generator=cuda_gen, device=dev,
+                         dtype=torch.int32) for _ in range(8)]
+    calls = iter(range(10**9))
+
+    def injected():
+        with torch.no_grad():
+            model._step(entries, params, gen, 0.05,
+                        batch=((ids[next(calls) % len(ids)],), entries))
+
+    def drawn():
+        with torch.no_grad():
+            model._step(entries, params, gen, 0.05)
+    for _ in range(3):
+        injected()
+    out = dict(step_ms=time_ms(injected, 30), step_device_ms=queued_ms(injected, 30),
+               kernels=kernel_table(injected), step_with_draw_ms=time_ms(drawn, 30),
+               step_with_draw_device_ms=queued_ms(drawn, 30))
+    _build.reset_launch_counts()
+    drawn()
+    torch.cuda.synchronize()
+    out["port_launches_per_step"] = {k: v for k, v in _build.launch_counts().items() if v}
+    del model, entries, params, ids
+    torch.cuda.empty_cache()
+    fit = GloVe(device=dev, epochs=1, random_state=0, **GLOVE)
+    t0 = time.perf_counter()
+    fit.fit_transform(graph)
+    out.update(epoch_s=fit._epoch_seconds[0], fit_s=time.perf_counter() - t0,
+               steps_per_epoch=fit._steps_per_epoch(graph, None, fit._run_batch_size))
+    del fit
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds a call of `fn` (what it enqueues is not
+    waited for, but the card keeps up with these calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def k14_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops import _build, negatives
+
+    tg = graph.device(dev, with_sources=True)
+    typed = dataclasses.replace(
+        tg, edge_types=(torch.arange(tg.n_arcs, device=dev) % 8).int())
+    b, k = LINE_BATCH, LINE_NEGS
+    gen = torch.Generator().manual_seed(55)
+    calls = {"line": (lambda: negatives.line_mini_batch(tg, gen, b, k), "line_batch_kernel"),
+             "siamese": (lambda: negatives.siamese_mini_batch(typed, gen, b, True, True),
+                         "siamese_batch_kernel")}
+    if "workspace" in inspect.signature(negatives.line_mini_batch).parameters:
+        line_ws = negatives.BatchDraws.line(b, k, dev)
+        siamese_ws = negatives.BatchDraws.siamese(b, True, dev)
+        calls["line_workspace"] = (
+            lambda: negatives.line_mini_batch(tg, gen, b, k, workspace=line_ws),
+            "line_batch_kernel")
+        calls["siamese_workspace"] = (
+            lambda: negatives.siamese_mini_batch(typed, gen, b, True, True,
+                                                 workspace=siamese_ws),
+            "siamese_batch_kernel")
+    out = {}
+    for name, (fn, kernel) in calls.items():
+        device_ms, per_call = next(v for k, v in kernel_table(fn, 20).items() if kernel in k)
+        out[name] = dict(events_ms=time_ms(fn, 200), queued_ms=queued_ms(fn, 200),
+                         device_ms=device_ms, profiler_records_per_call=per_call,
+                         host_us=host_us(fn, 500))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    src, dst, neg = (torch.empty((b,), dtype=torch.int32, device=dev),
+                     torch.empty((b,), dtype=torch.int32, device=dev),
+                     torch.empty((b, k), dtype=torch.int32, device=dev))
+    args = (tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), tg.sources.data_ptr(), tg.n_nodes,
+            tg.n_arcs, b, k, 1, 0, src.data_ptr(), dst.data_ptr(), neg.data_ptr(), 7, 0)
+
+    def device_and_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+    out["line_parts_us"] = dict(
+        empty=host_us(lambda: torch.empty((b,), dtype=torch.int32, device=dev), 1000),
+        draw_seed=host_us(lambda: _build.draw_seed(gen), 1000),
+        device_and_stream=host_us(device_and_stream, 1000),
+        ctypes_call=host_us(lambda: lib.ebt_line_batch(*args, stream), 500),
+        launch=host_us(lambda: _build.launch(None, "ebt_line_batch", dev, *args), 500))
+    return out
+
+
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll")
+         "gcn_hll", "k13b", "glove", "k14")
 
 
 def main() -> None:
@@ -551,7 +769,8 @@ def main() -> None:
     graph = erdos_renyi(N_NODES, N_EDGES, seed=0)
     timers = dict(k13a=k13a_times, k4=k4_times, line=line_times, k12=k12_times,
                   walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
-                  nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times)
+                  nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
+                  k13b=k13b_times, glove=glove_times, k14=k14_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

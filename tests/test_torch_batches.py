@@ -4,7 +4,9 @@ CPU against their exact laws (`tests/batch_laws.py`) by chi-square (fail at
 p < 1e-3, fixed seeds), on small weighted and unweighted graphs: positives
 uniform over the arcs, the corrupted nodes and the coin, the edge types,
 and LINE's negatives with and without the one unchecked redraw of
-`avoid_false_negatives`. Weights play no part in either law."""
+`avoid_false_negatives`. Weights play no part in either law. Then a fit's
+workspace (`BatchDraws`): one block for every batch, one key and a new
+counter offset a batch."""
 import dataclasses
 
 import numpy as np
@@ -17,7 +19,8 @@ from batch_laws import (
 )
 from embiggen_tpu_torch.graph import erdos_renyi
 from embiggen_tpu_torch.ops.negatives import (
-    line_mini_batch, line_mini_batch_plain, siamese_mini_batch, siamese_mini_batch_plain,
+    BatchDraws, line_mini_batch, line_mini_batch_plain, siamese_mini_batch,
+    siamese_mini_batch_plain,
 )
 
 torch.set_num_threads(1)
@@ -112,6 +115,52 @@ def test_line_batch_avoid_removes_arcs():
         pairs = g.has_edges(src.numpy().repeat(5), neg.numpy().reshape(-1))
         counts.append(int(pairs.sum()))
     assert counts[0] > 1000 and counts[1] < counts[0] / 10
+
+
+@pytest.mark.parametrize("sampler", ["line", "siamese"])
+def test_workspace_steps_draw_new_batches_that_a_seed_repeats(sampler):
+    """Successive batches on one workspace (`BatchDraws`) differ, each is
+    written into the workspace's block (LINE's src, dst and neg [B, K] as
+    views of it in that order, the siamese rows as the block itself), the
+    same seed repeats the batches, and another seed does not."""
+    _, tg = _graph(False, typed=True)
+    b, k = 500, 3
+
+    def batches(seed):
+        gen = torch.Generator().manual_seed(seed)
+        ws = BatchDraws.line(b, k, "cpu") if sampler == "line" else BatchDraws.siamese(
+            b, True, "cpu")
+        out = []
+        for _ in range(3):
+            if sampler == "line":
+                src, dst, neg = line_mini_batch(tg, gen, b, k, True, True, workspace=ws)
+                assert torch.equal(torch.cat([src, dst, neg.reshape(-1)]), ws.block)
+                assert src.data_ptr() == ws.block.data_ptr() and neg.shape == (b, k)
+            else:
+                block = siamese_mini_batch(tg, gen, b, True, True, workspace=ws)
+                assert block.data_ptr() == ws.block.data_ptr() and block.shape == (5, b)
+            out.append(ws.block.clone())
+        return out
+
+    first = batches(9)
+    assert all(torch.equal(x, y) for x, y in zip(first, batches(9)))
+    assert not torch.equal(first[0], first[1]) and not torch.equal(first[1], first[2])
+    assert not torch.equal(batches(10)[0], first[0])
+
+
+def test_workspace_draws_one_key_and_a_new_offset_a_batch():
+    """The card's draws on a workspace: the Philox key is drawn from the
+    fit's generator once, at the first batch, so it follows the seed; each
+    batch takes the next counter offset."""
+    def seeds(seed):
+        ws, gen = BatchDraws.line(8, 2, "cpu"), torch.Generator().manual_seed(seed)
+        return [ws.seed(gen) for _ in range(4)]
+
+    first = seeds(4)
+    assert first == seeds(4)
+    assert [offset for _, offset in first] == [0, 1, 2, 3]
+    assert len({key for key, _ in first}) == 1
+    assert seeds(5)[0][0] != first[0][0]
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():

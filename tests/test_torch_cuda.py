@@ -29,10 +29,11 @@ from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
 from embiggen_tpu_torch.ops.glove import (
-    Entries, cooccurrences, cooccurrences_plain, glove_step, glove_step_plain, glove_strides,
+    Entries, GloVeStepWorkspace, cooccurrences, cooccurrences_plain, glove_step,
+    glove_step_plain, glove_strides,
 )
 from embiggen_tpu_torch.ops.negatives import (
-    edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
+    BatchDraws, edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
 )
 from embiggen_tpu_torch.ops.scatter import (
     MeanScatterSums, SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
@@ -47,6 +48,7 @@ from embiggen_tpu_torch.ops.walks import (
 from batch_laws import (
     arc_ids, exact_p, line_negative_law_by_source, rows_p, siamese_counts,
 )
+import glove_checks
 from hll_checks import MAX_TIE_SHARE, feature_errors
 from pq_laws import (
     Laws, arc_weights, n_tries_for, rows_of_32_and_33, two_hubs, walks_chi2_p,
@@ -702,6 +704,64 @@ def test_line_batch_kernel_matches_its_law(dev, scale_free, avoid, with_sources)
         assert torch.equal(neg.reshape(-1)[clean], first.reshape(-1)[clean])
 
 
+@pytest.mark.parametrize("sampler", ["line", "siamese"])
+@pytest.mark.parametrize("with_workspace", [False, True])
+def test_k14_batches_lie_in_one_block(dev, sampler, with_workspace):
+    """K14's outputs: LINE's src, dst and neg [B, K] are views of one int32
+    block, in that order; the siamese rows are one [5, B] block (src, dst,
+    csrc, cdst, types). On a workspace (`BatchDraws`) that block is the
+    workspace's, each call draws a new batch under one key at the next
+    counter offset, the same seed repeats the batches, and the batches keep
+    their laws (here the LINE negatives' cells by source, and the siamese
+    corrupted nodes and sides)."""
+    import dataclasses
+
+    g = erdos_renyi(60, 1100, seed=7)
+    g = dataclasses.replace(g, edge_types=(np.arange(g.number_of_directed_edges) % 5)
+                            .astype(np.int32))
+    tg = g.device(dev, with_sources=True)
+    b, k = 60_000, 5
+
+    def batches(seed):
+        gen = torch.Generator().manual_seed(seed)
+        ws = ((BatchDraws.line(b, k, dev) if sampler == "line"
+               else BatchDraws.siamese(b, True, dev)) if with_workspace else None)
+        out = []
+        for _ in range(3):
+            if sampler == "line":
+                src, dst, neg = line_mini_batch(tg, gen, b, k, True, False, workspace=ws)
+                assert src.data_ptr() + 4 * b == dst.data_ptr()
+                assert dst.data_ptr() + 4 * b == neg.data_ptr() and neg.shape == (b, k)
+                block = src
+                out.append(torch.cat([src, dst, neg.reshape(-1)]))
+            else:
+                block = siamese_mini_batch(tg, gen, b, True, True, workspace=ws)
+                assert block.shape == (5, b) and block.dtype == torch.int32
+                out.append(block.clone())
+            if ws is not None:
+                assert block.data_ptr() == ws.block.data_ptr()
+        if ws is not None:
+            assert ws.offset == 3 and ws.key is not None
+        return out
+
+    first, again = batches(11), batches(11)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert not torch.equal(first[0], first[1]) and not torch.equal(first[1], first[2])
+    if sampler == "line":
+        src, neg = first[2][:b], first[2][2 * b:].view(b, k)
+        cells = torch.zeros((60, 60), dtype=torch.float64, device=dev)
+        cells.index_put_((src.long()[:, None].expand(-1, k).reshape(-1), neg.long().reshape(-1)),
+                         torch.ones(neg.numel(), dtype=torch.float64, device=dev),
+                         accumulate=True)
+        m = torch.bincount(src.long(), minlength=60).double()
+        law = line_negative_law_by_source(tg, True, False)
+        assert rows_p(cells.cpu().numpy(), (k * m[:, None] * law).cpu().numpy()) >= 1e-3
+    else:
+        for name, (observed, expected) in siamese_counts(tg, first[2], True).items():
+            assert exact_p(observed, expected) >= 1e-3, name
+        assert torch.equal(first[2][4], tg.edge_types[arc_ids(tg, first[2][0], first[2][1])])
+
+
 def _minibatch_batch(rng, name, n, b=256, k=5):
     if name.endswith("LINE"):
         return (rng.integers(0, n, b, dtype=np.int32), rng.integers(0, n, b, dtype=np.int32),
@@ -734,10 +794,13 @@ def test_minibatch_steps_match_the_cpu(dev, name):
     with torch.no_grad():
         for lr in (0.05, 0.04, 0.03):
             sl = _minibatch_batch(rng, name, 300)
+            # LINE takes (src, dst, neg); the siamese models K14's block of rows.
+            sliceable = (sl if name.endswith("LINE") else (np.stack(sl),))
             for d, m in models.items():
                 m._run_batch_size = 256
+                batch = tuple(torch.from_numpy(x).to(d) for x in sliceable)
                 m._step(graphs[d], params[d], torch.Generator(), lr,
-                        batch=(tuple(torch.from_numpy(x).to(d) for x in sl), ()))
+                        batch=(batch if name.endswith("LINE") else batch[0], ()))
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _build.launch_counts().items() if v > before[k]}
     assert set(launched) == ({"mean_scatter", "mean_combine"} if name.endswith("LINE")
@@ -939,29 +1002,81 @@ def test_cooccurrences_kernel_edge_builds(dev, case):
         assert all(t.shape == (0,) for t in got)
 
 
-@pytest.mark.parametrize("d", [128, 30])
-def test_glove_step_kernel_matches_plain(dev, d):
-    rng = np.random.default_rng(d)
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    e, n, b = 5000, 300, 4096
+GLOVE_COUNTERS = ("glove_gradients", "glove_node_update", "glove_context_update")
+
+
+def _glove_entries(rng, dev, n, e):
     counts = rng.uniform(0.5, 300.0, e).astype(np.float32)
-    entries = Entries(t(rng.integers(0, n, e).astype(np.int32)),
-                      t(rng.integers(0, n, e).astype(np.int32)),
-                      t(np.minimum(1.0, (counts / 100.0) ** 0.75).astype(np.float32)),
-                      t(np.log(counts)))
-    tables = [t(rng.normal(size=s).astype(np.float32)) for s in ((n, d), (n, d), (n,), (n,))]
-    ids = t(rng.integers(0, e, b).astype(np.int32))
-    before = _build.launch_counts()["glove_step"]
-    got = glove_step(entries, ids, *tables)
-    want = glove_step_plain(entries, ids, *tables)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return Entries(t(rng.integers(0, n, e).astype(np.int32)),
+                   t(rng.integers(0, n, e).astype(np.int32)),
+                   t(np.minimum(1.0, (counts / 100.0) ** 0.75).astype(np.float32)),
+                   t(np.log(counts)))
+
+
+def _glove_step_held_to_exact(entries, ids, got, want, lr, workspace=None):
+    """One step of K13b on `got` and of its plain version on `want` (copies
+    of the same tables, or tables that earlier steps of each left apart by
+    rounding), each held to the float64 step from its own tables: the
+    tables' changes within `glove_checks`' bound, the losses within its
+    loss tolerance; and the check refuses K13b's tables before the step, or
+    with a side left out or the signs flipped. Returns K13b's loss."""
+    exact = [glove_checks.step_exact(entries, ids, t, lr) for t in (got, want)]
+    tables_before = [t.clone() for t in got]
+    before = _build.launch_counts()
+    loss = glove_step(entries, ids, *got, lr, workspace)
+    want_loss = glove_step_plain(entries, ids, *want, lr)
     torch.cuda.synchronize()
-    assert _build.launch_counts()["glove_step"] == before + 1
-    for a, w in zip(got[:2], want[:2]):
-        torch.testing.assert_close(a, w, rtol=0, atol=0)
-    # The dot products sum in another order.
-    for a, w in zip(got[2:5], want[2:5]):
-        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=0)
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in GLOVE_COUNTERS} == dict.fromkeys(GLOVE_COUNTERS, 1)
+    for tables, value, (rows, (loss_exact, loss_tol)) in zip((got, want), (loss, want_loss),
+                                                            exact):
+        assert glove_checks.worst_share(tables, rows) <= 1.0
+        assert abs(float(value) - loss_exact) <= loss_tol
+    for name, wrong in glove_checks.controls(tables_before, got).items():
+        assert glove_checks.worst_share(wrong, exact[0][0]) > 1.0, name
+    return loss
+
+
+@pytest.mark.parametrize("d", [128, 30, 5])
+@pytest.mark.parametrize("case", ["uniform", "one entry", "walklets slice", "odd offset"])
+def test_glove_step_kernel_matches_plain(dev, d, case):
+    """K13b's three launches and its plain version (`index_add_` on the
+    card) on copies of the same tables, both held to the float64 step
+    (`tests/glove_checks.py`: float32's error bound for the step's sums, in
+    any order): ids uniform over 5000 entries; one entry B times, so its
+    rows take 4096 terms; power 1's slices of Walklets' stacked tables; and
+    tables at an odd storage offset."""
+    rng = np.random.default_rng(d)
+    n, b = 300, 4096
+    entries = _glove_entries(rng, dev, n, 5000)
+    values = [(0.3 * rng.normal(size=s)).astype(np.float32) for s in ((n, d), (n, d), (n,), (n,))]
+    ids = rng.integers(0, 5000, b).astype(np.int32)
+    if case == "one entry":
+        ids[:] = 7
+    ids = torch.from_numpy(ids).to(dev)
+    layout = case if case in ("walklets slice", "odd offset") else ""
+    got, want = (glove_checks.table_copies(values, layout, dev) for _ in range(2))
+    _glove_step_held_to_exact(entries, ids, got, want, 0.5)
+
+
+@pytest.mark.parametrize("d", [128, 5])
+def test_glove_step_kernel_on_a_workspace_over_steps(dev, d):
+    """Three steps on one workspace, each held to the float64 step from the
+    tables it found (B 1000, not a multiple of the gradient launch's 256
+    entries a block); the loss returned is the workspace's scalar."""
+    rng = np.random.default_rng(3 + d)
+    n, b = 200, 1000
+    entries = _glove_entries(rng, dev, n, 3000)
+    values = [(0.3 * rng.normal(size=s)).astype(np.float32) for s in ((n, d), (n, d), (n,), (n,))]
+    got, want = (glove_checks.table_copies(values, "", dev) for _ in range(2))
+    ws = GloVeStepWorkspace.empty(b, d, dev)
+    for lr in (0.5, 0.4, 0.3):
+        ids = torch.from_numpy(rng.integers(0, 3000, b).astype(np.int32)).to(dev)
+        loss = _glove_step_held_to_exact(entries, ids, got, want, lr, ws)
+        assert loss.data_ptr() == ws.loss.data_ptr()
+    with pytest.raises(ValueError, match="workspace.rows"):
+        glove_step(entries, ids, *got, 0.1, GloVeStepWorkspace.empty(b, d + 1, dev))
 
 
 # ------------------------------------------------------------------- S8

@@ -1,8 +1,9 @@
 """The port's GloVe on the CPU against embiggen_tpu: the plain version of
 K13a (the windowed co-occurrence sums) against `GloVe._cooccurrences` on
 the same walks, the entries' log X and f(X), the plain version of K13b (the
-weighted-least-squares step) with the "add" updates against
-`GloVe._batch_updates` + `apply_updates` on injected batches, the registry
+weighted-least-squares step, applied in place) against
+`GloVe._batch_updates` + `apply_updates` on injected batches (with heavily
+repeated rows too, and for Walklets GloVe's step on slices), the registry
 rows and options, and fits on small graphs.
 
 The reference draws its walks inside `_cooccurrences`; the tests hand it the
@@ -37,7 +38,7 @@ from embiggen_tpu_torch import embed_graph
 from embiggen_tpu_torch.graph import Graph, connected_holdout, erdos_renyi, random_geometric
 from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
 from embiggen_tpu_torch.models import get_model_from_library
-from embiggen_tpu_torch.models.embedders import DeepWalkGloVe, GloVe
+from embiggen_tpu_torch.models.embedders import DeepWalkGloVe, GloVe, WalkletsGloVe
 from embiggen_tpu_torch.ops.glove import (
     Entries, cooccurrences, draw_entries, glove_entries, glove_step, glove_step_plain,
     glove_strides,
@@ -157,29 +158,106 @@ def test_injected_steps_match_reference(karate, name):
 
 
 def test_step_gradients_are_the_reference_loss_gradients():
-    """K13b's plain version: the rows and the bias gradient are the
-    gradients of the reference's batch-mean loss (`glove_loss` times the
-    weights' mean form, `glove.py:213`) by autograd, and the loss its sum."""
+    """K13b's plain version: each table's change is -lr times autograd's
+    gradient of the reference's batch-mean loss (`glove_loss` times the
+    weights' mean form, `glove.py:213`) with respect to the whole table, so
+    repeated rows sum, and the loss returned is its sum. The changes are
+    read back from float32 tables of values up to about 4, so they carry the
+    tables' rounding (half an ulp, 2.4e-7, an addition): atol 1e-6."""
     data = _entries(5)
     entries = Entries(*map(torch.from_numpy, data))
     rng = np.random.default_rng(6)
     tables = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
               for s in ((34, 8), (34, 8), (34,), (34,))]
     ids = torch.from_numpy(rng.integers(0, 200, 50).astype(np.int32))
-    i, j, gw, gc, g, loss = glove_step(entries, ids, *tables)
-    leaves = [tables[0][i.long()], tables[1][j.long()], tables[2][i.long()],
-              tables[3][j.long()]]
-    leaves = [t.clone().requires_grad_() for t in leaves]
-    pred = (leaves[0] * leaves[1]).sum(1) + leaves[2] + leaves[3]
+    lr = 0.3
+    leaves = [t.clone().requires_grad_() for t in tables]
+    i, j = entries.ci[ids.long()].long(), entries.cj[ids.long()].long()
+    pred = (leaves[0][i] * leaves[1][j]).sum(1) + leaves[2][i] + leaves[3][j]
     f_x, log_x = entries.f_x[ids.long()], entries.log_x[ids.long()]
     want = (f_x * (pred - log_x) ** 2).sum() / 50
     grads = torch.autograd.grad(want, leaves)
+    before = [t.clone() for t in tables]
+    loss = glove_step(entries, ids, *tables, lr)
+    assert loss.shape == ()
     np.testing.assert_allclose(float(loss) / 50, float(want.detach()), rtol=1e-6)
-    for got, ref in zip((gw, gc, g, g), grads):
-        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-7)
-    np.testing.assert_array_equal(i.numpy(), data[0][ids.numpy()])
-    np.testing.assert_array_equal(j.numpy(), data[1][ids.numpy()])
+    for t, t0, grad in zip(tables, before, grads):
+        np.testing.assert_allclose(t.double().numpy() - t0.double().numpy(),
+                                   -lr * grad.double().numpy(), rtol=1e-5, atol=1e-6)
+    assert len(set(i.tolist())) < 50 and len(set(j.tolist())) < 50
     assert glove_step_plain is not glove_step
+
+
+def _repeated_entries(rng, n=34, e=200):
+    """Entries whose centers and contexts repeat heavily: half the entries
+    have center 0, a third context 1."""
+    ci, cj, f_x, log_x = _entries(int(rng.integers(1 << 30)), n, e)
+    ci[: e // 2] = 0
+    cj[e // 3: 2 * e // 3] = 1
+    return ci, cj, f_x, log_x
+
+
+def _repeated_ids(rng, e, b):
+    """A batch whose first quarter is one entry and whose second quarter is
+    three entries; the rest uniform."""
+    ids = rng.integers(0, e, b)
+    ids[: b // 4] = 3
+    ids[b // 4: b // 2] = rng.choice([70, 71, 90], b // 4)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["Node2Vec GloVe", "Walklets GloVe"])
+def test_in_place_steps_with_repeated_rows_match_reference(name):
+    """Three in-place steps (the plain version of K13b) against the
+    reference's `GloVe._batch_updates` + `apply_updates` on batches where
+    centers and contexts repeat many times: every table within atol 1e-6,
+    the loss within rtol 1e-5. GloVe steps through `_step` on an injected
+    batch; Walklets GloVe through `_glove_step` on views of power 1's slices
+    of [P, N, D] tables, whose power 0 stays as it was."""
+    rng = np.random.default_rng(11)
+    n, d, power, b = 34, 8, 2, 64
+    data = _repeated_entries(rng)
+    entries = Entries(*map(torch.from_numpy, data))
+    init = {"node_embedding": rng.normal(size=(power, n, d)).astype(np.float32) / 2,
+            "context_embedding": rng.normal(size=(power, n, d)).astype(np.float32) / 2,
+            "center_bias": rng.normal(size=(power, n)).astype(np.float32),
+            "context_bias": rng.normal(size=n).astype(np.float32)}
+    params = {k: jnp.asarray(v[1] if v.ndim > 1 and v.shape[0] == power else v)
+              for k, v in init.items()}
+    ref = ref_glove.GloVe(embedding_size=d)
+    stacked = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
+    if name == "Walklets GloVe":
+        port = WalkletsGloVe(embedding_size=power * d, power=power, device="cpu")
+        tables = {"emb": stacked["node_embedding"][1], "ctx": stacked["context_embedding"][1],
+                  "bw": stacked["center_bias"][1], "bc": stacked["context_bias"]}
+        names = dict(zip(tables, TABLES))
+    else:
+        port = GloVe(embedding_size=d, device="cpu")
+        port._run_batch_size = b
+        tables = {k: stacked[k][1].clone() if k != "context_bias" else stacked[k]
+                  for k in TABLES}
+        names = {k: k for k in TABLES}
+    for step, lr in enumerate((0.5, 0.4, 0.3)):
+        ids = _repeated_ids(rng, len(data[0]), b)
+        assert len(set(data[0][ids])) < b // 3 and len(set(data[1][ids])) < b // 2
+        sl = tuple(jnp.asarray(a[ids]) for a in data)
+        want_loss, updates = ref._batch_updates(params, (sl, ()), b)
+        params = ref_apply_updates(dict(params), updates, jnp.float32(lr))
+        with torch.no_grad():
+            if name == "Walklets GloVe":
+                loss = port._glove_step(tables, entries, torch.from_numpy(ids), lr)
+            else:
+                loss = port._step(entries, tables, torch.Generator(), lr,
+                                  batch=((torch.from_numpy(ids),), entries))
+        np.testing.assert_allclose(float(loss), float(want_loss) / b, rtol=1e-5)
+        for key, ref_key in names.items():
+            np.testing.assert_allclose(tables[key].numpy(), np.asarray(params[ref_key]),
+                                       atol=1e-6, err_msg=f"{name} {key} step {step}")
+    if name == "Walklets GloVe":
+        np.testing.assert_array_equal(stacked["node_embedding"][0].numpy(),
+                                      init["node_embedding"][0])
+        np.testing.assert_array_equal(stacked["node_embedding"][1].numpy(),
+                                      tables["emb"].numpy())
 
 
 def test_draw_entries_are_uniform_ids():
@@ -201,7 +279,10 @@ def test_registry_and_parameters(name):
     assert port.parameters() == ref_cls(**kw).parameters()
     assert port.clone().parameters() == port.parameters()
     assert cls.smoke_test_parameters() == ref_cls.smoke_test_parameters()
-    assert cls.supports_distribution() == ref_cls.supports_distribution()
+    # The port applies the step in place and returns no Update, so it stays
+    # on one device until multi-device training is ported; the reference's
+    # GloVe steps through the Update protocol and is distributable.
+    assert ref_cls.supports_distribution() and not cls.supports_distribution()
 
 
 @pytest.mark.parametrize("kwargs, error, match", [

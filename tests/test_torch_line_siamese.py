@@ -107,9 +107,11 @@ def test_injected_steps_match_reference(graphs, name):
         sl = _batch(rng, typed, line, b)
         want_loss, updates = ref._batch_updates(params, (tuple(map(jnp.asarray, sl)), ()), b)
         params = ref_apply_updates(dict(params), updates, jnp.float32(lr))
+        # The port's siamese batch is K14's block of rows, [4, B] or [5, B].
+        sliceable = (tuple(map(torch.from_numpy, sl)) if line
+                     else torch.from_numpy(np.stack(sl)))
         with torch.no_grad():
-            loss = port._step(tg, ours, torch.Generator(), lr,
-                              batch=(tuple(map(torch.from_numpy, sl)), ()))
+            loss = port._step(tg, ours, torch.Generator(), lr, batch=(sliceable, ()))
         np.testing.assert_allclose(float(loss), float(want_loss) / b, rtol=1e-5, atol=1e-6)
         assert set(ours) == set(params)
         for key, table in ours.items():
