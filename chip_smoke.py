@@ -225,7 +225,31 @@ the exit code is not 0:
      3 NodeSketch fits on CUDA events;
  27. S9 quality: RandNE and NetMF features on the gate fixture's connected
      holdout, embedding seeds 0-3, a Perceptron on Hadamard alone: each mean
-     test AUROC at least the reference's less 0.03.
+     test AUROC at least the reference's less 0.03;
+ 28. K19 (the exact p/q and typed walk) and typed K9 against their exact
+     typed laws (`tests/pq_laws.py`, chi-square, fail at p < 1e-3, fixed
+     seeds) on small typed graphs, weighted and not: the reference's (node,
+     edge) weights (4, 1), (1, 0.2), (3, 0.5) with neutral p/q and with
+     2 / 0.5, K9 over whole and subsampled (cap 8) rows, K19 over whole rows
+     and windows of 34 rotated on longer rows, untyped K19 (exact_pq, a
+     weight ratio of 20), every first step, and the edge type carried on a
+     multigraph; then on the typed slice graph (the slice graph with 8 edge
+     and 8 node types) at B 32768, L 64, cap 100, and K19 also with 256
+     planted hubs typed at random, against their plain versions (the first
+     steps and the last by degree and by blocks of node ids, the returns
+     and the type changes at each position); each timed with its bound,
+     untyped K9 timed in turns with typed K9 on one ELL table;
+ 29. S10 through the entry points on the typed slice graph: typed Node2Vec
+     SkipGram (node 2, edge 0.5) at the S1 widths, 2 epochs, with K2, typed
+     K9, K3 and K4's combine launched and K1 not; typed p/q Node2Vec CBOW
+     (return 2, explore 0.5), 1 epoch, with typed K9 and K11; `random_walks`
+     without an ELL table, typed, with exact_pq and at a weight ratio of 20,
+     each launching K19 and not K9 or K10; the bench GCN of phase 6 with the
+     node-type and edge-type embeddings, 2 epochs, scoring the 20M arcs,
+     with K6, K7 and K5 launched; seconds and peak memory of each;
+ 30. S10 quality: the reference's `test_typed_walks_end_to_end` on the card
+     through both routes: the type change rate at node weight 5 exceeds the
+     rate at 0.1 by more than 0.1.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -394,6 +418,16 @@ S9_CHECK_KW = {"MNMF": dict(iterations=60)}
 # apart, within 1e-4, and their column norms rtol 1e-4.
 S9_ITERATIVE_RTOL, S9_GRAM_RTOL = 5e-5, 1e-4
 S9_HOP_TOL = dict(rtol=1e-5, atol=1e-7)    # K7's sums in another order
+# S10: typed walks on the typed slice graph, erdos_renyi(1M, 10M, seed=0) with
+# 8 edge types and 8 node types (the same CSR as the slice graph); the typed
+# models' weights (node 2, edge 0.5); the reference's (node, edge) weights of
+# tests/test_walks.py's typed-walk tests, each with neutral p/q and 2 / 0.5;
+# K19's rotated windows at the reference's test cap of 34.
+S10_TYPES = 8
+S10_TYPED = dict(change_node_type_weight=2.0, change_edge_type_weight=0.5)
+S10_FACTORS = ((4.0, 1.0), (1.0, 0.2), (3.0, 0.5))
+S10_PQ = ((1.0, 1.0), (2.0, 0.5))
+S10_ROTATED_CAP = 34
 # The S9 gate: RandNE and NetMF features (seeds 0-3, defaults) and a
 # Perceptron on Hadamard alone on the gate fixture; the reference's mean
 # test AUROC, measured with embiggen_tpu on the CPU
@@ -692,7 +726,8 @@ KERNEL_NAMES = {
     "skipgram_mean_combine": "skipgram_combine_kernel", "csr_edge_ids": "csr_edge_ids_kernel",
     "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
     "edge_metrics": "edge_metrics_kernel", "ell_walks": "ell_walks_kernel",
-    "rejection_walks": "rejection_walks_kernel", "cbow_update": "cbow_kernel",
+    "rejection_walks": "rejection_walks_kernel", "exact_walks": "exact_walks_kernel",
+    "cbow_update": "cbow_kernel",
     "mean_scatter": "scatter_rows_kernel", "mean_combine": "mean_rows_combine_kernel",
     "siamese_mini_batch": "siamese_batch_kernel", "line_mini_batch": "line_batch_kernel",
     "walklets_update": "walklets_", "cooccurrences": "cooc_",
@@ -1216,9 +1251,11 @@ def probe_checks(dev):
     return entries
 
 
-def hub_graph(graph):
+def hub_graph(graph, typed=False):
     """`graph` plus N_HUBS new nodes, each joined to 4,096-65,536 random
-    nodes (hubs included)."""
+    nodes (hubs included). With `typed`, `graph`'s node and edge types are
+    kept, and the hubs and their edges are typed at random among as many
+    types."""
     from embiggen_tpu_torch.graph import Graph
 
     rng = np.random.default_rng(27)
@@ -1226,10 +1263,18 @@ def hub_graph(graph):
     sizes = rng.integers(4096, 65536, N_HUBS, endpoint=True)
     hubs = np.repeat(np.arange(n, n + N_HUBS), sizes)
     one = graph.sources < graph.col_idx
+    dst = rng.integers(0, n + N_HUBS, len(hubs))
+    types = {}
+    if typed:
+        types = dict(
+            edge_types=np.concatenate([graph.edge_types[one], rng.integers(
+                0, graph.number_of_edge_types, len(hubs)).astype(np.int32)]),
+            node_type_ptr=np.arange(n + N_HUBS + 1, dtype=np.int64),
+            node_type_ids=np.concatenate([graph.node_type_ids, rng.integers(
+                0, graph.number_of_node_types, N_HUBS).astype(np.int32)]))
     return Graph.from_edge_arrays(
-        np.concatenate([graph.sources[one], hubs]),
-        np.concatenate([graph.col_idx[one], rng.integers(0, n + N_HUBS, len(hubs))]),
-        n_nodes=n + N_HUBS, directed=False, name="ER+hubs")
+        np.concatenate([graph.sources[one], hubs]), np.concatenate([graph.col_idx[one], dst]),
+        n_nodes=n + N_HUBS, directed=False, name="ER+hubs", **types)
 
 
 def edge_metrics_check(graph, tg, hub_pairs):
@@ -1494,6 +1539,27 @@ def returns_p(walks_a, walks_b) -> float:
 
     n = walks_a.shape[0]
     a, b = return_counts(walks_a), return_counts(walks_b)
+    ok = (a + b > 0) & (a + b < 2 * n)
+    a, b = a[ok], b[ok]
+    stat = (2 * n * (a - b) ** 2 / ((a + b) * (2 * n - a - b))).sum()
+    return float(chi2.sf(stat, ok.sum()))
+
+
+def type_change_counts(walks, node_type_of):
+    """Per walk position t (1..L-1): the walks whose node type changed there
+    (node_type_of[walks[:, t]] != node_type_of[walks[:, t - 1]])."""
+    t = node_type_of[walks.long()]
+    return (t[:, 1:] != t[:, :-1]).sum(0).double().cpu().numpy()
+
+
+def type_changes_p(walks_a, walks_b, node_type_of) -> float:
+    """Chi-square p-value that two sets of as many walks change node type at
+    the same rate at every position (one 2x2 table per position, one df
+    each)."""
+    from scipy.stats import chi2
+
+    n = walks_a.shape[0]
+    a, b = (type_change_counts(w, node_type_of) for w in (walks_a, walks_b))
     ok = (a + b > 0) & (a + b < 2 * n)
     a, b = a[ok], b[ok]
     stat = (2 * n * (a - b) ** 2 / ((a + b) * (2 * n - a - b))).sum()
@@ -3455,6 +3521,338 @@ def s9_quality_on_card(card, dev):
     return auroc
 
 
+# ------------------------------------------------------------------- S10
+def typed_laws(laws, g, tg, rw, ew, node_w, edge_w, cap, ell):
+    """The typed step laws (`tests/pq_laws.py`) of K9 over `tg`'s ELL rows
+    (`ell`), or of K19 over windows of `cap` CSR slots."""
+    return laws.Laws(
+        g.row_ptr, g.col_idx, g.weights, rw, ew,
+        ell=None if not ell else (tg.ell_cols.cpu().numpy(),
+                                  None if tg.ell_w is None else tg.ell_w.cpu().numpy(),
+                                  min(cap, tg.ell_cap)),
+        node_types=g.get_single_label_node_type_ids(), edge_types=g.edge_types,
+        node_w=node_w, edge_w=edge_w, window=None if ell else cap)
+
+
+def multigraph_carry_p(kernel, dev) -> dict:
+    """The edge type a typed kernel carries is the picked arc's: node 0 has
+    two arcs to node 1, of types 0 and 2, and the move after 1 depends on
+    which (tests/test_torch_cuda.py::test_typed_kernels_carry_the_picked_
+    arcs_type_on_a_multigraph derives the law: 1 -> 0 with probability
+    0.32, where a lookup of the pair would give 0.8 or 0.2). Returns the
+    p-values of the move from 0 and of the move from 1."""
+    from scipy.stats import chi2
+
+    from embiggen_tpu_torch.graph import Graph
+
+    g = Graph(row_ptr=np.array([0, 4, 6, 7, 8]),
+              col_idx=np.array([1, 1, 2, 3, 0, 2, 0, 0], np.int32),
+              edge_types=np.array([0, 2, 1, 2, 0, 2, 1, 2], np.int32),
+              node_type_ptr=np.arange(5), node_type_ids=np.array([0, 1, 0, 1], np.int32))
+    tg = g.device(dev, ell_cap=8, with_walk_types=True)
+    starts = torch.full((400000,), 3, dtype=torch.int32, device=dev)
+    w = kernel(tg, starts, 4, 1.0, 1.0, 8, torch.Generator().manual_seed(5), 2.0, 0.25)
+    w = w.cpu().numpy()
+
+    def p_value(observed, law):
+        e = observed.sum() * law
+        return float(chi2.sf(((observed - e) ** 2 / e).sum(), len(law) - 1))
+
+    at_1 = w[w[:, 2] == 1, 3]
+    if not ((w[:, 1] == 0).all() and (w[:, 2] != 0).all() and np.isin(at_1, [0, 2]).all()):
+        raise AssertionError("a multigraph walk left the arcs")
+    return {"from 0": p_value(np.bincount(w[:, 2], minlength=4)[1:],
+                              np.array([2.5, 0.25, 2.0]) / 4.75),
+            "from 1 (the carried type)": p_value(
+                np.array([(at_1 == 0).sum(), (at_1 == 2).sum()]), np.array([0.32, 0.68]))}
+
+
+def typed_law_checks(dev):
+    """K19 and typed K9 on small typed graphs, weighted and not
+    (`erdos_renyi(200, 800, seed=7, n_edge_types=3, n_node_types=4)`), every
+    move, the first ones included, against its exact typed law
+    (`tests/pq_laws.py`, pooled chi-square): for each of the reference's
+    (node, edge) weights S10_FACTORS with neutral p/q and with 2 / 0.5,
+    typed K9 over whole rows (cap 100) and K19 over whole rows; on
+    `erdos_renyi(60, 1100)` (degrees above 34) typed K9 over rows subsampled
+    at cap 8 and K19 over windows of 34 rotated on the longer rows; untyped
+    K19 (exact_pq at 2 / 0.5, and a weight ratio of 20); and the carried
+    edge type on a multigraph. Returns ({test: p}, {kernel: max |empirical
+    - exact| step probability})."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops.walks import ell_walks, exact_walks
+
+    laws = laws_module("pq_laws")
+    p, err = {}, {"ell_walks_typed": 0.0, "exact_walks": 0.0}
+    kernels = {"ell_walks_typed": ell_walks, "exact_walks": exact_walks}
+
+    def run(label, name, g, tg, rw, ew, node_w, edge_w, cap, walkers, seed):
+        n = g.number_of_nodes
+        starts = (torch.arange(walkers, device=dev) % n).int()
+        w = kernels[name](tg, starts, 12, rw, ew, cap, torch.Generator().manual_seed(seed),
+                          node_w, edge_w)
+        p[label], e = laws.walks_chi2_p(w.cpu().numpy(), typed_laws(
+            laws, g, tg, rw, ew, node_w, edge_w, cap, name == "ell_walks_typed"), n)
+        err[name] = max(err[name], e)
+
+    for weighted in (False, True):
+        g = erdos_renyi(200, 800, seed=7, weighted=weighted, n_edge_types=3, n_node_types=4)
+        tg_ell = g.device(dev, ell_cap=ELL_CAP, ell_seed=1, with_walk_types=True)
+        tg = g.device(dev, with_alias=weighted, with_walk_types=True)
+        for i, ((node_w, edge_w), (rw, ew)) in enumerate(
+                (f, q) for f in S10_FACTORS for q in S10_PQ):
+            tag = f"{node_w}/{edge_w} p/q {rw}/{ew} weighted={weighted}"
+            run(f"K9 {tag}", "ell_walks_typed", g, tg_ell, rw, ew, node_w, edge_w, ELL_CAP,
+                40000, i)
+            run(f"K19 {tag}", "exact_walks", g, tg, rw, ew, node_w, edge_w, ELL_CAP, 40000, i)
+        for rw, ew in ((2.0, 0.5), (0.05, 1.0)):
+            run(f"K19 untyped p/q {rw}/{ew} weighted={weighted}", "exact_walks", g, tg, rw, ew,
+                1.0, 1.0, ELL_CAP, 40000, 7)
+        dense = erdos_renyi(60, 1100, seed=7, weighted=weighted, n_edge_types=3, n_node_types=4)
+        if not int(dense.degrees.max()) > S10_ROTATED_CAP:
+            raise AssertionError("the dense graph's rows do not exceed the window")
+        run(f"K9 over cap 8 weighted={weighted}", "ell_walks_typed", dense,
+            dense.device(dev, ell_cap=8, ell_seed=1, with_walk_types=True), 2.0, 0.5, 3.0, 0.5,
+            8, 200000, 8)
+        run(f"K19 rotated windows of {S10_ROTATED_CAP} weighted={weighted}", "exact_walks",
+            dense, dense.device(dev, with_alias=weighted, with_walk_types=True), 2.0, 0.5, 3.0,
+            0.5, S10_ROTATED_CAP, 200000, 9)
+    for name, kernel in kernels.items():
+        for k, v in multigraph_carry_p(kernel, dev).items():
+            p[f"{name} multigraph {k}"] = v
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"typed walk law tests failed (p < {P_MIN}): {failed}")
+    return p, err
+
+
+def slice_typed_checks(typed, typed_hub, dev):
+    """Typed K9 and K19 on the typed slice graph at the slice shapes
+    (S10_TYPED factors, p/q 2 / 0.5, cap 100), and K19 on `typed_hub` (the
+    typed slice graph plus N_HUBS hubs typed at random, whose rows exceed
+    the cap; half the walkers start at a hub), against their plain versions
+    from the same starts (two-sample chi-square): every move an arc; the
+    first step, the first p/q step and the last binned by node degree and
+    by blocks of ID_BLOCK ids; the returns and the node-type changes at each
+    position. Returns the p-values by test."""
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import (
+        ell_walks, ell_walks_plain, exact_walks, exact_walks_plain,
+    )
+
+    p = {}
+    for name, g, kernel, plain, ell in (
+        ("K9 typed", typed, ell_walks, ell_walks_plain, True),
+        ("K19", typed, exact_walks, exact_walks_plain, False),
+        ("K19 hubs", typed_hub, exact_walks, exact_walks_plain, False),
+    ):
+        tg = g.device(dev, ell_cap=ELL_CAP if ell else None, with_walk_types=True)
+        starts = nce_negatives(tg, torch.Generator().manual_seed(41), (BATCH,),
+                               scale_free=False)
+        if name == "K19 hubs":
+            hubs = torch.arange(g.number_of_nodes - N_HUBS, g.number_of_nodes, device=dev)
+            starts[::2] = hubs[torch.arange(BATCH // 2, device=dev) % N_HUBS].int()
+        args = (WALK, *PQ.values(), ELL_CAP)
+        w = kernel(tg, starts, *args, torch.Generator().manual_seed(42), *S10_TYPED.values())
+        w_plain = plain(tg, starts, *args, torch.Generator(device=dev).manual_seed(43),
+                        *S10_TYPED.values())
+        if not (torch.equal(w[:, 0], starts) and torch.equal(w_plain[:, 0], starts)):
+            raise AssertionError(f"{name}: walks[:, 0] differs from the starts")
+        keys = arc_keys(g, dev)
+        for walks in (w, w_plain):
+            arc_positions(g, walks, keys)
+        for pos in (1, 2, WALK - 1):
+            binned_tests(p, f"{name} position {pos} vs plain", node_counts(tg, w[:, pos]),
+                         node_counts(tg, w_plain[:, pos]), False)
+        p[f"{name} returns by position vs plain"] = returns_p(w, w_plain)
+        p[f"{name} type changes by position vs plain"] = type_changes_p(
+            w, w_plain, tg.node_type_of)
+        del tg, w, w_plain, keys
+        torch.cuda.empty_cache()
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"typed walk tests at the slice shapes failed "
+                             f"(p < {P_MIN}): {failed}")
+    return p
+
+
+def typed_walk_entries(typed, errs, dev):
+    """Typed K9 and K19 timed at the slice shapes on the typed slice graph
+    (S10_TYPED factors, p/q 2 / 0.5, cap 100), with their bounds from this
+    run's walks; typed K9 also with p = q = 1 (the typed SkipGram's walks);
+    untyped K9 on the same ELL table timed in turns with typed K9 (the
+    table's CSR is the slice graph's); K19 also untyped (exact_pq)."""
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import (
+        ell_walks, ell_walks_plain, exact_walks, exact_walks_plain,
+    )
+
+    entries = {}
+    gen, cuda_gen = torch.Generator().manual_seed(44), torch.Generator(device=dev).manual_seed(45)
+    deg_all = torch.from_numpy(typed.degrees).to(dev).long()
+    io = 4 * BATCH + 4 * BATCH * WALK   # starts in, walks out
+    typed_w = tuple(S10_TYPED.values())
+    # K9: the ELL table with its type tables.
+    tg = typed.device(dev, ell_cap=ELL_CAP, with_walk_types=True)
+    starts = nce_negatives(tg, gen, (BATCH,), scale_free=False)
+    args = (starts, WALK, *PQ.values(), ELL_CAP)
+    w = ell_walks(tg, *args, gen, *typed_w)
+    prev, curr = w[:, :-2].reshape(-1).long(), w[:, 1:-1].reshape(-1).long()
+    rows = torch.unique(w[:, :-1]).long()
+    deg_ell = deg_all.clamp(max=tg.ell_cap).double()
+    # Each distinct row's real slots: ids, slot node types, slot edge types;
+    # each row's node's type; membership as untyped K9's.
+    k9_bytes = io + 12 * float(deg_ell[rows].sum()) + 4 * rows.numel()
+    k9_ops = float((deg_ell[curr] * search_reads(deg_ell[prev])).sum())
+    turns = [time_ms(lambda: ell_walks(tg, *args, gen, *f), 10)
+             for f in ((1.0, 1.0), typed_w, typed_w, (1.0, 1.0))]
+    entries["ell_walks_typed"] = dict(
+        source="embiggen_tpu_torch/csrc/walks2.cu", replaces="embiggen_tpu/ops/walks.py:245",
+        max_abs_err=errs["ell_walks_typed"], ms=(turns[1] + turns[2]) / 2,
+        plain_ms=time_ms(lambda: ell_walks_plain(tg, *args, cuda_gen, *typed_w), 2),
+        library_ms=None, untyped_ms_in_turns=[turns[0], turns[3]],
+        typed_ms_in_turns=turns[1:3],
+        typed_only_ms=time_ms(lambda: ell_walks(tg, starts, WALK, 1.0, 1.0, ELL_CAP, gen,
+                                                *typed_w), 10),
+        **bound(k9_bytes, k9_ops))
+    del tg, w, prev, curr, rows
+    torch.cuda.empty_cache()
+    # K19: the CSR, the arcs' edge types, node_type_of.
+    tg = typed.device(dev, with_walk_types=True)
+    w = exact_walks(tg, *args, gen, *typed_w)
+    prev, curr = w[:, :-2].reshape(-1).long(), w[:, 1:-1].reshape(-1).long()
+    rows = torch.unique(w[:, :-1]).long()
+    window = deg_all.clamp(max=ELL_CAP).double()
+    # Each distinct row's two row_ptr entries and its arcs' ids and edge
+    # types (its whole row: no row here exceeds the cap), each candidate's
+    # node type (at most every node's); a search of prev's row per
+    # candidate.
+    k19_bytes = io + 8 * rows.numel() + 8 * float(deg_all[rows].sum()) + 4 * typed.number_of_nodes
+    k19_ops = float((window[curr] * search_reads(deg_all[prev])).sum())
+    entries["exact_walks"] = dict(
+        source="embiggen_tpu_torch/csrc/walks2.cu", replaces="embiggen_tpu/ops/walks.py:348",
+        max_abs_err=errs["exact_walks"],
+        ms=time_ms(lambda: exact_walks(tg, *args, gen, *typed_w), 10),
+        plain_ms=time_ms(lambda: exact_walks_plain(tg, *args, cuda_gen, *typed_w), 1),
+        library_ms=None,
+        untyped_ms=time_ms(lambda: exact_walks(tg, *args, gen), 10),
+        **bound(k19_bytes, k19_ops))
+    for name in ("ell_walks_typed", "exact_walks"):
+        entries[name]["walk_steps_per_s"] = BATCH * (WALK - 1) / (entries[name]["ms"] / 1e3)
+    del tg, w, prev, curr, rows
+    torch.cuda.empty_cache()
+    return entries
+
+
+def s10_runs(typed, dev):
+    """S10 through the entry points on the typed slice graph, each with the
+    counts set to 0 just before and read just after: `embed_graph` of typed
+    Node2Vec SkipGram (S10_TYPED, p = q = 1) at the S1 widths for 2 epochs
+    and of typed p/q Node2Vec CBOW (return 2, explore 0.5, S10_TYPED) for 1,
+    both on typed K9; `random_walks` on the graph exported without an ELL
+    table, typed, untyped with exact_pq and at a weight ratio of 20, on
+    K19; the bench GCN of phase 6 with the node-type and edge-type
+    embeddings for 2 epochs, scoring the 20M arcs (K6, K7, K5). Returns
+    {run: (launches, seconds, peak bytes, extra)}."""
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import random_walks
+
+    out = {}
+    walk_kernels = ("first_order_walks", "ell_walks", "ell_walks_typed", "rejection_walks",
+                    "exact_walks")
+    for label, name, epochs, kw, names, extra_unused in (
+        ("typed SkipGram", "Node2Vec SkipGram", 2, S10_TYPED, S10_SKIPGRAM_KERNELS, ()),
+        ("typed p/q CBOW", "Node2Vec CBOW", 1, dict(PQ, **S10_TYPED), S10_CBOW_KERNELS,
+         ("skipgram_nce_update",)),
+    ):
+        model, counts, secs, peak, centres, steps = embed_run(typed, dev, name, epochs, **kw)
+        unused = tuple(k for k in walk_kernels if k not in names) + extra_unused
+        out[label] = (check_launches(label, counts, names, unused), secs, peak,
+                      dict(s_per_epoch=model._epoch_seconds, centres_per_s=centres,
+                           walk_steps_per_s=steps, losses=model._epoch_losses))
+        del model
+        torch.cuda.empty_cache()
+    tg = typed.device(dev, with_walk_types=True)
+    starts = nce_negatives(tg, torch.Generator().manual_seed(46), (BATCH,), scale_free=False)
+    keys = arc_keys(typed, dev)
+    for label, kw in (("random_walks typed", dict(PQ, **S10_TYPED)),
+                      ("random_walks exact_pq", dict(PQ, exact_pq=True)),
+                      ("random_walks ratio 20", dict(return_weight=0.05))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        w = random_walks(tg, starts, WALK, torch.Generator().manual_seed(47), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = check_launches(label, _build.launch_counts(), ("exact_walks",),
+                                  tuple(k for k in walk_kernels if k != "exact_walks"))
+        arc_positions(typed, w, keys)
+        out[label] = (launches, secs, torch.cuda.max_memory_allocated(), {})
+        del w
+    del tg, starts, keys
+    torch.cuda.empty_cache()
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    gcn = GCNEdgePrediction(epochs=2, batch_size=GCN_BATCH, dropout_rate=0.0,
+                            early_stopping_patience=10**6, random_state=0, device=dev,
+                            use_node_type_embedding=True, use_edge_type_embedding=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    gcn.fit(typed, node_features=feats)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    proba = gcn.predict_proba(typed)
+    secs = time.perf_counter() - t0
+    if len(gcn._history) != 2 or not np.isfinite(gcn._history).all():
+        raise AssertionError(f"typed GCN epoch losses {gcn._history}")
+    if proba.shape != (typed.number_of_directed_edges,) or not np.isfinite(proba).all():
+        raise AssertionError("typed GCN scores: wrong shape or non-finite values")
+    out["typed GCN"] = (check_launches("typed GCN", _build.launch_counts(), S10_GCN_KERNELS,
+                                       walk_kernels), secs, torch.cuda.max_memory_allocated(),
+                        dict(fit_s=fit_s, predict_s=secs - fit_s, losses=gcn._history))
+    del gcn, proba
+    torch.cuda.empty_cache()
+    return out
+
+
+def s10_quality_on_card(card, dev):
+    """The reference's `test_typed_walks_end_to_end` (tests/test_walks.py) on
+    the card: on its typed fixture, 30 walks of 10 from every node, the
+    node-type change rate at change_node_type_weight 5 must exceed the rate
+    at 0.1 by more than 0.1, through typed K9 (cap 64) and through K19 (no
+    ELL table). Returns {route: (rate at 5, rate at 0.1)}."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.walks import random_walks
+
+    g = erdos_renyi(60, 400, seed=3, weighted=True, n_edge_types=3, n_node_types=4)
+    ntypes = torch.from_numpy(g.get_single_label_node_type_ids()).to(dev)
+    starts = torch.arange(60, dtype=torch.int32, device=dev).repeat(30)
+    rates = {}
+    for route, tg, kernel in (
+        ("K9", g.device(dev, ell_cap=64, with_walk_types=True), "ell_walks_typed"),
+        ("K19", g.device(dev, with_walk_types=True), "exact_walks"),
+    ):
+        got = []
+        for node_w in (5.0, 0.1):
+            _build.reset_launch_counts()
+            w = random_walks(tg, starts, 10, torch.Generator().manual_seed(2),
+                             change_node_type_weight=node_w).long()
+            check_launches(f"S10 quality {route}", _build.launch_counts(), (kernel,))
+            t = ntypes[w]
+            got.append(float((t[:, 1:] != t[:, :-1]).double().mean()))
+        rates[route] = tuple(got)
+        if not got[0] > got[1] + 0.1:
+            raise AssertionError(f"S10 quality through {route} on {card}: the type change rate "
+                                 f"at weight 5 ({got[0]}) does not exceed the rate at 0.1 "
+                                 f"({got[1]}) by more than 0.1")
+    return rates
+
+
 def launch_share(fn, counters, reps):
     """{ms: one call of `fn` on CUDA events, kernel_ms: the port's launches
     of `counters` in it, each on its own event pair, share: their ratio},
@@ -3548,6 +3946,10 @@ S8_GCN_STATIC_KERNELS = S3_KERNELS + ("csr_edge_ids",)
 # each round) and RandNE hops with K7, each launching
 # nothing else; the dense rows launch none of the port's kernels.
 S9_SKETCH_KERNELS = ("sketch_candidates", "sketch_race_step")
+S10_SKIPGRAM_KERNELS = ("nce_negatives", "ell_walks_typed", "skipgram_nce_update",
+                        "skipgram_mean_combine")
+S10_CBOW_KERNELS = ("nce_negatives", "ell_walks_typed", "cbow_update", "skipgram_mean_combine")
+S10_GCN_KERNELS = ("edge_prediction_mini_batch", "spmm", "csr_edge_ids")
 S9_RANDNE_KERNELS = ("spmm",)
 
 
@@ -4275,6 +4677,52 @@ def main() -> None:
               f"{GATE_REFERENCE_S9_AUROC[name] - 0.03:.4f}; per seed "
               f"{[round(x, 4) for x in a]})" for name, a in s9_auroc.items()), flush=True)
 
+    # ---------------------------------------- 28. K19 and typed K9 (S10)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    typed = erdos_renyi(N_NODES, N_EDGES, seed=0, n_edge_types=S10_TYPES,
+                        n_node_types=S10_TYPES)
+    typed_s = time.perf_counter() - t0
+    if not (np.array_equal(typed.row_ptr, graph.row_ptr)
+            and np.array_equal(typed.col_idx, graph.col_idx)):
+        raise AssertionError("the typed slice graph's CSR is not the slice graph's")
+    s10_p, s10_err = typed_law_checks(dev)
+    typed_hub = hub_graph(typed, typed=True)
+    s10_p.update(slice_typed_checks(typed, typed_hub, dev))
+    del typed_hub
+    new = typed_walk_entries(typed, s10_err, dev)
+    kernels.update(new)
+    k9t, k19 = new["ell_walks_typed"], new["exact_walks"]
+    print(f"phase 28 K19 and typed K9 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
+          f"typed graph build {typed_s:.1f} s; ms per call at the S10 shapes, B {BATCH}, L {WALK}, "
+          f"cap {ELL_CAP}, p/q 2 / 0.5, node 2, edge 0.5): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']}) walk steps/s "
+              f"{v['walk_steps_per_s']:.4g}" for k, v in new.items())
+          + f" | K9 in turns on one ELL table: untyped {k9t['untyped_ms_in_turns']}, typed "
+          f"{k9t['typed_ms_in_turns']} (untyped in phase 11 {kernels['ell_walks']['ms']:.4f}; "
+          f"PERF.md's K9 row: 0.5895); typed with p = q = 1 {k9t['typed_only_ms']:.4f}"
+          + f" | K19 untyped (exact_pq) {k19['untyped_ms']:.4f}"
+          + " | typed walk p-values: " + "; ".join(f"{k} {v:.3g}" for k, v in s10_p.items()),
+          flush=True)
+
+    # ------------------------------------------------------------ 29. S10
+    t_phase = time.perf_counter()
+    s10 = s10_runs(typed, dev)
+    print(f"phase 29 S10 on {card} ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(
+        f"{label}: {secs:.2f} s, peak {peak} bytes, launches {got}"
+        + (f", {json.dumps(extra)}" if extra else "")
+        for label, (got, secs, peak, extra) in s10.items()), flush=True)
+
+    # -------------------------------------------------- 30. S10 quality
+    t_phase = time.perf_counter()
+    rates = s10_quality_on_card(card, dev)
+    print(f"phase 30 S10 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "erdos_renyi(60, 400, seed=3, weighted, 3 edge types, 4 node types), 30 walks of 10 "
+          "from each node, type change rate at node weight 5 against 0.1 (must exceed by 0.1): "
+          + "; ".join(f"{route} {a:.4f} against {b:.4f}" for route, (a, b) in rates.items()),
+          flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -4289,7 +4737,9 @@ def main() -> None:
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
                 **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},
-                **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS}}
+                **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS},
+                "ell_walks_typed": s10["typed SkipGram"][0]["ell_walks_typed"],
+                "exact_walks": s10["random_walks typed"][0]["exact_walks"]}
     randne_hop["launches"] = s9["RandNE"][0]["spmm"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [

@@ -1,7 +1,8 @@
 """Graph container, device export, generators, loaders, kernels, holdouts
 and negative sampling."""
 from .generators import (
-    barabasi_albert, erdos_renyi, planted_partition_edges, random_geometric,
+    barabasi_albert, erdos_renyi, planted_partition, planted_partition_edges,
+    random_geometric,
 )
 from .graph import Graph, TorchGraph, build_alias_tables
 from .holdouts import connected_holdout, edge_prediction_kfold, random_holdout
@@ -10,7 +11,7 @@ from .sampling import sample_negative_graph
 
 __all__ = [
     "Graph", "TorchGraph", "build_alias_tables", "barabasi_albert",
-    "erdos_renyi", "planted_partition_edges", "random_geometric",
+    "erdos_renyi", "planted_partition", "planted_partition_edges", "random_geometric",
     "connected_holdout", "edge_prediction_kfold", "random_holdout",
     "DatasetSpec", "from_csv", "get_dataset", "karate_club", "small_ppi",
     "sample_negative_graph",

@@ -1,8 +1,7 @@
 """Synthetic graph generators — counterpart of
 `embiggen_tpu/graph/generators.py`. The same numpy RNG calls in the same
-order, so a seed gives the same graph as the JAX package. Edge and node
-types, which the reference draws after the weights, come with typed walks
-(ROADMAP A6)."""
+order, so a seed gives the same graph, weights and types as the JAX
+package."""
 from __future__ import annotations
 
 from typing import Optional
@@ -45,21 +44,79 @@ def barabasi_albert(
 
 def erdos_renyi(
     n_nodes: int, n_edges: int, seed: int = 0, weighted: bool = False,
-    name: Optional[str] = None,
+    n_edge_types: int = 0, n_node_types: int = 0, name: Optional[str] = None,
 ) -> Graph:
+    """Uniform random graph of up to `n_edges` edges (no self-loops), with
+    weights in [0.5, 2), `n_edge_types` uniform edge types and one uniform
+    node type of `n_node_types` per node, each drawn only when asked, in
+    that order after the edges."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n_nodes, size=2 * n_edges)
     dst = rng.integers(0, n_nodes, size=2 * n_edges)
     keep = src != dst
     src, dst = src[keep][:n_edges], dst[keep][:n_edges]
     weights = rng.uniform(0.5, 2.0, size=len(src)).astype(np.float32) if weighted else None
+    edge_types = (rng.integers(0, n_edge_types, size=len(src)).astype(np.int32)
+                  if n_edge_types else None)
+    node_type_ptr = node_type_ids = None
+    if n_node_types:
+        node_type_ptr = np.arange(n_nodes + 1, dtype=np.int64)
+        node_type_ids = rng.integers(0, n_node_types, size=n_nodes).astype(np.int32)
     return Graph.from_edge_arrays(
         src,
         dst,
         n_nodes=n_nodes,
         weights=weights,
+        edge_types=edge_types,
         directed=False,
         name=name or f"ER(n={n_nodes},e={n_edges})",
+        node_type_ptr=node_type_ptr,
+        node_type_ids=node_type_ids,
+    )
+
+
+def planted_partition(
+    n_nodes: int = 1000,
+    n_communities: int = 4,
+    p_in: float = 0.03,
+    p_out: float = 0.001,
+    seed: int = 42,
+    name: Optional[str] = None,
+) -> Graph:
+    """Stochastic block model with the community ids as node types: ordered
+    pairs drawn uniformly (1.3 times the expected count at the larger
+    probability), kept when i < j and accepted with p_in within a community,
+    p_out across; each isolated node is joined to a random member of its
+    community (any other node for a community of one)."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, n_communities, size=n_nodes).astype(np.int32)
+    p_max = max(p_in, p_out)
+    n_cand = int(n_nodes * (n_nodes - 1) * p_max * 1.3) + 32
+    src = rng.integers(0, n_nodes, size=n_cand)
+    dst = rng.integers(0, n_nodes, size=n_cand)
+    ok = src < dst
+    src, dst = src[ok], dst[ok]
+    p_pair = np.where(comm[src] == comm[dst], p_in, p_out)
+    keep = rng.random(len(src)) < p_pair / p_max
+    src, dst = src[keep], dst[keep]
+    deg = np.bincount(np.concatenate([src, dst]), minlength=n_nodes)
+    isolated = np.flatnonzero(deg == 0)
+    if len(isolated):
+        partners = np.empty(len(isolated), np.int64)
+        for i, v in enumerate(isolated):
+            peers = np.flatnonzero(comm == comm[v])
+            peers = peers[peers != v]
+            if len(peers) == 0:
+                peers = np.delete(np.arange(n_nodes), v)
+            partners[i] = rng.choice(peers)
+        src = np.concatenate([src, isolated])
+        dst = np.concatenate([dst, partners])
+    return Graph.from_edge_arrays(
+        src, dst, n_nodes=n_nodes, directed=False,
+        name=name or f"SBM(n={n_nodes},k={n_communities})",
+        node_type_ptr=np.arange(n_nodes + 1, dtype=np.int64),
+        node_type_ids=comm,
+        node_type_names=[f"community_{c}" for c in range(n_communities)],
     )
 
 
@@ -75,8 +132,7 @@ def planted_partition_edges(
     `within_fraction` of the edges join two members of one community (chosen
     with weight size²), the rest join uniform pairs from different
     communities. Duplicate draws collapse, so the edge count is approximate.
-    The community labels (the reference's node types) are drawn but not
-    stored: node types come with ROADMAP A6."""
+    The community labels are the node types."""
     rng = np.random.default_rng(seed)
     comm = rng.integers(0, n_communities, size=n_nodes).astype(np.int32)
     order = np.argsort(comm, kind="stable")
@@ -105,6 +161,9 @@ def planted_partition_edges(
     return Graph.from_edge_arrays(
         src, dst, n_nodes=n_nodes, directed=False,
         name=name or f"SBM(n={n_nodes},e={n_edges},k={n_communities})",
+        node_type_ptr=np.arange(n_nodes + 1, dtype=np.int64),
+        node_type_ids=comm,
+        node_type_names=[f"community_{c}" for c in range(n_communities)],
     )
 
 
@@ -118,8 +177,8 @@ def random_geometric(
     """Random geometric graph: points uniform in the unit square, an edge
     between each pair closer than `radius`, and each isolated point joined
     to its nearest neighbour. Distances are learnable from walks, so link
-    prediction on it has real headroom. The grid-cell labels the reference
-    stores as node types (`n_grid_types`² cells) come with ROADMAP A6."""
+    prediction on it has real headroom. The node types are the labels of
+    the `n_grid_types` by `n_grid_types` grid cells."""
     rng = np.random.default_rng(seed)
     pts = rng.random((n_nodes, 2))
     src_l, dst_l = [], []
@@ -140,7 +199,14 @@ def random_geometric(
         d2[np.arange(len(isolated)), isolated] = np.inf
         src = np.concatenate([src, isolated])
         dst = np.concatenate([dst, d2.argmin(axis=1)])
+    cell = (np.minimum((pts[:, 0] * n_grid_types).astype(np.int32), n_grid_types - 1)
+            * n_grid_types
+            + np.minimum((pts[:, 1] * n_grid_types).astype(np.int32), n_grid_types - 1)
+            ).astype(np.int32)
     return Graph.from_edge_arrays(
         src, dst, n_nodes=n_nodes, directed=False,
         name=name or f"RGG(n={n_nodes},r={radius})",
+        node_type_ptr=np.arange(n_nodes + 1, dtype=np.int64),
+        node_type_ids=cell,
+        node_type_names=[f"cell_{i}" for i in range(n_grid_types * n_grid_types)],
     )

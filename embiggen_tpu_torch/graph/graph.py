@@ -46,6 +46,14 @@ class TorchGraph:
     # [E] int32 edge type of each arc, aligned with col_idx; exported by
     # `Graph.device` when the graph has edge types.
     edge_types: Optional[torch.Tensor] = None
+    # The typed walks' tables, exported by `Graph.device(with_walk_types=
+    # True)`: each node's primary node type [N] int32 (-1 unknown) when the
+    # graph has node types, and with an ELL table the node type of each
+    # slot's neighbour and the edge type of each slot's arc [N, ell_cap]
+    # int32 (-1 padded).
+    node_type_of: Optional[torch.Tensor] = None
+    ell_ntypes: Optional[torch.Tensor] = None
+    ell_etypes: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -108,8 +116,7 @@ def build_alias_tables(
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Immutable graph: CSR adjacency, optional weights, optional edge types,
-    names. Node types, the typed loaders and typed walks come with ROADMAP
-    A6."""
+    optional (multilabel) node types, names."""
 
     row_ptr: np.ndarray                      # [N+1] int64
     col_idx: np.ndarray                      # [E] int32, sorted per row
@@ -119,6 +126,12 @@ class Graph:
     node_names: Optional[np.ndarray] = None
     edge_types: Optional[np.ndarray] = None  # [E] int32, aligned with col_idx
     edge_type_names: Optional[np.ndarray] = None
+    # Node types as a CSR of type ids per node: node i's types are
+    # node_type_ids[node_type_ptr[i]:node_type_ptr[i + 1]], its first one
+    # its primary type; a node with none has an unknown type.
+    node_type_ptr: Optional[np.ndarray] = None   # [N+1]
+    node_type_ids: Optional[np.ndarray] = None   # [sum of labels]
+    node_type_names: Optional[np.ndarray] = None
 
     @property
     def number_of_nodes(self) -> int:
@@ -199,8 +212,7 @@ class Graph:
 
     @property
     def has_node_types(self) -> bool:
-        """Always False: node types come with ROADMAP A6."""
-        return False
+        return self.node_type_ids is not None
 
     @property
     def has_edge_types(self) -> bool:
@@ -220,6 +232,70 @@ class Graph:
 
     def get_node_names(self) -> np.ndarray:
         return _as_names(self.node_names, self.number_of_nodes, "node_")
+
+    # ------------------------------------------------------------ node types
+    @property
+    def number_of_node_types(self) -> int:
+        """The largest node type id plus one; 0 without node types."""
+        if self.node_type_ids is None or len(self.node_type_ids) == 0:
+            return 0
+        return int(self.node_type_ids.max()) + 1
+
+    def get_node_type_names(self) -> Optional[np.ndarray]:
+        if self.node_type_ids is None:
+            return None
+        return _as_names(self.node_type_names, self.number_of_node_types, "node_type_")
+
+    def has_multilabel_node_types(self) -> bool:
+        if self.node_type_ptr is None:
+            return False
+        return bool(np.any(np.diff(self.node_type_ptr) > 1))
+
+    def get_one_hot_encoded_node_types(self) -> np.ndarray:
+        """[N, n_node_types] float32: 1 where the node has the type."""
+        n, t = self.number_of_nodes, self.number_of_node_types
+        out = np.zeros((n, t), dtype=np.float32)
+        if t == 0:
+            return out
+        rows = np.repeat(np.arange(n), np.diff(self.node_type_ptr))
+        out[rows, self.node_type_ids] = 1.0
+        return out
+
+    def get_single_label_node_type_ids(self) -> np.ndarray:
+        """[N] int32 primary (first) node type of each node, -1 where the
+        node has none or the graph has no node types."""
+        out = np.full(self.number_of_nodes, -1, dtype=np.int32)
+        if self.node_type_ptr is None:
+            return out
+        has = np.diff(self.node_type_ptr) > 0
+        out[has] = self.node_type_ids[self.node_type_ptr[:-1][has]]
+        return out
+
+    def get_known_node_types_mask(self) -> np.ndarray:
+        if self.node_type_ptr is None:
+            return np.zeros(self.number_of_nodes, dtype=bool)
+        return np.diff(self.node_type_ptr) > 0
+
+    def get_node_ids_from_node_type_names(self, type_names: Sequence[str]) -> np.ndarray:
+        """Ids of the nodes that have at least one of the named types."""
+        if isinstance(type_names, str):
+            type_names = [type_names]
+        if self.node_type_ptr is None:
+            raise ValueError(f"Graph {self.name} has no node types.")
+        all_names = list(self.get_node_type_names())
+        wanted = set()
+        for t in type_names:
+            if t not in all_names:
+                raise ValueError(f"Unknown node type {t!r}; available: {all_names}")
+            wanted.add(all_names.index(t))
+        rows = np.repeat(np.arange(self.number_of_nodes), np.diff(self.node_type_ptr))
+        mask = np.zeros(self.number_of_nodes, dtype=bool)
+        mask[rows[np.isin(self.node_type_ids, list(wanted))]] = True
+        return np.nonzero(mask)[0].astype(np.int32)
+
+    def is_sorted_by_decreasing_outbound_node_degree(self) -> bool:
+        d = self.degrees
+        return bool(np.all(d[:-1] >= d[1:]))
 
     @cached_property
     def node_name_to_id(self) -> Dict[str, int]:
@@ -252,6 +328,9 @@ class Graph:
             name=name or self.name,
             node_names=self.node_names,
             edge_type_names=self.edge_type_names,
+            node_type_ptr=self.node_type_ptr,
+            node_type_ids=self.node_type_ids,
+            node_type_names=self.node_type_names,
         )
 
     def __and__(self, other: "Graph") -> "Graph":
@@ -272,6 +351,9 @@ class Graph:
         directed_flag: Optional[bool] = None,
         edge_types: Optional[np.ndarray] = None,
         edge_type_names: Optional[Sequence[str]] = None,
+        node_type_ptr: Optional[np.ndarray] = None,
+        node_type_ids: Optional[np.ndarray] = None,
+        node_type_names: Optional[Sequence[str]] = None,
     ) -> "Graph":
         """Build the CSR from (src, dst[, weights, edge types]) arc arrays.
 
@@ -279,7 +361,8 @@ class Graph:
         edge's weight and type. Arcs sort by the key src * N + dst; a
         duplicate arc keeps the attributes of its first occurrence.
         `directed_flag`, when given, is the stored directedness in place of
-        `directed` (for arcs that are already symmetrized)."""
+        `directed` (for arcs that are already symmetrized). The node types
+        (`node_type_ptr`, `node_type_ids`) are stored as given."""
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if n_nodes is None:
@@ -310,6 +393,10 @@ class Graph:
             edge_types=edge_types,
             edge_type_names=(None if edge_type_names is None
                              else np.asarray(edge_type_names, dtype=object)),
+            node_type_ptr=None if node_type_ptr is None else np.asarray(node_type_ptr),
+            node_type_ids=None if node_type_ids is None else np.asarray(node_type_ids),
+            node_type_names=(None if node_type_names is None
+                             else np.asarray(node_type_names, dtype=object)),
         )
 
     def device(
@@ -319,11 +406,18 @@ class Graph:
         with_sources: bool = False,
         ell_cap: Optional[int] = None,
         ell_seed: int = 0,
+        with_walk_types: bool = False,
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
         `with_alias` and the graph is weighted, each arc's source when
         `with_sources`, the capped ELLPACK adjacency when `ell_cap` is
-        given (`ell_arrays`), and the edge types when the graph has them."""
+        given (`ell_arrays`), and the edge types when the graph has them.
+        `with_walk_types` adds the typed walks' tables: each node's primary
+        type when the graph has node types and, with an ELL table, [N, cap]
+        int32 tables (-1 padded), slot for slot with it, of the primary node
+        type of each slot's neighbour (with node types) and of the edge type
+        of its arc (with edge types), the JAX package's `ell_ntypes` and
+        `ell_etypes`."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -332,42 +426,46 @@ class Graph:
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
+        def maybe(a, dtype):
+            return None if a is None else put(a, dtype)
+
         alias_prob = alias_idx = None
         if with_alias and self.weights is not None:
             prob, alias = build_alias_tables(self.row_ptr, self.weights)
             alias_prob, alias_idx = put(prob, np.float32), put(alias, np.int32)
-        ecols, ew, cap = self.ell_arrays(ell_cap, ell_seed)
+        cap, ell = self._ell_tables(ell_cap, ell_seed, with_walk_types)
+        node_type_of = (self.get_single_label_node_type_ids()
+                        if with_walk_types and self.has_node_types else None)
         return TorchGraph(
             row_ptr=put(self.row_ptr, np.int32),
             col_idx=put(self.col_idx, np.int32),
             degrees=put(self.degrees, np.int32),
-            weights=None if self.weights is None else put(self.weights, np.float32),
+            weights=maybe(self.weights, np.float32),
             alias_prob=alias_prob,
             alias_idx=alias_idx,
             n_nodes=self.number_of_nodes,
             n_arcs=self.number_of_directed_edges,
             max_degree=int(self.degrees.max(initial=0)),
             sources=put(self.sources, np.int32) if with_sources else None,
-            ell_cols=None if ecols is None else put(ecols, np.int32),
-            ell_w=None if ew is None else put(ew, np.float32),
+            ell_cols=maybe(ell.get("ell_cols"), np.int32),
+            ell_w=maybe(ell.get("ell_w"), np.float32),
             ell_cap=cap,
-            edge_types=(None if self.edge_types is None
-                        else put(self.edge_types, np.int32)),
+            edge_types=maybe(self.edge_types, np.int32),
+            node_type_of=maybe(node_type_of, np.int32),
+            ell_ntypes=maybe(ell.get("ell_ntypes"), np.int32),
+            ell_etypes=maybe(ell.get("ell_etypes"), np.int32),
         )
 
-    def ell_arrays(
-        self, ell_cap: Optional[int], ell_seed: int = 0
-    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], int]:
-        """(ell_cols [N, cap] int32 -1 padded, ell_w [N, cap] f32 or None,
-        cap) with cap = min(ell_cap, max degree); (None, None, 0) when
-        `ell_cap` is None or not positive. A row of at most cap neighbours
-        keeps its CSR order; a longer row holds a seeded uniform subsample
-        of its neighbours in random order (the first cap of a random
-        within-row order), so that a capped walk can reach every neighbour
-        of a hub. The same arrays, byte for byte, as the JAX package's
-        `Graph.device(ell_cap=..., ell_seed=...)`."""
+    def _ell_tables(self, ell_cap: Optional[int], ell_seed: int, with_types: bool):
+        """(cap, {name: [N, cap] array}) with cap = min(ell_cap, max
+        degree): "ell_cols" (-1 padded), "ell_w" on weighted graphs (0
+        padded) and, `with_types`, "ell_ntypes" (with node types) and
+        "ell_etypes" (with edge types), -1 padded; (0, {}) when `ell_cap` is
+        None or not positive. A row of at most cap arcs keeps its CSR order;
+        a longer row keeps the first cap of a seeded random within-row
+        order."""
         if ell_cap is None or ell_cap <= 0:
-            return None, None, 0
+            return 0, {}
         cap = int(min(ell_cap, max(int(self.degrees.max(initial=1)), 1)))
         n = self.number_of_nodes
         degrees = self.degrees.astype(np.int64)
@@ -389,18 +487,41 @@ class Graph:
             pos = pos.copy()
             pos[sub] = ranks
         keep = pos < cap
-        ecols = np.full((n, cap), -1, np.int32)
-        ecols[rows[keep], pos[keep]] = self.col_idx[keep]
-        ew = None
+
+        def table(values, fill, dtype):
+            out = np.full((n, cap), fill, dtype)
+            out[rows[keep], pos[keep]] = values[keep]
+            return out
+
+        tables = {"ell_cols": table(self.col_idx, -1, np.int32)}
         if self.weights is not None:
-            ew = np.zeros((n, cap), np.float32)
-            ew[rows[keep], pos[keep]] = self.weights[keep]
-        return ecols, ew, cap
+            tables["ell_w"] = table(self.weights, 0, np.float32)
+        if with_types and self.has_node_types:
+            ntypes = self.get_single_label_node_type_ids()
+            tables["ell_ntypes"] = table(ntypes[self.col_idx], -1, np.int32)
+        if with_types and self.edge_types is not None:
+            tables["ell_etypes"] = table(self.edge_types, -1, np.int32)
+        return cap, tables
+
+    def ell_arrays(
+        self, ell_cap: Optional[int], ell_seed: int = 0
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], int]:
+        """(ell_cols [N, cap] int32 -1 padded, ell_w [N, cap] f32 or None,
+        cap) with cap = min(ell_cap, max degree); (None, None, 0) when
+        `ell_cap` is None or not positive. A row of at most cap neighbours
+        keeps its CSR order; a longer row holds a seeded uniform subsample
+        of its neighbours in random order (the first cap of a random
+        within-row order), so that a capped walk can reach every neighbour
+        of a hub. The same arrays, byte for byte, as the JAX package's
+        `Graph.device(ell_cap=..., ell_seed=...)`."""
+        cap, tables = self._ell_tables(ell_cap, ell_seed, False)
+        return tables.get("ell_cols"), tables.get("ell_w"), cap
 
     def __repr__(self) -> str:
         return (
             f"Graph(name={self.name!r}, nodes={self.number_of_nodes}, "
             f"arcs={self.number_of_directed_edges}, directed={self.directed}, "
             f"weighted={self.has_edge_weights}, "
+            f"node_types={self.number_of_node_types}, "
             f"edge_types={self.number_of_edge_types})"
         )

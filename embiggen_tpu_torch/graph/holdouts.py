@@ -38,6 +38,9 @@ def _subgraph_from_canonical(graph: Graph, keep: np.ndarray, name: str) -> Graph
         name=name,
         node_names=graph.node_names,
         edge_type_names=graph.edge_type_names,
+        node_type_ptr=graph.node_type_ptr,
+        node_type_ids=graph.node_type_ids,
+        node_type_names=graph.node_type_names,
     )
 
 

@@ -2,12 +2,12 @@
 files and named datasets.
 
 `from_csv` parses with the standard library's `csv` module (no pandas, no
-native parser); node names are numbered in sorted order, as the reference's
-`from_pandas` does. Named corpora resolve from a local file or, when asked,
-from a deterministic synthetic stand-in of their published size. The port's
-`Graph` has no node or edge types yet (ROADMAP A6), so the typed datasets
-(`karate_club`, `small_ppi`, the typed stand-ins) and an edge-type column
-raise NotImplementedError naming it.
+native parser); node names and edge types are numbered in sorted order, as
+the reference's `from_pandas` does, or in order of first appearance, as its
+native parser does. Named corpora resolve from a local file or, when asked,
+from a deterministic synthetic stand-in of their published size; the
+bundled graphs are Zachary's karate club, with its two communities as node
+types, and the reference's STRING PPI fixture, whose edges are labelled.
 """
 from __future__ import annotations
 
@@ -22,10 +22,16 @@ import numpy as np
 from .graph import Graph
 
 
-def _needs_types(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs node or edge types, which the port's Graph does not "
-        "have yet (ROADMAP A6).")
+def _numbered(values: np.ndarray, first_seen: bool):
+    """(names, ids): the distinct values, sorted or in order of first
+    appearance, and each value's index among them."""
+    names, first, inverse = np.unique(values, return_index=True, return_inverse=True)
+    if not first_seen:
+        return names, inverse
+    order = np.argsort(first, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return names[order], rank[inverse]
 
 
 def from_csv(
@@ -37,11 +43,15 @@ def from_csv(
     directed: bool = False,
     sep: str = "\t",
     name: Optional[str] = None,
+    first_seen_ids: bool = False,
 ) -> Graph:
     """Load an edge-list file with a header row (the reference's
     `tests/data/small_ppi.tsv` layout: subject, object, weight, edge_label
-    columns). Gzipped files end in `.gz`. The weight column is used when
-    present; an edge-type column that is present raises (ROADMAP A6)."""
+    columns). Gzipped files end in `.gz`. The weight and edge-type columns
+    are used when present. Node names and edge types are numbered in sorted
+    order (the reference's pandas path), or with `first_seen_ids` in order
+    of first appearance, a row's source before its destination (the
+    reference's native parser, which its `from_csv` takes by default)."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt", newline="") as f:
         reader = csv.reader(f, delimiter=sep)
@@ -52,35 +62,74 @@ def from_csv(
         if column not in cols:
             raise ValueError(f"{path} has no column {column!r}; its header is "
                              f"{header}.")
-    if edge_type_column is not None and edge_type_column in cols:
-        raise _needs_types(f"The edge-type column {edge_type_column!r} of {path}")
     src_names = np.asarray([r[cols[source_column]] for r in rows], dtype=str)
     dst_names = np.asarray([r[cols[destination_column]] for r in rows], dtype=str)
-    all_names, inverse = np.unique(
-        np.concatenate([src_names, dst_names]), return_inverse=True)
+    # Interleaved, so that first appearance reads a row's source first.
+    all_names, inverse = _numbered(
+        np.stack([src_names, dst_names], axis=1).reshape(-1), first_seen_ids)
     weights = None
     if weight_column is not None and weight_column in cols:
         weights = np.asarray([r[cols[weight_column]] for r in rows],
                              dtype=np.float32)
+    edge_types = edge_type_names = None
+    if edge_type_column is not None and edge_type_column in cols:
+        edge_type_names, edge_types = _numbered(
+            np.asarray([r[cols[edge_type_column]] for r in rows], dtype=str), first_seen_ids)
+        edge_types = edge_types.astype(np.int32)
+        edge_type_names = edge_type_names.astype(object)
     return Graph.from_edge_arrays(
-        inverse[:len(src_names)],
-        inverse[len(src_names):],
+        inverse[0::2],
+        inverse[1::2],
         n_nodes=len(all_names),
         weights=weights,
+        edge_types=edge_types,
         directed=directed,
         name=name or path.rsplit("/", 1)[-1].split(".")[0],
         node_names=all_names.astype(object),
+        edge_type_names=edge_type_names,
     )
 
 
+_ZKC_EDGES = [
+    (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8), (0, 10),
+    (0, 11), (0, 12), (0, 13), (0, 17), (0, 19), (0, 21), (0, 31), (1, 2),
+    (1, 3), (1, 7), (1, 13), (1, 17), (1, 19), (1, 21), (1, 30), (2, 3),
+    (2, 7), (2, 8), (2, 9), (2, 13), (2, 27), (2, 28), (2, 32), (3, 7),
+    (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10), (5, 16), (6, 16),
+    (8, 30), (8, 32), (8, 33), (9, 33), (13, 33), (14, 32), (14, 33),
+    (15, 32), (15, 33), (18, 32), (18, 33), (19, 33), (20, 32), (20, 33),
+    (22, 32), (22, 33), (23, 25), (23, 27), (23, 29), (23, 32), (23, 33),
+    (24, 25), (24, 27), (24, 31), (25, 31), (26, 29), (26, 33), (27, 33),
+    (28, 31), (28, 33), (29, 32), (29, 33), (30, 32), (30, 33), (31, 32),
+    (31, 33), (32, 33),
+]
+_ZKC_COMMUNITY = [
+    0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 0, 1, 1, 0, 0, 1, 0, 1, 0, 1,
+    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+]
+
+
 def karate_club() -> Graph:
-    """Zachary's karate club: its community labels are node types."""
-    raise _needs_types("karate_club")
+    """Zachary's karate club, with its two communities as node types."""
+    src, dst = np.asarray(_ZKC_EDGES).T
+    return Graph.from_edge_arrays(
+        src, dst, n_nodes=34, directed=False, name="KarateClub",
+        node_type_ptr=np.arange(35, dtype=np.int64),
+        node_type_ids=np.asarray(_ZKC_COMMUNITY, dtype=np.int32),
+        node_type_names=["Mr. Hi", "Officer"],
+    )
 
 
 def small_ppi(path: Optional[str] = None) -> Graph:
-    """The reference's STRING PPI fixture: its edges are labelled."""
-    raise _needs_types("small_ppi")
+    """The reference's STRING PPI fixture (3,000 weighted edges labelled by
+    type), from `path` or the repository's `tests/data/small_ppi.tsv`,
+    numbered as the reference's default parser numbers it."""
+    if path is None:
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), "tests", "data", "small_ppi.tsv")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"small_ppi.tsv not found at {path}")
+    return from_csv(path, name="SmallPPI", first_seen_ids=True)
 
 
 _DATASETS = {
@@ -107,17 +156,26 @@ class DatasetSpec:
     directed: bool = False
 
     def synthetic(self) -> Graph:
+        """A corpus with node types stands in as a planted partition with
+        one community per type, at about its published density; any other
+        as a Barabasi-Albert graph of its mean degree (weighted when it
+        is)."""
         from . import generators
 
+        stand_in = f"{self.name}SyntheticStandIn"
         if self.n_node_types > 1:
-            raise _needs_types(f"The synthetic stand-in of {self.name}")
+            density = 2.0 * self.n_edges / max(self.n_nodes, 1) ** 2
+            return generators.planted_partition(
+                n_nodes=self.n_nodes, n_communities=self.n_node_types,
+                p_in=min(1.0, 4.0 * density * self.n_node_types),
+                p_out=min(1.0, 0.4 * density), seed=42, name=stand_in)
         m = max(1, self.n_edges // max(self.n_nodes, 1))
         g = generators.barabasi_albert(self.n_nodes, m, seed=42)
         if self.weighted:
             rng = np.random.default_rng(7)
             g = dataclasses.replace(g, weights=(
                 0.5 + rng.random(g.number_of_directed_edges)).astype(np.float32))
-        return dataclasses.replace(g, name=f"{self.name}SyntheticStandIn")
+        return dataclasses.replace(g, name=stand_in)
 
 
 # Published sizes of the corpora the reference's tests and docs use.

@@ -188,11 +188,24 @@ class AbstractEmbeddingModel(AbstractModel):
     def smoke_test_parameters(cls) -> Dict[str, Any]:
         return {"embedding_size": 5}
 
+    @classmethod
+    def requires_nodes_sorted_by_decreasing_node_degree(cls) -> bool:
+        return False
+
     def _validate_graph(self, graph: Graph) -> None:
         if graph.number_of_nodes == 0:
             raise ValueError(f"Graph {graph.name} has no nodes.")
         if graph.number_of_directed_edges == 0:
             raise ValueError(f"Graph {graph.name} has no edges.")
+        if (
+            self.requires_nodes_sorted_by_decreasing_node_degree()
+            and not graph.is_sorted_by_decreasing_outbound_node_degree()
+        ):
+            raise ValueError(
+                f"Model {self.model_name()} requires the graph nodes to be "
+                "sorted by decreasing outbound degree; call "
+                "graph.sort_by_decreasing_outbound_node_degree() first."
+            )
         if self.requires_edge_weights() and not graph.has_edge_weights:
             raise ValueError(
                 f"Model {self.model_name()} requires edge weights but graph "

@@ -116,6 +116,63 @@ class AbstractClassifierModel(AbstractModel):
             raise ValueError("Node features contain NaN or Inf values.")
         return arr
 
+    @staticmethod
+    def _validate_type_feature_matrix(feature, n_rows: int, names, kind: str) -> np.ndarray:
+        """One [n_rows, d] float32 matrix of per-type features; a DataFrame
+        is reindexed by the type `names`."""
+        if hasattr(feature, "loc"):
+            missing = set(names) - set(feature.index)
+            if missing:
+                raise ValueError(
+                    f"{kind} features DataFrame is missing {len(missing)} "
+                    f"entries, e.g. {sorted(missing)[:5]}"
+                )
+            arr = feature.loc[list(names)].to_numpy(dtype=np.float32)
+        else:
+            arr = np.asarray(feature, dtype=np.float32)
+        if arr.ndim == 1:
+            arr = arr[:, None]
+        if arr.shape[0] != n_rows:
+            raise ValueError(
+                f"{kind} feature has {arr.shape[0]} rows but the graph has "
+                f"{n_rows} {kind.lower()}s."
+            )
+        if not np.isfinite(arr).all():
+            raise ValueError(f"{kind} features contain NaN or Inf values.")
+        return arr
+
+    def normalize_node_type_features(self, graph: Graph, node_type_features
+                                     ) -> Optional[List[np.ndarray]]:
+        """A list of [n_node_types, d] float32 matrices."""
+        if node_type_features is None:
+            return None
+        if not graph.has_node_types:
+            raise ValueError(
+                f"Node type features provided but graph {graph.name} has no "
+                "node types."
+            )
+        if not isinstance(node_type_features, list):
+            node_type_features = [node_type_features]
+        names = graph.get_node_type_names()
+        return [self._validate_type_feature_matrix(
+            f, graph.number_of_node_types, names, "Node type") for f in node_type_features]
+
+    def normalize_edge_type_features(self, graph: Graph, edge_type_features
+                                     ) -> Optional[List[np.ndarray]]:
+        """A list of [n_edge_types, d] float32 matrices."""
+        if edge_type_features is None:
+            return None
+        if not graph.has_edge_types:
+            raise ValueError(
+                f"Edge type features provided but graph {graph.name} has no "
+                "edge types."
+            )
+        if not isinstance(edge_type_features, list):
+            edge_type_features = [edge_type_features]
+        names = graph.get_edge_type_names()
+        return [self._validate_type_feature_matrix(
+            f, graph.number_of_edge_types, names, "Edge type") for f in edge_type_features]
+
     def normalize_edge_features(self, graph: Graph, edge_features
                                 ) -> Optional[Tuple[List[Any], List[np.ndarray]]]:
         """(lazy models, static matrices) of `edge_features`, in their order
@@ -217,16 +274,19 @@ class AbstractClassifierModel(AbstractModel):
                     f"{self.model_name()} ({self.library_name()}) does not "
                     f"support {kind}; they would be silently ignored."
                 )
-        for provided, kind in ((node_type_features, "node_type_features"),
-                               (edge_type_features, "edge_type_features")):
-            if provided is not None:
-                raise NotImplementedError(f"{kind} are not ported yet (ROADMAP A6).")
         node_features = self.normalize_node_features(graph, node_features)
-        edge_kwargs = ({} if edge_features is None else
-                       {"edge_features": self.normalize_edge_features(graph, edge_features)})
+        # Only the feature classes given reach `_fit`.
+        feature_kwargs = {
+            kind: normalize(graph, given) for kind, given, normalize in (
+                ("node_type_features", node_type_features,
+                 self.normalize_node_type_features),
+                ("edge_type_features", edge_type_features,
+                 self.normalize_edge_type_features),
+                ("edge_features", edge_features, self.normalize_edge_features),
+            ) if given is not None}
         try:
             self._fit(graph, support=support or graph,
-                      node_features=node_features, **edge_kwargs)
+                      node_features=node_features, **feature_kwargs)
         except NotImplementedError:
             raise
         except Exception as exc:
@@ -306,6 +366,9 @@ class AbstractClassifierModel(AbstractModel):
         raise NotImplementedError
 
     def is_binary_prediction_task(self) -> bool:
+        return False
+
+    def is_multilabel_prediction_task(self) -> bool:
         return False
 
     # ----------------------------------------------------------------- metrics

@@ -3,8 +3,7 @@
 (Connected Monte Carlo, Monte Carlo, Kfold), `_evaluate`, which scores the
 train and test graphs of a holdout against negative graphs drawn
 (scale-free by default) from the whole graph, and the bipartite and clique
-candidate-set surface. The candidate sets by node type raise until the
-port's Graph has node types (ROADMAP A6).
+candidate-set surface (by node ids, names, name prefixes and node types).
 """
 from __future__ import annotations
 
@@ -225,9 +224,12 @@ class AbstractEdgePredictionModel(AbstractClassifierModel):
         self, graph: Graph, source_node_types, destination_node_types,
         **kwargs,
     ):
-        raise NotImplementedError(
-            "Candidate sets by node type need node types, which the port's "
-            "Graph does not have yet (ROADMAP A6).")
+        """Candidate sets: the nodes that have any of the node types."""
+        return self.predict_proba_bipartite_graph_from_edge_node_ids(
+            graph.get_node_ids_from_node_type_names(source_node_types),
+            graph.get_node_ids_from_node_type_names(destination_node_types),
+            graph=graph, **kwargs,
+        )
 
     def predict_proba_clique_graph_from_node_ids(self, node_ids: np.ndarray,
                                                  **kwargs):
@@ -249,8 +251,8 @@ class AbstractEdgePredictionModel(AbstractClassifierModel):
     def predict_proba_clique_graph_from_node_type_names(
         self, graph: Graph, node_type_names, **kwargs
     ):
-        return self.predict_proba_bipartite_graph_from_edge_node_types(
-            graph, node_type_names, node_type_names, **kwargs)
+        return self.predict_proba_clique_graph_from_node_ids(
+            graph.get_node_ids_from_node_type_names(node_type_names), graph=graph, **kwargs)
 
     # Hard labels: probability > 0.5, elementwise on a matrix or DataFrame.
     def predict_bipartite_graph_from_edge_node_ids(self, *args, **kwargs):

@@ -721,8 +721,7 @@ class Role2Vec(WalkBasedEmbedder):
         starts = sample_nodes_uniform(tg, generator, (self._run_batch_size,))
         contexts, words = node2vec_batch(
             tg, starts, self._walk_length, self._window_size, generator,
-            iterations=self._iterations, return_weight=self._return_weight,
-            explore_weight=self._explore_weight, max_neighbours=self._max_neighbours)
+            iterations=self._iterations, **self._walk_kwargs())
         neg_roles = torch.randint(0, self._n_roles,
                                   (words.shape[0], self._number_of_negative_samples),
                                   generator=self._role_generator, device=self.device,

@@ -3,10 +3,10 @@ counterpart of `embiggen_tpu/models/embedders/glove.py` (`GloVe`,
 `DeepWalkGloVe`), single device.
 
 (1) Walks from every node, `iterations` times each (K1, or K9 / K10 for p/q
-walks); (2) their window pairs at distance d = 1..w weighted 1/d, summed per
-distinct (center, context) key (K13a); (3) minibatch SGD over the non-zero
-entries on the weighted least squares f(X)(w_i . c_j + b_i + b_j - log X)^2,
-a batch mean: each step draws entry ids (K2's uniform mode) and applies the
+walks, K9 / K19 for typed walks); (2) their window pairs at distance d =
+1..w weighted 1/d, summed per distinct (center, context) key (K13a); (3)
+minibatch SGD over the non-zero entries on the weighted least squares
+f(X)(w_i . c_j + b_i + b_j - log X)^2, a batch mean: each step draws entry ids (K2's uniform mode) and applies the
 reference's "add" updates in place (K13b: a gradient launch and two update
 launches on a workspace the fit allocates once), every gradient taken before
 any table changes. Built on the `MinibatchEmbedder` skeleton, whose batch is
@@ -50,16 +50,13 @@ class GloVe(MinibatchEmbedder):
         batch_size: int = 65536,
         **kwargs,
     ):
-        for name, value in (("change_node_type_weight", change_node_type_weight),
-                            ("change_edge_type_weight", change_edge_type_weight)):
-            if value != 1.0:
-                raise NotImplementedError(
-                    f"{name}={value}: typed walks are not ported yet (ROADMAP A6).")
         self._walk_length = walk_length
         self._iterations = iterations
         self._window_size = window_size
         self._return_weight = return_weight
         self._explore_weight = explore_weight
+        self._change_node_type_weight = change_node_type_weight
+        self._change_edge_type_weight = change_edge_type_weight
         self._max_neighbours = max_neighbours
         self._alpha = alpha
         self._x_max = x_max
@@ -84,8 +81,8 @@ class GloVe(MinibatchEmbedder):
             "window_size": self._window_size,
             "return_weight": self._return_weight,
             "explore_weight": self._explore_weight,
-            "change_node_type_weight": 1.0,
-            "change_edge_type_weight": 1.0,
+            "change_node_type_weight": self._change_node_type_weight,
+            "change_edge_type_weight": self._change_edge_type_weight,
             "max_neighbours": self._max_neighbours,
             "alpha": self._alpha,
             "x_max": self._x_max,
@@ -101,18 +98,22 @@ class GloVe(MinibatchEmbedder):
     # ----------------------------------------------------------- co-occurrence
     def _walks(self, graph: Graph) -> torch.Tensor:
         """`iterations` walks from every node on the model's device; the ELL
-        table is exported only for p/q walks."""
-        second_order = self._return_weight != 1.0 or self._explore_weight != 1.0
+        table is exported only for p/q or typed walks, and its type tables
+        only for typed ones."""
+        typed = self._change_node_type_weight != 1.0 or self._change_edge_type_weight != 1.0
+        second_order = self._return_weight != 1.0 or self._explore_weight != 1.0 or typed
         tg = graph.device(self.device, with_alias=graph.has_edge_weights,
                           ell_cap=(self._max_neighbours or 100) if second_order else None,
-                          ell_seed=self.random_state or 0)
+                          ell_seed=self.random_state or 0, with_walk_types=typed)
         starts = torch.arange(graph.number_of_nodes, dtype=torch.int32,
                               device=self.device).repeat(self._iterations)
         return random_walks(tg, starts, self._walk_length,
                             torch.Generator().manual_seed(self.random_state or 0),
                             return_weight=self._return_weight,
                             explore_weight=self._explore_weight,
-                            max_neighbours=self._max_neighbours)
+                            max_neighbours=self._max_neighbours,
+                            change_node_type_weight=self._change_node_type_weight,
+                            change_edge_type_weight=self._change_edge_type_weight)
 
     # ------------------------------------------------------- minibatch hooks
     def _prepare_data(self, graph: Graph) -> Entries:

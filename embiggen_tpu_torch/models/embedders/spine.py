@@ -12,8 +12,8 @@ number_of_convolutions).
 - WINE: feature j counts the walks of length 1..window_size into anchor
   set j: `window_size` K7 hops at unit values.
 - Anchors are the top-degree nodes, the top-score nodes, or the node-label
-  classes; node types come with ROADMAP A6, so the node-label rows raise
-  the reference's error on the port's untyped graphs.
+  classes; the node-label rows raise the reference's error on untyped
+  graphs, and on typed ones raise until ROADMAP A10 ports them.
 - RUBICONE and RUINE: random binary or uniform features, drawn on the
   model's device from a torch.Generator seeded by `random_state`, then
   `number_of_convolutions` K7 products with the Left Normalized Laplacian.
@@ -88,8 +88,11 @@ class _NodeLabelAnchorMixin:
         return True
 
     def _anchor_sets(self, graph: Graph) -> List[np.ndarray]:
-        # The port's Graph has no node types until ROADMAP A6.
-        raise ValueError(f"{self.model_name()} requires node types.")
+        if not graph.has_node_types:
+            raise ValueError(f"{self.model_name()} requires node types.")
+        raise NotImplementedError(
+            f"{self.model_name()}: the node-label anchors are not ported yet "
+            "(ROADMAP A10).")
 
 
 class _ScoreAnchorMixin:

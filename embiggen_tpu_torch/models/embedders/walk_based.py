@@ -1,15 +1,15 @@
 """Walk-based embedders — counterpart of
 `embiggen_tpu/models/embedders/walk_based.py` (`WalkBasedEmbedder`,
 `SkipGram`, `CBOW`, the DeepWalk presets and the generic `Node2Vec`), single
-device, first-order and p/q walks.
+device, first-order, p/q and typed walks.
 
 One training step samples start nodes, walks and per-walk negatives
-(kernels K2, then K1 for first-order walks or K9 / K10 for p/q walks, then
-K2), adds the gradients of the gathered rows into per-node sums and counts
-(K3 for SkipGram's banded NCE, K11 for CBOW's sampled softmax) and applies
-the per-row mean update to the three tables in one pass that zeroes the sums
-again (K4's combine). The sums are allocated once per fit; the tables are
-updated in place. An epoch is a loop over steps; its mean loss is read on
+(kernels K2, then K1 for first-order walks, K9 / K10 for p/q walks or K9 /
+K19 for typed walks, then K2), adds the gradients of the gathered rows into
+per-node sums and counts (K3 for SkipGram's banded NCE, K11 for CBOW's
+sampled softmax) and applies the per-row mean update to the three tables in
+one pass that zeroes the sums again (K4's combine). The sums are allocated
+once per fit; the tables are updated in place. An epoch is a loop over steps; its mean loss is read on
 the host once per epoch, for the lr plateau and early stopping.
 """
 from __future__ import annotations
@@ -85,14 +85,6 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         device="cuda",
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        for name, value in (
-            ("change_node_type_weight", change_node_type_weight),
-            ("change_edge_type_weight", change_edge_type_weight),
-        ):
-            if value != 1.0:
-                raise NotImplementedError(
-                    f"{name}={value}: typed walks are not ported yet "
-                    "(ROADMAP A6).")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device training is not ported yet (ROADMAP A13).")
@@ -210,7 +202,6 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 
     # The reference's typed-walk contract: a model uses node (edge) types
     # iff its change_node_type_weight (change_edge_type_weight) is not 1.
-    # The port accepts only 1.0 until typed walks come (ROADMAP A6).
     @classmethod
     def can_use_node_types(cls) -> bool:
         return True
@@ -224,6 +215,14 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 
     def is_using_edge_types(self) -> bool:
         return self._change_edge_type_weight != 1.0
+
+    @classmethod
+    def supports_distribution(cls) -> bool:
+        """False: the port trains on one device. The reference answers True
+        for the walk models that implement its gathered-gradient hooks;
+        multi-device training comes with ROADMAP A13, which makes the
+        answers equal."""
+        return False
 
     # ------------------------------------------------------------- the tables
     # The three tables of a model, in `SkipGramSums` order: the input table
@@ -291,25 +290,39 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         return table
 
     # ----------------------------------------------------------- training loop
+    def _walks_are_typed(self) -> bool:
+        return (self._change_node_type_weight != 1.0
+                or self._change_edge_type_weight != 1.0)
+
     def _walks_are_biased(self) -> bool:
-        """True when walks weigh their candidates (p/q); these take the ELL
-        sampler K9."""
-        return self._return_weight != 1.0 or self._explore_weight != 1.0
+        """True when walks weigh their candidates (p/q or typed factors);
+        these take the ELL sampler K9."""
+        return (self._return_weight != 1.0 or self._explore_weight != 1.0
+                or self._walks_are_typed())
 
     def _ell_cap_for_walks(self) -> Optional[int]:
-        """Width of the ELL table to export: p/q walks need it, at the
+        """Width of the ELL table to export: biased walks need it, at the
         candidate cap; first-order walks do not."""
         if not self._walks_are_biased():
             return None
         return self._max_neighbours or 100
 
+    def _walk_kwargs(self) -> Dict[str, Any]:
+        """The walk hyper-parameters `random_walks` takes."""
+        return dict(return_weight=self._return_weight,
+                    explore_weight=self._explore_weight,
+                    max_neighbours=self._max_neighbours,
+                    change_node_type_weight=self._change_node_type_weight,
+                    change_edge_type_weight=self._change_edge_type_weight)
+
     def _device_graph(self, graph: Graph) -> TorchGraph:
         """The graph on the model's device: alias tables on weighted graphs,
-        and for p/q walks the ELL table, whose over-cap rows are a subsample
-        seeded by random_state."""
+        for biased walks the ELL table, whose over-cap rows are a subsample
+        seeded by random_state, and for typed walks its type tables."""
         return graph.device(self.device, with_alias=graph.has_edge_weights,
                             ell_cap=self._ell_cap_for_walks(),
-                            ell_seed=self.random_state or 0)
+                            ell_seed=self.random_state or 0,
+                            with_walk_types=self._walks_are_typed())
 
     def _sample_batch(
         self, tg: TorchGraph, generator: torch.Generator, batch_size: int
@@ -318,12 +331,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         Negatives are per walk: each walk's centres contrast against their
         own K draws."""
         starts = sample_nodes_uniform(tg, generator, (batch_size,))
-        walks = random_walks(
-            tg, starts.repeat(self._iterations), self._walk_length, generator,
-            return_weight=self._return_weight,
-            explore_weight=self._explore_weight,
-            max_neighbours=self._max_neighbours,
-        )
+        walks = random_walks(tg, starts.repeat(self._iterations), self._walk_length,
+                             generator, **self._walk_kwargs())
         negs = negative_nodes_for_nce(
             tg, generator, self._number_of_negative_samples,
             self._use_scale_free_distribution,

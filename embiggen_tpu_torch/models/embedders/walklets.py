@@ -178,10 +178,7 @@ class WalkletsGloVe(_WalkletsBase):
         n = graph.number_of_nodes
         starts = torch.arange(n, dtype=torch.int32, device=self.device).repeat(
             self._iterations)
-        walks = random_walks(tg, starts, self._walk_length, generator,
-                             return_weight=self._return_weight,
-                             explore_weight=self._explore_weight,
-                             max_neighbours=self._max_neighbours)
+        walks = random_walks(tg, starts, self._walk_length, generator, **self._walk_kwargs())
         params = self._initial_tables(graph, generator)
         self._epoch_losses, self._epoch_seconds = [], []
         last, workspace = None, None

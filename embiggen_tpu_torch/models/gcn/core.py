@@ -168,23 +168,41 @@ class GCNEncoder:
 
 
 class StaticFeatureSpec:
-    """The fixed node features plus, when used, a learned node embedding."""
+    """The fixed node features plus, when used, a learned node embedding
+    and a learned node-type embedding, gathered by each node's primary type
+    (`type_ids`: the type + 1, 0 for an unknown type)."""
 
-    def __init__(self, static: torch.Tensor, use_node_embedding: bool):
+    def __init__(self, static: torch.Tensor, use_node_embedding: bool,
+                 type_ids: Optional[torch.Tensor] = None):
         self.static = static
         self.use_node_embedding = use_node_embedding
+        self.type_ids = type_ids
 
     def dim(self, embed_params: Params) -> int:
         d = self.static.shape[1]
         if self.use_node_embedding:
             d += embed_params["node_embedding"].shape[1]
+        if self.type_ids is not None:
+            d += embed_params["node_type_embedding"].shape[1]
         return d
 
     def materialize(self, embed_params: Params) -> torch.Tensor:
         parts = [self.static]
         if self.use_node_embedding:
             parts.append(embed_params["node_embedding"])
+        if self.type_ids is not None:
+            parts.append(embed_params["node_type_embedding"][self.type_ids])
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def materialize_node_type_features(
+    graph: Graph, node_type_features: List[np.ndarray]
+) -> List[np.ndarray]:
+    """Per-node rows of [n_node_types, d] matrices: the mean over each
+    node's types, zeros for a node of unknown type."""
+    onehot = graph.get_one_hot_encoded_node_types()
+    counts = np.maximum(onehot.sum(axis=1, keepdims=True), 1.0)
+    return [(onehot @ np.asarray(f, np.float32)) / counts for f in node_type_features]
 
 
 def assemble_node_features(
@@ -198,13 +216,13 @@ def assemble_node_features(
     device: torch.device,
     node_type_features: Optional[List[np.ndarray]] = None,
 ) -> Tuple[Params, StaticFeatureSpec]:
-    """The static feature matrix on `device`, and the learned node
-    embedding table (on the CPU, from `generator`) when used."""
-    if use_node_type_embedding or node_type_features:
-        raise NotImplementedError(
-            "Node-type features and embeddings are not ported yet "
-            "(ROADMAP A6).")
+    """The static feature matrix on `device` (the node features, then the
+    node-type features as per-node rows), and the learned node embedding
+    and node-type embedding tables ([n_node_types + 1, d], row 0 for an
+    unknown type; on the CPU, from `generator`) when used."""
     mats = [np.asarray(f, np.float32) for f in (node_features or [])]
+    if node_type_features:
+        mats.extend(materialize_node_type_features(graph, node_type_features))
     static = (np.concatenate(mats, axis=1) if mats
               else np.zeros((graph.number_of_nodes, 0), np.float32))
     params: Params = {}
@@ -212,7 +230,16 @@ def assemble_node_features(
         params["node_embedding"] = torch.randn(
             (graph.number_of_nodes, node_embedding_size), generator=generator
         ) / np.sqrt(node_embedding_size)
-    spec = StaticFeatureSpec(torch.from_numpy(static).to(device), use_node_embedding)
+    type_ids = None
+    if use_node_type_embedding:
+        if not graph.has_node_types:
+            raise ValueError("use_node_type_embedding requires a graph with node types.")
+        params["node_type_embedding"] = torch.randn(
+            (graph.number_of_node_types + 1, node_type_embedding_size), generator=generator
+        ) / np.sqrt(node_type_embedding_size)
+        type_ids = torch.from_numpy(
+            graph.get_single_label_node_type_ids().astype(np.int64) + 1).to(device)
+    spec = StaticFeatureSpec(torch.from_numpy(static).to(device), use_node_embedding, type_ids)
     return params, spec
 
 

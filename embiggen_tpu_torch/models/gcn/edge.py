@@ -13,11 +13,15 @@ the reference's order and with no gradient: lazy edge-feature models
 HyperSketching) fitted on the support graph and queried per batch (kernel
 K16b); static [arcs, d] matrices looked up by arc id (kernel K5), a zeros
 row for non-edges; with `use_edge_metrics`, the edge heuristics of each
-pair over the support graph (kernel K8).
+pair over the support graph (kernel K8); then each pair's edge type (its
+arc's type, looked up by K5; -1 for a non-edge) through the edge-type
+feature tables and, with `use_edge_type_embedding`, a learned edge-type
+embedding. Node-type features join the node features as per-node rows;
+`use_node_type_embedding` adds a learned embedding of each node's primary
+type.
 
 Not ported yet, each raising NotImplementedError that names its item:
-edge types and the edge-type embedding (A6), `mesh` (A13) and
-`checkpoint_dir` (A12); the edge-label GCN comes with A10.
+`mesh` (A13) and `checkpoint_dir` (A12); the edge-label GCN comes with A10.
 """
 from __future__ import annotations
 
@@ -84,8 +88,6 @@ class _EdgeGCNBase(AbstractClassifierModel):
         for given, item, what in (
             (mesh is not None, "A13", "mesh: multi-device training"),
             (checkpoint_dir is not None, "A12", "checkpoint_dir: checkpointing"),
-            (use_node_type_embedding, "A6", "use_node_type_embedding"),
-            (use_edge_type_embedding, "A6", "use_edge_type_embedding"),
         ):
             if given:
                 raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item}).")
@@ -183,10 +185,11 @@ class _EdgeGCNBase(AbstractClassifierModel):
 
     # --------------------------------------------------------------- assembly
     def _build_common(self, graph: Graph, support: Graph, node_features,
-                      generator: torch.Generator, edge_features=None):
-        """Kernels on the device, the edge features, and the initial
-        parameter tree (drawn on the CPU from `generator`, then moved to the
-        device)."""
+                      generator: torch.Generator, edge_features=None,
+                      node_type_features=None, edge_type_features=None):
+        """Kernels on the device, the node and edge features, and the
+        initial parameter tree (drawn on the CPU from `generator`, then
+        moved to the device)."""
         self._encoder = GCNEncoder(
             self._kernels if self._units else None,
             self._units,
@@ -197,10 +200,13 @@ class _EdgeGCNBase(AbstractClassifierModel):
         )
         kernels = self._encoder.build_kernels(support, self.device)
         self._csr_kernels = kernels
-        use_embedding = self._use_node_embedding or not node_features
+        # A learned node embedding also stands in for no node features.
+        use_embedding = self._use_node_embedding or not (
+            node_features or node_type_features or self._use_node_type_embedding)
         embed_params, spec = assemble_node_features(
             graph, node_features, use_embedding, self._node_embedding_size,
-            False, self._node_type_embedding_size, generator, self.device,
+            self._use_node_type_embedding, self._node_type_embedding_size, generator,
+            self.device, node_type_features=node_type_features,
         )
         self._spec = spec
         in_dim = spec.dim(embed_params)
@@ -212,26 +218,37 @@ class _EdgeGCNBase(AbstractClassifierModel):
         if not self._siamese_towers:
             params["dst_tower"] = init_mlp(tower_dims, generator)
         edge_dim = edge_ops.output_dim(self._edge_embedding_method, tower_dims[-1])
-        edge_dim += self._build_edge_features(graph, support, edge_features)
+        edge_dim += self._build_edge_features(graph, support, edge_features,
+                                              edge_type_features)
         # The edge heuristics run on the support graph; their inputs are
         # node ids, so no gradient flows through them.
         self._metrics_tg = (support.device(self.device)
                             if self._use_edge_metrics else None)
         if self._use_edge_metrics:
             edge_dim += N_EDGE_METRICS
+        if self._use_edge_type_embedding:
+            edge_dim += self._edge_type_embedding_size
         params["head"] = init_mlp(
             [edge_dim] + self._head_units + [self._n_outputs], generator)
+        if self._use_edge_type_embedding:
+            # [n_edge_types + 1, d]: row 0 for an unknown type or a non-edge.
+            params["edge_type_embedding"] = torch.randn(
+                (max(graph.number_of_edge_types, 1) + 1, self._edge_type_embedding_size),
+                generator=generator) / np.sqrt(self._edge_type_embedding_size)
         self._combine_fn = edge_ops.resolve(
             self._edge_embedding_method, edge_ops.EDGE_GCN_METHODS)
         return map_params(lambda t: t.to(self.device), params), kernels
 
-    def _build_edge_features(self, graph: Graph, support: Graph, edge_features) -> int:
+    def _build_edge_features(self, graph: Graph, support: Graph, edge_features,
+                             edge_type_features=None) -> int:
         """Fit the lazy models (`edge_feature_models`, then those of
         `edge_features`, as `normalize_edge_features` splits it into lazy
-        models and static matrices) on the support graph, and lay the static
+        models and static matrices) on the support graph, lay the static
         [arcs of graph, d] float32 matrices out on the device with a
-        trailing zeros row (index `arcs`, K5's id of a non-edge). Returns
-        the width they add to the edge representation."""
+        trailing zeros row (index `arcs`, K5's id of a non-edge), and the
+        edge-type feature tables [n_edge_types + 1, d] with a leading zeros
+        row (type -1). Returns the width they add to the edge
+        representation, the edge-type embedding's aside."""
         lazy, static = edge_features or ([], [])
         lazy = list(self._edge_feature_models) + list(lazy)
         width = 0
@@ -248,7 +265,16 @@ class _EdgeGCNBase(AbstractClassifierModel):
             torch.from_numpy(np.vstack([f, np.zeros((1, f.shape[1]), np.float32)])).to(self.device)
             for f in static]
         width += sum(int(f.shape[1]) for f in static)
-        self._lookup_tg = graph.device(self.device) if static else None
+        self._edge_type_feat_tables = [
+            torch.from_numpy(np.vstack([np.zeros((1, f.shape[1]), np.float32),
+                                        np.asarray(f, np.float32)])).to(self.device)
+            for f in (edge_type_features or [])]
+        width += sum(int(t.shape[1]) for t in self._edge_type_feat_tables)
+        # The pairs' arc ids (K5) serve the static matrices and, on a graph
+        # with edge types, the pairs' types.
+        self._typed_edges = bool(self._edge_type_feat_tables or self._use_edge_type_embedding)
+        needs_lookup = bool(static) or (self._typed_edges and graph.has_edge_types)
+        self._lookup_tg = graph.device(self.device) if needs_lookup else None
         return width
 
     def _encode_nodes(self, params, kernels, n_nodes, training=False,
@@ -270,14 +296,27 @@ class _EdgeGCNBase(AbstractClassifierModel):
         src32, dst32 = src.to(torch.int32), dst.to(torch.int32)
         for fn in self._edge_feature_fns:
             e = torch.cat([e, fn(src32, dst32)], dim=1)
+        if self._lookup_tg is not None:
+            ids, found = csr_edge_ids(self._lookup_tg.row_ptr, self._lookup_tg.col_idx,
+                                      src32, dst32)
+            ids = ids.long()
         if self._static_edge_feats:
-            ids, _ = csr_edge_ids(self._lookup_tg.row_ptr, self._lookup_tg.col_idx,
-                                  src32, dst32)
-            e = torch.cat([e] + [t[ids.long()] for t in self._static_edge_feats], dim=1)
+            e = torch.cat([e] + [t[ids] for t in self._static_edge_feats], dim=1)
         if self._use_edge_metrics:
             m = edge_metrics(self._metrics_tg, src32, dst32)
             # log1p of preferential attachment, as the Perceptron's feature.
             e = torch.cat([e, m[:, :3], torch.log1p(m[:, 3:4])], dim=1)
+        if self._typed_edges:
+            # Row et + 1 of each table: an arc's type, 0 for a non-edge or a
+            # graph without edge types.
+            row = torch.zeros_like(src)
+            types = None if self._lookup_tg is None else self._lookup_tg.edge_types
+            if types is not None:
+                row = torch.where(found, types[ids.clamp(max=types.shape[0] - 1)].long() + 1, 0)
+            tables = list(self._edge_type_feat_tables)
+            if self._use_edge_type_embedding:
+                tables.append(params["edge_type_embedding"])
+            e = torch.cat([e] + [t[row] for t in tables], dim=1)
         if return_representation:
             return e
         return apply_mlp(params["head"], e)
@@ -370,8 +409,9 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
     def _fit(self, graph: Graph, support: Graph, node_features, **kwargs):
         generator = torch.Generator().manual_seed(self.random_state or 0)
         self._n_outputs = 1
-        params, kernels = self._build_common(graph, support, node_features,
-                                             generator, kwargs.get("edge_features"))
+        params, kernels = self._build_common(
+            graph, support, node_features, generator, kwargs.get("edge_features"),
+            kwargs.get("node_type_features"), kwargs.get("edge_type_features"))
         tg = graph.device(self.device, with_sources=True)
         self._n_nodes_hint = graph.number_of_nodes
         self._run_batch_size = self._resolve_batch_size(

@@ -60,7 +60,10 @@ _SIGNATURES = {
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_ell_walks": (
-        (_P, _P, _I32, _I32, _P, _P, _I64, _I32, _F32, _F32, _U64, _U32, _P, _P), _I32),
+        (_P,) * 5 + (_F32, _F32, _I32, _I32, _P, _P, _I64, _I32, _F32, _F32, _U64, _U32, _P, _P),
+        _I32),
+    "ebt_exact_walks": (
+        (_P,) * 9 + (_I64, _I32, _I32, _F32, _F32, _F32, _F32, _U64, _U32, _P), _I32),
     "ebt_rejection_walks": (
         (_P,) * 6 + (_I64, _I32, _F32, _F32, _I32, _U64, _U32, _P), _I32),
     "ebt_cbow_update": ((_P,) * 13 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
@@ -96,7 +99,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "skipgram_nce_update",
      "mean_scatter", "mean_combine", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
-     "tile_gather_sums", "table_gather_sums", "ell_walks", "rejection_walks",
+     "tile_gather_sums", "table_gather_sums", "ell_walks", "ell_walks_typed",
+     "rejection_walks", "exact_walks",
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
      "cooccurrences", "glove_gradients", "glove_node_update", "glove_context_update",
      "min_plus_step", "hll_registers",

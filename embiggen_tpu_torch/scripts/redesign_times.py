@@ -3,7 +3,7 @@ steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
                                                          k18 nodesketch k16b gcn_hll k13b glove
-                                                         k14]
+                                                         k14 k9]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -73,7 +73,12 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   (`time.perf_counter` over 500 calls), and the host time of each part of
   the wrapper alone: an output's `torch.empty`, `_build.draw_seed`, the
   device context with the stream lookup, the ctypes call (which launches the
-  kernel) and `_build.launch` whole.
+  kernel) and `_build.launch` whole;
+- untyped K9 at the S5 shapes (B 32768, L 64, return 2, explore 0.5, cap
+  100, the slice graph's ELL table): five means of 20 calls on CUDA events,
+  and ptxas' report (registers, stack and spills) of the K9 kernels the
+  checkout built, so that a change to K9's source can show that its
+  untyped kernels compile as they did.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -746,8 +751,24 @@ def k14_times(graph, dev) -> dict:
     return out
 
 
+def k9_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import ell_walks
+
+    tg = graph.device(dev, ell_cap=100)
+    gen = torch.Generator().manual_seed(34)
+    starts = nce_negatives(tg, gen, (32768,), scale_free=False)
+    ms = [time_ms(lambda: ell_walks(tg, starts, 64, 2.0, 0.5, 100, gen), 20) for _ in range(5)]
+    log = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    ptxas = [f"{log[i].split('for ')[-1][:80]}: {log[i + 2].split('info    : ')[-1]}; "
+             f"{log[i + 1].strip()}" for i, line in enumerate(log)
+             if "Function properties for" in line and "ell_walks" in line]
+    return dict(ms=ms, ptxas=ptxas)
+
+
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll", "k13b", "glove", "k14")
+         "gcn_hll", "k13b", "glove", "k14", "k9")
 
 
 def main() -> None:
@@ -770,7 +791,7 @@ def main() -> None:
     timers = dict(k13a=k13a_times, k4=k4_times, line=line_times, k12=k12_times,
                   walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
                   nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
-                  k13b=k13b_times, glove=glove_times, k14=k14_times)
+                  k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

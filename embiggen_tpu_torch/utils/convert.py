@@ -101,12 +101,15 @@ def _shapes(tree):
 
 def gcn_params_from_jax(params: Mapping, model) -> Dict:
     """A fitted or built JAX edge-GCN parameter tree (`{"embed", "enc":
-    {"kernels"}, "src_tower", "dst_tower"?, "head"}`, numpy leaves, dense
-    layers as {"w": [in, out], "b": [out]}) as the port's tree of float32
-    tensors on `model.device`. A GCN built with edge features has a head as
-    wide as its edge representation (the combined towers, then each lazy
-    and static feature's width); the feature models themselves hold no
-    parameters. When `model` already holds parameters (`_params`, built with
+    {"kernels"}, "src_tower", "dst_tower"?, "head", "edge_type_embedding"?}`,
+    numpy leaves, dense layers as {"w": [in, out], "b": [out]}; "embed"
+    holds "node_embedding" and "node_type_embedding" [n_node_types + 1, d]
+    when used) as the port's tree of float32 tensors on `model.device`. A
+    GCN built with edge features has a head as wide as its edge
+    representation (the combined towers, then each lazy and static
+    feature's width, the edge metrics, the edge-type feature tables and the
+    edge-type embedding [n_edge_types + 1, d]); the feature models and
+    feature tables hold no parameters. When `model` already holds parameters (`_params`, built with
     the same features), the two trees must have the same structure and
     shapes."""
     out = _tree_to_torch(dict(params), model.device)

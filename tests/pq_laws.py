@@ -4,7 +4,12 @@ tests, the GPU tests and `chip_smoke.py`; imports neither jax nor torch.
 
 A step from curr after prev weighs a candidate c by return_weight when
 c == prev, 1 when c is in prev's membership row, else explore_weight, times
-its arc weight."""
+its arc weight; a typed walk also by change_node_type_weight when c's
+primary node type differs from curr's, and by change_edge_type_weight when
+the candidate arc's edge type differs from the type of the arc prev -> curr
+(never on the walk's first step). The typed laws below read that type from
+the arcs, so they hold on graphs where (prev, curr) names one arc and no
+self-loops, as on `erdos_renyi`'s."""
 import math
 
 import numpy as np
@@ -15,6 +20,22 @@ def pq_law(cands, weights, prev, members, rw, ew):
     """Per candidate slot: the probability of the exact p/q pick."""
     w = np.where(cands == prev, rw, np.where(np.isin(cands, members), 1.0, ew)) * weights
     return w / w.sum()
+
+
+def window_law(w, window):
+    """Per slot of a row with weights `w`: the probability of the exact
+    sampler's pick over a window of `window` consecutive slots, rotated
+    uniformly over the row when the row is longer (the mean over the
+    rotations of each window's normalized weights)."""
+    w = np.asarray(w, np.float64)
+    d = len(w)
+    if window is None or d <= window:
+        return w / w.sum()
+    out = np.zeros(d)
+    for r in range(d):
+        idx = (r + np.arange(window)) % d
+        out[idx] += w[idx] / w[idx].sum()
+    return out / d
 
 
 def rejection_law(cands, q, prev, members, rw, ew, n_tries):
@@ -94,11 +115,20 @@ class Laws:
     `first(curr)` for the walk's first step, `step(prev, curr)` after it.
     `ell` (ell_cols [N, cap], ell_w or None, cap_eff) takes K9's laws over
     the ELL rows, else the sampler draws over the whole CSR rows: the exact
-    p/q law, or with `n_tries` the rejection step's."""
+    p/q law (over windows of `window` slots when given, K19's), or with
+    `n_tries` the rejection step's. Typed walks: `node_types` [N] (primary
+    types, -1 unknown) with `node_w`, `edge_types` [E] (the arcs', aligned
+    with col_idx) with `edge_w`. A typed walk's first step weighs by the
+    node factor (over the whole ELL row, or over K19's window); an untyped
+    one's is first-order over the whole row."""
 
-    def __init__(self, row_ptr, col_idx, weights, rw, ew, ell=None, n_tries=None):
+    def __init__(self, row_ptr, col_idx, weights, rw, ew, ell=None, n_tries=None,
+                 node_types=None, edge_types=None, node_w=1.0, edge_w=1.0, window=None):
         self.row_ptr, self.col_idx, self.weights = row_ptr, col_idx, weights
         self.rw, self.ew, self.ell, self.n_tries = rw, ew, ell, n_tries
+        self.node_types, self.edge_types = node_types, edge_types
+        self.node_w, self.edge_w, self.window = node_w, edge_w, window
+        self.typed = node_w != 1.0 or edge_w != 1.0
         self._steps = {}
 
     def _row(self, node, width=None):
@@ -112,9 +142,25 @@ class Laws:
         wts = np.ones(e - s) if self.weights is None else self.weights[s:e].astype(np.float64)
         return self.col_idx[s:e], wts
 
+    def _arc_types(self, src, dsts):
+        """The edge types of the arcs src -> dsts."""
+        s, e = self.row_ptr[src], self.row_ptr[src + 1]
+        return self.edge_types[s + np.searchsorted(self.col_idx[s:e], dsts)]
+
+    def _factors(self, curr, cands, prev_et):
+        f = np.ones(len(cands))
+        if self.node_w != 1.0:
+            f *= np.where(self.node_types[cands] != self.node_types[curr], self.node_w, 1.0)
+        if self.edge_w != 1.0 and prev_et >= 0:
+            f *= np.where(self._arc_types(curr, cands) != prev_et, self.edge_w, 1.0)
+        return f
+
     def first(self, curr):
         cands, wts = self._row(curr)
-        return cands, wts / wts.sum()
+        if not self.typed:
+            return cands, wts / wts.sum()
+        return cands, window_law(wts * self._factors(curr, cands, -1),
+                                 None if self.ell is not None else self.window)
 
     def step(self, prev, curr):
         if (prev, curr) not in self._steps:
@@ -127,7 +173,13 @@ class Laws:
         if self.n_tries is not None:
             return cands, rejection_law(cands, wts, prev, members, self.rw, self.ew,
                                         self.n_tries)
-        return cands, pq_law(cands, wts, prev, members, self.rw, self.ew)
+        prev_et = (int(self._arc_types(prev, [curr])[0])
+                   if self.edge_w != 1.0 and prev != curr else -1)
+        w = wts * self._factors(curr, cands, prev_et)
+        if self.rw != 1.0 or self.ew != 1.0:
+            w = w * np.where(cands == prev, self.rw,
+                             np.where(np.isin(cands, members), 1.0, self.ew))
+        return cands, window_law(w, None if self.ell is not None else self.window)
 
 
 def walks_chi2_p(walks, laws, n_nodes, err_rows=200):

@@ -17,7 +17,19 @@ CLASS_METHODS = ("requires_edge_weights", "requires_positive_edge_weights",
                  "requires_node_types", "requires_edge_types", "can_use_edge_weights",
                  "can_use_node_types", "can_use_edge_types")
 INSTANCE_METHODS = ("is_using_edge_weights", "is_using_node_types", "is_using_edge_types")
+# The methods of one kind of row: the embedders' class method and the
+# classifiers' instance method.
+TASK_CLASS_METHODS = {"Node Embedding": ("requires_nodes_sorted_by_decreasing_node_degree",)}
+TASK_INSTANCE_METHODS = {"Edge Prediction": ("is_multilabel_prediction_task",)}
 ROWS = sorted((task, name) for task, models in MODELS_LIBRARY.items() for name in models)
+# The rows whose `supports_distribution` differs from the reference's on
+# purpose: the reference trains them on a mesh, the port on one device until
+# ROADMAP A13, which must make this set empty.
+SINGLE_DEVICE_UNTIL_A13 = {
+    "Node2Vec SkipGram", "Node2Vec CBOW", "DeepWalk SkipGram", "DeepWalk CBOW", "Node2Vec",
+    "Role2Vec", "Node2Vec GloVe", "DeepWalk GloVe", "Walklets SkipGram", "Walklets CBOW",
+    "Walklets GloVe",
+}
 
 
 def _reference_class(task, name):
@@ -37,12 +49,35 @@ def _smoke_kwargs(cls):
 def test_capability_methods_match_reference(task, name):
     port = MODELS_LIBRARY[task][name]["Torch"]
     ref = _reference_class(task, name)
-    for method in CLASS_METHODS:
+    class_methods = CLASS_METHODS + TASK_CLASS_METHODS.get(task, ())
+    for method in class_methods:
         assert getattr(port, method)() == getattr(ref, method)(), method
     kwargs = _smoke_kwargs(ref)
     port_model, ref_model = port(device="cpu", **kwargs), ref(**kwargs)
-    for method in CLASS_METHODS + INSTANCE_METHODS:
+    for method in class_methods + INSTANCE_METHODS + TASK_INSTANCE_METHODS.get(task, ()):
         assert getattr(port_model, method)() == getattr(ref_model, method)(), method
+
+
+def test_every_row_has_its_kinds_methods():
+    """The 35 embedders answer the C3 class method, the 5 edge predictors
+    the C3 instance method."""
+    tasks = [task for task, _ in ROWS]
+    assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (35, 5, 40)
+
+
+@pytest.mark.parametrize("task, name", ROWS)
+def test_supports_distribution_matches_reference_but_for_a13(task, name):
+    """Equal to the reference's answer on every row that has one, except
+    the 11 walk-based rows that the port trains on one device (False where
+    the reference answers True) until ROADMAP A13."""
+    port = MODELS_LIBRARY[task][name]["Torch"]
+    ref = _reference_class(task, name)
+    if not hasattr(ref, "supports_distribution"):
+        return
+    if name in SINGLE_DEVICE_UNTIL_A13:
+        assert ref.supports_distribution() and not port.supports_distribution()
+    else:
+        assert port.supports_distribution() == ref.supports_distribution()
 
 
 class _HugeGraph:

@@ -43,7 +43,8 @@ from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_up
 from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
 from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
 from embiggen_tpu_torch.ops.walks import (
-    csr_edge_ids, csr_edge_ids_plain, ell_walks, first_order_walks, rejection_walks,
+    csr_edge_ids, csr_edge_ids_plain, ell_walks, exact_walks, first_order_walks,
+    rejection_walks,
 )
 from batch_laws import (
     arc_ids, exact_p, line_negative_law_by_source, rows_p, siamese_counts,
@@ -561,6 +562,99 @@ def test_rejection_walks_kernel_matches_its_law(dev, weighted, rw, ew):
     assert _build.launch_counts()["rejection_walks"] == before + 1
     laws = Laws(g.row_ptr, g.col_idx, g.weights, rw, ew, n_tries=t)
     assert walks_chi2_p(w.cpu().numpy(), laws, 200)[0] >= 1e-3
+
+
+TYPED_FACTORS = [(4.0, 1.0), (1.0, 0.2), (3.0, 0.5)]   # the reference's (node, edge)
+
+
+def _typed_laws(g, tg, rw, ew, node_w, edge_w, cap, ell):
+    return Laws(g.row_ptr, g.col_idx, g.weights, rw, ew,
+                ell=None if not ell else (
+                    tg.ell_cols.cpu().numpy(),
+                    None if tg.ell_w is None else tg.ell_w.cpu().numpy(), min(cap, tg.ell_cap)),
+                node_types=g.get_single_label_node_type_ids(), edge_types=g.edge_types,
+                node_w=node_w, edge_w=edge_w, window=None if ell else cap)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("rw, ew", [(1.0, 1.0), (2.0, 0.5)])
+@pytest.mark.parametrize("node_w, edge_w", TYPED_FACTORS)
+@pytest.mark.parametrize("cap", [100, 8])
+def test_typed_ell_walks_kernel_matches_its_law(dev, weighted, rw, ew, node_w, edge_w, cap):
+    """Typed K9 (its typed instantiation, counted apart), every move and
+    the first ones against the typed law, over whole rows and over rows
+    subsampled at cap 8."""
+    g = erdos_renyi(200, 800, seed=7, weighted=weighted, n_edge_types=3, n_node_types=4)
+    tg = g.device(dev, ell_cap=cap, ell_seed=1, with_walk_types=True)
+    starts = (torch.arange(200000, device=dev) % 200).int()
+    before = _build.launch_counts()
+    w = ell_walks(tg, starts, 12, rw, ew, cap, torch.Generator().manual_seed(0), node_w, edge_w)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["ell_walks_typed"] == before["ell_walks_typed"] + 1
+    assert after["ell_walks"] == before["ell_walks"]
+    assert torch.equal(w[:, 0], starts)
+    laws = _typed_laws(g, tg, rw, ew, node_w, edge_w, cap, ell=True)
+    assert walks_chi2_p(w.cpu().numpy(), laws, 200)[0] >= 1e-3
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("rw, ew, node_w, edge_w", [
+    (2.0, 0.5, 1.0, 1.0), (0.05, 1.0, 1.0, 1.0), (1.0, 1.0, 4.0, 1.0), (2.0, 0.5, 1.0, 0.2),
+    (2.0, 0.5, 3.0, 0.5),
+])
+@pytest.mark.parametrize("cap", [100, 12])
+def test_exact_walks_kernel_matches_its_law(dev, weighted, rw, ew, node_w, edge_w, cap):
+    """K19, untyped (first-order first step, alias draws on the weighted
+    graph) and typed (an exact first step with the node factor), every move
+    against its law: whole rows at cap 100, rotated windows of 12 on the
+    longer rows."""
+    g = erdos_renyi(80, 500, seed=11, weighted=weighted, n_edge_types=3, n_node_types=3)
+    tg = g.device(dev, with_alias=weighted, with_walk_types=True)
+    if cap == 12:
+        assert int(g.degrees.max()) > 12
+    starts = (torch.arange(100000, device=dev) % 80).int()
+    before = _build.launch_counts()["exact_walks"]
+    w = exact_walks(tg, starts, 10, rw, ew, cap, torch.Generator().manual_seed(1), node_w,
+                    edge_w)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["exact_walks"] == before + 1
+    assert torch.equal(w[:, 0], starts)
+    laws = _typed_laws(g, tg, rw, ew, node_w, edge_w, cap, ell=False)
+    assert walks_chi2_p(w.cpu().numpy(), laws, 80)[0] >= 1e-3
+
+
+@pytest.mark.parametrize("route", ["ell", "exact"])
+def test_typed_kernels_carry_the_picked_arcs_type_on_a_multigraph(dev, route):
+    """Node 0 has two arcs to node 1, of types 0 and 2 (node types 0, 1, 0,
+    1; node weight 2, edge weight 0.25; walks from node 3, whose one arc
+    has type 2). From 0 the four arcs weigh 0.5, 2, 0.25 and 2; from 1 the
+    next move depends on the type carried: after the type-0 arc, 1 -> 0
+    (type 0) weighs 2 and 1 -> 2 (type 2) 0.5, after the type-2 arc the
+    other way round, so 1 -> 0 has probability 0.2 * 0.8 + 0.8 * 0.2 =
+    0.32, where a lookup of the pair (0, 1) would give one type's 0.8 or
+    0.2."""
+    from scipy.stats import chi2 as chi2_dist
+
+    g = Graph(row_ptr=np.array([0, 4, 6, 7, 8]),
+              col_idx=np.array([1, 1, 2, 3, 0, 2, 0, 0], np.int32),
+              edge_types=np.array([0, 2, 1, 2, 0, 2, 1, 2], np.int32),
+              node_type_ptr=np.arange(5), node_type_ids=np.array([0, 1, 0, 1], np.int32))
+    tg = g.device(dev, ell_cap=8 if route == "ell" else None, with_walk_types=True)
+    starts = torch.full((400000,), 3, dtype=torch.int32, device=dev)
+    run = ell_walks if route == "ell" else exact_walks
+    w = run(tg, starts, 4, 1.0, 1.0, 8, torch.Generator().manual_seed(5), 2.0, 0.25)
+    w = w.cpu().numpy()
+    assert (w[:, 1] == 0).all()
+
+    def p_value(observed, law):
+        e = observed.sum() * law
+        return chi2_dist.sf(((observed - e) ** 2 / e).sum(), len(law) - 1)
+
+    assert p_value(np.bincount(w[:, 2], minlength=4)[1:], np.array([2.5, 0.25, 2.0]) / 4.75) >= 1e-3
+    at_1 = w[w[:, 2] == 1, 3]
+    assert np.isin(at_1, [0, 2]).all()
+    assert p_value(np.array([(at_1 == 0).sum(), (at_1 == 2).sum()]), np.array([0.32, 0.68])) >= 1e-3
 
 
 def _cbow_against_plain(dev, x, n, d, window):

@@ -12,7 +12,7 @@ import torch
 
 from embiggen_tpu.models.embedders import SkipGram as RefSkipGram
 from embiggen_tpu_torch import embed_graph
-from embiggen_tpu_torch.graph import Graph
+from embiggen_tpu_torch.graph import Graph, erdos_renyi
 from embiggen_tpu_torch.models import get_model_from_library
 from embiggen_tpu_torch.models.embedders import SkipGram
 
@@ -156,9 +156,23 @@ def test_pq_weights_are_accepted(graph, kwargs):
     assert emb.shape == (34, 5) and np.isfinite(emb).all()
 
 
+@pytest.mark.parametrize("kwargs", [dict(change_node_type_weight=4.0),
+                                    dict(change_edge_type_weight=0.25)])
+def test_typed_walk_options_reach_the_model(kwargs):
+    """Typed walks are ported: the weights reach the model's parameters and
+    its use of types, and it embeds a graph with node and edge types."""
+    model = SkipGram(device="cpu", random_state=0, **kwargs)
+    for name, value in kwargs.items():
+        assert model.parameters()[name] == value
+    assert model.is_using_node_types() == ("change_node_type_weight" in kwargs)
+    assert model.is_using_edge_types() == ("change_edge_type_weight" in kwargs)
+    graph = erdos_renyi(60, 240, seed=1, n_edge_types=3, n_node_types=4)
+    emb = embed_graph(graph, "Node2Vec SkipGram", smoke_test=True, device="cpu",
+                      random_state=0, **kwargs).node_embeddings[0]
+    assert emb.shape == (60, 5) and np.isfinite(emb).all()
+
+
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(change_node_type_weight=4.0), "A6"),
-    (dict(change_edge_type_weight=0.25), "A6"),
     (dict(mesh=4), "A13"),
     (dict(checkpoint_dir="ckpt"), "A12"),
     (dict(enable_cache=True), "A12"),
@@ -169,8 +183,8 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_embed_graph_rejects_graph_names(tmp_path, monkeypatch):
-    """Names it cannot load: unknown ones, corpora with no local file, and
-    the typed datasets (node and edge types come with ROADMAP A6)."""
+    """Names it cannot load: unknown ones and corpora with no local file;
+    the bundled typed dataset, KarateClub, loads."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("EMBIGGEN_DATA_DIR", raising=False)
     with pytest.raises(KeyError, match="Unknown dataset"):
@@ -178,8 +192,9 @@ def test_embed_graph_rejects_graph_names(tmp_path, monkeypatch):
     for name in ("Usair97", "Cora"):
         with pytest.raises(FileNotFoundError, match="synthetic_fallback"):
             embed_graph(name, "Node2Vec SkipGram", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        embed_graph("KarateClub", "Node2Vec SkipGram", device="cpu")
+    karate = embed_graph("KarateClub", "Node2Vec SkipGram", device="cpu", smoke_test=True,
+                         random_state=0)
+    assert karate.node_embeddings[0].shape == (34, 5)
 
 
 def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
@@ -194,9 +209,10 @@ def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
 def test_runs_where_jax_cannot_be_imported():
     """The port must run on a host without jax: block jax and embiggen_tpu
     from being imported, fit every ported embedder (the factorization rows,
-    K18's and the randomized SVD's modules among them) on a tiny graph on
-    the CPU, import every module of the port and fit both edge
-    predictors."""
+    K18's and the randomized SVD's modules among them, and typed walks
+    through K9's and K19's plain versions) on a tiny graph on the CPU, load
+    the bundled typed graphs, import every module of the port and fit both
+    edge predictors, the GCN also with type embeddings."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -225,6 +241,21 @@ def test_runs_where_jax_cannot_be_imported():
         "                ('DeepWalk GloVe', 5), ('Role2Vec', 5)):\n"
         "    r = embed_graph(g, name, device='cpu', smoke_test=True, random_state=0)\n"
         "    assert r.node_embeddings[0].shape == (50, d), name\n"
+        "t = erdos_renyi(50, 200, seed=1, n_edge_types=3, n_node_types=4)\n"
+        "for name, kw in (('Node2Vec SkipGram', dict(change_node_type_weight=2.0,\n"
+        "                                            change_edge_type_weight=0.5)),\n"
+        "                 ('Node2Vec CBOW', dict(return_weight=2.0, explore_weight=0.5,\n"
+        "                                        change_node_type_weight=2.0)),\n"
+        "                 ('Node2Vec GloVe', dict(change_edge_type_weight=0.5))):\n"
+        "    e = embed_graph(t, name, device='cpu', smoke_test=True, random_state=0, **kw)\n"
+        "    assert e.node_embeddings[0].shape == (50, 5), name\n"
+        "from embiggen_tpu_torch.ops.walks import random_walks\n"
+        "tw = random_walks(t.device('cpu', with_walk_types=True),\n"
+        "                  torch.arange(50, dtype=torch.int32), 6,\n"
+        "                  torch.Generator().manual_seed(0), change_node_type_weight=2.0)\n"
+        "assert tw.shape == (50, 6)\n"
+        "from embiggen_tpu_torch.graph import karate_club, small_ppi\n"
+        "assert karate_club().has_node_types and small_ppi().has_edge_types\n"
         "w = erdos_renyi(50, 200, seed=1, weighted=True)\n"
         "for name in ('Degree-based SPINE', 'Degree-based WINE', 'Score-based SPINE',\n"
         "             'Score-based WINE', 'WeightedSPINE', 'RUBICONE', 'RUINE'):\n"
@@ -258,6 +289,10 @@ def test_runs_where_jax_cannot_be_imported():
         "          KipfGCNEdgePrediction(units=[4], epochs=1, device='cpu')):\n"
         "    p = m.fit(g, node_features=x).predict_proba(g)\n"
         "    assert p.shape == (g.number_of_directed_edges,)\n"
+        "m = KipfGCNEdgePrediction(units=[4], epochs=1, use_node_type_embedding=True,\n"
+        "                          use_edge_type_embedding=True, device='cpu')\n"
+        "p = m.fit(t, edge_type_features=np.ones((3, 2))).predict_proba(t)\n"
+        "assert p.shape == (t.number_of_directed_edges,)\n"
         "from embiggen_tpu_torch import edge_prediction_evaluation\n"
         "rows = edge_prediction_evaluation(\n"
         "    1, PerceptronEdgePrediction(edge_features=['Degree', 'AdamicAdar'],\n"

@@ -176,7 +176,17 @@ def test_perceptron_bipartite_clique(rgg):
     assert list(frame.index) == list(names[src]) and list(frame.columns) == list(names[dst])
     with pytest.raises(ValueError, match="graph"):
         model.predict_proba_clique_graph_from_node_ids(src, return_predictions_dataframe=True)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # Candidate sets by node type: the random geometric graph's grid cells.
+    cells = rgg.get_node_ids_from_node_type_names(["cell_0", "cell_3"])
+    np.testing.assert_array_equal(
+        model.predict_clique_graph_from_node_type_names(rgg, ["cell_0", "cell_3"]),
+        model.predict_clique_graph_from_node_ids(cells))
+    np.testing.assert_array_equal(
+        model.predict_proba_bipartite_graph_from_edge_node_types(rgg, ["cell_1"], "cell_2"),
+        model.predict_proba_bipartite_graph_from_edge_node_ids(
+            rgg.get_node_ids_from_node_type_names("cell_1"),
+            rgg.get_node_ids_from_node_type_names("cell_2")))
+    with pytest.raises(ValueError, match="Unknown node type"):
         model.predict_clique_graph_from_node_type_names(rgg, ["a"])
 
 

@@ -225,8 +225,6 @@ def test_parameters_match_reference():
 @pytest.mark.parametrize("kwargs, item", [
     (dict(mesh=2), "A13"),
     (dict(checkpoint_dir="ckpt"), "A12"),
-    (dict(use_node_type_embedding=True), "A6"),
-    (dict(use_edge_type_embedding=True), "A6"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -252,9 +250,35 @@ def test_use_edge_metrics_fits_and_widens_the_head(graphs):
     assert reps.shape == (5, 2 * 8 + 4)   # Concatenate of two towers, then K8
 
 
+@pytest.mark.parametrize("kwargs", [dict(use_node_type_embedding=True),
+                                    dict(use_edge_type_embedding=True)])
+def test_type_embedding_options_fit(graphs, kwargs):
+    """The type embeddings are ported: on a graph with node and edge types
+    they widen the encoder's input or the head's, and score every arc."""
+    g = erdos_renyi(N, 400, seed=4, n_edge_types=3, n_node_types=4)
+    kw = dict(units=[8], tower_units=[8], head_units=[8], epochs=2, batch_size=64,
+              random_state=0, device="cpu")
+    feats = _features(6)
+    model = GCNEdgePrediction(**kw, **kwargs).fit(g, node_features=feats)
+    base = GCNEdgePrediction(**kw).fit(g, node_features=feats)
+    assert model.parameters()[next(iter(kwargs))] is True
+    if "use_node_type_embedding" in kwargs:
+        assert model._params["embed"]["node_type_embedding"].shape == (5, 50)
+        assert (model._params["enc"]["kernels"][0][0]["w"].shape[0]
+                == base._params["enc"]["kernels"][0][0]["w"].shape[0] + 50)
+    else:
+        assert model._params["edge_type_embedding"].shape == (4, 16)
+        assert (model._params["head"][0]["w"].shape[0]
+                == base._params["head"][0]["w"].shape[0] + 16)
+    scores = model.predict_proba(g)
+    assert scores.shape == (g.number_of_directed_edges,) and np.isfinite(scores).all()
+
+
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(edge_type_features=[np.zeros((1, 1))]), "A6"),
+    (dict(edge_type_features=[np.zeros((1, 1))]), "no edge types"),
 ])
 def test_unported_feature_classes_raise(graphs, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Edge-type features are ported; on a graph without edge types they
+    raise the reference's error before any fit."""
+    with pytest.raises(ValueError, match=item):
         GCNEdgePrediction(device="cpu", epochs=1).fit(graphs[0], **kwargs)

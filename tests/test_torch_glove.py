@@ -285,9 +285,22 @@ def test_registry_and_parameters(name):
     assert ref_cls.supports_distribution() and not cls.supports_distribution()
 
 
+@pytest.mark.parametrize("kwargs", [dict(change_node_type_weight=2.0),
+                                    dict(change_edge_type_weight=0.5)])
+def test_typed_options_reach_the_walks(kwargs):
+    """Typed GloVe walks are ported: the weights reach the parameters and
+    the walks, whose co-occurrences differ from the untyped model's."""
+    g = erdos_renyi(80, 400, seed=2, n_edge_types=3, n_node_types=4)
+    kw = dict(device="cpu", random_state=0, walk_length=8, window_size=2, iterations=1)
+    typed, untyped = GloVe(**kw, **kwargs), GloVe(**kw)
+    for name, value in kwargs.items():
+        assert typed.parameters()[name] == value
+    walks = typed._walks(g)
+    assert walks.shape == (80, 8)
+    assert not torch.equal(walks, untyped._walks(g))
+
+
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(change_node_type_weight=2.0), NotImplementedError, "A6"),
-    (dict(change_edge_type_weight=0.5), NotImplementedError, "A6"),
     (dict(mesh=4), NotImplementedError, "A13"),
 ])
 def test_unported_options_raise(kwargs, error, match):

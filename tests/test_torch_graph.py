@@ -11,16 +11,6 @@ from embiggen_tpu_torch.graph import Graph, TorchGraph, build_alias_tables, erdo
 torch.set_num_threads(1)
 
 
-# erdos_renyi's typed draws and node types come with ROADMAP A6: the port's
-# erdos_renyi gets the same arguments without them, and is held to the
-# reference's CSR and weights, which the reference builds before its types.
-TYPE_ARGS = ("n_edge_types", "n_node_types")
-
-
-def _without_types(kwargs):
-    return {k: v for k, v in kwargs.items() if k not in TYPE_ARGS}
-
-
 def _assert_same_graph(port, ref):
     np.testing.assert_array_equal(port.row_ptr, ref.row_ptr)
     np.testing.assert_array_equal(port.col_idx, ref.col_idx)
@@ -45,8 +35,16 @@ def _assert_same_graph(port, ref):
     dict(n_nodes=50, n_edges=600, seed=3, weighted=True),
 ])
 def test_erdos_renyi_matches_reference(kwargs):
-    _assert_same_graph(erdos_renyi(**_without_types(kwargs)),
-                       ref_erdos_renyi(**kwargs))
+    """The CSR, weights, edge types and node types, drawn in the
+    reference's order."""
+    port, ref = erdos_renyi(**kwargs), ref_erdos_renyi(**kwargs)
+    _assert_same_graph(port, ref)
+    _assert_same_types(port, ref)
+    for field in ("node_type_ptr", "node_type_ids"):
+        a, b = getattr(port, field), getattr(ref, field)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
 @pytest.mark.parametrize("directed", [False, True])

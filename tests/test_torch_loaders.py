@@ -96,10 +96,14 @@ def test_from_csv_matches_reference(tmp_path, directed):
     unweighted = _write_tsv(tmp_path / "plain.csv", [r[:2] for r in rows], "subject,object", ",")
     _same_csr(from_csv(unweighted, sep=","),
               ref_loaders.from_csv(unweighted, sep=",", use_native_parser=False), names=True)
-    typed = _write_tsv(tmp_path / "typed.tsv", [r[:2] + ("x",) for r in rows],
+    typed = _write_tsv(tmp_path / "typed.tsv",
+                       [r[:2] + ("xy"[i % 2],) for i, r in enumerate(rows)],
                        "subject\tobject\tedge_label")
-    with pytest.raises(NotImplementedError, match="A6"):
-        from_csv(typed)
+    got_typed = from_csv(typed)
+    want_typed = ref_loaders.from_csv(typed, use_native_parser=False)
+    _same_csr(got_typed, want_typed, names=True)
+    np.testing.assert_array_equal(got_typed.edge_types, want_typed.edge_types)
+    assert list(got_typed.get_edge_type_names()) == list(want_typed.get_edge_type_names())
     with pytest.raises(ValueError, match="no column"):
         from_csv(path, source_column="source")
 
@@ -123,10 +127,19 @@ def test_get_dataset_matches_reference(tmp_path, monkeypatch):
         get_dataset("Usair97", repository="linqs")
     with pytest.raises(KeyError, match="Unknown dataset"):
         get_dataset("NoSuchGraph")
-    for typed in (lambda: get_dataset("Cora", synthetic_fallback=True),
-                  lambda: get_dataset("KarateClub"), karate_club, small_ppi):
-        with pytest.raises(NotImplementedError, match="A6"):
-            typed()
+    # The typed datasets: their stand-in, the bundled graphs.
+    for port_graph, ref_graph in (
+        (get_dataset("Cora", synthetic_fallback=True),
+         ref_loaders.get_dataset("Cora", synthetic_fallback=True)),
+        (get_dataset("KarateClub"), ref_loaders.get_dataset("KarateClub")),
+        (karate_club(), ref_loaders.karate_club()), (small_ppi(), ref_loaders.small_ppi()),
+    ):
+        _same_csr(port_graph, ref_graph, names=True)
+        for field in ("edge_types", "node_type_ids"):
+            a, b = getattr(port_graph, field), getattr(ref_graph, field)
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
 
 
 def test_holdout_worker_filter_matches_reference(monkeypatch):

@@ -171,14 +171,15 @@ def _step_draws(sampler, ref, prev_node, curr_node, rw, ew, cap, n_draws=N_DRAWS
     curr = torch.full((n,), curr_node, dtype=torch.int32)
     gen = torch.Generator().manual_seed(2)
     if sampler == "ell":
-        out, row = walks._second_order_step_ell(
-            tg, prev, tg.ell_cols[prev.long()], curr, rw, ew, cap, gen)
+        out, row, _ = walks._second_order_step_ell(
+            tg, prev, tg.ell_cols[prev.long()], curr, None, rw, ew, cap, 1.0, 1.0, gen)
         assert torch.equal(row[0], tg.ell_cols[curr_node])
     elif sampler == "rejection":
         out = walks._second_order_step_rejection(tg, prev, curr, rw, ew,
                                                  n_tries_for(rw, ew), gen)
     else:
-        out = walks._second_order_step_exact(tg, prev, curr, rw, ew, cap, gen)
+        out, _ = walks._second_order_step_exact(tg, prev, curr, None, rw, ew, cap, 1.0, 1.0,
+                                                gen)
     return out.numpy()
 
 
@@ -346,51 +347,92 @@ def test_short_walks(karate, length):
 
 
 # ------------------------------------------------------------------ routing
-@pytest.mark.parametrize("rw, ew, ell_cap, exact_pq, route", [
-    (1.0, 1.0, 100, False, "first_order"),
-    (2.0, 0.5, 100, False, "ell 100"),
-    (2.0, 0.5, 8, False, "rejection 8"),      # the table does not cover the cap
-    (2.0, 0.5, None, False, "rejection 8"),
-    (0.25, 4.0, None, False, "rejection 16"),
-    (0.05, 1.0, None, False, "exact"),        # weight ratio 20
-    (0.05, 1.0, 100, False, "ell 100"),
-    (2.0, 0.5, 100, True, "exact"),
+def _typed_karate(karate):
+    """The port's karate club with its communities as node types and three
+    edge types."""
+    return dataclasses.replace(
+        _port(karate), node_type_ptr=karate.node_type_ptr, node_type_ids=karate.node_type_ids,
+        edge_types=(np.arange(karate.number_of_directed_edges) % 3).astype(np.int32))
+
+
+@pytest.mark.parametrize("rw, ew, ell_cap, exact_pq, typed, route", [
+    (1.0, 1.0, 100, False, {}, "first_order"),
+    (2.0, 0.5, 100, False, {}, "ell 100"),
+    (2.0, 0.5, 8, False, {}, "rejection 8"),      # the table does not cover the cap
+    (2.0, 0.5, None, False, {}, "rejection 8"),
+    (0.25, 4.0, None, False, {}, "rejection 16"),
+    (0.05, 1.0, None, False, {}, "exact 1.0 1.0"),        # weight ratio 20
+    (0.05, 1.0, 100, False, {}, "ell 100"),
+    (2.0, 0.5, 100, True, {}, "exact 1.0 1.0"),
+    # Typed walks: K9 with the type tables, else K19, never K10 or K1.
+    (1.0, 1.0, 100, False, dict(change_node_type_weight=2.0), "ell 100 2.0 1.0"),
+    (2.0, 0.5, 100, False, dict(change_edge_type_weight=0.5), "ell 100 1.0 0.5"),
+    (2.0, 0.5, None, False, dict(change_node_type_weight=2.0), "exact 2.0 1.0"),
+    (1.0, 1.0, None, False, dict(change_edge_type_weight=0.5), "exact 1.0 0.5"),
+    (1.0, 1.0, 8, False, dict(change_node_type_weight=2.0), "exact 2.0 1.0"),
+    (2.0, 0.5, 100, True, dict(change_node_type_weight=2.0,
+                               change_edge_type_weight=0.5), "exact 2.0 0.5"),
 ])
 def test_random_walks_routes_as_the_reference(monkeypatch, karate, rw, ew, ell_cap,
-                                              exact_pq, route):
+                                              exact_pq, typed, route):
     taken = []
     monkeypatch.setattr(walks, "first_order_walks",
                         lambda *a: taken.append("first_order"))
     monkeypatch.setattr(walks, "ell_walks",
-                        lambda tg, s, L, rw, ew, cap, g: taken.append(f"ell {cap}"))
+                        lambda tg, s, L, rw, ew, cap, g, nw, et: taken.append(
+                            f"ell {cap}" + (f" {nw} {et}" if (nw, et) != (1.0, 1.0) else "")))
     monkeypatch.setattr(walks, "rejection_walks",
                         lambda tg, s, L, rw, ew, t, g: taken.append(f"rejection {t}"))
-    monkeypatch.setattr(walks, "exact_walks_plain", lambda *a: taken.append("exact"))
-    tg = _port(karate).device("cpu", ell_cap=ell_cap)
+    monkeypatch.setattr(walks, "exact_walks_plain",
+                        lambda tg, s, L, rw, ew, m, g, nw, et: taken.append(f"exact {nw} {et}"))
+    tg = _typed_karate(karate).device("cpu", ell_cap=ell_cap, with_walk_types=True)
     walks.random_walks(tg, torch.zeros(3, dtype=torch.int32), 5, torch.Generator(),
-                       return_weight=rw, explore_weight=ew, exact_pq=exact_pq)
+                       return_weight=rw, explore_weight=ew, exact_pq=exact_pq, **typed)
     assert taken == [route]
 
 
 def test_exact_sampler_refuses_cuda_graphs(monkeypatch, karate):
-    """On a CUDA graph the exact route raises naming ROADMAP A6 and does not
-    run its plain version."""
-    tg = _port(karate).device("cpu")
+    """On a CUDA graph the exact route launches kernel K19 (typed or not),
+    and does not run its plain version: the CPU dispatch is by the tensors'
+    device alone."""
+    tg = _typed_karate(karate).device("cpu", with_walk_types=True)
+    launched = []
     monkeypatch.setattr(walks._build, "is_cuda", lambda t: True)
+    monkeypatch.setattr(walks._build, "check", lambda *a: None)
+    monkeypatch.setattr(walks._build, "launch",
+                        lambda counter, fn, dev, *args: launched.append((counter, fn, args)))
     monkeypatch.setattr(walks, "_second_order_step_exact",
                         lambda *a: pytest.fail("the plain version ran"))
-    with pytest.raises(NotImplementedError, match="A6"):
-        walks.random_walks(tg, torch.zeros(3, dtype=torch.int32), 5, torch.Generator(),
-                           return_weight=2.0, explore_weight=0.5, exact_pq=True)
+    for kw in (dict(return_weight=2.0, explore_weight=0.5, exact_pq=True),
+               dict(change_node_type_weight=2.0, change_edge_type_weight=0.5)):
+        walks.random_walks(tg, torch.zeros(3, dtype=torch.int32), 5, torch.Generator(), **kw)
+    assert [(c, f) for c, f, _ in launched] == [("exact_walks", "ebt_exact_walks")] * 2
+    # The untyped launch passes no type tables; the typed one both, and the
+    # factors.
+    untyped, typed = (args for _, _, args in launched)
+    assert untyped[5] is None and untyped[6] is None and untyped[14:16] == (1.0, 1.0)
+    assert typed[5] == tg.edge_types.data_ptr() and typed[6] == tg.node_type_of.data_ptr()
+    assert typed[14:16] == (2.0, 0.5)
 
 
 @pytest.mark.parametrize("kw", [dict(change_node_type_weight=2.0),
                                 dict(change_edge_type_weight=0.5)])
 def test_typed_walks_raise(karate, kw):
-    tg = _port(karate).device("cpu", ell_cap=100)
-    with pytest.raises(NotImplementedError, match="A6"):
-        walks.random_walks(tg, torch.zeros(3, dtype=torch.int32), 5, torch.Generator(),
-                           return_weight=2.0, **kw)
+    """Typed walks need the type tables of the factor they use: a graph
+    exported with node and edge types and an ELL table, but without
+    `with_walk_types`, routes its node factor away (no `node_type_of`: the
+    factor is inert) and its edge factor to K19 (the arcs' edge types are
+    there, the ELL slot table is not); asking K9 for a factor without its
+    table raises."""
+    g = _typed_karate(karate)
+    tg = g.device("cpu", ell_cap=100)
+    got = walks.random_walks(tg, torch.zeros(3, dtype=torch.int32), 5,
+                             torch.Generator().manual_seed(0), return_weight=2.0, **kw)
+    assert got.shape == (3, 5)
+    with pytest.raises(ValueError, match="with_walk_types"):
+        walks.ell_walks(tg, torch.zeros(3, dtype=torch.int32), 5, 2.0, 1.0, 100,
+                        torch.Generator(), kw.get("change_node_type_weight", 1.0),
+                        kw.get("change_edge_type_weight", 1.0))
 
 
 def test_skipgram_pairs_and_node2vec_batch_match_reference(karate):

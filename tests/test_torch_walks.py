@@ -176,8 +176,11 @@ def test_uniform_draws(port_weighted):
 def test_unsupported_walks_and_devices_raise(port_karate):
     tg = port_karate.device("cpu")
     starts = torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A6"):
-        random_walks(tg, starts, 5, torch.Generator(), change_node_type_weight=2.0)
+    # Typed factors on a graph exported without types are inert, as in the
+    # reference: the same walks as the untyped call from the same generator.
+    typed = random_walks(tg, starts, 5, torch.Generator().manual_seed(4),
+                         change_node_type_weight=2.0, change_edge_type_weight=0.5)
+    assert torch.equal(typed, random_walks(tg, starts, 5, torch.Generator().manual_seed(4)))
     # No kernel and no plain version off CPU and CUDA: it raises, it does not
     # move the work elsewhere.
     meta = port_karate.device("meta")
