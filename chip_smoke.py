@@ -249,7 +249,30 @@ the exit code is not 0:
      with K6, K7 and K5 launched; seconds and peak memory of each;
  30. S10 quality: the reference's `test_typed_walks_end_to_end` on the card
      through both routes: the type change rate at node weight 5 exceeds the
-     rate at 0.1 by more than 0.1.
+     rate at 0.1 by more than 0.1;
+ 31. K17 against the plain versions on the slice graph's Symmetric
+     Normalized Laplacian cut in 4 shards at D 128: K17a forward and
+     backward on each shard, its halo buffer filled by indexing (the
+     exchange in one process), the stacked shards against K7 on the whole
+     graph; K17b on each edge shard, the partials summed against K7; K17c
+     (its count launch and its scatter by entry counts and by row counts)
+     and K17d at S1's batch (32768 walks of 64, 10 negatives each) on the
+     S1 tables in 4 row shards (K17d and the counts exactly; rtol / atol
+     1e-5 for sums in another order); with comm_rows and H;
+ 32. S11 on a one-rank NCCL group (a file store, NCCL_SOCKET_IFNAME=lo),
+     each path held to its reference on the same batch (rtol 1e-4 / atol
+     1e-5), then 3 steps timed, the counts set to 0 after the reference
+     and read after the path's own steps, and each path's kernels required
+     (and the single-device routes it replaces refused): the dim-sharded,
+     row-sharded and data-parallel functional SkipGram steps at S1's widths
+     on 4096 walks against the autograd step; the edge-sharded SpMM, the
+     GCN encoder over the mesh (`enable_halo`, with dropout) and the halo
+     SpMM (forward and backward) at S3's against K7; the sharded GCN edge
+     step (units 128, batch 2^20) against K7's autograd; and, built with the
+     one-rank mesh against `_step`, the `_make_dp_step` and
+     `_make_row_sharded_step` of Node2Vec SkipGram and CBOW, LINE, TransE
+     and GloVe, and the `_make_dp_step` of Walklets SkipGram and Role2Vec,
+     and Walklets GloVe's `glove_dp_step` against its `_glove_step`.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -3953,6 +3976,595 @@ S10_GCN_KERNELS = ("edge_prediction_mini_batch", "spmm", "csr_edge_ids")
 S9_RANDNE_KERNELS = ("spmm",)
 
 
+S11_SHARDS = 4
+S11_PAIR_WALKS = BATCH // 8
+K17_TOL = dict(rtol=1e-5, atol=1e-5)   # sums over arcs in another order
+S11_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+S11_KERNELS = ("halo_spmm", "halo_spmm_backward", "sharded_spmm", "owned_gather",
+               "owned_count", "owned_scatter")
+
+
+def csr_bytes(k, d, n_rows_read) -> float:
+    """Bytes a CSR product must move: the CSR once, each distinct input row
+    it reads and each output row once."""
+    return 4 * (k.row_ptr.numel() + 2 * k.n_arcs) + 4 * d * (n_rows_read + k.n_out)
+
+
+def k17_checks(graph, tg, dev):
+    """K17a-K17d against their plain versions on the slice graph's
+    Symmetric Normalized Laplacian cut in 4 shards at D 128 (the halo
+    buffers filled by indexing: the exchange in one process), the stacked
+    shards and the summed edge-shard partials against K7 on the whole
+    graph, and K17c / K17d at S1's batch on the S1 tables cut in 4 row
+    shards. Returns (kernels entries, the partition's comm_rows and H,
+    errors by check)."""
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.ops.sharded import (
+        owned_count, owned_count_plain, owned_gather, owned_gather_plain, owned_scatter,
+        owned_scatter_plain,
+    )
+    from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain
+    from embiggen_tpu_torch.ops.walks import first_order_walks
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.parallel import build_halo_partition, edge_shard_kernel
+    from embiggen_tpu_torch.parallel.halo import (
+        halo_spmm_local, halo_spmm_local_backward, halo_spmm_local_backward_plain,
+        halo_spmm_local_plain,
+    )
+
+    p, n = S11_SHARDS, graph.number_of_nodes
+    rows, cols, vals = kernel_coo(graph, "Symmetric Normalized Laplacian")
+    t0 = time.perf_counter()
+    part = build_halo_partition(rows, cols, vals, n, p, device=dev)
+    build_s = time.perf_counter() - t0
+    s, h = part.shard_size, part.halo_width
+    rng = np.random.default_rng(31)
+    x = torch.zeros((p * s, DIM), device=dev)
+    x[:n] = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32)).to(dev)
+    whole = csr_kernel(rows, cols, vals, n, device=dev, with_transpose=False)
+    errs, outs = {}, []
+    fwd = bwd = None
+    for shard in range(p):
+        halo = torch.cat([x[q * s + torch.from_numpy(part.send_idx[q, shard]).to(dev).long()]
+                          for q in range(p)])
+        x_local = x[shard * s:(shard + 1) * s]
+        y = halo_spmm_local(part, shard, x_local, halo, "mean")
+        g = torch.randn_like(y)
+        back = halo_spmm_local_backward(part, shard, g, "mean")
+        errs[f"K17a forward shard {shard}"] = check_close(
+            f"K17a forward, shard {shard}", y,
+            halo_spmm_local_plain(part, shard, x_local, halo, "mean"), **K17_TOL)
+        errs[f"K17a backward shard {shard}"] = check_close(
+            f"K17a backward, shard {shard}", back,
+            halo_spmm_local_backward_plain(part, shard, g, "mean"), **K17_TOL)
+        outs.append(y)
+        if shard == 0:
+            fwd, bwd = (x_local, halo, y), (g, back)
+    errs["K17a shards against K7"] = check_close(
+        "K17a's 4 shards against K7 whole", torch.cat(outs)[:n],
+        csr_spmm(whole, x[:n], row_scale=1.0 / whole.abs_weight_sum.clamp(min=1e-9)),
+        **K17_TOL)
+    del outs
+    # Shard 0's times; the library call is cuSPARSE on its CSR over the
+    # two tables concatenated (what the one launch reads by column range).
+    x_local, halo, _ = fwd
+    g, _ = bwd
+    sh = part.shards[0]
+    xcat = torch.cat([x_local, halo])
+    a = torch.sparse_csr_tensor(sh.kernel.row_ptr, sh.kernel.cols, sh.kernel.vals,
+                                size=(s, s + p * h))
+    at = sh.kernel.transpose
+    a_t = torch.sparse_csr_tensor(at.row_ptr, at.cols, at.vals, size=(s + p * h, s))
+    read = int(torch.unique(sh.kernel.cols).numel())
+    entries = {
+        "halo_spmm": dict(
+            source="embiggen_tpu_torch/csrc/halo.cu",
+            replaces="embiggen_tpu/parallel/halo.py:266",
+            max_abs_err=max(v for k, v in errs.items() if "forward" in k or "K7" in k),
+            ms=time_ms(lambda: halo_spmm_local(part, 0, x_local, halo, "mean"), 20),
+            plain_ms=time_ms(lambda: halo_spmm_local_plain(part, 0, x_local, halo, "mean"), 3),
+            library_ms=time_ms(lambda: torch.sparse.mm(a, xcat), 20),
+            library="torch.sparse.mm (cuSPARSE) on the shard's CSR",
+            **bound(csr_bytes(sh.kernel, DIM, read), 2 * sh.kernel.n_arcs * DIM)),
+        "halo_spmm_backward": dict(
+            source="embiggen_tpu_torch/csrc/halo.cu",
+            replaces="embiggen_tpu/parallel/halo.py:321",
+            max_abs_err=max(v for k, v in errs.items() if "backward" in k),
+            ms=time_ms(lambda: halo_spmm_local_backward(part, 0, g, "mean"), 20),
+            plain_ms=time_ms(lambda: halo_spmm_local_backward_plain(part, 0, g, "mean"), 3),
+            library_ms=time_ms(lambda: torch.sparse.mm(a_t, g), 20),
+            library="torch.sparse.mm (cuSPARSE) on the shard's transposed CSR",
+            **bound(csr_bytes(at, DIM, int(torch.unique(at.cols).numel())),
+                    2 * at.n_arcs * DIM)),
+    }
+    del xcat, a, a_t, fwd, bwd
+    info = dict(comm_rows=part.comm_rows, halo_width=h, shard_rows=s,
+                shard_arcs=[part.shards[q].kernel.n_arcs for q in range(p)],
+                partition_s=build_s)
+    del part
+    torch.cuda.empty_cache()
+
+    # K17b: each edge shard's partial product; their sum is K7's.
+    total = torch.zeros((n, DIM), device=dev)
+    xn = x[:n].contiguous()
+    for shard in range(p):
+        k = edge_shard_kernel(rows, cols, vals, n, p, shard, device=dev)
+        part_out = csr_spmm(k, xn, counter="sharded_spmm")
+        errs[f"K17b shard {shard}"] = check_close(
+            f"K17b, edge shard {shard}", part_out, csr_spmm_plain(k, xn), **K17_TOL)
+        total += part_out
+        if shard == 0:
+            k0 = k
+    errs["K17b sum against K7"] = check_close("K17b's 4 partials summed against K7 whole",
+                                              total, csr_spmm(whole, xn), **K17_TOL)
+    a0 = torch.sparse_csr_tensor(k0.row_ptr, k0.cols, k0.vals, size=(n, n))
+    entries["sharded_spmm"] = dict(
+        source="embiggen_tpu_torch/csrc/spmm.cu",
+        replaces="embiggen_tpu/parallel/spmm.py:38",
+        max_abs_err=max(v for k, v in errs.items() if "K17b" in k),
+        ms=time_ms(lambda: csr_spmm(k0, xn, counter=None), 20),
+        plain_ms=time_ms(lambda: csr_spmm_plain(k0, xn), 3),
+        library_ms=time_ms(lambda: torch.sparse.mm(a0, xn), 20),
+        library="torch.sparse.mm (cuSPARSE) on the edge shard's CSR",
+        **bound(csr_bytes(k0, DIM, int(torch.unique(k0.cols).numel())),
+                2 * k0.n_arcs * DIM))
+    del total, xn, x, whole, a0, k0
+    torch.cuda.empty_cache()
+
+    # K17c and K17d at S1's batch: the distinct ids of 32768 walks of 64
+    # and their 10 negatives each, on [1M, 128] tables in 4 row shards.
+    gen = torch.Generator().manual_seed(31)
+    starts = nce_negatives(tg, gen, (BATCH,), scale_free=False)
+    walks = first_order_walks(tg, starts, WALK, gen)
+    negs = nce_negatives(tg, gen, (BATCH, NEGS))
+    uniq, counts = torch.unique(torch.cat([walks.reshape(-1), negs.reshape(-1)]),
+                                return_counts=True)
+    uniq, counts = uniq.int(), counts.float()
+    u = uniq.shape[0]
+    s = -(-n // p)
+    table = torch.from_numpy(rng.standard_normal((p * s, DIM), dtype=np.float32)).to(dev)
+    grads = torch.from_numpy(rng.standard_normal((u, DIM), dtype=np.float32)).to(dev)
+    gathered = torch.zeros((u, DIM), device=dev)
+    for shard in range(p):
+        rows_p = owned_gather(table[shard * s:(shard + 1) * s], shard * s, uniq)
+        errs[f"K17d shard {shard}"] = check_close(
+            f"K17d, shard {shard}", rows_p,
+            owned_gather_plain(table[shard * s:(shard + 1) * s], shard * s, uniq), 0.0, 0.0)
+        gathered += rows_p
+        got = owned_scatter(table[shard * s:(shard + 1) * s].clone(), shard * s, uniq, grads,
+                            -0.025, entry_den=counts)
+        want = owned_scatter_plain(table[shard * s:(shard + 1) * s].clone(), shard * s, uniq,
+                                   grads, -0.025, entry_den=counts)
+        errs[f"K17c shard {shard}"] = check_close(f"K17c, shard {shard}", got, want, 0.0, 1e-6)
+    errs["K17d shards summed"] = check_close("K17d's shards summed against table[ids]",
+                                             gathered, table[uniq.long()], 0.0, 0.0)
+    # K17c's count launch (the row-sharded mean scatter's denominators) on
+    # the batch's ids with their repeats, then the scatter by those counts.
+    ids = torch.cat([walks.reshape(-1), negs.reshape(-1)]).int().contiguous()
+    row_grads = torch.randn((ids.shape[0], DIM), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(31))
+    for shard in range(p):
+        got_c = owned_count(torch.zeros(s, device=dev), shard * s, ids)
+        want_c = owned_count_plain(torch.zeros(s, device=dev), shard * s, ids)
+        errs[f"K17c count shard {shard}"] = check_close(f"K17c's count, shard {shard}", got_c,
+                                                        want_c, 0.0, 0.0)
+        got = owned_scatter(table[shard * s:(shard + 1) * s].clone(), shard * s, ids,
+                            row_grads, -0.025, row_den=got_c)
+        want = owned_scatter_plain(table[shard * s:(shard + 1) * s].clone(), shard * s, ids,
+                                   row_grads, -0.025, row_den=want_c)
+        # Repeated ids add in no fixed order.
+        errs[f"K17c by row counts shard {shard}"] = check_close(
+            f"K17c by row counts, shard {shard}", got, want, 1e-5, 1e-5)
+    del got, want, got_c, want_c, row_grads
+    shard0 = table[:s].contiguous()
+    owned = int(((uniq >= 0) & (uniq < s)).sum())
+    local = uniq[:owned].long()   # uniq is sorted: shard 0's ids come first
+    scaled = -0.025 * (grads[:owned] / counts[:owned, None])
+    entries["owned_gather"] = dict(
+        source="embiggen_tpu_torch/csrc/sharded.cu",
+        replaces="embiggen_tpu/parallel/sharded_table.py:68",
+        max_abs_err=max(v for k, v in errs.items() if "K17d" in k),
+        ms=time_ms(lambda: owned_gather(shard0, 0, uniq), 20),
+        plain_ms=time_ms(lambda: owned_gather_plain(shard0, 0, uniq), 20),
+        library_ms=None,
+        # the ids read, the owned rows read, [U, D] written
+        **bound(4 * u + 4 * DIM * (owned + u), 0))
+    entries["owned_scatter"] = dict(
+        source="embiggen_tpu_torch/csrc/sharded.cu",
+        replaces="embiggen_tpu/parallel/sharded_table.py:84",
+        max_abs_err=max(v for k, v in errs.items() if "K17c" in k),
+        ms=time_ms(lambda: owned_scatter(shard0, 0, uniq, grads, -0.025, entry_den=counts),
+                   20),
+        plain_ms=time_ms(lambda: owned_scatter_plain(shard0, 0, uniq, grads, -0.025,
+                                                     entry_den=counts), 20),
+        library_ms=time_ms(lambda: shard0.index_add_(0, local, scaled), 20),
+        library="index_add_ of the owned rows' scaled gradients",
+        # the ids read; per owned entry its gradient row and count read and
+        # its table row read and written
+        **bound(4 * u + owned * (4 * DIM + 4 + 8 * DIM), 2 * DIM * owned))
+    in_shard0 = ids < s
+    owned_m = int(in_shard0.sum())
+    counts0 = torch.zeros(s, device=dev)
+    local_m, ones = ids[in_shard0].long(), torch.ones(owned_m, device=dev)
+    entries["owned_count"] = dict(
+        source="embiggen_tpu_torch/csrc/sharded.cu",
+        replaces="embiggen_tpu/parallel/sharded_table.py:97",
+        max_abs_err=max(v for k, v in errs.items() if "count" in k),
+        ms=time_ms(lambda: owned_count(counts0, 0, ids), 20),
+        plain_ms=time_ms(lambda: owned_count_plain(counts0, 0, ids), 20),
+        library_ms=time_ms(lambda: counts0.index_add_(0, local_m, ones), 20),
+        library="index_add_ of ones at the owned ids",
+        # the ids read; each distinct owned row's count read and written;
+        # one add an owned entry
+        **bound(4 * ids.shape[0] + 8 * owned, owned_m))
+    info.update(batch_ids=u, shard0_owned=owned, batch_entries=int(ids.shape[0]))
+    del table, grads, gathered, shard0, scaled, ids, counts0, local_m, ones
+    torch.cuda.empty_cache()
+    return entries, info, errs
+
+
+def pair_step_autograd(params, contexts, words, negs, lr):
+    """The functional SkipGram steps' update by autograd on the whole
+    tables, in place: the NCE pair loss's dense gradients, independent of
+    `nce_pair_grads`' adjoints and of K17c. Returns the loss."""
+    import torch.nn.functional as F
+
+    leaves = [params[k].clone().requires_grad_()
+              for k in ("node_embedding", "context_embedding", "context_bias")]
+    emb, ctx, bias = leaves
+    c, w, ng = contexts.long(), words.long(), negs.long()
+    rows = emb[w]
+    pos = (rows[:, None, :] * ctx[c]).sum(-1) + bias[c]
+    neg = rows @ ctx[ng].T + bias[ng][None, :]
+    loss = (F.softplus(-pos).sum() + F.softplus(neg).sum()) / w.shape[0]
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        for k, g in zip(("node_embedding", "context_embedding", "context_bias"), grads):
+            params[k].sub_(lr * g)
+    return loss.detach()
+
+
+def s11_runs(graph, tg, dev, backend="nccl"):
+    """S11 on a one-rank process group (NCCL on the card): each
+    distributed path built with the one-rank Mesh, held to a reference on
+    the same batch (the single-device step, K7's encoder, or the autograd
+    step), then 3 steps timed. The counts are set to 0 after the
+    reference and read after the path's own held and timed steps; each
+    path must launch the kernels it names and none of those it must not.
+    Returns ({path: ms a step}, {path: largest error}, {path: its launches})."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.embedders import GloVe, WalkletsGloVe
+    from embiggen_tpu_torch.models.embedders.glove import glove_dp_step
+    from embiggen_tpu_torch.models.gcn.core import GCNEncoder
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.glove import (
+        GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries,
+    )
+    from embiggen_tpu_torch.ops.negatives import edge_prediction_mini_batch
+    from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, spmm
+    from embiggen_tpu_torch.parallel import (
+        edge_shard_kernel, halo_spmm, make_dp_skipgram_step, make_mesh,
+        make_row_sharded_skipgram_step, make_sharded_gcn_edge_step,
+        make_sharded_skipgram_step, shard_features, sharded_spmm,
+    )
+    from embiggen_tpu_torch.parallel.sharded_table import draw_pair_batch
+
+    import os
+
+    store = tempfile.mkdtemp()
+    # The one-rank group needs no network; NCCL's bootstrap may still look
+    # for an interface, and the loopback one is always there.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    ms, errs, launches = {}, {}, {}
+    try:
+        mesh = make_mesh(device=dev)
+        n = graph.number_of_nodes
+        rng = np.random.default_rng(32)
+
+        def tables():
+            scale = np.float32(1.0 / np.sqrt(DIM))
+            return {"node_embedding": torch.from_numpy(rng.standard_normal(
+                        (n, DIM), dtype=np.float32) * scale).to(dev),
+                    "context_embedding": torch.from_numpy(rng.standard_normal(
+                        (n, DIM), dtype=np.float32) * scale).to(dev),
+                    "context_bias": torch.zeros(n, device=dev)}
+
+        def own_runs(name, held, check, again, needs, unused=()):
+            """The path's own runs, its reference having run: the counts
+            set to 0, `held()` (the step held to the reference), `check()`
+            (no launches; returns the largest error), 3 timed `again()`
+            steps, then the counts read and checked."""
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            held()
+            errs[name] = check()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                again()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+            counts = _build.launch_counts()
+            check_launches(name, counts, needs, unused)
+            launches[name] = {k: v for k, v in counts.items() if v}
+
+        def tables_close(name, got, want, keys=None):
+            return max(check_close(f"{name}, {k}", got[k], want[k], **S11_STEP_TOL)
+                       for k in (keys or want))
+
+        # The functional SkipGram steps at S1's widths and a batch of
+        # S11_PAIR_WALKS walks, each against the autograd step on the same
+        # batch.
+        kw = dict(batch_size=S11_PAIR_WALKS, walk_length=WALK, window_size=WINDOW,
+                  number_of_negative_samples=NEGS)
+        gen = torch.Generator().manual_seed(32)
+        batch = draw_pair_batch(tg, gen, S11_PAIR_WALKS, WALK, WINDOW,
+                                number_of_negative_samples=NEGS)
+        for name, make, needs in (
+                ("make_dp_skipgram_step", make_dp_skipgram_step, ("owned_scatter",)),
+                ("make_row_sharded_skipgram_step", make_row_sharded_skipgram_step,
+                 ("owned_gather", "owned_scatter")),
+                ("make_sharded_skipgram_step", make_sharded_skipgram_step, ("owned_scatter",))):
+            params = tables()
+            want = {k: v.clone() for k, v in params.items()}
+            want_loss = pair_step_autograd(want, *batch, 0.025)
+            step = make(mesh, tg, **kw)
+            got = {}
+
+            def held():
+                with torch.no_grad():
+                    got["loss"] = step(params, None, 0.025, batch=batch)
+
+            def check():
+                check_close(f"{name}, loss", got["loss"].reshape(1), want_loss.reshape(1),
+                            **S11_STEP_TOL)
+                return tables_close(name, params, want)
+
+            def again():
+                with torch.no_grad():
+                    step(params, gen, 0.025)
+
+            own_runs(name, held, check, again, needs)
+            del params, want
+        del batch
+        torch.cuda.empty_cache()
+
+        # The SpMMs at S3's: the edge-sharded one (one shard: the whole
+        # graph) and the halo SpMM forward and backward against K7.
+        rows, cols, vals = kernel_coo(graph, "Symmetric Normalized Laplacian")
+        whole = csr_kernel(rows, cols, vals, n, device=dev)
+        x = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32)).to(dev)
+        want = csr_spmm(whole, x)
+        k = edge_shard_kernel(rows, cols, vals, n, 1, 0, device=dev)
+        got = {}
+
+        def held():
+            got["y"] = sharded_spmm(mesh, k, x)
+
+        own_runs("sharded_spmm", held,
+                 lambda: check_close("sharded_spmm against K7", got["y"], want, **K17_TOL),
+                 lambda: sharded_spmm(mesh, k, x), ("sharded_spmm",), ("spmm",))
+        del k, want, got
+        # The GCN encoder over the mesh (GCNEncoder.enable_halo: the edge
+        # GCN's convolutions, with dropout) against the same encoder
+        # through K7, forward and gradients; its HaloPartition (built by
+        # build_kernels) also serves the functional halo paths below.
+        encoders = [GCNEncoder(["Symmetric Normalized Laplacian"], [DIM], dropout_rate=0.5)
+                    for _ in range(2)]
+        encoders[1].enable_halo(mesh)
+        k7_kernels = encoders[0].build_kernels(graph, dev)
+        halo_kernels = encoders[1].build_kernels(graph, dev)
+        part = halo_kernels[0]
+        layer = encoders[0].init(torch.Generator().manual_seed(3), DIM)["kernels"][0][0]
+        w0, b0 = layer["w"].to(dev), layer["b"].to(dev)
+        g = torch.randn((n, DIM), device=dev)
+
+        def encode(enc, kernels):
+            w, b, xx = (t.clone().requires_grad_() for t in (w0, b0, x))
+            y = enc.apply({"kernels": [[{"w": w, "b": b}]]}, kernels, xx, n, training=True,
+                          generator=torch.Generator(device=dev).manual_seed(5))
+            return (y.detach(),) + torch.autograd.grad(y, (w, b, xx), g)
+
+        want, got = encode(encoders[0], k7_kernels), {}
+
+        def held():
+            got["enc"] = encode(encoders[1], halo_kernels)
+
+        own_runs("GCNEncoder.enable_halo", held, lambda: max(
+                     check_close(f"halo GCN encoder against K7's, {what}", a, b,
+                                 **S11_STEP_TOL)
+                     for what, a, b in zip(("output", "dw", "db", "dx"), got["enc"], want)),
+                 lambda: encode(encoders[1], halo_kernels),
+                 ("halo_spmm", "halo_spmm_backward", "owned_gather", "owned_scatter"),
+                 ("spmm",))
+        del want, got, encoders, k7_kernels, halo_kernels
+        x_local = shard_features(x, part, mesh).requires_grad_()
+        xw = x.clone().requires_grad_()
+        yw = spmm(whole, xw, "mean")
+        (dxw,) = torch.autograd.grad(yw, xw, g)
+        got = {}
+
+        def held():
+            y = halo_spmm(mesh, part, x_local, "mean")
+            got["y"] = y.detach()
+            (got["dx"],) = torch.autograd.grad(y, x_local, g)
+
+        own_runs("halo_spmm forward and backward", held, lambda: max(
+                     check_close("halo_spmm against K7", got["y"], yw.detach(), **K17_TOL),
+                     check_close("halo_spmm's backward against K7's", got["dx"], dxw,
+                                 **K17_TOL)),
+                 lambda: torch.autograd.grad(halo_spmm(mesh, part, x_local, "mean"), x_local, g),
+                 ("halo_spmm", "halo_spmm_backward", "owned_gather", "owned_scatter"),
+                 ("spmm",))
+        del yw, dxw, xw, got
+
+        # The sharded GCN edge step (units 128, batch 2^20) against the
+        # same model through K7 with autograd on one device.
+        lr = 0.01
+        init, gcn_step = make_sharded_gcn_edge_step(mesh, part, x_local.detach(), tg,
+                                                    units=[DIM], batch_size=GCN_BATCH,
+                                                    learning_rate=lr)
+        gcn_params = init(torch.Generator().manual_seed(0))
+        leaves = [gcn_params["conv"][0]["w"], gcn_params["conv"][0]["b"],
+                  gcn_params["head"]["w"], gcn_params["head"]["b"]]
+        before = [t.clone().requires_grad_() for t in leaves]
+        src, dst, labels = edge_prediction_mini_batch(tg, torch.Generator().manual_seed(1),
+                                                      GCN_BATCH, 0.5, True)
+        hh = torch.relu(spmm(whole, x) @ before[0] + before[1])
+        logits = (hh[src.long()] * hh[dst.long()]) @ before[2] + before[3]
+        want = torch.autograd.grad((F.softplus(logits) - labels * logits).mean(), before)
+        del hh, logits, src, dst, labels
+        gen = torch.Generator().manual_seed(2)
+        own_runs("make_sharded_gcn_edge_step",
+                 lambda: gcn_step(gcn_params, torch.Generator().manual_seed(1)),
+                 lambda: max(check_close("sharded GCN step against K7's autograd",
+                                         (b.detach() - a) / lr, w, **S11_STEP_TOL)
+                             for b, a, w in zip(before, leaves, want)),
+                 lambda: gcn_step(gcn_params, gen),
+                 # One layer on fixed features: nothing asks for A x's
+                 # gradient, so the halo SpMM's backward never runs.
+                 ("edge_prediction_mini_batch", "halo_spmm", "owned_gather"),
+                 ("spmm", "halo_spmm_backward"))
+        del before, want, part, x_local, g, x, whole, gcn_params, leaves
+        torch.cuda.empty_cache()
+
+        # The models' distributed steps, built with the one-rank mesh (one
+        # rank owns every row: its shards are the whole tables), each
+        # against `_step` on the same batch.
+        def model_paths(label, model, ctx, tables_of, batch, paths, lr=0.025):
+            for kind, make, needs, unused in paths:
+                params = tables_of()
+                want = {k: t.clone() for k, t in params.items()}
+                with torch.no_grad():
+                    model._step(ctx, want, gen, lr, batch=batch)
+                step = make(params)
+                name = f"{label} _make_{kind}_step"
+
+                def held():
+                    with torch.no_grad():
+                        step(ctx, params, gen, lr, batch=batch)
+
+                def again():
+                    with torch.no_grad():
+                        step(ctx, params, gen, lr)
+
+                own_runs(name, held, lambda: tables_close(name, params, want), again,
+                         needs, unused)
+                del params, want
+
+        gen = torch.Generator().manual_seed(33)
+        compact = ("owned_gather", "owned_scatter")
+        walk_unused = ("skipgram_mean_combine", "mean_scatter", "mean_combine")
+        for name, update, kwargs, kinds in (
+                ("Node2Vec SkipGram", "skipgram_nce_update", {}, ("dp", "row_sharded")),
+                ("Node2Vec CBOW", "cbow_update", {}, ("dp", "row_sharded")),
+                ("Walklets SkipGram", "walklets_update", S7_WALKLETS, ("dp",))):
+            model = get_model_from_library(name, task_name="Node Embedding")(
+                **(kwargs or dict(embedding_size=DIM, walk_length=WALK, window_size=WINDOW,
+                                  number_of_negative_samples=NEGS)),
+                random_state=0, device=dev)
+            model._run_batch_size = BATCH
+            makers = {"dp": lambda p, m=model: m._make_dp_step(mesh, BATCH),
+                      "row_sharded": lambda p, m=model: m._make_row_sharded_step(mesh, BATCH)}
+            model_paths(name, model, tg,
+                        lambda m=model: m._initial_tables(graph, torch.Generator().manual_seed(0)),
+                        model._sample_batch(tg, gen, BATCH),
+                        [(kind, makers[kind], ("owned_gather", update, "owned_scatter"),
+                          walk_unused) for kind in kinds])
+            del model
+        role2vec = get_model_from_library("Role2Vec", task_name="Node Embedding")(
+            random_state=0, device=dev, **S7_ROLE2VEC)
+        role2vec._run_batch_size = role2vec._resolve_batch(graph)
+        role_tables = role2vec._initial_tables(graph, torch.Generator().manual_seed(0))
+        model_paths("Role2Vec", role2vec, tg, lambda: {k: t.clone() for k, t in
+                                                       role_tables.items()},
+                    role2vec._sample_role_pairs(tg, gen),
+                    [("dp", lambda p: role2vec._make_dp_step(mesh, role2vec._run_batch_size),
+                      ("first_order_walks",), walk_unused)])
+        del role2vec, role_tables
+        torch.cuda.empty_cache()
+
+        # LINE and TransE (the siamese rows) at S6's batch.
+        typed = minibatch_graph(graph, S6_TYPES)
+        for name, g_ in (("Second-order LINE", graph), ("TransE", typed)):
+            model = get_model_from_library(name, task_name="Node Embedding")(
+                embedding_size=DIM, batch_size=S6_BATCH, random_state=0, device=dev)
+            model._run_batch_size = S6_BATCH
+            ctx = model._prepare_data(g_)
+            sliceable, shared = model._sample_batch(ctx, gen, S6_BATCH)
+            # The draws live in a block the next draw overwrites.
+            batch = (sliceable.clone() if torch.is_tensor(sliceable)
+                     else tuple(t.clone() for t in sliceable), shared)
+            tables_of = lambda m=model, g_=g_: m._initial_tables(  # noqa: E731
+                g_, torch.Generator().manual_seed(0))
+            row_keys = model._row_sharded_keys(g_, tables_of())
+            line = name.endswith("LINE")
+            sampler = "line_mini_batch" if line else "siamese_mini_batch"
+            model_paths(name, model, ctx, tables_of, batch, [
+                ("dp", lambda p, m=model: m._make_dp_step(mesh, S6_BATCH),
+                 (sampler, "mean_scatter", "mean_combine") if line else (sampler,), ()),
+                ("row_sharded",
+                 lambda p, m=model, keys=row_keys: m._make_row_sharded_step(mesh, S6_BATCH,
+                                                                            keys),
+                 (sampler, "owned_count") + compact if line else (sampler,) + compact,
+                 ("mean_scatter", "mean_combine") if line else ())])
+            model._free_fit_buffers()
+            del model, ctx, batch, sliceable, shared
+        del typed
+        torch.cuda.empty_cache()
+
+        # GloVe (data-parallel and row-sharded) and Walklets GloVe's
+        # data-parallel step (`glove_dp_step` on a power's tables) at S7's.
+        glove = GloVe(device=dev, random_state=0, **S7_GLOVE)
+        entries = glove._prepare_data(graph)
+        size = glove._run_batch_size = glove._resolve_batch_size(graph, entries)
+        glove_tables = glove._initial_tables(graph, torch.Generator().manual_seed(0))
+        keys = glove._row_sharded_keys(graph, glove_tables)
+        model_paths("Node2Vec GloVe", glove, entries,
+                    lambda: {k: t.clone() for k, t in glove_tables.items()},
+                    glove._sample_batch(entries, gen, size), [
+                        ("dp", lambda p: glove._make_dp_step(mesh, size), S7_K13B, ()),
+                        ("row_sharded", lambda p: glove._make_row_sharded_step(mesh, size, keys),
+                         ("owned_gather", "glove_gradients", "owned_scatter"),
+                         ("glove_node_update", "glove_context_update"))], lr=0.05)
+        glove._free_fit_buffers()
+        del glove, entries, glove_tables
+        walklets = WalkletsGloVe(device=dev, random_state=0, **S7_WALKLETS_GLOVE)
+        stacked = walklets._init_params(graph, torch.Generator().manual_seed(0))
+        walks = glove_walks(graph, dev, GLOVE_WALK, 0)
+        stride1 = glove_entries(*cooccurrences(walks, N_NODES, [(1, 1.0)]), 100.0, 0.75)
+        del walks
+        size = min(S7_WALKLETS_GLOVE["batch_size"], stride1.n_entries)
+        ids = draw_entries(stride1, size, gen)
+        power0 = lambda t: [t["node_embedding"][0], t["context_embedding"][0],  # noqa: E731
+                            t["context_bias"][0], torch.zeros_like(t["context_bias"][0])]
+        want_tables = power0({k: t.clone() for k, t in stacked.items()})
+        walklets._glove_step(dict(zip(("emb", "ctx", "bw", "bc"), want_tables)), stride1, ids,
+                             0.05, GloVeStepWorkspace.empty(size, DIM // WALKLETS_POWER, dev))
+        got_tables = power0(stacked)
+        ws = GloVeStepWorkspace.empty(size // mesh.size, DIM // WALKLETS_POWER, dev)
+        own_runs("Walklets GloVe glove_dp_step",
+                 lambda: glove_dp_step(mesh, stride1, ids, got_tables, 0.05, ws),
+                 lambda: max(check_close(f"Walklets GloVe glove_dp_step, table {i}", a, b,
+                                         **S11_STEP_TOL)
+                             for i, (a, b) in enumerate(zip(got_tables, want_tables))),
+                 lambda: glove_dp_step(mesh, stride1, draw_entries(stride1, size, gen),
+                                       got_tables, 0.05, ws), S7_K13B)
+        del walklets, stacked, stride1, ids, want_tables, got_tables, ws
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return ms, errs, launches
+
+
 def check_launches(path, counts, names, unused=()):
     """The counts of `names` after a path's run; raises if one is 0, or if
     one of `unused` launched."""
@@ -4723,6 +5335,35 @@ def main() -> None:
           + "; ".join(f"{route} {a:.4f} against {b:.4f}" for route, (a, b) in rates.items()),
           flush=True)
 
+    # ------------------------------------------------- 31. K17 (S11) vs plain
+    t_phase = time.perf_counter()
+    new, k17_info, k17_errs = k17_checks(graph, tg, dev)
+    kernels.update(new)
+    print(f"phase 31 K17 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; the slice "
+          f"graph's Symmetric Normalized Laplacian in {S11_SHARDS} shards at D {DIM}, the "
+          "halo buffers filled by indexing; ms per call on shard 0; K17c and K17d at S1's "
+          "batch on the S1 tables in 4 row shards): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None else "")
+              for k, v in new.items())
+          + f" | partition: comm_rows {k17_info['comm_rows']}, H {k17_info['halo_width']}, "
+          f"S {k17_info['shard_rows']}, arcs a shard {k17_info['shard_arcs']}, host build "
+          f"{k17_info['partition_s']:.1f} s | S1 batch: {k17_info['batch_ids']} distinct ids, "
+          f"{k17_info['shard0_owned']} on shard 0 | errors by check: {k17_errs}", flush=True)
+
+    # ----------------------------------- 32. S11 on a one-rank NCCL group
+    t_phase = time.perf_counter()
+    s11_ms, s11_errs, s11_paths = s11_runs(graph, tg, dev)
+    # The kernels line's K17 launches: the sums over the paths' own runs.
+    s11_launches = check_launches("S11", {k: sum(c.get(k, 0) for c in s11_paths.values())
+                                          for k in S11_KERNELS}, S11_KERNELS)
+    print(f"phase 32 S11 on a one-rank NCCL group on {card} ({time.perf_counter() - t_phase:.1f} "
+          "s; each path's step held to its reference on the same batch, then 3 steps, ms a "
+          f"step on the host clock): {s11_ms} | largest error by path: {s11_errs} | launches "
+          f"by path (held and timed steps): {s11_paths} | K17 launches summed {s11_launches}",
+          flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -4739,7 +5380,8 @@ def main() -> None:
                 **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},
                 **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS},
                 "ell_walks_typed": s10["typed SkipGram"][0]["ell_walks_typed"],
-                "exact_walks": s10["random_walks typed"][0]["exact_walks"]}
+                "exact_walks": s10["random_walks typed"][0]["exact_walks"],
+                **s11_launches}
     randne_hop["launches"] = s9["RandNE"][0]["spmm"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [

@@ -45,11 +45,12 @@ from ...ops.negatives import sample_nodes_uniform
 from ...ops.nodesketch import inverse_decay, sketch_race
 from ...ops.spmm import csr_spmm
 from ...ops.walks import node2vec_batch
+from ...parallel.mesh import all_reduce
 from ...utils.extmath import cusolver_linalg, randomized_svd
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
-from .minibatch import Update, apply_updates, value_and_grad
+from .minibatch import Update, apply_updates, gather_updates, value_and_grad
 from .walk_based import WalkBasedEmbedder, _device_generator
 
 # Dense n x n intermediates cap (KarateClub's own algorithms are dense too).
@@ -748,6 +749,32 @@ class Role2Vec(WalkBasedEmbedder):
             Update("role_embedding", roles.reshape(-1), g_pos.reshape(-1, d), "add"),
             Update("role_embedding", neg_roles.reshape(-1), g_neg.reshape(-1, d), "add"),
         ]
+
+    @classmethod
+    def supports_distribution(cls) -> bool:
+        return True
+
+    def _choose_distribution(self, mesh, graph: Graph) -> str:
+        """Data-parallel on a mesh: the role table does not follow the node
+        rows' sharding, so "rows" and "auto" mean "data"."""
+        return "none" if mesh is None or self._distribution == "none" else "data"
+
+    def _make_dp_step(self, mesh, batch_size: int):
+        """Data-parallel step: every rank draws the same pairs, takes the
+        updates of its slice (normalized by all the pairs) and applies the
+        all-gathered global update."""
+
+        def step(tg, params, generator, lr, batch=None):
+            words, roles, neg_roles = (self._sample_role_pairs(tg, generator)
+                                       if batch is None else batch)
+            per = words.shape[0] // mesh.size
+            sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+            loss, updates = self._pair_updates(params, words[sl], roles[sl], neg_roles[sl],
+                                               words.shape[0])
+            apply_updates(params, gather_updates(updates, mesh), lr)
+            return all_reduce(loss.clone(), mesh)
+
+        return step
 
     def _step(self, tg, params, generator, lr, batch=None, sums=None) -> torch.Tensor:
         """One step on `params`, in place, from fresh pairs (or the injected

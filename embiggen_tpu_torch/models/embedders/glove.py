@@ -11,6 +11,14 @@ reference's "add" updates in place (K13b: a gradient launch and two update
 launches on a workspace the fit allocates once), every gradient taken before
 any table changes. Built on the `MinibatchEmbedder` skeleton, whose batch is
 the drawn ids and whose shared part is the entries.
+
+Over a mesh every rank draws the same ids. Data-parallel
+(`glove_dp_step`): each rank runs the gradient launch on its slice of the
+ids, the ranks all-gather the (i, j, g) entries and the rows g w_i, and
+every rank applies the whole batch (K13b's two update launches).
+Row-sharded (`glove_rows_step`): the batch's distinct rows are gathered
+(K17d and one all-reduce) into compact tables, the gradient launch runs on
+them, and each rank adds the updates of the rows it owns (K17c).
 """
 from __future__ import annotations
 
@@ -20,13 +28,56 @@ import torch
 
 from ...graph.graph import Graph
 from ...ops.glove import (
-    Entries, GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries, glove_step,
-    glove_strides,
+    Entries, GloVeStepWorkspace, cooccurrences, draw_entries, glove_apply, glove_entries,
+    glove_gradients, glove_step, glove_strides,
 )
+from ...ops.sharded import owned_scatter
 from ...ops.walks import random_walks
+from ...parallel.mesh import Mesh, all_gather
+from ...parallel.sharded_table import _gather_rows
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
 from .minibatch import MinibatchEmbedder
+
+
+def glove_dp_step(mesh: Mesh, entries: Entries, ids: torch.Tensor, tables, lr: float,
+                  workspace: GloVeStepWorkspace) -> torch.Tensor:
+    """One data-parallel GloVe step on the replicated `tables` (node,
+    context, center bias, context bias), in place, for the global batch
+    `ids` (B divisible by the mesh size); returns the loss sum. The
+    gradient launch writes this rank's B / P entries into `workspace`,
+    which a fit allocates once."""
+    per = ids.shape[0] // mesh.size
+    mine = ids[mesh.rank * per:(mesh.rank + 1) * per]
+    ws = glove_gradients(entries, mine, *tables, workspace, 1.0 / ids.shape[0])
+    whole = GloVeStepWorkspace(rows=all_gather(ws.rows, mesh), i=all_gather(ws.i, mesh),
+                               j=all_gather(ws.j, mesh), g=all_gather(ws.g, mesh),
+                               partials=all_gather(ws.partials, mesh), loss=ws.loss)
+    return glove_apply(*tables, whole, lr)
+
+
+def glove_rows_step(mesh: Mesh, entries: Entries, ids: torch.Tensor, shards, lr: float,
+                    workspace: GloVeStepWorkspace) -> torch.Tensor:
+    """One row-sharded GloVe step on this rank's row shards of the tables,
+    in place, for the global batch `ids`; returns the loss sum. The
+    gradient launch writes the B entries into `workspace`, which a fit
+    allocates once."""
+    b = ids.shape[0]
+    i, j = entries.ci[ids.long()], entries.cj[ids.long()]
+    uniq, inverse = torch.unique(torch.cat([i, j]), return_inverse=True)
+    uniq, inverse = uniq.int(), inverse.int()
+    compact = [_gather_rows(t, uniq, mesh) for t in shards]
+    local = Entries(inverse[:b].contiguous(), inverse[b:].contiguous(),
+                    entries.f_x[ids.long()], entries.log_x[ids.long()])
+    ws = glove_gradients(local, torch.arange(b, dtype=torch.int32, device=ids.device),
+                         *compact, workspace, 1.0 / b)
+    lo = mesh.rank * shards[0].shape[0]
+    node, context, center_bias, context_bias = shards
+    owned_scatter(node, lo, i, ws.g[:, None] * compact[1][ws.j.long()], -lr)
+    owned_scatter(center_bias, lo, i, ws.g, -lr)
+    owned_scatter(context_bias, lo, j, ws.g, -lr)
+    owned_scatter(context, lo, j, ws.rows, -lr)
+    return ws.partials.sum()
 
 
 @register_model
@@ -150,10 +201,7 @@ class GloVe(MinibatchEmbedder):
               batch=None) -> torch.Tensor:
         """One step on `params`, in place: draw B entry ids (or take the
         injected `batch`), apply the step (K13b on the fit's workspace).
-        Returns the loss per entry as a 0-d device tensor. The step returns
-        no Update, so the model is single-device (`supports_distribution`
-        is False; the reference's GloVe is distributable) until ROADMAP
-        A13."""
+        Returns the loss per entry as a 0-d device tensor."""
         size = self._run_batch()
         if batch is None:
             batch = self._sample_batch(ctx, generator, size)
@@ -162,6 +210,36 @@ class GloVe(MinibatchEmbedder):
             size, self.embedding_size, params["node_embedding"].device))
         return glove_step(entries, ids, params["node_embedding"], params["context_embedding"],
                           params["center_bias"], params["context_bias"], lr, ws) / size
+
+    # The step returns no Update: its own distributed steps replace the
+    # base's.
+    @classmethod
+    def supports_distribution(cls) -> bool:
+        return True
+
+    _TABLES = ("node_embedding", "context_embedding", "center_bias", "context_bias")
+
+    def _make_dp_step(self, mesh: Mesh, batch_size: int):
+        def step(ctx, params, generator, lr, batch=None):
+            (ids,), entries = (self._sample_batch(ctx, generator, batch_size)
+                               if batch is None else batch)
+            tables = [params[name] for name in self._TABLES]
+            ws = self._fit_buffer("glove_dp_step", lambda: GloVeStepWorkspace.empty(
+                batch_size // mesh.size, self.embedding_size, ids.device))
+            return glove_dp_step(mesh, entries, ids, tables, lr, ws) / batch_size
+
+        return step
+
+    def _make_row_sharded_step(self, mesh: Mesh, batch_size: int, row_keys):
+        def step(ctx, params, generator, lr, batch=None):
+            (ids,), entries = (self._sample_batch(ctx, generator, batch_size)
+                               if batch is None else batch)
+            shards = [params[name] for name in self._TABLES]
+            ws = self._fit_buffer("glove_rows_step", lambda: GloVeStepWorkspace.empty(
+                batch_size, self.embedding_size, ids.device))
+            return glove_rows_step(mesh, entries, ids, shards, lr, ws) / batch_size
+
+        return step
 
     def _extract(self, params, graph: Graph) -> EmbeddingResult:
         return EmbeddingResult(

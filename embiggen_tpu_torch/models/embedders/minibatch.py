@@ -18,12 +18,20 @@ that the fit keeps and frees at its end, "add" through `index_add_`,
 "dense" through `sub_`. Every gradient is taken before any table changes,
 so the in-place order cannot change the step. An epoch is a loop over
 steps; its mean loss is read on the host once per epoch, for the lr plateau
-and early stopping. The data-parallel and row-sharded steps of the JAX
-version come with multi-device training (ROADMAP A13).
+and early stopping.
+
+With `mesh` a fit trains over torch.distributed, one process per rank,
+every rank drawing the same global batch. Data-parallel: each rank takes
+the updates of its slice of the batch and `gather_updates` all-gathers the
+sparse payloads in rank order (all-reduces the dense ones), so every rank
+applies the global update. Row-sharded: the node-row tables are cut over
+the mesh, the hooks gather from `_RowShardView`s (K17d and one
+all-reduce), and each rank applies the updates of the rows it owns (K17c).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +39,10 @@ import torch
 
 from ...graph.graph import Graph, TorchGraph
 from ...ops.scatter import MeanScatterSums, mean_scatter
+from ...parallel.mesh import Mesh, all_gather, all_reduce, resolve_mesh
+from ...parallel.sharded_table import (
+    _mean_scatter_owned, _RowShardView, _scatter_add_owned, shard_rows, unshard_rows,
+)
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
@@ -99,6 +111,26 @@ def apply_updates(params: Params, updates: List[Update], lr: float,
     return params
 
 
+def gather_updates(updates: List[Update], mesh: Mesh) -> List[Update]:
+    """The global update from each rank's updates of its slice: sparse
+    payloads all-gathered in rank order (per segment, each staying aligned
+    with its gradients), dense gradients all-reduced."""
+    out = []
+    for u in updates:
+        if u.mode == "dense":
+            out.append(u._replace(grad=all_reduce(u.grad.clone(), mesh)))
+            continue
+        prefix, rows = _split_prefix(u.idx)
+        if isinstance(rows, tuple):
+            rows_g = tuple(all_gather(a, mesh) for a in rows)
+            grad_g = tuple(all_gather(g, mesh) for g in u.grad)
+        else:
+            rows_g, grad_g = all_gather(rows, mesh), all_gather(u.grad, mesh)
+        out.append(u._replace(idx=rows_g if prefix is None else (prefix, rows_g),
+                              grad=grad_g))
+    return out
+
+
 def value_and_grad(
     loss_fn: Callable[..., torch.Tensor], leaves: Sequence[torch.Tensor]
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
@@ -115,10 +147,14 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
     """Training template: an epoch is a loop of sample -> gradients ->
     sparse update steps on tables updated in place, with the plateau
     callbacks between epochs. The hyper-parameters are the JAX package's,
-    with the same defaults; `mesh` and `checkpoint_dir` raise naming the
-    ROADMAP item that brings them (`checkpoint_interval` is taken for the
-    reference's signature and serves checkpointing only). `device` (default "cuda") is where
-    training runs; `initial_params` (e.g. from
+    with the same defaults; `checkpoint_dir` raises naming the ROADMAP item
+    that brings it (`checkpoint_interval` is taken for the reference's
+    signature and serves checkpointing only). `mesh` (None, "auto", an int
+    or a `parallel.Mesh`) trains over torch.distributed; `distribution`
+    picks "data", "rows" (the node-row tables sharded), "none", or "auto":
+    rows when those tables take more than a quarter of the device's memory
+    (`WalkBasedEmbedder._table_budget`), else data. `device` (default
+    "cuda") is where training runs; `initial_params` (e.g. from
     `utils.convert.minibatch_params_from_jax`) replaces the random initial
     tables."""
 
@@ -142,9 +178,6 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         device="cuda",
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device training is not ported yet (ROADMAP A13).")
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
@@ -162,6 +195,7 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         self._learning_rate_plateau_min_delta = learning_rate_plateau_min_delta
         self._learning_rate_plateau_patience = learning_rate_plateau_patience
         self._distribution = distribution
+        self._mesh = mesh
         self._initial_params = initial_params
         # The "mean" updates' workspaces, kept across steps, freed after a fit.
         self._mean_sums: Workspaces = {}
@@ -188,7 +222,7 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                 self._learning_rate_plateau_min_delta,
             "learning_rate_plateau_patience":
                 self._learning_rate_plateau_patience,
-            "mesh": None,
+            "mesh": self._mesh.size if isinstance(self._mesh, Mesh) else self._mesh,
             "distribution": self._distribution,
         }
 
@@ -276,6 +310,83 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         apply_updates(params, updates, lr, self._mean_sums)
         return loss / size
 
+    # ----------------------------------------------------- distributed steps
+    def _slice_batch(self, sliceable, i: int, per: int):
+        """Rank i's slice [i per, (i + 1) per) of every sliceable leaf's
+        batch axis (the leading one)."""
+        return tuple(a[i * per:(i + 1) * per] for a in sliceable)
+
+    def _make_dp_step(self, mesh: Mesh, batch_size: int):
+        """Data-parallel step: every rank draws the same global batch,
+        computes the updates of its slice (normalized by the global batch)
+        and applies the all-gathered global update. Equal to the
+        single-device step up to the order of float sums."""
+        if batch_size % mesh.size:
+            raise ValueError(f"a batch of {batch_size} does not split over {mesh.size} ranks.")
+        per = batch_size // mesh.size
+
+        def step(ctx, params, generator, lr, batch=None):
+            sl, sh = self._sample_batch(ctx, generator, batch_size) if batch is None else batch
+            loss, updates = self._batch_updates(
+                params, (self._slice_batch(sl, mesh.rank, per), sh), batch_size)
+            apply_updates(params, gather_updates(updates, mesh), lr, self._mean_sums)
+            return all_reduce(loss.clone(), mesh) / batch_size
+
+        return step
+
+    def _make_row_sharded_step(self, mesh: Mesh, batch_size: int, row_keys):
+        """Row-sharded step: every rank draws the same whole batch, gathers
+        the rows it needs from the sharded tables (`_RowShardView`: K17d and
+        one all-reduce a gather) and applies the updates of the rows it
+        owns (K17c, no communication); the other tables update as on one
+        device."""
+        row_keys = frozenset(row_keys)
+
+        def step(ctx, params, generator, lr, batch=None):
+            views = {n: _RowShardView(t, mesh) if n in row_keys else t
+                     for n, t in params.items()}
+            batch = self._sample_batch(ctx, generator, batch_size) if batch is None else batch
+            loss, updates = self._batch_updates(views, batch, batch_size)
+            for u in updates:
+                if u.name not in row_keys:
+                    apply_updates(params, [u], lr, self._mean_sums)
+                    continue
+                prefix, rows = _split_prefix(u.idx)
+                if prefix is not None or u.mode not in ("add", "mean"):
+                    raise ValueError(f"a row-sharded table takes 'add' and 'mean' updates "
+                                     f"of plain rows; got {u.mode!r} on {u.name!r}.")
+                if u.mode == "mean":
+                    _mean_scatter_owned(params[u.name], rows, u.grad, lr, mesh)
+                else:
+                    _scatter_add_owned(params[u.name], rows, -lr * u.grad, mesh)
+            # The gathered rows are the same on every rank: so is the loss.
+            return loss / batch_size
+
+        return step
+
+    def _choose_distribution(self, mesh: Optional[Mesh], graph: Graph, params) -> str:
+        """'data' | 'rows' | 'none' for this (mesh, graph)."""
+        from .walk_based import WalkBasedEmbedder
+
+        if mesh is None or self._distribution == "none":
+            return "none"
+        if not self.supports_distribution():
+            warnings.warn(
+                f"{type(self).__name__} does not implement the distributed "
+                "training hooks; falling back to single-device training.")
+            return "none"
+        keys = self._row_sharded_keys(graph, params)
+        row_bytes = sum(t.numel() * 4 for n, t in params.items() if n in keys)
+        if self._distribution == "rows" or (
+                self._distribution == "auto"
+                and row_bytes > WalkBasedEmbedder._table_budget(mesh.device)):
+            if not keys:
+                warnings.warn(f"{type(self).__name__} has no node-row tables to "
+                              "shard; using data parallelism.")
+                return "data"
+            return "rows"
+        return "data"
+
     # --------------------------------------------------------- training loop
     def _initial_tables(self, graph: Graph, generator: torch.Generator) -> Params:
         if self._initial_params is None:
@@ -306,12 +417,30 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         self._pre_fit_check(graph)
         self._free_fit_buffers()
+        mesh = resolve_mesh(self._mesh)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
+                             f"{mesh.device}.")
         ctx = self._prepare_data(graph)
         generator = torch.Generator().manual_seed(self.random_state or 0)
         params = self._initial_tables(graph, generator)
+        strategy = self._choose_distribution(mesh, graph, params)
         batch = self._resolve_batch_size(graph, ctx)
+        if strategy != "none":
+            # Batch slices divide evenly over the mesh.
+            batch = -(-batch // mesh.size) * mesh.size
         self._run_batch_size = batch
         steps_per_epoch = self._steps_per_epoch(graph, ctx, batch)
+        row_rows = {}
+        if strategy == "data":
+            step = self._make_dp_step(mesh, batch)
+        elif strategy == "rows":
+            row_keys = self._row_sharded_keys(graph, params)
+            step = self._make_row_sharded_step(mesh, batch, row_keys)
+            row_rows = {n: params[n].shape[0] for n in row_keys}
+            params.update({n: shard_rows(params[n], mesh) for n in row_keys})
+        else:
+            step = self._step
         ctrl = PlateauController(
             early_stopping_min_delta=self._early_stopping_min_delta,
             early_stopping_patience=self._early_stopping_patience,
@@ -330,7 +459,7 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                     t0 = time.perf_counter()
                     lr = (self._learning_rate * self._learning_rate_decay ** epoch
                           * ctrl.lr_scale)
-                    losses = [self._step(ctx, params, generator, lr)
+                    losses = [step(ctx, params, generator, lr)
                               for _ in range(steps_per_epoch)]
                     # The epoch's one host read, which also waits for the device.
                     last = float(torch.stack(losses).mean())
@@ -343,4 +472,5 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
             self._free_fit_buffers()
         self._last_loss = last
         self._stopped_epoch = ctrl.stopped_epoch
+        params.update({n: unshard_rows(params[n], mesh, rows) for n, rows in row_rows.items()})
         return self._extract(params, graph)

@@ -124,6 +124,11 @@ class SiameseEmbedder(MinibatchEmbedder):
             with_edge_types=typed, workspace=draws,
         ), ()
 
+    def _slice_batch(self, block, i: int, per: int):
+        """Rank i's columns [i per, (i + 1) per) of the [4, B] (or [5, B])
+        block."""
+        return block[:, i * per:(i + 1) * per].contiguous()
+
     def _batch_updates(self, params, batch, full_batch):
         block, _ = batch
         idx = block[:4]

@@ -11,10 +11,24 @@ sampled softmax) and applies the per-row mean update to the three tables in
 one pass that zeroes the sums again (K4's combine). The sums are allocated
 once per fit; the tables are updated in place. An epoch is a loop over steps; its mean loss is read on
 the host once per epoch, for the lr plateau and early stopping.
+
+With `mesh` (see `parallel.mesh.resolve_mesh`) a fit trains over
+torch.distributed, one process per rank, every rank drawing the same global
+batch from the same seed. The distributed steps run the same kernels on
+compact tables: the batch's U distinct rows (U at most B L + B K, growing
+with the batch and not with N) are gathered (K17d; on row-sharded tables
+followed by an all-reduce), K3 / K11 (K12 for Walklets) adds the gradients
+of the rank's slice of the walks (data-parallel) or of the whole batch
+(row-sharded) into compact sums, the data-parallel ranks all-reduce those
+sums and counts, and the per-row mean step is applied through the id map
+(K17c): to every row of the replicated tables, or to the rows a rank owns.
 """
 from __future__ import annotations
 
+import functools
+import os
 import time
+import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -24,8 +38,11 @@ from ...graph.graph import Graph, TorchGraph
 from ...ops.cbow import cbow_update
 from ...ops.negatives import negative_nodes_for_nce, sample_nodes_uniform
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
+from ...ops.sharded import owned_gather, owned_scatter
 from ...ops.skipgram import skipgram_nce_update
 from ...ops.walks import random_walks
+from ...parallel.mesh import Mesh, all_reduce, resolve_mesh
+from ...parallel.sharded_table import shard_rows, unshard_rows
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
@@ -50,7 +67,11 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
     this port does not carry yet raise NotImplementedError naming the ROADMAP
     item that brings them. `device` (default "cuda") is where training runs;
     `initial_params` (e.g. from `utils.convert.skipgram_params_from_jax`)
-    replaces the random initial tables."""
+    replaces the random initial tables. `mesh` (None, "auto", an int or a
+    `parallel.Mesh`) trains over torch.distributed; `distribution` picks
+    "data" (replicated tables), "rows" (row-sharded tables), "none", or
+    "auto": rows when the tables take more than a quarter of the device's
+    memory (`_table_budget`), else data."""
 
     def __init__(
         self,
@@ -85,9 +106,6 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         device="cuda",
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device training is not ported yet (ROADMAP A13).")
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
@@ -96,6 +114,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 "distribution must be one of 'auto', 'data', 'rows', "
                 f"'none'; got {distribution!r}."
             )
+        self._mesh = mesh
         self._epochs = epochs
         self._batch_size = batch_size
         self._distribution = distribution
@@ -154,7 +173,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             **super().parameters(),
             "epochs": self._epochs,
             "batch_size": self._batch_size,
-            "mesh": None,
+            "mesh": self._mesh.size if isinstance(self._mesh, Mesh) else self._mesh,
             "distribution": self._distribution,
             "walk_length": self._walk_length,
             "iterations": self._iterations,
@@ -218,11 +237,10 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 
     @classmethod
     def supports_distribution(cls) -> bool:
-        """False: the port trains on one device. The reference answers True
-        for the walk models that implement its gathered-gradient hooks;
-        multi-device training comes with ROADMAP A13, which makes the
-        answers equal."""
-        return False
+        """True when the model implements the compact-gradient hook
+        `_add_gradients` (and can therefore train data-parallel or
+        row-sharded on a mesh)."""
+        return cls._add_gradients is not WalkBasedEmbedder._add_gradients
 
     # ------------------------------------------------------------- the tables
     # The three tables of a model, in `SkipGramSums` order: the input table
@@ -385,6 +403,119 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         n_centers = walks.shape[0] * (self._walk_length - 2 * self._window_size)
         return loss / n_centers
 
+    # ----------------------------------------------------- distributed steps
+    def _flat_tables(self, params: Params) -> Tuple[torch.Tensor, ...]:
+        """The three tables as row tables, in `SkipGramSums` order: what the
+        compact route gathers from and applies to."""
+        return tuple(params[name] for name in self._TABLES)
+
+    def _compact_ids(self, uniq: torch.Tensor, params: Params) -> torch.Tensor:
+        """The rows of the flat tables that the batch's distinct ids name."""
+        return uniq
+
+    def _compact_tables(self, rows, n_uniq: int):
+        """The gathered rows as the tables `_add_gradients` takes."""
+        return tuple(rows)
+
+    def _loss_per_centre(self, loss: torch.Tensor, walks: torch.Tensor) -> torch.Tensor:
+        return loss / (walks.shape[0] * (self._walk_length - 2 * self._window_size))
+
+    @staticmethod
+    def _compact_batch(walks: torch.Tensor, negs: torch.Tensor):
+        """(the distinct ids U [U] int32, walks and negatives renumbered to
+        their places in U)."""
+        ids = torch.cat([walks.reshape(-1), negs.reshape(-1)])
+        uniq, inverse = torch.unique(ids, return_inverse=True)
+        inverse = inverse.int()
+        k = walks.numel()
+        return (uniq.int(), inverse[:k].view(walks.shape).contiguous(),
+                inverse[k:].view(negs.shape).contiguous())
+
+    def _distributed_step(self, mesh: Mesh, rows: bool):
+        """step(tg, params, generator, lr, batch=None) -> loss per centre:
+        the data-parallel step over replicated tables (rows False) or the
+        row-sharded step over this rank's row shards (rows True), in place.
+        Every rank draws the same global batch."""
+
+        def step(tg, params, generator, lr, batch=None):
+            walks, negs = (self._sample_batch(tg, generator, self._run_batch_size)
+                           if batch is None else batch)
+            center_w = self._center_weights(tg, walks, generator)
+            uniq, walks_u, negs_u = self._compact_batch(walks, negs)
+            flat = self._flat_tables(params)
+            ids = self._compact_ids(uniq, params)
+            lo = mesh.rank * flat[0].shape[0] if rows else 0
+            gathered = [owned_gather(t, lo, ids) for t in flat]
+            if rows:
+                gathered = [all_reduce(g, mesh) for g in gathered]
+            compact = self._compact_tables(gathered, uniq.shape[0])
+            sums = SkipGramSums.zeros(gathered[0].shape[0], gathered[0].shape[1],
+                                      gathered[0].device)
+            if not rows:
+                per = walks.shape[0] // mesh.size
+                sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+                walks_u, negs_u = walks_u[sl], negs_u[sl]
+                center_w = None if center_w is None else center_w[sl].contiguous()
+            loss = self._add_gradients(compact, walks_u, negs_u, center_w, sums)
+            if not rows:
+                for t in sums.buffers():
+                    all_reduce(t, mesh)
+                loss = all_reduce(loss.clone(), mesh)
+            for t, total, counts in zip(flat, (sums.sums_w, sums.sums_c, sums.sums_b),
+                                        (sums.counts_w, sums.counts_c, sums.counts_c)):
+                owned_scatter(t, lo, ids, total, -lr, entry_den=counts)
+            return self._loss_per_centre(loss, walks)
+
+        return step
+
+    def _make_dp_step(self, mesh: Mesh, batch_size: int):
+        """Data-parallel step: replicated tables, each rank's slice of the
+        walks ([p B / P, (p + 1) B / P)), compact sums and counts
+        all-reduced (the exchange grows with the batch, never with [N, D]),
+        and the same update applied on every rank. Equal to the
+        single-device step up to the order of float sums."""
+        if (batch_size * self._iterations) % mesh.size:
+            raise ValueError(f"{batch_size * self._iterations} walks do not split over "
+                             f"{mesh.size} ranks.")
+        return self._distributed_step(mesh, rows=False)
+
+    def _make_row_sharded_step(self, mesh: Mesh, batch_size: int):
+        """Row-sharded step: the tables' rows cut over the mesh; compact
+        rows gathered by K17d and one all-reduce, the whole batch's
+        gradients on every rank, and each rank's update applied to the rows
+        it owns (no communication). Same batches as the single-device
+        step."""
+        return self._distributed_step(mesh, rows=True)
+
+    @staticmethod
+    def _table_budget(device: torch.device) -> int:
+        """Bytes of tables above which "auto" shards rows: a quarter of the
+        device's memory (the card's total memory, or the host's for the
+        CPU), leaving room for the walks, the compact tables and their
+        sums."""
+        if device.type == "cuda":
+            total = torch.cuda.get_device_properties(device).total_memory
+        else:
+            total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        return total // 4
+
+    def _table_bytes(self, graph: Graph) -> int:
+        return sum(int(np.prod(shape)) * 4 for shape in self._param_shapes(graph).values())
+
+    def _choose_distribution(self, mesh: Optional[Mesh], graph: Graph) -> str:
+        """'data' | 'rows' | 'none' for this (mesh, graph)."""
+        if mesh is None or self._distribution == "none":
+            return "none"
+        if not self.supports_distribution():
+            warnings.warn(
+                f"{type(self).__name__} does not implement the distributed "
+                "training hooks; falling back to single-device training.")
+            return "none"
+        if self._distribution != "auto":
+            return self._distribution
+        return ("rows" if self._table_bytes(graph) > self._table_budget(mesh.device)
+                else "data")
+
     def _initial_tables(self, graph: Graph, generator: torch.Generator) -> Params:
         if self._initial_params is None:
             return self._init_params(graph, generator)
@@ -398,12 +529,26 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         return params
 
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
+        mesh = resolve_mesh(self._mesh)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
+                             f"{mesh.device}.")
+        strategy = self._choose_distribution(mesh, graph)
         tg = self._device_graph(graph)
         generator = torch.Generator().manual_seed(self.random_state or 0)
         batch = self._resolve_batch(graph)
+        if strategy != "none":
+            # Walk slices divide evenly over the mesh.
+            batch = -(-batch // mesh.size) * mesh.size
         self._run_batch_size = batch
         params = self._initial_tables(graph, generator)
-        sums = self._new_sums(params)
+        if strategy == "data":
+            step = self._make_dp_step(mesh, batch)
+        elif strategy == "rows":
+            step = self._make_row_sharded_step(mesh, batch)
+            params = {name: shard_rows(t, mesh) for name, t in params.items()}
+        else:
+            step = functools.partial(self._step, sums=self._new_sums(params))
         steps_per_epoch = max(1, graph.number_of_nodes // batch)
         # Early stopping and lr-on-plateau, default-on as in the reference.
         ctrl = PlateauController(
@@ -423,8 +568,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 t0 = time.perf_counter()
                 lr = (self._learning_rate * self._learning_rate_decay ** epoch
                       * ctrl.lr_scale)
-                losses = [self._step(tg, params, generator, lr, sums=sums)
-                          for _ in range(steps_per_epoch)]
+                losses = [step(tg, params, generator, lr) for _ in range(steps_per_epoch)]
                 # The epoch's one host read, which also waits for the device.
                 last_loss = float(torch.stack(losses).mean())
                 self._epoch_seconds.append(time.perf_counter() - t0)
@@ -434,6 +578,9 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                     break
         self._last_loss = last_loss
         self._stopped_epoch = ctrl.stopped_epoch
+        if strategy == "rows":
+            params = {name: unshard_rows(t, mesh, graph.number_of_nodes)
+                      for name, t in params.items()}
         return self._extract(params, graph)
 
 

@@ -18,6 +18,7 @@ power's slices (K13b, on one workspace a fit).
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -30,8 +31,10 @@ from ...ops.glove import (
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
 from ...ops.walklets import walklets_update
 from ...ops.walks import random_walks
+from ...parallel.mesh import resolve_mesh
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
+from .glove import glove_dp_step
 from .walk_based import WalkBasedEmbedder, _device_generator
 
 
@@ -78,31 +81,68 @@ class _WalkletsBase(WalkBasedEmbedder):
         p, n, sub = params["node_embedding"].shape
         return SkipGramSums.zeros(p * n, sub, params["node_embedding"].device)
 
+    def _center_weights(self, tg, walks, generator) -> None:
+        """None: as in the reference, no centre weights apply."""
+        return None
+
+    def _add_gradients(self, tables, walks, negs, center_w, sums):
+        """K12 into `sums` over the stacked tables; the loss sum per power
+        [P]."""
+        return walklets_update(*tables, walks, negs, self._power, sums, self._MODE)
+
     def _update(self, params, walks, negs, center_w, lr, sums):
         """One step on the stacked tables, in place: K12 into `sums`, then
         one combine over the flat views for all powers. Returns the loss sum
         per power [P]."""
-        loss = walklets_update(*(params[name] for name in self._TABLES), walks, negs,
-                               self._power, sums, self._MODE)
-        p, n, sub = params["node_embedding"].shape
-        skipgram_mean_combine(params["node_embedding"].view(p * n, sub),
-                              params["context_embedding"].view(p * n, sub),
-                              params["context_bias"].view(p * n), sums, lr)
+        loss = self._add_gradients(tuple(params[name] for name in self._TABLES), walks,
+                                   negs, None, sums)
+        skipgram_mean_combine(*self._flat_tables(params), sums, lr)
         return loss
 
-    def _step(self, tg, params, generator, lr, batch=None, sums=None) -> torch.Tensor:
-        """One step on `params`, in place (see `WalkBasedEmbedder._step`).
-        Returns sum over powers of the loss per pair of that power, divided
+    def _loss_per_centre(self, loss, walks) -> torch.Tensor:
+        """The sum over powers of the loss per pair of that power, divided
         by the power, as the reference reports it."""
+        b, length = walks.shape
+        strides = torch.arange(1, self._power + 1, device=loss.device)
+        return (loss / (2 * b * (length - strides))).sum() / self._power
+
+    def _step(self, tg, params, generator, lr, batch=None, sums=None) -> torch.Tensor:
+        """One step on `params`, in place (see `WalkBasedEmbedder._step`);
+        returns `_loss_per_centre`."""
         walks, negs = (
             self._sample_batch(tg, generator, self._run_batch_size)
             if batch is None else batch
         )
         loss = self._update(params, walks, negs, None, lr,
                             self._new_sums(params) if sums is None else sums)
-        b, length = walks.shape
-        strides = torch.arange(1, self._power + 1, device=loss.device)
-        return (loss / (2 * b * (length - strides))).sum() / self._power
+        return self._loss_per_centre(loss, walks)
+
+    # The distributed steps' compact tables are the stacked tables' rows of
+    # the batch's ids in every power: flat row p N + id of the [P N, sub]
+    # views, gathered as [P U, sub] and viewed as [P, U, sub].
+    def _flat_tables(self, params):
+        p, n, sub = params["node_embedding"].shape
+        return (params["node_embedding"].view(p * n, sub),
+                params["context_embedding"].view(p * n, sub),
+                params["context_bias"].view(p * n))
+
+    def _compact_ids(self, uniq, params):
+        p, n, _ = params["node_embedding"].shape
+        powers = torch.arange(p, dtype=torch.int32, device=uniq.device)[:, None] * n
+        return (powers + uniq[None, :]).reshape(-1)
+
+    def _compact_tables(self, rows, n_uniq):
+        p = self._power
+        return (rows[0].view(p, n_uniq, -1), rows[1].view(p, n_uniq, -1),
+                rows[2].view(p, n_uniq))
+
+    def _choose_distribution(self, mesh, graph: Graph) -> str:
+        strategy = super()._choose_distribution(mesh, graph)
+        if strategy == "rows":
+            warnings.warn("Walklets tables are stacked per power; the row-sharded "
+                          "strategy does not apply, using data parallelism.")
+            return "data"
+        return strategy
 
     def _extract(self, params, graph: Graph) -> EmbeddingResult:
         p, n, sub = params["node_embedding"].shape
@@ -173,6 +213,11 @@ class WalkletsGloVe(_WalkletsBase):
                           lr, workspace) / ids.shape[0]
 
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
+        mesh = resolve_mesh(self._mesh)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
+                             f"{mesh.device}.")
+        data_parallel = self._choose_distribution(mesh, graph) == "data"
         tg = self._device_graph(graph)
         generator = torch.Generator().manual_seed(self.random_state or 0)
         n = graph.number_of_nodes
@@ -192,21 +237,31 @@ class WalkletsGloVe(_WalkletsBase):
                 entries = glove_entries(ci, cj, counts, self._x_max, self._alpha)
                 batch = min(self._batch_size or 4096, entries.n_entries)
                 steps = max(1, entries.n_entries // batch)
-                if workspace is None or workspace.rows.shape[0] != batch:
-                    workspace = GloVeStepWorkspace.empty(batch, sub, walks.device)
+                if data_parallel:
+                    # Id slices divide evenly over the mesh (drawn with
+                    # replacement, so a batch may exceed the entries).
+                    batch = -(-batch // mesh.size) * mesh.size
+                # A rank's gradient launch takes B / P of the entries.
+                rows = batch // mesh.size if data_parallel else batch
+                if workspace is None or workspace.rows.shape[0] != rows:
+                    workspace = GloVeStepWorkspace.empty(rows, sub, walks.device)
                 # Views of power p's slices: the steps update the tables in
                 # place.
                 state = {"emb": params["node_embedding"][p],
                          "ctx": params["context_embedding"][p],
                          "bw": params["context_bias"][p],
                          "bc": torch.zeros_like(params["context_bias"][p])}
+                tables = [state[k] for k in ("emb", "ctx", "bw", "bc")]
                 for epoch in range(self._epochs):
                     t0 = time.perf_counter()
                     lr = self._learning_rate * self._learning_rate_decay ** epoch
-                    losses = [self._glove_step(state, entries,
-                                               draw_entries(entries, batch, generator), lr,
-                                               workspace)
-                              for _ in range(steps)]
+                    losses = [
+                        glove_dp_step(mesh, entries, draw_entries(entries, batch, generator),
+                                      tables, lr, workspace) / batch
+                        if data_parallel else
+                        self._glove_step(state, entries, draw_entries(entries, batch, generator),
+                                         lr, workspace)
+                        for _ in range(steps)]
                     last = float(torch.stack(losses).mean())
                     self._epoch_seconds.append(time.perf_counter() - t0)
                     self._epoch_losses.append(last)

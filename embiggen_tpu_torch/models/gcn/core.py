@@ -7,7 +7,8 @@ onto them one to one (`utils.convert.gcn_params_from_jax`). The
 convolution is the CSR SpMM with its transposed backward (`ops.spmm`,
 kernel K7). Kernel choice per preset follows the reference: Kipf GCN =
 Symmetric Normalized Laplacian, GraphSAGE = Left Normalized Laplacian, GNN
-= no kernels.
+= no kernels. Over a mesh (`enable_halo`) each convolution is the
+halo-exchange SpMM of `parallel.halo`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import torch
 from ...graph.graph import Graph
 from ...graph.laplacians import kernel_coo, validate_convolution_graph
 from ...ops.spmm import CSRKernel, csr_kernel, spmm
+from ...parallel.halo import build_halo_partition, halo_conv
+from ...parallel.mesh import Mesh
 
 Params = Dict[str, Any]
 
@@ -32,15 +35,23 @@ _KERNEL_CACHE: "OrderedDict[tuple, CSRKernel]" = OrderedDict()
 _KERNEL_CACHE_SIZE = 4
 
 
-def _cached_kernel(graph: Graph, name: str, device: torch.device) -> CSRKernel:
-    key = (graph.arcs_fingerprint, name, str(device))
+def _cached_kernel(graph: Graph, name: str, device: torch.device, halo_mesh=None):
+    """The kernel's CSRKernel on `device`, or with `halo_mesh` the
+    HaloPartition of this rank's shard, from the LRU above (keyed on the
+    halo configuration too)."""
+    key = (graph.arcs_fingerprint, name, str(device),
+           None if halo_mesh is None else (halo_mesh.size, halo_mesh.rank))
     hit = _KERNEL_CACHE.get(key)
     if hit is not None:
         _KERNEL_CACHE.move_to_end(key)
         return hit
     rows, cols, vals = kernel_coo(graph, name)
-    built = csr_kernel(rows, cols, vals, graph.number_of_nodes, device=device,
-                       with_transpose=True)
+    if halo_mesh is not None:
+        built = build_halo_partition(rows, cols, vals, graph.number_of_nodes, halo_mesh.size,
+                                     device=device, shards=[halo_mesh.rank])
+    else:
+        built = csr_kernel(rows, cols, vals, graph.number_of_nodes, device=device,
+                           with_transpose=True)
     _KERNEL_CACHE[key] = built
     while len(_KERNEL_CACHE) > _KERNEL_CACHE_SIZE:
         _KERNEL_CACHE.popitem(last=False)
@@ -120,22 +131,34 @@ class GCNEncoder:
         self.dropout_rate = dropout_rate
         self.residual = residual
         self.handling_multi_graph = handling_multi_graph
+        self._halo_mesh: Optional[Mesh] = None
 
     @property
     def has_convolutions(self) -> bool:
         return bool(self.kernel_names) and bool(self.units)
 
-    def enable_halo(self, mesh, axis: str = "nodes") -> None:
-        raise NotImplementedError(
-            "The multi-device halo SpMM is not ported yet (ROADMAP A13).")
+    def enable_halo(self, mesh: Mesh) -> None:
+        """Convolve over `mesh` with the halo-exchange SpMM
+        (`parallel.halo.halo_conv`): each rank computes its shard's rows and
+        exchanges only boundary rows; the activations stay replicated, so
+        the rest of the model, its dropout draws and its gradients are those
+        of one device, up to the order of float sums. `build_kernels` then
+        builds this rank's HaloPartition instead of a CSRKernel."""
+        self._halo_mesh = mesh
 
     def build_kernels(self, graph: Graph, device: torch.device) -> List[CSRKernel]:
-        """One CSRKernel (with its transpose) per kernel name, from the
-        kernel cache."""
+        """One CSRKernel (with its transpose) per kernel name, or in halo
+        mode one HaloPartition, from the kernel cache."""
         if self.kernel_names:
             validate_convolution_graph(graph, self.handling_multi_graph)
-        return [_cached_kernel(graph, name, torch.device(device))
+        return [_cached_kernel(graph, name, torch.device(device), self._halo_mesh)
                 for name in self.kernel_names]
+
+    def _conv(self, k, h: torch.Tensor) -> torch.Tensor:
+        """A @ h: K7 on one device, the halo-exchange SpMM over the mesh."""
+        if self._halo_mesh is None:
+            return spmm(k, h, self.combiner)
+        return halo_conv(self._halo_mesh, k, h, self.combiner)
 
     def init(self, generator: torch.Generator, in_dim: int) -> Params:
         return {"kernels": [init_mlp([in_dim] + self.units, generator)
@@ -158,7 +181,7 @@ class GCNEncoder:
             for layer in layers:
                 if training and self.dropout_rate > 0 and generator is not None:
                     h = _dropout(h, self.dropout_rate, generator)
-                h = spmm(k, h, self.combiner)
+                h = self._conv(k, h)
                 h = torch.relu(h @ layer["w"] + layer["b"])
             outs.append(h)
         h = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]

@@ -20,8 +20,12 @@ embedding. Node-type features join the node features as per-node rows;
 `use_node_type_embedding` adds a learned embedding of each node's primary
 type.
 
-Not ported yet, each raising NotImplementedError that names its item:
-`mesh` (A13) and `checkpoint_dir` (A12); the edge-label GCN comes with A10.
+With `mesh` (None, "auto", an int or a `parallel.Mesh`) every rank trains
+the same model on the same batches and each convolution is the
+halo-exchange SpMM (`GCNEncoder.enable_halo`); the result equals a
+single-device fit up to the order of float sums. Not ported yet, raising
+NotImplementedError that names its item: `checkpoint_dir` (A12); the
+edge-label GCN comes with A10.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from ...ops import edge_ops
 from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
 from ...ops.negatives import edge_prediction_mini_batch
 from ...ops.walks import csr_edge_ids
+from ...parallel.mesh import Mesh, resolve_mesh
 from ..classifier import AbstractClassifierModel
 from ..edge_prediction.model import AbstractEdgePredictionModel
 from ..embedders.walk_based import _device_generator
@@ -85,12 +90,9 @@ class _EdgeGCNBase(AbstractClassifierModel):
         random_state: int = 42,
         device: Union[str, torch.device] = "cuda",
     ):
-        for given, item, what in (
-            (mesh is not None, "A13", "mesh: multi-device training"),
-            (checkpoint_dir is not None, "A12", "checkpoint_dir: checkpointing"),
-        ):
-            if given:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item}).")
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
         self._mesh = mesh
         self._handling_multi_graph = handling_multi_graph
         self._kernels = (
@@ -137,7 +139,7 @@ class _EdgeGCNBase(AbstractClassifierModel):
     def parameters(self) -> Dict[str, Any]:
         return {
             **super().parameters(),
-            "mesh": self._mesh,
+            "mesh": self._mesh.size if isinstance(self._mesh, Mesh) else self._mesh,
             "kernels": self._kernels,
             "units": self._units,
             "tower_units": self._tower_units,
@@ -198,6 +200,12 @@ class _EdgeGCNBase(AbstractClassifierModel):
             residual=self._residual,
             handling_multi_graph=self._handling_multi_graph,
         )
+        mesh = resolve_mesh(self._mesh, axis="nodes")
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
+                                 f"{mesh.device}.")
+            self._encoder.enable_halo(mesh)
         kernels = self._encoder.build_kernels(support, self.device)
         self._csr_kernels = kernels
         # A learned node embedding also stands in for no node features.

@@ -89,6 +89,10 @@ _SIGNATURES = {
     "ebt_hll_edge_features": ((_P, _I32, _I32, _P, _P, _I64, _F32, _P, _P), _I32),
     "ebt_sketch_candidates": ((_P, _P, _P, _I64, _I32, _I32, _F32, _I32, _P), _I32),
     "ebt_sketch_race_step": ((_P, _P, _P, _I32) + (_P,) * 4 + (_I64, _I32, _I32, _P), _I32),
+    "ebt_halo_spmm": ((_P,) * 5 + (_I32, _P, _P, _P, _I64, _I32, _I32, _P), _I32),
+    "ebt_owned_gather": ((_P, _I64, _I64, _P, _I64, _I32, _P, _P), _I32),
+    "ebt_owned_count": ((_P, _I64, _I64, _P, _I64, _P), _I32),
+    "ebt_owned_scatter": ((_P, _I64, _I64, _P, _P, _I64, _I32, _P, _P, _F32, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -104,7 +108,9 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
      "cooccurrences", "glove_gradients", "glove_node_update", "glove_context_update",
      "min_plus_step", "hll_registers",
-     "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step"), 0,
+     "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step",
+     "halo_spmm", "halo_spmm_backward", "sharded_spmm", "owned_gather", "owned_count",
+     "owned_scatter"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

@@ -248,16 +248,17 @@ class GloVeStepWorkspace:
 def glove_gradients_plain(
     entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
     context_embedding: torch.Tensor, center_bias: torch.Tensor,
-    context_bias: torch.Tensor,
+    context_bias: torch.Tensor, inv_batch: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K13b's gradient launch: (i, j, g, the rows g w_i,
-    the loss sum)."""
+    the loss sum), g scaled by `inv_batch` (1 / B by default)."""
     ids = ids.long()
     i, j = entries.ci[ids], entries.cj[ids]
     f_x, log_x = entries.f_x[ids], entries.log_x[ids]
     w, c = node_embedding[i], context_embedding[j]
     diff = (w * c).sum(1) + center_bias[i] + context_bias[j] - log_x
-    g = 2.0 * f_x * diff / ids.shape[0]
+    g = (2.0 * f_x * diff / ids.shape[0] if inv_batch is None
+         else 2.0 * f_x * diff * inv_batch)
     return i, j, g, g[:, None] * w, (f_x * diff * diff).sum()
 
 
@@ -293,6 +294,102 @@ def glove_step_plain(
     return loss
 
 
+def _check_tables(node_embedding, context_embedding, center_bias, context_bias, dev):
+    n, d = node_embedding.shape
+    for t, name, shape in ((node_embedding, "node_embedding", (n, d)),
+                           (context_embedding, "context_embedding", (n, d)),
+                           (center_bias, "center_bias", (n,)),
+                           (context_bias, "context_bias", (n,))):
+        _build.check(t, name, torch.float32, shape, dev)
+    return n, d
+
+
+def _check_workspace(ws: GloVeStepWorkspace, b: int, d: int, dev, n_partials=None) -> None:
+    for t, name, dtype, shape in (
+            (ws.rows, "rows", torch.float32, (b, d)), (ws.i, "i", torch.int32, (b,)),
+            (ws.j, "j", torch.int32, (b,)), (ws.g, "g", torch.float32, (b,)),
+            (ws.partials, "partials", torch.float32,
+             (-(-b // _STEP_BLOCK),) if n_partials is None else (n_partials,)),
+            (ws.loss, "loss", torch.float32, ())):
+        _build.check(t, f"workspace.{name}", dtype, shape, dev)
+
+
+def glove_gradients(
+    entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
+    context_embedding: torch.Tensor, center_bias: torch.Tensor,
+    context_bias: torch.Tensor, workspace: GloVeStepWorkspace, inv_batch: float,
+) -> GloVeStepWorkspace:
+    """The first half of `glove_step` for the B entries `ids`: each entry's
+    i, j, g = 2 f (pred - log X) * inv_batch and the rows g w_i into
+    `workspace` (B rows), with the loss partials (one a block of 256
+    entries; on the CPU the loss sum first, then zeros). Nothing changes in
+    the tables. What ranks exchange in data-parallel GloVe. K13b's gradient
+    launch on CUDA tensors, the plain version on CPU tensors."""
+    ws = workspace
+    if not _build.is_cuda(ids):
+        i, j, g, rows, loss = glove_gradients_plain(
+            entries, ids, node_embedding, context_embedding, center_bias, context_bias,
+            inv_batch)
+        ws.i.copy_(i)
+        ws.j.copy_(j)
+        ws.g.copy_(g)
+        ws.rows.copy_(rows)
+        ws.partials.zero_()[0] = loss
+        return ws
+    dev = ids.device
+    b, e = ids.shape[0], entries.n_entries
+    for t, name, dtype in ((entries.ci, "ci", torch.int32), (entries.cj, "cj", torch.int32),
+                           (entries.f_x, "f_x", torch.float32),
+                           (entries.log_x, "log_x", torch.float32)):
+        _build.check(t, name, dtype, (e,), dev)
+    _build.check(ids, "ids", torch.int32, (b,), dev)
+    _, d = _check_tables(node_embedding, context_embedding, center_bias, context_bias, dev)
+    _check_workspace(ws, b, d, dev)
+    if b:
+        _build.launch("glove_gradients", "ebt_glove_gradients", dev,
+                      *(t.data_ptr() for t in entries), ids.data_ptr(),
+                      node_embedding.data_ptr(), context_embedding.data_ptr(),
+                      center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
+                      ws.j.data_ptr(), ws.g.data_ptr(), ws.rows.data_ptr(),
+                      ws.partials.data_ptr(), b, d, float(inv_batch))
+    return ws
+
+
+def glove_apply(
+    node_embedding: torch.Tensor, context_embedding: torch.Tensor,
+    center_bias: torch.Tensor, context_bias: torch.Tensor,
+    workspace: GloVeStepWorkspace, lr: float,
+) -> torch.Tensor:
+    """The second half of `glove_step`, in place: node_embedding[i] -= lr g
+    c_j and both biases -= lr g (every c_j before the context side
+    changes), then context_embedding[j] -= lr g w_i from the workspace's
+    rows, summed over repeated rows; the loss (the sum of the partials,
+    which may be any number) into `workspace.loss`, which is returned. K13b's node-side
+    and context-side launches on CUDA tensors, the plain versions on CPU
+    tensors."""
+    ws = workspace
+    if not _build.is_cuda(ws.i):
+        glove_node_update_plain(node_embedding, context_embedding, center_bias, context_bias,
+                                ws.i.long(), ws.j.long(), ws.g, lr)
+        glove_context_update_plain(context_embedding, ws.rows, ws.j.long(), lr)
+        return ws.loss.copy_(ws.partials.sum())
+    dev = ws.i.device
+    b = ws.i.shape[0]
+    _, d = _check_tables(node_embedding, context_embedding, center_bias, context_bias, dev)
+    _check_workspace(ws, b, d, dev, n_partials=ws.partials.shape[0])
+    if b == 0:
+        return ws.loss.zero_()
+    _build.launch("glove_node_update", "ebt_glove_node_update", dev,
+                  node_embedding.data_ptr(), context_embedding.data_ptr(),
+                  center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
+                  ws.j.data_ptr(), ws.g.data_ptr(), ws.partials.data_ptr(),
+                  ws.partials.shape[0], ws.loss.data_ptr(), b, d, float(lr))
+    _build.launch("glove_context_update", "ebt_glove_context_update", dev,
+                  context_embedding.data_ptr(), ws.rows.data_ptr(), ws.j.data_ptr(), b, d,
+                  float(lr))
+    return ws.loss
+
+
 def glove_step(
     entries: Entries, ids: torch.Tensor, node_embedding: torch.Tensor,
     context_embedding: torch.Tensor, center_bias: torch.Tensor,
@@ -308,48 +405,17 @@ def glove_step(
     the next step on the workspace, where one is given. The tables may be
     views (Walklets' slices of [P, N, D] tables) but must be contiguous.
 
-    K13b on CUDA tensors: the gradient launch, the node-side update and the
-    context-side update, counted under "glove_gradients",
-    "glove_node_update" and "glove_context_update", on `workspace` (B rows),
-    else on fresh buffers. The plain version on CPU tensors, which takes no
-    workspace."""
+    K13b on CUDA tensors: `glove_gradients`, then `glove_apply` (the
+    gradient launch, the node-side update and the context-side update,
+    counted under "glove_gradients", "glove_node_update" and
+    "glove_context_update"), on `workspace` (B rows), else on fresh
+    buffers. The plain version on CPU tensors, which takes no workspace."""
     if not _build.is_cuda(ids):
         return glove_step_plain(entries, ids, node_embedding, context_embedding,
                                 center_bias, context_bias, lr)
-    dev = ids.device
-    n, d = node_embedding.shape
-    b, e = ids.shape[0], entries.n_entries
-    for t, name, dtype in ((entries.ci, "ci", torch.int32), (entries.cj, "cj", torch.int32),
-                           (entries.f_x, "f_x", torch.float32),
-                           (entries.log_x, "log_x", torch.float32)):
-        _build.check(t, name, dtype, (e,), dev)
-    _build.check(ids, "ids", torch.int32, (b,), dev)
-    for t, name, shape in ((node_embedding, "node_embedding", (n, d)),
-                           (context_embedding, "context_embedding", (n, d)),
-                           (center_bias, "center_bias", (n,)),
-                           (context_bias, "context_bias", (n,))):
-        _build.check(t, name, torch.float32, shape, dev)
-    ws = GloVeStepWorkspace.empty(b, d, dev) if workspace is None else workspace
-    for t, name, dtype, shape in (
-            (ws.rows, "rows", torch.float32, (b, d)), (ws.i, "i", torch.int32, (b,)),
-            (ws.j, "j", torch.int32, (b,)), (ws.g, "g", torch.float32, (b,)),
-            (ws.partials, "partials", torch.float32, (-(-b // _STEP_BLOCK),)),
-            (ws.loss, "loss", torch.float32, ())):
-        _build.check(t, f"workspace.{name}", dtype, shape, dev)
-    if b == 0:
-        return ws.loss.zero_()
-    _build.launch("glove_gradients", "ebt_glove_gradients", dev,
-                  *(t.data_ptr() for t in entries), ids.data_ptr(),
-                  node_embedding.data_ptr(), context_embedding.data_ptr(),
-                  center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
-                  ws.j.data_ptr(), ws.g.data_ptr(), ws.rows.data_ptr(),
-                  ws.partials.data_ptr(), b, d, 1.0 / b)
-    _build.launch("glove_node_update", "ebt_glove_node_update", dev,
-                  node_embedding.data_ptr(), context_embedding.data_ptr(),
-                  center_bias.data_ptr(), context_bias.data_ptr(), ws.i.data_ptr(),
-                  ws.j.data_ptr(), ws.g.data_ptr(), ws.partials.data_ptr(),
-                  ws.partials.shape[0], ws.loss.data_ptr(), b, d, float(lr))
-    _build.launch("glove_context_update", "ebt_glove_context_update", dev,
-                  context_embedding.data_ptr(), ws.rows.data_ptr(), ws.j.data_ptr(), b, d,
-                  float(lr))
-    return ws.loss
+    b = ids.shape[0]
+    ws = (GloVeStepWorkspace.empty(b, node_embedding.shape[1], ids.device)
+          if workspace is None else workspace)
+    glove_gradients(entries, ids, node_embedding, context_embedding, center_bias,
+                    context_bias, ws, 1.0 / max(b, 1))
+    return glove_apply(node_embedding, context_embedding, center_bias, context_bias, ws, lr)

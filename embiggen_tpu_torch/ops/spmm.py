@@ -131,11 +131,11 @@ def csr_spmm_plain(
 
 def csr_spmm(
     k: CSRKernel, x: torch.Tensor, row_scale: Optional[torch.Tensor] = None,
-    col_scale: Optional[torch.Tensor] = None,
+    col_scale: Optional[torch.Tensor] = None, counter: str = "spmm",
 ) -> torch.Tensor:
     """[n_out, D] f32: out[r] = row_scale[r] · Σ_(r, c, w) w · col_scale[c] ·
     x[c] over the arcs of `k` (either scale may be None). Kernel K7 on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (counted under `counter`), the plain version on CPU tensors."""
     if not _build.is_cuda(x):
         return csr_spmm_plain(k, x, row_scale, col_scale)
     dev = x.device
@@ -153,7 +153,7 @@ def csr_spmm(
     # contiguous view at an odd storage offset takes the scalar kernel.
     vec4 = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     _build.launch(
-        "spmm", "ebt_csr_spmm", dev, k.row_ptr.data_ptr(), k.cols.data_ptr(),
+        counter, "ebt_csr_spmm", dev, k.row_ptr.data_ptr(), k.cols.data_ptr(),
         k.vals.data_ptr(), x.data_ptr(), _build.ptr(row_scale),
         _build.ptr(col_scale), out.data_ptr(), k.n_out, d, int(vec4),
     )

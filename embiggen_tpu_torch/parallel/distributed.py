@@ -1,12 +1,42 @@
-"""Round-robin assignment of independent holdouts to workers — counterpart
-of `embiggen_tpu/parallel/distributed.py::holdout_belongs_to_this_worker`,
-with torch.distributed's world in place of JAX's processes."""
+"""Multi-process bring-up and holdout-level parallelism — counterpart of
+`embiggen_tpu/parallel/distributed.py` (`initialize_distributed`,
+`holdout_belongs_to_this_worker`), with torch.distributed's world in place
+of JAX's processes."""
 from __future__ import annotations
 
 import os
 from typing import Optional
 
+import torch
 import torch.distributed as dist
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+) -> bool:
+    """Initialize torch.distributed's default group; a no-op when no
+    coordinator is configured. Returns True when the world has several
+    processes.
+
+    The coordinator is `coordinator_address` or EMBIGGEN_TPU_COORDINATOR (a
+    host:port, or a tcp://, file:// or env:// address); the world size and rank are
+    the arguments, else WORLD_SIZE and RANK (as torchrun sets them). The
+    backend is NCCL when CUDA is available, else gloo; under NCCL the rank
+    binds to cuda:LOCAL_RANK."""
+    address = coordinator_address or os.environ.get("EMBIGGEN_TPU_COORDINATOR")
+    if address is None:
+        return False
+    if "://" not in address:
+        address = f"tcp://{address}"
+    world = int(num_processes if num_processes is not None else os.environ.get("WORLD_SIZE", 1))
+    rank = int(process_id if process_id is not None else os.environ.get("RANK", 0))
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count())))
+    dist.init_process_group(backend, init_method=address, world_size=world, rank=rank)
+    return world > 1
 
 
 def holdout_belongs_to_this_worker(

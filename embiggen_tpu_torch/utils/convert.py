@@ -162,3 +162,57 @@ def factorization_state_from_jax(
 
     return {k: [put(a) for a in draws[k]] if isinstance(draws[k], (list, tuple))
             else put(draws[k]) for k in keys}
+
+
+def halo_partition_from_jax(part, device: Union[str, torch.device] = "cpu", shards=None):
+    """A JAX `HaloPartition` (its numpy-convertible array leaves and sizes)
+    as the port's, with the device plans of `shards` (all by default): each
+    shard's local and halo ELL blocks and overflow COO (zero-weight padding
+    dropped) become its CSR over [own rows | halo buffer], and each
+    boundary set is the send slots its reader's halo columns reach."""
+    from ..parallel.halo import HaloPartition, halo_shard
+
+    p, s, h = part.n_shards, part.shard_size, part.halo_width
+    send_idx = np.asarray(part.send_idx, np.int32)
+    absw, sqw = np.asarray(part.abs_wsum, np.float32), np.asarray(part.sq_wsum, np.float32)
+    arrays = {name: np.asarray(getattr(part, name)) for name in (
+        "ell_cols_local", "ell_vals_local", "ov_rows_local", "ov_cols_local", "ov_vals_local",
+        "ell_cols_halo", "ell_vals_halo", "ov_rows_halo", "ov_cols_halo", "ov_vals_halo")}
+
+    def coo(dev, side, offset):
+        cols, vals = arrays[f"ell_cols_{side}"][dev], arrays[f"ell_vals_{side}"][dev]
+        rows = np.repeat(np.arange(s), cols.shape[1])
+        r = np.concatenate([rows, arrays[f"ov_rows_{side}"][dev]])
+        c = np.concatenate([cols.reshape(-1), arrays[f"ov_cols_{side}"][dev]])
+        v = np.concatenate([vals.reshape(-1), arrays[f"ov_vals_{side}"][dev]])
+        keep = v != 0
+        return r[keep], c[keep] + offset, v[keep]
+
+    boundary, built = {}, {}
+    for dev in range(p):
+        halo_cols = coo(dev, "halo", 0)[1]
+        for q in range(p):
+            if q != dev:
+                slots = halo_cols[(halo_cols >= q * h) & (halo_cols < (q + 1) * h)] - q * h
+                width = int(slots.max()) + 1 if slots.size else 0
+                boundary[(q, dev)] = send_idx[q, dev, :width].astype(np.int64) + q * s
+        if shards is None or dev in shards:
+            r, c, v = (np.concatenate(a) for a in zip(coo(dev, "local", 0), coo(dev, "halo", s)))
+            built[dev] = halo_shard(r, c, v, s + p * h, send_idx[dev], absw[dev], sqw[dev],
+                                    device)
+    return HaloPartition(send_idx=send_idx, abs_wsum=absw, sq_wsum=sqw, boundary=boundary,
+                         n_shards=p, shard_size=s, halo_width=h, n_nodes=part.n_nodes,
+                         comm_rows=part.comm_rows, shards=built)
+
+
+def row_shard_from_jax(table, n_shards: int, rank: int,
+                       device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """Rank `rank`'s rows of a JAX row-sharded table (padded to a multiple
+    of `n_shards` rows; `np.asarray` of it) as a float32 tensor on
+    `device`, the layout the port's row-sharded steps hold."""
+    table = np.asarray(table, np.float32)
+    if table.shape[0] % n_shards:
+        raise ValueError(f"a row-sharded table of {table.shape[0]} rows over {n_shards} "
+                         "shards is not padded.")
+    s = table.shape[0] // n_shards
+    return torch.from_numpy(table[rank * s:(rank + 1) * s].copy()).to(device)

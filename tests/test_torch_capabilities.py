@@ -22,14 +22,6 @@ INSTANCE_METHODS = ("is_using_edge_weights", "is_using_node_types", "is_using_ed
 TASK_CLASS_METHODS = {"Node Embedding": ("requires_nodes_sorted_by_decreasing_node_degree",)}
 TASK_INSTANCE_METHODS = {"Edge Prediction": ("is_multilabel_prediction_task",)}
 ROWS = sorted((task, name) for task, models in MODELS_LIBRARY.items() for name in models)
-# The rows whose `supports_distribution` differs from the reference's on
-# purpose: the reference trains them on a mesh, the port on one device until
-# ROADMAP A13, which must make this set empty.
-SINGLE_DEVICE_UNTIL_A13 = {
-    "Node2Vec SkipGram", "Node2Vec CBOW", "DeepWalk SkipGram", "DeepWalk CBOW", "Node2Vec",
-    "Role2Vec", "Node2Vec GloVe", "DeepWalk GloVe", "Walklets SkipGram", "Walklets CBOW",
-    "Walklets GloVe",
-}
 
 
 def _reference_class(task, name):
@@ -67,17 +59,14 @@ def test_every_row_has_its_kinds_methods():
 
 @pytest.mark.parametrize("task, name", ROWS)
 def test_supports_distribution_matches_reference_but_for_a13(task, name):
-    """Equal to the reference's answer on every row that has one, except
-    the 11 walk-based rows that the port trains on one device (False where
-    the reference answers True) until ROADMAP A13."""
+    """Equal to the reference's answer on every row that has one: since
+    ROADMAP A13 no row is left out (the walk-based rows, Role2Vec and both
+    GloVe rows train on a mesh too)."""
     port = MODELS_LIBRARY[task][name]["Torch"]
     ref = _reference_class(task, name)
     if not hasattr(ref, "supports_distribution"):
         return
-    if name in SINGLE_DEVICE_UNTIL_A13:
-        assert ref.supports_distribution() and not port.supports_distribution()
-    else:
-        assert port.supports_distribution() == ref.supports_distribution()
+    assert port.supports_distribution() == ref.supports_distribution()
 
 
 class _HugeGraph:

@@ -40,7 +40,7 @@ from embiggen_tpu_torch.ops.scatter import (
     skipgram_mean_combine_plain,
 )
 from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
-from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm_plain, spmm
+from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain, spmm
 from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
 from embiggen_tpu_torch.ops.walks import (
     csr_edge_ids, csr_edge_ids_plain, ell_walks, exact_walks, first_order_walks,
@@ -1520,3 +1520,103 @@ def test_dense_factorization_rows_on_cuda_match_the_cpu(dev, name):
     else:
         tol = 5e-5
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+# ------------------------------------------------------ K17 (multi-device)
+def _halo_parts(dev):
+    """A weighted graph's partition over 4 shards on the card and on the
+    CPU, and the graph."""
+    from embiggen_tpu_torch.parallel import build_halo_partition
+
+    g = erdos_renyi(3000, 24000, seed=11, weighted=True)
+    rows, cols, vals = kernel_coo(g, "Symmetric Normalized Laplacian")
+    return (build_halo_partition(rows, cols, vals, 3000, 4, device=dev),
+            build_halo_partition(rows, cols, vals, 3000, 4), g)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
+@pytest.mark.parametrize("width", [128, 30])
+def test_halo_spmm_kernel_matches_plain(dev, combiner, width):
+    """K17a forward (one launch over the own rows and the halo buffer) and
+    backward (the transposed CSR) on every shard of 4, against the plain
+    versions, and the four shards stacked against K7 on the whole graph."""
+    from embiggen_tpu_torch.parallel.halo import halo_spmm_local, halo_spmm_local_backward
+
+    part, cpu_part, g = _halo_parts(dev)
+    s, h, p = part.shard_size, part.halo_width, part.n_shards
+    x = torch.zeros(p * s, width, device=dev)
+    x[:3000] = torch.randn(3000, width, device=dev)
+    outs = []
+    for shard in range(p):
+        halo = torch.cat([x[q * s + torch.from_numpy(part.send_idx[q, shard]).to(dev).long()]
+                          for q in range(p)])
+        x_local = x[shard * s:(shard + 1) * s]
+        before = _build.launch_counts()
+        y = halo_spmm_local(part, shard, x_local, halo, combiner)
+        g_out = torch.randn_like(y)
+        back = halo_spmm_local_backward(part, shard, g_out, combiner)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert after["halo_spmm"] == before["halo_spmm"] + 1
+        assert after["halo_spmm_backward"] == before["halo_spmm_backward"] + 1
+        cpu = halo_spmm_local(cpu_part, shard, x_local.cpu(), halo.cpu(), combiner)
+        torch.testing.assert_close(y.cpu(), cpu, rtol=1e-5, atol=1e-5)
+        cpu_back = halo_spmm_local_backward(cpu_part, shard, g_out.cpu(), combiner)
+        torch.testing.assert_close(back.cpu(), cpu_back, rtol=1e-5, atol=1e-5)
+        outs.append(y)
+    whole = csr_kernel(*kernel_coo(g, "Symmetric Normalized Laplacian"), 3000, device=dev)
+    torch.testing.assert_close(torch.cat(outs)[:3000], spmm(whole, x[:3000], combiner),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_edge_sharded_spmm_kernel_matches_plain(dev):
+    """K17b: K7's kernel on each of 4 edge shards' CSRs, counted apart,
+    against the plain version, and the partials' sum against K7 whole."""
+    from embiggen_tpu_torch.parallel import edge_shard_kernel
+
+    g = erdos_renyi(3000, 24000, seed=12)
+    rows, cols, vals = kernel_coo(g, "Symmetric Normalized Laplacian")
+    x = torch.randn(3000, 128, device=dev)
+    total = torch.zeros_like(x)
+    for shard in range(4):
+        k = edge_shard_kernel(rows, cols, vals, 3000, 4, shard, device=dev)
+        before = _build.launch_counts()["sharded_spmm"]
+        part = csr_spmm(k, x, counter="sharded_spmm")
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["sharded_spmm"] == before + 1
+        cpu_k = edge_shard_kernel(rows, cols, vals, 3000, 4, shard)
+        torch.testing.assert_close(part.cpu(), csr_spmm_plain(cpu_k, x.cpu()),
+                                   rtol=1e-5, atol=1e-5)
+        total += part
+    whole = csr_kernel(rows, cols, vals, 3000, device=dev)
+    torch.testing.assert_close(total, spmm(whole, x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("width", [128, 30, 1])
+def test_owned_gather_and_scatter_kernels_match_plain(dev, width):
+    """K17d and K17c (count, then the scatter with per-row counts, per-entry
+    counts with zeros skipped, and none) on each of 4 row shards."""
+    from embiggen_tpu_torch.ops.sharded import (
+        owned_count, owned_count_plain, owned_gather, owned_gather_plain, owned_scatter,
+        owned_scatter_plain,
+    )
+
+    n, m, p = 5001, 20000, 4
+    s = -(-n // p)
+    shape = (s,) if width == 1 else (s, width)
+    idx = torch.randint(0, n, (m,), device=dev, dtype=torch.int32)
+    grads = torch.randn((m,) + shape[1:], device=dev)
+    entry_den = torch.randint(0, 3, (m,), device=dev).float()
+    for rank in range(p):
+        lo = rank * s
+        shard = torch.randn(shape, device=dev)
+        torch.testing.assert_close(owned_gather(shard, lo, idx).cpu(),
+                                   owned_gather_plain(shard.cpu(), lo, idx.cpu()), rtol=0, atol=0)
+        counts = owned_count(torch.zeros(s, device=dev), lo, idx)
+        want_counts = owned_count_plain(torch.zeros(s), lo, idx.cpu())
+        torch.testing.assert_close(counts.cpu(), want_counts, rtol=0, atol=0)
+        for kw in (dict(row_den=counts), dict(entry_den=entry_den), {}):
+            got = owned_scatter(shard.clone(), lo, idx, grads, -0.3, **kw)
+            want = owned_scatter_plain(shard.cpu(), lo, idx.cpu(), grads.cpu(), -0.3,
+                                       **{k: v.cpu() for k, v in kw.items()})
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

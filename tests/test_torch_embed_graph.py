@@ -173,7 +173,6 @@ def test_typed_walk_options_reach_the_model(kwargs):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=4), "A13"),
     (dict(checkpoint_dir="ckpt"), "A12"),
     (dict(enable_cache=True), "A12"),
 ])

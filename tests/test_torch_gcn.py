@@ -223,7 +223,6 @@ def test_parameters_match_reference():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=2), "A13"),
     (dict(checkpoint_dir="ckpt"), "A12"),
 ])
 def test_unported_options_raise(kwargs, item):

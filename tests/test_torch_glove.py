@@ -279,10 +279,10 @@ def test_registry_and_parameters(name):
     assert port.parameters() == ref_cls(**kw).parameters()
     assert port.clone().parameters() == port.parameters()
     assert cls.smoke_test_parameters() == ref_cls.smoke_test_parameters()
-    # The port applies the step in place and returns no Update, so it stays
-    # on one device until multi-device training is ported; the reference's
-    # GloVe steps through the Update protocol and is distributable.
-    assert ref_cls.supports_distribution() and not cls.supports_distribution()
+    # The port applies the step in place and returns no Update; its own
+    # data-parallel and row-sharded steps make it distributable, as the
+    # reference's is.
+    assert ref_cls.supports_distribution() and cls.supports_distribution()
 
 
 @pytest.mark.parametrize("kwargs", [dict(change_node_type_weight=2.0),
@@ -301,7 +301,8 @@ def test_typed_options_reach_the_walks(kwargs):
 
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(mesh=4), NotImplementedError, "A13"),
+    (dict(checkpoint_dir="ckpt"), NotImplementedError, "A12"),
+    (dict(distribution="everywhere"), ValueError, "distribution"),
 ])
 def test_unported_options_raise(kwargs, error, match):
     with pytest.raises(error, match=match):

@@ -276,7 +276,7 @@ def test_typed_models_require_edge_types(graphs, name):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=4), "A13"), (dict(checkpoint_dir="ckpt"), "A12"),
+    (dict(checkpoint_dir="ckpt"), "A12"),
     (dict(enable_cache=True), "A12"),
 ])
 @pytest.mark.parametrize("cls", [SecondOrderLINE, TransE])
