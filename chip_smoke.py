@@ -272,7 +272,27 @@ the exit code is not 0:
      one-rank mesh against `_step`, the `_make_dp_step` and
      `_make_row_sharded_step` of Node2Vec SkipGram and CBOW, LINE, TransE
      and GloVe, and the `_make_dp_step` of Walklets SkipGram and Role2Vec,
-     and Walklets GloVe's `glove_dp_step` against its `_glove_step`.
+     and Walklets GloVe's `glove_dp_step` against its `_glove_step`;
+ 33. K20 against its plain versions: `sddmm` (K20a) over the slice graph's
+     20M arcs on [1M, 128] tables (rtol / atol 1e-5: sums over D in another
+     order), also at an odd storage offset, at D 127 (the scalar route),
+     with int64 ids, and its backward (two index_add_ passes) on 2^20 arcs
+     against autograd of the plain gathers; `edge_chunk` and `chunk_mask`
+     (K20b) exactly at 2^15 and 2^20 slots (chunk 0, a middle one, the last,
+     clamped, and one past the end), with the exported sources and with the
+     row_ptr search; each timed with its bound, sddmm beside
+     `torch.sparse.sampled_addmm`; then every arc scored in chunks of 2^20
+     through the three entry points, each launched, the scores equal to the
+     whole sddmm's;
+ 34. S12: the 21 KGE rows through `embed_graph` on the typed slice graph at
+     D 128, batch 65536, one epoch (305 steps; the rows in S12_STEPS cut),
+     NodePiece at 256 anchors and 8 tokens (K15a), ConvE at 8 filters, each
+     launching K14 once a step and no walk or K4 kernel: seconds, peak
+     memory (the fit's own, and the total), and 5 steady steps' ms on CUDA
+     events and busy share; NodePiece's K15a distances at its 256 columns
+     and its tokens against the plain ones, exactly; one
+     injected step of each at D 128 card against CPU (rtol 1e-4 / atol
+     1e-5); tests/test_kge.py's ranking check on the card for every row.
 Then a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
@@ -758,7 +778,8 @@ KERNEL_NAMES = {
     "glove_context_update": "glove_context_update_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
     "edge_sketch_features": "edge_features_", "sketch_candidates": "sketch_candidates_kernel",
-    "sketch_race_step": "sketch_race_kernel",
+    "sketch_race_step": "sketch_race_kernel", "sddmm": "sddmm_kernel",
+    "edge_chunk": "edge_chunk_kernel",
 }
 
 
@@ -4565,6 +4586,304 @@ def s11_runs(graph, tg, dev, backend="nccl"):
     return ms, errs, launches
 
 
+# ------------------------------------------------------------ K20 and S12
+K20_TOL = dict(rtol=1e-5, atol=1e-5)   # K20a: sums over D in another order
+K20_SLOTS = (1 << 15, 1 << 20)
+K20_KERNELS = ("sddmm", "edge_chunk", "chunk_mask")
+# S12: the 21 KGE rows on the typed slice graph (types arange(E) % 8, as
+# bench.py types them) at D 128 and batch 65536, one epoch (305 steps) but
+# for the rows cut to S12_STEPS steps (the three slowest, 44-66 ms a step
+# in a development run, to keep phase 34 near 100 s); NodePiece at its defaults (256
+# anchors, 8 tokens), ConvE at its 8 filters. The injected steps run at D
+# 128 on a small typed graph; the ranking check is tests/test_kge.py's at
+# its own smoke sizes and step sizes.
+S12_STEPS = {"TransR": 150, "TuckER": 100, "ConvE": 100}
+S12_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+S12_PROFILE_STEPS = 5
+S12_RANK_STEPS = 300
+S12_RANK_LR = {"ERMLP": 0.3, "ERMLPE": 0.2, "ConvE": 0.2}
+S12_KERNELS = ("siamese_mini_batch",)
+S12_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update",
+              "mean_scatter", "line_mini_batch", "walklets_update")
+
+
+def k20_checks(graph, tg, dev):
+    """Phase 33: K20a (`sddmm`) against its plain version over the slice
+    graph's 20M arcs on S1-shaped tables [1M, 128] (rtol / atol 1e-5), also
+    at an odd storage offset, at D 127, with int64 ids, and its backward on
+    the first 2^20 arcs against autograd of the plain gathers; K20b
+    (`edge_chunk`, `chunk_mask`) exactly at 2^15 and 2^20 slots, chunk 0, a
+    middle chunk, the last (clamped) and one past the end, with the exported
+    sources and with the row_ptr search. Then the path K20 serves, scoring
+    every arc in chunks of 2^20 (`edge_chunk`, `chunk_mask`, `sddmm`), with
+    the counts set to 0 before and read after, its scores equal to the
+    whole sddmm's. Returns ({kernel: entry}, {check: error}, launches)."""
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.negatives import (
+        chunk_mask, chunk_mask_plain, edge_chunk, edge_chunk_plain,
+    )
+    from embiggen_tpu_torch.ops.spmm import sddmm, sddmm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    n, e = tg.n_nodes, tg.n_arcs
+    a = torch.randn(n, DIM, generator=gen, device=dev).mul_(DIM ** -0.5)
+    b = torch.randn(n, DIM, generator=gen, device=dev).mul_(DIM ** -0.5)
+    rows, cols = tg.sources, tg.col_idx
+    errs = {}
+    got = sddmm(rows, cols, a, b)
+    want = sddmm_plain(rows, cols, a, b)
+    errs["sddmm D 128"] = check_close("K20a at D 128", got, want, **K20_TOL)
+    odd = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+    assert odd.data_ptr() % 16
+    errs["sddmm odd offset"] = check_close("K20a at an odd offset", sddmm(rows, cols, odd, b),
+                                           want, **K20_TOL)
+    del odd
+    a127, b127 = a[:, :127].contiguous(), b[:, :127].contiguous()
+    errs["sddmm D 127"] = check_close("K20a at D 127", sddmm(rows, cols, a127, b127),
+                                      sddmm_plain(rows, cols, a127, b127), **K20_TOL)
+    del a127, b127
+    errs["sddmm int64 ids"] = check_close("K20a with int64 ids",
+                                          sddmm(rows.long(), cols.long(), a, b), want, **K20_TOL)
+    sub = slice(0, min(1 << 20, e))
+    w = torch.randn(sub.stop, generator=gen, device=dev)
+    grads = {}
+    for route in ("kernel", "plain"):
+        xa, xb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        with torch.enable_grad():
+            s = (sddmm(rows[sub], cols[sub], xa, xb) if route == "kernel"
+                 else (xa[rows[sub].long()] * xb[cols[sub].long()]).sum(-1))
+            grads[route] = torch.autograd.grad((s * w).sum(), (xa, xb))
+    for side, g, gw in zip("ab", grads["kernel"], grads["plain"]):
+        errs[f"sddmm backward d{side}"] = check_close(f"K20a's backward d{side}", g, gw,
+                                                      **K20_TOL)
+    del grads, xa, xb, s
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: sddmm(rows, cols, a, b), 20)
+    plain_ms = time_ms(lambda: sddmm_plain(rows, cols, a, b), 3)
+    distinct = [int((torch.bincount(x, minlength=n) > 0).sum()) for x in (rows, cols)]
+    library, library_ms = "torch.sparse.sampled_addmm (cuSPARSE SDDMM)", None
+    csr = torch.sparse_csr_tensor(tg.row_ptr, cols, torch.zeros(e, device=dev), size=(n, n))
+    try:
+        lib = torch.sparse.sampled_addmm(csr, a, b.t(), beta=0.0).values()
+    except RuntimeError as err:  # the yardstick only; the port never calls it
+        library = f"torch.sparse.sampled_addmm refused: {str(err)[:120]}"
+    else:
+        errs["sampled_addmm"] = check_close("sampled_addmm against K20a", lib, got, **K20_TOL)
+        del lib
+        library_ms = time_ms(lambda: torch.sparse.sampled_addmm(csr, a, b.t(), beta=0.0), 5)
+    entries = {"sddmm": dict(
+        source="embiggen_tpu_torch/csrc/sddmm.cu",
+        replaces="embiggen_tpu/ops/spmm.py:108 (sddmm)",
+        max_abs_err=max(v for k, v in errs.items() if k.startswith("sddmm")), ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms, library=library,
+        distinct_rows=distinct,
+        **bound(4 * 3 * e + 4 * DIM * sum(distinct), 2 * DIM * e))}
+    del csr
+    # K20b exactly, with and without the exported sources.
+    routes = {"sources": tg, "search": graph.device(dev)}
+    for route, g in routes.items():
+        for size in K20_SLOTS:
+            last = (e - 1) // size
+            for i in (0, last // 2, last, last + 1):
+                src, dst = edge_chunk(g, i, size)
+                ws, wd = edge_chunk_plain(g, i, size)
+                if not (torch.equal(src, ws) and torch.equal(dst, wd)
+                        and torch.equal(chunk_mask(g, i, size), chunk_mask_plain(g, i, size))):
+                    raise AssertionError(f"K20b differs from its plain version ({route}, "
+                                         f"{size} slots, chunk {i})")
+    errs["edge_chunk, chunk_mask"] = 0.0
+    size, mid = K20_SLOTS[-1], (e // K20_SLOTS[-1]) // 2
+    for name, fn, plain, nbytes in (
+            ("edge_chunk", edge_chunk, edge_chunk_plain, 16 * size),
+            ("chunk_mask", chunk_mask, chunk_mask_plain, size)):
+        entries[name] = dict(
+            source="embiggen_tpu_torch/csrc/edges.cu",
+            replaces=("embiggen_tpu/ops/negatives.py:198 (edge_chunk)" if name == "edge_chunk"
+                      else "embiggen_tpu/ops/negatives.py:210 (chunk_mask)"),
+            max_abs_err=0.0, ms=time_ms(lambda: fn(tg, mid, size), 50),
+            plain_ms=time_ms(lambda: plain(tg, mid, size), 20),
+            search_ms=time_ms(lambda: fn(routes["search"], mid, size), 50),
+            library_ms=None, library=None, slots=size, **bound(nbytes, 0))
+    del routes
+    # The path: every arc scored in chunks.
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    scores = []
+    for i in range(-(-e // size)):
+        src, dst = edge_chunk(tg, i, size)
+        scores.append(sddmm(src, dst, a, b)[chunk_mask(tg, i, size)])
+    torch.cuda.synchronize()
+    launches = check_launches("K20", _build.launch_counts(), K20_KERNELS)
+    if not torch.equal(torch.cat(scores), got):
+        raise AssertionError("the chunked scores differ from the whole sddmm's")
+    del a, b, got, want, scores
+    torch.cuda.empty_cache()
+    return entries, errs, launches
+
+
+def s12_injected_steps(dev):
+    """One injected step of every KGE row at D 128 (NodePiece with its
+    K15a tokens from its default 256 anchors) on the card and on the CPU
+    from the same tables, on a small typed graph with batch 256. Returns
+    {row: largest difference}."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models.embedders import KGE_MODELS
+
+    small = minibatch_graph(erdos_renyi(2000, 10_000, seed=5), 3)
+    rng = np.random.default_rng(12)
+    block = np.stack([rng.integers(0, small.number_of_nodes, 256) for _ in range(4)]
+                     + [rng.integers(0, 3, 256)]).astype(np.int32)
+    errs = {}
+    for cls in KGE_MODELS:
+        name = cls.model_name()
+        models = {d: cls(device=d, embedding_size=DIM, random_state=0) for d in (dev, "cpu")}
+        init = models["cpu"]._init_params(small, torch.Generator().manual_seed(0))
+        params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+        ctx = {d: m._prepare_data(small) for d, m in models.items()}
+        if name == "NodePiece" and not torch.equal(ctx[dev]["tokens"].cpu(),
+                                                   ctx["cpu"]["tokens"]):
+            raise AssertionError("NodePiece's tokens from K15a differ from the CPU's")
+        with torch.no_grad():
+            for d, m in models.items():
+                m._run_batch_size = 256
+                shared = (ctx[d]["tokens"],) if name == "NodePiece" else ()
+                m._step(ctx[d], params[d], torch.Generator(), 0.05,
+                        batch=(torch.from_numpy(block).to(d), shared))
+        errs[name] = max(check_close(f"an injected {name} step, {k}", params[dev][k].cpu(),
+                                     params["cpu"][k], **S12_STEP_TOL) for k in init)
+    return errs
+
+
+def s12_ranking_on_card(dev):
+    """tests/test_kge.py's `test_kge_ranks_positive_triples` on the card
+    for every row: smoke sizes on typed karate, 300 steps at its step
+    sizes, the mean distance of the graph's triples below that of the same
+    heads with random tails. Returns {row: (positive, corrupted)}."""
+    from embiggen_tpu_torch.graph import karate_club
+    from embiggen_tpu_torch.models.embedders import KGE_MODELS
+
+    g = karate_club()
+    labels = g.get_single_label_node_type_ids()
+    g = dataclasses.replace(g, edge_types=(labels[g.sources] != labels[g.col_idx]).astype(
+        np.int32))
+    src = torch.from_numpy(g.sources.astype(np.int32)).to(dev)
+    dst = torch.from_numpy(g.col_idx.astype(np.int32)).to(dev)
+    et = torch.from_numpy(g.edge_types.astype(np.int64)).to(dev)
+    cdst = torch.from_numpy(np.random.default_rng(3).integers(
+        0, g.number_of_nodes, len(src), dtype=np.int32)).to(dev)
+    out = {}
+    for cls in KGE_MODELS:
+        model = cls(device=dev, random_state=7, **cls.smoke_test_parameters())
+        emb = model.fit_transform(g).node_embeddings[0]
+        if not np.isfinite(emb).all():
+            raise AssertionError(f"{cls.model_name()}'s embedding is not finite")
+        ctx = model._prepare_data(g)
+        gen = torch.Generator().manual_seed(7)
+        params = model._init_params(g, gen)
+        with torch.no_grad():
+            for _ in range(S12_RANK_STEPS):
+                model._step(ctx, params, gen, S12_RANK_LR.get(cls.model_name(), 0.1))
+            pos = model._triple_scores(params, src, dst, et)
+            neg = model._triple_scores(params, src, cdst, et)
+        pos, neg = float(pos.mean()), float(neg.mean())
+        if not (np.isfinite(pos) and np.isfinite(neg) and pos < neg):
+            raise AssertionError(f"{cls.model_name()} does not rank positive triples on the "
+                                 f"card: {pos} against {neg}")
+        out[cls.model_name()] = (round(pos, 4), round(neg, 4))
+    return out
+
+
+def s12_nodepiece_distances(model, typed):
+    """K15a at NodePiece's width on the slice graph, after its fit: the
+    early-stopped distances from the fit's 256 anchors (two column passes
+    of the kernel's float4 route) against plain relaxations until one
+    moves nothing, exactly, and the fit's tokens against those of the
+    plain distances. Returns the relaxations that moved a distance."""
+    from embiggen_tpu_torch.ops.bfs import min_plus_step_plain, multi_source_distances
+
+    tg, want = model._anchor_problem(typed)
+    if want.shape[1] != 256:
+        raise AssertionError(f"NodePiece has {want.shape[1]} anchors, not 256")
+    got = multi_source_distances(tg, want, max_depth=typed.number_of_nodes - 1)
+    changed = torch.zeros(1, dtype=torch.int32, device=want.device)
+    moved = 0
+    while True:
+        changed.zero_()
+        want = min_plus_step_plain(tg, want, False, changed)
+        if not int(changed):
+            break
+        moved += 1
+    exact_err("K15a at NodePiece's 256 anchors", got, want)
+    del got
+    exact_err("NodePiece's tokens from K15a", model._tokens, model._nearest_anchors(want))
+    return {"k15a_256_relaxations_moved": moved}
+
+
+def s12_runs(graph, dev):
+    """Phase 34: every KGE row through `embed_graph` on the typed slice
+    graph at D 128 and batch 65536, one epoch (S12_STEPS cuts), with the
+    counts set to 0 just before and read just after: K14 once a step,
+    NodePiece's K15a, no walk or K4 kernel; NodePiece's K15a distances
+    and tokens against the plain ones; then S12_PROFILE_STEPS steady
+    steps of the row on CUDA events and under the profiler (busy share:
+    the kernels' device time over the step's). Peak memory is the fit's
+    own, above what was allocated before it (the total beside it).
+    Returns {row: dict}."""
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.embedders import KGE_MODELS
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    typed = minibatch_graph(graph, S6_TYPES)
+    out = {}
+    for cls in KGE_MODELS:
+        name = cls.model_name()
+        model = get_model_from_library(name)(
+            device=dev, embedding_size=DIM, epochs=1, batch_size=S6_BATCH, random_state=0,
+            early_stopping_patience=10**6)
+        steps = model._steps_per_epoch(typed, None, S6_BATCH)
+        if name in S12_STEPS:
+            steps = S12_STEPS[name]
+            model._steps_per_epoch = lambda graph, ctx, batch, steps=steps: steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = embed_graph(typed, model)
+        seconds = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        got = check_launches(name, counts, S12_KERNELS + (
+            ("min_plus_step",) if name == "NodePiece" else ()), S12_UNUSED)
+        if got["siamese_mini_batch"] != steps:
+            raise AssertionError(f"{name}: K14 launched {got['siamese_mini_batch']} times in "
+                                 f"{steps} steps")
+        for i, emb in enumerate(result.node_embeddings):
+            if emb.shape != (N_NODES, DIM) or not np.isfinite(emb).all():
+                raise AssertionError(f"{name} embedding {i}: shape {emb.shape} or not finite")
+        if not np.isfinite(model._epoch_losses).all():
+            raise AssertionError(f"{name} epoch losses {model._epoch_losses}")
+        extra = {}
+        if name == "NodePiece":
+            extra = s12_nodepiece_distances(model, typed)
+            if got["min_plus_step"] != extra["k15a_256_relaxations_moved"] + 1:
+                raise AssertionError(f"NodePiece: {got['min_plus_step']} K15a launches for "
+                                     f"distances that settle after {extra}")
+        rows, step_ms, _ = profile(minibatch_step(model, typed), S12_PROFILE_STEPS)
+        busy = sum(ms for ms, _, _ in rows.values()) / step_ms
+        top = max(rows, key=lambda k: rows[k][0])
+        out[name] = dict(seconds=round(seconds, 3), steps=steps,
+                         epoch_s=round(model._epoch_seconds[0], 3), step_ms=round(step_ms, 4),
+                         busy=round(busy, 3), peak_gb=round((peak - base) / 1e9, 3),
+                         peak_total_gb=round(peak / 1e9, 3),
+                         loss=round(model._epoch_losses[0], 5), launches=got,
+                         top_kernel=(top[:60], round(rows[top][0], 4)), **extra)
+        del model, result
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_launches(path, counts, names, unused=()):
     """The counts of `names` after a path's run; raises if one is 0, or if
     one of `unused` launched."""
@@ -5364,6 +5683,36 @@ def main() -> None:
           f"by path (held and timed steps): {s11_paths} | K17 launches summed {s11_launches}",
           flush=True)
 
+    # ----------------------------------------- 33. K20 (sddmm, arc chunks)
+    t_phase = time.perf_counter()
+    new, k20_errs, k20_launches = k20_checks(graph, tg, dev)
+    kernels.update(new)
+    print(f"phase 33 K20 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; sddmm over "
+          f"the slice graph's {tg.n_arcs} arcs on [{N_NODES}, {DIM}] tables, the chunks at "
+          f"{K20_SLOTS[-1]} slots): " + "; ".join(
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
+              f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
+              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None
+                 else f" library {v['library']}")
+              + (f" row_ptr search {v['search_ms']:.4f}" if "search_ms" in v else "")
+              for k, v in new.items())
+          + f" | errors by check: {k20_errs} | every arc scored in chunks, launches "
+          f"{k20_launches}", flush=True)
+
+    # ------------------------------------------------------------ 34. S12
+    t_phase = time.perf_counter()
+    s12 = s12_runs(graph, dev)
+    s12_errs = s12_injected_steps(dev)
+    s12_ranks = s12_ranking_on_card(dev)
+    print(f"phase 34 S12 on {card} ({time.perf_counter() - t_phase:.1f} s; the 21 KGE rows "
+          f"through embed_graph on the typed slice graph at D {DIM}, batch {S6_BATCH}, one "
+          f"epoch but the cuts {S12_STEPS}; step ms on CUDA events over "
+          f"{S12_PROFILE_STEPS} steady steps, busy share from their kernels' device time): "
+          + " | ".join(f"{name}: {json.dumps(v)}" for name, v in s12.items())
+          + f" | one injected step at D {DIM}, card against CPU, largest difference: "
+          f"{s12_errs} | tests/test_kge.py's ranking on the card (positive, corrupted mean "
+          f"distance): {s12_ranks}", flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -5381,7 +5730,7 @@ def main() -> None:
                 **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS},
                 "ell_walks_typed": s10["typed SkipGram"][0]["ell_walks_typed"],
                 "exact_walks": s10["random_walks typed"][0]["exact_walks"],
-                **s11_launches}
+                **s11_launches, **k20_launches}
     randne_hop["launches"] = s9["RandNE"][0]["spmm"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [

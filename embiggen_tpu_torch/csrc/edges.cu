@@ -1,5 +1,6 @@
 // K5 `csr_edge_ids` and K6 `edge_prediction_mini_batch`: arc membership
-// and the GCN's edge minibatch.
+// and the GCN's edge minibatch; K20b `edge_chunk` / `chunk_mask`: the arcs
+// of one chunk in CSR order.
 //
 // K5 replaces embiggen_tpu/ops/walks.py::csr_has_edges / csr_edge_ids: for
 // each (src, dst) query, a lower-bound binary search in src's sorted CSR
@@ -23,6 +24,15 @@
 // the card's 132 SMs many times over). K6 runs K5's search as a device
 // function, so a slot's redraws cost no extra launch. Philox counters are
 // (slot, attempt), so the draws do not depend on the launch order.
+//
+// K20b replaces embiggen_tpu/ops/negatives.py::edge_chunk and chunk_mask:
+// slot t of chunk i is arc idx = clamp(i * size + t, 0, max(n_arcs - 1, 0)),
+// its source (a gather from `sources`, else K6's search over row_ptr), its
+// destination col_idx[idx], and the mask i * size + t < n_arcs. It is
+// bound by bytes: each slot reads two ints and writes two ints and a byte,
+// in order, so a thread a slot streams them; the search, where there is no
+// `sources`, adds log2(N) dependent reads of a row_ptr that stays in L2.
+// chunk_mask launches it without the id outputs.
 
 #include <cuda_runtime.h>
 
@@ -91,6 +101,22 @@ __global__ void edge_minibatch_kernel(
   labels[i] = 0.0f;
 }
 
+__global__ void edge_chunk_kernel(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ col_idx,
+    const int32_t* __restrict__ sources, int32_t n_nodes, int64_t n_arcs,
+    int64_t start, int64_t n, int32_t* __restrict__ out_src,
+    int32_t* __restrict__ out_dst, uint8_t* __restrict__ mask) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (t >= n) return;
+  const int64_t pos = start + t;
+  if (mask != nullptr) mask[t] = pos < n_arcs ? 1 : 0;
+  if (out_dst == nullptr) return;
+  const int64_t last = n_arcs > 0 ? n_arcs - 1 : 0;
+  const int32_t idx = static_cast<int32_t>(pos < 0 ? 0 : (pos > last ? last : pos));
+  out_src[t] = sources != nullptr ? sources[idx] : arc_source(row_ptr, n_nodes, idx);
+  out_dst[t] = col_idx[idx];
+}
+
 unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -129,6 +155,21 @@ int ebt_edge_minibatch(const void* row_ptr, const void* col_idx,
       static_cast<int32_t*>(out_src), static_cast<int32_t*>(out_dst),
       static_cast<float*>(labels), static_cast<uint32_t>(seed),
       static_cast<uint32_t>(seed >> 32), offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Slots [start, start + n) of the arcs in CSR order. out_src and out_dst
+// are both NULL (the mask alone, which is then not NULL) or both set, and
+// then n_arcs > 0; sources may be NULL (a search over row_ptr).
+int ebt_edge_chunk(const void* row_ptr, const void* col_idx, const void* sources,
+                   int n_nodes, long long n_arcs, long long start, long long n,
+                   void* out_src, void* out_dst, void* mask, void* stream) {
+  if (n == 0) return 0;
+  edge_chunk_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(col_idx),
+      static_cast<const int32_t*>(sources), n_nodes, n_arcs, start, n,
+      static_cast<int32_t*>(out_src), static_cast<int32_t*>(out_dst),
+      static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 

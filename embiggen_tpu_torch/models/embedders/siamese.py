@@ -10,7 +10,9 @@ rows, and scatter-adds the gradients (autograd, as the JAX version takes
 them) into the tables. Models declare their tables in three groups, as the
 JAX package's do: ENTITY_KEYS (per node, gathered at the four batch index
 sets), REL_KEYS (per edge type, gathered at the batch's types) and
-GLOBAL_KEYS (dense), plus a `_distance` hook.
+GLOBAL_KEYS (dense), plus a `_distance` hook (or `_triple_distance`
+where a side has more than one table) — the scheme the KGE family
+(`kge.py`) extends, with the reference's three init hooks.
 """
 from __future__ import annotations
 
@@ -25,6 +27,18 @@ from ...ops.negatives import BatchDraws, siamese_mini_batch
 from ..embedding_result import EmbeddingResult
 from ..registry import register_model
 from .minibatch import MinibatchEmbedder, Update, value_and_grad
+from .walk_based import _device_generator
+
+
+def _normal(g: torch.Generator, shape, scale: float, device) -> torch.Tensor:
+    """Normal entries of standard deviation `scale`."""
+    return torch.randn(shape, generator=g, device=device).mul_(scale)
+
+
+def _near_identity(g: torch.Generator, shape, device) -> torch.Tensor:
+    """[..., D, D] identities plus normal noise of scale 0.1 / sqrt(D)."""
+    d = shape[-1]
+    return _normal(g, shape, 0.1 / np.sqrt(d), device).add_(torch.eye(d, device=device))
 
 
 class SiameseEmbedder(MinibatchEmbedder):
@@ -88,18 +102,62 @@ class SiameseEmbedder(MinibatchEmbedder):
         return self._distance(
             h_dict["node_embedding"], t_dict["node_embedding"], rel, glob)
 
+    def _triple_scores(self, params, src, dst, etypes=None):
+        """[B] distances of the triples (src[i], etypes[i], dst[i]) under
+        `params` (node ids int32 or int64; `etypes` only for typed rows)."""
+        def side(ids):
+            return {n: params[n].index_select(0, ids) for n in self.ENTITY_KEYS}
+        rel = {n: params[n].index_select(0, etypes) for n in self.REL_KEYS}
+        glob = {n: params[n] for n in self.GLOBAL_KEYS}
+        return self._triple_distance(side(src), side(dst), rel, glob)
+
     # --- tables -------------------------------------------------------------
+    # Each group declares its shapes; the three init hooks (the reference's
+    # `_init_entity_tables`, `_init_relation_tables`, `_init_global_tables`)
+    # draw a group's tables, by default `_init_table`'s normal entries.
+    def _entity_shapes(self, n: int) -> Dict[str, tuple]:
+        return {name: (n, self.embedding_size) for name in self.ENTITY_KEYS}
+
     def _relation_shapes(self, r: int) -> Dict[str, tuple]:
         if not self.REL_KEYS:
             return {}
         return {"edge_type_embedding": (r, self.embedding_size)}
 
+    def _global_shapes(self, n_nodes: int) -> Dict[str, tuple]:
+        return {}
+
     def _param_shapes(self, n_nodes, n_edge_types):
-        shapes = {name: (n_nodes, self.embedding_size) for name in self.ENTITY_KEYS}
-        shapes.update(self._relation_shapes(max(n_edge_types, 1)))
+        shapes = {**self._entity_shapes(n_nodes),
+                  **self._relation_shapes(max(n_edge_types, 1)),
+                  **self._global_shapes(n_nodes)}
         expected = set(self.ENTITY_KEYS) | set(self.REL_KEYS) | set(self.GLOBAL_KEYS)
         assert set(shapes) == expected, (set(shapes), expected)
         return shapes
+
+    @staticmethod
+    def _relations(graph: Graph) -> int:
+        """Rows of the relation tables: one an edge type, at least one."""
+        return max(graph.number_of_edge_types, 1)
+
+    def _draw(self, shapes: Dict[str, tuple], g: torch.Generator) -> Dict[str, torch.Tensor]:
+        return {name: self._init_table(name, shape, g) for name, shape in shapes.items()}
+
+    def _init_entity_tables(self, graph: Graph, g: torch.Generator) -> Dict[str, torch.Tensor]:
+        return self._draw(self._entity_shapes(graph.number_of_nodes), g)
+
+    def _init_relation_tables(self, graph: Graph, g: torch.Generator) -> Dict[str, torch.Tensor]:
+        return self._draw(self._relation_shapes(self._relations(graph)), g)
+
+    def _init_global_tables(self, graph: Graph, g: torch.Generator) -> Dict[str, torch.Tensor]:
+        return self._draw(self._global_shapes(graph.number_of_nodes), g)
+
+    def _init_params(self, graph: Graph, generator: torch.Generator):
+        g = _device_generator(generator, self.device)
+        params = {**self._init_entity_tables(graph, g), **self._init_relation_tables(graph, g),
+                  **self._init_global_tables(graph, g)}
+        shapes = self._param_shapes(graph.number_of_nodes, graph.number_of_edge_types)
+        assert {n: tuple(t.shape) for n, t in params.items()} == shapes, shapes
+        return params
 
     # --- training hooks -----------------------------------------------------
     def _pre_fit_check(self, graph: Graph) -> None:
@@ -227,14 +285,11 @@ class StructuredEmbedding(SiameseEmbedder):
         d = self.embedding_size
         return {name: (r, d, d) for name in self.REL_KEYS}
 
-    def _init_table(self, name, shape, g):
+    def _init_relation_tables(self, graph, g):
         """Projections: the identity plus normal noise of scale
         0.1 / sqrt(D)."""
-        if name not in self.REL_KEYS:
-            return super()._init_table(name, shape, g)
-        d = self.embedding_size
-        noise = torch.randn(shape, generator=g, device=self.device).mul_(0.1 / np.sqrt(d))
-        return noise.add_(torch.eye(d, device=self.device))
+        r, d = self._relations(graph), self.embedding_size
+        return {name: _near_identity(g, (r, d, d), self.device) for name in self.REL_KEYS}
 
     def _distance(self, h, t, rel, glob):
         a = torch.einsum("bij,bj->bi", rel["source_projection"], h)

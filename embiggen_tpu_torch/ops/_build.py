@@ -93,6 +93,8 @@ _SIGNATURES = {
     "ebt_owned_gather": ((_P, _I64, _I64, _P, _I64, _I32, _P, _P), _I32),
     "ebt_owned_count": ((_P, _I64, _I64, _P, _I64, _P), _I32),
     "ebt_owned_scatter": ((_P, _I64, _I64, _P, _P, _I64, _I32, _P, _P, _F32, _P), _I32),
+    "ebt_sddmm": ((_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P), _I32),
+    "ebt_edge_chunk": ((_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _P, _P), _I32),
     "ebt_error_string": ((_I32,), ctypes.c_char_p),
 }
 
@@ -110,7 +112,7 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "min_plus_step", "hll_registers",
      "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step",
      "halo_spmm", "halo_spmm_backward", "sharded_spmm", "owned_gather", "owned_count",
-     "owned_scatter"), 0,
+     "owned_scatter", "sddmm", "edge_chunk", "chunk_mask"), 0,
 )
 
 # While a `timed_launches()` block runs: a CUDA event pair recorded on the

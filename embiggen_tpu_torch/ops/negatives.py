@@ -2,14 +2,16 @@
 triple batches of the minibatch embedders — counterpart of
 `embiggen_tpu/ops/negatives.py` (`sample_nodes_scale_free`,
 `sample_nodes_uniform`, `negative_nodes_for_nce`; `arc_sources`,
-`edge_prediction_mini_batch`, `siamese_mini_batch`) and of LINE's sampler
+`edge_prediction_mini_batch`, `siamese_mini_batch`, `edge_chunk`,
+`chunk_mask`) and of LINE's sampler
 `embiggen_tpu/models/embedders/line.py::_LINEBase._sample_batch`.
 
 The head of a uniformly random arc is exactly degree-distributed, so a
 scale-free draw is one uniform arc id and one gather. On a CUDA graph the
 node draws are kernel K2 (`csrc/sampling.cu`), the edge minibatch kernel K6
-(`csrc/edges.cu`) and the siamese and LINE batches kernel K14
-(`csrc/batches.cu`); on a CPU graph the plain versions below.
+(`csrc/edges.cu`), the siamese and LINE batches kernel K14
+(`csrc/batches.cu`) and the arcs of a chunk kernel K20b (`csrc/edges.cu`);
+on a CPU graph the plain versions below.
 
 K14 writes each batch into one int32 block, in the layout the steps take.
 A fit passes a `BatchDraws` workspace: the block allocated once, and one
@@ -98,6 +100,62 @@ def arc_sources(tg: TorchGraph, arc: torch.Tensor) -> torch.Tensor:
         return tg.sources[arc.long()]
     return (torch.searchsorted(tg.row_ptr, arc.to(tg.row_ptr.dtype), right=True)
             - 1).to(torch.int32)
+
+
+def _chunk_positions(tg: TorchGraph, chunk_index: int, chunk_size: int) -> torch.Tensor:
+    return chunk_index * chunk_size + torch.arange(chunk_size, device=tg.device)
+
+
+def edge_chunk_plain(tg: TorchGraph, chunk_index: int,
+                     chunk_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K20b's ids."""
+    idx = _chunk_positions(tg, chunk_index, chunk_size).clamp_(0, max(tg.n_arcs - 1, 0))
+    return arc_sources(tg, idx), tg.col_idx[idx]
+
+
+def chunk_mask_plain(tg: TorchGraph, chunk_index: int, chunk_size: int) -> torch.Tensor:
+    """Plain PyTorch version of K20b's mask."""
+    return _chunk_positions(tg, chunk_index, chunk_size) < tg.n_arcs
+
+
+def _edge_chunk_launch(counter: str, tg: TorchGraph, chunk_index: int, chunk_size: int,
+                       with_ids: bool):
+    dev = tg.device
+    n = int(chunk_size)
+    src = dst = mask = None
+    if with_ids:
+        src, dst = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2))
+    else:
+        mask = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _build.launch(counter, "ebt_edge_chunk", dev, tg.row_ptr.data_ptr(),
+                      tg.col_idx.data_ptr(), _build.ptr(tg.sources), tg.n_nodes, tg.n_arcs,
+                      int(chunk_index) * n, n, _build.ptr(src), _build.ptr(dst),
+                      _build.ptr(mask))
+    return (src, dst) if with_ids else mask
+
+
+def edge_chunk(tg: TorchGraph, chunk_index: int,
+               chunk_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sources, destinations) [chunk_size] int32 of the arcs
+    chunk_index * chunk_size + t in CSR order, for inference over all arcs;
+    the slots past the last arc repeat it (callers mask with `chunk_mask`).
+    An edgeless graph raises TypeError, as the JAX function's gather does.
+    Kernel K20b on a CUDA graph, the plain version on a CPU graph."""
+    if tg.n_arcs == 0:
+        raise TypeError("edge_chunk needs a graph with arcs; this one has none.")
+    if not _build.is_cuda(tg.col_idx):
+        return edge_chunk_plain(tg, chunk_index, chunk_size)
+    return _edge_chunk_launch("edge_chunk", tg, chunk_index, chunk_size, True)
+
+
+def chunk_mask(tg: TorchGraph, chunk_index: int, chunk_size: int) -> torch.Tensor:
+    """[chunk_size] bool: which slots of `edge_chunk`'s chunk are real arcs.
+    Kernel K20b without its id outputs on a CUDA graph, the plain version on
+    a CPU graph."""
+    if not _build.is_cuda(tg.col_idx):
+        return chunk_mask_plain(tg, chunk_index, chunk_size)
+    return _edge_chunk_launch("chunk_mask", tg, chunk_index, chunk_size, False)
 
 
 def edge_prediction_mini_batch_plain(

@@ -1,6 +1,7 @@
 """Graph-convolution SpMM over a CSR kernel, with its transposed backward —
 counterpart of `embiggen_tpu/ops/spmm.py::spmm_padded` (`pad_coo`,
-`_spmm_padded_impl`, `_spmm_padded_bwd`).
+`_spmm_padded_impl`, `_spmm_padded_bwd`) — and the sampled dense-dense
+product `sddmm` (`embiggen_tpu/ops/spmm.py::sddmm`).
 
 `csr_kernel` lays a COO kernel out on the host as a `CSRKernel`: row
 pointers, columns, weights, the per-row |w| and w² sums of the mean and
@@ -11,6 +12,12 @@ transposed kernel, applied to `g / den`; the kernel weights get no
 gradient. On CUDA tensors both directions are kernel K7
 (`csrc/spmm.cu`); on CPU tensors the plain version below. The TPU layout
 (single-K ELLPACK, COO overflow and its v5e cost model) is not ported.
+
+`sddmm(rows, cols, a, b)` is the per-edge score a[rows]·b[cols], a
+`torch.autograd.Function`: kernel K20a (`csrc/sddmm.cu`) forward on CUDA
+tensors, the plain version on CPU tensors; its backward is two
+`index_add_` passes in both cases, as the JAX function has no backward
+kernel.
 """
 from __future__ import annotations
 
@@ -190,3 +197,78 @@ def spmm(k: CSRKernel, x: torch.Tensor, combiner: str = "sum") -> torch.Tensor:
                              "transpose (csr_kernel(with_transpose=True)).")
         return _SpMM.apply(x, k, combiner)
     return csr_spmm(k, x, row_scale=k.inverse_denominator(combiner))
+
+
+def sddmm_plain(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K20a: both gathers, the product and the sum
+    over D, in chunks of edges."""
+    n = rows.shape[0]
+    out = torch.empty(n, dtype=a.dtype, device=a.device)
+    chunk = max(1, _CHUNK_ELEMENTS // max(a.shape[1], 1))
+    for i in range(0, n, chunk):
+        out[i:i + chunk] = (a[rows[i:i + chunk].long()] * b[cols[i:i + chunk].long()]).sum(-1)
+    return out
+
+
+def sddmm_forward(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """[E] f32 a[rows[e]]·b[cols[e]], no gradient: kernel K20a on CUDA
+    tensors, the plain version on CPU tensors."""
+    if rows.ndim != 1 or cols.shape != rows.shape:
+        raise ValueError(f"rows and cols must be [E] alike; got {tuple(rows.shape)} and "
+                         f"{tuple(cols.shape)}.")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"a and b must be [N, D] with one D; got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}.")
+    if not _build.is_cuda(a):
+        return sddmm_plain(rows, cols, a, b)
+    dev = a.device
+    if rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rows has dtype {rows.dtype}, expected int32 or int64.")
+    # The kernel takes one id type for both.
+    cols = cols.to(rows.dtype)
+    a, b = a.contiguous(), b.contiguous()
+    for name, t, dtype in (("rows", rows, rows.dtype), ("cols", cols, rows.dtype),
+                           ("a", a, torch.float32), ("b", b, torch.float32)):
+        _build.check(t, name, dtype, None, dev)
+    n, d = rows.shape[0], a.shape[1]
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    # float4 loads need every row of both tables 16-byte aligned: a
+    # contiguous view at an odd storage offset takes the scalar route.
+    vec4 = d % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    _build.launch("sddmm", "ebt_sddmm", dev, rows.data_ptr(), cols.data_ptr(), a.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), n, d, int(rows.dtype == torch.int64), int(vec4))
+    return out
+
+
+class _SDDMM(torch.autograd.Function):
+    """s = rowwise(a[rows] * b[cols]); da = index_add(rows, g b[cols]),
+    db = index_add(cols, g a[rows])."""
+
+    @staticmethod
+    def forward(ctx, a, b, rows, cols):
+        ctx.save_for_backward(a, b, rows, cols)
+        return sddmm_forward(rows, cols, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, rows, cols = ctx.saved_tensors
+        rows_l, cols_l = rows.long(), cols.long()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.zeros_like(a).index_add_(0, rows_l, g[:, None] * b[cols_l])
+        if ctx.needs_input_grad[1]:
+            db = torch.zeros_like(b).index_add_(0, cols_l, g[:, None] * a[rows_l])
+        return da, db, None, None
+
+
+def sddmm(rows: torch.Tensor, cols: torch.Tensor, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense matmul: per-edge scores a[rows]·b[cols] -> [E]
+    f32, differentiable in `a` and `b`."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _SDDMM.apply(a, b, rows, cols)
+    return sddmm_forward(rows, cols, a, b)

@@ -67,8 +67,9 @@ def role2vec_params_from_jax(
 
 
 def minibatch_params_from_jax(params: Mapping[str, np.ndarray], model, graph) -> Dict[str, torch.Tensor]:
-    """The tables of a JAX minibatch embedder (LINE, the siamese models,
-    GloVe; its `_init_params` dict as numpy arrays) as float32 tensors on
+    """The tables of a JAX minibatch embedder (LINE, the siamese models, the
+    21 KGE models with NodePiece's anchor and encoder tables, GloVe; its
+    `_init_params` dict as numpy arrays) as float32 tensors on
     `model.device`, in the layout the port's model takes as
     `initial_params`. The keys and shapes must be the ones the port's
     `model` gives `graph`."""

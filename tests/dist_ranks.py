@@ -235,6 +235,7 @@ WALKLETS_GLOVE_KWARGS = dict(embedding_size=8, power=2, epochs=2, walk_length=8,
 ROLE2VEC_KWARGS = dict(embedding_size=8, epochs=2, batch_size=16, walk_length=8,
                        window_size=2, number_of_negative_samples=4, random_state=7,
                        device="cpu")
+NODEPIECE_KWARGS = dict(MINIBATCH_KWARGS, number_of_anchors=8, tokens_per_node=2)
 GCN_KWARGS = dict(units=[16], tower_units=[8], head_units=[8], epochs=3, batch_size=64,
                   random_state=0, device="cpu")
 
@@ -272,6 +273,9 @@ MESH_FITS = (
     ("Second-order LINE rows", "Second-order LINE", MINIBATCH_KWARGS, "typed",
      dict(distribution="rows")),
     ("TransE rows", "TransE", MINIBATCH_KWARGS, "typed", dict(distribution="rows")),
+    ("RotatE data", "RotatE", MINIBATCH_KWARGS, "typed", {}),
+    ("RotatE rows", "RotatE", MINIBATCH_KWARGS, "typed", dict(distribution="rows")),
+    ("NodePiece data", "NodePiece", NODEPIECE_KWARGS, "typed", {}),
     ("Walklets SkipGram data", "Walklets SkipGram", WALKLETS_KWARGS, "karate",
      dict(distribution="data")),
     ("Walklets CBOW data", "Walklets CBOW", WALKLETS_KWARGS, "karate",
@@ -320,7 +324,8 @@ def gcn_fit(dropout_rate, mesh=None):
 
 def models(mesh, payload):
     """Every distributable row through its entry point on the mesh, the
-    fallback warning, and the edge GCN with and without dropout."""
+    fallback warnings (a model without the hooks; NodePiece, which has no
+    node-row table to shard), and the edge GCN with and without dropout."""
     from embiggen_tpu_torch.graph import karate_club
     from embiggen_tpu_torch.models.embedders import SkipGram
 
@@ -337,6 +342,11 @@ def models(mesh, payload):
         warnings.simplefilter("always")
         emb = NoMeshSkipGram(**EMB_KWARGS, mesh=mesh.size).fit_transform(karate_club())
     out["fallback"] = ([str(w.message) for w in caught], np.asarray(emb.node_embeddings[0]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        emb = mesh_fit("NodePiece rows", "NodePiece", NODEPIECE_KWARGS, "typed",
+                       dict(distribution="rows"), mesh)
+    out["NodePiece rows"] = ([str(w.message) for w in caught], emb)
     for rate in (0.0, 0.5):
         proba, m = gcn_fit(rate, mesh)
         out[f"gcn dropout {rate}"] = (proba, m._history)

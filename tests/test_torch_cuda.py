@@ -1190,12 +1190,14 @@ def _sketch_graph(kind):
 
 
 @pytest.mark.parametrize("kind", ["er", "components", "directed"])
-@pytest.mark.parametrize("d", [1, 30, 100])
+@pytest.mark.parametrize("d", [1, 30, 100, 130, 256])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_min_plus_kernel_matches_plain(dev, kind, d, weighted):
     """K15a's distances and change flags equal its plain version's exactly,
     launch by launch; the early-stopped `multi_source_distances` equals 32
-    plain relaxations after the first unchanged relaxation + 1 launches."""
+    plain relaxations after the first unchanged relaxation + 1 launches.
+    D 130 (scalar route) and 256 (NodePiece's anchors, float4) take more
+    than one column pass a row."""
     g = _sketch_graph(kind)
     n = g.number_of_nodes
     sets = [np.arange(j, n, 997) for j in range(d)]
@@ -1620,3 +1622,130 @@ def test_owned_gather_and_scatter_kernels_match_plain(dev, width):
             want = owned_scatter_plain(shard.cpu(), lo, idx.cpu(), grads.cpu(), -0.3,
                                        **{k: v.cpu() for k, v in kw.items()})
             torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------- K20
+def _sddmm_inputs(dev, n_edges, d, id_dtype=torch.int32, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(700, d)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.normal(size=(500, d)).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 700, n_edges)).to(dev, id_dtype)
+    cols = torch.from_numpy(rng.integers(0, 500, n_edges)).to(dev, id_dtype)
+    return rows, cols, a, b
+
+
+@pytest.mark.parametrize("d", [1, 3, 8, 12, 30, 64, 127, 128, 200])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_sddmm_kernel_matches_plain(dev, d, id_dtype):
+    """K20a at every group width (4-32 lanes an edge), on the float4 and
+    scalar routes, with int32 and int64 ids (rtol / atol 1e-5: sums over
+    D in another order), one launch counted."""
+    from embiggen_tpu_torch.ops.spmm import sddmm, sddmm_plain
+
+    rows, cols, a, b = _sddmm_inputs(dev, 5000, d, id_dtype)
+    before = _build.launch_counts()["sddmm"]
+    got = sddmm(rows, cols, a, b)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["sddmm"] == before + 1
+    torch.testing.assert_close(got, sddmm_plain(rows, cols, a, b), rtol=1e-5, atol=1e-5)
+
+
+def test_sddmm_kernel_at_an_odd_storage_offset(dev):
+    """Tables whose rows are not 16-byte aligned (views one float into their
+    buffers) take the scalar route and match the plain version."""
+    from embiggen_tpu_torch.ops.spmm import sddmm, sddmm_plain
+
+    rows, cols, a, b = _sddmm_inputs(dev, 3000, 128)
+    a = torch.cat([torch.zeros(1, device=dev), a.reshape(-1)])[1:].view(a.shape)
+    b = torch.cat([torch.zeros(1, device=dev), b.reshape(-1)])[1:].view(b.shape)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0 and b.data_ptr() % 16 != 0
+    got = sddmm(rows, cols, a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sddmm_plain(rows, cols, a, b), rtol=1e-5, atol=1e-5)
+
+
+def test_sddmm_backward_and_no_edges_on_the_card(dev):
+    """The gradients through the kernel's forward equal the CPU's; no edges
+    launch nothing."""
+    from embiggen_tpu_torch.ops.spmm import sddmm
+
+    rows, cols, a, b = _sddmm_inputs(dev, 4000, 20)
+    w = torch.randn(4000, device=dev)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        xa, xb = a.to(d).requires_grad_(), b.to(d).requires_grad_()
+        grads[d.type] = torch.autograd.grad(
+            (sddmm(rows.to(d), cols.to(d), xa, xb) * w.to(d)).sum(), (xa, xb))
+    for g, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-5, atol=1e-5)
+    before = _build.launch_counts()["sddmm"]
+    empty = rows[:0]
+    assert sddmm(empty, empty, a, b).shape == (0,)
+    assert _build.launch_counts()["sddmm"] == before
+
+
+@pytest.mark.parametrize("with_sources", [False, True])
+def test_edge_chunk_kernel_matches_plain(dev, with_sources):
+    """K20b exactly: the first, a middle, the last (clamped) and past-the-end
+    chunks of a graph with isolated nodes and long rows, ids and mask, each
+    a launch; an edgeless graph raises for the ids and masks all False."""
+    from embiggen_tpu_torch.ops.negatives import (
+        chunk_mask, chunk_mask_plain, edge_chunk, edge_chunk_plain,
+    )
+
+    g = barabasi_albert(3000, 3, seed=1)
+    tg = g.device(dev, with_sources=with_sources)
+    cpu = g.device("cpu", with_sources=with_sources)
+    for size in (1, 1000, 4096):
+        last = (tg.n_arcs - 1) // size
+        for i in sorted({0, last // 2, last, last + 1}):
+            counts = _build.launch_counts()
+            src, dst = edge_chunk(tg, i, size)
+            mask = chunk_mask(tg, i, size)
+            torch.cuda.synchronize()
+            after = _build.launch_counts()
+            assert (after["edge_chunk"], after["chunk_mask"]) == (
+                counts["edge_chunk"] + 1, counts["chunk_mask"] + 1)
+            want_src, want_dst = edge_chunk_plain(cpu, i, size)
+            assert torch.equal(src.cpu(), want_src) and torch.equal(dst.cpu(), want_dst)
+            assert torch.equal(mask.cpu(), chunk_mask_plain(cpu, i, size))
+    empty = Graph.from_edge_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64), n_nodes=4,
+                                   directed=True).device(dev, with_sources=with_sources)
+    with pytest.raises(TypeError):
+        edge_chunk(empty, 0, 8)
+    assert not chunk_mask(empty, 0, 8).any()
+
+
+def test_kge_steps_on_the_card_match_the_cpu(dev):
+    """One injected step of every KGE row (D 12, NodePiece with K15a's
+    tokens) on the card against the CPU from the same tables (rtol 1e-4 /
+    atol 1e-5: sums in another order, cuFFT and cuDNN)."""
+    import dataclasses
+
+    from embiggen_tpu_torch.models.embedders import KGE_MODELS
+
+    base = erdos_renyi(300, 1500, seed=3)
+    g = dataclasses.replace(base, edge_types=(
+        np.arange(base.number_of_directed_edges) % 3).astype(np.int32))
+    rng = np.random.default_rng(2)
+    block = np.stack([rng.integers(0, 300, 256) for _ in range(4)]
+                     + [rng.integers(0, 3, 256)]).astype(np.int32)
+    for cls in KGE_MODELS:
+        kw = dict(embedding_size=12, random_state=0)
+        if cls.model_name() == "NodePiece":
+            kw.update(number_of_anchors=16, tokens_per_node=4)
+        models = {d: cls(device=d, **kw) for d in (dev, "cpu")}
+        init = models["cpu"]._init_params(g, torch.Generator().manual_seed(0))
+        params = {d: {k: v.to(d).clone() for k, v in init.items()} for d in models}
+        ctx = {d: m._prepare_data(g) for d, m in models.items()}
+        if cls.model_name() == "NodePiece":
+            assert torch.equal(ctx[dev]["tokens"].cpu(), ctx["cpu"]["tokens"])
+        for d, m in models.items():
+            m._run_batch_size = 256
+            shared = (ctx[d]["tokens"],) if cls.model_name() == "NodePiece" else ()
+            with torch.no_grad():
+                m._step(ctx[d], params[d], torch.Generator(), 0.05,
+                        batch=(torch.from_numpy(block).to(d), shared))
+        for k in init:
+            torch.testing.assert_close(params[dev][k].cpu(), params["cpu"][k], rtol=1e-4,
+                                       atol=1e-5, msg=f"{cls.model_name()} {k}")

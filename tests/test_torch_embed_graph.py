@@ -208,8 +208,10 @@ def test_embed_graph_resolves_graph_names(tmp_path, monkeypatch):
 def test_runs_where_jax_cannot_be_imported():
     """The port must run on a host without jax: block jax and embiggen_tpu
     from being imported, fit every ported embedder (the factorization rows,
-    K18's and the randomized SVD's modules among them, and typed walks
-    through K9's and K19's plain versions) on a tiny graph on the CPU, load
+    K18's and the randomized SVD's modules among them, the 21 KGE rows with
+    NodePiece's K15a tokens, and typed walks
+    through K9's and K19's plain versions) on a tiny graph on the CPU, run
+    K20's plain versions, load
     the bundled typed graphs, import every module of the port and fit both
     edge predictors, the GCN also with type embeddings."""
     code = (
@@ -235,6 +237,17 @@ def test_runs_where_jax_cannot_be_imported():
         "    r = embed_graph(graph, name, device='cpu', smoke_test=True,\n"
         "                    random_state=0)\n"
         "    assert r.node_embeddings[0].shape == (50, 5), name\n"
+        "from embiggen_tpu_torch.models.embedders import KGE_MODELS\n"
+        "for cls in KGE_MODELS:\n"
+        "    e = embed_graph(typed, cls.model_name(), device='cpu', smoke_test=True,\n"
+        "                    random_state=0)\n"
+        "    assert np.isfinite(e.node_embeddings[0]).all(), cls\n"
+        "from embiggen_tpu_torch.ops.negatives import chunk_mask, edge_chunk\n"
+        "from embiggen_tpu_torch.ops.spmm import sddmm\n"
+        "tg = g.device('cpu')\n"
+        "s = sddmm(tg.col_idx, tg.col_idx, torch.ones(50, 3), torch.ones(50, 3))\n"
+        "assert s.shape == (tg.n_arcs,) and bool((s == 3).all())\n"
+        "assert edge_chunk(tg, 1, 64)[1].shape == (64,) and bool(chunk_mask(tg, 1, 64).all())\n"
         "for name, d in (('Walklets SkipGram', 4), ('Walklets CBOW', 4),\n"
         "                ('Walklets GloVe', 4), ('Node2Vec GloVe', 5),\n"
         "                ('DeepWalk GloVe', 5), ('Role2Vec', 5)):\n"

@@ -6,8 +6,10 @@ streams, so the JAX fits are no reference here), within the reference
 test's tolerances; the fallback warning; the edge GCN with and without
 dropout; and `supports_distribution` on every registered row.
 
-Left out until their rows are ported: RotatE and NodePiece (ROADMAP A8),
-the node-label GCNs (A10)."""
+RotatE trains data-parallel and row-sharded, NodePiece data-parallel, and
+asked for rows NodePiece warns and trains data-parallel, as the reference's
+`test_nodepiece_rows_falls_back_to_data`. Left out until their rows are
+ported: the node-label GCNs (A10)."""
 import inspect
 
 import numpy as np
@@ -69,6 +71,15 @@ def test_unsupported_model_falls_back_with_warning(fits):
     messages, emb = ranks[0]["fallback"]
     assert any("falling back to single-device" in m for m in messages), messages
     assert np.isfinite(emb).all()
+
+
+def test_nodepiece_rows_falls_back_to_data(fits):
+    """NodePiece stores no [N] table: asked for rows it warns and trains
+    data-parallel, the same fit as its data-parallel one."""
+    world, ranks = fits
+    messages, emb = ranks[0]["NodePiece rows"]
+    assert any("no node-row tables" in m for m in messages), messages
+    np.testing.assert_allclose(emb, ranks[0]["NodePiece data"], **DATA_TOL)
 
 
 @pytest.mark.parametrize("dropout_rate", [0.0, 0.5])
