@@ -37,10 +37,11 @@ the exit code is not 0:
      (rtol 1e-5 / atol 1e-3: sums of 256 and 8192 rows in another order);
      K8 on 2^20 pairs (half arcs, half uniform pairs) of the slice graph
      and of the slice graph plus 256 hubs of 4,096-65,536 random
-     neighbours (with hub-hub pairs, truncated at cap 128): the common
-     neighbour counts and preferential attachment exactly, Jaccard rtol
-     1e-6, Adamic-Adar and resource allocation rtol 1e-5 / atol 1e-6 (sums
-     in another order);
+     neighbours (with hub-hub pairs, truncated at cap 128), at the lanes a
+     pair its wrapper picks (other rows held in registers, and the hubs'
+     as samples bracketing a search): the common neighbour counts and
+     preferential attachment exactly, Jaccard rtol 1e-6, Adamic-Adar and
+     resource allocation rtol 1e-5 / atol 1e-6 (sums in another order);
   5. S1: three SkipGram steps on injected batches, kernel path against the
      plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
      erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
@@ -165,17 +166,28 @@ the exit code is not 0:
      and on a directed graph (each also weighted), with the change flags;
      K15a timed with the flag the fit passes; WINE's two K7 hops at unit values
      exactly (K15b); K16a's singletons exactly at precisions 4, 8 and 12,
-     its three hops exactly at 4 and 8 and, at 12, each hop from the one
-     before on a tenth of the rows; K16b at 2^20 pairs (half arcs, half
-     uniform pairs) for H 1-3 at each precision, and its general route at
-     H 6 (two copies of the three hops of the first 131,072 nodes), within
+     and HyperSketching's three hops exactly at each, by the singleton
+     route (hops 1 and 2 from the node ids, hop 2 by the route
+     `hop2_route` picks and forced onto each route; hop 3 by the hop
+     launch) and by the general
+     route (the hop launch over the singletons), against the plain hops
+     over the plain singletons, on the slice graph and on the slice graph
+     plus 256 hubs (hop 2 not forced onto the id route); the general
+     route's launches counted alone; K16b at 2^20 pairs (half
+     arcs, half uniform pairs) for H 1-3 at each precision, and its
+     general route at H 6 (two copies of the three hops of the first
+     131,072 nodes), within
      `tests/hll_checks.py`'s tolerance, each case timed; each with its time,
      bound and library call (`torch.sparse.mm` for WINE's hop);
  22. S8 through `embed_graph` on the slice graph: Degree-based and
      Score-based SPINE (D 100, depth 32; seeded scores), WeightedSPINE on
      the weighted twin, Degree-based WINE (D 100, window 2), RUBICONE and
      RUINE (D 100, 2 convolutions), HyperSketching (hops 3, precision 8,
-     bits 6) over all 20M arcs, with K15a, K7 or K16 launched; then the
+     bits 6) over all 20M arcs, with K15a, K7 or K16 launched (K16a's
+     singleton route, never the singletons launch; its sketches equal the
+     general route's byte for byte and its K16b features of 2^20 pairs
+     bit for bit), and HyperSketching at precision 12, whose hop 2 takes
+     the id route; then the
      bench GCN of phase 6 with lazy HyperSketching features for 2 epochs
      (K6, K7, K16a, K16b) and with HyperSketching's edge embeddings as a
      static feature matrix for 1 (K5), each scoring the 20M arcs; seconds,
@@ -777,6 +789,7 @@ KERNEL_NAMES = {
     "glove_gradients": "glove_gradients_kernel", "glove_node_update": "glove_node_update_kernel",
     "glove_context_update": "glove_context_update_kernel", "min_plus_step": "min_plus_kernel",
     "hll_registers": "singletons_kernel", "khop_sketches": "hop_kernel",
+    "sketch_hop1": "hop1_ids_kernel", "sketch_hop2": "hop2_",
     "edge_sketch_features": "edge_features_", "sketch_candidates": "sketch_candidates_kernel",
     "sketch_race_step": "sketch_race_kernel", "sddmm": "sddmm_kernel",
     "edge_chunk": "edge_chunk_kernel",
@@ -1386,9 +1399,7 @@ def edge_metrics_checks(graph, tg):
     hub_err, hub_ms, hub_plain_ms, truncated, hub_bound = edge_metrics_check(hg, htg, 4096)
     if truncated == 0:
         raise AssertionError("no K8 pair of the hub graph reached the cap")
-    del htg
-    torch.cuda.empty_cache()
-    return dict(
+    entry = dict(
         source="embiggen_tpu_torch/csrc/edge_metrics.cu",
         replaces="embiggen_tpu/ops/edge_metrics.py:34",
         max_abs_err=max(err, hub_err), ms=ms, plain_ms=plain_ms,
@@ -1396,6 +1407,9 @@ def edge_metrics_checks(graph, tg):
         hub_graph_arcs=hg.number_of_directed_edges, hub_ms=hub_ms,
         hub_plain_ms=hub_plain_ms, hub_pairs_truncated=truncated,
     )
+    del htg
+    torch.cuda.empty_cache()
+    return entry
 
 
 def gcn_injected_steps(dev):
@@ -3058,16 +3072,47 @@ def k15_checks(graph, weighted, dev):
     return entries, errs, settled
 
 
+def launch_event_ms(fn, counter: str, reps: int) -> float:
+    """Mean device ms of the `counter` launches in a call of `fn`, each on
+    the CUDA event pair around it, after one warm-up."""
+    from embiggen_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    with _build.timed_launches() as events:
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events[counter]) / reps
+
+
+def singleton_route_bytes(tg, p, route):
+    """Bytes K16a's singleton route must move by the read-once rule at hop 1
+    (`route` None) or at hop 2 by "ids" or "dense": the CSR, the [N, M]
+    registers written and, on the dense route, the hop-1 registers read."""
+    n, m = tg.n_nodes, 1 << p
+    return 4 * (n + 1 + tg.n_arcs) + n * m + (n * m if route == "dense" else 0)
+
+
 def k16_checks(graph, dev):
-    """K16a against its plain version exactly on the slice graph: the
-    singletons and the three hops at precisions 4, 8 and 12 (bits 6),
-    whole; K16b at K16B_PAIRS pairs (half arcs, half uniform pairs) for H
-    1-3 at each precision, and its general route at H 6 (K16B_GENERAL_NODES),
-    within tests/hll_checks.py's tolerance, each timed. Returns their
-    kernels entries, timed at HyperSketching's defaults, the errors by case,
-    and the seconds of the plain hops at each precision."""
+    """K16a against its plain version exactly on the slice graph at
+    precisions 4, 8 and 12 (bits 6): the singletons; HyperSketching's
+    three hops by the singleton route (hop 1 and hop 2 from the node ids,
+    hop 3 by the hop launch) and by the general route (the hop launch over
+    the singletons), both against the plain hops over the plain
+    singletons, whole; hop 2 forced onto each route (the id route on the
+    slice graph only); then the same on the hub graph. K16b at K16B_PAIRS
+    pairs (half arcs, half uniform
+    pairs) for H 1-3 at each precision, and its general route at H 6
+    (K16B_GENERAL_NODES), within tests/hll_checks.py's tolerance, each
+    timed. Returns their kernels entries, timed at HyperSketching's
+    defaults, the errors by case, the seconds of the plain hops at each
+    precision, the singleton route's numbers by graph and precision, and
+    the general route's launches (counts set to 0 just before it)."""
+    from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.hll import (
-        edge_sketch_features, edge_sketch_features_plain, khop_sketches, khop_sketches_plain,
+        edge_sketch_features, edge_sketch_features_plain, hop2_route, khop_sketches,
+        khop_sketches_of_singletons, khop_sketches_of_singletons_plain, khop_sketches_plain,
         singleton_registers, singleton_registers_plain,
     )
 
@@ -3080,7 +3125,7 @@ def k16_checks(graph, dev):
     dst = torch.from_numpy(np.concatenate([graph.col_idx[arcs], rng.integers(
         0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
     distinct = int(torch.unique(torch.cat([src, dst])).numel())
-    errs, entries, plain_s, k16b_ms = {}, {}, {}, {}
+    errs, entries, plain_s, k16b_ms, routes = {}, {}, {}, {}, {}
 
     def hold(name, skh, src, dst, p):
         got = edge_sketch_features(skh, src, dst, p)
@@ -3092,18 +3137,44 @@ def k16_checks(graph, dev):
         errs[f"features {name} (share of tolerance; ties {ties})"] = worst
         k16b_ms[name] = time_ms(lambda: edge_sketch_features(skh, src, dst, p), 10)
 
+    def singleton_route(label, g_tg, p, want):
+        """The singleton route on `g_tg` against `want` (the plain hops
+        over the plain singletons): hop 2 as `hop2_route` picks it, then
+        forced onto each route (the id route only where every row's
+        neighbours are few); the route picked and each launch's time."""
+        forced = ("ids", "dense", "hop") if label == "slice" else ("dense", "hop")
+        for route in (None,) + forced:
+            got = khop_sketches_of_singletons(g_tg, HLL_HOPS, p, HLL_BITS, 42, route)
+            errs[f"singleton route {label} p {p} {route or 'picked'}"] = exact_err(
+                f"K16a singleton route {label} p {p} hop 2 {route or 'picked'}", got, want)
+            del got
+        # Launch times in the three hops' layout; "hop" runs hops 2 and 3
+        # by the hop launch, so its time is their mean.
+        case = dict(route=hop2_route(g_tg, p),
+                    hop1_ms=launch_event_ms(lambda: khop_sketches_of_singletons(
+                        g_tg, HLL_HOPS, p, HLL_BITS, 42), "sketch_hop1", 10))
+        for route in forced:
+            case[f"hop2_{route}_ms"] = launch_event_ms(
+                lambda: khop_sketches_of_singletons(g_tg, HLL_HOPS, p, HLL_BITS, 42, route),
+                "khop_sketches" if route == "hop" else "sketch_hop2", 5) / (
+                    HLL_HOPS - 1 if route == "hop" else 1)
+        routes[f"{label} p {p}"] = case
+        return case
+
     for p in (HLL_PRECISION, 4, 12):
         base = singleton_registers(N_NODES, p, HLL_BITS, 42, dev)
         errs[f"registers p {p}"] = exact_err(
             f"K16a singletons p {p}", base,
             singleton_registers_plain(N_NODES, p, HLL_BITS, 42, dev))
-        sk = khop_sketches(tg, base, HLL_HOPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = khop_sketches_plain(tg, base, HLL_HOPS)
         torch.cuda.synchronize()
         plain_s[p] = time.perf_counter() - t0
-        errs[f"hops p {p}"] = exact_err(f"K16a hops p {p}", sk, want)
+        errs[f"hops p {p}"] = exact_err(f"K16a hops p {p}", khop_sketches(tg, base, HLL_HOPS),
+                                        want)
+        case = singleton_route("slice", tg, p, want)
+        sk = want
         del want
         for h in (1, 2, 3):
             hold(f"p {p} H {h}", sk if h == HLL_HOPS else sk[:, :h].contiguous(), src, dst, p)
@@ -3117,6 +3188,8 @@ def k16_checks(graph, dev):
             entries["hll_registers"] = dict(
                 source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:32",
                 max_abs_err=0.0,
+                launches_from="khop_sketches over singleton_registers (the general route; "
+                              "HyperSketching's fit no longer launches it), phase 21",
                 ms=time_ms(lambda: singleton_registers(N_NODES, p, HLL_BITS, 42, dev), 20),
                 plain_ms=time_ms(lambda: singleton_registers_plain(
                     N_NODES, p, HLL_BITS, 42, dev), 3),
@@ -3131,6 +3204,13 @@ def k16_checks(graph, dev):
                 # a hop: registers in and out, the CSR; a byte max per
                 # gathered register.
                 **bound(2 * N_NODES * m + 4 * (N_NODES + 1 + tg.n_arcs), tg.n_arcs * m))
+            n_bytes = singleton_route_bytes(tg, p, None)
+            entries["sketch_hop1"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
+                max_abs_err=0.0, ms=case["hop1_ms"],
+                plain_ms=time_ms(lambda: khop_sketches_of_singletons_plain(
+                    tg, 1, p, HLL_BITS, 42), 2),
+                library_ms=None, **bound(n_bytes, 0))
             entries["edge_sketch_features"] = dict(
                 source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:90",
                 max_abs_err=None,   # set below, over every precision
@@ -3144,12 +3224,82 @@ def k16_checks(graph, dev):
                 # of the 2H + H^2 sets.
                 **bound(distinct * HLL_HOPS * m + K16B_PAIRS * (8 + 4 * n_feat),
                         K16B_PAIRS * (2 * HLL_HOPS + HLL_HOPS ** 2) * m))
+        if p == 12:
+            # Hop 2 by the id route, which `hop2_route` picks at precision
+            # 12 on this graph; its plain time is the plain route's two hops
+            # less its first.
+            if case["route"] != "ids":
+                raise AssertionError(f"K16a hop 2 at precision 12 took {case['route']}")
+            plain_hops = [time_ms(lambda: khop_sketches_of_singletons_plain(
+                tg, h, p, HLL_BITS, 42), 2) for h in (1, 2)]
+            entries["sketch_hop2"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
+                max_abs_err=0.0, precision=p, hop2_route="ids", ms=case["hop2_ids_ms"],
+                plain_ms=plain_hops[1] - plain_hops[0], library_ms=None,
+                **bound(singleton_route_bytes(tg, p, "ids"), 0))
         del base, sk
         torch.cuda.empty_cache()
+    # The general route, which any caller with its own base takes: the
+    # singletons launch, then the hop launch each hop.
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    khop_sketches(tg, singleton_registers(N_NODES, HLL_PRECISION, HLL_BITS, 42, dev), HLL_HOPS)
+    torch.cuda.synchronize()
+    general = {k: _build.launch_counts()[k] for k in ("hll_registers", "khop_sketches")}
+    del tg
+    torch.cuda.empty_cache()
+    hg = hub_graph(graph)
+    htg = hg.device(dev)
+    for p in (HLL_PRECISION, 4, 12):
+        want = khop_sketches_plain(htg, singleton_registers_plain(
+            hg.number_of_nodes, p, HLL_BITS, 42, dev), HLL_HOPS)
+        singleton_route("hub graph", htg, p, want)
+        del want
+        torch.cuda.empty_cache()
+    entries["sketch_hop1"].update(
+        hub_ms=routes[f"hub graph p {HLL_PRECISION}"]["hop1_ms"],
+        hub_bound_ms=bound(singleton_route_bytes(htg, HLL_PRECISION, None), 0)["bound_ms"])
+    # The dense route, which `hop2_route` picks on the hub graph at
+    # precision 8.
+    entries["sketch_hop2"].update(
+        dense_p8_ms=routes[f"slice p {HLL_PRECISION}"]["hop2_dense_ms"],
+        hub_dense_p8_ms=routes[f"hub graph p {HLL_PRECISION}"]["hop2_dense_ms"],
+        hub_dense_p8_bound_ms=bound(singleton_route_bytes(htg, HLL_PRECISION, "dense"),
+                                    0)["bound_ms"])
+    del htg
+    torch.cuda.empty_cache()
     entries["edge_sketch_features"]["max_abs_err"] = max(
         v for k, v in errs.items() if k.startswith("features"))
     entries["edge_sketch_features"]["ms_by_case"] = k16b_ms
-    return entries, errs, plain_s
+    return entries, errs, plain_s, routes, general
+
+
+def sketch_fit_against_general_route(model, graph, dev) -> int:
+    """HyperSketching's fitted sketches (the singleton route) against the
+    route its fit took before: the singletons launch, then the hop launch
+    each hop, byte for byte; and its K16b features of K16B_PAIRS pairs (half
+    arcs, half uniform pairs) against K16b's over those sketches, bit for
+    bit. Returns the number of pairs compared."""
+    from embiggen_tpu_torch.ops.hll import edge_sketch_features, khop_sketches, singleton_registers
+
+    if model._sketches is None:
+        raise AssertionError("HyperSketching kept no sketches after embed_graph")
+    tg = graph.device(dev)
+    before = khop_sketches(tg, singleton_registers(N_NODES, model._precision, model._bits,
+                                                   model.random_state, dev),
+                           model._number_of_hops)
+    exact_err("HyperSketching's sketches against the general route", model._sketches, before)
+    rng = np.random.default_rng(32)
+    arcs = rng.integers(0, graph.number_of_directed_edges, K16B_PAIRS // 2)
+    src = torch.from_numpy(np.concatenate([graph.sources[arcs], rng.integers(
+        0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
+    dst = torch.from_numpy(np.concatenate([graph.col_idx[arcs], rng.integers(
+        0, N_NODES, K16B_PAIRS // 2)]).astype(np.int32)).to(dev)
+    if not torch.equal(model.device_feature_fn()(src, dst),
+                       edge_sketch_features(before, src, dst, model._precision)):
+        raise AssertionError("HyperSketching's K16b features differ from those over the "
+                             "general route's sketches")
+    return len(src)
 
 
 def s8_run(run):
@@ -3267,13 +3417,25 @@ def s8_runs(graph, weighted_graph, dev):
         if sketch:
             hs_edges = emb
         del result, emb
+    # HyperSketching at precision 12, where hop 2 takes the id route.
+    model = HyperSketching(device=dev, number_of_hops=HLL_HOPS, precision=12, bits=HLL_BITS)
+    result, counts, secs, peak = s8_run(lambda: embed_graph(graph, model))
+    emb = result.edge_embeddings[0]
+    if (emb.shape != (graph.number_of_directed_edges, HLL_HOPS ** 2 + 2 * HLL_HOPS)
+            or not np.isfinite(emb).all()):
+        raise AssertionError(f"HyperSketching p12: shape {emb.shape} or non-finite values")
+    s8["HyperSketching p12"] = (model, check_launches(
+        "HyperSketching p12", counts, S8_SKETCH_HOP2_KERNELS, S8_SKETCH_HOP2_UNUSED), secs, peak)
+    model._sketches = None   # 12 GB on the card
+    del result, emb
+    torch.cuda.empty_cache()
     feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
     s8_gcn = {}
     for label, kw, fit_kw, epochs, names, unused in (
         ("GCN + HyperSketching", dict(edge_feature_models=[HyperSketching(device=dev)]), {}, 2,
          S8_GCN_KERNELS, S8_GCN_UNUSED),
         ("GCN + static edge features", {}, dict(edge_features=[hs_edges]), 1,
-         S8_GCN_STATIC_KERNELS, S8_SKETCH_KERNELS),
+         S8_GCN_STATIC_KERNELS, S8_SKETCH_HOP2_KERNELS + ("hll_registers",)),
     ):
         model = GCNEdgePrediction(epochs=epochs, batch_size=GCN_BATCH, dropout_rate=0.0,
                                   early_stopping_patience=10**6, random_state=0,
@@ -3977,14 +4139,20 @@ S7_ROLE2VEC_UNUSED = ("walklets_update", "skipgram_nce_update", "cbow_update", "
 # with K7; HyperSketching sketches with K16a and queries K16b; the GCN with
 # lazy HyperSketching features adds K16 to its own kernels, and with a static
 # edge-feature matrix K5's arc lookup.
-S8_SKETCH_KERNELS = ("hll_registers", "khop_sketches", "edge_sketch_features")
+# HyperSketching's fit takes K16a's singleton route and never the
+# singletons launch: hop 1 from the node ids, then at its default precision
+# 8 on the slice graph hop 2 by the hop launch (`hop2_route`), and by the
+# id route at precision 12; hop 3 by the hop launch.
+S8_SKETCH_KERNELS = ("sketch_hop1", "khop_sketches", "edge_sketch_features")
+S8_SKETCH_HOP2_KERNELS = S8_SKETCH_KERNELS + ("sketch_hop2",)
 S8_SPINE_KERNELS = ("min_plus_step",)
-S8_SPINE_UNUSED = ("spmm",) + S8_SKETCH_KERNELS
+S8_SPINE_UNUSED = ("spmm", "hll_registers") + S8_SKETCH_HOP2_KERNELS
 S8_CONV_KERNELS = ("spmm",)
-S8_CONV_UNUSED = ("min_plus_step",) + S8_SKETCH_KERNELS
-S8_SKETCH_UNUSED = ("min_plus_step", "spmm")
+S8_CONV_UNUSED = ("min_plus_step", "hll_registers") + S8_SKETCH_HOP2_KERNELS
+S8_SKETCH_HOP2_UNUSED = ("min_plus_step", "spmm", "hll_registers")
+S8_SKETCH_UNUSED = S8_SKETCH_HOP2_UNUSED + ("sketch_hop2",)
 S8_GCN_KERNELS = S3_KERNELS + S8_SKETCH_KERNELS
-S8_GCN_UNUSED = ("csr_edge_ids", "min_plus_step")
+S8_GCN_UNUSED = ("csr_edge_ids", "min_plus_step", "hll_registers", "sketch_hop2")
 S8_GCN_STATIC_KERNELS = S3_KERNELS + ("csr_edge_ids",)
 # S9: NodeSketch races with K18 (its candidate pass, then its race launch,
 # each round) and RandNE hops with K7, each launching
@@ -4213,8 +4381,11 @@ def k17_checks(graph, tg, dev):
         max_abs_err=max(v for k, v in errs.items() if "count" in k),
         ms=time_ms(lambda: owned_count(counts0, 0, ids), 20),
         plain_ms=time_ms(lambda: owned_count_plain(counts0, 0, ids), 20),
-        library_ms=time_ms(lambda: counts0.index_add_(0, local_m, ones), 20),
-        library="index_add_ of ones at the owned ids",
+        # No one PyTorch call tests ownership and counts; index_add_ of
+        # ones, handed the owned ids already picked, does less.
+        library_ms=None,
+        library="none: no one call tests ownership and counts",
+        picked_index_add_ms=time_ms(lambda: counts0.index_add_(0, local_m, ones), 20),
         # the ids read; each distinct owned row's count read and written;
         # one add an owned entry
         **bound(4 * ids.shape[0] + 8 * owned, owned_m))
@@ -5480,7 +5651,7 @@ def main() -> None:
     twin_s = time.perf_counter() - t0
     new, k15_errs, settled = k15_checks(graph, weighted_graph, dev)
     torch.cuda.empty_cache()
-    k16, k16_errs, k16_plain_s = k16_checks(graph, dev)
+    k16, k16_errs, k16_plain_s, k16_routes, k16_general = k16_checks(graph, dev)
     new.update(k16)
     kernels.update(new)
     torch.cuda.empty_cache()
@@ -5499,11 +5670,16 @@ def main() -> None:
           f"its tolerance): {k16_errs} | K16a's {HLL_HOPS} plain hops took "
           + ", ".join(f"{t:.2f} s at precision {p}" for p, t in k16_plain_s.items())
           + f" | K16b's pairs name {k16['edge_sketch_features']['distinct_nodes']} distinct "
-          f"nodes | K16b ms by case: {k16['edge_sketch_features']['ms_by_case']}", flush=True)
+          f"nodes | K16b ms by case: {k16['edge_sketch_features']['ms_by_case']} | K16a's "
+          f"singleton route by graph and precision (hop 2's route; launch ms on CUDA "
+          f"events, hop 2 also forced onto each route): {k16_routes} | the general route's "
+          f"launches (singletons, then the hop launch): {k16_general}", flush=True)
 
     # ------------------------------------------------------------ 22. S8
     t_phase = time.perf_counter()
     s8, s8_gcn = s8_runs(graph, weighted_graph, dev)
+    sketch_pairs_equal = sketch_fit_against_general_route(s8["HyperSketching"][0], graph, dev)
+    torch.cuda.empty_cache()
     gcn_hs = s8_gcn["GCN + HyperSketching"][0]
     k16b_share = launch_share(gcn_step(gcn_hs, graph), ("edge_sketch_features",), 10)
     k15a_fit_launches = {name: s8[name][1]["min_plus_step"]
@@ -5527,7 +5703,9 @@ def main() -> None:
             f"{pred_s:.2f} s, peak {peak} bytes, launches {got}"
             for label, (m, got, fit_s, pred_s, peak) in s8_gcn.items())
         + f" | K16b in 10 steady steps of the GCN with HyperSketching features (ms a step on "
-        f"CUDA events): {k16b_share}", flush=True)
+        f"CUDA events): {k16b_share} | HyperSketching's sketches equal the general route's "
+        f"(singletons, then the hop launch) byte for byte, and its features of "
+        f"{sketch_pairs_equal} pairs K16b's over them bit for bit", flush=True)
 
     # --------------------------------------------------- 23. S8 quality
     t_phase = time.perf_counter()
@@ -5664,8 +5842,11 @@ def main() -> None:
           "batch on the S1 tables in 4 row shards): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
               f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
-              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None else "")
+              + (f" {v['library']} {v['library_ms']:.4f}" if v["library_ms"] is not None
+                 else f" library {v['library']}" if "library" in v else "")
               for k, v in new.items())
+          + f" | K17c count beside index_add_ of the owned ids already picked "
+          f"{new['owned_count']['picked_index_add_ms']:.4f} ms"
           + f" | partition: comm_rows {k17_info['comm_rows']}, H {k17_info['halo_width']}, "
           f"S {k17_info['shard_rows']}, arcs a shard {k17_info['shard_arcs']}, host build "
           f"{k17_info['partition_s']:.1f} s | S1 batch: {k17_info['batch_ids']} distinct ids, "
@@ -5727,6 +5908,8 @@ def main() -> None:
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],
                 **{k: s8_gcn["GCN + HyperSketching"][1][k] for k in S8_SKETCH_KERNELS},
+                "hll_registers": k16_general["hll_registers"],
+                "sketch_hop2": s8["HyperSketching p12"][1]["sketch_hop2"],
                 **{k: s9["NodeSketch"][0][k] for k in S9_SKETCH_KERNELS},
                 "ell_walks_typed": s10["typed SkipGram"][0]["ell_walks_typed"],
                 "exact_walks": s10["random_walks typed"][0]["exact_walks"],

@@ -29,6 +29,41 @@ __device__ __forceinline__ int32_t arc_lower_bound(
   return lo;
 }
 
+// Whether a is among col_idx[lo_a, hi_a) and b among col_idx[lo_b, hi_b),
+// each range sorted (an empty range: no): two lower-bound searches in lock
+// step, so each step's two reads are in flight together and the chain is
+// as long as the longer search alone.
+__device__ __forceinline__ void sorted_ranges_contain(const int32_t* __restrict__ col_idx,
+                                                      int32_t lo_a, int32_t hi_a, int32_t a,
+                                                      int32_t lo_b, int32_t hi_b, int32_t b,
+                                                      bool* in_a, bool* in_b) {
+  const int32_t end_a = hi_a, end_b = hi_b;
+  while (lo_a < hi_a || lo_b < hi_b) {
+    const int32_t mid_a = lo_a + ((hi_a - lo_a) >> 1);
+    const int32_t mid_b = lo_b + ((hi_b - lo_b) >> 1);
+    const int32_t x_a = lo_a < hi_a ? __ldg(col_idx + mid_a) : 0;
+    const int32_t x_b = lo_b < hi_b ? __ldg(col_idx + mid_b) : 0;
+    if (lo_a < hi_a) {
+      if (x_a < a) {
+        lo_a = mid_a + 1;
+      } else {
+        hi_a = mid_a;
+      }
+    }
+    if (lo_b < hi_b) {
+      if (x_b < b) {
+        lo_b = mid_b + 1;
+      } else {
+        hi_b = mid_b;
+      }
+    }
+  }
+  const int32_t y_a = lo_a < end_a ? __ldg(col_idx + lo_a) : 0;
+  const int32_t y_b = lo_b < end_b ? __ldg(col_idx + lo_b) : 0;
+  *in_a = lo_a < end_a && y_a == a;
+  *in_b = lo_b < end_b && y_b == b;
+}
+
 // Source node of an arc id: the last row whose start is <= arc.
 __device__ __forceinline__ int32_t arc_source(
     const int32_t* __restrict__ row_ptr, int32_t n_nodes, int32_t arc) {

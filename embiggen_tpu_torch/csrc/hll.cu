@@ -14,6 +14,15 @@
 // of in[c]), byte by byte. A max does not depend on its order, so the
 // sketches are exact too.
 //
+// The singleton route of K16a (`ebt_hll_ball`) forms hops 1 and 2 of the
+// sketches whose base is the singletons, which is every HyperSketching fit
+// (embiggen_tpu/models/edge_features.py:111-117), without the singletons
+// launch: a singleton row holds one nonzero register, a pure function of
+// the node id (its hash's low bits and rho), so hop 1 of v is the max over
+// the hashes of v and of its row's ids, and hop 2 over those of v, its row
+// and its neighbours' rows. The bytes equal the dense hops' exactly (a max
+// of the same registers).
+//
 // K16b replaces embiggen_tpu/ops/hll.py::edge_sketch_features with
 // hll_cardinality: for each (src, dst) pair, the H ball cardinalities of
 // both nodes, the H^2 cardinalities of their unions, the overlaps
@@ -33,22 +42,40 @@
 // rows, summing byte by byte, and ending in two dependent five-step
 // shuffle reductions and a division and a log on one lane.
 //
-// What the designs do about it: the hops and the singletons run a thread
-// per (row, 16 bytes), so the threads of a row read neighbouring 16-byte
-// pieces of a gathered row and take the byte-wise max of four words with
-// __vmaxu4; no atomics. K16b runs G lanes a pair (G = the row's words / 8,
-// from 1 at precision 4-5 to 32 from precision 10), 32 / G pairs a warp.
-// For H <= 3 (a template on H) each lane loads its 8 words (4 at
-// precision 4) of all 2H rows with 16-byte loads, forms the H^2 unions in
-// registers with __vmaxu4, and adds every set's sum of 2^-r (the exponent
-// field written directly) and zero count (one bit a zero byte, __popc) in
-// one pass, over chunks of words at the higher precisions. The group then
-// reduces all partials together in log2 G shuffle steps (zero counts two
-// to a word), each lane forms the cardinalities of its own sets, and the
-// warp writes its pairs' features as contiguous rows. Larger H take a
-// general route: the same groups, one set after another. The sum of 2^-r
-// is float32, as in the reference, in another order, so the features
-// agree to float32 rounding.
+// The singleton route reads ids where the dense hops read registers: hop 1
+// row_ptr and the 4-byte ids (84 MB on the slice graph) against 20M
+// gathered rows of M bytes, plus the [N, M] output; hop 2 about
+// 4 sum(deg(u) + 1) bytes a row against (deg(v) + 1) M.
+//
+// What the designs do about it: the singleton route runs a warp a row,
+// with the row's M registers as bytes in shared memory. Hop 1 reads the
+// row's ids coalesced, hashes each (and the row's own id) in registers as
+// the singletons launch does, and takes the max into shared memory by byte
+// stores, each read back and stored again where a larger value raced it
+// (no atomics); then the warp writes the row with 16-byte stores. Hop 2
+// takes one route for every row of the launch, which the wrapper picks
+// from the graph's mean and largest degree: the id route lays the row's
+// neighbours' rows end to end (a warp scan of their lengths), and each
+// lane takes every 32nd id of that list, four loads in flight, finding its
+// row by a five-step shuffle search over the scan; the dense route gathers
+// the neighbours' hop-1 rows, 32 / (M / 16) neighbours at once when a row
+// has fewer than 32 pieces of 16 bytes, and merges the lanes' maxima by
+// shuffles. Hops 3 and later are the hop launch. The hop launch and the
+// singletons run a thread per (row, 16 bytes), so the threads of a row
+// read neighbouring 16-byte pieces of a gathered row and take the
+// byte-wise max of four words with __vmaxu4; no atomics. K16b runs G lanes
+// a pair (G = the row's words / 8, from 1 at precision 4-5 to 32 from
+// precision 10), 32 / G pairs a warp. For H <= 3 (a template on H) each
+// lane loads its 8 words (4 at precision 4) of all 2H rows with 16-byte
+// loads, forms the H^2 unions in registers with __vmaxu4, and adds every
+// set's sum of 2^-r (the exponent field written directly) and zero count
+// (one bit a zero byte, __popc) in one pass, over chunks of words at the
+// higher precisions. The group then reduces all partials together in
+// log2 G shuffle steps (zero counts two to a word), each lane forms the
+// cardinalities of its own sets, and the warp writes its pairs' features
+// as contiguous rows. Larger H take a general route: the same groups, one
+// set after another. The sum of 2^-r is float32, as in the reference, in
+// another order, so the features agree to float32 rounding.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +96,19 @@ __device__ __forceinline__ uint32_t hash32(uint32_t x) {
   return x;
 }
 
+// The singleton register of node v: its index in the low 16 bits, its
+// value (rho, as a byte) in bits 16-23.
+__device__ __forceinline__ uint32_t singleton_code(uint32_t v, uint32_t offset, int precision,
+                                                   int bits) {
+  const uint32_t h = hash32(v + offset);
+  const uint32_t idx = h & ((1u << precision) - 1u);
+  const int rest = static_cast<int>(h >> precision);
+  const int top = (1 << bits) - 1;
+  int rho = rest == 0 ? top : __clz(rest) - precision + 1;
+  rho = min(max(rho, 1), top);
+  return idx | static_cast<uint32_t>(static_cast<uint8_t>(rho)) << 16;
+}
+
 __global__ void singletons_kernel(int64_t n, int precision, int bits,
                                   uint32_t offset, uint4* __restrict__ out) {
   const int chunks = (1 << precision) / 16;
@@ -76,16 +116,12 @@ __global__ void singletons_kernel(int64_t n, int precision, int bits,
   const int64_t node = t / chunks;
   if (node >= n) return;
   const int chunk = static_cast<int>(t - node * chunks);
-  const uint32_t h = hash32(static_cast<uint32_t>(node) + offset);
-  const uint32_t idx = h & ((1u << precision) - 1u);
-  const int rest = static_cast<int>(h >> precision);
-  const int top = (1 << bits) - 1;
-  int rho = rest == 0 ? top : __clz(rest) - precision + 1;
-  rho = min(max(rho, 1), top);
+  const uint32_t code = singleton_code(static_cast<uint32_t>(node), offset, precision, bits);
+  const uint32_t idx = code & 0xFFFFu;
   uint32_t words[4] = {0u, 0u, 0u, 0u};
   if (static_cast<int>(idx >> 4) == chunk) {
     const int byte = idx & 15;
-    words[byte >> 2] = static_cast<uint32_t>(static_cast<uint8_t>(rho)) << (8 * (byte & 3));
+    words[byte >> 2] = (code >> 16) << (8 * (byte & 3));
   }
   out[t] = make_uint4(words[0], words[1], words[2], words[3]);
 }
@@ -113,6 +149,154 @@ __global__ void hop_kernel(const int32_t* __restrict__ row_ptr,
     acc = vmax4(acc, __ldg(in + col * in_stride + chunk));
   }
   out[row * out_stride + chunk] = acc;
+}
+
+// ------------------------------------------------ the singleton route
+constexpr int kBallWarps = 8;    // rows a block, a warp each
+constexpr int kRowUnroll = 2;    // ids of the row's own list in flight a lane
+constexpr int kBallUnroll = 4;   // ids of its neighbours' rows in flight a lane
+
+// Takes the max of each lane's codes' values (code 0: none) into their
+// registers, bytes of the row's registers in shared memory, for the whole
+// warp at once. A byte store may land under a larger one that raced it, so
+// each lane stores while its byte holds less, then reads it back, and a
+// lane whose value lost stores again; no atomics. Every lane calls it.
+template <int U>
+__device__ __forceinline__ void put_codes(volatile uint8_t* regs, const uint32_t (&codes)[U]) {
+  unsigned pending = 0;
+#pragma unroll
+  for (int q = 0; q < U; ++q) pending |= static_cast<unsigned>(codes[q] != 0u) << q;
+  while (__any_sync(kFull, pending != 0)) {
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const uint32_t idx = codes[q] & 0xFFFFu, rho = codes[q] >> 16;
+      if ((pending >> q & 1u) && regs[idx] < rho) regs[idx] = static_cast<uint8_t>(rho);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const uint32_t idx = codes[q] & 0xFFFFu, rho = codes[q] >> 16;
+      if ((pending >> q & 1u) && regs[idx] >= rho) pending &= ~(1u << q);
+    }
+    __syncwarp();
+  }
+}
+
+// Hop 2 of the singletons' sketches by the dense route, a warp a row: v's
+// hop-1 row and its neighbours', a byte-wise max. Lanes take (neighbour
+// slot, 16-byte piece) pairs. hop1 and out are [N, stride] in units of 16
+// bytes; a row's registers are its first `chunks` units.
+__global__ void __launch_bounds__(kBallWarps * 32) hop2_dense_kernel(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols, int64_t n,
+    int chunks, const uint4* __restrict__ hop1, uint4* __restrict__ out, int64_t stride) {
+  const int lane = threadIdx.x & 31;
+  const int64_t v = blockIdx.x * static_cast<int64_t>(kBallWarps) + (threadIdx.x >> 5);
+  if (v >= n) return;  // uniform across the warp
+  const int32_t vs = __ldg(row_ptr + v), ve = __ldg(row_ptr + v + 1);
+  const int width = min(chunks, 32);
+  const int slots = 32 / width, slot = lane / width;
+  for (int ch = lane % width; ch < chunks; ch += width) {  // the same count on every lane
+    uint4 acc = slot == 0 ? __ldg(hop1 + v * stride + ch) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 4
+    for (int32_t a = vs + slot; a < ve; a += slots) {
+      const int64_t u = __ldg(cols + a);
+      acc = vmax4(acc, __ldg(hop1 + u * stride + ch));
+    }
+    for (int off = width; off < 32; off <<= 1) {
+      acc.x = __vmaxu4(acc.x, __shfl_xor_sync(kFull, acc.x, off));
+      acc.y = __vmaxu4(acc.y, __shfl_xor_sync(kFull, acc.y, off));
+      acc.z = __vmaxu4(acc.z, __shfl_xor_sync(kFull, acc.z, off));
+      acc.w = __vmaxu4(acc.w, __shfl_xor_sync(kFull, acc.w, off));
+    }
+    if (slot == 0) out[v * stride + ch] = acc;
+  }
+}
+
+// Hop 1 (SECOND false) or hop 2 by the id route of the singletons'
+// sketches, a warp a row. out is [N, stride] in units of 16 bytes; a row's
+// registers are its first M / 16 units.
+template <bool SECOND>
+__device__ __forceinline__ void id_ball(const int32_t* __restrict__ row_ptr,
+                                        const int32_t* __restrict__ cols, int64_t n,
+                                        int precision, int bits, uint32_t offset,
+                                        uint4* __restrict__ out, int64_t stride) {
+  extern __shared__ uint4 ball_smem[];
+  const int chunks = (1 << precision) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t v = blockIdx.x * static_cast<int64_t>(kBallWarps) + warp;
+  if (v >= n) return;  // uniform across the warp
+  const int32_t vs = __ldg(row_ptr + v), ve = __ldg(row_ptr + v + 1);
+  uint4* regs4 = ball_smem + warp * chunks;
+  volatile uint8_t* regs = reinterpret_cast<volatile uint8_t*>(regs4);
+  for (int ch = lane; ch < chunks; ch += 32) regs4[ch] = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+  // v itself (position vs - 1), then its row.
+  for (int32_t j0 = vs - 1; j0 < ve; j0 += 32 * kRowUnroll) {
+    uint32_t codes[kRowUnroll];
+#pragma unroll
+    for (int q = 0; q < kRowUnroll; ++q) {
+      const int32_t j = j0 + q * 32 + lane;
+      const int64_t id = j >= ve ? -1 : (j < vs ? v : __ldg(cols + j));
+      codes[q] = id < 0 ? 0u
+                        : singleton_code(static_cast<uint32_t>(id), offset, precision, bits);
+    }
+    put_codes(regs, codes);
+  }
+  if (SECOND) {
+    for (int32_t j0 = vs; j0 < ve; j0 += 32) {
+      // Lane l holds neighbour j0 + l's row; the rows end to end are the ids.
+      int32_t start = 0, len = 0;
+      if (j0 + lane < ve) {
+        const int32_t u = __ldg(cols + j0 + lane);
+        start = __ldg(row_ptr + u);
+        len = __ldg(row_ptr + u + 1) - start;
+      }
+      int32_t incl = len;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int32_t t = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += t;
+      }
+      const int32_t total = __shfl_sync(kFull, incl, 31);
+      const int32_t excl = incl - len;
+      for (int32_t k0 = 0; k0 < total; k0 += 32 * kBallUnroll) {
+        int32_t w[kBallUnroll];
+#pragma unroll
+        for (int q = 0; q < kBallUnroll; ++q) {
+          const int32_t k = k0 + q * 32 + lane;
+          int owner = 0;  // the last lane whose rows start at or before k
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+            if (__shfl_sync(kFull, excl, owner + step) <= k) owner += step;
+          }
+          const int32_t at = __shfl_sync(kFull, start, owner) + k - __shfl_sync(kFull, excl, owner);
+          w[q] = k < total ? __ldg(cols + at) : -1;
+        }
+        uint32_t codes[kBallUnroll];
+#pragma unroll
+        for (int q = 0; q < kBallUnroll; ++q) {
+          codes[q] = w[q] < 0 ? 0u
+                              : singleton_code(static_cast<uint32_t>(w[q]), offset, precision, bits);
+        }
+        put_codes(regs, codes);
+      }
+    }
+  }
+  __syncwarp();
+  uint4* row_out = out + v * stride;
+  for (int ch = lane; ch < chunks; ch += 32) row_out[ch] = regs4[ch];
+}
+
+__global__ void __launch_bounds__(kBallWarps * 32) hop1_ids_kernel(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols, int64_t n,
+    int precision, int bits, uint32_t offset, uint4* __restrict__ out, int64_t stride) {
+  id_ball<false>(row_ptr, cols, n, precision, bits, offset, out, stride);
+}
+
+__global__ void __launch_bounds__(kBallWarps * 32) hop2_ids_kernel(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols, int64_t n,
+    int precision, int bits, uint32_t offset, uint4* __restrict__ out, int64_t stride) {
+  id_ball<true>(row_ptr, cols, n, precision, bits, offset, out, stride);
 }
 
 // One bit (the top one) set for each zero byte of w.
@@ -414,6 +598,35 @@ int ebt_hll_hop(const void* row_ptr, const void* cols, const void* in,
       static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(cols),
       static_cast<const uint4*>(in), in_stride / 16, static_cast<uint4*>(out),
       out_stride / 16, n, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Hop 1 (route 0) or hop 2 of the singletons' sketches at precision 4-12,
+// hop 2 by the id route (route 1) or the dense route (route 2, from the
+// hop-1 rows at hop1): out (and hop1) rows of 2^precision registers at
+// byte stride `stride` (a multiple of 16), 16-byte aligned.
+int ebt_hll_ball(const void* row_ptr, const void* cols, long long n, int precision, int bits,
+                 unsigned offset, int route, const void* hop1, void* out, long long stride,
+                 void* stream) {
+  if (n == 0) return 0;
+  const size_t smem = static_cast<size_t>(kBallWarps) << precision;
+  const unsigned blocks = static_cast<unsigned>((n + kBallWarps - 1) / kBallWarps);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* rp = static_cast<const int32_t*>(row_ptr);
+  const auto* c = static_cast<const int32_t*>(cols);
+  auto* o = static_cast<uint4*>(out);
+  if (route == 0) {
+    hop1_ids_kernel<<<blocks, kBallWarps * 32, smem, st>>>(rp, c, n, precision, bits, offset, o,
+                                                           stride / 16);
+  } else if (route == 1) {
+    hop2_ids_kernel<<<blocks, kBallWarps * 32, smem, st>>>(rp, c, n, precision, bits, offset, o,
+                                                           stride / 16);
+  } else if (route == 2) {
+    hop2_dense_kernel<<<blocks, kBallWarps * 32, 0, st>>>(
+        rp, c, n, (1 << precision) / 16, static_cast<const uint4*>(hop1), o, stride / 16);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

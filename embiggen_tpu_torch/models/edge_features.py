@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..graph.graph import Graph
-from ..ops.hll import edge_sketch_features, khop_sketches, singleton_registers
+from ..ops.hll import edge_sketch_features, khop_sketches_of_singletons
 from .abstract import AbstractEmbeddingModel
 from .embedding_result import EmbeddingResult
 from .registry import register_model
@@ -106,10 +106,9 @@ class HyperSketching(AbstractEmbeddingModel, AbstractEdgeFeature):
 
     # ------------------------------------------------- AbstractEdgeFeature
     def fit(self, support: Graph) -> "HyperSketching":
-        base = singleton_registers(support.number_of_nodes, self._precision, self._bits,
-                                   seed=self.random_state or 0, device=self.device)
-        self._sketches = khop_sketches(support.device(self.device), base,
-                                       self._number_of_hops)
+        self._sketches = khop_sketches_of_singletons(
+            support.device(self.device), self._number_of_hops, self._precision, self._bits,
+            seed=self.random_state or 0)
         return self
 
     def is_fit(self) -> bool:

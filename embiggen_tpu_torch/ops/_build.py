@@ -86,6 +86,7 @@ _SIGNATURES = {
     "ebt_min_plus_step": ((_P,) * 6 + (_I64, _I32, _I32, _P), _I32),
     "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),
     "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P), _I32),
+    "ebt_hll_ball": ((_P, _P, _I64, _I32, _I32, _U32, _I32, _P, _P, _I64, _P), _I32),
     "ebt_hll_edge_features": ((_P, _I32, _I32, _P, _P, _I64, _F32, _P, _P), _I32),
     "ebt_sketch_candidates": ((_P, _P, _P, _I64, _I32, _I32, _F32, _I32, _P), _I32),
     "ebt_sketch_race_step": ((_P, _P, _P, _I32) + (_P,) * 4 + (_I64, _I32, _I32, _P), _I32),
@@ -110,7 +111,8 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
      "cooccurrences", "glove_gradients", "glove_node_update", "glove_context_update",
      "min_plus_step", "hll_registers",
-     "khop_sketches", "edge_sketch_features", "sketch_candidates", "sketch_race_step",
+     "khop_sketches", "sketch_hop1", "sketch_hop2", "edge_sketch_features",
+     "sketch_candidates", "sketch_race_step",
      "halo_spmm", "halo_spmm_backward", "sharded_spmm", "owned_gather", "owned_count",
      "owned_scatter", "sddmm", "edge_chunk", "chunk_mask"), 0,
 )

@@ -5,8 +5,10 @@ allocation and preferential attachment of (src, dst) pairs.
 The endpoint of lower degree is expanded: its first `cap` arcs (in row
 order) are tested for membership in the other endpoint's sorted CSR row, so
 pairs whose lower degree exceeds `cap` are truncated, as in the reference.
-On a CUDA graph this is kernel K8 (`csrc/edge_metrics.cu`); on a CPU graph
-the plain version below, which is the reference's program in torch.
+On a CUDA graph this is kernel K8 (`csrc/edge_metrics.cu`): a group of 8
+lanes a pair holds the other row in its registers when it has at most
+`HELD` ids, and searches longer rows in device memory. On a CPU graph the
+plain version below, which is the reference's program in torch.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ EDGE_METRIC_NAMES = [
     "PreferentialAttachment",
 ]
 N_EDGE_METRICS = len(EDGE_METRIC_NAMES)
+# Ids of the other row K8's group holds in its registers (8 lanes of
+# `kHeld` = 8 ids in the source).
+HELD = 64
 
 
 def edge_metrics_plain(

@@ -9,6 +9,13 @@
   register-wise max over a node and its out-neighbours; K16a's hop launch
   once per hop. The reference returns [H, N, M] and its caller transposes;
   the port keeps [N, H, M], which is what the per-pair gathers read.
+- `khop_sketches_of_singletons`: the same sketches from the singletons,
+  byte for byte, as HyperSketching fits them: K16a's singleton route reads
+  ids where the hops read registers (hop 1 hashes v and its row's ids; hop
+  2 takes, for every row, the id route over its neighbours' rows, the
+  dense route over their hop-1 registers or the hop launch, as
+  `hop2_route` picks from the degrees), then the hop launch from hop 3
+  on. No singletons launch runs.
 - `hll_cardinality`: the estimate over the last axis (plain torch).
 - `edge_sketch_features`: [B, H^2 + 2H] overlaps and differences of each
   (src, dst) pair's balls; kernel K16b, which never forms the [B, H, H, M]
@@ -21,7 +28,7 @@ PyTorch has no clz and no dependable uint32 multiply on the CPU.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -32,6 +39,28 @@ from .bfs import arc_rows
 _MASK32 = 0xFFFFFFFF
 # Bytes per chunk of the plain versions' gathers (about 256 MB).
 _CHUNK_BYTES = 1 << 28
+# Hop 2 of the singleton route takes one route for every row of a launch,
+# which `hop2_route` picks from the graph's mean and largest degree. The id
+# route where a neighbour's row of the mean degree, 4 mean bytes of ids, is
+# at most HOP2_ID_PERCENT % of the M register bytes the dense route reads
+# for it: on an H100 (80GB HBM3, 700 W) it took about 3.5 times the dense route's
+# time a byte (erdos_renyi(1M, 10M), precision 8: 1.76 GB of ids in 1.95 ms
+# against 5.4 GB of registers in 1.72; PERF.md).
+HOP2_ID_PERCENT = 30
+# A warp forms a row, so a row whose id route reads more ids than this
+# outlasts the launch (a hub's 35,000 neighbours of degree 38 took over
+# 20 ms alone on the H100).
+HOP2_WARP_IDS = 1 << 16
+# The dense route takes 32 / (M / 16) neighbours of a row at once: it beats
+# the hop launch where that is 16 or more, at M up to HOP2_DENSE_M.
+HOP2_DENSE_M = 32
+# A row longer than this is a long serial walk for the hop launch, which
+# gives each 16-byte piece of a row one thread: on a graph with such rows
+# the dense route beats it up to M 256.
+HOP2_LONG_ROW = 1024
+# "ids" and "dense": hop 2 by the singleton route's launch on that route;
+# "hop": by the hop launch, as every later hop.
+HOP2_ROUTES = ("ids", "dense", "hop")
 
 
 def hash32(x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +136,74 @@ def khop_sketches_plain(tg: TorchGraph, base: torch.Tensor, hops: int) -> torch.
                               "amax", include_self=True)
         out[:, h] = nxt
         current = nxt
+    return out
+
+
+def hop2_route(tg: TorchGraph, precision: int) -> str:
+    """The route of hop 2 on the singleton route, from the graph's mean and
+    largest degree: "ids" where a neighbour's row of the mean degree reads
+    fewer bytes than HOP2_ID_PERCENT % of its M registers and no row's id
+    route (its degree times the mean degree + 1) exceeds HOP2_WARP_IDS;
+    else "dense" at M up to HOP2_DENSE_M, or up to 256 with rows longer
+    than HOP2_LONG_ROW; else "hop", the hop launch. It picks the fastest
+    route measured at every precision from 4 to 12 on an H100 (PERF.md):
+    on erdos_renyi(1M, 10M) dense at 4-5, hop at 6-8, ids at 9-12; with
+    256 hubs of 4,096-65,536 neighbours added, dense at 4-8, hop at 9-12."""
+    m = 1 << precision
+    mean = tg.n_arcs / max(tg.n_nodes, 1)
+    if tg.n_arcs == 0:
+        return "hop"
+    longest = int(tg.degrees.max())
+    if 400 * mean <= HOP2_ID_PERCENT * m and longest * (mean + 1) <= HOP2_WARP_IDS:
+        return "ids"
+    if m <= HOP2_DENSE_M or (m <= 256 and longest > HOP2_LONG_ROW):
+        return "dense"
+    return "hop"
+
+
+def khop_sketches_of_singletons_plain(tg: TorchGraph, hops: int, precision: int = 8,
+                                      bits: int = 6, seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K16a's singleton route: the plain hops over
+    the plain singletons (every route gives these bytes)."""
+    base = singleton_registers_plain(tg.n_nodes, precision, bits, seed, tg.col_idx.device)
+    return khop_sketches_plain(tg, base, hops)
+
+
+def khop_sketches_of_singletons(
+    tg: TorchGraph, hops: int, precision: int = 8, bits: int = 6, seed: int = 0,
+    route: Optional[str] = None,
+) -> torch.Tensor:
+    """[N, hops, 2^precision] uint8 sketches of the 1..hops-hop balls from
+    the singletons: `khop_sketches(tg, singleton_registers(N, precision,
+    bits, seed), hops)` byte for byte. On a CUDA graph K16a's singleton
+    route: hop 1 from the ids; hop 2 by `route` (one of HOP2_ROUTES;
+    None: as `hop2_route` picks); then the hop launch. The plain version
+    on a CPU graph."""
+    if not 4 <= precision <= 12:
+        raise ValueError("precision must be in [4, 12]")
+    if hops < 1:
+        raise ValueError(f"hops must be positive, got {hops}.")
+    if route is not None and route not in HOP2_ROUTES:
+        raise ValueError(f"route must be one of {HOP2_ROUTES}, got {route!r}.")
+    if not _build.is_cuda(tg.col_idx):
+        return khop_sketches_of_singletons_plain(tg, hops, precision, bits, seed)
+    dev = tg.device
+    n, m = tg.n_nodes, 1 << precision
+    _build.check(tg.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
+    _build.check(tg.col_idx, "col_idx", torch.int32, None, dev)
+    out = torch.empty((n, hops, m), dtype=torch.uint8, device=dev)
+    stride, offset = hops * m, seed_offset(seed)
+    rp, cols = tg.row_ptr.data_ptr(), tg.col_idx.data_ptr()
+    _build.launch("sketch_hop1", "ebt_hll_ball", dev, rp, cols, n, precision, bits, offset, 0,
+                  None, out.data_ptr(), stride)
+    route = route or (hop2_route(tg, precision) if hops >= 2 else "hop")
+    ball_hop2 = hops >= 2 and route != "hop"
+    if ball_hop2:
+        _build.launch("sketch_hop2", "ebt_hll_ball", dev, rp, cols, n, precision, bits, offset,
+                      1 if route == "ids" else 2, out.data_ptr(), out.data_ptr() + m, stride)
+    for h in range(2 if ball_hop2 else 1, hops):
+        _build.launch("khop_sketches", "ebt_hll_hop", dev, rp, cols,
+                      out.data_ptr() + (h - 1) * m, stride, out.data_ptr() + h * m, stride, n, m)
     return out
 
 

@@ -3,7 +3,7 @@ steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
                                                          k18 nodesketch k16b gcn_hll k13b glove
-                                                         k14 k9]
+                                                         k14 k9 k8 k16a]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -78,7 +78,24 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   100, the slice graph's ELL table): five means of 20 calls on CUDA events,
   and ptxas' report (registers, stack and spills) of the K9 kernels the
   checkout built, so that a change to K9's source can show that its
-  untyped kernels compile as they did.
+  untyped kernels compile as they did;
+- K8 at 2^20 pairs (half arcs, half uniform pairs) on the slice graph and
+  on it plus 256 planted hubs (4,096 of the uniform pairs between two of
+  the 256 highest-degree nodes): 20 calls on CUDA events; the K8
+  Perceptron fit (Degree,
+  AdamicAdar, JaccardCoefficient, CosineSimilarity over seeded D-128
+  features, 15 epochs): seconds, K8's launches and their time on CUDA
+  events; and the S3 GCN step with `use_edge_metrics`: the mean step time
+  over 20 steady steps and K8's launch time in 10 of them;
+- K16a at HyperSketching's three hops (seed 42, bits 6) at each precision
+  from 4 to 12 on the slice graph and the planted-hub graph: the sketches'
+  mean time over 5 calls, and each launch's (singletons and hops, or the
+  singleton route's hop 1, hop 2 and hop 3) on CUDA events; in a checkout
+  with the singleton route, the route `hop2_route` picks for hop 2 and hop
+  2's launch, in the three hops' layout, on each route (the id route, the
+  dense route and the hop launch on the slice graph; the dense route and
+  the hop launch on the hub graph, where a hub's id route outlasts the
+  launch); and a HyperSketching fit at its defaults, 5 times (seconds).
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -606,6 +623,118 @@ def gcn_hll_times(graph, dev) -> dict:
     return out
 
 
+K8_PAIRS, K8_HUB_PAIRS = 1 << 20, 4096
+
+
+def k8_pairs(graph, dev, hub_pairs: int):
+    """chip_smoke.py's K8 pairs: half arcs, half uniform pairs, the last
+    `hub_pairs` of them between two of the 256 highest-degree nodes."""
+    rng = np.random.default_rng(28)
+    n = graph.number_of_nodes
+    arc = rng.integers(0, graph.number_of_directed_edges, K8_PAIRS // 2)
+    rest = K8_PAIRS - K8_PAIRS // 2
+    hubs = np.argsort(-graph.degrees, kind="stable")[:256]
+    pick = [np.concatenate([rng.integers(0, n, rest - hub_pairs), rng.choice(hubs, hub_pairs)])
+            for _ in range(2)]
+    return (torch.from_numpy(np.concatenate([graph.sources[arc], pick[0]]).astype(np.int32)).to(dev),
+            torch.from_numpy(np.concatenate([graph.col_idx[arc], pick[1]]).astype(np.int32)).to(dev))
+
+
+def gcn_step_of(model, graph, dev):
+    """A steady training step of a fitted edge GCN, on fresh parameters."""
+    from embiggen_tpu_torch.models.gcn.core import map_params, param_leaves
+
+    params = map_params(lambda t: t.clone().requires_grad_(True), model._params)
+    optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
+    tg = graph.device(dev, with_sources=True)
+    gen = torch.Generator().manual_seed(1)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        model._loss(params, model._csr_kernels, tg, None, gen, None).backward()
+        optimizer.step()
+    for _ in range(3):
+        step()
+    return step
+
+
+def k8_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.graph.sampling import _NEG_CACHE
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.ops import _build, edge_metrics as k8
+
+    out = {}
+    for name, g, hub_pairs in (("slice", graph, 0), ("hub_graph", planted_hubs(graph), K8_HUB_PAIRS)):
+        tg = g.device(dev)
+        src, dst = k8_pairs(g, dev, hub_pairs)
+        out[name] = time_ms(lambda: k8.edge_metrics(tg, src, dst), 20)
+        del tg, src, dst
+        torch.cuda.empty_cache()
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    _NEG_CACHE.clear()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    with _build.timed_launches() as events:
+        t0 = time.perf_counter()
+        PerceptronEdgePrediction(
+            edge_features=["Degree", "AdamicAdar", "JaccardCoefficient"],
+            edge_embeddings=["CosineSimilarity"], number_of_epochs=15, random_state=0,
+            device=dev).fit(graph, node_features=feats)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    out["perceptron"] = dict(fit_s=fit_s, k8_launches=_build.launch_counts()["edge_metrics"],
+                             k8_ms=sum(s.elapsed_time(e) for s, e in events["edge_metrics"]))
+    model = GCNEdgePrediction(epochs=1, batch_size=GCN_BATCH, dropout_rate=0.0,
+                              early_stopping_patience=10**6, random_state=0, device=dev,
+                              use_edge_metrics=True)
+    model.fit(graph, node_features=feats)
+    step = gcn_step_of(model, graph, dev)
+    out["gcn_edge_metrics"] = dict(step_ms=time_ms(step, 20),
+                                   k8_ms_per_step=launch_ms(step, 10)["edge_metrics"])
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def k16a_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.edge_features import HyperSketching
+    from embiggen_tpu_torch.ops import hll
+
+    routed = hasattr(hll, "khop_sketches_of_singletons")
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        tg = g.device(dev)
+        for p in range(4, 13):
+            if routed:
+                def sketches(hops=HLL_HOPS, route=None):
+                    return hll.khop_sketches_of_singletons(tg, hops, p, 6, 42, route)
+            else:
+                def sketches(hops=HLL_HOPS):
+                    base = hll.singleton_registers(g.number_of_nodes, p, 6, 42, dev)
+                    return hll.khop_sketches(tg, base, hops)
+            case = out[f"{name}_p{p}"] = dict(ms=time_ms(sketches, 5),
+                                               launches=launch_ms(sketches, 5))
+            if routed:
+                case["hop2_route"] = hll.hop2_route(tg, p)
+                forced = ("ids", "dense", "hop") if name == "slice" else ("dense", "hop")
+                case["hop2_forced"] = {route: launch_ms(lambda: sketches(HLL_HOPS, route), 5)[
+                    "khop_sketches_each" if route == "hop" else "sketch_hop2_each"][0]
+                    for route in forced}
+            torch.cuda.empty_cache()
+        del tg
+        torch.cuda.empty_cache()
+    fits = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        HyperSketching(device=dev).fit(graph)
+        torch.cuda.synchronize()
+        fits.append(time.perf_counter() - t0)
+    out["hypersketching_fit_s"] = fits
+    return out
+
+
 GLOVE = dict(embedding_size=DIM, batch_size=65536, walk_length=GLOVE_WALK, window_size=2,
              iterations=1, early_stopping_patience=10**6)
 GLOVE_TABLES = ("node_embedding", "context_embedding", "center_bias", "context_bias")
@@ -768,7 +897,7 @@ def k9_times(graph, dev) -> dict:
 
 
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll", "k13b", "glove", "k14", "k9")
+         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a")
 
 
 def main() -> None:
@@ -791,7 +920,8 @@ def main() -> None:
     timers = dict(k13a=k13a_times, k4=k4_times, line=line_times, k12=k12_times,
                   walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
                   nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
-                  k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times)
+                  k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times,
+                  k8=k8_times, k16a=k16a_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

@@ -20,11 +20,14 @@ from embiggen_tpu_torch.ops.bfs import (
     anchor_init_from_sets, min_plus_step, min_plus_step_plain, multi_source_distances,
 )
 from embiggen_tpu_torch.ops.hll import (
-    edge_sketch_features, edge_sketch_features_plain, khop_sketches, khop_sketches_plain,
-    singleton_registers, singleton_registers_plain,
+    HOP2_ROUTES, edge_sketch_features, edge_sketch_features_plain, hop2_route, khop_sketches,
+    khop_sketches_of_singletons, khop_sketches_plain, singleton_registers,
+    singleton_registers_plain,
 )
 from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
-from embiggen_tpu_torch.ops.edge_metrics import edge_metrics, edge_metrics_plain
+from embiggen_tpu_torch.ops.edge_metrics import (
+    HELD, edge_metrics, edge_metrics_plain,
+)
 from embiggen_tpu_torch.ops.gather_probe import (
     table_gather_sums, tile_gather_sums, tile_gather_sums_plain,
 )
@@ -458,6 +461,72 @@ def test_edge_metrics_kernel_matches_plain(dev, which, cap):
     torch.testing.assert_close(got[:, 1], want[:, 1], rtol=1e-6, atol=0)
     torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0, atol=0)
     torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], rtol=1e-5, atol=1e-6)
+
+
+def _k8_spread_graph():
+    """A multigraph (duplicate arcs, self-loops, sorted rows) whose rows run
+    from 0 to 900 ids: most about 20, 60 of them 100-900, so other rows fall
+    on both sides of K8's register capacity (HELD = 64 ids)."""
+    rng = np.random.default_rng(9)
+    n = 3000
+    deg = rng.poisson(20, n)
+    deg[rng.choice(n, 60, replace=False)] = rng.integers(100, 900, 60)
+    deg[:5] = 0
+    src = np.repeat(np.arange(n), deg)
+    dst = rng.integers(0, n, len(src))
+    dst[::50] = src[::50]                                  # self-loops
+    dst[1::97] = dst[::97][:len(dst[1::97])]               # duplicate arcs
+    order = np.lexsort((dst, src))
+    return Graph(row_ptr=np.concatenate([[0], np.cumsum(deg)]),
+                 col_idx=dst[order].astype(np.int32), directed=True)
+
+
+def _k8_held(got, want, deg, src, dst):
+    """K8 against its plain version: the common-neighbour counts (from
+    Jaccard and the degree sum) and preferential attachment exactly,
+    Jaccard within 1e-6, Adamic-Adar and resource allocation within the sum
+    tolerance (their terms add in another order)."""
+    total = (deg[src] + deg[dst]).double()
+
+    def inter(m):
+        jac = m[:, 1].double()
+        return torch.round(jac * total / (1.0 + jac))
+    assert torch.equal(inter(got), inter(want))
+    torch.testing.assert_close(got[:, 3], want[:, 3], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, 1], want[:, 1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got[:, [0, 2]], want[:, [0, 2]], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cap", [4, 128, 1000])
+def test_edge_metrics_kernel_routes_match_plain(dev, seed, cap):
+    """K8 against its plain version on pairs whose other row is held in
+    registers and pairs whose other row is longer than HELD ids (samples
+    bracketing a search in device memory), pairs reaching the cap,
+    self-pairs, zero-degree endpoints and a batch that leaves part of the
+    last warp empty."""
+    g = _k8_spread_graph()
+    tg = g.device(dev)
+    n = g.number_of_nodes
+    rng = np.random.default_rng(seed * 1000 + cap)
+    long_rows = np.flatnonzero(g.degrees > 99)
+    arcs = rng.integers(0, g.number_of_directed_edges, 2000)
+    src = np.concatenate([g.sources[arcs], rng.integers(0, n, 2000), rng.choice(long_rows, 300),
+                          rng.integers(0, n, 200), np.arange(5), [3]])
+    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, n, 2000), rng.choice(long_rows, 300),
+                          src[4300:4500], rng.integers(0, n, 5), [3]])
+    degs = g.degrees
+    other = np.maximum(degs[src], degs[dst])
+    assert (other > HELD).sum() > 100 and (other <= HELD).sum() > 100
+    assert (np.minimum(degs[src], degs[dst]) > cap).any() == (cap < 900)
+    s = torch.from_numpy(src.astype(np.int32)).to(dev)
+    d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    before = _build.launch_counts()["edge_metrics"]
+    got = edge_metrics(tg, s, d, cap)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["edge_metrics"] == before + 1
+    want = edge_metrics_plain(tg, s, d, cap=cap)
+    _k8_held(got, want, tg.degrees.long(), s.long(), d.long())
 
 
 def _ell_laws(g, tg, rw, ew, cap):
@@ -1276,6 +1345,71 @@ def test_khop_sketches_kernel_matches_plain(dev, kind, precision, hops):
     assert torch.equal(got.cpu(), khop_sketches_plain(g.device("cpu"), base.cpu(), hops))
 
 
+def _sketch_hubs_graph():
+    """`_sketch_graph("er")` plus a hub joined to 1,000 of its nodes and
+    4,000 new leaves (a row longer than M at every precision up to 12) and
+    a second hub of 300 random neighbours."""
+    g = _sketch_graph("er")
+    rng = np.random.default_rng(23)
+    n = g.number_of_nodes
+    hub_src = np.repeat([n, n + 1], [5000, 300])
+    hub_dst = np.concatenate([rng.choice(n, 1000, replace=False), np.arange(n + 2, n + 4002),
+                              rng.integers(0, n, 300)])
+    one = g.sources < g.col_idx
+    return Graph.from_edge_arrays(np.concatenate([g.sources[one], hub_src]),
+                                  np.concatenate([g.col_idx[one], hub_dst]), n_nodes=n + 4002)
+
+
+@pytest.mark.parametrize("kind", ["er", "components", "directed", "hubs"])
+@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("route", (None,) + HOP2_ROUTES)
+def test_singleton_route_kernel_matches_plain(dev, kind, precision, route):
+    """K16a's singleton route (hop 1; hop 2 forced onto each route, or as
+    `hop2_route` picks it; hop 3 by the hop launch) equals the dense hops
+    over the plain singletons byte for byte, and no singletons launch
+    runs."""
+    g = _sketch_hubs_graph() if kind == "hubs" else _sketch_graph(kind)
+    n = g.number_of_nodes
+    cpu = g.device("cpu")
+    by_ball = (route or hop2_route(cpu, precision)) != "hop"
+    before = _build.launch_counts()
+    got = khop_sketches_of_singletons(g.device(dev), 3, precision, 6, 3, route)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in (
+        "sketch_hop1", "sketch_hop2", "khop_sketches", "hll_registers")} == {
+        "sketch_hop1": 1, "sketch_hop2": int(by_ball), "khop_sketches": 2 - by_ball,
+        "hll_registers": 0}
+    want = khop_sketches_plain(cpu, singleton_registers_plain(n, precision, 6, 3), 3)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_singleton_route_kernel_takes_the_hop_launch_where_the_rule_picks_it(dev):
+    """At precision 8 on a graph of mean degree 27 without long rows,
+    `hop2_route` picks the hop launch for hop 2, from the singleton route's
+    hop 1."""
+    g = erdos_renyi(3000, 40000, seed=1)
+    assert hop2_route(g.device("cpu"), 8) == "hop"
+    before = _build.launch_counts()
+    got = khop_sketches_of_singletons(g.device(dev), 3, 8, 6, 0)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in ("sketch_hop1", "sketch_hop2", "khop_sketches")} \
+        == {"sketch_hop1": 1, "sketch_hop2": 0, "khop_sketches": 2}
+    want = khop_sketches_plain(g.device("cpu"), singleton_registers_plain(3000, 8, 6, 0), 3)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("hops", [1, 2, 6])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_singleton_route_kernel_at_other_hops(dev, hops, seed):
+    g = _sketch_hubs_graph()
+    got = khop_sketches_of_singletons(g.device(dev), hops, 8, 6, seed)
+    want = khop_sketches_plain(g.device("cpu"), singleton_registers_plain(
+        g.number_of_nodes, 8, 6, seed), hops)
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("precision", range(4, 13))
 @pytest.mark.parametrize("hops", [1, 2, 3, 6])
 def test_edge_sketch_features_kernel_matches_plain(dev, precision, hops):
@@ -1349,8 +1483,14 @@ def test_gcn_with_edge_features_on_card(dev):
         number_of_hops=2, precision=6, device=dev)], **kw)
     model.fit(g, node_features=feats, edge_features=[static])
     after = _build.launch_counts()
-    for name in ("edge_sketch_features", "khop_sketches", "hll_registers", "csr_edge_ids"):
+    for name in ("edge_sketch_features", "sketch_hop1", "csr_edge_ids"):
         assert after[name] > before[name], name
+    # Hop 2 at precision 6 on a graph of mean degree 12 without long rows:
+    # the hop launch; never the singletons launch.
+    assert hop2_route(g.device("cpu"), 6) == "hop"
+    assert after["sketch_hop2"] == before["sketch_hop2"]
+    assert after["khop_sketches"] > before["khop_sketches"]
+    assert after["hll_registers"] == before["hll_registers"]
     proba = model.predict_proba(g)
     assert proba.shape == (g.number_of_directed_edges,) and np.isfinite(proba).all()
     cpu = GCNEdgePrediction(device="cpu", edge_feature_models=[HyperSketching(
