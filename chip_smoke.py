@@ -4,7 +4,12 @@
     python3 chip_smoke.py [--profile]
 
 Phases, one line each (with its seconds), in order; any failure raises and
-the exit code is not 0:
+the exit code is not 0. The quality phases (9, 13, 16, 20, 23, 27 and 30:
+host-bound training on the gate fixture, timing no kernel) run in a second
+process (`--quality`, on the kernels phase 2 built) beside phase 10, and
+their lines follow phase 10's; the host graphs of later phases (the hub
+graphs, the weighted twin, the typed slice graph) are built on a worker
+thread while the phases before them run:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the kernels from `embiggen_tpu_torch/csrc/` with nvcc;
   3. K1-K4 against their plain PyTorch versions on the card, at the shapes
@@ -18,13 +23,19 @@ the exit code is not 0:
      tables after the combine atol 1e-5: atomics add in no fixed order; the
      sums and counts all zero after the combine); K4's standalone mean
      scatter at the flagship shapes (atol 1e-5);
-     K1 and K2, which are samplers, by arc
+     K1, K2 and the fused first-order batch (the S1 step's starts, walks
+     and negatives in one launch), which are samplers, by arc
      validity and chi-square tests (fail at p < 1e-3): on small weighted
      and unweighted graphs against the exact distributions, and on the
      slice graph at the slice shapes against both the exact distributions
      and their plain versions, with draws binned by node degree and by
      blocks of node ids; K2 also over the slice graph's 20M arc ids (bins
-     and the count of repeated arcs). Every sampler test uses fixed seeds;
+     and the count of repeated arcs); the fused batch's starts tiled over
+     3 iterations, and its streams independent (a walker's start, first
+     step and negatives by chi-square on their joint bins,
+     `tests/walk_batch_laws.py`). Every sampler test uses fixed seeds. K1's
+     and the fused batch's chain floors (256 walkers alone), and K2 and the
+     fused batch on a fit's workspace (one key, an offset a launch);
   4. K5-K7, P1 and P2 against their plain versions at the shapes of the
      link-prediction slice and the probe: K5 exactly on 2^20 queries over
      the 20M-arc graph, half of them arcs; K6 (2^20 slots) by its exact
@@ -45,15 +56,15 @@ the exit code is not 0:
   5. S1: three SkipGram steps on injected batches, kernel path against the
      plain path on the CPU; then `embed_graph` of Node2Vec SkipGram on
      erdos_renyi(1M nodes, 10M edges) at D=128, L=64, w=5, K=10, batch
-     32768, 2 epochs, with K1, K2, K3 and K4's combine launched, and not
-     K4's standalone scatter;
+     32768, 2 epochs, with the fused batch launched once a step, K3 and
+     K4's combine, and not K1, K2 or K4's standalone scatter;
   6. S3: three GCN Adam steps on injected batches, card against CPU from
      the same parameters; then the bench configuration: GCNEdgePrediction
      (units 128-128, Symmetric Normalized Laplacian, batch 2^20) for 2
      epochs on the same graph with seeded [1M, 128] features, and
      predict_proba on its 20M arcs, with K6 and K7 launched;
   7. S2: the harness configuration: PerceptronEdgePrediction (Degree +
-     CosineSimilarity, 15 epochs) on phase 5's embeddings, fitted and
+     CosineSimilarity, 3 of its 15 epochs) on phase 5's embeddings, fitted and
      scoring the 20M arcs, with K5 launched (the negative graph's
      membership test); then the same with the reference's own feature set
      (Degree, AdamicAdar, JaccardCoefficient), with K8 launched;
@@ -92,8 +103,9 @@ the exit code is not 0:
  12. S5: three CBOW steps on injected batches, card against CPU; then
      `embed_graph` of Node2Vec CBOW (return 2, explore 0.5, cap 100) on the
      slice graph at the S1 widths, 2 epochs, with K2, K9, K11 and K4's
-     combine launched and K1, K10 and K3 not; one epoch each of p/q
-     SkipGram (K9 and K3) and DeepWalk CBOW (K1 and K11); `random_walks` on
+     combine launched and K1, the fused batch, K10 and K3 not; one epoch
+     each of p/q SkipGram (K2, K9 and K3) and DeepWalk CBOW (the fused batch
+     and K11; not K1 or K2); `random_walks` on
      the graph exported without an ELL table, with K10 launched;
  13. S5 quality: Node2Vec CBOW p/q features (the gate's SkipGram settings)
      on the gate fixture's connected holdout, embedding seeds 0-3, fed to a
@@ -146,11 +158,13 @@ the exit code is not 0:
  19. S7: three injected steps of Walklets SkipGram, Walklets CBOW and
      Node2Vec GloVe, card against CPU (atol 1e-5); then `embed_graph` on
      the slice graph: Walklets SkipGram (D 128, power 4, batch 32768, L 64,
-     K 10; 2 epochs) and Walklets CBOW (1 epoch) with K1, K2, K12 and K4's
-     combine launched and K3, K11, K9 and K10 not, in pairs/s; Node2Vec
+     K 10; 2 epochs) and Walklets CBOW (1 epoch) with the fused batch (once
+     a step), K12 and K4's combine launched and K1, K2, K3, K11, K9 and K10
+     not, in pairs/s; Node2Vec
      GloVe (D 128, batch 65536, L 16, w 2, iterations 1; 1 epoch), with the
      co-occurrence build timed apart, and Walklets GloVe (power 4, L 16),
-     with K1, K13a, K2 and K13b launched; Role2Vec (D 128, 1 epoch) with K2
+     with K1, K13a, K2 (once a step, at the fit's key) and K13b launched;
+     Role2Vec (D 128, 1 epoch) with K2
      and K1; peak device memory of each;
  20. S7 quality: the reference's Walklets gate verbatim through
      `edge_prediction_evaluation` (test AUROC at least 0.85 and the
@@ -297,7 +311,7 @@ the exit code is not 0:
      through the three entry points, each launched, the scores equal to the
      whole sddmm's;
  34. S12: the 21 KGE rows through `embed_graph` on the typed slice graph at
-     D 128, batch 65536, one epoch (305 steps; the rows in S12_STEPS cut),
+     D 128, batch 65536, one epoch cut to S12_STEPS (20) steps,
      NodePiece at 256 anchors and 8 tokens (K15a), ConvE at 8 filters, each
      launching K14 once a step and no walk or K4 kernel: seconds, peak
      memory (the fit's own, and the total), and 5 steady steps' ms on CUDA
@@ -312,9 +326,12 @@ named by `library`),
 the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
+import concurrent.futures
 import dataclasses
 import json
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -324,6 +341,9 @@ import torch
 N_NODES, N_EDGES = 1_000_000, 10_000_000
 DIM, WALK, WINDOW, NEGS, BATCH = 128, 64, 5, 10, 32768
 P_MIN = 1e-3
+# The harness configuration's Perceptron trains 15 epochs (`bench.py:456-461`);
+# phase 7 times 3 of them, the fit's stages and its launches whole.
+S2_EPOCHS = 3
 ID_BLOCK = 1000   # node ids per bin in the slice-shape sampler tests
 ARC_BINS = 1000   # bins of arc ids in the slice-shape K2 and K6 tests
 PROFILE_STEPS = 10
@@ -508,6 +528,32 @@ def time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# At least 0.2 s of the card's clock (under 2 GHz): longer than the host
+# takes to enqueue the calls `queued_ms` times.
+SLEEP_CYCLES = 400_000_000
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call with the calls queued ahead of the
+    card: a sleep kernel holds the stream while the host enqueues them, so
+    the events time the device's work without the host's gaps (`time_ms`
+    times what a caller sees, host and device)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    if enqueue_s >= SLEEP_CYCLES / 2e9:
+        raise RuntimeError(f"enqueueing the calls took {enqueue_s} s, longer than the sleep")
     return start.elapsed_time(end) / reps
 
 
@@ -772,11 +818,102 @@ def slice_sampler_checks(graph, tg, first_order_walks, first_order_walks_plain,
     return p
 
 
+def fused_batch_checks(erdos_renyi, graph, tg, tg_walk, dev):
+    """The fused first-order batch (K1's walk and K2's draws in one launch)
+    against its exact laws (`tests/walk_batch_laws.py`; chi-square, fail at
+    p < P_MIN, fixed seeds): on small weighted and unweighted graphs with
+    scale-free and uniform negatives at 3 iterations (starts uniform and
+    tiled, every move an arc by the exact transitions, negatives by their
+    law; unweighted with scale-free negatives, a walker's start, first
+    step and negatives independent), and on the slice graph at the slice
+    shapes, binned by node degree and by blocks of node ids: the starts,
+    every move given its source and the negatives against the exact laws,
+    the starts, the first steps and the negatives against the plain
+    version's batch, and the streams' independence. On unweighted graphs
+    the batch read from the arcs' records (`tg_walk`: the slice graph
+    exported with them, as the walk models export it) must equal the batch
+    read from row_ptr (`tg`) draw for draw. Returns (max |empirical -
+    exact| arc probability on the small graphs, p-values by test)."""
+    from embiggen_tpu_torch.ops.negatives import first_order_batch, first_order_batch_plain
+
+    laws = laws_module("walk_batch_laws")
+    p, err = {}, 0.0
+
+    def same_on_records(name, rows_tg, records_tg, seed, *args):
+        """The batch on the records equals the batch on row_ptr from the
+        same key, draw for draw; returns the latter."""
+        got = first_order_batch(rows_tg, torch.Generator().manual_seed(seed), *args)
+        on_records = first_order_batch(records_tg, torch.Generator().manual_seed(seed), *args)
+        if not all(torch.equal(a, b) for a, b in zip(got, on_records)):
+            raise AssertionError(f"{name}: the batch on the arcs' records differs from the "
+                                 "batch on row_ptr from the same key")
+        return got
+    for weighted in (False, True):
+        g = erdos_renyi(200, 800, seed=7, weighted=weighted)
+        sg = g.device(dev, with_alias=weighted)
+        records = g.device(dev, with_walk_arcs=True)
+        sources = torch.repeat_interleave(torch.arange(sg.n_nodes, device=dev),
+                                          sg.degrees.long())
+        for scale_free in (True, False):
+            name = (f"small {'weighted' if weighted else 'unweighted'} "
+                    f"{'scale-free' if scale_free else 'uniform'}")
+            if weighted:
+                walks, negs = first_order_batch(sg, torch.Generator().manual_seed(21), 8000, 3,
+                                                24, NEGS, scale_free)
+            else:
+                walks, negs = same_on_records(name, sg, records, 21, 8000, 3, 24, NEGS,
+                                              scale_free)
+            got = laws.batch_p(sg, walks, negs, 8000, scale_free)
+            if not weighted and scale_free:
+                got.update(laws.stream_independence_p(sg, walks, negs, 8000, scale_free))
+            p.update({f"{name} {k}": v for k, v in got.items()})
+            src, arcs = laws.moves(sg, walks)
+            n_from = torch.bincount(src, minlength=sg.n_nodes).double()
+            seen = torch.bincount(arcs, minlength=sg.n_arcs).double()
+            err = max(err, float((seen / n_from[sources].clamp(min=1)
+                                  - laws.arc_probabilities(sg)).abs().max()))
+    # The slice shapes: one launch's batch against the exact laws and the
+    # plain version's batch.
+    n, deg = tg.n_nodes, tg.degrees.long()
+    keys = arc_keys(graph, dev)
+    plain = first_order_batch_plain(tg, torch.Generator(device=dev).manual_seed(23), BATCH, 1,
+                                    WALK, NEGS, True)
+    arc_positions(graph, plain[0], keys)
+    # Against the plain version: the starts, the first steps (independent
+    # walker to walker, where later moves follow their walk's path) and the
+    # negatives; every move against the exact law given its source. The
+    # records' batch is the rows' draw for draw, so the laws are held once.
+    walks, negs = same_on_records("slice", tg, tg_walk, 22, BATCH, 1, WALK, NEGS, True)
+    src, pos = arc_positions(graph, walks, keys)
+    per_source = torch.bincount(src, minlength=n).double() / deg.clamp(min=1)
+    moves_exact = torch.bincount(tg.col_idx.long(), weights=per_source[keys // n],
+                                 minlength=n)
+    uniform = torch.full((n,), BATCH / n, dtype=torch.float64, device=dev)
+    for part, got, exact in (("starts", walks[:, 0], uniform),
+                             ("moves", tg.col_idx[pos], moves_exact),
+                             ("negatives", negs, deg * (negs.numel() / tg.n_arcs))):
+        binned_tests(p, f"slice {part} vs exact", node_counts(tg, got),
+                     node_bins(tg, exact), True)
+    for part, got, want in (("starts", walks[:, 0], plain[0][:, 0]),
+                            ("first step", walks[:, 1], plain[0][:, 1]),
+                            ("negatives", negs, plain[1])):
+        binned_tests(p, f"slice {part} vs plain", node_counts(tg, got),
+                     node_counts(tg, want), False)
+    p.update({f"slice {k}": v for k, v in laws.stream_independence_p(
+        tg, walks, negs, BATCH, True).items()})
+    del walks, negs, src, pos
+    failed = {k: v for k, v in p.items() if v < P_MIN}
+    if failed:
+        raise AssertionError(f"fused first-order batch tests failed (p < {P_MIN}): {failed}")
+    return err, p
+
+
 # The CUDA functions each wrapper's count stands for, as torch.profiler names
 # them (a prefix where one launch runs several: K12's update and counts pass,
 # K13a's six).
 KERNEL_NAMES = {
     "first_order_walks": "first_order_walks_kernel", "nce_negatives": "node_draws_kernel",
+    "first_order_batch": "first_order_batch_kernel",
     "skipgram_nce_update": "skipgram_nce_kernel",
     "skipgram_mean_combine": "skipgram_combine_kernel", "csr_edge_ids": "csr_edge_ids_kernel",
     "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
@@ -1308,11 +1445,27 @@ def probe_checks(dev):
     return entries
 
 
-def hub_graph(graph, typed=False):
+# The host graphs later phases take are built on one worker thread while
+# the phases before them run (numpy's sorts release the GIL).
+_GRAPHS_WORKER = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+# hub_graph's graphs by (the graph it extends, typed): built once a run, as
+# every phase that checks a kernel on hubs takes the same seeded graph.
+_HUB_GRAPHS = {}
+
+
+def hub_graph(graph, typed=False, wait=True):
     """`graph` plus N_HUBS new nodes, each joined to 4,096-65,536 random
     nodes (hubs included). With `typed`, `graph`'s node and edge types are
     kept, and the hubs and their edges are typed at random among as many
-    types."""
+    types. Built once for `graph` on the worker thread; with `wait` False
+    only queued."""
+    key = (id(graph), typed)
+    if key not in _HUB_GRAPHS or _HUB_GRAPHS[key][0] is not graph:
+        _HUB_GRAPHS[key] = (graph, _GRAPHS_WORKER.submit(_planted_hubs, graph, typed))
+    return _HUB_GRAPHS[key][1].result() if wait else None
+
+
+def _planted_hubs(graph, typed):
     from embiggen_tpu_torch.graph import Graph
 
     rng = np.random.default_rng(27)
@@ -1492,27 +1645,29 @@ def quality_on_card(card, dev):
 
 def device_ms(calls, reps: int = 20) -> dict:
     """{counter: device milliseconds per call} of each wrapper in `calls`
-    ({counter: fn}, each fn one launch of that wrapper's kernel), from a
-    torch.profiler session per wrapper over `reps` calls after a warm-up:
-    the kernel alone, where `time_ms` also times the wrapper's host work."""
-    for fn in calls.values():
+    ({counter: fn}, each fn one launch of that wrapper's kernel; one fn may
+    stand for several counters), from one torch.profiler session over
+    `reps` calls of each distinct fn after a warm-up: the kernel alone,
+    where `time_ms` also times the wrapper's host work."""
+    fns = list({id(fn): fn for fn in calls.values()}.values())
+    for fn in fns:
         fn()
     torch.cuda.synchronize()
-    out = {}
-    for k, fn in calls.items():
-        def run(fn=fn):
+
+    def run():
+        for fn in fns:
             for _ in range(reps):
                 fn()
-        events, _, kept = profiled(run)
-        out[k] = sum(e.time_range.elapsed_us() for e in events
-                     if KERNEL_NAMES[k] in e.name) / 1e3 / kept[k]
-    return out
+    events, _, kept = profiled(run)
+    return {k: sum(e.time_range.elapsed_us() for e in events
+                   if KERNEL_NAMES[k] in e.name) / 1e3 / kept[k] for k in calls}
 
 
 def laws_module(name):
     """A module of exact sampler laws under `tests/` (shared with the tests,
     which import it the same way): `pq_laws`, the step laws of the p/q
-    samplers in numpy; `batch_laws`, the laws of K14's batches in torch."""
+    samplers in numpy; `batch_laws`, the laws of K14's batches in torch;
+    `walk_batch_laws`, the laws of the first-order walk batch in torch."""
     import importlib
 
     tests = str(Path(__file__).resolve().parent / "tests")
@@ -2820,6 +2975,7 @@ def glove_step_launches(graph, dev):
     from embiggen_tpu_torch.ops.glove import (
         GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries,
     )
+    from embiggen_tpu_torch.ops.negatives import BatchDraws
 
     gen = torch.Generator().manual_seed(0)
     glove = GloVe(device=dev, random_state=0, **S7_GLOVE)
@@ -2836,9 +2992,11 @@ def glove_step_launches(graph, dev):
     del walks
     batch = min(S7_WALKLETS_GLOVE["batch_size"], stride1.n_entries)
     ws = GloVeStepWorkspace.empty(batch, DIM // WALKLETS_POWER, dev)
+    # The ids at one key and an offset a step, as the Walklets GloVe fit draws them.
+    draws = BatchDraws(torch.empty((batch,), dtype=torch.int32, device=dev))
     steps = {"Node2Vec GloVe": lambda: glove._step(entries, params, gen, 0.05),
              "Walklets GloVe": lambda: walklets._glove_step(
-                 state, stride1, draw_entries(stride1, batch, gen), 0.05, ws)}
+                 state, stride1, draw_entries(stride1, batch, gen, draws), 0.05, ws)}
     want = {"nce_negatives": 1, **dict.fromkeys(S7_K13B, 1)}
     out = {}
     with torch.no_grad():
@@ -2851,7 +3009,7 @@ def glove_step_launches(graph, dev):
                 raise AssertionError(f"a {name} step launched {launched} (expected {want}) "
                                      f"and ran {others}")
             out[name] = (launched, others)
-    del params, stacked, state, entries, stride1, ws
+    del params, stacked, state, entries, stride1, ws, draws
     torch.cuda.empty_cache()
     return out
 
@@ -3966,8 +4124,8 @@ def s10_runs(typed, dev):
     from embiggen_tpu_torch.ops.walks import random_walks
 
     out = {}
-    walk_kernels = ("first_order_walks", "ell_walks", "ell_walks_typed", "rejection_walks",
-                    "exact_walks")
+    walk_kernels = ("first_order_walks", "first_order_batch", "ell_walks", "ell_walks_typed",
+                    "rejection_walks", "exact_walks")
     for label, name, epochs, kw, names, extra_unused in (
         ("typed SkipGram", "Node2Vec SkipGram", 2, S10_TYPED, S10_SKIPGRAM_KERNELS, ()),
         ("typed p/q CBOW", "Node2Vec CBOW", 1, dict(PQ, **S10_TYPED), S10_CBOW_KERNELS,
@@ -4094,11 +4252,10 @@ def nodesketch_fit(graph, dev):
 
 # The kernels each path must launch; each path runs with the counts set to
 # 0 just before it and read just after.
-S1_KERNELS = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
-              "skipgram_mean_combine")
-# K4 standalone serves the minibatch families (S6); the S1 step does not
-# launch it.
-S1_UNUSED = ("mean_scatter", "mean_combine")
+S1_KERNELS = ("first_order_batch", "skipgram_nce_update", "skipgram_mean_combine")
+# The S1 step draws its batch in the fused launch, never through K1 or K2;
+# K4 standalone serves the minibatch families (S6).
+S1_UNUSED = ("first_order_walks", "nce_negatives", "mean_scatter", "mean_combine")
 S2_KERNELS = ("csr_edge_ids",)
 S3_KERNELS = ("edge_prediction_mini_batch", "spmm")
 K8_KERNELS = ("edge_metrics",)
@@ -4106,35 +4263,37 @@ S4_KERNELS = S1_KERNELS + S2_KERNELS + S3_KERNELS
 PROBE_KERNELS = ("tile_gather_sums", "table_gather_sums")
 # S5: Node2Vec CBOW over p/q walks; a wrong route launches one of the others.
 S5_KERNELS = ("nce_negatives", "ell_walks", "cbow_update", "skipgram_mean_combine")
-S5_UNUSED = ("first_order_walks", "rejection_walks", "skipgram_nce_update", "mean_scatter",
-             "mean_combine")
+S5_UNUSED = ("first_order_walks", "first_order_batch", "rejection_walks",
+             "skipgram_nce_update", "mean_scatter", "mean_combine")
 PQ_SKIPGRAM_KERNELS = ("nce_negatives", "ell_walks", "skipgram_nce_update",
                        "skipgram_mean_combine")
-DEEPWALK_CBOW_KERNELS = ("nce_negatives", "first_order_walks", "cbow_update",
-                         "skipgram_mean_combine")
+DEEPWALK_CBOW_KERNELS = ("first_order_batch", "cbow_update", "skipgram_mean_combine")
 REJECTION_KERNELS = ("rejection_walks",)
 # S6: LINE draws its batch with K14 and updates through K4 standalone; the
 # siamese models draw theirs with K14 and scatter-add with index_add_. None
 # launches a walk or K3, K11.
 S6_LINE_KERNELS = ("line_mini_batch", "mean_scatter", "mean_combine")
 S6_SIAMESE_KERNELS = ("siamese_mini_batch",)
-S6_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update")
-# S7: Walklets SkipGram and CBOW step through K1, K2, K12 and K4's SkipGram
-# combine; the GloVe models build their entries with K1 and K13a and step
+S6_UNUSED = ("first_order_walks", "first_order_batch", "skipgram_nce_update", "ell_walks",
+             "cbow_update")
+# S7: Walklets SkipGram and CBOW step through the fused batch, K12 and K4's
+# SkipGram combine; the GloVe models build their entries with K1 and K13a and step
 # through K2's uniform draws and K13b's three launches, which update the
 # tables in place; Role2Vec walks with K2 and K1 and updates through
 # index_add_.
 S7_K13B = ("glove_gradients", "glove_node_update", "glove_context_update")
-S7_WALKLETS_KERNELS = ("first_order_walks", "nce_negatives", "walklets_update",
-                       "skipgram_mean_combine")
-S7_WALKLETS_UNUSED = ("skipgram_nce_update", "cbow_update", "ell_walks", "rejection_walks",
-                      "mean_scatter", "mean_combine", "cooccurrences") + S7_K13B
+S7_WALKLETS_KERNELS = ("first_order_batch", "walklets_update", "skipgram_mean_combine")
+S7_WALKLETS_UNUSED = ("first_order_walks", "nce_negatives", "skipgram_nce_update",
+                      "cbow_update", "ell_walks", "rejection_walks", "mean_scatter",
+                      "mean_combine", "cooccurrences") + S7_K13B
 S7_GLOVE_KERNELS = ("first_order_walks", "cooccurrences", "nce_negatives") + S7_K13B
-S7_GLOVE_UNUSED = ("walklets_update", "skipgram_nce_update", "skipgram_mean_combine",
-                   "mean_scatter", "mean_combine", "ell_walks", "rejection_walks")
+S7_GLOVE_UNUSED = ("first_order_batch", "walklets_update", "skipgram_nce_update",
+                   "skipgram_mean_combine", "mean_scatter", "mean_combine", "ell_walks",
+                   "rejection_walks")
 S7_ROLE2VEC_KERNELS = ("nce_negatives", "first_order_walks")
-S7_ROLE2VEC_UNUSED = ("walklets_update", "skipgram_nce_update", "cbow_update", "cooccurrences",
-                      "skipgram_mean_combine", "ell_walks") + S7_K13B
+S7_ROLE2VEC_UNUSED = ("first_order_batch", "walklets_update", "skipgram_nce_update",
+                      "cbow_update", "cooccurrences", "skipgram_mean_combine",
+                      "ell_walks") + S7_K13B
 # S8: SPINE relaxes with K15a; WINE hops, and RUBICONE and RUINE convolve,
 # with K7; HyperSketching sketches with K16a and queries K16b; the GCN with
 # lazy HyperSketching features adds K16 to its own kernels, and with a static
@@ -4668,7 +4827,8 @@ def s11_runs(graph, tg, dev, backend="nccl"):
                       "row_sharded": lambda p, m=model: m._make_row_sharded_step(mesh, BATCH)}
             model_paths(name, model, tg,
                         lambda m=model: m._initial_tables(graph, torch.Generator().manual_seed(0)),
-                        model._sample_batch(tg, gen, BATCH),
+                        # The draws live in a block the next draw overwrites.
+                        tuple(t.clone() for t in model._sample_batch(tg, gen, BATCH)),
                         [(kind, makers[kind], ("owned_gather", update, "owned_scatter"),
                           walk_unused) for kind in kinds])
             del model
@@ -4762,20 +4922,21 @@ K20_TOL = dict(rtol=1e-5, atol=1e-5)   # K20a: sums over D in another order
 K20_SLOTS = (1 << 15, 1 << 20)
 K20_KERNELS = ("sddmm", "edge_chunk", "chunk_mask")
 # S12: the 21 KGE rows on the typed slice graph (types arange(E) % 8, as
-# bench.py types them) at D 128 and batch 65536, one epoch (305 steps) but
-# for the rows cut to S12_STEPS steps (the three slowest, 44-66 ms a step
-# in a development run, to keep phase 34 near 100 s); NodePiece at its defaults (256
-# anchors, 8 tokens), ConvE at its 8 filters. The injected steps run at D
-# 128 on a small typed graph; the ranking check is tests/test_kge.py's at
-# its own smoke sizes and step sizes.
-S12_STEPS = {"TransR": 150, "TuckER": 100, "ConvE": 100}
+# bench.py types them) at D 128 and batch 65536, one epoch (305 steps)
+# cut to S12_STEPS steps (the 5 steady steps timed after it need no
+# more; a whole epoch of the 21 rows took most of phase 34's 127 s);
+# NodePiece at its defaults (256 anchors, 8 tokens), ConvE at its 8
+# filters. The injected steps run at D 128 on a small typed graph; the
+# ranking check is tests/test_kge.py's at its own smoke sizes and step
+# sizes.
+S12_STEPS = 20
 S12_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
 S12_PROFILE_STEPS = 5
 S12_RANK_STEPS = 300
 S12_RANK_LR = {"ERMLP": 0.3, "ERMLPE": 0.2, "ConvE": 0.2}
 S12_KERNELS = ("siamese_mini_batch",)
-S12_UNUSED = ("first_order_walks", "skipgram_nce_update", "ell_walks", "cbow_update",
-              "mean_scatter", "line_mini_batch", "walklets_update")
+S12_UNUSED = ("first_order_walks", "first_order_batch", "skipgram_nce_update", "ell_walks",
+              "cbow_update", "mean_scatter", "line_mini_batch", "walklets_update")
 
 
 def k20_checks(graph, tg, dev):
@@ -4992,7 +5153,7 @@ def s12_nodepiece_distances(model, typed):
 
 def s12_runs(graph, dev):
     """Phase 34: every KGE row through `embed_graph` on the typed slice
-    graph at D 128 and batch 65536, one epoch (S12_STEPS cuts), with the
+    graph at D 128 and batch 65536, one epoch of S12_STEPS steps, with the
     counts set to 0 just before and read just after: K14 once a step,
     NodePiece's K15a, no walk or K4 kernel; NodePiece's K15a distances
     and tokens against the plain ones; then S12_PROFILE_STEPS steady
@@ -5012,10 +5173,8 @@ def s12_runs(graph, dev):
         model = get_model_from_library(name)(
             device=dev, embedding_size=DIM, epochs=1, batch_size=S6_BATCH, random_state=0,
             early_stopping_patience=10**6)
-        steps = model._steps_per_epoch(typed, None, S6_BATCH)
-        if name in S12_STEPS:
-            steps = S12_STEPS[name]
-            model._steps_per_epoch = lambda graph, ctx, batch, steps=steps: steps
+        steps = min(S12_STEPS, model._steps_per_epoch(typed, None, S6_BATCH))
+        model._steps_per_epoch = lambda graph, ctx, batch, steps=steps: steps
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -5066,12 +5225,105 @@ def check_launches(path, counts, names, unused=()):
     return got
 
 
+def quality_phases(card, dev) -> None:
+    """Phases 9, 13, 16, 20, 23, 27 and 30: the quality gates, each printing
+    its line; the first that fails raises. They train small models on the
+    gate fixture (S10's on a small typed graph), host-bound work that times
+    no kernel, so `main` runs them in a process of their own
+    (`--quality`) beside the flagship harness of phase 10."""
+    # ----------------------------------------------------------- 9. quality
+    t_phase = time.perf_counter()
+    gate, gate_launches, gcn_quality = quality_on_card(card, dev)
+    gate_launches = check_launches("gate", gate_launches,
+                                   S1_KERNELS + S2_KERNELS + K8_KERNELS)
+    print(f"phase 9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: Perceptron gate "
+          f"through edge_prediction_evaluation test AUROC {gate['auroc']:.4f} "
+          f"AUPRC {gate['auprc']:.4f} (reference AUPRC "
+          f"{GATE_REFERENCE_PERCEPTRON_AUPRC:.4f}), launches {gate_launches}; GCN "
+          f"mean test AUROC / AUPRC over seeds 0-7 "
+          f"{np.mean([a for a, _ in gcn_quality]):.4f} / "
+          f"{np.mean([p for _, p in gcn_quality]):.4f} (reference mean AUPRC "
+          f"{GATE_REFERENCE_GCN_AUPRC:.4f}; per seed AUPRC "
+          f"{[round(p, 4) for _, p in gcn_quality]})", flush=True)
+
+    # --------------------------------------------------- 13. S5 quality
+    t_phase = time.perf_counter()
+    cbow_auprc = cbow_quality_on_card(card, dev)
+    print(f"phase 13 S5 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: Node2Vec CBOW return 2 "
+          "explore 0.5 features, a Perceptron on Hadamard, mean test AUPRC over "
+          f"seeds 0-3 {np.mean(cbow_auprc):.4f} (reference {GATE_REFERENCE_CBOW_AUPRC:.4f}; "
+          f"per seed {[round(a, 4) for a in cbow_auprc]})", flush=True)
+
+    # --------------------------------------------------- 16. S6 quality
+    t_phase = time.perf_counter()
+    s6_auroc = s6_quality_on_card(card, dev)
+    print(f"phase 16 S6 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), fitted whole, edges against as many negatives: "
+          f"First-order LINE dot-product AUROC {s6_auroc['First-order LINE']:.4f} (reference "
+          f"{GATE_REFERENCE_LINE1_AUROC:.4f}); Unstructured distance AUROC "
+          f"{s6_auroc['Unstructured']:.4f} (reference {GATE_REFERENCE_UNSTRUCTURED_AUROC:.4f})",
+          flush=True)
+
+    # --------------------------------------------------- 20. S7 quality
+    t_phase = time.perf_counter()
+    walklets_auroc, glove_auroc = s7_quality_on_card(card, dev)
+    print(f"phase 20 S7 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: Walklets SkipGram gate through "
+          f"edge_prediction_evaluation test AUROC {walklets_auroc:.4f} (thresholds "
+          f"{GATE_WALKLETS_FLOOR} and the reference's {GATE_REFERENCE_WALKLETS_AUROC} less 0.03 = "
+          f"{GATE_REFERENCE_WALKLETS_AUROC - 0.03:.4f}); Node2Vec GloVe features, a Perceptron "
+          f"on Hadamard, mean test AUROC over seeds 0-3 {np.mean(glove_auroc):.4f} (threshold "
+          f"the reference's {GATE_REFERENCE_GLOVE_AUROC:.4f} less 0.03 = "
+          f"{GATE_REFERENCE_GLOVE_AUROC - 0.03:.4f}; per seed "
+          f"{[round(a, 4) for a in glove_auroc]})", flush=True)
+
+    # --------------------------------------------------- 23. S8 quality
+    t_phase = time.perf_counter()
+    spine_auprc, spine_launches, sketch_auroc = s8_quality_on_card(card, dev)
+    spine_launches = check_launches("SPINE gate", spine_launches,
+                                    S3_KERNELS + S8_SPINE_KERNELS)
+    print(f"phase 23 S8 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3: the GCN gate with "
+          "Degree-based SPINE features, seed 0 through edge_prediction_evaluation, mean test "
+          f"AUPRC over seeds 0-7 {np.mean(spine_auprc):.4f} (threshold the reference's "
+          f"{GATE_REFERENCE_SPINE_GCN_AUPRC:.4f} less 0.03 = "
+          f"{GATE_REFERENCE_SPINE_GCN_AUPRC - 0.03:.4f}, and 0.80; per seed "
+          f"{[round(a, 4) for a in spine_auprc]}), launches {spine_launches}; Kipf GCN with "
+          f"HyperSketching features (hops 2, precision 6) on its connected holdout 0: AUROC "
+          f"{sketch_auroc:.4f} (floor {GATE_SKETCH_FLOOR})", flush=True)
+
+    # --------------------------------------------------- 27. S9 quality
+    t_phase = time.perf_counter()
+    s9_auroc = s9_quality_on_card(card, dev)
+    print(f"phase 27 S9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "random_geometric(1000, 0.07), connected holdout 3, a Perceptron on Hadamard, "
+          "mean test AUROC over embedding seeds 0-3: " + "; ".join(
+              f"{name} {np.mean(a):.4f} (threshold the reference's "
+              f"{GATE_REFERENCE_S9_AUROC[name]:.4f} less 0.03 = "
+              f"{GATE_REFERENCE_S9_AUROC[name] - 0.03:.4f}; per seed "
+              f"{[round(x, 4) for x in a]})" for name, a in s9_auroc.items()), flush=True)
+
+    # -------------------------------------------------- 30. S10 quality
+    t_phase = time.perf_counter()
+    rates = s10_quality_on_card(card, dev)
+    print(f"phase 30 S10 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "erdos_renyi(60, 400, seed=3, weighted, 3 edge types, 4 node types), 30 walks of 10 "
+          "from each node, type change rate at node weight 5 against 0.1 (must exceed by 0.1): "
+          + "; ".join(f"{route} {a:.4f} against {b:.4f}" for route, (a, b) in rates.items()),
+          flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also K3's, K11's and K9's phase splits, and profiles of "
                              "steady S1, GCN, S5, S6, S7 and S8 steps and of S9's "
                              "NodeSketch fit")
+    parser.add_argument("--quality", action="store_true",
+                        help="run only the quality phases (9, 13, 16, 20, 23, 27, 30) on "
+                             "the kernels built before; the run without it starts them so")
     args = parser.parse_args()
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- 1. card
@@ -5081,19 +5333,24 @@ def main() -> None:
     from embiggen_tpu_torch.scripts.harness import card_line
 
     card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.quality:
+        quality_phases(card, torch.device("cuda"))
+        return
     print(f"phase 1 card: {card} | torch {torch.__version__} | "
           f"CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}",
           flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     from embiggen_tpu_torch.graph import erdos_renyi
-    from embiggen_tpu_torch.graph.sampling import _NEG_CACHE
     from embiggen_tpu_torch.models import get_model_from_library
     from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
     from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, GCNEncoder
     from embiggen_tpu_torch.ops import _build
-    from embiggen_tpu_torch.ops.negatives import nce_negatives, nce_negatives_plain
+    from embiggen_tpu_torch.ops.negatives import (
+        BatchDraws, first_order_batch, first_order_batch_plain, nce_negatives,
+        nce_negatives_plain,
+    )
     from embiggen_tpu_torch.ops.walks import (
         first_order_walks, first_order_walks_plain, random_walks,
     )
@@ -5115,6 +5372,14 @@ def main() -> None:
     graph = erdos_renyi(N_NODES, N_EDGES, seed=0)
     tg = graph.device(dev, with_sources=True)
     graph_s = time.perf_counter() - t0
+    # The other host graphs, built on the worker thread in the order the
+    # phases take them: the hub graph (phase 4), the weighted twin (21),
+    # the typed slice graph (28).
+    hub_graph(graph, wait=False)
+    later = {"weighted": _GRAPHS_WORKER.submit(erdos_renyi, N_NODES, N_EDGES, seed=0,
+                                               weighted=True),
+             "typed": _GRAPHS_WORKER.submit(erdos_renyi, N_NODES, N_EDGES, seed=0,
+                                            n_edge_types=S10_TYPES, n_node_types=S10_TYPES)}
     kernels = {}
 
     k1_err, k2_err = sampler_checks(erdos_renyi, first_order_walks,
@@ -5122,25 +5387,68 @@ def main() -> None:
     slice_p = slice_sampler_checks(graph, tg, first_order_walks,
                                    first_order_walks_plain, nce_negatives,
                                    nce_negatives_plain)
+    # The slice graph as the walk models export it on the card: with the
+    # arcs' records, which K1 and the fused batch read in place of row_ptr.
+    tg_walk = graph.device(dev, with_walk_arcs=True)
+    fused_err, fused_p = fused_batch_checks(erdos_renyi, graph, tg, tg_walk, dev)
+    slice_p.update(fused_p)
     torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(0)
     cuda_gen = torch.Generator(device=dev).manual_seed(0)
     starts = nce_negatives(tg, gen, (BATCH,), scale_free=False)
+    # K1 on the arcs' records walks as K1 on row_ptr from the same key.
+    if not torch.equal(*(first_order_walks(t, starts, WALK, torch.Generator().manual_seed(14))
+                         for t in (tg, tg_walk))):
+        raise AssertionError("K1 on the arcs' records differs from K1 on row_ptr from the "
+                             "same key")
+    # The walk step's workspace, as a fit holds it (one key, an offset a
+    # launch), and 256 walkers' for the chain floors: too few walkers to
+    # contend for the card, each still takes its WALK - 1 steps one after
+    # another (each step's load waits on the step before's); device time,
+    # as the wrapper's host work outlasts so short a launch.
+    draws = BatchDraws.walks(BATCH, 1, WALK, NEGS, dev)
+    few = BatchDraws.walks(256, 1, WALK, NEGS, dev)
+    # ms and the chain floors on the records (the walk models' route),
+    # rows_ms on row_ptr (every other caller's).
     kernels["first_order_walks"] = dict(
         source="embiggen_tpu_torch/csrc/sampling.cu",
         replaces="embiggen_tpu/ops/walks.py:115", max_abs_err=k1_err,
-        ms=time_ms(lambda: first_order_walks(tg, starts, WALK, gen), 20),
+        ms=time_ms(lambda: first_order_walks(tg_walk, starts, WALK, gen), 20),
+        rows_ms=time_ms(lambda: first_order_walks(tg, starts, WALK, gen), 20),
         plain_ms=time_ms(
-            lambda: first_order_walks_plain(tg, starts, WALK, cuda_gen), 5),
+            lambda: first_order_walks_plain(tg, starts, WALK, cuda_gen), 2),
+        chain_ms=queued_ms(lambda: first_order_walks(tg_walk, starts[:256], WALK, gen), 20),
+        rows_chain_ms=queued_ms(lambda: first_order_walks(tg, starts[:256], WALK, gen), 20),
         library_ms=None,
         # starts in, walks out; each move reads two row_ptr entries and an arc.
         **bound(4 * BATCH + 4 * BATCH * WALK + 12 * BATCH * (WALK - 1), 0),
     )
+    kernels["first_order_batch"] = dict(
+        source="embiggen_tpu_torch/csrc/sampling.cu",
+        replaces="embiggen_tpu/models/embedders/walk_based.py:353 (_sample_batch: K2, K1, K2)",
+        max_abs_err=fused_err,
+        ms=time_ms(lambda: first_order_batch(tg_walk, gen, BATCH, 1, WALK, NEGS, True, draws),
+                   20),
+        rows_ms=time_ms(lambda: first_order_batch(tg, gen, BATCH, 1, WALK, NEGS, True, draws),
+                        20),
+        plain_ms=time_ms(lambda: first_order_batch_plain(tg, cuda_gen, BATCH, 1, WALK, NEGS,
+                                                         True), 2),
+        chain_ms=queued_ms(lambda: first_order_batch(tg_walk, gen, 256, 1, WALK, NEGS, True,
+                                                     few), 20),
+        library_ms=None,
+        # walks and negatives out; each move reads two row_ptr entries and
+        # an arc, each negative an arc's head.
+        **bound(4 * BATCH * (WALK + NEGS) + 12 * BATCH * (WALK - 1) + 4 * BATCH * NEGS, 0),
+    )
     weights = tg.degrees.float()
+    negs_out = draws.views[1]
     kernels["nce_negatives"] = dict(
         source="embiggen_tpu_torch/csrc/sampling.cu",
         replaces="embiggen_tpu/ops/negatives.py:24", max_abs_err=k2_err,
         ms=time_ms(lambda: nce_negatives(tg, gen, (BATCH, NEGS)), 20),
+        # at a fit's key and offset into its block, as the steps call it
+        workspace_ms=time_ms(lambda: nce_negatives(tg, gen, (BATCH, NEGS), True, draws,
+                                                   negs_out), 20),
         plain_ms=time_ms(
             lambda: nce_negatives_plain(tg, cuda_gen, (BATCH, NEGS), True), 20),
         # the same degree-proportional draws as one call
@@ -5150,19 +5458,25 @@ def main() -> None:
         **bound(8 * BATCH * NEGS, 0),   # an arc's head read, a node id written
     )
     for name, ms in device_ms({
-        "first_order_walks": lambda: first_order_walks(tg, starts, WALK, gen),
-        "nce_negatives": lambda: nce_negatives(tg, gen, (BATCH, NEGS)),
+        "first_order_walks": lambda: first_order_walks(tg_walk, starts, WALK, gen),
+        "first_order_batch": lambda: first_order_batch(tg_walk, gen, BATCH, 1, WALK, NEGS, True,
+                                                       draws),
+        "nce_negatives": lambda: nce_negatives(tg, gen, (BATCH, NEGS), True, draws, negs_out),
     }).items():
         kernels[name]["device_ms"] = ms
-    del starts, weights
+    del starts, weights, draws, few, negs_out, tg_walk
 
     new, skipgram_errs = skipgram_checks(dev)
     kernels.update(new)
     torch.cuda.empty_cache()
     print(f"phase 3 kernels vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
           f"ms per call, at the slice shapes; graph build {graph_s:.1f} s): " + "; ".join(
-              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.3f}"
+              f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f}"
               + (f" device {v['device_ms']:.4f}" if "device_ms" in v else "")
+              + (f" on row_ptr {v['rows_ms']:.4f}" if "rows_ms" in v else "")
+              + (f" chain floor (256 walkers) {v['chain_ms']:.4f}" if "chain_ms" in v else "")
+              + (f" on row_ptr {v['rows_chain_ms']:.4f}" if "rows_chain_ms" in v else "")
+              + (f" on a workspace {v['workspace_ms']:.4f}" if "workspace_ms" in v else "")
               + f" plain {v['plain_ms']:.3f}" for k, v in kernels.items())
           + " | K3 sums / tables after the combine, max abs err by shape: "
           + "; ".join(f"{k} {u:.3g} / {c:.3g}" for k, (u, c) in skipgram_errs.items())
@@ -5238,9 +5552,11 @@ def main() -> None:
                                  "non-finite values")
     if len(model._epoch_losses) != 2 or not np.isfinite(model._epoch_losses).all():
         raise AssertionError(f"epoch losses {model._epoch_losses}")
-    path_launches = check_launches("S1", launches, S1_KERNELS)
-    if any(launches[name] for name in S1_UNUSED):
-        raise AssertionError(f"the S1 step launched one of {S1_UNUSED}: {launches}")
+    path_launches = check_launches("S1", launches, S1_KERNELS, S1_UNUSED)
+    s1_steps = len(model._epoch_losses) * max(1, N_NODES // model._run_batch_size)
+    if launches["first_order_batch"] != s1_steps:
+        raise AssertionError(f"S1: the fused batch launched {launches['first_order_batch']} "
+                             f"times in {s1_steps} steps")
     path_launches.update({name: launches[name] for name in S1_UNUSED})
     steps = max(1, N_NODES // model._run_batch_size)
     centres = steps * model._run_batch_size * (WALK - 2 * WINDOW)
@@ -5294,7 +5610,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     perceptron = PerceptronEdgePrediction(
         edge_features=["Degree"], edge_embeddings=["CosineSimilarity"],
-        number_of_epochs=15, random_state=0, device="cuda")
+        number_of_epochs=S2_EPOCHS, random_state=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5313,7 +5629,7 @@ def main() -> None:
     n_train = 2 * graph.number_of_directed_edges
     print(f"phase 7 S2 Perceptron on {card} ({time.perf_counter() - t_phase:.1f} s): "
           f"fit {perceptron_fit_s:.2f} s (stages {perceptron._fit_seconds}; "
-          f"{n_train} examples, 15 epochs of "
+          f"{n_train} examples, {S2_EPOCHS} epochs of "
           f"{n_train // 4096} steps of 4096), last epoch loss "
           f"{perceptron._last_loss:.6g}, predict_proba on {len(perceptron_proba)} "
           f"arcs {perceptron_predict_s:.2f} s, peak {perceptron_peak} bytes; "
@@ -5322,12 +5638,12 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
-    # The negative graph of the fit above is memoized; drop it, so this fit
-    # is timed whole.
-    _NEG_CACHE.clear()
+    # The negative graph of the fit above is memoized and this fit takes it
+    # (its `negative_graph` stage is the lookup; the first fit times the
+    # sampling).
     perceptron = PerceptronEdgePrediction(
         edge_features=["Degree", "AdamicAdar", "JaccardCoefficient"],
-        edge_embeddings=["CosineSimilarity"], number_of_epochs=15,
+        edge_embeddings=["CosineSimilarity"], number_of_epochs=S2_EPOCHS,
         random_state=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -5337,8 +5653,8 @@ def main() -> None:
     t0 = time.perf_counter()
     perceptron_proba = perceptron.predict_proba(graph)
     k8_predict_s = time.perf_counter() - t0
-    k8_launches = check_launches("K8 Perceptron", _build.launch_counts(),
-                                 S2_KERNELS + K8_KERNELS)
+    # K5 ran in the first fit's negative graph, which this fit takes.
+    k8_launches = check_launches("K8 Perceptron", _build.launch_counts(), K8_KERNELS)
     k8_peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(perceptron._last_loss):
         raise AssertionError(f"Perceptron loss {perceptron._last_loss}")
@@ -5368,37 +5684,45 @@ def main() -> None:
         + f" | K7 gathered rows/s {k7_rate:.4g} = {k7_rate / p1_rate:.3f} of P1's; "
         f"launches {probe_launches}", flush=True)
 
-    # ----------------------------------------------------------- 9. quality
-    t_phase = time.perf_counter()
-    gate, gate_launches, gcn_quality = quality_on_card(card, dev)
-    gate_launches = check_launches("gate", gate_launches,
-                                   S1_KERNELS + S2_KERNELS + K8_KERNELS)
-    print(f"phase 9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), connected holdout 3: Perceptron gate "
-          f"through edge_prediction_evaluation test AUROC {gate['auroc']:.4f} "
-          f"AUPRC {gate['auprc']:.4f} (reference AUPRC "
-          f"{GATE_REFERENCE_PERCEPTRON_AUPRC:.4f}), launches {gate_launches}; GCN "
-          f"mean test AUROC / AUPRC over seeds 0-7 "
-          f"{np.mean([a for a, _ in gcn_quality]):.4f} / "
-          f"{np.mean([p for _, p in gcn_quality]):.4f} (reference mean AUPRC "
-          f"{GATE_REFERENCE_GCN_AUPRC:.4f}; per seed AUPRC "
-          f"{[round(p, 4) for _, p in gcn_quality]})", flush=True)
-
     # ---------------------------------------------------------- 10. S4 harness
+    # The quality phases (9, 13, 16, 20, 23, 27, 30) run in a process of
+    # their own beside the harness: both are host-bound and neither times a
+    # kernel. Their lines follow phase 10's.
     t_phase = time.perf_counter()
-    del result
-    torch.cuda.empty_cache()
-    _build.reset_launch_counts()
-    harness_out = harness.run(dev, er_graph=graph)
-    harness_launches = check_launches("S4", _build.launch_counts(), S4_KERNELS)
-    auprc = harness_out["eval_test_auprc"]
-    if not auprc >= HARNESS_FLOOR:
-        raise AssertionError(f"flagship harness test AUPRC {auprc} on {card} is "
-                             f"below {HARNESS_FLOOR}: {harness_out}")
-    print(f"phase 10 S4 harness on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          f"test AUPRC {auprc:.4f}, {auprc - HARNESS_REFERENCE_AUPRC:+.4f} from the "
-          f"reference's {HARNESS_REFERENCE_AUPRC}; {json.dumps(harness_out)}; "
-          f"launches {harness_launches}", flush=True)
+    quality_log = tempfile.TemporaryFile(mode="w+")
+    quality = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--quality"],
+                               stdout=quality_log, stderr=subprocess.STDOUT, text=True)
+    try:
+        del result
+        torch.cuda.empty_cache()
+        _build.reset_launch_counts()
+        harness_out = harness.run(dev, er_graph=graph)
+        harness_launches = check_launches("S4", _build.launch_counts(), S4_KERNELS)
+        auprc = harness_out["eval_test_auprc"]
+        if not auprc >= HARNESS_FLOOR:
+            raise AssertionError(f"flagship harness test AUPRC {auprc} on {card} is "
+                                 f"below {HARNESS_FLOOR}: {harness_out}")
+        print(f"phase 10 S4 harness on {card} ({time.perf_counter() - t_phase:.1f} s, the "
+              f"quality phases beside it): test AUPRC {auprc:.4f}, "
+              f"{auprc - HARNESS_REFERENCE_AUPRC:+.4f} from the reference's "
+              f"{HARNESS_REFERENCE_AUPRC}; {json.dumps(harness_out)}; "
+              f"launches {harness_launches}", flush=True)
+        t0 = time.perf_counter()
+        quality.wait()
+        quality_wait_s = time.perf_counter() - t0
+    finally:
+        if quality.poll() is None:
+            quality.kill()
+            quality.wait()
+    quality_log.seek(0)
+    print(quality_log.read(), end="", flush=True)
+    if quality.returncode != 0:
+        raise AssertionError(f"the quality phases failed (exit {quality.returncode})")
+    print(f"chip_smoke: the quality phases ended {quality_wait_s:.1f} s after phase 10",
+          flush=True)
+    # The typed slice graph's hub graph (phase 28), queued now that the typed
+    # graph is built.
+    hub_graph(later["typed"].result(), typed=True, wait=False)
 
     # ------------------------------------------- 11. K9-K11 vs plain (S5)
     t_phase = time.perf_counter()
@@ -5439,7 +5763,8 @@ def main() -> None:
         ("DeepWalk CBOW", "DeepWalk CBOW", {}, DEEPWALK_CBOW_KERNELS),
     ):
         m, counts, secs, peak, centres, steps = embed_run(graph, dev, name, 1, **kw)
-        unused = ("first_order_walks",) if kw else ("ell_walks", "rejection_walks")
+        unused = (("first_order_walks", "first_order_batch") if kw else
+                  ("ell_walks", "rejection_walks", "first_order_walks", "nce_negatives"))
         runs[label] = (m, check_launches(label, counts, names, unused), secs, peak,
                        centres, steps)
     torch.cuda.empty_cache()
@@ -5466,15 +5791,6 @@ def main() -> None:
                        f"{m._epoch_losses}, peak {peak} bytes, launches {got}"
                        for label, (m, got, secs, peak, centres, steps) in runs.items())
           + f" | random_walks without ELL launches {k10_launches}", flush=True)
-
-    # --------------------------------------------------- 13. S5 quality
-    t_phase = time.perf_counter()
-    cbow_auprc = cbow_quality_on_card(card, dev)
-    print(f"phase 13 S5 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), connected holdout 3: Node2Vec CBOW return 2 "
-          "explore 0.5 features, a Perceptron on Hadamard, mean test AUPRC over "
-          f"seeds 0-3 {np.mean(cbow_auprc):.4f} (reference {GATE_REFERENCE_CBOW_AUPRC:.4f}; "
-          f"per seed {[round(a, 4) for a in cbow_auprc]})", flush=True)
 
     # ----------------------------------------- 14. K14 and K4 vs plain (S6)
     t_phase = time.perf_counter()
@@ -5530,16 +5846,6 @@ def main() -> None:
               f"{m._epoch_losses}, peak {peak} bytes, launches {got}"
               for (name, typed, _, epochs, kw), (m, got, secs, peak, rates)
               in zip(S6_RUNS, s6.values())), flush=True)
-
-    # --------------------------------------------------- 16. S6 quality
-    t_phase = time.perf_counter()
-    s6_auroc = s6_quality_on_card(card, dev)
-    print(f"phase 16 S6 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), fitted whole, edges against as many negatives: "
-          f"First-order LINE dot-product AUROC {s6_auroc['First-order LINE']:.4f} (reference "
-          f"{GATE_REFERENCE_LINE1_AUROC:.4f}); Unstructured distance AUROC "
-          f"{s6_auroc['Unstructured']:.4f} (reference {GATE_REFERENCE_UNSTRUCTURED_AUROC:.4f})",
-          flush=True)
 
     # -------------------------------------------------- 17. K12 vs plain (S7)
     t_phase = time.perf_counter()
@@ -5599,6 +5905,17 @@ def main() -> None:
         m, counts, secs, peak = s7_run(graph, dev, name, epochs, **kw)
         s7[label] = (m, check_launches(label, counts, names, unused), secs, peak)
         torch.cuda.empty_cache()
+    # One fused batch a Walklets step; one K2 draw a GloVe step.
+    for label, counter in (("Walklets SkipGram", "first_order_batch"),
+                           ("Walklets CBOW", "first_order_batch"),
+                           ("Node2Vec GloVe", "nce_negatives")):
+        m = s7[label][0]
+        steps = len(m._epoch_losses) * (
+            m._steps_per_epoch(graph, None, m._run_batch_size) if "GloVe" in label
+            else max(1, N_NODES // m._run_batch_size))
+        if s7[label][1][counter] != steps:
+            raise AssertionError(f"{label}: {counter} launched {s7[label][1][counter]} times "
+                                 f"in {steps} steps")
     glove_launches = glove_step_launches(graph, dev)
     pairs = BATCH * sum(2 * (WALK - p) for p in range(1, WALKLETS_POWER + 1))
     glove = s7["Node2Vec GloVe"][0]
@@ -5631,23 +5948,10 @@ def main() -> None:
               f"{name} {launched}, others {others}"
               for name, (launched, others) in glove_launches.items()), flush=True)
 
-    # --------------------------------------------------- 20. S7 quality
-    t_phase = time.perf_counter()
-    walklets_auroc, glove_auroc = s7_quality_on_card(card, dev)
-    print(f"phase 20 S7 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), connected holdout 3: Walklets SkipGram gate through "
-          f"edge_prediction_evaluation test AUROC {walklets_auroc:.4f} (thresholds "
-          f"{GATE_WALKLETS_FLOOR} and the reference's {GATE_REFERENCE_WALKLETS_AUROC} less 0.03 = "
-          f"{GATE_REFERENCE_WALKLETS_AUROC - 0.03:.4f}); Node2Vec GloVe features, a Perceptron "
-          f"on Hadamard, mean test AUROC over seeds 0-3 {np.mean(glove_auroc):.4f} (threshold "
-          f"the reference's {GATE_REFERENCE_GLOVE_AUROC:.4f} less 0.03 = "
-          f"{GATE_REFERENCE_GLOVE_AUROC - 0.03:.4f}; per seed "
-          f"{[round(a, 4) for a in glove_auroc]})", flush=True)
-
     # ------------------------------- 21. K15a, K15b, K16a, K16b vs plain (S8)
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    weighted_graph = erdos_renyi(N_NODES, N_EDGES, seed=0, weighted=True)
+    weighted_graph = later.pop("weighted").result()
     twin_s = time.perf_counter() - t0
     new, k15_errs, settled = k15_checks(graph, weighted_graph, dev)
     torch.cuda.empty_cache()
@@ -5656,7 +5960,7 @@ def main() -> None:
     kernels.update(new)
     torch.cuda.empty_cache()
     print(f"phase 21 K15a, K15b, K16a, K16b vs plain on {card} "
-          f"({time.perf_counter() - t_phase:.1f} s; weighted twin built in {twin_s:.1f} s; ms "
+          f"({time.perf_counter() - t_phase:.1f} s; weighted twin waited for {twin_s:.1f} s; ms "
           f"per call: K15a one relaxation at D {S8_DIM}, K15b one hop at D {S8_DIM}, K16a "
           f"the singletons and one hop at precision {HLL_PRECISION}, K16b {K16B_PAIRS} pairs "
           f"at H {HLL_HOPS}): " + "; ".join(
@@ -5706,21 +6010,6 @@ def main() -> None:
         f"CUDA events): {k16b_share} | HyperSketching's sketches equal the general route's "
         f"(singletons, then the hop launch) byte for byte, and its features of "
         f"{sketch_pairs_equal} pairs K16b's over them bit for bit", flush=True)
-
-    # --------------------------------------------------- 23. S8 quality
-    t_phase = time.perf_counter()
-    spine_auprc, spine_launches, sketch_auroc = s8_quality_on_card(card, dev)
-    spine_launches = check_launches("SPINE gate", spine_launches,
-                                    S3_KERNELS + S8_SPINE_KERNELS)
-    print(f"phase 23 S8 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), connected holdout 3: the GCN gate with "
-          "Degree-based SPINE features, seed 0 through edge_prediction_evaluation, mean test "
-          f"AUPRC over seeds 0-7 {np.mean(spine_auprc):.4f} (threshold the reference's "
-          f"{GATE_REFERENCE_SPINE_GCN_AUPRC:.4f} less 0.03 = "
-          f"{GATE_REFERENCE_SPINE_GCN_AUPRC - 0.03:.4f}, and 0.80; per seed "
-          f"{[round(a, 4) for a in spine_auprc]}), launches {spine_launches}; Kipf GCN with "
-          f"HyperSketching features (hops 2, precision 6) on its connected holdout 0: AUROC "
-          f"{sketch_auroc:.4f} (floor {GATE_SKETCH_FLOOR})", flush=True)
 
     # -------------------------------------------------- 24. profile (option)
     if args.profile:
@@ -5775,22 +6064,10 @@ def main() -> None:
         f"{s9_shares} | K18's two launches in 3 NodeSketch fits (ms a fit on CUDA events): "
         f"{k18_share}", flush=True)
 
-    # --------------------------------------------------- 27. S9 quality
-    t_phase = time.perf_counter()
-    s9_auroc = s9_quality_on_card(card, dev)
-    print(f"phase 27 S9 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "random_geometric(1000, 0.07), connected holdout 3, a Perceptron on Hadamard, "
-          "mean test AUROC over embedding seeds 0-3: " + "; ".join(
-              f"{name} {np.mean(a):.4f} (threshold the reference's "
-              f"{GATE_REFERENCE_S9_AUROC[name]:.4f} less 0.03 = "
-              f"{GATE_REFERENCE_S9_AUROC[name] - 0.03:.4f}; per seed "
-              f"{[round(x, 4) for x in a]})" for name, a in s9_auroc.items()), flush=True)
-
     # ---------------------------------------- 28. K19 and typed K9 (S10)
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    typed = erdos_renyi(N_NODES, N_EDGES, seed=0, n_edge_types=S10_TYPES,
-                        n_node_types=S10_TYPES)
+    typed = later.pop("typed").result()
     typed_s = time.perf_counter() - t0
     if not (np.array_equal(typed.row_ptr, graph.row_ptr)
             and np.array_equal(typed.col_idx, graph.col_idx)):
@@ -5803,7 +6080,8 @@ def main() -> None:
     kernels.update(new)
     k9t, k19 = new["ell_walks_typed"], new["exact_walks"]
     print(f"phase 28 K19 and typed K9 vs plain on {card} ({time.perf_counter() - t_phase:.1f} s; "
-          f"typed graph build {typed_s:.1f} s; ms per call at the S10 shapes, B {BATCH}, L {WALK}, "
+          f"typed graph waited for {typed_s:.1f} s; ms per call at the S10 shapes, B {BATCH}, "
+          f"L {WALK}, "
           f"cap {ELL_CAP}, p/q 2 / 0.5, node 2, edge 0.5): " + "; ".join(
               f"{k} err {v['max_abs_err']:.3g} ms {v['ms']:.4f} plain {v['plain_ms']:.4f} "
               f"bound {v['bound_ms']:.4f} ({v['bound_by']}) walk steps/s "
@@ -5822,15 +6100,6 @@ def main() -> None:
         f"{label}: {secs:.2f} s, peak {peak} bytes, launches {got}"
         + (f", {json.dumps(extra)}" if extra else "")
         for label, (got, secs, peak, extra) in s10.items()), flush=True)
-
-    # -------------------------------------------------- 30. S10 quality
-    t_phase = time.perf_counter()
-    rates = s10_quality_on_card(card, dev)
-    print(f"phase 30 S10 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
-          "erdos_renyi(60, 400, seed=3, weighted, 3 edge types, 4 node types), 30 walks of 10 "
-          "from each node, type change rate at node weight 5 against 0.1 (must exceed by 0.1): "
-          + "; ".join(f"{route} {a:.4f} against {b:.4f}" for route, (a, b) in rates.items()),
-          flush=True)
 
     # ------------------------------------------------- 31. K17 (S11) vs plain
     t_phase = time.perf_counter()
@@ -5887,7 +6156,7 @@ def main() -> None:
     s12_ranks = s12_ranking_on_card(dev)
     print(f"phase 34 S12 on {card} ({time.perf_counter() - t_phase:.1f} s; the 21 KGE rows "
           f"through embed_graph on the typed slice graph at D {DIM}, batch {S6_BATCH}, one "
-          f"epoch but the cuts {S12_STEPS}; step ms on CUDA events over "
+          f"epoch cut to {S12_STEPS} steps; step ms on CUDA events over "
           f"{S12_PROFILE_STEPS} steady steps, busy share from their kernels' device time): "
           + " | ".join(f"{name}: {json.dumps(v)}" for name, v in s12.items())
           + f" | one injected step at D {DIM}, card against CPU, largest difference: "
@@ -5904,6 +6173,10 @@ def main() -> None:
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
                 **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1],
                 "walklets_update": s7["Walklets SkipGram"][1]["walklets_update"],
+                # Since the S1 step draws in one launch, K1's path is the GloVe
+                # corpus and K2's the p/q steps.
+                "first_order_walks": s7["Node2Vec GloVe"][1]["first_order_walks"],
+                "nce_negatives": s5_launches["nce_negatives"],
                 **{k: s7["Node2Vec GloVe"][1][k] for k in ("cooccurrences",) + S7_K13B},
                 "min_plus_step": s8["Degree-based SPINE"][1]["min_plus_step"],
                 "window_cooccurrence_counts": s8["Degree-based WINE"][1]["spmm"],

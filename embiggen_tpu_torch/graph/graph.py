@@ -37,6 +37,10 @@ class TorchGraph:
     # [E] int32 source of each arc, for arc-id -> (src, dst) lookups;
     # exported by `Graph.device(with_sources=True)`.
     sources: Optional[torch.Tensor] = None
+    # [E, 4] int32 record of each arc for the first-order walk kernels: its
+    # head, the head's row start and degree, and 0; exported by
+    # `Graph.device(with_walk_arcs=True)` when no alias tables are.
+    walk_arcs: Optional[torch.Tensor] = None
     # The capped ELLPACK adjacency of the p/q walk kernel K9, exported by
     # `Graph.device(ell_cap=...)`: [N, ell_cap] int32 neighbours, -1 padded,
     # and their weights [N, ell_cap] f32 on weighted graphs (0 padded).
@@ -407,6 +411,7 @@ class Graph:
         ell_cap: Optional[int] = None,
         ell_seed: int = 0,
         with_walk_types: bool = False,
+        with_walk_arcs: bool = False,
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
         `with_alias` and the graph is weighted, each arc's source when
@@ -417,7 +422,10 @@ class Graph:
         int32 tables (-1 padded), slot for slot with it, of the primary node
         type of each slot's neighbour (with node types) and of the edge type
         of its arc (with edge types), the JAX package's `ell_ntypes` and
-        `ell_etypes`."""
+        `ell_etypes`. `with_walk_arcs` adds a 16-byte record an arc (its
+        head, the head's row start and degree), with which a first-order
+        walk step is one dependent load on the card, unless alias tables
+        are exported (weighted steps read the alias entry first)."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -436,10 +444,17 @@ class Graph:
         cap, ell = self._ell_tables(ell_cap, ell_seed, with_walk_types)
         node_type_of = (self.get_single_label_node_type_ids()
                         if with_walk_types and self.has_node_types else None)
+        row_ptr, col_idx = put(self.row_ptr, np.int32), put(self.col_idx, np.int32)
+        degrees = put(self.degrees, np.int32)
+        walk_arcs = None
+        if with_walk_arcs and alias_prob is None:
+            heads = col_idx.long()
+            walk_arcs = torch.stack([col_idx, row_ptr[heads], degrees[heads],
+                                     torch.zeros_like(col_idx)], dim=1).contiguous()
         return TorchGraph(
-            row_ptr=put(self.row_ptr, np.int32),
-            col_idx=put(self.col_idx, np.int32),
-            degrees=put(self.degrees, np.int32),
+            row_ptr=row_ptr,
+            col_idx=col_idx,
+            degrees=degrees,
             weights=maybe(self.weights, np.float32),
             alias_prob=alias_prob,
             alias_idx=alias_idx,
@@ -447,6 +462,7 @@ class Graph:
             n_arcs=self.number_of_directed_edges,
             max_degree=int(self.degrees.max(initial=0)),
             sources=put(self.sources, np.int32) if with_sources else None,
+            walk_arcs=walk_arcs,
             ell_cols=maybe(ell.get("ell_cols"), np.int32),
             ell_w=maybe(ell.get("ell_w"), np.float32),
             ell_cap=cap,

@@ -31,6 +31,7 @@ from ...ops.glove import (
     Entries, GloVeStepWorkspace, cooccurrences, draw_entries, glove_apply, glove_entries,
     glove_gradients, glove_step, glove_strides,
 )
+from ...ops.negatives import BatchDraws
 from ...ops.sharded import owned_scatter
 from ...ops.walks import random_walks
 from ...parallel.mesh import Mesh, all_gather
@@ -195,7 +196,13 @@ class GloVe(MinibatchEmbedder):
         return max(1, self._n_entries // batch)
 
     def _sample_batch(self, ctx: Entries, generator: torch.Generator, batch_size: int):
-        return (draw_entries(ctx, batch_size, generator),), ctx
+        """((ids,), entries): K2 on the card into the fit's `BatchDraws`
+        (one key a fit, an offset a batch)."""
+        draws = None
+        if ctx.ci.device.type == "cuda":
+            draws = self._fit_buffer(f"draws_{batch_size}", lambda: BatchDraws(
+                torch.empty((batch_size,), dtype=torch.int32, device=ctx.ci.device)))
+        return (draw_entries(ctx, batch_size, generator, draws),), ctx
 
     def _step(self, ctx: Entries, params, generator: torch.Generator, lr: float,
               batch=None) -> torch.Tensor:

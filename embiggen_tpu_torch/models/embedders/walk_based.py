@@ -3,9 +3,10 @@
 `SkipGram`, `CBOW`, the DeepWalk presets and the generic `Node2Vec`), single
 device, first-order, p/q and typed walks.
 
-One training step samples start nodes, walks and per-walk negatives
-(kernels K2, then K1 for first-order walks, K9 / K10 for p/q walks or K9 /
-K19 for typed walks, then K2), adds the gradients of the gathered rows into
+One training step samples start nodes, walks and per-walk negatives (one
+fused launch for first-order walks, `ops.negatives.first_order_batch`; K2,
+then K9 / K10 for p/q walks or K9 / K19 for typed walks, then K2, the K2
+draws at a key the fit draws once), adds the gradients of the gathered rows into
 per-node sums and counts (K3 for SkipGram's banded NCE, K11 for CBOW's
 sampled softmax) and applies the per-row mean update to the three tables in
 one pass that zeroes the sums again (K4's combine). The sums are allocated
@@ -36,7 +37,9 @@ import torch
 
 from ...graph.graph import Graph, TorchGraph
 from ...ops.cbow import cbow_update
-from ...ops.negatives import negative_nodes_for_nce, sample_nodes_uniform
+from ...ops.negatives import (
+    BatchDraws, first_order_batch, negative_nodes_for_nce, sample_nodes_uniform,
+)
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
 from ...ops.sharded import owned_gather, owned_scatter
 from ...ops.skipgram import skipgram_nce_update
@@ -149,6 +152,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         self._learning_rate_plateau_min_delta = learning_rate_plateau_min_delta
         self._learning_rate_plateau_patience = learning_rate_plateau_patience
         self._initial_params = initial_params
+        # The fit's `BatchDraws` on the card (`_batch_draws`), None between fits.
+        self._draws = None
         super().__init__(
             embedding_size=embedding_size,
             enable_cache=enable_cache,
@@ -336,25 +341,53 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
     def _device_graph(self, graph: Graph) -> TorchGraph:
         """The graph on the model's device: alias tables on weighted graphs,
         for biased walks the ELL table, whose over-cap rows are a subsample
-        seeded by random_state, and for typed walks its type tables."""
+        seeded by random_state, and for typed walks its type tables; for
+        first-order walks on the card the arcs' records (a step one load)."""
+        first_order = not self._walks_are_biased()
         return graph.device(self.device, with_alias=graph.has_edge_weights,
                             ell_cap=self._ell_cap_for_walks(),
                             ell_seed=self.random_state or 0,
-                            with_walk_types=self._walks_are_typed())
+                            with_walk_types=self._walks_are_typed(),
+                            with_walk_arcs=first_order and self.device.type == "cuda")
+
+    def _batch_draws(self, tg: TorchGraph, batch_size: int) -> Optional[BatchDraws]:
+        """The fit's draws on the card: one block for the step's walks,
+        negatives and starts (`BatchDraws.walks`), allocated at the first
+        batch, with one Philox key drawn from the fit's generator then and a
+        counter offset a launch. None on the CPU."""
+        if tg.col_idx.device.type != "cuda":
+            return None
+        shapes = BatchDraws.walk_shapes(batch_size, self._iterations, self._walk_length,
+                                        self._number_of_negative_samples)
+        draws = self._draws
+        if draws is None or tuple(tuple(v.shape) for v in draws.views) != shapes[:-1]:
+            draws = self._draws = BatchDraws.walks(
+                batch_size, self._iterations, self._walk_length,
+                self._number_of_negative_samples, tg.device)
+        return draws
 
     def _sample_batch(
         self, tg: TorchGraph, generator: torch.Generator, batch_size: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(walks [B·iters, L], negatives [B·iters, K]) for one step.
         Negatives are per walk: each walk's centres contrast against their
-        own K draws."""
-        starts = sample_nodes_uniform(tg, generator, (batch_size,))
+        own K draws. First-order walks are one fused launch on the card;
+        biased and typed walks draw their starts and negatives with K2 at
+        the fit's key (`_batch_draws`) around their walk kernel. On the CPU
+        every draw comes from `generator`: starts, walks, then negatives."""
+        draws = self._batch_draws(tg, batch_size)
+        if not self._walks_are_biased():
+            return first_order_batch(
+                tg, generator, batch_size, self._iterations, self._walk_length,
+                self._number_of_negative_samples, self._use_scale_free_distribution, draws)
+        _, neg_out, start_out = (None,) * 3 if draws is None else draws.views
+        starts = sample_nodes_uniform(tg, generator, (batch_size,), draws, start_out)
         walks = random_walks(tg, starts.repeat(self._iterations), self._walk_length,
                              generator, **self._walk_kwargs())
         negs = negative_nodes_for_nce(
             tg, generator, self._number_of_negative_samples,
             self._use_scale_free_distribution,
-            per_walk=batch_size * self._iterations,
+            per_walk=batch_size * self._iterations, workspace=draws, out=neg_out,
         )
         return walks, negs
 
@@ -534,6 +567,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
                              f"{mesh.device}.")
         strategy = self._choose_distribution(mesh, graph)
+        self._draws = None
         tg = self._device_graph(graph)
         generator = torch.Generator().manual_seed(self.random_state or 0)
         batch = self._resolve_batch(graph)
@@ -576,6 +610,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 if ctrl.update(last_loss):
                     ctrl.stopped_epoch = epoch
                     break
+        self._draws = None
         self._last_loss = last_loss
         self._stopped_epoch = ctrl.stopped_epoch
         if strategy == "rows":

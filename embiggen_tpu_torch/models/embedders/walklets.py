@@ -28,6 +28,7 @@ from ...graph.graph import Graph
 from ...ops.glove import (
     GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries, glove_step,
 )
+from ...ops.negatives import BatchDraws
 from ...ops.scatter import SkipGramSums, skipgram_mean_combine
 from ...ops.walklets import walklets_update
 from ...ops.walks import random_walks
@@ -226,7 +227,7 @@ class WalkletsGloVe(_WalkletsBase):
         walks = random_walks(tg, starts, self._walk_length, generator, **self._walk_kwargs())
         params = self._initial_tables(graph, generator)
         self._epoch_losses, self._epoch_seconds = [], []
-        last, workspace = None, None
+        last, workspace, draws = None, None, None
         sub = params["node_embedding"].shape[2]
         with torch.no_grad():
             for p in range(self._power):
@@ -245,6 +246,11 @@ class WalkletsGloVe(_WalkletsBase):
                 rows = batch // mesh.size if data_parallel else batch
                 if workspace is None or workspace.rows.shape[0] != rows:
                     workspace = GloVeStepWorkspace.empty(rows, sub, walks.device)
+                if walks.device.type == "cuda" and (draws is None
+                                                    or draws.block.shape[0] != batch):
+                    # K2's ids at one key and an offset a batch.
+                    draws = BatchDraws(torch.empty((batch,), dtype=torch.int32,
+                                                   device=walks.device))
                 # Views of power p's slices: the steps update the tables in
                 # place.
                 state = {"emb": params["node_embedding"][p],
@@ -256,10 +262,12 @@ class WalkletsGloVe(_WalkletsBase):
                     t0 = time.perf_counter()
                     lr = self._learning_rate * self._learning_rate_decay ** epoch
                     losses = [
-                        glove_dp_step(mesh, entries, draw_entries(entries, batch, generator),
+                        glove_dp_step(mesh, entries, draw_entries(entries, batch, generator,
+                                                                  draws),
                                       tables, lr, workspace) / batch
                         if data_parallel else
-                        self._glove_step(state, entries, draw_entries(entries, batch, generator),
+                        self._glove_step(state, entries, draw_entries(entries, batch, generator,
+                                                                      draws),
                                          lr, workspace)
                         for _ in range(steps)]
                     last = float(torch.stack(losses).mean())

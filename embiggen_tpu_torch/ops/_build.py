@@ -44,7 +44,9 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _U64, _F32 = ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_float
 _SIGNATURES = {
     "ebt_first_order_walks": (
-        (_P, _P, _P, _P, _P, _P, _I64, _I32, _U64, _U32, _P), _I32),
+        (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _U64, _U32, _P), _I32),
+    "ebt_first_order_batch": (
+        (_P,) * 5 + (_I32, _I64, _I64, _I64, _I32, _I32, _I32, _P, _P, _U64, _U32, _P), _I32),
     "ebt_node_draws": ((_P, _I64, _I64, _P, _I64, _U64, _U32, _P), _I32),
     "ebt_skipgram_nce": (
         (_P,) * 13 + (_I64, _I32, _I32, _I32, _I32, _F32, _P), _I32),
@@ -103,7 +105,7 @@ _SIGNATURES = {
 # launch of its kernel and nowhere else, so a run can show that it went
 # through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("first_order_walks", "nce_negatives", "skipgram_nce_update",
+    ("first_order_walks", "nce_negatives", "first_order_batch", "skipgram_nce_update",
      "mean_scatter", "mean_combine", "skipgram_mean_combine",
      "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "ell_walks_typed",

@@ -197,12 +197,14 @@ def glove_entries(
                    torch.log(torch.clamp(counts, min=1e-9)))
 
 
-def draw_entries(entries: Entries, batch_size: int,
-                 generator: torch.Generator) -> torch.Tensor:
+def draw_entries(entries: Entries, batch_size: int, generator: torch.Generator,
+                 workspace=None) -> torch.Tensor:
     """[batch_size] int32 entry ids uniform over [0, len(entries)) on the
     entries' device: K2's uniform mode on the card (Philox seeded from
     `generator`, counted under "nce_negatives"), `torch.randint` from
-    `generator` on the CPU."""
+    `generator` on the CPU. With a fit's `workspace` (`ops.negatives.
+    BatchDraws` over a [batch_size] block) the card draws at its key and
+    next offset into its block, overwritten by the next batch."""
     n_entries = entries.n_entries
     if not _build.is_cuda(entries.ci):
         return torch.randint(0, n_entries, (batch_size,), generator=generator,
@@ -210,8 +212,13 @@ def draw_entries(entries: Entries, batch_size: int,
     if not 0 < n_entries < 2**32:
         raise ValueError(f"K2 draws ids in [0, 2^32); got {n_entries} entries.")
     dev = entries.ci.device
-    out = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    seed, offset = _build.draw_seed(generator)
+    if workspace is None:
+        out = torch.empty((batch_size,), dtype=torch.int32, device=dev)
+        seed, offset = _build.draw_seed(generator)
+    else:
+        out = workspace.block
+        _build.check(out, "workspace.block", torch.int32, (batch_size,), dev)
+        seed, offset = workspace.seed(generator)
     _build.launch("nce_negatives", "ebt_node_draws", dev, None, 0, n_entries,
                   out.data_ptr(), batch_size, seed, offset)
     return out

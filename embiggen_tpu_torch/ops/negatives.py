@@ -16,7 +16,11 @@ on a CPU graph the plain versions below.
 K14 writes each batch into one int32 block, in the layout the steps take.
 A fit passes a `BatchDraws` workspace: the block allocated once, and one
 Philox key drawn from the fit's generator at its first batch, with each
-batch at its own counter offset, so a step makes no host RNG call.
+batch at its own counter offset, so a step makes no host RNG call. The
+first-order walk step's batch (uniform starts, walks, per-walk negatives:
+`first_order_batch`) is one launch of its own (`csrc/sampling.cu`) into such
+a block; K2 takes a workspace's key and offset too, for the steps that
+draw once a step.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 
 from ..graph.graph import TorchGraph
 from . import _build
-from .walks import csr_edge_ids_plain
+from .walks import csr_edge_ids_plain, first_order_walks_plain, walk_records
 
 
 def nce_negatives_plain(
@@ -45,18 +49,26 @@ def nce_negatives_plain(
 
 def nce_negatives(
     tg: TorchGraph, generator: torch.Generator, shape: Tuple[int, ...],
-    scale_free: bool = True,
+    scale_free: bool = True, workspace: Optional["BatchDraws"] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """int32 node ids of `shape`: degree-proportional (`scale_free`) or
-    uniform. Kernel K2 on a CUDA graph (Philox seeded from `generator`), the
-    plain version on a CPU graph."""
+    uniform. Kernel K2 on a CUDA graph (Philox seeded from `generator`, or
+    at a fit's `workspace` key and next offset), the plain version on a CPU
+    graph. With `out` (int32, of `shape`, on the graph's device) the ids are
+    written into it, else into a fresh tensor."""
     shape = tuple(int(s) for s in shape)
     if not _build.is_cuda(tg.col_idx):
-        return nce_negatives_plain(tg, generator, shape, scale_free)
+        draws = nce_negatives_plain(tg, generator, shape, scale_free)
+        return draws if out is None else out.copy_(draws)
     if scale_free and tg.n_arcs == 0:
         raise ValueError("Scale-free draws need a graph with arcs.")
-    out = torch.empty(shape, dtype=torch.int32, device=tg.device)
-    seed, offset = _build.draw_seed(generator)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=tg.device)
+    else:
+        _build.check(out, "out", torch.int32, shape, tg.device)
+    seed, offset = (_build.draw_seed(generator) if workspace is None
+                    else workspace.seed(generator))
     _build.launch(
         "nce_negatives", "ebt_node_draws", tg.device,
         tg.col_idx.data_ptr() if scale_free else None, tg.n_arcs, tg.n_nodes,
@@ -73,9 +85,10 @@ def sample_nodes_scale_free(
 
 
 def sample_nodes_uniform(
-    tg: TorchGraph, generator: torch.Generator, shape
+    tg: TorchGraph, generator: torch.Generator, shape,
+    workspace: Optional["BatchDraws"] = None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    return nce_negatives(tg, generator, shape, scale_free=False)
+    return nce_negatives(tg, generator, shape, False, workspace, out)
 
 
 def negative_nodes_for_nce(
@@ -84,13 +97,70 @@ def negative_nodes_for_nce(
     n_negatives: int,
     use_scale_free_distribution: bool = True,
     per_walk: int = 0,
+    workspace: Optional["BatchDraws"] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Negatives for an NCE step: [n_negatives] shared, or
     [per_walk, n_negatives] with one set per walk when `per_walk` > 0 (the
     regime SkipGram trains in: each walk's centres contrast against their
-    own draws)."""
+    own draws). `workspace` and `out` as `nce_negatives` takes them."""
     shape = (per_walk, n_negatives) if per_walk else (n_negatives,)
-    return nce_negatives(tg, generator, shape, use_scale_free_distribution)
+    return nce_negatives(tg, generator, shape, use_scale_free_distribution, workspace, out)
+
+
+def first_order_batch_plain(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int, iterations: int,
+    walk_length: int, number_of_negatives: int, scale_free: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused first-order batch: K2's, K1's and
+    K2's plain versions, drawn from `generator` in that order."""
+    starts = nce_negatives_plain(tg, generator, (batch_size,), False)
+    walks = first_order_walks_plain(tg, starts.repeat(iterations), walk_length, generator)
+    negs = nce_negatives_plain(tg, generator, (batch_size * iterations, number_of_negatives),
+                               scale_free)
+    return walks, negs
+
+
+def first_order_batch(
+    tg: TorchGraph, generator: torch.Generator, batch_size: int, iterations: int,
+    walk_length: int, number_of_negatives: int, scale_free: bool = True,
+    workspace: Optional["BatchDraws"] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(walks [B·iters, L], negatives [B·iters, K]) int32: the batch of a
+    first-order walk step. B starts uniform over the nodes, tiled over the
+    iterations (walk b starts where walk b mod B does), a first-order walk
+    of `walk_length` nodes from each (uniform or alias-weighted moves; a
+    zero-degree node keeps its walker), and K scale-free (or uniform)
+    negatives a walk. On a CUDA graph one launch of the fused kernel, a
+    step one load of an arc record where the graph carries `walk_arcs`,
+    with Philox seeded from `generator` or at the workspace's key and next
+    offset; with a `workspace` (`BatchDraws.walks`) both outputs are views
+    of its block, overwritten by the next batch. On a CPU graph the plain
+    version, which draws exactly as the three separate calls do."""
+    if walk_length < 1:
+        raise ValueError(f"walk_length must be positive, got {walk_length}.")
+    if not _build.is_cuda(tg.col_idx):
+        return first_order_batch_plain(tg, generator, batch_size, iterations, walk_length,
+                                       number_of_negatives, scale_free)
+    if tg.n_nodes == 0 or (scale_free and tg.n_arcs == 0):
+        raise ValueError("The first-order batch needs a graph with nodes, and arcs for "
+                         "scale-free negatives.")
+    dev = tg.device
+    shapes = BatchDraws.walk_shapes(batch_size, iterations, walk_length, number_of_negatives)
+    if workspace is None:
+        walks, negs, _ = _walk_views(
+            torch.empty(shapes[-1], dtype=torch.int32, device=dev), *shapes[:2])
+        seed, offset = _build.draw_seed(generator)
+    else:
+        walks, negs, _ = _walk_workspace_views(workspace, shapes, dev)
+        seed, offset = workspace.seed(generator)
+    _build.launch(
+        "first_order_batch", "ebt_first_order_batch", dev, tg.row_ptr.data_ptr(),
+        tg.col_idx.data_ptr(), _build.ptr(tg.alias_prob), _build.ptr(tg.alias_idx),
+        walk_records(tg), tg.n_nodes, tg.n_arcs, batch_size, walks.shape[0], walk_length,
+        number_of_negatives, int(scale_free), walks.data_ptr(), negs.data_ptr(), seed, offset,
+    )
+    return walks, negs
 
 
 def arc_sources(tg: TorchGraph, arc: torch.Tensor) -> torch.Tensor:
@@ -248,6 +318,23 @@ class BatchDraws:
         return cls(block, views=_line_views(block, batch_size, number_of_negative_samples))
 
     @classmethod
+    def walks(cls, batch_size: int, iterations: int, walk_length: int,
+              number_of_negatives: int, device) -> "BatchDraws":
+        """For a walk step: walks [B·iters, L], negatives [B·iters, K] and
+        starts [B] one after another (the starts for the biased steps)."""
+        shapes = cls.walk_shapes(batch_size, iterations, walk_length, number_of_negatives)
+        block = torch.empty(shapes[-1], dtype=torch.int32, device=device)
+        return cls(block, views=_walk_views(block, *shapes[:2]))
+
+    @staticmethod
+    def walk_shapes(batch_size: int, iterations: int, walk_length: int,
+                    number_of_negatives: int):
+        """(walks, negatives, starts shapes, the block's size) of a walk step."""
+        rows = batch_size * iterations
+        return ((rows, walk_length), (rows, number_of_negatives), (batch_size,),
+                (rows * (walk_length + number_of_negatives) + batch_size,))
+
+    @classmethod
     def siamese(cls, batch_size: int, with_edge_types: bool, device) -> "BatchDraws":
         """For the siamese models: [4, B] rows src, dst, csrc, cdst, and a
         fifth row of edge types with `with_edge_types`."""
@@ -266,6 +353,22 @@ class BatchDraws:
 def _line_views(block: torch.Tensor, batch_size: int, k: int):
     return (block[:batch_size], block[batch_size:2 * batch_size],
             block[2 * batch_size:].view(batch_size, k))
+
+
+def _walk_views(block: torch.Tensor, walks_shape, negs_shape):
+    """(walks, negatives, starts) views of a walk step's block."""
+    n_walks, n_negs = walks_shape[0] * walks_shape[1], negs_shape[0] * negs_shape[1]
+    return (block[:n_walks].view(walks_shape), block[n_walks:n_walks + n_negs].view(negs_shape),
+            block[n_walks + n_negs:])
+
+
+def _walk_workspace_views(workspace: BatchDraws, shapes, device):
+    _build.check(workspace.block, "workspace.block", torch.int32, shapes[-1], device)
+    got = tuple(tuple(v.shape) for v in workspace.views)
+    if got != tuple(shapes[:-1]):
+        raise ValueError(f"workspace was made for walks, negatives and starts {got}, "
+                         f"not {tuple(shapes[:-1])}.")
+    return workspace.views
 
 
 def _line_workspace_views(workspace: BatchDraws, batch_size: int, k: int, device):

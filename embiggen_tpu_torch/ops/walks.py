@@ -8,7 +8,8 @@ rejection and exact branches, typed or not, `_sample_neighbor`,
 A first-order step draws a uniform neighbour from the CSR row, or a Walker
 alias draw when the graph is weighted; a node of degree zero keeps the
 walker where it is. On a CUDA graph all steps of all walkers run in one
-launch of kernel K1 (`csrc/sampling.cu`).
+launch of kernel K1 (`csrc/sampling.cu`), which reads the arcs' records
+(`TorchGraph.walk_arcs`) instead of row_ptr where the graph carries them.
 
 A second-order (p/q) step weighs each candidate c of the current node by
 return_weight when c is the previous node, 1 when c neighbours the previous
@@ -86,7 +87,8 @@ def first_order_walks(
     generator: torch.Generator,
 ) -> torch.Tensor:
     """[B, walk_length] int32 first-order walks from `starts` [B] int32.
-    Kernel K1 on a CUDA graph (Philox seeded from `generator`), the plain
+    Kernel K1 on a CUDA graph (Philox seeded from `generator`; a step is one
+    load of an arc record when the graph carries `walk_arcs`), the plain
     version on a CPU graph."""
     if walk_length < 1:
         raise ValueError(f"walk_length must be positive, got {walk_length}.")
@@ -100,11 +102,21 @@ def first_order_walks(
     _build.launch(
         "first_order_walks", "ebt_first_order_walks", dev,
         tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(),
-        _build.ptr(tg.alias_prob), _build.ptr(tg.alias_idx),
+        _build.ptr(tg.alias_prob), _build.ptr(tg.alias_idx), walk_records(tg),
         starts.data_ptr(), walks.data_ptr(), starts.shape[0], walk_length,
         seed, offset,
     )
     return walks
+
+
+def walk_records(tg: TorchGraph) -> Optional[int]:
+    """The pointer to the graph's arc records (`TorchGraph.walk_arcs`) for
+    the first-order walk kernels, or None: weighted walks (alias tables)
+    read their rows."""
+    if tg.walk_arcs is None or tg.alias_prob is not None:
+        return None
+    _build.check(tg.walk_arcs, "walk_arcs", torch.int32, (tg.n_arcs, 4), tg.device)
+    return tg.walk_arcs.data_ptr()
 
 
 def _ell_pick(w: torch.Tensor, generator: torch.Generator):

@@ -3,7 +3,7 @@ steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
                                                          k18 nodesketch k16b gcn_hll k13b glove
-                                                         k14 k9 k8 k16a]
+                                                         k14 k9 k8 k16a k1 k2]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -96,6 +96,19 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   dense route and the hop launch on the slice graph; the dense route and
   the hop launch on the hub graph, where a hub's id route outlasts the
   launch); and a HyperSketching fit at its defaults, 5 times (seconds).
+
+- K1 and K2 at the S1 shapes (B 32768, L 64, K 10; Node2Vec SkipGram's
+  walk step): the step's batch through the model's `_sample_batch` (the
+  fused launch where the checkout has it, else K2, K1 and K2), K1 alone
+  from uniform starts with its chain floor (256 walkers alone, device time
+  queued behind a sleep kernel; five means of 20 calls each), and K2's
+  scale-free and uniform draws (also on a
+  workspace where the checkout has one), each call as its mean ms on CUDA
+  events, its device ms queued behind a sleep kernel, its kernels' device
+  ms from torch.profiler and its host microseconds; the S1 step (30 steady
+  steps on events and queued), the Walklets steps (as `--parts walklets`),
+  the p/q step's batch (return 2, explore 0.5: K2, K9, K2) and the Node2Vec
+  GloVe step and epoch (as `--parts glove`).
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -880,6 +893,84 @@ def k14_times(graph, dev) -> dict:
     return out
 
 
+S1 = dict(embedding_size=DIM, walk_length=64, window_size=5, number_of_negative_samples=10,
+          batch_size=32768)
+
+
+def s1_model(graph, dev, **kw):
+    """Node2Vec SkipGram at the S1 settings: the model and its graph on the
+    card."""
+    from embiggen_tpu_torch.models.embedders import SkipGram
+
+    model = SkipGram(device=dev, epochs=1, random_state=0, **S1, **kw)
+    model._run_batch_size = S1["batch_size"]
+    return model, model._device_graph(graph)
+
+
+def call_times(fn, reps: int) -> dict:
+    """A wrapper's call: its mean ms on CUDA events (what a caller sees), its
+    device ms queued behind a sleep kernel, each kernel's device ms from
+    torch.profiler and the host's microseconds a call."""
+    return dict(events_ms=time_ms(fn, reps), queued_ms=queued_ms(fn, reps),
+                kernels=kernel_table(fn, 20), host_us=host_us(fn, 10 * reps))
+
+
+def k1_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+    from embiggen_tpu_torch.ops.walks import first_order_walks
+
+    model, tg = s1_model(graph, dev)
+    b, length = S1["batch_size"], S1["walk_length"]
+    gen = torch.Generator().manual_seed(0)
+    out = dict(batch=call_times(lambda: model._sample_batch(tg, gen, b), 50))
+    starts = nce_negatives(tg, gen, (b,), scale_free=False)
+    few = starts[:256].contiguous()
+    out["k1"] = dict(
+        call_times(lambda: first_order_walks(tg, starts, length, gen), 20),
+        runs_ms=[time_ms(lambda: first_order_walks(tg, starts, length, gen), 20)
+                 for _ in range(5)],
+        chain_runs_queued_ms=[queued_ms(lambda: first_order_walks(tg, few, length, gen), 20)
+                              for _ in range(5)])
+    params = model._init_params(graph, gen)
+    sums = model._new_sums(params)
+
+    def step():
+        with torch.no_grad():
+            model._step(tg, params, gen, 0.025, sums=sums)
+    for _ in range(3):
+        step()
+    out.update(s1_step_ms=time_ms(step, 30), s1_step_device_ms=queued_ms(step, 30))
+    del model, tg, params, sums, starts, few
+    torch.cuda.empty_cache()
+    out["walklets"] = walklets_times(graph, dev)
+    return out
+
+
+def k2_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.negatives import nce_negatives
+
+    model, tg = s1_model(graph, dev)
+    b, k = S1["batch_size"], S1["number_of_negative_samples"]
+    gen = torch.Generator().manual_seed(1)
+    out = dict(scale_free=call_times(lambda: nce_negatives(tg, gen, (b, k)), 50),
+               uniform=call_times(lambda: nce_negatives(tg, gen, (b,), False), 50))
+    if "workspace" in inspect.signature(nce_negatives).parameters:
+        from embiggen_tpu_torch.ops.negatives import BatchDraws
+
+        ws = BatchDraws.walks(b, 1, S1["walk_length"], k, dev)
+        out["scale_free_workspace"] = call_times(
+            lambda: nce_negatives(tg, gen, (b, k), True, ws, ws.views[1]), 50)
+    del model, tg
+    torch.cuda.empty_cache()
+    # The p/q step's batch: K2's starts, K9, K2's negatives.
+    model, tg = s1_model(graph, dev, return_weight=2.0, explore_weight=0.5)
+    out["pq_batch"] = call_times(lambda: model._sample_batch(tg, gen, b), 20)
+    del model, tg
+    torch.cuda.empty_cache()
+    out["glove"] = glove_times(graph, dev)
+    return out
+
+
 def k9_times(graph, dev) -> dict:
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.negatives import nce_negatives
@@ -897,7 +988,7 @@ def k9_times(graph, dev) -> dict:
 
 
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a")
+         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a", "k1", "k2")
 
 
 def main() -> None:
@@ -921,7 +1012,7 @@ def main() -> None:
                   walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
                   nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
                   k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times,
-                  k8=k8_times, k16a=k16a_times)
+                  k8=k8_times, k16a=k16a_times, k1=k1_times, k2=k2_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

@@ -11,7 +11,9 @@ import torch
 from embiggen_tpu_torch.graph import Graph, barabasi_albert, erdos_renyi
 from embiggen_tpu_torch.graph.laplacians import kernel_coo
 from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
-from embiggen_tpu_torch.models.embedders import CBOW, SkipGram
+from embiggen_tpu_torch.models.embedders import (
+    CBOW, DeepWalkSkipGram, GloVe, SkipGram, WalkletsSkipGram,
+)
 from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, KipfGCNEdgePrediction
 from embiggen_tpu_torch.models.edge_features import HyperSketching
 from embiggen_tpu_torch.models.embedders import DegreeSPINE, DegreeWINE, WeightedSPINE
@@ -36,7 +38,8 @@ from embiggen_tpu_torch.ops.glove import (
     glove_step_plain, glove_strides,
 )
 from embiggen_tpu_torch.ops.negatives import (
-    BatchDraws, edge_prediction_mini_batch, line_mini_batch, nce_negatives, siamese_mini_batch,
+    BatchDraws, edge_prediction_mini_batch, first_order_batch, line_mini_batch, nce_negatives,
+    siamese_mini_batch,
 )
 from embiggen_tpu_torch.ops.scatter import (
     MeanScatterSums, SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
@@ -57,6 +60,7 @@ from hll_checks import MAX_TIE_SHARE, feature_errors
 from pq_laws import (
     Laws, arc_weights, n_tries_for, rows_of_32_and_33, two_hubs, walks_chi2_p,
 )
+from walk_batch_laws import batch_counts, batch_p, stream_independence_p, two_sample_p
 
 pytestmark = pytest.mark.cuda
 
@@ -294,6 +298,144 @@ def test_samplers_stay_on_the_graph(dev):
     assert np.isin(src[moved] * 400 + dst[moved], keys).all()
     negs = nce_negatives(tg, gen, (2000, 10)).cpu().numpy()
     assert (g.degrees[negs] > 0).all()
+
+
+def _failed(p):
+    return {k: v for k, v in p.items() if not v > 1e-3}
+
+
+@pytest.mark.parametrize("kind", ["rows", "records", "weighted"])
+@pytest.mark.parametrize("scale_free", [True, False])
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_first_order_batch_kernel_matches_its_laws(dev, kind, scale_free, iterations):
+    """The fused launch, reading row_ptr, the arcs' records or the alias
+    tables: starts uniform and tiled over the iterations, every move an arc
+    by the exact transitions, negatives by degree or uniform, and,
+    unweighted, a walker's start, first step and negatives independent
+    (`tests/walk_batch_laws.py`); and in law the plain version's batch."""
+    weighted = kind == "weighted"
+    g = erdos_renyi(300, 1500, seed=4, weighted=weighted)
+    b = 24000 // iterations
+    on_card = g.device(dev, with_alias=weighted, with_walk_arcs=kind == "records")
+    assert (on_card.walk_arcs is not None) == (kind == "records")
+    batch = first_order_batch(on_card, torch.Generator().manual_seed(2), b, iterations, 12, 7,
+                              scale_free)
+    torch.cuda.synchronize()
+    tg = g.device("cpu", with_alias=weighted)
+    walks, negs = (t.cpu() for t in batch)
+    plain = first_order_batch(tg, torch.Generator().manual_seed(3), b, iterations, 12, 7,
+                              scale_free)
+    p = batch_p(tg, walks, negs, b, scale_free)
+    if not weighted:
+        p.update(stream_independence_p(tg, walks, negs, b, scale_free))
+    p.update({f"{k} against plain": v for k, v in two_sample_p(
+        batch_counts(tg, walks, negs, b), batch_counts(tg, *plain, b)).items()})
+    assert not _failed(p), p
+
+
+@pytest.mark.parametrize("records", [False, True])
+@pytest.mark.parametrize("walk_length, k", [(1, 5), (2, 9), (5, 0), (300, 3)])
+def test_first_order_batch_kernel_short_and_long_walks(dev, records, walk_length, k):
+    """Negatives past the walk's steps (L 1 and 2), none, and long walks,
+    for the fused launch and K1 alone, on row_ptr and on the arcs' records;
+    a graph with zero-degree nodes keeps their walkers."""
+    er = erdos_renyi(300, 1500, seed=4)
+    g = Graph.from_edge_arrays(er.sources, er.col_idx, n_nodes=320, directed=True)
+    tg, cpu = g.device(dev, with_walk_arcs=records), g.device("cpu")
+    walks, negs = first_order_batch(tg, torch.Generator().manual_seed(5), 12000, 1,
+                                    walk_length, k, True)
+    assert walks.shape == (12000, walk_length) and negs.shape == (12000, k)
+    p = batch_p(cpu, walks.cpu(), negs.cpu(), 12000, True)
+    starts = (torch.arange(32000, device=dev) % 320).int()
+    alone = first_order_walks(tg, starts, walk_length, torch.Generator().manual_seed(6))
+    assert torch.equal(alone[:, 0], starts)
+    if walk_length > 1:
+        p.update({f"K1 {key}": v for key, v in batch_p(
+            cpu, alone.cpu(), negs[:0].cpu(), 32000, True).items() if key == "moves"})
+    assert not _failed(p), p
+
+
+@pytest.mark.parametrize("walk_length, k", [(12, 7), (1, 3), (2, 9)])
+def test_first_order_kernels_walk_on_records_as_on_rows(dev, walk_length, k):
+    """The arcs' records hold each arc's head and the head's row: K1 and the
+    fused batch read them in place of row_ptr and draw the same batch, draw
+    for draw, from the same key (zero-degree nodes included)."""
+    er = erdos_renyi(300, 1500, seed=4)
+    g = Graph.from_edge_arrays(er.sources, er.col_idx, n_nodes=320, directed=True)
+    rows, records = g.device(dev), g.device(dev, with_walk_arcs=True)
+    for scale_free in (True, False):
+        a, b = (first_order_batch(t, torch.Generator().manual_seed(9), 700, 3, walk_length, k,
+                                  scale_free) for t in (rows, records))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    starts = (torch.arange(5000, device=dev) % 320).int()
+    a, b = (first_order_walks(t, starts, walk_length, torch.Generator().manual_seed(10))
+            for t in (rows, records))
+    assert torch.equal(a, b)
+
+
+def test_first_order_batch_workspace_key_and_offsets(dev):
+    """A fit's workspace: the key is drawn once, each launch takes the next
+    offset (so consecutive batches differ), and the same key and offset
+    give the same batch."""
+    tg = erdos_renyi(300, 1500, seed=4).device(dev)
+    gen = torch.Generator().manual_seed(0)
+    ws = BatchDraws.walks(500, 2, 10, 5, dev)
+
+    def batch(workspace):
+        return [t.clone() for t in first_order_batch(tg, gen, 500, 2, 10, 5, True, workspace)]
+    first = batch(ws)
+    state = gen.get_state()
+    second = batch(ws)
+    assert torch.equal(gen.get_state(), state) and ws.offset == 2
+    assert not torch.equal(first[0], second[0]) and not torch.equal(first[1], second[1])
+    again = BatchDraws.walks(500, 2, 10, 5, dev)
+    again.key, again.offset = ws.key, 1
+    for got, want in zip(batch(again), second):
+        assert torch.equal(got, want)
+    starts = nce_negatives(tg, gen, (500,), False, ws, ws.views[2])
+    assert starts.data_ptr() == ws.views[2].data_ptr() and ws.offset == 3
+
+
+def _fit_draws(monkeypatch, model, graph):
+    """(launch counts, `_build.draw_seed` calls) of a fit."""
+    calls = []
+    draw_seed = _build.draw_seed
+    monkeypatch.setattr(_build, "draw_seed", lambda g: calls.append(1) or draw_seed(g))
+    before = _build.launch_counts()
+    model.fit_transform(graph)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    return {k: after[k] - before[k] for k in after}, len(calls)
+
+
+@pytest.mark.parametrize("cls", [SkipGram, DeepWalkSkipGram, WalkletsSkipGram, CBOW])
+def test_walk_fits_draw_each_batch_in_one_launch(dev, monkeypatch, cls):
+    """A first-order fit launches the fused batch once a step and neither K1
+    nor K2, under one key drawn from the fit's generator."""
+    g = erdos_renyi(500, 3000, seed=3)
+    model = cls(device=dev, embedding_size=16, epochs=2, walk_length=12, window_size=3,
+                batch_size=64, random_state=0, early_stopping_patience=10)
+    launched, seeds = _fit_draws(monkeypatch, model, g)
+    assert launched["first_order_batch"] == 2 * (500 // 64)
+    assert launched["first_order_walks"] == launched["nce_negatives"] == 0
+    assert seeds == 1 and model._draws is None
+
+
+def test_biased_and_glove_steps_draw_k2_at_the_fit_key(dev, monkeypatch):
+    """The p/q step's starts and negatives and GloVe's ids are K2 launches
+    at the fit's key: no key is drawn a launch but for the walk kernels'
+    own (K9 a step; K1 once for GloVe's corpus)."""
+    g = erdos_renyi(500, 3000, seed=3)
+    pq = SkipGram(device=dev, embedding_size=16, epochs=1, walk_length=12, window_size=3,
+                  batch_size=64, random_state=0, return_weight=2.0, explore_weight=0.5)
+    launched, seeds = _fit_draws(monkeypatch, pq, g)
+    steps = 500 // 64
+    assert launched["nce_negatives"] == 2 * steps and launched["ell_walks"] == steps
+    assert launched["first_order_batch"] == 0 and seeds == 1 + steps
+    glove = GloVe(device=dev, embedding_size=16, epochs=1, batch_size=256, random_state=0)
+    launched, seeds = _fit_draws(monkeypatch, glove, g)
+    assert launched["nce_negatives"] >= 2 and launched["first_order_walks"] == 1
+    assert seeds == 2
 
 
 def test_fit_on_cuda_is_reproducible_and_finite(dev):
@@ -805,9 +947,10 @@ def test_cbow_step_launches_its_kernels(dev, pq):
     after = _build.launch_counts()
     assert np.isfinite(float(loss))
     got = {k: after[k] - before[k] for k in (
-        "ell_walks", "first_order_walks", "cbow_update", "skipgram_mean_combine",
-        "skipgram_nce_update")}
-    assert got == {"ell_walks": int(pq), "first_order_walks": int(not pq),
+        "ell_walks", "first_order_walks", "first_order_batch", "nce_negatives", "cbow_update",
+        "skipgram_mean_combine", "skipgram_nce_update")}
+    assert got == {"ell_walks": int(pq), "first_order_walks": 0,
+                   "first_order_batch": int(not pq), "nce_negatives": 2 * int(pq),
                    "cbow_update": 1, "skipgram_mean_combine": 1, "skipgram_nce_update": 0}
     assert all(not bool(t.any()) for t in sums.buffers())
 
