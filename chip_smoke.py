@@ -38,8 +38,12 @@ thread while the phases before them run:
      fused batch on a fit's workspace (one key, an offset a launch);
   4. K5-K7, P1 and P2 against their plain versions at the shapes of the
      link-prediction slice and the probe: K5 exactly on 2^20 queries over
-     the 20M-arc graph, half of them arcs; K6 (2^20 slots) by its exact
-     label layout, positives uniform over arc ids, negative endpoints
+     the 20M-arc graph, half of them arcs, and over it plus 256 hubs of
+     4,096-65,536 random neighbours (the other half pairs of a scale-free
+     source and a uniform node); K6 (2^20 slots) on a fit's workspace, as
+     the GCN draws it, on both graphs: its first batch equal to the batch
+     drawn without one at the same key and offset, its exact label
+     layout, positives uniform over arc ids, negative endpoints
      degree-proportional (against the exact distribution and the plain
      version), no more arcs or self-loops among negatives than two redraws
      leave; K7 forward for the three combiners and its backward through
@@ -1034,14 +1038,18 @@ def gcn_step(model, graph):
     backward, update), as a closure."""
     from embiggen_tpu_torch.models.gcn.core import map_params, param_leaves
 
+    from embiggen_tpu_torch.ops.negatives import BatchDraws
+
     params = map_params(lambda t: t.clone().requires_grad_(True), model._params)
     optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
-    tg = graph.device(model.device, with_sources=True)
+    tg = graph.device(model.device, with_sources=True, with_arc_pairs=True)
     gen = torch.Generator().manual_seed(1)
+    # K6's block, labels and key, held as the fit holds them.
+    draws = BatchDraws.edges(model._run_batch_size, model._negative_samples_rate, tg.device)
 
     def step():
         optimizer.zero_grad(set_to_none=True)
-        model._loss(params, model._csr_kernels, tg, None, gen, None).backward()
+        model._loss(params, model._csr_kernels, tg, None, gen, None, draws).backward()
         optimizer.step()
     return step
 
@@ -1228,99 +1236,192 @@ def skipgram_checks(dev):
     return entries, errs
 
 
-def edge_kernel_checks(tg):
-    """K5 and K6 on the 20M-arc graph at the slice shapes. Returns (their
-    kernels entries, the K6 p-values)."""
-    from scipy.stats import poisson
-
-    from embiggen_tpu_torch.ops.negatives import (
-        edge_prediction_mini_batch, edge_prediction_mini_batch_plain,
-    )
-    from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain
-
+def edge_queries(tg, hubs: bool):
+    """K5's queries: half arcs (the ends of uniform arc ids), half pairs of
+    a uniform node (on the hub graph a scale-free one, the head of a
+    uniform arc, so hubs are sources at the rate scale-free draws give
+    them) and a uniform node. Returns (src, dst, the arc ids of the first
+    half)."""
     dev, n, n_arcs = tg.device, tg.n_nodes, tg.n_arcs
     rng = np.random.default_rng(21)
     q = 1 << 20
     arc = torch.from_numpy(rng.integers(0, n_arcs, q // 2)).to(dev)
-    other = torch.from_numpy(rng.integers(0, n, (2, q - q // 2), dtype=np.int32)).to(dev)
-    src = torch.cat([tg.sources[arc], other[0]])
-    dst = torch.cat([tg.col_idx[arc], other[1]])
+    if hubs:
+        other = tg.col_idx[torch.from_numpy(rng.integers(0, n_arcs, q - q // 2)).to(dev)]
+    else:
+        other = torch.from_numpy(rng.integers(0, n, q - q // 2, dtype=np.int32)).to(dev)
+    dst = torch.from_numpy(rng.integers(0, n, q - q // 2, dtype=np.int32)).to(dev)
+    return (torch.cat([tg.sources[arc], other]).contiguous(),
+            torch.cat([tg.col_idx[arc], dst]).contiguous(), arc)
+
+
+def k5_check(tg, hubs: bool) -> dict:
+    """K5 on 2^20 `edge_queries` of `tg`, exactly against its plain version;
+    every arc found at its id. Returns its numbers."""
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids, csr_edge_ids_plain
+
+    src, dst, arc = edge_queries(tg, hubs)
+    q = src.shape[0]
     ids, found = csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst)
     want_ids, want_found = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst)
     if not (torch.equal(ids, want_ids) and torch.equal(found, want_found)):
-        raise AssertionError("K5 and its plain version differ")
+        raise AssertionError(f"K5 and its plain version differ ({'hub' if hubs else 'slice'} "
+                             "graph)")
     if not (bool(found[:q // 2].all()) and torch.equal(ids[:q // 2], arc.int())):
         raise AssertionError("K5 missed an arc")
-    # The same lookup as one call: a search over the sorted src * N + dst
-    # keys of the arcs.
-    keys = tg.sources.long() * n + tg.col_idx.long()
-    q_keys = src.long() * n + dst.long()
-    entries = {"csr_edge_ids": dict(
-        source="embiggen_tpu_torch/csrc/edges.cu",
-        replaces="embiggen_tpu/ops/walks.py:66",
+    return dict(
         max_abs_err=float((ids - want_ids).abs().max()),
         ms=time_ms(lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst), 20),
-        plain_ms=time_ms(
-            lambda: csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst), 3),
-        library_ms=time_ms(lambda: torch.searchsorted(keys, q_keys), 20),
-        library="torch.searchsorted",
+        plain_ms=time_ms(lambda: csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst), 3),
         # pairs in, ids and flags out, two row_ptr reads and a search each
         **bound(q * (8 + 5 + 8) + 4 * float(search_reads(tg.degrees[src.long()]).sum()), 0),
-    )}
-    del keys, q_keys
+        call=lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst), src=src, dst=dst)
 
-    gen, cuda_gen = torch.Generator().manual_seed(22), torch.Generator(device=dev).manual_seed(23)
-    s, d, labels = edge_prediction_mini_batch(tg, gen, GCN_BATCH)
-    ps, pd, _ = edge_prediction_mini_batch_plain(tg, cuda_gen, GCN_BATCH)
+
+def k6_check(tg, p, name, ws_seed):
+    """K6 on `tg` at the GCN's batch through a fit's workspace (its first
+    batch, which must equal the batch drawn without one from the same
+    generator state), held to its exact laws and to its plain version's
+    draws; the p-values go into `p` under `name`. Returns (the workspace,
+    its generator, the label layout's error)."""
+    from scipy.stats import poisson
+
+    from embiggen_tpu_torch.ops.negatives import (
+        BatchDraws, edge_prediction_mini_batch, edge_prediction_mini_batch_plain,
+    )
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids_plain
+
+    dev, n_arcs = tg.device, tg.n_arcs
+    ws = BatchDraws.edges(GCN_BATCH, 0.5, dev)
+    gen = torch.Generator().manual_seed(ws_seed)
+    s, d, labels = (t.clone() for t in edge_prediction_mini_batch(tg, gen, GCN_BATCH,
+                                                                   workspace=ws))
+    fresh = edge_prediction_mini_batch(tg, torch.Generator().manual_seed(ws_seed), GCN_BATCH)
+    if not all(torch.equal(a, b) for a, b in zip((s, d, labels), fresh)):
+        raise AssertionError(f"{name}: the workspace's first batch differs from the batch "
+                             "drawn without one at the same key and offset")
+    del fresh
+    ps, pd, _ = edge_prediction_mini_batch_plain(
+        tg, torch.Generator(device=dev).manual_seed(ws_seed + 1), GCN_BATCH)
     n_neg = int(round(GCN_BATCH * 0.5))
     n_pos = GCN_BATCH - n_neg
     want_labels = torch.cat([torch.ones(n_pos, device=dev), torch.zeros(n_neg, device=dev)])
     layout_err = float((labels - want_labels).abs().max())
     if layout_err != 0.0:
-        raise AssertionError("K6 label layout differs")
-    p = {}
+        raise AssertionError(f"{name} label layout differs")
     pos_ids, pos_found = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, s[:n_pos], d[:n_pos])
     if not bool(pos_found.all()):
-        raise AssertionError("a K6 positive is not an arc")
+        raise AssertionError(f"a {name} positive is not an arc")
     edges = np.linspace(0, n_arcs, ARC_BINS + 1).astype(np.int64)
     observed = torch.bincount(
         torch.bucketize(pos_ids.long(), torch.from_numpy(edges[1:-1]).to(dev), right=True),
         minlength=ARC_BINS).double().cpu().numpy()
-    p["K6 positives by arc-id bin"] = exact_p(observed, np.diff(edges) * (n_pos / n_arcs))
-    p["K6 positives repeats"] = repeats_p(pos_ids, n_arcs)
-    deg = tg.degrees.double()
+    p[f"{name} positives by arc-id bin"] = exact_p(observed,
+                                                   np.diff(edges) * (n_pos / n_arcs))
+    p[f"{name} positives repeats"] = repeats_p(pos_ids, n_arcs)
+    # The exact law of a negative: a pair drawn from p x p (p the degree
+    # share) is redrawn while it is an arc or a loop, twice at most, so
+    # P(s) = p_s ((1 + beta + beta^2) - (1 + beta) b_s), b_s the chance that
+    # a pair drawn with source s is bad and beta the chance that any is
+    # (destinations alike with the arcs reversed). Hubs' pairs are arcs
+    # often enough (about 2%) for this to show on the hub graph.
+    prob = tg.degrees.double() / n_arcs
+    heads, tails = tg.col_idx.long(), tg.sources.long()
+    loops = heads == tails
+    bad_by = {}
+    for side, at, other in (("sources", tails, heads), ("destinations", heads, tails)):
+        b = prob.clone()
+        b.index_add_(0, at[~loops], prob[other[~loops]])
+        bad_by[side] = b
+    beta = float((prob * bad_by["sources"]).sum())
     for side, got, plain in (("sources", s, ps), ("destinations", d, pd)):
+        law = prob * ((1 + beta + beta ** 2) - (1 + beta) * bad_by[side])
         observed = node_counts(tg, got[n_pos:])
-        binned_tests(p, f"K6 negative {side} vs exact", observed,
-                     node_bins(tg, deg * (n_neg / n_arcs)), True)
-        binned_tests(p, f"K6 negative {side} vs plain", observed,
+        binned_tests(p, f"{name} negative {side} vs exact", observed,
+                     node_bins(tg, law * n_neg), True)
+        binned_tests(p, f"{name} negative {side} vs plain", observed,
                      node_counts(tg, plain[n_pos:]), False)
+    del heads, tails, loops, bad_by
     # A drawn pair is an arc or a self-loop with probability beta; after two
     # redraws, beta^3 of the negatives stay so.
-    prob = deg / n_arcs
-    beta = float((prob ** 2).sum() + (prob[tg.sources.long()] * prob[tg.col_idx.long()]).sum())
     _, neg_arcs = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, s[n_pos:], d[n_pos:])
     bad = int((neg_arcs | (s[n_pos:] == d[n_pos:])).sum())
-    p["K6 negatives that are arcs or loops"] = float(poisson.sf(bad - 1, n_neg * beta ** 3))
+    p[f"{name} negatives that are arcs or loops"] = float(poisson.sf(bad - 1,
+                                                                     n_neg * beta ** 3))
+    # Pairs out (labels only on a workspace's first batch); a positive reads
+    # its arc's two ends, a negative two arc heads, its source's row bounds
+    # and its search's reads.
+    n_bytes = (GCN_BATCH * 8 + n_pos * 8 + n_neg * 16
+               + 4 * float(search_reads(tg.degrees[s[n_pos:].long()]).sum()))
+    return ws, gen, layout_err, n_bytes
+
+
+def edge_kernel_checks(graph, tg):
+    """K5 and K6 on the 20M-arc graph at the slice shapes, and on it plus
+    N_HUBS hubs. Returns (their kernels entries, the K6 p-values)."""
+    from embiggen_tpu_torch.ops.negatives import (
+        edge_prediction_mini_batch, edge_prediction_mini_batch_plain,
+    )
+
+    dev, n = tg.device, tg.n_nodes
+    htg = hub_graph(graph).device(dev, with_sources=True, with_arc_pairs=True)
+    k5, k5_hub = k5_check(tg, False), k5_check(htg, True)
+    # K6 reads its positives from the arcs' (source, head) records, as the
+    # GCN exports its graph.
+    paired = dataclasses.replace(tg, arc_pairs=torch.stack([tg.sources, tg.col_idx], 1))
+    # The same lookup as one call: a search over the sorted src * N + dst
+    # keys of the arcs.
+    keys = tg.sources.long() * n + tg.col_idx.long()
+    q_keys = k5["src"].long() * n + k5["dst"].long()
+    entries = {"csr_edge_ids": dict(
+        source="embiggen_tpu_torch/csrc/edges.cu",
+        replaces="embiggen_tpu/ops/walks.py:66",
+        library_ms=time_ms(lambda: torch.searchsorted(keys, q_keys), 20),
+        library="torch.searchsorted",
+        **{k: v for k, v in k5.items() if k not in ("call", "src", "dst")},
+        hub_graph_arcs=htg.n_arcs, hub_ms=k5_hub["ms"], hub_plain_ms=k5_hub["plain_ms"],
+        hub_bound_ms=k5_hub["bound_ms"],
+        hub_max_abs_err=k5_hub["max_abs_err"],
+    )}
+    del keys, q_keys
+
+    p = {}
+    ws, gen, layout_err, n_bytes = k6_check(paired, p, "K6", 22)
+    hub_ws, hub_gen, hub_err, hub_bytes = k6_check(htg, p, "K6 hubs", 24)
     failed = {k: v for k, v in p.items() if v < P_MIN}
     if failed:
         raise AssertionError(f"K6 tests failed (p < {P_MIN}): {failed}")
+    cuda_gen = torch.Generator(device=dev).manual_seed(23)
+    on_ws = lambda: edge_prediction_mini_batch(  # noqa: E731
+        paired, gen, GCN_BATCH, workspace=ws)
+    on_hub_ws = lambda: edge_prediction_mini_batch(  # noqa: E731
+        htg, hub_gen, GCN_BATCH, workspace=hub_ws)
     entries["edge_prediction_mini_batch"] = dict(
         source="embiggen_tpu_torch/csrc/edges.cu",
-        replaces="embiggen_tpu/ops/negatives.py:60", max_abs_err=layout_err,
-        ms=time_ms(lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH), 20),
+        replaces="embiggen_tpu/ops/negatives.py:60", max_abs_err=max(layout_err, hub_err),
+        # on the fit's workspace and the arcs' records, as the GCN draws;
+        # fresh_ms without the workspace, sources_ms without the records
+        ms=time_ms(on_ws, 20),
+        fresh_ms=time_ms(lambda: edge_prediction_mini_batch(paired, gen, GCN_BATCH), 20),
+        sources_ms=time_ms(lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH,
+                                                              workspace=ws), 20),
         plain_ms=time_ms(lambda: edge_prediction_mini_batch_plain(tg, cuda_gen, GCN_BATCH), 5),
         library_ms=None,
-        # pairs and labels out; a positive reads its arc's two ends; a
-        # negative draws two arc heads and searches its pair once
-        **bound(GCN_BATCH * 12 + n_pos * 8 + n_neg * 16
-                + 4 * float(search_reads(tg.degrees[s[n_pos:].long()]).sum()), 0),
+        **bound(n_bytes, 0),
+        # the bound with the labels written every launch, as before the workspace
+        labels_bound_ms=bound(n_bytes + 4 * GCN_BATCH, 0)["bound_ms"],
+        hub_graph_arcs=htg.n_arcs, hub_ms=time_ms(on_hub_ws, 20),
+        hub_bound_ms=bound(hub_bytes, 0)["bound_ms"],
     )
     for name, ms in device_ms({
-        "csr_edge_ids": lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst),
-        "edge_prediction_mini_batch": lambda: edge_prediction_mini_batch(tg, gen, GCN_BATCH),
+        "csr_edge_ids": k5["call"], "edge_prediction_mini_batch": on_ws,
     }).items():
         entries[name]["device_ms"] = ms
+    hub_device = device_ms({"csr_edge_ids": k5_hub["call"],
+                            "edge_prediction_mini_batch": on_hub_ws})
+    for name, ms in hub_device.items():
+        entries[name]["hub_device_ms"] = ms
+    del htg, k5, k5_hub, ws, hub_ws, paired
     return entries, p
 
 
@@ -5485,7 +5586,7 @@ def main() -> None:
 
     # ------------------------------------------ 4. K5-K7, P1, P2 vs plain
     t_phase = time.perf_counter()
-    new, k6_p = edge_kernel_checks(tg)
+    new, k6_p = edge_kernel_checks(graph, tg)
     new["spmm"] = spmm_checks(graph, dev)
     torch.cuda.empty_cache()
     new.update(probe_checks(dev))
@@ -5510,7 +5611,12 @@ def main() -> None:
           f"({new['edge_metrics']['hub_graph_arcs']} arcs, "
           f"{new['edge_metrics']['hub_pairs_truncated']} pairs at the cap) ms "
           f"{new['edge_metrics']['hub_ms']:.4f} plain "
-          f"{new['edge_metrics']['hub_plain_ms']:.4f} | K6 p-values: "
+          f"{new['edge_metrics']['hub_plain_ms']:.4f} | K5 and K6 on the hub graph ms "
+          f"{new['csr_edge_ids']['hub_ms']:.4f} and {new['edge_prediction_mini_batch']['hub_ms']:.4f}"
+          f" device {new['csr_edge_ids']['hub_device_ms']:.4f} and "
+          f"{new['edge_prediction_mini_batch']['hub_device_ms']:.4f}, K5 plain "
+          f"{new['csr_edge_ids']['hub_plain_ms']:.4f}; K6 without a workspace ms "
+          f"{new['edge_prediction_mini_batch']['fresh_ms']:.4f} | K6 p-values: "
           + "; ".join(f"{k} {v:.3g}" for k, v in k6_p.items()), flush=True)
 
     # ---------------------------------------------------------------- 5. S1

@@ -12,6 +12,7 @@ from . import graph
 from .graph import Graph
 from . import models
 from .pipelines import (
+    classification_evaluation_pipeline,
     edge_label_prediction_evaluation,
     edge_prediction_evaluation,
     embed_graph,
@@ -19,7 +20,7 @@ from .pipelines import (
 )
 
 __all__ = [
-    "graph", "Graph", "models", "embed_graph", "edge_prediction_evaluation",
-    "node_label_prediction_evaluation", "edge_label_prediction_evaluation",
-    "__version__",
+    "graph", "Graph", "models", "embed_graph", "classification_evaluation_pipeline",
+    "edge_prediction_evaluation", "edge_label_prediction_evaluation",
+    "node_label_prediction_evaluation", "__version__",
 ]

@@ -41,6 +41,10 @@ class TorchGraph:
     # head, the head's row start and degree, and 0; exported by
     # `Graph.device(with_walk_arcs=True)` when no alias tables are.
     walk_arcs: Optional[torch.Tensor] = None
+    # [E, 2] int32 (source, head) of each arc, so the edge batch (K6) reads a
+    # positive's ends in one load; exported by `Graph.device(with_arc_pairs=
+    # True)`.
+    arc_pairs: Optional[torch.Tensor] = None
     # The capped ELLPACK adjacency of the p/q walk kernel K9, exported by
     # `Graph.device(ell_cap=...)`: [N, ell_cap] int32 neighbours, -1 padded,
     # and their weights [N, ell_cap] f32 on weighted graphs (0 padded).
@@ -412,6 +416,7 @@ class Graph:
         ell_seed: int = 0,
         with_walk_types: bool = False,
         with_walk_arcs: bool = False,
+        with_arc_pairs: bool = False,
     ) -> TorchGraph:
         """Export the CSR as a TorchGraph on `device`, with alias tables when
         `with_alias` and the graph is weighted, each arc's source when
@@ -425,7 +430,9 @@ class Graph:
         `ell_etypes`. `with_walk_arcs` adds a 16-byte record an arc (its
         head, the head's row start and degree), with which a first-order
         walk step is one dependent load on the card, unless alias tables
-        are exported (weighted steps read the alias entry first)."""
+        are exported (weighted steps read the alias entry first).
+        `with_arc_pairs` adds an 8-byte record an arc (its source and head),
+        from which the edge batch reads a positive in one load."""
         device = torch.device(device)
         if self.number_of_directed_edges >= 2**31:
             raise ValueError("The kernels index arcs with int32; this graph "
@@ -463,6 +470,8 @@ class Graph:
             max_degree=int(self.degrees.max(initial=0)),
             sources=put(self.sources, np.int32) if with_sources else None,
             walk_arcs=walk_arcs,
+            arc_pairs=(torch.stack([put(self.sources, np.int32), col_idx], dim=1).contiguous()
+                       if with_arc_pairs else None),
             ell_cols=maybe(ell.get("ell_cols"), np.int32),
             ell_w=maybe(ell.get("ell_w"), np.float32),
             ell_cap=cap,

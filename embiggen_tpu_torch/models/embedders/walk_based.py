@@ -68,7 +68,8 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
 
     The hyper-parameters are the JAX package's, with the same defaults. Those
     this port does not carry yet raise NotImplementedError naming the ROADMAP
-    item that brings them. `device` (default "cuda") is where training runs;
+    item that brings them (`checkpoint_dir`; `checkpoint_interval` is kept
+    for it, as the reference keeps it). `device` (default "cuda") is where training runs;
     `initial_params` (e.g. from `utils.convert.skipgram_params_from_jax`)
     replaces the random initial tables. `mesh` (None, "auto", an int or a
     `parallel.Mesh`) trains over torch.distributed; `distribution` picks
@@ -104,6 +105,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         mesh=None,
         distribution: str = "auto",
         checkpoint_dir: Optional[str] = None,
+        checkpoint_interval: int = 1,
         random_state: int = 42,
         enable_cache: bool = False,
         device="cuda",
@@ -118,6 +120,7 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 f"'none'; got {distribution!r}."
             )
         self._mesh = mesh
+        self._checkpoint_interval = max(1, checkpoint_interval)
         self._epochs = epochs
         self._batch_size = batch_size
         self._distribution = distribution

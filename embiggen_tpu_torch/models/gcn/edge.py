@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from ...graph.graph import Graph
 from ...ops import edge_ops
 from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
-from ...ops.negatives import edge_prediction_mini_batch
+from ...ops.negatives import BatchDraws, edge_prediction_mini_batch
 from ...ops.walks import csr_edge_ids
 from ...parallel.mesh import Mesh, resolve_mesh
 from ..classifier import AbstractClassifierModel
@@ -400,13 +400,15 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
             "use_scale_free_distribution": self._use_scale_free_distribution,
         }
 
-    def _loss(self, params, kernels, tg, batch, generator, drop_generator):
-        """Logistic loss of one minibatch, drawn by K6 unless `batch`
+    def _loss(self, params, kernels, tg, batch, generator, drop_generator, workspace=None):
+        """Logistic loss of one minibatch, drawn by K6 (into the fit's
+        `workspace`, a `BatchDraws.edges`, where one is given) unless `batch`
         ((src, dst, labels)) is given."""
         src, dst, labels = batch if batch is not None else edge_prediction_mini_batch(
             tg, generator, self._run_batch_size,
             negative_samples_rate=self._negative_samples_rate,
             use_scale_free_distribution=self._use_scale_free_distribution,
+            workspace=workspace,
         )
         logits = self._edge_logits(
             params, kernels, src, dst, tg.n_nodes, training=True,
@@ -420,11 +422,15 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
         params, kernels = self._build_common(
             graph, support, node_features, generator, kwargs.get("edge_features"),
             kwargs.get("node_type_features"), kwargs.get("edge_type_features"))
-        tg = graph.device(self.device, with_sources=True)
+        # On the card, K6 reads a positive's two ends from one 8-byte record.
+        tg = graph.device(self.device, with_sources=True,
+                          with_arc_pairs=torch.device(self.device).type == "cuda")
         self._n_nodes_hint = graph.number_of_nodes
         self._run_batch_size = self._resolve_batch_size(
             graph.number_of_directed_edges)
         drop_generator = _device_generator(generator, self.device)
+        # The batch's block and labels, and its Philox key on the card: once a fit.
+        draws = BatchDraws.edges(self._run_batch_size, self._negative_samples_rate, tg.device)
         loop = TrainLoop(
             epochs=self._epochs, learning_rate=self._learning_rate,
             early_stopping_patience=self._early_stopping_patience,
@@ -433,7 +439,7 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
         )
         self._params, self._history = loop.run(
             params,
-            lambda p: self._loss(p, kernels, tg, None, generator, drop_generator),
+            lambda p: self._loss(p, kernels, tg, None, generator, drop_generator, draws),
         )
         self._epoch_seconds = list(loop.epoch_seconds)
         self._steps_per_epoch = loop.steps_per_epoch

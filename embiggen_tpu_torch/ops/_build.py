@@ -53,10 +53,10 @@ _SIGNATURES = {
     "ebt_scatter_add_rows": ((_P, _P, _P, _P, _I64, _I32, _P), _I32),
     "ebt_mean_combine": ((_P, _P, _P, _F32, _I64, _I32, _I32, _P), _I32),
     "ebt_skipgram_combine": ((_P,) * 8 + (_F32, _I64, _I32, _P), _I32),
-    "ebt_csr_edge_ids": ((_P, _P, _P, _P, _I64, _I32, _P, _P, _P), _I32),
+    "ebt_csr_edge_ids": ((_P, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P), _I32),
     "ebt_edge_minibatch": (
-        (_P, _P, _P, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64,
-         _U32, _P), _I32),
+        (_P,) * 6 + (_I32, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64, _U32, _P),
+        _I32),
     "ebt_csr_spmm": ((_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P), _I32),
     "ebt_edge_metrics": ((_P, _P, _P, _P, _I64, _I32, _P, _P), _I32),
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),

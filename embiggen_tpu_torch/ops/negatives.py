@@ -20,7 +20,8 @@ batch at its own counter offset, so a step makes no host RNG call. The
 first-order walk step's batch (uniform starts, walks, per-walk negatives:
 `first_order_batch`) is one launch of its own (`csrc/sampling.cu`) into such
 a block; K2 takes a workspace's key and offset too, for the steps that
-draw once a step.
+draw once a step, and K6 writes the GCN's edge batch into one
+(`BatchDraws.edges`).
 """
 from __future__ import annotations
 
@@ -228,13 +229,29 @@ def chunk_mask(tg: TorchGraph, chunk_index: int, chunk_size: int) -> torch.Tenso
     return _edge_chunk_launch("chunk_mask", tg, chunk_index, chunk_size, False)
 
 
+def _avoid_csr(tg: TorchGraph, graph_to_avoid: Optional[TorchGraph]) -> TorchGraph:
+    """The graph whose arcs a negative must not be: `graph_to_avoid`, else
+    the sampled graph."""
+    if graph_to_avoid is None:
+        return tg
+    if graph_to_avoid.col_idx.device != tg.col_idx.device:
+        raise ValueError(f"graph_to_avoid is on {graph_to_avoid.col_idx.device}, the sampled "
+                         f"graph on {tg.col_idx.device}.")
+    if graph_to_avoid.n_nodes < tg.n_nodes:
+        raise ValueError(f"graph_to_avoid has {graph_to_avoid.n_nodes} nodes, fewer than the "
+                         f"sampled graph's {tg.n_nodes}.")
+    return graph_to_avoid
+
+
 def edge_prediction_mini_batch_plain(
     tg: TorchGraph, generator: torch.Generator, batch_size: int,
     negative_samples_rate: float = 0.5, use_scale_free_distribution: bool = True,
     avoid_false_negatives: bool = True, n_attempts: int = 2,
+    graph_to_avoid: Optional[TorchGraph] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K6: the reference's rounds, each a full
-    membership sweep over all negatives."""
+    membership sweep over all negatives in `graph_to_avoid` (default: `tg`)."""
+    avoid = _avoid_csr(tg, graph_to_avoid)
     n_neg = int(round(batch_size * negative_samples_rate))
     n_pos = batch_size - n_neg
     dev = tg.device
@@ -250,7 +267,7 @@ def edge_prediction_mini_batch_plain(
     src, dst = sample_neg()
     if avoid_false_negatives:
         for _ in range(n_attempts):
-            bad = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src, dst)[1] | (src == dst)
+            bad = csr_edge_ids_plain(avoid.row_ptr, avoid.col_idx, src, dst)[1] | (src == dst)
             new_src, new_dst = sample_neg()
             src = torch.where(bad, new_src, src)
             dst = torch.where(bad, new_dst, dst)
@@ -263,52 +280,88 @@ def edge_prediction_mini_batch(
     tg: TorchGraph, generator: torch.Generator, batch_size: int,
     negative_samples_rate: float = 0.5, use_scale_free_distribution: bool = True,
     avoid_false_negatives: bool = True, n_attempts: int = 2,
+    graph_to_avoid: Optional[TorchGraph] = None, workspace: Optional["BatchDraws"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(sources [B] int32, destinations [B] int32, labels [B] f32): the first
     B - n_neg slots are uniform arcs (label 1), the last
     n_neg = round(B * negative_samples_rate) negatives (label 0) with
     scale-free (or uniform) endpoints. With `avoid_false_negatives`, a
-    negative that is an arc or a self-loop is redrawn up to `n_attempts`
-    times; the last redraw is kept unchecked. Kernel K6 on a CUDA graph
-    (Philox seeded from `generator`), the plain version on a CPU graph."""
-    if not _build.is_cuda(tg.col_idx):
-        return edge_prediction_mini_batch_plain(
-            tg, generator, batch_size, negative_samples_rate,
-            use_scale_free_distribution, avoid_false_negatives, n_attempts)
-    if tg.n_arcs == 0:
-        raise ValueError("The edge minibatch needs a graph with arcs.")
+    negative that is an arc of `graph_to_avoid` (default: `tg`; a graph on
+    the same device with at least `tg`'s nodes) or a self-loop is redrawn up
+    to `n_attempts` times; the last redraw is kept unchecked. Kernel K6 on a
+    CUDA graph (Philox seeded from `generator`, or at the workspace's key and
+    next offset; a positive read from the graph's `arc_pairs` where it has
+    them), the plain version on a CPU graph. With a `workspace`
+    (`BatchDraws.edges`) the sources and destinations are the rows of its
+    block, overwritten by the next batch, and the labels its labels, written
+    by its first batch and only read after; else fresh tensors."""
+    avoid = _avoid_csr(tg, graph_to_avoid)
     n_neg = int(round(batch_size * negative_samples_rate))
     dev = tg.device
-    out_src = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    out_dst = torch.empty((batch_size,), dtype=torch.int32, device=dev)
-    labels = torch.empty((batch_size,), dtype=torch.float32, device=dev)
-    seed, offset = _build.draw_seed(generator)
+    if workspace is not None:
+        _check_block(workspace, (2, batch_size), dev)
+        if workspace.n_neg != n_neg:
+            raise ValueError(f"workspace was made for {workspace.n_neg} negatives of "
+                             f"{batch_size}, not {n_neg}.")
+    if not _build.is_cuda(tg.col_idx):
+        out = edge_prediction_mini_batch_plain(
+            tg, generator, batch_size, negative_samples_rate,
+            use_scale_free_distribution, avoid_false_negatives, n_attempts, graph_to_avoid)
+        if workspace is None:
+            return out
+        src, dst, labels = workspace.views
+        src.copy_(out[0])
+        dst.copy_(out[1])
+        if not workspace.labels_written:
+            labels.copy_(out[2])
+            workspace.labels_written = True
+        return workspace.views
+    if tg.n_arcs == 0:
+        raise ValueError("The edge minibatch needs a graph with arcs.")
+    if workspace is None:
+        out_src, out_dst = torch.empty((2, batch_size), dtype=torch.int32, device=dev)
+        labels = torch.empty((batch_size,), dtype=torch.float32, device=dev)
+        write_labels = labels
+        seed, offset = _build.draw_seed(generator)
+    else:
+        out_src, out_dst, labels = workspace.views
+        write_labels = None if workspace.labels_written else labels
+        seed, offset = workspace.seed(generator)
     _build.launch(
         "edge_prediction_mini_batch", "ebt_edge_minibatch", dev,
         tg.row_ptr.data_ptr(), tg.col_idx.data_ptr(), _build.ptr(tg.sources),
-        tg.n_nodes, tg.n_arcs, batch_size - n_neg, batch_size,
+        _build.ptr(tg.arc_pairs), avoid.row_ptr.data_ptr(), avoid.col_idx.data_ptr(),
+        avoid.n_nodes, tg.n_nodes, tg.n_arcs, batch_size - n_neg, batch_size,
         int(use_scale_free_distribution),
         n_attempts if avoid_false_negatives else 0,
-        out_src.data_ptr(), out_dst.data_ptr(), labels.data_ptr(), seed, offset,
+        out_src.data_ptr(), out_dst.data_ptr(), _build.ptr(write_labels), seed, offset,
     )
+    if workspace is not None:
+        workspace.labels_written = True
     return out_src, out_dst, labels
 
 
 @dataclasses.dataclass
 class BatchDraws:
-    """A fit's K14 batches: the int32 `block` each batch is written into,
-    allocated once, and the draws' Philox key and the next batch's counter
-    offset. The key is drawn from the fit's generator at the first batch on
-    the card; each batch then takes the next offset, so batches never share
-    a counter (the kernel's counters are (slot, word, offset)) and the draws
-    still follow the fit's seed. The plain versions draw from the generator
-    and copy into the block."""
+    """A fit's batches (K14's, the walk step's, K2's, K6's): the int32
+    `block` each batch is written into, allocated once, and the draws' Philox
+    key and the next batch's counter offset. The key is drawn from the fit's
+    generator at the first batch on the card; each batch then takes the next
+    offset, so batches never share a counter (the kernels' counters hold
+    the slot and the offset) and the draws still follow the fit's seed. The
+    plain versions draw from the generator and copy into the block."""
 
     block: torch.Tensor
     key: Optional[int] = None
-    offset: int = 0
-    # LINE's (src, dst, neg) views of the block, made once.
+    # None: the counter offset drawn with the key (the edge batch's).
+    offset: Optional[int] = 0
+    # Views of the block made once: LINE's (src, dst, neg), a walk step's
+    # (walks, negatives, starts), the edge batch's (src, dst, labels).
     views: Tuple[torch.Tensor, ...] = ()
+    # The edge batch's negatives a batch, and whether its labels (the third
+    # view, beside the block) were written.
+    n_neg: int = 0
+    labels_written: bool = False
 
     @classmethod
     def line(cls, batch_size: int, number_of_negative_samples: int, device) -> "BatchDraws":
@@ -335,6 +388,19 @@ class BatchDraws:
                 (rows * (walk_length + number_of_negatives) + batch_size,))
 
     @classmethod
+    def edges(cls, batch_size: int, negative_samples_rate: float, device) -> "BatchDraws":
+        """For the GCN's edge batch: a [2, B] block, sources then
+        destinations, and the [B] labels beside it, written by the first
+        batch (n_pos ones, then zeros) and only read after. Its first batch
+        on the card takes the key and the counter offset of one draw from
+        the fit's generator, so it equals the batch drawn without a
+        workspace from the same generator."""
+        block = torch.empty((2, batch_size), dtype=torch.int32, device=device)
+        labels = torch.empty((batch_size,), dtype=torch.float32, device=device)
+        return cls(block, offset=None, views=(block[0], block[1], labels),
+                   n_neg=int(round(batch_size * negative_samples_rate)))
+
+    @classmethod
     def siamese(cls, batch_size: int, with_edge_types: bool, device) -> "BatchDraws":
         """For the siamese models: [4, B] rows src, dst, csrc, cdst, and a
         fifth row of edge types with `with_edge_types`."""
@@ -344,7 +410,9 @@ class BatchDraws:
     def seed(self, generator: torch.Generator) -> Tuple[int, int]:
         """(key, offset) of the next batch on the card."""
         if self.key is None:
-            self.key, _ = _build.draw_seed(generator)
+            self.key, first = _build.draw_seed(generator)
+            if self.offset is None:
+                self.offset = first
         out = self.key, self.offset
         self.offset = (self.offset + 1) & 0xFFFFFFFF
         return out

@@ -665,7 +665,7 @@ def csr_edge_ids(
     _build.launch(
         "csr_edge_ids", "ebt_csr_edge_ids", dev, row_ptr.data_ptr(),
         col_idx.data_ptr(), src.data_ptr(), dst.data_ptr(), n,
-        col_idx.shape[0], _build.ptr(ids), found.data_ptr(),
+        col_idx.shape[0], row_ptr.shape[0] - 1, _build.ptr(ids), found.data_ptr(),
     )
     return ids, found
 

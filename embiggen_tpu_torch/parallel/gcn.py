@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.graph import TorchGraph
-from ..ops.negatives import edge_prediction_mini_batch
+from ..ops.negatives import BatchDraws, edge_prediction_mini_batch
 from .halo import HaloPartition, _FromShard, halo_spmm
 from .mesh import Mesh, all_reduce
 
@@ -52,7 +52,12 @@ def make_sharded_gcn_edge_step(
     """(init, step): init(generator) -> params; step(params, generator) ->
     loss, one SGD step in place: the halo-SpMM encoder over this rank's
     feature rows `x_local` [S, D], an edge minibatch with scale-free
-    negatives, the Hadamard edge head and the logistic loss."""
+    negatives, the Hadamard edge head and the logistic loss. The batches
+    are K6's into one `BatchDraws.edges` workspace: on the card the first
+    step's generator gives the key and first offset, and each later step
+    takes the next offset, so ranks whose first generators agree draw the
+    same global batch every step."""
+    draws = BatchDraws.edges(batch_size, 0.5, tg.device)
 
     def init(generator):
         return init_sharded_gcn_params(generator, x_local.shape[1], units, mesh)
@@ -69,7 +74,7 @@ def make_sharded_gcn_edge_step(
             h = _FromShard.apply(h, mesh)
             src, dst, labels = edge_prediction_mini_batch(
                 tg, generator, batch_size, negative_samples_rate=0.5,
-                use_scale_free_distribution=True)
+                use_scale_free_distribution=True, workspace=draws)
             e = h[src.long()] * h[dst.long()]
             logits = e @ params["head"]["w"] + params["head"]["b"]
             loss = (F.softplus(logits) - labels * logits).mean()

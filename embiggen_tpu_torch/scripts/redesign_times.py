@@ -3,7 +3,7 @@ steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
                                                          k18 nodesketch k16b gcn_hll k13b glove
-                                                         k14 k9 k8 k16a k1 k2]
+                                                         k14 k9 k8 k16a k1 k2 k5 k6]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -108,7 +108,21 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   ms from torch.profiler and its host microseconds; the S1 step (30 steady
   steps on events and queued), the Walklets steps (as `--parts walklets`),
   the p/q step's batch (return 2, explore 0.5: K2, K9, K2) and the Node2Vec
-  GloVe step and epoch (as `--parts glove`).
+  GloVe step and epoch (as `--parts glove`);
+- K5 at 2^20 queries on the slice graph (half arcs, half uniform pairs) and
+  on it plus 256 planted hubs (half arcs, half pairs of a scale-free source
+  and a uniform node): the call as `call_times` gives it, five device
+  times queued behind a sleep kernel, and a sha1 of the ids and flags;
+- K6 at the GCN's 2^20 slots on both graphs, exported as the GCN's fit
+  exports them (with the arcs' (source, head) records where the checkout
+  has them): the call without a workspace
+  and, where the checkout has one, on a `BatchDraws.edges` workspace (each
+  as `call_times`, with five queued device times), a sha1 of the batch
+  drawn from seed 7 without a workspace (the same key and offset in every
+  checkout) and, on a workspace, of its first batch from seed 7; and the
+  S3 GCN step (batch 2^20, seeded node features of width 128, K6 on the
+  fit's workspace where the checkout has one): three means of 20 steady
+  steps on CUDA events and K6's launch time in 10 of them.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -117,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import inspect
 import json
 import subprocess
@@ -659,16 +674,29 @@ def gcn_step_of(model, graph, dev):
 
     params = map_params(lambda t: t.clone().requires_grad_(True), model._params)
     optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
-    tg = graph.device(dev, with_sources=True)
+    tg = graph.device(dev, with_sources=True, **paired_export(graph))
     gen = torch.Generator().manual_seed(1)
+    extra = ()
+    if "workspace" in inspect.signature(model._loss).parameters:
+        # K6's block, labels and key, held as the fit holds them.
+        from embiggen_tpu_torch.ops.negatives import BatchDraws
+
+        extra = (BatchDraws.edges(model._run_batch_size, model._negative_samples_rate, dev),)
 
     def step():
         optimizer.zero_grad(set_to_none=True)
-        model._loss(params, model._csr_kernels, tg, None, gen, None).backward()
+        model._loss(params, model._csr_kernels, tg, None, gen, None, *extra).backward()
         optimizer.step()
     for _ in range(3):
         step()
     return step
+
+
+def paired_export(graph) -> dict:
+    """`Graph.device`'s option for the arcs' (source, head) records, which
+    the GCN's fit exports on the card, where the checkout has it."""
+    params = inspect.signature(graph.device).parameters
+    return dict(with_arc_pairs=True) if "with_arc_pairs" in params else {}
 
 
 def k8_times(graph, dev) -> dict:
@@ -987,8 +1015,92 @@ def k9_times(graph, dev) -> dict:
     return dict(ms=ms, ptxas=ptxas)
 
 
+K5_QUERIES = 1 << 20
+
+
+def edge_queries(tg, hubs: bool, dev):
+    """K5's 2^20 queries: half arcs (uniform arc ids' ends), half pairs of a
+    uniform node (a scale-free one, the head of a uniform arc, on the hub
+    graph) and a uniform node; chip_smoke.py's on the slice graph."""
+    rng = np.random.default_rng(21)
+    n, n_arcs, q = tg.n_nodes, tg.n_arcs, K5_QUERIES
+    arc = torch.from_numpy(rng.integers(0, n_arcs, q // 2)).to(dev)
+    if hubs:
+        other = tg.col_idx[torch.from_numpy(rng.integers(0, n_arcs, q - q // 2)).to(dev)]
+    else:
+        other = torch.from_numpy(rng.integers(0, n, q - q // 2, dtype=np.int32)).to(dev)
+    dst = torch.from_numpy(rng.integers(0, n, q - q // 2, dtype=np.int32)).to(dev)
+    return (torch.cat([tg.sources[arc], other]).contiguous(),
+            torch.cat([tg.col_idx[arc], dst]).contiguous())
+
+
+def digest(*tensors) -> str:
+    """sha1 of the tensors' bytes, to compare two checkouts' outputs."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k5_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.walks import csr_edge_ids
+
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        tg = g.device(dev, with_sources=True)
+        src, dst = edge_queries(tg, name == "hub_graph", dev)
+        fn = lambda: csr_edge_ids(tg.row_ptr, tg.col_idx, src, dst)  # noqa: E731
+        ids, found = fn()
+        out[name] = dict(call_times(fn, 50), digest=digest(ids, found),
+                         found=int(found.sum()), runs_queued_ms=[queued_ms(fn, 20)
+                                                                 for _ in range(5)])
+        del tg, src, dst, ids, found
+        torch.cuda.empty_cache()
+    return out
+
+
+def k6_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.ops import negatives
+
+    held = "workspace" in inspect.signature(negatives.edge_prediction_mini_batch).parameters
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        tg = g.device(dev, with_sources=True, **paired_export(g))
+        gen = torch.Generator().manual_seed(3)
+        fresh = lambda: negatives.edge_prediction_mini_batch(tg, gen, GCN_BATCH)  # noqa: E731
+        # The batch at the key and offset of one draw from seed 7: the same
+        # in every checkout whose draws follow the slot's Philox counters.
+        row = dict(digest=digest(*negatives.edge_prediction_mini_batch(
+            tg, torch.Generator().manual_seed(7), GCN_BATCH)),
+            fresh=dict(call_times(fresh, 50),
+                       runs_queued_ms=[queued_ms(fresh, 20) for _ in range(5)]))
+        if held:
+            ws = negatives.BatchDraws.edges(GCN_BATCH, 0.5, dev)
+            first = negatives.edge_prediction_mini_batch(
+                tg, torch.Generator().manual_seed(7), GCN_BATCH, workspace=ws)
+            row["workspace_first_digest"] = digest(*first)
+            on_ws = lambda: negatives.edge_prediction_mini_batch(  # noqa: E731
+                tg, gen, GCN_BATCH, workspace=ws)
+            row["workspace"] = dict(call_times(on_ws, 50),
+                                    runs_queued_ms=[queued_ms(on_ws, 20) for _ in range(5)])
+        out[name] = row
+        del tg
+        torch.cuda.empty_cache()
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    model = GCNEdgePrediction(epochs=1, batch_size=GCN_BATCH, dropout_rate=0.0,
+                              early_stopping_patience=10**6, random_state=0, device=dev)
+    model.fit(graph, node_features=feats)
+    step = gcn_step_of(model, graph, dev)
+    out["gcn_step_ms"] = [time_ms(step, 20) for _ in range(3)]
+    out["gcn_k6_ms_per_step"] = launch_ms(step, 10)["edge_prediction_mini_batch"]
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a", "k1", "k2")
+         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a", "k1", "k2", "k5", "k6")
 
 
 def main() -> None:
@@ -1012,7 +1124,8 @@ def main() -> None:
                   walklets=walklets_times, k15a=k15a_times, spine=spine_times, k18=k18_times,
                   nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
                   k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times,
-                  k8=k8_times, k16a=k16a_times, k1=k1_times, k2=k2_times)
+                  k8=k8_times, k16a=k16a_times, k1=k1_times, k2=k2_times, k5=k5_times,
+                  k6=k6_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

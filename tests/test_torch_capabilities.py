@@ -2,6 +2,8 @@
 capability methods on every registered row of the port, equal to the
 reference's for the same constructor arguments; the refusal to build a
 DataFrame of over 100M rows; and `EmbeddingResult.embedding`."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,52 @@ def test_every_row_has_its_kinds_methods():
     method, the 5 edge predictors the C3 instance method."""
     tasks = [task for task, _ in ROWS]
     assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (56, 5, 61)
+
+
+# Constructor parameters the port adds to every row: where it trains, and
+# tables to start from.
+PORT_PARAMETERS = ("device", "initial_params")
+
+
+def _init_defaults(cls):
+    return {k: v.default for k, v in inspect.signature(cls.__init__).parameters.items()
+            if k != "self"}
+
+
+@pytest.mark.parametrize("task, name", ROWS)
+def test_constructor_parameters_match_reference(task, name):
+    """Every row's constructor takes the reference's parameter names with
+    the same defaults (C6: the Node2Vec rows' `checkpoint_interval`), and
+    no other name but the port's own."""
+    port = _init_defaults(MODELS_LIBRARY[task][name]["Torch"])
+    ref = _init_defaults(_reference_class(task, name))
+    for k in PORT_PARAMETERS:
+        port.pop(k, None)
+    assert sorted(port) == sorted(ref)
+    assert {k: v for k, v in port.items() if v != ref[k]} == {}
+
+
+def test_walk_rows_keep_checkpoint_interval():
+    """C6: the Node2Vec rows are built with `checkpoint_interval`, as the
+    reference's are; `checkpoint_dir` still raises, naming A12."""
+    for name in ("Node2Vec", "Node2Vec SkipGram", "Node2Vec CBOW"):
+        cls = MODELS_LIBRARY["Node Embedding"][name]["Torch"]
+        assert cls(checkpoint_interval=5, device="cpu")._checkpoint_interval == 5
+        _reference_class("Node Embedding", name)(checkpoint_interval=5)
+        with pytest.raises(NotImplementedError, match="A12"):
+            cls(checkpoint_dir="somewhere", device="cpu")
+
+
+def test_top_level_names_match_reference():
+    """C7: the package exports the reference's top-level names, but for
+    `transformers` (ROADMAP A15)."""
+    import embiggen_tpu
+    import embiggen_tpu_torch
+
+    assert sorted(embiggen_tpu_torch.__all__) == sorted(
+        set(embiggen_tpu.__all__) - {"transformers"})
+    for name in embiggen_tpu_torch.__all__:
+        assert hasattr(embiggen_tpu_torch, name), name
 
 
 @pytest.mark.parametrize("task, name", ROWS)

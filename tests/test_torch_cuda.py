@@ -61,6 +61,7 @@ from pq_laws import (
     Laws, arc_weights, n_tries_for, rows_of_32_and_33, two_hubs, walks_chi2_p,
 )
 from walk_batch_laws import batch_counts, batch_p, stream_independence_p, two_sample_p
+from edge_batch_graphs import held_to_law, membership_graph, membership_queries
 
 pytestmark = pytest.mark.cuda
 
@@ -459,6 +460,128 @@ def test_csr_edge_ids_kernel_matches_plain(dev):
     ids, found = csr_edge_ids(tg.row_ptr, tg.col_idx, s, d)
     want_ids, want_found = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, s, d)
     assert torch.equal(ids, want_ids) and torch.equal(found, want_found)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_csr_edge_ids_kernel_on_every_row_route(dev, seed, offset):
+    """K5's group search exactly against its plain version on empty and
+    short rows, rows either side of one sweep at every alignment, rows of
+    one and two narrowings, repeated heads; `offset` 1 stores col_idx,
+    src and dst one int32 into their storage (unaligned 16-byte chunks)."""
+    row_ptr, col_idx = membership_graph(seed)
+    src, dst = membership_queries(row_ptr, col_idx, seed + 1)
+
+    def put(a):
+        buf = torch.zeros(len(a) + offset, dtype=torch.int32, device=dev)
+        buf[offset:] = torch.from_numpy(a).to(dev)
+        return buf[offset:]
+    rp, ci, s, d = torch.from_numpy(row_ptr).to(dev), put(col_idx), put(src), put(dst)
+    ids, found = csr_edge_ids(rp, ci, s, d)
+    want_ids, want_found = csr_edge_ids_plain(rp, ci, s, d)
+    assert torch.equal(ids, want_ids) and torch.equal(found, want_found)
+    assert bool(found.any()) and not bool(found.all())
+    assert torch.equal(csr_edge_ids(rp, ci, s, d, with_ids=False)[1], want_found)
+
+
+def test_edge_batch_workspace_key_and_offsets(dev):
+    """K6 on a fit's workspace: its first batch is the batch drawn without
+    one from the same generator (the key and offset of one draw), later
+    batches take the next offsets (so consecutive batches differ) without
+    drawing again, the same key and offset give the same batch, and the
+    labels are written once."""
+    tg = erdos_renyi(400, 2000, seed=5).device(dev, with_sources=True)
+    ws = BatchDraws.edges(20001, 0.5, dev)
+    gen = torch.Generator().manual_seed(0)
+    want = edge_prediction_mini_batch(tg, torch.Generator().manual_seed(0), 20001)
+
+    def batch(workspace):
+        return [t.clone() for t in edge_prediction_mini_batch(tg, gen, 20001,
+                                                              workspace=workspace)]
+    first = batch(ws)
+    state = gen.get_state()
+    for got, w in zip(first, want):
+        assert torch.equal(got, w)
+    second = batch(ws)
+    assert torch.equal(gen.get_state(), state) and ws.labels_written
+    assert not torch.equal(first[0], second[0]) and not torch.equal(first[1], second[1])
+    again = BatchDraws.edges(20001, 0.5, dev)
+    again.key, again.offset = ws.key, ws.offset - 1
+    for got, w in zip(batch(again), second):
+        assert torch.equal(got, w)
+    # The positives read from the (source, head) records as from the arrays.
+    paired = erdos_renyi(400, 2000, seed=5).device(dev, with_sources=True, with_arc_pairs=True)
+    assert torch.equal(paired.arc_pairs, torch.stack([tg.sources, tg.col_idx], 1))
+    again.offset = ws.offset - 1
+    for got, w in zip(edge_prediction_mini_batch(paired, gen, 20001, workspace=again), second):
+        assert torch.equal(got, w)
+    ws.views[2].fill_(7.0)
+    assert bool((batch(ws)[2] == 7.0).all())
+
+
+@pytest.mark.parametrize("avoid_seed, pairs", [(None, True), (None, False), (7, True)])
+@pytest.mark.parametrize("scale_free, n_attempts", [(True, 2), (False, 1)])
+def test_edge_batch_kernel_matches_its_law(dev, avoid_seed, pairs, scale_free, n_attempts):
+    """K6's negatives follow the exact law of the draw-and-redraw process
+    against `graph_to_avoid` (default: the sampled graph), as on the CPU
+    (tests/test_torch_edge_batch.py); its positives are arcs, read from the
+    (source, head) records or the two arrays."""
+    g = erdos_renyi(30, 150, seed=2)
+    avoid = g if avoid_seed is None else erdos_renyi(34, 200, seed=avoid_seed)
+    tg = g.device(dev, with_sources=True, with_arc_pairs=pairs)
+    batch, n_pos = 40000, 20000
+    src, dst, labels = edge_prediction_mini_batch(
+        tg, torch.Generator().manual_seed(5), batch, use_scale_free_distribution=scale_free,
+        n_attempts=n_attempts, graph_to_avoid=None if avoid_seed is None else avoid.device(dev))
+    assert int(labels.sum()) == n_pos and bool((labels[:n_pos] == 1).all())
+    assert bool(csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src[:n_pos], dst[:n_pos])[1].all())
+    held_to_law(src[n_pos:].cpu().numpy(), dst[n_pos:].cpu().numpy(), g, avoid, scale_free,
+                n_attempts)
+
+
+def test_edge_batch_kernel_on_hub_rows(dev):
+    """K6's redraw check on rows that take the group search's narrowings
+    (an undirected graph over `membership_graph`'s arcs, whose hubs are
+    scale-free sources at their degree's rate): the negatives kept as arcs
+    or loops occur at the rate beta^(n_attempts + 1) of the redraw
+    process, beta the chance that a drawn pair is one."""
+    from scipy.stats import binomtest
+
+    row_ptr, col_idx = membership_graph(0, n_nodes=80_000)
+    sources = np.repeat(np.arange(80_000), np.diff(row_ptr))
+    g = Graph.from_edge_arrays(sources, col_idx, n_nodes=80_000)
+    tg = g.device(dev, with_sources=True)
+    batch, n_pos = 1 << 18, 1 << 17
+    src, dst, _ = edge_prediction_mini_batch(tg, torch.Generator().manual_seed(3), batch,
+                                             n_attempts=1)
+    p = g.degrees / g.degrees.sum()
+    off = g.sources != g.col_idx
+    beta = float((p[g.sources[off]] * p[g.col_idx[off]]).sum() + (p ** 2).sum())
+    _, is_arc = csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src[n_pos:], dst[n_pos:])
+    bad = int((is_arc | (src[n_pos:] == dst[n_pos:])).sum())
+    assert binomtest(bad, batch - n_pos, beta ** 2).pvalue > 1e-3
+    hubs = torch.from_numpy(g.degrees > 64).to(dev)
+    assert float(hubs[src[n_pos:].long()].float().mean()) > 0.3
+    assert bool(csr_edge_ids_plain(tg.row_ptr, tg.col_idx, src[:n_pos], dst[:n_pos])[1].all())
+
+
+def test_gcn_fit_draws_its_batches_under_one_key(dev, monkeypatch):
+    """A GCN fit launches K6 once a step on its workspace, under one key
+    drawn from the fit's generator."""
+    g = erdos_renyi(500, 3000, seed=3)
+    feats = np.random.default_rng(0).normal(size=(500, 16)).astype(np.float32)
+    model = KipfGCNEdgePrediction(units=[16], epochs=2, batch_size=512, device=dev,
+                                  random_state=0)
+    calls = []
+    draw_seed = _build.draw_seed
+    monkeypatch.setattr(_build, "draw_seed", lambda gen: calls.append(1) or draw_seed(gen))
+    before = _build.launch_counts()
+    model.fit(g, node_features=feats)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["edge_prediction_mini_batch"] - before["edge_prediction_mini_batch"] == (
+        2 * (g.number_of_directed_edges // 512))
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("scale_free", [True, False])
