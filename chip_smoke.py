@@ -81,11 +81,26 @@ thread while the phases before them run:
      0.03 of the reference's for the same call; and on the same connected
      holdout the GCN fitted with model seeds 0-7 and scored by `_evaluate`:
      mean test AUPRC at least the reference's less 0.03, and 0.80;
+ 35. (before phase 10) the native host helpers (`embiggen_tpu_torch.native`,
+     C++ built with g++) against their plain numpy versions on the card's
+     host at the harness's shapes, each with both host times: the panel's
+     radix argsort and sweep on 19M float32 scores, `sort_unique_pairs` on
+     10M pairs drawn as the negative graph draws them, `build_sym_csr` and
+     `sort_pairs` on the slice graph's shuffled edges and arcs, the alias
+     tables of the weighted twin (the plain version on its first 100,000
+     rows), the forest on a 100,000-node graph and the parser on a
+     1M-line file (indices exactly, the tables bitwise, the sweep within
+     1e-12 relative);
  10. S4: the flagship harness (`embiggen_tpu_torch.scripts.harness.run`):
      `edge_prediction_evaluation` of a Perceptron and a Kipf GCN over
      SkipGram features on a 1M-node planted-partition graph, with K1-K7
-     launched; every phase second, peak device memory, and test AUPRC at
-     least 0.85 (printed beside the reference's 0.8712);
+     launched and its host phases on the native helpers (the forest, the
+     CSR builds, the negative dedup, the panel's sort and sweep, each
+     called, with its calls and host seconds); every phase second, peak
+     device memory, test AUPRC at least 0.85 (printed beside the
+     reference's 0.8712) and the sha1 of the train and test CSR arrays of
+     the holdout that the harness split (`harness.recorded_split`), to
+     compare the split with another build's;
  11. K9-K11 against their plain versions on the card: K9 (the ELL p/q walk)
      and K10 (the rejection walk) on small weighted and unweighted graphs,
      every move of whole walks against its exact step law
@@ -2611,7 +2626,8 @@ def s6_quality_on_card(card, dev):
                                 (Unstructured, GATE_UNSTRUCTURED, True,
                                  GATE_REFERENCE_UNSTRUCTURED_AUROC)):
         emb = np.asarray(cls(device=dev, **kw).fit_transform(rgg).node_embeddings[0], float)
-        neg = sample_negative_graph(rgg, rgg.number_of_edges, random_state=3 if dist else 0)
+        neg = sample_negative_graph(rgg, rgg.number_of_edges, random_state=3 if dist else 0,
+                                    device=dev)
 
         def score(a, b):
             return -((a - b) ** 2).sum(1) if dist else (a * b).sum(1)
@@ -3622,7 +3638,7 @@ def s8_quality_on_card(card, dev):
         device=dev, edge_feature_models=[HyperSketching(device=dev, **GATE_SKETCH)],
         **GATE_SKETCH_GCN)
     model.fit(train, support=train)
-    neg = sample_negative_graph(rgg, test.number_of_edges, random_state=1)
+    neg = sample_negative_graph(rgg, test.number_of_edges, random_state=1, device=dev)
     pos_scores, neg_scores = model.predict_proba(test), model.predict_proba(neg)
     labels = np.concatenate([np.ones(len(pos_scores)), np.zeros(len(neg_scores))])
     auroc = binary_auroc(labels, np.concatenate([pos_scores, neg_scores]))
@@ -5315,6 +5331,175 @@ def s12_runs(graph, dev):
     return out
 
 
+# ------------------------------------------------------- native host helpers
+# The harness's shapes for the native host helpers (phase 35): the binary
+# panel's scores, the negative graph's pairs, the forest's graph (the Python
+# forest at 1M nodes takes most of a minute), the alias tables' rows held to
+# the plain version (its pairing loop is Python), and the parser's lines.
+NATIVE_SCORES = 19_000_000
+NATIVE_PAIRS = 10_000_000
+NATIVE_FOREST = (100_000, 1_000_000)
+NATIVE_ALIAS_ROWS = 100_000
+NATIVE_LINES = 1_000_000
+# The wrappers of `embiggen_tpu_torch.native`, counted in phase 10.
+NATIVE_HELPERS = ("alias_tables", "spanning_forest", "radix_argsort",
+                  "ranking_metrics_sorted", "sort_pairs", "sort_unique_pairs",
+                  "build_sym_csr", "parse_edge_list")
+
+
+def native_checks(graph, weighted_graph):
+    """Phase 35: each native host helper against its plain numpy version on
+    the card's host at the harness's shapes, both timed (host seconds):
+    the panel's radix argsort (`ops.metrics._stable_argsort` against
+    `np.argsort(kind="stable")`) and sweep on NATIVE_SCORES float32 scores,
+    `sort_unique_pairs` on NATIVE_PAIRS pairs drawn as the negative graph
+    draws them, `build_sym_csr` and `sort_pairs` on the slice graph's
+    shuffled edges and arcs, the alias tables of the weighted twin (the
+    plain version on its first NATIVE_ALIAS_ROWS rows), the forest on
+    erdos_renyi(NATIVE_FOREST) and the parser on a NATIVE_LINES-line file.
+    Indices and integers exactly, the alias tables bitwise, the sweep within
+    1e-12 relative; raises on the first that differs. Returns {helper:
+    {native_s, plain_s, err, shape}}."""
+    from embiggen_tpu_torch import native
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.ops.metrics import _stable_argsort
+
+    out = {}
+
+    def row(name, shape, run_native, run_plain, compare):
+        t0 = time.perf_counter()
+        got = run_native()
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = run_plain()
+        plain_s = time.perf_counter() - t0
+        err = compare(got, want)
+        if err is None:
+            raise AssertionError(f"native {name} differs from its plain version at {shape}")
+        out[name] = {"native_s": native_s, "plain_s": plain_s, "err": err, "shape": shape}
+        return got
+
+    def exact(got, want):
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        return 0.0 if all(np.array_equal(a, b) for a, b in pairs) else None
+
+    def bitwise(got, want):
+        return exact(tuple(a.view(np.uint32) if a.dtype == np.float32 else a for a in got),
+                     tuple(a.view(np.uint32) if a.dtype == np.float32 else a for a in want))
+
+    rng = np.random.default_rng(35)
+    n = graph.number_of_nodes
+    # The panel: a positive's score lifted, float32 probabilities (ties).
+    labels = rng.random(NATIVE_SCORES) < 0.5
+    scores = (1 / (1 + np.exp(-(rng.standard_normal(NATIVE_SCORES) + 1.5 * labels)))
+              ).astype(np.float32)
+    order = row("radix_argsort", f"{NATIVE_SCORES} float32 scores",
+                lambda: _stable_argsort(scores), lambda: np.argsort(scores, kind="stable"),
+                exact)
+    s_sorted, l_sorted = scores[order].astype(np.float64), labels[order]
+    del order
+
+    def rel(got, want):
+        e = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        return e if e <= 1e-12 else None
+
+    row("ranking_metrics_sorted", f"{NATIVE_SCORES} sorted scores",
+        lambda: native.ranking_metrics_sorted(s_sorted, l_sorted),
+        lambda: native.ranking_metrics_sorted_plain(s_sorted, l_sorted), rel)
+    del labels, scores, s_sorted, l_sorted
+    # The negative graph's round: degree-distributed ends, canonical pairs.
+    heads = graph.sources
+    a = heads[rng.integers(0, len(heads), NATIVE_PAIRS)].astype(np.int64)
+    b = heads[rng.integers(0, len(heads), NATIVE_PAIRS)].astype(np.int64)
+    src, dst = np.minimum(a, b), np.maximum(a, b)
+    del a, b
+    row("sort_unique_pairs", f"{NATIVE_PAIRS} pairs over {n} nodes",
+        lambda: native.sort_unique_pairs(src, dst, n),
+        lambda: native.sort_unique_pairs_plain(src, dst, n), exact)
+    # The slice graph's edges, shuffled, built again; and its arcs sorted.
+    canon = np.flatnonzero(graph.sources <= graph.col_idx)
+    perm = rng.permutation(canon)
+    src, dst = graph.sources[perm], graph.col_idx[perm]
+    built = row("build_sym_csr", f"{len(perm)} edges over {n} nodes",
+                lambda: native.build_sym_csr(src, dst, n),
+                lambda: native.build_sym_csr_plain(src, dst, n), exact)
+    if exact(built, (graph.row_ptr, graph.col_idx)) is None:
+        raise AssertionError("build_sym_csr did not rebuild the slice graph")
+    perm = rng.permutation(graph.number_of_directed_edges)
+    src, dst = graph.sources[perm], graph.col_idx[perm]
+    row("sort_pairs", f"{len(perm)} arcs over {n} nodes",
+        lambda: native.sort_pairs(src, dst, n), lambda: native.sort_pairs_plain(src, dst, n),
+        exact)
+    del canon, perm, src, dst, built
+    # The weighted twin's alias tables: whole natively, the plain version's
+    # rows against the same rows of the whole tables.
+    w_ptr, w = weighted_graph.row_ptr, weighted_graph.weights
+    t0 = time.perf_counter()
+    prob, alias = native.alias_tables(w_ptr, w)
+    whole_s = time.perf_counter() - t0
+    cut = int(w_ptr[NATIVE_ALIAS_ROWS])
+    row("alias_tables", f"{NATIVE_ALIAS_ROWS} rows, {cut} arcs of the weighted twin",
+        lambda: native.alias_tables(w_ptr[:NATIVE_ALIAS_ROWS + 1], w[:cut]),
+        lambda: native.alias_tables_plain(w_ptr[:NATIVE_ALIAS_ROWS + 1], w[:cut]), bitwise)
+    if bitwise((prob[:cut], alias[:cut]),
+               native.alias_tables_plain(w_ptr[:NATIVE_ALIAS_ROWS + 1], w[:cut])) is None:
+        raise AssertionError("the whole graph's alias tables differ on its first rows")
+    out["alias_tables"]["native_whole_s"] = whole_s
+    out["alias_tables"]["whole_arcs"] = int(len(w))
+    del prob, alias
+    # The forest of connected_holdout on a 100,000-node graph.
+    fg = erdos_renyi(*NATIVE_FOREST, seed=1)
+    keep = fg.sources <= fg.col_idx
+    f_src, f_dst = fg.sources[keep], fg.col_idx[keep]
+    f_order = np.random.default_rng(0).permutation(len(f_src))
+    row("spanning_forest", f"{len(f_src)} edges over {NATIVE_FOREST[0]} nodes",
+        lambda: native.spanning_forest(f_src, f_dst, f_order, NATIVE_FOREST[0]),
+        lambda: native.spanning_forest_plain(f_src, f_dst, f_order, NATIVE_FOREST[0]), exact)
+    # The parser: the slice graph's first edges as named, weighted, typed rows.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "edges.tsv")
+        ids = rng.permutation(NATIVE_LINES)
+        with open(path, "w") as f:
+            f.write("subject\tobject\tweight\tedge_label\n")
+            f.write("".join(f"v{s}\tv{d}\t{x:.3f}\tt{k}\n" for s, d, x, k in zip(
+                graph.sources[ids].tolist(), graph.col_idx[ids].tolist(),
+                rng.uniform(0.5, 2.0, NATIVE_LINES).tolist(),
+                rng.integers(0, 8, NATIVE_LINES).tolist())))
+        kw = dict(weight_col=2, type_col=3)
+        row("parse_edge_list", f"{NATIVE_LINES} lines",
+            lambda: native.parse_edge_list(path, **kw),
+            lambda: native.parse_edge_list_plain(path, **kw), exact)
+    return out
+
+
+class native_calls:
+    """Within the block, every wrapper of `embiggen_tpu_torch.native` counts
+    its calls and host seconds; read `.counts` after it."""
+
+    def __init__(self):
+        from embiggen_tpu_torch import native
+
+        self.native = native
+        self.counts = {name: {"calls": 0, "s": 0.0} for name in NATIVE_HELPERS}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.native, name) for name in NATIVE_HELPERS}
+        for name, fn in self.saved.items():
+            def counted(*args, _fn=fn, _entry=self.counts[name], **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    _entry["calls"] += 1
+                    _entry["s"] += time.perf_counter() - t0
+            setattr(self.native, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.native, name, fn)
+
+
 def check_launches(path, counts, names, unused=()):
     """The counts of `names` after a path's run; raises if one is 0, or if
     one of `unused` launched."""
@@ -5790,6 +5975,17 @@ def main() -> None:
         + f" | K7 gathered rows/s {k7_rate:.4g} = {k7_rate / p1_rate:.3f} of P1's; "
         f"launches {probe_launches}", flush=True)
 
+    # ------------------------------------------- 35. native host helpers
+    t_phase = time.perf_counter()
+    native_rows = native_checks(graph, later["weighted"].result())
+    print(f"phase 35 native host helpers vs plain on the host of {card} "
+          f"({time.perf_counter() - t_phase:.1f} s; host seconds, native / plain): " + "; ".join(
+              f"{k} at {v['shape']}: {v['native_s']:.4f} / {v['plain_s']:.4f} "
+              f"(x{v['plain_s'] / v['native_s']:.1f}) err {v['err']:.3g}"
+              for k, v in native_rows.items())
+          + f" | alias tables of all {native_rows['alias_tables']['whole_arcs']} arcs "
+          f"{native_rows['alias_tables']['native_whole_s']:.4f}", flush=True)
+
     # ---------------------------------------------------------- 10. S4 harness
     # The quality phases (9, 13, 16, 20, 23, 27, 30) run in a process of
     # their own beside the harness: both are host-bound and neither times a
@@ -5802,8 +5998,14 @@ def main() -> None:
         del result
         torch.cuda.empty_cache()
         _build.reset_launch_counts()
-        harness_out = harness.run(dev, er_graph=graph)
+        with native_calls() as harness_native:
+            harness_out = harness.run(dev, er_graph=graph)
         harness_launches = check_launches("S4", _build.launch_counts(), S4_KERNELS)
+        for name in ("spanning_forest", "build_sym_csr", "sort_unique_pairs",
+                     "radix_argsort", "ranking_metrics_sorted"):
+            if not harness_native.counts[name]["calls"]:
+                raise AssertionError(f"the harness never called native.{name}: "
+                                     f"{harness_native.counts}")
         auprc = harness_out["eval_test_auprc"]
         if not auprc >= HARNESS_FLOOR:
             raise AssertionError(f"flagship harness test AUPRC {auprc} on {card} is "
@@ -5812,7 +6014,9 @@ def main() -> None:
               f"quality phases beside it): test AUPRC {auprc:.4f}, "
               f"{auprc - HARNESS_REFERENCE_AUPRC:+.4f} from the reference's "
               f"{HARNESS_REFERENCE_AUPRC}; {json.dumps(harness_out)}; "
-              f"launches {harness_launches}", flush=True)
+              f"launches {harness_launches}; split sha1 {harness_out['eval_split_sha1']}; "
+              f"native host helpers (calls, host s) {json.dumps(harness_native.counts)}",
+              flush=True)
         t0 = time.perf_counter()
         quality.wait()
         quality_wait_s = time.perf_counter() - t0

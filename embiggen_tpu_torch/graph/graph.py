@@ -2,10 +2,11 @@
 `embiggen_tpu/graph/graph.py`, cut to what SkipGram training and the edge
 predictors use.
 
-The host side is numpy, as in the JAX package: `Graph.from_edge_arrays`
-symmetrizes, sorts and deduplicates arcs into a CSR. `Graph.device(device)`
-exports a `TorchGraph` of tensors on an explicit device — the counterpart of
-`DeviceGraph` — for the sampling kernels.
+The host side is numpy and the port's native helpers (`native`), as in the
+JAX package: `Graph.from_edge_arrays` symmetrizes, sorts and deduplicates
+arcs into a CSR. `Graph.device(device)` exports a `TorchGraph` of tensors on
+an explicit device — the counterpart of `DeviceGraph` — for the sampling
+kernels.
 
 Undirected graphs store both arcs, so `number_of_directed_edges` counts arcs.
 """
@@ -17,6 +18,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from .. import native
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,45 +83,10 @@ def _as_names(names: Optional[Sequence[str]], count: int, prefix: str) -> np.nda
 def build_alias_tables(
     row_ptr: np.ndarray, weights: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Walker alias tables for every node's neighbour distribution at once.
-    Returns (prob, alias) aligned with col_idx; alias holds offsets inside
-    the row. Rows with uniform weights resolve vectorized; only rows with
-    truly non-uniform weights run the two-stack pairing loop."""
-    row_ptr = np.asarray(row_ptr, dtype=np.int64)
-    weights = np.asarray(weights, dtype=np.float32)
-    n_edges = weights.shape[0]
-    prob = np.ones(n_edges, dtype=np.float32)
-    degrees = np.diff(row_ptr)
-    row_of_edge = np.repeat(np.arange(len(degrees)), degrees)
-    row_sums = np.zeros(len(degrees), dtype=np.float64)
-    np.add.at(row_sums, row_of_edge, weights.astype(np.float64))
-    safe = np.where(row_sums == 0, 1.0, row_sums)
-    scaled = weights.astype(np.float64) * degrees[row_of_edge] / safe[row_of_edge]
-
-    # Identity alias per edge (offsets inside the row): right for uniform rows.
-    alias = (
-        np.arange(n_edges, dtype=np.int64) - np.repeat(row_ptr[:-1], degrees)
-    ).astype(np.int32)
-
-    non_uniform_edges = np.abs(scaled - 1.0) > 1e-9
-    for r in np.unique(row_of_edge[non_uniform_edges]):
-        s, e = row_ptr[r], row_ptr[r + 1]
-        p = scaled[s:e].copy()
-        pr = prob[s:e]
-        al = alias[s:e]
-        small = [i for i in range(e - s) if p[i] < 1.0]
-        large = [i for i in range(e - s) if p[i] >= 1.0]
-        while small and large:
-            sm = small.pop()
-            lg = large.pop()
-            pr[sm] = p[sm]
-            al[sm] = lg
-            p[lg] = p[lg] - (1.0 - p[sm])
-            (small if p[lg] < 1.0 else large).append(lg)
-        for i in large + small:
-            pr[i] = 1.0
-            al[i] = i
-    return prob, alias
+    """Walker alias tables for every node's neighbour distribution at once,
+    built by the native helpers (`native.alias_tables`). Returns (prob,
+    alias) aligned with col_idx; alias holds offsets inside the row."""
+    return native.alias_tables(row_ptr, weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,8 +334,10 @@ class Graph:
         """Build the CSR from (src, dst[, weights, edge types]) arc arrays.
 
         If directed=False, arcs are symmetrized, each reverse arc with its
-        edge's weight and type. Arcs sort by the key src * N + dst; a
-        duplicate arc keeps the attributes of its first occurrence.
+        edge's weight and type. Arcs sort by source, then destination; a
+        duplicate arc keeps the attributes of its first occurrence. An
+        undirected build without weights or types is `native.build_sym_csr`,
+        any other `native.sort_pairs` and a first-occurrence dedup.
         `directed_flag`, when given, is the stored directedness in place of
         `directed` (for arcs that are already symmetrized). The node types
         (`node_type_ptr`, `node_type_ids`) are stored as given."""
@@ -375,24 +345,33 @@ class Graph:
         dst = np.asarray(dst, dtype=np.int64)
         if n_nodes is None:
             n_nodes = int(max(src.max(initial=-1), dst.max(initial=-1)) + 1)
-        if not directed:
-            non_loop = src != dst
-            src, dst = (np.concatenate([src, dst[non_loop]]),
-                        np.concatenate([dst, src[non_loop]]))
+        if not directed and weights is None and edge_types is None:
+            row_ptr, col_idx = native.build_sym_csr(src, dst, n_nodes)
+        else:
+            if not directed:
+                non_loop = src != dst
+                src, dst = (np.concatenate([src, dst[non_loop]]),
+                            np.concatenate([dst, src[non_loop]]))
+                if weights is not None:
+                    weights = np.concatenate([weights, weights[non_loop]])
+                if edge_types is not None:
+                    edge_types = np.concatenate([edge_types, edge_types[non_loop]])
+            order = native.sort_pairs(src, dst, n_nodes)
+            src, dst = src[order], dst[order]
+            # The stable sort leaves each pair's first occurrence first.
+            first = np.ones(len(src), dtype=bool)
+            first[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+            src, dst, order = src[first], dst[first], order[first]
             if weights is not None:
-                weights = np.concatenate([weights, weights[non_loop]])
+                weights = np.asarray(weights, dtype=np.float32)[order]
             if edge_types is not None:
-                edge_types = np.concatenate([edge_types, edge_types[non_loop]])
-        keys, order = np.unique(src * n_nodes + dst, return_index=True)
-        src = keys // max(n_nodes, 1)
-        if weights is not None:
-            weights = np.asarray(weights, dtype=np.float32)[order]
-        if edge_types is not None:
-            edge_types = np.asarray(edge_types, dtype=np.int32)[order]
-        counts = np.bincount(src, minlength=n_nodes)
+                edge_types = np.asarray(edge_types, dtype=np.int32)[order]
+            row_ptr = np.concatenate(
+                [[0], np.cumsum(np.bincount(src, minlength=n_nodes))]).astype(np.int64)
+            col_idx = dst.astype(np.int32)
         return Graph(
-            row_ptr=np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
-            col_idx=(keys - src * n_nodes).astype(np.int32),
+            row_ptr=row_ptr,
+            col_idx=col_idx,
             directed=directed if directed_flag is None else directed_flag,
             name=name,
             weights=weights,

@@ -1,9 +1,8 @@
 """Edge holdouts — counterpart of `embiggen_tpu/graph/holdouts.py`
 (`connected_holdout`, `random_holdout`, `edge_prediction_kfold`). Host
 numpy, with the same RNG calls in the same order, so a seed gives the
-reference's split. The spanning forest runs the Python union-find (the
-reference's native copy is a ROADMAP item); the label splits come with
-ROADMAP A10."""
+reference's split. The spanning forest is the native union-find
+(`native.spanning_forest`); the label splits come with ROADMAP A10."""
 from __future__ import annotations
 
 import warnings
@@ -11,6 +10,7 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import native
 from .graph import Graph
 
 
@@ -49,26 +49,8 @@ def spanning_forest_arcs(graph: Graph, random_state: int = 42) -> np.ndarray:
     seeded random order. Returns a mask over canonical edges: True for the
     forest's edges."""
     src, dst, _ = _canonical_edges(graph)
-    n = graph.number_of_nodes
     order = np.random.default_rng(random_state).permutation(len(src))
-    parent = list(range(n))
-
-    def find(x: int) -> int:
-        root = x
-        while parent[root] != root:
-            root = parent[root]
-        while parent[x] != root:
-            parent[x], x = root, parent[x]
-        return root
-
-    in_forest = np.zeros(len(src), dtype=bool)
-    src_l, dst_l = src.tolist(), dst.tolist()
-    for e in order.tolist():
-        a, b = find(src_l[e]), find(dst_l[e])
-        if a != b:
-            parent[a] = b
-            in_forest[e] = True
-    return in_forest
+    return native.spanning_forest(src, dst, order, graph.number_of_nodes)
 
 
 def connected_holdout(

@@ -1,17 +1,18 @@
 """Graph loaders — counterpart of `embiggen_tpu/graph/loaders.py`: edge-list
 files and named datasets.
 
-`from_csv` parses with the standard library's `csv` module (no pandas, no
-native parser); node names and edge types are numbered in sorted order, as
-the reference's `from_pandas` does, or in order of first appearance, as its
-native parser does. Named corpora resolve from a local file or, when asked,
-from a deterministic synthetic stand-in of their published size; the
+`from_csv` reads with the native parser (`native.parse_edge_list`; the
+standard library's `csv` module for a gzipped file, no pandas) and numbers
+node names and edge types in sorted order, as the reference's `from_pandas`
+does, or in order of first appearance, as the reference's `from_csv` does
+by default.
+Named corpora resolve from a local file or, when asked, from a
+deterministic synthetic stand-in of their published size; the
 bundled graphs are Zachary's karate club, with its two communities as node
 types, and the reference's STRING PPI fixture, whose edges are labelled.
 """
 from __future__ import annotations
 
-import csv
 import dataclasses
 import gzip
 import os
@@ -19,19 +20,16 @@ from typing import Optional
 
 import numpy as np
 
+from .. import native
 from .graph import Graph
 
 
-def _numbered(values: np.ndarray, first_seen: bool):
-    """(names, ids): the distinct values, sorted or in order of first
-    appearance, and each value's index among them."""
-    names, first, inverse = np.unique(values, return_index=True, return_inverse=True)
-    if not first_seen:
-        return names, inverse
-    order = np.argsort(first, kind="stable")
+def _sorted_ids(names: np.ndarray, ids: np.ndarray):
+    """(names, ids) renumbered from first appearance to sorted order."""
+    order = np.argsort(names.astype(str), kind="stable")
     rank = np.empty_like(order)
     rank[order] = np.arange(len(order))
-    return names[order], rank[inverse]
+    return names[order], rank[ids]
 
 
 def from_csv(
@@ -51,41 +49,37 @@ def from_csv(
     are used when present. Node names and edge types are numbered in sorted
     order (the reference's pandas path), or with `first_seen_ids` in order
     of first appearance, a row's source before its destination (the
-    reference's native parser, which its `from_csv` takes by default)."""
+    reference's native parser, which its `from_csv` takes by default). The
+    native parser reads an uncompressed file, the `csv` module
+    (`native.parse_edge_list_plain`) a gzipped one."""
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt", newline="") as f:
-        reader = csv.reader(f, delimiter=sep)
-        header = next(reader)
-        rows = [r for r in reader if r]
+        header = f.readline().rstrip("\n").rstrip("\r").split(sep)
     cols = {c: i for i, c in enumerate(header)}
     for column in (source_column, destination_column):
         if column not in cols:
             raise ValueError(f"{path} has no column {column!r}; its header is "
                              f"{header}.")
-    src_names = np.asarray([r[cols[source_column]] for r in rows], dtype=str)
-    dst_names = np.asarray([r[cols[destination_column]] for r in rows], dtype=str)
-    # Interleaved, so that first appearance reads a row's source first.
-    all_names, inverse = _numbered(
-        np.stack([src_names, dst_names], axis=1).reshape(-1), first_seen_ids)
-    weights = None
-    if weight_column is not None and weight_column in cols:
-        weights = np.asarray([r[cols[weight_column]] for r in rows],
-                             dtype=np.float32)
-    edge_types = edge_type_names = None
-    if edge_type_column is not None and edge_type_column in cols:
-        edge_type_names, edge_types = _numbered(
-            np.asarray([r[cols[edge_type_column]] for r in rows], dtype=str), first_seen_ids)
-        edge_types = edge_types.astype(np.int32)
-        edge_type_names = edge_type_names.astype(object)
+    parse = native.parse_edge_list_plain if path.endswith(".gz") else native.parse_edge_list
+    src, dst, weights, edge_types, node_names, edge_type_names = parse(
+        path, sep=sep, skip_header=True, src_col=cols[source_column],
+        dst_col=cols[destination_column],
+        weight_col=cols.get(weight_column, -1) if weight_column is not None else -1,
+        type_col=cols.get(edge_type_column, -1) if edge_type_column is not None else -1)
+    if not first_seen_ids:
+        node_names, ends = _sorted_ids(node_names, np.stack([src, dst]))
+        src, dst = ends
+        if edge_types is not None:
+            edge_type_names, edge_types = _sorted_ids(edge_type_names, edge_types)
     return Graph.from_edge_arrays(
-        inverse[0::2],
-        inverse[1::2],
-        n_nodes=len(all_names),
+        src,
+        dst,
+        n_nodes=len(node_names),
         weights=weights,
         edge_types=edge_types,
         directed=directed,
         name=name or path.rsplit("/", 1)[-1].split(".")[0],
-        node_names=all_names.astype(object),
+        node_names=node_names,
         edge_type_names=edge_type_names,
     )
 

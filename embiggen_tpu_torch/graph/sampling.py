@@ -2,10 +2,10 @@
 `embiggen_tpu/graph/sampling.py::sample_negative_graph`: non-edges with
 uniform or degree-proportional endpoints, avoiding the support graph's
 edges. Host numpy with the reference's RNG calls in the same order; the
-in-batch deduplication is `np.unique` (the reference's native counting sort
-returns the same first occurrences). The membership test against the
-support runs on `device`: kernel K5 on a CUDA device, its plain version on
-the CPU."""
+in-batch deduplication is the native counting sort
+(`native.sort_unique_pairs`), as in the reference. The membership test
+against the support runs on `device`: kernel K5 on a CUDA device, its plain
+version on the CPU."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -14,6 +14,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import native
 from .graph import Graph
 
 _NEG_CACHE: "OrderedDict[tuple, Graph]" = OrderedDict()
@@ -27,9 +28,11 @@ def sample_negative_graph(
     use_scale_free_distribution: bool = True,
     support: Optional[Graph] = None,
     max_rounds: int = 64,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> Graph:
-    """A graph of `number_of_negative_samples` (canonical) non-edges.
+    """A graph of `number_of_negative_samples` (canonical) non-edges, whose
+    membership test against `support` runs on `device` (the card unless the
+    caller asks for the CPU).
 
     Endpoints are heads of uniform arcs of `graph` (degree-proportional)
     when `use_scale_free_distribution`, else uniform nodes. Pairs that are
@@ -109,7 +112,7 @@ def _sample_negative_graph(
             pos = np.minimum(np.searchsorted(kept_keys, key), len(kept_keys) - 1)
             fresh = kept_keys[pos] != key
             src, dst, key = src[fresh], dst[fresh], key[fresh]
-        _, first = np.unique(key, return_index=True)
+        first = native.sort_unique_pairs(src, dst, n)
         survival = len(first) / batch
         take = min(needed, len(first))
         first = first[:take]

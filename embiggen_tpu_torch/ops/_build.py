@@ -24,7 +24,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -154,12 +154,42 @@ def _sources() -> Tuple[Path, ...]:
     return tuple(sorted(CSRC.glob("*.cu")))
 
 
-def library_path(defines: Tuple[str, ...] = ()) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
-    for path in sorted(CSRC.iterdir()):
+def digest(flags: Sequence[str], paths: Iterable[Path]) -> str:
+    """16 hex digits of a sha1 of the flags and of each file's name and bytes."""
+    h = hashlib.sha1(" ".join(flags).encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"libembiggen_tpu_torch_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def compile_shared(so: Path, compile_to: Callable[[Path], None], signatures,
+                   force: bool = False) -> ctypes.CDLL:
+    """Load the shared library `so`, compiling it first when it is missing (or
+    with `force`): `compile_to(tmp)` writes it to a temporary file beside
+    `so`, which is then renamed to `so`, so that processes building it at
+    once each load a whole library. `signatures` maps each function's name
+    to its ctypes (argtypes, restype)."""
+    if force or not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        try:
+            compile_to(tmp)
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    return BUILD_DIR / (f"libembiggen_tpu_torch_"
+                        f"{digest(NVCC_FLAGS + tuple(defines), sorted(CSRC.iterdir()))}.so")
 
 
 def _nvcc() -> str:
@@ -191,12 +221,10 @@ def build(force: bool = False, defines: Tuple[str, ...] = ()) -> float:
     `_build/build.log` (`build_<defines>.log` for a variant)."""
     t0 = time.perf_counter()
     defines = tuple(defines)
-    so = library_path(defines)
-    if force or not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    name = "build" + "".join("_" + d.lstrip("-D").lower() for d in defines)
+
+    def compile_to(tmp: Path) -> None:
         objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in _sources()]
-        name = "build" + "".join("_" + d.lstrip("-D").lower() for d in defines)
         try:
             log = _run_all([[_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(o), str(p)]
                             for o, p in zip(objs, _sources())])
@@ -206,13 +234,8 @@ def build(force: bool = False, defines: Tuple[str, ...] = ()) -> float:
             for o in objs:
                 o.unlink(missing_ok=True)
         (BUILD_DIR / f"{name}.log").write_text(log)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for fn_name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    _libs[defines] = lib
+
+    _libs[defines] = compile_shared(library_path(defines), compile_to, _SIGNATURES, force)
     return time.perf_counter() - t0
 
 

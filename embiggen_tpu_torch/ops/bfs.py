@@ -34,7 +34,7 @@ _CHUNK_ELEMENTS = 1 << 28
 
 
 def anchor_init_from_sets(
-    n_nodes: int, anchor_sets: Sequence, device: Union[str, torch.device] = "cpu",
+    n_nodes: int, anchor_sets: Sequence, device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
     """[N, D] float32 on `device`: 0.0 at the members of anchor set j in
     column j, UNREACHED elsewhere."""

@@ -107,7 +107,7 @@ def singleton_registers_plain(n_nodes: int, precision: int = 8, bits: int = 6,
 
 
 def singleton_registers(n_nodes: int, precision: int = 8, bits: int = 6, seed: int = 0,
-                        device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+                        device: Union[str, torch.device] = "cuda") -> torch.Tensor:
     """[N, 2^precision] uint8 HLL registers of the singleton sets {v} on
     `device`: K16a's singletons launch on a CUDA device, the plain version
     on the CPU."""

@@ -83,7 +83,7 @@ def _stable_counting_order(keys: np.ndarray) -> np.ndarray:
 
 def csr_kernel(
     rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_out: int,
-    device: Union[str, torch.device] = "cpu", n_in: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda", n_in: Optional[int] = None,
     with_transpose: bool = True,
 ) -> CSRKernel:
     """Host relayout of a COO kernel (rows need not be sorted; arcs of one

@@ -101,7 +101,7 @@ def build_halo_partition(
     vals: np.ndarray,
     n_nodes: int,
     n_shards: int,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     shards: Optional[Iterable[int]] = None,
 ) -> HaloPartition:
     """Partition a COO kernel for `halo_spmm` over `n_shards` ranks, with

@@ -34,7 +34,7 @@ def partition_coo(
 
 def edge_shard_kernel(
     rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_nodes: int,
-    n_shards: int, shard: int, device: Union[str, torch.device] = "cpu",
+    n_shards: int, shard: int, device: Union[str, torch.device] = "cuda",
 ) -> CSRKernel:
     """The CSR of slice `shard` of the padded COO (`partition_coo`), over
     all `n_nodes` output rows, on `device`."""

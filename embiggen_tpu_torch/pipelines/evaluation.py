@@ -9,13 +9,17 @@ The pipelines return a list of row dicts, with the reference's column names
 in the reference's row order; `rows_to_dataframe` makes a pandas DataFrame
 of them, importing pandas only when it is called. Names of models resolve
 through the port's registry; models built from names (or classes) run on
-`device`, model instances on their own. Not ported yet, each raising
+`device`, model instances on their own. With `profile_dir`, each holdout's
+fit runs under a torch.profiler trace written to
+`<profile_dir>/holdout_<n>`. Not ported yet, each raising
 NotImplementedError that names its item: the experiment cache
-(`enable_cache`) and profiler traces (`profile_dir`), ROADMAP A12; the
-node-label and edge-label facades, ROADMAP A10.
+(`enable_cache`), ROADMAP A12; the node-label and edge-label facades,
+ROADMAP A10.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -27,6 +31,7 @@ from ..graph.loaders import get_dataset
 from ..models.classifier import AbstractClassifierModel
 from ..models.registry import get_model_from_library
 from ..parallel.distributed import holdout_belongs_to_this_worker
+from ..utils import profiling
 
 Rows = List[Dict[str, Any]]
 
@@ -145,7 +150,8 @@ def evaluate_model_on_graph(
     """The rows of ONE model on ONE graph: holdouts x {train, test} x
     unbalance rates, for the holdouts that belong to this worker. Each
     holdout fits a clone of `model` (seeded random_state + holdout number
-    when stochastic) under the profiler range "fit:<model name>".
+    when stochastic) under the profiler range "fit:<model name>", traced
+    into `<profile_dir>/holdout_<n>` when `profile_dir` is given.
 
     With `subgraph_of_interest`, each holdout's train and test are cut to
     the subgraph's edges; the model fits on the cut train with the whole
@@ -153,8 +159,6 @@ def evaluate_model_on_graph(
     and the evaluation negatives are drawn from the subgraph's degrees."""
     if enable_cache:
         raise _not_ported("The experiment cache (enable_cache)", "A12")
-    if profile_dir is not None:
-        raise _not_ported("Profiler traces (profile_dir)", "A12")
     sub_aligned = (
         _align_subgraph(graph, subgraph_of_interest)
         if subgraph_of_interest is not None else None
@@ -192,7 +196,11 @@ def evaluate_model_on_graph(
         if m.is_stochastic():
             m.set_random_state(random_state + holdout_number)
         t_fit = time.perf_counter()
-        with torch.profiler.record_function(f"fit:{m.model_name()}"):
+        fit_ctx = (
+            profiling.trace(os.path.join(profile_dir, f"holdout_{holdout_number}"))
+            if profile_dir else contextlib.nullcontext()
+        )
+        with fit_ctx, profiling.annotate(f"fit:{m.model_name()}"):
             m.fit(
                 train_oi, support=fit_support, node_features=features,
                 node_type_features=node_type_features,

@@ -35,10 +35,10 @@ not counted. The line carries the card's name and power limit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,22 +54,18 @@ REPS, ROUNDS = 20, 5
 
 
 def _library() -> ctypes.CDLL:
-    text = open(SOURCE, "rb").read() + b"".join(
-        open(_build.CSRC / name, "rb").read() for name in ("edges.cu", "csr.cuh", "philox.cuh"))
-    so = _build.BUILD_DIR / f"edge_batch_probe_{hashlib.sha1(text).hexdigest()[:16]}.so"
-    if not so.exists():
-        _build.BUILD_DIR.mkdir(exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), SOURCE],
-                       check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    paths = [Path(SOURCE)] + [_build.CSRC / name for name in ("edges.cu", "csr.cuh",
+                                                              "philox.cuh")]
+    so = _build.BUILD_DIR / f"edge_batch_probe_{_build.digest(_build.NVCC_FLAGS, paths)}.so"
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.probe_gather.argtypes = (p, i64, i64, ctypes.c_uint, p, p)
-    lib.probe_edge_ids.argtypes = (i32, p, p, p, p, i64, i32, i32, p, p, p)
-    lib.probe_edge_batch.argtypes = (i32, p, p, p, p, p, i32, i64, i64, i64, i32, p, p, p,
-                                     ctypes.c_ulonglong, ctypes.c_uint, p)
-    for fn in (lib.probe_gather, lib.probe_edge_ids, lib.probe_edge_batch):
-        fn.restype = i32
-    return lib
+    return _build.compile_shared(
+        so,
+        lambda tmp: subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                                    str(tmp), SOURCE], check=True, capture_output=True),
+        {"probe_gather": ((p, i64, i64, ctypes.c_uint, p, p), i32),
+         "probe_edge_ids": ((i32, p, p, p, p, i64, i32, i32, p, p, p), i32),
+         "probe_edge_batch": ((i32, p, p, p, p, p, i32, i64, i64, i64, i32, p, p, p,
+                               ctypes.c_ulonglong, ctypes.c_uint, p), i32)})
 
 
 def _time_ms(fn, reps: int = REPS) -> float:

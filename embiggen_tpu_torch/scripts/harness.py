@@ -9,7 +9,9 @@ random_state 0) of a Perceptron (Degree + CosineSimilarity) and a Kipf GCN
 over SkipGram features fitted on the holdout's train graph, on
 `planted_partition_edges(N, E / 2, seed=0)`, where E is the arc count of
 `erdos_renyi(N, 10M, seed=0)` and N is one million. It also times one
-`sample_negative_graph` of E / 2 negatives on that ER graph.
+`sample_negative_graph` of E / 2 negatives on that ER graph, and gives the
+sha1 of the holdout's train and test CSR arrays (`eval_split_sha1`), so that
+two builds' splits can be compared.
 
 Phase keys are bench.py's; `eval_split_s` and `eval_feature_s` are summed
 over distinct holdouts (bench.py takes a max over rows, which is right only
@@ -20,6 +22,8 @@ seconds of runs that end in a host read of their results.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import subprocess
 import time
@@ -87,6 +91,42 @@ def summarize(rows) -> Dict[str, Any]:
     }
 
 
+def split_sha1(train: Graph, test: Graph) -> str:
+    """sha1 of the row_ptr and col_idx arrays of a train and a test graph."""
+    h = hashlib.sha1()
+    for part in (train, test):
+        for a in (part.row_ptr, part.col_idx):
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_split():
+    """Records the train and test graphs of the first holdout that the
+    evaluation pipeline splits inside the block; the yielded dict holds
+    their `split_sha1` under "sha1" once the block has ended."""
+    # Imported here: `harness_turns.py` runs this function's source in a
+    # checkout whose harness lacks it.
+    from embiggen_tpu_torch.pipelines import evaluation
+
+    get = evaluation._HoldoutMemo.get
+    splits = []
+
+    def recording_get(memo, split_cls, holdout_number):
+        out = get(memo, split_cls, holdout_number)
+        if not splits:
+            splits.append(out[:2])
+        return out
+
+    result = {}
+    evaluation._HoldoutMemo.get = recording_get
+    try:
+        yield result
+    finally:
+        evaluation._HoldoutMemo.get = get
+    result["sha1"] = split_sha1(*splits[0])
+
+
 def run(device: Union[str, torch.device] = "cuda",
         er_graph: Optional[Graph] = None) -> Dict[str, Any]:
     """The harness on `device`; `er_graph` is erdos_renyi(N, 10M, seed=0),
@@ -105,29 +145,32 @@ def run(device: Union[str, torch.device] = "cuda",
     neg_sample_s = time.perf_counter() - t0
 
     eval_graph = planted_partition_edges(er_graph.number_of_nodes, half, seed=0)
-    t0 = time.perf_counter()
-    rows = edge_prediction_evaluation(
-        holdouts_number=1,
-        models=[
-            PerceptronEdgePrediction(
-                edge_features=["Degree"], edge_embeddings=["CosineSimilarity"],
-                number_of_epochs=15, random_state=0, device=device),
-            KipfGCNEdgePrediction(
-                epochs=4, batch_size=1 << 20, dropout_rate=0.0,
-                early_stopping_patience=10**6, random_state=0, device=device),
-        ],
-        graphs=eval_graph,
-        node_features=SkipGram(
-            embedding_size=64, epochs=60, walk_length=16, window_size=2,
-            number_of_negative_samples=5, learning_rate_decay=0.99,
-            random_state=0, early_stopping_patience=10**6,
-            learning_rate_plateau_patience=10**6, device=device),
-        unbalance_rates=(1.0,),
-        random_state=0,
-        verbose=False,
-    )
-    out = {"eval_total_s": time.perf_counter() - t0,
+    with recorded_split() as split:
+        t0 = time.perf_counter()
+        rows = edge_prediction_evaluation(
+            holdouts_number=1,
+            models=[
+                PerceptronEdgePrediction(
+                    edge_features=["Degree"], edge_embeddings=["CosineSimilarity"],
+                    number_of_epochs=15, random_state=0, device=device),
+                KipfGCNEdgePrediction(
+                    epochs=4, batch_size=1 << 20, dropout_rate=0.0,
+                    early_stopping_patience=10**6, random_state=0, device=device),
+            ],
+            graphs=eval_graph,
+            node_features=SkipGram(
+                embedding_size=64, epochs=60, walk_length=16, window_size=2,
+                number_of_negative_samples=5, learning_rate_decay=0.99,
+                random_state=0, early_stopping_patience=10**6,
+                learning_rate_plateau_patience=10**6, device=device),
+            unbalance_rates=(1.0,),
+            random_state=0,
+            verbose=False,
+        )
+        eval_total_s = time.perf_counter() - t0
+    out = {"eval_total_s": eval_total_s,
            "eval_negative_sampling_s": neg_sample_s, **summarize(rows),
+           "eval_split_sha1": split["sha1"],
            "eval_graph": {"nodes": eval_graph.number_of_nodes,
                           "arcs": eval_graph.number_of_directed_edges}}
     if device.type == "cuda":

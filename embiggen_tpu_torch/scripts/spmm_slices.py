@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 from pathlib import Path
 
@@ -70,17 +69,15 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def build_library() -> ctypes.CDLL:
     src = Path(__file__).with_name("spmm_slices.cu")
-    h = hashlib.sha1(" ".join(_build.NVCC_FLAGS).encode())
-    for path in (src, _build.CSRC / "spmm.cu"):
-        h.update(path.read_bytes())
-    so = _build.BUILD_DIR / f"libspmm_slices_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        _build.BUILD_DIR.mkdir(exist_ok=True)
+    digest = _build.digest(_build.NVCC_FLAGS, (src, _build.CSRC / "spmm.cu"))
+    so = _build.BUILD_DIR / f"libspmm_slices_{digest}.so"
+
+    def compile_to(tmp: Path) -> None:
         log = _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                                str(so), str(src)]])
+                                str(tmp), str(src)]])
         (_build.BUILD_DIR / "build_spmm_slices.log").write_text(log)
-    lib = ctypes.CDLL(str(so))
-    for name, args in (
+
+    return _build.compile_shared(so, compile_to, {name: (args, _I32) for name, args in (
         ("ebt_csr_spmm", (_P,) * 7 + (_I64, _I32, _I32, _P)),
         ("ebt_pack_slices", (_P, _P, _I64, _I32, _I32, _I32, _P)),
         ("ebt_dev_sliced_pass", (_P,) * 8 + (_I64, _I32, _I32, _I32, _I32, _I32, _P)),
@@ -90,10 +87,7 @@ def build_library() -> ctypes.CDLL:
         ("ebt_dev_l2_info", (_P,)),
         ("ebt_dev_persist", (_P, _I64, _I64, _P)),
         ("ebt_dev_set_aside", (_I64,)),
-    ):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, _I32
-    return lib
+    )})
 
 
 def pack_slices_plain(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -18,10 +18,10 @@ carries the card's name and power limit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -35,20 +35,16 @@ BATCH, WALK, FEW, NEGS = 32768, 64, 256, 10
 
 
 def _library() -> ctypes.CDLL:
-    text = open(SOURCE, "rb").read() + open(_build.CSRC / "philox.cuh", "rb").read()
-    so = _build.BUILD_DIR / f"walk_chain_probe_{hashlib.sha1(text).hexdigest()[:16]}.so"
-    if not so.exists():
-        _build.BUILD_DIR.mkdir(exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), SOURCE],
-                       check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    paths = (Path(SOURCE), _build.CSRC / "philox.cuh")
+    so = _build.BUILD_DIR / f"walk_chain_probe_{_build.digest(_build.NVCC_FLAGS, paths)}.so"
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.probe_walks.argtypes = (i32, p, p, p, p, p, i64, i32, i32, ctypes.c_ulonglong,
-                                ctypes.c_uint, i64, p, i32, i64, i64, p)
-    lib.probe_walks.restype = i32
-    lib.probe_persisting_l2.argtypes = (i64,)
-    lib.probe_persisting_l2.restype = i32
-    return lib
+    return _build.compile_shared(
+        so,
+        lambda tmp: subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                                    str(tmp), SOURCE], check=True, capture_output=True),
+        {"probe_walks": ((i32, p, p, p, p, p, i64, i32, i32, ctypes.c_ulonglong,
+                          ctypes.c_uint, i64, p, i32, i64, i64, p), i32),
+         "probe_persisting_l2": ((i64,), i32)})
 
 
 def _time_ms(fn, reps: int = 20) -> float:

@@ -85,12 +85,14 @@ def pieces(mesh, payload):
 
     out = {}
     rows, cols, vals, x = payload["spmm"]
-    k = edge_shard_kernel(rows, cols, vals, x.shape[0], mesh.size, mesh.rank)
+    k = edge_shard_kernel(rows, cols, vals, x.shape[0], mesh.size, mesh.rank,
+                          device=mesh.device)
     out["sharded_spmm"] = _np(sharded_spmm(mesh, k, torch.from_numpy(x)))
 
     rows, cols, vals, x, g_out = payload["halo"]
     n = x.shape[0]
-    part = build_halo_partition(rows, cols, vals, n, mesh.size, shards=[mesh.rank])
+    part = build_halo_partition(rows, cols, vals, n, mesh.size, device=mesh.device,
+                                shards=[mesh.rank])
     s = part.shard_size
     for combiner in ("sum", "mean", "sqrtn"):
         x_local = shard_features(x, part, mesh).requires_grad_()
@@ -175,7 +177,8 @@ def steps(mesh, payload):
                  {k: _np(v) for k, v in single.items()})
 
     coo = kernel_coo(g, "Symmetric Normalized Laplacian")
-    part = build_halo_partition(*coo, g.number_of_nodes, mesh.size, shards=[mesh.rank])
+    part = build_halo_partition(*coo, g.number_of_nodes, mesh.size, device=mesh.device,
+                                shards=[mesh.rank])
     x = shard_features(payload["gcn_x"], part, mesh)
     lr = 1.0
     init, gcn_step = make_sharded_gcn_edge_step(mesh, part, x, tg, units=[16, 8],

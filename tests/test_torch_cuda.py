@@ -1939,7 +1939,7 @@ def _halo_parts(dev):
     g = erdos_renyi(3000, 24000, seed=11, weighted=True)
     rows, cols, vals = kernel_coo(g, "Symmetric Normalized Laplacian")
     return (build_halo_partition(rows, cols, vals, 3000, 4, device=dev),
-            build_halo_partition(rows, cols, vals, 3000, 4), g)
+            build_halo_partition(rows, cols, vals, 3000, 4, device="cpu"), g)
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])
@@ -1992,7 +1992,7 @@ def test_edge_sharded_spmm_kernel_matches_plain(dev):
         part = csr_spmm(k, x, counter="sharded_spmm")
         torch.cuda.synchronize()
         assert _build.launch_counts()["sharded_spmm"] == before + 1
-        cpu_k = edge_shard_kernel(rows, cols, vals, 3000, 4, shard)
+        cpu_k = edge_shard_kernel(rows, cols, vals, 3000, 4, shard, device="cpu")
         torch.testing.assert_close(part.cpu(), csr_spmm_plain(cpu_k, x.cpu()),
                                    rtol=1e-5, atol=1e-5)
         total += part
@@ -2155,3 +2155,28 @@ def test_kge_steps_on_the_card_match_the_cpu(dev):
         for k in init:
             torch.testing.assert_close(params[dev][k].cpu(), params["cpu"][k], rtol=1e-4,
                                        atol=1e-5, msg=f"{cls.model_name()} {k}")
+
+
+def test_sample_negative_graph_defaults_to_k5(dev):
+    """`sample_negative_graph` without a device tests membership with K5 on
+    the card, and draws the negatives it draws on the CPU."""
+    from embiggen_tpu_torch.graph import sample_negative_graph
+    from embiggen_tpu_torch.graph import sampling
+
+    g = erdos_renyi(3000, 15000, seed=21)
+    sampling._NEG_CACHE.clear()
+    before = _build.launch_counts()["csr_edge_ids"]
+    neg = sample_negative_graph(g, 4000, random_state=5)
+    assert _build.launch_counts()["csr_edge_ids"] > before
+    sampling._NEG_CACHE.clear()
+    want = sample_negative_graph(g, 4000, random_state=5, device="cpu")
+    np.testing.assert_array_equal(neg.row_ptr, want.row_ptr)
+    np.testing.assert_array_equal(neg.col_idx, want.col_idx)
+
+
+def test_device_memory_stats_reads_the_card(dev):
+    from embiggen_tpu_torch.utils import profiling
+
+    x = torch.empty(1 << 20, dtype=torch.float32, device=dev)
+    stats = profiling.device_memory_stats(dev)
+    assert stats["allocated_bytes.all.current"] >= x.numel() * x.element_size()

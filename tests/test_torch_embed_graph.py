@@ -212,7 +212,8 @@ def test_runs_where_jax_cannot_be_imported():
     NodePiece's K15a tokens, and typed walks
     through K9's and K19's plain versions) on a tiny graph on the CPU, run
     K20's plain versions, load
-    the bundled typed graphs, import every module of the port and fit both
+    the bundled typed graphs, split a graph and draw its negatives on the
+    native host helpers, import every module of the port and fit both
     edge predictors, the GCN also with type embeddings."""
     code = (
         "import sys\n"
@@ -268,6 +269,12 @@ def test_runs_where_jax_cannot_be_imported():
         "assert tw.shape == (50, 6)\n"
         "from embiggen_tpu_torch.graph import karate_club, small_ppi\n"
         "assert karate_club().has_node_types and small_ppi().has_edge_types\n"
+        "from embiggen_tpu_torch import native\n"
+        "from embiggen_tpu_torch.graph import connected_holdout, sample_negative_graph\n"
+        "tr, te = connected_holdout(g, random_state=0)\n"
+        "neg = sample_negative_graph(tr, 20, random_state=0, device='cpu')\n"
+        "assert neg.number_of_edges == 20\n"
+        "assert native.build_sym_csr([0], [1], 2)[1].tolist() == [1, 0]\n"
         "w = erdos_renyi(50, 200, seed=1, weighted=True)\n"
         "for name in ('Degree-based SPINE', 'Degree-based WINE', 'Score-based SPINE',\n"
         "             'Score-based WINE', 'WeightedSPINE', 'RUBICONE', 'RUINE'):\n"

@@ -69,7 +69,7 @@ def test_singleton_route_matches_reference(kind, precision, hops, seed):
     got = hll.khop_sketches_of_singletons(tg, hops, precision, 6, seed)
     assert got.dtype == torch.uint8 and got.shape == (tg.n_nodes, hops, 1 << precision)
     np.testing.assert_array_equal(got.numpy(), _reference(kind, precision, hops, seed))
-    base = hll.singleton_registers(tg.n_nodes, precision, 6, seed)
+    base = hll.singleton_registers(tg.n_nodes, precision, 6, seed, tg.device)
     assert torch.equal(got, hll.khop_sketches_plain(tg, base, hops))
 
 
@@ -117,7 +117,7 @@ def test_hop2_route_of_a_graph_without_arcs():
     assert hll.hop2_route(tg, 8) == "hop"
     got = hll.khop_sketches_of_singletons(tg, 2, 8, 6, 0)
     assert torch.equal(got[:, 1], got[:, 0])
-    assert torch.equal(got[:, 0], hll.singleton_registers(10, 8, 6, 0))
+    assert torch.equal(got[:, 0], hll.singleton_registers(10, 8, 6, 0, "cpu"))
 
 
 def test_singleton_route_arguments():
@@ -135,5 +135,5 @@ def test_hyper_sketching_fits_through_the_singleton_route(hops, precision, seed)
     g = Graph(row_ptr=rg.row_ptr, col_idx=rg.col_idx)
     model = HyperSketching(number_of_hops=hops, precision=precision, random_state=seed,
                            device="cpu").fit(g)
-    base = hll.singleton_registers(g.number_of_nodes, precision, 6, seed)
+    base = hll.singleton_registers(g.number_of_nodes, precision, 6, seed, "cpu")
     assert torch.equal(model._sketches, hll.khop_sketches(tg, base, hops))

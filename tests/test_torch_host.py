@@ -118,13 +118,15 @@ def test_sample_negative_graph_matches_reference(graphs, scale_free, with_suppor
     r_train, _ = ref_random_holdout(ref, random_state=1)
     kw = dict(number_of_negative_samples=900, random_state=7,
               use_scale_free_distribution=scale_free)
-    got = sample_negative_graph(p_train, support=port if with_support else None, **kw)
+    got = sample_negative_graph(p_train, support=port if with_support else None, device="cpu",
+                                **kw)
     want = ref_sample_negative_graph(r_train, support=ref if with_support else None, **kw)
     _same_csr(got, want)
     assert got.number_of_edges == 900
     avoid = port if with_support else p_train
     assert not avoid.has_edges(got.sources, got.col_idx).any()
-    assert sample_negative_graph(p_train, support=port if with_support else None, **kw) is got
+    assert sample_negative_graph(p_train, support=port if with_support else None,
+                                 device="cpu", **kw) is got
 
 
 @pytest.mark.parametrize("seed, ties", [(0, False), (1, True), (2, True)])

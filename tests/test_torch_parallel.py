@@ -123,7 +123,7 @@ def _assert_same_host_plan(got, ref, rows, cols, n, p):
 @pytest.mark.parametrize("world", WORLDS + (8,))
 def test_halo_partition_matches_reference_exactly(world):
     (rows, cols, vals), n = _halo_graph()
-    got = build_halo_partition(rows, cols, vals, n, world, shards=[])
+    got = build_halo_partition(rows, cols, vals, n, world, device="cpu", shards=[])
     ref = ref_build_halo_partition(rows, cols, vals, n, world)
     _assert_same_host_plan(got, ref, rows, cols, n, world)
     # The JAX partition carried across has the same plan.
@@ -151,7 +151,7 @@ def _planted_cut():
 
 def test_planted_cut_comm_rows():
     rows, cols, vals, n, p = _planted_cut()
-    got = build_halo_partition(rows, cols, vals, n, p)
+    got = build_halo_partition(rows, cols, vals, n, p, device="cpu")
     ref = ref_build_halo_partition(rows, cols, vals, n, p)
     assert got.comm_rows == ref.comm_rows == 5
     assert got.halo_width == ref.halo_width == 5
@@ -176,10 +176,10 @@ def test_comm_volume_tracks_boundary_not_n():
     dst.append(((np.arange(8) + 1) % 8) * per)
     src, dst = np.concatenate(src), np.concatenate(dst)
     vals = np.ones(len(src), np.float32)
-    got = build_halo_partition(src, dst, vals, n, 8, shards=[])
+    got = build_halo_partition(src, dst, vals, n, 8, device="cpu", shards=[])
     assert got.comm_rows == ref_build_halo_partition(src, dst, vals, n, 8).comm_rows <= 16
     dense = build_halo_partition(rng.integers(0, n, 2000), rng.integers(0, n, 2000),
-                                 np.ones(2000, np.float32), n, 8, shards=[])
+                                 np.ones(2000, np.float32), n, 8, device="cpu", shards=[])
     assert dense.comm_rows > got.comm_rows
 
 
@@ -244,7 +244,7 @@ def test_halo_backward_is_the_transposed_product():
     """K17a's backward plain version over the transposed CSR equals
     autograd of its forward plain version, halo rows included."""
     (rows, cols, vals), n = _halo_graph()
-    part = build_halo_partition(rows, cols, vals, n, 4)
+    part = build_halo_partition(rows, cols, vals, n, 4, device="cpu")
     s, ph = part.shard_size, part.n_shards * part.halo_width
     rng = np.random.default_rng(5)
     for combiner in ("sum", "mean", "sqrtn"):

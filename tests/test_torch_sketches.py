@@ -73,21 +73,21 @@ def test_multi_source_distances_match_reference(graphs, weighted, depth):
     n = g.number_of_nodes
     if weighted and g.weights is None:   # both packages refuse
         for fn, dg, init in ((bfs.multi_source_distances, g.device("cpu"),
-                              bfs.anchor_init_from_sets(n, ANCHOR_SETS)),
+                              bfs.anchor_init_from_sets(n, ANCHOR_SETS, "cpu")),
                              (ref_bfs.multi_source_distances, rg.device(),
                               ref_bfs.anchor_init_from_sets(n, ANCHOR_SETS))):
             with pytest.raises(ValueError, match="require edge weights"):
                 fn(dg, init, max_depth=depth, weighted=True)
         return
     changes = torch.zeros(depth, dtype=torch.int32)
-    got = bfs.multi_source_distances(g.device("cpu"), bfs.anchor_init_from_sets(n, ANCHOR_SETS),
+    got = bfs.multi_source_distances(g.device("cpu"), bfs.anchor_init_from_sets(n, ANCHOR_SETS, "cpu"),
                                      max_depth=depth, weighted=weighted, changes=changes)
     want = ref_bfs.multi_source_distances(
         rg.device(with_weights=weighted), ref_bfs.anchor_init_from_sets(n, ANCHOR_SETS),
         max_depth=depth, weighted=weighted)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # An iteration is flagged exactly when it moved a distance.
-    prev = bfs.anchor_init_from_sets(n, ANCHOR_SETS)
+    prev = bfs.anchor_init_from_sets(n, ANCHOR_SETS, "cpu")
     for i in range(depth):
         nxt = bfs.min_plus_step_plain(g.device("cpu"), prev, weighted)
         assert int(changes[i]) == int(bool((nxt != prev).any()))
@@ -126,7 +126,7 @@ def test_multi_source_distances_stop_at_the_first_unchanged_relaxation(
     if weighted and g.weights is None:
         g, rg = _pair("weighted")
     n = g.number_of_nodes
-    init = bfs.anchor_init_from_sets(n, ANCHOR_SETS)
+    init = bfs.anchor_init_from_sets(n, ANCHOR_SETS, "cpu")
     settle = _settling(g, init, weighted)
     assert settle < 32
     calls = _counted_relaxations(monkeypatch)
@@ -149,7 +149,7 @@ def test_multi_source_distances_below_the_settling_depth(monkeypatch):
     rg = RefGraph.from_edge_arrays(src, dst, n_nodes=12)
     sets = [np.array([0]), np.array([5]), np.array([11])]
     calls = _counted_relaxations(monkeypatch)
-    got = bfs.multi_source_distances(g.device("cpu"), bfs.anchor_init_from_sets(12, sets), 2)
+    got = bfs.multi_source_distances(g.device("cpu"), bfs.anchor_init_from_sets(12, sets, "cpu"), 2)
     want = ref_bfs.multi_source_distances(
         rg.device(with_weights=False), ref_bfs.anchor_init_from_sets(12, sets), max_depth=2)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -170,7 +170,7 @@ def test_multi_source_distances_keep_a_disconnected_graphs_unreached_entries(
     g, rg = _pair("components")
     n = g.number_of_nodes
     sets = [np.array([3]), np.array([10, 40]), np.array([], int)]
-    init = bfs.anchor_init_from_sets(n, sets)
+    init = bfs.anchor_init_from_sets(n, sets, "cpu")
     calls = _counted_relaxations(monkeypatch)
     got = bfs.multi_source_distances(g.device("cpu"), init, 32, weighted)
     want = ref_bfs.multi_source_distances(
@@ -184,7 +184,7 @@ def test_multi_source_distances_keep_a_disconnected_graphs_unreached_entries(
 @pytest.mark.parametrize("window", [1, 2, 3])
 def test_window_cooccurrence_counts_match_reference(graphs, window):
     g, rg = graphs
-    membership = (bfs.anchor_init_from_sets(g.number_of_nodes, ANCHOR_SETS) == 0).float()
+    membership = (bfs.anchor_init_from_sets(g.number_of_nodes, ANCHOR_SETS, "cpu") == 0).float()
     got = bfs.window_cooccurrence_counts(g.device("cpu"), membership, window)
     want = ref_bfs.window_cooccurrence_counts(
         rg.device(with_weights=False), jnp.asarray(membership.numpy()), window_size=window)
@@ -302,14 +302,14 @@ def test_random_convolutions_draw_like_the_reference(cls):
 @pytest.mark.parametrize("precision", [4, 8, 12])
 @pytest.mark.parametrize("bits, seed", [(6, 0), (5, 7), (8, 2**40 + 3)])
 def test_singleton_registers_match_reference(precision, bits, seed):
-    got = hll.singleton_registers(3000, precision, bits, seed=seed)
+    got = hll.singleton_registers(3000, precision, bits, seed=seed, device="cpu")
     want = ref_hll.singleton_registers(3000, precision, bits, seed=seed)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _sketches(g, rg, precision, hops, seed=1):
-    base = hll.singleton_registers(g.number_of_nodes, precision, 6, seed=seed)
+    base = hll.singleton_registers(g.number_of_nodes, precision, 6, seed=seed, device="cpu")
     got = hll.khop_sketches(g.device("cpu"), base, hops)
     want = ref_hll.khop_sketches(rg.device(), jnp.asarray(base.numpy()), hops)
     return got, np.transpose(np.asarray(want), (1, 0, 2))

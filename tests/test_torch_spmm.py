@@ -60,7 +60,7 @@ def test_spmm_and_gradient_match_reference(graph, name, combiner):
     assert pk.ov_rows.shape[0] > 0  # the reference's overflow path runs
     want = spmm_padded(pk, jnp.asarray(x), combiner)
     want_dx = jax.grad(lambda v: jnp.sum(spmm_padded(pk, v, combiner) * g))(jnp.asarray(x))
-    k = csr_kernel(rows, cols, vals, N)
+    k = csr_kernel(rows, cols, vals, N, device="cpu")
     xt = torch.tensor(x, requires_grad=True)
     got = spmm(k, xt, combiner)
     (got * torch.from_numpy(g)).sum().backward()
@@ -71,7 +71,7 @@ def test_spmm_and_gradient_match_reference(graph, name, combiner):
 def test_kernel_layout(graph):
     rows, cols, vals = kernel_coo(graph, "Transposed Left Normalized Laplacian")
     assert (np.diff(rows) < 0).any()  # unsorted rows go through the counting sort
-    k = csr_kernel(rows, cols, vals, N)
+    k = csr_kernel(rows, cols, vals, N, device="cpu")
     assert (np.diff(k.rows.numpy()) >= 0).all()
     np.testing.assert_array_equal(np.diff(k.row_ptr.numpy()), np.bincount(rows, minlength=N))
     order = np.argsort(rows, kind="stable")
@@ -91,7 +91,7 @@ def test_kernel_layout(graph):
 
 
 def test_spmm_without_transpose_refuses_a_gradient(graph):
-    k = csr_kernel(*kernel_coo(graph), N, with_transpose=False)
+    k = csr_kernel(*kernel_coo(graph), N, device="cpu", with_transpose=False)
     with pytest.raises(ValueError, match="transpose"):
         spmm(k, torch.ones(N, 4, requires_grad=True))
     with pytest.raises(ValueError, match="combiner"):
@@ -129,7 +129,7 @@ def test_pack_slices_round_trip(s, d):
 
 @pytest.mark.parametrize("blocks", [1, 2, 3])
 def test_column_block_splits(graph, blocks):
-    k = csr_kernel(*kernel_coo(graph), N)
+    k = csr_kernel(*kernel_coo(graph), N, device="cpu")
     splits = column_block_splits(k, blocks)
     assert splits.shape == (blocks + 1, N)
     assert torch.equal(splits[0], k.row_ptr[:-1].long())
@@ -140,7 +140,7 @@ def test_column_block_splits(graph, blocks):
             cols = k.cols[splits[b, r]:splits[b + 1, r]].numpy()
             assert ((cols >= b * nb) & (cols < (b + 1) * nb)).all()
     rows, cols, vals = kernel_coo(graph)
-    shuffled = csr_kernel(rows, cols[::-1].copy(), vals, N)   # rows out of column order
+    shuffled = csr_kernel(rows, cols[::-1].copy(), vals, N, device="cpu")   # rows out of column order
     if blocks > 1:
         with pytest.raises(ValueError, match="column order"):
             column_block_splits(shuffled, blocks)
@@ -154,7 +154,7 @@ def test_sliced_spmm_matches_plain_and_reference(graph, combiner, s, blocks):
     d = 30
     x = rng.normal(size=(N, d)).astype(np.float32)
     g = rng.normal(size=(N, d)).astype(np.float32)
-    k = csr_kernel(rows, cols, vals, N)
+    k = csr_kernel(rows, cols, vals, N, device="cpu")
     inv = k.inverse_denominator(combiner)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     got = sliced_spmm_plain(k, xt, s, blocks, row_scale=inv)
