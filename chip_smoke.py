@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 Phases, one line each (with its seconds), in order; any failure raises and
-the exit code is not 0. The quality phases (9, 13, 16, 20, 23, 27 and 30:
+the exit code is not 0. The quality phases (9, 13, 16, 20, 23, 27, 30 and 38:
 host-bound training on the gate fixture, timing no kernel) run in a second
 process (`--quality`, on the kernels phase 2 built) beside phase 10, and
 their lines follow phase 10's; the host graphs of later phases (the hub
@@ -15,8 +15,8 @@ thread while the phases before them run:
   3. K1-K4 against their plain PyTorch versions on the card, at the shapes
      the S1 slice gives them, with both times (K1 and K2, like K5 and K6 in
      phase 4, which take under 0.1 ms, also with the kernel's device time
-     from torch.profiler, as their wrappers' host work takes longer than
-     the kernel): K3 and K4's SkipGram combine at the flagship shapes, the
+     on CUDA events around each launch queued behind a sleep, as their
+     wrappers' host work takes longer than the kernel): K3 and K4's SkipGram combine at the flagship shapes, the
      harness's SkipGram shapes and a D that is
      not a multiple of 4, with and without centre weights (K3's sums rtol
      1e-4 / atol 1e-5: sums in another order; its counts exactly; the
@@ -337,8 +337,28 @@ thread while the phases before them run:
      events and busy share; NodePiece's K15a distances at its 256 columns
      and its tokens against the plain ones, exactly; one
      injected step of each at D 128 card against CPU (rtol 1e-4 / atol
-     1e-5); tests/test_kge.py's ranking check on the card for every row.
-Then a JSON line of the kernels (with the build seconds; each with its
+     1e-5); tests/test_kge.py's ranking check on the card for every row;
+ 36. S14 node label on the typed slice graph: `node_label_prediction_evaluation`
+     of the Kipf GCN at the reference's defaults (units 128-128, head 128,
+     dropout 0.5, 200 epochs, patience 20; a learned node embedding, as the
+     graph has no features), one Stratified Monte Carlo holdout, with K7
+     launched 4 times an epoch and twice to predict: seconds an epoch, a
+     steady step on CUDA events, peak memory and the multiclass panel; then
+     GraphConvolution's two hops at D 128 in both transposes against the
+     plain hops on the card (rtol / atol 1e-5), 2 K7 launches each, the
+     transposed kernel's hop timed beside its plain version and
+     `torch.sparse.mm`; then Node-label-based SPINE (8 anchor sets), its
+     K15a distances exactly the plain version's;
+ 37. S14 edge label: `edge_label_prediction_evaluation` of the Kipf GCN at
+     its default widths on the typed slice graph's 8 edge types, cut to 2
+     epochs (of 16 steps of 2^20 arcs), plain and with `use_edge_metrics`:
+     K7 4 times a step and twice to predict, K8 once a step and once a
+     prediction chunk with the metrics and never without, never K6 or K5;
+     step ms, seconds, peak memory and the panel;
+ 38. (in the quality process) S14 quality: the reference's node-label gate
+     (`tests/test_quality_gates.py:70`) with model seeds 0-7: each test
+     accuracy at least 0.85, the mean at least the reference's less 0.03.
+Then the seconds phases 36-37 added, a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
 named by `library`),
@@ -957,38 +977,57 @@ def counter_of(event_name):
     return next((k for k, v in KERNEL_NAMES.items() if v in event_name), None)
 
 
-def profiled(run, require_all=True):
+def profiled(run):
     """(device events, {counter: launches}, {counter: events kept}) of
     torch.profiler around `run()`. The profiler drops some of a session's
     kernel records in long processes (it kept 7 of 10 launches, or 19 of
-    20, in runs that launched them all), so `device_ms` takes each kernel's
-    mean time over the events kept. It has also kept none of the last 20
-    launches of a session (a run of K14's LINE sampler at the end of
-    `device_ms`'s session), so with `require_all` each session ends with
-    padding work of PyTorch's own, and a session that kept no event of a
-    kernel it launched is run again, at most three times in all."""
+    20, in runs that launched them all, and in one run none of a session's
+    four kernels three sessions in a row), so nothing that must hold reads
+    it: it names and times PyTorch's own kernels in `profile`, and `kept`
+    says how many of the port's launches it saw."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     from embiggen_tpu_torch.ops import _build
 
-    pad = torch.zeros(1 << 16, device="cuda")
-    for _ in range(3):
-        before = _build.launch_counts()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-            for _ in range(32 if require_all else 0):
-                pad.add_(1.0)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        launched = {k: v - before[k] for k, v in _build.launch_counts().items()
-                    if v > before[k] and k in KERNEL_NAMES}
-        kept = {k: sum(KERNEL_NAMES[k] in e.name for e in events) for k in launched}
-        if all(kept.values()) or not require_all:
-            return events, launched, kept
-    raise AssertionError(f"torch.profiler kept no event of a launched kernel three "
-                         f"times: {kept} of {launched}")
+    before = _build.launch_counts()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launched = {k: v - before[k] for k, v in _build.launch_counts().items()
+                if v > before[k] and k in KERNEL_NAMES}
+    kept = {k: sum(KERNEL_NAMES[k] in e.name for e in events) for k in launched}
+    return events, launched, kept
+
+
+def cuda_ops(run):
+    """(the port's launches by counter, the sorted names of the ATen operators
+    that ran on CUDA tensors) in `run()`, as PyTorch's dispatcher saw each
+    call: every operator that launches a kernel of PyTorch's own passes
+    there, where torch.profiler may drop it. The port's kernels are launched
+    through ctypes and do not pass there."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from embiggen_tpu_torch.ops import _build
+
+    seen = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in tree_leaves((args, kwargs, out))):
+                seen.add(func.overloadpacket.__name__)
+            return out
+
+    before = _build.launch_counts()
+    with Record():
+        run()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.launch_counts().items() if v > before[k]}
+    return launched, sorted(seen)
 
 
 def profile(step, n_steps):
@@ -1022,7 +1061,7 @@ def profile(step, n_steps):
     def run():
         for _ in range(n_steps):
             step()
-    events, launched, kept = profiled(run, require_all=False)
+    events, launched, kept = profiled(run)
     others = {}
     for e in events:
         if counter_of(e.name) is None:
@@ -1760,23 +1799,32 @@ def quality_on_card(card, dev):
 
 
 def device_ms(calls, reps: int = 20) -> dict:
-    """{counter: device milliseconds per call} of each wrapper in `calls`
+    """{counter: device milliseconds per launch} of each wrapper in `calls`
     ({counter: fn}, each fn one launch of that wrapper's kernel; one fn may
-    stand for several counters), from one torch.profiler session over
-    `reps` calls of each distinct fn after a warm-up: the kernel alone,
-    where `time_ms` also times the wrapper's host work."""
+    stand for several counters), from the CUDA event pair around each launch
+    (`_build.timed_launches`) over `reps` calls of each distinct fn after a
+    warm-up, queued behind a sleep kernel so that each pair times the kernel
+    alone, where `time_ms` also times the wrapper's host work."""
+    from embiggen_tpu_torch.ops import _build
+
     fns = list({id(fn): fn for fn in calls.values()}.values())
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-
-    def run():
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    with _build.timed_launches() as pairs:
         for fn in fns:
             for _ in range(reps):
                 fn()
-    events, _, kept = profiled(run)
-    return {k: sum(e.time_range.elapsed_us() for e in events
-                   if KERNEL_NAMES[k] in e.name) / 1e3 / kept[k] for k in calls}
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if enqueue_s >= SLEEP_CYCLES / 2e9:
+        raise RuntimeError(f"enqueueing the calls took {enqueue_s} s, longer than the sleep")
+    missing = [k for k in calls if not pairs.get(k)]
+    if missing:
+        raise AssertionError(f"no launch of {missing} in {reps} calls")
+    return {k: sum(s.elapsed_time(e) for s, e in pairs[k]) / len(pairs[k]) for k in calls}
 
 
 def laws_module(name):
@@ -2928,8 +2976,8 @@ def k13b_checks(entries, rng, errs, dev):
     offset. In each case the check must refuse the tables before the step,
     the step with its node or its context side left out, and the step with
     its signs flipped. Then each launch timed at D 128 on a workspace: its
-    device time from torch.profiler, its plain version's time, and its
-    bound. Returns {counter: kernels entry}."""
+    device time on CUDA events (`device_ms`), its plain version's time, and
+    its bound. Returns {counter: kernels entry}."""
     from embiggen_tpu_torch.ops.glove import (
         GloVeStepWorkspace, glove_context_update_plain, glove_gradients_plain,
         glove_node_update_plain, glove_step, glove_step_plain,
@@ -3084,10 +3132,10 @@ def s7_injected_steps(small, dev):
 def glove_step_launches(graph, dev):
     """One steady step of Node2Vec GloVe (`_step`, its own draws) and one of
     Walklets GloVe (`_glove_step` on power 0's slices, ids drawn by K2) at
-    the S7 settings, each under torch.profiler: {model: (the port's launches,
-    the names of the other kernels the profiler kept)}. Raises unless a step
-    launched K2 once and each of K13b's launches once, or if it ran a kernel
-    whose name holds "index" (`index_add_`'s and `index_select`'s do)."""
+    the S7 settings, each under `cuda_ops`: {model: (the port's launches,
+    the ATen operators it ran on the card)}. Raises unless a step launched
+    K2 once and each of K13b's launches once, or if it ran an operator whose
+    name holds "index" (`index_add_`, `index_select`, `index`, `index_put_`)."""
     from embiggen_tpu_torch.models.embedders import GloVe, WalkletsGloVe
     from embiggen_tpu_torch.ops.glove import (
         GloVeStepWorkspace, cooccurrences, draw_entries, glove_entries,
@@ -3120,8 +3168,7 @@ def glove_step_launches(graph, dev):
         for name, step in steps.items():
             step()
             torch.cuda.synchronize()
-            events, launched, _ = profiled(step)
-            others = sorted({e.name[:90] for e in events if counter_of(e.name) is None})
+            launched, others = cuda_ops(step)
             if launched != want or any("index" in o.lower() for o in others):
                 raise AssertionError(f"a {name} step launched {launched} (expected {want}) "
                                      f"and ran {others}")
@@ -5331,6 +5378,283 @@ def s12_runs(graph, dev):
     return out
 
 
+# ------------------------------------------------------------------- S14
+# S14: node-label and edge-label prediction on the typed slice graph (8 node
+# and 8 edge types) through their evaluation facades, one Stratified Monte
+# Carlo holdout at random state 0: the node-label Kipf GCN at the
+# reference's defaults (units 128-128, head 128, dropout 0.5, 200 epochs,
+# patience 20; no node features, so a learned [1M, 50] embedding), the
+# edge-label Kipf GCN at its default widths (units 128-128, towers 64, head
+# 32, batch one arc a node) cut to S14_EDGE_EPOCHS epochs, plain and with
+# `use_edge_metrics`; GraphConvolution's two hops at D S14_CONV_DIM in both
+# transposes; Node-label-based SPINE at its defaults (depth 32).
+S14_EDGE_EPOCHS = 2
+S14_CONV_DIM = 128
+S14_STEP_REPS = 10
+S14_NODE_KERNELS = ("spmm",)
+S14_EDGE_KERNELS = ("spmm",)
+S14_EDGE_UNUSED = ("edge_prediction_mini_batch", "edge_metrics", "csr_edge_ids")
+S14_METRICS_KERNELS = ("spmm", "edge_metrics")
+S14_SPINE_KERNELS = ("min_plus_step",)
+# The reference's node-label gate (tests/test_quality_gates.py:70-89) and
+# its mean test accuracy over model seeds 0-7, measured with embiggen_tpu on
+# the CPU (tests/test_torch_label_gate.py says how).
+GATE_NODE_LABEL = dict(units=[32], head_units=[32], epochs=100, use_node_embedding=True,
+                       node_embedding_size=32, dropout_rate=0.2, random_state=0)
+GATE_NODE_LABEL_FLOOR = 0.85
+GATE_REFERENCE_NODE_LABEL_ACCURACY = 1.0
+
+
+def recorded(cls):
+    """A subclass of the model class `cls` (same names and parameters) that
+    keeps each instance it fits in its `fitted` list, so that a phase reads
+    the fits an evaluation made of its clones."""
+
+    class Recorded(cls):
+        fitted = []
+
+        def _fit(self, *args, **kwargs):
+            super()._fit(*args, **kwargs)
+            type(self).fitted.append(self)
+
+    return Recorded
+
+
+def node_label_step_ms(model, graph, reps=S14_STEP_REPS) -> float:
+    """ms of one full-graph Adam step of the fitted node-label GCN on CUDA
+    events (its loss with dropout, the backward and Adam, on a copy of its
+    parameters), after two warm-up steps."""
+    from embiggen_tpu_torch.models.gcn.core import map_params, param_leaves
+
+    params = map_params(lambda t: t.detach().clone().requires_grad_(True), model._params)
+    optimizer = torch.optim.Adam(param_leaves(params), lr=model._learning_rate)
+    targets = model._targets(graph)
+    drop = torch.Generator(device=model.device).manual_seed(0)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        model._loss(params, model._csr_kernels, targets, graph.number_of_nodes,
+                    drop).backward()
+        optimizer.step()
+
+    step()
+    return time_ms(step, reps)
+
+
+def label_spmm_check(model, name, seed) -> float:
+    """K7 at the fitted label GCN's own first convolution: over its kernel
+    (`_csr_kernels[0]`) with its learned input features ([n, 50] at the
+    defaults: D not a multiple of 4, so K7's scalar route), forward for
+    every combiner and the transposed backward through autograd against a
+    seeded output gradient, each against the plain version at K7_TOL.
+    Returns the largest abs error."""
+    k = model._csr_kernels[0]
+    with torch.no_grad():
+        x = model._spec.materialize(model._params["embed"]).detach().float().contiguous()
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.randn(x.shape, generator=gen, device=x.device)
+    err = spmm_check(k, x, g, f"{name} D {x.shape[1]}")
+    del x, g
+    return err
+
+
+def graph_convolution_checks(typed, dev):
+    """GraphConvolution(number_of_convolutions=2) at D S14_CONV_DIM on the
+    card in both transposes, each against the plain version's two hops on
+    the card over the same kernel's CSR (rtol / atol 1e-5: sums in another
+    order), with 2 K7 launches; the transposed kernel's hop timed beside its
+    plain version and `torch.sparse.mm`. Returns ({transpose: (seconds,
+    largest error)}, the hop's entry, the transforms' K7 launches)."""
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.models.feature_preprocessors import GraphConvolution
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain
+
+    x = np.random.default_rng(36).standard_normal((N_NODES, S14_CONV_DIM), dtype=np.float32)
+    out, hop, launches = {}, None, 0
+    for transpose in (False, True):
+        name = ("Transposed Left Normalized Laplacian" if transpose
+                else "Left Normalized Laplacian")
+        model = GraphConvolution(number_of_convolutions=2, transpose=transpose, device=dev)
+        got, counts, secs, _ = s8_run(lambda: model.transform(typed, x).node_embeddings[0])
+        if counts["spmm"] != 2:
+            raise AssertionError(f"GraphConvolution launched K7 {counts['spmm']} times, not 2")
+        launches += counts["spmm"]
+        k = csr_kernel(*kernel_coo(typed, name), N_NODES, device=dev, with_transpose=False)
+        h = torch.from_numpy(x).to(dev)
+        want = csr_spmm_plain(k, csr_spmm_plain(k, h))
+        out[transpose] = (secs, check_close(f"GraphConvolution transpose={transpose}",
+                                            torch.from_numpy(got).to(dev), want, 1e-5, 1e-5))
+        if transpose:
+            a = torch.sparse_csr_tensor(k.row_ptr, k.cols, k.vals, size=(N_NODES, N_NODES))
+            n, d, e = N_NODES, S14_CONV_DIM, k.n_arcs
+            hop = dict(
+                max_abs_err=out[transpose][1],
+                ms=time_ms(lambda: csr_spmm(k, h), 20),
+                plain_ms=time_ms(lambda: csr_spmm_plain(k, h), 3),
+                library_ms=time_ms(lambda: torch.sparse.mm(a, h), 20),
+                library="torch.sparse.mm (cuSPARSE)",
+                # x in, the sums out, the CSR; a multiply-add per gathered float.
+                **bound(4 * (2 * n * d + n + 1 + 2 * e), 2 * e * d))
+            del a
+        del got, want, k, h
+        torch.cuda.empty_cache()
+    return out, hop, launches
+
+
+def node_label_spine_check(typed, dev):
+    """Node-label-based SPINE through `embed_graph` on the typed slice graph
+    (an anchor set a node type: 8 columns), launching K15a, its distances
+    exactly the plain version's 32 relaxations (clamped as the model
+    clamps). Returns (launches, seconds, peak bytes)."""
+    from embiggen_tpu_torch.models.embedders import NodeLabelSPINE
+    from embiggen_tpu_torch.ops.bfs import UNREACHED, anchor_init_from_sets
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    model = NodeLabelSPINE(device=dev)
+    result, counts, secs, peak = s8_run(lambda: embed_graph(typed, model))
+    got = result.node_embeddings[0]
+    sets = model._anchor_sets(typed)
+    if got.shape != (N_NODES, len(sets)) or len(sets) != S10_TYPES:
+        raise AssertionError(f"Node-label-based SPINE: shape {got.shape}, {len(sets)} sets")
+    init = anchor_init_from_sets(N_NODES, sets, dev)
+    want = plain_distances(typed.device(dev), init, S8_DEPTH, False)
+    want = torch.where(want >= UNREACHED, float(S8_DEPTH + 1), want)
+    exact_err("Node-label-based SPINE", torch.from_numpy(got).to(dev),
+              torch.clamp(want, max=255).to(torch.uint8))
+    return check_launches("Node-label-based SPINE", counts, S14_SPINE_KERNELS), secs, peak
+
+
+def s14_node_label_runs(typed, dev):
+    """Phase 36: the node-label Kipf GCN through
+    `node_label_prediction_evaluation` (the counts set to 0 just before and
+    read just after; K7 4 times an epoch, the learned embedding taking a
+    gradient, and twice to predict), its steady step on CUDA events, K7 at
+    its first convolution's shape against the plain version, then
+    GraphConvolution and Node-label-based SPINE. Returns a dict of what the
+    phase's line prints."""
+    from embiggen_tpu_torch.models.gcn import KipfGCNNodeLabelPrediction
+    from embiggen_tpu_torch.pipelines import node_label_prediction_evaluation
+
+    cls = recorded(KipfGCNNodeLabelPrediction)
+    rows, counts, secs, peak = s8_run(lambda: node_label_prediction_evaluation(
+        holdouts_number=1, models=cls(device=dev), graphs=typed, random_state=0))
+    model = cls.fitted[-1]
+    epochs = len(model._history)
+    launches = check_launches("node label", counts, S14_NODE_KERNELS)
+    if counts["spmm"] != 4 * epochs + 2:
+        raise AssertionError(f"the node-label GCN launched K7 {counts['spmm']} times in "
+                             f"{epochs} epochs, not 4 an epoch and 2 to predict")
+    if [r["evaluation_mode"] for r in rows] != ["train", "test"] or not all(
+            np.isfinite(r["accuracy"]) and np.isfinite(r["auroc_macro_ovr"]) for r in rows):
+        raise AssertionError(f"node-label rows: {rows}")
+    if not np.isfinite(model._history).all():
+        raise AssertionError(f"node-label losses {model._history}")
+    out = dict(
+        seconds=secs, peak_bytes=peak, fit_s=rows[0]["fit_time"],
+        epochs=epochs, s_per_epoch=float(np.median(model._epoch_seconds)),
+        k7_per_epoch=(counts["spmm"] - 2) / epochs, launches=launches,
+        step_ms=node_label_step_ms(model, typed),
+        panel={r["evaluation_mode"]: {k: round(float(r[k]), 4) for k in (
+            "accuracy", "balanced_accuracy", "f1_score_macro", "auroc_macro_ovr")}
+            for r in rows},
+        first_loss=model._history[0], last_loss=model._history[-1],
+        k7_err=label_spmm_check(model, "node label", 360))
+    del model, cls.fitted[:]
+    torch.cuda.empty_cache()
+    (out["graph_convolution"], out["graph_convolution_hop"],
+     out["graph_convolution_spmm"]) = graph_convolution_checks(typed, dev)
+    out["spine"] = node_label_spine_check(typed, dev)
+    return out
+
+
+def s14_edge_label_runs(typed, dev):
+    """Phase 37: the edge-label Kipf GCN through
+    `edge_label_prediction_evaluation`, plain and with `use_edge_metrics`,
+    each with the counts set to 0 just before and read just after: K7 4
+    times a step (the learned embedding takes a gradient) and twice to
+    predict, never K6 (the batch is `torch.randint` over the known arcs) nor
+    K5; K8 once a step and once a 2^22-arc chunk of the prediction with the
+    metrics, never without; then K7 at each fit's first convolution's shape
+    against the plain version. Returns {label: dict}."""
+    from embiggen_tpu_torch.models.gcn import KipfGCNEdgeLabelPrediction
+    from embiggen_tpu_torch.pipelines import edge_label_prediction_evaluation
+
+    out = {}
+    chunks = -(-typed.number_of_directed_edges // (1 << 22))
+    for label, kw, names, unused in (
+        ("plain", {}, S14_EDGE_KERNELS, S14_EDGE_UNUSED),
+        ("use_edge_metrics", dict(use_edge_metrics=True), S14_METRICS_KERNELS,
+         ("edge_prediction_mini_batch", "csr_edge_ids")),
+    ):
+        cls = recorded(KipfGCNEdgeLabelPrediction)
+        rows, counts, secs, peak = s8_run(lambda: edge_label_prediction_evaluation(
+            holdouts_number=1, graphs=typed, random_state=0, models=cls(
+                device=dev, epochs=S14_EDGE_EPOCHS, early_stopping_patience=10**6, **kw)))
+        model = cls.fitted[-1]
+        steps = model._steps_per_epoch * len(model._history)
+        launches = check_launches(f"edge label {label}", counts, names, unused)
+        if counts["spmm"] != 4 * steps + 2:
+            raise AssertionError(f"the edge-label GCN ({label}) launched K7 {counts['spmm']} "
+                                 f"times in {steps} steps, not 4 a step and 2 to predict")
+        if "edge_metrics" in names and counts["edge_metrics"] != steps + chunks:
+            raise AssertionError(f"the edge-label GCN launched K8 {counts['edge_metrics']} "
+                                 f"times in {steps} steps and {chunks} chunks")
+        if len(model._history) != S14_EDGE_EPOCHS or not np.isfinite(model._history).all():
+            raise AssertionError(f"edge-label ({label}) losses {model._history}")
+        if [r["evaluation_mode"] for r in rows] != ["train", "test"] or not all(
+                np.isfinite(r["accuracy"]) for r in rows):
+            raise AssertionError(f"edge-label rows ({label}): {rows}")
+        out[label] = dict(
+            seconds=secs, peak_bytes=peak, fit_s=rows[0]["fit_time"],
+            batch=model._run_batch_size, steps_per_epoch=model._steps_per_epoch,
+            s_per_epoch=model._epoch_seconds,
+            step_ms=[s / model._steps_per_epoch * 1e3 for s in model._epoch_seconds],
+            losses=model._history, launches=launches,
+            k7_err=label_spmm_check(model, f"edge label {label}", 370),
+            panel={r["evaluation_mode"]: {k: round(float(r[k]), 4) for k in (
+                "accuracy", "balanced_accuracy", "f1_score_macro", "auroc_macro_ovr")}
+                for r in rows})
+        del model, cls.fitted[:]
+        torch.cuda.empty_cache()
+    return out
+
+
+def s14_quality_on_card(card, dev):
+    """The reference's node-label gate (`tests/test_quality_gates.py:70-89`)
+    on the card: its call verbatim through `node_label_prediction_evaluation`
+    on planted_partition(1000, 4, p_in=0.05, p_out=0.002, seed=42), then
+    model seeds 1-7 on the same holdout's Degree-based SPINE features by
+    `_evaluate` (tests/test_torch_label_gate.py): each test accuracy at least
+    GATE_NODE_LABEL_FLOOR, the mean at least the reference's less 0.03.
+    Returns the per-seed accuracies."""
+    from embiggen_tpu_torch.graph import planted_partition
+    from embiggen_tpu_torch.models.embedders import DegreeSPINE
+    from embiggen_tpu_torch.models.gcn import KipfGCNNodeLabelPrediction
+    from embiggen_tpu_torch.pipelines import node_label_prediction_evaluation
+
+    sbm = planted_partition(1000, 4, p_in=0.05, p_out=0.002, seed=42)
+    rows = node_label_prediction_evaluation(
+        holdouts_number=1, models=KipfGCNNodeLabelPrediction(device=dev, **GATE_NODE_LABEL),
+        graphs=sbm, node_features="Degree-based SPINE",
+        evaluation_schema="Stratified Monte Carlo", random_state=3)
+    accuracy = [next(r["accuracy"] for r in rows if r["evaluation_mode"] == "test")]
+    train, test = KipfGCNNodeLabelPrediction.split_graph_following_evaluation_schema(
+        sbm, "Stratified Monte Carlo", 0, random_state=3)
+    spine = DegreeSPINE(device=dev).fit_transform(train).node_embeddings[0]
+    for seed in GATE_SEEDS[1:]:
+        model = KipfGCNNodeLabelPrediction(device=dev, **GATE_NODE_LABEL)
+        model.set_random_state(seed)
+        model.fit(train, support=train, node_features=spine)
+        got = {r["evaluation_mode"]: r for r in
+               model._evaluate(sbm, train, test, support=train, random_state=3)}
+        accuracy.append(got["test"]["accuracy"])
+    if not (min(accuracy) >= GATE_NODE_LABEL_FLOOR
+            and np.mean(accuracy) >= GATE_REFERENCE_NODE_LABEL_ACCURACY - 0.03):
+        raise AssertionError(f"node-label gate on {card}: test accuracy {accuracy}")
+    return accuracy
+
+
 # ------------------------------------------------------- native host helpers
 # The harness's shapes for the native host helpers (phase 35): the binary
 # panel's scores, the negative graph's pairs, the forest's graph (the Python
@@ -5512,7 +5836,7 @@ def check_launches(path, counts, names, unused=()):
 
 
 def quality_phases(card, dev) -> None:
-    """Phases 9, 13, 16, 20, 23, 27 and 30: the quality gates, each printing
+    """Phases 9, 13, 16, 20, 23, 27, 30 and 38: the quality gates, each printing
     its line; the first that fails raises. They train small models on the
     gate fixture (S10's on a small typed graph), host-bound work that times
     no kernel, so `main` runs them in a process of their own
@@ -5600,6 +5924,17 @@ def quality_phases(card, dev) -> None:
           + "; ".join(f"{route} {a:.4f} against {b:.4f}" for route, (a, b) in rates.items()),
           flush=True)
 
+    # -------------------------------------------------- 38. S14 quality
+    t_phase = time.perf_counter()
+    accuracy = s14_quality_on_card(card, dev)
+    print(f"phase 38 S14 quality on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "planted_partition(1000, 4, p_in 0.05, p_out 0.002, seed 42), Stratified Monte Carlo "
+          "holdout 0 at random state 3: the Kipf GCN node-label gate with Degree-based SPINE "
+          f"features, test accuracy over model seeds 0-7 {[round(a, 4) for a in accuracy]}, "
+          f"mean {np.mean(accuracy):.4f} (each at least {GATE_NODE_LABEL_FLOOR}, the mean at "
+          f"least the reference's {GATE_REFERENCE_NODE_LABEL_ACCURACY:.4f} less 0.03)",
+          flush=True)
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5608,7 +5943,7 @@ def main() -> None:
                              "steady S1, GCN, S5, S6, S7 and S8 steps and of S9's "
                              "NodeSketch fit")
     parser.add_argument("--quality", action="store_true",
-                        help="run only the quality phases (9, 13, 16, 20, 23, 27, 30) on "
+                        help="run only the quality phases (9, 13, 16, 20, 23, 27, 30, 38) on "
                              "the kernels built before; the run without it starts them so")
     args = parser.parse_args()
     t_start = time.perf_counter()
@@ -5987,7 +6322,7 @@ def main() -> None:
           f"{native_rows['alias_tables']['native_whole_s']:.4f}", flush=True)
 
     # ---------------------------------------------------------- 10. S4 harness
-    # The quality phases (9, 13, 16, 20, 23, 27, 30) run in a process of
+    # The quality phases (9, 13, 16, 20, 23, 27, 30, 38) run in a process of
     # their own beside the harness: both are host-bound and neither times a
     # kernel. Their lines follow phase 10's.
     t_phase = time.perf_counter()
@@ -6254,7 +6589,7 @@ def main() -> None:
           f"{[glove_steps * glove._run_batch_size / s for s in glove._epoch_seconds]}"
           f" | Role2Vec batch {role._run_batch_size}, centres/s "
           f"{[role_centres / s for s in role._epoch_seconds]} | one steady step's launches "
-          "(no index_add_; the other kernels torch.profiler kept, padding included): " + "; ".join(
+          "(no index_add_; the ATen operators it ran on the card): " + "; ".join(
               f"{name} {launched}, others {others}"
               for name, (launched, others) in glove_launches.items()), flush=True)
 
@@ -6473,6 +6808,59 @@ def main() -> None:
           f"{s12_errs} | tests/test_kge.py's ranking on the card (positive, corrupted mean "
           f"distance): {s12_ranks}", flush=True)
 
+    # ------------------------------------------- 36. S14 node label (A10)
+    t_s14 = t_phase = time.perf_counter()
+    s14 = s14_node_label_runs(typed, dev)
+    kernels["spmm"]["graph_convolution_hop"] = s14["graph_convolution_hop"]
+    # K7 against its plain version at the label GCNs' first convolution
+    # ([n, 50]: the scalar route), forward and backward.
+    kernels["spmm"]["label_max_abs_err"] = s14["k7_err"]
+    spine_launches, spine_s, spine_peak = s14["spine"]
+    print(f"phase 36 S14 node label on {card} ({time.perf_counter() - t_phase:.1f} s; the "
+          f"typed slice graph, {S10_TYPES} node types, no node features): "
+          "node_label_prediction_evaluation of the Kipf GCN at the reference's defaults "
+          "(units 128-128, head 128, dropout 0.5, 200 epochs, patience 20), one Stratified "
+          f"Monte Carlo holdout: {s14['seconds']:.2f} s (fit {s14['fit_s']:.2f} s), "
+          f"{s14['epochs']} epochs, {s14['s_per_epoch']:.4f} s an epoch (median), step "
+          f"{s14['step_ms']:.3f} ms on CUDA events, K7 {s14['k7_per_epoch']:.0f} launches an "
+          f"epoch, launches {s14['launches']}, peak {s14['peak_bytes']} bytes, loss "
+          f"{s14['first_loss']:.4f} -> {s14['last_loss']:.4f}, panel {json.dumps(s14['panel'])}, "
+          f"K7 at the first convolution's shape against the plain version, every combiner, "
+          f"forward and backward: largest error {s14['k7_err']:.3g}"
+          " | GraphConvolution(2 hops, D " + str(S14_CONV_DIM) + "), seconds and largest error "
+          "against the plain hops on the card: " + "; ".join(
+              f"transpose={t} {secs:.2f} s, err {err:.3g}"
+              for t, (secs, err) in s14["graph_convolution"].items())
+          + " | the transposed kernel's hop: " + ", ".join(
+              f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+              for k, v in s14["graph_convolution_hop"].items())
+          + f" | Node-label-based SPINE: {spine_s:.2f} s, peak {spine_peak} bytes, launches "
+          f"{spine_launches}, distances exactly the plain version's", flush=True)
+
+    # ------------------------------------------- 37. S14 edge label (A10)
+    t_phase = time.perf_counter()
+    s14_edges = s14_edge_label_runs(typed, dev)
+    print(f"phase 37 S14 edge label on {card} ({time.perf_counter() - t_phase:.1f} s; the "
+          f"typed slice graph, {S10_TYPES} edge types, no node features): "
+          "edge_label_prediction_evaluation of the Kipf GCN at its default widths (units "
+          "128-128, towers 64, head 32, batch one arc a node), one Stratified Monte Carlo "
+          f"holdout, cut to {S14_EDGE_EPOCHS} epochs of its 200: " + " | ".join(
+              f"{label}: {v['seconds']:.2f} s (fit {v['fit_s']:.2f} s), batch {v['batch']}, "
+              f"{v['steps_per_epoch']} steps an epoch, s an epoch {v['s_per_epoch']}, step ms "
+              f"{v['step_ms']} (host clock, an epoch over its steps), losses {v['losses']}, "
+              f"launches {v['launches']}, peak {v['peak_bytes']} bytes, panel "
+              f"{json.dumps(v['panel'])}, K7 at the first convolution's shape against the "
+              f"plain version: largest error {v['k7_err']:.3g}"
+              for label, v in s14_edges.items()), flush=True)
+    kernels["spmm"]["label_max_abs_err"] = max(
+        kernels["spmm"]["label_max_abs_err"], *(v["k7_err"] for v in s14_edges.values()))
+    label_launches = {
+        "spmm": s14["launches"]["spmm"] + s14["graph_convolution_spmm"] + sum(
+            v["launches"]["spmm"] for v in s14_edges.values()),
+        "edge_metrics": s14_edges["use_edge_metrics"]["launches"]["edge_metrics"],
+        "min_plus_step": spine_launches["min_plus_step"]}
+    print(f"chip_smoke: phases 36-37 added {time.perf_counter() - t_s14:.1f} s", flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -6501,7 +6889,8 @@ def main() -> None:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
-         "harness_launches": harness_launches.get(name, 0), **v}
+         "harness_launches": harness_launches.get(name, 0),
+         "label_launches": label_launches.get(name, 0), **v}
         for name, v in kernels.items()
     ]}))
     print(card_line())

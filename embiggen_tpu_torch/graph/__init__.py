@@ -5,7 +5,10 @@ from .generators import (
     random_geometric,
 )
 from .graph import Graph, TorchGraph, build_alias_tables
-from .holdouts import connected_holdout, edge_prediction_kfold, random_holdout
+from .holdouts import (
+    connected_holdout, edge_label_holdout, edge_label_kfold, edge_prediction_kfold,
+    node_label_holdout, node_label_kfold, random_holdout,
+)
 from .loaders import DatasetSpec, from_csv, get_dataset, karate_club, small_ppi
 from .sampling import sample_negative_graph
 
@@ -13,6 +16,7 @@ __all__ = [
     "Graph", "TorchGraph", "build_alias_tables", "barabasi_albert",
     "erdos_renyi", "planted_partition", "planted_partition_edges", "random_geometric",
     "connected_holdout", "edge_prediction_kfold", "random_holdout",
+    "node_label_holdout", "node_label_kfold", "edge_label_holdout", "edge_label_kfold",
     "DatasetSpec", "from_csv", "get_dataset", "karate_club", "small_ppi",
     "sample_negative_graph",
 ]

@@ -155,18 +155,22 @@ class Graph:
                 + self.col_idx.astype(np.int64))
 
     def has_edges(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-        """Vectorized membership test of (src[i], dst[i]) by binary search
-        over the sorted arc keys."""
-        src = np.asarray(src)
-        dst = np.asarray(dst)
-        if self.number_of_directed_edges == 0:
-            return np.zeros(len(src), dtype=bool)
-        q = src.astype(np.int64) * self.number_of_nodes + dst.astype(np.int64)
-        keys = self._sorted_arc_keys
-        idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
-        return keys[idx] == q
+        """Vectorized membership test of (src[i], dst[i])."""
+        return self.get_edge_ids(src, dst) >= 0
 
     has_edges_fast = has_edges
+
+    def get_edge_ids(self, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+        """Arc index (CSR order) of each (src[i], dst[i]), -1 where there
+        is no such arc, by binary search over the sorted arc keys."""
+        src = np.asarray(src)
+        dst = np.asarray(dst)
+        keys = self._sorted_arc_keys
+        if len(keys) == 0:
+            return np.full(len(src), -1, dtype=np.int64)
+        q = src.astype(np.int64) * self.number_of_nodes + dst.astype(np.int64)
+        idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+        return np.where(keys[idx] == q, idx, -1)
 
     def is_multigraph(self) -> bool:
         keys = self._sorted_arc_keys
@@ -251,6 +255,12 @@ class Graph:
         if self.node_type_ptr is None:
             return np.zeros(self.number_of_nodes, dtype=bool)
         return np.diff(self.node_type_ptr) > 0
+
+    def get_known_edge_types_mask(self) -> np.ndarray:
+        """[arcs] bool: True where the arc's type is known (not -1)."""
+        if self.edge_types is None:
+            return np.zeros(self.number_of_directed_edges, dtype=bool)
+        return self.edge_types >= 0
 
     def get_node_ids_from_node_type_names(self, type_names: Sequence[str]) -> np.ndarray:
         """Ids of the nodes that have at least one of the named types."""

@@ -2,9 +2,9 @@
 `embiggen_tpu/models/classifier.py`: feature normalization (model names,
 embedding models, EmbeddingResults, DataFrames and arrays become aligned
 [n_nodes, d] float32 matrices, with holdout-biased feature models deferred),
-the fit / predict / predict_proba verbs, the binary metric panel and the
-model-level holdout evaluation (`evaluate`, through
-`pipelines/evaluation.py`).
+the fit / predict / predict_proba verbs, the binary, multiclass and
+multilabel metric panels and the model-level holdout evaluation
+(`evaluate`, through `pipelines/evaluation.py`).
 
 A model runs on the explicit `device` it is given (default "cuda") and
 never moves elsewhere on its own; the device is not a hyper-parameter, so
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..graph.graph import Graph
-from ..ops.metrics import all_binary_metrics
+from ..ops.metrics import all_binary_metrics, multiclass_metrics
 from .abstract import AbstractEmbeddingModel, AbstractModel
 from .embedding_result import EmbeddingResult
 
@@ -262,6 +262,16 @@ class AbstractClassifierModel(AbstractModel):
     ) -> "AbstractClassifierModel":
         if graph.number_of_directed_edges == 0:
             raise ValueError(f"Graph {graph.name} has no edges.")
+        if self.requires_node_types() and not graph.has_node_types:
+            raise ValueError(
+                f"{self.model_name()} requires node types; graph "
+                f"{graph.name} has none."
+            )
+        if self.requires_edge_types() and not graph.has_edge_types:
+            raise ValueError(
+                f"{self.model_name()} requires edge types; graph "
+                f"{graph.name} has none."
+            )
         for provided, flag, kind in (
             (node_type_features, self.can_use_node_type_features(),
              "node_type_features"),
@@ -375,12 +385,13 @@ class AbstractClassifierModel(AbstractModel):
     def evaluate_prediction_probabilities(
         self, labels: np.ndarray, probabilities: np.ndarray
     ) -> Dict[str, float]:
-        if not self.is_binary_prediction_task():
-            raise NotImplementedError(
-                "Multiclass metrics come with the label-prediction tasks "
-                "(ROADMAP A10).")
-        scores = probabilities if probabilities.ndim == 1 else probabilities[:, -1]
-        return all_binary_metrics(labels, scores)
+        """The binary panel on the last column's scores for a binary task,
+        else the multiclass or multilabel panel."""
+        if self.is_binary_prediction_task():
+            scores = probabilities if probabilities.ndim == 1 else probabilities[:, -1]
+            return all_binary_metrics(labels, scores)
+        return multiclass_metrics(
+            labels, probabilities, multilabel=self.is_multilabel_prediction_task())
 
     @staticmethod
     def run_metadata() -> Dict[str, Any]:

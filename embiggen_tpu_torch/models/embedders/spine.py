@@ -12,8 +12,8 @@ number_of_convolutions).
 - WINE: feature j counts the walks of length 1..window_size into anchor
   set j: `window_size` K7 hops at unit values.
 - Anchors are the top-degree nodes, the top-score nodes, or the node-label
-  classes; the node-label rows raise the reference's error on untyped
-  graphs, and on typed ones raise until ROADMAP A10 ports them.
+  classes (one anchor set per primary node type that has nodes); the
+  node-label rows raise the reference's error on untyped graphs.
 - RUBICONE and RUINE: random binary or uniform features, drawn on the
   model's device from a torch.Generator seeded by `random_state`, then
   `number_of_convolutions` K7 products with the Left Normalized Laplacian.
@@ -90,9 +90,13 @@ class _NodeLabelAnchorMixin:
     def _anchor_sets(self, graph: Graph) -> List[np.ndarray]:
         if not graph.has_node_types:
             raise ValueError(f"{self.model_name()} requires node types.")
-        raise NotImplementedError(
-            f"{self.model_name()}: the node-label anchors are not ported yet "
-            "(ROADMAP A10).")
+        labels = graph.get_single_label_node_type_ids()
+        sets = []
+        for t in range(graph.number_of_node_types):
+            members = np.nonzero(labels == t)[0]
+            if len(members):
+                sets.append(members)
+        return sets
 
 
 class _ScoreAnchorMixin:

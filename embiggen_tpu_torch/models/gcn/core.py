@@ -23,7 +23,8 @@ from ...graph.graph import Graph
 from ...graph.laplacians import kernel_coo, validate_convolution_graph
 from ...ops.spmm import CSRKernel, csr_kernel, spmm
 from ...parallel.halo import build_halo_partition, halo_conv
-from ...parallel.mesh import Mesh
+from ...parallel.mesh import Mesh, resolve_mesh
+from ..registry import register_model
 
 Params = Dict[str, Any]
 
@@ -137,6 +138,18 @@ class GCNEncoder:
     def has_convolutions(self) -> bool:
         return bool(self.kernel_names) and bool(self.units)
 
+    def enable_mesh(self, mesh, device: torch.device) -> None:
+        """Resolve a model's `mesh` (None, "auto", an int or a `Mesh`) on the
+        "nodes" axis and, when it has more than one rank, `enable_halo` on
+        it. The mesh's ranks must run on the model's device type."""
+        mesh = resolve_mesh(mesh, axis="nodes")
+        if mesh is None:
+            return
+        if mesh.device.type != torch.device(device).type:
+            raise ValueError(f"the model trains on {device}, its mesh's ranks on "
+                             f"{mesh.device}.")
+        self.enable_halo(mesh)
+
     def enable_halo(self, mesh: Mesh) -> None:
         """Convolve over `mesh` with the halo-exchange SpMM
         (`parallel.halo.halo_conv`): each rank computes its shard's rows and
@@ -188,6 +201,40 @@ class GCNEncoder:
         if self.residual:
             h = torch.cat([h, x], dim=1)
         return h
+
+
+def kernel_preset(base, name: str, kernel_list: Sequence[str], doc: str):
+    """A registered Kipf GCN / GraphSAGE / GNN preset subclass of the GCN
+    class `base`, named `doc`, with the kernels `kernel_list` fixed; with no
+    kernels (GNN) no convolution layers, a learned node embedding by
+    default, and the base's smoke-test parameters but its units."""
+
+    def __init__(self, **kwargs):
+        kwargs.pop("kernels", None)
+        if not kernel_list:
+            kwargs.setdefault("use_node_embedding", True)
+            base.__init__(self, kernels=[], units=(), **kwargs)
+        else:
+            base.__init__(self, kernels=list(kernel_list), **kwargs)
+
+    def parameters(self):
+        p = base.parameters(self)
+        p.pop("kernels", None)
+        if not kernel_list:
+            p.pop("units", None)
+        return p
+
+    cls = type(name, (base,), {
+        "__init__": __init__,
+        "parameters": parameters,
+        "model_name": classmethod(lambda cls: doc),
+        "DEFAULT_KERNELS": list(kernel_list),
+        "__doc__": f"{doc} preset of {base.__name__}.",
+    })
+    if not kernel_list:
+        cls.smoke_test_parameters = classmethod(lambda cls: {
+            k: v for k, v in base.smoke_test_parameters().items() if k != "units"})
+    return register_model(cls)
 
 
 class StaticFeatureSpec:

@@ -1,6 +1,6 @@
-"""Edge-prediction GCNs — counterpart of `embiggen_tpu/models/gcn/edge.py`
-(`_EdgeGCNBase`, `GCNEdgePrediction` and its Kipf GCN / GraphSAGE / GNN
-presets).
+"""Edge GCNs — counterpart of `embiggen_tpu/models/gcn/edge.py`
+(`_EdgeGCNBase`, `GCNEdgePrediction`, `GCNEdgeLabelPrediction` and their
+Kipf GCN / GraphSAGE / GNN presets).
 
 A training step convolves the whole graph (kernel K7 forward, and its
 transposed backward), draws an edge minibatch on the device (kernel K6:
@@ -22,10 +22,16 @@ type.
 
 With `mesh` (None, "auto", an int or a `parallel.Mesh`) every rank trains
 the same model on the same batches and each convolution is the
-halo-exchange SpMM (`GCNEncoder.enable_halo`); the result equals a
+halo-exchange SpMM (`GCNEncoder.enable_mesh`); the result equals a
 single-device fit up to the order of float sums. Not ported yet, raising
-NotImplementedError that names its item: `checkpoint_dir` (A12); the
-edge-label GCN comes with A10.
+NotImplementedError that names its item: `checkpoint_dir` (A12).
+
+The edge-label GCN draws each batch uniformly from the arcs of known type
+(`torch.randint` under a generator seeded from the fit's, on the model's
+device, then gathers of their ends and types) and takes an Adam step on
+the softmax cross-entropy of the types; its edge representation never
+holds the edge type, which is the target, so edge-type features and the
+edge-type embedding are refused.
 """
 from __future__ import annotations
 
@@ -40,8 +46,9 @@ from ...ops import edge_ops
 from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
 from ...ops.negatives import BatchDraws, edge_prediction_mini_batch
 from ...ops.walks import csr_edge_ids
-from ...parallel.mesh import Mesh, resolve_mesh
+from ...parallel.mesh import Mesh
 from ..classifier import AbstractClassifierModel
+from ..edge_label_prediction.model import AbstractEdgeLabelPredictionModel
 from ..edge_prediction.model import AbstractEdgePredictionModel
 from ..embedders.walk_based import _device_generator
 from ..registry import register_model
@@ -51,6 +58,7 @@ from .core import (
     apply_mlp,
     assemble_node_features,
     init_mlp,
+    kernel_preset,
     map_params,
 )
 
@@ -200,12 +208,7 @@ class _EdgeGCNBase(AbstractClassifierModel):
             residual=self._residual,
             handling_multi_graph=self._handling_multi_graph,
         )
-        mesh = resolve_mesh(self._mesh, axis="nodes")
-        if mesh is not None:
-            if mesh.device.type != self.device.type:
-                raise ValueError(f"the model trains on {self.device}, its mesh's ranks on "
-                                 f"{mesh.device}.")
-            self._encoder.enable_halo(mesh)
+        self._encoder.enable_mesh(self._mesh, self.device)
         kernels = self._encoder.build_kernels(support, self.device)
         self._csr_kernels = kernels
         # A learned node embedding also stands in for no node features.
@@ -458,51 +461,104 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
         return torch.sigmoid(torch.from_numpy(logits)).numpy()
 
 
-def _kernel_preset(base, name, kernel_list, doc):
-    """A Kipf GCN / GraphSAGE / GNN preset subclass of an edge GCN."""
+class GCNEdgeLabelPrediction(_EdgeGCNBase, AbstractEdgeLabelPredictionModel):
+    """Configurable edge-label prediction GCN ("Everything Bagel GCN"):
+    `max(edge types, 2)` outputs over the towers, the edge combination and
+    the head."""
 
     def __init__(self, **kwargs):
-        kwargs.pop("kernels", None)
-        if not kernel_list:
-            kwargs.setdefault("use_node_embedding", True)
-            base.__init__(self, kernels=[], units=(), **kwargs)
-        else:
-            base.__init__(self, kernels=list(kernel_list), **kwargs)
+        kwargs.pop("use_edge_type_embedding", None)
+        kwargs.pop("edge_type_embedding_size", None)
+        super().__init__(**kwargs)
 
     def parameters(self):
-        p = base.parameters(self)
-        p.pop("kernels", None)
-        if not kernel_list:
-            p.pop("units", None)
+        p = super().parameters()
+        p.pop("use_edge_type_embedding", None)
+        p.pop("edge_type_embedding_size", None)
         return p
 
-    cls = type(
-        name,
-        (base,),
-        {
-            "__init__": __init__,
-            "parameters": parameters,
-            "model_name": classmethod(lambda cls: doc),
-            "DEFAULT_KERNELS": list(kernel_list),
-            "__doc__": f"{doc} preset of {base.__name__}.",
-        },
-    )
-    if not kernel_list:
-        cls.smoke_test_parameters = classmethod(
-            lambda cls: {"tower_units": [8], "head_units": [8], "epochs": 5,
-                         "batch_size": 64}
+    @classmethod
+    def can_use_edge_type_features(cls) -> bool:
+        return False
+
+    @classmethod
+    def model_name(cls) -> str:
+        return "Everything Bagel GCN"
+
+    def is_binary_prediction_task(self) -> bool:
+        return self._n_outputs == 2
+
+    def _draw_batch(self, known, generator):
+        """(src, dst, types) of `_run_batch_size` arcs drawn uniformly, with
+        replacement, from `known` ((src, dst, types) of every arc of known
+        type) with `generator`, on their device."""
+        src_all, dst_all, y_all = known
+        pick = torch.randint(0, src_all.shape[0], (self._run_batch_size,),
+                             generator=generator, device=src_all.device)
+        return src_all[pick], dst_all[pick], y_all[pick]
+
+    def _loss(self, params, kernels, known, batch, generator, drop_generator):
+        """Softmax cross-entropy of one batch of arcs of known type: `batch`
+        ((src, dst, types)) when given, else one drawn from `known` with
+        `generator`."""
+        src, dst, y = batch if batch is not None else self._draw_batch(known, generator)
+        logits = self._edge_logits(params, kernels, src, dst, self._n_nodes, training=True,
+                                   generator=drop_generator)
+        return -F.log_softmax(logits, dim=1).gather(1, y.long()[:, None]).mean()
+
+    def _fit(self, graph: Graph, support: Graph, node_features, **kwargs):
+        generator = torch.Generator().manual_seed(self.random_state or 0)
+        self._n_outputs = max(graph.number_of_edge_types, 2)
+        params, kernels = self._build_common(
+            graph, support, node_features, generator, kwargs.get("edge_features"),
+            kwargs.get("node_type_features"))
+        known_idx = np.nonzero(graph.get_known_edge_types_mask())[0]
+        if len(known_idx) == 0:
+            raise ValueError("Graph has no known edge types to train on.")
+        known = tuple(torch.from_numpy(np.ascontiguousarray(a[known_idx], np.int32)).to(self.device)
+                      for a in (graph.sources, graph.col_idx, graph.edge_types))
+        self._n_nodes = self._n_nodes_hint = graph.number_of_nodes
+        self._run_batch_size = self._resolve_batch_size(len(known_idx))
+        batch_generator = _device_generator(generator, self.device)
+        drop_generator = _device_generator(generator, self.device)
+        loop = TrainLoop(
+            epochs=self._epochs, learning_rate=self._learning_rate,
+            early_stopping_patience=self._early_stopping_patience,
+            steps_per_epoch=max(1, len(known_idx) // self._run_batch_size),
         )
-    return register_model(cls)
+        self._params, self._history = loop.run(
+            params,
+            lambda p: self._loss(p, kernels, known, None, batch_generator, drop_generator),
+        )
+        self._epoch_seconds = list(loop.epoch_seconds)
+        self._steps_per_epoch = loop.steps_per_epoch
+        self._predict_h = None
+
+    def _predict_proba(self, graph: Graph, **kwargs) -> np.ndarray:
+        """[arcs, outputs] softmax of every arc of `graph`."""
+        logits = self._chunked_logits(graph.sources, graph.col_idx)
+        return torch.softmax(torch.from_numpy(logits), dim=1).numpy()
 
 
-KipfGCNEdgePrediction = _kernel_preset(
+KipfGCNEdgePrediction = kernel_preset(
     GCNEdgePrediction, "KipfGCNEdgePrediction",
     ["Symmetric Normalized Laplacian"], "Kipf GCN",
 )
-GraphSAGEEdgePrediction = _kernel_preset(
+GraphSAGEEdgePrediction = kernel_preset(
     GCNEdgePrediction, "GraphSAGEEdgePrediction",
     ["Left Normalized Laplacian"], "GraphSAGE",
 )
-GNNEdgePrediction = _kernel_preset(GCNEdgePrediction, "GNNEdgePrediction", [], "GNN")
+GNNEdgePrediction = kernel_preset(GCNEdgePrediction, "GNNEdgePrediction", [], "GNN")
+KipfGCNEdgeLabelPrediction = kernel_preset(
+    GCNEdgeLabelPrediction, "KipfGCNEdgeLabelPrediction",
+    ["Symmetric Normalized Laplacian"], "Kipf GCN",
+)
+GraphSAGEEdgeLabelPrediction = kernel_preset(
+    GCNEdgeLabelPrediction, "GraphSAGEEdgeLabelPrediction",
+    ["Left Normalized Laplacian"], "GraphSAGE",
+)
+GNNEdgeLabelPrediction = kernel_preset(
+    GCNEdgeLabelPrediction, "GNNEdgeLabelPrediction", [], "GNN")
 
 register_model(GCNEdgePrediction)
+register_model(GCNEdgeLabelPrediction)

@@ -1,11 +1,13 @@
-"""Binary evaluation metrics — counterpart of the binary panel of
-`embiggen_tpu/ops/metrics.py` (`binary_auroc`, `binary_auprc`,
-`all_binary_metrics`). AUROC is the Mann-Whitney U statistic with midrank
+"""Evaluation metrics — counterpart of `embiggen_tpu/ops/metrics.py`
+(`binary_auroc`, `binary_auprc`, `all_binary_metrics`,
+`multiclass_metrics`). AUROC is the Mann-Whitney U statistic with midrank
 ties, AUPRC the step integral of sklearn's `average_precision_score`; as in
 the reference, both come from one stable radix argsort of the scores
 (`native.radix_argsort` over an order-preserving bit transform: 4 byte
 passes for float32) and one sweep over the sorted scores
-(`native.ranking_metrics_sorted`)."""
+(`native.ranking_metrics_sorted`). The multiclass and multilabel panel is
+numpy with the numbers of the reference's sklearn calls, its one-vs-rest
+AUROC the binary AUROC one class at a time."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -107,3 +109,90 @@ def all_binary_metrics(
         "false_positives": fp,
         "false_negatives": fn,
     }
+
+
+def _safe_divide(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    """num / den, 0 where den is 0 (sklearn's zero_division=0)."""
+    num = np.asarray(num, np.float64)
+    den = np.asarray(den, np.float64)
+    return np.divide(num, den, out=np.zeros_like(num), where=den != 0)
+
+
+def _class_counts(labels: np.ndarray, preds: np.ndarray):
+    """(true positives, predicted, true) counts per class, over the sorted
+    classes that occur in the labels or the predictions."""
+    classes = np.union1d(labels, preds)
+    label_ids = np.searchsorted(classes, labels)
+    true = np.bincount(label_ids, minlength=len(classes))
+    pred = np.bincount(np.searchsorted(classes, preds), minlength=len(classes))
+    tp = np.bincount(label_ids[labels == preds], minlength=len(classes))
+    return tp, pred, true
+
+
+def _macro_scores(tp, pred, true) -> Dict[str, float]:
+    """Macro F1, precision and recall from per-class true positive,
+    predicted and true counts, as sklearn's precision_recall_fscore_support
+    with zero_division=0 (F1 = 2 tp / (true + pred))."""
+    return {"f1_score": float(np.mean(_safe_divide(2.0 * tp, true + pred))),
+            "precision": float(np.mean(_safe_divide(tp, pred))),
+            "recall": float(np.mean(_safe_divide(tp, true)))}
+
+
+def _ovr_auroc(onehot: np.ndarray, scores: np.ndarray) -> float:
+    """Mean over the columns of the binary AUROC of column c's scores
+    against column c's labels; nan when a column holds one class."""
+    onehot = onehot.astype(bool)
+    counts = onehot.sum(axis=0)
+    if ((counts == 0) | (counts == len(onehot))).any():
+        return float("nan")
+    return float(np.mean([binary_auroc(onehot[:, c], scores[:, c])
+                          for c in range(onehot.shape[1])]))
+
+
+def multiclass_metrics(
+    labels: np.ndarray, probabilities: np.ndarray, multilabel: bool = False,
+) -> Dict[str, float]:
+    """The multiclass panel (labels [n] class ids, probabilities [n, C],
+    predictions their argmax): accuracy, balanced accuracy (the mean recall
+    over the classes present in the labels), macro F1, precision and recall
+    over the classes in the labels or the predictions (0 for a zero
+    denominator), and the macro one-vs-rest AUROC, nan unless the labels
+    hold exactly C > 2 classes, the probabilities are finite and each row
+    sums to 1 within `np.allclose`. The multilabel panel (labels and
+    probabilities [n, C], predictions probability > 0.5): subset accuracy,
+    hamming loss, macro and micro F1, and the macro AUROC over the columns,
+    nan where a column holds one class or a probability is not finite. A
+    one-column multilabel panel is sklearn's binary one: its F1 scores
+    average over the values 0 and 1 where they occur."""
+    probabilities = np.asarray(probabilities)
+    labels = np.asarray(labels)
+    finite = bool(np.isfinite(probabilities).all())
+    if multilabel:
+        truth = labels != 0
+        preds = probabilities > 0.5
+        if truth.shape[1] == 1:
+            tp, pred, true = _class_counts(truth[:, 0], preds[:, 0])
+        else:
+            tp = (truth & preds).sum(axis=0)
+            pred, true = preds.sum(axis=0), truth.sum(axis=0)
+        return {
+            "accuracy": float(np.mean((truth == preds).all(axis=1))),
+            "hamming_loss": float(np.count_nonzero(truth != preds) / truth.size),
+            "f1_score_macro": _macro_scores(tp, pred, true)["f1_score"],
+            "f1_score_micro": float(_safe_divide(2.0 * tp.sum(), true.sum() + pred.sum())),
+            "auroc_macro_ovr": (_ovr_auroc(truth, probabilities) if finite
+                                else float("nan")),
+        }
+    preds = probabilities.argmax(axis=1)
+    tp, pred, true = _class_counts(labels, preds)
+    out = {"accuracy": float(np.mean(labels == preds)),
+           "balanced_accuracy": float(np.mean(tp[true > 0] / true[true > 0]))}
+    out.update({f"{k}_macro": v for k, v in _macro_scores(tp, pred, true).items()})
+    present = np.unique(labels)
+    auroc = float("nan")
+    if (len(present) == probabilities.shape[1] and len(present) > 2 and finite
+            and np.allclose(1, probabilities.sum(axis=1))):
+        # Column j scores the j-th class present, in sorted order.
+        auroc = _ovr_auroc(labels[:, None] == present[None, :], probabilities)
+    out["auroc_macro_ovr"] = auroc
+    return out

@@ -11,10 +11,10 @@ of them, importing pandas only when it is called. Names of models resolve
 through the port's registry; models built from names (or classes) run on
 `device`, model instances on their own. With `profile_dir`, each holdout's
 fit runs under a torch.profiler trace written to
-`<profile_dir>/holdout_<n>`. Not ported yet, each raising
+`<profile_dir>/holdout_<n>`. The facades are the edge-prediction,
+node-label and edge-label ones. Not ported yet, raising
 NotImplementedError that names its item: the experiment cache
-(`enable_cache`), ROADMAP A12; the node-label and edge-label facades,
-ROADMAP A10.
+(`enable_cache`), ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -328,9 +328,61 @@ def edge_prediction_evaluation(
     )
 
 
-def node_label_prediction_evaluation(*args, **kwargs):
-    raise _not_ported("Node-label prediction", "A10")
+def node_label_prediction_evaluation(
+    holdouts_number: int,
+    models,
+    graphs,
+    evaluation_schema: str = "Stratified Monte Carlo",
+    node_features=None,
+    library_names: Optional[str] = None,
+    smoke_test: bool = False,
+    random_state: int = 42,
+    holdouts_kwargs: Optional[Dict[str, Any]] = None,
+    **kwargs,
+) -> Rows:
+    """Holdout evaluation of node-label models: the rows of
+    `classification_evaluation_pipeline` for the "Node Label Prediction"
+    task, one per split with labelled nodes."""
+    return classification_evaluation_pipeline(
+        evaluation_schema,
+        holdouts_number,
+        graphs,
+        models,
+        task_name="Node Label Prediction",
+        library_names=library_names,
+        node_features=node_features,
+        smoke_test=smoke_test,
+        random_state=random_state,
+        holdouts_kwargs=holdouts_kwargs,
+        **kwargs,
+    )
 
 
-def edge_label_prediction_evaluation(*args, **kwargs):
-    raise _not_ported("Edge-label prediction", "A10")
+def edge_label_prediction_evaluation(
+    holdouts_number: int,
+    models,
+    graphs,
+    evaluation_schema: str = "Stratified Monte Carlo",
+    node_features=None,
+    library_names: Optional[str] = None,
+    smoke_test: bool = False,
+    random_state: int = 42,
+    holdouts_kwargs: Optional[Dict[str, Any]] = None,
+    **kwargs,
+) -> Rows:
+    """Holdout evaluation of edge-label models: the rows of
+    `classification_evaluation_pipeline` for the "Edge Label Prediction"
+    task, one per split with typed arcs."""
+    return classification_evaluation_pipeline(
+        evaluation_schema,
+        holdouts_number,
+        graphs,
+        models,
+        task_name="Edge Label Prediction",
+        library_names=library_names,
+        node_features=node_features,
+        smoke_test=smoke_test,
+        random_state=random_state,
+        holdouts_kwargs=holdouts_kwargs,
+        **kwargs,
+    )

@@ -101,23 +101,35 @@ def _shapes(tree):
 
 
 def gcn_params_from_jax(params: Mapping, model) -> Dict:
-    """A fitted or built JAX edge-GCN parameter tree (`{"embed", "enc":
-    {"kernels"}, "src_tower", "dst_tower"?, "head", "edge_type_embedding"?}`,
-    numpy leaves, dense layers as {"w": [in, out], "b": [out]}; "embed"
-    holds "node_embedding" and "node_type_embedding" [n_node_types + 1, d]
-    when used) as the port's tree of float32 tensors on `model.device`. A
-    GCN built with edge features has a head as wide as its edge
-    representation (the combined towers, then each lazy and static
-    feature's width, the edge metrics, the edge-type feature tables and the
-    edge-type embedding [n_edge_types + 1, d]); the feature models and
-    feature tables hold no parameters. When `model` already holds parameters (`_params`, built with
-    the same features), the two trees must have the same structure and
-    shapes."""
+    """A fitted or built JAX GCN parameter tree as the port's tree of
+    float32 tensors on `model.device` (numpy leaves, dense layers as {"w":
+    [in, out], "b": [out]}; "embed" holds "node_embedding" and
+    "node_type_embedding" [n_node_types + 1, d] when used). Two layouts:
+
+    - an edge GCN's (edge prediction and edge label), `{"embed", "enc":
+      {"kernels"}, "src_tower", "dst_tower"?, "head",
+      "edge_type_embedding"?}`: its head is as wide as its edge
+      representation (the combined towers, then each lazy and static
+      feature's width, the edge metrics, the edge-type feature tables and
+      the edge-type embedding [n_edge_types + 1, d]) and ends in
+      `model._n_outputs` (1 for edge prediction, max(edge types, 2) for
+      edge labels); the feature models and feature tables hold no
+      parameters;
+    - a node-label GCN's, `{"embed", "enc": {"kernels"}, "head"}`, its head
+      ending in `model._n_classes`.
+
+    When `model` already holds parameters (`_params`, built with the same
+    features), the two trees must have the same structure and shapes; when
+    it knows its outputs, the head must end in them."""
     out = _tree_to_torch(dict(params), model.device)
     held = getattr(model, "_params", None)
     if held is not None and _shapes(held) != _shapes(out):
         raise ValueError("The JAX parameter tree does not match the model's: "
                          f"{_shapes(out)} vs {_shapes(held)}")
+    outputs = getattr(model, "_n_outputs", getattr(model, "_n_classes", None))
+    width = int(out["head"][-1]["b"].shape[0])
+    if outputs is not None and width != outputs:
+        raise ValueError(f"The JAX head ends in {width} outputs; the model has {outputs}.")
     return out
 
 

@@ -356,4 +356,26 @@ def models(mesh, payload):
     return out
 
 
-BODIES = {"pieces": pieces, "steps": steps, "models": models}
+NODE_LABEL_GCN_KWARGS = dict(units=[16, 16], head_units=[8], epochs=5, random_state=0,
+                             device="cpu")
+
+
+def node_label_gcn_fit(dropout_rate, mesh=None):
+    """(predict_proba, loss history) of a Kipf GCN node-label model fitted
+    on the planted partition (on `mesh` when given), the mirror of the
+    reference's tests/test_mesh_models.py node-label case."""
+    from embiggen_tpu_torch.models.gcn import KipfGCNNodeLabelPrediction
+
+    g = sbm()
+    extra = {} if mesh is None else dict(mesh=mesh.size)
+    m = KipfGCNNodeLabelPrediction(**NODE_LABEL_GCN_KWARGS, dropout_rate=dropout_rate, **extra)
+    m.fit(g)
+    return m.predict_proba(g), m._history
+
+
+def node_label(mesh, payload):
+    """The node-label GCN on the mesh, without and with dropout."""
+    return {rate: node_label_gcn_fit(rate, mesh) for rate in (0.0, 0.5)}
+
+
+BODIES = {"pieces": pieces, "steps": steps, "models": models, "node_label": node_label}

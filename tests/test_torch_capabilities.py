@@ -52,11 +52,31 @@ def test_capability_methods_match_reference(task, name):
         assert getattr(port_model, method)() == getattr(ref_model, method)(), method
 
 
+# The reference's rows the port leaves out: the label tasks' sklearn
+# adapters and the GBDT stubs (ROADMAP A15).
+LABEL_ROWS_LEFT_OUT = {
+    "Random Forest Classifier", "Extra Trees Classifier", "Decision Tree Classifier",
+    "Logistic Regression Classifier", "Gradient Boosting Classifier", "AdaBoost Classifier",
+    "Bagging Classifier", "K-Neighbour Classifier", "Gaussian Naive Bayes", "MLP Classifier",
+    "MLP Regression", "Hist Gradient Boosting Classifier", "Linear Support Vector Classifier",
+    "Nu Support Vector Classifier", "Radius Neighbour Classifier",
+    "Logistic Regression Cross Validator", "Ridge Classifier",
+    "Ridge Classifier Cross Validator", "XGBoost", "LightGBM", "CatBoost", "LLeaves",
+}
+
+
 def test_every_row_has_its_kinds_methods():
     """The 56 embedders (35, and the 21 KGE rows) answer the C3 class
-    method, the 5 edge predictors the C3 instance method."""
+    method, the 5 edge predictors the C3 instance method; with the 4
+    node-label and 4 edge-label GCNs and Graph Convolution, 70 rows. The
+    label tasks and the preprocessor register the reference's names but
+    for its sklearn adapters and GBDT stubs."""
     tasks = [task for task, _ in ROWS]
-    assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (56, 5, 61)
+    assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (56, 5, 70)
+    for task in ("Node Label Prediction", "Edge Label Prediction", "Feature Preprocessor"):
+        assert sorted(MODELS_LIBRARY[task]) == sorted(
+            set(ref_registry.MODELS_LIBRARY[task]) - LABEL_ROWS_LEFT_OUT), task
+        assert len(MODELS_LIBRARY[task]) == (1 if task == "Feature Preprocessor" else 4)
 
 
 # Constructor parameters the port adds to every row: where it trains, and

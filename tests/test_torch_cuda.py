@@ -15,6 +15,7 @@ from embiggen_tpu_torch.models.embedders import (
     CBOW, DeepWalkSkipGram, GloVe, SkipGram, WalkletsSkipGram,
 )
 from embiggen_tpu_torch.models.gcn import GCNEdgePrediction, KipfGCNEdgePrediction
+from embiggen_tpu_torch.models.gcn.core import TrainLoop, param_leaves
 from embiggen_tpu_torch.models.edge_features import HyperSketching
 from embiggen_tpu_torch.models.embedders import DegreeSPINE, DegreeWINE, WeightedSPINE
 from embiggen_tpu_torch.ops import _build
@@ -2180,3 +2181,85 @@ def test_device_memory_stats_reads_the_card(dev):
     x = torch.empty(1 << 20, dtype=torch.float32, device=dev)
     stats = profiling.device_memory_stats(dev)
     assert stats["allocated_bytes.all.current"] >= x.numel() * x.element_size()
+
+
+# ------------------------------------------------------------- label tasks
+def _typed_graph():
+    return erdos_renyi(600, 5000, seed=4, n_edge_types=3, n_node_types=4)
+
+
+def test_node_label_steps_on_card_match_the_cpu(dev):
+    """Three epochs of the node-label GCN (one full-graph Adam step each,
+    K7 forward and backward on the card) from the same parameters, dropout
+    0: the card's losses and probabilities are the CPU's."""
+    from embiggen_tpu_torch.models.gcn import KipfGCNNodeLabelPrediction
+
+    g = _typed_graph()
+    feats = np.random.default_rng(0).normal(size=(600, 16)).astype(np.float32)
+    kw = dict(units=[32, 16], head_units=[8], epochs=3, dropout_rate=0.0, random_state=0,
+              early_stopping_patience=10**6)
+    fitted = {}
+    for device in (dev, torch.device("cpu")):
+        before = _build.launch_counts()["spmm"]
+        fitted[device.type] = KipfGCNNodeLabelPrediction(device=device, **kw).fit(
+            g, node_features=feats)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            # Two layers forward and the second's transposed backward (the
+            # static features take no gradient), three epochs.
+            assert _build.launch_counts()["spmm"] - before == 3 * 3
+    np.testing.assert_allclose(fitted["cuda"]._history, fitted["cpu"]._history, rtol=1e-5)
+    np.testing.assert_allclose(fitted["cuda"].predict_proba(g), fitted["cpu"].predict_proba(g),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_edge_metrics", [False, True])
+def test_edge_label_steps_on_card_match_the_cpu(dev, use_edge_metrics):
+    """Three edge-label Adam steps on injected batches of known arcs from
+    the same parameters, card against CPU; with `use_edge_metrics` the card
+    launches K8 once a step."""
+    from embiggen_tpu_torch.models.gcn import GCNEdgeLabelPrediction
+
+    g = _typed_graph()
+    feats = [np.random.default_rng(0).normal(size=(600, 16)).astype(np.float32)]
+    rng = np.random.default_rng(1)
+    picks = [rng.integers(0, g.number_of_directed_edges, 512) for _ in range(3)]
+    kw = dict(units=[32], tower_units=[16], head_units=[8], dropout_rate=0.0, random_state=0,
+              use_edge_metrics=use_edge_metrics)
+    params, histories = {}, {}
+    for device in (dev, torch.device("cpu")):
+        model = GCNEdgeLabelPrediction(device=device, **kw)
+        model._n_outputs, model._n_nodes = 3, 600
+        p, kernels = model._build_common(g, g, feats, torch.Generator().manual_seed(0))
+        batches = iter([tuple(torch.from_numpy(a[pick].astype(np.int32)).to(device)
+                              for a in (g.sources, g.col_idx, g.edge_types)) for pick in picks])
+        before = _build.launch_counts()["edge_metrics"]
+        loop = TrainLoop(epochs=3, learning_rate=0.01, early_stopping_patience=10**6)
+        _, histories[device.type] = loop.run(
+            p, lambda q: model._loss(q, kernels, None, next(batches), None, None))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launch_counts()["edge_metrics"] - before == (3 if use_edge_metrics
+                                                                       else 0)
+        params[device.type] = p
+    np.testing.assert_allclose(histories["cuda"], histories["cpu"], rtol=1e-5)
+    for got, want in zip(param_leaves(params["cuda"]), param_leaves(params["cpu"])):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("width", [128, 30])
+def test_graph_convolution_kernel_matches_plain(dev, transpose, width):
+    """GraphConvolution's hops on the card (K7 over the kernel's CSR; the
+    transposed kernel's rows sorted by `csr_kernel`) against the CPU's plain
+    hops, concatenated."""
+    from embiggen_tpu_torch.models.feature_preprocessors import GraphConvolution
+
+    g = erdos_renyi(3000, 20000, seed=8)
+    x = np.random.default_rng(2).normal(size=(3000, width)).astype(np.float32)
+    kw = dict(number_of_convolutions=2, transpose=transpose, concatenate_features=True)
+    before = _build.launch_counts()["spmm"]
+    got = GraphConvolution(device=dev, **kw).transform(g, x).node_embeddings[0]
+    assert _build.launch_counts()["spmm"] - before == 2
+    want = GraphConvolution(device="cpu", **kw).transform(g, x).node_embeddings[0]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -271,8 +271,9 @@ def test_workers_kfold_and_what_still_raises(er):
         fold[0].number_of_directed_edges, fold[1].number_of_directed_edges]
     with pytest.raises(NotImplementedError, match="A12"):
         edge_prediction_evaluation(1, **kw, enable_cache=True)
+    # The label facades are ported; the Perceptron has no label-task row.
     for facade in (node_label_prediction_evaluation, edge_label_prediction_evaluation):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="'Perceptron' not found"):
             facade(1, "Perceptron", g)
 
 

@@ -8,8 +8,8 @@ dropout; and `supports_distribution` on every registered row.
 
 RotatE trains data-parallel and row-sharded, NodePiece data-parallel, and
 asked for rows NodePiece warns and trains data-parallel, as the reference's
-`test_nodepiece_rows_falls_back_to_data`. Left out until their rows are
-ported: the node-label GCNs (A10)."""
+`test_nodepiece_rows_falls_back_to_data`. The node-label GCN's mesh fit is
+held to one device in tests/test_torch_label_gcn.py."""
 import inspect
 
 import numpy as np
