@@ -6,8 +6,8 @@
 Phases, one line each (with its seconds), in order; any failure raises and
 the exit code is not 0. The quality phases (9, 13, 16, 20, 23, 27, 30 and 38:
 host-bound training on the gate fixture, timing no kernel) run in a second
-process (`--quality`, on the kernels phase 2 built) beside phase 10, and
-their lines follow phase 10's; the host graphs of later phases (the hub
+process (`--quality`, on the kernels phase 2 built) beside phases 35 and
+10, and their lines follow phase 10's; the host graphs of later phases (the hub
 graphs, the weighted twin, the typed slice graph) are built on a worker
 thread while the phases before them run:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -358,10 +358,36 @@ thread while the phases before them run:
  38. (in the quality process) S14 quality: the reference's node-label gate
      (`tests/test_quality_gates.py:70`) with model seeds 0-7: each test
      accuracy at least 0.85, the mean at least the reference's less 0.03.
-Then the seconds phases 36-37 added, a JSON line of the kernels (with the build seconds; each with its
+ 39. S15 edge prediction: K8 at the sklearn adapters' cap, the largest
+     degree (no row truncated), on 2^20 pairs of the slice graph and of the
+     slice graph plus 256 hubs (256 hub pairs, rows up to 65,536), against
+     its plain version at that cap (in chunks) and the host copy of
+     `graph/metrics.py` (the first 2^16 pairs and the hub pairs; K8_SUM_TOL);
+     then `edge_prediction_evaluation` on planted_partition_edges(100,000,
+     1,000,000, 1,000 communities), one connected holdout, Node2Vec
+     SkipGram features at the S1 widths (30 epochs, decay 0.99), of two
+     SklearnEdgePredictionAdapters whose estimators are
+     defined here in numpy: a least-squares classifier (decision_function
+     only) on Hadamard with `use_edge_metrics` and a centroid classifier
+     (predict_proba) on Concatenate, with the S1 step's kernels, K5 and K8
+     (once for the fit, once a prediction chunk) launched, the first's test
+     AUROC at least 0.8; on 2^15 pairs
+     the card's features against the CPU route's (1e-6) and K8's metric
+     columns against the host copy (rtol 1e-6), and the least-squares test
+     scores against the same estimator fit on the CPU route's features
+     (1e-4);
+ 40. S15 label tasks: `node_label_prediction_evaluation` of a centroid
+     classifier on the typed slice graph's node types (seeded features,
+     no kernel), `edge_label_prediction_evaluation` of the least-squares
+     classifier with `use_edge_metrics` on erdos_renyi(200,000, 1,000,000,
+     8 edge types) (K8 once for the fit and once to predict), and a named
+     row ("Decision Tree Classifier") of each task, which must raise
+     ModuleNotFoundError naming scikit-learn where sklearn is missing.
+Then the seconds phases 36-37 and 39-40 added, a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
-named by `library`),
+named by `library`; its launches on the main path, the harness's, the
+label tasks' and the sklearn-like adapters' path),
 the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
@@ -5655,6 +5681,392 @@ def s14_quality_on_card(card, dev):
     return accuracy
 
 
+# ------------------------------------------- S15: the sklearn-like adapters
+# Phase 39's graph: 100,000 nodes, about 1,000,000 edges in communities of
+# about 100 nodes, where common neighbours (the metric columns) separate
+# edges from negatives (at the default 10 communities of 10,000 they are
+# nearly all 0, and the classifiers score at chance); its SkipGram features
+# at the S1 widths (two tables of D 128: the train and negative arcs'
+# "Concatenate" features are 3.2M rows of 512 floats, 6.6 GB of host
+# memory), trained at the harness's learning-rate decay; the linear
+# classifier's test AUROC floor; and the pairs whose features and metric
+# columns are held to the CPU route's.
+S15_NODES, S15_EDGES, S15_COMMUNITIES = 100_000, 1_000_000, 1_000
+S15_EPOCHS, S15_DECAY = 30, 0.99
+S15_LINEAR_AUROC_FLOOR = 0.8
+S15_PAIRS = 1 << 15
+S15_FEATURE_TOL = dict(rtol=1e-6, atol=1e-6)
+S15_METRICS_RTOL = 1e-6
+S15_SCORE_TOL = 1e-4
+# Phase 40's edge-label graph: 2M arcs, whose "Concatenate" features at D
+# 128 with the four metric columns take 2.1 GB of host memory.
+S15_LABEL_NODES, S15_LABEL_EDGES = 200_000, 1_000_000
+S15_KERNELS = S1_KERNELS + S2_KERNELS + K8_KERNELS
+# K8 at the adapters' cap (the largest degree) against the host copy: the
+# first S15_HOST_PAIRS pairs of the check, and its hub pairs.
+S15_HUB_PAIRS = 256
+S15_HOST_PAIRS = 1 << 16
+
+
+def _row_chunks(n, rows=1 << 18):
+    return (slice(i, min(n, i + rows)) for i in range(0, n, rows))
+
+
+class LeastSquaresClassifier:
+    """A linear classifier in numpy: least squares of the standardized
+    features (and a bias) to +-1 targets, one-vs-rest for more than two
+    classes, by its normal equations in float64, one pass over chunks of
+    rows (the centering done on the Gram matrix). It exposes
+    `decision_function` only, so the adapters squash its margins
+    (`predict_proba_compat`)."""
+
+    def fit(self, x, y):
+        n, d = x.shape
+        self.classes_ = np.unique(y)
+        targets = (np.asarray(y)[:, None] == self.classes_[None, :]) * 2.0 - 1.0
+        gram, total = np.zeros((d, d)), np.zeros(d)
+        moments = np.zeros((d, targets.shape[1]))
+        for rows in _row_chunks(n):
+            chunk = x[rows].astype(np.float64)
+            gram += chunk.T @ chunk
+            total += chunk.sum(axis=0)
+            moments += chunk.T @ targets[rows]
+        mean = total / n
+        scale = np.sqrt(np.maximum(np.diag(gram) / n - mean * mean, 0.0))
+        scale[scale == 0] = 1.0
+        # Z = (X - mean) / scale has zero column sums, so the bias solves
+        # apart: Z'Z w = Z't and b = mean(t).
+        zz = (gram - n * np.outer(mean, mean)) / np.outer(scale, scale)
+        zt = (moments - np.outer(mean, targets.sum(axis=0))) / scale[:, None]
+        coef = np.linalg.lstsq(zz, zt, rcond=None)[0]
+        bias = targets.mean(axis=0)
+        if len(self.classes_) == 2:
+            coef, bias = coef[:, 1], bias[1]
+        # The standardization folded into the weights and the bias.
+        self.coef_ = coef / (scale[:, None] if coef.ndim == 2 else scale)
+        self.intercept_ = bias - mean @ self.coef_
+        return self
+
+    def decision_function(self, x):
+        return x.astype(np.float64) @ self.coef_ + self.intercept_
+
+
+class CentroidClassifier:
+    """A class-centroid classifier in numpy: a softmax over minus the
+    squared distances to the class means (scaled by the width; a row's own
+    squared norm cancels), with `predict_proba` and `classes_`."""
+
+    def fit(self, x, y):
+        self.classes_ = np.unique(y)
+        sums = np.zeros((len(self.classes_), x.shape[1]))
+        for rows in _row_chunks(len(x)):
+            onehot = (np.asarray(y[rows])[:, None] == self.classes_[None, :]).astype(np.float64)
+            sums += onehot.T @ x[rows].astype(np.float64)
+        counts = (np.asarray(y)[:, None] == self.classes_[None, :]).sum(axis=0)
+        self.centroids_ = sums / counts[:, None]
+        return self
+
+    def predict_proba(self, x):
+        logits = (2.0 * x.astype(np.float64) @ self.centroids_.T
+                  - (self.centroids_ ** 2).sum(axis=1)[None, :]) / x.shape[1]
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+
+def s15_adapter(base, estimator):
+    """A subclass of the adapter class `base` whose estimator is a new
+    `estimator()` (so an evaluation's clones build their own) and which
+    keeps, a list for the class, each instance it fits with its fit's
+    inputs and its evaluation's graphs, and the arcs of each graph it
+    scored."""
+
+    class Adapter(base):
+        fitted = []
+        scored = []
+
+        def _default_model_instance(self, random_state, **kwargs):
+            return estimator()
+
+        def _fit(self, graph, support, node_features, **kwargs):
+            super()._fit(graph, support, node_features, **kwargs)
+            self.fit_inputs = (graph, support, node_features)
+            type(self).fitted.append(self)
+
+        def _evaluate(self, graph, train, test, *args, **kwargs):
+            self.evaluated = (graph, train, test)
+            return super()._evaluate(graph, train, test, *args, **kwargs)
+
+        def _predict_proba(self, graph, *args, **kwargs):
+            type(self).scored.append(graph.number_of_directed_edges)
+            return super()._predict_proba(graph, *args, **kwargs)
+
+    Adapter.__name__ = f"{estimator.__name__}{base.__name__}"
+    return Adapter
+
+
+def plain_edge_metrics_in_chunks(tg, src, dst, cap, budget=1 << 26):
+    """K8's plain version at `cap` over the pairs, in chunks of pairs
+    ordered by the expanded row's length, each chunk's [pairs, width]
+    block at most `budget` entries (a hub pair alone is tens of thousands
+    of candidates wide)."""
+    from embiggen_tpu_torch.ops.edge_metrics import edge_metrics_plain
+
+    deg = tg.degrees.long()
+    da = torch.minimum(deg[src.long()], deg[dst.long()]).clamp(min=1, max=cap)
+    order = torch.argsort(da)
+    widths = da[order].cpu().numpy()
+    out = torch.empty((len(src), 4), dtype=torch.float32, device=src.device)
+    i, n = 0, len(src)
+    while i < n:
+        width = int(widths[min(n, i + max(1, budget // int(widths[i]))) - 1])
+        j = min(n, i + max(1, budget // width))
+        idx = order[i:j]
+        out[idx] = edge_metrics_plain(tg, src[idx], dst[idx], cap=cap)
+        i = j
+    return out
+
+
+def k8_against(name, got, want, deg, src, dst):
+    """K8's output against another computation of the same exact function:
+    preferential attachment and the common-neighbour counts exactly,
+    Jaccard rtol 1e-6, Adamic-Adar and resource allocation at K8_SUM_TOL
+    (sums in another order). Returns the largest abs error."""
+    if not torch.equal(got[:, 3], want[:, 3]):
+        raise AssertionError(f"K8 {name}: preferential attachment differs")
+    total = (deg[src.long()] + deg[dst.long()]).double()
+
+    def inter(m):
+        jac = m[:, 1].double()
+        return torch.round(jac * total / (1.0 + jac))
+    if not torch.equal(inter(got), inter(want)):
+        raise AssertionError(f"K8 {name}: common-neighbour counts differ")
+    err = check_close(f"K8 {name} Jaccard", got[:, 1], want[:, 1], 1e-6, 0.0)
+    return max(err, check_close(f"K8 {name} Adamic-Adar and RA", got[:, [0, 2]],
+                                want[:, [0, 2]], **K8_SUM_TOL))
+
+
+def edge_metrics_exact_cap_check(graph, tg, hub_pairs):
+    """K8 at the sklearn adapters' cap, the graph's largest degree (where
+    it truncates no row), on K8_PAIRS pairs of `graph` (half arcs, half
+    uniform pairs, the last `hub_pairs` of them between two of the N_HUBS
+    highest-degree nodes): against its plain version at that cap (in
+    chunks) on every pair, and against the host copy of `graph/metrics.py`
+    on the first S15_HOST_PAIRS pairs and the hub pairs. Returns a dict of
+    the cap, the errors, the kernel's ms, the plain version's and the host
+    copy's seconds, and the longest expanded row."""
+    from embiggen_tpu_torch.graph.metrics import edge_metrics as host_edge_metrics
+    from embiggen_tpu_torch.ops.edge_metrics import edge_metrics
+
+    dev, n, cap = tg.device, graph.number_of_nodes, tg.max_degree
+    rng = np.random.default_rng(39)
+    arc = rng.integers(0, graph.number_of_directed_edges, K8_PAIRS // 2)
+    rest = K8_PAIRS - K8_PAIRS // 2
+    hubs = np.argsort(-graph.degrees, kind="stable")[:N_HUBS]
+    pick = [np.concatenate([rng.integers(0, n, rest - hub_pairs), rng.choice(hubs, hub_pairs)])
+            for _ in range(2)]
+    src_np = np.concatenate([graph.sources[arc], pick[0]])
+    dst_np = np.concatenate([graph.col_idx[arc], pick[1]])
+    src = torch.from_numpy(src_np.astype(np.int32)).to(dev)
+    dst = torch.from_numpy(dst_np.astype(np.int32)).to(dev)
+    deg = tg.degrees.long()
+    got = edge_metrics(tg, src, dst, cap=cap)
+    t0 = time.perf_counter()
+    want = plain_edge_metrics_in_chunks(tg, src, dst, cap)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = k8_against("at the exact cap against the plain version", got, want, deg, src, dst)
+    keep = np.concatenate([np.arange(S15_HOST_PAIRS), np.arange(K8_PAIRS - hub_pairs, K8_PAIRS)])
+    t0 = time.perf_counter()
+    host = torch.from_numpy(host_edge_metrics(graph, src_np[keep], dst_np[keep])).to(dev)
+    host_s = time.perf_counter() - t0
+    keep_t = torch.from_numpy(keep).to(dev)
+    host_err = k8_against("at the exact cap against the host copy", got[keep_t], host, deg,
+                          src[keep_t], dst[keep_t])
+    longest = int(torch.minimum(deg[src.long()], deg[dst.long()]).max())
+    del got, want, host
+    return dict(cap=cap, max_abs_err=err, host_max_abs_err=host_err,
+                ms=time_ms(lambda: edge_metrics(tg, src, dst, cap=cap), 5), plain_s=plain_s,
+                host_s=host_s, host_pairs=len(keep), longest_expanded_row=longest)
+
+
+def edge_metrics_exact_cap_checks(graph, tg):
+    """K8 at the exact cap on the slice graph and on it plus 256 hubs of
+    4,096-65,536 neighbours (S15_HUB_PAIRS hub pairs, whose expanded rows
+    run past HELD and past the default cap of 128). Returns {graph: dict}."""
+    out = {"slice": edge_metrics_exact_cap_check(graph, tg, 0)}
+    hg = hub_graph(graph)
+    htg = hg.device(tg.device)
+    out["hub"] = edge_metrics_exact_cap_check(hg, htg, S15_HUB_PAIRS)
+    if out["hub"]["longest_expanded_row"] <= 128:
+        raise AssertionError("no K8 pair of the hub graph reached past the default cap")
+    del htg
+    torch.cuda.empty_cache()
+    return out
+
+
+def s15_edge_prediction_runs(dev):
+    """Phase 39: `edge_prediction_evaluation` on the card of two
+    SklearnEdgePredictionAdapters over planted_partition_edges(S15_NODES,
+    S15_EDGES, S15_COMMUNITIES) with one connected holdout and Node2Vec
+    SkipGram features at the S1 widths: the least-squares classifier
+    (decision_function only, test AUROC at least S15_LINEAR_AUROC_FLOOR)
+    on "Hadamard" with `use_edge_metrics`, and the centroid classifier
+    (predict_proba) on "Concatenate". The counts are set to 0 just before
+    and read just after: the SkipGram step's kernels, K5 and K8, K8 once for
+    the fit and once a prediction chunk. Then on S15_PAIRS pairs, the
+    card's features of both fits against the CPU route's (S15_FEATURE_TOL)
+    and the first's metric columns (K8 at the exact cap) against the host
+    copy (S15_METRICS_RTOL); and the first's test scores against the same
+    estimator fitted on the CPU route's features (S15_SCORE_TOL). Returns
+    a dict of what the phase's line prints."""
+    from embiggen_tpu_torch import edge_prediction_evaluation
+    from embiggen_tpu_torch.graph import planted_partition_edges
+    from embiggen_tpu_torch.models.edge_prediction import SklearnEdgePredictionAdapter
+    from embiggen_tpu_torch.models.embedders import SkipGram
+    from embiggen_tpu_torch.models.sklearn_backend import edge_metric_columns
+    from embiggen_tpu_torch.models.edge_prediction.sklearn_like import PREDICTION_BATCH_SIZE
+    from embiggen_tpu_torch.transformers import EdgeTransformer
+
+    t0 = time.perf_counter()
+    pp = planted_partition_edges(S15_NODES, S15_EDGES, n_communities=S15_COMMUNITIES, seed=0)
+    graph_s = time.perf_counter() - t0
+    linear = s15_adapter(SklearnEdgePredictionAdapter, LeastSquaresClassifier)
+    centroid = s15_adapter(SklearnEdgePredictionAdapter, CentroidClassifier)
+    rows, counts, secs, peak = s8_run(lambda: edge_prediction_evaluation(
+        holdouts_number=1, graphs=pp, random_state=0,
+        models=[linear(edge_embedding_methods="Hadamard", use_edge_metrics=True, device=dev),
+                centroid(edge_embedding_methods="Concatenate", device=dev)],
+        node_features=SkipGram(
+            embedding_size=DIM, walk_length=WALK, window_size=WINDOW,
+            number_of_negative_samples=NEGS, epochs=S15_EPOCHS, learning_rate_decay=S15_DECAY,
+            random_state=0, early_stopping_patience=10**6, device=dev)))
+    launches = check_launches("S15 edge prediction", counts, S15_KERNELS)
+    chunks = sum(-(-n // PREDICTION_BATCH_SIZE) for n in linear.scored)
+    if counts["edge_metrics"] != 1 + chunks:
+        raise AssertionError(f"the adapters launched K8 {counts['edge_metrics']} times, not "
+                             f"once for the fit and once in each of {chunks} chunks")
+    if [r["evaluation_mode"] for r in rows] != ["train", "test"] * 2 or not all(
+            np.isfinite(r["auroc"]) and np.isfinite(r["auprc"]) for r in rows):
+        raise AssertionError(f"S15 edge prediction rows: {rows}")
+    if not rows[1]["auroc"] >= S15_LINEAR_AUROC_FLOOR:
+        raise AssertionError(f"the least-squares adapter's test AUROC {rows[1]['auroc']} is "
+                             f"below {S15_LINEAR_AUROC_FLOOR}")
+    (lin,), (cen,) = linear.fitted, centroid.fitted
+    graph, train, test = lin.evaluated
+    _, support, features = lin.fit_inputs
+    rng = np.random.default_rng(390)
+    arcs = rng.integers(0, test.number_of_directed_edges, S15_PAIRS // 2)
+    src = np.concatenate([test.sources[arcs], rng.integers(0, S15_NODES, S15_PAIRS // 2)])
+    dst = np.concatenate([test.col_idx[arcs], rng.integers(0, S15_NODES, S15_PAIRS // 2)])
+    feature_err = {}
+    for name, model in (("Hadamard", lin), ("Concatenate", cen)):
+        card_tr = model._transformer._graph_transformer._edge_transformer
+        cpu_tr = EdgeTransformer(name, aligned_mapping=True, device="cpu").fit(
+            model.concatenate_features(model.fit_inputs[2]))
+        feature_err[name] = check_close(
+            f"S15 {name} features, card against CPU",
+            torch.from_numpy(card_tr.transform(src, dst)),
+            torch.from_numpy(cpu_tr.transform(src, dst)), **S15_FEATURE_TOL)
+    got = lin._metric_columns(src, dst).cpu()
+    want = torch.from_numpy(edge_metric_columns(support, "cpu")(src, dst))
+    metrics_err = check_close("S15 K8 metric columns at the exact cap against the host copy",
+                              got, want, S15_METRICS_RTOL, 0.0)
+    t0 = time.perf_counter()
+    cpu_model = linear(edge_embedding_methods="Hadamard", use_edge_metrics=True,
+                       random_state=lin.random_state, device="cpu")
+    cpu_model.fit(train, support=support, node_features=features)
+    cpu_scores = cpu_model.predict_proba(test)
+    cpu_s = time.perf_counter() - t0
+    card_scores = lin.predict_proba(test)
+    score_err = check_close("S15 least-squares test scores, card against the CPU route's fit",
+                            torch.from_numpy(card_scores), torch.from_numpy(cpu_scores),
+                            0.0, S15_SCORE_TOL)
+    out = dict(
+        seconds=secs, graph_s=graph_s, peak_bytes=peak, launches=launches,
+        arcs=pp.number_of_directed_edges, train_arcs=train.number_of_directed_edges,
+        test_arcs=test.number_of_directed_edges, k8_cap=int(support.degrees.max()),
+        k8_chunks=chunks,
+        rows={f"{label} {r['evaluation_mode']}": dict(
+            auroc=round(float(r["auroc"]), 4), auprc=round(float(r["auprc"]), 4),
+            fit_s=round(float(r["fit_time"]), 2))
+            for label, r in zip(("linear", "linear", "centroid", "centroid"), rows)},
+        feature_err=feature_err, metrics_err=metrics_err, score_err=score_err, cpu_s=cpu_s)
+    del lin, cen, linear.fitted[:], centroid.fitted[:]
+    torch.cuda.empty_cache()
+    return out
+
+
+def s15_label_runs(typed, dev):
+    """Phase 40: `node_label_prediction_evaluation` of a
+    SklearnNodeLabelPredictionAdapter with the centroid classifier on the
+    typed slice graph's node types (seeded [N, D] features), then
+    `edge_label_prediction_evaluation` of a SklearnEdgeLabelPredictionAdapter
+    with the least-squares classifier and `use_edge_metrics` on
+    erdos_renyi(S15_LABEL_NODES, S15_LABEL_EDGES, 8 edge types) (seeded
+    features), each with the counts set to 0 just before and read just
+    after (K8 once for the fit and once to predict, no other kernel); then
+    a named row ("Decision Tree Classifier") of each classification task,
+    which raises ModuleNotFoundError naming scikit-learn on a host without
+    it. Returns a dict of what the phase's line prints."""
+    import importlib.util
+
+    from embiggen_tpu_torch import (
+        edge_label_prediction_evaluation, node_label_prediction_evaluation,
+    )
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.edge_label_prediction import (
+        SklearnEdgeLabelPredictionAdapter,
+    )
+    from embiggen_tpu_torch.models.node_label_prediction import (
+        SklearnNodeLabelPredictionAdapter,
+    )
+
+    out = {}
+    rng = np.random.default_rng(40)
+    node_x = rng.standard_normal((typed.number_of_nodes, DIM), dtype=np.float32)
+    cls = s15_adapter(SklearnNodeLabelPredictionAdapter, CentroidClassifier)
+    rows, counts, secs, peak = s8_run(lambda: node_label_prediction_evaluation(
+        holdouts_number=1, models=cls(device=dev), graphs=typed, node_features=node_x,
+        random_state=0))
+    if any(counts.values()):
+        raise AssertionError(f"the node-label adapter launched a kernel: {counts}")
+    out["node label"] = dict(seconds=secs, peak_bytes=peak, rows=rows)
+    del node_x, cls.fitted[:]
+    labelled = erdos_renyi(S15_LABEL_NODES, S15_LABEL_EDGES, seed=0, n_edge_types=S10_TYPES)
+    edge_x = rng.standard_normal((S15_LABEL_NODES, DIM), dtype=np.float32)
+    cls = s15_adapter(SklearnEdgeLabelPredictionAdapter, LeastSquaresClassifier)
+    rows, counts, secs, peak = s8_run(lambda: edge_label_prediction_evaluation(
+        holdouts_number=1, models=cls(use_edge_metrics=True, device=dev), graphs=labelled,
+        node_features=edge_x, random_state=0))
+    launches = check_launches("S15 edge label", counts, K8_KERNELS)
+    if counts["edge_metrics"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"the edge-label adapter's launches: {counts}, not K8 twice")
+    (model,) = cls.fitted
+    out["edge label"] = dict(seconds=secs, peak_bytes=peak, rows=rows, launches=launches,
+                             arcs=labelled.number_of_directed_edges,
+                             k8_cap=int(model.fit_inputs[1].degrees.max()),
+                             features=model._model_instance.coef_.shape[0])
+    del edge_x, model, cls.fitted[:]
+    for r in out["node label"]["rows"] + out["edge label"]["rows"]:
+        if not (np.isfinite(r["accuracy"]) and np.isfinite(r["auroc_macro_ovr"])):
+            raise AssertionError(f"S15 label rows: {out}")
+    has_sklearn = importlib.util.find_spec("sklearn") is not None
+    named = {}
+    for task in ("Edge Prediction", "Node Label Prediction", "Edge Label Prediction"):
+        try:
+            get_model_from_library("Decision Tree Classifier", task)(device=dev)
+            named[task] = "built (scikit-learn is installed)"
+        except ModuleNotFoundError as exc:
+            if has_sklearn or "scikit-learn" not in str(exc):
+                raise
+            named[task] = "ModuleNotFoundError naming scikit-learn"
+    if has_sklearn != all(v.startswith("built") for v in named.values()):
+        raise AssertionError(f"named rows with scikit-learn installed {has_sklearn}: {named}")
+    out["named"] = named
+    torch.cuda.empty_cache()
+    return out
+
 # ------------------------------------------------------- native host helpers
 # The harness's shapes for the native host helpers (phase 35): the binary
 # panel's scores, the negative graph's pairs, the forest's graph (the Python
@@ -5840,7 +6252,8 @@ def quality_phases(card, dev) -> None:
     its line; the first that fails raises. They train small models on the
     gate fixture (S10's on a small typed graph), host-bound work that times
     no kernel, so `main` runs them in a process of their own
-    (`--quality`) beside the flagship harness of phase 10."""
+    (`--quality`) beside the host helpers of phase 35 and the flagship
+    harness of phase 10."""
     # ----------------------------------------------------------- 9. quality
     t_phase = time.perf_counter()
     gate, gate_launches, gcn_quality = quality_on_card(card, dev)
@@ -6310,26 +6723,28 @@ def main() -> None:
         + f" | K7 gathered rows/s {k7_rate:.4g} = {k7_rate / p1_rate:.3f} of P1's; "
         f"launches {probe_launches}", flush=True)
 
-    # ------------------------------------------- 35. native host helpers
-    t_phase = time.perf_counter()
-    native_rows = native_checks(graph, later["weighted"].result())
-    print(f"phase 35 native host helpers vs plain on the host of {card} "
-          f"({time.perf_counter() - t_phase:.1f} s; host seconds, native / plain): " + "; ".join(
-              f"{k} at {v['shape']}: {v['native_s']:.4f} / {v['plain_s']:.4f} "
-              f"(x{v['plain_s'] / v['native_s']:.1f}) err {v['err']:.3g}"
-              for k, v in native_rows.items())
-          + f" | alias tables of all {native_rows['alias_tables']['whole_arcs']} arcs "
-          f"{native_rows['alias_tables']['native_whole_s']:.4f}", flush=True)
-
-    # ---------------------------------------------------------- 10. S4 harness
     # The quality phases (9, 13, 16, 20, 23, 27, 30, 38) run in a process of
-    # their own beside the harness: both are host-bound and neither times a
-    # kernel. Their lines follow phase 10's.
-    t_phase = time.perf_counter()
+    # their own beside the native host helpers (phase 35) and the harness
+    # (phase 10): all are host-bound and none times a kernel. Their lines
+    # follow phase 10's.
     quality_log = tempfile.TemporaryFile(mode="w+")
     quality = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--quality"],
                                stdout=quality_log, stderr=subprocess.STDOUT, text=True)
     try:
+        # --------------------------------------- 35. native host helpers
+        t_phase = time.perf_counter()
+        native_rows = native_checks(graph, later["weighted"].result())
+        print(f"phase 35 native host helpers vs plain on the host of {card} "
+              f"({time.perf_counter() - t_phase:.1f} s, the quality phases beside it; host "
+              "seconds, native / plain): " + "; ".join(
+                  f"{k} at {v['shape']}: {v['native_s']:.4f} / {v['plain_s']:.4f} "
+                  f"(x{v['plain_s'] / v['native_s']:.1f}) err {v['err']:.3g}"
+                  for k, v in native_rows.items())
+              + f" | alias tables of all {native_rows['alias_tables']['whole_arcs']} arcs "
+              f"{native_rows['alias_tables']['native_whole_s']:.4f}", flush=True)
+
+        # ------------------------------------------------------ 10. S4 harness
+        t_phase = time.perf_counter()
         del result
         torch.cuda.empty_cache()
         _build.reset_launch_counts()
@@ -6861,6 +7276,62 @@ def main() -> None:
         "min_plus_step": spine_launches["min_plus_step"]}
     print(f"chip_smoke: phases 36-37 added {time.perf_counter() - t_s14:.1f} s", flush=True)
 
+    # ------------------------------ 39. S15 edge prediction (sklearn-like)
+    t_s15 = t_phase = time.perf_counter()
+    exact_cap = edge_metrics_exact_cap_checks(graph, tg)
+    kernels["edge_metrics"]["exact_cap"] = exact_cap
+    kernels["edge_metrics"]["max_abs_err"] = max(
+        kernels["edge_metrics"]["max_abs_err"],
+        *(v[k] for v in exact_cap.values() for k in ("max_abs_err", "host_max_abs_err")))
+    s15 = s15_edge_prediction_runs(dev)
+    print(f"phase 39 S15 edge prediction on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "K8 at the adapters' cap (the largest degree) on "
+          f"{K8_PAIRS} pairs, against its plain version at that cap and the host copy of "
+          "graph/metrics.py: " + "; ".join(
+              f"{g} graph cap {v['cap']} (longest expanded row {v['longest_expanded_row']}): "
+              f"err {v['max_abs_err']:.3g}, against the host copy on {v['host_pairs']} pairs "
+              f"{v['host_max_abs_err']:.3g}, ms {v['ms']:.4f}, plain {v['plain_s']:.2f} s, "
+              f"host copy {v['host_s']:.2f} s" for g, v in exact_cap.items())
+          + f" | edge_prediction_evaluation on planted_partition_edges({S15_NODES}, "
+          f"{S15_EDGES}, {S15_COMMUNITIES} communities) ({s15['arcs']} arcs, graph "
+          f"{s15['graph_s']:.1f} s; train "
+          f"{s15['train_arcs']}, test {s15['test_arcs']} arcs), one connected holdout, "
+          f"Node2Vec SkipGram features (D {DIM}, L {WALK}, w {WINDOW}, K {NEGS}, "
+          f"{S15_EPOCHS} epochs, decay {S15_DECAY}), a least-squares classifier on Hadamard with "
+          f"use_edge_metrics (K8 at cap {s15['k8_cap']}, once for the fit and once in each of "
+          f"{s15['k8_chunks']} chunks) and a centroid classifier on Concatenate: "
+          f"{s15['seconds']:.2f} s, peak {s15['peak_bytes']} bytes, rows "
+          f"{json.dumps(s15['rows'])}, launches {s15['launches']} | on {S15_PAIRS} pairs, the "
+          f"card's features against the CPU route's, largest error {s15['feature_err']}, K8's "
+          f"metric columns against the host copy {s15['metrics_err']:.3g} (rtol "
+          f"{S15_METRICS_RTOL}) | the least-squares test scores against the same estimator fit "
+          f"on the CPU route's features ({s15['cpu_s']:.2f} s): largest difference "
+          f"{s15['score_err']:.3g}", flush=True)
+
+    # --------------------------------- 40. S15 label tasks (sklearn-like)
+    t_phase = time.perf_counter()
+    s15_labels = s15_label_runs(typed, dev)
+
+    def label_rows(rows):
+        return {r["evaluation_mode"]: {k: round(float(r[k]), 4) for k in (
+            "accuracy", "f1_score_macro", "auroc_macro_ovr")} for r in rows}
+    node_l, edge_l = s15_labels["node label"], s15_labels["edge label"]
+    print(f"phase 40 S15 label tasks on {card} ({time.perf_counter() - t_phase:.1f} s): "
+          "node_label_prediction_evaluation of a centroid classifier on the typed slice "
+          f"graph's {S10_TYPES} node types (seeded [{N_NODES}, {DIM}] features), one "
+          f"Stratified Monte Carlo holdout: {node_l['seconds']:.2f} s, peak "
+          f"{node_l['peak_bytes']} bytes, no kernel launched, panel "
+          f"{json.dumps(label_rows(node_l['rows']))} | edge_label_prediction_evaluation of a "
+          f"least-squares classifier on Concatenate with use_edge_metrics on erdos_renyi("
+          f"{S15_LABEL_NODES}, {S15_LABEL_EDGES}, {S10_TYPES} edge types) ({edge_l['arcs']} "
+          f"arcs, {edge_l['features']} features, K8 at cap {edge_l['k8_cap']}): "
+          f"{edge_l['seconds']:.2f} s, peak {edge_l['peak_bytes']} bytes, launches "
+          f"{edge_l['launches']}, panel {json.dumps(label_rows(edge_l['rows']))} | named rows: "
+          f"{json.dumps(s15_labels['named'])}", flush=True)
+    adapter_launches = {name: s15["launches"].get(name, 0) + edge_l["launches"].get(name, 0)
+                        for name in S15_KERNELS}
+    print(f"chip_smoke: phases 39-40 added {time.perf_counter() - t_s15:.1f} s", flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -6890,7 +7361,8 @@ def main() -> None:
     print(json.dumps({"build_s": build_s, "kernels": [
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0),
-         "label_launches": label_launches.get(name, 0), **v}
+         "label_launches": label_launches.get(name, 0),
+         "adapter_launches": adapter_launches.get(name, 0), **v}
         for name, v in kernels.items()
     ]}))
     print(card_line())

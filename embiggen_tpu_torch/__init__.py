@@ -11,6 +11,7 @@ __version__ = "0.1.0"
 from . import graph
 from .graph import Graph
 from . import models
+from . import transformers
 from .pipelines import (
     classification_evaluation_pipeline,
     edge_label_prediction_evaluation,
@@ -20,7 +21,7 @@ from .pipelines import (
 )
 
 __all__ = [
-    "graph", "Graph", "models", "embed_graph", "classification_evaluation_pipeline",
+    "graph", "Graph", "models", "transformers", "embed_graph", "classification_evaluation_pipeline",
     "edge_prediction_evaluation", "edge_label_prediction_evaluation",
     "node_label_prediction_evaluation", "__version__",
 ]

@@ -1,5 +1,5 @@
-"""Graph container, device export, generators, loaders, kernels, holdouts
-and negative sampling."""
+"""Graph container, device export, generators, loaders, kernels, holdouts,
+negative sampling and the host edge metrics."""
 from .generators import (
     barabasi_albert, erdos_renyi, planted_partition, planted_partition_edges,
     random_geometric,
@@ -10,6 +10,7 @@ from .holdouts import (
     node_label_holdout, node_label_kfold, random_holdout,
 )
 from .loaders import DatasetSpec, from_csv, get_dataset, karate_club, small_ppi
+from .metrics import EDGE_METRIC_NAMES, all_edge_metrics, edge_metrics
 from .sampling import sample_negative_graph
 
 __all__ = [
@@ -18,5 +19,5 @@ __all__ = [
     "connected_holdout", "edge_prediction_kfold", "random_holdout",
     "node_label_holdout", "node_label_kfold", "edge_label_holdout", "edge_label_kfold",
     "DatasetSpec", "from_csv", "get_dataset", "karate_club", "small_ppi",
-    "sample_negative_graph",
+    "sample_negative_graph", "edge_metrics", "all_edge_metrics", "EDGE_METRIC_NAMES",
 ]

@@ -1,5 +1,7 @@
-"""Node-label prediction: the task's base model. The sklearn adapters come
-with ROADMAP A15."""
+"""Node-label prediction: the task's base model and the sklearn-like
+adapters (the GCNs are in `models/gcn`)."""
 from .model import AbstractNodeLabelPredictionModel
+from .sklearn_like import SKLEARN_NODE_LABEL_MODELS, SklearnNodeLabelPredictionAdapter
 
-__all__ = ["AbstractNodeLabelPredictionModel"]
+__all__ = ["AbstractNodeLabelPredictionModel", "SklearnNodeLabelPredictionAdapter",
+           "SKLEARN_NODE_LABEL_MODELS"]

@@ -1,12 +1,24 @@
 """Model registry — counterpart of `embiggen_tpu/models/registry.py`: models
 register at import time through the `@register_model` decorator and resolve
-by (task, model, library) name."""
+by (task, model, library) name; the catalogue lists them by task, or as a
+pandas DataFrame of their capabilities (pandas imported only there)."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-# task_name -> model_name -> library_name -> class
-MODELS_LIBRARY: Dict[str, Dict[str, Dict[str, type]]] = {}
+TASK_NAMES = [
+    "Node Embedding",
+    "Edge Prediction",
+    "Edge Label Prediction",
+    "Node Label Prediction",
+    "Feature Preprocessor",
+]
+
+# task_name -> model_name -> library_name -> class. The tasks are keyed in
+# TASK_NAMES' order whatever order the modules register in, so a name that
+# several tasks share ("GraphSAGE", "Decision Tree Classifier") resolves
+# without a task to its edge-prediction row.
+MODELS_LIBRARY: Dict[str, Dict[str, Dict[str, type]]] = {task: {} for task in TASK_NAMES}
 
 
 def register_model(cls):
@@ -48,3 +60,57 @@ def get_model_from_library(
         if cls.library_name() == "Torch":
             return cls
     return candidates[0]
+
+
+def find_available_models(task_name: str) -> List[type]:
+    return [
+        cls
+        for libs in MODELS_LIBRARY.get(task_name, {}).values()
+        for cls in libs.values()
+    ]
+
+
+def get_models_dataframe():
+    """Tidy catalogue of every registered model, one row a (task, model,
+    library) with its capability flags."""
+    import pandas as pd
+
+    def _cap(cls, name):
+        try:
+            return bool(getattr(cls, name)())
+        except Exception:
+            return None
+
+    rows = []
+    for task, models in MODELS_LIBRARY.items():
+        for model, libs in models.items():
+            for lib, cls in libs.items():
+                rows.append(
+                    {
+                        "task_name": task,
+                        "model_name": model,
+                        "library_name": lib,
+                        **{name: _cap(cls, name) for name in (
+                            "requires_node_types", "requires_edge_types",
+                            "requires_edge_weights", "can_use_node_types",
+                            "can_use_edge_types", "can_use_edge_weights",
+                            "is_stochastic")},
+                    }
+                )
+    return pd.DataFrame(rows)
+
+
+def get_available_models_for_node_embedding():
+    return find_available_models("Node Embedding")
+
+
+def get_available_models_for_edge_prediction():
+    return find_available_models("Edge Prediction")
+
+
+def get_available_models_for_edge_label_prediction():
+    return find_available_models("Edge Label Prediction")
+
+
+def get_available_models_for_node_label_prediction():
+    return find_available_models("Node Label Prediction")

@@ -1,7 +1,9 @@
 """The public surface the port shares with embiggen_tpu's models: the
 capability methods on every registered row of the port, equal to the
-reference's for the same constructor arguments; the refusal to build a
-DataFrame of over 100M rows; and `EmbeddingResult.embedding`."""
+reference's for the same constructor arguments; the rows registered per
+task, the catalogue and the stubs' errors against the reference's; the
+refusal to build a DataFrame of over 100M rows; and
+`EmbeddingResult.embedding`."""
 import inspect
 
 import numpy as np
@@ -10,7 +12,7 @@ import torch
 
 from embiggen_tpu.models import registry as ref_registry
 from embiggen_tpu.models.embedding_result import EmbeddingResult as RefEmbeddingResult
-from embiggen_tpu_torch.models import MODELS_LIBRARY, EmbeddingResult
+from embiggen_tpu_torch.models import MODELS_LIBRARY, EmbeddingResult, get_model_from_library
 from embiggen_tpu_torch.models.embedders import NodeSketch, SkipGram
 
 torch.set_num_threads(1)
@@ -32,6 +34,18 @@ def _reference_class(task, name):
     return next(iter(libraries.values()))
 
 
+def _port_class(task, name):
+    """The port's row: under "Torch" where the reference's is under "TPU",
+    else under the reference's library name (the sklearn adapters'
+    "scikit-learn", each stub's own)."""
+    libraries = MODELS_LIBRARY[task][name]
+    assert len(libraries) == 1, libraries
+    (library, cls), = libraries.items()
+    assert library == {"TPU": "Torch"}.get(
+        _reference_class(task, name).library_name(), _reference_class(task, name).library_name())
+    return cls
+
+
 def _smoke_kwargs(cls):
     kwargs = dict(cls.smoke_test_parameters())
     if cls.is_stochastic():
@@ -41,42 +55,47 @@ def _smoke_kwargs(cls):
 
 @pytest.mark.parametrize("task, name", ROWS)
 def test_capability_methods_match_reference(task, name):
-    port = MODELS_LIBRARY[task][name]["Torch"]
+    port = _port_class(task, name)
     ref = _reference_class(task, name)
     class_methods = CLASS_METHODS + TASK_CLASS_METHODS.get(task, ())
     for method in class_methods:
-        assert getattr(port, method)() == getattr(ref, method)(), method
+        # A stub is a bare model: it has only the methods the reference's has.
+        assert hasattr(port, method) == hasattr(ref, method), method
+        if hasattr(ref, method):
+            assert getattr(port, method)() == getattr(ref, method)(), method
     kwargs = _smoke_kwargs(ref)
+    if getattr(ref, "is_stub", lambda: False)():
+        # A stub's instances do not exist: both raise at construction.
+        for cls, kw in ((port, dict(device="cpu", **kwargs)), (ref, kwargs)):
+            with pytest.raises(ModuleNotFoundError):
+                cls(**kw)
+        return
     port_model, ref_model = port(device="cpu", **kwargs), ref(**kwargs)
     for method in class_methods + INSTANCE_METHODS + TASK_INSTANCE_METHODS.get(task, ()):
         assert getattr(port_model, method)() == getattr(ref_model, method)(), method
 
 
-# The reference's rows the port leaves out: the label tasks' sklearn
-# adapters and the GBDT stubs (ROADMAP A15).
-LABEL_ROWS_LEFT_OUT = {
-    "Random Forest Classifier", "Extra Trees Classifier", "Decision Tree Classifier",
-    "Logistic Regression Classifier", "Gradient Boosting Classifier", "AdaBoost Classifier",
-    "Bagging Classifier", "K-Neighbour Classifier", "Gaussian Naive Bayes", "MLP Classifier",
-    "MLP Regression", "Hist Gradient Boosting Classifier", "Linear Support Vector Classifier",
-    "Nu Support Vector Classifier", "Radius Neighbour Classifier",
-    "Logistic Regression Cross Validator", "Ridge Classifier",
-    "Ridge Classifier Cross Validator", "XGBoost", "LightGBM", "CatBoost", "LLeaves",
-}
+# The reference's rows the port leaves out: the spectral embedders
+# (ROADMAP A15).
+ROWS_LEFT_OUT = {"HOPE", "Laplacian Eigenmaps", "GLEE", "SocioDim"}
 
 
 def test_every_row_has_its_kinds_methods():
-    """The 56 embedders (35, and the 21 KGE rows) answer the C3 class
-    method, the 5 edge predictors the C3 instance method; with the 4
-    node-label and 4 edge-label GCNs and Graph Convolution, 70 rows. The
-    label tasks and the preprocessor register the reference's names but
-    for its sklearn adapters and GBDT stubs."""
+    """The port registers 136 of the reference's 140 rows: per task the
+    reference's names less the four spectral embedders. The 57 embedders
+    (35, the 21 KGE rows and the "Non Existent Model" stub) answer the C3
+    class method, the 27 edge predictors (the Perceptron, the 4 edge GCNs,
+    18 sklearn adapters and 4 GBDT stubs) the C3 instance method."""
     tasks = [task for task, _ in ROWS]
-    assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (56, 5, 70)
-    for task in ("Node Label Prediction", "Edge Label Prediction", "Feature Preprocessor"):
+    assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (
+        57, 27, 136)
+    assert sorted(MODELS_LIBRARY) == sorted(ref_registry.MODELS_LIBRARY)
+    for task in ref_registry.MODELS_LIBRARY:
         assert sorted(MODELS_LIBRARY[task]) == sorted(
-            set(ref_registry.MODELS_LIBRARY[task]) - LABEL_ROWS_LEFT_OUT), task
-        assert len(MODELS_LIBRARY[task]) == (1 if task == "Feature Preprocessor" else 4)
+            set(ref_registry.MODELS_LIBRARY[task]) - ROWS_LEFT_OUT), task
+    assert {task: len(MODELS_LIBRARY[task]) for task in MODELS_LIBRARY} == {
+        "Node Embedding": 57, "Edge Prediction": 27, "Node Label Prediction": 26,
+        "Edge Label Prediction": 25, "Feature Preprocessor": 1}
 
 
 # Constructor parameters the port adds to every row: where it trains, and
@@ -94,7 +113,7 @@ def test_constructor_parameters_match_reference(task, name):
     """Every row's constructor takes the reference's parameter names with
     the same defaults (C6: the Node2Vec rows' `checkpoint_interval`), and
     no other name but the port's own."""
-    port = _init_defaults(MODELS_LIBRARY[task][name]["Torch"])
+    port = _init_defaults(_port_class(task, name))
     ref = _init_defaults(_reference_class(task, name))
     for k in PORT_PARAMETERS:
         port.pop(k, None)
@@ -114,13 +133,12 @@ def test_walk_rows_keep_checkpoint_interval():
 
 
 def test_top_level_names_match_reference():
-    """C7: the package exports the reference's top-level names, but for
-    `transformers` (ROADMAP A15)."""
+    """C7: the package exports the reference's top-level names,
+    `transformers` among them."""
     import embiggen_tpu
     import embiggen_tpu_torch
 
-    assert sorted(embiggen_tpu_torch.__all__) == sorted(
-        set(embiggen_tpu.__all__) - {"transformers"})
+    assert sorted(embiggen_tpu_torch.__all__) == sorted(embiggen_tpu.__all__)
     for name in embiggen_tpu_torch.__all__:
         assert hasattr(embiggen_tpu_torch, name), name
 
@@ -130,7 +148,7 @@ def test_supports_distribution_matches_reference_but_for_a13(task, name):
     """Equal to the reference's answer on every row that has one: since
     ROADMAP A13 no row is left out (the walk-based rows, Role2Vec and both
     GloVe rows train on a mesh too)."""
-    port = MODELS_LIBRARY[task][name]["Torch"]
+    port = _port_class(task, name)
     ref = _reference_class(task, name)
     if not hasattr(ref, "supports_distribution"):
         return
@@ -173,3 +191,83 @@ def test_embedding_property_matches_reference(kinds):
             with pytest.raises(ValueError, match=f"EmbeddingResult holds {len(kinds)} "
                                                  "embeddings; use explicit accessors."):
                 result.embedding
+
+
+STUBS = [(task, name) for task, name in ROWS if getattr(_port_class(task, name), "is_stub",
+                                                         lambda: False)()]
+
+
+@pytest.mark.parametrize("task, name", STUBS)
+def test_stub_raises_the_reference_error(task, name):
+    """The 12 GBDT stubs and "Non Existent Model": each raises the
+    reference's ModuleNotFoundError, word for word (the missing package, and
+    that no other library implements the model)."""
+    errors = []
+    for cls in (_port_class(task, name), _reference_class(task, name)):
+        assert cls.is_stub() and cls.task_name() == task
+        with pytest.raises(ModuleNotFoundError) as err:
+            cls()
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert "no other implementation" in errors[0]
+
+
+def test_stubs_cover_the_reference_stubs():
+    ref_stubs = sorted((task, name) for task, models in ref_registry.MODELS_LIBRARY.items()
+                       for name in models if getattr(_reference_class(task, name), "is_stub",
+                                                     lambda: False)())
+    assert len(STUBS) == 13 and sorted(STUBS) == ref_stubs
+
+
+def test_stub_error_names_alternative_libraries():
+    """As in the reference: with a sibling implementation of the same
+    model registered, the stub's error names it."""
+    libraries = MODELS_LIBRARY["Edge Prediction"]["XGBoost"]
+    stub = libraries["XGBoost"]
+    libraries["OtherLib"] = type("FakeXGB", (), {
+        "task_name": classmethod(lambda c: "Edge Prediction"),
+        "model_name": classmethod(lambda c: "XGBoost"),
+        "library_name": classmethod(lambda c: "OtherLib")})
+    try:
+        with pytest.raises(ModuleNotFoundError, match="implemented in OtherLib"):
+            stub()
+    finally:
+        libraries.pop("OtherLib")
+    assert get_model_from_library("xgboost", task_name="Edge Prediction") is stub
+
+
+def _catalogue_rows(classes, reference):
+    """(task, model, library) of each class, "TPU" read as "Torch" and the
+    spectral rows dropped on the reference's side."""
+    rows = [(c.task_name(), c.model_name(), c.library_name()) for c in classes]
+    if reference:
+        rows = [(t, m, "Torch" if lib == "TPU" else lib) for t, m, lib in rows
+                if m not in ROWS_LEFT_OUT]
+    return rows
+
+
+def test_catalogue_equals_reference():
+    """`find_available_models`, the four `get_available_models_for_*` and
+    `get_models_dataframe` list the reference's rows (less the spectral
+    ones), with the same capability columns."""
+    from embiggen_tpu_torch.models import registry
+
+    assert registry.TASK_NAMES == ref_registry.TASK_NAMES
+    for task in registry.TASK_NAMES:
+        got = _catalogue_rows(registry.find_available_models(task), False)
+        want = _catalogue_rows(ref_registry.find_available_models(task), True)
+        assert sorted(got) == sorted(want), task
+        if task != "Node Embedding":
+            assert got == want, task   # the task packages import in the reference's order
+    for suffix in ("node_embedding", "edge_prediction", "edge_label_prediction",
+                   "node_label_prediction"):
+        fn = f"get_available_models_for_{suffix}"
+        assert sorted(_catalogue_rows(getattr(registry, fn)(), False)) == sorted(
+            _catalogue_rows(getattr(ref_registry, fn)(), True)), fn
+    keys = ["task_name", "model_name", "library_name"]
+    got = registry.get_models_dataframe().sort_values(keys).reset_index(drop=True)
+    want = ref_registry.get_models_dataframe()
+    want = want[~want["model_name"].isin(ROWS_LEFT_OUT)].replace({"library_name": {"TPU": "Torch"}})
+    want = want.sort_values(keys).reset_index(drop=True)
+    assert list(got.columns) == list(want.columns) and len(got) == 136
+    assert got.equals(want)

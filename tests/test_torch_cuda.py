@@ -2263,3 +2263,97 @@ def test_graph_convolution_kernel_matches_plain(dev, transpose, width):
     assert _build.launch_counts()["spmm"] - before == 2
     want = GraphConvolution(device="cpu", **kw).transform(g, x).node_embeddings[0]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _hub_graph_past_the_cap():
+    """A sparse random graph plus hubs of 200-3,000 random neighbours (hub
+    pairs among them), so rows pass K8's default cap of 128 and its
+    register capacity."""
+    rng = np.random.default_rng(17)
+    n = 6000
+    sizes = (3000, 2400, 1500, 600, 200)
+    src = np.concatenate([rng.integers(0, n, 30000)] + [np.full(s, h) for h, s in enumerate(sizes)])
+    dst = np.concatenate([rng.integers(0, n, 30000)]
+                         + [rng.choice(n, s, replace=False) for s in sizes])
+    return Graph.from_edge_arrays(src, dst, n_nodes=n, directed=False)
+
+
+def test_edge_metrics_kernel_at_the_largest_degree(dev):
+    """K8 at the sklearn adapters' cap, the largest degree, where it
+    truncates no row: against its plain version at that cap and the host
+    copy of `graph/metrics.py` (the exact function; sums in another order,
+    rtol 1e-5 / atol 1e-6)."""
+    from embiggen_tpu_torch.graph.metrics import edge_metrics as host_edge_metrics
+
+    g = _hub_graph_past_the_cap()
+    tg = g.device(dev)
+    n, cap = g.number_of_nodes, tg.max_degree
+    rng = np.random.default_rng(3)
+    arcs = rng.integers(0, g.number_of_directed_edges, 3000)
+    top = np.argsort(-g.degrees)[:5]
+    src = np.concatenate([g.sources[arcs], rng.integers(0, n, 3000), np.repeat(top, 5)])
+    dst = np.concatenate([g.col_idx[arcs], rng.integers(0, n, 3000), np.tile(top, 5)])
+    assert np.minimum(g.degrees[src], g.degrees[dst]).max() > HELD * 8
+    s = torch.from_numpy(src.astype(np.int32)).to(dev)
+    d = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    before = _build.launch_counts()["edge_metrics"]
+    got = edge_metrics(tg, s, d, cap=cap)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["edge_metrics"] == before + 1
+    _k8_held(got, edge_metrics_plain(tg, s, d, cap=cap), tg.degrees.long(), s.long(), d.long())
+    host = torch.from_numpy(host_edge_metrics(g, src, dst)).to(dev)
+    torch.testing.assert_close(got[:, 3], host[:, 3], rtol=0, atol=0)
+    torch.testing.assert_close(got[:, 1], host[:, 1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got[:, [0, 2]], host[:, [0, 2]], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("methods", [["Hadamard", "Concatenate", None], ["CosineSimilarity",
+                                     "L2Distance", "L1Norm", "L2Norm", "Min", "Max", "L2"]])
+def test_transformers_on_cuda_match_the_cpu(dev, methods):
+    """The edge and edge-prediction transformers on the card against the
+    CPU's (which equal the reference's): within 1e-6."""
+    from embiggen_tpu_torch.transformers import EdgePredictionTransformer, EdgeTransformer
+
+    g, neg = erdos_renyi(300, 2000, seed=3), erdos_renyi(300, 2000, seed=4)
+    x = np.random.default_rng(2).standard_normal((300, 33)).astype(np.float32)
+    src, dst = g.sources, g.col_idx
+    got = EdgeTransformer(methods, device=dev).fit(x).transform(src, dst)
+    want = EdgeTransformer(methods, device="cpu").fit(x).transform(src, dst)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    got = EdgePredictionTransformer(methods, device=dev).fit(x).transform(g, neg, random_state=5)
+    want = EdgePredictionTransformer(methods, device="cpu").fit(x).transform(
+        g, neg, random_state=5)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_sklearn_adapters_on_cuda_match_the_cpu(dev):
+    """The edge-prediction and edge-label adapters with numpy estimators and
+    `use_edge_metrics` on the card: K5 for the negatives and K8 at the
+    largest degree for the metric columns, each launched, and the scores
+    within 1e-4 of the same estimators fitted on the CPU's features."""
+    from numpy_estimators import CentroidClassifier, LeastSquaresClassifier
+    from embiggen_tpu_torch.models.edge_label_prediction import (
+        SklearnEdgeLabelPredictionAdapter,
+    )
+    from embiggen_tpu_torch.models.edge_prediction import SklearnEdgePredictionAdapter
+
+    g = _hub_graph_past_the_cap()
+    x = np.random.default_rng(4).standard_normal((g.number_of_nodes, 16)).astype(np.float32)
+    scores = {}
+    for device in (dev, "cpu"):
+        _build.reset_launch_counts()
+        m = SklearnEdgePredictionAdapter(LeastSquaresClassifier(), "Hadamard",
+                                         use_edge_metrics=True, random_state=1, device=device)
+        scores[str(device)] = [m.fit(g, node_features=x).predict_proba(g)]
+        counts = _build.launch_counts()
+        assert (counts["edge_metrics"] > 0 and counts["csr_edge_ids"] > 0) == (device == dev)
+    np.testing.assert_allclose(*scores.values(), rtol=1e-4, atol=1e-4)
+    t = erdos_renyi(2000, 12000, seed=5, n_edge_types=4)
+    x = np.random.default_rng(5).standard_normal((2000, 8)).astype(np.float32)
+    probs = [SklearnEdgeLabelPredictionAdapter(model, use_edge_metrics=True, device=device)
+             .fit(t, node_features=x).predict_proba(t)
+             for model in (LeastSquaresClassifier(), CentroidClassifier())
+             for device in (dev, "cpu")]
+    np.testing.assert_allclose(probs[0], probs[1], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(probs[2], probs[3], rtol=1e-4, atol=1e-4)

@@ -358,3 +358,74 @@ def test_evaluation_runs_where_pandas_cannot_be_imported():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
+    """A host like the card's: jax, embiggen_tpu, sklearn and pandas
+    blocked. The transformers import; an adapter of each task with a numpy
+    `model_instance` fits and predicts on the CPU (the edge ones with
+    `use_edge_metrics`, the edge-prediction one also through
+    `edge_prediction_evaluation` as a subclass that builds it); a named
+    row raises ModuleNotFoundError naming scikit-learn, and so does the
+    multilabel wrap; the catalogue lists the rows."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'embiggen_tpu', 'sklearn', 'pandas'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import embiggen_tpu_torch.transformers\n"
+        "from numpy_estimators import CentroidClassifier, LeastSquaresClassifier\n"
+        "from embiggen_tpu_torch import edge_prediction_evaluation\n"
+        "from embiggen_tpu_torch.graph import erdos_renyi\n"
+        "from embiggen_tpu_torch.models import get_model_from_library\n"
+        "from embiggen_tpu_torch.models.registry import find_available_models\n"
+        "from embiggen_tpu_torch.models.edge_prediction import SklearnEdgePredictionAdapter\n"
+        "from embiggen_tpu_torch.models.edge_label_prediction import (\n"
+        "    SklearnEdgeLabelPredictionAdapter)\n"
+        "from embiggen_tpu_torch.models.node_label_prediction import (\n"
+        "    SklearnNodeLabelPredictionAdapter)\n"
+        "g = erdos_renyi(80, 320, seed=3, n_edge_types=3, n_node_types=4)\n"
+        "x = np.random.default_rng(0).standard_normal((80, 6)).astype(np.float32)\n"
+        "m = SklearnEdgePredictionAdapter(LeastSquaresClassifier(), 'Hadamard',\n"
+        "                                 use_edge_metrics=True, device='cpu')\n"
+        "p = m.fit(g, node_features=x).predict_proba(g)\n"
+        "assert p.shape == (g.number_of_directed_edges,) and np.isfinite(p).all()\n"
+        "p = SklearnEdgeLabelPredictionAdapter(CentroidClassifier(), use_edge_metrics=True,\n"
+        "    device='cpu').fit(g, node_features=x).predict_proba(g)\n"
+        "assert p.shape == (g.number_of_directed_edges, 3)\n"
+        "p = SklearnNodeLabelPredictionAdapter(LeastSquaresClassifier(), device='cpu').fit(\n"
+        "    g, node_features=x).predict_proba(g)\n"
+        "assert p.shape == (80, 4) and np.allclose(p.sum(axis=1), 1.0)\n"
+        "class Centroids(SklearnEdgePredictionAdapter):\n"
+        "    def _default_model_instance(self, random_state, **kwargs):\n"
+        "        return CentroidClassifier()\n"
+        "rows = edge_prediction_evaluation(1, Centroids(device='cpu'), g,\n"
+        "                                  node_features=x, random_state=3)\n"
+        "assert [r['evaluation_mode'] for r in rows] == ['train', 'test']\n"
+        "for task in ('Edge Prediction', 'Node Label Prediction', 'Edge Label Prediction'):\n"
+        "    try:\n"
+        "        get_model_from_library('Decision Tree Classifier', task)(device='cpu')\n"
+        "        raise AssertionError(task)\n"
+        "    except ModuleNotFoundError as e:\n"
+        "        assert 'scikit-learn' in str(e) and e.name.startswith('sklearn'), e\n"
+        "multi = SklearnNodeLabelPredictionAdapter(CentroidClassifier(), device='cpu')\n"
+        "ptr = np.arange(0, 161, 2)\n"
+        "import dataclasses\n"
+        "ml = dataclasses.replace(g, node_type_ptr=ptr, node_type_ids=(np.arange(160) % 4)\n"
+        "                         .astype(np.int32))\n"
+        "try:\n"
+        "    multi.fit(ml, node_features=x)\n"
+        "    raise AssertionError('multilabel')\n"
+        "except RuntimeError as e:\n"
+        "    assert isinstance(e.__cause__, ModuleNotFoundError), e\n"
+        "assert len(find_available_models('Edge Prediction')) == 27\n"
+        "assert all(sys.modules[n] is None for n in ('jax', 'sklearn', 'pandas'))\n"
+        "assert not any(m.startswith('embiggen_tpu.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
