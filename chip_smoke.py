@@ -382,17 +382,39 @@ thread while the phases before them run:
      classifier with `use_edge_metrics` on erdos_renyi(200,000, 1,000,000,
      8 edge types) (K8 once for the fit and once to predict), and a named
      row ("Decision Tree Classifier") of each task, which must raise
-     ModuleNotFoundError naming scikit-learn where sklearn is missing.
-Then the seconds phases 36-37 and 39-40 added, a JSON line of the kernels (with the build seconds; each with its
+     ModuleNotFoundError naming scikit-learn where sklearn is missing;
+ 41. S16 the reference-named Graph surface on the typed slice graph, each
+     method with the counts set to 0 just before it and read just after,
+     each equal to its op launched directly under a generator seeded alike:
+     `node2vec` (32768 walkers, L 64, w 5) at p = q = 1 (K1) and at return
+     2, explore 0.5 (K10: `Graph._device_graph` exports no ELL table), its
+     walks rebuilt from the pairs and every step an arc;
+     `get_edge_prediction_mini_batch` at 2^20 slots (K6), its positives arcs
+     and its labels ones then zeros; `get_siamese_mini_batch` with and
+     without edge types at 65536 (K14); `get_all_edge_metrics_from_node_ids`
+     on 2^20 pairs (K8 at the largest degree) against the host copy on the
+     first 2^16 (K8_SUM_TOL, and at most 6.1e-4); then every zero-argument
+     method on the 120-node typed fixture, the five that run on a device
+     (K8) against their CPU route;
+ 42. S16 the spectral rows on the card's host (scipy ARPACK in float64, no
+     kernel): HOPE, Laplacian Eigenmaps, GLEE and SocioDim at embedding_size
+     100 on erdos_renyi(10,000, 50,000), each timed, finite, its columns
+     orthogonal (orthonormal unscaled) within 1e-4; HOPE at "Resnik" on a
+     2,000-node DAG; then HOPE's features through `edge_prediction_evaluation`
+     with a Perceptron on Hadamard on the gate fixture, K5 launched, its
+     test AUROC at least the reference's less 0.03.
+Then the seconds phases 36-37, 39-40 and 41-42 added, a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
 named by `library`; its launches on the main path, the harness's, the
-label tasks' and the sklearn-like adapters' path),
+label tasks', the sklearn-like adapters' and the Graph methods' path,
+`compat_launches`),
 the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
 import concurrent.futures
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -6067,6 +6089,288 @@ def s15_label_runs(typed, dev):
     torch.cuda.empty_cache()
     return out
 
+# -------------------------------------------------------------------- S16
+# Phase 41: the reference-named Graph surface's batch methods on the typed
+# slice graph (node2vec at K1's and K10's weights, the S1 batch, walk and
+# window; K6 at 2^20 slots; K14 at the S6 batch), K8 at 2^20 pairs held to
+# the host copy on its first S15_HOST_PAIRS (the largest error phase 39
+# measured there, 6.1e-4, as the bound), and every zero-argument method on
+# tests/test_graph_compat.py's 120-node typed fixture.
+S16_PQ = dict(return_weight=2.0, explore_weight=0.5)
+S16_EDGE_SLOTS = 1 << 20
+S16_K8_HOST_ATOL = 6.1e-4
+S16_COMPAT_KERNELS = ("first_order_walks", "rejection_walks", "edge_prediction_mini_batch",
+                      "siamese_mini_batch", "edge_metrics")
+S16_WALK_KERNELS = ("first_order_walks", "rejection_walks", "ell_walks", "exact_walks")
+# Phase 42: the spectral rows on the card's host at their default
+# embedding_size (100) on erdos_renyi(S16_SPECTRAL_NODES,
+# S16_SPECTRAL_EDGES), which the four fit in about 20 s on 4 CPU threads;
+# HOPE at "Resnik" on a random DAG of S16_DAG_NODES nodes (each node but 0
+# with up to 3 parents of smaller id); then the link-prediction gate with
+# HOPE's embeddings. The reference's test AUROC for the same call
+# (edge_prediction_evaluation, one Connected Monte Carlo holdout at
+# random_state 3 of random_geometric(1000, 0.07, seed=42), a Perceptron on
+# Hadamard alone, GATE_CBOW_PERCEPTRON, with HOPE's defaults as the node
+# features), measured with embiggen_tpu on the CPU; the port on the CPU gave
+# 0.9748492141377689.
+S16_SPECTRAL_NODES, S16_SPECTRAL_EDGES = 10_000, 50_000
+S16_DAG_NODES = 2_000
+S16_SPECTRAL_ROWS = ("HOPE", "Laplacian Eigenmaps", "GLEE", "SocioDim")
+S16_ORTHO_TOL = 1e-4
+GATE_REFERENCE_HOPE_AUROC = 0.9747947202986262
+
+
+def _through_graph(fn, totals):
+    """Run one Graph method with the counts set to 0 just before it and read
+    just after; add them to `totals`. Returns (result, counts)."""
+    from embiggen_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for name in S16_COMPAT_KERNELS:
+        totals[name] = totals.get(name, 0) + counts[name]
+    return out, counts
+
+
+def s16_graph_runs(typed, dev):
+    """Phase 41: the reference-named `Graph` methods on the card, each
+    through `Graph._device_graph` (no alias tables, no ELL table), each
+    with the counts set to 0 just before it and read just after (summed
+    into the kernels line's `compat_launches`), each equal to its op
+    launched directly under a generator seeded alike (those launches
+    counted nowhere): `node2vec` at p = q = 1 (K1) and at S16_PQ (K10),
+    its walks rebuilt from the pairs' layout and every step held to be an
+    arc; `get_edge_prediction_mini_batch` at S16_EDGE_SLOTS (K6), its
+    positives arcs and its labels ones then zeros; both siamese batches at
+    S6_BATCH (K14), their positives arcs, one side kept, the types the
+    arcs'; `get_all_edge_metrics_from_node_ids` on K8_PAIRS pairs (K8 at the
+    largest degree) against the host copy; then the zero-argument sweep on
+    the 120-node typed fixture, each method that runs on a device against
+    its CPU route. Returns a dict of what the phase's line prints."""
+    from embiggen_tpu_torch.graph import erdos_renyi
+    from embiggen_tpu_torch.graph.metrics import edge_metrics as host_edge_metrics
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.negatives import (
+        edge_prediction_mini_batch, siamese_mini_batch,
+    )
+    from embiggen_tpu_torch.ops.walks import node2vec_batch
+
+    out, totals, launches = {}, {}, {}
+    t0 = time.perf_counter()
+    tg = typed._device_graph(dev)
+    keys = arc_keys(typed, dev)
+    out["export_s"] = time.perf_counter() - t0
+    n = typed.number_of_nodes
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    per_walk = WALK - 2 * WINDOW
+    for label, weights, kernel in (("K1", {}, "first_order_walks"),
+                                   ("K10", S16_PQ, "rejection_walks")):
+        t0 = time.perf_counter()
+        (contexts, words), counts = _through_graph(
+            lambda: typed.node2vec(41, BATCH, WALK, window_size=WINDOW, device=dev,
+                                   **weights), totals)
+        secs = time.perf_counter() - t0
+        launches[f"node2vec {label}"] = check_launches(
+            f"Graph.node2vec {label}", counts, (kernel,),
+            tuple(k for k in S16_WALK_KERNELS if k != kernel))
+        g = gen(41)
+        starts = torch.randint(0, n, (BATCH,), generator=g, device=dev, dtype=torch.int32)
+        want = node2vec_batch(tg, starts, WALK, WINDOW, g, max_neighbours=100, **weights)
+        if not (torch.equal(on_card(contexts), want[0]) and torch.equal(on_card(words), want[1])):
+            raise AssertionError(f"Graph.node2vec {label} differs from node2vec_batch")
+        c, w = want
+        walks = torch.cat([c[::per_walk, :WINDOW], w.reshape(-1, per_walk),
+                           c[per_walk - 1::per_walk, WINDOW:]], dim=1)
+        if not torch.equal(walks[:, 0], starts):
+            raise AssertionError(f"Graph.node2vec {label}: the walks do not start at the starts")
+        arc_positions(typed, walks, keys)
+        out[f"node2vec {label}"] = dict(seconds=secs, pairs=int(w.numel()))
+        del contexts, words, want, c, w, walks
+
+    t0 = time.perf_counter()
+    (src, dst, labels), counts = _through_graph(
+        lambda: typed.get_edge_prediction_mini_batch(42, S16_EDGE_SLOTS, device=dev), totals)
+    secs = time.perf_counter() - t0
+    launches["edge batch"] = check_launches("Graph.get_edge_prediction_mini_batch", counts,
+                                            ("edge_prediction_mini_batch",))
+    want = edge_prediction_mini_batch(tg, gen(42), S16_EDGE_SLOTS)
+    if not all(torch.equal(on_card(a), b) for a, b in zip((src, dst, labels), want)):
+        raise AssertionError("Graph.get_edge_prediction_mini_batch differs from its op")
+    n_pos = S16_EDGE_SLOTS // 2
+    if not (np.array_equal(labels, np.r_[np.ones(n_pos), np.zeros(n_pos)])
+            and typed.has_edges(src[:n_pos], dst[:n_pos]).all()):
+        raise AssertionError("Graph.get_edge_prediction_mini_batch: labels or positives")
+    out["edge batch"] = dict(seconds=secs, slots=S16_EDGE_SLOTS)
+
+    for with_types in (False, True):
+        label = "siamese typed" if with_types else "siamese"
+        method = (typed.get_siamese_mini_batch_with_edge_types if with_types
+                  else typed.get_siamese_mini_batch)
+        t0 = time.perf_counter()
+        batch, counts = _through_graph(lambda: method(43, S6_BATCH, device=dev), totals)
+        secs = time.perf_counter() - t0
+        launches[label] = check_launches(f"Graph {label} batch", counts, ("siamese_mini_batch",))
+        want = siamese_mini_batch(tg, gen(43), S6_BATCH, with_edge_types=with_types)
+        if len(batch) != 4 + with_types or not torch.equal(on_card(np.stack(batch)), want):
+            raise AssertionError(f"Graph {label} batch differs from siamese_mini_batch")
+        s, d, cs, cd = batch[:4]
+        arcs = typed.get_edge_ids(s, d)
+        if not ((arcs >= 0).all() and ((cs == s) | (cd == d)).all()
+                and (not with_types or np.array_equal(batch[4], typed.edge_types[arcs]))):
+            raise AssertionError(f"Graph {label} batch: positives, corruption or types")
+        out[label] = dict(seconds=secs, batch=S6_BATCH)
+
+    rng = np.random.default_rng(41)
+    arc = rng.integers(0, typed.number_of_directed_edges, K8_PAIRS // 2)
+    src = np.concatenate([typed.sources[arc], rng.integers(0, n, K8_PAIRS - len(arc))])
+    dst = np.concatenate([typed.col_idx[arc], rng.integers(0, n, K8_PAIRS - len(arc))])
+    t0 = time.perf_counter()
+    got, counts = _through_graph(
+        lambda: typed.get_all_edge_metrics_from_node_ids(src, dst, device=dev), totals)
+    secs = time.perf_counter() - t0
+    launches["edge metrics"] = check_launches("Graph.get_all_edge_metrics_from_node_ids",
+                                              counts, ("edge_metrics",))
+    host = host_edge_metrics(typed, src[:S15_HOST_PAIRS], dst[:S15_HOST_PAIRS])
+    k8_err = float(np.abs(got[:S15_HOST_PAIRS].astype(np.float64) - host).max())
+    k8_against("through Graph.get_all_edge_metrics_from_node_ids against the host copy",
+               on_card(got[:S15_HOST_PAIRS]), on_card(host), tg.degrees.long(),
+               on_card(src[:S15_HOST_PAIRS].astype(np.int32)),
+               on_card(dst[:S15_HOST_PAIRS].astype(np.int32)))
+    if not k8_err <= S16_K8_HOST_ATOL:
+        raise AssertionError(f"Graph edge metrics against the host copy: {k8_err}")
+    out["edge metrics"] = dict(seconds=secs, pairs=K8_PAIRS, host_max_abs_err=k8_err,
+                               cap=tg.max_degree)
+
+    t0 = time.perf_counter()
+    small = erdos_renyi(120, 400, seed=3, weighted=True, n_edge_types=3, n_node_types=2,
+                        name="TypedER")
+    swept, raised, on_device = 0, {}, 0
+    for name, fn in inspect.getmembers(type(small), inspect.isfunction):
+        if name.startswith("_") or name in ("device", "from_edge_arrays"):
+            continue
+        params = inspect.signature(fn).parameters.values()
+        if any(p.name != "self" and p.default is inspect.Parameter.empty
+               and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD) for p in params):
+            continue
+        swept += 1
+        kwargs = {"device": dev} if "device" in inspect.signature(fn).parameters else {}
+        try:
+            got, counts = _through_graph(lambda: getattr(small, name)(**kwargs), totals)
+        except (ValueError, ModuleNotFoundError) as exc:
+            raised[name] = type(exc).__name__
+            continue
+        if kwargs:
+            on_device += 1
+            check_launches(f"Graph.{name}", counts, ("edge_metrics",))
+            check_close(f"Graph.{name} card against CPU", torch.from_numpy(got),
+                        torch.from_numpy(getattr(small, name)(device="cpu")), **K8_SUM_TOL)
+    expected = {"must_have_node_ontologies": "ValueError",
+                "get_shared_ancestors_size_adjacency_matrix": "ValueError",
+                "get_shared_ancestors_jaccard_adjacency_matrix": "ValueError"}
+    try:
+        import pandas  # noqa: F401
+    except ModuleNotFoundError:
+        expected["get_edge_data"] = "ModuleNotFoundError"
+    if raised != expected:
+        raise AssertionError(f"the zero-argument sweep raised {raised}, expected {expected}")
+    out["sweep"] = dict(seconds=time.perf_counter() - t0, methods=swept, on_device=on_device,
+                        raised=raised)
+    out["launches"] = launches
+    out["compat_launches"] = totals
+    del tg, keys
+    typed.__dict__.pop("_device_graphs", None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _random_dag(n, seed):
+    """Each node but 0 with up to 3 parents of smaller id, arcs child ->
+    parent."""
+    from embiggen_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    child = np.repeat(np.arange(1, n), 3)
+    parent = (rng.random(len(child)) * child).astype(np.int64)
+    return Graph.from_edge_arrays(child, parent, n_nodes=n, directed=True, name="dag")
+
+
+def _orthogonality_err(name, emb):
+    """The largest off-diagonal entry of EᵀE over its largest diagonal one
+    (each embedding's columns are eigenvectors or singular vectors, scaled
+    or not), and for the unscaled rows the largest |diagonal - 1|."""
+    e = emb.astype(np.float64)
+    gram = e.T @ e
+    diag = np.diag(gram)
+    off = np.abs(gram - np.diag(diag)).max() / max(float(diag.max()), 1e-300)
+    if name in ("Laplacian Eigenmaps", "SocioDim"):
+        off = max(off, float(np.abs(diag - 1).max()))
+    return float(off)
+
+
+def s16_spectral_runs(dev):
+    """Phase 42: the four spectral rows on the card's host (scipy ARPACK,
+    float64; no kernel, so every count stays 0) at the default
+    embedding_size on erdos_renyi(S16_SPECTRAL_NODES, S16_SPECTRAL_EDGES):
+    fit seconds, each embedding finite, of its shape, its columns
+    orthogonal (orthonormal for the unscaled rows) within S16_ORTHO_TOL;
+    HOPE at "Resnik" on a random DAG; then the gate: edge_prediction_
+    evaluation of a Perceptron on Hadamard with HOPE as the node features
+    on the gate fixture, K5 launched, test AUROC at least the reference's
+    less 0.03. Returns a dict of what the phase's line prints."""
+    from embiggen_tpu_torch.graph import erdos_renyi, random_geometric
+    from embiggen_tpu_torch.models import get_model_from_library
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.embedders import HOPE
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation
+
+    out = {}
+    g = erdos_renyi(S16_SPECTRAL_NODES, S16_SPECTRAL_EDGES, seed=0)
+    _build.reset_launch_counts()
+    for name in S16_SPECTRAL_ROWS:
+        t0 = time.perf_counter()
+        result = get_model_from_library(name, task_name="Node Embedding")(
+            device=dev).fit_transform(g)
+        secs = time.perf_counter() - t0
+        embs = [np.asarray(e) for e in result.node_embeddings]
+        if len(embs) != (2 if name == "HOPE" else 1) or any(
+                e.shape != (S16_SPECTRAL_NODES, 100) or not np.isfinite(e).all() for e in embs):
+            raise AssertionError(f"{name}: {[e.shape for e in embs]}")
+        err = max(_orthogonality_err(name, e) for e in embs)
+        if not err <= S16_ORTHO_TOL:
+            raise AssertionError(f"{name}: columns not orthogonal ({err})")
+        out[name] = dict(seconds=secs, orthogonality_err=err)
+    dag = _random_dag(S16_DAG_NODES, 42)
+    t0 = time.perf_counter()
+    embs = HOPE(metric="Resnik", device=dev).fit_transform(dag).node_embeddings
+    out["HOPE Resnik"] = dict(seconds=time.perf_counter() - t0, arcs=dag.number_of_directed_edges)
+    if not all(np.isfinite(e).all() and e.shape == (S16_DAG_NODES, 100) for e in embs):
+        raise AssertionError("HOPE at Resnik on the DAG")
+    if any(_build.launch_counts().values()):
+        raise AssertionError(f"a spectral row launched a kernel: {_build.launch_counts()}")
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    rows = edge_prediction_evaluation(
+        holdouts_number=1, models=PerceptronEdgePrediction(device=dev, **GATE_CBOW_PERCEPTRON),
+        graphs=random_geometric(1000, radius=0.07, seed=42), node_features=HOPE(device=dev),
+        evaluation_schema="Connected Monte Carlo", random_state=3)
+    out["gate launches"] = check_launches("HOPE gate", _build.launch_counts(), S2_KERNELS)
+    auroc = next(r for r in rows if r["evaluation_mode"] == "test")["auroc"]
+    if not auroc >= GATE_REFERENCE_HOPE_AUROC - 0.03:
+        raise AssertionError(f"HOPE gate test AUROC {auroc} is below the reference's "
+                             f"{GATE_REFERENCE_HOPE_AUROC} less 0.03")
+    out["gate"] = dict(seconds=time.perf_counter() - t0, auroc=float(auroc))
+    return out
+
+
 # ------------------------------------------------------- native host helpers
 # The harness's shapes for the native host helpers (phase 35): the binary
 # panel's scores, the negative graph's pairs, the forest's graph (the Python
@@ -7332,6 +7636,38 @@ def main() -> None:
                         for name in S15_KERNELS}
     print(f"chip_smoke: phases 39-40 added {time.perf_counter() - t_s15:.1f} s", flush=True)
 
+    # ------------------------------------ 41. S16 the Graph surface (A15)
+    t_s16 = t_phase = time.perf_counter()
+    s16 = s16_graph_runs(typed, dev)
+    compat_launches = s16["compat_launches"]
+    print(f"phase 41 S16 Graph surface on {card} ({time.perf_counter() - t_phase:.1f} s; the "
+          f"typed slice graph exported by Graph._device_graph in {s16['export_s']:.2f} s): "
+          + "; ".join(f"{k} {json.dumps(s16[k])}" for k in (
+              "node2vec K1", "node2vec K10", "edge batch", "siamese", "siamese typed",
+              "edge metrics"))
+          + " | each equal to its op launched directly at the same seed; walk steps, "
+          "positives and siamese pairs arcs; K8 against the host copy on the first "
+          f"{S15_HOST_PAIRS} pairs | launches by method {s16['launches']} | zero-argument "
+          f"sweep on erdos_renyi(120, 400, seed=3, typed, weighted): {json.dumps(s16['sweep'])}"
+          f" | compat_launches {compat_launches}", flush=True)
+
+    # ------------------------------ 42. S16 the spectral rows (A15), host
+    t_phase = time.perf_counter()
+    s16_rows = s16_spectral_runs(dev)
+    print(f"phase 42 S16 spectral rows on the host of {card} ({time.perf_counter() - t_phase:.1f}"
+          f" s; scipy ARPACK in float64, no kernel): erdos_renyi({S16_SPECTRAL_NODES}, "
+          f"{S16_SPECTRAL_EDGES}) at embedding_size 100: " + "; ".join(
+              f"{k} fit {v['seconds']:.2f} s, orthogonality err {v['orthogonality_err']:.3g}"
+              for k, v in s16_rows.items() if k in S16_SPECTRAL_ROWS)
+          + f" | HOPE Resnik on a {S16_DAG_NODES}-node DAG ({s16_rows['HOPE Resnik']['arcs']} "
+          f"arcs) {s16_rows['HOPE Resnik']['seconds']:.2f} s | the gate: HOPE features, a "
+          "Perceptron on Hadamard through edge_prediction_evaluation on random_geometric(1000, "
+          f"0.07), connected holdout 3: test AUROC {s16_rows['gate']['auroc']:.4f} (threshold "
+          f"the reference's {GATE_REFERENCE_HOPE_AUROC:.4f} less 0.03 = "
+          f"{GATE_REFERENCE_HOPE_AUROC - 0.03:.4f}), {s16_rows['gate']['seconds']:.2f} s, "
+          f"launches {s16_rows['gate launches']}", flush=True)
+    print(f"chip_smoke: phases 41-42 added {time.perf_counter() - t_s16:.1f} s", flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -7362,7 +7698,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "launches": launches[name],
          "harness_launches": harness_launches.get(name, 0),
          "label_launches": label_launches.get(name, 0),
-         "adapter_launches": adapter_launches.get(name, 0), **v}
+         "adapter_launches": adapter_launches.get(name, 0),
+         "compat_launches": compat_launches.get(name, 0), **v}
         for name, v in kernels.items()
     ]}))
     print(card_line())

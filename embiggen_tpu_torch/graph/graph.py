@@ -1,6 +1,5 @@
 """Immutable CSR graph container and its device export — the counterpart of
-`embiggen_tpu/graph/graph.py`, cut to what SkipGram training and the edge
-predictors use.
+`embiggen_tpu/graph/graph.py`.
 
 The host side is numpy and the port's native helpers (`native`), as in the
 JAX package: `Graph.from_edge_arrays` symmetrizes, sorts and deduplicates
@@ -9,6 +8,7 @@ an explicit device — the counterpart of `DeviceGraph` — for the sampling
 kernels.
 
 Undirected graphs store both arcs, so `number_of_directed_edges` counts arcs.
+`ReferenceGraphAPI` (`compat.py`) adds the reference's method names.
 """
 from __future__ import annotations
 
@@ -89,8 +89,11 @@ def build_alias_tables(
     return native.alias_tables(row_ptr, weights)
 
 
+from .compat import ReferenceGraphAPI  # noqa: E402
+
+
 @dataclasses.dataclass(frozen=True)
-class Graph:
+class Graph(ReferenceGraphAPI):
     """Immutable graph: CSR adjacency, optional weights, optional edge types,
     optional (multilabel) node types, names."""
 
@@ -133,6 +136,21 @@ class Graph:
         n_self = int(np.sum(self.sources == self.col_idx))
         return (self.number_of_directed_edges - n_self) // 2 + n_self
 
+    @property
+    def destinations(self) -> np.ndarray:
+        return self.col_idx
+
+    @property
+    def density(self) -> float:
+        """Arcs over N (N - 1); 0 below two nodes."""
+        n = self.number_of_nodes
+        if n < 2:
+            return 0.0
+        return self.number_of_directed_edges / (n * (n - 1))
+
+    def neighbors(self, node: int) -> np.ndarray:
+        return self.col_idx[self.row_ptr[node]: self.row_ptr[node + 1]]
+
     @cached_property
     def arcs_fingerprint(self) -> str:
         """Content hash of the adjacency and weights: the cache key of
@@ -171,16 +189,6 @@ class Graph:
         q = src.astype(np.int64) * self.number_of_nodes + dst.astype(np.int64)
         idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
         return np.where(keys[idx] == q, idx, -1)
-
-    def is_multigraph(self) -> bool:
-        keys = self._sorted_arc_keys
-        return bool(len(keys) > 1 and np.any(np.diff(keys) == 0))
-
-    def has_singleton_nodes(self) -> bool:
-        return bool(np.any(self.degrees == 0))
-
-    def get_number_of_singleton_nodes(self) -> int:
-        return int(np.sum(self.degrees == 0))
 
     @cached_property
     def degrees(self) -> np.ndarray:
@@ -230,6 +238,11 @@ class Graph:
         if self.node_type_ptr is None:
             return False
         return bool(np.any(np.diff(self.node_type_ptr) > 1))
+
+    def get_maximum_multilabel_count(self) -> int:
+        if self.node_type_ptr is None:
+            return 0
+        return int(np.max(np.diff(self.node_type_ptr), initial=0))
 
     def get_one_hot_encoded_node_types(self) -> np.ndarray:
         """[N, n_node_types] float32: 1 where the node has the type."""
@@ -319,11 +332,131 @@ class Graph:
             node_type_names=self.node_type_names,
         )
 
-    def __and__(self, other: "Graph") -> "Graph":
+    def intersection(self, other: "Graph") -> "Graph":
         """The arcs of this graph that are also arcs of `other`, whose node
         ids must be this graph's."""
         mask = other.has_edges(self.sources, self.col_idx)
         return self.filter_edges(mask, name=f"{self.name}&{other.name}")
+
+    def __and__(self, other: "Graph") -> "Graph":
+        return self.intersection(other)
+
+    def difference(self, other: "Graph") -> "Graph":
+        """The arcs of this graph that are not arcs of `other`."""
+        mask = ~other.has_edges(self.sources, self.col_idx)
+        return self.filter_edges(mask, name=f"{self.name}-{other.name}")
+
+    def remove_selfloops(self) -> "Graph":
+        return self.filter_edges(self.sources != self.col_idx)
+
+    def set_name(self, name: str) -> "Graph":
+        return dataclasses.replace(self, name=name)
+
+    def drop_weights(self) -> "Graph":
+        return dataclasses.replace(self, weights=None)
+
+    def relabel(self, order: np.ndarray) -> "Graph":
+        """The graph with node order[i] renamed i; node names and types
+        follow their nodes (generated names are written out)."""
+        order = np.asarray(order)
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(len(order))
+        node_type_ptr = node_type_ids = None
+        if self.node_type_ptr is not None:
+            node_type_ptr = np.concatenate(
+                [[0], np.cumsum(np.diff(self.node_type_ptr)[order])]
+            ).astype(self.node_type_ptr.dtype)
+            node_type_ids = (np.concatenate(
+                [self.node_type_ids[self.node_type_ptr[o]: self.node_type_ptr[o + 1]]
+                 for o in order]).astype(self.node_type_ids.dtype)
+                if len(self.node_type_ids) else self.node_type_ids)
+        return Graph.from_edge_arrays(
+            inverse[self.sources], inverse[self.col_idx], n_nodes=self.number_of_nodes,
+            weights=self.weights, edge_types=self.edge_types, directed=True,
+            directed_flag=self.directed, name=self.name,
+            node_names=self.get_node_names()[order], node_type_ptr=node_type_ptr,
+            node_type_ids=node_type_ids, node_type_names=self.node_type_names,
+            edge_type_names=self.edge_type_names,
+        )
+
+    def sort_by_decreasing_outbound_node_degree(self) -> "Graph":
+        """The graph relabelled so that node ids fall with out-degree (stable
+        among equal degrees)."""
+        return self.relabel(np.argsort(-self.degrees, kind="stable"))
+
+    def _node_subgraph(self, keep: np.ndarray, node_names) -> "Graph":
+        """The graph on the nodes where `keep`, renumbered in order, with the
+        arcs between them; node types are dropped, as in the reference."""
+        ids = np.nonzero(keep)[0]
+        remap = np.full(self.number_of_nodes, -1, dtype=np.int64)
+        remap[ids] = np.arange(len(ids))
+        mask = keep[self.sources] & keep[self.col_idx]
+        return Graph.from_edge_arrays(
+            remap[self.sources[mask]], remap[self.col_idx[mask]], n_nodes=len(ids),
+            weights=None if self.weights is None else self.weights[mask],
+            edge_types=None if self.edge_types is None else self.edge_types[mask],
+            directed=True, directed_flag=self.directed, name=self.name,
+            node_names=node_names,
+        )
+
+    def remove_disconnected_nodes(self) -> "Graph":
+        """The graph without the nodes that have neither outbound nor inbound
+        arcs."""
+        keep = self.degrees > 0
+        keep[self.col_idx] = True
+        return self._node_subgraph(
+            keep, None if self.node_names is None else self.get_node_names()[keep])
+
+    def filter_from_names(self, node_names_to_keep: Optional[Sequence[str]] = None,
+                          node_names_to_remove: Optional[Sequence[str]] = None) -> "Graph":
+        """The graph on the named nodes to keep (default: all) less those to
+        remove."""
+        keep = np.ones(self.number_of_nodes, dtype=bool)
+        if node_names_to_keep is not None:
+            keep[:] = False
+            keep[self.get_node_ids_from_names(node_names_to_keep)] = True
+        if node_names_to_remove is not None:
+            keep[self.get_node_ids_from_names(node_names_to_remove)] = False
+        return self._node_subgraph(keep, self.get_node_names()[keep])
+
+    def connected_components(self) -> Tuple[np.ndarray, int]:
+        """(component of each node [N] int32, number of components), arcs
+        read as undirected, by the native union-find; components are
+        numbered in the order of their smallest node, as scipy's are."""
+        return native.connected_components(self.sources, self.col_idx, self.number_of_nodes)
+
+    @property
+    def number_of_connected_components(self) -> int:
+        return self.connected_components()[1]
+
+    def is_connected(self) -> bool:
+        return self.number_of_connected_components == 1
+
+    def to_dot(self) -> str:
+        """The GraphViz text of the graph (each undirected edge once)."""
+        names = np.asarray(self.get_node_names(), dtype=object)
+        kind, arrow = ("digraph", "->") if self.directed else ("graph", "--")
+        src, dst = self.sources, self.col_idx
+        if not self.directed:
+            keep = src <= dst
+            src, dst = src[keep], dst[keep]
+        body = "".join(
+            np.char.add(np.char.add(np.char.add('  "', names[src].astype(str)),
+                                    f'" {arrow} "'),
+                        np.char.add(names[dst].astype(str), '";\n'))
+        ) if len(src) else ""
+        return f"{kind} {{\n{body}}}"
+
+    def consistent_hash(self) -> str:
+        """sha256 of the name, the CSR, the weights and the edge types."""
+        import hashlib
+
+        h = hashlib.sha256()
+        h.update(self.name.encode())
+        for arr in (self.row_ptr, self.col_idx, self.weights, self.edge_types):
+            if arr is not None:
+                h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()
 
     @staticmethod
     def from_edge_arrays(

@@ -1,5 +1,6 @@
 """Graph loaders — counterpart of `embiggen_tpu/graph/loaders.py`: edge-list
-files and named datasets.
+files, pandas DataFrames (`from_pandas`, which needs pandas) and named
+datasets.
 
 `from_csv` reads with the native parser (`native.parse_edge_list`; the
 standard library's `csv` module for a gzipped file, no pandas) and numbers
@@ -30,6 +31,36 @@ def _sorted_ids(names: np.ndarray, ids: np.ndarray):
     rank = np.empty_like(order)
     rank[order] = np.arange(len(order))
     return names[order], rank[ids]
+
+
+def from_pandas(
+    df,
+    source_column: str = "subject",
+    destination_column: str = "object",
+    weight_column: Optional[str] = None,
+    edge_type_column: Optional[str] = None,
+    directed: bool = False,
+    name: str = "Graph",
+) -> Graph:
+    """The graph of a DataFrame's edge list: node names (and edge types)
+    as strings, numbered in sorted order; the weight and edge type columns
+    are read when the frame has them."""
+    src_names = df[source_column].astype(str).to_numpy()
+    dst_names = df[destination_column].astype(str).to_numpy()
+    all_names, inverse = np.unique(np.concatenate([src_names, dst_names]),
+                                   return_inverse=True)
+    weights = edge_types = edge_type_names = None
+    if weight_column is not None and weight_column in df.columns:
+        weights = df[weight_column].astype(np.float32).to_numpy()
+    if edge_type_column is not None and edge_type_column in df.columns:
+        edge_type_names, edge_types = np.unique(
+            df[edge_type_column].astype(str).to_numpy(), return_inverse=True)
+        edge_types = edge_types.astype(np.int32)
+    return Graph.from_edge_arrays(
+        inverse[: len(src_names)], inverse[len(src_names):], n_nodes=len(all_names),
+        weights=weights, edge_types=edge_types, directed=directed, name=name,
+        node_names=all_names, edge_type_names=edge_type_names,
+    )
 
 
 def from_csv(

@@ -1,7 +1,7 @@
-"""Negative graphs for evaluation — counterpart of
-`embiggen_tpu/graph/sampling.py::sample_negative_graph`: non-edges with
+"""Negative and positive graphs for evaluation — counterpart of
+`embiggen_tpu/graph/sampling.py`: `sample_negative_graph`, non-edges with
 uniform or degree-proportional endpoints, avoiding the support graph's
-edges. Host numpy with the reference's RNG calls in the same order; the
+edges, and `sample_positive_graph`, a uniform subsample of the edges. Host numpy with the reference's RNG calls in the same order; the
 in-batch deduplication is the native counting sort
 (`native.sort_unique_pairs`), as in the reference. The membership test
 against the support runs on `device`: kernel K5 on a CUDA device, its plain
@@ -147,3 +147,18 @@ def _device_membership(support: Graph, device: torch.device):
         return csr_has_edges(tg.row_ptr, tg.col_idx, put(src), put(dst)).cpu().numpy()
 
     return has_edges
+
+
+def sample_positive_graph(
+    graph: Graph, number_of_samples: int, random_state: int = 42
+) -> Graph:
+    """The graph of `number_of_samples` canonical edges of `graph` (all of
+    them when it has fewer), drawn uniformly without replacement by numpy's
+    `default_rng(random_state)`, as the reference draws them."""
+    from .holdouts import _canonical_edges, _subgraph_from_canonical
+
+    src, _, _ = _canonical_edges(graph)
+    rng = np.random.default_rng(random_state)
+    keep = np.zeros(len(src), dtype=bool)
+    keep[rng.choice(len(src), size=min(number_of_samples, len(src)), replace=False)] = True
+    return _subgraph_from_canonical(graph, keep, f"{graph.name}_pos_sample")

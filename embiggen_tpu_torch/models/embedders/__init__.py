@@ -1,4 +1,4 @@
-"""Node embedders ported so far."""
+"""Node embedders."""
 from .factorization import (
     MNMF, NMFADMM, NNSED, BoostNE, GraRep, NetMF, NodeSketch, RandNE, Role2Vec,
 )
@@ -11,6 +11,7 @@ from .kge import (
 from .line import FirstOrderLINE, SecondOrderLINE
 from .minibatch import MinibatchEmbedder
 from .siamese import SiameseEmbedder, StructuredEmbedding, TransE, TransH, Unstructured
+from .spectral import HOPE, GeometricLaplacianEigenmaps, LaplacianEigenmaps, SocioDim
 from .spine import (
     RUBICONE, RUINE, DegreeSPINE, DegreeWINE, NodeLabelSPINE, NodeLabelWINE, ScoreSPINE,
     ScoreWINE, WeightedSPINE,
@@ -30,4 +31,5 @@ __all__ = ["WalkBasedEmbedder", "SkipGram", "CBOW", "DeepWalkSkipGram",
            "MNMF", "NMFADMM", "NNSED", "KGEModel", "KGE_MODELS", "TransR", "TransD",
            "TransF", "PairRE", "TorusE", "DistMult", "ComplEx", "RotatE", "HolE", "RESCAL",
            "TuckER", "QuatE", "DistMA", "AutoSF", "ProjE", "CrossE", "ERMLP", "ERMLPE",
-           "ConvE", "BoxE", "NodePiece"]
+           "ConvE", "BoxE", "NodePiece", "HOPE", "LaplacianEigenmaps",
+           "GeometricLaplacianEigenmaps", "SocioDim"]

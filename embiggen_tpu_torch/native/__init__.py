@@ -1,8 +1,8 @@
 """Host graph helpers in C++ — the port's counterpart of `embiggen_tpu/native`,
 cut to the functions the port's host code calls: alias tables, the spanning
 forest of `connected_holdout`, the binary panel's radix argsort and sweep,
-pair sorts and the first-occurrence dedup, the symmetric CSR build and the
-edge-list parser.
+pair sorts and the first-occurrence dedup, the symmetric CSR build, the
+edge-list parser, connected components and DAGResnik's MICA block.
 
 The sources beside this file (`graph_algos.cpp`, `edge_list_parser.cpp`)
 compile with g++ (`$CXX` when set) into one shared library in
@@ -72,6 +72,8 @@ _SIGNATURES = {
         (ctypes.c_char_p, ctypes.c_char) + (ctypes.c_int,) * 5,
         ctypes.POINTER(_ParsedEdgeList)),
     "free_parsed_edge_list": ((ctypes.POINTER(_ParsedEdgeList),), None),
+    "connected_components": ((_P, _P, _I64, _I64, _P), ctypes.c_int64),
+    "dag_mica_block": ((_P, _P, _P, _P, _I64, _P, _I64, ctypes.c_int, _P), None),
 }
 
 _libs: Dict[Path, ctypes.CDLL] = {}
@@ -433,3 +435,82 @@ def parse_edge_list_plain(path: str, sep: str = "\t", skip_header: bool = True,
         type_names = np.asarray(list(type_ids), dtype=object)
     return (np.ascontiguousarray(ends[:, 0]), np.ascontiguousarray(ends[:, 1]), weights,
             types, np.asarray(list(node_ids), dtype=object), type_names)
+
+
+# -------------------------------------------------------- connected components
+def connected_components(src, dst, n_nodes: int) -> Tuple[np.ndarray, int]:
+    """(component [N] int32, number of components) of the arcs (src[i],
+    dst[i]) read as undirected edges, by union-find; components are numbered
+    in the order of their smallest node."""
+    src, dst = _pairs(src, dst, int(n_nodes), np.int32)
+    comp = np.empty(int(n_nodes), dtype=np.int32)
+    n = library().connected_components(_ptr(src), _ptr(dst), src.shape[0], int(n_nodes),
+                                       _ptr(comp))
+    return comp, int(n)
+
+
+def connected_components_plain(src, dst, n_nodes: int) -> Tuple[np.ndarray, int]:
+    """Plain version of `connected_components`: label propagation with
+    pointer jumps until no label moves, then labels renumbered by first
+    appearance."""
+    src, dst = _pairs(src, dst, int(n_nodes), np.int64)
+    labels = np.arange(int(n_nodes), dtype=np.int64)
+    while True:
+        new = labels.copy()
+        np.minimum.at(new, src, labels[dst])
+        np.minimum.at(new, dst, labels[src])
+        new = new[new]
+        if np.array_equal(new, labels):
+            break
+        labels = new
+    # Each label is its component's smallest node, so np.unique's numbering
+    # is the order of the components' smallest nodes.
+    uniq, comp = np.unique(labels, return_inverse=True)
+    return comp.astype(np.int32), int(uniq.shape[0])
+
+
+# ------------------------------------------------------- DAGResnik's MICA block
+def _mica_inputs(indptr, ranks, ic_by_rank, src, dst):
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    ranks = np.ascontiguousarray(ranks, dtype=np.int32)
+    ic_by_rank = np.ascontiguousarray(ic_by_rank, dtype=np.float64)
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    n = indptr.shape[0] - 1
+    if (indptr.ndim != 1 or n < 0 or indptr[0] != 0 or indptr[-1] != ranks.shape[0]
+            or bool((np.diff(indptr) < 0).any())):
+        raise ValueError("indptr must rise from 0 to the number of ranks.")
+    _check_ids("ranks", ranks, ic_by_rank.shape[0])
+    _check_ids("src", src, n)
+    _check_ids("dst", dst, n)
+    return indptr, ranks, ic_by_rank, src, dst
+
+
+def dag_mica_block(indptr, ranks, ic_by_rank, src, dst,
+                   n_threads: Optional[int] = None) -> np.ndarray:
+    """[|src|, |dst|] float64: the information content of each pair's most
+    informative common ancestor, over a CSR ancestor closure (`indptr`, the
+    IC `ranks` of each row's ancestors, ascending in each row) and the IC of
+    each rank; 0 where two rows share no ancestor. Source rows are split
+    over `n_threads` threads (default: the CPU count)."""
+    indptr, ranks, ic_by_rank, src, dst = _mica_inputs(indptr, ranks, ic_by_rank, src, dst)
+    out = np.empty((src.shape[0], dst.shape[0]), dtype=np.float64)
+    library().dag_mica_block(_ptr(indptr), _ptr(ranks), _ptr(ic_by_rank), _ptr(src),
+                             src.shape[0], _ptr(dst), dst.shape[0],
+                             int(n_threads or os.cpu_count() or 1), _ptr(out))
+    return out
+
+
+def dag_mica_block_plain(indptr, ranks, ic_by_rank, src, dst) -> np.ndarray:
+    """Plain version of `dag_mica_block`: the first entry of each pair's
+    sorted intersection."""
+    indptr, ranks, ic_by_rank, src, dst = _mica_inputs(indptr, ranks, ic_by_rank, src, dst)
+    sim = np.zeros((src.shape[0], dst.shape[0]), np.float64)
+    d_slices = [ranks[indptr[d]: indptr[d + 1]] for d in dst]
+    for i, s in enumerate(src):
+        s_ranks = ranks[indptr[s]: indptr[s + 1]]
+        for j, d_ranks in enumerate(d_slices):
+            common = np.intersect1d(s_ranks, d_ranks, assume_unique=True)
+            if len(common):
+                sim[i, j] = ic_by_rank[common[0]]
+    return sim

@@ -1,7 +1,8 @@
 // Host graph helpers of embiggen_tpu_torch: a copy of the functions of the
 // JAX package's embiggen_tpu/native/graph_algos.cpp that the port's host
 // code calls (alias tables, the spanning forest, the binary panel's sort and
-// sweep, pair sorts and dedup, the symmetric CSR build), built with g++ by
+// sweep, pair sorts and dedup, the symmetric CSR build, connected components
+// and DAGResnik's MICA block), built with g++ by
 // embiggen_tpu_torch/native/__init__.py and called through ctypes. Every
 // function has a plain numpy version beside its wrapper there.
 #include <algorithm>
@@ -330,6 +331,76 @@ int64_t build_sym_csr(const int32_t* src, const int32_t* dst,
     for (auto& th : threads) th.join();
   }
   return row_ptr[n_nodes];
+}
+
+// Union-find connected components over an arc list, arcs read as
+// undirected. comp_out[i]: node i's component, numbered 0..n_comp-1 in the
+// order of each component's smallest node. Returns n_comp.
+int64_t connected_components(const int32_t* sources, const int32_t* dests,
+                             int64_t n_arcs, int64_t n_nodes,
+                             int32_t* comp_out) {
+  std::vector<int32_t> parent(n_nodes);
+  for (int64_t i = 0; i < n_nodes; ++i) parent[i] = (int32_t)i;
+  auto find = [&](int32_t x) {
+    while (parent[x] != x) {
+      parent[x] = parent[parent[x]];
+      x = parent[x];
+    }
+    return x;
+  };
+  for (int64_t a = 0; a < n_arcs; ++a) {
+    int32_t rs = find(sources[a]), rd = find(dests[a]);
+    if (rs != rd) parent[rs] = rd;
+  }
+  int64_t n_comp = 0;
+  std::vector<int32_t> remap(n_nodes, -1);
+  for (int64_t i = 0; i < n_nodes; ++i) {
+    int32_t root = find((int32_t)i);
+    if (remap[root] < 0) remap[root] = (int32_t)n_comp++;
+    comp_out[i] = remap[root];
+  }
+  return n_comp;
+}
+
+// DAGResnik's MICA block over a CSR ancestor closure whose rows are sorted
+// ascending by IC rank (rank 0 the most informative): a pair's most
+// informative common ancestor is the first common entry of its two rows,
+// found by one two-pointer merge. out [n_src, n_dst] float64: its IC, 0
+// where the rows share nothing. Source rows split over std::threads.
+void dag_mica_block(const int64_t* indptr, const int32_t* ranks,
+                    const double* ic_by_rank,
+                    const int64_t* src, int64_t n_src,
+                    const int64_t* dst, int64_t n_dst,
+                    int n_threads, double* out) {
+  auto worker = [&](int64_t i0, int64_t i1) {
+    for (int64_t i = i0; i < i1; ++i) {
+      const int64_t s0 = indptr[src[i]], s1 = indptr[src[i] + 1];
+      double* row = out + i * n_dst;
+      for (int64_t j = 0; j < n_dst; ++j) {
+        int64_t a = s0, b = indptr[dst[j]];
+        const int64_t b1 = indptr[dst[j] + 1];
+        double sim = 0.0;
+        while (a < s1 && b < b1) {
+          const int32_t ra = ranks[a], rb = ranks[b];
+          if (ra == rb) { sim = ic_by_rank[ra]; break; }
+          if (ra < rb) ++a; else ++b;
+        }
+        row[j] = sim;
+      }
+    }
+  };
+  if (n_threads < 1) n_threads = (int)std::thread::hardware_concurrency();
+  if (n_threads < 1) n_threads = 1;
+  if (n_src < 64) n_threads = 1;
+  std::vector<std::thread> threads;
+  const int64_t chunk = (n_src + n_threads - 1) / n_threads;
+  for (int t = 0; t < n_threads; ++t) {
+    const int64_t i0 = t * chunk;
+    const int64_t i1 = std::min(n_src, i0 + chunk);
+    if (i0 >= i1) break;
+    threads.emplace_back(worker, i0, i1);
+  }
+  for (auto& th : threads) th.join();
 }
 
 }  // extern "C"

@@ -75,26 +75,26 @@ def test_capability_methods_match_reference(task, name):
         assert getattr(port_model, method)() == getattr(ref_model, method)(), method
 
 
-# The reference's rows the port leaves out: the spectral embedders
-# (ROADMAP A15).
-ROWS_LEFT_OUT = {"HOPE", "Laplacian Eigenmaps", "GLEE", "SocioDim"}
+# The reference's rows the port leaves out: none, since the spectral
+# embedders (ROADMAP A15).
+ROWS_LEFT_OUT = set()
 
 
 def test_every_row_has_its_kinds_methods():
-    """The port registers 136 of the reference's 140 rows: per task the
-    reference's names less the four spectral embedders. The 57 embedders
-    (35, the 21 KGE rows and the "Non Existent Model" stub) answer the C3
-    class method, the 27 edge predictors (the Perceptron, the 4 edge GCNs,
-    18 sklearn adapters and 4 GBDT stubs) the C3 instance method."""
+    """The port registers all 140 of the reference's rows: per task the
+    reference's names. The 61 embedders (35, the 21 KGE rows, the four
+    spectral rows and the "Non Existent Model" stub) answer the C3 class
+    method, the 27 edge predictors (the Perceptron, the 4 edge GCNs, 18
+    sklearn adapters and 4 GBDT stubs) the C3 instance method."""
     tasks = [task for task, _ in ROWS]
     assert (tasks.count("Node Embedding"), tasks.count("Edge Prediction"), len(ROWS)) == (
-        57, 27, 136)
+        61, 27, 140)
     assert sorted(MODELS_LIBRARY) == sorted(ref_registry.MODELS_LIBRARY)
     for task in ref_registry.MODELS_LIBRARY:
         assert sorted(MODELS_LIBRARY[task]) == sorted(
             set(ref_registry.MODELS_LIBRARY[task]) - ROWS_LEFT_OUT), task
     assert {task: len(MODELS_LIBRARY[task]) for task in MODELS_LIBRARY} == {
-        "Node Embedding": 57, "Edge Prediction": 27, "Node Label Prediction": 26,
+        "Node Embedding": 61, "Edge Prediction": 27, "Node Label Prediction": 26,
         "Edge Label Prediction": 25, "Feature Preprocessor": 1}
 
 
@@ -238,7 +238,7 @@ def test_stub_error_names_alternative_libraries():
 
 def _catalogue_rows(classes, reference):
     """(task, model, library) of each class, "TPU" read as "Torch" and the
-    spectral rows dropped on the reference's side."""
+    rows in ROWS_LEFT_OUT dropped on the reference's side."""
     rows = [(c.task_name(), c.model_name(), c.library_name()) for c in classes]
     if reference:
         rows = [(t, m, "Torch" if lib == "TPU" else lib) for t, m, lib in rows
@@ -248,8 +248,8 @@ def _catalogue_rows(classes, reference):
 
 def test_catalogue_equals_reference():
     """`find_available_models`, the four `get_available_models_for_*` and
-    `get_models_dataframe` list the reference's rows (less the spectral
-    ones), with the same capability columns."""
+    `get_models_dataframe` list the reference's rows, the spectral ones
+    among them, with the same capability columns."""
     from embiggen_tpu_torch.models import registry
 
     assert registry.TASK_NAMES == ref_registry.TASK_NAMES
@@ -269,5 +269,5 @@ def test_catalogue_equals_reference():
     want = ref_registry.get_models_dataframe()
     want = want[~want["model_name"].isin(ROWS_LEFT_OUT)].replace({"library_name": {"TPU": "Torch"}})
     want = want.sort_values(keys).reset_index(drop=True)
-    assert list(got.columns) == list(want.columns) and len(got) == 136
+    assert list(got.columns) == list(want.columns) and len(got) == 140
     assert got.equals(want)

@@ -2357,3 +2357,70 @@ def test_sklearn_adapters_on_cuda_match_the_cpu(dev):
              for device in (dev, "cpu")]
     np.testing.assert_allclose(probs[0], probs[1], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(probs[2], probs[3], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("weights, counter", [((1.0, 1.0), "first_order_walks"),
+                                              ((2.0, 0.5), "rejection_walks")])
+def test_graph_node2vec_on_the_card_is_its_op(dev, weights, counter):
+    """`Graph.node2vec` on the card: one launch of K1 (p = q = 1) or K10
+    (p/q, no ELL table exported), and the op's own pairs when it is
+    launched directly under a generator seeded alike."""
+    from embiggen_tpu_torch.ops.walks import node2vec_batch
+
+    g = erdos_renyi(3000, 20000, seed=6, n_edge_types=3)
+    _build.reset_launch_counts()
+    contexts, words = g.node2vec(7, 500, 20, window_size=3, iterations=2,
+                                 return_weight=weights[0], explore_weight=weights[1])
+    assert _build.launch_counts()[counter] == 1
+    tg = g._device_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    starts = torch.randint(0, 3000, (500,), generator=gen, device=dev, dtype=torch.int32)
+    want = node2vec_batch(tg, starts, 20, 3, gen, iterations=2, return_weight=weights[0],
+                          explore_weight=weights[1], max_neighbours=100)
+    np.testing.assert_array_equal(contexts, want[0].cpu().numpy())
+    np.testing.assert_array_equal(words, want[1].cpu().numpy())
+    assert g.has_edges(contexts[:, 2], words).all() and g.has_edges(words, contexts[:, 3]).all()
+
+
+def test_graph_batches_on_the_card_are_their_ops(dev):
+    """`get_edge_prediction_mini_batch` (K6) and both siamese batches (K14)
+    on the card: one launch each, equal to the op launched directly under a
+    generator seeded alike; positives are arcs."""
+    g = erdos_renyi(3000, 20000, seed=6, n_edge_types=3)
+    tg = g._device_graph(dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    _build.reset_launch_counts()
+    got = g.get_edge_prediction_mini_batch(5, 4096)
+    assert _build.launch_counts()["edge_prediction_mini_batch"] == 1
+    for a, b in zip(got, edge_prediction_mini_batch(tg, gen(5), 4096)):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+    assert g.has_edges(got[0][:2048], got[1][:2048]).all()
+    for typed in (False, True):
+        _build.reset_launch_counts()
+        got = (g.get_siamese_mini_batch_with_edge_types if typed
+               else g.get_siamese_mini_batch)(3, 4096)
+        assert _build.launch_counts()["siamese_mini_batch"] == 1 and len(got) == 4 + typed
+        want = siamese_mini_batch(tg, gen(3), 4096, with_edge_types=typed).cpu().numpy()
+        np.testing.assert_array_equal(np.stack(got), want)
+        assert g.has_edges(got[0], got[1]).all()
+
+
+def test_graph_edge_metrics_on_the_card_match_the_host_copy(dev):
+    """`get_all_edge_metrics_from_node_ids` on the card is K8 at the largest
+    degree, held to the host copy as the adapters' columns are."""
+    from embiggen_tpu_torch.graph.metrics import edge_metrics as host_edge_metrics
+
+    g = _hub_graph_past_the_cap()
+    rng = np.random.default_rng(9)
+    src, dst = rng.integers(0, g.number_of_nodes, (2, 5000))
+    _build.reset_launch_counts()
+    got = g.get_all_edge_metrics_from_node_ids(src, dst)
+    assert _build.launch_counts()["edge_metrics"] == 1
+    want = host_edge_metrics(g, src, dst)
+    np.testing.assert_allclose(got[:, 3], want[:, 3], rtol=0, atol=0)
+    np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g.get_adamic_adar_scores(),
+                               g.get_adamic_adar_scores(device="cpu"), rtol=1e-5, atol=1e-6)

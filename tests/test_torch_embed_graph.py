@@ -213,8 +213,11 @@ def test_runs_where_jax_cannot_be_imported():
     through K9's and K19's plain versions) on a tiny graph on the CPU, run
     K20's plain versions, load
     the bundled typed graphs, split a graph and draw its negatives on the
-    native host helpers, import every module of the port and fit both
-    edge predictors, the GCN also with type embeddings."""
+    native host helpers, fit the spectral rows (HOPE also at two DAG
+    metrics), fit DAGResnik, draw a batch through the reference-named
+    Graph surface, import every module of the port (`similarities` and
+    `graph.compat` among them) and fit both edge predictors, the GCN also
+    with type embeddings."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -295,6 +298,20 @@ def test_runs_where_jax_cannot_be_imported():
         "             'NMFADMM', 'NNSED'):\n"
         "    e = embed_graph(w, name, device='cpu', smoke_test=True)\n"
         "    assert e.embedding.shape == (50, 4), name\n"
+        "from embiggen_tpu_torch import similarities\n"
+        "from embiggen_tpu_torch.graph import compat\n"
+        "for name in ('HOPE', 'Laplacian Eigenmaps', 'GLEE', 'SocioDim'):\n"
+        "    e = embed_graph(w, name, device='cpu', smoke_test=True)\n"
+        "    assert e.node_embeddings[0].shape == (50, 5), name\n"
+        "from embiggen_tpu_torch.graph import Graph\n"
+        "dag = Graph.from_edge_arrays(np.arange(1, 40), np.arange(40)[:39] // 2,\n"
+        "                             n_nodes=40, directed=True)\n"
+        "for metric in ('Resnik', 'Ancestors Jaccard'):\n"
+        "    e = embed_graph(dag, 'HOPE', device='cpu', embedding_size=3, metric=metric)\n"
+        "    assert np.isfinite(e.node_embeddings[1]).all(), metric\n"
+        "assert similarities.DAGResnik().fit(dag).get_similarity_from_node_ids(1, 3) > 0\n"
+        "assert issubclass(Graph, compat.ReferenceGraphAPI)\n"
+        "assert len(w.node2vec(0, 8, 6, window_size=2, device='cpu')[1]) == 8 * 2\n"
         "import importlib, pkgutil, embiggen_tpu_torch\n"
         "for m in pkgutil.walk_packages(embiggen_tpu_torch.__path__,\n"
         "                               'embiggen_tpu_torch.'):\n"
@@ -367,7 +384,8 @@ def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
     `use_edge_metrics`, the edge-prediction one also through
     `edge_prediction_evaluation` as a subclass that builds it); a named
     row raises ModuleNotFoundError naming scikit-learn, and so does the
-    multilabel wrap; the catalogue lists the rows."""
+    multilabel wrap; the catalogue lists the rows. HOPE fits, and
+    DAGResnik's DataFrame raises ModuleNotFoundError naming pandas."""
     code = (
         "import sys\n"
         "for name in ('jax', 'embiggen_tpu', 'sklearn', 'pandas'):\n"
@@ -421,6 +439,18 @@ def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
         "except RuntimeError as e:\n"
         "    assert isinstance(e.__cause__, ModuleNotFoundError), e\n"
         "assert len(find_available_models('Edge Prediction')) == 27\n"
+        "from embiggen_tpu_torch.models.embedders import HOPE\n"
+        "from embiggen_tpu_torch.similarities import DAGResnik\n"
+        "assert HOPE(embedding_size=3, device='cpu').fit_transform(g).node_embeddings[0]"
+        ".shape == (80, 3)\n"
+        "from embiggen_tpu_torch.graph import Graph\n"
+        "dag = Graph.from_edge_arrays([1, 2, 3], [0, 0, 1], n_nodes=4, directed=True)\n"
+        "try:\n"
+        "    DAGResnik().fit(dag).get_similarities_from_clique_graph_node_ids(\n"
+        "        [0, 1], return_similarities_dataframe=True)\n"
+        "    raise AssertionError('dataframe')\n"
+        "except ModuleNotFoundError as e:\n"
+        "    assert e.name == 'pandas', e\n"
         "assert all(sys.modules[n] is None for n in ('jax', 'sklearn', 'pandas'))\n"
         "assert not any(m.startswith('embiggen_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
