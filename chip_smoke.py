@@ -402,13 +402,32 @@ thread while the phases before them run:
      orthogonal (orthonormal unscaled) within 1e-4; HOPE at "Resnik" on a
      2,000-node DAG; then HOPE's features through `edge_prediction_evaluation`
      with a Perceptron on Hadamard on the gate fixture, K5 launched, its
-     test AUROC at least the reference's less 0.03.
-Then the seconds phases 36-37, 39-40 and 41-42 added, a JSON line of the kernels (with the build seconds; each with its
+     test AUROC at least the reference's less 0.03;
+ 43. S17 (A12, A16) on the slice graph: Node2Vec SkipGram at S1's widths (3
+     epochs), the bench GCN (3 epochs, dropout 0.5) and Second-order LINE at
+     S6's settings (2 epochs), each checkpointed every epoch into a
+     temporary directory: two uninterrupted fits, then a fit killed after
+     its second save (LINE: its first) by wrapping `save_pytree`, whose
+     checkpoint reloads byte for byte what the save wrote (tables, Adam's
+     moments, generator states, the draws' key and offset), then the
+     resumed fit, with the counts set to 0 just before it and read just
+     after (`a12_launches`): its first batch equals exactly the batch the
+     uninterrupted fits drew at that step, its final tables are within
+     max(4 x the two uninterrupted fits' difference, 1e-5) of the nearer of
+     them (float atomics make two card fits differ), and it leaves no
+     checkpoint; each save's seconds and bytes; `dump_model` of the resumed
+     GCN and `EmbeddingResult.dump` of the resumed S1 embedding, both loaded
+     on the CPU, the GCN's predictions on 2^16 pairs through the CPU route
+     within 1e-5 of the card's; `embed_graph` and `edge_prediction_evaluation`
+     with `enable_cache` twice each, the second launching no kernel and
+     returning equal results; the visualizer imported, its fit raising the
+     ImportError of the package missing on this host.
+Then the seconds phases 36-37, 39-40, 41-42 and 43 added, a JSON line of the kernels (with the build seconds; each with its
 bound, from this run's inputs at the published HBM and fp32 peaks, and the
 time of one PyTorch call computing the same function where there is one,
 named by `library`; its launches on the main path, the harness's, the
 label tasks', the sklearn-like adapters' and the Graph methods' path,
-`compat_launches`),
+`compat_launches`, and phase 43's resumed fits', `a12_launches`),
 the card's line again, and last `{"ok": true, "device": {...}}`.
 """
 import argparse
@@ -6540,6 +6559,382 @@ class native_calls:
             setattr(self.native, name, fn)
 
 
+# Phase 43 (A12): the fits resumed after a kill, at the slice's widths.
+A12_S1_EPOCHS, A12_GCN_EPOCHS, A12_LINE_EPOCHS = 3, 3, 2
+A12_S1_KILL, A12_GCN_KILL, A12_LINE_KILL = 2, 2, 1   # saves before the kill
+A12_PAIRS = 1 << 16
+A12_KERNELS = {"S1": S1_KERNELS, "GCN": S3_KERNELS, "LINE": S6_LINE_KERNELS}
+
+
+class _Saves:
+    """`save_pytree` wrapped: each save's seconds and bytes, the last saved
+    tree (its structure) and its leaves copied to the host, and a simulated
+    kill (KeyboardInterrupt) after `kill_after` saves, each completed first."""
+
+    def __init__(self, real, kill_after=None):
+        self.real, self.kill_after = real, kill_after
+        self.seconds, self.bytes = [], []
+        self.path = self.tree = self.leaves = None
+
+    def __call__(self, path, tree, **kw):
+        from embiggen_tpu_torch.utils.checkpoint import _flatten, _host
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.real(path, tree, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        self.bytes.append(Path(path + ".npz").stat().st_size)
+        self.path, self.tree = path, tree
+        self.leaves = [np.array(_host(leaf), copy=True) for leaf in _flatten(tree)]
+        if self.kill_after is not None and len(self.seconds) >= self.kill_after:
+            raise KeyboardInterrupt("simulated kill")
+
+
+class _FirstBatch:
+    """A batch draw wrapped: a copy of the batch it returns at call `index`
+    (0-based)."""
+
+    def __init__(self, draw, index):
+        self.draw, self.index, self.calls, self.batch = draw, index, 0, None
+
+    def __call__(self, *args, **kwargs):
+        out = self.draw(*args, **kwargs)
+        if self.calls == self.index:
+            self.batch = [t.clone() for t in _model_tensors(out)]
+        self.calls += 1
+        return out
+
+
+def _reloads_bit_for_bit(name, saves):
+    """Load the checkpoint the killed fit left, in the structure of the last
+    save, and hold every leaf (tables, Adam's moments and steps, generator
+    states, the draws' key and offset) to what that save wrote, byte for
+    byte. Returns the draws' rows of the checkpoint."""
+    from embiggen_tpu_torch.utils.checkpoint import _flatten, _host, load_pytree
+
+    state = load_pytree(saves.path, like=saves.tree)
+    loaded = [_host(leaf) for leaf in _flatten(state)]
+    if len(loaded) != len(saves.leaves):
+        raise AssertionError(f"{name}: the checkpoint holds {len(loaded)} leaves, the save "
+                             f"wrote {len(saves.leaves)}")
+    for i, (a, b) in enumerate(zip(loaded, saves.leaves)):
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{name}: leaf {i} of the checkpoint differs from what "
+                                 "the save wrote")
+    rows = np.asarray(state["rng"]["draws"]).tolist()
+    if not rows or min(min(r) for r in rows) < 0:
+        raise AssertionError(f"{name}: the checkpoint's draws {rows} hold no key and offset")
+    return rows
+
+
+def _resumed_against(name, full, resumed, batch_full, batch_resumed):
+    """The first batch after the resume against the uninterrupted fit's at
+    that step (exactly), and the resumed fit's final tables against the two
+    uninterrupted fits': the difference to the nearer within max(4 x the
+    difference between the two, 1e-5). Returns the three numbers."""
+    if batch_full is None or batch_resumed is None:
+        raise AssertionError(f"{name}: a first batch was not drawn")
+    if not all(torch.equal(a, b) for a, b in zip(batch_full, batch_resumed)):
+        raise AssertionError(f"{name}: the first batch after the resume differs from the "
+                             "uninterrupted fit's at that step")
+    between = max(float(np.abs(a - b).max()) for a, b in zip(full[0], full[1]))
+    resumed_err = min(max(float(np.abs(a - b).max()) for a, b in zip(f, resumed))
+                      for f in full)
+    limit = max(4 * between, 1e-5)
+    if not resumed_err <= limit:
+        raise AssertionError(f"{name}: the resumed fit differs from the uninterrupted ones by "
+                             f"{resumed_err:.3g}, over {limit:.3g} (they differ by "
+                             f"{between:.3g})")
+    return dict(uninterrupted_diff=between, resumed_diff=resumed_err, limit=limit)
+
+
+def _kill_resume(name, make, fit, patch_batch, resume_step, kill_after, totals):
+    """Two uninterrupted fits of `make(None)`; a fit of `make(directory)`
+    killed after `kill_after` saves, whose checkpoint must reload bit for
+    bit; and the resumed fit, with the launch counts set to 0 just before it
+    and read just after (added to `totals`). `fit(model)` returns the
+    result's arrays; `patch_batch(index)` wraps the fits' batch draw, keeping
+    the batch of call `index` (`resume_step`, the first step after the save
+    the resume starts from, in the uninterrupted fits; 0 in the resumed one),
+    and returns (the wrapper, an undo). Returns (the resumed model, its
+    result, the numbers the phase prints)."""
+    import embiggen_tpu_torch.utils.checkpoint as ck
+    from embiggen_tpu_torch.ops import _build
+
+    out = {"save_s": [], "save_bytes": []}
+    with tempfile.TemporaryDirectory(prefix="a12_") as directory:
+        full, batch_full = [], None
+        for _ in range(2):
+            first, undo = patch_batch(resume_step)
+            try:
+                t0 = time.perf_counter()
+                full.append(fit(make(None)))
+                out.setdefault("uninterrupted_s", []).append(time.perf_counter() - t0)
+            finally:
+                undo()
+            batch_full = batch_full or first.batch
+        saves = _Saves(ck.save_pytree, kill_after)
+        ck.save_pytree = saves
+        try:
+            t0 = time.perf_counter()
+            fit(make(directory))
+            raise AssertionError(f"{name}: the fit was not killed")
+        except KeyboardInterrupt:
+            out["killed_s"] = time.perf_counter() - t0
+        finally:
+            ck.save_pytree = saves.real
+        out["save_s"] += saves.seconds
+        out["save_bytes"] += saves.bytes
+        out["draws"] = _reloads_bit_for_bit(name, saves)
+        del saves
+        resumed_saves = _Saves(ck.save_pytree)
+        ck.save_pytree = resumed_saves
+        first, undo = patch_batch(0)
+        try:
+            model = make(directory)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            resumed = fit(model)
+            torch.cuda.synchronize()
+            out["resumed_s"] = time.perf_counter() - t0
+            counts = _build.launch_counts()
+        finally:
+            ck.save_pytree = resumed_saves.real
+            undo()
+        out["save_s"] += resumed_saves.seconds
+        out["save_bytes"] += resumed_saves.bytes
+        left = [p.name for p in Path(directory).iterdir()]
+        if left:
+            raise AssertionError(f"{name}: the completed fit left {left}")
+    out["launches"] = check_launches(f"{name} resumed", counts, A12_KERNELS[name])
+    for k, v in out["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    out.update(_resumed_against(name, full, resumed, batch_full, first.batch))
+    return model, resumed, out
+
+
+def _patch_method(model_cls, attr, index):
+    """Wrap the method `model_cls.attr` (a batch draw) with `_FirstBatch`;
+    returns (the wrapper, an undo)."""
+    own, real = vars(model_cls).get(attr), getattr(model_cls, attr)
+    first = _FirstBatch(real, index)
+    setattr(model_cls, attr, lambda self, *a, **k: first(self, *a, **k))
+    return first, lambda: (setattr(model_cls, attr, own) if own is not None
+                           else delattr(model_cls, attr))
+
+
+def a12_resume_runs(graph, dev):
+    """Phase 43's resumed fits on the slice graph at full width: S1
+    (Node2Vec SkipGram at S1's widths, batch BATCH), the bench GCN
+    (GCNEdgePrediction, batch GCN_BATCH, units 128-128, seeded [N, 128]
+    features) and Second-order LINE at S6's settings, each killed after its
+    A12_*_KILL-th save and resumed (`_kill_resume`). Returns (the numbers by
+    fit, the resumed GCN, the resumed S1 result, the launch totals)."""
+    from embiggen_tpu_torch.models.embedders import SecondOrderLINE, SkipGram
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+    from embiggen_tpu_torch.models.gcn import edge as gcn_edge
+    from embiggen_tpu_torch.pipelines import embed_graph
+
+    totals, out = {}, {}
+    s1_steps = N_NODES // BATCH
+    s1_result = {}
+
+    def s1_make(directory):
+        return SkipGram(device=dev, embedding_size=DIM, walk_length=WALK, window_size=WINDOW,
+                        number_of_negative_samples=NEGS, batch_size=BATCH,
+                        epochs=A12_S1_EPOCHS, random_state=0, early_stopping_patience=10**6,
+                        checkpoint_dir=directory, checkpoint_interval=1)
+
+    def s1_fit(model):
+        result = embed_graph(graph, model)
+        s1_result["last"] = result
+        return [np.asarray(e) for e in result.node_embeddings]
+
+    _, _, out["S1"] = _kill_resume(
+        "S1", s1_make, s1_fit, lambda i: _patch_method(SkipGram, "_sample_batch", i),
+        A12_S1_KILL * s1_steps, A12_S1_KILL, totals)
+
+    feats = np.random.default_rng(0).standard_normal((N_NODES, DIM), dtype=np.float32)
+    gcn_steps = graph.number_of_directed_edges // GCN_BATCH
+
+    def gcn_make(directory):
+        return GCNEdgePrediction(epochs=A12_GCN_EPOCHS, batch_size=GCN_BATCH,
+                                 early_stopping_patience=10**6, random_state=0, device=dev,
+                                 checkpoint_dir=directory, checkpoint_interval=1)
+
+    def gcn_fit(model):
+        from embiggen_tpu_torch.models.gcn.core import param_leaves
+
+        model.fit(graph, node_features=feats)
+        return [t.detach().cpu().numpy() for t in param_leaves(model._params)]
+
+    def gcn_patch(index):
+        real = gcn_edge.edge_prediction_mini_batch
+        first = gcn_edge.edge_prediction_mini_batch = _FirstBatch(real, index)
+        return first, lambda: setattr(gcn_edge, "edge_prediction_mini_batch", real)
+
+    gcn, _, out["GCN"] = _kill_resume("GCN", gcn_make, gcn_fit, gcn_patch,
+                                      A12_GCN_KILL * gcn_steps, A12_GCN_KILL, totals)
+    del feats
+    line_steps = graph.number_of_directed_edges // S6_BATCH
+
+    def line_make(directory):
+        return SecondOrderLINE(device=dev, embedding_size=DIM, batch_size=S6_BATCH,
+                               epochs=A12_LINE_EPOCHS, random_state=0,
+                               early_stopping_patience=10**6, checkpoint_dir=directory,
+                               checkpoint_interval=1)
+
+    def line_fit(model):
+        return [np.asarray(e) for e in embed_graph(graph, model).node_embeddings]
+
+    _, _, out["LINE"] = _kill_resume(
+        "LINE", line_make, line_fit,
+        lambda i: _patch_method(SecondOrderLINE, "_sample_batch", i),
+        A12_LINE_KILL * line_steps, A12_LINE_KILL, totals)
+    torch.cuda.empty_cache()
+    return out, gcn, s1_result["last"], totals
+
+
+def a12_persistence_and_cache_runs(graph, gcn, s1_result, dev):
+    """Phase 43's persistence and caches: `dump_model` of the resumed GCN and
+    `EmbeddingResult.dump` of the resumed S1 embedding, both loaded on the
+    CPU (every tensor there), the GCN's `predict_proba` on A12_PAIRS pairs
+    through the CPU route against the card's within 1e-5; `embed_graph(...,
+    enable_cache=True)` twice on the slice graph (one S1 epoch) and
+    `edge_prediction_evaluation(..., enable_cache=True)` twice on the gate
+    fixture, the second call of each launching no kernel and returning what
+    the first did; and the visualizer imported on this host, its fit
+    raising the ImportError of the package missing here. Returns the
+    numbers the phase prints."""
+    import embiggen_tpu_torch.utils.cache as cache_mod
+    from embiggen_tpu_torch.graph import random_geometric
+    from embiggen_tpu_torch.models.edge_prediction import PerceptronEdgePrediction
+    from embiggen_tpu_torch.models.embedding_result import EmbeddingResult
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation, embed_graph
+    from embiggen_tpu_torch.utils import dump_model, load_model
+
+    out = {}
+    rng = np.random.default_rng(43)
+    src = rng.integers(0, N_NODES, A12_PAIRS)
+    dst = rng.integers(0, N_NODES, A12_PAIRS)
+    with tempfile.TemporaryDirectory(prefix="a12_") as directory:
+        path = str(Path(directory) / "gcn.pkl.gz")
+        t0 = time.perf_counter()
+        dump_model(gcn, path)
+        out["dump_s"], out["dump_bytes"] = time.perf_counter() - t0, Path(path).stat().st_size
+        t0 = time.perf_counter()
+        loaded = load_model(path, device="cpu")
+        out["load_s"] = time.perf_counter() - t0
+        devices = {t.device.type for t in _model_tensors(loaded)}
+        if devices != {"cpu"} or loaded.device.type != "cpu":
+            raise AssertionError(f"the loaded GCN holds tensors on {devices}")
+        t0 = time.perf_counter()
+        on_card = gcn.predict_proba_from_edge_node_ids(src, dst)
+        on_cpu = loaded.predict_proba_from_edge_node_ids(src, dst)
+        out["predict_s"] = time.perf_counter() - t0
+        out["predict_err"] = float(np.abs(on_card - on_cpu).max())
+        if not out["predict_err"] <= 1e-5:
+            raise AssertionError(f"the loaded GCN's CPU predictions differ from the card's by "
+                                 f"{out['predict_err']:.3g}")
+        del loaded
+        path = str(Path(directory) / "embedding.pkl")
+        t0 = time.perf_counter()
+        s1_result.dump(path)
+        back = EmbeddingResult.load(path)
+        out["embedding_dump_load_s"] = time.perf_counter() - t0
+        out["embedding_bytes"] = Path(path).stat().st_size
+        if not all(isinstance(b, np.ndarray) and np.array_equal(a, b) for a, b in zip(
+                s1_result.node_embeddings, back.node_embeddings)):
+            raise AssertionError("the S1 embedding did not round-trip")
+        del back
+
+        cache_dir = str(Path(directory) / "cache")
+        default_dir, cache_mod.DEFAULT_CACHE_DIR = cache_mod.DEFAULT_CACHE_DIR, cache_dir
+        calls = []
+        for _ in range(2):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            calls.append(embed_graph(
+                graph, "Node2Vec SkipGram", device=dev, embedding_size=DIM, walk_length=WALK,
+                window_size=WINDOW, number_of_negative_samples=NEGS, batch_size=BATCH,
+                epochs=1, random_state=0, enable_cache=True))
+            torch.cuda.synchronize()
+            out.setdefault("embedding_cache_s", []).append(time.perf_counter() - t0)
+            out.setdefault("embedding_cache_launches", []).append(
+                sum(_build.launch_counts().values()))
+        cache_mod.DEFAULT_CACHE_DIR = default_dir
+        if (out["embedding_cache_launches"][0] == 0 or out["embedding_cache_launches"][1]
+                or not all(np.array_equal(a, b) for a, b in zip(
+                    calls[0].node_embeddings, calls[1].node_embeddings))):
+            raise AssertionError(f"the embedding cache: launches "
+                                 f"{out['embedding_cache_launches']}, or unequal results")
+        out["embedding_cache_bytes"] = sum(p.stat().st_size for p in Path(cache_dir).rglob("*")
+                                           if p.is_file())
+        del calls
+        rgg = random_geometric(1000, radius=0.07, seed=42)
+        rows = []
+        for _ in range(2):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rows.append(edge_prediction_evaluation(
+                holdouts_number=1, models=PerceptronEdgePrediction(
+                    edge_features=GATE_PERCEPTRON["edge_features"], number_of_epochs=100,
+                    random_state=0, device=dev),
+                graphs=rgg, evaluation_schema="Connected Monte Carlo", random_state=3,
+                enable_cache=True, cache_dir=cache_dir))
+            torch.cuda.synchronize()
+            out.setdefault("experiment_cache_s", []).append(time.perf_counter() - t0)
+            out.setdefault("experiment_cache_launches", []).append(
+                sum(_build.launch_counts().values()))
+        if (out["experiment_cache_launches"][0] == 0 or out["experiment_cache_launches"][1]
+                or rows[0] != rows[1]):
+            raise AssertionError(f"the experiment cache: launches "
+                                 f"{out['experiment_cache_launches']}, or unequal rows")
+        out["experiment_auprc"] = [r["auprc"] for r in rows[1]]
+    out["visualizer"] = a12_visualizer_check(rgg)
+    return out
+
+
+def _model_tensors(obj, seen=None):
+    """Every tensor reachable from `obj` through containers and instance
+    attributes."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen or isinstance(obj, type):
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    items = (obj.values() if isinstance(obj, dict) else obj if isinstance(obj, (list, tuple))
+             else vars(obj).values() if hasattr(obj, "__dict__") else ())
+    return [t for v in items for t in _model_tensors(v, seen)]
+
+
+def a12_visualizer_check(graph):
+    """Import the visualizer on this host; fit it by PCA on D-wide features
+    of `graph` and plot: where scikit-learn is missing the fit raises its
+    ImportError, else where matplotlib is missing the plot raises that one.
+    Returns what was missing and raised."""
+    import importlib.util
+
+    from embiggen_tpu_torch.visualizations import GraphVisualizer
+
+    missing = [m for m in ("sklearn", "matplotlib") if importlib.util.find_spec(m) is None]
+    viz = GraphVisualizer(graph, decomposition_method="PCA")
+    x = np.random.default_rng(0).standard_normal((graph.number_of_nodes, DIM),
+                                                 dtype=np.float32)
+    raised = None
+    try:
+        viz.fit_nodes(x)
+        viz.plot_nodes()
+    except ImportError as e:
+        raised = e.name.split(".")[0]
+    if raised != (missing[0] if missing else None):
+        raise AssertionError(f"the visualizer raised for {raised}; missing here: {missing}")
+    return dict(missing=missing, raised=raised)
+
+
 def check_launches(path, counts, names, unused=()):
     """The counts of `names` after a path's run; raises if one is 0, or if
     one of `unused` launched."""
@@ -7668,6 +8063,47 @@ def main() -> None:
           f"launches {s16_rows['gate launches']}", flush=True)
     print(f"chip_smoke: phases 41-42 added {time.perf_counter() - t_s16:.1f} s", flush=True)
 
+    # ------------- 43. S17 resume, persistence, caches, visualizer (A12, A16)
+    t_phase = time.perf_counter()
+    a12, a12_gcn, a12_s1, a12_launches = a12_resume_runs(graph, dev)
+    a12_rest = a12_persistence_and_cache_runs(graph, a12_gcn, a12_s1, dev)
+    del a12_gcn, a12_s1
+    torch.cuda.empty_cache()
+    print(f"phase 43 S17 on {card} ({time.perf_counter() - t_phase:.1f} s; the slice graph, "
+          "checkpoints every epoch in a temporary directory): " + " | ".join(
+              f"{name} ({what}): uninterrupted fits {[round(x, 2) for x in v['uninterrupted_s']]}"
+              f" s, killed after save {kill} in {v['killed_s']:.2f} s, resumed "
+              f"{v['resumed_s']:.2f} s; saves s {[round(x, 3) for x in v['save_s']]}, bytes "
+              f"{v['save_bytes']}; the checkpoint reloads bit for bit (draws' key and offset "
+              f"{v['draws']}); the first batch after the resume equals the uninterrupted "
+              f"fit's; final tables: two uninterrupted fits differ by "
+              f"{v['uninterrupted_diff']:.3g}, the resumed fit from the nearer by "
+              f"{v['resumed_diff']:.3g} (limit {v['limit']:.3g}); resumed launches "
+              f"{v['launches']}"
+              for name, what, kill, v in (
+                  ("S1", f"Node2Vec SkipGram, D {DIM}, L {WALK}, w {WINDOW}, K {NEGS}, batch "
+                         f"{BATCH}, {A12_S1_EPOCHS} epochs", A12_S1_KILL, a12["S1"]),
+                  ("GCN", f"GCNEdgePrediction, batch {GCN_BATCH}, units 128-128, dropout 0.5, "
+                          f"{A12_GCN_EPOCHS} epochs", A12_GCN_KILL, a12["GCN"]),
+                  ("LINE", f"Second-order LINE, D {DIM}, batch {S6_BATCH}, "
+                           f"{A12_LINE_EPOCHS} epochs", A12_LINE_KILL, a12["LINE"])))
+          + f" | dump_model of the resumed GCN {a12_rest['dump_s']:.2f} s, "
+          f"{a12_rest['dump_bytes']} bytes, load_model on the CPU {a12_rest['load_s']:.2f} s "
+          f"(every tensor on the CPU); predict_proba on {A12_PAIRS} pairs, the CPU route "
+          f"against the card's: largest difference {a12_rest['predict_err']:.3g} (both "
+          f"{a12_rest['predict_s']:.2f} s) | EmbeddingResult.dump and load of the resumed S1 "
+          f"embedding {a12_rest['embedding_dump_load_s']:.2f} s, "
+          f"{a12_rest['embedding_bytes']} bytes | embed_graph(enable_cache=True) twice (one "
+          f"S1 epoch): s {[round(x, 2) for x in a12_rest['embedding_cache_s']]}, launches "
+          f"{a12_rest['embedding_cache_launches']}, file {a12_rest['embedding_cache_bytes']} "
+          f"bytes, equal | edge_prediction_evaluation(enable_cache=True) twice on the gate "
+          f"fixture: s {[round(x, 2) for x in a12_rest['experiment_cache_s']]}, launches "
+          f"{a12_rest['experiment_cache_launches']}, equal rows, test AUPRC "
+          f"{a12_rest['experiment_auprc']} | visualizer imported; missing here "
+          f"{a12_rest['visualizer']['missing']}, its fit raised the ImportError of "
+          f"{a12_rest['visualizer']['raised']}", flush=True)
+    print(f"chip_smoke: phase 43 added {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     keys = {"source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms"}
     missing = {name: keys - set(v) for name, v in kernels.items() if keys - set(v)}
@@ -7699,7 +8135,8 @@ def main() -> None:
          "harness_launches": harness_launches.get(name, 0),
          "label_launches": label_launches.get(name, 0),
          "adapter_launches": adapter_launches.get(name, 0),
-         "compat_launches": compat_launches.get(name, 0), **v}
+         "compat_launches": compat_launches.get(name, 0),
+         "a12_launches": a12_launches.get(name, 0), **v}
         for name, v in kernels.items()
     ]}))
     print(card_line())

@@ -1016,6 +1016,13 @@ class ReferenceGraphAPI:
             self.get_node_ids_from_node_type_names(node_type_names)
         )
 
+    def __getstate__(self):
+        # The cached device exports: a pickle leaves them out, and
+        # `_device_graph` builds them again at its first call.
+        state = dict(self.__dict__)
+        state.pop("_device_graphs", None)
+        return state
+
     # ---------------------------------------------------------- batch kernels
     def _device_graph(self, device: Union[str, torch.device]):
         """The graph exported on `device` (`Graph.device`, no alias tables,

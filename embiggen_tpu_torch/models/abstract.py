@@ -156,10 +156,8 @@ class AbstractEmbeddingModel(AbstractModel):
     ):
         if embedding_size <= 0:
             raise ValueError(f"embedding_size must be positive, got {embedding_size}")
-        if enable_cache:
-            raise NotImplementedError(
-                "The on-disk embedding cache is not ported yet (ROADMAP A12).")
         self._embedding_size = int(embedding_size)
+        self._enable_cache = enable_cache
         self._device = torch.device(device)
         super().__init__(random_state=random_state)
 
@@ -245,10 +243,23 @@ class AbstractEmbeddingModel(AbstractModel):
                 "Refusing to build a >100M-row DataFrame; set "
                 "return_dataframe=False."
             )
-        result = self._fit_transform(graph)
+        result = self._cached_fit_transform(graph)
         if return_dataframe:
             result = result.to_dataframes()
         return result
+
+    def _cached_fit_transform(self, graph: Graph) -> EmbeddingResult:
+        """`_fit_transform`, through the on-disk cache when `enable_cache`:
+        keyed by the model's hash, its device type (a fit on the card and a
+        fit on the CPU draw differently from one seed) and the graph's hash,
+        at the reference's `embedding/{model}/{library}/{graph}/{hash}.pkl.gz`
+        under `utils.cache.DEFAULT_CACHE_DIR`."""
+        from ..utils.cache import Cache
+
+        cached = Cache(
+            "embedding/{model_name}/{library_name}/{graph_name}/{hash}.pkl.gz"
+        )(type(self)._fit_transform)
+        return cached(self, graph)
 
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         raise NotImplementedError

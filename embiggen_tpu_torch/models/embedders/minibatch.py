@@ -43,6 +43,8 @@ from ...parallel.mesh import Mesh, all_gather, all_reduce, resolve_mesh
 from ...parallel.sharded_table import (
     _mean_scatter_owned, _RowShardView, _scatter_add_owned, shard_rows, unshard_rows,
 )
+from ...ops.negatives import BatchDraws
+from ...utils.checkpoint import FitCheckpoint, RandomState
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
@@ -147,9 +149,9 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
     """Training template: an epoch is a loop of sample -> gradients ->
     sparse update steps on tables updated in place, with the plateau
     callbacks between epochs. The hyper-parameters are the JAX package's,
-    with the same defaults; `checkpoint_dir` raises naming the ROADMAP item
-    that brings it (`checkpoint_interval` is taken for the reference's
-    signature and serves checkpointing only). `mesh` (None, "auto", an int
+    with the same defaults; with `checkpoint_dir` the fit saves its state
+    every `checkpoint_interval` epochs to `<checkpoint_dir>/embed_state.npz`
+    and a later fit of the same run resumes from it. `mesh` (None, "auto", an int
     or a `parallel.Mesh`) trains over torch.distributed; `distribution`
     picks "data", "rows" (the node-row tables sharded), "none", or "auto":
     rows when those tables take more than a quarter of the device's memory
@@ -178,9 +180,6 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         device="cuda",
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
         if distribution not in ("auto", "data", "rows", "none"):
             raise ValueError(
                 "distribution must be one of 'auto', 'data', 'rows', "
@@ -196,18 +195,27 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
         self._learning_rate_plateau_patience = learning_rate_plateau_patience
         self._distribution = distribution
         self._mesh = mesh
+        self._checkpoint_dir = checkpoint_dir
+        self._checkpoint_interval = max(1, checkpoint_interval)
         self._initial_params = initial_params
         # The "mean" updates' workspaces, kept across steps, freed after a fit.
         self._mean_sums: Workspaces = {}
         # Other buffers a model's steps keep across a fit, by name (K13b's
         # workspace, K14's batches), freed with the workspaces.
         self._fit_buffers: Dict[str, Any] = {}
+        # The saved key and offset of each `BatchDraws` fit buffer, by name,
+        # given to the buffer when a resumed fit makes it.
+        self._resumed_draws: Dict[str, np.ndarray] = {}
         super().__init__(
             embedding_size=embedding_size,
             enable_cache=enable_cache,
             random_state=random_state,
             device=device,
         )
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # The fit's workspaces and draws: a pickle leaves them out.
+        return {**self.__dict__, "_mean_sums": {}, "_fit_buffers": {}, "_resumed_draws": {}}
 
     def parameters(self) -> Dict[str, Any]:
         return {
@@ -407,12 +415,53 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
     def _fit_buffer(self, name: str, make: Callable[[], Any]) -> Any:
         """The fit's buffer `name`, made by `make()` at its first use."""
         if name not in self._fit_buffers:
-            self._fit_buffers[name] = make()
+            buffer = self._fit_buffers[name] = make()
+            if name in self._resumed_draws and isinstance(buffer, BatchDraws):
+                RandomState.set_draws(buffer, self._resumed_draws.pop(name))
         return self._fit_buffers[name]
 
     def _free_fit_buffers(self) -> None:
         self._mean_sums.clear()
         self._fit_buffers.clear()
+        self._resumed_draws.clear()
+
+    def _fit_draws(self) -> List[Tuple[str, BatchDraws]]:
+        """The fit's `BatchDraws` buffers, by name, in name order."""
+        return sorted((name, b) for name, b in self._fit_buffers.items()
+                      if isinstance(b, BatchDraws))
+
+    def _checkpoint_fingerprint(self, graph: Graph) -> str:
+        """The run's identity in its checkpoint: the reference's fields."""
+        return "|".join(str(x) for x in (
+            type(self).__name__, getattr(graph, "name", ""), graph.number_of_nodes,
+            graph.number_of_directed_edges, self.embedding_size, self._epochs,
+            self._batch_size, self.random_state))
+
+    def _checkpoint_state(self, params: Params, epoch: int, ctrl: PlateauController,
+                          rng: RandomState) -> Dict[str, Any]:
+        """What a checkpoint holds: the tables, the next epoch, the plateau
+        controller, the draws' state and the names of the fit's draws
+        (one string, "|"-joined)."""
+        return {"params": params, "epoch": np.int64(epoch), "ctrl": ctrl.state_array(),
+                "rng": rng.state(),
+                "draw_names": np.asarray("|".join(n for n, _ in self._fit_draws()))}
+
+    def _restore(self, ckpt: FitCheckpoint, params: Params, row_rows,
+                 mesh: Optional[Mesh], ctrl: PlateauController, rng: RandomState) -> int:
+        """Load a matching checkpoint into `params` (in place; the row-sharded
+        tables from their full saved tables), `ctrl` and `rng`; the saved
+        draws go to their buffers when the fit makes them. Returns the epoch
+        to start from."""
+        state = ckpt.restore(self._checkpoint_state(params, 0, ctrl, rng))
+        if state is None:
+            return 0
+        for n, t in state["params"].items():
+            params[n].copy_(shard_rows(t, mesh) if n in row_rows else t)
+        ctrl.load_state_array(state["ctrl"])
+        rng.load(state["rng"])
+        names = [n for n in str(state["draw_names"]).split("|") if n]
+        self._resumed_draws = dict(zip(names, state["rng"]["draws"]))
+        return int(state["epoch"])
 
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         self._pre_fit_check(graph)
@@ -451,11 +500,18 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                 self._learning_rate_plateau_patience
             ),
         )
+        rng = RandomState([generator], lambda: [b for _, b in self._fit_draws()])
+        ckpt, start_epoch = None, 0
+        if self._checkpoint_dir is not None:
+            ckpt = FitCheckpoint(self._checkpoint_dir, "embed_state",
+                                 self._checkpoint_fingerprint(graph),
+                                 self._checkpoint_interval, self._epochs, mesh)
+            start_epoch = self._restore(ckpt, params, row_rows, mesh, ctrl, rng)
         self._epoch_losses, self._epoch_seconds = [], []
         last = None
         try:
             with torch.no_grad():
-                for epoch in range(self._epochs):
+                for epoch in range(start_epoch, self._epochs):
                     t0 = time.perf_counter()
                     lr = (self._learning_rate * self._learning_rate_decay ** epoch
                           * ctrl.lr_scale)
@@ -465,9 +521,17 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                     last = float(torch.stack(losses).mean())
                     self._epoch_seconds.append(time.perf_counter() - t0)
                     self._epoch_losses.append(last)
-                    if ctrl.update(last):
+                    stop = ctrl.update(last)
+                    if ckpt is not None and ckpt.due(epoch, stop):
+                        # Row shards are saved as the full tables, from rank 0.
+                        full = {**params, **{n: unshard_rows(params[n], mesh, rows)
+                                             for n, rows in row_rows.items()}}
+                        ckpt.save(self._checkpoint_state(full, epoch + 1, ctrl, rng))
+                    if stop:
                         ctrl.stopped_epoch = epoch
                         break
+            if ckpt is not None:
+                ckpt.finish()
         finally:
             self._free_fit_buffers()
         self._last_loss = last

@@ -46,6 +46,7 @@ from ...ops.skipgram import skipgram_nce_update
 from ...ops.walks import random_walks
 from ...parallel.mesh import Mesh, all_reduce, resolve_mesh
 from ...parallel.sharded_table import shard_rows, unshard_rows
+from ...utils.checkpoint import FitCheckpoint, RandomState
 from ...utils.plateau import PlateauController
 from ..abstract import AbstractEmbeddingModel
 from ..embedding_result import EmbeddingResult
@@ -66,10 +67,10 @@ def _device_generator(
 class WalkBasedEmbedder(AbstractEmbeddingModel):
     """Shared training skeleton for walk-based embedders.
 
-    The hyper-parameters are the JAX package's, with the same defaults. Those
-    this port does not carry yet raise NotImplementedError naming the ROADMAP
-    item that brings them (`checkpoint_dir`; `checkpoint_interval` is kept
-    for it, as the reference keeps it). `device` (default "cuda") is where training runs;
+    The hyper-parameters are the JAX package's, with the same defaults. With
+    `checkpoint_dir` the fit saves its state every `checkpoint_interval`
+    epochs to `<checkpoint_dir>/embed_state.npz` and a later fit of the same
+    run resumes from it (`utils.checkpoint`). `device` (default "cuda") is where training runs;
     `initial_params` (e.g. from `utils.convert.skipgram_params_from_jax`)
     replaces the random initial tables. `mesh` (None, "auto", an int or a
     `parallel.Mesh`) trains over torch.distributed; `distribution` picks
@@ -111,15 +112,13 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
         device="cuda",
         initial_params: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
         if distribution not in ("auto", "data", "rows", "none"):
             raise ValueError(
                 "distribution must be one of 'auto', 'data', 'rows', "
                 f"'none'; got {distribution!r}."
             )
         self._mesh = mesh
+        self._checkpoint_dir = checkpoint_dir
         self._checkpoint_interval = max(1, checkpoint_interval)
         self._epochs = epochs
         self._batch_size = batch_size
@@ -168,6 +167,10 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 f"walk_length ({walk_length}) must exceed 2*window_size "
                 f"({2 * window_size})."
             )
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # The fit's draws are a device workspace: a pickle leaves them out.
+        return {**self.__dict__, "_draws": None}
 
     def _resolve_batch(self, graph: Graph) -> int:
         """Walker batch for this graph: the explicit value, or enough
@@ -564,6 +567,21 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             params[name] = given.detach().to(self.device, torch.float32).clone()
         return params
 
+    def _checkpoint_fingerprint(self, graph: Graph) -> str:
+        """The run's identity in its checkpoint: the reference's fields."""
+        return "|".join(str(x) for x in (
+            type(self).__name__, getattr(graph, "name", ""), graph.number_of_nodes,
+            graph.number_of_directed_edges, self.embedding_size, self._epochs,
+            self._batch_size, self._walk_length, self.random_state))
+
+    @staticmethod
+    def _checkpoint_state(params: Params, epoch: int, ctrl: PlateauController,
+                          rng: RandomState) -> Dict[str, Any]:
+        """What a checkpoint holds: the tables, the next epoch, the plateau
+        controller and the draws' state."""
+        return {"params": params, "epoch": np.int64(epoch), "ctrl": ctrl.state_array(),
+                "rng": rng.state()}
+
     def _fit_transform(self, graph: Graph) -> EmbeddingResult:
         mesh = resolve_mesh(self._mesh)
         if mesh is not None and mesh.device.type != self.device.type:
@@ -579,14 +597,6 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
             batch = -(-batch // mesh.size) * mesh.size
         self._run_batch_size = batch
         params = self._initial_tables(graph, generator)
-        if strategy == "data":
-            step = self._make_dp_step(mesh, batch)
-        elif strategy == "rows":
-            step = self._make_row_sharded_step(mesh, batch)
-            params = {name: shard_rows(t, mesh) for name, t in params.items()}
-        else:
-            step = functools.partial(self._step, sums=self._new_sums(params))
-        steps_per_epoch = max(1, graph.number_of_nodes // batch)
         # Early stopping and lr-on-plateau, default-on as in the reference.
         ctrl = PlateauController(
             early_stopping_min_delta=self._early_stopping_min_delta,
@@ -598,10 +608,34 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 self._learning_rate_plateau_patience
             ),
         )
+        rng = RandomState([generator], lambda: [self._draws])
+        ckpt, start_epoch = None, 0
+        if self._checkpoint_dir is not None:
+            ckpt = FitCheckpoint(self._checkpoint_dir, "embed_state",
+                                 self._checkpoint_fingerprint(graph),
+                                 self._checkpoint_interval, self._epochs, mesh)
+            state = ckpt.restore(self._checkpoint_state(params, 0, ctrl, rng))
+            if state is not None:
+                params = {name: t.to(self.device) for name, t in state["params"].items()}
+                start_epoch = int(state["epoch"])
+                ctrl.load_state_array(state["ctrl"])
+                rng.load(state["rng"])
+                (row,) = state["rng"]["draws"]
+                draws = self._batch_draws(tg, batch) if row[0] >= 0 else None
+                if draws is not None:
+                    RandomState.set_draws(draws, row)
+        if strategy == "data":
+            step = self._make_dp_step(mesh, batch)
+        elif strategy == "rows":
+            step = self._make_row_sharded_step(mesh, batch)
+            params = {name: shard_rows(t, mesh) for name, t in params.items()}
+        else:
+            step = functools.partial(self._step, sums=self._new_sums(params))
+        steps_per_epoch = max(1, graph.number_of_nodes // batch)
         self._epoch_losses, self._epoch_seconds = [], []
         last_loss = None
         with torch.no_grad():
-            for epoch in range(self._epochs):
+            for epoch in range(start_epoch, self._epochs):
                 t0 = time.perf_counter()
                 lr = (self._learning_rate * self._learning_rate_decay ** epoch
                       * ctrl.lr_scale)
@@ -610,9 +644,17 @@ class WalkBasedEmbedder(AbstractEmbeddingModel):
                 last_loss = float(torch.stack(losses).mean())
                 self._epoch_seconds.append(time.perf_counter() - t0)
                 self._epoch_losses.append(last_loss)
-                if ctrl.update(last_loss):
+                stop = ctrl.update(last_loss)
+                if ckpt is not None and ckpt.due(epoch, stop):
+                    # Row shards are saved as the full tables, from rank 0.
+                    full = ({name: unshard_rows(t, mesh, graph.number_of_nodes)
+                             for name, t in params.items()} if strategy == "rows" else params)
+                    ckpt.save(self._checkpoint_state(full, epoch + 1, ctrl, rng))
+                if stop:
                     ctrl.stopped_epoch = epoch
                     break
+        if ckpt is not None:
+            ckpt.finish()
         self._draws = None
         self._last_loss = last_loss
         self._stopped_epoch = ctrl.stopped_epoch

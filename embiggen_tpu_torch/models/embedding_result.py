@@ -4,6 +4,7 @@ validated for non-emptiness and NaN/Inf, with optional DataFrame views.
 """
 from __future__ import annotations
 
+import pickle
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -132,6 +133,19 @@ class EmbeddingResult:
             node_names=self._node_names,
             validate=False,
         )
+
+    # ------------------------------------------------------------ persistence
+    def dump(self, path: str) -> None:
+        """Pickle the result to `path` (any tensor as its CPU copy)."""
+        from ..utils.persistence import HostPickler
+
+        with open(path, "wb") as f:
+            HostPickler(f).dump(self)
+
+    @staticmethod
+    def load(path: str) -> "EmbeddingResult":
+        with open(path, "rb") as f:
+            return pickle.load(f)
 
     def __repr__(self) -> str:
         def shapes(seq):

@@ -12,7 +12,9 @@ halo-exchange SpMM of `parallel.halo`.
 """
 from __future__ import annotations
 
+import os
 import time
+import zlib
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -24,9 +26,22 @@ from ...graph.laplacians import kernel_coo, validate_convolution_graph
 from ...ops.spmm import CSRKernel, csr_kernel, spmm
 from ...parallel.halo import build_halo_partition, halo_conv
 from ...parallel.mesh import Mesh, resolve_mesh
+from ...utils.checkpoint import FitCheckpoint, RandomState
 from ..registry import register_model
 
 Params = Dict[str, Any]
+
+def graph_fingerprint(graph: Graph, *extras) -> str:
+    """Identity string of a fit's graph for its checkpoint: the graph's
+    name and size and a CRC of its CSR and of any extra arrays (training
+    masks, labels), enough to tell holdouts of one graph apart."""
+    crc = zlib.crc32(np.ascontiguousarray(graph.row_ptr).tobytes())
+    crc = zlib.crc32(np.ascontiguousarray(graph.col_idx).tobytes(), crc)
+    for extra in extras:
+        crc = zlib.crc32(np.ascontiguousarray(np.asarray(extra)).tobytes(), crc)
+    return (f"{getattr(graph, 'name', '')}|{graph.number_of_nodes}|"
+            f"{graph.number_of_directed_edges}|{crc:08x}")
+
 
 # Kernels laid out on a device, keyed on the graph's content fingerprint,
 # the kernel name and the device: the models evaluated on one holdout share
@@ -229,6 +244,9 @@ def kernel_preset(base, name: str, kernel_list: Sequence[str], doc: str):
         "parameters": parameters,
         "model_name": classmethod(lambda cls: doc),
         "DEFAULT_KERNELS": list(kernel_list),
+        # The module that assigns the preset to `name`, so pickle finds it.
+        "__module__": base.__module__,
+        "__qualname__": name,
         "__doc__": f"{doc} preset of {base.__name__}.",
     })
     if not kernel_list:
@@ -318,7 +336,16 @@ class TrainLoop:
     ReduceLROnPlateau and TerminateOnNaN on the training loss. The optimizer
     is Adam. As in the reference, the plateau factor scales the gradients
     before Adam, not the learning rate (Adam's normalization cancels most
-    of it). Checkpoints come with ROADMAP A12."""
+    of it).
+
+    With `checkpoint_dir`, the loop's whole state (parameters, Adam's
+    moments and step counts, the epoch, the best loss and parameters, the
+    patience counters, the plateau scale, the loss history and the caller's
+    random state) is saved every `checkpoint_interval` epochs to
+    `<checkpoint_dir>/train_state.npz` and restored by the next run of the
+    same fit, which then resumes where the saved one stopped; the file is
+    deleted when the run completes. Over a `mesh` (every rank training the
+    same model), rank 0 writes it."""
 
     def __init__(
         self,
@@ -329,6 +356,9 @@ class TrainLoop:
         reduce_lr_patience: int = 5,
         reduce_lr_factor: float = 0.5,
         steps_per_epoch: int = 1,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_interval: int = 10,
+        mesh: Optional[Mesh] = None,
     ):
         self.epochs = epochs
         self.learning_rate = learning_rate
@@ -337,13 +367,56 @@ class TrainLoop:
         self.reduce_lr_patience = reduce_lr_patience
         self.reduce_lr_factor = reduce_lr_factor
         self.steps_per_epoch = steps_per_epoch
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_interval = max(1, checkpoint_interval)
+        self.mesh = mesh
 
-    def run(self, params: Params, loss_step: Callable[[Params], torch.Tensor]):
+    def _ckpt_path(self) -> Optional[str]:
+        if self.checkpoint_dir is None:
+            return None
+        return os.path.join(self.checkpoint_dir, "train_state")
+
+    def _fingerprint(self, params: Params, fingerprint: str) -> str:
+        """The reference's fields: the caller's string, the parameter tree
+        (its structure and its sorted leaf shapes) and the loop's size."""
+        shapes = sorted(tuple(t.shape) for t in param_leaves(params))
+        return "|".join(str(x) for x in (
+            fingerprint, map_params(lambda t: "*", params), shapes, self.epochs,
+            self.steps_per_epoch, self.learning_rate))
+
+    @staticmethod
+    def _adam_state(optimizer: torch.optim.Adam, leaves) -> List[Dict[str, Any]]:
+        """Adam's state of each leaf: its step count and two moments (zeros
+        and `has` 0 for a leaf that has taken no step)."""
+        out = []
+        for p in leaves:
+            st = optimizer.state.get(p, {})
+            out.append({
+                "has": np.int64(bool(st)),
+                "step": (st["step"] if st else torch.zeros((), dtype=torch.float32)),
+                "exp_avg": st["exp_avg"] if st else torch.zeros_like(p),
+                "exp_avg_sq": st["exp_avg_sq"] if st else torch.zeros_like(p),
+            })
+        return out
+
+    @staticmethod
+    def _load_adam_state(optimizer: torch.optim.Adam, leaves, saved) -> None:
+        for p, st in zip(leaves, saved):
+            if int(st["has"]):
+                optimizer.state[p] = {
+                    "step": torch.as_tensor(st["step"], dtype=torch.float32).cpu(),
+                    "exp_avg": st["exp_avg"].to(p.device), "exp_avg_sq": st["exp_avg_sq"].to(p.device)}
+
+    def run(self, params: Params, loss_step: Callable[[Params], torch.Tensor],
+            fingerprint: str = "", rng=None):
         """Train `params` (a tree of leaf tensors, updated in place) for up
         to `epochs` epochs of `steps_per_epoch` Adam steps on
         `loss_step(params)`, a 0-d loss tensor. The epoch loss is the mean
-        of its steps, read on the host once per epoch. Returns (a copy of
-        the parameters of the best epoch, loss history)."""
+        of its steps, read on the host once per epoch. `fingerprint` (the
+        graph's and split's identity, `graph_fingerprint`) and `rng` (a
+        `utils.checkpoint.RandomState` of the generators and draws the loss
+        steps take) serve the checkpoints. Returns (a copy of the parameters
+        of the best epoch, loss history)."""
         leaves = param_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -355,7 +428,37 @@ class TrainLoop:
         lr_scale = 1.0
         history: List[float] = []
         self.epoch_seconds = []
-        for _ in range(self.epochs):
+        rng = rng if rng is not None else RandomState()
+        ckpt, start_epoch = None, 0
+
+        def pack(epoch):
+            return {
+                "params": params, "adam": self._adam_state(optimizer, leaves),
+                "epoch": np.int64(epoch), "best": np.float64(best), "best_params": best_params,
+                "patience": np.int64(patience), "lr_patience": np.int64(lr_patience),
+                "lr_scale": np.float64(lr_scale), "history": np.asarray(history, np.float64),
+                "rng": rng.state(),
+            }
+
+        if self.checkpoint_dir is not None:
+            ckpt = FitCheckpoint(self.checkpoint_dir, "train_state",
+                                 self._fingerprint(params, fingerprint),
+                                 self.checkpoint_interval, self.epochs, self.mesh)
+            state = ckpt.restore(pack(0))
+            if state is not None:
+                with torch.no_grad():
+                    for p, t in zip(leaves, param_leaves(state["params"])):
+                        p.copy_(t)
+                self._load_adam_state(optimizer, leaves, state["adam"])
+                start_epoch = int(state["epoch"])
+                best = float(state["best"])
+                best_params = state["best_params"]
+                patience = int(state["patience"])
+                lr_patience = int(state["lr_patience"])
+                lr_scale = float(state["lr_scale"])
+                history = [float(x) for x in np.asarray(state["history"])]
+                rng.load(state["rng"])
+        for epoch in range(start_epoch, self.epochs):
             t0 = time.perf_counter()
             total = torch.zeros((), device=leaves[0].device)
             for _ in range(self.steps_per_epoch):
@@ -385,6 +488,10 @@ class TrainLoop:
                     lr_patience = 0
                 if patience >= self.early_stopping_patience:
                     break
+            if ckpt is not None and ckpt.due(epoch):
+                ckpt.save(pack(epoch + 1))
+        if ckpt is not None:
+            ckpt.finish()
         for p in leaves:
             p.requires_grad_(False)
         return best_params, history

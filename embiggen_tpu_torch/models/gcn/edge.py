@@ -23,8 +23,10 @@ type.
 With `mesh` (None, "auto", an int or a `parallel.Mesh`) every rank trains
 the same model on the same batches and each convolution is the
 halo-exchange SpMM (`GCNEncoder.enable_mesh`); the result equals a
-single-device fit up to the order of float sums. Not ported yet, raising
-NotImplementedError that names its item: `checkpoint_dir` (A12).
+single-device fit up to the order of float sums. With `checkpoint_dir`,
+`TrainLoop` saves the fit's state every `checkpoint_interval` epochs, the
+generators and the edge batch's draws with it, and a later fit of the same
+run resumes from it.
 
 The edge-label GCN draws each batch uniformly from the arcs of known type
 (`torch.randint` under a generator seeded from the fit's, on the model's
@@ -47,6 +49,7 @@ from ...ops.edge_metrics import N_EDGE_METRICS, edge_metrics
 from ...ops.negatives import BatchDraws, edge_prediction_mini_batch
 from ...ops.walks import csr_edge_ids
 from ...parallel.mesh import Mesh
+from ...utils.checkpoint import RandomState
 from ..classifier import AbstractClassifierModel
 from ..edge_label_prediction.model import AbstractEdgeLabelPredictionModel
 from ..edge_prediction.model import AbstractEdgePredictionModel
@@ -57,6 +60,7 @@ from .core import (
     TrainLoop,
     apply_mlp,
     assemble_node_features,
+    graph_fingerprint,
     init_mlp,
     kernel_preset,
     map_params,
@@ -98,9 +102,6 @@ class _EdgeGCNBase(AbstractClassifierModel):
         random_state: int = 42,
         device: Union[str, torch.device] = "cuda",
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
         self._mesh = mesh
         self._handling_multi_graph = handling_multi_graph
         self._kernels = (
@@ -131,6 +132,11 @@ class _EdgeGCNBase(AbstractClassifierModel):
         self._checkpoint_interval = checkpoint_interval
         edge_ops.resolve(edge_embedding_method, edge_ops.EDGE_GCN_METHODS)
         super().__init__(random_state=random_state, device=device)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # The node representations cached for predictions: a pickle leaves
+        # them out, and the first prediction after a load computes them.
+        return {**self.__dict__, "_predict_h": None}
 
     @classmethod
     def can_use_node_type_features(cls) -> bool:
@@ -439,10 +445,15 @@ class GCNEdgePrediction(_EdgeGCNBase, AbstractEdgePredictionModel):
             early_stopping_patience=self._early_stopping_patience,
             steps_per_epoch=max(
                 1, graph.number_of_directed_edges // self._run_batch_size),
+            checkpoint_dir=self._checkpoint_dir,
+            checkpoint_interval=self._checkpoint_interval,
+            mesh=self._encoder._halo_mesh,
         )
         self._params, self._history = loop.run(
             params,
             lambda p: self._loss(p, kernels, tg, None, generator, drop_generator, draws),
+            fingerprint=graph_fingerprint(graph),
+            rng=RandomState([generator, drop_generator], lambda: [draws]),
         )
         self._epoch_seconds = list(loop.epoch_seconds)
         self._steps_per_epoch = loop.steps_per_epoch
@@ -525,10 +536,15 @@ class GCNEdgeLabelPrediction(_EdgeGCNBase, AbstractEdgeLabelPredictionModel):
             epochs=self._epochs, learning_rate=self._learning_rate,
             early_stopping_patience=self._early_stopping_patience,
             steps_per_epoch=max(1, len(known_idx) // self._run_batch_size),
+            checkpoint_dir=self._checkpoint_dir,
+            checkpoint_interval=self._checkpoint_interval,
+            mesh=self._encoder._halo_mesh,
         )
         self._params, self._history = loop.run(
             params,
             lambda p: self._loss(p, kernels, known, None, batch_generator, drop_generator),
+            fingerprint=graph_fingerprint(graph, known_idx, graph.edge_types[known_idx]),
+            rng=RandomState([batch_generator, drop_generator]),
         )
         self._epoch_seconds = list(loop.epoch_seconds)
         self._steps_per_epoch = loop.steps_per_epoch

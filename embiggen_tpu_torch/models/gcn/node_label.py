@@ -14,8 +14,9 @@ and returns the softmax (the sigmoid, multilabel) of every node's logits.
 With `mesh` (None, "auto", an int or a `parallel.Mesh`) every rank trains
 the same model and each convolution is the halo-exchange SpMM
 (`GCNEncoder.enable_mesh`, kernel K17a); the result equals a single-device
-fit up to the order of float sums. `checkpoint_dir` raises
-NotImplementedError naming ROADMAP A12.
+fit up to the order of float sums. With `checkpoint_dir`, `TrainLoop` saves
+the fit's state every `checkpoint_interval` epochs, the dropout generator's
+with it, and a later fit of the same run resumes from it.
 """
 from __future__ import annotations
 
@@ -27,11 +28,13 @@ import torch.nn.functional as F
 
 from ...graph.graph import Graph
 from ...parallel.mesh import Mesh
+from ...utils.checkpoint import RandomState
 from ..embedders.walk_based import _device_generator
 from ..node_label_prediction.model import AbstractNodeLabelPredictionModel
 from ..registry import register_model
 from .core import (
-    GCNEncoder, TrainLoop, apply_mlp, assemble_node_features, init_mlp, kernel_preset, map_params,
+    GCNEncoder, TrainLoop, apply_mlp, assemble_node_features, graph_fingerprint, init_mlp,
+    kernel_preset, map_params,
 )
 
 
@@ -63,9 +66,6 @@ class GCNNodeLabelPrediction(AbstractNodeLabelPredictionModel):
         random_state: int = 42,
         device: Union[str, torch.device] = "cuda",
     ):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpointing is not ported yet (ROADMAP A12).")
         self._mesh = mesh
         self._handling_multi_graph = handling_multi_graph
         self._kernels = (
@@ -203,10 +203,16 @@ class GCNNodeLabelPrediction(AbstractNodeLabelPredictionModel):
         targets = self._targets(graph)
         drop_generator = _device_generator(generator, self.device)
         loop = TrainLoop(epochs=self._epochs, learning_rate=self._learning_rate,
-                         early_stopping_patience=self._early_stopping_patience)
+                         early_stopping_patience=self._early_stopping_patience,
+                         checkpoint_dir=self._checkpoint_dir,
+                         checkpoint_interval=self._checkpoint_interval,
+                         mesh=self._encoder._halo_mesh)
         n_nodes = graph.number_of_nodes
+        y, mask, _ = targets
         self._params, self._history = loop.run(
-            params, lambda p: self._loss(p, kernels, targets, n_nodes, drop_generator))
+            params, lambda p: self._loss(p, kernels, targets, n_nodes, drop_generator),
+            fingerprint=graph_fingerprint(graph, mask.cpu().numpy(), y.cpu().numpy()),
+            rng=RandomState([drop_generator]))
         self._epoch_seconds = list(loop.epoch_seconds)
 
     def _predict_proba(self, graph: Graph, support: Optional[Graph] = None,

@@ -12,13 +12,26 @@ through the port's registry; models built from names (or classes) run on
 `device`, model instances on their own. With `profile_dir`, each holdout's
 fit runs under a torch.profiler trace written to
 `<profile_dir>/holdout_<n>`. The facades are the edge-prediction,
-node-label and edge-label ones. Not ported yet, raising
-NotImplementedError that names its item: the experiment cache
-(`enable_cache`), ROADMAP A12.
+node-label and edge-label ones.
+
+With `enable_cache`, each (model, graph) experiment is stored at the
+reference's `experiments/{task}/{graph}/{hash}.csv.gz` under `cache_dir`
+(default `utils.cache.DEFAULT_CACHE_DIR`) and read back on a later call with
+the same key: the model's hash and device type, the graph's, the schema, the
+holdouts, the seed, the features and the evaluation's keyword arguments. The
+file is written and read with `csv` and `gzip`; each cell holds its value's
+Python literal, so the rows read back have the types the facade returned.
+The cache is off with `number_of_workers` (workers would race on one file)
+and under `smoke_test`.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
+import csv
+import gzip
+import hashlib
+import math
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -32,6 +45,7 @@ from ..models.classifier import AbstractClassifierModel
 from ..models.registry import get_model_from_library
 from ..parallel.distributed import holdout_belongs_to_this_worker
 from ..utils import profiling
+from ..utils.cache import DEFAULT_CACHE_DIR
 
 Rows = List[Dict[str, Any]]
 
@@ -61,8 +75,99 @@ def _resolve_models(
     return out
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item}).")
+def _describe_features(features) -> str:
+    """Stable content descriptor of a feature spec for the experiment-cache
+    key: strings and models by their parameters, arrays, tensors and
+    DataFrames by their contents."""
+    if features is None:
+        return "none"
+    if not isinstance(features, (list, tuple)):
+        features = [features]
+    h = hashlib.sha256()
+    for f in features:
+        if isinstance(f, str):
+            h.update(f.encode())
+        elif hasattr(f, "consistent_hash"):
+            h.update(f.consistent_hash().encode())
+        elif isinstance(f, torch.Tensor):
+            h.update(np.ascontiguousarray(f.detach().cpu().numpy()).tobytes())
+        elif hasattr(f, "to_numpy"):
+            h.update(np.ascontiguousarray(f.to_numpy()).tobytes())
+        else:
+            h.update(np.ascontiguousarray(np.asarray(f)).tobytes())
+    return h.hexdigest()[:32]
+
+
+def experiment_cache_path(
+    model: AbstractClassifierModel,
+    graph: Graph,
+    evaluation_schema: str,
+    holdouts_number: int,
+    random_state: int,
+    features_key: str,
+    evaluation_kwargs: Dict[str, Any],
+    cache_dir: Optional[str] = None,
+) -> str:
+    """`experiments/{task}/{graph}/{hash}.csv.gz` (the reference's layout);
+    the hash also holds the model's device type, which its hash does not."""
+    h = hashlib.sha256()
+    device = getattr(model, "device", None)
+    for part in (
+        model.consistent_hash(), graph.consistent_hash(), evaluation_schema,
+        holdouts_number, random_state, features_key,
+        repr(sorted(evaluation_kwargs.items())),
+        "cpu" if device is None else torch.device(device).type,
+    ):
+        h.update(str(part).encode())
+    return os.path.join(
+        cache_dir or DEFAULT_CACHE_DIR,
+        "experiments",
+        model.task_name().replace(" ", "_"),
+        graph.name.replace(" ", "_"),
+        f"{h.hexdigest()[:32]}.csv.gz",
+    )
+
+
+def _cell(value) -> str:
+    """A row value as the Python literal `_value` reads back."""
+    if isinstance(value, np.generic):
+        value = value.item()
+    if isinstance(value, float) and not math.isfinite(value):
+        return repr(value)   # 'nan', 'inf', '-inf'
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return repr(value)
+    raise TypeError(f"The experiment cache stores scalars; got {type(value).__name__}.")
+
+
+def _value(cell: str):
+    if cell in ("nan", "inf", "-inf"):
+        return float(cell)
+    return ast.literal_eval(cell)
+
+
+def write_experiment_rows(rows: Rows, path: str) -> None:
+    """`rows` as a gzip CSV at `path` (every row's columns, in first-seen
+    order; a missing cell is None), written to a temporary file and renamed
+    into place."""
+    columns: Dict[str, None] = {}
+    for row in rows:
+        columns.update(dict.fromkeys(row))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with gzip.open(tmp, "wt", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(columns)
+        for row in rows:
+            writer.writerow([_cell(row.get(c)) for c in columns])
+    os.replace(tmp, path)
+
+
+def read_experiment_rows(path: str) -> Rows:
+    """The rows `write_experiment_rows` stored at `path`."""
+    with gzip.open(path, "rt", newline="") as f:
+        reader = csv.reader(f)
+        columns = next(reader, [])
+        return [dict(zip(columns, map(_value, cells))) for cells in reader]
 
 
 class _HoldoutMemo:
@@ -156,13 +261,29 @@ def evaluate_model_on_graph(
     With `subgraph_of_interest`, each holdout's train and test are cut to
     the subgraph's edges; the model fits on the cut train with the whole
     train as its support (or the cut train, with `use_subgraph_as_support`),
-    and the evaluation negatives are drawn from the subgraph's degrees."""
-    if enable_cache:
-        raise _not_ported("The experiment cache (enable_cache)", "A12")
+    and the evaluation negatives are drawn from the subgraph's degrees.
+
+    With `enable_cache` and no `number_of_workers`, the rows are stored at
+    `experiment_cache_path` and read back from there on a later call."""
     sub_aligned = (
         _align_subgraph(graph, subgraph_of_interest)
         if subgraph_of_interest is not None else None
     )
+    # Off across workers: they would race writing the same file.
+    use_cache = enable_cache and number_of_workers is None
+    path = None
+    if use_cache:
+        feat_key = "|".join(
+            _describe_features(f)
+            for f in (node_features, node_type_features, edge_type_features, edge_features))
+        key_kwargs = dict(evaluation_kwargs)
+        if sub_aligned is not None:
+            key_kwargs["subgraph_of_interest"] = sub_aligned.consistent_hash()
+            key_kwargs["use_subgraph_as_support"] = use_subgraph_as_support
+        path = experiment_cache_path(model, graph, evaluation_schema, holdouts_number,
+                                     random_state, feat_key, key_kwargs, cache_dir)
+        if os.path.exists(path):
+            return read_experiment_rows(path)
     if memo is None:
         memo = _HoldoutMemo(graph, evaluation_schema, random_state,
                             holdouts_kwargs, node_features)
@@ -234,6 +355,8 @@ def evaluate_model_on_graph(
                 **meta,
             })
         all_rows.extend(rows)
+    if use_cache:
+        write_experiment_rows(all_rows, path)
     return all_rows
 
 

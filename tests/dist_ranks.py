@@ -378,4 +378,41 @@ def node_label(mesh, payload):
     return {rate: node_label_gcn_fit(rate, mesh) for rate in (0.0, 0.5)}
 
 
-BODIES = {"pieces": pieces, "steps": steps, "models": models, "node_label": node_label}
+def resume(mesh, payload):
+    """SkipGram over the mesh (payload["distribution"]) on karate: an
+    uninterrupted fit, a fit with `checkpoint_dir=payload["dir"]` killed
+    after payload["saves"] saves (each rank raising once the save, which
+    rank 0 writes and every rank waits for, is done), and its resumed fit.
+    Returns the two fits' tables and the checkpoint files after each."""
+    import embiggen_tpu_torch.utils.checkpoint as ck
+    from embiggen_tpu_torch.models.embedders import SkipGram
+
+    kw = dict(EMB_KWARGS, epochs=4, early_stopping_patience=100, mesh=mesh.size,
+              distribution=payload["distribution"])
+    directory = payload["dir"]
+    full = SkipGram(**kw).fit_transform(karate()).node_embeddings
+    real, left = ck.FitCheckpoint.save, [payload["saves"]]
+
+    def save_then_kill(self, state):
+        real(self, state)
+        left[0] -= 1
+        if left[0] <= 0:
+            raise KeyboardInterrupt("simulated kill")
+
+    ck.FitCheckpoint.save = save_then_kill
+    killed = False
+    try:
+        SkipGram(**kw, checkpoint_dir=directory).fit_transform(karate())
+    except KeyboardInterrupt:
+        killed = True
+    finally:
+        ck.FitCheckpoint.save = real
+    after_kill = sorted(os.listdir(directory))
+    resumed = SkipGram(**kw, checkpoint_dir=directory).fit_transform(karate()).node_embeddings
+    dist.barrier()
+    return dict(full=[np.asarray(e) for e in full], resumed=[np.asarray(e) for e in resumed],
+                killed=killed, after_kill=after_kill, after_resume=sorted(os.listdir(directory)))
+
+
+BODIES = {"pieces": pieces, "steps": steps, "models": models, "node_label": node_label,
+          "resume": resume}

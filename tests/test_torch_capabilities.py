@@ -123,13 +123,12 @@ def test_constructor_parameters_match_reference(task, name):
 
 def test_walk_rows_keep_checkpoint_interval():
     """C6: the Node2Vec rows are built with `checkpoint_interval`, as the
-    reference's are; `checkpoint_dir` still raises, naming A12."""
+    reference's are, and take `checkpoint_dir` (ported with A12)."""
     for name in ("Node2Vec", "Node2Vec SkipGram", "Node2Vec CBOW"):
         cls = MODELS_LIBRARY["Node Embedding"][name]["Torch"]
         assert cls(checkpoint_interval=5, device="cpu")._checkpoint_interval == 5
         _reference_class("Node Embedding", name)(checkpoint_interval=5)
-        with pytest.raises(NotImplementedError, match="A12"):
-            cls(checkpoint_dir="somewhere", device="cpu")
+        assert cls(checkpoint_dir="somewhere", device="cpu")._checkpoint_dir == "somewhere"
 
 
 def test_top_level_names_match_reference():

@@ -4,6 +4,8 @@ without them; run them there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2424,3 +2426,167 @@ def test_graph_edge_metrics_on_the_card_match_the_host_copy(dev):
     np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(g.get_adamic_adar_scores(),
                                g.get_adamic_adar_scores(device="cpu"), rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------ A12 on the card
+class _SaveThenKill:
+    """`save_pytree` that raises after `n` saves, each completed first."""
+
+    def __init__(self, real, n):
+        self.real, self.left = real, n
+
+    def __call__(self, path, tree, **kw):
+        self.real(path, tree, **kw)
+        self.left -= 1
+        if self.left <= 0:
+            raise KeyboardInterrupt("simulated kill")
+
+
+def _first_draw(monkeypatch, owner, attr, index):
+    """Wrap the batch draw `owner.attr`: the tensors it returns at call
+    `index`, copied into the returned list."""
+    real, seen, calls = getattr(owner, attr), [], [0]
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for item in (x if isinstance(x, (list, tuple)) else ()) for t in tensors(item)]
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if calls[0] == index:
+            seen.extend(t.clone() for t in tensors(out))
+        calls[0] += 1
+        return out
+
+    monkeypatch.setattr(owner, attr, wrapped if not isinstance(owner, type) else (
+        lambda self, *a, **k: wrapped(self, *a, **k)))
+    return seen
+
+
+@pytest.mark.parametrize("name", ["SkipGram", "Second-order LINE", "GCN"])
+def test_card_fit_resumes_after_a_kill(dev, name, monkeypatch, tmp_path):
+    """A fit on the card killed after its second save resumes: its first
+    batch equals the uninterrupted fit's at that step exactly (the draws'
+    key, offset and generators came back), its result is within
+    max(4 x two uninterrupted fits' difference, 1e-5) of the nearer, and the
+    checkpoint is gone."""
+    import embiggen_tpu_torch.utils.checkpoint as ck
+    from embiggen_tpu_torch.models.embedders import SecondOrderLINE
+    from embiggen_tpu_torch.models.gcn import edge as gcn_edge
+
+    g = erdos_renyi(5000, 40000, seed=3)
+    feats = np.random.default_rng(0).standard_normal((5000, 16), dtype=np.float32)
+    if name == "SkipGram":
+        steps = 5000 // 512
+
+        def make(d):
+            return SkipGram(embedding_size=32, walk_length=20, window_size=3, batch_size=512,
+                            epochs=4, random_state=1, early_stopping_patience=100, device=dev,
+                            checkpoint_dir=d, checkpoint_interval=1)
+
+        def fit(m):
+            return [np.asarray(e) for e in m.fit_transform(g).node_embeddings]
+        owner, attr = SkipGram, "_sample_batch"
+    elif name == "Second-order LINE":
+        steps = g.number_of_directed_edges // 4096
+
+        def make(d):
+            return SecondOrderLINE(embedding_size=32, batch_size=4096, epochs=4, random_state=1,
+                                   early_stopping_patience=100, device=dev, checkpoint_dir=d,
+                                   checkpoint_interval=1)
+
+        def fit(m):
+            return [np.asarray(e) for e in m.fit_transform(g).node_embeddings]
+        owner, attr = SecondOrderLINE, "_sample_batch"
+    else:
+        steps = g.number_of_directed_edges // 8192
+
+        def make(d):
+            return GCNEdgePrediction(units=[32], tower_units=[16], head_units=[16], epochs=4,
+                                     batch_size=8192, random_state=1,
+                                     early_stopping_patience=100, device=dev, checkpoint_dir=d,
+                                     checkpoint_interval=1)
+
+        def fit(m):
+            m.fit(g, node_features=feats)
+            return [t.detach().cpu().numpy() for t in param_leaves(m._params)]
+        owner, attr = gcn_edge, "edge_prediction_mini_batch"
+    full = []
+    with monkeypatch.context() as m:
+        want = _first_draw(m, owner, attr, 2 * steps)
+        full.append(fit(make(None)))
+    full.append(fit(make(None)))
+    directory = str(tmp_path / "ck")
+    with monkeypatch.context() as m:
+        m.setattr(ck, "save_pytree", _SaveThenKill(ck.save_pytree, 2))
+        with pytest.raises(KeyboardInterrupt):
+            fit(make(directory))
+    state = np.load(os.path.join(directory, "embed_state.npz" if name != "GCN"
+                                 else "train_state.npz"))
+    assert "__fingerprint__" in state.files
+    with monkeypatch.context() as m:
+        got = _first_draw(m, owner, attr, 0)
+        resumed = fit(make(directory))
+    assert os.listdir(directory) == []
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    between = max(float(np.abs(a - b).max()) for a, b in zip(*full))
+    nearer = min(max(float(np.abs(a - b).max()) for a, b in zip(f, resumed)) for f in full)
+    assert nearer <= max(4 * between, 1e-5), (nearer, between)
+
+
+def test_card_model_loads_on_the_cpu(dev, tmp_path):
+    """A GCN fitted on the card, dumped and loaded on the CPU, holds CPU
+    tensors only and predicts through the CPU route within 1e-5 of the
+    card."""
+    from embiggen_tpu_torch.utils import dump_model, load_model
+
+    g = erdos_renyi(3000, 20000, seed=4)
+    feats = np.random.default_rng(0).standard_normal((3000, 16), dtype=np.float32)
+    model = GCNEdgePrediction(units=[32], tower_units=[16], head_units=[16], epochs=3,
+                              batch_size=4096, random_state=0, device=dev)
+    model.fit(g, node_features=feats)
+    src, dst = np.random.default_rng(1).integers(0, 3000, (2, 4096))
+    on_card = model.predict_proba_from_edge_node_ids(src, dst)
+    path = str(tmp_path / "gcn.pkl.gz")
+    dump_model(model, path)
+    loaded = load_model(path, device="cpu")
+    assert loaded.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in param_leaves(loaded._params))
+    np.testing.assert_allclose(loaded.predict_proba_from_edge_node_ids(src, dst), on_card,
+                               rtol=0, atol=1e-5)
+    back = load_model(path, device=dev)
+    assert all(t.device.type == "cuda" for t in param_leaves(back._params))
+    np.testing.assert_allclose(back.predict_proba_from_edge_node_ids(src, dst), on_card,
+                               rtol=0, atol=1e-6)
+
+
+def test_cached_calls_launch_nothing(dev, tmp_path, monkeypatch):
+    """The second `embed_graph(..., enable_cache=True)` and the second
+    `edge_prediction_evaluation(..., enable_cache=True)` launch no kernel
+    and return the first call's results."""
+    import embiggen_tpu_torch.utils.cache as cache_mod
+    from embiggen_tpu_torch.graph import random_geometric
+    from embiggen_tpu_torch.pipelines import edge_prediction_evaluation, embed_graph
+
+    monkeypatch.setattr(cache_mod, "DEFAULT_CACHE_DIR", str(tmp_path / "cache"))
+    g = erdos_renyi(3000, 20000, seed=4)
+    results, counts = [], []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        results.append(embed_graph(g, "Node2Vec SkipGram", device=dev, embedding_size=16,
+                                   epochs=1, random_state=0, enable_cache=True))
+        counts.append(sum(_build.launch_counts().values()))
+    assert counts[0] > 0 and counts[1] == 0
+    for a, b in zip(*(r.node_embeddings for r in results)):
+        np.testing.assert_array_equal(a, b)
+    rows, counts = [], []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        rows.append(edge_prediction_evaluation(
+            1, PerceptronEdgePrediction(edge_features=["AdamicAdar"], number_of_epochs=5,
+                                        device=dev),
+            random_geometric(1000, radius=0.07, seed=42), random_state=3, enable_cache=True,
+            cache_dir=str(tmp_path / "cache")))
+        counts.append(sum(_build.launch_counts().values()))
+    assert counts[0] > 0 and counts[1] == 0 and rows[0] == rows[1]

@@ -177,8 +177,12 @@ def test_typed_walk_options_reach_the_model(kwargs):
     (dict(enable_cache=True), "A12"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SkipGram(device="cpu", random_state=0, **kwargs)
+    """The options of ROADMAP `item` are ported since: the model takes and
+    keeps them (their fits: tests/test_torch_checkpoint.py,
+    tests/test_torch_cache.py)."""
+    model = SkipGram(device="cpu", random_state=0, **kwargs)
+    ((name, value),) = kwargs.items()
+    assert item == "A12" and getattr(model, f"_{name}") == value
 
 
 def test_embed_graph_rejects_graph_names(tmp_path, monkeypatch):
@@ -378,8 +382,11 @@ def test_evaluation_runs_where_pandas_cannot_be_imported():
 
 
 def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
-    """A host like the card's: jax, embiggen_tpu, sklearn and pandas
-    blocked. The transformers import; an adapter of each task with a numpy
+    """A host like the card's: jax, embiggen_tpu, sklearn, pandas and
+    matplotlib blocked. The package, its utils, the evaluation pipelines,
+    the visualizer and the transformers import; a visualizer's PCA raises
+    the ImportError of sklearn and its plot that of matplotlib; an adapter
+    of each task with a numpy
     `model_instance` fits and predicts on the CPU (the edge ones with
     `use_edge_metrics`, the edge-prediction one also through
     `edge_prediction_evaluation` as a subclass that builds it); a named
@@ -388,11 +395,13 @@ def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
     DAGResnik's DataFrame raises ModuleNotFoundError naming pandas."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'embiggen_tpu', 'sklearn', 'pandas'):\n"
+        "for name in ('jax', 'embiggen_tpu', 'sklearn', 'pandas', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "sys.path.insert(0, 'tests')\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
+        "import embiggen_tpu_torch, embiggen_tpu_torch.utils\n"
+        "import embiggen_tpu_torch.pipelines.evaluation, embiggen_tpu_torch.visualizations\n"
         "import embiggen_tpu_torch.transformers\n"
         "from numpy_estimators import CentroidClassifier, LeastSquaresClassifier\n"
         "from embiggen_tpu_torch import edge_prediction_evaluation\n"
@@ -451,7 +460,21 @@ def test_adapters_run_where_sklearn_and_pandas_cannot_be_imported():
         "    raise AssertionError('dataframe')\n"
         "except ModuleNotFoundError as e:\n"
         "    assert e.name == 'pandas', e\n"
-        "assert all(sys.modules[n] is None for n in ('jax', 'sklearn', 'pandas'))\n"
+        "from embiggen_tpu_torch.visualizations import GraphVisualizer\n"
+        "viz = GraphVisualizer(g, decomposition_method='PCA')\n"
+        "try:\n"
+        "    viz.fit_nodes(x)\n"
+        "    raise AssertionError('PCA')\n"
+        "except ImportError as e:\n"
+        "    assert e.name.split('.')[0] == 'sklearn', e\n"
+        "viz.fit_nodes(x[:, :2])   # no wider than the plot: no decomposition\n"
+        "try:\n"
+        "    viz.plot_nodes()\n"
+        "    raise AssertionError('plot')\n"
+        "except ImportError as e:\n"
+        "    assert e.name.split('.')[0] == 'matplotlib', e\n"
+        "assert all(sys.modules[n] is None\n"
+        "           for n in ('jax', 'sklearn', 'pandas', 'matplotlib'))\n"
         "assert not any(m.startswith('embiggen_tpu.') for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -226,8 +226,11 @@ def test_parameters_match_reference():
     (dict(checkpoint_dir="ckpt"), "A12"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        GCNEdgePrediction(device="cpu", **kwargs)
+    """The options of ROADMAP `item` are ported since: the model takes and
+    keeps them (its resumed fit: tests/test_torch_checkpoint.py)."""
+    model = GCNEdgePrediction(device="cpu", **kwargs)
+    ((name, value),) = kwargs.items()
+    assert item == "A12" and getattr(model, f"_{name}") == value
 
 
 def test_use_edge_metrics_fits_and_widens_the_head(graphs):

@@ -5,7 +5,8 @@ Draw parity: on a small planted-partition graph, `connected_holdout`,
 versions give (every native helper replaced by its `_plain` numpy version)
 and the JAX package's functions give, so the native helpers change no draw.
 Then the evaluation entry point's `profile_dir` (a torch.profiler trace a
-holdout, naming the fit's range), its `enable_cache` (still not ported),
+holdout, naming the fit's range), its `enable_cache` (rows served from the
+experiment cache),
 `sample_negative_graph`'s default device (the card), the profiling module's
 `PhaseTimer` and `device_memory_stats` against the JAX package's, and the
 harness's split recorder run from its source, as `harness_turns.py` runs it
@@ -118,11 +119,22 @@ def test_profile_dir_writes_a_trace_a_holdout(tmp_path, holdouts):
                                                            for h in range(holdouts)]
 
 
-def test_enable_cache_still_raises():
-    with pytest.raises(NotImplementedError, match="A12"):
-        edge_prediction_evaluation(
-            holdouts_number=1, graphs=erdos_renyi(50, 200, seed=0), enable_cache=True,
-            models=PerceptronEdgePrediction(number_of_epochs=1, device="cpu"))
+def test_enable_cache_still_raises(tmp_path):
+    """The experiment cache (ROADMAP A12) is ported since: a second call
+    with the same key reads the first call's rows back from its file."""
+    calls = []
+    kw = dict(holdouts_number=1, graphs=erdos_renyi(50, 200, seed=0), enable_cache=True,
+              cache_dir=str(tmp_path), random_state=3)
+    first = edge_prediction_evaluation(
+        models=PerceptronEdgePrediction(number_of_epochs=1, device="cpu"), **kw)
+
+    class Counting(PerceptronEdgePrediction):
+        def _fit(self, *args, **kwargs):
+            calls.append(1)
+            return super()._fit(*args, **kwargs)
+
+    second = edge_prediction_evaluation(models=Counting(number_of_epochs=1, device="cpu"), **kw)
+    assert calls == [] and second == first
 
 
 def test_sample_negative_graph_defaults_to_the_card():

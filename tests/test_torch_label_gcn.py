@@ -138,7 +138,7 @@ def test_node_label_three_adam_steps_match_reference(monkeypatch, cls, kw, width
     monkeypatch.setattr(RefTrainLoop, "run",
                         lambda self, params, *a, **k: ref_run(self, ref_start, *a, **k))
     monkeypatch.setattr(TrainLoop, "run",
-                        lambda self, params, step: port_run(self, start, step))
+                        lambda self, params, step, **k: port_run(self, start, step, **k))
     kw = dict(kw, dropout_rate=0.0, random_state=0, epochs=3, learning_rate=0.01,
               early_stopping_patience=10**6)
     ref = getattr(ref_gcn, cls)(**kw)
@@ -165,8 +165,8 @@ def test_node_label_fit_predict_and_options():
     again = model.clone().fit(g).predict_proba(g)
     np.testing.assert_array_equal(proba, again)
     assert model.predict(g).dtype == np.int32
-    with pytest.raises(NotImplementedError, match="A12"):
-        gcn.GCNNodeLabelPrediction(checkpoint_dir="ckpt", device="cpu")
+    assert gcn.GCNNodeLabelPrediction(checkpoint_dir="ckpt",
+                                      device="cpu")._checkpoint_dir == "ckpt"
 
 
 # --------------------------------------------------------------- edge label

@@ -282,8 +282,12 @@ def test_typed_models_require_edge_types(graphs, name):
 ])
 @pytest.mark.parametrize("cls", [SecondOrderLINE, TransE])
 def test_unported_options_raise(cls, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cls(device="cpu", random_state=0, **kwargs)
+    """The options of ROADMAP `item` are ported since: the model takes and
+    keeps them (their fits: tests/test_torch_checkpoint.py,
+    tests/test_torch_cache.py)."""
+    model = cls(device="cpu", random_state=0, **kwargs)
+    ((name, value),) = kwargs.items()
+    assert item == "A12" and getattr(model, f"_{name}") == value
 
 
 def test_distribution_is_validated():
