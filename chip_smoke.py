@@ -48,7 +48,11 @@ thread while the phases before them run:
      version), no more arcs or self-loops among negatives than two redraws
      leave; K7 forward for the three combiners and its backward through
      autograd, on the slice graph at D 128 and on a 20,000-node weighted
-     graph at D 30 (rtol 1e-5 / atol 1e-5: sums in another order); P1 and P2
+     graph at D 30 (rtol 1e-5 / atol 1e-5: sums in another order), and on
+     the hub graph at D 128 (its hub rows cut into chunks and combined by a
+     second launch) against the plain version in float64 at the same
+     tolerance, two calls bit-equal, the launches of a forward and backward
+     counted, each direction timed beside its gather floor; P1 and P2
      (rtol 1e-5 / atol 1e-3: sums of 256 and 8192 rows in another order);
      K8 on 2^20 pairs (half arcs, half uniform pairs) of the slice graph
      and of the slice graph plus 256 hubs of 4,096-65,536 random
@@ -206,7 +210,11 @@ thread while the phases before them run:
      route (the hop launch over the singletons), against the plain hops
      over the plain singletons, on the slice graph and on the slice graph
      plus 256 hubs (hop 2 not forced onto the id route); the general
-     route's launches counted alone; K16b at 2^20 pairs (half
+     route's launches counted alone; on the hub graph also the general
+     route's three hops exactly at each precision, the hub rows cut into
+     chunks (the hop launch and its merge once a hop, counted), one hop
+     timed beside its gather floor, the merge against its plain version;
+     K16b at 2^20 pairs (half
      arcs, half uniform pairs) for H 1-3 at each precision, and its
      general route at H 6 (two copies of the three hops of the first
      131,072 nodes), within
@@ -1023,6 +1031,7 @@ KERNEL_NAMES = {
     "skipgram_nce_update": "skipgram_nce_kernel",
     "skipgram_mean_combine": "skipgram_combine_kernel", "csr_edge_ids": "csr_edge_ids_kernel",
     "edge_prediction_mini_batch": "edge_minibatch_kernel", "spmm": "csr_spmm_kernel",
+    "spmm_combine": "csr_spmm_combine_kernel", "khop_merge": "hop_merge_kernel",
     "edge_metrics": "edge_metrics_kernel", "ell_walks": "ell_walks_kernel",
     "rejection_walks": "rejection_walks_kernel", "exact_walks": "exact_walks_kernel",
     "cbow_update": "cbow_kernel",
@@ -1546,12 +1555,17 @@ def edge_kernel_checks(graph, tg):
     return entries, p
 
 
-def spmm_check(k, x, g, name) -> float:
+def spmm_check(k, x, g, name, exact=False) -> float:
     """K7 forward for every combiner and its backward through autograd
     against the plain version, over `k` with input `x` and output gradient
-    `g`. Returns the largest abs error."""
+    `g`; with `exact`, the plain version runs in float64 (on a hub's row of
+    65,536 terms the float32 plain version's atomic order is itself off by
+    more than K7_TOL). Returns the largest abs error."""
     from embiggen_tpu_torch.ops.spmm import COMBINERS, csr_spmm_plain, spmm
 
+    def plain(kk, v, rs, cs):
+        return csr_spmm_plain(kk, v.double(), rs, cs).float() if exact else \
+            csr_spmm_plain(kk, v, rs, cs)
     err = 0.0
     for combiner in COMBINERS:
         inv = k.inverse_denominator(combiner)
@@ -1559,11 +1573,87 @@ def spmm_check(k, x, g, name) -> float:
         y = spmm(k, xg, combiner)
         (dx,) = torch.autograd.grad(y, xg, g)
         err = max(err, check_close(f"K7 forward {combiner} {name}", y.detach(),
-                                   csr_spmm_plain(k, x, inv), **K7_TOL))
+                                   plain(k, x, inv, None), **K7_TOL))
         err = max(err, check_close(f"K7 backward {combiner} {name}", dx,
-                                   csr_spmm_plain(k.transpose, g, None, inv), **K7_TOL))
+                                   plain(k.transpose, g, None, inv), **K7_TOL))
         del xg, y, dx
     return err
+
+
+def queue_hub_kernel(graph) -> None:
+    """Queue the layout of the hub graph's Symmetric Normalized Laplacian as
+    a host CSRKernel (with its transpose and row plans) on the worker
+    thread, after the hub graph: built once, for phase 4."""
+    def build():
+        from embiggen_tpu_torch.graph.laplacians import kernel_coo
+        from embiggen_tpu_torch.ops.spmm import csr_kernel
+
+        hub = hub_graph(graph)
+        t0 = time.perf_counter()
+        k = csr_kernel(*kernel_coo(hub, "Symmetric Normalized Laplacian"),
+                       hub.number_of_nodes, device="cpu")
+        return k, time.perf_counter() - t0
+    _HUB_KERNELS[id(graph)] = _GRAPHS_WORKER.submit(build)
+
+
+def kernel_on(k, dev):
+    """A host CSRKernel, with its transpose and row plan, on `dev`."""
+    return dataclasses.replace(
+        k, **{f: getattr(k, f).to(dev) for f in (
+            "row_ptr", "rows", "cols", "vals", "abs_weight_sum", "sq_weight_sum")},
+        plan=k.plan.to(dev),
+        transpose=None if k.transpose is None else kernel_on(k.transpose, dev))
+
+
+def spmm_hub_checks(graph, dev) -> dict:
+    """K7 over the hub graph's Symmetric Normalized Laplacian at D 128, its
+    CSRKernel laid out once on the worker thread: the row plan (the hub
+    rows cut into chunks of SPLIT arcs), forward for every combiner and
+    backward through autograd against the plain version in float64 at
+    K7_TOL, two calls bit-equal, the launches of one forward and backward
+    (counts set to 0 just before, read just after), each direction's time
+    beside its gather floor, and the combine launch's time against its
+    plain version."""
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.spmm import csr_spmm, spmm, spmm_combine_plain
+    from embiggen_tpu_torch.scripts.redesign_times import k7_floor_ms
+
+    t0 = time.perf_counter()
+    host, layout_s = _HUB_KERNELS.pop(id(graph)).result()
+    wait_s = time.perf_counter() - t0
+    k = kernel_on(host, dev)
+    del host
+    n = k.n_out
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((n, DIM), dtype=np.float32)).to(dev)
+    err = spmm_check(k, x, g, "hub graph D 128", exact=True)
+    inv = k.inverse_denominator("sqrtn")
+    if not (torch.equal(spmm(k, x, "sqrtn"), spmm(k, x, "sqrtn"))
+            and torch.equal(csr_spmm(k.transpose, g, None, inv),
+                            csr_spmm(k.transpose, g, None, inv))):
+        raise AssertionError("K7 on the hub graph: two calls differ")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    xg = x.clone().requires_grad_(True)
+    torch.autograd.grad(spmm(k, xg, "sqrtn"), xg, g)
+    torch.cuda.synchronize()
+    launches = {c: _build.launch_counts()[c] for c in ("spmm", "spmm_combine")}
+    if launches != {"spmm": 2, "spmm_combine": 2}:
+        raise AssertionError(f"K7 on the hub graph launched {launches}")
+    del xg
+    partials = torch.randn((k.plan.n_chunks, DIM), device=dev)
+    return dict(
+        arcs=k.n_arcs, split=k.plan.split, long_rows=k.plan.n_rows, chunks=k.plan.n_chunks,
+        transpose_chunks=k.transpose.plan.n_chunks, layout_s=layout_s, wait_s=wait_s,
+        max_abs_err=err,
+        launches=launches, floor_ms=k7_floor_ms(k, DIM),
+        ms=time_ms(lambda: spmm(k, x, "sqrtn"), 20),
+        backward_ms=time_ms(lambda: csr_spmm(k.transpose, g, None, inv), 20),
+        combine_ms=launch_event_ms(lambda: spmm(k, x, "sqrtn"), "spmm_combine", 10),
+        combine_plain_ms=time_ms(lambda: spmm_combine_plain(k.plan, partials, inv), 10),
+        # the partials read once, the long rows written
+        combine_bound=bound(4 * DIM * (k.plan.n_chunks + k.plan.n_rows), 0))
 
 
 def spmm_checks(graph, dev):
@@ -1577,6 +1667,7 @@ def spmm_checks(graph, dev):
     from embiggen_tpu_torch.graph import erdos_renyi
     from embiggen_tpu_torch.graph.laplacians import kernel_coo
     from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain
+    from embiggen_tpu_torch.scripts.redesign_times import k7_floor_ms
 
     small = erdos_renyi(20_000, 100_000, seed=3, weighted=True)
     rng = np.random.default_rng(24)
@@ -1619,7 +1710,12 @@ def spmm_checks(graph, dev):
         layout_s=layout_s,
     )
     entry["gathered_rows_per_s"] = k.n_arcs / (entry["ms"] / 1e3)
-    del cols, offsets, a
+    entry["floor_ms"] = k7_floor_ms(k, DIM)
+    entry["plan_chunks"] = k.plan.n_chunks
+    del cols, offsets, a, k, x, g
+    torch.cuda.empty_cache()
+    entry["hub"] = spmm_hub_checks(graph, dev)
+    entry["max_abs_err"] = max(entry["max_abs_err"], entry["hub"]["max_abs_err"])
     return entry
 
 
@@ -1673,6 +1769,9 @@ _GRAPHS_WORKER = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 # hub_graph's graphs by (the graph it extends, typed): built once a run, as
 # every phase that checks a kernel on hubs takes the same seeded graph.
 _HUB_GRAPHS = {}
+# queue_hub_kernel's host CSRKernel of the hub graph by id(graph), taken by
+# phase 4.
+_HUB_KERNELS = {}
 
 
 def hub_graph(graph, typed=False, wait=True):
@@ -3475,12 +3574,11 @@ def launch_event_ms(fn, counter: str, reps: int) -> float:
     return sum(s.elapsed_time(e) for s, e in events[counter]) / reps
 
 
-def singleton_route_bytes(tg, p, route):
+def singleton_route_bytes(tg, p):
     """Bytes K16a's singleton route must move by the read-once rule at hop 1
-    (`route` None) or at hop 2 by "ids" or "dense": the CSR, the [N, M]
-    registers written and, on the dense route, the hop-1 registers read."""
-    n, m = tg.n_nodes, 1 << p
-    return 4 * (n + 1 + tg.n_arcs) + n * m + (n * m if route == "dense" else 0)
+    or at hop 2 by the id route: the CSR and the [N, M] registers
+    written."""
+    return 4 * (tg.n_nodes + 1 + tg.n_arcs) + tg.n_nodes * (1 << p)
 
 
 def k16_checks(graph, dev):
@@ -3500,10 +3598,12 @@ def k16_checks(graph, dev):
     the general route's launches (counts set to 0 just before it)."""
     from embiggen_tpu_torch.ops import _build
     from embiggen_tpu_torch.ops.hll import (
-        edge_sketch_features, edge_sketch_features_plain, hop2_route, khop_sketches,
-        khop_sketches_of_singletons, khop_sketches_of_singletons_plain, khop_sketches_plain,
-        singleton_registers, singleton_registers_plain,
+        HOP_SPLIT, edge_sketch_features, edge_sketch_features_plain, hop2_route,
+        hop_merge_plain, khop_sketches, khop_sketches_of_singletons,
+        khop_sketches_of_singletons_plain, khop_sketches_plain, singleton_registers,
+        singleton_registers_plain,
     )
+    from embiggen_tpu_torch.scripts.redesign_times import hop_floor_ms
 
     checks = laws_module("hll_checks")
     tg = graph.device(dev)
@@ -3531,7 +3631,7 @@ def k16_checks(graph, dev):
         over the plain singletons): hop 2 as `hop2_route` picks it, then
         forced onto each route (the id route only where every row's
         neighbours are few); the route picked and each launch's time."""
-        forced = ("ids", "dense", "hop") if label == "slice" else ("dense", "hop")
+        forced = ("ids", "hop") if label == "slice" else ("hop",)
         for route in (None,) + forced:
             got = khop_sketches_of_singletons(g_tg, HLL_HOPS, p, HLL_BITS, 42, route)
             errs[f"singleton route {label} p {p} {route or 'picked'}"] = exact_err(
@@ -3592,8 +3692,9 @@ def k16_checks(graph, dev):
                 library_ms=None,
                 # a hop: registers in and out, the CSR; a byte max per
                 # gathered register.
-                **bound(2 * N_NODES * m + 4 * (N_NODES + 1 + tg.n_arcs), tg.n_arcs * m))
-            n_bytes = singleton_route_bytes(tg, p, None)
+                **bound(2 * N_NODES * m + 4 * (N_NODES + 1 + tg.n_arcs), tg.n_arcs * m),
+                floor_ms=hop_floor_ms(tg, m), plan_chunks=tg.row_plan(HOP_SPLIT).n_chunks)
+            n_bytes = singleton_route_bytes(tg, p)
             entries["sketch_hop1"] = dict(
                 source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
                 max_abs_err=0.0, ms=case["hop1_ms"],
@@ -3625,7 +3726,7 @@ def k16_checks(graph, dev):
                 source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
                 max_abs_err=0.0, precision=p, hop2_route="ids", ms=case["hop2_ids_ms"],
                 plain_ms=plain_hops[1] - plain_hops[0], library_ms=None,
-                **bound(singleton_route_bytes(tg, p, "ids"), 0))
+                **bound(singleton_route_bytes(tg, p), 0))
         del base, sk
         torch.cuda.empty_cache()
     # The general route, which any caller with its own base takes: the
@@ -3639,22 +3740,52 @@ def k16_checks(graph, dev):
     torch.cuda.empty_cache()
     hg = hub_graph(graph)
     htg = hg.device(dev)
+    hub_hops = {}
     for p in (HLL_PRECISION, 4, 12):
         want = khop_sketches_plain(htg, singleton_registers_plain(
             hg.number_of_nodes, p, HLL_BITS, 42, dev), HLL_HOPS)
         singleton_route("hub graph", htg, p, want)
-        del want
+        # The hop launch alone over the singletons: the hub rows in chunks of
+        # HOP_SPLIT arcs, then the merge, a launch each a hop.
+        base = singleton_registers(hg.number_of_nodes, p, HLL_BITS, 42, dev)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = khop_sketches(htg, base, HLL_HOPS)
+        torch.cuda.synchronize()
+        counts = {c: _build.launch_counts()[c] for c in ("khop_sketches", "khop_merge")}
+        errs[f"hops hub graph p {p}"] = exact_err(f"K16a hops hub graph p {p}", got, want)
+        if counts != {"khop_sketches": HLL_HOPS, "khop_merge": HLL_HOPS}:
+            raise AssertionError(f"K16a's hops on the hub graph launched {counts}")
+        del got, want
+        one = lambda: khop_sketches(htg, base, 1)  # noqa: E731
+        hub_hops[p] = dict(launches=counts, chunks=htg.row_plan(HOP_SPLIT).n_chunks,
+                           ms=time_ms(one, 10), hop_ms=launch_event_ms(one, "khop_sketches", 5),
+                           merge_ms=launch_event_ms(one, "khop_merge", 5),
+                           floor_ms=hop_floor_ms(htg, 1 << p))
+        if p == HLL_PRECISION:
+            plan = htg.row_plan(HOP_SPLIT)
+            partials = torch.randint(0, 64, (plan.n_chunks, 1 << p), dtype=torch.uint8,
+                                     device=dev)
+            own = base[plan.rows.long()]
+            owners = plan.owners()
+            entries["khop_merge"] = dict(
+                source="embiggen_tpu_torch/csrc/hll.cu", replaces="embiggen_tpu/ops/hll.py:53",
+                max_abs_err=0.0, launches_from="K16a's three hops on the hub graph, phase 21",
+                launch_counts=counts, ms=hub_hops[p]["merge_ms"],
+                plain_ms=time_ms(lambda: hop_merge_plain(plan, own, partials), 10),
+                library_ms=time_ms(lambda: own.index_reduce(
+                    0, owners, partials, "amax", include_self=True), 10),
+                library="Tensor.index_reduce (amax)",
+                # the chunks' partials and the long rows' own registers read,
+                # the long rows written
+                **bound((plan.n_chunks + 2 * plan.n_rows) * (1 << p), 0))
+            del partials, own, owners
+        del base
         torch.cuda.empty_cache()
+    entries["khop_sketches"]["hub"] = hub_hops
     entries["sketch_hop1"].update(
         hub_ms=routes[f"hub graph p {HLL_PRECISION}"]["hop1_ms"],
-        hub_bound_ms=bound(singleton_route_bytes(htg, HLL_PRECISION, None), 0)["bound_ms"])
-    # The dense route, which `hop2_route` picks on the hub graph at
-    # precision 8.
-    entries["sketch_hop2"].update(
-        dense_p8_ms=routes[f"slice p {HLL_PRECISION}"]["hop2_dense_ms"],
-        hub_dense_p8_ms=routes[f"hub graph p {HLL_PRECISION}"]["hop2_dense_ms"],
-        hub_dense_p8_bound_ms=bound(singleton_route_bytes(htg, HLL_PRECISION, "dense"),
-                                    0)["bound_ms"])
+        hub_bound_ms=bound(singleton_route_bytes(htg, HLL_PRECISION), 0)["bound_ms"])
     del htg
     torch.cuda.empty_cache()
     entries["edge_sketch_features"]["max_abs_err"] = max(
@@ -7106,9 +7237,10 @@ def main() -> None:
     tg = graph.device(dev, with_sources=True)
     graph_s = time.perf_counter() - t0
     # The other host graphs, built on the worker thread in the order the
-    # phases take them: the hub graph (phase 4), the weighted twin (21),
-    # the typed slice graph (28).
+    # phases take them: the hub graph and its K7 kernel (phase 4), the
+    # weighted twin (21), the typed slice graph (28).
     hub_graph(graph, wait=False)
+    queue_hub_kernel(graph)
     later = {"weighted": _GRAPHS_WORKER.submit(erdos_renyi, N_NODES, N_EDGES, seed=0,
                                                weighted=True),
              "typed": _GRAPHS_WORKER.submit(erdos_renyi, N_NODES, N_EDGES, seed=0,
@@ -7220,6 +7352,13 @@ def main() -> None:
     t_phase = time.perf_counter()
     new, k6_p = edge_kernel_checks(graph, tg)
     new["spmm"] = spmm_checks(graph, dev)
+    hub7 = new["spmm"]["hub"]
+    new["spmm_combine"] = dict(
+        source="embiggen_tpu_torch/csrc/spmm.cu", replaces="embiggen_tpu/ops/spmm.py:337",
+        max_abs_err=hub7["max_abs_err"], ms=hub7["combine_ms"],
+        plain_ms=hub7["combine_plain_ms"], library_ms=None,
+        launches_from="K7's forward and backward on the hub graph, phase 4",
+        **hub7["combine_bound"])
     torch.cuda.empty_cache()
     new.update(probe_checks(dev))
     torch.cuda.empty_cache()
@@ -7235,7 +7374,16 @@ def main() -> None:
           f"{new['spmm']['embedding_bag_ms']:.4f} cuSPARSE {new['spmm']['cusparse_ms']:.4f}, "
           "plan: one pass over x in place, CSR layout "
           f"{new['spmm']['layout_s']:.2f} s, gathered rows/s "
-          f"{new['spmm']['gathered_rows_per_s']:.4g} | P1 rows/s "
+          f"{new['spmm']['gathered_rows_per_s']:.4g}, gather floor "
+          f"{new['spmm']['floor_ms']:.4f}, chunks {new['spmm']['plan_chunks']} | K7 on the hub "
+          f"graph ({hub7['arcs']} arcs; {hub7['long_rows']} rows of more than {hub7['split']} "
+          f"arcs in {hub7['chunks']} chunks, transpose {hub7['transpose_chunks']}; CSR layout "
+          f"{hub7['layout_s']:.2f} s on the worker thread, waited {hub7['wait_s']:.2f} s): err "
+          "against the float64 plain version "
+          f"{hub7['max_abs_err']:.3g}, two calls bit-equal, forward sqrtn ms {hub7['ms']:.4f} "
+          f"backward {hub7['backward_ms']:.4f}, gather floor {hub7['floor_ms']:.4f}, combine "
+          f"{hub7['combine_ms']:.4f} plain {hub7['combine_plain_ms']:.4f}, launches "
+          f"{hub7['launches']} | P1 rows/s "
           f"{new['tile_gather_sums']['rows_per_s']:.4g} GB/s "
           f"{new['tile_gather_sums']['gbytes_per_s']:.4g}; P2 rows/s "
           f"{new['table_gather_sums']['rows_per_s']:.4g} GB/s "
@@ -7715,6 +7863,7 @@ def main() -> None:
     new, k15_errs, settled = k15_checks(graph, weighted_graph, dev)
     torch.cuda.empty_cache()
     k16, k16_errs, k16_plain_s, k16_routes, k16_general = k16_checks(graph, dev)
+    k16_hub_launches = k16["khop_merge"]["launch_counts"]
     new.update(k16)
     kernels.update(new)
     torch.cuda.empty_cache()
@@ -7736,7 +7885,14 @@ def main() -> None:
           f"nodes | K16b ms by case: {k16['edge_sketch_features']['ms_by_case']} | K16a's "
           f"singleton route by graph and precision (hop 2's route; launch ms on CUDA "
           f"events, hop 2 also forced onto each route): {k16_routes} | the general route's "
-          f"launches (singletons, then the hop launch): {k16_general}", flush=True)
+          f"launches (singletons, then the hop launch): {k16_general} | the hop launch on the "
+          f"hub graph ({HLL_HOPS} hops exact; one hop's ms, hop and merge launches' ms, "
+          f"gather floor, chunks, launches of {HLL_HOPS} hops) by precision: "
+          + "; ".join(f"{p}: {v['ms']:.4f} ({v['hop_ms']:.4f} + {v['merge_ms']:.4f}) floor "
+                      f"{v['floor_ms']:.4f}, {v['chunks']} chunks, {v['launches']}"
+                      for p, v in k16["khop_sketches"]["hub"].items())
+          + f" | slice graph p {HLL_PRECISION} floor {k16['khop_sketches']['floor_ms']:.4f}",
+          flush=True)
 
     # ------------------------------------------------------------ 22. S8
     t_phase = time.perf_counter()
@@ -8111,6 +8267,8 @@ def main() -> None:
         raise AssertionError(f"kernels entries without {missing}")
     launches = {**path_launches, **gcn_launches, **perceptron_launches,
                 **{"edge_metrics": k8_launches["edge_metrics"]}, **probe_launches,
+                "spmm_combine": kernels["spmm"]["hub"]["launches"]["spmm_combine"],
+                "khop_merge": k16_hub_launches["khop_merge"],
                 **{k: s5_launches[k] for k in ("ell_walks", "cbow_update")},
                 **k10_launches, **s6["Second-order LINE"][1], **s6["TransE"][1],
                 "walklets_update": s7["Walklets SkipGram"][1]["walklets_update"],

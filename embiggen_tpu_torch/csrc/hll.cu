@@ -2,11 +2,11 @@
 // `edge_sketch_features`: the HyperLogLog k-hop ball sketches behind
 // HyperSketching and the GCN's lazy edge features.
 //
-// K16a replaces embiggen_tpu/ops/hll.py::singleton_registers (the hash of
-// each node id, its register index and rho, one register set per node) and
-// khop_sketches (`hops` register-wise max propagations, one segment_max
-// over the arcs per hop). The singletons launch writes [N, M] uint8
-// registers (M = 2^precision) with the same lowbias32 hash in uint32
+// K16a replaces embiggen_tpu/ops/hll.py::singleton_registers (:32; the
+// hash of each node id, its register index and rho, one register set per
+// node) and khop_sketches (:53; `hops` register-wise max propagations, one
+// segment_max over the arcs per hop). The singletons launch writes [N, M]
+// uint8 registers (M = 2^precision) with the same lowbias32 hash in uint32
 // arithmetic and __clz, so the registers equal the reference's bit for
 // bit. Each hop launch writes hop h of an [N, H, M] output (the port's
 // layout; the reference's is [H, N, M], transposed by its caller) from hop
@@ -33,7 +33,10 @@
 // [B, H, H, M] tensor.
 //
 // What bounds them on the H100: K16a's hops are gathers, like K7's (20M
-// rows of M bytes a hop on the slice graph); the singletons are a write
+// rows of M bytes a hop on the slice graph, each from HBM: the [N, M]
+// registers are 5 times the L2 at M 256, and the graph has no locality);
+// on a heavy-tailed graph, a hub's row walked by one thread or one warp
+// outlasts the rest of the launch. The singletons are a write
 // of N M bytes. K16b gathers 2 H M bytes per pair and does (2H + H^2) M
 // register operations on them; at H 3 and M 256, 1.5 KB and 3,840
 // operations per pair. Its bytes bound it on paper (the distinct nodes'
@@ -53,17 +56,23 @@
 // the singletons launch does, and takes the max into shared memory by byte
 // stores, each read back and stored again where a larger value raced it
 // (no atomics); then the warp writes the row with 16-byte stores. Hop 2
-// takes one route for every row of the launch, which the wrapper picks
-// from the graph's mean and largest degree: the id route lays the row's
-// neighbours' rows end to end (a warp scan of their lengths), and each
-// lane takes every 32nd id of that list, four loads in flight, finding its
-// row by a five-step shuffle search over the scan; the dense route gathers
-// the neighbours' hop-1 rows, 32 / (M / 16) neighbours at once when a row
-// has fewer than 32 pieces of 16 bytes, and merges the lanes' maxima by
-// shuffles. Hops 3 and later are the hop launch. The hop launch and the
-// singletons run a thread per (row, 16 bytes), so the threads of a row
-// read neighbouring 16-byte pieces of a gathered row and take the
-// byte-wise max of four words with __vmaxu4; no atomics. K16b runs G lanes
+// is the id route or the hop launch, for every row of the launch, as the
+// wrapper picks from the graph's mean and largest degree: the id route
+// lays the row's neighbours' rows end to end (a warp scan of their
+// lengths), and each lane takes every 32nd id of that list, four loads in
+// flight, finding its row by a five-step shuffle search over the scan.
+// Hops 3 and later are the hop launch. The singletons run a
+// thread per (row, 16 bytes). The hop launch runs a group of lanes a
+// row: a lane per 16-byte piece of the row times SLOTS neighbour slots
+// (SLOTS > 1 where a row has fewer pieces than the wrapper's lanes a row,
+// at the low precisions), each lane taking the byte-wise max of four
+// words with __vmaxu4 over every SLOTS-th neighbour's piece, the slots
+// merged by shuffles; no atomics. A row longer than the wrapper's split
+// (its row plan, `ops/rowplan.py`) is cut into chunks of that many arcs,
+// which groups take first in the launch, each writing its maxima to a
+// workspace; a second launch (`ebt_hll_hop_merge`) takes each long row's
+// own registers and its chunks' maxima. A max is exact in any order, so
+// the bytes equal the unsplit hop's. K16b runs G lanes
 // a pair (G = the row's words / 8, from 1 at precision 4-5 to 32 from
 // precision 10), 32 / G pairs a warp. For H <= 3 (a template on H) each
 // lane loads its 8 words (4 at precision 4) of all 2H rows with 16-byte
@@ -132,23 +141,83 @@ __device__ __forceinline__ uint4 vmax4(uint4 a, uint4 b) {
 }
 
 // in and out are [N, stride] views in units of 16 bytes; each row's
-// registers are its first `chunks` units.
-__global__ void hop_kernel(const int32_t* __restrict__ row_ptr,
-                           const int32_t* __restrict__ cols,
-                           const uint4* __restrict__ in, int64_t in_stride,
-                           uint4* __restrict__ out, int64_t out_stride,
-                           int64_t n, int chunks) {
+// registers are its first `units` units. Work items [0, n_chunks) are the
+// chunks of the long rows (the row plan: chunk_rows, chunk_starts, `split`
+// arcs each), whose maxima over their arcs go to partials[item]; item
+// n_chunks + r is row r when it has at most `split` arcs. A group of
+// units * SLOTS threads takes an item: thread (slot, piece) takes that
+// 16-byte piece of every SLOTS-th gathered row, and the slots merge by
+// shuffles inside the group (SLOTS > 1 only where the group divides 32).
+//
+// SLOTS is a template argument, so that at SLOTS 1 the loop is a lane's
+// plain walk of its row: 32 registers, and 64 warps an SM to keep gathers
+// in flight (unrolling it by 4, in the same call, took 32 registers with
+// spills and was no faster).
+template <int SLOTS>
+__global__ void hop_kernel(const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols,
+           const uint4* __restrict__ in, int64_t in_stride, uint4* __restrict__ out,
+           int64_t out_stride, int64_t n, int units,
+           const int32_t* __restrict__ chunk_rows, const int32_t* __restrict__ chunk_starts,
+           int64_t n_chunks, int32_t split, uint4* __restrict__ partials) {
+  const int group = units * SLOTS;
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int64_t row = t / chunks;
-  if (row >= n) return;
-  const int chunk = static_cast<int>(t - row * chunks);
-  uint4 acc = __ldg(in + row * in_stride + chunk);
-  const int32_t end = row_ptr[row + 1];
-  for (int32_t a = row_ptr[row]; a < end; ++a) {
-    const int64_t col = __ldg(cols + a);
-    acc = vmax4(acc, __ldg(in + col * in_stride + chunk));
+  const int64_t item = t / group;
+  if (item >= n_chunks + n) return;  // uniform across the group
+  const int r = static_cast<int>(t - item * group);
+  const int piece = SLOTS == 1 ? r : r % units;
+  const int slot = SLOTS == 1 ? 0 : r / units;
+  int32_t start, end;
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  uint4* dst;
+  if (item < n_chunks) {
+    const int32_t row = chunk_rows[item];
+    start = chunk_starts[item];
+    end = start + min(split, row_ptr[row + 1] - start);
+    dst = partials + item * units + piece;
+  } else {
+    const int64_t row = item - n_chunks;
+    start = row_ptr[row];
+    end = row_ptr[row + 1];
+    if (end - start > split) return;  // a long row: its chunks and the merge
+    if (slot == 0) acc = __ldg(in + row * in_stride + piece);
+    dst = out + row * out_stride + piece;
   }
-  out[row * out_stride + chunk] = acc;
+  for (int32_t a = start + slot; a < end; a += SLOTS) {
+    const int64_t col = __ldg(cols + a);
+    acc = vmax4(acc, __ldg(in + col * in_stride + piece));
+  }
+  if (SLOTS > 1) {
+    const int lane = threadIdx.x & 31;
+    const unsigned mask =
+        group == 32 ? kFull : ((1u << group) - 1u) << (lane & ~(group - 1));
+    for (int off = units; off < group; off <<= 1) {
+      acc.x = __vmaxu4(acc.x, __shfl_xor_sync(mask, acc.x, off));
+      acc.y = __vmaxu4(acc.y, __shfl_xor_sync(mask, acc.y, off));
+      acc.z = __vmaxu4(acc.z, __shfl_xor_sync(mask, acc.z, off));
+      acc.w = __vmaxu4(acc.w, __shfl_xor_sync(mask, acc.w, off));
+    }
+  }
+  if (slot == 0) *dst = acc;
+}
+
+// A thread a (long row, 16-byte piece): the row's own registers and its
+// chunks' partials, a byte-wise max (exact in any order).
+__global__ void hop_merge_kernel(const int32_t* __restrict__ long_rows,
+                                 const int32_t* __restrict__ chunk_ptr, int64_t n_long,
+                                 const uint4* __restrict__ in, int64_t in_stride,
+                                 const uint4* __restrict__ partials,
+                                 uint4* __restrict__ out, int64_t out_stride, int units) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t i = t / units;
+  if (i >= n_long) return;
+  const int piece = static_cast<int>(t - i * units);
+  const int64_t row = long_rows[i];
+  uint4 acc = __ldg(in + row * in_stride + piece);
+  const int32_t last = chunk_ptr[i + 1];
+  for (int32_t k = chunk_ptr[i]; k < last; ++k) {
+    acc = vmax4(acc, __ldg(partials + static_cast<int64_t>(k) * units + piece));
+  }
+  out[row * out_stride + piece] = acc;
 }
 
 // ------------------------------------------------ the singleton route
@@ -179,36 +248,6 @@ __device__ __forceinline__ void put_codes(volatile uint8_t* regs, const uint32_t
       if ((pending >> q & 1u) && regs[idx] >= rho) pending &= ~(1u << q);
     }
     __syncwarp();
-  }
-}
-
-// Hop 2 of the singletons' sketches by the dense route, a warp a row: v's
-// hop-1 row and its neighbours', a byte-wise max. Lanes take (neighbour
-// slot, 16-byte piece) pairs. hop1 and out are [N, stride] in units of 16
-// bytes; a row's registers are its first `chunks` units.
-__global__ void __launch_bounds__(kBallWarps * 32) hop2_dense_kernel(
-    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols, int64_t n,
-    int chunks, const uint4* __restrict__ hop1, uint4* __restrict__ out, int64_t stride) {
-  const int lane = threadIdx.x & 31;
-  const int64_t v = blockIdx.x * static_cast<int64_t>(kBallWarps) + (threadIdx.x >> 5);
-  if (v >= n) return;  // uniform across the warp
-  const int32_t vs = __ldg(row_ptr + v), ve = __ldg(row_ptr + v + 1);
-  const int width = min(chunks, 32);
-  const int slots = 32 / width, slot = lane / width;
-  for (int ch = lane % width; ch < chunks; ch += width) {  // the same count on every lane
-    uint4 acc = slot == 0 ? __ldg(hop1 + v * stride + ch) : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 4
-    for (int32_t a = vs + slot; a < ve; a += slots) {
-      const int64_t u = __ldg(cols + a);
-      acc = vmax4(acc, __ldg(hop1 + u * stride + ch));
-    }
-    for (int off = width; off < 32; off <<= 1) {
-      acc.x = __vmaxu4(acc.x, __shfl_xor_sync(kFull, acc.x, off));
-      acc.y = __vmaxu4(acc.y, __shfl_xor_sync(kFull, acc.y, off));
-      acc.z = __vmaxu4(acc.z, __shfl_xor_sync(kFull, acc.z, off));
-      acc.w = __vmaxu4(acc.w, __shfl_xor_sync(kFull, acc.w, off));
-    }
-    if (slot == 0) out[v * stride + ch] = acc;
   }
 }
 
@@ -586,28 +625,68 @@ int ebt_hll_singletons(long long n, int precision, int bits, unsigned offset,
 }
 
 // in and out: rows of m registers (m a multiple of 16) at byte strides
-// in_stride and out_stride (multiples of 16), 16-byte aligned.
+// in_stride and out_stride (multiples of 16), 16-byte aligned. slots: 1, or
+// 2, 4 or 8 with (m / 16) * slots dividing 32. The row plan: n_chunks
+// chunks (chunk_rows, chunk_starts) of `split` arcs of the rows longer
+// than `split`, whose maxima go to partials ([n_chunks, m] bytes, 16-byte
+// aligned); with n_chunks 0 and split 2^31 - 1, no row is long.
 int ebt_hll_hop(const void* row_ptr, const void* cols, const void* in,
                 long long in_stride, void* out, long long out_stride,
-                long long n, int m, void* stream) {
+                long long n, int m, int slots, const void* chunk_rows,
+                const void* chunk_starts, long long n_chunks, int split, void* partials,
+                void* stream) {
   if (n == 0) return 0;
-  const int chunks = m / 16;
-  const long long threads = n * chunks;
+  const int units = m / 16;
+  const int group = units * slots;
+  if (slots < 1 || (slots & (slots - 1)) != 0 || (slots > 1 && 32 % group != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long threads = (n_chunks + n) * group;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  hop_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ptr), static_cast<const int32_t*>(cols),
-      static_cast<const uint4*>(in), in_stride / 16, static_cast<uint4*>(out),
-      out_stride / 16, n, chunks);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* rp = static_cast<const int32_t*>(row_ptr);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* src = static_cast<const uint4*>(in);
+  auto* dst = static_cast<uint4*>(out);
+  const auto* cr = static_cast<const int32_t*>(chunk_rows);
+  const auto* cs = static_cast<const int32_t*>(chunk_starts);
+  auto* part = static_cast<uint4*>(partials);
+#define EBT_HOP_LAUNCH(S)                                                                  \
+  hop_kernel<S><<<blocks, kThreads, 0, st>>>(rp, c, src, in_stride / 16, dst, out_stride / 16, \
+                                             n, units, cr, cs, n_chunks, split, part)
+  switch (slots) {
+    case 1: EBT_HOP_LAUNCH(1); break;
+    case 2: EBT_HOP_LAUNCH(2); break;
+    case 4: EBT_HOP_LAUNCH(4); break;
+    case 8: EBT_HOP_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef EBT_HOP_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// Hop 1 (route 0) or hop 2 of the singletons' sketches at precision 4-12,
-// hop 2 by the id route (route 1) or the dense route (route 2, from the
-// hop-1 rows at hop1): out (and hop1) rows of 2^precision registers at
-// byte stride `stride` (a multiple of 16), 16-byte aligned.
+// The second launch of a plan with n_long long rows: out[long_rows[i]] =
+// the byte-wise max of in[long_rows[i]] and partials[chunk_ptr[i] ..
+// chunk_ptr[i + 1]); strides and alignment as ebt_hll_hop's.
+int ebt_hll_hop_merge(const void* long_rows, const void* chunk_ptr, long long n_long,
+                      const void* in, long long in_stride, const void* partials, void* out,
+                      long long out_stride, int m, void* stream) {
+  if (n_long == 0) return 0;
+  const int units = m / 16;
+  const long long threads = n_long * units;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  hop_merge_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(long_rows), static_cast<const int32_t*>(chunk_ptr), n_long,
+      static_cast<const uint4*>(in), in_stride / 16, static_cast<const uint4*>(partials),
+      static_cast<uint4*>(out), out_stride / 16, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Hop 1 (second 0) or hop 2 by the id route (second 1) of the singletons'
+// sketches at precision 4-12: out rows of 2^precision registers at byte
+// stride `stride` (a multiple of 16), 16-byte aligned.
 int ebt_hll_ball(const void* row_ptr, const void* cols, long long n, int precision, int bits,
-                 unsigned offset, int route, const void* hop1, void* out, long long stride,
-                 void* stream) {
+                 unsigned offset, int second, void* out, long long stride, void* stream) {
   if (n == 0) return 0;
   const size_t smem = static_cast<size_t>(kBallWarps) << precision;
   const unsigned blocks = static_cast<unsigned>((n + kBallWarps - 1) / kBallWarps);
@@ -615,15 +694,12 @@ int ebt_hll_ball(const void* row_ptr, const void* cols, long long n, int precisi
   const auto* rp = static_cast<const int32_t*>(row_ptr);
   const auto* c = static_cast<const int32_t*>(cols);
   auto* o = static_cast<uint4*>(out);
-  if (route == 0) {
+  if (second == 0) {
     hop1_ids_kernel<<<blocks, kBallWarps * 32, smem, st>>>(rp, c, n, precision, bits, offset, o,
                                                            stride / 16);
-  } else if (route == 1) {
+  } else if (second == 1) {
     hop2_ids_kernel<<<blocks, kBallWarps * 32, smem, st>>>(rp, c, n, precision, bits, offset, o,
                                                            stride / 16);
-  } else if (route == 2) {
-    hop2_dense_kernel<<<blocks, kBallWarps * 32, 0, st>>>(
-        rp, c, n, (1 << precision) / 16, static_cast<const uint4*>(hop1), o, stride / 16);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

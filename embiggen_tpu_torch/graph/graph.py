@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops.rowplan import RowPlan, row_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +66,22 @@ class TorchGraph:
     node_type_of: Optional[torch.Tensor] = None
     ell_ntypes: Optional[torch.Tensor] = None
     ell_etypes: Optional[torch.Tensor] = None
+    # Row plans of this export by split (`row_plan`), built at first use; a
+    # `dataclasses.replace` of the export starts without them.
+    _row_plans: Dict[int, RowPlan] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.col_idx.device
+
+    def row_plan(self, split: int) -> RowPlan:
+        """The rows of more than `split` arcs cut into chunks
+        (`ops.rowplan.row_plan`), on this export's device; built once per
+        export and split."""
+        if split not in self._row_plans:
+            self._row_plans[split] = row_plan(self.row_ptr, split)
+        return self._row_plans[split]
 
 
 def _as_names(names: Optional[Sequence[str]], count: int, prefix: str) -> np.ndarray:

@@ -57,7 +57,8 @@ _SIGNATURES = {
     "ebt_edge_minibatch": (
         (_P,) * 6 + (_I32, _I32, _I64, _I64, _I64, _I32, _I32, _P, _P, _P, _U64, _U32, _P),
         _I32),
-    "ebt_csr_spmm": ((_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P), _I32),
+    "ebt_csr_spmm": ((_P,) * 7 + (_I64, _I32, _I32, _P, _P, _I64, _I32, _P, _P), _I32),
+    "ebt_csr_spmm_combine": ((_P, _P, _I64, _P, _P, _P, _I32, _I32, _P), _I32),
     "ebt_edge_metrics": ((_P, _P, _P, _P, _I64, _I32, _P, _P), _I32),
     "ebt_tile_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
     "ebt_table_gather_sums": ((_P, _P, _I64, _I64, _I32, _P, _P), _I32),
@@ -87,8 +88,10 @@ _SIGNATURES = {
     "ebt_glove_context_update": ((_P, _P, _P, _I64, _I32, _F32, _P), _I32),
     "ebt_min_plus_step": ((_P,) * 6 + (_I64, _I32, _I32, _P), _I32),
     "ebt_hll_singletons": ((_I64, _I32, _I32, _U32, _P, _P), _I32),
-    "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _P), _I32),
-    "ebt_hll_ball": ((_P, _P, _I64, _I32, _I32, _U32, _I32, _P, _P, _I64, _P), _I32),
+    "ebt_hll_hop": ((_P, _P, _P, _I64, _P, _I64, _I64, _I32, _I32, _P, _P, _I64, _I32, _P, _P),
+                    _I32),
+    "ebt_hll_hop_merge": ((_P, _P, _I64, _P, _I64, _P, _P, _I64, _I32, _P), _I32),
+    "ebt_hll_ball": ((_P, _P, _I64, _I32, _I32, _U32, _I32, _P, _I64, _P), _I32),
     "ebt_hll_edge_features": ((_P, _I32, _I32, _P, _P, _I64, _F32, _P, _P), _I32),
     "ebt_sketch_candidates": ((_P, _P, _P, _I64, _I32, _I32, _F32, _I32, _P), _I32),
     "ebt_sketch_race_step": ((_P, _P, _P, _I32) + (_P,) * 4 + (_I64, _I32, _I32, _P), _I32),
@@ -107,13 +110,13 @@ _SIGNATURES = {
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("first_order_walks", "nce_negatives", "first_order_batch", "skipgram_nce_update",
      "mean_scatter", "mean_combine", "skipgram_mean_combine",
-     "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "edge_metrics",
+     "csr_edge_ids", "edge_prediction_mini_batch", "spmm", "spmm_combine", "edge_metrics",
      "tile_gather_sums", "table_gather_sums", "ell_walks", "ell_walks_typed",
      "rejection_walks", "exact_walks",
      "cbow_update", "siamese_mini_batch", "line_mini_batch", "walklets_update",
      "cooccurrences", "glove_gradients", "glove_node_update", "glove_context_update",
      "min_plus_step", "hll_registers",
-     "khop_sketches", "sketch_hop1", "sketch_hop2", "edge_sketch_features",
+     "khop_sketches", "khop_merge", "sketch_hop1", "sketch_hop2", "edge_sketch_features",
      "sketch_candidates", "sketch_race_step",
      "halo_spmm", "halo_spmm_backward", "sharded_spmm", "owned_gather", "owned_count",
      "owned_scatter", "sddmm", "edge_chunk", "chunk_mask"), 0,

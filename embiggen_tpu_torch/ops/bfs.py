@@ -25,7 +25,7 @@ import torch
 
 from ..graph.graph import TorchGraph
 from . import _build
-from .spmm import CSRKernel, csr_spmm
+from .spmm import SPLIT, CSRKernel, csr_spmm
 
 UNREACHED = 1e9
 
@@ -142,12 +142,13 @@ def multi_source_distances(
 
 def unit_kernel(tg: TorchGraph) -> CSRKernel:
     """The arcs of `tg` at weight 1 as a CSRKernel on its device (no
-    transpose): K7 over it is the reference's segment_sum(x[cols], rows)."""
+    transpose), with the export's row plan at K7's SPLIT: K7 over it is the
+    reference's segment_sum(x[cols], rows)."""
     ones = torch.ones(tg.n_arcs, dtype=torch.float32, device=tg.device)
     deg = tg.degrees.to(torch.float32)
     return CSRKernel(row_ptr=tg.row_ptr, rows=arc_rows(tg), cols=tg.col_idx, vals=ones,
                      abs_weight_sum=deg, sq_weight_sum=deg, n_out=tg.n_nodes,
-                     n_in=tg.n_nodes)
+                     n_in=tg.n_nodes, plan=tg.row_plan(SPLIT))
 
 
 def window_cooccurrence_counts(

@@ -7,15 +7,17 @@
   card, equal to the reference's bit for bit.
 - `khop_sketches`: [N, H, M] registers of the 1..H-hop balls, each hop the
   register-wise max over a node and its out-neighbours; K16a's hop launch
-  once per hop. The reference returns [H, N, M] and its caller transposes;
-  the port keeps [N, H, M], which is what the per-pair gathers read.
+  once per hop (`hop_launch`: a group of lanes a row, the rows of more
+  than HOP_SPLIT arcs cut into chunks by the export's row plan and merged
+  by a second launch). The reference returns [H, N, M] and its caller
+  transposes; the port keeps [N, H, M], which is what the per-pair
+  gathers read.
 - `khop_sketches_of_singletons`: the same sketches from the singletons,
   byte for byte, as HyperSketching fits them: K16a's singleton route reads
   ids where the hops read registers (hop 1 hashes v and its row's ids; hop
-  2 takes, for every row, the id route over its neighbours' rows, the
-  dense route over their hop-1 registers or the hop launch, as
-  `hop2_route` picks from the degrees), then the hop launch from hop 3
-  on. No singletons launch runs.
+  2 takes, for every row, the id route over its neighbours' rows or the
+  hop launch, as `hop2_route` picks from the degrees), then the hop launch
+  from hop 3 on. No singletons launch runs.
 - `hll_cardinality`: the estimate over the last axis (plain torch).
 - `edge_sketch_features`: [B, H^2 + 2H] overlaps and differences of each
   (src, dst) pair's balls; kernel K16b, which never forms the [B, H, H, M]
@@ -35,6 +37,7 @@ import torch
 from ..graph.graph import TorchGraph
 from . import _build
 from .bfs import arc_rows
+from .rowplan import NO_SPLIT, RowPlan, chunk_of_arcs
 
 _MASK32 = 0xFFFFFFFF
 # Bytes per chunk of the plain versions' gathers (about 256 MB).
@@ -42,25 +45,32 @@ _CHUNK_BYTES = 1 << 28
 # Hop 2 of the singleton route takes one route for every row of a launch,
 # which `hop2_route` picks from the graph's mean and largest degree. The id
 # route where a neighbour's row of the mean degree, 4 mean bytes of ids, is
-# at most HOP2_ID_PERCENT % of the M register bytes the dense route reads
-# for it: on an H100 (80GB HBM3, 700 W) it took about 3.5 times the dense route's
-# time a byte (erdos_renyi(1M, 10M), precision 8: 1.76 GB of ids in 1.95 ms
-# against 5.4 GB of registers in 1.72; PERF.md).
+# at most HOP2_ID_PERCENT % of the M register bytes the hop launch reads for
+# it: on an H100 (80GB HBM3, 700 W) it took about 3.5 times the hop launch's
+# time a byte (erdos_renyi(1M, 10M), precision 8: 1.76 GB of ids in 1.93 ms
+# against 5.4 GB of registers in 1.70; PERF.md).
 HOP2_ID_PERCENT = 30
 # A warp forms a row, so a row whose id route reads more ids than this
 # outlasts the launch (a hub's 35,000 neighbours of degree 38 took over
 # 20 ms alone on the H100).
 HOP2_WARP_IDS = 1 << 16
-# The dense route takes 32 / (M / 16) neighbours of a row at once: it beats
-# the hop launch where that is 16 or more, at M up to HOP2_DENSE_M.
-HOP2_DENSE_M = 32
-# A row longer than this is a long serial walk for the hop launch, which
-# gives each 16-byte piece of a row one thread: on a graph with such rows
-# the dense route beats it up to M 256.
-HOP2_LONG_ROW = 1024
-# "ids" and "dense": hop 2 by the singleton route's launch on that route;
-# "hop": by the hop launch, as every later hop.
-HOP2_ROUTES = ("ids", "dense", "hop")
+# The hop launch gives a row a group of HOP_LANES lanes where its M / 16
+# pieces of 16 bytes are fewer (HOP_LANES / pieces neighbours' rows at
+# once: 8 at precision 4, 1 from precision 7), else a lane a piece; rows of
+# more than HOP_SPLIT arcs are cut into chunks of HOP_SPLIT arcs, each a
+# group's, merged by a second launch. On an H100 (80GB HBM3, 700 W), ten
+# means a setting: 8 lanes ran precision 4 fastest on the slice graph and
+# the hub graph (0.181 and 0.300 ms; 4 lanes 0.185 and 0.327); at 6 they
+# ran 1.4% behind a lane a piece on the slice graph (0.501 against 0.494)
+# and 10% ahead on the hub graph (0.771 against 0.852). On the hub graph
+# chunks of 512 arcs ran precision 8 fastest (2.471 ms; 1,024 2.491, 2,048
+# 2.474), within 6% of 1,024 at precisions 4-5 and 11% ahead of 2,048 at
+# 5 (PERF.md).
+HOP_LANES = 8
+HOP_SPLIT = 512
+# "ids": hop 2 by the singleton route's id launch; "hop": by the hop
+# launch, as every later hop.
+HOP2_ROUTES = ("ids", "hop")
 
 
 def hash32(x: torch.Tensor) -> torch.Tensor:
@@ -139,16 +149,80 @@ def khop_sketches_plain(tg: TorchGraph, base: torch.Tensor, hops: int) -> torch.
     return out
 
 
+def hop_merge_plain(plan: RowPlan, own: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the hop's merge launch: [L, M], the long
+    rows' own registers `own` and their chunks' maxima `partials` ([C, M]),
+    a byte-wise max (`index_reduce_` "amax")."""
+    return own.clone().index_reduce_(0, plan.owners(), partials, "amax", include_self=True)
+
+
+def khop_sketches_split_plain(tg: TorchGraph, base: torch.Tensor, hops: int,
+                              split: int = HOP_SPLIT) -> torch.Tensor:
+    """Plain PyTorch version of the hop launch's split route at `split`:
+    each hop, the short rows' maxima and the long rows' chunk maxima (an
+    `index_reduce_` "amax" over the arcs' segments,
+    `rowplan.chunk_of_arcs`), then the merge's plain version."""
+    n, m = base.shape
+    plan = tg.row_plan(split)
+    seg = chunk_of_arcs(plan, tg.row_ptr)
+    long_rows = plan.rows.long()
+    out = torch.empty((n, hops, m), dtype=torch.uint8, device=base.device)
+    chunk = max(1, _CHUNK_BYTES // m)
+    current = base
+    for h in range(hops):
+        ext = torch.cat([current, current.new_zeros((plan.n_chunks, m))])
+        for i in range(0, tg.n_arcs, chunk):
+            ext.index_reduce_(0, seg[i:i + chunk], current[tg.col_idx[i:i + chunk].long()],
+                              "amax", include_self=True)
+        nxt = ext[:n]
+        nxt[long_rows] = hop_merge_plain(plan, current[long_rows], ext[n:])
+        out[:, h] = nxt
+        current = out[:, h]
+    return out
+
+
+def hop_slots(m: int) -> int:
+    """Neighbour slots of the hop launch's group at M registers: HOP_LANES
+    lanes a row where its M / 16 pieces are fewer and divide 32, else 1."""
+    units = m // 16
+    if units >= HOP_LANES or 32 % units:
+        return 1
+    return HOP_LANES // units
+
+
+def hop_launch(tg: TorchGraph, src: int, src_stride: int, dst: int, dst_stride: int,
+               m: int) -> None:
+    """One hop of K16a on the card, from the registers at address `src`
+    (rows of `m` bytes at byte stride `src_stride`) to `dst`: the hop
+    launch (counted under "khop_sketches") over the export's row plan at
+    HOP_SPLIT, and where the plan has chunks, the merge launch (counted
+    under "khop_merge")."""
+    dev = tg.device
+    plan = tg.row_plan(HOP_SPLIT)
+    partials = None
+    if plan.n_chunks:
+        partials = torch.empty((plan.n_chunks, m), dtype=torch.uint8, device=dev)
+    _build.launch("khop_sketches", "ebt_hll_hop", dev, tg.row_ptr.data_ptr(),
+                  tg.col_idx.data_ptr(), src, src_stride, dst, dst_stride, tg.n_nodes, m,
+                  hop_slots(m),
+                  *((None, None, 0, NO_SPLIT, None) if partials is None else (
+                      plan.chunk_rows.data_ptr(), plan.chunk_starts.data_ptr(),
+                      plan.n_chunks, plan.split, partials.data_ptr())))
+    if partials is not None:
+        _build.launch("khop_merge", "ebt_hll_hop_merge", dev, plan.rows.data_ptr(),
+                      plan.chunk_ptr.data_ptr(), plan.n_rows, src, src_stride,
+                      partials.data_ptr(), dst, dst_stride, m)
+
+
 def hop2_route(tg: TorchGraph, precision: int) -> str:
     """The route of hop 2 on the singleton route, from the graph's mean and
     largest degree: "ids" where a neighbour's row of the mean degree reads
     fewer bytes than HOP2_ID_PERCENT % of its M registers and no row's id
     route (its degree times the mean degree + 1) exceeds HOP2_WARP_IDS;
-    else "dense" at M up to HOP2_DENSE_M, or up to 256 with rows longer
-    than HOP2_LONG_ROW; else "hop", the hop launch. It picks the fastest
-    route measured at every precision from 4 to 12 on an H100 (PERF.md):
-    on erdos_renyi(1M, 10M) dense at 4-5, hop at 6-8, ids at 9-12; with
-    256 hubs of 4,096-65,536 neighbours added, dense at 4-8, hop at 9-12."""
+    else "hop", the hop launch. It picks the fastest route measured at
+    every precision from 4 to 12 on an H100 (PERF.md): on
+    erdos_renyi(1M, 10M) the hop launch at 4-8 and ids at 9-12; with 256
+    hubs of 4,096-65,536 neighbours added, the hop launch at 4-12."""
     m = 1 << precision
     mean = tg.n_arcs / max(tg.n_nodes, 1)
     if tg.n_arcs == 0:
@@ -156,8 +230,6 @@ def hop2_route(tg: TorchGraph, precision: int) -> str:
     longest = int(tg.degrees.max())
     if 400 * mean <= HOP2_ID_PERCENT * m and longest * (mean + 1) <= HOP2_WARP_IDS:
         return "ids"
-    if m <= HOP2_DENSE_M or (m <= 256 and longest > HOP2_LONG_ROW):
-        return "dense"
     return "hop"
 
 
@@ -195,15 +267,14 @@ def khop_sketches_of_singletons(
     stride, offset = hops * m, seed_offset(seed)
     rp, cols = tg.row_ptr.data_ptr(), tg.col_idx.data_ptr()
     _build.launch("sketch_hop1", "ebt_hll_ball", dev, rp, cols, n, precision, bits, offset, 0,
-                  None, out.data_ptr(), stride)
+                  out.data_ptr(), stride)
     route = route or (hop2_route(tg, precision) if hops >= 2 else "hop")
-    ball_hop2 = hops >= 2 and route != "hop"
+    ball_hop2 = hops >= 2 and route == "ids"
     if ball_hop2:
         _build.launch("sketch_hop2", "ebt_hll_ball", dev, rp, cols, n, precision, bits, offset,
-                      1 if route == "ids" else 2, out.data_ptr(), out.data_ptr() + m, stride)
+                      1, out.data_ptr() + m, stride)
     for h in range(2 if ball_hop2 else 1, hops):
-        _build.launch("khop_sketches", "ebt_hll_hop", dev, rp, cols,
-                      out.data_ptr() + (h - 1) * m, stride, out.data_ptr() + h * m, stride, n, m)
+        hop_launch(tg, out.data_ptr() + (h - 1) * m, stride, out.data_ptr() + h * m, stride, m)
     return out
 
 
@@ -225,9 +296,7 @@ def khop_sketches(tg: TorchGraph, base: torch.Tensor, hops: int) -> torch.Tensor
     for h in range(hops):
         src, src_stride = ((base.data_ptr(), m) if h == 0
                            else (out.data_ptr() + (h - 1) * m, hops * m))
-        _build.launch("khop_sketches", "ebt_hll_hop", dev, tg.row_ptr.data_ptr(),
-                      tg.col_idx.data_ptr(), src, src_stride, out.data_ptr() + h * m,
-                      hops * m, n, m)
+        hop_launch(tg, src, src_stride, out.data_ptr() + h * m, hops * m, m)
     return out
 
 

@@ -12,6 +12,10 @@ transposed kernel, applied to `g / den`; the kernel weights get no
 gradient. On CUDA tensors both directions are kernel K7
 (`csrc/spmm.cu`); on CPU tensors the plain version below. The TPU layout
 (single-K ELLPACK, COO overflow and its v5e cost model) is not ported.
+Each kernel and its transpose carry a row plan (`ops/rowplan.py`): rows of
+more than SPLIT arcs are cut into chunks that separate warps sum, and a
+second launch adds each long row's chunks in order
+(`csr_spmm_split_plain` is that route's plain version).
 
 `sddmm(rows, cols, a, b)` is the per-edge score a[rows]·b[cols], a
 `torch.autograd.Function`: kernel K20a (`csrc/sddmm.cu`) forward on CUDA
@@ -28,11 +32,17 @@ import numpy as np
 import torch
 
 from . import _build
+from .rowplan import NO_SPLIT, RowPlan, chunk_of_arcs, row_plan
 
 # Arcs per chunk of the plain version, so its [chunk, D] gather stays
 # about 1 GB (the whole [E, D] gather is 10 GB at E = 20M, D = 128).
 _CHUNK_ELEMENTS = 1 << 28
 COMBINERS = ("sum", "mean", "sqrtn")
+# Arcs a chunk of a long row (the row plan cuts every row with more). On
+# an H100 (80GB HBM3, 700 W), over the slice graph plus 256 hubs, a
+# forward took 4.94, 4.92, 4.91, 4.93 and 4.94 ms at splits of 256, 512,
+# 1,024, 2,048 and 4,096 (22.57 unsplit; PERF.md).
+SPLIT = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +58,9 @@ class CSRKernel:
     n_out: int
     n_in: int
     transpose: Optional["CSRKernel"] = None
+    # The rows of more than `plan.split` arcs in chunks (None: no row is
+    # split); `csr_kernel` builds it at SPLIT.
+    plan: Optional[RowPlan] = None
 
     @property
     def device(self) -> torch.device:
@@ -106,8 +119,9 @@ def csr_kernel(
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
+    row_ptr = np.concatenate([[0], np.cumsum(counts)])
     return CSRKernel(
-        row_ptr=put(np.concatenate([[0], np.cumsum(counts)]), np.int32),
+        row_ptr=put(row_ptr, np.int32),
         rows=put(rows, np.int32),
         cols=put(cols, np.int32),
         vals=put(vals, np.float32),
@@ -117,6 +131,7 @@ def csr_kernel(
         n_in=n_in,
         transpose=(csr_kernel(cols, rows, vals, n_in, device, n_out, False)
                    if with_transpose else None),
+        plan=row_plan(torch.from_numpy(row_ptr), SPLIT).to(device),
     )
 
 
@@ -136,13 +151,48 @@ def csr_spmm_plain(
     return out if row_scale is None else out * row_scale[:, None]
 
 
+def spmm_combine_plain(plan: RowPlan, partials: torch.Tensor,
+                       row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K7's combine launch: [L, D], each long row's
+    chunk partials ([C, D]) summed in chunk order (`index_add_`), times its
+    row_scale."""
+    out = torch.zeros((plan.n_rows, partials.shape[1]), dtype=partials.dtype,
+                      device=partials.device)
+    out.index_add_(0, plan.owners(), partials)
+    return out if row_scale is None else out * row_scale[plan.rows.long(), None]
+
+
+def csr_spmm_split_plain(
+    k: CSRKernel, x: torch.Tensor, row_scale: Optional[torch.Tensor] = None,
+    col_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K7's split route over `k.plan`: each short
+    row's sum and each long row's chunk partials (gathers and `index_add_`
+    over the arcs' segments, `rowplan.chunk_of_arcs`), then the combine's
+    plain version for the long rows, then row_scale."""
+    d = x.shape[1]
+    n_chunks = 0 if k.plan is None else k.plan.n_chunks
+    seg = k.rows.long() if not n_chunks else chunk_of_arcs(k.plan, k.row_ptr)
+    sums = torch.zeros((k.n_out + n_chunks, d), dtype=x.dtype, device=x.device)
+    w = k.vals if col_scale is None else k.vals * col_scale[k.cols.long()]
+    chunk = max(1, _CHUNK_ELEMENTS // max(d, 1))
+    for i in range(0, k.n_arcs, chunk):
+        sums.index_add_(0, seg[i:i + chunk], x[k.cols[i:i + chunk].long()] * w[i:i + chunk, None])
+    out = sums[:k.n_out] if row_scale is None else sums[:k.n_out] * row_scale[:, None]
+    if n_chunks:
+        out[k.plan.rows.long()] = spmm_combine_plain(k.plan, sums[k.n_out:], row_scale)
+    return out
+
+
 def csr_spmm(
     k: CSRKernel, x: torch.Tensor, row_scale: Optional[torch.Tensor] = None,
     col_scale: Optional[torch.Tensor] = None, counter: str = "spmm",
 ) -> torch.Tensor:
     """[n_out, D] f32: out[r] = row_scale[r] · Σ_(r, c, w) w · col_scale[c] ·
     x[c] over the arcs of `k` (either scale may be None). Kernel K7 on CUDA
-    tensors (counted under `counter`), the plain version on CPU tensors."""
+    tensors (counted under `counter`; with a row plan that has chunks, its
+    combine launch follows, counted under "spmm_combine"), the plain
+    version on CPU tensors."""
     if not _build.is_cuda(x):
         return csr_spmm_plain(k, x, row_scale, col_scale)
     dev = x.device
@@ -155,15 +205,29 @@ def csr_spmm(
     _build.check(k.vals, "kernel values", torch.float32, None, dev)
     _build.check(row_scale, "row_scale", torch.float32, (k.n_out,), dev)
     _build.check(col_scale, "col_scale", torch.float32, (k.n_in,), dev)
+    plan = k.plan if k.plan is not None and k.plan.n_chunks else None
     out = torch.empty((k.n_out, d), dtype=torch.float32, device=dev)
-    # float4 loads and stores need every row of x and out 16-byte aligned: a
-    # contiguous view at an odd storage offset takes the scalar kernel.
-    vec4 = d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    partials = None
+    if plan is not None:
+        _build.check(plan.chunk_rows, "the plan's chunk rows", torch.int32, None, dev)
+        partials = torch.empty((plan.n_chunks, d), dtype=torch.float32, device=dev)
+    # float4 loads and stores need every row of x, out and the partials
+    # 16-byte aligned: a contiguous view at an odd storage offset takes the
+    # scalar kernel.
+    vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, out, partials)
+                              if t is not None)
     _build.launch(
         counter, "ebt_csr_spmm", dev, k.row_ptr.data_ptr(), k.cols.data_ptr(),
         k.vals.data_ptr(), x.data_ptr(), _build.ptr(row_scale),
         _build.ptr(col_scale), out.data_ptr(), k.n_out, d, int(vec4),
+        *((None, None, 0, NO_SPLIT, None) if plan is None else (
+            plan.chunk_rows.data_ptr(), plan.chunk_starts.data_ptr(), plan.n_chunks,
+            plan.split, partials.data_ptr())),
     )
+    if plan is not None:
+        _build.launch("spmm_combine", "ebt_csr_spmm_combine", dev, plan.rows.data_ptr(),
+                      plan.chunk_ptr.data_ptr(), plan.n_rows, partials.data_ptr(),
+                      _build.ptr(row_scale), out.data_ptr(), d, int(vec4))
     return out
 
 

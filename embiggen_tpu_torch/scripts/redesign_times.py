@@ -3,7 +3,8 @@ steps and fits that run them, on one NVIDIA GPU; one JSON line.
 
     python embiggen_tpu_torch/scripts/redesign_times.py [--parts k13a k4 line k12 walklets k15a spine
                                                          k18 nodesketch k16b gcn_hll k13b glove
-                                                         k14 k9 k8 k16a k1 k2 k5 k6]
+                                                         k14 k9 k8 k16a k1 k2 k5 k6 k7 k16hop
+                                                         gcn_hubs]
 
 It imports whichever `embiggen_tpu_torch` comes first on the path, and calls
 only the kernels' wrappers and the models' steps and fits, whose signatures
@@ -122,7 +123,32 @@ package. Each kernel runs on `erdos_renyi(1M nodes, 10M edges, seed=0)`:
   checkout) and, on a workspace, of its first batch from seed 7; and the
   S3 GCN step (batch 2^20, seeded node features of width 128, K6 on the
   fit's workspace where the checkout has one): three means of 20 steady
-  steps on CUDA events and K6's launch time in 10 of them.
+  steps on CUDA events and K6's launch time in 10 of them;
+- K7 at D 128 over the Symmetric Normalized Laplacian of the slice graph
+  and of the hub graph (`planted_hubs`): the forward with the sum and sqrtn
+  combiners and the backward (the transposed kernel with col_scale 1/den,
+  as the gradient runs it), five means of 20 calls each on CUDA events,
+  each launch's time (`launch_ms`), and the gather floor (the arcs'
+  gathered rows, each once per arc except the rows whose reads recur
+  within the L2, `gathered_bytes`; the CSR and the output; at 3.35 TB/s),
+  and K15b, WINE's hop
+  (K7 at unit values over the export's arcs, `bfs.unit_kernel`) at D 100,
+  the same way; in a checkout with
+  row plans, the plan's long rows and chunks, the same calls at each split
+  of K7_SPLITS on the hub graph;
+- K16a's hop launch (`khop_sketches` for one hop over the singletons, seed
+  42, bits 6) at every precision from 4 to 12 on both graphs: five means
+  of 10 calls, each launch's time and the gather floor (the gathered
+  rows as K7's, at least a 32-byte sector, the CSR, the rows' own
+  registers and the output); in a checkout with the split hop launch, the
+  lanes a row of HOP_LANES_SWEEP at each precision on both graphs (five
+  means each) and the splits of HOP_SPLITS on the hub graph at precisions
+  4, 5, 8 and 12 (`hop_at`);
+- `floors`: the gather floors alone, K7 at D 128, K15b at D 100 and the
+  hop launch at precisions 4-12, on both graphs;
+- the S3 GCN step (units 128-128, batch 2^20, seeded [N, 128] features) on
+  the hub graph: five means of 20 steady steps on CUDA events, and K7's
+  launches' time (and its combine launch's) in 10 of them.
 
 Every number is the card's; the line carries the card's name and power
 limit.
@@ -1099,8 +1125,209 @@ def k6_times(graph, dev) -> dict:
     return out
 
 
+HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
+K7_SPLITS = (256, 512, 1024, 2048, 4096)
+K15B_DIM = 100
+HOP_LANES_SWEEP = (1, 2, 4, 8)
+HOP_SPLITS = (256, 512, 1024, 2048, 4096, 8192)
+RUNS = 5
+
+
+def laplacian_kernel(g, dev):
+    from embiggen_tpu_torch.graph.laplacians import kernel_coo
+    from embiggen_tpu_torch.ops.spmm import csr_kernel
+
+    return csr_kernel(*kernel_coo(g, "Symmetric Normalized Laplacian"), g.number_of_nodes,
+                      device=dev)
+
+
+def gathered_bytes(cols: torch.Tensor, row_bytes: int) -> int:
+    """Bytes from HBM of the rows that the arcs with ids `cols` gather, each
+    row `row_bytes` (at least a 32-byte sector): a row once per arc that
+    reads it, except the rows whose reads come back while they are still
+    in the L2. A row read r times among the E gathers is read again after
+    about E / r others, which fit in the L2 when r * L2_BYTES > E * row
+    bytes; those rows (the most read first, as many as fit in the L2
+    together) count once. On the slice graph no row is read that often at
+    D 128; on the hub graph the 256 hub rows are."""
+    b = max(row_bytes, 32)
+    e = cols.numel()
+    reads = torch.sort(torch.bincount(cols.long()), descending=True).values
+    hot = reads[reads * L2_BYTES > e * b][:L2_BYTES // b]
+    return b * (e - int(hot.sum()) + hot.numel())
+
+
+def k7_floor_ms(k, d: int) -> float:
+    """K7's gather floor: the rows the arcs gather (`gathered_bytes`, [D]
+    f32), the CSR's ids, weights and row pointers, the [n_out, D] output, at
+    3.35 TB/s."""
+    n_bytes = (gathered_bytes(k.cols, 4 * d) + 8 * k.n_arcs + 4 * (k.n_out + 1)
+               + 4 * d * k.n_out)
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def k7_calls(k, x, g):
+    """{case: call}: the forward at the sum and sqrtn combiners, the
+    backward as the gradient runs it."""
+    from embiggen_tpu_torch.ops.spmm import csr_spmm, spmm
+
+    inv = k.inverse_denominator("sqrtn")
+    return {"forward_sum": lambda: spmm(k, x, "sum"),
+            "forward_sqrtn": lambda: spmm(k, x, "sqrtn"),
+            "backward_sqrtn": lambda: csr_spmm(k.transpose, g, col_scale=inv)}
+
+
+def k7_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.bfs import unit_kernel
+    from embiggen_tpu_torch.ops.spmm import csr_spmm
+
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        k = laplacian_kernel(g, dev)
+        rng = np.random.default_rng(24)
+        x = torch.from_numpy(rng.standard_normal((k.n_in, DIM), dtype=np.float32)).to(dev)
+        gr = torch.from_numpy(rng.standard_normal((k.n_out, DIM), dtype=np.float32)).to(dev)
+        planned = getattr(k, "plan", None) is not None
+        row = dict(arcs=k.n_arcs, floor_ms=k7_floor_ms(k, DIM))
+        calls = k7_calls(k, x, gr)
+        # K15b: WINE's hop, K7 at unit values over the export's arcs, D 100.
+        tg = g.device(dev)
+        unit = unit_kernel(tg)
+        x100 = torch.from_numpy(rng.standard_normal((k.n_in, K15B_DIM), dtype=np.float32)).to(dev)
+        calls["k15b_hop"] = lambda: csr_spmm(unit, x100)
+        row["k15b_floor_ms"] = k7_floor_ms(unit, K15B_DIM)
+        for case, fn in calls.items():
+            row[case] = dict(runs_ms=[time_ms(fn, 20) for _ in range(RUNS)],
+                             launches=launch_ms(fn, 5))
+        if planned:
+            row["plan"] = dict(split=k.plan.split, long_rows=k.plan.n_rows,
+                               chunks=k.plan.n_chunks,
+                               transpose_chunks=k.transpose.plan.n_chunks)
+            if name == "hub_graph":
+                from embiggen_tpu_torch.ops.rowplan import row_plan
+
+                row["splits"] = {}
+                for split in K7_SPLITS:
+                    ks = dataclasses.replace(
+                        k, plan=row_plan(k.row_ptr, split), transpose=dataclasses.replace(
+                            k.transpose, plan=row_plan(k.transpose.row_ptr, split)))
+                    row["splits"][split] = dict(chunks=ks.plan.n_chunks, **{
+                        case: [time_ms(fn, 20) for _ in range(3)]
+                        for case, fn in k7_calls(ks, x, gr).items()})
+                    del ks
+        out[name] = row
+        del k, x, gr, tg, unit, x100, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def hop_floor_ms(tg, m: int) -> float:
+    """The hop launch's gather floor: the rows of M registers the arcs
+    gather (`gathered_bytes`), the CSR, each row's own registers and its
+    output row, at 3.35 TB/s."""
+    n_bytes = (gathered_bytes(tg.col_idx, m) + 4 * (tg.n_arcs + tg.n_nodes + 1)
+               + 2 * m * tg.n_nodes)
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def hop_at(tg, plan, slots: int, src: torch.Tensor, dst: torch.Tensor, m: int) -> None:
+    """The split hop launch (and its merge) from `src` to `dst`, [N, m]
+    registers, over `plan` with `slots` neighbour slots: `hll.hop_launch`
+    at other settings than its own, for the sweeps."""
+    from embiggen_tpu_torch.ops import _build
+    from embiggen_tpu_torch.ops.rowplan import NO_SPLIT
+
+    partials = torch.empty((max(plan.n_chunks, 1), m), dtype=torch.uint8, device=src.device)
+    _build.launch("khop_sketches", "ebt_hll_hop", src.device, tg.row_ptr.data_ptr(),
+                  tg.col_idx.data_ptr(), src.data_ptr(), m, dst.data_ptr(), m, tg.n_nodes, m,
+                  slots, *((None, None, 0, NO_SPLIT, None) if not plan.n_chunks else (
+                      plan.chunk_rows.data_ptr(), plan.chunk_starts.data_ptr(),
+                      plan.n_chunks, plan.split, partials.data_ptr())))
+    if plan.n_chunks:
+        _build.launch("khop_merge", "ebt_hll_hop_merge", src.device, plan.rows.data_ptr(),
+                      plan.chunk_ptr.data_ptr(), plan.n_rows, src.data_ptr(), m,
+                      partials.data_ptr(), dst.data_ptr(), m, m)
+
+
+def k16hop_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops import hll
+
+    split_route = hasattr(hll, "hop_launch")
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        tg = g.device(dev)
+        n = g.number_of_nodes
+        row = {}
+        for p in range(4, 13):
+            m = 1 << p
+            base = hll.singleton_registers(n, p, 6, 42, dev)
+            fn = lambda: hll.khop_sketches(tg, base, 1)  # noqa: E731
+            case = dict(floor_ms=hop_floor_ms(tg, m),
+                        runs_ms=[time_ms(fn, 10) for _ in range(RUNS)],
+                        launches=launch_ms(fn, 5))
+            if split_route:
+                dst = torch.empty_like(base)
+                units = m // 16
+
+                def hop(lanes=hll.HOP_LANES, split=hll.HOP_SPLIT):
+                    slots = lanes // units if units < lanes and 32 % units == 0 else 1
+                    hop_at(tg, tg.row_plan(split), slots, base, dst, m)
+                lanes_swept = [lanes for lanes in HOP_LANES_SWEEP
+                               if lanes == 1 or (units < lanes and 32 % units == 0)]
+                case["lanes"] = {lanes: [time_ms(lambda: hop(lanes), 10) for _ in range(RUNS)]
+                                 for lanes in lanes_swept}
+                if name == "hub_graph" and p in (4, 5, 8, 12):
+                    case["splits"] = {split: dict(chunks=tg.row_plan(split).n_chunks, ms=[
+                        time_ms(lambda: hop(split=split), 10) for _ in range(3)])
+                        for split in HOP_SPLITS}
+                del dst
+            row[f"p{p}"] = case
+            del base
+            torch.cuda.empty_cache()
+        out[name] = row
+        del tg
+        torch.cuda.empty_cache()
+    return out
+
+
+def floors(graph, dev) -> dict:
+    from embiggen_tpu_torch.ops.bfs import unit_kernel
+
+    out = {}
+    for name, g in (("slice", graph), ("hub_graph", planted_hubs(graph))):
+        tg = g.device(dev)
+        out[name] = dict(k7_ms=k7_floor_ms(laplacian_kernel(g, dev), DIM),
+                         k15b_ms=k7_floor_ms(unit_kernel(tg), K15B_DIM),
+                         hop_ms={p: hop_floor_ms(tg, 1 << p) for p in range(4, 13)})
+        del tg
+        torch.cuda.empty_cache()
+    return out
+
+
+def gcn_hubs_times(graph, dev) -> dict:
+    from embiggen_tpu_torch.models.gcn import GCNEdgePrediction
+
+    hubs = planted_hubs(graph)
+    feats = np.random.default_rng(0).standard_normal((hubs.number_of_nodes, DIM),
+                                                     dtype=np.float32)
+    model = GCNEdgePrediction(epochs=1, batch_size=GCN_BATCH, dropout_rate=0.0,
+                              early_stopping_patience=10**6, random_state=0, device=dev)
+    model.fit(hubs, node_features=feats)
+    step = gcn_step_of(model, hubs, dev)
+    runs = [time_ms(step, 20) for _ in range(RUNS)]
+    launches = launch_ms(step, 10)
+    k7_ms = launches["spmm"] + launches.get("spmm_combine", 0.0)
+    out = dict(arcs=hubs.number_of_directed_edges, step_runs_ms=runs, k7_ms_per_step=k7_ms,
+               k7_share=k7_ms / float(np.median(runs)), launches=launches)
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
 PARTS = ("k13a", "k4", "line", "k12", "walklets", "k15a", "spine", "k18", "nodesketch", "k16b",
-         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a", "k1", "k2", "k5", "k6")
+         "gcn_hll", "k13b", "glove", "k14", "k9", "k8", "k16a", "k1", "k2", "k5", "k6", "k7",
+         "k16hop", "floors", "gcn_hubs")
 
 
 def main() -> None:
@@ -1125,7 +1352,8 @@ def main() -> None:
                   nodesketch=nodesketch_times, k16b=k16b_times, gcn_hll=gcn_hll_times,
                   k13b=k13b_times, glove=glove_times, k14=k14_times, k9=k9_times,
                   k8=k8_times, k16a=k16a_times, k1=k1_times, k2=k2_times, k5=k5_times,
-                  k6=k6_times)
+                  k6=k6_times, k7=k7_times, k16hop=k16hop_times, floors=floors,
+                  gcn_hubs=gcn_hubs_times)
     out = dict(card=smi.strip().splitlines()[0], package=embiggen_tpu_torch.__file__,
                **{part: timers[part](graph, dev) for part in args.parts})
     print(json.dumps(out), flush=True)

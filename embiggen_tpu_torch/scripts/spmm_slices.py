@@ -78,7 +78,7 @@ def build_library() -> ctypes.CDLL:
         (_build.BUILD_DIR / "build_spmm_slices.log").write_text(log)
 
     return _build.compile_shared(so, compile_to, {name: (args, _I32) for name, args in (
-        ("ebt_csr_spmm", (_P,) * 7 + (_I64, _I32, _I32, _P)),
+        ("ebt_csr_spmm", (_P,) * 7 + (_I64, _I32, _I32, _P, _P, _I64, _I32, _P, _P)),
         ("ebt_pack_slices", (_P, _P, _I64, _I32, _I32, _I32, _P)),
         ("ebt_dev_sliced_pass", (_P,) * 8 + (_I64, _I32, _I32, _I32, _I32, _I32, _P)),
         ("ebt_dev_sliced_rows", (_P,) * 8 + (_I64, _I32, _I32, _I32, _I32, _P)),
@@ -203,7 +203,8 @@ def run(out_path=None) -> None:
     def in_place(kk, out, row_scale=None, col_scale=None):
         ok(lib.ebt_csr_spmm(kk.row_ptr.data_ptr(), kk.cols.data_ptr(), kk.vals.data_ptr(),
                             x.data_ptr(), _build.ptr(row_scale), _build.ptr(col_scale),
-                            out.data_ptr(), kk.n_out, DIM, 1, stream),
+                            out.data_ptr(), kk.n_out, DIM, 1, None, None, 0, 2**31 - 1, None,
+                            stream),
            "in place")
 
     for name, kk, rs, cs in (("forward", k, inv, None), ("transposed", k.transpose, None, inv)):

@@ -4,6 +4,7 @@ without them; run them there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -25,9 +26,9 @@ from embiggen_tpu_torch.ops.bfs import (
     anchor_init_from_sets, min_plus_step, min_plus_step_plain, multi_source_distances,
 )
 from embiggen_tpu_torch.ops.hll import (
-    HOP2_ROUTES, edge_sketch_features, edge_sketch_features_plain, hop2_route, khop_sketches,
-    khop_sketches_of_singletons, khop_sketches_plain, singleton_registers,
-    singleton_registers_plain,
+    HOP2_ROUTES, HOP_SPLIT, edge_sketch_features, edge_sketch_features_plain, hop2_route,
+    hop_launch, hop_slots, khop_sketches, khop_sketches_of_singletons, khop_sketches_plain,
+    singleton_registers, singleton_registers_plain,
 )
 from embiggen_tpu_torch.ops.cbow import cbow_update, cbow_update_plain
 from embiggen_tpu_torch.ops.edge_metrics import (
@@ -44,12 +45,15 @@ from embiggen_tpu_torch.ops.negatives import (
     BatchDraws, edge_prediction_mini_batch, first_order_batch, line_mini_batch, nce_negatives,
     siamese_mini_batch,
 )
+from embiggen_tpu_torch.ops.rowplan import row_plan
 from embiggen_tpu_torch.ops.scatter import (
     MeanScatterSums, SkipGramSums, mean_scatter, mean_scatter_plain, skipgram_mean_combine,
     skipgram_mean_combine_plain,
 )
 from embiggen_tpu_torch.ops.skipgram import skipgram_nce_update, skipgram_nce_update_plain
-from embiggen_tpu_torch.ops.spmm import csr_kernel, csr_spmm, csr_spmm_plain, spmm
+from embiggen_tpu_torch.ops.spmm import (
+    COMBINERS, SPLIT, csr_kernel, csr_spmm, csr_spmm_plain, csr_spmm_split_plain, spmm,
+)
 from embiggen_tpu_torch.ops.walklets import walklets_update, walklets_update_plain
 from embiggen_tpu_torch.ops.walks import (
     csr_edge_ids, csr_edge_ids_plain, ell_walks, exact_walks, first_order_walks,
@@ -652,6 +656,104 @@ def test_spmm_kernel_at_an_odd_storage_offset(dev):
     y = spmm(k, x)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, csr_spmm_plain(k, x), rtol=1e-5, atol=1e-6)
+
+
+def _hub_graph_200k():
+    """erdos_renyi(200,000, 1,000,000) plus 16 hubs of 20,000-60,000 random
+    neighbours: rows far longer than K7's and the hop launch's splits."""
+    g = erdos_renyi(200_000, 1_000_000, seed=7)
+    rng = np.random.default_rng(41)
+    n = g.number_of_nodes
+    hubs = np.repeat(np.arange(n, n + 16), rng.integers(20_000, 60_000, 16, endpoint=True))
+    one = g.sources < g.col_idx
+    return Graph.from_edge_arrays(
+        np.concatenate([g.sources[one], hubs]),
+        np.concatenate([g.col_idx[one], rng.integers(0, n + 16, len(hubs))]),
+        n_nodes=n + 16, directed=False)
+
+
+@pytest.mark.parametrize("combiner", COMBINERS)
+@pytest.mark.parametrize("width", [128, 30])
+def test_spmm_kernel_splits_hub_rows(dev, combiner, width):
+    """K7 on a graph with 16 hubs: the plan cuts the 16 hub rows (and their
+    columns, in the transpose) into chunks; forward and backward launch K7
+    and its combine once each, match the plain version run in float64 and
+    the split route's plain version (rtol 1e-5 / atol 1e-5: sums of up to
+    60,000 terms in another order; the float32 plain version's atomic
+    order alone is 1.7e-5 off on a hub's row), and two calls give the same
+    bits."""
+    g = _hub_graph_200k()
+    n = g.number_of_nodes
+    k = csr_kernel(*kernel_coo(g, "Symmetric Normalized Laplacian"), n, device=dev)
+    assert k.plan.n_rows == 16 and k.transpose.plan.n_rows == 16
+    assert k.plan.n_chunks == int(((k.plan.chunk_ptr[1:] - k.plan.chunk_ptr[:-1])).sum())
+    x = torch.randn(n, width, device=dev, requires_grad=True)
+    before = _build.launch_counts()
+    y = spmm(k, x, combiner)
+    g_out = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g_out)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert {c: after[c] - before[c] for c in ("spmm", "spmm_combine")} == {
+        "spmm": 2, "spmm_combine": 2}
+    inv = k.inverse_denominator(combiner)
+    xd = x.detach()
+    torch.testing.assert_close(y, csr_spmm_plain(k, xd.double(), inv).float(),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y, csr_spmm_split_plain(k, xd.double(), inv).float(),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        dx, csr_spmm_plain(k.transpose, g_out.double(), None, inv).float(),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(spmm(k, xd, combiner), y.detach())
+    assert torch.equal(csr_spmm(k.transpose, g_out, None, inv), dx)
+
+
+@pytest.mark.parametrize("split", [32, 1000, SPLIT])
+def test_spmm_kernel_at_other_splits(dev, split):
+    """K7 over plans at other splits (many rows split at 32) equals the
+    plain version (in float64, as above); a plan without chunks launches no
+    combine."""
+    g = _hub_graph_200k()
+    k = csr_kernel(*kernel_coo(g, "Symmetric Normalized Laplacian"), g.number_of_nodes,
+                   device=dev)
+    k = dataclasses.replace(k, plan=row_plan(k.row_ptr, split))
+    x = torch.randn(g.number_of_nodes, 64, device=dev)
+    inv = k.inverse_denominator("mean")
+    want = csr_spmm_plain(k, x.double(), inv).float()
+    torch.testing.assert_close(csr_spmm(k, x, inv), want, rtol=1e-5, atol=1e-5)
+    flat = dataclasses.replace(k, plan=row_plan(k.row_ptr, 10**6))
+    before = _build.launch_counts()["spmm_combine"]
+    torch.testing.assert_close(csr_spmm(flat, x, inv), want, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert flat.plan.n_chunks == 0 and _build.launch_counts()["spmm_combine"] == before
+
+
+@pytest.mark.parametrize("precision", [4, 5, 6, 8, 12])
+def test_hop_launch_splits_hub_rows(dev, precision):
+    """K16a's hop launch on a graph with 16 hubs: each hop launches the hop
+    and its merge once, byte for byte the plain hops, at every number of
+    neighbour slots the launch takes (8, 4, 2 at precisions 4-6, then 1),
+    and through `hop_launch` between strided views too."""
+    g = _hub_graph_200k()
+    tg = g.device(dev)
+    n, m = g.number_of_nodes, 1 << precision
+    base = singleton_registers(n, precision, 6, 42, dev)
+    before = _build.launch_counts()
+    got = khop_sketches(tg, base, 2)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert tg.row_plan(HOP_SPLIT).n_rows == 16
+    assert {c: after[c] - before[c] for c in ("khop_sketches", "khop_merge")} == {
+        "khop_sketches": 2, "khop_merge": 2}
+    want = khop_sketches_plain(tg, base, 2)
+    assert torch.equal(got, want)
+    assert hop_slots(m) == max(1, 8 >> (precision - 4))
+    wide = torch.zeros((n, 3, m), dtype=torch.uint8, device=dev)
+    hop_launch(tg, base.data_ptr(), m, wide[:, 1].data_ptr(), 3 * m, m)
+    torch.cuda.synchronize()
+    assert torch.equal(wide[:, 1], want[:, 0])
+    assert not wide[:, 0].any() and not wide[:, 2].any()
 
 
 @pytest.mark.parametrize("probe, tile", [(tile_gather_sums, 256), (table_gather_sums, 8192)])

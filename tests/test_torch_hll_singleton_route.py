@@ -74,7 +74,7 @@ def test_singleton_route_matches_reference(kind, precision, hops, seed):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("precision", [4, 6, 8, 10, 12])
 @pytest.mark.parametrize("route", hll.HOP2_ROUTES)
 def test_second_hop_forced_onto_each_route(kind, precision, route):
     tg, _ = _graphs(kind)
@@ -83,9 +83,9 @@ def test_second_hop_forced_onto_each_route(kind, precision, route):
 
 
 @pytest.mark.parametrize("mean, max_degree, precision, route", [
-    (20, 45, 4, "dense"),       # the slice graph: the dense route at precisions 4-5,
-    (20, 45, 5, "dense"),
-    (20, 45, 6, "hop"),         # ... the hop launch at 6-8,
+    (20, 45, 4, "hop"),         # the slice graph: the hop launch at precisions 4-8,
+    (20, 45, 5, "hop"),
+    (20, 45, 6, "hop"),
     (20, 45, 7, "hop"),
     (20, 45, 8, "hop"),
     (20, 45, 9, "ids"),         # ... and the id route from 9
@@ -94,8 +94,8 @@ def test_second_hop_forced_onto_each_route(kind, precision, route):
     (5, 40, 8, "ids"),
     (38, 65536, 12, "hop"),     # a hub's id route would outlast the launch
     (38, 65536, 9, "hop"),
-    (38, 65536, 8, "dense"),    # the hop launch would walk the hub serially
-    (38, 65536, 6, "dense"),
+    (38, 65536, 8, "hop"),      # the hop launch splits the hub's row
+    (38, 65536, 6, "hop"),
     (38, 1000, 12, "ids"),
     (38, 1000, 8, "hop"),
 ])

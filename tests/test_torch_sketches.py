@@ -324,6 +324,43 @@ def test_khop_sketches_match_reference(graphs, precision, hops):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _hub_pair():
+    """The same graph in both packages: erdos_renyi(300, 900) plus three
+    hubs of 250, 120 and 60 random neighbours, rows well past a split of 8."""
+    rng = np.random.default_rng(13)
+    g = erdos_renyi(300, 900, seed=1)
+    one = g.sources < g.col_idx
+    hubs = np.repeat([300, 301, 302], [250, 120, 60])
+    src = np.concatenate([g.sources[one], hubs])
+    dst = np.concatenate([g.col_idx[one], rng.integers(0, 303, len(hubs))])
+    kw = dict(n_nodes=303, directed=False)
+    return Graph.from_edge_arrays(src, dst, **kw), RefGraph.from_edge_arrays(src, dst, **kw)
+
+
+@pytest.mark.parametrize("precision", [4, 8, 12])
+@pytest.mark.parametrize("split", [8, 64])
+def test_split_hop_plain_matches_plain_and_reference(precision, split):
+    """The hop launch's split route (chunk maxima of `split` arcs, then each
+    long row merged with its chunks) equals the unsplit plain hops and the
+    JAX package's khop_sketches byte for byte: a max is exact in any order."""
+    g, rg = _hub_pair()
+    tg = g.device("cpu")
+    assert tg.row_plan(split).n_rows >= 2
+    base = hll.singleton_registers(g.number_of_nodes, precision, 6, seed=42, device="cpu")
+    got = hll.khop_sketches_split_plain(tg, base, 3, split)
+    want = ref_hll.khop_sketches(rg.device(), jnp.asarray(base.numpy()), 3)
+    np.testing.assert_array_equal(got.numpy(), np.transpose(np.asarray(want), (1, 0, 2)))
+    assert torch.equal(got, hll.khop_sketches_plain(tg, base, 3))
+
+
+def test_hop_slots_follow_the_lanes_a_row():
+    """A group of HOP_LANES lanes a row where its M / 16 pieces are fewer
+    and divide a warp (the slots, a power of two), else a lane a piece."""
+    assert [hll.hop_slots(1 << p) for p in range(4, 13)] == [
+        max(1, hll.HOP_LANES // (1 << p >> 4)) for p in range(4, 13)]
+    assert [hll.hop_slots(16 * u) for u in (1, 2, 3, 4, 5, 8)] == [8, 4, 1, 2, 1, 1]
+
+
 def _compare_features(sk, src, dst, precision, got, want):
     """Hold `got` to `want` at the stated tolerance (pairs with a near tie
     to their features under either branch); return how many had one."""

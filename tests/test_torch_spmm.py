@@ -7,6 +7,14 @@ row through the reference's COO overflow. The reference sums ELL slots and
 then the overflow, the port sums in CSR order, so the two agree to rounding:
 rtol 1e-5, atol 1e-6.
 
+K7's split route (rows longer than a split cut into chunks, each chunk's
+partial sum, then each long row's partials added in chunk order) is held
+through its plain version on a graph with planted hubs at a split of 8, so
+that many rows split: against the unsplit plain version and the reference,
+forward and gradient, at the same rtol 1e-5 / atol 1e-6 (the chunk
+partials are sums in another order). The row plan covers every arc of a
+long row once, in CSR order, and is empty on a graph without long rows.
+
 The feature-sliced product that `embiggen_tpu_torch/scripts/spmm_slices.py`
 measures against K7 is checked through its plain versions: the pack round
 trip, the column-block splits, and the product pass by pass against K7's
@@ -18,6 +26,8 @@ sums and the probe's XLA reference `x[idx].sum(0)`. The Pallas kernels
 themselves are closures inside `scripts/spmm_probe.py::main()` that use TPU
 DMA semaphores, so they can be neither imported nor run here.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +40,11 @@ from embiggen_tpu_torch.graph.laplacians import kernel_coo
 from embiggen_tpu_torch.ops.gather_probe import (
     P1_TILE, P2_BLOCK, table_gather_sums, tile_gather_sums,
 )
+from embiggen_tpu_torch.graph import Graph
+from embiggen_tpu_torch.ops.rowplan import chunk_of_arcs, row_plan
 from embiggen_tpu_torch.ops.spmm import (
-    _stable_counting_order, csr_kernel, csr_spmm_plain, spmm,
+    COMBINERS, SPLIT, _stable_counting_order, csr_kernel, csr_spmm_plain, csr_spmm_split_plain,
+    spmm,
 )
 from embiggen_tpu_torch.scripts.spmm_slices import (
     column_block_splits, pack_slices_plain, sliced_spmm_plain,
@@ -88,6 +101,92 @@ def test_kernel_layout(graph):
     keys = np.random.default_rng(3).integers(0, 1 << 31, 5000)
     np.testing.assert_array_equal(_stable_counting_order(keys),
                                   np.argsort(keys, kind="stable"))
+
+
+def _hub_graph():
+    """erdos_renyi(120, 900, weighted) plus hubs of 90, 40 and 17 random
+    neighbours (weighted arcs), so rows of up to 100 arcs."""
+    g = erdos_renyi(N - 3, 800, seed=4, weighted=True)
+    rng = np.random.default_rng(5)
+    one = g.sources < g.col_idx
+    hubs = np.repeat([N - 3, N - 2, N - 1], [90, 40, 17])
+    return Graph.from_edge_arrays(
+        np.concatenate([g.sources[one], hubs]),
+        np.concatenate([g.col_idx[one], rng.integers(0, N, len(hubs))]), n_nodes=N,
+        weights=np.concatenate([g.weights[one], rng.uniform(0.1, 2.0, len(hubs))]),
+        directed=False)
+
+
+@pytest.mark.parametrize("split", [1, 8, 50])
+def test_row_plan_covers_every_arc_of_a_long_row_once(split):
+    g = _hub_graph()
+    k = csr_kernel(*kernel_coo(g), N, device="cpu")
+    plan = row_plan(k.row_ptr, split)
+    row_ptr = k.row_ptr.long()
+    counts = (row_ptr[1:] - row_ptr[:-1]).numpy()
+    np.testing.assert_array_equal(plan.rows.numpy(), np.flatnonzero(counts > split))
+    # The chunks, in order, lay the long rows' arcs end to end in CSR order.
+    ends = np.minimum(plan.chunk_starts.numpy() + split, row_ptr[plan.chunk_rows.long() + 1])
+    arcs = np.concatenate([np.arange(a, b) for a, b in zip(plan.chunk_starts.numpy(), ends)]
+                          or [np.zeros(0, np.int64)])
+    want = np.concatenate([np.arange(row_ptr[r], row_ptr[r + 1]) for r in plan.rows.numpy()]
+                          or [np.zeros(0, np.int64)])
+    np.testing.assert_array_equal(arcs, want)
+    assert (ends - plan.chunk_starts.numpy() <= split).all()
+    per_row = np.diff(plan.chunk_ptr.numpy())
+    np.testing.assert_array_equal(per_row, -(-counts[plan.rows.numpy()] // split))
+    np.testing.assert_array_equal(plan.chunk_rows.numpy(),
+                                  np.repeat(plan.rows.numpy(), per_row))
+    # Every arc has one segment: its row, or its chunk past the rows.
+    seg = chunk_of_arcs(plan, k.row_ptr).numpy()
+    long_arc = np.isin(k.rows.numpy(), plan.rows.numpy())
+    np.testing.assert_array_equal(seg[~long_arc], k.rows.numpy()[~long_arc])
+    np.testing.assert_array_equal(np.sort(seg[long_arc]) - N, np.repeat(
+        np.arange(plan.n_chunks), ends - plan.chunk_starts.numpy()))
+
+
+def test_row_plan_is_empty_without_long_rows(graph):
+    k = csr_kernel(*kernel_coo(graph), N, device="cpu")
+    assert k.plan.split == SPLIT and k.transpose.plan.split == SPLIT
+    longest = int((k.row_ptr[1:] - k.row_ptr[:-1]).max())
+    for plan in (k.plan, row_plan(k.row_ptr, longest)):
+        assert plan.n_rows == plan.n_chunks == 0
+        assert plan.chunk_ptr.tolist() == [0]
+    np.testing.assert_array_equal(chunk_of_arcs(k.plan, k.row_ptr).numpy(), k.rows.numpy())
+
+
+@pytest.mark.parametrize("combiner", COMBINERS)
+@pytest.mark.parametrize("split", [8, 33])
+def test_split_route_matches_plain_and_reference(combiner, split):
+    """The split route's plain version, forward over the kernel and backward
+    over its transpose (col_scale 1/den, as the gradient runs), against the
+    unsplit plain version and the reference's `spmm_padded` and `jax.grad`
+    through it."""
+    g = _hub_graph()
+    rows, cols, vals = kernel_coo(g, "Symmetric Normalized Laplacian")
+    k = csr_kernel(rows, cols, vals, N, device="cpu")
+    k = dataclasses.replace(k, plan=row_plan(k.row_ptr, split), transpose=dataclasses.replace(
+        k.transpose, plan=row_plan(k.transpose.row_ptr, split)))
+    assert k.plan.n_rows >= 2 and k.transpose.plan.n_rows >= 2
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    g_out = rng.normal(size=(N, D)).astype(np.float32)
+    pk = pad_coo(rows, cols, vals, N, cap=4, with_transpose=True)
+    want = spmm_padded(pk, jnp.asarray(x), combiner)
+    want_dx = jax.grad(lambda v: jnp.sum(spmm_padded(pk, v, combiner) * g_out))(jnp.asarray(x))
+    inv = k.inverse_denominator(combiner)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g_out)
+    got = csr_spmm_split_plain(k, xt, inv)
+    got_dx = csr_spmm_split_plain(k.transpose, gt, None, inv)
+    torch.testing.assert_close(got, csr_spmm_plain(k, xt, inv), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_dx, csr_spmm_plain(k.transpose, gt, None, inv),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), rtol=1e-5, atol=1e-6)
+    # The CPU wrapper (the plain version) takes the same plan's kernel.
+    xg = torch.tensor(x, requires_grad=True)
+    (spmm(k, xg, combiner) * gt).sum().backward()
+    torch.testing.assert_close(xg.grad, got_dx, rtol=1e-5, atol=1e-6)
 
 
 def test_spmm_without_transpose_refuses_a_gradient(graph):
